@@ -1,0 +1,131 @@
+"""The virtual-rank world and its process groups.
+
+Counterpart of ``mlsl_tpu.comm.mesh``. The JAX package drives one device per
+rank through a single controller; this package keeps that single-controller
+contract literally but puts every rank on ONE device: a world of
+``world_size`` virtual ranks lives in one process, and a distributed buffer is
+one tensor of shape (R, D, S, M, n) whose (r, d, s, m) row is that rank's
+local buffer. Collectives are tensor work over the group's grid dims.
+
+Rank layout is the reference grid math (src/mlsl_impl.hpp:224-266) with a
+sequence axis, exactly as in the JAX package:
+    global rank p  =  ((replicaIdx * D + dataIdx) * S + seqIdx) * M + modelIdx
+so the model axis is minor, then sequence, then data, replicas outermost.
+
+Only axis-aligned groups exist here; color groups come later.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+from mlsl_tpu_torch.log import mlsl_assert
+
+REPLICA_AXIS = "replica"
+DATA_AXIS = "data"
+SEQ_AXIS = "seq"
+MODEL_AXIS = "model"
+GRID_AXES = (REPLICA_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
+NUM_GRID_AXES = len(GRID_AXES)
+
+
+class Topology:
+    """``world_size`` virtual ranks arranged as a (replica, data, seq, model) grid."""
+
+    def __init__(self, data_parts: int, model_parts: int, world_size: int,
+                 seq_parts: int = 1):
+        mlsl_assert(
+            data_parts > 0 and model_parts > 0 and seq_parts > 0,
+            "numbers for data/model/seq groups must be positive",
+        )
+        l_size = data_parts * model_parts * seq_parts
+        mlsl_assert(
+            world_size % l_size == 0,
+            "world size %d not divisible by dataParts*seqParts*modelParts %d",
+            world_size,
+            l_size,
+        )
+        self.data_parts = data_parts
+        self.model_parts = model_parts
+        self.seq_parts = seq_parts
+        self.replica_count = world_size // l_size
+        self.world_size = world_size
+
+    # -- rank <-> coordinate math (reference src/mlsl_impl.hpp:224-240) --
+
+    def coords(self, global_idx: int) -> Tuple[int, int, int, int]:
+        """global rank -> (replicaIdx, dataIdx, seqIdx, modelIdx)."""
+        l_size = self.data_parts * self.seq_parts * self.model_parts
+        l_id = global_idx % l_size
+        m = l_id % self.model_parts
+        s = (l_id // self.model_parts) % self.seq_parts
+        d = l_id // (self.model_parts * self.seq_parts)
+        return (global_idx // l_size, d, s, m)
+
+    def global_idx(self, replica: int, data: int, seq: int, model: int) -> int:
+        return (
+            (replica * self.data_parts + data) * self.seq_parts + seq
+        ) * self.model_parts + model
+
+    @property
+    def grid_shape(self) -> Tuple[int, int, int, int]:
+        return (self.replica_count, self.data_parts, self.seq_parts, self.model_parts)
+
+    def axis_size(self, axis: str) -> int:
+        return self.grid_shape[GRID_AXES.index(axis)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessGroup:
+    """An axis-aligned subgroup of the world: the ranks along ``axes``.
+
+    The member index is the flattened coordinate over ``axes`` in the given
+    (major -> minor) order, as in the JAX package."""
+
+    topology: Topology
+    axes: Tuple[str, ...]  # subset of GRID_AXES; () = self
+
+    def __post_init__(self):
+        for a in self.axes:
+            mlsl_assert(a in GRID_AXES, "unknown grid axis %r", a)
+        mlsl_assert(len(set(self.axes)) == len(self.axes),
+                    "repeated grid axis in %r", self.axes)
+
+    @property
+    def is_self(self) -> bool:
+        return len(self.axes) == 0
+
+    @property
+    def size(self) -> int:
+        size = 1
+        for a in self.axes:
+            size *= self.topology.axis_size(a)
+        return size
+
+    def group_idx_of(self, global_idx: int) -> int:
+        """Member index of world rank ``global_idx`` within its group."""
+        coord = dict(zip(GRID_AXES, self.topology.coords(global_idx)))
+        idx = 0
+        for a in self.axes:
+            idx = idx * self.topology.axis_size(a) + coord[a]
+        return idx
+
+    def member_table(self) -> Tuple[Tuple[int, ...], ...]:
+        """One row of world ranks per group instance, members in group-rank
+        order; rows ordered by the complementary axes (grid order). The same
+        table ``collectives._axis_groups_tbl`` gives in the JAX package."""
+        import itertools
+
+        topo = self.topology
+        shape = dict(zip(GRID_AXES, topo.grid_shape))
+        comp = [a for a in GRID_AXES if a not in self.axes]
+        rows = []
+        for comp_coords in itertools.product(*(range(shape[a]) for a in comp)):
+            fixed = dict(zip(comp, comp_coords))
+            row = []
+            for g_coords in itertools.product(*(range(shape[a]) for a in self.axes)):
+                c = {**fixed, **dict(zip(self.axes, g_coords))}
+                row.append(topo.global_idx(*(c[a] for a in GRID_AXES)))
+            rows.append(tuple(row))
+        return tuple(rows)

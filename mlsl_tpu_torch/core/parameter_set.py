@@ -1,0 +1,124 @@
+"""ParameterSet: gradient synchronization, plain or int8-quantized.
+
+Counterpart of ``mlsl_tpu.core.parameter_set`` (reference ParameterSetImpl,
+src/mlsl_impl.cpp:388-444): kernels are partitioned over the model group and
+gradients are AllReduce'd over the gradient group (data x seq), through the
+int8 error-feedback ring when compression is on (reference swaps the MPI op
+for MPI_QUANT_OP, src/comm_ep.cpp:946-950). The ZeRO-1 distributed update
+(ReduceScatter / owned-shard update / AllGather) and gradient bucketing come
+later.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
+from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType
+
+
+class ParameterSet:
+    def __init__(self, op, reg, index: int):
+        self.op = op
+        self.param_index = index
+        self.dist = op.distribution
+        mlsl_assert(not reg.distributed_update,
+                    "distributed update (ZeRO-1) is not ported yet")
+        self.distributed_update = False
+        self.compression = CompressionType(reg.compression)
+        self.data_type = DataType(reg.data_type)
+        self.kernel_size = reg.size
+        self.global_kernel_count = reg.count
+
+        model_size = self.dist.get_process_count_model()
+        grad_group = self.dist.grad_group
+        data_size = 1 if grad_group.is_self else grad_group.size
+        mlsl_assert(
+            self.global_kernel_count % model_size == 0,
+            "kernel count %d not divisible by model parts %d",
+            self.global_kernel_count,
+            model_size,
+        )
+        self.local_kernel_count = self.global_kernel_count // model_size
+        self.owned_kernel_count = self.local_kernel_count
+        self.need_comm = data_size > 1
+        self.grad_req: Optional[CommRequest] = None
+        self.inc_req: Optional[CommRequest] = None
+        if self.need_comm:
+            self.grad_req = CommRequest(
+                CommDesc(
+                    "allreduce",
+                    grad_group,
+                    self.owned_kernel_count * self.kernel_size,
+                    self.data_type,
+                    op=ReductionType.SUM,
+                    compression=self.compression,
+                ),
+                op.session.env.dispatcher,
+                name=f"{op.name}/grad{index}",
+            )
+            self.grad_req.setup()
+
+    # -- introspection (reference include/mlsl.hpp:284-341) ----------------
+
+    def get_global_kernel_count(self) -> int:
+        return self.global_kernel_count
+
+    def get_global_kernel_offset(self, model_idx: int = 0) -> int:
+        return self.local_kernel_count * model_idx
+
+    def get_local_kernel_count(self) -> int:
+        return self.local_kernel_count
+
+    def get_owned_kernel_count(self) -> int:
+        return self.owned_kernel_count
+
+    def get_owned_kernel_offset(self, data_idx: int = 0) -> int:
+        return 0
+
+    def get_kernel_size(self) -> int:
+        return self.kernel_size
+
+    def get_data_type(self) -> DataType:
+        return self.data_type
+
+    def is_distributed_update(self) -> bool:
+        return self.distributed_update
+
+    # -- gradient sync (reference src/mlsl_impl.cpp:446-539) ---------------
+
+    def start_gradient_comm(self, grad_buf) -> None:
+        """Start the gradient collective. grad_buf: distributed buffer of shape
+        (R, D, S, M, localKernelCount*kernelSize)."""
+        self.op.session._stat_event(self, "start", is_param=True)
+        if self.need_comm:
+            self.grad_req.start(grad_buf)
+
+    def wait_gradient_comm(self):
+        """-> the reduced gradient buffer, or None when no comm is needed."""
+        self.op.session._stat_event(self, "wait", is_param=True)
+        if self.need_comm and (self.grad_req.is_started
+                               or self.grad_req._result is not None):
+            return self.grad_req.wait()
+        return None
+
+    def test_gradient_comm(self):
+        """-> (is_completed, result_or_None)."""
+        self.op.session._stat_event(self, "test", is_param=True)
+        if not self.need_comm:
+            return True, None
+        return self.grad_req.test()
+
+    # PascalCase parity aliases
+    GetGlobalKernelCount = get_global_kernel_count
+    GetGlobalKernelOffset = get_global_kernel_offset
+    GetLocalKernelCount = get_local_kernel_count
+    GetOwnedKernelCount = get_owned_kernel_count
+    GetOwnedKernelOffset = get_owned_kernel_offset
+    GetKernelSize = get_kernel_size
+    GetDataType = get_data_type
+    IsDistributedUpdate = is_distributed_update
+    StartGradientComm = start_gradient_comm
+    WaitGradientComm = wait_gradient_comm
+    TestGradientComm = test_gradient_comm

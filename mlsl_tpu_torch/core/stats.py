@@ -1,0 +1,101 @@
+"""Per-session communication counters.
+
+The core of ``mlsl_tpu.core.stats``: the counters that ``Session._stat_event``
+feeds (session.py:440) -- starts, waits and bytes per request, keyed by
+operation and parameter set. The JAX package's ``mlsl_stats.log`` table and
+the isolation replay at commit come later.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+
+class _Slot:
+    __slots__ = ("starts", "waits", "tests", "bytes")
+
+    def __init__(self):
+        self.starts = 0
+        self.waits = 0
+        self.tests = 0
+        self.bytes = 0
+
+
+def _entity_key(entity, is_param: bool, is_increment: bool) -> Tuple:
+    if is_param:
+        return ("param", entity.param_index, bool(is_increment))
+    return ("act", entity.act_index, bool(entity.is_input))
+
+
+class Statistics:
+    def __init__(self, session):
+        self.session = session
+        self._started = False
+        self._slots: Dict[int, Dict[Tuple, _Slot]] = {}
+
+    def is_enabled(self) -> bool:
+        cfg = self.session.env.config
+        return bool(cfg is not None and cfg.enable_stats)
+
+    def is_started(self) -> bool:
+        return self._started
+
+    def initialize(self) -> None:
+        """Called at Commit: MLSL_STATS=1 starts accounting."""
+        if self.is_enabled():
+            self.start()
+
+    def start(self) -> None:
+        self._started = True
+
+    def stop(self) -> None:
+        self._started = False
+
+    def reset(self) -> None:
+        self._slots.clear()
+
+    def _slot(self, op_idx: int, key: Tuple) -> _Slot:
+        per_op = self._slots.setdefault(op_idx, {})
+        s = per_op.get(key)
+        if s is None:
+            s = per_op[key] = _Slot()
+        return s
+
+    def update(self, entity, action: str, is_param: bool, is_increment: bool) -> None:
+        slot = self._slot(entity.op.op_idx, _entity_key(entity, is_param, is_increment))
+        if action == "start":
+            slot.starts += 1
+            req = entity.inc_req if is_increment else entity.grad_req
+            if req is not None:
+                slot.bytes += req.desc.payload_bytes()
+        elif action == "wait":
+            slot.waits += 1
+        elif action == "test":
+            slot.tests += 1
+
+    def _total(self, field: str, op_idx: Optional[int] = None) -> int:
+        ops = [op_idx] if op_idx is not None else list(self._slots)
+        return sum(getattr(s, field)
+                   for o in ops for s in self._slots.get(o, {}).values())
+
+    def get_start_count(self, op_idx: Optional[int] = None) -> int:
+        return self._total("starts", op_idx)
+
+    def get_wait_count(self, op_idx: Optional[int] = None) -> int:
+        return self._total("waits", op_idx)
+
+    def get_comm_size(self, op_idx: int) -> int:
+        """Bytes started by ``op_idx``'s requests."""
+        return self._total("bytes", op_idx)
+
+    def get_total_comm_size(self) -> int:
+        return self._total("bytes")
+
+    # PascalCase parity aliases
+    IsEnabled = is_enabled
+    IsStarted = is_started
+    Start = start
+    Stop = stop
+    Reset = reset
+    GetCommSize = get_comm_size
+    GetTotalCommSize = get_total_comm_size

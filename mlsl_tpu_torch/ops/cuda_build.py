@@ -1,0 +1,107 @@
+"""Build the package's CUDA kernels with nvcc and bind them with ctypes.
+
+Every kernel source under ``mlsl_tpu_torch/csrc/`` exposes a plain C
+interface; it is compiled at first use into a shared library under
+``build/mlsl_tpu_torch/`` at the root of the checkout (git-ignored) and
+loaded with ``ctypes``. A library's file name carries a hash of its source
+and flags, so an edited source builds anew and an unchanged one is reused.
+``build_all`` starts one nvcc per source, all at once.
+
+Nothing here runs at import: this module is imported on machines without
+nvcc or a card, where only the kernels' plain versions are used.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+from mlsl_tpu_torch.log import MLSLError
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"quant_kernels": "quant_kernels.cu"}
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}   # name -> nvcc output (ptxas register/spill report)
+
+
+def build_dir() -> Path:
+    """``build/mlsl_tpu_torch`` beside the package, at the root of the checkout."""
+    return Path(__file__).resolve().parents[2] / "build" / "mlsl_tpu_torch"
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise MLSLError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+
+
+def lib_path(name: str) -> Path:
+    src = CSRC / SOURCES[name]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"lib{name}-{h}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every missing library, one nvcc per source, all started
+    together. -> {name: seconds its build took (0.0 when already built)}.
+    Raises MLSLError with the compiler's output when a build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    build_dir().mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    running = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
+        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         tmp, out)
+    took = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        build_logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+            os.unlink(tmp)
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise MLSLError("CUDA kernel build failed: " + "\n".join(failed))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library for ``name``, built first when missing."""
+    lib = _loaded.get(name)
+    if lib is None:
+        if not lib_path(name).exists():
+            build_all([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,39 @@
+"""Platform probing: what card the package runs on.
+
+Counterpart of ``mlsl_tpu.sysinfo`` (reference src/sysinfo.hpp:27-48). Where
+the JAX package asks ``on_tpu()``, this one asks ``torch.cuda``: the card's
+name, compute capability, memory and count.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class SysInfo:
+    platform: str              # 'gpu' | 'cpu'
+    device_kind: str           # torch.cuda.get_device_name, or 'cpu'
+    num_devices: int           # torch.cuda.device_count(), 0 without CUDA
+    capability: tuple          # (major, minor), () without CUDA
+    memory_per_device: int     # bytes, 0 without CUDA
+
+
+def on_gpu() -> bool:
+    """True when PyTorch sees a CUDA device."""
+    return torch.cuda.is_available()
+
+
+def probe(device: int = 0) -> SysInfo:
+    if not on_gpu():
+        return SysInfo("cpu", "cpu", 0, (), 0)
+    props = torch.cuda.get_device_properties(device)
+    return SysInfo(
+        "gpu",
+        torch.cuda.get_device_name(device),
+        torch.cuda.device_count(),
+        (props.major, props.minor),
+        int(props.total_memory),
+    )

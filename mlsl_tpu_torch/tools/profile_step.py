@@ -1,0 +1,168 @@
+"""Where one int8-compressed ResNet-50 data-parallel training step spends its time.
+
+Run from the root of a checkout, on a machine with a card:
+
+    python3 -m mlsl_tpu_torch.tools.profile_step [--steps 3] [--warmup 2]
+
+It builds chip_smoke.py's config 5 (ResNet-50 at 224x224, 1000 classes, global
+batch 64 on 8 virtual data ranks, int8 error-feedback gradient ring), warms up,
+times ``--steps`` steps with the host clock, then traces as many steps again
+with ``torch.profiler`` (the Chrome trace goes to ``--trace``) and prints one
+JSON object:
+
+- ``step_s``: host seconds per step, untraced, each ending in a synchronize;
+- per half of the step (the eight ranks' forward/backward passes, then the
+  18 gradient rings and the SGD update, with a synchronize between them):
+  traced wall seconds, device kernel seconds (the union of kernel intervals,
+  so overlapping streams are not counted twice), and the device idle share
+  ``1 - kernel / wall``;
+- device kernel seconds by class (codec kernels, convolution, matrix
+  products, the rest) and the ``--top`` kernel names by device time.
+
+Traced wall times include the profiler's own host cost; ``step_s`` does not.
+It fails, printing no result, when there is no card or the trace holds no
+device kernel.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mlsl_tpu_torch import CompressionType, get_env
+from mlsl_tpu_torch.models import resnet
+from mlsl_tpu_torch.models.train import DataParallelTrainer
+from mlsl_tpu_torch.ops.cuda_build import build_dir
+from mlsl_tpu_torch.ops import quant_kernels as qk
+
+HALVES = ("local_grads", "sync_and_update")
+CLASSES = (
+    ("codec", re.compile(r"quantize_rows")),
+    ("convolution", re.compile(r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop", re.I)),
+    ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
+)
+
+
+def build_trainer(world=8, image=224, classes=1000, batch=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    env = get_env().init(world_size=world)
+    model = resnet.ResNet50(num_classes=classes, generator=gen, device=env.device)
+    dist = env.create_distribution(world, 1)
+    sess = env.create_session()
+    sess.set_global_minibatch_size(batch)
+    trainer = DataParallelTrainer(
+        env, dist, sess, model, resnet.loss_fn, resnet.layer_names(model),
+        resnet.layer_subtree, compression=CompressionType.QUANTIZATION, lr=0.05,
+    )
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
+    y = rng.integers(0, classes, size=(batch,)).astype(np.int32)
+    return env, trainer, trainer.shard_batch(x, y)
+
+
+def traced_step(trainer, batch) -> None:
+    """``trainer.step`` as its two halves, each a named range ending in a
+    synchronize, so the device work of each half lies inside its range."""
+    trainer._step_no += 1
+    with torch.profiler.record_function(HALVES[0]):
+        loss, grads = trainer._local_grads(batch)
+        torch.cuda.synchronize()
+    with torch.profiler.record_function(HALVES[1]):
+        trainer._sync_and_update(grads, loss)
+        torch.cuda.synchronize()
+
+
+def _union(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def summarize(trace: dict, top: int, steps: int) -> dict:
+    """Chrome trace of ``steps`` traced steps -> the per-step summary."""
+    events = trace["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        raise SystemExit("profile_step: the trace holds no device kernel")
+    windows = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "user_annotation" and e.get("name") in HALVES]
+    halves = {h: {"wall_s": 0.0, "kernel_s": 0.0} for h in HALVES}
+    for name, a, b in windows:
+        inside = [(max(s, a), min(t, b)) for s, t, _ in kernels if s < b and t > a]
+        halves[name]["wall_s"] += (b - a) * 1e-6 / steps
+        halves[name]["kernel_s"] += _union(inside) * 1e-6 / steps
+    for h in halves.values():
+        h["idle_share"] = 1.0 - h["kernel_s"] / h["wall_s"] if h["wall_s"] else None
+    by_name, by_class = {}, {c: 0.0 for c, _ in CLASSES}
+    by_class["other"] = 0.0
+    for s, t, name in kernels:
+        sec = (t - s) * 1e-6 / steps
+        by_name[name] = by_name.get(name, 0.0) + sec
+        by_class[next((c for c, rx in CLASSES if rx.search(name)), "other")] += sec
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "halves": halves,
+        "kernel_s_by_class": by_class,
+        "kernels_per_step": len(kernels) / steps,
+        "top_kernels": [{"name": n[:120], "s": v} for n, v in ranked],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--trace", default=str(build_dir() / "profile_step.trace.json"),
+                    help="where the Chrome trace is written (default: the git-ignored "
+                         "build directory of the checkout)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_step: torch.cuda.is_available() is false: this needs a card",
+              file=sys.stderr)
+        return 1
+    env, trainer, batch = build_trainer()
+    try:
+        for _ in range(args.warmup):
+            trainer.step(batch)
+        torch.cuda.synchronize()
+        step_s = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            trainer.step(batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        qk.reset_counts()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(args.steps):
+                traced_step(trainer, batch)
+        launches = dict(qk.LAUNCHES)
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        with open(args.trace) as f:
+            trace = json.load(f)
+    finally:
+        env.finalize()
+    out = {"device": torch.cuda.get_device_name(0), "steps": args.steps,
+           "step_s": step_s, "traced_launches": launches,
+           **summarize(trace, args.top, args.steps)}
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

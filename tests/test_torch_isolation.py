@@ -1,0 +1,90 @@
+"""The port stands alone: it imports neither ``jax`` nor ``mlsl_tpu``, and it
+never falls back to the CPU on its own."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from mlsl_tpu_torch.core.environment import Environment
+from mlsl_tpu_torch.log import MLSLError
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted((ROOT / "mlsl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    assert path.exists()
+    bad = _imported_roots(path) & {"jax", "jaxlib", "mlsl_tpu", "flax", "optax"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, mlsl_tpu_torch, mlsl_tpu_torch.models.train, "
+            "mlsl_tpu_torch.models.resnet, mlsl_tpu_torch.ops.cuda_build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_init_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default init succeeds here")
+    env = Environment.get_env()
+    with pytest.raises(MLSLError, match="CUDA is not available"):
+        env.init()
+    with pytest.raises(MLSLError):
+        env.init(device="cuda:0")
+    assert not Environment.is_initialized()
+    env.init(device="cpu", world_size=8)
+    try:
+        assert env.device == torch.device("cpu") and env.get_process_count() == 8
+    finally:
+        env.finalize()
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """chip_smoke.py prints no result and exits non-zero where CUDA is
+    missing, and likewise alone in a directory without the package."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_sysinfo_names_the_platform_it_found():
+    from mlsl_tpu_torch import sysinfo
+
+    info = sysinfo.probe()
+    if torch.cuda.is_available():
+        assert info.platform == "gpu" and info.num_devices == torch.cuda.device_count()
+        assert info.device_kind == torch.cuda.get_device_name(0)
+    else:
+        assert not sysinfo.on_gpu()
+        assert info == sysinfo.SysInfo("cpu", "cpu", 0, (), 0)
