@@ -9,7 +9,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              one process per source, all started together.
 2. parity    each kernel's wrapper against its plain PyTorch version on the
              card, at the shapes the training path gives it and at edge
-             shapes: int8 values, scales and dequantized values bit-exact.
+             shapes: int8 values, scales and dequantized values bit-exact;
+             the ring (B3, B4) and halving/doubling (B5) kernels bit-exact on
+             small groups of 2 to 8 members, every dtype, both directions,
+             the snake order, ragged counts and -0.0.
 3. config 1  a flat Distribution(8, 1) fp32 SUM AllReduce against the
              closed-form mlsl_test oracle.
 4. config 2  AllReduce, AllGather, Bcast and ReduceScatter over both groups
@@ -25,18 +28,40 @@ Phases, in order; any failure exits non-zero and prints no result:
              last step's reduced gradients bit-exact against the plain ring
              and close to the exact rank sums, and the quantize kernel
              launched 9 times per layer and step.
+8. algos     the collective algorithm engine, each algorithm forced through
+             MLSL_ALGO and driven through Distribution.all_reduce /
+             reduce_scatter on 8 virtual ranks at 256 MiB of float32 per rank:
+             lax, rhd, pallas_ring (kernel B3) and pallas_rhd (kernel B5);
+             pallas_ring in bfloat16 and int32 and with the bidirectional
+             split at 64 MiB per rank; on the (4, 2) grid pallas_ring on both
+             axis groups and ring2d and pallas_ring2d (B3 over the snake
+             cycle) on the global group. Each kernel result is bit-exact
+             against its plain version on the same inputs, int32 results
+             equal the closed form, float32 results lie within 1e-6 relative
+             L2 error of a float64 sum, and req.algo names the forced
+             algorithm. One line per algorithm gives its time and algbw.
+9. small     with MLSL_PALLAS_RHD=1 and nothing forced, 4 KiB and 40,000 B
+             allreduces select pallas_rhd and 40,004 B does not; a 6-rank
+             group (the pre/post fold) bit-exact against the plain version.
+10. config 4 again with MLSL_ALGO=pallas_ring: the int8 allreduce on the
+             fused ring (kernel B4), outputs and residuals bit-exact against
+             the plain B4 + B1 run, err_len that of quant_geometry.
+11. config 5 again with MLSL_ALGO=pallas_ring: three ResNet-50 steps on the
+             fused ring, B4 and B1 launched once per layer request and step,
+             the last step's gradients bit-exact against the plain fused ring.
 
-Launch counts are set to 0 just before configs 4 and 5 are driven and read
-just after; launches made to compare a kernel with its plain version do not
-count. Then it times each kernel at the path's shapes with CUDA events
-against its memory-traffic bound and prints, on lines of their own, the
-card's name and power limit, one JSON object with the kernels, and last
+Launch counts are set to 0 just before each path is driven and read just
+after; launches made to compare a kernel with its plain version, or to time
+it, do not count. Then it times each kernel at the path's shapes with CUDA
+events against its memory-traffic bound and prints, on lines of their own,
+the card's name and power limit, one JSON object with the kernels, and last
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -203,9 +228,90 @@ def phase_config3(torch, env, np, n=1 << 22, k=4):
         check(bool((out == want).all()), f"config 3: request {i} result is wrong")
 
 
-def phase_config4(torch, env, np, qk, n=(64 << 20) // 4, rounds=2):
-    """-> (results and residuals per round with the kernels, the round trip's
-    dequantized sum) for the comparison that follows."""
+
+
+def counts_are(counts: dict, **want) -> bool:
+    return all(counts.get(k, 0) == v for k, v in want.items())
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bit-for-bit equality (so -0.0 differs from +0.0), for float32, bfloat16
+    and int32 tensors."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    return bool(torch.equal(a.view(view), b.view(view)) if view else torch.equal(a, b))
+
+
+def phase_ring_parity(torch, rk, rhd, dev):
+    """B3, B4 and B5 against their plain versions at small edge shapes: groups
+    of 2, 3, 4 and 8 members (one instance and several), the snake order,
+    every dtype, both directions, ragged counts, all-zero int8 rows and -0.0.
+    -> number of comparisons."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = 0
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).mul_(30).to(dtype)
+
+    one_axis = [(8, 1, ("data",)), (4, 2, ("data",)), (4, 2, ("model",)), (2, 1, ("data",)),
+                (3, 1, ("data",))]
+    snake = [(4, 2, ("data", "model")), (2, 4, ("data", "model"))]
+    for (d, m, axes), is_snake in [(g, False) for g in one_axis] + [(g, True) for g in snake]:
+        group = ProcessGroup(Topology(d, m, d * m), axes)
+        w, g = d * m, group.size
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for kind, count in (("allreduce", 3000 * g + 7), ("reduce_scatter", 3000 * g)):
+                for bidir in (False, True):
+                    plan = rk.dense_plan(kind, group, count, snake=is_snake, bidir=bidir)
+                    x = (torch.randint(-2 ** 30, 2 ** 30, (w, count), generator=gen, device=dev,
+                                       dtype=torch.int32) if dtype == torch.int32
+                         else randn((w, count), dtype))
+                    got = rk.dense_ring(x, plan)
+                    torch.cuda.synchronize()
+                    check(same_bits(torch, got, rk.dense_ring_ref(x, plan)),
+                          f"parity: dense ring {kind} {dtype} on {d}x{m} {axes} "
+                          f"bidir={bidir} differs from its plain version")
+                    cases += 1
+    for d, m, axes in one_axis:
+        group = ProcessGroup(Topology(d, m, d * m), axes)
+        w, g = d * m, group.size
+        for block in (128, 256, 512):
+            for kind, count in (("allreduce", (block * 32 + 100) * g + 3),
+                                ("reduce_scatter", (block * 32 + 100) * g)):
+                for bidir in (False, True):
+                    plan = rk.quant_plan(kind, group, count, block, bidir=bidir)
+                    x = randn((w, g * plan.chunk))
+                    x.view(w, -1, block)[:, ::5] = 0.0          # all-zero blocks: scale 1
+                    got = rk.quant_ring(x, plan)
+                    torch.cuda.synchronize()
+                    check(same_bits(torch, got, rk.quant_ring_ref(x, plan)),
+                          f"parity: int8 ring {kind} block {block} on {d}x{m} {axes} "
+                          f"bidir={bidir} differs from its plain version")
+                    cases += 1
+    for d, m, axes in [(g, 1, ("data",)) for g in (2, 3, 4, 5, 6, 7, 8)] + [
+            (4, 2, ("replica", "data", "seq", "model")), (4, 2, ("data",))]:
+        group = ProcessGroup(Topology(d, m, d * m), axes)
+        plan = rhd.RhdPlan(group)
+        for dtype in (torch.float32, torch.int32):
+            x = randn((d * m, 5001)).to(dtype)
+            if dtype == torch.float32:
+                x[:, ::7] = -0.0
+            got = rhd.rhd_allreduce(x, plan)
+            torch.cuda.synchronize()
+            check(same_bits(torch, got, rhd.rhd_allreduce_ref(x, plan)),
+                  f"parity: rhd allreduce {dtype} on {d}x{m} {axes} differs from its plain "
+                  f"version")
+            cases += 1
+    return cases
+
+
+def phase_config4(torch, env, np, qk, n=(64 << 20) // 4, rounds=2, roundtrip=True):
+    """-> (inputs, results and residuals per round with the kernels, the
+    request, the round trip's dequantized sum or None) for the comparison
+    that follows."""
     from mlsl_tpu_torch import CompressionType, DataType, GroupType, ReductionType
 
     dist = env.create_distribution(WORLD, 1)
@@ -219,22 +325,34 @@ def phase_config4(torch, env, np, qk, n=(64 << 20) // 4, rounds=2):
     for x in xs[1:]:
         outs.append(req.start(x).wait())     # restart: the residual carries over
         errs.append(req._errs[0].clone())
+    if not roundtrip:
+        return xs, outs, errs, req, None
     # config 4's wire as the public codec: every rank compresses, the int8
     # payload and scales reduce, every rank decompresses
     q, s, orig = qk.quantize(xs[0].reshape(-1), block=BLOCK)
     deq = qk.dequantize(q, s, block=BLOCK, orig_len=orig).reshape(xs[0].shape)
-    roundtrip = deq.sum(dim=1, keepdim=True)
-    return xs, outs, errs, roundtrip
+    return xs, outs, errs, req, deq.sum(dim=1, keepdim=True)
 
 
-def check_config4(torch, env, qk, xs, outs, errs, roundtrip):
+def _wire(req) -> str:
+    return "pallas" if req.algo == "pallas_ring" else "lax"
+
+
+def check_config4(torch, env, qk, xs, outs, errs, req, roundtrip):
+    """The request's rounds against the plain version of its wire (plain B1,
+    and plain B4 on the fused ring) on the same inputs, bit for bit."""
     from mlsl_tpu_torch.comm import quant_ring
+    from mlsl_tpu_torch.ops import ring_kernels as rk
 
-    dist = env.create_distribution(WORLD, 1)
+    group = req.desc.group
     n = xs[0].shape[-1]
-    fn, el = quant_ring.build_quantized_collective(
-        "allreduce", dist.data_group, n, BLOCK, quantize=qk.quantize_blocks_ref)
-    err = torch.zeros((*dist.world_shape, el), device=env.device)
+    fn, el = quant_ring.build_quantized_collective("allreduce", group, n, BLOCK,
+                                                   ring=_wire(req), plain=True)
+    check(req._err_lens == [el], f"config 4: err_len {req._err_lens} != {el}")
+    if _wire(req) == "pallas":
+        check(el == rk.quant_geometry("allreduce", group, n, BLOCK)[3],
+              "config 4: the fused ring's err_len is not quant_geometry's")
+    err = torch.zeros((*group.topology.grid_shape, el), device=env.device)
     for r, x in enumerate(xs):
         out, err = fn(x, err)
         torch.cuda.synchronize()
@@ -246,6 +364,8 @@ def check_config4(torch, env, qk, xs, outs, errs, roundtrip):
         exact = x.sum(dim=1, keepdim=True)
         rel = float((out[:, :1] - exact).norm() / exact.norm())
         check(rel < 0.02, f"config 4 round {r}: relative error {rel} >= 2%")
+    if roundtrip is None:
+        return
     flat = xs[0].reshape(-1)
     pad = qk.block_align(flat.numel(), BLOCK) - flat.numel()
     q, s = qk.quantize_blocks_ref(torch.nn.functional.pad(flat, (0, pad)).reshape(-1, BLOCK))
@@ -276,10 +396,10 @@ def build_resnet_trainer(torch, env, np, image=224, classes=1000, batch=64):
 
 def phase_config5(torch, trainer, batch, steps=3):
     """-> (losses per step, step seconds, the last step's seconds in its two
-    halves, last step's local grads, each
-    layer's error-feedback residuals as the last step found them). The last
-    step runs as its two halves (``step`` is exactly these two calls) so its
-    inputs stay at hand for the check that follows."""
+    halves, last step's local grads, each layer's error-feedback residuals as
+    the last step found them). The last step runs as its two halves
+    (``step`` is exactly these two calls) so its inputs stay at hand for the
+    check that follows."""
     losses, secs = [], []
     grads = errs = None
     for i in range(steps):
@@ -307,11 +427,12 @@ def _grad_req(trainer, name):
     return trainer.ops[name].get_parameter_set(0).grad_req
 
 
-def check_config5(torch, trainer, losses, grads, errs, qk):
+def check_config5(torch, trainer, losses, grads, errs):
     """The last step's reduced gradients, layer by layer: bit-exact against
-    the plain ring (plain quantize) on the same gradients and residuals, and
-    close to the exact sum of what entered the round (gradient plus carried
-    residual). -> the worst layer's relative error.
+    the plain version of the request's wire (plain B1, and plain B4 on the
+    fused ring) on the same gradients and residuals, and close to the exact
+    sum of what entered the round (gradient plus carried residual). -> the
+    worst layer's relative error.
 
     Bound: the ring rounds each element up to G + 1 = 9 times (entry, seven
     hops, all-gather), each time by at most half a step of amax/127. A block
@@ -319,6 +440,7 @@ def check_config5(torch, trainer, losses, grads, errs, qk):
     softmax puts most of a 256-wide block ~1000x below its labelled entry --
     loses about sqrt(9 * 256 / 12) / 127 = 0.11 of its norm; 0.25 leaves room."""
     from mlsl_tpu_torch.comm import quant_ring
+    from mlsl_tpu_torch.ops import ring_kernels as rk
 
     for i, loss in enumerate(losses):
         check(loss.shape == (WORLD,) and bool(torch.isfinite(loss).all()),
@@ -334,10 +456,13 @@ def check_config5(torch, trainer, losses, grads, errs, qk):
         for sl, err in zip(req._chunk_slices, errs[name]):
             part = grads[name][..., sl]
             n = part.shape[-1]
-            fn, _ = quant_ring.build_quantized_collective(
-                req.desc.kind, req.desc.group, n, block, quantize=qk.quantize_blocks_ref)
+            d = req.desc
+            fn, _ = quant_ring.build_quantized_collective(d.kind, d.group, n, block,
+                                                          ring=_wire(req), plain=True)
             plain.append(fn(part, err)[0])
-            g, rc, chunk, _ = quant_ring.ring_geometry(req.desc.kind, req.desc.group, n, block)
+            geometry = (rk.quant_geometry if _wire(req) == "pallas"
+                        else quant_ring.ring_geometry)
+            g, rc, chunk, _ = geometry(d.kind, d.group, n, block)
             entered.append(part + quant_ring.logical_residual(err, g, chunk, rc, n))
         torch.cuda.synchronize()
         bad = int((torch.cat(plain, dim=-1) != reduced).sum())
@@ -350,6 +475,211 @@ def check_config5(torch, trainer, losses, grads, errs, qk):
     for p in trainer._all_params():
         check(bool(torch.isfinite(p).all()), "config 5: a parameter is not finite")
     return worst
+
+
+# -- the algorithm engine ---------------------------------------------------
+
+ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR")
+
+
+def reinit(get_env, **env_vars):
+    """Finalize the Environment and initialise it again on the card with
+    ``env_vars`` exported and the other engine variables unset, as a user
+    picks an algorithm."""
+    device = get_env().device
+    get_env().finalize()
+    for k in ALGO_VARS:
+        os.environ.pop(k, None)
+    os.environ.update(env_vars)
+    return get_env().init(device=device, world_size=WORLD)
+
+
+def plain_result(torch, algos, req, x):
+    """The request's algorithm as its plain version on the same input, chunk
+    by chunk as the request ran it."""
+    d = req.desc
+    kw = {"op": d.op}
+    if d.recv_count is not None:
+        kw["recv_count"] = d.recv_count
+    if req.algo in ("pallas_ring", "pallas_ring2d"):
+        kw["bidir"] = req.dispatcher.config.pallas_ring_bidir
+    fn = algos.build(d.kind, d.group, req.algo, plain=True, **kw)
+    return torch.cat([fn(x[..., sl]) for sl in req._chunk_slices], dim=-1)
+
+
+def check_sums(torch, out, x, group, tag, tol):
+    """Every member holds the same sum (allreduce) or its slice of it
+    (reduce_scatter), within relative L2 error ``tol`` of the float64 sum.
+    -> the relative error."""
+    from mlsl_tpu_torch.comm.collectives import group_view
+
+    exact = group_view(x, group).double().sum(dim=1, keepdim=True)
+    got = group_view(out, group)
+    c, g, n = got.shape
+    if n == exact.shape[-1]:
+        check(bool((got == got[:, :1]).all()), f"algos {tag}: members disagree")
+        got = got[:, :1]
+    else:
+        exact = exact.reshape(c, g, n)
+    rel = float((got.double() - exact).norm() / exact.norm())
+    check(rel < tol, f"algos {tag}: relative error {rel:.3g} >= {tol}")
+    return rel
+
+
+class PathRun:
+    """Runs one collective through Distribution, checks what it selected
+    and, for a kernel algorithm, that it is bit-exact against its plain
+    version; times it; keeps the kernels' launch counts of the driven calls
+    (not of the timing or the comparison)."""
+
+    def __init__(self, torch, algos, launches, reset_launches):
+        self.torch, self.algos = torch, algos
+        self.launches, self.reset_launches = launches, reset_launches
+        self.used = {}
+        self.lines = []
+
+    def __call__(self, env, dist, gt, kind, x, count, dtype, want, tag, time_it=True):
+        from mlsl_tpu_torch import ReductionType
+
+        torch = self.torch
+        group = dist._group(gt)
+        if kind == "allreduce":
+            def start():
+                return dist.all_reduce(x, count, dtype, ReductionType.SUM, gt)
+        else:
+            def start():
+                return dist.reduce_scatter(x, count // group.size, dtype, ReductionType.SUM,
+                                           gt)
+        self.reset_launches()
+        req = start()
+        out = env.wait(req)
+        torch.cuda.synchronize()
+        n_launch = {k: v for k, v in self.launches().items() if v}
+        check(req.algo == want, f"algos {tag}: request selected {req.algo!r}, not {want!r}")
+        if want.startswith("pallas"):
+            check(n_launch, f"algos {tag}: no kernel launched")
+            check(same_bits(torch, out, plain_result(torch, self.algos, req, x)),
+                  f"algos {tag}: the kernel's result differs from its plain version")
+        for k, v in n_launch.items():
+            self.used[k] = self.used.get(k, 0) + v
+        if time_it:
+            ms = time_ms(torch, lambda: env.wait(start()), reps=5, warmup=1)
+            nbytes = count * x.element_size()
+            self.lines.append(
+                f"# algos {tag}: {req.algo} {kind}, {nbytes} B per rank, {x.dtype}: "
+                f"{ms:.4f} ms, algbw {nbytes / ms / 1e6:.2f} GB/s, launches {n_launch}")
+        return out
+
+
+def phase_algos_dense(torch, get_env, drive, n=(256 << 20) // 4, n_small=(64 << 20) // 4):
+    """The engine's dense algorithms at the BASELINE size, other dtypes and the
+    bidirectional split at 64 MiB per rank, and the (4, 2) grid's groups."""
+    from mlsl_tpu_torch import DataType, GroupType
+
+    dev = get_env().device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    f32 = DataType.FLOAT
+    rels = {}
+
+    x = torch.randn((1, WORLD, 1, 1, n), generator=gen, device=dev)
+    for algo in ("lax", "rhd", "pallas_ring", "pallas_rhd"):
+        env = reinit(get_env, MLSL_ALGO=algo)
+        dist = env.create_distribution(WORLD, 1)
+        out = drive(env, dist, GroupType.DATA, "allreduce", x, n, f32, algo,
+                    f"{algo} allreduce")
+        rels[f"{algo} allreduce"] = check_sums(torch, out, x, dist.data_group, algo, 1e-6)
+        if algo != "pallas_rhd":
+            out = drive(env, dist, GroupType.DATA, "reduce_scatter", x, n, f32, algo,
+                        f"{algo} reduce_scatter")
+            rels[f"{algo} reduce_scatter"] = check_sums(torch, out, x, dist.data_group,
+                                                        algo, 1e-6)
+        del out
+    del x
+
+    env = reinit(get_env, MLSL_ALGO="pallas_ring")
+    dist = env.create_distribution(WORLD, 1)
+    n_b = n_small * 2
+    xb = torch.randn((1, WORLD, 1, 1, n_b), generator=gen, device=dev).to(torch.bfloat16)
+    out = drive(env, dist, GroupType.DATA, "allreduce", xb, n_b, DataType.BFLOAT16,
+                "pallas_ring", "pallas_ring bfloat16")
+    rels["pallas_ring bfloat16"] = check_sums(torch, out.float(), xb.float(),
+                                              dist.data_group, "bfloat16", 1e-2)
+    del xb, out
+    p = torch.arange(WORLD, device=dev).view(1, WORLD, 1, 1, 1)
+    i = torch.arange(n_small, device=dev) % 1009
+    xi = ((p + 1) * i - 500 * p).to(torch.int32)
+    out = drive(env, dist, GroupType.DATA, "allreduce", xi, n_small, DataType.INT32,
+                "pallas_ring", "pallas_ring int32")
+    want = (36 * i - 500 * 28).to(torch.int32)
+    check(bool((out == want).all()), "algos pallas_ring int32: differs from the closed form")
+    del xi, out
+
+    env = reinit(get_env, MLSL_ALGO="pallas_ring", MLSL_PALLAS_RING_BIDIR="1")
+    dist = env.create_distribution(WORLD, 1)
+    x = torch.randn((1, WORLD, 1, 1, n_small), generator=gen, device=dev)
+    out = drive(env, dist, GroupType.DATA, "allreduce", x, n_small, f32, "pallas_ring",
+                "pallas_ring bidirectional")
+    rels["pallas_ring bidirectional"] = check_sums(torch, out, x, dist.data_group, "bidir",
+                                                   1e-6)
+    del x, out
+
+    for algo, cases in (("pallas_ring", ((GroupType.DATA, "allreduce"),
+                                         (GroupType.MODEL, "allreduce"),
+                                         (GroupType.DATA, "reduce_scatter"))),
+                        ("ring2d", ((GroupType.GLOBAL, "allreduce"),
+                                    (GroupType.GLOBAL, "reduce_scatter"))),
+                        ("pallas_ring2d", ((GroupType.GLOBAL, "allreduce"),
+                                           (GroupType.GLOBAL, "reduce_scatter")))):
+        env = reinit(get_env, MLSL_ALGO=algo)
+        dist = env.create_distribution(4, 2)
+        x = torch.randn((*dist.world_shape, n_small), generator=gen, device=dev)
+        for gt, kind in cases:
+            tag = f"{algo} {kind} (4, 2) {GroupType(gt).name.lower()}"
+            out = drive(env, dist, gt, kind, x, n_small, f32, algo, tag)
+            rels[tag] = check_sums(torch, out, x, dist._group(gt), tag, 1e-6)
+            del out
+        del x
+    return rels
+
+
+def phase_algos_small(torch, get_env, drive):
+    """The heuristic rung: with MLSL_PALLAS_RHD=1 and nothing forced, an
+    allreduce up to 4 x msg_priority_threshold = 40,000 B selects pallas_rhd;
+    then a 6-rank group, whose pre/post fold only a group that is not a
+    power of two takes."""
+    from mlsl_tpu_torch import DataType, GroupType, ReductionType
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
+
+    dev = get_env().device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    env = reinit(get_env, MLSL_PALLAS_RHD="1")
+    dist = env.create_distribution(WORLD, 1)
+    for nbytes, want in ((4096, "pallas_rhd"), (40_000, "pallas_rhd"), (40_004, "lax")):
+        count = nbytes // 4
+        x = torch.randn((1, WORLD, 1, 1, count), generator=gen, device=dev)
+        x[..., ::7] = -0.0
+        out = drive(env, dist, GroupType.DATA, "allreduce", x, count, DataType.FLOAT, want,
+                    f"{nbytes} B heuristic")
+        check_sums(torch, out, x, dist.data_group, f"{nbytes} B", 1e-6)
+    g6 = ProcessGroup(Topology(6, 1, 6), ("data",))
+    req = CommRequest(CommDesc("allreduce", g6, 1024, DataType.FLOAT, op=ReductionType.SUM),
+                      env.dispatcher)
+    req.setup()
+    check(req.algo == "pallas_rhd", f"6 ranks: selected {req.algo!r}")
+    x = torch.randn((1, 6, 1, 1, 1024), generator=gen, device=dev)
+    x[..., ::7] = -0.0
+    drive.reset_launches()
+    out = req.start(x).wait()
+    torch.cuda.synchronize()
+    check(drive.launches()["rhd_allreduce"] == 1, "6 ranks: B5 did not launch")
+    drive.used["rhd_allreduce"] = (drive.used.get("rhd_allreduce", 0)
+                                   + drive.launches()["rhd_allreduce"])
+    check(same_bits(torch, out, plain_result(torch, drive.algos, req, x)),
+          "6 ranks: the kernel's result differs from its plain version")
+    check(not bool(torch.signbit(out[..., ::7]).any()),
+          "6 ranks: the masked pre-fold must turn -0.0 into +0.0")
+    check_sums(torch, out, x, g6, "6 ranks", 1e-6)
 
 
 # -- timing ---------------------------------------------------------------
@@ -368,7 +698,21 @@ def time_ms(torch, fn, reps=50, warmup=5):
     return start.elapsed_time(end) / reps
 
 
-def kernel_entry(torch, qk, kind, rows, block, bw, f32, launches, per_path, dev):
+def entry(*, name, source, replaces, launches, per_path, shape, err, ms, plain_ms,
+          library_ms, nbytes, ops, bw, f32, **extra):
+    """One kernel's record for the kernels line; the bound is the larger of
+    the bytes over the memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32 * 1e3
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches, "launches_by_path": per_path, "shape": shape,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, **extra,
+    }
+
+
+def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev):
     gen = torch.Generator().manual_seed(SEED + 9)
     x = _rows(torch, rows, block, dev, gen)
     elems = rows * block
@@ -389,17 +733,106 @@ def kernel_entry(torch, qk, kind, rows, block, bw, f32, launches, per_path, dev)
         name, replaces = "dequantize_blocks", "mlsl_tpu/ops/quant_kernels.py:140"
     ms = time_ms(torch, fn)
     qk.LAUNCHES.update(before)      # timing launches are not the path's
-    plain_ms = time_ms(torch, plain)
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32 * 1e3
-    return {
-        "name": name, "route": "cuda", "source": "mlsl_tpu_torch/csrc/quant_kernels.cu",
-        "replaces": replaces, "launches": launches, "launches_by_path": per_path,
-        "shape": [rows, block], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes blockwise int8 quantization",
-    }
+    return entry(name=name, source="mlsl_tpu_torch/csrc/quant_kernels.cu", replaces=replaces,
+                 launches=sum(per_path.values()), per_path=per_path, shape=[rows, block],
+                 err=err, ms=ms, plain_ms=time_ms(torch, plain), library_ms=None,
+                 nbytes=nbytes, ops=ops, bw=bw, f32=f32,
+                 library_note="no single PyTorch call computes blockwise int8 quantization")
+
+
+def _sum_broadcast_ms(torch, x, w):
+    """The yardstick for B3 and B5: one reduction over the members plus the
+    broadcast write the kernels also do. The port never calls it."""
+    y = x.unsqueeze(0)          # (1, w, n); strided rows stay strided
+    return time_ms(torch, lambda: y.sum(dim=1, keepdim=True).expand_as(y).contiguous(),
+                   reps=20)
+
+
+def _rows_of(torch, gen, dev, n, ld):
+    """(WORLD, n) float32 rows; with ``ld`` the first n columns of a
+    (WORLD, ld) buffer, as one chunk of a chunked request reads them."""
+    x = torch.randn((WORLD, ld or n), generator=gen, device=dev)
+    return x[:, :n] if ld else x
+
+
+def _path_note(n, ld):
+    return ({} if not ld else
+            {"row_stride": ld, "note": f"one of the {ld // n} chunk launches the "
+                                       f"{ld * 4 >> 20} MiB-per-rank request makes "
+                                       f"(MLSL_LARGE_MSG_SIZE_MB=128)"})
+
+
+def dense_ring_entry(torch, rk, bw, f32, per_path, dev, n=(256 << 20) // 4, ld=None):
+    """B3 on 8 ranks: x (8, n) float32 allreduce, one launch; with ``ld`` the
+    rows are strided, one chunk of a wider request."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    group = ProcessGroup(Topology(WORLD, 1, WORLD), ("data",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = _rows_of(torch, gen, dev, n, ld)
+    plan = rk.dense_plan("allreduce", group, n, bidir=False)
+    before = dict(rk.LAUNCHES)
+    err = float((rk.dense_ring(x, plan) - rk.dense_ring_ref(x, plan)).abs().max())
+    ms = time_ms(torch, lambda: rk.dense_ring(x, plan), reps=20)
+    rk.LAUNCHES.update(before)
+    plain_ms = time_ms(torch, lambda: rk.dense_ring_ref(x, plan), reps=3, warmup=1)
+    return entry(name=f"dense_ring ({n * 4} B{', strided' if ld else ''})",
+                 source="mlsl_tpu_torch/csrc/ring_kernels.cu",
+                 replaces="mlsl_tpu/ops/ring_kernels.py:698", launches=sum(per_path.values()),
+                 per_path=per_path, shape=[WORLD, n], err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=_sum_broadcast_ms(torch, x, WORLD),
+                 nbytes=2 * WORLD * n * 4, ops=(WORLD - 1) * n, bw=bw, f32=f32,
+                 library_note="x.unsqueeze(0).sum(dim=1, keepdim=True).expand_as(.)"
+                              ".contiguous()", **_path_note(n, ld))
+
+
+def quant_ring_entry(torch, rk, count, tag, bw, f32, per_path, dev):
+    """B4 at one request's shape on 8 ranks (block 256)."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    group = ProcessGroup(Topology(WORLD, 1, WORLD), ("data",))
+    plan = rk.quant_plan("allreduce", group, count, BLOCK, bidir=False)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    x = torch.randn((WORLD, WORLD * plan.chunk), generator=gen, device=dev)
+    before = dict(rk.LAUNCHES)
+    err = float((rk.quant_ring(x, plan) - rk.quant_ring_ref(x, plan)).abs().max())
+    ms = time_ms(torch, lambda: rk.quant_ring(x, plan), reps=20)
+    rk.LAUNCHES.update(before)
+    plain_ms = time_ms(torch, lambda: rk.quant_ring_ref(x, plan), reps=3, warmup=1)
+    # the codec per element and hop: |x|, max, divide, round, clamp, multiply, add
+    return entry(name=f"quant_ring ({tag})", source="mlsl_tpu_torch/csrc/ring_kernels.cu",
+                 replaces="mlsl_tpu/ops/ring_kernels.py:698 (quantized; :885, :463)",
+                 launches=sum(per_path.values()), per_path=per_path,
+                 shape=[WORLD, count, plan.chunk], err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=None, nbytes=WORLD * WORLD * plan.chunk * 4 + WORLD * count * 4,
+                 ops=7 * WORLD * WORLD * plan.chunk, bw=bw, f32=f32,
+                 library_note="no PyTorch call computes a ring that requantizes to int8 "
+                              "on every hop")
+
+
+def rhd_entry(torch, rhd, count, bw, f32, per_path, dev, note=None, ld=None):
+    """B5 on 8 ranks at ``count`` float32 per rank; with ``ld`` the rows are
+    strided, one chunk of a wider request."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    plan = rhd.RhdPlan(ProcessGroup(Topology(WORLD, 1, WORLD), ("data",)))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = _rows_of(torch, gen, dev, count, ld)
+    reps = 20 if count >= 1 << 20 else 50
+    before = dict(rhd.LAUNCHES)
+    err = float((rhd.rhd_allreduce(x, plan) - rhd.rhd_allreduce_ref(x, plan)).abs().max())
+    ms = time_ms(torch, lambda: rhd.rhd_allreduce(x, plan), reps=reps)
+    rhd.LAUNCHES.update(before)
+    extra = {"note": note} if note else _path_note(count, ld)
+    return entry(name=f"rhd_allreduce ({count * 4} B{', strided' if ld else ''})",
+                 source="mlsl_tpu_torch/csrc/rhd_kernels.cu",
+                 replaces="mlsl_tpu/ops/rhd_kernels.py:256", launches=sum(per_path.values()),
+                 per_path=per_path, shape=[WORLD, count], err=err, ms=ms,
+                 plain_ms=time_ms(torch, lambda: rhd.rhd_allreduce_ref(x, plan), reps=reps),
+                 library_ms=_sum_broadcast_ms(torch, x, WORLD),
+                 nbytes=2 * WORLD * count * 4, ops=WORLD * count, bw=bw, f32=f32,
+                 library_note="x.unsqueeze(0).sum(dim=1, keepdim=True).expand_as(.)"
+                              ".contiguous()", **extra)
 
 
 # -- main -----------------------------------------------------------------
@@ -415,10 +848,24 @@ def main() -> int:
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke needs a card")
     sys.path.insert(0, str(ROOT))
     from mlsl_tpu_torch import get_env
+    from mlsl_tpu_torch.comm import algos
     from mlsl_tpu_torch.models import resnet
     from mlsl_tpu_torch.ops import cuda_build
     from mlsl_tpu_torch.ops import quant_kernels as qk
+    from mlsl_tpu_torch.ops import rhd_kernels as rhd
+    from mlsl_tpu_torch.ops import ring_kernels as rk
 
+    kernel_mods = (qk, rk, rhd)
+
+    def reset_launches():
+        for m in kernel_mods:
+            m.reset_counts()
+
+    def launches():
+        return {k: v for m in kernel_mods for k, v in m.LAUNCHES.items()}
+
+    for k in ALGO_VARS:
+        os.environ.pop(k, None)
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
@@ -441,7 +888,9 @@ def main() -> int:
         shapes = [(r, BLOCK) for r in shapes] + [
             (37, 256), (1, 256), (4096, 128), (4096, 512), (1000, 32), (333, 96)]
         n_shapes = phase_parity(torch, qk, dev, shapes)
-        log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize)")
+        n_ring = phase_ring_parity(torch, rk, rhd, dev)
+        log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize), "
+            f"{n_ring} ring and halving/doubling cases bit-exact")
 
         phase_config1(torch, env, np)
         log("# phase config1: ok")
@@ -450,48 +899,110 @@ def main() -> int:
         phase_config3(torch, env, np)
         log("# phase config3: ok")
 
-        qk.reset_counts()
-        xs, outs, errs, roundtrip = phase_config4(torch, env, np, qk)
+        reset_launches()
+        xs, outs, errs, req, roundtrip = phase_config4(torch, env, np, qk)
         torch.cuda.synchronize()
-        c4 = dict(qk.LAUNCHES)
-        check_config4(torch, env, qk, xs, outs, errs, roundtrip)
-        check(c4["quantize_blocks"] == 2 * (WORLD + 1) + 1 and c4["dequantize_blocks"] == 1,
+        c4 = launches()
+        check(req.algo == "quant_ring", f"config 4: selected {req.algo!r}")
+        check_config4(torch, env, qk, xs, outs, errs, req, roundtrip)
+        check(counts_are(c4, quantize_blocks=2 * (WORLD + 1) + 1, dequantize_blocks=1,
+                         quant_ring=0),
               f"config 4: kernel launches {c4}, expected 19 quantize and 1 dequantize")
-        del xs, outs, errs, roundtrip
+        del xs, outs, errs, req, roundtrip
         log(f"# phase config4: ok, launches {c4}")
 
         trainer, batch = build_resnet_trainer(torch, env, np)
-        qk.reset_counts()
+        reset_launches()
         losses, secs, split, grads, errs = phase_config5(torch, trainer, batch)
-        c5 = dict(qk.LAUNCHES)
+        c5 = launches()
         steps = len(losses)
         want = (WORLD + 1) * len(trainer.layers) * steps
-        check(c5["quantize_blocks"] == want,
-              f"config 5: {c5['quantize_blocks']} quantize launches, expected {want}")
-        worst = check_config5(torch, trainer, losses, grads, errs, qk)
+        check(c5["quantize_blocks"] == want and c5["quant_ring"] == 0,
+              f"config 5: launches {c5}, expected {want} quantize and no fused ring")
+        worst = check_config5(torch, trainer, losses, grads, errs)
         log(f"# phase config5: ok, losses {[round(float(v.mean()), 4) for v in losses]}, "
             f"step seconds {[round(s, 4) for s in secs]}, launches {c5}, "
             f"worst layer gradient rel. error {worst:.4g}")
+        log(f"# config5 train step (host clock, synchronized): "
+            f"{json.dumps({'step_s': secs, 'last_step_split_s': split})}")
+        del grads, errs, trainer, batch
+        torch.cuda.empty_cache()
+
+        drive = PathRun(torch, algos, launches, reset_launches)
+        rels = phase_algos_dense(torch, get_env, drive)
+        dense_used = dict(drive.used)
+        for line in drive.lines:
+            log(line)
+        log(f"# phase algos: ok, launches {dense_used}, relative errors {json.dumps(rels)}")
+        drive.used, drive.lines = {}, []
+        phase_algos_small(torch, get_env, drive)
+        small_used = dict(drive.used)
+        for line in drive.lines:
+            log(line)
+        log(f"# phase small: ok, launches {small_used}")
+        torch.cuda.empty_cache()
+
+        env = reinit(get_env, MLSL_ALGO="pallas_ring")
+        reset_launches()
+        xs, outs, errs, req, _ = phase_config4(torch, env, np, qk, roundtrip=False)
+        torch.cuda.synchronize()
+        c4f = launches()
+        check(req.algo == "pallas_ring", f"config 4 fused: selected {req.algo!r}")
+        check_config4(torch, env, qk, xs, outs, errs, req, None)
+        check(counts_are(c4f, quantize_blocks=2, quant_ring=2, dequantize_blocks=0),
+              f"config 4 fused: kernel launches {c4f}, expected 2 quantize and 2 fused rings")
+        del xs, outs, errs, req
+        log(f"# phase config4 fused ring: ok, launches {c4f}")
+
+        trainer, batch = build_resnet_trainer(torch, env, np)
+        check(all(_grad_req(trainer, n).algo == "pallas_ring" for n in trainer.layers),
+              "config 5 fused: a layer request did not select pallas_ring")
+        reset_launches()
+        losses, secs_f, split_f, grads, errs = phase_config5(torch, trainer, batch)
+        c5f = launches()
+        want = len(trainer.layers) * len(losses)
+        check(c5f["quant_ring"] == want and c5f["quantize_blocks"] == want,
+              f"config 5 fused: launches {c5f}, expected {want} fused rings and "
+              f"{want} quantize")
+        worst_f = check_config5(torch, trainer, losses, grads, errs)
+        log(f"# phase config5 fused ring: ok, losses "
+            f"{[round(float(v.mean()), 4) for v in losses]}, launches {c5f}, "
+            f"worst layer gradient rel. error {worst_f:.4g}")
+        log(f"# config5 fused-ring train step (host clock, synchronized): "
+            f"{json.dumps({'step_s': secs_f, 'last_step_split_s': split_f})}")
         del grads, errs, trainer, batch
         torch.cuda.empty_cache()
 
         fc_entry = ring_rows["fc"][0]
-        # B1 at its largest shape on the path (the fc layer's entry quantize)
-        # and B2 at its shape on the path (config 4's round trip)
+
+        def path(key, **runs):
+            return {k: v.get(key, 0) for k, v in runs.items()}
+
+        runs = dict(config4=c4, config5=c5, algos=dense_used, small=small_used,
+                    config4_fused=c4f, config5_fused=c5f)
         entries = [
-            kernel_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
-                         c4["quantize_blocks"] + c5["quantize_blocks"],
-                         {"config4": c4["quantize_blocks"], "config5": c5["quantize_blocks"]},
-                         dev),
-            kernel_entry(torch, qk, "dequantize", WORLD * ((64 << 20) // 4) // BLOCK, BLOCK,
-                         bw, f32, c4["dequantize_blocks"] + c5["dequantize_blocks"],
-                         {"config4": c4["dequantize_blocks"],
-                          "config5": c5["dequantize_blocks"]}, dev),
+            # B1 at its largest shape on the path (the fc layer's entry quantize)
+            codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
+                        path("quantize_blocks", **runs), dev),
+            # B2 at its shape on the path (config 4's round trip)
+            codec_entry(torch, qk, "dequantize", WORLD * ((64 << 20) // 4) // BLOCK, BLOCK,
+                        bw, f32, path("dequantize_blocks", **runs), dev),
+            dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev),
+            # B3 and B5 at the 256 MiB path's own launch shape: four strided chunks
+            dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev,
+                             n=(64 << 20) // 4, ld=(256 << 20) // 4),
+            quant_ring_entry(torch, rk, counts["fc"], "fc request", bw, f32,
+                             path("quant_ring", **runs), dev),
+            quant_ring_entry(torch, rk, (64 << 20) // 4, "config 4", bw, f32,
+                             path("quant_ring", **runs), dev),
+            rhd_entry(torch, rhd, 10_000, bw, f32, path("rhd_allreduce", **runs), dev,
+                      note="launch-latency bound: the byte bound is far below one launch"),
+            rhd_entry(torch, rhd, (1 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev),
+            rhd_entry(torch, rhd, (64 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev,
+                      ld=(256 << 20) // 4),
         ]
-        log(f"# config5 train step (host clock, synchronized): "
-            f"{json.dumps({'step_s': secs, 'last_step_split_s': split})}")
     finally:
-        env.finalize()
+        get_env().finalize()
 
     log(smi)
     log(json.dumps({"kernels": entries}))

@@ -53,6 +53,18 @@ def group_unview(y: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
     return z.permute(*inv).contiguous()
 
 
+def world_view(x: torch.Tensor, topo) -> torch.Tensor:
+    """(R, D, S, M, n) -> (W, n): row p is world rank p's buffer (the rank
+    formula is the row-major order of the grid). A view where the strides
+    allow it, so a chunk slice of a wider buffer is not copied."""
+    mlsl_assert(
+        x.dim() == NUM_GRID_AXES + 1 and tuple(x.shape[:NUM_GRID_AXES]) == topo.grid_shape,
+        "buffer must have shape (R=%d, D=%d, S=%d, M=%d, n), got %s",
+        *topo.grid_shape, tuple(x.shape),
+    )
+    return x.reshape(topo.world_size, x.shape[-1])
+
+
 def _reduce(y: torch.Tensor, op: ReductionType) -> torch.Tensor:
     """(C, G, n) -> (C, 1, n), reduced over the members."""
     op = ReductionType(op)

@@ -103,6 +103,20 @@ class ProcessGroup:
             size *= self.topology.axis_size(a)
         return size
 
+    @property
+    def colors(self):
+        """Color groups are not ported: every group is axis-aligned."""
+        return None
+
+    @property
+    def is_uniform(self) -> bool:
+        """Every instance has the same member count (true of axis groups)."""
+        return True
+
+    def live_axes(self) -> Tuple[str, ...]:
+        """The group's axes of size > 1, major -> minor."""
+        return tuple(a for a in self.axes if self.topology.axis_size(a) > 1)
+
     def group_idx_of(self, global_idx: int) -> int:
         """Member index of world rank ``global_idx`` within its group."""
         coord = dict(zip(GRID_AXES, self.topology.coords(global_idx)))

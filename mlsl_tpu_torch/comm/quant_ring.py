@@ -19,6 +19,11 @@ collectives.group_view), so ``lax.ppermute`` with perm (i -> i+1) becomes
 ONE kernel launch covering all C*G ranks (their rows are independent). The
 hop's dequantize stays a plain multiply fused into the accumulate, as in the
 JAX ring (quant_ring.py:48-56).
+
+The ``ring="pallas"`` wire runs the same entry error feedback (kernel B1) and
+then the whole ring as one launch of the fused int8 ring kernel B4
+(ops/ring_kernels.py), which the selection table picks for a forced or tuned
+``pallas_ring``.
 """
 
 from __future__ import annotations
@@ -134,21 +139,50 @@ def _sum_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize):
 
 
 def build_quantized_collective(
-    kind: str, group: ProcessGroup, count: int, block: int,
-    quantize: Optional[Callable] = None,
+    kind: str, group: ProcessGroup, count: int, block: int, *,
+    ring: str = "lax", bidir: bool = False, plain: bool = False,
 ) -> Tuple[Callable, int]:
     """-> (fn (buf, err) -> (result, new_err), error-feedback length).
 
     ``kind``: 'allreduce' or 'reduce_scatter' (SUM only). ``buf`` is a
     distributed buffer (R, D, S, M, count); ``err`` is (R, D, S, M, err_len).
-    Single-axis groups use the compressed ring; self and multi-axis groups the
-    entry-quantization + sum body. ``quantize`` replaces the codec's
-    quantize (default: the kernel wrapper ``quant_kernels.quantize_blocks``;
-    pass ``quantize_blocks_ref`` to run the plain version on the card)."""
+
+    ``ring="lax"``: single-axis groups use the composed ring above (one
+    quantize launch per hop), self and multi-axis groups the
+    entry-quantization + sum body. ``ring="pallas"``: the fused int8 ring,
+    kernel B4 (quant_ring.py:302-319 of the JAX package), on a
+    single-live-axis group of 2..64 members; the same entry error feedback,
+    but the chunks align to ``ring_kernels.quant_geometry``'s units, so
+    ``err_len`` differs from the composed ring's. ``bidir`` runs the second
+    half of each chunk's block rows the other way round. ``plain`` runs the
+    kernels' plain versions on any device (the card's parity checks)."""
     mlsl_assert(kind in ("allreduce", "reduce_scatter"),
                 "quantized collectives support allreduce/reduce_scatter (got %s)", kind)
+    mlsl_assert(ring in ("lax", "pallas"), "quantized ring wire %r is not ported", ring)
+    quantize = qk.quantize_blocks_ref if plain else qk.quantize_blocks
+    if ring == "pallas":
+        from mlsl_tpu_torch.comm.collectives import world_view
+        from mlsl_tpu_torch.ops import ring_kernels as rk
+
+        g, rc, chunk, err_len = rk.quant_geometry(kind, group, count, block)
+        plan = rk.quant_plan(kind, group, count, block, bidir=bidir)
+        topo = group.topology
+
+        run = rk.quant_ring_ref if plain else rk.quant_ring
+
+        def pallas_fn(buf: torch.Tensor, err: torch.Tensor):
+            mlsl_assert(buf.shape[-1] == count, "buffer count %d != request count %d",
+                        buf.shape[-1], count)
+            # the same entry error feedback on world rows, then one B4 launch
+            xhat, new_err = _entry(world_view(buf, topo)[:, None],
+                                   world_view(err, topo)[:, None], g, rc, chunk, block,
+                                   quantize)
+            out = run(xhat.reshape(topo.world_size, err_len), plan)
+            grid = topo.grid_shape
+            return out.reshape(*grid, out.shape[-1]), new_err.reshape(*grid, err_len)
+
+        return pallas_fn, err_len
     g, rc, chunk, err_len = ring_geometry(kind, group, count, block)
-    quantize = quantize or qk.quantize_blocks
     body = _ring_body if (g > 1 and len(group.axes) == 1) else _sum_body
 
     def fn(buf: torch.Tensor, err: torch.Tensor):

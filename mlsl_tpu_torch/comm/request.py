@@ -11,6 +11,10 @@ eplib command queue, src/comm.hpp:368-409, eplib/cqueue.c). On a CUDA device:
 
 On the CPU every collective runs synchronously inside ``start``.
 
+``setup`` picks the lowering through the algorithm engine's selection table
+(comm/algos: MLSL_ALGO > tuned profile > heuristic) and names it in
+``req.algo``, as at request.py:312-343 and :452-514 of the JAX package.
+
 Also, as host-side scheduling policy:
 - large-message chunking (reference splits >128 MiB allreduces,
   src/comm_ep.cpp:640-657): a big allreduce runs as several independent chunk
@@ -35,7 +39,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from mlsl_tpu_torch.comm import collectives
+from mlsl_tpu_torch.comm import algos, collectives
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType, dtype_size
@@ -80,7 +84,7 @@ class CommRequest:
         self._dispatched = False
         self.is_started = False
         self.is_setup = False
-        self.algo = "dense"
+        self.algo = algos.DEFAULT
         self._payload = desc.payload_bytes()
         with CommRequest._seq_lock:
             CommRequest._seq += 1
@@ -100,16 +104,23 @@ class CommRequest:
             mlsl_assert(d.op in (None, ReductionType.SUM),
                         "quantized collectives support SUM only (got %s)", d.op)
             _check_recv_count(d)
-            block = self.dispatcher.config.quant_block_elems
+            cfg = self.dispatcher.config
+            block = cfg.quant_block_elems
+            # a forced or tuned 'pallas_ring' routes the same compressed wire
+            # through the fused int8 ring kernel (quant_ring ring='pallas')
+            fused = algos.select(d.kind, d.group, self._payload, d.compression, cfg,
+                                 op=d.op) == "pallas_ring"
+            self.algo = "pallas_ring" if fused else "quant_ring"
             chunks = self._plan_chunks()
             self._chunk_slices = chunks or [slice(None)]
             sizes = ([sl.stop - sl.start for sl in chunks] if chunks else [d.count])
-            built = [quant_ring.build_quantized_collective(d.kind, d.group, n, block)
+            built = [quant_ring.build_quantized_collective(
+                         d.kind, d.group, n, block, ring="pallas" if fused else "lax",
+                         bidir=cfg.pallas_ring_bidir)
                      for n in sizes]
             self._quant_fns = [fn for fn, _ in built]
             self._err_lens = [el for _, el in built]
             self._errs = None
-            self.algo = "quant_ring"
             self.is_setup = True
             return
         if d.kind == "barrier":
@@ -123,8 +134,13 @@ class CommRequest:
             kw["root"] = int(d.root)
         if d.recv_count is not None:
             kw["recv_count"] = int(d.recv_count)
+        # explicit config > tuned profile > the 'lax' baseline; a chunked
+        # request selects once, on the full payload, and reuses one program
+        cfg = self.dispatcher.config
+        self.algo = algos.select(d.kind, d.group, self._payload, d.compression, cfg,
+                                 op=kw.get("op"))
         chunks = self._plan_chunks()
-        fn = collectives.build_collective(d.kind, d.group, **kw)
+        fn = algos.build(d.kind, d.group, self.algo, bidir=cfg.pallas_ring_bidir, **kw)
         self._chunk_slices = chunks or [slice(None)]
         self._fns = [fn] * len(self._chunk_slices)
         self.is_setup = True

@@ -4,7 +4,9 @@ Counterpart of ``mlsl_tpu.core.environment`` (reference include/mlsl.hpp:799-915
 src/mlsl.cpp:684-812). ``init`` builds no process world: it fixes the device
 and the number of virtual ranks that live on it (see comm/mesh.py). The device
 is CUDA unless the caller asks for the CPU explicitly; without CUDA, a default
-``init()`` raises instead of falling back.
+``init()`` raises instead of falling back. As in the JAX package
+(environment.py:114), ``init`` validates the configuration and then loads the
+tuned profile, if one is named.
 """
 
 from __future__ import annotations
@@ -64,8 +66,12 @@ class Environment:
         else:
             mlsl_assert(dev.type == "cpu", "unsupported device %s", dev)
         mlsl_assert(world_size >= 1, "world_size must be >= 1 (got %d)", world_size)
-        self.config = Config.from_env()
-        self.config.validate()
+        config = Config.from_env()
+        config.validate()
+        from mlsl_tpu_torch import tuner
+
+        tuner.init_profile(config, world_size, dev)
+        self.config = config
         self.device = dev
         self.world_size = int(world_size)
         self.dispatcher = Dispatcher(self.config)
@@ -144,4 +150,14 @@ class Environment:
 
 def get_env() -> Environment:
     return Environment.get_env()
+
+
+def default_device() -> torch.device:
+    """Where a model's parameters go unless the caller says: the initialised
+    Environment's device, else the current CUDA card. Never the CPU by
+    default; ``device="cpu"`` must be asked for."""
+    env = Environment._instance
+    if env is not None and env._initialized:
+        return env.device
+    return torch.device("cuda")
 

@@ -2,11 +2,23 @@
 
 Counterpart of the part of ``mlsl_tpu.log`` that this package uses (reference
 MLSL_ASSERT macro, src/log.hpp:72-83): an assert that raises ``MLSLError``
-instead of calling ``_exit(1)``. The JAX package's level-gated logging comes
-with the first module that logs.
+instead of calling ``_exit(1)``, and warning/debug messages through the
+standard ``logging`` module (logger ``mlsl_tpu_torch``).
 """
 
 from __future__ import annotations
+
+import logging
+
+_logger = logging.getLogger("mlsl_tpu_torch")
+
+
+def log_warning(msg: str, *args) -> None:
+    _logger.warning(msg, *args)
+
+
+def log_debug(msg: str, *args) -> None:
+    _logger.debug(msg, *args)
 
 
 class MLSLError(RuntimeError):

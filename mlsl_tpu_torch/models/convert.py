@@ -39,9 +39,13 @@ def flatten_layer(tree) -> torch.Tensor:
     return torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in tree_leaves(tree)])
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device=None):
     """The JAX package's parameter pytree, given as numpy arrays (or anything
-    ``np.asarray`` accepts), -> the same tree of float32 torch tensors."""
+    ``np.asarray`` accepts), -> the same tree of float32 torch tensors on
+    ``device`` (default: the Environment's device, else the card)."""
+    from mlsl_tpu_torch.core.environment import default_device
+
+    device = default_device() if device is None else device
     return tree_map(
         lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device), tree
     )

@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mlsl_tpu_torch.core.environment import default_device
 from mlsl_tpu_torch.models.convert import load_params
 from mlsl_tpu_torch.models.resnet import Dense, cross_entropy
 
@@ -16,8 +17,9 @@ LAYERS = ["l1", "l2"]
 
 class MLP(nn.Module):
     def __init__(self, din: int = 8, dh: int = 16, dout: int = 4,
-                 generator: Optional[torch.Generator] = None, device="cpu", params=None):
+                 generator: Optional[torch.Generator] = None, device=None, params=None):
         super().__init__()
+        device = default_device() if device is None else device
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.l1 = Dense(gen, din, dh, device, std=0.3)
         self.l2 = Dense(gen, dh, dout, device, std=0.3)

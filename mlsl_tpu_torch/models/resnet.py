@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mlsl_tpu_torch.core.environment import default_device
 from mlsl_tpu_torch.models.convert import load_params, tree_leaves
 
 STAGES = (3, 4, 6, 3)          # ResNet-50 bottleneck counts
@@ -164,9 +165,10 @@ class ResNet50(nn.Module):
     """x: (N, H, W, 3) float -> logits (N, num_classes)."""
 
     def __init__(self, num_classes: int = 1000, generator: Optional[torch.Generator] = None,
-                 device="cpu", params=None):
+                 device=None, params=None):
         super().__init__()
         set_precision()
+        device = default_device() if device is None else device
         gen = generator if generator is not None else torch.Generator().manual_seed(0)
         self.stem = Stem(gen, device)
         cin = 64

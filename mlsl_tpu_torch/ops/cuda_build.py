@@ -26,7 +26,11 @@ from typing import Dict, Iterable, Optional
 from mlsl_tpu_torch.log import MLSLError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"quant_kernels": "quant_kernels.cu"}
+SOURCES = {
+    "quant_kernels": "quant_kernels.cu",
+    "ring_kernels": "ring_kernels.cu",
+    "rhd_kernels": "rhd_kernels.cu",
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

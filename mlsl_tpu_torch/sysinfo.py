@@ -37,3 +37,22 @@ def probe(device: int = 0) -> SysInfo:
         (props.major, props.minor),
         int(props.total_memory),
     )
+
+
+def topology_fingerprint(world_size: int, device: torch.device) -> dict:
+    """The identity a tuner profile is keyed by (``mlsl_tpu.sysinfo``'s
+    keys): platform, the card's name, the number of virtual ranks and hosts.
+    A profile measured on a TPU, on another card or at another world size
+    is stale here. ``device``: the Environment's device."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        si = probe(torch.cuda.current_device() if device.index is None else device.index)
+    else:
+        si = SysInfo("cpu", "cpu", 0, (), 0)
+    return {
+        "platform": si.platform,
+        "device_kind": si.device_kind,
+        "num_devices": int(world_size),
+        "num_hosts": 1,
+        "tiers": None,
+    }

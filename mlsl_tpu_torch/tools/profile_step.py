@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with a card:
     python3 -m mlsl_tpu_torch.tools.profile_step [--steps 3] [--warmup 2]
 
 It builds chip_smoke.py's config 5 (ResNet-50 at 224x224, 1000 classes, global
-batch 64 on 8 virtual data ranks, int8 error-feedback gradient ring), warms up,
+batch 64 on 8 virtual data ranks, int8 error-feedback gradient ring; with
+MLSL_ALGO=pallas_ring exported, the fused int8 ring kernel), warms up,
 times ``--steps`` steps with the host clock, then traces as many steps again
 with ``torch.profiler`` (the Chrome trace goes to ``--trace``) and prints one
 JSON object:
@@ -41,10 +42,11 @@ from mlsl_tpu_torch.models import resnet
 from mlsl_tpu_torch.models.train import DataParallelTrainer
 from mlsl_tpu_torch.ops.cuda_build import build_dir
 from mlsl_tpu_torch.ops import quant_kernels as qk
+from mlsl_tpu_torch.ops import ring_kernels as rk
 
 HALVES = ("local_grads", "sync_and_update")
 CLASSES = (
-    ("codec", re.compile(r"quantize_rows")),
+    ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
     ("convolution", re.compile(r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
 )
@@ -146,11 +148,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         qk.reset_counts()
+        rk.reset_counts()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.steps):
                 traced_step(trainer, batch)
-        launches = dict(qk.LAUNCHES)
+        launches = {**qk.LAUNCHES, **rk.LAUNCHES}
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
         with open(args.trace) as f:
@@ -158,6 +161,7 @@ def main(argv=None) -> int:
     finally:
         env.finalize()
     out = {"device": torch.cuda.get_device_name(0), "steps": args.steps,
+           "ring": trainer.ops[trainer.layers[0]].get_parameter_set(0).grad_req.algo,
            "step_s": step_s, "traced_launches": launches,
            **summarize(trace, args.top, args.steps)}
     print(json.dumps(out))

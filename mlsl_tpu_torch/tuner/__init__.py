@@ -1,0 +1,59 @@
+"""Tuned profiles: measured algorithm and knob selection, load path.
+
+Counterpart of ``mlsl_tpu.tuner`` without the sweep. ``init_profile`` runs at
+Environment.init, right after ``Config.validate``: with ``MLSL_TUNE_PROFILE``
+set it loads the profile, rejects it with a warning when its topology
+fingerprint is not this world's (a profile measured on a TPU always is
+stale here), and otherwise installs it on the config, where
+``comm.algos.select`` consults it, and applies its knobs. Knobs the user
+exported win; knobs the port's Config does not have are named in a warning.
+``MLSL_TUNE=1`` (the sweep) raises MLSLError: not ported yet.
+"""
+
+from __future__ import annotations
+
+from mlsl_tpu_torch.log import log_warning, mlsl_assert
+from mlsl_tpu_torch.tuner.profile import (  # noqa: F401  (public API)
+    KNOB_RANGES,
+    TunedProfile,
+    load_profile,
+)
+
+
+def apply_knobs(config, profile: TunedProfile) -> None:
+    """Apply a profile's knobs to ``config``, except those the user exported
+    (``Config._explicit``) and those the port's Config does not have
+    (``KNOB_RANGES`` lists the ones it has)."""
+    explicit = getattr(config, "_explicit", set())
+    missing = []
+    for name, value in profile.knobs.items():
+        if name not in KNOB_RANGES:
+            missing.append(name)
+        elif name not in explicit:
+            setattr(config, name, value)
+    if missing:
+        log_warning("tuner: profile knobs %s have no counterpart in this package; "
+                    "not applied", ", ".join(sorted(missing)))
+    if profile.codecs:
+        log_warning("tuner: the profile's codec table (%d requests) is not applied: "
+                    "the codec registry is not ported", len(profile.codecs))
+
+
+def init_profile(config, world_size: int, device) -> None:
+    """Environment.init hook: resolve the tuned profile for this world."""
+    from mlsl_tpu_torch import sysinfo
+
+    config.tuned_profile = None
+    mlsl_assert(not config.tune, "MLSL_TUNE=1 (the autotuner's sweep) is not ported yet; "
+                "load a measured profile with MLSL_TUNE_PROFILE")
+    if not config.tune_profile:
+        return
+    profile = load_profile(config.tune_profile)      # MLSLError on a bad file
+    fp = sysinfo.topology_fingerprint(world_size, device)
+    if not profile.matches(fp):
+        log_warning("tuner: profile %s was measured on a different topology (profile %r "
+                    "vs this world %r); rejecting it", config.tune_profile,
+                    profile.fingerprint, fp)
+        return
+    config.tuned_profile = profile
+    apply_knobs(config, profile)

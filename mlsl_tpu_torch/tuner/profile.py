@@ -1,0 +1,117 @@
+"""Tuner profile: the persisted selection table and tuned knob set.
+
+Counterpart of ``mlsl_tpu.tuner.profile``, load path only (the sweep that
+writes profiles is not ported). A profile is one JSON document keyed by a
+topology fingerprint (``sysinfo.topology_fingerprint``). Cells map (kind,
+group shape, compression, payload band) to an algorithm; knobs are whole-config
+values. The file format is the JAX package's.
+
+Load contract: a missing or corrupt file, an unknown version, an unknown
+algorithm or an out-of-range value of a knob the port has is an MLSLError
+at init. A cell naming an
+algorithm that the JAX registry has and the port does not (``hier``,
+``pallas_a2a``) is an MLSLError too, saying so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import List, Optional, Tuple
+
+from mlsl_tpu_torch.log import MLSLError
+from mlsl_tpu_torch.types import CompressionType
+
+PROFILE_VERSION = 1
+
+#: knob name -> minimum legal value, for the knobs the port's Config has
+#: (the JAX package's limits). A profile's other knobs are not checked; the
+#: tuner names them in a warning and applies none of them.
+KNOB_RANGES = {
+    "msg_priority_threshold": 1,
+    "large_msg_size_mb": 0,
+    "large_msg_chunks": 1,
+    "quant_block_elems": 1,
+    "pallas_rhd_max_bytes": 0,
+}
+
+
+def _comp_name(compression) -> str:
+    if isinstance(compression, str):
+        return compression
+    try:
+        return CompressionType(compression).name.lower()
+    except ValueError:
+        return str(compression)
+
+
+@dataclasses.dataclass
+class TunedProfile:
+    """In-memory form of one profile document."""
+
+    fingerprint: dict
+    cells: List[dict] = dataclasses.field(default_factory=list)
+    knobs: dict = dataclasses.field(default_factory=dict)
+    created: str = ""
+    # the codec-calibration table; the codec registry is not ported, so
+    # init_profile names it in a warning and applies none of it
+    codecs: dict = dataclasses.field(default_factory=dict)
+
+    def select(self, kind: str, shape: Tuple[int, ...], compression,
+               payload_bytes: int) -> Optional[str]:
+        """Tuned algorithm for (kind, group shape, compression, payload), or
+        None when no cell covers it. The matching cell is the smallest
+        ``max_bytes`` band that still covers the payload; ``max_bytes: null``
+        is the open top band."""
+        comp = _comp_name(compression)
+        shape = tuple(int(s) for s in shape)
+        best = best_cap = None
+        for cell in self.cells:
+            if cell.get("kind") != kind or _comp_name(cell.get("compression", "none")) != comp:
+                continue
+            if tuple(int(s) for s in cell.get("shape", ())) != shape:
+                continue
+            cap = cell.get("max_bytes")
+            if cap is not None and payload_bytes > cap:
+                continue
+            if best is None or (cap is not None and (best_cap is None or cap < best_cap)):
+                best, best_cap = cell, cap
+        return best.get("algo") if best else None
+
+    def matches(self, fingerprint: dict) -> bool:
+        return dict(self.fingerprint) == dict(fingerprint)
+
+
+def load_profile(path: str) -> TunedProfile:
+    """Parse a profile file; MLSLError on a missing, corrupt or invalid one."""
+    if not os.path.exists(path):
+        raise MLSLError(f"MLSL_TUNE_PROFILE points at a missing file: {path}")
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        raise MLSLError(f"MLSL_TUNE_PROFILE file {path} is unreadable or corrupt: {e!r}") from e
+    if not isinstance(doc, dict) or "fingerprint" not in doc or "cells" not in doc:
+        raise MLSLError(f"MLSL_TUNE_PROFILE file {path} is not a tuner profile "
+                        f"(missing fingerprint/cells)")
+    if doc.get("version") != PROFILE_VERSION:
+        raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has unsupported version "
+                        f"{doc.get('version')!r} (this build reads version {PROFILE_VERSION})")
+    cells = doc["cells"]
+    if not isinstance(cells, list) or not all(isinstance(c, dict) for c in cells):
+        raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has a malformed cell table")
+    from mlsl_tpu_torch.comm import algos
+
+    for cell in cells:
+        algos.check_name(cell.get("algo"), f"MLSL_TUNE_PROFILE file {path}: algorithm")
+    knobs = doc.get("knobs", {}) or {}
+    for name, lo in KNOB_RANGES.items():
+        v = knobs.get(name)
+        if v is None:
+            continue
+        if isinstance(v, bool) or not isinstance(v, (int, float)) or v < lo:
+            raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has invalid knob {name}={v!r} "
+                            f"(expected a number >= {lo})")
+    return TunedProfile(fingerprint=doc["fingerprint"], cells=cells, knobs=knobs,
+                        created=str(doc.get("created", "")), codecs=doc.get("codecs") or {})

@@ -88,3 +88,35 @@ def test_sysinfo_names_the_platform_it_found():
     else:
         assert not sysinfo.on_gpu()
         assert info == sysinfo.SysInfo("cpu", "cpu", 0, (), 0)
+
+
+def test_models_default_to_the_environment_device():
+    """ResNet50, MLP and params_from_jax put their tensors on the initialised
+    Environment's device, else on the card: never on the CPU unasked."""
+    import numpy as np
+
+    from mlsl_tpu_torch.core.environment import default_device
+    from mlsl_tpu_torch.models import mlp, resnet
+    from mlsl_tpu_torch.models.convert import params_from_jax
+
+    if not Environment.is_initialized():
+        assert default_device() == torch.device("cuda")
+    env = Environment.get_env().init(device="cpu", world_size=8)
+    try:
+        assert default_device() == torch.device("cpu")
+        assert all(p.device.type == "cpu" for p in mlp.MLP().parameters())
+        assert params_from_jax({"w": np.ones(3)})["w"].device.type == "cpu"
+        model = resnet.ResNet50(num_classes=10, device="meta")
+        assert all(p.device.type == "meta" for p in model.parameters())
+    finally:
+        env.finalize()
+    assert default_device() == torch.device("cuda")
+
+
+def test_topology_fingerprint_is_keyed_on_the_world():
+    from mlsl_tpu_torch import sysinfo
+
+    fp = sysinfo.topology_fingerprint(8, torch.device("cpu"))
+    assert fp == {"platform": "cpu", "device_kind": "cpu", "num_devices": 8,
+                  "num_hosts": 1, "tiers": None}
+    assert sysinfo.topology_fingerprint(4, torch.device("cpu"))["num_devices"] == 4

@@ -36,7 +36,7 @@ torch.set_num_threads(2)
 def pair():
     jp = jres.init_resnet50(jax.random.PRNGKey(0), num_classes=10)
     host = jax.tree.map(np.asarray, jp)
-    model = tres.ResNet50(num_classes=10, params=params_from_jax(host))
+    model = tres.ResNet50(num_classes=10, device="cpu", params=params_from_jax(host, device="cpu"))
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
     y = np.array([3, 7], np.int32)

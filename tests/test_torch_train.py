@@ -54,7 +54,7 @@ def _pair(env, tenv, compression, key, data_parts=8, **kw):
     ts.set_global_minibatch_size(32)
     jt = JTrainer(env, jd, js, params, jmlp_loss, LAYERS, jget_layer,
                   compression=compression, lr=0.1)
-    model = tmlp.MLP(params=params_from_jax(host))
+    model = tmlp.MLP(device="cpu", params=params_from_jax(host, device="cpu"))
     tt = TTrainer(tenv, td, ts, model, tmlp.loss_fn, tmlp.LAYERS, tmlp.get_layer,
                   compression=compression, lr=0.1, **kw)
     return jt, tt
@@ -95,12 +95,14 @@ def test_quantized_dp_training_matches_jax(env, tenv):
 
 def test_quantized_dp_training_converges(tenv):
     """tests/test_train.py's convergence check, on the port alone."""
-    params = params_from_jax(jax.tree.map(np.asarray, mlp_init(jax.random.PRNGKey(1))))
+    params = params_from_jax(jax.tree.map(np.asarray, mlp_init(jax.random.PRNGKey(1))),
+                             device="cpu")
     dist = tenv.create_distribution(8, 1)
     sess = tenv.create_session()
     sess.set_global_minibatch_size(32)
-    tt = TTrainer(tenv, dist, sess, tmlp.MLP(params=params), tmlp.loss_fn, tmlp.LAYERS,
-                  tmlp.get_layer, compression=CompressionType.QUANTIZATION, lr=0.1)
+    tt = TTrainer(tenv, dist, sess, tmlp.MLP(device="cpu", params=params), tmlp.loss_fn,
+                  tmlp.LAYERS, tmlp.get_layer, compression=CompressionType.QUANTIZATION,
+                  lr=0.1)
     x, y = _make_data()
     losses = [float(tt.step(tt.shard_batch(x, y))[0, 0, 0, 0, 0]) for _ in range(10)]
     assert losses[-1] < losses[0] - 0.03, losses
@@ -120,7 +122,8 @@ def test_fused_path_without_communication(env):
         td = tenv.create_distribution(1, 1)
         ts = tenv.create_session()
         ts.set_global_minibatch_size(8)
-        model = tmlp.MLP(params=params_from_jax(jax.tree.map(np.asarray, params)))
+        model = tmlp.MLP(device="cpu",
+                         params=params_from_jax(jax.tree.map(np.asarray, params), device="cpu"))
         tt = TTrainer(tenv, td, ts, model, tmlp.loss_fn, tmlp.LAYERS, tmlp.get_layer, lr=0.1)
         assert tt.fused
         x, y = _make_data(8)
@@ -131,7 +134,7 @@ def test_fused_path_without_communication(env):
         _compare_params(jt, tt, atol=2e-5, rtol=2e-4)
         ts2 = tenv.create_session()
         ts2.set_global_minibatch_size(8)
-        graph = TTrainer(tenv, td, ts2, tmlp.MLP(), tmlp.loss_fn, tmlp.LAYERS,
+        graph = TTrainer(tenv, td, ts2, tmlp.MLP(device="cpu"), tmlp.loss_fn, tmlp.LAYERS,
                          tmlp.get_layer, force_graph_path=True)
         assert not graph.fused
         loss = graph.step(graph.shard_batch(x, y))
@@ -155,8 +158,8 @@ def test_graph_path_counts_one_entry_quantize_per_layer_and_hop(tenv):
     dist = tenv.create_distribution(8, 1)
     sess = tenv.create_session()
     sess.set_global_minibatch_size(32)
-    tt = TTrainer(tenv, dist, sess, tmlp.MLP(), tmlp.loss_fn, tmlp.LAYERS, tmlp.get_layer,
-                  compression=CompressionType.QUANTIZATION, lr=0.1)
+    tt = TTrainer(tenv, dist, sess, tmlp.MLP(device="cpu"), tmlp.loss_fn, tmlp.LAYERS,
+                  tmlp.get_layer, compression=CompressionType.QUANTIZATION, lr=0.1)
     qk_before = dict(tqk.LAUNCHES)
     try:
         quant_ring.qk.quantize_blocks = counting
