@@ -49,11 +49,35 @@ Phases, in order; any failure exits non-zero and prints no result:
 11. config 5 again with MLSL_ALGO=pallas_ring: three ResNet-50 steps on the
              fused ring, B4 and B1 launched once per layer request and step,
              the last step's gradients bit-exact against the plain fused ring.
+12. attention the flash kernels against their plain versions on the card:
+             B7 and B8 (both passes) at the transformer's (128, 2048, 64),
+             causal, bf16; B9 at the zigzag chunk (256, 512, 64), diagonal
+             and full, and at the ring's (256, 1024, 64) with per-row
+             offsets that mask every row of half the ranks; edge shapes
+             (Sq/Sk 128 and 256, head_dim 8, 16, 24, 128, float32 and bf16,
+             causal and not, offsets that mask whole rows). Relative L2
+             error under 1e-5 in float32 and for the lse and the carried
+             state, 1e-2 for bf16 outputs; fully masked rows exactly 0 (B9:
+             their state unchanged).
+13. gpt-medium-2k on 1 rank (vocab 32,768, d_model 1,024, 16 heads of 64,
+             12 blocks, seq 2,048, batch 8, bf16): three fused steps on one
+             batch at lr 0.1. The first loss within 1.0 of ln 32,768, the
+             third below the first; B7, B8 dq and B8 dk/dv launched 12 times
+             a step, B9 never.
+14. gpt-medium-2k on 8 ranks, dp=2 x sp=2 x tp=2, zigzag attention,
+             per-layer Start/Wait over the data x seq group, three steps:
+             losses as above, B9 launched 60 times a step (5 a block), B7
+             and B8 never, and every layer's reduced gradient within 1e-6
+             relative L2 error of the float64 sum of its rank rows. Then
+             ring attention at 2 blocks: B9 with per-row offsets, 2
+             launches a block and step. Each run prints its step seconds,
+             tokens/s and the last step's split.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version, or to time
 it, do not count. Then it times each kernel at the path's shapes with CUDA
-events against its memory-traffic bound and prints, on lines of their own,
+events against its bound (memory traffic, or operations at the card's rate
+for them, whichever takes longer) and prints, on lines of their own,
 the card's name and power limit, one JSON object with the kernels, and last
 {"ok": true, "device": {...}}.
 """
@@ -72,13 +96,14 @@ WORLD = 8
 BLOCK = 256
 SEED = 0
 
-# device memory rate (bytes/s) and float32 rate outside the tensor cores
-# (operations/s), from NVIDIA's data sheets; the first name that matches wins
+# device memory rate (bytes/s), float32 rate outside the tensor cores and dense
+# bf16 tensor-core rate (operations/s), from NVIDIA's data sheets; the first
+# name that matches wins
 CARDS = (
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100", 3.35e12, 67e12),      # SXM5, HBM3
-    ("H200", 4.8e12, 67e12),
+    ("H100 NVL", 3.9e12, 60e12, 835e12),
+    ("H100 PCIe", 2.0e12, 51e12, 756e12),
+    ("H100", 3.35e12, 67e12, 989e12),      # SXM5, HBM3
+    ("H200", 4.8e12, 67e12, 989e12),
 )
 
 
@@ -96,10 +121,25 @@ def log(msg: str) -> None:
 
 
 def card_rates(name: str):
-    for key, bw, f32 in CARDS:
+    """-> (memory bytes/s, float32 operations/s, bf16 tensor-core operations/s)."""
+    for key, bw, f32, bf16 in CARDS:
         if key in name:
-            return bw, f32
+            return bw, f32, bf16
     raise SmokeFailure(f"no data-sheet rates for card {name!r}: add it to CARDS")
+
+
+def ptxas_summary(text: str) -> str:
+    """nvcc's ``-Xptxas -v`` report in one line: the functions compiled, their
+    registers a thread and the bytes any of them spill."""
+    import re
+
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} functions, {min(regs)}-{max(regs)} registers a thread, "
+            f"{sum(1 for x in spills if x)} spilling ({max(spills, default=0)} bytes at most)")
 
 
 def nvidia_smi_line() -> str:
@@ -482,16 +522,16 @@ def check_config5(torch, trainer, losses, grads, errs):
 ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR")
 
 
-def reinit(get_env, **env_vars):
+def reinit(get_env, world=WORLD, **env_vars):
     """Finalize the Environment and initialise it again on the card with
-    ``env_vars`` exported and the other engine variables unset, as a user
-    picks an algorithm."""
+    ``world`` virtual ranks, ``env_vars`` exported and the other engine
+    variables unset, as a user picks an algorithm."""
     device = get_env().device
     get_env().finalize()
     for k in ALGO_VARS:
         os.environ.pop(k, None)
     os.environ.update(env_vars)
-    return get_env().init(device=device, world_size=WORLD)
+    return get_env().init(device=device, world_size=world)
 
 
 def plain_result(torch, algos, req, x):
@@ -699,10 +739,12 @@ def time_ms(torch, fn, reps=50, warmup=5):
 
 
 def entry(*, name, source, replaces, launches, per_path, shape, err, ms, plain_ms,
-          library_ms, nbytes, ops, bw, f32, **extra):
+          library_ms, nbytes, ops, bw, peak, **extra):
     """One kernel's record for the kernels line; the bound is the larger of
-    the bytes over the memory rate and the operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / bw * 1e3, ops / f32 * 1e3
+    the bytes over the memory rate and the operations over ``peak``, the
+    card's rate for the kernel's operations (float32 for the codec and the
+    rings, bf16 tensor cores for attention)."""
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / peak * 1e3
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "launches_by_path": per_path, "shape": shape,
@@ -736,7 +778,7 @@ def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev):
     return entry(name=name, source="mlsl_tpu_torch/csrc/quant_kernels.cu", replaces=replaces,
                  launches=sum(per_path.values()), per_path=per_path, shape=[rows, block],
                  err=err, ms=ms, plain_ms=time_ms(torch, plain), library_ms=None,
-                 nbytes=nbytes, ops=ops, bw=bw, f32=f32,
+                 nbytes=nbytes, ops=ops, bw=bw, peak=f32,
                  library_note="no single PyTorch call computes blockwise int8 quantization")
 
 
@@ -781,7 +823,7 @@ def dense_ring_entry(torch, rk, bw, f32, per_path, dev, n=(256 << 20) // 4, ld=N
                  replaces="mlsl_tpu/ops/ring_kernels.py:698", launches=sum(per_path.values()),
                  per_path=per_path, shape=[WORLD, n], err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=_sum_broadcast_ms(torch, x, WORLD),
-                 nbytes=2 * WORLD * n * 4, ops=(WORLD - 1) * n, bw=bw, f32=f32,
+                 nbytes=2 * WORLD * n * 4, ops=(WORLD - 1) * n, bw=bw, peak=f32,
                  library_note="x.unsqueeze(0).sum(dim=1, keepdim=True).expand_as(.)"
                               ".contiguous()", **_path_note(n, ld))
 
@@ -805,7 +847,7 @@ def quant_ring_entry(torch, rk, count, tag, bw, f32, per_path, dev):
                  launches=sum(per_path.values()), per_path=per_path,
                  shape=[WORLD, count, plan.chunk], err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=None, nbytes=WORLD * WORLD * plan.chunk * 4 + WORLD * count * 4,
-                 ops=7 * WORLD * WORLD * plan.chunk, bw=bw, f32=f32,
+                 ops=7 * WORLD * WORLD * plan.chunk, bw=bw, peak=f32,
                  library_note="no PyTorch call computes a ring that requantizes to int8 "
                               "on every hop")
 
@@ -830,9 +872,382 @@ def rhd_entry(torch, rhd, count, bw, f32, per_path, dev, note=None, ld=None):
                  per_path=per_path, shape=[WORLD, count], err=err, ms=ms,
                  plain_ms=time_ms(torch, lambda: rhd.rhd_allreduce_ref(x, plan), reps=reps),
                  library_ms=_sum_broadcast_ms(torch, x, WORLD),
-                 nbytes=2 * WORLD * count * 4, ops=WORLD * count, bw=bw, f32=f32,
+                 nbytes=2 * WORLD * count * 4, ops=WORLD * count, bw=bw, peak=f32,
                  library_note="x.unsqueeze(0).sum(dim=1, keepdim=True).expand_as(.)"
                               ".contiguous()", **extra)
+
+
+# -- the transformer and its attention kernels (B7, B8, B9) ----------------
+
+# the transformer runs train models/transformer.GPT_MEDIUM_2K (gpt-medium-2k, the
+# JAX package's realistic transformer row, benchmarks/transformer_bench.py:106-108)
+# at its published widths and depth, batch 8 as there
+TFM_BATCH = 8
+ATTN_SRC = "mlsl_tpu_torch/csrc/attention_kernels.cu"
+ATTN_PY = "mlsl_tpu/ops/attention_kernels.py"
+# relative L2 error of a kernel against its plain version on the same inputs:
+# the kernel folds 64-wide tiles, the plain version whole rows, so float32 sums
+# differ in order (1e-5); a bf16 output rounds once in both, and a sum that
+# lands near a rounding boundary moves an element by one bf16 step (1e-2).
+# The lse and the float32 carried state: 1e-5 whatever the input type.
+ATTN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def rel_err(torch, got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def _dtype_name(t) -> str:
+    return str(t.dtype).split(".")[-1]
+
+
+def _masked(torch, ak, bh, sq, qo, ko, dev):
+    """(BH, Sq) bool: rows whose every key lies in their future."""
+    q_pos = ak.offsets(qo, bh, dev)[:, None] + torch.arange(sq, device=dev)
+    return q_pos < ak.offsets(ko, bh, dev)[:, None]
+
+
+def visible_pairs(torch, ak, bh, sq, sk, qo, ko, causal, dev) -> int:
+    """The (q, k) pairs the causal mask leaves visible for these offsets."""
+    if not causal:
+        return bh * sq * sk
+    q_pos = ak.offsets(qo, bh, dev)[:, None] + torch.arange(sq, device=dev)
+    seen = (q_pos - ak.offsets(ko, bh, dev)[:, None] + 1).clamp(0, sk)
+    return int(seen.sum())
+
+
+def check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag) -> dict:
+    """B7 and B8's two passes against their plain versions on the same inputs
+    (the backward's from the kernel's own lse): -> {kernel: max abs error}."""
+    bh, sq, _ = q.shape
+    tol = ATTN_TOL[_dtype_name(q)]
+    o, lse = ak.flash_fwd(q, k, v, qo, ko, causal)
+    dd = (g.float() * o.float()).sum(-1)
+    dq = ak.flash_bwd_dq(q, k, v, g, lse, dd, qo, ko, causal)
+    dk, dv = ak.flash_bwd_dkv(q, k, v, g, lse, dd, qo, ko, causal)
+    torch.cuda.synchronize()
+    qt, kt = ak.offsets(qo, bh, q.device), ak.offsets(ko, bh, q.device)
+    ro, rl = ak.flash_fwd_ref(q, k, v, qt, kt, causal)
+    rdq = ak.flash_bwd_dq_ref(q, k, v, g, lse, dd, qt, kt, causal)
+    rdk, rdv = ak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, qt, kt, causal)
+    live = rl > ak.NEG / 2
+    check(bool(live.any()) == bool((dq != 0).any()) == bool((dv != 0).any()),
+          f"attention parity {tag}: the gradients are all zero where rows see keys")
+    errs = {}
+    for name, got, want, t in (("flash_fwd", o, ro, tol), ("flash_fwd lse", lse[live], rl[live], 1e-5),
+                               ("flash_bwd_dq", dq, rdq, tol), ("flash_bwd_dk", dk, rdk, tol),
+                               ("flash_bwd_dv", dv, rdv, tol)):
+        if want.numel() == 0:
+            continue
+        rel = rel_err(torch, got, want)
+        check(rel < t, f"attention parity {tag}: {name} relative error {rel:.3g} >= {t}")
+        errs[name] = float((got.float() - want.float()).abs().max())
+    if causal:
+        rows = _masked(torch, ak, bh, sq, qo, ko, q.device)
+        check(bool((o[rows] == 0).all() and (dq[rows] == 0).all()) and
+              bool((lse[rows] == rl[rows]).all()),
+              f"attention parity {tag}: fully masked rows are not exactly 0")
+    return errs
+
+
+def check_block_update(torch, ak, q, k, v, state, qo, ko, causal, tag):
+    """B9 against its plain version on the same inputs; rows that see no key
+    keep their state exactly. -> ((acc, m, l) from the kernel, max abs error)."""
+    bh, sq, _ = q.shape
+    got = ak.block_update(q, k, v, *state, qo, ko, causal)
+    torch.cuda.synchronize()
+    want = ak.block_update_ref(q, k, v, *state, ak.offsets(qo, bh, q.device),
+                               ak.offsets(ko, bh, q.device), causal)
+    live = want[1] > ak.NEG / 2
+    for name, a, b in (("acc", got[0], want[0]), ("m", got[1][live], want[1][live]),
+                       ("l", got[2], want[2])):
+        if b.numel():
+            rel = rel_err(torch, a, b)
+            check(rel < 1e-5, f"attention parity {tag}: B9 {name} relative error {rel:.3g}")
+    if causal:
+        rows = _masked(torch, ak, bh, sq, qo, ko, q.device)
+        check(all(bool((o[rows] == i[rows]).all()) for o, i in zip(got, state)),
+              f"attention parity {tag}: B9 changed the state of rows that see no key")
+    return got, float((got[0] - want[0]).abs().max())
+
+
+def ring_offsets(torch, dev, sl, hop, rows_per_rank, grid=(1, 2, 2, 2)):
+    """Per-row (q_off, k_off) of the sequence ring's hop ``hop`` on the
+    8-rank (1, 2, 2, 2) grid: rank p's seq coordinate s = (p // M) % S sees
+    the block of rank (s - hop) % S; each rank has rows_per_rank (local batch
+    x local heads) rows."""
+    _, _, n_s, n_m = grid
+    s = (torch.arange(WORLD, device=dev) // n_m) % n_s
+    src = (s - hop) % n_s
+    rep = lambda x: (x * sl).repeat_interleave(rows_per_rank).to(torch.int32)
+    return rep(s), rep(src)
+
+
+def phase_attention_parity(torch, ak, dev) -> dict:
+    """B7, B8 and B9 against their plain versions: at the transformer's shapes
+    and at edge shapes. -> {case: max abs error per kernel}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def rnd(rows, n, dh, dtype):
+        return torch.randn((rows, n, dh), generator=gen, device=dev).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cfg = gpt_medium()
+    s, d = cfg.seq_len, cfg.head_dim
+    bh = TFM_BATCH * cfg.n_heads                              # 1 rank: 8 x 16
+    bh9 = WORLD * (TFM_BATCH // 2) * (cfg.n_heads // 2)       # 8 ranks x 4 x 8
+    out = {}
+    # (tag, bh, sq, sk, d, dtype, causal, q_off, k_off)
+    flash_cases = [
+        (f"path B7/B8 ({bh}, {s}, {d}) causal bf16", bh, s, s, d, bf16, True, 0, 0),
+        ("sq=sk=128 d=8 f32 causal", 4, 128, 128, 8, f32, True, 0, 0),
+        ("sq=sk=128 d=8 bf16 noncausal", 4, 128, 128, 8, bf16, False, 0, 0),
+        ("d=16 f32 rows masked (k_off 64)", 4, 256, 128, 16, f32, True, 0, 64),
+        ("d=16 bf16 shifted (q_off 100, k_off 37)", 4, 128, 256, 16, bf16, True, 100, 37),
+        ("d=128 f32 noncausal sk=256", 2, 128, 256, 128, f32, False, 0, 0),
+        ("d=128 bf16 causal all rows masked", 2, 128, 128, 128, bf16, True, 0, 256),
+        ("d=24 f32 causal", 2, 256, 256, 24, f32, True, 0, 0),
+    ]
+    for tag, rows, sq, sk, dh, dt, causal, qo, ko in flash_cases:
+        q, g = rnd(rows, sq, dh, dt), rnd(rows, sq, dh, dt)
+        k, v = rnd(rows, sk, dh, dt), rnd(rows, sk, dh, dt)
+        out[tag] = check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag)
+        del q, k, v, g
+    # B9: the zigzag chunk (c = seq / 4 at sp = 2), its diagonal (causal,
+    # empty state) then a full fold carrying the result
+    c = s // 4
+    q, k, v = (rnd(bh9, c, d, bf16) for _ in range(3))
+    state, e1 = check_block_update(torch, ak, q, k, v, ak.empty_state(bh9, c, d, dev), 0, 0,
+                                   True, f"zigzag diag ({bh9}, {c}, {d}) bf16")
+    k2, v2 = rnd(bh9, c, d, bf16), rnd(bh9, c, d, bf16)
+    _, e2 = check_block_update(torch, ak, q, k2, v2, state, 0, 0, False,
+                               f"zigzag full ({bh9}, {c}, {d}) bf16")
+    out[f"B9 zigzag ({bh9}, {c}, {d})"] = {"block_update": max(e1, e2)}
+    # B9: the ring's two hops at the local sequence (seq / 2), per-row offsets;
+    # hop 1 leaves every row of the seq-rank-0 ranks fully masked
+    sl = s // 2
+    q, k, v = (rnd(bh9, sl, d, bf16) for _ in range(3))
+    state = ak.empty_state(bh9, sl, d, dev)
+    errs = []
+    for hop in (0, 1):
+        qo, ko = ring_offsets(torch, dev, sl, hop, rows_per_rank=bh9 // WORLD)
+        state, e = check_block_update(torch, ak, q, k, v, state, qo, ko, True,
+                                      f"ring hop {hop} ({bh9}, {sl}, {d}) bf16")
+        errs.append(e)
+    out[f"B9 ring ({bh9}, {sl}, {d}) offsets"] = {"block_update": max(errs)}
+    # B9 edge shapes: f32, head_dim 8/16/128, rows masked by the offsets
+    for tag, rows, sq, sk, dh, dt, causal, qo, ko in (
+            ("B9 d=8 f32 causal", 4, 128, 128, 8, f32, True, 0, 0),
+            ("B9 d=16 bf16 rows masked", 4, 256, 128, 16, bf16, True, 0, 64),
+            ("B9 d=128 f32 noncausal", 2, 128, 256, 128, f32, False, 0, 0)):
+        st = (torch.randn((rows, sq, dh), generator=gen, device=dev),
+              torch.randn((rows, sq), generator=gen, device=dev),
+              torch.rand((rows, sq), generator=gen, device=dev) + 0.5)
+        _, e = check_block_update(torch, ak, rnd(rows, sq, dh, dt), rnd(rows, sk, dh, dt),
+                                  rnd(rows, sk, dh, dt), st, qo, ko, causal, tag)
+        out[tag] = {"block_update": e}
+    return out
+
+
+def gpt_medium():
+    from mlsl_tpu_torch.models import transformer as tfm
+
+    return tfm.GPT_MEDIUM_2K
+
+
+def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None):
+    import dataclasses
+
+    from mlsl_tpu_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(gpt_medium(), attention=attention, dtype="bfloat16",
+                              n_blocks=n_blocks or gpt_medium().n_blocks)
+    trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=TFM_BATCH, lr=0.1, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, cfg.vocab, size=(TFM_BATCH, cfg.seq_len)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, size=(TFM_BATCH, cfg.seq_len)).astype(np.int32)
+    return trainer, trainer.shard_tokens(toks, labels)
+
+
+def phase_transformer(torch, trainer, batch, steps=3):
+    """``steps`` training steps on one fixed batch. The last runs as its
+    halves (what ``step`` runs) so that its gradients stay at hand. -> (mean
+    losses, step seconds, the last step's split, its gradient rows or None
+    on the fused path)."""
+    losses, secs, grads = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < steps - 1:
+            loss = trainer.step(*batch)
+        elif trainer.fused:
+            ce, g = trainer._backward(*batch)
+            torch.cuda.synchronize()
+            split = {"forward_backward_s": time.perf_counter() - t0}
+            t1 = time.perf_counter()
+            trainer._apply(trainer._all_leaves(), g)
+            loss = ce[:, :, :, 0].sum() / trainer._norm
+            torch.cuda.synchronize()
+            split["update_s"] = time.perf_counter() - t1
+            del g
+        else:
+            loss, grads = trainer._grad_fn(*batch)
+            torch.cuda.synchronize()
+            split = {"forward_backward_s": time.perf_counter() - t0}
+            t1 = time.perf_counter()
+            loss = trainer._sync_and_update(grads, loss)
+            torch.cuda.synchronize()
+            split["sync_and_update_s"] = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    return losses, secs, split, grads
+
+
+def check_losses(losses, vocab, tag):
+    import math
+
+    first = math.log(vocab)
+    check(all(math.isfinite(x) for x in losses), f"{tag}: losses {losses}")
+    check(abs(losses[0] - first) < 1.0,
+          f"{tag}: first loss {losses[0]} is not within 1.0 of ln {vocab} = {first:.4f}")
+    check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
+
+
+def check_transformer_grads(torch, trainer, grads) -> float:
+    """Each layer's reduced gradient on the last step against the float64
+    sum of its rank rows over the data x seq group: every member holds the
+    same sum, within 1e-6 relative L2 error. -> the worst layer's error."""
+    from mlsl_tpu_torch.comm.collectives import group_view
+
+    group = trainer.dist.grad_group
+    worst = 0.0
+    for name in trainer.layers:
+        reduced = group_view(trainer.ops[name].get_parameter_set(0).grad_req._result, group)
+        check(bool((reduced == reduced[:, :1]).all()),
+              f"transformer 8 ranks: members disagree on layer {name}'s reduced gradient")
+        exact = group_view(grads[name], group).double().sum(dim=1, keepdim=True)
+        rel = rel_err(torch, reduced[:, :1], exact)
+        worst = max(worst, rel)
+        check(rel < 1e-6, f"transformer 8 ranks: layer {name} reduced gradient off by {rel:.3g}")
+    return worst
+
+
+def step_line(tag, trainer, losses, secs, split, launches):
+    tokens = trainer.batch * trainer.cfg.seq_len
+    return (f"# {tag} train step (host clock, synchronized): "
+            + json.dumps({"losses": losses, "step_s": secs, "tokens_per_s":
+                          [tokens / x for x in secs], "last_step_split_s": split,
+                          "launches": launches}))
+
+
+def attention_entries(torch, F, ak, bw, bf16, runs, dev):
+    """B7, B8 (both passes) and B9 at the transformer's shapes: time against
+    the bound (bytes over the memory rate or operations over the bf16
+    tensor-core rate, whichever is larger), the plain version's time and,
+    for B7 and B8, scaled_dot_product_attention's as the library yardstick
+    (timed here; the port never calls it)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    cfg = gpt_medium()
+    b, h, s, d = TFM_BATCH, cfg.n_heads, cfg.seq_len, cfg.head_dim
+    bh = b * h
+
+    def rnd(rows, n):
+        return torch.randn((rows, n, d), generator=gen, device=dev).to(torch.bfloat16)
+
+    def path(key):
+        return {k: v.get(key, 0) for k, v in runs.items()}
+
+    def counted(fn):
+        """Run ``fn`` with its launches left out of the path's count."""
+        before = dict(ak.LAUNCHES)
+        try:
+            return fn()
+        finally:
+            ak.LAUNCHES.update(before)
+
+    q, k, v, g = rnd(bh, s), rnd(bh, s), rnd(bh, s), rnd(bh, s)
+    zero = ak.offsets(0, bh, dev)
+    pairs = visible_pairs(torch, ak, bh, s, s, 0, 0, True, dev)
+    t_el = bh * s * d * 2                       # bytes of one bf16 (BH, S, D) tensor
+    row = bh * s * 4                            # bytes of one f32 (BH, S) row vector
+    q4, k4, v4, g4 = (t.view(b, h, s, d) for t in (q, k, v, g))
+    sdpa = F.scaled_dot_product_attention
+    lib_fwd = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True), reps=20)
+    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
+    lib_fb = time_ms(torch, lambda: torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True),
+                                                        (qs, ks, vs), g4), reps=20)
+    common = dict(source=ATTN_SRC, bw=bw, peak=bf16, shape=[bh, s, s, d])
+    entries = []
+
+    o, lse = counted(lambda: ak.flash_fwd(q, k, v, 0, 0, True))
+    ro, _ = ak.flash_fwd_ref(q, k, v, zero, zero, True)
+    entries.append(entry(
+        name="flash_fwd (B7)", replaces=f"{ATTN_PY}:154", launches=sum(path("flash_fwd").values()),
+        per_path=path("flash_fwd"), err=float((o.float() - ro.float()).abs().max()),
+        ms=counted(lambda: time_ms(torch, lambda: ak.flash_fwd(q, k, v, 0, 0, True), reps=10)),
+        plain_ms=time_ms(torch, lambda: ak.flash_fwd_ref(q, k, v, zero, zero, True), reps=3,
+                         warmup=1),
+        library_ms=lib_fwd, nbytes=4 * t_el + row, ops=4 * d * pairs, **common,
+        note="causal, bf16, with the lse (the training path's call)",
+        library_note=f"scaled_dot_product_attention(q, k, v, is_causal=True), bf16 "
+                     f"{tuple(q4.shape)}"))
+    del ro
+    dd = (g.float() * o.float()).sum(-1)
+    for name, fn, plain, ops, nbytes, line in (
+            ("flash_bwd_dq",
+             lambda: ak.flash_bwd_dq(q, k, v, g, lse, dd, 0, 0, True),
+             lambda: ak.flash_bwd_dq_ref(q, k, v, g, lse, dd, zero, zero, True),
+             6 * d * pairs, 5 * t_el + 2 * row, 311),
+            ("flash_bwd_dkv",
+             lambda: ak.flash_bwd_dkv(q, k, v, g, lse, dd, 0, 0, True),
+             lambda: ak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, zero, zero, True),
+             8 * d * pairs, 6 * t_el + 2 * row, 335)):
+        got, want = counted(fn), plain()
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+        entries.append(entry(
+            name=f"{name} (B8)", replaces=f"{ATTN_PY}:297 (:{line})",
+            launches=sum(path(name).values()), per_path=path(name), err=err,
+            ms=counted(lambda: time_ms(torch, fn, reps=10)),
+            plain_ms=time_ms(torch, plain, reps=3, warmup=1),
+            library_ms=lib_fb - lib_fwd, nbytes=nbytes, ops=ops, **common,
+            library_note="scaled_dot_product_attention forward + backward less its forward, "
+                         "for both passes together"))
+        del got, want
+    del q, k, v, g, o, lse, dd, qs, ks, vs
+
+    # B9 at the zigzag chunk (the 3 full folds of its 5 calls a block) and at
+    # the ring's second hop, with per-row offsets
+    bh9, c = WORLD * (TFM_BATCH // 2) * (h // 2), s // 4
+    for tag, sq, causal, offs in (("zigzag chunk, full fold", c, False, (0, 0)),
+                                  ("zigzag chunk, diagonal", c, True, (0, 0)),
+                                  ("ring hop 1, offsets", s // 2, True,
+                                   ring_offsets(torch, dev, s // 2, 1, bh9 // WORLD))):
+        q, k, v = rnd(bh9, sq), rnd(bh9, sq), rnd(bh9, sq)
+        st = (torch.randn((bh9, sq, d), generator=gen, device=dev),
+              torch.zeros((bh9, sq), device=dev), torch.ones((bh9, sq), device=dev))
+        qo, ko = (ak.offsets(x, bh9, dev) for x in offs)
+        got = counted(lambda: ak.block_update(q, k, v, *st, qo, ko, causal))
+        want = ak.block_update_ref(q, k, v, *st, qo, ko, causal)
+        n_pairs = visible_pairs(torch, ak, bh9, sq, sq, qo, ko, causal, dev)
+        el = bh9 * sq * d
+        entries.append(entry(
+            name=f"block_update (B9, {tag})", replaces=f"{ATTN_PY}:442",
+            launches=sum(path("block_update").values()), per_path=path("block_update"),
+            err=float((got[0] - want[0]).abs().max()),
+            ms=counted(lambda: time_ms(
+                torch, lambda: ak.block_update(q, k, v, *st, qo, ko, causal), reps=20)),
+            plain_ms=time_ms(torch, lambda: ak.block_update_ref(q, k, v, *st, qo, ko, causal),
+                             reps=3, warmup=1),
+            library_ms=None, nbytes=3 * el * 2 + 2 * el * 4 + 4 * bh9 * sq * 4 + 2 * bh9 * 4,
+            ops=4 * d * n_pairs, bw=bw, peak=bf16, source=ATTN_SRC, shape=[bh9, sq, sq, d],
+            library_note="no single PyTorch call folds a block into a carried online-"
+                         "softmax state"))
+        del q, k, v, st, got, want
+    return entries
 
 
 # -- main -----------------------------------------------------------------
@@ -850,12 +1265,13 @@ def main() -> int:
     from mlsl_tpu_torch import get_env
     from mlsl_tpu_torch.comm import algos
     from mlsl_tpu_torch.models import resnet
+    from mlsl_tpu_torch.ops import attention_kernels as ak
     from mlsl_tpu_torch.ops import cuda_build
     from mlsl_tpu_torch.ops import quant_kernels as qk
     from mlsl_tpu_torch.ops import rhd_kernels as rhd
     from mlsl_tpu_torch.ops import ring_kernels as rk
 
-    kernel_mods = (qk, rk, rhd)
+    kernel_mods = (qk, rk, rhd, ak)
 
     def reset_launches():
         for m in kernel_mods:
@@ -869,16 +1285,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
-    bw, f32 = card_rates(name)
+    bw, f32, bf16 = card_rates(name)
     log(f"# card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     took = cuda_build.build_all()
     log(f"# phase build: ok in {time.perf_counter() - t0:.1f} s {took}")
     for src, text in cuda_build.build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"#   {src}: {line.strip()}")
+        log(f"#   {src}: {ptxas_summary(text)}")
 
     env = get_env().init(world_size=WORLD)        # the card; raises without one
     try:
@@ -973,6 +1387,71 @@ def main() -> int:
         del grads, errs, trainer, batch
         torch.cuda.empty_cache()
 
+        # the transformer: attention parity, then gpt-medium-2k on 1 rank (B7,
+        # B8) and on 8 ranks (zigzag and ring attention: B9)
+        env = reinit(get_env, world=1)
+        t0 = time.perf_counter()
+        parity = phase_attention_parity(torch, ak, dev)
+        log(f"# phase attention parity: ok in {time.perf_counter() - t0:.1f} s, max abs errors "
+            f"{json.dumps(parity)}")
+        torch.cuda.empty_cache()
+
+        trainer, batch = build_transformer(torch, env, np, 1, 1, 1, "ring")
+        check(trainer.fused, "transformer 1 rank: the step is not the fused one")
+        reset_launches()
+        losses, secs, split, _ = phase_transformer(torch, trainer, batch)
+        ta = {k: launches()[k] for k in ak.LAUNCHES}
+        check_losses(losses, trainer.cfg.vocab, "transformer 1 rank")
+        n, steps = trainer.cfg.n_blocks, len(losses)
+        check(counts_are(ta, flash_fwd=n * steps, flash_bwd_dq=n * steps,
+                         flash_bwd_dkv=n * steps, block_update=0),
+              f"transformer 1 rank: launches {ta}, expected {n} B7, {n} B8 dq, {n} B8 dk/dv "
+              f"and no B9 per step")
+        log(f"# phase transformer 1 rank: ok, losses {losses}, launches {ta}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(step_line("transformer 1 rank (gpt-medium-2k, batch 8, fused step)", trainer,
+                      losses, secs, split, ta))
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        env = reinit(get_env)
+        torch.cuda.reset_peak_memory_stats()
+        trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag")
+        check(not trainer.fused, "transformer 8 ranks: the step did not take the graph path")
+        reset_launches()
+        losses, secs, split, grads = phase_transformer(torch, trainer, batch)
+        tb = {k: launches()[k] for k in ak.LAUNCHES}
+        check_losses(losses, trainer.cfg.vocab, "transformer 8 ranks")
+        n, steps = trainer.cfg.n_blocks, len(losses)
+        check(counts_are(tb, block_update=5 * n * steps, flash_fwd=0, flash_bwd_dq=0,
+                         flash_bwd_dkv=0),
+              f"transformer 8 ranks: launches {tb}, expected {5 * n} B9 per step and no B7/B8")
+        worst_t = check_transformer_grads(torch, trainer, grads)
+        log(f"# phase transformer 8 ranks zigzag: ok, losses {losses}, launches {tb}, worst "
+            f"layer gradient rel. error {worst_t:.4g}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(step_line("transformer 8 ranks (gpt-medium-2k, dp=2 x sp=2 x tp=2, zigzag)",
+                      trainer, losses, secs, split, tb))
+        del trainer, batch, grads
+
+        env = reinit(get_env)
+        trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "ring", n_blocks=2)
+        reset_launches()
+        losses, secs, split, grads = phase_transformer(torch, trainer, batch)
+        tr = {k: launches()[k] for k in ak.LAUNCHES}
+        n, steps = trainer.cfg.n_blocks, len(losses)
+        check(all(np.isfinite(losses)), f"transformer ring: losses {losses}")
+        check(counts_are(tr, block_update=2 * n * steps, flash_fwd=0),
+              f"transformer ring: launches {tr}, expected {2 * n} B9 per step")
+        worst_r = check_transformer_grads(torch, trainer, grads)
+        log(f"# phase transformer 8 ranks ring: ok, losses {losses}, launches {tr}, worst "
+            f"layer gradient rel. error {worst_r:.4g}")
+        log(step_line("transformer 8 ranks (gpt-medium-2k widths, 2 blocks, dp=2 x sp=2 x "
+                      "tp=2, ring)", trainer, losses, secs, split, tr))
+        del trainer, batch, grads
+        env = reinit(get_env)
+        torch.cuda.empty_cache()
+
         fc_entry = ring_rows["fc"][0]
 
         def path(key, **runs):
@@ -1001,6 +1480,10 @@ def main() -> int:
             rhd_entry(torch, rhd, (64 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev,
                       ld=(256 << 20) // 4),
         ]
+        entries += attention_entries(
+            torch, torch.nn.functional, ak, bw, bf16,
+            dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr),
+            dev)
     finally:
         get_env().finalize()
 

@@ -59,6 +59,50 @@ def params_to_jax(tree_or_module):
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
+def transformer_params_from_jax(tree, cfg, grid, device=None):
+    """The JAX package's transformer parameters (the global tree of numpy
+    arrays that ``mlsl_tpu.models.transformer.init_params`` gives) -> the
+    port's per-rank layout: each leaf a float32 tensor of shape
+    (R, D, S, M, *local) on ``device`` (default: the Environment's device),
+    where model rank m holds the m-th of ``tp`` equal slices of a leaf that
+    ``param_specs`` shards over the model axis and a copy of every other.
+    Every rank has its own copy, so autograd gives each its own gradient."""
+    from mlsl_tpu_torch.core.environment import default_device
+    from mlsl_tpu_torch.models.transformer import param_specs
+
+    device = default_device() if device is None else device
+    r, d, s, m = grid
+    specs = param_specs(cfg)
+
+    def place(a, dim):
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        if dim is not None and t.shape[dim] % m:
+            raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split {m} ways")
+        parts = [t] * m if dim is None else list(t.chunk(m, dim=dim))
+        x = torch.stack(parts).to(device)                       # (M, *local)
+        return x.unsqueeze(0).unsqueeze(0).unsqueeze(0).expand(r, d, s, *x.shape).contiguous()
+
+    return {name: {k: place(tree[name][k], specs[name][k]) for k in sorted(specs[name])}
+            for name in specs}
+
+
+def transformer_params_to_jax(per_rank, cfg):
+    """Inverse of ``transformer_params_from_jax``: rank (0, 0, 0, m)'s copies
+    -> the global tree of numpy arrays, model slices concatenated back."""
+    from mlsl_tpu_torch.models.transformer import param_specs
+
+    specs = param_specs(cfg)
+    out = {}
+    for name, leaves in per_rank.items():
+        out[name] = {}
+        for k, t in leaves.items():
+            ranks = t.detach()[0, 0, 0]                         # (M, *local)
+            dim = specs[name][k]
+            full = ranks[0] if dim is None else torch.cat(list(ranks), dim=dim)
+            out[name][k] = full.cpu().numpy().copy()
+    return out
+
+
 def load_params(module, tree) -> None:
     """Copy a tree of tensors or arrays into ``module.jax_tree()``'s parameters,
     checking that the two trees have the same structure and shapes."""

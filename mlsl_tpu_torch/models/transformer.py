@@ -1,0 +1,397 @@
+"""Decoder-only transformer with dp x sp x tp hybrid parallelism, MLSL in the loop.
+
+Counterpart of the training path of ``mlsl_tpu.models.transformer``: batch
+over the data axis (DP), sequence over the seq axis (SP: ring, zigzag or
+Ulysses attention, ``parallel/sequence.py``), heads and MLP width over the
+model axis (TP); parameter gradients sync over data x seq through the
+ParameterSet requests, per layer, as in the ResNet trainer.
+
+Every virtual rank runs in one process, so every activation carries the
+leading (R, D, S, M) grid dims and each op runs once over all ranks:
+
+- ``lax.psum(o, 'model')`` is a sum over the M dim, broadcast back;
+- ``lax.ppermute`` around the sequence ring is ``torch.roll`` along S;
+- ``lax.axis_index('seq')`` is the S coordinate.
+
+Parameters are real per-rank copies, (R, D, S, M, *local) leaf tensors, so
+autograd gives each rank its own gradient; the sum over data x seq happens
+in the ParameterSet requests, never inside autograd. The gradient semantics
+are JAX's SPMD ones: JAX differentiates each device's scalar, which gives
+d(sum over ranks of their losses)/d(local leaf) with the CE scaled by 1/tp;
+the port sums every rank's scaled loss and runs one backward, then sums the
+replicated leaves' gradients over M (``transformer.py:757-760``).
+
+Compute is bfloat16 by default; parameters, the residual adds, the TP sums,
+layer norms and the loss are float32. MoE, remat, the sharded-vocabulary
+CE, ZeRO-1, optax and the decode-mode functions come later (ROADMAP A).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.models.convert import transformer_params_from_jax, tree_leaves
+from mlsl_tpu_torch.models.moe import mxu_einsum
+from mlsl_tpu_torch.parallel.sequence import (
+    ring_attention,
+    ulysses_attention,
+    zigzag_perm,
+    zigzag_ring_attention,
+)
+from mlsl_tpu_torch.types import CompressionType, DataType, OpType
+
+GRID = 4            # leading (R, D, S, M) dims of every per-rank tensor
+SEQ_DIM, MODEL_DIM = 2, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab: int = 256
+    d_model: int = 64
+    n_heads: int = 8
+    head_dim: int = 8
+    n_blocks: int = 2
+    seq_len: int = 64
+    mlp_ratio: int = 4
+    attention: str = "ring"  # 'ring' | 'zigzag' | 'ulysses'. 'zigzag' is the
+    # load-balanced causal ring (parallel/sequence.py): the trainer feeds
+    # tokens/labels in zigzag sequence order and the position embedding rows
+    # follow, so training is mathematically identical to 'ring'.
+    dtype: str = "bfloat16"  # compute dtype; 'float32' for exactness tests
+    remat: bool = False      # recompute each block in the backward (not ported)
+    remat_policy: str = "full"  # 'full' | 'dots' (with remat=True)
+    n_experts: int = 0       # >0: MoE FFN with expert parallelism (not ported)
+    moe_top_k: int = 1
+    moe_aux_weight: float = 0.01
+    capacity_factor: float = 2.0
+    sharded_vocab: bool = False  # shard the LM head over 'model' (not ported)
+
+
+# gpt-medium-2k, the JAX package's realistic transformer row
+# (benchmarks/transformer_bench.py:106-108): the configuration the card runs
+GPT_MEDIUM_2K = TransformerConfig(vocab=32768, d_model=1024, n_heads=16, head_dim=64,
+                                  n_blocks=12, seq_len=2048)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Dict:
+    """Random weights from ``generator`` in the JAX package's global layout
+    (float32 CPU tensors): normal * 0.02 for the matrices, ones and zeros
+    for the norms and biases. The JAX package draws from jax.random, so the
+    same seed gives other numbers: tests convert JAX's own tree instead."""
+    dm, h, dh = cfg.d_model, cfg.n_heads, cfg.head_dim
+    f = cfg.mlp_ratio * dm
+    std = 0.02
+
+    def normal(*shape):
+        return torch.randn(shape, generator=generator) * std
+
+    params = {
+        "embed": {"tok": normal(cfg.vocab, dm), "pos": normal(cfg.seq_len, dm)},
+        "final": {"ln_scale": torch.ones(dm), "ln_bias": torch.zeros(dm),
+                  "head": normal(dm, cfg.vocab)},
+    }
+    for i in range(cfg.n_blocks):
+        params[f"blk{i}.ln"] = {
+            "ln1_scale": torch.ones(dm), "ln1_bias": torch.zeros(dm),
+            "ln2_scale": torch.ones(dm), "ln2_bias": torch.zeros(dm),
+        }
+        params[f"blk{i}.attn"] = {"wqkv": normal(dm, 3, h, dh), "wo": normal(h, dh, dm)}
+        params[f"blk{i}.mlp"] = {"w1": normal(dm, f), "b1": torch.zeros(f),
+                                 "w2": normal(f, dm), "b2": torch.zeros(dm)}
+    return params
+
+
+def param_specs(cfg: TransformerConfig) -> Dict:
+    """For every leaf, the dim of its global shape that is sharded over the
+    model axis, or None for a leaf replicated over it (the JAX package's
+    PartitionSpec tree, ``transformer.py:123``, for the dense model)."""
+    specs = {
+        "embed": {"tok": None, "pos": None},
+        "final": {"ln_scale": None, "ln_bias": None, "head": 1 if cfg.sharded_vocab else None},
+    }
+    for i in range(cfg.n_blocks):
+        specs[f"blk{i}.ln"] = {k: None for k in
+                               ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")}
+        specs[f"blk{i}.attn"] = {"wqkv": 2, "wo": 0}
+        specs[f"blk{i}.mlp"] = {"w1": 1, "b1": 0, "w2": 0, "b2": None}
+    return specs
+
+
+def layer_names(cfg: TransformerConfig) -> List[str]:
+    names = ["embed"]
+    for i in range(cfg.n_blocks):
+        names += [f"blk{i}.ln", f"blk{i}.attn", f"blk{i}.mlp"]
+    names.append("final")
+    return names
+
+
+def get_layer(params, name):
+    return params[name]
+
+
+def _bcast(p: torch.Tensor, n: int) -> torch.Tensor:
+    """A per-rank (*grid, *shape) leaf with ``n`` singleton dims inserted after
+    the grid dims, to broadcast against (*grid, <n dims>, *shape) activations."""
+    return p.view(*p.shape[:GRID], *([1] * n), *p.shape[GRID:])
+
+
+def _ln(x, scale, bias, eps=1e-5):
+    """Layer norm over the last dim with per-rank scale and bias (x's rank is
+    GRID + n + 1, the leaves' GRID + 1)."""
+    n = x.dim() - GRID - 1
+    y = F.layer_norm(x, x.shape[-1:], eps=eps)
+    return y * _bcast(scale, n) + _bcast(bias, n)
+
+
+def _model_sum(x: torch.Tensor, tp: int) -> torch.Tensor:
+    """``lax.psum(x, 'model')``: the sum over the M dim on every model rank."""
+    return x.sum(dim=MODEL_DIM, keepdim=True).expand_as(x) if tp > 1 else x
+
+
+def _positions(sp: int, sl: int, zigzag: bool, device) -> torch.Tensor:
+    """(S, sl) int64: the position-embedding rows of each sequence rank."""
+    if zigzag and sp > 1:
+        # zigzag layout: tokens/labels arrive zigzag-ordered (shard_tokens), so
+        # the position rows follow the same permutation of the run-time global
+        # length sp*sl
+        return torch.as_tensor(zigzag_perm(sp * sl, sp), device=device).view(sp, sl)
+    return torch.arange(sp * sl, device=device).view(sp, sl)
+
+
+def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int):
+    """The forward of every rank at once.
+
+    tokens: (R, D, S, M, Bl, Sl) int. params: per-rank local shards, each leaf
+    (R, D, S, M, *local). Returns (final hidden states (R, D, S, M, Bl, Sl,
+    d_model) float32 post final-LN, the same on every model rank, and the MoE
+    aux-loss total, 0.0 without experts). The LM head is applied by the loss.
+    """
+    mlsl_assert(cfg.n_experts == 0, "MoE layers (n_experts > 0) are not ported yet "
+                                    "(ROADMAP A: MoE, with kernel B6)")
+    grid, (bl, sl) = tokens.shape[:GRID], tokens.shape[GRID:]
+    emb = params["embed"]
+    cdt = _dtype(cfg.dtype)
+    dm = cfg.d_model
+    idx = _positions(sp, sl, cfg.attention == "zigzag", tokens.device)
+    idx = idx.view(1, 1, sp, 1, sl, 1).expand(*grid, sl, dm)
+    pos = torch.gather(emb["pos"], GRID, idx)                         # (*grid, Sl, dm)
+    tok_idx = tokens.reshape(*grid, bl * sl, 1).long().expand(*grid, bl * sl, dm)
+    tok = torch.gather(emb["tok"], GRID, tok_idx).view(*grid, bl, sl, dm)
+    h = (tok + pos.unsqueeze(GRID)).to(cdt)
+
+    if cfg.attention == "zigzag":
+        def attn_fn(q, k, v, ax, n, causal=True):
+            mlsl_assert(causal, "zigzag attention is causal-only "
+                                "(use attention='ring' for non-causal)")
+            if n > 1:
+                return zigzag_ring_attention(q, k, v, ax, n)
+            return ring_attention(q, k, v, ax, n, causal=True)
+    else:
+        attn_fn = ring_attention if cfg.attention == "ring" else ulysses_attention
+
+    for i in range(cfg.n_blocks):
+        lnp, ap, mp = (params[f"blk{i}.{part}"] for part in ("ln", "attn", "mlp"))
+        a = _ln(h.float(), lnp["ln1_scale"], lnp["ln1_bias"]).to(cdt)
+        qkv = torch.einsum("...bsd,...dchx->...bcshx", a, ap["wqkv"].to(cdt))
+        q, k, v = (qkv[..., c, :, :, :].movedim(-2, -3) for c in range(3))  # (*grid, Bl, Hl, Sl, Dh)
+        attn = attn_fn(q, k, v, SEQ_DIM, sp, causal=True)
+        # bf16 operands, f32 product: the residual add and the TP sum stay f32
+        o = mxu_einsum("...bhsx,...hxd->...bsd", attn.to(cdt), ap["wo"].to(cdt))
+        h = (h.float() + _model_sum(o, tp)).to(cdt)
+
+        a = _ln(h.float(), lnp["ln2_scale"], lnp["ln2_bias"]).to(cdt)
+        f = F.gelu(torch.einsum("...bsd,...df->...bsf", a, mp["w1"].to(cdt))
+                   + _bcast(mp["b1"], 2).to(cdt), approximate="tanh")
+        o = mxu_einsum("...bsf,...fd->...bsd", f, mp["w2"].to(cdt))
+        h = (h.float() + _model_sum(o, tp) + _bcast(mp["b2"], 2)).to(cdt)
+
+    fin = params["final"]
+    return _ln(h.float(), fin["ln_scale"], fin["ln_bias"]), 0.0
+
+
+def local_loss(params, tokens, labels, cfg: TransformerConfig, sp: int, tp: int):
+    """Sum (not mean) of CE over each rank's local token shard -> ((R, D, S,
+    M) float32, aux). The reduction across data/seq shards belongs to the
+    gradient requests. The LM head is replicated over the model axis."""
+    mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
+                                       "(ROADMAP A: the transformer's remaining options)")
+    h, aux = forward_local(params, tokens, cfg, sp, tp)
+    logits = torch.einsum("...bsd,...dv->...bsv", h, params["final"]["head"].float())
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    return ce.sum(dim=(-2, -1)), aux
+
+
+class HybridTrainer:
+    """dp x sp x tp training with per-layer MLSL gradient sync over data x seq.
+
+    ``params``: the starting weights as a global tree in the JAX package's
+    layout (numpy arrays or tensors, e.g. ``mlsl_tpu``'s ``init_params``
+    converted to numpy); without it they come from ``init_params`` with a
+    generator seeded by ``seed``. The parameters live in ``self.params`` as
+    per-rank (R, D, S, M, *local) tensors and are updated in place."""
+
+    def __init__(self, env, cfg: TransformerConfig, dp: int, sp: int, tp: int,
+                 batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
+                 distributed_update: bool = False, compression=None, optimizer=None,
+                 params=None):
+        mlsl_assert(cfg.n_experts == 0, "MoE layers (n_experts > 0) are not ported yet "
+                                        "(ROADMAP A: MoE, with kernel B6)")
+        mlsl_assert(not cfg.remat, "remat is not ported yet "
+                                   "(ROADMAP A: the transformer's remaining options)")
+        mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
+                                           "(ROADMAP A: the transformer's remaining options)")
+        mlsl_assert(not distributed_update, "the distributed update (ZeRO-1) is not ported "
+                                            "yet (ROADMAP A: ZeRO-1 and optax)")
+        mlsl_assert(optimizer is None, "optimizers other than the built-in SGD are not "
+                                       "ported yet (ROADMAP A: ZeRO-1 and optax)")
+        self.env = env
+        self.cfg = cfg
+        self.dp, self.sp, self.tp = dp, sp, tp
+        self.batch = batch if batch is not None else dp
+        mlsl_assert(self.batch % dp == 0, "batch %d %% dp %d", self.batch, dp)
+        self.lr = lr
+        self.dist = env.create_distribution(dp, tp, seq_parts=sp)
+        mlsl_assert(
+            self.dist.replica_count == 1,
+            "world size must equal dp*sp*tp (got %d replicas)", self.dist.replica_count,
+        )
+        mlsl_assert(cfg.n_heads % tp == 0, "heads %d %% tp %d", cfg.n_heads, tp)
+        mlsl_assert(cfg.seq_len % sp == 0, "seq %d %% sp %d", cfg.seq_len, sp)
+        self.grid = self.dist.topology.grid_shape
+        self.session = env.create_session()
+        self.session.set_global_minibatch_size(self.batch)
+
+        self.specs = param_specs(cfg)
+        if params is None:
+            params = init_params(torch.Generator().manual_seed(seed), cfg)
+        self.params = transformer_params_from_jax(params, cfg, self.grid, device=env.device)
+        for leaf in tree_leaves(self.params):
+            leaf.requires_grad_(True)
+        self.layers = layer_names(cfg)
+        self._leaves = {n: tree_leaves(self.params[n]) for n in self.layers}
+        self._leaf_specs = {n: tree_leaves(self.specs[n]) for n in self.layers}
+
+        # local (per-rank) flat size of each layer = Operation kernel count
+        self.local_counts = {
+            n: sum(int(np.prod(p.shape[GRID:])) for p in self._leaves[n]) for n in self.layers
+        }
+        comp = CompressionType(compression) if compression is not None else CompressionType.NONE
+        self.ops = {}
+        for name in self.layers:
+            reg = self.session.create_operation_reg_info(OpType.CC)
+            reg.set_name(name)
+            reg.add_input(tp, 1)   # placeholder activations (graph comm is unused
+            reg.add_output(tp, 1)  # here; grads flow through the parameter sets)
+            # MLSL kernel counts are global: the ParameterSet partitions them over the
+            # model group, recovering the per-rank length local_counts[name]
+            reg.add_parameter_set(self.local_counts[name] * tp, 1, DataType.FLOAT,
+                                  compression_type=comp)
+            self.ops[name] = self.session.get_operation(
+                self.session.add_operation(reg, self.dist)
+            )
+        self.session.commit()
+        self.padded_counts = {
+            n: self.ops[n].get_parameter_set(0).get_local_kernel_count() for n in self.layers
+        }
+        # When no ParameterSet needs gradient comm (grad group of one: dp=sp=1;
+        # TP-only grids qualify -- the TP sums of replicated leaves happen in
+        # the step), fuse loss + grad + update and skip the per-layer buffers.
+        self.fused = not any(self.ops[n].get_parameter_set(0).need_comm for n in self.layers)
+        # synced grads are sums of d(CE sum)/dw over all data x seq shards; SGD on
+        # the mean loss divides by the total token count
+        self._norm = self.batch * cfg.seq_len
+
+    # -- data placement ----------------------------------------------------
+
+    def shard_tokens(self, tokens: np.ndarray, labels: np.ndarray):
+        """Global (B, S) tokens and labels -> (R, D, S, M, Bl, Sl) int64 on the
+        Environment's device: batch over data, sequence over seq, the same on
+        every model rank; in zigzag order when attention is 'zigzag'."""
+        if self.cfg.attention == "zigzag" and self.sp > 1:
+            # CE is position-wise, so a consistent (tokens, labels) permutation
+            # leaves the loss and the parameter trajectory unchanged
+            perm = zigzag_perm(tokens.shape[1], self.sp)
+            tokens, labels = np.asarray(tokens)[:, perm], np.asarray(labels)[:, perm]
+        r, d, s, m = self.grid
+        b, n = tokens.shape
+        mlsl_assert(b % d == 0 and n % s == 0, "tokens (%d, %d) do not split over a "
+                    "(%d data, %d seq) grid", b, n, d, s)
+
+        def place(a):
+            t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.env.device)
+            t = t.reshape(r, d, b // d, s, n // s).permute(0, 1, 3, 2, 4)
+            return t.unsqueeze(3).expand(r, d, s, m, b // d, n // s)
+
+        return place(tokens), place(labels)
+
+    # -- the training step -------------------------------------------------
+
+    def _all_leaves(self) -> List[torch.Tensor]:
+        return [p for n in self.layers for p in self._leaves[n]]
+
+    def _backward(self, tokens, labels):
+        """-> (CE sums (R, D, S, M), per-leaf gradients) of the sum over all
+        ranks of their CE / tp, the TP sum over M applied to replicated leaves."""
+        with torch.enable_grad():
+            ce, _ = local_loss(self.params, tokens, labels, self.cfg, self.sp, self.tp)
+            grads = torch.autograd.grad((ce / self.tp).sum(), self._all_leaves())
+        specs = [s for n in self.layers for s in self._leaf_specs[n]]
+        grads = [_model_sum(g.float(), self.tp) if spec is None else g.float()
+                 for g, spec in zip(grads, specs)]
+        return ce.detach(), grads
+
+    def _grad_fn(self, tokens, labels):
+        """-> (loss (R, D, S, M, 1), {layer: (R, D, S, M, padded count) float32
+        gradient rows in JAX leaf order}), before any sync: the buffers the
+        ParameterSet requests take."""
+        ce, grads = self._backward(tokens, labels)
+        it = iter(grads)
+        flat = {}
+        for name in self.layers:
+            g = torch.cat([next(it).reshape(*self.grid, -1) for _ in self._leaves[name]], dim=-1)
+            pad = self.padded_counts[name] - g.shape[-1]
+            flat[name] = F.pad(g, (0, pad)) if pad else g
+        return ce[..., None], flat
+
+    @torch.no_grad()
+    def _apply(self, leaves, grads) -> None:
+        """p -= lr * (g / (batch * seq_len)) for each leaf and its gradient."""
+        for p, g in zip(leaves, grads):
+            p.sub_(self.lr * (g / self._norm))
+
+    def step(self, tokens, labels) -> torch.Tensor:
+        """One training step on sharded (tokens, labels) -> the mean CE."""
+        if self.fused:
+            ce, grads = self._backward(tokens, labels)
+            self._apply(self._all_leaves(), grads)
+            return ce[:, :, :, 0].sum() / self._norm
+        loss, grads = self._grad_fn(tokens, labels)
+        return self._sync_and_update(grads, loss)
+
+    def _sync_and_update(self, grads, loss) -> torch.Tensor:
+        # newest gradient first: the backward produces the last layer's first
+        for name in reversed(self.layers):
+            self.ops[name].get_parameter_set(0).start_gradient_comm(grads[name])
+        for name in self.layers:
+            out = self.ops[name].get_parameter_set(0).wait_gradient_comm()
+            reduced = out if out is not None else grads[name]
+            leaves, off, parts = self._leaves[name], 0, []
+            for p in leaves:
+                n = int(np.prod(p.shape[GRID:]))
+                parts.append(reduced[..., off:off + n].reshape(p.shape))
+                off += n
+            self._apply(leaves, parts)
+        # the loss buffer holds per-(data, seq)-shard CE sums, the same on every
+        # model rank -> take slot 0; mean = total / (batch * seq_len)
+        return loss[:, :, :, 0].sum() / self._norm

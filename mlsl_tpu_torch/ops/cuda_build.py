@@ -30,6 +30,7 @@ SOURCES = {
     "quant_kernels": "quant_kernels.cu",
     "ring_kernels": "ring_kernels.cu",
     "rhd_kernels": "rhd_kernels.cu",
+    "attention_kernels": "attention_kernels.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,24 +1,32 @@
-"""Where one int8-compressed ResNet-50 data-parallel training step spends its time.
+"""Where one training step spends its time on the card.
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 -m mlsl_tpu_torch.tools.profile_step [--steps 3] [--warmup 2]
+    python3 -m mlsl_tpu_torch.tools.profile_step [--model resnet] [--steps 3] [--warmup 2]
 
-It builds chip_smoke.py's config 5 (ResNet-50 at 224x224, 1000 classes, global
-batch 64 on 8 virtual data ranks, int8 error-feedback gradient ring; with
-MLSL_ALGO=pallas_ring exported, the fused int8 ring kernel), warms up,
-times ``--steps`` steps with the host clock, then traces as many steps again
-with ``torch.profiler`` (the Chrome trace goes to ``--trace``) and prints one
-JSON object:
+``--model`` picks the step:
+
+- ``resnet`` (the default): chip_smoke.py's config 5, ResNet-50 at 224x224,
+  1000 classes, global batch 64 on 8 virtual data ranks, int8 error-feedback
+  gradient ring (with MLSL_ALGO=pallas_ring exported, the fused int8 ring);
+- ``transformer-1``: gpt-medium-2k (models/transformer.GPT_MEDIUM_2K, bf16,
+  batch 8) on 1 rank, the fused step, flash attention kernels B7 and B8;
+- ``transformer-8``: the same model and batch on 8 virtual ranks, dp=2 x
+  sp=2 x tp=2, zigzag attention (kernel B9), per-layer gradient requests.
+
+It warms up, times ``--steps`` steps with the host clock, then traces as
+many steps again with ``torch.profiler`` (the Chrome trace goes to
+``--trace``) and prints one JSON object:
 
 - ``step_s``: host seconds per step, untraced, each ending in a synchronize;
-- per half of the step (the eight ranks' forward/backward passes, then the
-  18 gradient rings and the SGD update, with a synchronize between them):
-  traced wall seconds, device kernel seconds (the union of kernel intervals,
-  so overlapping streams are not counted twice), and the device idle share
+- per half of the step (every rank's forward/backward, then the gradient
+  requests and the SGD update, with a synchronize between them): traced
+  wall seconds, device kernel seconds (the union of kernel intervals, so
+  overlapping streams are not counted twice), and the device idle share
   ``1 - kernel / wall``;
-- device kernel seconds by class (codec kernels, convolution, matrix
-  products, the rest) and the ``--top`` kernel names by device time.
+- device kernel seconds by class (codec kernels, attention kernels,
+  convolution, matrix products, the rest) and the ``--top`` kernel names by
+  device time.
 
 Traced wall times include the profiler's own host cost; ``step_s`` does not.
 It fails, printing no result, when there is no card or the trace holds no
@@ -28,6 +36,7 @@ device kernel.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -39,16 +48,21 @@ import torch
 
 from mlsl_tpu_torch import CompressionType, get_env
 from mlsl_tpu_torch.models import resnet
+from mlsl_tpu_torch.models import transformer as tfm
 from mlsl_tpu_torch.models.train import DataParallelTrainer
 from mlsl_tpu_torch.ops.cuda_build import build_dir
+from mlsl_tpu_torch.ops import attention_kernels as ak
 from mlsl_tpu_torch.ops import quant_kernels as qk
 from mlsl_tpu_torch.ops import ring_kernels as rk
 
 HALVES = ("local_grads", "sync_and_update")
 CLASSES = (
     ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
-    ("convolution", re.compile(r"conv|cudnn|xmma|implicit|wgrad|dgrad|fprop", re.I)),
-    ("matmul", re.compile(r"gemm|cutlass|cublas", re.I)),
+    ("attention", re.compile(r"fwd_kernel|dq_kernel|dkv_kernel")),
+    # cuDNN's convolutions name their pass (fprop/dgrad/wgrad, implicit gemm);
+    # cuBLAS's float32 products are xmma/cutlass/nvjet gemms
+    ("convolution", re.compile(r"conv|cudnn|implicit|wgrad|dgrad|fprop", re.I)),
+    ("matmul", re.compile(r"gemm|cutlass|cublas|nvjet", re.I)),
 )
 
 
@@ -69,12 +83,31 @@ def build_trainer(world=8, image=224, classes=1000, batch=64, seed=0):
     return env, trainer, trainer.shard_batch(x, y)
 
 
+# (dp, sp, tp, attention) of each transformer step
+TRANSFORMERS = {"transformer-1": (1, 1, 1, "ring"), "transformer-8": (2, 2, 2, "zigzag")}
+
+
+def build_transformer(dp, sp, tp, attention, batch=8, seed=0):
+    cfg = dataclasses.replace(tfm.GPT_MEDIUM_2K, attention=attention, dtype="bfloat16")
+    env = get_env().init(world_size=dp * sp * tp)
+    trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=0.1, seed=seed)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, size=(batch, cfg.seq_len)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab, size=(batch, cfg.seq_len)).astype(np.int32)
+    return env, trainer, trainer.shard_tokens(toks, labels)
+
+
 def traced_step(trainer, batch) -> None:
-    """``trainer.step`` as its two halves, each a named range ending in a
-    synchronize, so the device work of each half lies inside its range."""
-    trainer._step_no += 1
+    """One step as its two halves, each a named range ending in a
+    synchronize, so the device work of each half lies inside its range
+    (the transformer's fused step runs here as its graph form, whose
+    requests communicate nothing)."""
     with torch.profiler.record_function(HALVES[0]):
-        loss, grads = trainer._local_grads(batch)
+        if isinstance(trainer, DataParallelTrainer):
+            trainer._step_no += 1
+            loss, grads = trainer._local_grads(batch)
+        else:
+            loss, grads = trainer._grad_fn(*batch)
         torch.cuda.synchronize()
     with torch.profiler.record_function(HALVES[1]):
         trainer._sync_and_update(grads, loss)
@@ -125,6 +158,7 @@ def summarize(trace: dict, top: int, steps: int) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("resnet", *TRANSFORMERS), default="resnet")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
@@ -136,32 +170,38 @@ def main(argv=None) -> int:
         print("profile_step: torch.cuda.is_available() is false: this needs a card",
               file=sys.stderr)
         return 1
-    env, trainer, batch = build_trainer()
+    if args.model == "resnet":
+        env, trainer, batch = build_trainer()
+        step = lambda: trainer.step(batch)          # noqa: E731
+    else:
+        env, trainer, batch = build_transformer(*TRANSFORMERS[args.model])
+        step = lambda: trainer.step(*batch)         # noqa: E731
     try:
         for _ in range(args.warmup):
-            trainer.step(batch)
+            step()
         torch.cuda.synchronize()
         step_s = []
         for _ in range(args.steps):
             t0 = time.perf_counter()
-            trainer.step(batch)
+            step()
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-        qk.reset_counts()
-        rk.reset_counts()
+        for m in (qk, rk, ak):
+            m.reset_counts()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.steps):
                 traced_step(trainer, batch)
-        launches = {**qk.LAUNCHES, **rk.LAUNCHES}
+        launches = {**qk.LAUNCHES, **rk.LAUNCHES, **ak.LAUNCHES}
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
         with open(args.trace) as f:
             trace = json.load(f)
     finally:
         env.finalize()
-    out = {"device": torch.cuda.get_device_name(0), "steps": args.steps,
-           "ring": trainer.ops[trainer.layers[0]].get_parameter_set(0).grad_req.algo,
+    req = trainer.ops[trainer.layers[0]].get_parameter_set(0).grad_req
+    out = {"device": torch.cuda.get_device_name(0), "model": args.model, "steps": args.steps,
+           "ring": req.algo if req is not None else None,
            "step_s": step_s, "traced_launches": launches,
            **summarize(trace, args.top, args.steps)}
     print(json.dumps(out))

@@ -1,0 +1,243 @@
+"""The port's flash attention (mlsl_tpu_torch.ops.attention_kernels: B7, B8,
+B9) against the JAX package's kernels under the Pallas interpreter, as
+tests/test_flash.py runs them.
+
+On the CPU the port's wrappers run their plain versions, so these tests hold
+the plain B7 (output and lse), B8 (the gradients of ``flash_attention``,
+against ``jax.vjp``) and B9 (the carried state, chained over two hops, and its
+gradients) to the JAX kernels: causal and not, shifted offsets, offsets that
+mask whole rows (output and gradients exactly 0 there), head_dim 8 to 128.
+
+Tolerances: float32 inputs; the TPU kernels fold 128- to 2048-wide tiles and
+the plain version the whole row at once, so sums differ in order: 2e-5
+absolute and relative for outputs and the state (m, l are compared on the
+TPU's lane 0), 1e-4 for gradients.
+
+The ``cuda``-marked tests hold each CUDA kernel against its plain version and
+skip where there is no card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mlsl_tpu.ops import attention_kernels as jak
+from mlsl_tpu_torch.log import MLSLError
+from mlsl_tpu_torch.ops import attention_kernels as tak
+
+torch.set_num_threads(2)
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+GTOL = dict(atol=1e-4, rtol=1e-4)
+
+# (name, bh, sq, sk, d, causal, q_off, k_off)
+FWD_CASES = [
+    ("plain", 4, 256, 256, 64, False, 0, 0),
+    ("causal", 4, 256, 256, 64, True, 0, 0),
+    ("later_queries", 2, 128, 128, 64, True, 256, 0),
+    ("partial_offsets", 2, 128, 256, 32, True, 100, 37),
+    ("all_rows_masked", 2, 128, 128, 64, True, 0, 256),
+    ("some_rows_masked", 2, 256, 128, 16, True, 0, 64),
+    ("d8", 3, 128, 128, 8, True, 0, 0),
+    ("d128_noncausal", 2, 128, 256, 128, False, 0, 0),
+]
+
+
+def _arrays(name, bh, sq, sk, d):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    mk = lambda s: rng.normal(size=(bh, s, d)).astype(np.float32)
+    return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+def _offs(q_off, k_off):
+    return jnp.asarray([q_off], jnp.int32), jnp.asarray([k_off], jnp.int32)
+
+
+def _masked_rows(sq, sk, q_off, k_off):
+    """Rows whose every key lies in their future."""
+    return q_off + np.arange(sq) < k_off
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: c[0])
+def test_plain_flash_fwd_matches_jax(case):
+    name, bh, sq, sk, d, causal, q_off, k_off = case
+    q, k, v, _ = _arrays(name, bh, sq, sk, d)
+    jo, jl = jak._flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            *_offs(q_off, k_off), causal=causal, interpret=True)
+    to, tl = tak.flash_fwd(*(torch.from_numpy(a) for a in (q, k, v)), q_off, k_off, causal)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), **TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, :, 0], **TOL)
+    rows = _masked_rows(sq, sk, q_off, k_off) if causal else np.zeros(sq, bool)
+    assert (to.numpy()[:, rows] == 0).all()
+    assert tak.LAUNCHES["flash_fwd"] == 0      # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: c[0])
+def test_plain_flash_gradients_match_jax_vjp(case):
+    name, bh, sq, sk, d, causal, q_off, k_off = case
+    q, k, v, g = _arrays(name, bh, sq, sk, d)
+    qo, ko = _offs(q_off, k_off)
+    _, vjp = jax.vjp(lambda a, b, c: jak.flash_attention(a, b, c, qo, ko, causal, True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tak.flash_attention(*ts, q_off, k_off, causal)
+    got = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    for gt, gw in zip(got, want):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gw), **GTOL)
+    if causal:
+        rows = _masked_rows(sq, sk, q_off, k_off)
+        assert (got[0].numpy()[:, rows] == 0).all()
+
+
+# (name, bh, sq, sk, d, causal, q_off, k_off for hop 1, k_off for hop 2)
+BU_CASES = [
+    ("ring_causal", 4, 128, 128, 32, True, 128, 0, 128),
+    ("noncausal", 4, 128, 256, 64, False, 0, 0, 0),
+    ("future_then_past", 2, 128, 128, 16, True, 0, 128, 0),
+    ("diag_d128", 2, 128, 128, 128, True, 0, 0, 0),
+]
+
+
+def _state_arrays(rng, bh, sq, d, fresh):
+    if fresh:
+        return (np.zeros((bh, sq, d), np.float32), np.full((bh, sq), jak.NEG, np.float32),
+                np.zeros((bh, sq), np.float32))
+    m = rng.normal(size=(bh, sq)).astype(np.float32)
+    return (rng.normal(size=(bh, sq, d)).astype(np.float32), m,
+            rng.uniform(0.5, 2.0, size=(bh, sq)).astype(np.float32))
+
+
+def _lanes(x):
+    return jnp.broadcast_to(jnp.asarray(x)[..., None], (*x.shape, 128))
+
+
+@pytest.mark.parametrize("case", BU_CASES, ids=lambda c: c[0])
+def test_plain_block_update_matches_jax_over_two_hops(case):
+    name, bh, sq, sk, d, causal, q_off, k1, k2 = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, ka, va, kb, vb = (rng.normal(size=(bh, s, d)).astype(np.float32)
+                         for s in (sq, sk, sk, sk, sk))
+    acc, m, l = _state_arrays(rng, bh, sq, d, fresh=True)
+    jstate = (jnp.asarray(acc), _lanes(m), _lanes(l))
+    tstate = tuple(torch.from_numpy(a) for a in (acc, m, l))
+    for kk, vv, k_off in ((ka, va, k1), (kb, vb, k2)):
+        jstate = jak.flash_block_update(jnp.asarray(q), jnp.asarray(kk), jnp.asarray(vv),
+                                        *jstate, *_offs(q_off, k_off), causal, True)
+        tstate = tak.block_update(torch.from_numpy(q), torch.from_numpy(kk),
+                                  torch.from_numpy(vv), *tstate, q_off, k_off, causal)
+        np.testing.assert_allclose(tstate[0].numpy(), np.asarray(jstate[0]), **TOL)
+        for t, j in zip(tstate[1:], jstate[1:]):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j)[:, :, 0], **TOL)
+    assert tak.LAUNCHES["block_update"] == 0
+
+
+@pytest.mark.parametrize("case", BU_CASES, ids=lambda c: c[0])
+def test_plain_block_update_gradients_match_jax_vjp(case):
+    """The port's B9 backward (autograd through the plain version) against
+    JAX's ``_bu_bwd`` (jax.vjp of ``_block_update_ref``), from a carried
+    state that is not the empty one. The TPU's m and l are lane-broadcast:
+    its cotangents and its input gradients live on lane 0."""
+    name, bh, sq, sk, d, causal, q_off, k_off, _ = case
+    rng = np.random.default_rng(sum(map(ord, name)) + 1)
+    q, k, v = (rng.normal(size=(bh, s, d)).astype(np.float32) for s in (sq, sk, sk))
+    acc, m, l = _state_arrays(rng, bh, sq, d, fresh=False)
+    ga, gm, gl = (rng.normal(size=x.shape).astype(np.float32) for x in (acc, m, l))
+    qo, ko = _offs(q_off, k_off)
+
+    def jfn(q_, k_, v_, a_, m_, l_):
+        return jak.flash_block_update(q_, k_, v_, a_, m_, l_, qo, ko, causal, True)
+
+    _, vjp = jax.vjp(jfn, *(jnp.asarray(x) for x in (q, k, v, acc)), _lanes(m), _lanes(l))
+    zero_lanes = lambda x: jnp.zeros((*x.shape, 128), jnp.float32).at[..., 0].set(x)
+    want = vjp((jnp.asarray(ga), zero_lanes(gm), zero_lanes(gl)))
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, acc, m, l)]
+    outs = tak.flash_block_update(*ts, q_off, k_off, causal)
+    got = torch.autograd.grad(outs, ts, tuple(torch.from_numpy(x) for x in (ga, gm, gl)))
+    for i, (gt, gw) in enumerate(zip(got, want)):
+        gw = np.asarray(gw)
+        if i >= 4:
+            gw = gw[:, :, 0]
+        np.testing.assert_allclose(gt.numpy(), gw, **GTOL)
+
+
+def test_supports_predicate_and_shape_checks():
+    for sq, sk, d in ((256, 256, 64), (100, 256, 64), (256, 256, 7), (128, 384, 8),
+                      (128, 128, 4), (2048, 2048, 64)):
+        assert tak.supports(sq, sk, d) == jak.supports(sq, sk, d)
+    q = torch.zeros(2, 100, 64)
+    with pytest.raises(MLSLError, match="supports"):
+        tak.flash_fwd(q, q, q, 0, 0, True)
+    q = torch.zeros(2, 128, 64)
+    with pytest.raises(MLSLError, match="offsets"):
+        tak.flash_fwd(q, q, q, torch.zeros(3, dtype=torch.int32), 0, True)
+    with pytest.raises(MLSLError, match="unsupported device"):
+        tak.flash_fwd(q.to("meta"), q.to("meta"), q.to("meta"), 0, 0, True)
+
+
+def test_per_row_offsets_equal_separate_calls():
+    """One call with an offset per (b, h) row -- what a launch spanning ring
+    ranks gets -- equals one call per row with its own scalar offsets."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(3, 128, 16)).astype(np.float32))
+               for _ in range(3))
+    qo, ko = torch.tensor([0, 128, 256], dtype=torch.int32), torch.tensor([128, 0, 200])
+    out, lse = tak.flash_fwd(q, k, v, qo, ko, True)
+    for b in range(3):
+        o1, l1 = tak.flash_fwd(q[b:b + 1], k[b:b + 1], v[b:b + 1], int(qo[b]), int(ko[b]), True)
+        assert torch.equal(out[b:b + 1], o1) and torch.equal(lse[b:b + 1], l1)
+    assert (out[0] == 0).all() and (out[2] != 0).any()
+
+
+# -- the CUDA kernels against their plain versions (need a card) ----------------
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("cuda marker: the CUDA kernels need a card")
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: c[0])
+def test_cuda_flash_kernels_match_plain(case, dtype):
+    _need_card()
+    name, bh, sq, sk, d, causal, q_off, k_off = case
+    dt = getattr(torch, dtype)
+    q, k, v, g = (torch.from_numpy(a).cuda().to(dt) for a in _arrays(name, bh, sq, sk, d))
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    o, lse = tak.flash_fwd(q, k, v, q_off, k_off, causal)
+    ro, rl = tak.flash_fwd(q.cpu(), k.cpu(), v.cpu(), q_off, k_off, causal)
+    assert _rel(o.cpu(), ro) < tol and _rel(lse.cpu(), rl) < 1e-5
+    dd = (g.float() * o.float()).sum(-1)
+    dq = tak.flash_bwd_dq(q, k, v, g, lse, dd, q_off, k_off, causal)
+    dk, dv = tak.flash_bwd_dkv(q, k, v, g, lse, dd, q_off, k_off, causal)
+    cpu = [t.cpu() for t in (q, k, v, g, lse, dd)]
+    assert _rel(dq.cpu(), tak.flash_bwd_dq(*cpu, q_off, k_off, causal)) < tol
+    for got, want in zip((dk, dv), tak.flash_bwd_dkv(*cpu, q_off, k_off, causal)):
+        assert _rel(got.cpu(), want) < tol
+    if causal:
+        rows = torch.from_numpy(_masked_rows(sq, sk, q_off, k_off))
+        assert (o.cpu()[:, rows] == 0).all() and (dq.cpu()[:, rows] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BU_CASES, ids=lambda c: c[0])
+def test_cuda_block_update_matches_plain(case):
+    _need_card()
+    name, bh, sq, sk, d, causal, q_off, k_off, _ = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(np.float32)).cuda()
+               for s in (sq, sk, sk))
+    state = [torch.from_numpy(x).cuda() for x in _state_arrays(rng, bh, sq, d, fresh=False)]
+    got = tak.block_update(q, k, v, *state, q_off, k_off, causal)
+    want = tak.block_update(q.cpu(), k.cpu(), v.cpu(), *(s.cpu() for s in state), q_off,
+                            k_off, causal)
+    for a, b in zip(got, want):
+        assert _rel(a.cpu(), b) < 1e-5
