@@ -72,6 +72,31 @@ Phases, in order; any failure exits non-zero and prints no result:
              ring attention at 2 blocks: B9 with per-row offsets, 2
              launches a block and step. Each run prints its step seconds,
              tokens/s and the last step's split.
+15. a2a parity the fused all-to-all B6 against its plain version, bit for
+             bit, dense and int8: the data group of an 8 x 1 world, both
+             single-axis groups of a (4, 2) world, two-axis groups, counts
+             that need chunk padding, strided rows, blocks 128 to 1,024,
+             all-zero blocks and -0.0, and the stateful error-feedback form
+             over 2 rounds (outputs and residuals); then the MoE combine
+             exchange at the path's own shape (4,194,304 floats a rank over
+             the model axis of a (4, 2) world, block 256): both variants, the
+             error-feedback form with B1 at the path's 131,072 x 256 rows
+             (which phase 2 also checks alone), and the differentiable route
+             the MoE layer takes, its forward and its gradient.
+16. alltoall Distribution.all_to_all on 8 ranks at 64 MiB a rank through a
+             CommRequest: lax, then MLSL_ALGO=alltoall=pallas_a2a dense
+             (MLSL_PALLAS_A2A_QUANT=0) on random floats and int8 on the
+             exact-scale payload, each bit-exact to lax; one line a route
+             with its time and algbw.
+17. gpt-medium-2k-moe8 (gpt-medium-2k's widths, 8 experts, top-1, capacity
+             factor 2.0, aux weight 0.01; depth cut to 6 of 12 blocks) on 8
+             ranks, dp=2 x sp=2 x tp=2 (ep = 2), zigzag, batch 8,
+             MLSL_ALGO=alltoall=pallas_a2a, three steps: losses and reduced
+             gradients as in 14; per step B6 int8 once a block (the float32
+             combine exchange), B6 dense once a block (its backward), the
+             entry quantize (B1) once a block and B9 5 times a block; then
+             one no-grad forward of the loss on the same weights with the
+             exchange on pallas_a2a and on lax, within 0.005 of each other.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version, or to time
@@ -519,7 +544,8 @@ def check_config5(torch, trainer, losses, grads, errs):
 
 # -- the algorithm engine ---------------------------------------------------
 
-ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR")
+ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
+             "MLSL_PALLAS_A2A_QUANT")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -1056,13 +1082,14 @@ def gpt_medium():
     return tfm.GPT_MEDIUM_2K
 
 
-def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None):
+def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None, base=None):
     import dataclasses
 
     from mlsl_tpu_torch.models import transformer as tfm
 
-    cfg = dataclasses.replace(gpt_medium(), attention=attention, dtype="bfloat16",
-                              n_blocks=n_blocks or gpt_medium().n_blocks)
+    base = base or gpt_medium()
+    cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16",
+                              n_blocks=n_blocks or base.n_blocks)
     trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=TFM_BATCH, lr=0.1, seed=SEED)
     rng = np.random.default_rng(SEED)
     toks = rng.integers(0, cfg.vocab, size=(TFM_BATCH, cfg.seq_len)).astype(np.int32)
@@ -1115,7 +1142,7 @@ def check_losses(losses, vocab, tag):
     check(losses[-1] < losses[0], f"{tag}: the loss did not fall: {losses}")
 
 
-def check_transformer_grads(torch, trainer, grads) -> float:
+def check_transformer_grads(torch, trainer, grads, tag="transformer 8 ranks") -> float:
     """Each layer's reduced gradient on the last step against the float64
     sum of its rank rows over the data x seq group: every member holds the
     same sum, within 1e-6 relative L2 error. -> the worst layer's error."""
@@ -1126,11 +1153,11 @@ def check_transformer_grads(torch, trainer, grads) -> float:
     for name in trainer.layers:
         reduced = group_view(trainer.ops[name].get_parameter_set(0).grad_req._result, group)
         check(bool((reduced == reduced[:, :1]).all()),
-              f"transformer 8 ranks: members disagree on layer {name}'s reduced gradient")
+              f"{tag}: members disagree on layer {name}'s reduced gradient")
         exact = group_view(grads[name], group).double().sum(dim=1, keepdim=True)
         rel = rel_err(torch, reduced[:, :1], exact)
         worst = max(worst, rel)
-        check(rel < 1e-6, f"transformer 8 ranks: layer {name} reduced gradient off by {rel:.3g}")
+        check(rel < 1e-6, f"{tag}: layer {name} reduced gradient off by {rel:.3g}")
     return worst
 
 
@@ -1250,6 +1277,312 @@ def attention_entries(torch, F, ak, bw, bf16, runs, dev):
     return entries
 
 
+# -- the fused all-to-all (B6) and the MoE transformer ---------------------
+
+A2A_SRC = "mlsl_tpu_torch/csrc/a2a_kernels.cu"
+A2A_PY = "mlsl_tpu/ops/a2a_kernels.py"
+# gpt-medium-2k-moe8's depth on the card: 6 of its 12 blocks, for memory (8
+# virtual ranks hold 4 local experts of 2 x 4 Mi parameters a block each, with
+# their gradients, gradient rows and reduced rows in float32: the training step
+# alone grows 7.3 GiB a block, 62.5 GiB at 6 blocks and 77.1 GiB at 8 on an
+# 80 GB H100, profile_step --model moe-8 --blocks N; this phase holds ~6.4 GiB
+# more for its gradient checks)
+MOE_BLOCKS = 6
+
+
+def exact_scale(torch, gen, shape, block, dev):
+    """Small integers with a +-127 sentinel at every block start: every
+    blockwise amax is 127 and every scale exactly 1.0, so the int8 round
+    trip is the identity (tests/test_pallas_a2a.py:58-65)."""
+    v = torch.randint(-10, 10, shape, generator=gen, device=dev).float()
+    v[..., ::block] = 127.0
+    v[..., block::4 * block] = -127.0
+    return v
+
+
+def moe_combine_count(cfg, dp, sp, tp, batch=TFM_BATCH) -> int:
+    """Floats a rank in one block's MoE combine exchange: every rank's (ep,
+    E/ep, capacity, d_model) expert outputs, capacity = tokens per slice x
+    factor x top_k / E."""
+    per_slice = (batch // dp) * (cfg.seq_len // sp) // tp
+    capacity = int(per_slice * cfg.capacity_factor * cfg.moe_top_k / cfg.n_experts)
+    return cfg.n_experts * capacity * cfg.d_model
+
+
+def phase_a2a_parity(torch, a2a, algos, dev, moe_count):
+    """B6 against its plain version, bit for bit: dense and int8 on the
+    data group of an 8 x 1 world, both single-axis groups of a (4, 2) world
+    and two two-axis groups; chunks with and without padding, strided rows,
+    blocks 128 to 1,024, all-zero blocks and -0.0; then the stateful
+    error-feedback form over 2 rounds; then the MoE combine exchange at its
+    own shape (``moe_count`` floats a rank over the model axis of a (4, 2)
+    world, block BLOCK): both variants, the error-feedback form (B1 at the
+    path's rows) and the differentiable route, forward and backward.
+    -> number of comparisons."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cases = 0
+
+    def randn(w, n):
+        x = torch.randn((w, n), generator=gen, device=dev).mul_(30)
+        x *= torch.rand((w, 1), generator=gen, device=dev) * 10
+        x[:, 1::11] = -0.0
+        return x
+
+    groups = [(8, 1, ("data",)), (4, 2, ("data",)), (4, 2, ("model",)),
+              (4, 2, ("data", "model")), (2, 4, ("model", "data"))]
+    for d, m, axes in groups:
+        group = ProcessGroup(Topology(d, m, d * m), axes)
+        w, g = d * m, group.size
+        # dense: 16-byte vectors (rc % 4 == 0) and one float a thread
+        for rc in (4096, 1001, 3):
+            p = a2a.plan(group, g * rc, BLOCK, False)
+            for ld in (0, g * rc + 5):
+                x = randn(w, ld or g * rc)[:, :g * rc]
+                got = a2a.alltoall(x, p)
+                torch.cuda.synchronize()
+                check(same_bits(torch, got, a2a.alltoall_ref(x, p)),
+                      f"a2a parity: dense rc={rc} ld={ld} on {d}x{m} {axes} differs from its "
+                      f"plain version")
+                cases += 1
+        # int8: one chunk unit exactly, a ragged tail (two units), far below one
+        for block in (128, 256, 512, 1024):
+            for rc in (block * 32, block * 32 + 100, 37):
+                p = a2a.plan(group, g * rc, block, True)
+                x = randn(w, g * p.chunk)
+                x.view(w, -1, block)[:, ::5] = 0.0          # all-zero blocks: scale 1
+                got = a2a.alltoall(x, p)
+                torch.cuda.synchronize()
+                check(same_bits(torch, got, a2a.alltoall_ref(x, p)),
+                      f"a2a parity: int8 block {block} rc={rc} on {d}x{m} {axes} differs "
+                      f"from its plain version")
+                cases += 1
+    for d, m, axes, count, block in ((8, 1, ("data",), 8 * (256 * 32 + 77), 256),
+                                     (4, 2, ("model",), 2 * 3000, 128),
+                                     (4, 2, ("data", "model"), 8 * 1000, 512),
+                                     (4, 2, ("data",), 4 * 1024 * 32, 1024),
+                                     (4, 2, ("model",), moe_count, BLOCK)):
+        group = ProcessGroup(Topology(d, m, d * m), axes)
+        grid = group.topology.grid_shape
+        kern = algos.build("alltoall", group, "pallas_a2a", block=block, quantized=True,
+                           ef=True)
+        plain = algos.build("alltoall", group, "pallas_a2a", block=block, quantized=True,
+                            ef=True, plain=True)
+        _, el = a2a.alltoall_body_ef(group, count, block=block)
+        ek = ep = torch.zeros((*grid, el), device=dev)
+        for r in range(2):
+            x = randn(d * m, count).reshape(*grid, count) * (1.0 + 0.5 * r)
+            x[..., :3 * block] = 0.0
+            ok, ek = kern(x, ek)
+            op, ep = plain(x, ep)
+            torch.cuda.synchronize()
+            check(same_bits(torch, ok, op) and same_bits(torch, ek, ep),
+                  f"a2a parity: error feedback round {r} block {block} on {d}x{m} {axes}: "
+                  f"output or residual differs from the plain version")
+            check(not bool(torch.signbit(ok[ok == 0]).any()),
+                  "a2a parity: -0.0 survived the int8 round trip")
+            cases += 1
+        del x, ek, ep, ok, op
+    moe = ProcessGroup(Topology(4, 2, 8), ("model",))
+    for quantized in (False, True):
+        p = a2a.plan(moe, moe_count, BLOCK, quantized)
+        x = randn(8, 2 * p.in_chunk)
+        got = a2a.alltoall(x, p)
+        torch.cuda.synchronize()
+        check(same_bits(torch, got, a2a.alltoall_ref(x, p)),
+              f"a2a parity: {'int8' if quantized else 'dense'} MoE combine exchange "
+              f"({moe_count} a rank) differs from its plain version")
+        cases += 1
+    # the route the MoE layer takes: int8 forward, dense exchange of the
+    # cotangent backward
+    x = randn(8, moe_count).requires_grad_()
+    ct = randn(8, moe_count)
+    out = a2a.exchange(x, moe, block=BLOCK, quantized=True)
+    out.backward(ct)
+    torch.cuda.synchronize()
+    fwd, _ = a2a.alltoall_body_ef(moe, moe_count, block=BLOCK, plain=True)
+    back, _ = a2a.alltoall_body_ef(moe, moe_count, quantized=False, plain=True)
+    check(same_bits(torch, out.detach(), fwd(x.detach(), None)[0]),
+          "a2a parity: the MoE exchange's forward differs from the plain version")
+    check(same_bits(torch, x.grad, back(ct, None)[0]),
+          "a2a parity: the MoE exchange's gradient is not the dense exchange of the "
+          "cotangent")
+    return cases + 2
+
+
+def phase_alltoall(torch, get_env, launches, reset_launches, n=(64 << 20) // 4):
+    """Distribution.all_to_all on 8 ranks at 64 MiB a rank through a
+    CommRequest: lax on both payloads (equal to the closed form), then
+    pallas_a2a dense on random floats and int8 on the exact-scale payload,
+    each bit-exact to lax's result. -> (launches by kernel over the driven
+    requests, one '# algos' line a route)."""
+    from mlsl_tpu_torch import DataType, GroupType
+
+    dev = get_env().device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    sc = n // WORLD
+    payloads = {"random": torch.randn((1, WORLD, 1, 1, n), generator=gen, device=dev),
+                "exact-scale": exact_scale(torch, gen, (1, WORLD, 1, 1, n), BLOCK, dev)}
+    want_launch = {"lax": {}, "pallas_a2a dense": {"a2a_dense": 1},
+                   "pallas_a2a int8": {"a2a_quant": 1, "quantize_blocks": 1}}
+    lax_out, used, lines = {}, {}, []
+    for tag, algo, quant, payload in (("lax", "lax", "1", "random"),
+                                      ("lax", "lax", "1", "exact-scale"),
+                                      ("pallas_a2a dense", "pallas_a2a", "0", "random"),
+                                      ("pallas_a2a int8", "pallas_a2a", "1", "exact-scale")):
+        env = reinit(get_env, MLSL_ALGO=f"alltoall={algo}", MLSL_PALLAS_A2A_QUANT=quant)
+        dist = env.create_distribution(WORLD, 1)
+        x = payloads[payload]
+
+        def start():
+            return dist.all_to_all(x, sc, DataType.FLOAT, GroupType.DATA)
+
+        reset_launches()
+        req = start()
+        out = env.wait(req)
+        torch.cuda.synchronize()
+        n_launch = {k: v for k, v in launches().items() if v}
+        check(req.algo == algo, f"alltoall {tag}: request selected {req.algo!r}, not {algo!r}")
+        check(n_launch == want_launch[tag],
+              f"alltoall {tag}: launches {n_launch}, expected {want_launch[tag]}")
+        if algo == "lax":
+            # member j holds chunk j of every member, in member order
+            check(bool(torch.equal(out.view(WORLD, WORLD, sc),
+                                   x.view(WORLD, WORLD, sc).transpose(0, 1))),
+                  f"alltoall lax ({payload}): differs from the closed form")
+            lax_out[payload] = out
+        else:
+            check(same_bits(torch, out, lax_out[payload]),
+                  f"alltoall {tag} ({payload}): not bit-exact to lax")
+        for k, v in n_launch.items():
+            used[k] = used.get(k, 0) + v
+        ms = time_ms(torch, lambda: env.wait(start()), reps=5, warmup=1)
+        nbytes = n * 4
+        lines.append(f"# algos alltoall {tag} ({payload} payload): {req.algo} alltoall, "
+                     f"{nbytes} B per rank, float32: {ms:.4f} ms, algbw "
+                     f"{nbytes / ms / 1e6:.2f} GB/s, launches {n_launch}")
+        del out
+    return used, lines
+
+
+def moe_route_gap(torch, tfm, trainer, batch, a2a) -> dict:
+    """One no-grad forward of the loss on the trainer's weights with the
+    exchange forced to pallas_a2a (B6 int8 must launch once a block) and to
+    lax, the config re-validated between them (tests/test_pallas_a2a.py:338-
+    340). -> {spec: mean CE}; the two within 0.005 (the int8 round trip
+    moves each combine output by at most amax/254 of its block; 0.00043
+    measured on an H100)."""
+    cfg = trainer.env.config
+    losses = {}
+    try:
+        with torch.no_grad():
+            for spec in ("alltoall=pallas_a2a", "alltoall=lax"):
+                cfg.collective_algo = spec
+                cfg.validate()
+                before = dict(a2a.LAUNCHES)
+                ce, _ = tfm.local_loss(trainer.params, *batch, trainer.cfg, trainer.sp,
+                                       trainer.tp, comm=trainer._comm)
+                torch.cuda.synchronize()
+                ran = a2a.LAUNCHES["a2a_quant"] - before["a2a_quant"]
+                a2a.LAUNCHES.update(before)     # a comparison, not the path's
+                want = trainer.cfg.n_blocks if spec.endswith("pallas_a2a") else 0
+                check(ran == want, f"transformer moe: {spec} forward launched B6 int8 {ran} "
+                                   f"times, expected {want}")
+                losses[spec] = float(ce[:, :, :, 0].sum() / trainer._norm)
+    finally:
+        cfg.collective_algo = "alltoall=pallas_a2a"
+        cfg.validate()
+    gap = abs(losses["alltoall=pallas_a2a"] - losses["alltoall=lax"])
+    check(gap < 0.005, f"transformer moe: losses on the two routes differ by {gap:.4g}: {losses}")
+    return losses
+
+
+def a2a_entry(torch, a2a, *, tag, grid, axes, count, quantized, bw, f32, per_path, dev):
+    """B6 at one exchange's shape: the world rows of ``grid`` = (D, M) over
+    the group of ``axes``, ``count`` float32 a rank, int8 block 256 when
+    ``quantized``. Bound: 4 bytes read and 4 written per element. Dense: one
+    PyTorch call computes the same function on these member-ordered rows,
+    the (C, G, G, chunk) transpose, timed as the library yardstick. The
+    wrapper's result on random floats must equal the plain version's, bit
+    for bit."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    d, m = grid
+    group = ProcessGroup(Topology(d, m, d * m), axes)
+    w, g = d * m, group.size
+    p = a2a.plan(group, count, BLOCK, quantized)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.randn((w, g * p.in_chunk), generator=gen, device=dev)
+    before = dict(a2a.LAUNCHES)
+    got, want = a2a.alltoall(x, p), a2a.alltoall_ref(x, p)
+    torch.cuda.synchronize()
+    check(same_bits(torch, got, want),
+          f"a2a entry ({tag}, {'int8' if quantized else 'dense'}): differs from the plain "
+          f"version")
+    err = float((got - want).abs().max())
+    del got, want
+    ms = time_ms(torch, lambda: a2a.alltoall(x, p), reps=20)
+    a2a.LAUNCHES.update(before)
+    plain_ms = time_ms(torch, lambda: a2a.alltoall_ref(x, p), reps=5, warmup=1)
+    elems = w * count
+    if quantized:
+        library_ms, note = None, "no single PyTorch call exchanges chunks through an int8 codec"
+    else:
+        rows = p.table(dev)
+        check(bool(torch.equal(rows.flatten().cpu(), torch.arange(w, dtype=torch.int32))),
+              "a2a entry: the yardstick needs member-ordered rows")
+        c = w // g
+        view = x.view(c, g, g, p.rc)
+        check(bool(torch.equal(view.transpose(1, 2).reshape(w, count), a2a.alltoall_ref(x, p))),
+              "a2a entry: the yardstick does not compute the exchange")
+        library_ms = time_ms(torch, lambda: view.transpose(1, 2).contiguous(), reps=20)
+        note = "x.view(C, G, G, chunk).transpose(1, 2).contiguous()"
+    # the int8 codec per element: |x|, max, divide, round, clamp, multiply
+    return entry(name=f"{'a2a_quant' if quantized else 'a2a_dense'} (B6, {tag})",
+                 source=A2A_SRC, replaces=f"{A2A_PY}:250", launches=sum(per_path.values()),
+                 per_path=per_path, shape=[w, count, g], err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, nbytes=8 * elems, ops=(6 if quantized else 0) * elems,
+                 bw=bw, peak=f32, library_note=note)
+
+
+def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches):
+    """gpt-medium-2k-moe8 at MOE_BLOCKS blocks on 8 ranks, dp=2 x sp=2 x tp=2
+    (ep = 2), zigzag, MLSL_ALGO=alltoall=pallas_a2a: three steps with their
+    checks, then the no-grad loss on both routes. -> (launches over the
+    steps, the combine exchange's float32 count a rank)."""
+    env = reinit(get_env, MLSL_ALGO="alltoall=pallas_a2a")
+    torch.cuda.reset_peak_memory_stats()
+    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag", n_blocks=MOE_BLOCKS,
+                                       base=tfm.GPT_MEDIUM_2K_MOE8)
+    check(not trainer.fused, "transformer moe: the step did not take the graph path")
+    cfg_m = trainer.cfg
+    moe_count = moe_combine_count(cfg_m, trainer.dp, trainer.sp, trainer.tp, trainer.batch)
+    reset_launches()
+    losses, secs, split, grads = phase_transformer(torch, trainer, batch)
+    tm = launches()
+    check_losses(losses, cfg_m.vocab, "transformer moe")
+    n, steps = cfg_m.n_blocks, len(losses)
+    check(counts_are(tm, a2a_quant=n * steps, a2a_dense=n * steps,
+                     quantize_blocks=n * steps, block_update=5 * n * steps, flash_fwd=0,
+                     flash_bwd_dq=0, flash_bwd_dkv=0, dequantize_blocks=0, dense_ring=0,
+                     quant_ring=0, rhd_allreduce=0),
+          f"transformer moe: launches {tm}, expected per step {n} B6 int8, {n} B6 dense, "
+          f"{n} B1 and {5 * n} B9, and nothing else")
+    worst_m = check_transformer_grads(torch, trainer, grads, "transformer moe")
+    peak_m = torch.cuda.max_memory_allocated() / 2**30
+    del grads
+    route_losses = moe_route_gap(torch, tfm, trainer, batch, a2a)
+    log(f"# phase transformer moe: ok, losses {losses}, launches {tm}, worst layer gradient "
+        f"rel. error {worst_m:.4g}, peak memory {peak_m:.2f} GiB, combine exchange "
+        f"{moe_count} float32 a rank, no-grad mean CE by route {json.dumps(route_losses)}")
+    log(step_line(f"transformer moe 8 ranks (gpt-medium-2k-moe8, {n} of "
+                  f"{tfm.GPT_MEDIUM_2K_MOE8.n_blocks} blocks, dp=2 x sp=2 x tp=2 = ep 2, "
+                  f"zigzag, alltoall=pallas_a2a)", trainer, losses, secs, split, tm))
+    del trainer, batch
+    return tm, moe_count
+
+
 # -- main -----------------------------------------------------------------
 
 
@@ -1265,13 +1598,15 @@ def main() -> int:
     from mlsl_tpu_torch import get_env
     from mlsl_tpu_torch.comm import algos
     from mlsl_tpu_torch.models import resnet
+    from mlsl_tpu_torch.models import transformer as tfm
+    from mlsl_tpu_torch.ops import a2a_kernels as a2a
     from mlsl_tpu_torch.ops import attention_kernels as ak
     from mlsl_tpu_torch.ops import cuda_build
     from mlsl_tpu_torch.ops import quant_kernels as qk
     from mlsl_tpu_torch.ops import rhd_kernels as rhd
     from mlsl_tpu_torch.ops import ring_kernels as rk
 
-    kernel_mods = (qk, rk, rhd, ak)
+    kernel_mods = (qk, rk, rhd, ak, a2a)
 
     def reset_launches():
         for m in kernel_mods:
@@ -1299,8 +1634,11 @@ def main() -> int:
         counts = resnet.layer_param_counts(resnet.ResNet50(device="meta"))
         ring_rows = resnet_ring_rows(counts)
         shapes = sorted({r for pair in ring_rows.values() for r in pair})
+        # the MoE path's entry codec: every rank's padded combine payload
+        moe_rows = WORLD * moe_combine_count(tfm.GPT_MEDIUM_2K_MOE8, 2, 2, 2) // BLOCK
         shapes = [(r, BLOCK) for r in shapes] + [
-            (37, 256), (1, 256), (4096, 128), (4096, 512), (1000, 32), (333, 96)]
+            (37, 256), (1, 256), (4096, 128), (4096, 512), (1000, 32), (333, 96),
+            (moe_rows, BLOCK)]
         n_shapes = phase_parity(torch, qk, dev, shapes)
         n_ring = phase_ring_parity(torch, rk, rhd, dev)
         log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize), "
@@ -1449,6 +1787,27 @@ def main() -> int:
         log(step_line("transformer 8 ranks (gpt-medium-2k widths, 2 blocks, dp=2 x sp=2 x "
                       "tp=2, ring)", trainer, losses, secs, split, tr))
         del trainer, batch, grads
+        torch.cuda.empty_cache()
+
+        # the fused all-to-all (B6): parity, Distribution.all_to_all, then the
+        # MoE transformer whose float32 combine exchange runs on it
+        env = reinit(get_env)
+        t0 = time.perf_counter()
+        moe_count = moe_combine_count(tfm.GPT_MEDIUM_2K_MOE8, 2, 2, 2)
+        n_a2a = phase_a2a_parity(torch, a2a, algos, dev, moe_count)
+        log(f"# phase a2a parity: ok in {time.perf_counter() - t0:.1f} s, {n_a2a} cases "
+            f"bit-exact (dense, int8, error feedback over 2 rounds)")
+        a2a_used, a2a_lines = phase_alltoall(torch, get_env, launches, reset_launches)
+        for line in a2a_lines:
+            log(line)
+        log(f"# phase alltoall: ok, launches {a2a_used}")
+        torch.cuda.empty_cache()
+
+        tm, moe_path_count = phase_transformer_moe(torch, np, tfm, a2a, get_env, launches,
+                                              reset_launches)
+        check(moe_path_count == moe_count,
+              f"transformer moe: the combine exchange is {moe_path_count} a rank, the parity "
+              f"phase checked {moe_count}")
         env = reinit(get_env)
         torch.cuda.empty_cache()
 
@@ -1458,7 +1817,7 @@ def main() -> int:
             return {k: v.get(key, 0) for k, v in runs.items()}
 
         runs = dict(config4=c4, config5=c5, algos=dense_used, small=small_used,
-                    config4_fused=c4f, config5_fused=c5f)
+                    config4_fused=c4f, config5_fused=c5f, alltoall=a2a_used, transformer_moe=tm)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -1482,8 +1841,19 @@ def main() -> int:
         ]
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
-            dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr),
+            dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr,
+                 transformer_moe=tm),
             dev)
+        for tag, grid, axes, count, quantized in (
+                ("MoE combine exchange, ep=2", (4, 2), ("model",), moe_count, True),
+                ("MoE combine backward, ep=2", (4, 2), ("model",), moe_count, False),
+                ("64 MiB a rank, G=8", (WORLD, 1), ("data",), (64 << 20) // 4, False),
+                ("64 MiB a rank, G=8", (WORLD, 1), ("data",), (64 << 20) // 4, True)):
+            key = "a2a_quant" if quantized else "a2a_dense"
+            entries.append(a2a_entry(torch, a2a, tag=tag, grid=grid, axes=axes, count=count,
+                                     quantized=quantized, bw=bw, f32=f32,
+                                     per_path=path(key, alltoall=a2a_used, transformer_moe=tm),
+                                     dev=dev))
     finally:
         get_env().finalize()
 

@@ -1,9 +1,9 @@
 """Collective algorithm engine: several lowerings per collective.
 
-Counterpart of the host path of ``mlsl_tpu.comm.algos`` (algos/__init__.py:
-84-373 and 527-564). The registry lists what the port has:
+Counterpart of ``mlsl_tpu.comm.algos`` (algos/__init__.py:84-373, 527-564
+and the in-graph helpers of 615-665). The registry lists what the port has:
 
-- ``lax``           the single-shot reduction over the member dim
+- ``lax``           the single-shot reduction or exchange over the member dim
                     (comm/collectives.py), the baseline and the default;
 - ``rhd``           recursive halving/doubling with the pre/post fold, in
                     plain PyTorch over the member dim (algos/rhd.py);
@@ -12,14 +12,20 @@ Counterpart of the host path of ``mlsl_tpu.comm.algos`` (algos/__init__.py:
 - ``pallas_ring``   the fused ring, CUDA kernel B3 (algos/pallas_ring.py),
                     and for QUANTIZATION requests its int8 variant B4
                     (quant_ring's ``ring="pallas"`` wire);
-- ``pallas_ring2d`` B3 over the snake cycle of a two-live-axis group;
 - ``pallas_rhd``    the halving/doubling allreduce as CUDA kernel B5
-                    (algos/pallas_rhd.py).
+                    (algos/pallas_rhd.py);
+- ``pallas_ring2d`` B3 over the snake cycle of a two-live-axis group;
+- ``pallas_a2a``    the fused all-to-all, CUDA kernel B6, with or without the
+                    int8 codec (algos/pallas_a2a.py): the ``alltoall`` kind's
+                    one alternative to ``lax``, serving the MoE dispatch and
+                    combine exchanges and ``Distribution.all_to_all``.
 
-The JAX registry's ``hier`` and ``pallas_a2a`` are not ported: naming them in
-MLSL_ALGO or a profile raises MLSLError. The kernel algorithms are eligible
-wherever the group qualifies: a CUDA buffer launches the kernel, a CPU buffer
-runs its plain version.
+The JAX registry's ``hier`` is not ported: naming it in MLSL_ALGO or a
+profile raises MLSLError. The kernel algorithms are eligible wherever the
+group qualifies: a CUDA buffer launches the kernel, a CPU buffer runs its
+plain version. The same holds in-graph: JAX emits ``pallas_a2a`` inside a
+training graph only on a TPU (``a2a_kernels.inline_ok``), the port wherever
+it is selected.
 
 Selection (``select``) is keyed by (kind, payload bytes, group shape,
 compression), with the JAX package's precedence:
@@ -35,22 +41,24 @@ its breaker is closed, and the port has no supervisor to open it, so
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
-from mlsl_tpu_torch.comm.mesh import ProcessGroup
+import torch
+
+from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
 from mlsl_tpu_torch.log import log_debug, mlsl_assert
 from mlsl_tpu_torch.types import CompressionType, ReductionType
 
 #: the baseline algorithm: the single-shot reduction (comm/collectives.py)
 DEFAULT = "lax"
 
-#: the elementwise-reduction collectives the engine chooses for
-ENGINE_KINDS = ("allreduce", "reduce_scatter")
+#: the elementwise-reduction collectives the engine chooses for, and the MoE
+#: dispatch/combine exchange
+ENGINE_KINDS = ("allreduce", "reduce_scatter", "alltoall")
 
-#: registry names of the JAX package that the port does not have yet, and
-#: the engine kind it does not have yet
-NOT_PORTED = ("hier", "pallas_a2a")
-NOT_PORTED_KINDS = ("alltoall",)
+#: registry names of the JAX package that the port does not have yet
+NOT_PORTED = ("hier",)
 
 
 def group_shape(group: ProcessGroup) -> Tuple[int, ...]:
@@ -99,6 +107,12 @@ def _eligible_pallas_ring2d(kind: str, group: ProcessGroup, op) -> bool:
     return ring_kernels.eligible_dense2d(kind, group, op)
 
 
+def _eligible_pallas_a2a(kind: str, group: ProcessGroup, op) -> bool:
+    from mlsl_tpu_torch.ops import a2a_kernels
+
+    return a2a_kernels.eligible(kind, group, op=op)
+
+
 #: name -> eligibility predicate, in the JAX registry's order
 _ELIGIBLE = {
     "lax": lambda kind, group, op: True,
@@ -107,6 +121,7 @@ _ELIGIBLE = {
     "pallas_ring": _eligible_pallas_ring,
     "pallas_rhd": _eligible_pallas_rhd,
     "pallas_ring2d": _eligible_pallas_ring2d,
+    "pallas_a2a": _eligible_pallas_a2a,
 }
 
 ALGORITHMS = tuple(_ELIGIBLE)
@@ -116,6 +131,10 @@ def eligible(algo: str, kind: str, group: ProcessGroup, op=None) -> bool:
     """Can ``algo`` lower (kind, group, op)? Unknown names never are."""
     if kind not in ENGINE_KINDS:
         return algo == DEFAULT
+    if kind == "alltoall" and algo not in (DEFAULT, "pallas_a2a"):
+        # the reduction algorithms' predicates do not check the kind: this
+        # guard keeps a global MLSL_ALGO=rhd off the MoE exchange
+        return False
     pred = _ELIGIBLE.get(algo)
     return bool(pred and pred(kind, group, op))
 
@@ -153,8 +172,6 @@ def parse_forced(spec: str) -> dict:
         mlsl_assert("=" in part, "MLSL_ALGO entry %r is not kind=algo", part)
         kind, _, name = part.partition("=")
         kind, name = kind.strip(), name.strip()
-        mlsl_assert(kind not in NOT_PORTED_KINDS,
-                    "MLSL_ALGO kind %r is not ported yet", kind)
         mlsl_assert(kind in ENGINE_KINDS,
                     "MLSL_ALGO kind %r is not an engine collective (expected one of %s)",
                     kind, ", ".join(ENGINE_KINDS))
@@ -228,12 +245,15 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
     calling convention of collectives.build_collective. ``algo='lax'`` is
     build_collective. The kernel algorithms take ``plain=True`` to run their
     plain versions on any device (the card's parity checks); the rings take
-    ``bidir`` (``Config.pallas_ring_bidir``, off unless passed). Each lowering ignores the keywords it has no use for."""
+    ``bidir`` (``Config.pallas_ring_bidir``, off unless passed); ``pallas_a2a``
+    takes ``block``, ``quantized`` and ``ef``. Each lowering ignores the
+    keywords it has no use for."""
     from mlsl_tpu_torch.comm import collectives
 
     if algo == DEFAULT:
         return collectives.build_collective(
-            kind, group, **{k: v for k, v in kw.items() if k in ("op", "root", "recv_count")})
+            kind, group, **{k: v for k, v in kw.items()
+                            if k in ("op", "root", "recv_count", "send_count")})
     mlsl_assert(eligible(algo, kind, group, kw.get("op")),
                 "algorithm %s cannot lower %s on group shape %s", algo, kind,
                 group_shape(group))
@@ -245,6 +265,71 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
         from mlsl_tpu_torch.comm.algos import pallas_ring as impl
     elif algo == "pallas_ring2d":
         from mlsl_tpu_torch.comm.algos import pallas_ring2d as impl
+    elif algo == "pallas_a2a":
+        from mlsl_tpu_torch.comm.algos import pallas_a2a as impl
     else:
         from mlsl_tpu_torch.comm.algos import pallas_rhd as impl
     return impl.build(kind, group, **kw)
+
+
+# -- engine-owned collectives inside a training graph ---------------------------
+#
+# The MoE layer (models/moe.py) exchanges and gathers per-rank tensors with the
+# leading (R, D, S, M) grid dims. With a group and a config the exchange goes
+# through the selection table; both helpers are plain tensor work on the plain
+# route, so autograd runs through them.
+
+
+def _group_exchange(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    """The plain all-to-all of per-rank tensors (R, D, S, M, G, *rest) whose
+    first local dim holds one chunk per member: member j receives chunk j of
+    every member, in member order, at the same place."""
+    from mlsl_tpu_torch.comm import collectives
+
+    grid = x.shape[:NUM_GRID_AXES]
+    n = math.prod(x.shape[NUM_GRID_AXES + 1:])
+    fn = collectives.build_collective("alltoall", group, send_count=n)
+    return fn(x.reshape(*grid, -1)).reshape(x.shape)
+
+
+def inline_alltoall(x: torch.Tensor, group: ProcessGroup, *, config=None) -> torch.Tensor:
+    """The MoE dispatch and combine exchange of per-rank tensors (R, D, S,
+    M, G, *rest) over ``group``: ``lax.all_to_all`` with split = concat = 0,
+    untiled, the only layout the MoE FFN uses. Member j receives chunk j of
+    every member, in member order.
+
+    With a config the selection table picks the lowering. The kernel route
+    (``pallas_a2a``, kernel B6) takes a float32 payload, as in the JAX
+    package; any other type, or the ``lax`` choice, takes the plain
+    exchange. The kernel route's gradient is the dense exchange of the
+    cotangent (ops/a2a_kernels.py)."""
+    g = group.size
+    if group.is_self or g <= 1:
+        return x
+    local = x.shape[NUM_GRID_AXES:]
+    mlsl_assert(local[0] == g, "alltoall needs a leading local dim of size %d, got %s", g,
+                tuple(local))
+    if config is not None and x.dtype == torch.float32:
+        count = math.prod(local)
+        algo = select("alltoall", group, count * 4, CompressionType.NONE, config)
+        if algo == "pallas_a2a":
+            from mlsl_tpu_torch.ops import a2a_kernels
+
+            w = group.topology.world_size
+            out = a2a_kernels.exchange(x.reshape(w, count), group,
+                                       block=config.quant_block_elems,
+                                       quantized=config.pallas_a2a_quant)
+            return out.reshape(x.shape)
+    return _group_exchange(x, group)
+
+
+def inline_allgather(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+    """The tiled all-gather of per-rank tensors (R, D, S, M, T, *rest) over
+    ``group`` (the MoE output reassembly): every member receives every
+    member's tensor, concatenated along T in member order. Autograd sums the
+    cotangent over the members, as JAX transposes ``lax.all_gather``."""
+    from mlsl_tpu_torch.comm import collectives
+
+    grid, local = x.shape[:NUM_GRID_AXES], x.shape[NUM_GRID_AXES:]
+    y = collectives.build_collective("allgather", group)(x.reshape(*grid, -1))
+    return y.reshape(*grid, group.size * local[0], *local[1:])

@@ -5,9 +5,9 @@ tensor of shape (R, D, S, M, n) (see comm/mesh.py). Each collective views it
 as (C, G, n) -- C group instances (the complementary grid dims, in grid order)
 of G members (the group's axes, major -> minor) -- reduces or gathers over the
 member dim, and writes the result back to every member. The semantics are the
-JAX package's ``_body_*`` functions (collectives.py:111-167): rooted
+JAX package's ``_body_*`` functions (collectives.py:111-195): rooted
 reductions and gathers return the result on every member, a strict superset
-of MPI's root-only delivery.
+of MPI's root-only delivery. ``alltoallv`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -96,6 +96,14 @@ def _reduce_scatter(y, *, op, recv_count, **_):
     return _reduce(y, op).reshape(c, g, recv_count)
 
 
+def _alltoall(y, *, send_count, **_):
+    c, g, n = y.shape
+    mlsl_assert(n == g * send_count,
+                "alltoall count %d != group %d * send_count %d", n, g, send_count)
+    # member j receives chunk j of every member, in member order
+    return y.reshape(c, g, g, send_count).transpose(1, 2).reshape(c, g, n)
+
+
 _BODIES = {
     "allreduce": _allreduce,
     "reduce": _allreduce,      # result on every member (superset of MPI's root-only)
@@ -103,6 +111,7 @@ _BODIES = {
     "allgather": _allgather,
     "gather": _allgather,      # likewise
     "reduce_scatter": _reduce_scatter,
+    "alltoall": _alltoall,
 }
 
 KINDS = tuple(_BODIES) + ("barrier",)
@@ -112,7 +121,9 @@ def build_collective(kind: str, group: ProcessGroup, **kw) -> Callable:
     """-> fn: distributed buffer (R, D, S, M, n) -> result buffer (R, D, S, M, n').
 
     kw per kind: op (allreduce/reduce/reduce_scatter), root (bcast/reduce/gather),
-    recv_count (reduce_scatter)."""
+    recv_count (reduce_scatter), send_count (alltoall: the elements each member
+    sends each member). The functions are plain tensor work, so autograd runs
+    through them."""
     mlsl_assert(kind in _BODIES, "collective %r is not ported yet", kind)
     if "root" in kw:
         mlsl_assert(0 <= kw["root"] < group.size,

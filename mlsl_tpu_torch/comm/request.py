@@ -49,7 +49,7 @@ from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType, dtype
 class CommDesc:
     kind: str                      # 'allreduce' | 'bcast' | ... | 'barrier'
     group: ProcessGroup
-    count: int                     # elements per rank (send side)
+    count: int                     # elements per rank (send side; alltoall: per member)
     data_type: DataType
     op: Optional[ReductionType] = None
     root: Optional[int] = None
@@ -134,11 +134,16 @@ class CommRequest:
             kw["root"] = int(d.root)
         if d.recv_count is not None:
             kw["recv_count"] = int(d.recv_count)
+        if d.kind == "alltoall":
+            kw["send_count"] = int(d.count)
         # explicit config > tuned profile > the 'lax' baseline; a chunked
         # request selects once, on the full payload, and reuses one program
         cfg = self.dispatcher.config
         self.algo = algos.select(d.kind, d.group, self._payload, d.compression, cfg,
                                  op=kw.get("op"))
+        if self.algo == "pallas_a2a":
+            kw["block"] = cfg.quant_block_elems
+            kw["quantized"] = cfg.pallas_a2a_quant
         chunks = self._plan_chunks()
         fn = algos.build(d.kind, d.group, self.algo, bidir=cfg.pallas_ring_bidir, **kw)
         self._chunk_slices = chunks or [slice(None)]

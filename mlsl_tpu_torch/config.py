@@ -3,7 +3,8 @@
 The subset of ``mlsl_tpu.config.Config`` that this package reads: the int8
 codec's block, large-message chunking (reference src/comm_ep.cpp:95-97),
 newest-first priority deferral (reference eplib/env.c:135-165), and the
-collective algorithm engine with its tuned profile (comm/algos, tuner/).
+collective algorithm engine with its tuned profile and kernel knobs
+(comm/algos, tuner/, ops/).
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -22,6 +23,7 @@ _ENV_FIELDS = {
     "MLSL_MSG_PRIORITY_THRESHOLD": "msg_priority_threshold",
     "MLSL_QUANT_BLOCK_ELEMS": "quant_block_elems",
     "MLSL_PALLAS_RHD_MAX_BYTES": "pallas_rhd_max_bytes",
+    "MLSL_PALLAS_A2A_QUANT": "pallas_a2a_quant",
 }
 
 
@@ -76,6 +78,10 @@ class Config:
     pallas_rhd: bool = False         # MLSL_PALLAS_RHD
     # Upper edge (bytes) of that band; 0 = 4 x msg_priority_threshold.
     pallas_rhd_max_bytes: int = 0    # MLSL_PALLAS_RHD_MAX_BYTES
+    # The int8 blockwise codec on the 'pallas_a2a' alltoall (ops/a2a_kernels.py):
+    # every chunk makes one codec round trip with quant_block_elems blocks.
+    # Off = the same kernel exchanges dense float32.
+    pallas_a2a_quant: bool = True    # MLSL_PALLAS_A2A_QUANT
 
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
@@ -118,4 +124,5 @@ class Config:
         c.pallas_rhd = _env_bool("MLSL_PALLAS_RHD", c.pallas_rhd)
         c.pallas_rhd_max_bytes = _env_int("MLSL_PALLAS_RHD_MAX_BYTES",
                                           c.pallas_rhd_max_bytes)
+        c.pallas_a2a_quant = _env_bool("MLSL_PALLAS_A2A_QUANT", c.pallas_a2a_quant)
         return c

@@ -171,6 +171,15 @@ class Distribution:
             send_buffer,
         )
 
+    def all_to_all(self, send_buffer, send_count, data_type, group_type) -> CommRequest:
+        """Member j of each group receives chunk j (``send_count`` elements) of
+        every member, in member order; the buffer holds group-size chunks."""
+        return self._start(
+            CommDesc("alltoall", self._group(group_type), int(send_count),
+                     DataType(data_type)),
+            send_buffer,
+        )
+
     def reduce_scatter(self, send_buffer, recv_count, data_type, red_type,
                        group_type) -> CommRequest:
         g = self._group(group_type)
@@ -199,5 +208,6 @@ class Distribution:
     AllReduce = all_reduce
     Gather = gather
     AllGather = all_gather
+    AlltoAll = all_to_all
     ReduceScatter = reduce_scatter
     Barrier = barrier

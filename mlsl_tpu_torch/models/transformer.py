@@ -21,9 +21,16 @@ d(sum over ranks of their losses)/d(local leaf) with the CE scaled by 1/tp;
 the port sums every rank's scaled loss and runs one backward, then sums the
 replicated leaves' gradients over M (``transformer.py:757-760``).
 
+With ``n_experts > 0`` every block's FFN is the expert-parallel MoE layer
+(models/moe.py, ep = tp): the experts shard over the model axis, the gate is
+replicated, and the dispatch and combine exchanges go through the collective
+engine with the model group and the config (``MLSL_ALGO=alltoall=pallas_a2a``
+puts the float32 combine exchange on kernel B6). Each rank's loss adds
+``moe_aux_weight`` times its slice's aux loss, scaled as in the JAX package.
+
 Compute is bfloat16 by default; parameters, the residual adds, the TP sums,
-layer norms and the loss are float32. MoE, remat, the sharded-vocabulary
-CE, ZeRO-1, optax and the decode-mode functions come later (ROADMAP A).
+layer norms and the loss are float32. Remat, the sharded-vocabulary CE,
+ZeRO-1, optax and the decode-mode functions come later (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import torch.nn.functional as F
 
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax, tree_leaves
-from mlsl_tpu_torch.models.moe import mxu_einsum
+from mlsl_tpu_torch.models.moe import init_moe_params, moe_ffn, mxu_einsum
 from mlsl_tpu_torch.parallel.sequence import (
     ring_attention,
     ulysses_attention,
@@ -66,8 +73,8 @@ class TransformerConfig:
     dtype: str = "bfloat16"  # compute dtype; 'float32' for exactness tests
     remat: bool = False      # recompute each block in the backward (not ported)
     remat_policy: str = "full"  # 'full' | 'dots' (with remat=True)
-    n_experts: int = 0       # >0: MoE FFN with expert parallelism (not ported)
-    moe_top_k: int = 1
+    n_experts: int = 0       # >0: MoE FFN with expert parallelism over 'model'
+    moe_top_k: int = 1       # 1 = switch routing; 2 = GShard-style top-2
     moe_aux_weight: float = 0.01
     capacity_factor: float = 2.0
     sharded_vocab: bool = False  # shard the LM head over 'model' (not ported)
@@ -77,6 +84,11 @@ class TransformerConfig:
 # (benchmarks/transformer_bench.py:106-108): the configuration the card runs
 GPT_MEDIUM_2K = TransformerConfig(vocab=32768, d_model=1024, n_heads=16, head_dim=64,
                                   n_blocks=12, seq_len=2048)
+
+# gpt-medium-2k-moe8: the same widths with a Switch-style MoE FFN of 8 experts
+# in every block, at the JAX package's MoE defaults (top-1, capacity factor
+# 2.0, aux weight 0.01): the expert-parallel configuration the card runs
+GPT_MEDIUM_2K_MOE8 = dataclasses.replace(GPT_MEDIUM_2K, n_experts=8)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -106,15 +118,19 @@ def init_params(generator: torch.Generator, cfg: TransformerConfig) -> Dict:
             "ln2_scale": torch.ones(dm), "ln2_bias": torch.zeros(dm),
         }
         params[f"blk{i}.attn"] = {"wqkv": normal(dm, 3, h, dh), "wo": normal(h, dh, dm)}
-        params[f"blk{i}.mlp"] = {"w1": normal(dm, f), "b1": torch.zeros(f),
-                                 "w2": normal(f, dm), "b2": torch.zeros(dm)}
+        if cfg.n_experts > 0:
+            params[f"blk{i}.mlp"] = init_moe_params(generator, dm, f, cfg.n_experts, std)
+        else:
+            params[f"blk{i}.mlp"] = {"w1": normal(dm, f), "b1": torch.zeros(f),
+                                     "w2": normal(f, dm), "b2": torch.zeros(dm)}
     return params
 
 
 def param_specs(cfg: TransformerConfig) -> Dict:
     """For every leaf, the dim of its global shape that is sharded over the
     model axis, or None for a leaf replicated over it (the JAX package's
-    PartitionSpec tree, ``transformer.py:123``, for the dense model)."""
+    PartitionSpec tree, ``transformer.py:123``): with experts, the gate is
+    replicated and the experts shard on dim 0."""
     specs = {
         "embed": {"tok": None, "pos": None},
         "final": {"ln_scale": None, "ln_bias": None, "head": 1 if cfg.sharded_vocab else None},
@@ -123,7 +139,10 @@ def param_specs(cfg: TransformerConfig) -> Dict:
         specs[f"blk{i}.ln"] = {k: None for k in
                                ("ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias")}
         specs[f"blk{i}.attn"] = {"wqkv": 2, "wo": 0}
-        specs[f"blk{i}.mlp"] = {"w1": 1, "b1": 0, "w2": 0, "b2": None}
+        if cfg.n_experts > 0:
+            specs[f"blk{i}.mlp"] = {"wg": None, "w1": 0, "w2": 0}
+        else:
+            specs[f"blk{i}.mlp"] = {"w1": 1, "b1": 0, "w2": 0, "b2": None}
     return specs
 
 
@@ -168,16 +187,17 @@ def _positions(sp: int, sl: int, zigzag: bool, device) -> torch.Tensor:
     return torch.arange(sp * sl, device=device).view(sp, sl)
 
 
-def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int):
+def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm=None):
     """The forward of every rank at once.
 
     tokens: (R, D, S, M, Bl, Sl) int. params: per-rank local shards, each leaf
-    (R, D, S, M, *local). Returns (final hidden states (R, D, S, M, Bl, Sl,
-    d_model) float32 post final-LN, the same on every model rank, and the MoE
-    aux-loss total, 0.0 without experts). The LM head is applied by the loss.
+    (R, D, S, M, *local). ``comm``: (model group, Config) for the MoE
+    exchanges' selection, or None for the plain exchange. Returns (final
+    hidden states (R, D, S, M, Bl, Sl, d_model) float32 post final-LN, the
+    same on every model rank, and the MoE aux-loss total of each rank's
+    slices, (R, D, S, M), or 0.0 without experts). The LM head is applied by
+    the loss.
     """
-    mlsl_assert(cfg.n_experts == 0, "MoE layers (n_experts > 0) are not ported yet "
-                                    "(ROADMAP A: MoE, with kernel B6)")
     grid, (bl, sl) = tokens.shape[:GRID], tokens.shape[GRID:]
     emb = params["embed"]
     cdt = _dtype(cfg.dtype)
@@ -199,6 +219,7 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int):
     else:
         attn_fn = ring_attention if cfg.attention == "ring" else ulysses_attention
 
+    aux_total = 0.0
     for i in range(cfg.n_blocks):
         lnp, ap, mp = (params[f"blk{i}.{part}"] for part in ("ln", "attn", "mlp"))
         a = _ln(h.float(), lnp["ln1_scale"], lnp["ln1_bias"]).to(cdt)
@@ -210,22 +231,30 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int):
         h = (h.float() + _model_sum(o, tp)).to(cdt)
 
         a = _ln(h.float(), lnp["ln2_scale"], lnp["ln2_bias"]).to(cdt)
-        f = F.gelu(torch.einsum("...bsd,...df->...bsf", a, mp["w1"].to(cdt))
-                   + _bcast(mp["b1"], 2).to(cdt), approximate="tanh")
-        o = mxu_einsum("...bsf,...fd->...bsd", f, mp["w2"].to(cdt))
-        h = (h.float() + _model_sum(o, tp) + _bcast(mp["b2"], 2)).to(cdt)
+        if cfg.n_experts > 0:
+            o, aux = moe_ffn(a.reshape(*grid, bl * sl, dm).float(), mp, MODEL_DIM, tp,
+                             cfg.capacity_factor, cfg.moe_top_k, compute_dtype=cdt,
+                             group=comm[0] if comm else None,
+                             config=comm[1] if comm else None)
+            h = (h.float() + o.reshape(*grid, bl, sl, dm)).to(cdt)
+            aux_total = aux_total + aux
+        else:
+            f = F.gelu(torch.einsum("...bsd,...df->...bsf", a, mp["w1"].to(cdt))
+                       + _bcast(mp["b1"], 2).to(cdt), approximate="tanh")
+            o = mxu_einsum("...bsf,...fd->...bsd", f, mp["w2"].to(cdt))
+            h = (h.float() + _model_sum(o, tp) + _bcast(mp["b2"], 2)).to(cdt)
 
     fin = params["final"]
-    return _ln(h.float(), fin["ln_scale"], fin["ln_bias"]), 0.0
+    return _ln(h.float(), fin["ln_scale"], fin["ln_bias"]), aux_total
 
 
-def local_loss(params, tokens, labels, cfg: TransformerConfig, sp: int, tp: int):
+def local_loss(params, tokens, labels, cfg: TransformerConfig, sp: int, tp: int, comm=None):
     """Sum (not mean) of CE over each rank's local token shard -> ((R, D, S,
     M) float32, aux). The reduction across data/seq shards belongs to the
     gradient requests. The LM head is replicated over the model axis."""
     mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
                                        "(ROADMAP A: the transformer's remaining options)")
-    h, aux = forward_local(params, tokens, cfg, sp, tp)
+    h, aux = forward_local(params, tokens, cfg, sp, tp, comm=comm)
     logits = torch.einsum("...bsd,...dv->...bsv", h, params["final"]["head"].float())
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
@@ -245,8 +274,6 @@ class HybridTrainer:
                  batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
                  distributed_update: bool = False, compression=None, optimizer=None,
                  params=None):
-        mlsl_assert(cfg.n_experts == 0, "MoE layers (n_experts > 0) are not ported yet "
-                                        "(ROADMAP A: MoE, with kernel B6)")
         mlsl_assert(not cfg.remat, "remat is not ported yet "
                                    "(ROADMAP A: the transformer's remaining options)")
         mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
@@ -268,6 +295,12 @@ class HybridTrainer:
         )
         mlsl_assert(cfg.n_heads % tp == 0, "heads %d %% tp %d", cfg.n_heads, tp)
         mlsl_assert(cfg.seq_len % sp == 0, "seq %d %% sp %d", cfg.seq_len, sp)
+        if cfg.n_experts > 0:
+            local_tokens = (self.batch // dp) * (cfg.seq_len // sp)
+            mlsl_assert(cfg.n_experts % tp == 0, "n_experts %d must be divisible by tp %d "
+                        "(experts shard over the model axis)", cfg.n_experts, tp)
+            mlsl_assert(local_tokens % tp == 0, "local token count %d (batch/dp * seq/sp) must "
+                        "be divisible by tp %d for expert-parallel routing", local_tokens, tp)
         self.grid = self.dist.topology.grid_shape
         self.session = env.create_session()
         self.session.set_global_minibatch_size(self.batch)
@@ -311,6 +344,14 @@ class HybridTrainer:
         # synced grads are sums of d(CE sum)/dw over all data x seq shards; SGD on
         # the mean loss divides by the total token count
         self._norm = self.batch * cfg.seq_len
+        # each rank's aux loss, pre-scaled by its slice's token count, so that
+        # after the division by _norm the objective is mean CE + weight x mean
+        # aux whatever the token count (transformer.py:695-722)
+        tokens_per_slice = (self.batch // dp) * (cfg.seq_len // sp) / tp
+        self._aux_w = cfg.moe_aux_weight * tokens_per_slice
+        # the model group and config route the MoE exchanges through the
+        # selection table
+        self._comm = (self.dist.model_group, env.config) if tp > 1 else None
 
     # -- data placement ----------------------------------------------------
 
@@ -342,10 +383,13 @@ class HybridTrainer:
 
     def _backward(self, tokens, labels):
         """-> (CE sums (R, D, S, M), per-leaf gradients) of the sum over all
-        ranks of their CE / tp, the TP sum over M applied to replicated leaves."""
+        ranks of their CE / tp + aux weight x aux, the TP sum over M applied
+        to replicated leaves."""
         with torch.enable_grad():
-            ce, _ = local_loss(self.params, tokens, labels, self.cfg, self.sp, self.tp)
-            grads = torch.autograd.grad((ce / self.tp).sum(), self._all_leaves())
+            ce, aux = local_loss(self.params, tokens, labels, self.cfg, self.sp, self.tp,
+                                 comm=self._comm)
+            grads = torch.autograd.grad((ce / self.tp + self._aux_w * aux).sum(),
+                                        self._all_leaves())
         specs = [s for n in self.layers for s in self._leaf_specs[n]]
         grads = [_model_sum(g.float(), self.tp) if spec is None else g.float()
                  for g, spec in zip(grads, specs)]

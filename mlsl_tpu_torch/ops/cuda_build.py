@@ -31,6 +31,7 @@ SOURCES = {
     "ring_kernels": "ring_kernels.cu",
     "rhd_kernels": "rhd_kernels.cu",
     "attention_kernels": "attention_kernels.cu",
+    "a2a_kernels": "a2a_kernels.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -16,9 +16,11 @@ and each kernel launch covers every rank at once, with per-row position
 offsets where ranks differ (kernels B7-B9, ``ops/attention_kernels.py``).
 
 ``use_flash``: None routes through the kernels wherever ``supports()``
-admits the shapes (the plain versions on a CPU tensor); True requires them;
-False takes the einsum path, as in the JAX package. Nothing falls back from a
-kernel to the einsum path.
+admits the shapes and head_dim is at most ``MAX_HEAD_DIM`` (128), what the
+CUDA kernels take (the plain versions on a CPU tensor); any other shape takes
+the einsum path, which is what the JAX package runs wherever its
+``_use_flash`` is false. True requires the kernels; False takes the einsum
+path. Nothing falls back from a kernel to the einsum path.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.ops.attention_kernels import (
+    MAX_HEAD_DIM,
     empty_state,
     flash_attention,
     flash_block_update,
@@ -337,5 +340,7 @@ def _dense_attention(q, k, v, causal: bool, pos_offset: int) -> torch.Tensor:
 
 
 def _use_flash(sq: int, sk: int, d: int) -> bool:
-    """Route through the kernels wherever their tiling admits the shapes."""
-    return supports(sq, sk, d)
+    """Route through the kernels wherever their tiling admits the shapes
+    (``supports()``, the TPU predicate) and the CUDA kernels take the
+    head_dim."""
+    return supports(sq, sk, d) and d <= MAX_HEAD_DIM

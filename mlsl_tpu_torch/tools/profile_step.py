@@ -3,6 +3,7 @@
 Run from the root of a checkout, on a machine with a card:
 
     python3 -m mlsl_tpu_torch.tools.profile_step [--model resnet] [--steps 3] [--warmup 2]
+        [--blocks N]
 
 ``--model`` picks the step:
 
@@ -12,21 +13,31 @@ Run from the root of a checkout, on a machine with a card:
 - ``transformer-1``: gpt-medium-2k (models/transformer.GPT_MEDIUM_2K, bf16,
   batch 8) on 1 rank, the fused step, flash attention kernels B7 and B8;
 - ``transformer-8``: the same model and batch on 8 virtual ranks, dp=2 x
-  sp=2 x tp=2, zigzag attention (kernel B9), per-layer gradient requests.
+  sp=2 x tp=2, zigzag attention (kernel B9), per-layer gradient requests;
+- ``moe-8``: gpt-medium-2k-moe8 (models/transformer.GPT_MEDIUM_2K_MOE8, 8
+  experts, top-1) at 6 of its 12 blocks on transformer-8's grid (ep = 2),
+  with ``MLSL_ALGO=alltoall=pallas_a2a`` unless MLSL_ALGO is exported: the
+  float32 combine exchange on the fused all-to-all B6 (int8 codec unless
+  MLSL_PALLAS_A2A_QUANT=0), chip_smoke.py's MoE run.
+
+``--blocks`` sets a transformer step's depth in place of the one above.
 
 It warms up, times ``--steps`` steps with the host clock, then traces as
 many steps again with ``torch.profiler`` (the Chrome trace goes to
 ``--trace``) and prints one JSON object:
 
 - ``step_s``: host seconds per step, untraced, each ending in a synchronize;
+- ``peak_gib``: the most device memory the allocator held for tensors up to
+  the end of the untraced steps (``torch.cuda.max_memory_allocated``), beside
+  the card's ``device_gib``;
 - per half of the step (every rank's forward/backward, then the gradient
   requests and the SGD update, with a synchronize between them): traced
   wall seconds, device kernel seconds (the union of kernel intervals, so
   overlapping streams are not counted twice), and the device idle share
   ``1 - kernel / wall``;
-- device kernel seconds by class (codec kernels, attention kernels,
-  convolution, matrix products, the rest) and the ``--top`` kernel names by
-  device time.
+- device kernel seconds by class (codec kernels, attention kernels, the
+  all-to-all, convolution, matrix products, the rest) and the ``--top``
+  kernel names by device time.
 
 Traced wall times include the profiler's own host cost; ``step_s`` does not.
 It fails, printing no result, when there is no card or the trace holds no
@@ -51,6 +62,7 @@ from mlsl_tpu_torch.models import resnet
 from mlsl_tpu_torch.models import transformer as tfm
 from mlsl_tpu_torch.models.train import DataParallelTrainer
 from mlsl_tpu_torch.ops.cuda_build import build_dir
+from mlsl_tpu_torch.ops import a2a_kernels as a2a
 from mlsl_tpu_torch.ops import attention_kernels as ak
 from mlsl_tpu_torch.ops import quant_kernels as qk
 from mlsl_tpu_torch.ops import ring_kernels as rk
@@ -59,6 +71,7 @@ HALVES = ("local_grads", "sync_and_update")
 CLASSES = (
     ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
     ("attention", re.compile(r"fwd_kernel|dq_kernel|dkv_kernel")),
+    ("alltoall", re.compile(r"a2a_kernel")),
     # cuDNN's convolutions name their pass (fprop/dgrad/wgrad, implicit gemm);
     # cuBLAS's float32 products are xmma/cutlass/nvjet gemms
     ("convolution", re.compile(r"conv|cudnn|implicit|wgrad|dgrad|fprop", re.I)),
@@ -83,12 +96,16 @@ def build_trainer(world=8, image=224, classes=1000, batch=64, seed=0):
     return env, trainer, trainer.shard_batch(x, y)
 
 
-# (dp, sp, tp, attention) of each transformer step
-TRANSFORMERS = {"transformer-1": (1, 1, 1, "ring"), "transformer-8": (2, 2, 2, "zigzag")}
+# (dp, sp, tp, attention, configuration, blocks) of each transformer step
+TRANSFORMERS = {"transformer-1": (1, 1, 1, "ring", tfm.GPT_MEDIUM_2K, 12),
+                "transformer-8": (2, 2, 2, "zigzag", tfm.GPT_MEDIUM_2K, 12),
+                "moe-8": (2, 2, 2, "zigzag", tfm.GPT_MEDIUM_2K_MOE8, 6)}
 
 
-def build_transformer(dp, sp, tp, attention, batch=8, seed=0):
-    cfg = dataclasses.replace(tfm.GPT_MEDIUM_2K, attention=attention, dtype="bfloat16")
+def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0):
+    if base.n_experts:
+        os.environ.setdefault("MLSL_ALGO", "alltoall=pallas_a2a")
+    cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16", n_blocks=n_blocks)
     env = get_env().init(world_size=dp * sp * tp)
     trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=0.1, seed=seed)
     rng = np.random.default_rng(seed)
@@ -162,6 +179,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="a transformer step's depth (default: its own, see above)")
     ap.add_argument("--trace", default=str(build_dir() / "profile_step.trace.json"),
                     help="where the Chrome trace is written (default: the git-ignored "
                          "build directory of the checkout)")
@@ -172,9 +191,12 @@ def main(argv=None) -> int:
         return 1
     if args.model == "resnet":
         env, trainer, batch = build_trainer()
+        blocks = None
         step = lambda: trainer.step(batch)          # noqa: E731
     else:
-        env, trainer, batch = build_transformer(*TRANSFORMERS[args.model])
+        *shape, blocks = TRANSFORMERS[args.model]
+        blocks = args.blocks or blocks
+        env, trainer, batch = build_transformer(*shape, blocks)
         step = lambda: trainer.step(*batch)         # noqa: E731
     try:
         for _ in range(args.warmup):
@@ -186,13 +208,14 @@ def main(argv=None) -> int:
             step()
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
-        for m in (qk, rk, ak):
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for m in (qk, rk, ak, a2a):
             m.reset_counts()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.steps):
                 traced_step(trainer, batch)
-        launches = {**qk.LAUNCHES, **rk.LAUNCHES, **ak.LAUNCHES}
+        launches = {**qk.LAUNCHES, **rk.LAUNCHES, **ak.LAUNCHES, **a2a.LAUNCHES}
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
         with open(args.trace) as f:
@@ -202,7 +225,11 @@ def main(argv=None) -> int:
     req = trainer.ops[trainer.layers[0]].get_parameter_set(0).grad_req
     out = {"device": torch.cuda.get_device_name(0), "model": args.model, "steps": args.steps,
            "ring": req.algo if req is not None else None,
-           "step_s": step_s, "traced_launches": launches,
+           "mlsl_algo": os.environ.get("MLSL_ALGO", ""),
+           "blocks": blocks,
+           "step_s": step_s, "peak_gib": peak_gib,
+           "device_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
+           "traced_launches": launches,
            **summarize(trace, args.top, args.steps)}
     print(json.dumps(out))
     return 0

@@ -9,8 +9,8 @@ values. The file format is the JAX package's.
 Load contract: a missing or corrupt file, an unknown version, an unknown
 algorithm or an out-of-range value of a knob the port has is an MLSLError
 at init. A cell naming an
-algorithm that the JAX registry has and the port does not (``hier``,
-``pallas_a2a``) is an MLSLError too, saying so.
+algorithm that the JAX registry has and the port does not (``hier``) is an
+MLSLError too, saying so. ``alltoall`` cells name ``lax`` or ``pallas_a2a``.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ KNOB_RANGES = {
     "large_msg_chunks": 1,
     "quant_block_elems": 1,
     "pallas_rhd_max_bytes": 0,
+    # the 'pallas_a2a' codec toggle, carried as 0/1 (a bool is rejected)
+    "pallas_a2a_quant": 0,
 }
 
 

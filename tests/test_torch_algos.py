@@ -140,16 +140,33 @@ def test_select_matches_jax(forced, tuned):
                                   "reduce_scatter=pallas_a2a", "alltoall=lax", "nope",
                                   "allreduce=nope", "bcast=rhd", "allreduce"])
 def test_names_not_ported_raise(spec, monkeypatch):
-    with pytest.raises(MLSLError):
-        talgos.parse_forced(spec)
-    if spec in ("hier", "pallas_a2a", "allreduce=hier", "alltoall=lax"):
-        with pytest.raises(MLSLError, match="not ported yet"):
-            talgos.parse_forced(spec)
+    """``hier`` is not ported and raises saying so; every other spec parses
+    as the JAX package's parse_forced does: the same result where JAX
+    accepts it, MLSLError (and no Environment) where JAX raises."""
     monkeypatch.setenv("MLSL_ALGO", spec)
     env = Environment.get_env()
-    with pytest.raises(MLSLError):
-        env.init(device="cpu", world_size=8)
-    assert not Environment.is_initialized()
+    if "hier" in spec:
+        with pytest.raises(MLSLError, match="not ported yet"):
+            talgos.parse_forced(spec)
+        with pytest.raises(MLSLError):
+            env.init(device="cpu", world_size=8)
+        assert not Environment.is_initialized()
+        return
+    try:
+        want = jalgos.parse_forced(spec)
+    except Exception:
+        with pytest.raises(MLSLError):
+            talgos.parse_forced(spec)
+        with pytest.raises(MLSLError):
+            env.init(device="cpu", world_size=8)
+        assert not Environment.is_initialized()
+        return
+    assert talgos.parse_forced(spec) == want
+    env.init(device="cpu", world_size=8)
+    try:
+        assert env.config._forced_algos == want
+    finally:
+        env.finalize()
 
 
 def test_config_fields_and_validation(monkeypatch):

@@ -118,7 +118,7 @@ def test_barrier_and_misuse(tenv):
         td.reduce_scatter(torch.zeros((1, 8, 1, 1, N + 1)), N // 8, DataType.FLOAT,
                           ReductionType.SUM, GroupType.DATA)
     with pytest.raises(MLSLError):
-        tcoll.build_collective("alltoall", td.data_group)   # not ported yet
+        tcoll.build_collective("alltoallv", td.data_group)  # not ported yet
 
 
 def _allreduce_req(tenv, td, count, **kw):

@@ -45,12 +45,16 @@ CASES = [
     ("ulysses", 4, True, None, 2, 4, 32, 8),
     ("ulysses", 2, False, None, 2, 4, 32, 8),
     ("ulysses", 2, True, None, 1, 2, 256, 8),
+    # head_dim 256: supports() admits the 128-long shards, the CUDA kernels do
+    # not take the head_dim, so both sides run the einsum schedule
+    ("ring", 2, True, None, 1, 1, 256, 256),
 ]
 
 
 def _id(c):
     kind, sp, causal, flash = c[:4]
-    return f"{kind}-sp{sp}-{'causal' if causal else 'full'}-flash{flash}"
+    tail = f"-d{c[7]}" if c[7] > 128 else ""
+    return f"{kind}-sp{sp}-{'causal' if causal else 'full'}-flash{flash}{tail}"
 
 
 def _jax_fn(kind, sp, causal, use_flash):
@@ -143,3 +147,12 @@ def test_grid_dims_and_flash_routing():
         tseq.ring_attention(*small, 2, 2, causal=True, use_flash=True)
     with pytest.raises(MLSLError, match="divisible"):
         tseq.ulysses_attention(*(t[:, :, :, :, :, :1] for t in small), 2, 2)
+
+
+def test_flash_route_needs_a_head_dim_the_kernels_take():
+    """supports() keeps the TPU predicate (any multiple of 8); the route also
+    needs head_dim <= 128, where the CUDA kernels stop."""
+    assert tak.supports(128, 128, 256) and tak.supports(128, 128, 128)
+    assert not tseq._use_flash(128, 128, 256)
+    assert tseq._use_flash(128, 128, 128)
+    assert not tseq._use_flash(64, 64, 64)
