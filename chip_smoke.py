@@ -10,9 +10,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 2. parity    each kernel's wrapper against its plain PyTorch version on the
              card, at the shapes the training path gives it and at edge
              shapes: int8 values, scales and dequantized values bit-exact;
-             the ring (B3, B4) and halving/doubling (B5) kernels bit-exact on
-             small groups of 2 to 8 members, every dtype, both directions,
-             the snake order, ragged counts and -0.0.
+             the ring (B3, B4), its all-gather mode (B3-AG) and
+             halving/doubling (B5) kernels bit-exact on small groups of 2 to 8
+             members, every dtype, both directions, the snake order, ragged
+             counts and shards, strided rows and -0.0. Then the card's own
+             tests, mlsl_tpu_torch/cuda_tests (each kernel against its plain
+             version, no JAX), in a subprocess: every test must pass.
 3. config 1  a flat Distribution(8, 1) fp32 SUM AllReduce against the
              closed-form mlsl_test oracle.
 4. config 2  AllReduce, AllGather, Bcast and ReduceScatter over both groups
@@ -97,6 +100,24 @@ Phases, in order; any failure exits non-zero and prints no result:
              entry quantize (B1) once a block and B9 5 times a block; then
              one no-grad forward of the loss on the same weights with the
              exchange on pallas_a2a and on lax, within 0.005 of each other.
+18. zero1    ResNet-50 at full width (224x224, 1000 classes, seed 0) on 8
+             virtual data ranks with distributed_update=True, optim.adam(1e-3),
+             clip_global_norm=1.0 and MLSL_ALGO=reduce_scatter=pallas_ring:
+             three step_accum steps of two micro-batches of 64. Losses finite;
+             after every step every rank's gathered increment bitwise the
+             same; B3 (reduce_scatter) 18 times a step, B3-AG never (the
+             increment all-gather is lax, as in JAX); each layer's Adam state
+             a rank owned_kernel_count wide. Then the same steps with
+             replicated Adam (distributed_update=False, B3 allreduce): every
+             layer's parameters within 1e-5 relative L2 of the ZeRO-1 run.
+             Step seconds and images/s of both.
+19. staged   comm.overlap.build_zero1_update over ResNet-50's 18 layer counts:
+             pallas_ring on the data group of an (8, 1) world at stages 1 and
+             3, pallas_ring2d on the global group of a (4, 2) world. Integer
+             inputs (lr 0.5, denom 8) bit-exact against p - lr * sum(g) /
+             denom on every rank, random float32 inputs bit-exact against the
+             same build_zero1_update on the plain versions; 18 B3 and 18 B3-AG launches
+             a call.
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version, or to time
@@ -309,10 +330,10 @@ def same_bits(torch, a, b) -> bool:
 
 
 def phase_ring_parity(torch, rk, rhd, dev):
-    """B3, B4 and B5 against their plain versions at small edge shapes: groups
-    of 2, 3, 4 and 8 members (one instance and several), the snake order,
-    every dtype, both directions, ragged counts, all-zero int8 rows and -0.0.
-    -> number of comparisons."""
+    """B3, B3-AG, B4 and B5 against their plain versions at small edge shapes:
+    groups of 2 to 8 members (one instance and several), the snake order,
+    every dtype, both directions, ragged counts and shards, strided rows,
+    all-zero int8 rows and -0.0. -> number of comparisons."""
     from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -356,6 +377,28 @@ def phase_ring_parity(torch, rk, rhd, dev):
                           f"parity: int8 ring {kind} block {block} on {d}x{m} {axes} "
                           f"bidir={bidir} differs from its plain version")
                     cases += 1
+    # B3-AG, the gather-only mode: G from 2 to 8, both axis groups of a (4, 2)
+    # world and the snake cycles, ragged shards, strided rows and -0.0
+    ag_groups = [((g, 1, ("data",)), False) for g in range(2, 9)] + [
+        (g, False) for g in one_axis[1:3]] + [(g, True) for g in snake]
+    for (d, m, axes), is_snake in ag_groups:
+        group = ProcessGroup(Topology(d, m, d * m), axes)
+        w = d * m
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for shard in (130, 640, 3 * 4096 + 5):
+                plan = rk.dense_plan("all_gather", group, shard, snake=is_snake, bidir=False)
+                wide = (torch.randint(-2 ** 30, 2 ** 30, (w, shard + 7), generator=gen,
+                                      device=dev, dtype=torch.int32) if dtype == torch.int32
+                        else randn((w, shard + 7), dtype))
+                x = wide[:, 3:3 + shard]                 # strided rows
+                if dtype != torch.int32:
+                    x[:, ::5] = -0.0
+                got = rk.dense_ring(x, plan)
+                torch.cuda.synchronize()
+                check(same_bits(torch, got, rk.dense_ring_ref(x, plan)),
+                      f"parity: dense ring all_gather {dtype} shard {shard} on {d}x{m} {axes} "
+                      f"differs from its plain version")
+                cases += 1
     for d, m, axes in [(g, 1, ("data",)) for g in (2, 3, 4, 5, 6, 7, 8)] + [
             (4, 2, ("replica", "data", "seq", "model")), (4, 2, ("data",))]:
         group = ProcessGroup(Topology(d, m, d * m), axes)
@@ -1586,6 +1629,262 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
 # -- main -----------------------------------------------------------------
 
 
+# -- the card's own tests -----------------------------------------------------
+
+
+CARD_TESTS = "mlsl_tpu_torch/cuda_tests"
+
+
+def phase_card_tests(timeout=600) -> str:
+    """Run the jax-free kernel-against-plain tests in a subprocess; every
+    test must pass and none skip. -> pytest's summary line."""
+    cmd = [sys.executable, "-m", "pytest", CARD_TESTS, "-q", "-p", "no:cacheprovider"]
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"card tests: not done in {timeout} s")
+    lines = [ln for ln in proc.stdout.strip().splitlines() if ln.strip()]
+    summary = lines[-1] if lines else ""
+    check(proc.returncode == 0,
+          f"card tests: rc {proc.returncode}:\n" + "\n".join(lines[-40:]) + proc.stderr[-4000:])
+    check(" passed" in summary and "skipped" not in summary and "failed" not in summary,
+          f"card tests: {summary!r}")
+    return summary
+
+
+# -- ZeRO-1: the distributed update on ResNet-50, and the staged update ----------
+
+ZERO1_LR = 1e-3
+ZERO1_CLIP = 1.0
+ZERO1_MICRO = 2
+ZERO1_BATCH = 64
+
+
+def build_zero1_resnet(torch, env, np, *, distributed_update, image=224, classes=1000,
+                       batch=ZERO1_BATCH, micro=ZERO1_MICRO):
+    """ResNet-50 (seed 0) on WORLD data ranks with Adam and global-norm
+    clipping; ``micro`` batches of ``batch`` images each (seed 0 + 20) for
+    step_accum. -> (trainer, batches)."""
+    from mlsl_tpu_torch import optim
+    from mlsl_tpu_torch.models import resnet
+    from mlsl_tpu_torch.models.train import DataParallelTrainer
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = resnet.ResNet50(num_classes=classes, generator=gen, device=env.device)
+    dist = env.create_distribution(WORLD, 1)
+    sess = env.create_session()
+    sess.set_global_minibatch_size(batch)
+    trainer = DataParallelTrainer(
+        env, dist, sess, model, resnet.loss_fn, resnet.layer_names(model),
+        resnet.layer_subtree, distributed_update=distributed_update,
+        optimizer=optim.adam(ZERO1_LR), clip_global_norm=ZERO1_CLIP,
+    )
+    rng = np.random.default_rng(SEED + 20)
+    batches = []
+    for _ in range(micro):
+        x = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
+        y = rng.integers(0, classes, size=(batch,)).astype(np.int32)
+        batches.append(trainer.shard_batch(x, y))
+    return trainer, batches
+
+
+def rows_identical(torch, buf) -> bool:
+    """Every rank row of a distributed buffer holds the same bits."""
+    rows = buf.reshape(-1, buf.shape[-1]).contiguous().view(torch.int32)
+    return bool((rows == rows[:1]).all())
+
+
+def phase_zero1_resnet(torch, trainer, batches, launches, reset_launches, steps=3):
+    """``steps`` step_accum steps over the micro-batches. Under ZeRO-1, after
+    every step every rank's gathered increment (what each replica adds to its
+    parameters) must be bitwise the same. -> (mean losses, step seconds,
+    launches of the run)."""
+    losses, secs = [], []
+    reset_launches()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step_accum(batches)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(loss).all()), f"zero1 resnet step {i}: losses {loss}")
+        losses.append(float(loss.mean()))
+        if trainer.distributed_update:
+            for name in trainer.layers:
+                inc = trainer.ops[name].get_parameter_set(0).inc_req._result
+                check(rows_identical(torch, inc),
+                      f"zero1 resnet step {i}: ranks disagree on layer {name}")
+    used = launches()
+    return losses, secs, used
+
+
+def layer_vectors(torch, trainer):
+    """-> {layer: its parameters as one flat float32 copy}."""
+    return {n: torch.cat([p.detach().reshape(-1) for p in trainer.layer_params[n]]).clone()
+            for n in trainer.layers}
+
+
+def zero1_state_bytes(trainer) -> dict:
+    """Adam state bytes a rank holds: its owned shards' moments under ZeRO-1
+    against a replicated state of every layer's full count. Checks the owned
+    state's width per layer."""
+    owned = full = 0
+    for name in trainer.layers:
+        ps = trainer.ops[name].get_parameter_set(0)
+        st = trainer.opt_state[name]
+        check(tuple(st.mu.shape) == (*trainer.dist.topology.grid_shape,
+                                     ps.get_owned_kernel_count()),
+              f"zero1 resnet: layer {name} Adam state {tuple(st.mu.shape)}, owned "
+              f"{ps.get_owned_kernel_count()}")
+        owned += 2 * 4 * ps.get_owned_kernel_count() + 4
+        full += 2 * 4 * trainer.layer_counts[name] + 4
+    return {"zero1_per_rank_bytes": owned, "replicated_per_rank_bytes": full}
+
+
+def phase_zero1_staged(torch, counts, dev, launches, reset_launches):
+    """``build_zero1_update`` over ResNet-50's layer counts: pallas_ring on
+    the data group of an (8, 1) world at stages 1 and 3, pallas_ring2d on the
+    global group of a (4, 2) world. Integer inputs (lr 0.5, denom 8) are
+    bit-exact against p - lr * sum(g) / denom on every rank, random float32
+    inputs against the same build_zero1_update on the plain versions. Each call
+    launches B3 (reduce_scatter) and B3-AG once a layer. -> (lines, launches
+    summed over the counted calls)."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.comm.overlap import build_zero1_update
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    n = len(counts)
+    lines, used = [], {}
+    for (d, m, axes, algo, stages_list) in ((WORLD, 1, ("data",), "pallas_ring", (1, 3)),
+                                            (4, 2, ("data", "model"), "pallas_ring2d", (2,))):
+        topo = Topology(d, m, WORLD)
+        group = ProcessGroup(topo, axes)
+        grid = topo.grid_shape
+        for stages in stages_list:
+            tag = f"{algo} on {axes} of {grid}, stages {stages}"
+            fn, units = build_zero1_update(group, counts, lr=0.5, denom=8.0, algo=algo,
+                                           stages=stages)
+            check([u.algo for u in units] == [algo] * n, f"zero1 staged {tag}: units "
+                                                          f"{[u.algo for u in units]}")
+            p = [torch.randint(-40, 40, (c,), generator=gen, device=dev).float()
+                 .expand(*grid, c).contiguous() for c in counts]
+            g = [torch.randint(-8, 8, (*grid, c), generator=gen, device=dev).float()
+                 for c in counts]
+            torch.cuda.synchronize()
+            reset_launches()
+            outs = fn(p, g)
+            torch.cuda.synchronize()
+            c = launches()
+            check(counts_are(c, dense_ring=n, dense_ring_gather=n),
+                  f"zero1 staged {tag}: launches {c}, expected {n} B3 and {n} B3-AG")
+            for k, v in c.items():
+                used[k] = used.get(k, 0) + v
+            for name, pi, gi, o in zip(counts, p, g, outs):
+                want = pi - 0.5 * (gi.reshape(WORLD, -1).sum(0) / 8.0)
+                check(bool((o == want).all()), f"zero1 staged {tag}: a layer of {name} "
+                                                f"elements differs from the closed form")
+            del p, g, outs
+            pf = [torch.randn((*grid, c), generator=gen, device=dev) for c in counts]
+            gf = [torch.randn((*grid, c), generator=gen, device=dev) for c in counts]
+            plain_fn, _ = build_zero1_update(group, counts, lr=0.5, denom=8.0, algo=algo,
+                                             stages=stages, plain=True)
+            ko, po = fn(pf, gf), plain_fn(pf, gf)
+            torch.cuda.synchronize()
+            for a, b in zip(ko, po):
+                check(same_bits(torch, a, b),
+                      f"zero1 staged {tag}: the kernels' result differs from the plain one")
+            ms = time_ms(torch, lambda: fn(pf, gf), reps=5, warmup=1)
+            plain_ms = time_ms(torch, lambda: plain_fn(pf, gf), reps=2, warmup=1)
+            lines.append(f"# zero1 staged {tag}: {n} layers, {sum(counts)} parameters, "
+                         f"{ms:.4f} ms a call, plain {plain_ms:.4f} ms, launches {c}")
+            del pf, gf, ko, po
+    return lines, used
+
+
+def ring_gather_entry(torch, rk, shard, tag, bw, f32, per_path, dev):
+    """B3-AG on WORLD ranks: every rank's (shard,) row to every rank."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    group = ProcessGroup(Topology(WORLD, 1, WORLD), ("data",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x = torch.randn((WORLD, shard), generator=gen, device=dev)
+    plan = rk.dense_plan("all_gather", group, shard, bidir=False)
+    before = dict(rk.LAUNCHES)
+    got, want = rk.dense_ring(x, plan), rk.dense_ring_ref(x, plan)
+    check(same_bits(torch, got, want), f"dense_ring_gather ({tag}) differs from its plain "
+                                       f"version")
+    err = float((got - want).abs().max())
+    ms = time_ms(torch, lambda: rk.dense_ring(x, plan), reps=20)
+    rk.LAUNCHES.update(before)
+    plain_ms = time_ms(torch, lambda: rk.dense_ring_ref(x, plan), reps=5, warmup=1)
+    library_ms = time_ms(torch, lambda: x.reshape(1, 1, WORLD * shard).expand(
+        1, WORLD, WORLD * shard).contiguous(), reps=20)
+    return entry(name=f"dense_ring_gather ({tag})", source="mlsl_tpu_torch/csrc/ring_kernels.cu",
+                 replaces="mlsl_tpu/ops/ring_kernels.py:698", launches=sum(per_path.values()),
+                 per_path=per_path, shape=[WORLD, shard], err=err, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, nbytes=(WORLD + WORLD * WORLD) * shard * 4, ops=0,
+                 bw=bw, peak=f32,
+                 library_note="rows.reshape(C, 1, G*rc).expand(C, G, G*rc).contiguous()")
+
+
+def run_zero1(torch, np, get_env, launches, reset_launches, dev, layer_counts, image=224,
+              classes=1000):
+    """Phases 18 and 19: ResNet-50 with ZeRO-1 Adam (B3 reduce_scatter), the
+    same steps with replicated Adam (B3 allreduce), then the staged update
+    (B3 and B3-AG) over ``layer_counts``. -> the three runs' launches."""
+    # cuDNN's deterministic convolutions: both training runs see the same
+    # gradients, so they differ only in the update
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    env = reinit(get_env, MLSL_ALGO="reduce_scatter=pallas_ring")
+    trainer, batches = build_zero1_resnet(torch, env, np, distributed_update=True, image=image,
+                                          classes=classes)
+    check(all(_grad_req(trainer, n).algo == "pallas_ring" for n in trainer.layers),
+          "zero1 resnet: a layer's reduce_scatter did not select pallas_ring")
+    state_bytes = zero1_state_bytes(trainer)
+    z_losses, z_secs, zr = phase_zero1_resnet(torch, trainer, batches, launches,
+                                              reset_launches)
+    n_layers, steps = len(trainer.layers), len(z_losses)
+    check(counts_are(zr, dense_ring=n_layers * steps, dense_ring_gather=0),
+          f"zero1 resnet: launches {zr}, expected {n_layers} B3 a step and no B3-AG "
+          f"(the increment all-gather is lax)")
+    z_params = layer_vectors(torch, trainer)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    env = reinit(get_env, MLSL_ALGO="allreduce=pallas_ring")
+    trainer, batches = build_zero1_resnet(torch, env, np, distributed_update=False,
+                                          image=image, classes=classes)
+    r_losses, r_secs, rr = phase_zero1_resnet(torch, trainer, batches, launches,
+                                              reset_launches)
+    check(counts_are(rr, dense_ring=n_layers * steps),
+          f"replicated adam resnet: launches {rr}, expected {n_layers} B3 a step")
+    r_params = layer_vectors(torch, trainer)
+    worst = 0.0
+    for name in trainer.layers:
+        rel = rel_err(torch, z_params[name], r_params[name])
+        worst = max(worst, rel)
+        check(rel < 1e-5, f"zero1 resnet: layer {name} parameters {rel:.3g} from the "
+                          f"replicated Adam run")
+    del trainer, batches, z_params, r_params
+    torch.backends.cudnn.deterministic = False
+    log(f"# phase zero1 resnet: ok, losses {z_losses}, replicated {r_losses}, launches "
+        f"{zr} / {rr}, worst layer parameter rel. error against replicated Adam "
+        f"{worst:.4g}, Adam state {json.dumps(state_bytes)}")
+    images = ZERO1_MICRO * ZERO1_BATCH
+    log(f"# zero1 resnet train step (host clock, synchronized, step_accum of {ZERO1_MICRO} "
+        f"micro-batches of {ZERO1_BATCH}): " + json.dumps({
+            "zero1": {"step_s": z_secs, "images_per_s": [images / x for x in z_secs]},
+            "replicated": {"step_s": r_secs, "images_per_s": [images / x for x in r_secs]}}))
+    reinit(get_env)
+    torch.cuda.empty_cache()
+    lines, zs = phase_zero1_staged(torch, layer_counts, dev, launches, reset_launches)
+    for line in lines:
+        log(line)
+    log(f"# phase zero1 staged: ok, launches {zs}")
+    torch.cuda.empty_cache()
+    return zr, rr, zs
+
+
 def main() -> int:
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"{ROOT} holds no mlsl_tpu_torch package: run from a checkout")
@@ -1642,7 +1941,11 @@ def main() -> int:
         n_shapes = phase_parity(torch, qk, dev, shapes)
         n_ring = phase_ring_parity(torch, rk, rhd, dev)
         log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize), "
-            f"{n_ring} ring and halving/doubling cases bit-exact")
+            f"{n_ring} ring, all-gather and halving/doubling cases bit-exact")
+        t0 = time.perf_counter()
+        summary = phase_card_tests()
+        log(f"# phase card tests ({CARD_TESTS}): ok in {time.perf_counter() - t0:.1f} s, "
+            f"{summary}")
 
         phase_config1(torch, env, np)
         log("# phase config1: ok")
@@ -1808,8 +2111,8 @@ def main() -> int:
         check(moe_path_count == moe_count,
               f"transformer moe: the combine exchange is {moe_path_count} a rank, the parity "
               f"phase checked {moe_count}")
-        env = reinit(get_env)
-        torch.cuda.empty_cache()
+        zr, rr, zs = run_zero1(torch, np, get_env, launches, reset_launches, dev,
+                               list(counts.values()))
 
         fc_entry = ring_rows["fc"][0]
 
@@ -1817,7 +2120,8 @@ def main() -> int:
             return {k: v.get(key, 0) for k, v in runs.items()}
 
         runs = dict(config4=c4, config5=c5, algos=dense_used, small=small_used,
-                    config4_fused=c4f, config5_fused=c5f, alltoall=a2a_used, transformer_moe=tm)
+                    config4_fused=c4f, config5_fused=c5f, alltoall=a2a_used, transformer_moe=tm,
+                    zero1_resnet=zr, replicated_adam_resnet=rr, zero1_staged=zs)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -1829,6 +2133,11 @@ def main() -> int:
             # B3 and B5 at the 256 MiB path's own launch shape: four strided chunks
             dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev,
                              n=(64 << 20) // 4, ld=(256 << 20) // 4),
+            # B3-AG at the fc layer's ZeRO-1 shard and at 2 Mi floats a rank
+            ring_gather_entry(torch, rk, -(-counts["fc"] // WORLD), "fc ZeRO-1 shard", bw,
+                              f32, path("dense_ring_gather", **runs), dev),
+            ring_gather_entry(torch, rk, 2 << 20, "2 Mi floats a rank", bw, f32,
+                              path("dense_ring_gather", **runs), dev),
             quant_ring_entry(torch, rk, counts["fc"], "fc request", bw, f32,
                              path("quant_ring", **runs), dev),
             quant_ring_entry(torch, rk, (64 << 20) // 4, "config 4", bw, f32,

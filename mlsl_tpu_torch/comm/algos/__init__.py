@@ -272,6 +272,68 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
     return impl.build(kind, group, **kw)
 
 
+# -- the staged forms (the ZeRO-1 update, comm/overlap.py) ------------------------
+
+
+def inline_eligible(algo: str, kind: str, group: ProcessGroup, op=None) -> bool:
+    """Can ``algo`` serve (kind, group, op) as staged phases
+    (``mlsl_tpu.comm.algos.inline_eligible``)? A color group of more than
+    one member cannot: its phases would need its own axes. The kernel
+    algorithms are eligible wherever ``eligible`` admits them: JAX emits them
+    in a graph only on a TPU (``inline_ok``), the port runs their kernels on
+    the card and their plain versions on the CPU."""
+    if group.colors is not None and group.size > 1:
+        return False
+    return eligible(algo, kind, group, op)
+
+
+def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=None,
+                recv_count=None, config=None, plain: bool = False):
+    """The staged form of ``algo`` (``mlsl_tpu.comm.algos.inline_plan``):
+    ``(prep, phases, finish)`` over distributed buffers, ``prep(buf) ->
+    carry``, each ``phases[i](carry) -> carry`` one collective phase (the
+    unit the ZeRO-1 update interleaves between layers), ``finish(carry) ->
+    result buffer``. ``lax`` is one phase, the baseline collective; ``rhd``
+    and ``ring2d`` have the phases of their JAX schedules; the kernel
+    algorithms one phase, one launch (``plain``: their plain versions).
+    ``count`` is the per-member element count. allreduce and reduce_scatter
+    only."""
+    from mlsl_tpu_torch.comm import collectives
+
+    mlsl_assert(kind in ("allreduce", "reduce_scatter"),
+                "the staged form serves allreduce and reduce_scatter, not %s", kind)
+    mlsl_assert(inline_eligible(algo, kind, group, op),
+                "algorithm %s cannot lower %s in stages on group shape %s", algo, kind,
+                group_shape(group))
+    rop = ReductionType(op) if op is not None else ReductionType.SUM
+    ident = lambda buf: buf   # noqa: E731
+    if group.is_self or group.size <= 1:
+        # a degenerate group: every reduction is the identity
+        if kind == "reduce_scatter" and recv_count is not None:
+            return ident, [], lambda buf: buf[..., :recv_count]
+        return ident, [], ident
+    if algo == DEFAULT:
+        kw = {"recv_count": recv_count} if kind == "reduce_scatter" else {}
+        return ident, [collectives.build_collective(kind, group, op=rop, **kw)], ident
+    if algo == "rhd":
+        from mlsl_tpu_torch.comm.algos import rhd
+
+        return rhd.steps(kind, group, count, op=rop, recv_count=recv_count)
+    if algo == "ring2d":
+        from mlsl_tpu_torch.comm.algos import ring2d
+
+        return ring2d.steps(kind, group, count, op=rop, recv_count=recv_count)
+    if algo == "pallas_rhd":
+        from mlsl_tpu_torch.comm.algos import pallas_rhd
+
+        return pallas_rhd.steps(kind, group, count, op=rop, plain=plain)
+    from mlsl_tpu_torch.comm.algos import pallas_ring, pallas_ring2d
+
+    impl = pallas_ring if algo == "pallas_ring" else pallas_ring2d
+    return impl.steps(kind, group, count, op=rop, recv_count=recv_count,
+                      bidir=bool(getattr(config, "pallas_ring_bidir", False)), plain=plain)
+
+
 # -- engine-owned collectives inside a training graph ---------------------------
 #
 # The MoE layer (models/moe.py) exchanges and gathers per-rank tensors with the

@@ -22,6 +22,14 @@ def eligible(kind: str, group: ProcessGroup, op=None) -> bool:
     return rhd_kernels.eligible(kind, group, op)
 
 
+def steps(kind: str, group: ProcessGroup, count: int, *, op=None, plain: bool = False,
+          **_):
+    """The staged form: one phase, one launch, over distributed buffers."""
+    mlsl_assert(eligible(kind, group, op), "pallas_rhd cannot lower %s on this group", kind)
+    fn = build(kind, group, op=op, plain=plain)
+    return (lambda buf: buf), [fn], (lambda buf: buf)
+
+
 def build(kind: str, group: ProcessGroup, *, op=None, plain: bool = False, **_) -> Callable:
     """-> fn: distributed buffer -> float32 result buffer (``plain``: the
     kernel's plain version)."""

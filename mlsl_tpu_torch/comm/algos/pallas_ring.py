@@ -22,6 +22,16 @@ def eligible(kind: str, group: ProcessGroup, op=None) -> bool:
     return ring_kernels.eligible_dense(kind, group, op)
 
 
+def steps(kind: str, group: ProcessGroup, count: int, *, op=None, recv_count=None,
+          bidir: bool = False, plain: bool = False):
+    """The staged form: one phase, one launch (``ops.ring_kernels.steps``)."""
+    from mlsl_tpu_torch.ops import ring_kernels
+
+    mlsl_assert(eligible(kind, group, op), "pallas_ring cannot lower %s on this group", kind)
+    return ring_kernels.steps(kind, group, count, recv_count=recv_count, bidir=bidir,
+                              plain=plain)
+
+
 def build_ring(kind: str, group: ProcessGroup, *, snake: bool, recv_count=None,
                bidir: bool = False, plain: bool = False) -> Callable:
     """-> fn: distributed buffer -> result buffer through the dense ring

@@ -23,6 +23,17 @@ def eligible(kind: str, group: ProcessGroup, op=None) -> bool:
     return ring_kernels.eligible_dense2d(kind, group, op)
 
 
+def steps(kind: str, group: ProcessGroup, count: int, *, op=None, recv_count=None,
+          bidir: bool = False, plain: bool = False):
+    """The staged form: one phase, one launch over the snake cycle."""
+    from mlsl_tpu_torch.ops import ring_kernels
+
+    mlsl_assert(eligible(kind, group, op), "pallas_ring2d cannot lower %s on this group",
+                kind)
+    return ring_kernels.steps(kind, group, count, recv_count=recv_count, bidir=bidir,
+                              snake=True, plain=plain)
+
+
 def build(kind: str, group: ProcessGroup, *, op=None, recv_count=None, bidir: bool = False,
           plain: bool = False, **_) -> Callable:
     mlsl_assert(eligible(kind, group, op), "pallas_ring2d cannot lower %s on this group",

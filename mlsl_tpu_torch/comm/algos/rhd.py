@@ -19,11 +19,16 @@ reduce_scatter hands member p the slice [p * recv_count, (p + 1) *
 recv_count) of the result, the fast exit's placement for 2**k groups and the
 dynamic slice's otherwise. Plain PyTorch, not a kernel: the JAX version is
 composed of ``lax.ppermute`` programs.
+
+``steps`` is the staged form that the ZeRO-1 update interleaves between
+layers: the JAX schedule's phases one by one (pre-fold, k halvings, k
+doublings or the reduce_scatter fast exit, post-fold), each as tensor work
+over the member dim, with the same result as ``build``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -79,3 +84,83 @@ def build(kind: str, group: ProcessGroup, *, op=None, recv_count=None, **_) -> C
         return group_unview(out, group)
 
     return fn
+
+
+def steps(kind: str, group: ProcessGroup, n: int, *, op=None,
+          recv_count=None) -> Tuple[Callable, List[Callable], Callable]:
+    """The staged schedule (``mlsl_tpu.comm.algos.rhd.steps``):
+    ``(prep, phases, finish)``. ``prep`` takes the distributed buffer
+    (R, D, S, M, n) and the carry is its group view (C, G, L), one row of L
+    elements per member; each phase is one exchange round of the JAX
+    schedule; ``finish`` returns the result buffer. Member i of the core
+    holds after halving round t the chunk its top t+1 position bits select;
+    the members past the core hold nothing that is read until the post-fold
+    overwrites them."""
+    comb = _combine(ReductionType(op) if op is not None else ReductionType.SUM)
+    g = group.size
+    mlsl_assert(g > 1, "rhd needs a group with >1 member (got %d)", g)
+    c, k, r = _split(g)
+    m = -(-n // c) * c
+
+    def prep(buf):
+        y = group_view(buf, group)
+        return torch.nn.functional.pad(y, (0, m - n)) if m != n else y
+
+    phases: List[Callable] = []
+    if r:
+        def pre_fold(y):
+            return torch.cat([comb(y[:, :r], y[:, c:]), y[:, r:]], dim=1)
+
+        phases.append(pre_fold)
+
+    def bits(t, device):
+        pos = torch.arange(c, device=device)
+        return pos, (pos >> (k - 1 - t)) & 1
+
+    def halving(t):
+        def phase(y):
+            pos, bit = bits(t, y.device)
+            h = y.shape[-1] // 2
+            core = y[:, :c].reshape(y.shape[0], c, 2, h)
+            mine = core[:, pos, bit]                      # the half member i keeps
+            got = core[:, pos ^ (c >> (t + 1)), bit]      # its partner's copy of it
+            return torch.cat([comb(mine, got), y[:, c:, :h]], dim=1)
+
+        return phase
+
+    phases.extend(halving(t) for t in range(k))
+    if kind == "reduce_scatter" and g == c and recv_count is not None and n == g * recv_count:
+        # member i's halving chunk is its slice: no doubling phase
+        return prep, phases, lambda y: group_unview(y[..., :recv_count], group)
+
+    def doubling(t):
+        def phase(y):
+            pos, bit = bits(t, y.device)
+            core = y[:, :c]
+            got = core[:, pos ^ (c >> (t + 1))]
+            lo_first = (bit == 0)[None, :, None]
+            new = torch.where(lo_first, torch.cat([core, got], -1), torch.cat([got, core], -1))
+            rest = y[:, c:]
+            return torch.cat([new, torch.cat([rest, rest], -1)], dim=1)
+
+        return phase
+
+    phases.extend(doubling(t) for t in reversed(range(k)))
+    if r:
+        def post_fold(y):
+            return torch.cat([y[:, :c], y[:, :r]], dim=1)
+
+        phases.append(post_fold)
+
+    if kind == "reduce_scatter":
+        mlsl_assert(recv_count is not None, "rhd reduce_scatter needs recv_count")
+        mlsl_assert(n >= g * recv_count, "reduce_scatter count %d < group %d * recv_count %d",
+                    n, g, recv_count)
+
+        def finish_rs(y):
+            idx = torch.arange(g, device=y.device)
+            own = y[..., :g * recv_count].reshape(y.shape[0], g, g, recv_count)[:, idx, idx]
+            return group_unview(own, group)
+
+        return prep, phases, finish_rs
+    return prep, phases, lambda y: group_unview(y[..., :n], group)

@@ -21,19 +21,29 @@ Also, as host-side scheduling policy:
   programs (a quantized one with one error-feedback residual per chunk);
 - newest-first priority (reference eplib/allreduce_pr.c LIFO queue, :76-79):
   with ``msg_priority`` on, requests larger than the threshold are deferred
-  onto a stack and dispatched LIFO at the next sync point (a wait, a test, a
-  barrier or an explicit flush), so the most recently produced gradients hit
-  the wire first.
+  and launched together ``msg_priority_flush_ms`` after the last deferral by
+  the dispatcher's progress thread, newest first (``msg_priority_mode`` 1) or
+  oldest first (0), with no call from the app; a wait, a test, a barrier or
+  an explicit flush launches them sooner.
+
+A request deferred on a CUDA buffer may be launched from the progress thread,
+whose current stream and device are not the caller's. So ``start`` records an
+event on the caller's current stream, and the dispatch sets the buffer's
+device and makes the comm stream wait on that event. A failure while the
+progress thread dispatches stays on its request and is raised again by that
+request's ``wait`` or ``test``.
 
 A quantized request keeps its error-feedback residual from one round to the
 next. The JAX package's supervisor, chaos sites, codec registry, top-k wire,
-circuit breakers and tracing hooks are not part of this package yet.
+circuit breakers, tracing hooks and native priority queue are not part of
+this package yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
@@ -41,7 +51,7 @@ import torch
 
 from mlsl_tpu_torch.comm import algos, collectives
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
-from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.log import log_error, log_warning, mlsl_assert
 from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType, dtype_size
 
 
@@ -81,7 +91,11 @@ class CommRequest:
         self._results: List[torch.Tensor] = []
         self._result: Optional[torch.Tensor] = None
         self._event = None
+        self._ready = None      # event on the caller's stream at start (CUDA)
         self._dispatched = False
+        self._dispatch_error: Optional[BaseException] = None
+        self._epoch = 0         # bumped by every start; a stale queue entry is dropped
+        self._dlock = threading.Lock()
         self.is_started = False
         self.is_setup = False
         self.algo = algos.DEFAULT
@@ -174,31 +188,55 @@ class CommRequest:
             "buffer must have shape (R=%d, D=%d, S=%d, M=%d, n), got %s",
             *topo.grid_shape, tuple(buf.shape),
         )
-        self._results = []
-        self._result = None
-        self._event = None
-        self._dispatched = False
-        self.is_started = True
+        with self._dlock:
+            self._epoch += 1
+            self._results = []
+            self._result = None
+            self._event = None
+            self._dispatched = False
+            self._dispatch_error = None
+            self._ready = None
+            if buf.device.type == "cuda":
+                # the dispatch may run on the progress thread, whose current
+                # stream is not the caller's: it waits on this event instead
+                self._ready = torch.cuda.Event()
+                self._ready.record(torch.cuda.current_stream(buf.device))
+            self.is_started = True
         self.dispatcher.submit(self, buf)
         return self
 
-    def _dispatch(self, buf: torch.Tensor) -> None:
+    def _dispatch(self, buf: torch.Tensor, epoch: Optional[int] = None) -> None:
         """Launch the collective (called by the Dispatcher): on the comm stream
-        for a CUDA buffer, in place on the CPU."""
+        for a CUDA buffer, in place on the CPU. ``epoch`` is the request's
+        epoch when the dispatch was queued: a later ``start`` superseded an
+        entry whose epoch differs, and it is dropped. A queued dispatch that
+        fails records the error for ``wait``/``test``; a direct one raises."""
+        with self._dlock:
+            if epoch is not None and epoch != self._epoch:
+                return
+            try:
+                self._launch(buf)
+            except Exception as e:
+                if epoch is None:
+                    raise
+                self._dispatch_error = e
+            self._dispatched = True
+
+    def _launch(self, buf: torch.Tensor) -> None:
         stream = self.dispatcher.stream_for(buf.device)
         if stream is None:
             self._results = self._run(buf)
-        else:
-            stream.wait_stream(torch.cuda.current_stream(buf.device))
+            return
+        with torch.cuda.device(buf.device):
+            stream.wait_event(self._ready)
             with torch.cuda.stream(stream):
                 self._results = self._run(buf)
                 event = torch.cuda.Event()
                 event.record(stream)
-            # the caller's stream allocated buf: its memory must not be
-            # recycled while the comm stream still reads it
-            buf.record_stream(stream)
-            self._event = event
-        self._dispatched = True
+        # the caller's stream allocated buf: its memory must not be
+        # recycled while the comm stream still reads it
+        buf.record_stream(stream)
+        self._event = event
 
     def _run(self, buf: torch.Tensor) -> List[torch.Tensor]:
         if self._quant_fns is not None:
@@ -229,7 +267,8 @@ class CommRequest:
         if not self.is_started and self._result is not None:
             return self._result
         mlsl_assert(self.is_started, "request was not started")
-        self.dispatcher.flush()
+        self.dispatcher.wait_dispatched(self)
+        self._raise_dispatch_error()
         mlsl_assert(self._dispatched, "request %s was never dispatched", self.name or self.uid)
         if self._event is not None:
             # the comm stream allocated the results; the caller's stream now
@@ -246,10 +285,18 @@ class CommRequest:
         """Non-blocking completion poll -> (is_completed, result_or_None)."""
         if not self.is_started:
             return True, self._result
-        self.dispatcher.flush()
+        self.dispatcher.wait_dispatched(self)
+        self._raise_dispatch_error()
         if self._event is not None and not self._event.query():
             return False, None
         return True, self.wait()
+
+    def _raise_dispatch_error(self) -> None:
+        """Re-raise a failure of a queued dispatch, once, and end the round."""
+        if self._dispatch_error is not None:
+            err, self._dispatch_error = self._dispatch_error, None
+            self.is_started = False
+            raise err
 
 
 def _check_recv_count(d: CommDesc) -> None:
@@ -266,27 +313,39 @@ def _check_recv_count(d: CommDesc) -> None:
 
 
 class Dispatcher:
-    """Host-side dispatch policy: immediate launch, or newest-first deferral.
+    """Host-side dispatch policy: immediate launch, or newest-first deferral
+    with autonomous progress (``mlsl_tpu.comm.request.Dispatcher``).
 
-    The reference's endpoint servers may serve the newest large allreduce
-    first (eplib/cqueue.c:1999-2012 routing to allreduce_pr.c LIFO). Here the
-    queue is a host-side stack of not-yet-launched requests; ``flush`` launches
-    them LIFO. Small messages, barriers and the default configuration
-    (msg_priority off) dispatch at once. Also owns the comm stream of each
-    CUDA device."""
+    The reference's endpoint servers pull commands from a queue and may serve
+    the newest large allreduce first (eplib/cqueue.c:1999-2012 routing to
+    allreduce_pr.c LIFO), driving the network without the app thread
+    (eplib/allreduce_pr.c:69-278). Here the queue is a host-side list of
+    not-yet-launched requests. A daemon progress thread, started at the first
+    deferral, launches them ``msg_priority_flush_ms`` after the last deferral:
+    requests deferred within that window go out together, LIFO
+    (``msg_priority_mode`` 1) or FIFO (0). ``flush`` launches them at once.
+    Small messages, barriers and the default configuration (msg_priority off)
+    dispatch at once. Also owns the comm stream of each CUDA device."""
 
     def __init__(self, config):
         self.config = config
-        self._pending: List[tuple] = []   # stack of (request, buf)
+        self._pending: List[tuple] = []   # (request, buf, epoch), oldest first
         self._streams: dict = {}
+        self._lock = threading.Lock()
+        self._cv = threading.Condition(self._lock)
+        self._in_flight: set = set()      # uids taken off the queue, dispatch running
+        self._thread: Optional[threading.Thread] = None
+        self._deadline = 0.0
+        self._stopped = False
 
     def stream_for(self, device: torch.device):
         if device.type != "cuda":
             return None
-        s = self._streams.get(device)
-        if s is None:
-            s = torch.cuda.Stream(device=device)
-            self._streams[device] = s
+        with self._lock:
+            s = self._streams.get(device)
+            if s is None:
+                s = torch.cuda.Stream(device=device)
+                self._streams[device] = s
         return s
 
     def submit(self, req: CommRequest, buf: torch.Tensor) -> None:
@@ -298,16 +357,75 @@ class Dispatcher:
                 or req._payload <= cfg.msg_priority_threshold):
             req._dispatch(buf)
             return
-        # a restart of an already-deferred request supersedes the stale entry
-        self._pending = [e for e in self._pending if e[0] is not req]
-        self._pending.append((req, buf))
+        with self._lock:
+            # a restart of an already-deferred request supersedes the stale entry
+            self._pending = [e for e in self._pending if e[0] is not req]
+            self._pending.append((req, buf, req._epoch))
+            self._deadline = time.monotonic() + cfg.msg_priority_flush_ms / 1e3
+            if self._thread is None and not self._stopped:
+                self._thread = threading.Thread(target=self._progress_loop, daemon=True,
+                                                name="mlsl-dispatch")
+                self._thread.start()
+            self._cv.notify_all()
+
+    def _progress_loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._stopped and not self._pending:
+                    self._cv.wait()
+                if self._stopped:
+                    return
+                delay = self._deadline - time.monotonic()
+            if delay > 0:
+                time.sleep(min(delay, 0.05))
+                continue
+            try:
+                self.flush()
+            except Exception as e:   # keep the daemon alive; the request holds its error
+                log_error("background flush failed: %r", e)
 
     def flush(self) -> None:
+        """Launch every deferred request now, in the configured order."""
         if not self._pending:
             return
-        pending, self._pending = self._pending, []
-        for req, buf in reversed(pending):
-            req._dispatch(buf)
+        with self._lock:
+            # a uid enters _in_flight before its entry leaves _pending, so a
+            # waiter never finds its request in neither place
+            self._in_flight.update(e[0].uid for e in self._pending)
+            pending, self._pending = self._pending, []
+        items = list(reversed(pending)) if self.config.msg_priority_mode else pending
+        try:
+            for req, buf, epoch in items:
+                req._dispatch(buf, epoch)
+        finally:
+            with self._cv:
+                for req, _, _ in items:
+                    self._in_flight.discard(req.uid)
+                self._cv.notify_all()
+
+    def wait_dispatched(self, req: CommRequest) -> None:
+        """Make sure ``req`` has been launched: flush the queue, then wait out
+        a dispatch of it that the progress thread is running."""
+        self.flush()
+        if req.uid not in self._in_flight:
+            return
+        with self._cv:
+            while req.uid in self._in_flight:
+                self._cv.wait()
+
+    def shutdown(self) -> None:
+        """Launch anything still deferred and stop the progress thread."""
+        self.flush()
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            if self._thread.is_alive():
+                log_warning("dispatch progress thread %s still alive after 5 s "
+                            "(%d deferred requests pending); abandoning it",
+                            self._thread.name, self.pending_count)
+            self._thread = None
 
     @property
     def pending_count(self) -> int:

@@ -2,9 +2,10 @@
 
 The subset of ``mlsl_tpu.config.Config`` that this package reads: the int8
 codec's block, large-message chunking (reference src/comm_ep.cpp:95-97),
-newest-first priority deferral (reference eplib/env.c:135-165), and the
-collective algorithm engine with its tuned profile and kernel knobs
-(comm/algos, tuner/, ops/).
+newest-first priority deferral and its progress thread (reference
+eplib/env.c:135-165), the collective algorithm engine with its tuned profile
+and kernel knobs (comm/algos, tuner/, ops/), and the staging depth of the
+ZeRO-1 update (comm/overlap.py).
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -21,15 +22,22 @@ _ENV_FIELDS = {
     "MLSL_LARGE_MSG_SIZE_MB": "large_msg_size_mb",
     "MLSL_LARGE_MSG_CHUNKS": "large_msg_chunks",
     "MLSL_MSG_PRIORITY_THRESHOLD": "msg_priority_threshold",
+    "MLSL_MSG_PRIORITY_FLUSH_MS": "msg_priority_flush_ms",
     "MLSL_QUANT_BLOCK_ELEMS": "quant_block_elems",
     "MLSL_PALLAS_RHD_MAX_BYTES": "pallas_rhd_max_bytes",
     "MLSL_PALLAS_A2A_QUANT": "pallas_a2a_quant",
+    "MLSL_OVERLAP_STAGES": "overlap_stages",
 }
 
 
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name)
     return int(v) if v not in (None, "") else default
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    return float(v) if v not in (None, "") else default
 
 
 def _env_bool(name: str, default: bool) -> bool:
@@ -46,10 +54,14 @@ class Config:
     # into independently dispatched chunks so Wait completes incrementally.
     large_msg_size_mb: int = 128    # MLSL_LARGE_MSG_SIZE_MB
     large_msg_chunks: int = 4       # MLSL_LARGE_MSG_CHUNKS
-    # Newest-first priority: requests above the threshold are deferred on a
-    # stack and dispatched LIFO at the next sync point.
+    # Newest-first priority: requests above the threshold are deferred and
+    # launched together, by the progress thread or at the next sync point.
     msg_priority: bool = False           # MLSL_MSG_PRIORITY
     msg_priority_threshold: int = 10000  # MLSL_MSG_PRIORITY_THRESHOLD (bytes)
+    msg_priority_mode: bool = True       # MLSL_MSG_PRIORITY_MODE: 1 = LIFO, 0 = FIFO
+    # Coalescing window: the progress thread launches the deferred requests
+    # this long after the last deferral, with no call from the app.
+    msg_priority_flush_ms: float = 2.0   # MLSL_MSG_PRIORITY_FLUSH_MS
     # Elements per int8 quantization block (one float32 scale each).
     quant_block_elems: int = 256    # MLSL_QUANT_BLOCK_ELEMS
 
@@ -83,6 +95,10 @@ class Config:
     # Off = the same kernel exchanges dense float32.
     pallas_a2a_quant: bool = True    # MLSL_PALLAS_A2A_QUANT
 
+    # --- the staged ZeRO-1 update (comm/overlap.py) ---
+    # A unit's phases are spread over this many unit starts.
+    overlap_stages: int = 2          # MLSL_OVERLAP_STAGES
+
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
         into ``_forced_algos`` (comm/algos.select reads it)."""
@@ -101,6 +117,11 @@ class Config:
         mlsl_assert(self.msg_priority_threshold >= 0,
                     "MLSL_MSG_PRIORITY_THRESHOLD must be >= 0 (got %d)",
                     self.msg_priority_threshold)
+        mlsl_assert(self.msg_priority_flush_ms >= 0,
+                    "MLSL_MSG_PRIORITY_FLUSH_MS must be >= 0 (got %s)",
+                    self.msg_priority_flush_ms)
+        mlsl_assert(self.overlap_stages >= 1,
+                    "MLSL_OVERLAP_STAGES must be >= 1 (got %d)", self.overlap_stages)
         mlsl_assert(self.pallas_rhd_max_bytes >= 0,
                     "MLSL_PALLAS_RHD_MAX_BYTES must be >= 0 (0 = derive from "
                     "MLSL_MSG_PRIORITY_THRESHOLD; got %d)", self.pallas_rhd_max_bytes)
@@ -116,6 +137,9 @@ class Config:
         c.msg_priority_threshold = _env_int(
             "MLSL_MSG_PRIORITY_THRESHOLD", c.msg_priority_threshold
         )
+        c.msg_priority_mode = _env_bool("MLSL_MSG_PRIORITY_MODE", c.msg_priority_mode)
+        c.msg_priority_flush_ms = _env_float("MLSL_MSG_PRIORITY_FLUSH_MS",
+                                             c.msg_priority_flush_ms)
         c.quant_block_elems = _env_int("MLSL_QUANT_BLOCK_ELEMS", c.quant_block_elems)
         c.collective_algo = os.environ.get("MLSL_ALGO", c.collective_algo)
         c.tune = _env_bool("MLSL_TUNE", c.tune)
@@ -125,4 +149,5 @@ class Config:
         c.pallas_rhd_max_bytes = _env_int("MLSL_PALLAS_RHD_MAX_BYTES",
                                           c.pallas_rhd_max_bytes)
         c.pallas_a2a_quant = _env_bool("MLSL_PALLAS_A2A_QUANT", c.pallas_a2a_quant)
+        c.overlap_stages = _env_int("MLSL_OVERLAP_STAGES", c.overlap_stages)
         return c

@@ -82,7 +82,7 @@ class Environment:
         if not self._initialized:
             return
         if self.dispatcher is not None:
-            self.dispatcher.flush()
+            self.dispatcher.shutdown()
         self._sessions.clear()
         self._distributions.clear()
         self._initialized = False

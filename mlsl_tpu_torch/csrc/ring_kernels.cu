@@ -1,9 +1,11 @@
-// The fused ring allreduce / reduce-scatter over the virtual ranks of one card
-// (Hopper, sm_90a): a dense ring (float32, bfloat16, int32) and an int8 ring.
+// The fused ring allreduce / reduce-scatter / all-gather over the virtual
+// ranks of one card (Hopper, sm_90a): a dense ring (float32, bfloat16, int32),
+// its gather-only mode, and an int8 ring.
 //
 // Replaces the TPU kernel mlsl_tpu/ops/ring_kernels.py:698 (_ring_call), in
-// its dense form (B3, body _ring_kernel_factory :473) and its quantized form
-// (B4, bodies quant_ring_body :885 and _quantize_rows :463).
+// its dense form (B3, body _ring_kernel_factory :473), its gather-only form
+// (B3-AG, mode="all_gather", the hops from base = 0 at :649) and its
+// quantized form (B4, bodies quant_ring_body :885 and _quantize_rows :463).
 //
 // On the TPU each member is a chip and every hop is a remote DMA between
 // them. Here every member is a row of one world buffer (W, ld) on one card,
@@ -31,6 +33,17 @@
 // elements l, l+32, ...), so a hop costs one coalesced row load and a
 // five-step shuffle for max|x|, and nothing is written until the end. No slot
 // buffers, semaphores or handshakes: nothing is in flight between members.
+//
+// The all-gather (B3-AG) is the ZeRO-1 increment exchange: each member brings
+// only its own shard of rc elements and ends with all G shards in group-
+// position order, (G*rc,). On the TPU the shards travel G-1 hops; here the
+// owner at ring slot i is read once and its element stored into every
+// member's row at chunk_of[i] * rc (chunk_of undoes the snake permutation, as
+// ring_kernels.py:858-866 does). No arithmetic: the kernel moves bit patterns
+// (4 or 2 bytes), so it is bit-exact, -0.0 and NaN payloads included. Bound:
+// memory traffic, G*rc elements read and G*G*rc written an instance; one
+// thread per (instance, owner, element), coalesced loads and G coalesced
+// stores.
 //
 // Numerics, bit-exact against the plain PyTorch version:
 // - dense: the accumulator has the buffer's type. bfloat16 adds in float32
@@ -114,6 +127,24 @@ __global__ void dense_ring_kernel(const T* __restrict__ x, T* __restrict__ out,
   } else if (valid) {
     for (int m = 0; m < G; ++m) out[static_cast<long long>(rr[m]) * count + idx] = acc;
   }
+}
+
+// grid: x over the rc elements of a shard, y over the C*G (instance, owner's
+// ring slot i) pairs. T is an unsigned integer of the element's width: the
+// kernel copies bits.
+template <typename T>
+__global__ void dense_gather_kernel(const T* __restrict__ x, T* __restrict__ out,
+                                    const int* __restrict__ ring,
+                                    const int* __restrict__ chunk_of, int G, long long ld,
+                                    long long rc) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= rc) return;
+  const int i = blockIdx.y % G;
+  const int* rr = ring + static_cast<long long>(blockIdx.y / G) * G;
+  const T v = x[static_cast<long long>(rr[i]) * ld + e];
+  const long long width = static_cast<long long>(G) * rc;
+  const long long off = static_cast<long long>(chunk_of[i]) * rc + e;
+  for (int m = 0; m < G; ++m) out[static_cast<long long>(rr[m]) * width + off] = v;
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -210,6 +241,18 @@ int launch_dense(const void* x, void* out, const void* ring, const void* chunk_o
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_gather(const void* x, void* out, const void* ring, const void* chunk_of, int C,
+                  int G, long long ld, long long rc, cudaStream_t stream) {
+  if (rc <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid(static_cast<unsigned int>((rc + kThreads - 1) / kThreads),
+                  static_cast<unsigned int>(C * G));
+  dense_gather_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const int*>(ring),
+      static_cast<const int*>(chunk_of), G, ld, rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -230,6 +273,23 @@ int mlsl_dense_ring(const void* x, void* out, const void* ring, const void* chun
                                          rs, s);
     case 2:
       return launch_dense<int32_t>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The all-gather (B3-AG). x: (W, >= rc) rows of stride ld, dtype as above;
+// ring: (C, G) int32 world ranks in ring order; chunk_of: (G,) int32 group
+// position of ring slot i. out: (W, G*rc), contiguous.
+int mlsl_dense_ring_gather(const void* x, void* out, const void* ring, const void* chunk_of,
+                           int C, int G, long long ld, long long rc, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+    case 2:
+      return launch_gather<uint32_t>(x, out, ring, chunk_of, C, G, ld, rc, s);
+    case 1:
+      return launch_gather<uint16_t>(x, out, ring, chunk_of, C, G, ld, rc, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

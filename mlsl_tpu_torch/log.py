@@ -2,7 +2,7 @@
 
 Counterpart of the part of ``mlsl_tpu.log`` that this package uses (reference
 MLSL_ASSERT macro, src/log.hpp:72-83): an assert that raises ``MLSLError``
-instead of calling ``_exit(1)``, and warning/debug messages through the
+instead of calling ``_exit(1)``, and error/warning/debug messages through the
 standard ``logging`` module (logger ``mlsl_tpu_torch``).
 """
 
@@ -11,6 +11,11 @@ from __future__ import annotations
 import logging
 
 _logger = logging.getLogger("mlsl_tpu_torch")
+
+
+def log_error(msg: str, *args) -> None:
+    """An error message, with the traceback of the exception being handled."""
+    _logger.error(msg, *args, exc_info=True)
 
 
 def log_warning(msg: str, *args) -> None:

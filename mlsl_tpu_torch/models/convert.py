@@ -7,6 +7,11 @@ order of a tree is ``jax.tree.leaves`` order -- dict keys sorted, list items
 in order -- so a layer's flattened gradient orders its elements exactly as the
 JAX package does, and an int8 quantization block (256 consecutive elements)
 groups the same elements in both.
+
+Optimizer state crosses the same way: optax's ``ScaleByAdamState`` (``mu``,
+``nu``, ``count``, as numpy arrays) becomes the port's ``optim.AdamState``,
+both for the ZeRO-1 owned-shard buffers and for a replicated state, whose
+moments are parameter trees flattened layer by layer.
 """
 
 from __future__ import annotations
@@ -127,3 +132,44 @@ def load_params(module, tree) -> None:
                 d.copy_(src.to(d.dtype))
 
     walk(dst, tree, "")
+
+
+def adam_state_from_optax(mu, nu, count, device=None, *, layers=None, get_layer=None):
+    """optax's ``ScaleByAdamState`` fields (numpy arrays, or anything
+    ``np.asarray`` accepts) -> the port's ``optim.AdamState``.
+
+    - ZeRO-1 owned-shard buffers (the JAX trainer's per-layer
+      ``_du_opt_state``): ``mu`` and ``nu`` (R, D, S, M, owned), ``count``
+      (R, D, S, M, 1) -> one AdamState over (R, D, S, M, owned).
+    - A replicated state: ``mu`` and ``nu`` parameter trees, ``count`` a
+      scalar, with ``layers`` and ``get_layer(tree, name)`` -> {layer:
+      AdamState over the layer's flat vector, in leaf order}.
+
+    All ranks step together, so the count must be one value."""
+    from mlsl_tpu_torch.core.environment import default_device
+    from mlsl_tpu_torch.optim import AdamState
+
+    device = default_device() if device is None else device
+    counts = np.unique(np.asarray(count))
+    if counts.size != 1:
+        raise ValueError(f"Adam step counts differ across ranks: {counts.tolist()}")
+    step = torch.tensor(int(counts[0]), dtype=torch.int32, device=device)
+
+    def vec(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    if layers is None:
+        return AdamState(step, vec(mu), vec(nu))
+
+    def flat(tree, name):
+        return vec(np.concatenate([np.asarray(a, np.float32).reshape(-1)
+                                   for a in tree_leaves(get_layer(tree, name))]))
+
+    return {name: AdamState(step.clone(), flat(mu, name), flat(nu, name)) for name in layers}
+
+
+def adam_state_to_optax(state):
+    """Inverse of ``adam_state_from_optax`` for one AdamState -> (mu, nu,
+    count) numpy arrays, count a scalar."""
+    return (state.mu.detach().cpu().numpy().copy(), state.nu.detach().cpu().numpy().copy(),
+            np.int32(state.count.item()))

@@ -10,28 +10,54 @@ Counterpart of the per-layer Start/Wait path of ``mlsl_tpu.models.train``
   its codec;
 - each layer is an Operation whose ParameterSet carries the gradient
   collective; StartGradientComm is issued per layer in reverse (backprop)
-  order, then every layer is waited and updated with the built-in SGD
-  (p -= lr * sum_grad / data_ranks).
+  order, then every layer is waited and updated: with the built-in SGD
+  (p -= lr * sum_grad / data_ranks) or an elementwise optimizer
+  (``mlsl_tpu_torch.optim``), optionally after clipping the mean gradient
+  to a global L2 norm;
+- with ``distributed_update`` (ZeRO-1) the gradient is reduce-scattered,
+  each rank updates only its owned shard -- the optimizer state lives only
+  there, (R, D, S, M, owned) -- and StartIncrementComm all-gathers the
+  increments (train.py:1181-1232). The global norm for clipping is then
+  assembled from the owned shards' partial sums over the gradient group.
 
 Gradients cross into the framework as distributed buffers (R, D, S, M, count)
 whose rows are the per-rank flat layer gradients, in the JAX package's
-element order (see convert.py). When Commit shows that no parameter set
-communicates (one data rank), the step is fused: one forward/backward and
-the update, no requests -- unless ``force_graph_path`` asks for the graph.
-Optimizers other than SGD, ZeRO-1, the overlap engines, the sentinel,
-straggler detection and telemetry come later.
+element order (see convert.py), zero-padded to the parameter set's local
+count. When Commit shows that no parameter set communicates (one data rank),
+the step is fused: one forward/backward and the update, no requests --
+unless ``force_graph_path`` asks for the graph. ``step_accum`` sums the
+gradients of several micro-batches before one sync. The overlap engines, the
+sentinel, straggler detection and telemetry are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from mlsl_tpu_torch.comm import collectives
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import tree_leaves
-from mlsl_tpu_torch.types import CompressionType, DataType, OpType
+from mlsl_tpu_torch.types import CompressionType, DataType, OpType, ReductionType
+
+
+def clip_scale(sq_norm: torch.Tensor, clip: float) -> torch.Tensor:
+    """The factor of an L2 clip, min(1, clip / norm) (train.py:110)."""
+    return torch.clamp(clip / torch.clamp(torch.sqrt(sq_norm), min=1e-12), max=1.0)
+
+
+def owned_increment(g: torch.Tensor, lr: float, norm: float, scale=1.0) -> torch.Tensor:
+    """Owned-shard SGD increment -lr * s * g / norm (train.py:52)."""
+    return -lr * scale * g / norm
+
+
+def owned_opt_increment(g: torch.Tensor, state, optimizer, norm: float, scale=1.0):
+    """Owned-shard optimizer increment: the transform on s * g / norm, every
+    rank's shard at once (train.py:132). -> (increment, new state)."""
+    return optimizer.update(scale * g / norm, state)
+
 
 
 class DataParallelTrainer:
@@ -51,10 +77,20 @@ class DataParallelTrainer:
         loss_fn: Callable,
         layers: List[str],
         get_layer: Callable,
+        distributed_update: bool = False,
         compression: CompressionType = CompressionType.NONE,
         lr: float = 0.05,
         force_graph_path: bool = False,
+        optimizer=None,
+        clip_global_norm: Optional[float] = None,
     ):
+        """optimizer: a transform of ``mlsl_tpu_torch.optim`` (``adam``,
+        ``sgd``); None keeps the built-in SGD (p - lr * mean_grad). With
+        ``distributed_update`` the optimizer state lives only on each rank's
+        owned gradient shard (ZeRO-1), so only elementwise transforms are
+        correct there, as in the JAX package. ``clip_global_norm`` clips the
+        mean gradient to this global L2 norm before the optimizer, on every
+        path."""
         self.env = env
         self.dist = dist
         self.session = session
@@ -63,6 +99,8 @@ class DataParallelTrainer:
         self.layers = list(layers)
         self.get_layer = get_layer
         self.lr = lr
+        self.optimizer = optimizer
+        self.clip_global_norm = clip_global_norm
         mlsl_assert(
             dist.get_process_count_model() == 1
             and dist.replica_count == 1
@@ -93,13 +131,37 @@ class DataParallelTrainer:
             reg.set_name(name)
             reg.add_input(1, 1)
             reg.add_output(1, 1)
-            reg.add_parameter_set(count, 1, DataType.FLOAT, compression_type=compression)
+            reg.add_parameter_set(count, 1, DataType.FLOAT,
+                                  distributed_update=distributed_update,
+                                  compression_type=compression)
             self.ops[name] = session.get_operation(session.add_operation(reg, dist))
         session.commit()
-        needs_comm = any(self.ops[n].get_parameter_set(0).need_comm for n in self.layers)
+        # the distributed update pads the local count so that every data rank
+        # owns an equal shard (reference src/mlsl_impl.cpp:403-405)
+        self.padded_counts = {name: self._pset(name).get_local_kernel_count()
+                              for name in self.layers}
+        needs_comm = any(self._pset(n).need_comm for n in self.layers)
+        self._needs_comm = needs_comm
+        self.distributed_update = distributed_update
         # fuse the whole step when no parameter set communicates (train.py:388-391)
         self.fused = not needs_comm and not force_graph_path
+        # optimizer state: per layer over each rank's owned shard under ZeRO-1,
+        # else one replicated state per layer's flat parameter vector
+        self.opt_state: Dict[str, object] = {}
+        if optimizer is not None:
+            grid = dist.topology.grid_shape
+            for name in self.layers:
+                if distributed_update and needs_comm:
+                    # one state over every rank's owned shard (train.py:115)
+                    self.opt_state[name] = optimizer.init(
+                        (*grid, self._pset(name).get_owned_kernel_count()), device=self.device)
+                else:
+                    self.opt_state[name] = optimizer.init(self.layer_counts[name],
+                                                          device=self.device)
         self._step_no = 0
+
+    def _pset(self, name: str):
+        return self.ops[name].get_parameter_set(0)
 
     # -- data placement ----------------------------------------------------
 
@@ -123,16 +185,16 @@ class DataParallelTrainer:
 
     def _local_grads(self, batch):
         """Per-rank loss and flat per-layer gradients as distributed buffers:
-        -> (loss (R, D, S, M, 1), {layer: (R, D, S, M, count)})."""
+        -> (loss (R, D, S, M, 1), {layer: (R, D, S, M, padded count)})."""
         x, y = batch
         grid = self.dist.topology.grid_shape
         params = self._all_params()
         losses = torch.empty((*grid, 1), dtype=torch.float32, device=self.device)
-        grads = {
-            name: torch.empty((*grid, self.layer_counts[name]), dtype=torch.float32,
-                              device=self.device)
-            for name in self.layers
-        }
+        grads = {}
+        for name in self.layers:
+            count, padded = self.layer_counts[name], self.padded_counts[name]
+            alloc = torch.zeros if padded > count else torch.empty
+            grads[name] = alloc((*grid, padded), dtype=torch.float32, device=self.device)
         for p in range(self.dist.topology.world_size):
             c = self.dist.topology.coords(p)
             loss = self.loss_fn(self.model, (x[c], y[c]))
@@ -146,14 +208,31 @@ class DataParallelTrainer:
         return losses, grads
 
     @torch.no_grad()
-    def _apply(self, name: str, flat_grad: torch.Tensor, scale: float) -> None:
-        """p -= lr * g / scale over one layer's flat (count,) gradient."""
-        g = flat_grad / scale
+    def _add_flat(self, name: str, flat: torch.Tensor) -> None:
+        """p += flat over one layer's flat (count,) vector."""
         off = 0
         for p in self.layer_params[name]:
             n = p.numel()
-            p.sub_(self.lr * g[off:off + n].view_as(p))
+            p.add_(flat[off:off + n].view_as(p))
             off += n
+
+    @torch.no_grad()
+    def _replicated_update(self, flat: Dict[str, torch.Tensor], norm: float) -> None:
+        """The update from every layer's reduced (count,) gradient, divided by
+        ``norm``: clip, then SGD or the optimizer (train.py:543-638, and the
+        fused step's :713-755 with norm 1)."""
+        grads = {n: flat[n][:self.layer_counts[n]] / norm for n in self.layers}
+        if self.clip_global_norm is not None:
+            sq = sum((g * g).sum() for g in grads.values())
+            cscale = clip_scale(sq, self.clip_global_norm)
+            grads = {n: g * cscale for n, g in grads.items()}
+        for name in self.layers:
+            if self.optimizer is None:
+                self._add_flat(name, -self.lr * grads[name])
+            else:
+                upd, self.opt_state[name] = self.optimizer.update(grads[name],
+                                                                  self.opt_state[name])
+                self._add_flat(name, upd)
 
     def step(self, batch) -> torch.Tensor:
         """One training step. -> the loss: per rank (R, D, S, M, 1) on the graph
@@ -164,22 +243,81 @@ class DataParallelTrainer:
             c = (0, 0, 0, 0)
             loss = self.loss_fn(self.model, (x[c], y[c]))
             gs = iter(torch.autograd.grad(loss, self._all_params()))
-            with torch.no_grad():
-                for p in self._all_params():
-                    p.sub_(self.lr * next(gs))
+            flat = {n: torch.cat([next(gs).reshape(-1) for _ in self.layer_params[n]])
+                    for n in self.layers}
+            self._replicated_update(flat, 1.0)
             return loss.detach()
         loss, grads = self._local_grads(batch)
         return self._sync_and_update(grads, loss)
+
+    def step_accum(self, batches: Sequence) -> torch.Tensor:
+        """Gradient accumulation (train.py:1038-1077): k local
+        forward/backward passes, ONE gradient sync and update. Each entry of
+        ``batches`` is a ``shard_batch`` result with the same local batch
+        size; the gradients and losses are summed in order and divided by k.
+        -> the mean loss per rank (R, D, S, M, 1)."""
+        mlsl_assert(len(batches) >= 1, "step_accum needs at least one batch")
+        mlsl_assert(not self.fused, "step_accum takes the graph path (use "
+                    "force_graph_path=True on a grid without communication)")
+        self._step_no += 1
+        total = loss_sum = None
+        for b in batches:
+            loss, grads = self._local_grads(b)
+            total = grads if total is None else {n: total[n] + grads[n] for n in self.layers}
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        k = len(batches)
+        return self._sync_and_update({n: g / k for n, g in total.items()}, loss_sum / k)
 
     def _sync_and_update(self, grads, loss) -> torch.Tensor:
         # Start gradient comms newest-gradient-first (reverse layer order), the
         # stream shape eplib's priority allreduce was built for.
         for name in reversed(self.layers):
-            self.ops[name].get_parameter_set(0).start_gradient_comm(grads[name])
-        for name in self.layers:
-            out = self.ops[name].get_parameter_set(0).wait_gradient_comm()
-            reduced = out if out is not None else grads[name]
-            # every rank holds the same reduced gradient; rank 0's updates the
-            # (replicated) parameters
-            self._apply(name, reduced[0, 0, 0, 0], self.data_size)
+            self._pset(name).start_gradient_comm(grads[name])
+        if not (self.distributed_update and self._needs_comm):
+            reduced = {}
+            for name in self.layers:
+                out = self._pset(name).wait_gradient_comm()
+                # every rank holds the same reduced gradient; rank 0's updates
+                # the (replicated) parameters
+                reduced[name] = (out if out is not None else grads[name])[0, 0, 0, 0]
+            self._replicated_update(reduced, self.data_size)
+            return loss
+        self._zero1_update()
         return loss
+
+    @torch.no_grad()
+    def _zero1_update(self) -> None:
+        """ZeRO-1 (train.py:1181-1232): each rank turns its owned gradient
+        shard into an increment, the increments are all-gathered, and every
+        rank adds the gathered increment to its replica."""
+        norm = self.data_size
+        owned_all, scale = {}, 1.0
+        if self.clip_global_norm is not None:
+            # the clip needs every owned shard before any increment: wait all,
+            # sum the shards' partial squares over the gradient group, scale
+            for name in self.layers:
+                owned_all[name] = self._pset(name).wait_gradient_comm()
+                mlsl_assert(owned_all[name] is not None,
+                            "distributed update requires dataParts>1")
+            local = sum(((owned_all[n] / norm) ** 2).sum(dim=-1, keepdim=True)
+                        for n in sorted(owned_all))
+            total = collectives.build_collective("allreduce", self.dist.grad_group,
+                                                 op=ReductionType.SUM)(local)
+            scale = clip_scale(torch.sqrt(total) ** 2, self.clip_global_norm)
+        for name in self.layers:
+            ps = self._pset(name)
+            owned = owned_all.get(name)
+            if owned is None:
+                owned = ps.wait_gradient_comm()
+                mlsl_assert(owned is not None, "distributed update requires dataParts>1")
+            if self.optimizer is None:
+                inc = owned_increment(owned, self.lr, norm, scale)
+            else:
+                inc, self.opt_state[name] = owned_opt_increment(
+                    owned, self.opt_state[name], self.optimizer, norm, scale)
+            ps.start_increment_comm(inc)
+        for name in self.layers:
+            inc = self._pset(name).wait_increment_comm()
+            # every rank receives the same gathered increment; rank 0's updates
+            # the (replicated) parameters
+            self._add_flat(name, inc[0, 0, 0, 0, :self.layer_counts[name]])

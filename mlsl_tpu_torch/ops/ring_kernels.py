@@ -1,12 +1,16 @@
-"""The fused ring allreduce / reduce-scatter: CUDA kernels on the card, plain
-PyTorch on the CPU.
+"""The fused ring allreduce / reduce-scatter / all-gather: CUDA kernels on
+the card, plain PyTorch on the CPU.
 
 Counterpart of ``mlsl_tpu.ops.ring_kernels``. On the TPU one Pallas kernel
-(``_ring_call``, ring_kernels.py:698) owns a whole ring: G-1 remote-DMA hops
-of a reduce-scatter, then G-1 hops of an all-gather, optionally with the
-int8 codec on every hop. Here the G members of a group are virtual ranks on
-one card (comm/mesh.py), so the hop sequence becomes a loop over the members
-inside one thread (dense) or one warp (int8), in the TPU kernel's order:
+(``_ring_call``, ring_kernels.py:698) owns a whole ring in one of three
+modes: ``allreduce`` (G-1 remote-DMA hops of a reduce-scatter, then G-1 hops
+of an all-gather), ``reduce_scatter`` (the first half alone) and
+``all_gather`` (the gather hops alone, from ``base = 0`` at :649: each member
+brings only its own shard, the ZeRO-1 increment exchange), optionally with
+the int8 codec on every hop of the first two. Here the G members of a group
+are virtual ranks on one card (comm/mesh.py), so the hop sequence becomes a
+loop over the members inside one thread (dense) or one warp (int8), in the
+TPU kernel's order:
 
 - for chunk j of an instance the travelling partial starts at ring member
   j+1 with its chunk j, and members j+2, ..., j+G = j each add theirs
@@ -26,6 +30,13 @@ Kernels (``csrc/ring_kernels.cu``, built by ``ops/cuda_build.py``):
   output element written once. One thread per chunk element loads the G
   members' values with coalesced loads, accumulates in the buffer's type and
   writes the sum to every member.
+- ``dense_ring`` with a plan of kind ``all_gather`` replaces the gather-only
+  ``_ring_call`` (B3-AG; the same body, ``mode="all_gather"``), for the same
+  dtypes. A pure copy, bound by memory traffic: one thread per (instance,
+  owner, element) reads the owner's element once, with coalesced loads, and
+  stores it into every member's row at the owner's group position, so the
+  chunks land in group-position order also over the snake cycle. The result
+  is bit-exact by construction, -0.0 included.
 - ``quant_ring`` replaces the quantized ``_ring_call`` (B4; bodies
   ``quant_ring_body``, :885, and ``_quantize_rows``, :463). Bound by memory
   traffic as well (the codec is a few operations per element per hop). One
@@ -71,7 +82,7 @@ PACK_ROWS = 1024
 MAX_QUANT_BLOCK = 1024
 
 # launches per kernel wrapper; only the CUDA launch site increments
-LAUNCHES = {"dense_ring": 0, "quant_ring": 0}
+LAUNCHES = {"dense_ring": 0, "dense_ring_gather": 0, "quant_ring": 0}
 
 
 def reset_counts() -> None:
@@ -130,11 +141,14 @@ def eligible_quant(group: ProcessGroup, block: int) -> bool:
 
 def dense_geometry(kind: str, group: ProcessGroup, count: int) -> Tuple[int, int, int]:
     """-> (g, rc, chunk): the per-rank logical slice rc and the DENSE_UNIT
-    aligned ring chunk (slice j sits at the start of padded chunk j)."""
+    aligned ring chunk (slice j sits at the start of padded chunk j). For
+    ``all_gather`` the count is the per-member shard, so rc = count."""
     g = 1 if group.is_self else group.size
     if kind == "reduce_scatter":
         mlsl_assert(count % g == 0, "reduce_scatter count %d %% group %d != 0", count, g)
         rc = count // g
+    elif kind == "all_gather":
+        rc = count
     else:
         rc = -(-count // g)
     chunk = -(-rc // DENSE_UNIT) * DENSE_UNIT
@@ -255,8 +269,13 @@ def _bidir_split(rows: int, cols: int, row_tile: int, bidir: bool) -> int:
 
 def dense_plan(kind: str, group: ProcessGroup, count: int, *, bidir: bool,
                snake: bool = False, recv_count: Optional[int] = None) -> RingPlan:
-    """``bidir`` is ``Config.pallas_ring_bidir``, passed down by the caller."""
-    ok = eligible_dense2d(kind, group) if snake else eligible_dense(kind, group)
+    """``bidir`` is ``Config.pallas_ring_bidir``, passed down by the caller;
+    the all-gather has no summation order, so it ignores it."""
+    if kind == "all_gather":
+        axes = ring_axes2(group) if snake else ring_axis(group)
+        ok = axes is not None and 1 < group.size <= MAX_GROUP
+    else:
+        ok = eligible_dense2d(kind, group) if snake else eligible_dense(kind, group)
     mlsl_assert(ok, "%s cannot lower %s on group axes %s",
                 "pallas_ring2d" if snake else "pallas_ring", kind, group.axes)
     g, rc, chunk = dense_geometry(kind, group, count)
@@ -310,10 +329,28 @@ def _deliver(plan: RingPlan, acc: torch.Tensor, ring: torch.Tensor,
     return out
 
 
+def _gather_ref(x: torch.Tensor, plan: RingPlan) -> torch.Tensor:
+    """x (W, rc) -> (W, G*rc): the owner at ring slot i places its shard at
+    group position chunk_of[i] of every member of its instance."""
+    ring, chunk_of = plan.tables(x.device)
+    c, g = ring.shape
+    rc = plan.rc
+    logical = torch.empty((c, g, rc), dtype=x.dtype, device=x.device)
+    logical[:, chunk_of.long()] = x[ring.long()]
+    out = torch.empty((x.shape[0], g * rc), dtype=x.dtype, device=x.device)
+    out[ring.reshape(-1).long()] = logical.reshape(c, 1, g * rc).expand(
+        c, g, g * rc).reshape(c * g, g * rc)
+    return out
+
+
 def dense_ring_ref(x: torch.Tensor, plan: RingPlan) -> torch.Tensor:
     """x (W, count) f32/bf16/i32 -> the ring's result in x's dtype, with the
     kernel's exact summation order: the accumulator has the buffer's dtype
-    (bf16 rounds after every hop, i32 wraps)."""
+    (bf16 rounds after every hop, i32 wraps). For ``all_gather`` x (W, rc)
+    holds each member's shard and the result (W, G*rc) every shard in group
+    position order."""
+    if plan.kind == "all_gather":
+        return _gather_ref(x, plan)
     ring, chunk_of, hop = _walks(plan, x.device)
     c, g = ring.shape
     rc = plan.rc
@@ -378,8 +415,9 @@ def _kernels() -> ctypes.CDLL:
         lib = cuda_build.load("ring_kernels")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mlsl_dense_ring.argtypes = [p, p, p, p, i, i, ll, ll, ll, ll, i, i, p]
+        lib.mlsl_dense_ring_gather.argtypes = [p, p, p, p, i, i, ll, ll, i, p]
         lib.mlsl_quant_ring.argtypes = [p, p, p, i, i, ll, i, i, i, ll, ll, i, p]
-        for fn in (lib.mlsl_dense_ring, lib.mlsl_quant_ring):
+        for fn in (lib.mlsl_dense_ring, lib.mlsl_dense_ring_gather, lib.mlsl_quant_ring):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -397,8 +435,9 @@ def _check_rows(x: torch.Tensor, width: int, what: str) -> None:
 
 
 def dense_ring(x: torch.Tensor, plan: RingPlan) -> torch.Tensor:
-    """x (W, count) f32/bf16/i32 -> allreduce (W, count) or reduce_scatter
-    (W, rc), in x's dtype. Rows may be strided (a chunk of a wider buffer)."""
+    """x (W, count) f32/bf16/i32 -> allreduce (W, count), reduce_scatter
+    (W, rc) or all_gather (W, G*rc), in x's dtype. Rows may be strided (a
+    chunk of a wider buffer)."""
     _check_rows(x, plan.count, "dense ring input")
     mlsl_assert(x.dtype in _DTYPE_CODE, "dense ring takes float32, bfloat16 or int32, got %s",
                 x.dtype)
@@ -410,10 +449,19 @@ def dense_ring(x: torch.Tensor, plan: RingPlan) -> torch.Tensor:
     c, g = ring.shape
     mlsl_assert(c * g == x.shape[0], "ring table covers %d ranks, buffer has %d", c * g,
                 x.shape[0])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.kind == "all_gather":
+        out = torch.empty((x.shape[0], g * plan.rc), dtype=x.dtype, device=x.device)
+        rc = _kernels().mlsl_dense_ring_gather(
+            x.data_ptr(), out.data_ptr(), ring.data_ptr(), chunk_of.data_ptr(), c, g,
+            x.stride(0), plan.rc, _DTYPE_CODE[x.dtype], stream,
+        )
+        _check_launch(rc, "dense ring all-gather")
+        LAUNCHES["dense_ring_gather"] += 1
+        return out
     rs = plan.kind == "reduce_scatter"
     out = torch.empty((x.shape[0], plan.rc if rs else plan.count), dtype=x.dtype,
                       device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _kernels().mlsl_dense_ring(
         x.data_ptr(), out.data_ptr(), ring.data_ptr(), chunk_of.data_ptr(), c, g,
         x.stride(0), plan.rc, plan.count, plan.split, int(rs), _DTYPE_CODE[x.dtype], stream,
@@ -453,3 +501,30 @@ def quant_ring(xhat: torch.Tensor, plan: RingPlan) -> torch.Tensor:
     _check_launch(rc, "int8 ring")
     LAUNCHES["quant_ring"] += 1
     return out
+
+
+# -- the staged form -------------------------------------------------------------
+
+
+def steps(kind: str, group: ProcessGroup, count: int, *, recv_count: Optional[int] = None,
+          bidir: bool = False, snake: bool = False, plain: bool = False):
+    """The staged form (``mlsl_tpu.ops.ring_kernels.steps``, :991-1024):
+    ``(prep, phases, finish)`` with ONE phase, the whole ring in one launch.
+    The carry is the distributed buffer (R, D, S, M, n): ``prep`` takes the
+    (R, D, S, M, count) input, the phase runs ``dense_ring`` over its world
+    view (``plain``: the plain version), ``finish`` returns the result
+    buffer. ``kind='all_gather'`` is the ZeRO-1 increment exchange: ``count``
+    is the per-member shard and the result (R, D, S, M, G*count) holds every
+    shard in group-position order. ``snake`` rides the snake cycle of a
+    two-live-axis group (pallas_ring2d)."""
+    from mlsl_tpu_torch.comm.collectives import world_view
+
+    topo = group.topology
+    plan = dense_plan(kind, group, count, bidir=bidir, snake=snake, recv_count=recv_count)
+    run = dense_ring_ref if plain else dense_ring
+
+    def phase(buf):
+        out = run(world_view(buf, topo), plan)
+        return out.reshape(*topo.grid_shape, out.shape[-1])
+
+    return (lambda buf: buf), [phase], (lambda buf: buf)

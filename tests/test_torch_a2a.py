@@ -18,8 +18,8 @@ interpreter (MLSL_PALLAS_INTERPRET=1, as tests/test_pallas_a2a.py arms it).
   that leaves the exchange on ``lax``, the codec toggle and its profile
   knob, eligibility on ragged counts and groups without axes.
 
-The ``cuda``-marked tests hold B6 against its plain version and skip where
-there is no card.
+B6 against its plain version on the card: mlsl_tpu_torch/cuda_tests/
+(jax-free, so that it runs on the card's machine).
 """
 
 import json
@@ -457,52 +457,3 @@ def test_forced_request_runs_the_kernel_route(monkeypatch, spec, quant, want):
             assert torch.equal(out, tcoll.build_collective("alltoall", group, send_count=sc)(x))
     finally:
         env.finalize()
-
-
-# -- the CUDA kernel against its plain version ----------------------------------------
-
-
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("cuda marker: the CUDA kernels need a card")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d,m,axes,count", DENSE_CASES, ids=lambda v: str(v))
-def test_cuda_dense_a2a_bit_exact_vs_plain(d, m, axes, count):
-    _need_card()
-    _, tg = _groups(d, m, axes)
-    p = ta2a.plan(tg, count, BLOCK, False)
-    x = torch.randn((8, count), generator=torch.Generator().manual_seed(count)).cuda()
-    got = ta2a.alltoall(x, p)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ta2a.alltoall_ref(x, p))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("d,m,axes,count,block", QUANT_CASES + [(8, 1, ("data",), 8 * 4096,
-                                                                  1024)],
-                         ids=lambda v: str(v))
-def test_cuda_int8_a2a_bit_exact_vs_plain(d, m, axes, count, block):
-    _need_card()
-    _, tg = _groups(d, m, axes)
-    p = ta2a.plan(tg, count, block, True)
-    x = torch.randn((8, tg.size * p.chunk), generator=torch.Generator().manual_seed(count))
-    x = (x * 30).cuda()
-    x.view(8, -1, block)[:, ::5] = 0.0
-    x[:, ::11] = -0.0
-    got = ta2a.alltoall(x, p)
-    torch.cuda.synchronize()
-    want = ta2a.alltoall_ref(x, p)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,d,m,axes,count,block", EF_CASES, ids=[c[0] for c in EF_CASES])
-def test_cuda_error_feedback_bit_exact_vs_plain(name, d, m, axes, count, block):
-    _need_card()
-    kern, _ = _port_ef_rounds(name, d, m, axes, count, block, device="cuda")
-    plain, _ = _port_ef_rounds(name, d, m, axes, count, block, plain=True, device="cuda")
-    torch.cuda.synchronize()
-    for (kr, ke), (pr, pe) in zip(kern, plain):
-        assert torch.equal(kr, pr) and torch.equal(ke, pe)

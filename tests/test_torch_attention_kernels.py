@@ -13,8 +13,8 @@ the plain version the whole row at once, so sums differ in order: 2e-5
 absolute and relative for outputs and the state (m, l are compared on the
 TPU's lane 0), 1e-4 for gradients.
 
-The ``cuda``-marked tests hold each CUDA kernel against its plain version and
-skip where there is no card.
+Each CUDA kernel against its plain version on the card:
+mlsl_tpu_torch/cuda_tests/ (jax-free, so that it runs on the card's machine).
 """
 
 import jax
@@ -189,55 +189,3 @@ def test_per_row_offsets_equal_separate_calls():
         o1, l1 = tak.flash_fwd(q[b:b + 1], k[b:b + 1], v[b:b + 1], int(qo[b]), int(ko[b]), True)
         assert torch.equal(out[b:b + 1], o1) and torch.equal(lse[b:b + 1], l1)
     assert (out[0] == 0).all() and (out[2] != 0).any()
-
-
-# -- the CUDA kernels against their plain versions (need a card) ----------------
-
-
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("cuda marker: the CUDA kernels need a card")
-
-
-def _rel(a, b):
-    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: c[0])
-def test_cuda_flash_kernels_match_plain(case, dtype):
-    _need_card()
-    name, bh, sq, sk, d, causal, q_off, k_off = case
-    dt = getattr(torch, dtype)
-    q, k, v, g = (torch.from_numpy(a).cuda().to(dt) for a in _arrays(name, bh, sq, sk, d))
-    tol = 1e-5 if dtype == "float32" else 1e-2
-    o, lse = tak.flash_fwd(q, k, v, q_off, k_off, causal)
-    ro, rl = tak.flash_fwd(q.cpu(), k.cpu(), v.cpu(), q_off, k_off, causal)
-    assert _rel(o.cpu(), ro) < tol and _rel(lse.cpu(), rl) < 1e-5
-    dd = (g.float() * o.float()).sum(-1)
-    dq = tak.flash_bwd_dq(q, k, v, g, lse, dd, q_off, k_off, causal)
-    dk, dv = tak.flash_bwd_dkv(q, k, v, g, lse, dd, q_off, k_off, causal)
-    cpu = [t.cpu() for t in (q, k, v, g, lse, dd)]
-    assert _rel(dq.cpu(), tak.flash_bwd_dq(*cpu, q_off, k_off, causal)) < tol
-    for got, want in zip((dk, dv), tak.flash_bwd_dkv(*cpu, q_off, k_off, causal)):
-        assert _rel(got.cpu(), want) < tol
-    if causal:
-        rows = torch.from_numpy(_masked_rows(sq, sk, q_off, k_off))
-        assert (o.cpu()[:, rows] == 0).all() and (dq.cpu()[:, rows] == 0).all()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", BU_CASES, ids=lambda c: c[0])
-def test_cuda_block_update_matches_plain(case):
-    _need_card()
-    name, bh, sq, sk, d, causal, q_off, k_off, _ = case
-    rng = np.random.default_rng(sum(map(ord, name)))
-    q, k, v = (torch.from_numpy(rng.normal(size=(bh, s, d)).astype(np.float32)).cuda()
-               for s in (sq, sk, sk))
-    state = [torch.from_numpy(x).cuda() for x in _state_arrays(rng, bh, sq, d, fresh=False)]
-    got = tak.block_update(q, k, v, *state, q_off, k_off, causal)
-    want = tak.block_update(q.cpu(), k.cpu(), v.cpu(), *(s.cpu() for s in state), q_off,
-                            k_off, causal)
-    for a, b in zip(got, want):
-        assert _rel(a.cpu(), b) < 1e-5

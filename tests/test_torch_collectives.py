@@ -150,11 +150,13 @@ def test_newest_first_deferral(tenv):
     td = tenv.create_distribution(8, 1)
     tenv.config.msg_priority = True
     tenv.config.msg_priority_threshold = 16
+    # a window far longer than the test: the progress thread stays out of it
+    tenv.config.msg_priority_flush_ms = 600_000.0
     order = []
     reqs = [_allreduce_req(tenv, td, 64) for _ in range(3)]
     for r in reqs:
         orig = r._dispatch
-        r._dispatch = (lambda buf, _r=r, _o=orig: (order.append(_r.uid), _o(buf)))
+        r._dispatch = (lambda buf, *a, _r=r, _o=orig: (order.append(_r.uid), _o(buf, *a)))
     small = _allreduce_req(tenv, td, 2)        # 8 bytes: below the threshold
     buf = td.make_buffer(lambda p: np.ones(64, np.float32), 64)
     for r in reqs:

@@ -7,8 +7,8 @@ equal the JAX package's semantic oracle ``quantize_blocks_ref`` bit for bit
 mode, as tests/test_quant.py runs it) the scales may differ by one ulp: XLA's
 CPU compiler rewrites the division ``amax / 127.0`` into a multiply by the
 reciprocal of 127, while the port divides exactly (IEEE), as its CUDA kernel
-does. The CUDA kernels themselves are held against the plain versions by the
-``cuda``-marked test here and by chip_smoke.py.
+does. The CUDA kernels themselves are held against the plain versions by
+mlsl_tpu_torch/cuda_tests/ and chip_smoke.py on the card.
 """
 
 import numpy as np
@@ -131,20 +131,3 @@ def test_wrappers_check_their_inputs():
         tqk.dequantize_blocks(q, s[:3])                    # scales of another shape
     with pytest.raises(MLSLError):
         tqk.quantize_blocks(x.to("meta"))                  # neither CPU nor CUDA
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows,block,zeros", CASES + [(8 * 8008, 256, (7,))])
-def test_cuda_kernels_bit_exact_vs_plain(rows, block, zeros):
-    if not torch.cuda.is_available():
-        pytest.skip("cuda marker: the CUDA kernels need a card")
-    x = torch.from_numpy(_blocks(rows, block, seed=rows, zero_rows=zeros)).cuda()
-    before = dict(tqk.LAUNCHES)
-    q, s = tqk.quantize_blocks(x)
-    rq, rs = tqk.quantize_blocks_ref(x)
-    d = tqk.dequantize_blocks(q, s)
-    torch.cuda.synchronize()
-    assert torch.equal(q, rq) and torch.equal(s, rs)
-    assert torch.equal(d, tqk.dequantize_blocks_ref(rq, rs))
-    assert tqk.LAUNCHES["quantize_blocks"] == before["quantize_blocks"] + 1
-    assert tqk.LAUNCHES["dequantize_blocks"] == before["dequantize_blocks"] + 1

@@ -10,8 +10,8 @@ pre-fold adds +0.0 on members that do not fold, which turns -0.0 into +0.0,
 and the port must do the same. An int32
 input comes out as float32, as on the TPU.
 
-The ``cuda``-marked test holds the CUDA kernel against its plain version and
-skips where there is no card.
+The CUDA kernel against its plain version on the card:
+mlsl_tpu_torch/cuda_tests/ (jax-free, so that it runs on the card's machine).
 """
 
 import jax
@@ -108,17 +108,3 @@ def test_eligibility_and_band_match_jax():
     assert trhd.env_max_bytes(Cfg) == jrhd.env_max_bytes(Cfg) == 40_000
     Cfg.pallas_rhd_max_bytes = 4096
     assert trhd.env_max_bytes(Cfg) == jrhd.env_max_bytes(Cfg) == 4096
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,d,m,w,axes,count,dtype", CASES, ids=[c[0] for c in CASES])
-def test_cuda_rhd_bit_exact_vs_plain(name, d, m, w, axes, count, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("cuda marker: the CUDA kernels need a card")
-    _, tg = _groups(d, m, w, axes)
-    x = torch.from_numpy(_inputs(name, tg.topology.grid_shape, count, dtype)).cuda()
-    plan = trhd.RhdPlan(tg)
-    got = trhd.rhd_allreduce(x.reshape(w, count), plan)
-    torch.cuda.synchronize()
-    want = trhd.rhd_allreduce_ref(x.reshape(w, count), plan)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

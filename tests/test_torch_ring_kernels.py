@@ -16,8 +16,11 @@ in a subprocess with XLA's division rewrite and FMA contraction switched off
 JAX program as it runs by default. The error-feedback length is
 ``quant_geometry``'s.
 
-The ``cuda``-marked tests hold each CUDA kernel against its plain version and
-skip where there is no card.
+B3-AG (the all-gather mode) against JAX's interpret-mode kernel, ring and
+snake, bit-exact.
+
+Each CUDA kernel against its plain version on the card:
+mlsl_tpu_torch/cuda_tests/ (jax-free, so that it runs on the card's machine).
 """
 
 import os
@@ -83,6 +86,7 @@ def test_geometry_tables_and_eligibility_match_jax(d, m, axes):
             if trk.eligible_quant(tg, 256):
                 assert trk.quant_geometry(kind, tg, count, 256) == \
                     jrk.quant_geometry(kind, jg, count, 256)
+        assert trk.dense_geometry("all_gather", tg, n) == jrk.dense_geometry("all_gather", jg, n)
     if trk.ring_axis(tg) is not None:
         for a, b in zip(trk._ring_tables(tg), jrk._ring_tables(jg)):
             np.testing.assert_array_equal(a, b)
@@ -159,6 +163,33 @@ def _dense_inputs(name, grid, count, dtype):
         t = torch.from_numpy(x).to(torch.bfloat16)
         return x, t.float().numpy().astype(jnp.bfloat16), t
     return x, x, torch.from_numpy(x)
+
+
+AG_CASES = [(8, 1, ("data",), False, 640), (8, 1, ("data",), False, 130),
+            (4, 2, ("data", "model"), True, 640), (4, 2, ("data", "model"), True, 130)]
+
+
+@pytest.mark.parametrize("d,m,axes,snake,shard", AG_CASES, ids=lambda v: str(v))
+def test_dense_ring_all_gather_bit_exact_vs_jax(d, m, axes, snake, shard):
+    """B3-AG's plain version against JAX's interpret-mode kernel in the
+    gather-only mode, as tests/test_pallas_ring.py:271-287 runs it: every
+    member ends with every shard in group-position order, over the 1-D ring
+    and the snake cycle, chunk-aligned and padded shards, -0.0 kept."""
+    jg, tg = _groups(d, m, axes)
+    rng = np.random.default_rng(shard + d)
+    vals = rng.normal(size=(*tg.topology.grid_shape, shard)).astype(np.float32)
+    vals.reshape(8, shard)[:, ::9] = -0.0
+    body = jrk.dense_ring_body("all_gather", jg, shard, np.float32, snake=snake)
+    jfn = jrk.build_flat_program(body, jg, "all_gather")
+    want = np.asarray(jfn(jg.topology.shard_buffer(vals))).reshape(8, 8 * shard)
+    plan = trk.dense_plan("all_gather", tg, shard, snake=snake, bidir=False)
+    got = trk.dense_ring(torch.from_numpy(vals).reshape(8, shard), plan).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(got[3], vals.reshape(-1))
+    pre, phases, fin = trk.steps("all_gather", tg, shard, snake=snake)
+    assert len(phases) == 1
+    staged = fin(phases[0](pre(torch.from_numpy(vals))))
+    np.testing.assert_array_equal(staged.numpy().reshape(8, -1), got)
 
 
 @pytest.mark.parametrize("name,d,m,axes,algo,kind,dtype,count,bidir", DENSE_CASES,
@@ -300,43 +331,3 @@ def test_err_len_differs_from_the_composed_ring():
     _, pel = tqr.build_quantized_collective("allreduce", tg, 2_049_000, 256, ring="pallas")
     _, lel = tqr.build_quantized_collective("allreduce", tg, 2_049_000, 256)
     assert pel == 8 * 262_144 and lel == 8 * 256_256
-
-
-# -- the CUDA kernels against their plain versions -------------------------------
-
-
-def _need_card():
-    if not torch.cuda.is_available():
-        pytest.skip("cuda marker: the CUDA kernels need a card")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,d,m,axes,algo,kind,dtype,count,bidir", DENSE_CASES,
-                         ids=[c[0] for c in DENSE_CASES])
-def test_cuda_dense_ring_bit_exact_vs_plain(name, d, m, axes, algo, kind, dtype, count,
-                                            bidir):
-    _need_card()
-    _, tg = _groups(d, m, axes)
-    x = _dense_inputs(name, tg.topology.grid_shape, count, dtype)[2].cuda()
-    plan = trk.dense_plan(kind, tg, count, snake=algo == "pallas_ring2d", bidir=bidir)
-    w = x.reshape(8, count)
-    got = trk.dense_ring(w, plan)
-    torch.cuda.synchronize()
-    assert torch.equal(got, trk.dense_ring_ref(w, plan))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name,d,m,axes,kind,count,bidir", QUANT_CASES,
-                         ids=[c[0] for c in QUANT_CASES])
-def test_cuda_quant_ring_bit_exact_vs_plain(name, d, m, axes, kind, count, bidir):
-    _need_card()
-    _, tg = _groups(d, m, axes)
-    kfn, _ = tqr.build_quantized_collective(kind, tg, count, BLOCK, ring="pallas", bidir=bidir)
-    pfn, el = tqr.build_quantized_collective(kind, tg, count, BLOCK, ring="pallas",
-                                             bidir=bidir, plain=True)
-    ke = pe = torch.zeros((*tg.topology.grid_shape, el), device="cuda")
-    for x in _quant_inputs(name, tg.topology.grid_shape, count):
-        x = torch.from_numpy(x).cuda()
-        (kr, ke), (pr, pe) = kfn(x, ke), pfn(x, pe)
-        torch.cuda.synchronize()
-        assert torch.equal(kr, pr) and torch.equal(ke, pe)
