@@ -54,19 +54,28 @@ Phases, in order; any failure exits non-zero and prints no result:
              the last step's gradients bit-exact against the plain fused ring.
 12. attention the flash kernels against their plain versions on the card:
              B7 and B8 (both passes) at the transformer's (128, 2048, 64),
-             causal, bf16; B9 at the zigzag chunk (256, 512, 64), diagonal
+             causal, bf16, in the wgmma form (csrc/attention_sm90.cu, which
+             ptxas must compile without spills) and, by request, in the
+             CUDA-core form; the wgmma form also at head_dim 128, non-causal,
+             Sq != Sk, per-row offsets that mask whole rows and offsets that
+             skip whole tiles, held within 2e-3 relative L2 of the plain
+             versions that round P and dS to bf16 as it does and within 1e-2
+             of the float32 ones; B9 at the zigzag chunk (256, 512, 64), diagonal
              and full, and at the ring's (256, 1024, 64) with per-row
              offsets that mask every row of half the ranks; edge shapes
              (Sq/Sk 128 and 256, head_dim 8, 16, 24, 128, float32 and bf16,
              causal and not, offsets that mask whole rows). Relative L2
              error under 1e-5 in float32 and for the lse and the carried
-             state, 1e-2 for bf16 outputs; fully masked rows exactly 0 (B9:
-             their state unchanged).
+             state, 1e-2 for bf16 outputs; fully masked rows, and keys no
+             query sees, exactly 0 (B9: their state unchanged). The card
+             tests of phase 2 include the tile layer's own product test
+             (cuda_tests/test_sm90_tiles.py).
 13. gpt-medium-2k on 1 rank (vocab 32,768, d_model 1,024, 16 heads of 64,
              12 blocks, seq 2,048, batch 8, bf16): three fused steps on one
              batch at lr 0.1. The first loss within 1.0 of ln 32,768, the
              third below the first; B7, B8 dq and B8 dk/dv launched 12 times
-             a step, B9 never.
+             a step in the wgmma form and never in the CUDA-core form, B9
+             never.
 14. gpt-medium-2k on 8 ranks, dp=2 x sp=2 x tp=2, zigzag attention,
              per-layer Start/Wait over the data x seq group, three steps:
              losses as above, B9 launched 60 times a step (5 a block), B7
@@ -186,6 +195,39 @@ def ptxas_summary(text: str) -> str:
         return "no ptxas report"
     return (f"{len(regs)} functions, {min(regs)}-{max(regs)} registers a thread, "
             f"{sum(1 for x in spills if x)} spilling ({max(spills, default=0)} bytes at most)")
+
+
+def ptxas_functions(text: str) -> str:
+    """Each function of a ptxas report with its registers a thread and its spill
+    bytes, templates shortened (``fwd_sm90ILi64ELi2EE...`` -> ``fwd_sm90<64,2>``)."""
+    import re
+
+    out = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        # _ZN<anonymous namespace ...>_cu_<8 hex digits><length><name>[I<args>E]
+        m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+        short = name
+        if m:
+            rest = name[m.end():]
+            short = rest[:int(m.group(1))]
+            args = re.match(r"ILi(\d+)ELi(\d+)E", rest[int(m.group(1)):])
+            if args:
+                short += f"<{args.group(1)},{args.group(2)}>"
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        out.append(f"{short} {regs.group(1) if regs else '?'}"
+                   + (f" (spills {int(spill.group(1)) + int(spill.group(2))} B)"
+                      if spill and spill.group(1) + spill.group(2) != "00" else ""))
+    return ", ".join(out)
+
+
+def spill_bytes(text: str) -> int:
+    """The spill bytes (stores and loads) of every function in a ptxas report."""
+    import re
+
+    return sum(int(a) + int(b) for a, b in
+               re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text))
 
 
 def nvidia_smi_line() -> str:
@@ -953,6 +995,7 @@ def rhd_entry(torch, rhd, count, bw, f32, per_path, dev, note=None, ld=None):
 # at its published widths and depth, batch 8 as there
 TFM_BATCH = 8
 ATTN_SRC = "mlsl_tpu_torch/csrc/attention_kernels.cu"
+SM90_SRC = "mlsl_tpu_torch/csrc/attention_sm90.cu"
 ATTN_PY = "mlsl_tpu/ops/attention_kernels.py"
 # relative L2 error of a kernel against its plain version on the same inputs:
 # the kernel folds 64-wide tiles, the plain version whole rows, so float32 sums
@@ -960,6 +1003,12 @@ ATTN_PY = "mlsl_tpu/ops/attention_kernels.py"
 # lands near a rounding boundary moves an element by one bf16 step (1e-2).
 # The lse and the float32 carried state: 1e-5 whatever the input type.
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# runs that must not launch the wgmma form of B7/B8
+NO_SM90 = dict(flash_fwd_sm90=0, flash_bwd_dq_sm90=0, flash_bwd_dkv_sm90=0)
+# the wgmma form against the plain versions that round P and dS to bf16 where it
+# does: only summation order and exp differ, so a wrong fragment layout, which
+# the 1e-2 above could pass, cannot
+SM90_TOL = 2e-3
 
 
 def rel_err(torch, got, want) -> float:
@@ -986,37 +1035,58 @@ def visible_pairs(torch, ak, bh, sq, sk, qo, ko, causal, dev) -> int:
     return int(seen.sum())
 
 
-def check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag) -> dict:
+def check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag, form=None) -> dict:
     """B7 and B8's two passes against their plain versions on the same inputs
-    (the backward's from the kernel's own lse): -> {kernel: max abs error}."""
+    (the backward's from the kernel's own lse), in ``form`` (``kernel_form``'s
+    unless given): within ATTN_TOL of the float32 plain versions and, for the
+    wgmma form, within SM90_TOL of those that round P and dS to bf16 as it
+    does. Fully masked rows, and keys no query sees, exactly 0.
+    -> {kernel: max abs error against the float32 plain version}."""
     bh, sq, _ = q.shape
-    tol = ATTN_TOL[_dtype_name(q)]
-    o, lse = ak.flash_fwd(q, k, v, qo, ko, causal)
+    form = form or ak.kernel_form(q.dtype, q.shape[-1])
+    suffix = "_sm90" if form == "sm90" else ""
+    before = dict(ak.LAUNCHES)
+    o, lse = ak.flash_fwd(q, k, v, qo, ko, causal, form=form)
     dd = (g.float() * o.float()).sum(-1)
-    dq = ak.flash_bwd_dq(q, k, v, g, lse, dd, qo, ko, causal)
-    dk, dv = ak.flash_bwd_dkv(q, k, v, g, lse, dd, qo, ko, causal)
+    dq = ak.flash_bwd_dq(q, k, v, g, lse, dd, qo, ko, causal, form=form)
+    dk, dv = ak.flash_bwd_dkv(q, k, v, g, lse, dd, qo, ko, causal, form=form)
     torch.cuda.synchronize()
+    ran = {key: ak.LAUNCHES[key] - before[key] for key in ak.LAUNCHES}
+    check(all(ran[f"{key}{suffix}"] == 1 for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+          f"attention parity {tag}: the {form} form did not run: {ran}")
     qt, kt = ak.offsets(qo, bh, q.device), ak.offsets(ko, bh, q.device)
-    ro, rl = ak.flash_fwd_ref(q, k, v, qt, kt, causal)
-    rdq = ak.flash_bwd_dq_ref(q, k, v, g, lse, dd, qt, kt, causal)
-    rdk, rdv = ak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, qt, kt, causal)
-    live = rl > ak.NEG / 2
-    check(bool(live.any()) == bool((dq != 0).any()) == bool((dv != 0).any()),
-          f"attention parity {tag}: the gradients are all zero where rows see keys")
+    oracles = [(torch.float32, ATTN_TOL[_dtype_name(q)], "")]
+    if form == "sm90":
+        oracles.append((torch.bfloat16, SM90_TOL, " (P, dS rounded)"))
     errs = {}
-    for name, got, want, t in (("flash_fwd", o, ro, tol), ("flash_fwd lse", lse[live], rl[live], 1e-5),
-                               ("flash_bwd_dq", dq, rdq, tol), ("flash_bwd_dk", dk, rdk, tol),
-                               ("flash_bwd_dv", dv, rdv, tol)):
-        if want.numel() == 0:
-            continue
-        rel = rel_err(torch, got, want)
-        check(rel < t, f"attention parity {tag}: {name} relative error {rel:.3g} >= {t}")
-        errs[name] = float((got.float() - want.float()).abs().max())
+    for p_dtype, tol, note in oracles:
+        ro, rl = ak.flash_fwd_ref(q, k, v, qt, kt, causal, p_dtype=p_dtype)
+        rdq = ak.flash_bwd_dq_ref(q, k, v, g, lse, dd, qt, kt, causal, p_dtype=p_dtype)
+        rdk, rdv = ak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, qt, kt, causal, p_dtype=p_dtype)
+        live = rl > ak.NEG / 2
+        check(bool(live.any()) == bool((dq != 0).any()) == bool((dv != 0).any()),
+              f"attention parity {tag}: the gradients are all zero where rows see keys")
+        for name, got, want, t in (("flash_fwd", o, ro, tol),
+                                   ("flash_fwd lse", lse[live], rl[live], 1e-5),
+                                   ("flash_bwd_dq", dq, rdq, tol), ("flash_bwd_dk", dk, rdk, tol),
+                                   ("flash_bwd_dv", dv, rdv, tol)):
+            if want.numel() == 0:
+                continue
+            rel = rel_err(torch, got, want)
+            check(rel < t, f"attention parity {tag}: {name}{note} relative error {rel:.3g} >= {t}")
+            if not note:
+                errs[name] = float((got.float() - want.float()).abs().max())
+        check(bool((lse[~live] == rl[~live]).all()),
+              f"attention parity {tag}: the lse of fully masked rows differs")
+        del ro, rl, rdq, rdk, rdv
     if causal:
         rows = _masked(torch, ak, bh, sq, qo, ko, q.device)
-        check(bool((o[rows] == 0).all() and (dq[rows] == 0).all()) and
-              bool((lse[rows] == rl[rows]).all()),
+        check(bool((o[rows] == 0).all() and (dq[rows] == 0).all()),
               f"attention parity {tag}: fully masked rows are not exactly 0")
+        k_pos = kt[:, None] + torch.arange(k.shape[1], device=q.device)
+        unseen = k_pos > (qt + sq - 1)[:, None]
+        check(bool((dk[unseen] == 0).all() and (dv[unseen] == 0).all()),
+              f"attention parity {tag}: keys no query sees have gradients")
     return errs
 
 
@@ -1067,9 +1137,24 @@ def phase_attention_parity(torch, ak, dev) -> dict:
     bh = TFM_BATCH * cfg.n_heads                              # 1 rank: 8 x 16
     bh9 = WORLD * (TFM_BATCH // 2) * (cfg.n_heads // 2)       # 8 ranks x 4 x 8
     out = {}
-    # (tag, bh, sq, sk, d, dtype, causal, q_off, k_off)
+
+    def rows_of(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    # (tag, bh, sq, sk, d, dtype, causal, q_off, k_off[, form]): the wgmma form
+    # (bf16, d 64 or 128) at the path's shape and at awkward ones, the CUDA-core
+    # form at the path's shape by request and at the shapes it serves
     flash_cases = [
         (f"path B7/B8 ({bh}, {s}, {d}) causal bf16", bh, s, s, d, bf16, True, 0, 0),
+        (f"simt form, path ({bh}, {s}, {d}) causal bf16", bh, s, s, d, bf16, True, 0, 0,
+         "simt"),
+        ("sm90 d=128 causal (16, 2048)", 16, s, s, 128, bf16, True, 0, 0),
+        ("sm90 d=64 noncausal sq=1024 sk=2048", 16, 1024, s, d, bf16, False, 0, 0),
+        ("sm90 d=128 causal sq=512 sk=1024 q_off 512", 8, 512, 1024, 128, bf16, True, 512, 0),
+        ("sm90 d=64 per-row offsets, rows fully masked", 8, 512, 512, d, bf16, True,
+         rows_of(0, 0, 512, 100, 0, 256, 0, 0), rows_of(0, 37, 0, 612, 512, 0, 200, 1000)),
+        ("sm90 d=128 offsets skip whole tiles", 4, 512, 512, 128, bf16, True,
+         rows_of(0, 64, 0, 128), rows_of(192, 320, 384, 0)),
         ("sq=sk=128 d=8 f32 causal", 4, 128, 128, 8, f32, True, 0, 0),
         ("sq=sk=128 d=8 bf16 noncausal", 4, 128, 128, 8, bf16, False, 0, 0),
         ("d=16 f32 rows masked (k_off 64)", 4, 256, 128, 16, f32, True, 0, 64),
@@ -1078,11 +1163,12 @@ def phase_attention_parity(torch, ak, dev) -> dict:
         ("d=128 bf16 causal all rows masked", 2, 128, 128, 128, bf16, True, 0, 256),
         ("d=24 f32 causal", 2, 256, 256, 24, f32, True, 0, 0),
     ]
-    for tag, rows, sq, sk, dh, dt, causal, qo, ko in flash_cases:
+    for tag, rows, sq, sk, dh, dt, causal, qo, ko, *form in flash_cases:
         q, g = rnd(rows, sq, dh, dt), rnd(rows, sq, dh, dt)
         k, v = rnd(rows, sk, dh, dt), rnd(rows, sk, dh, dt)
-        out[tag] = check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag)
+        out[tag] = check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag, *form)
         del q, k, v, g
+        torch.cuda.empty_cache()
     # B9: the zigzag chunk (c = seq / 4 at sp = 2), its diagonal (causal,
     # empty state) then a full fold carrying the result
     c = s // 4
@@ -1213,9 +1299,9 @@ def step_line(tag, trainer, losses, secs, split, launches):
 
 
 def attention_entries(torch, F, ak, bw, bf16, runs, dev):
-    """B7, B8 (both passes) and B9 at the transformer's shapes: time against
-    the bound (bytes over the memory rate or operations over the bf16
-    tensor-core rate, whichever is larger), the plain version's time and,
+    """B7, B8 (both passes, in each form) and B9 at the transformer's shapes:
+    time against the bound (bytes over the memory rate or operations over the
+    bf16 tensor-core rate, whichever is larger), the plain version's time and,
     for B7 and B8, scaled_dot_product_attention's as the library yardstick
     (timed here; the port never calls it)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -1238,7 +1324,7 @@ def attention_entries(torch, F, ak, bw, bf16, runs, dev):
             ak.LAUNCHES.update(before)
 
     q, k, v, g = rnd(bh, s), rnd(bh, s), rnd(bh, s), rnd(bh, s)
-    zero = ak.offsets(0, bh, dev)
+    zero = ak.offsets(0, bh, dev)       # on the card already: the timings hold no fill
     pairs = visible_pairs(torch, ak, bh, s, s, 0, 0, True, dev)
     t_el = bh * s * d * 2                       # bytes of one bf16 (BH, S, D) tensor
     row = bh * s * 4                            # bytes of one f32 (BH, S) row vector
@@ -1248,46 +1334,58 @@ def attention_entries(torch, F, ak, bw, bf16, runs, dev):
     qs, ks, vs = (t.detach().requires_grad_(True) for t in (q4, k4, v4))
     lib_fb = time_ms(torch, lambda: torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True),
                                                         (qs, ks, vs), g4), reps=20)
-    common = dict(source=ATTN_SRC, bw=bw, peak=bf16, shape=[bh, s, s, d])
     entries = []
-
-    o, lse = counted(lambda: ak.flash_fwd(q, k, v, 0, 0, True))
-    ro, _ = ak.flash_fwd_ref(q, k, v, zero, zero, True)
-    entries.append(entry(
-        name="flash_fwd (B7)", replaces=f"{ATTN_PY}:154", launches=sum(path("flash_fwd").values()),
-        per_path=path("flash_fwd"), err=float((o.float() - ro.float()).abs().max()),
-        ms=counted(lambda: time_ms(torch, lambda: ak.flash_fwd(q, k, v, 0, 0, True), reps=10)),
-        plain_ms=time_ms(torch, lambda: ak.flash_fwd_ref(q, k, v, zero, zero, True), reps=3,
-                         warmup=1),
-        library_ms=lib_fwd, nbytes=4 * t_el + row, ops=4 * d * pairs, **common,
-        note="causal, bf16, with the lse (the training path's call)",
-        library_note=f"scaled_dot_product_attention(q, k, v, is_causal=True), bf16 "
-                     f"{tuple(q4.shape)}"))
-    del ro
-    dd = (g.float() * o.float()).sum(-1)
-    for name, fn, plain, ops, nbytes, line in (
-            ("flash_bwd_dq",
-             lambda: ak.flash_bwd_dq(q, k, v, g, lse, dd, 0, 0, True),
-             lambda: ak.flash_bwd_dq_ref(q, k, v, g, lse, dd, zero, zero, True),
-             6 * d * pairs, 5 * t_el + 2 * row, 311),
-            ("flash_bwd_dkv",
-             lambda: ak.flash_bwd_dkv(q, k, v, g, lse, dd, 0, 0, True),
-             lambda: ak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, zero, zero, True),
-             8 * d * pairs, 6 * t_el + 2 * row, 335)):
-        got, want = counted(fn), plain()
-        if not isinstance(got, tuple):
-            got, want = (got,), (want,)
-        err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+    for form, key, src, p_dtype in (("sm90", "_sm90", SM90_SRC, torch.bfloat16),
+                                    ("simt", "", ATTN_SRC, torch.float32)):
+        common = dict(source=src, bw=bw, peak=bf16, shape=[bh, s, s, d], form=form,
+                      form_note="the wgmma form, which the path launches" if form == "sm90"
+                      else "the CUDA-core form, launched here by request: bf16 with head_dim "
+                           "64 takes the wgmma form on the path")
+        label = " wgmma" if form == "sm90" else ""
+        o, lse = counted(lambda: ak.flash_fwd(q, k, v, zero, zero, True, form=form))
+        ro, _ = ak.flash_fwd_ref(q, k, v, zero, zero, True, p_dtype=p_dtype)
         entries.append(entry(
-            name=f"{name} (B8)", replaces=f"{ATTN_PY}:297 (:{line})",
-            launches=sum(path(name).values()), per_path=path(name), err=err,
-            ms=counted(lambda: time_ms(torch, fn, reps=10)),
-            plain_ms=time_ms(torch, plain, reps=3, warmup=1),
-            library_ms=lib_fb - lib_fwd, nbytes=nbytes, ops=ops, **common,
-            library_note="scaled_dot_product_attention forward + backward less its forward, "
-                         "for both passes together"))
-        del got, want
-    del q, k, v, g, o, lse, dd, qs, ks, vs
+            name=f"flash_fwd{key} (B7{label})", replaces=f"{ATTN_PY}:154",
+            launches=sum(path(f"flash_fwd{key}").values()), per_path=path(f"flash_fwd{key}"),
+            err=float((o.float() - ro.float()).abs().max()),
+            ms=counted(lambda: time_ms(torch, lambda: ak.flash_fwd(q, k, v, zero, zero, True,
+                                                                   form=form), reps=20)),
+            plain_ms=time_ms(torch, lambda: ak.flash_fwd_ref(q, k, v, zero, zero, True,
+                                                             p_dtype=p_dtype),
+                             reps=3, warmup=1),
+            library_ms=lib_fwd, nbytes=4 * t_el + row, ops=4 * d * pairs, **common,
+            note="causal, bf16, with the lse (the training path's call); plain version with "
+                 f"p_dtype={str(p_dtype).split('.')[-1]}",
+            library_note=f"scaled_dot_product_attention(q, k, v, is_causal=True), bf16 "
+                         f"{tuple(q4.shape)}"))
+        del ro
+        dd = (g.float() * o.float()).sum(-1)
+        for name, fn, plain, ops, nbytes, line in (
+                ("flash_bwd_dq",
+                 lambda: ak.flash_bwd_dq(q, k, v, g, lse, dd, zero, zero, True, form=form),
+                 lambda: ak.flash_bwd_dq_ref(q, k, v, g, lse, dd, zero, zero, True,
+                                             p_dtype=p_dtype),
+                 6 * d * pairs, 5 * t_el + 2 * row, 311),
+                ("flash_bwd_dkv",
+                 lambda: ak.flash_bwd_dkv(q, k, v, g, lse, dd, zero, zero, True, form=form),
+                 lambda: ak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, zero, zero, True,
+                                              p_dtype=p_dtype),
+                 8 * d * pairs, 6 * t_el + 2 * row, 335)):
+            got, want = counted(fn), plain()
+            if not isinstance(got, tuple):
+                got, want = (got,), (want,)
+            err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
+            entries.append(entry(
+                name=f"{name}{key} (B8{label})", replaces=f"{ATTN_PY}:297 (:{line})",
+                launches=sum(path(name + key).values()), per_path=path(name + key), err=err,
+                ms=counted(lambda: time_ms(torch, fn, reps=20)),
+                plain_ms=time_ms(torch, plain, reps=3, warmup=1),
+                library_ms=lib_fb - lib_fwd, nbytes=nbytes, ops=ops, **common,
+                library_note="scaled_dot_product_attention forward + backward less its "
+                             "forward, for both passes together"))
+            del got, want
+        del o, lse, dd
+    del q, k, v, g, qs, ks, vs
 
     # B9 at the zigzag chunk (the 3 full folds of its 5 calls a block) and at
     # the ring's second hop, with per-row offsets
@@ -1608,7 +1706,8 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
     n, steps = cfg_m.n_blocks, len(losses)
     check(counts_are(tm, a2a_quant=n * steps, a2a_dense=n * steps,
                      quantize_blocks=n * steps, block_update=5 * n * steps, flash_fwd=0,
-                     flash_bwd_dq=0, flash_bwd_dkv=0, dequantize_blocks=0, dense_ring=0,
+                     flash_bwd_dq=0, flash_bwd_dkv=0, **NO_SM90, dequantize_blocks=0,
+                     dense_ring=0,
                      quant_ring=0, rhd_allreduce=0),
           f"transformer moe: launches {tm}, expected per step {n} B6 int8, {n} B6 dense, "
           f"{n} B1 and {5 * n} B9, and nothing else")
@@ -1927,6 +2026,12 @@ def main() -> int:
     log(f"# phase build: ok in {time.perf_counter() - t0:.1f} s {took}")
     for src, text in cuda_build.build_logs.items():
         log(f"#   {src}: {ptxas_summary(text)}")
+    if "attention_sm90" in cuda_build.build_logs:
+        log(f"#   attention_sm90 registers a thread: "
+            f"{ptxas_functions(cuda_build.build_logs['attention_sm90'])}")
+    check(spill_bytes(cuda_build.build_logs.get("attention_sm90", "")) == 0,
+          "attention_sm90: ptxas reports spills: " +
+          ptxas_summary(cuda_build.build_logs.get("attention_sm90", "")))
 
     env = get_env().init(world_size=WORLD)        # the card; raises without one
     try:
@@ -2044,10 +2149,11 @@ def main() -> int:
         ta = {k: launches()[k] for k in ak.LAUNCHES}
         check_losses(losses, trainer.cfg.vocab, "transformer 1 rank")
         n, steps = trainer.cfg.n_blocks, len(losses)
-        check(counts_are(ta, flash_fwd=n * steps, flash_bwd_dq=n * steps,
-                         flash_bwd_dkv=n * steps, block_update=0),
+        check(counts_are(ta, flash_fwd_sm90=n * steps, flash_bwd_dq_sm90=n * steps,
+                         flash_bwd_dkv_sm90=n * steps, flash_fwd=0, flash_bwd_dq=0,
+                         flash_bwd_dkv=0, block_update=0),
               f"transformer 1 rank: launches {ta}, expected {n} B7, {n} B8 dq, {n} B8 dk/dv "
-              f"and no B9 per step")
+              f"in the wgmma form, none in the CUDA-core form, and no B9 per step")
         log(f"# phase transformer 1 rank: ok, losses {losses}, launches {ta}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(step_line("transformer 1 rank (gpt-medium-2k, batch 8, fused step)", trainer,
@@ -2065,7 +2171,7 @@ def main() -> int:
         check_losses(losses, trainer.cfg.vocab, "transformer 8 ranks")
         n, steps = trainer.cfg.n_blocks, len(losses)
         check(counts_are(tb, block_update=5 * n * steps, flash_fwd=0, flash_bwd_dq=0,
-                         flash_bwd_dkv=0),
+                         flash_bwd_dkv=0, **NO_SM90),
               f"transformer 8 ranks: launches {tb}, expected {5 * n} B9 per step and no B7/B8")
         worst_t = check_transformer_grads(torch, trainer, grads)
         log(f"# phase transformer 8 ranks zigzag: ok, losses {losses}, launches {tb}, worst "
@@ -2082,7 +2188,7 @@ def main() -> int:
         tr = {k: launches()[k] for k in ak.LAUNCHES}
         n, steps = trainer.cfg.n_blocks, len(losses)
         check(all(np.isfinite(losses)), f"transformer ring: losses {losses}")
-        check(counts_are(tr, block_update=2 * n * steps, flash_fwd=0),
+        check(counts_are(tr, block_update=2 * n * steps, flash_fwd=0, **NO_SM90),
               f"transformer ring: launches {tr}, expected {2 * n} B9 per step")
         worst_r = check_transformer_grads(torch, trainer, grads)
         log(f"# phase transformer 8 ranks ring: ok, losses {losses}, launches {tr}, worst "

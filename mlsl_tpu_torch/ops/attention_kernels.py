@@ -8,16 +8,28 @@ into a running (acc, m, l) state per query row; the backward recomputes the
 probabilities from the saved per-row log-sum-exp, dq looping over key tiles
 and dk/dv over query tiles, so each block owns its output rows.
 
-Kernels (``csrc/attention_kernels.cu``, built by ``ops/cuda_build.py``):
+Kernels (built by ``ops/cuda_build.py``):
 
 - ``flash_fwd`` replaces ``_flash_fwd`` (attention_kernels.py:154), B7;
 - ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace the two passes of
   ``_flash_bwd`` (:297; :311 dq, :335 dk/dv), B8;
 - ``block_update`` replaces ``_block_update_fwd`` (:442), B9.
 
+B7 and B8 have two forms, picked by ``kernel_form`` from the dtype and the
+head dim alone:
+
+- ``"sm90"`` (``csrc/attention_sm90.cu``) for bf16 with head_dim 64 or 128:
+  bf16 wgmma tiles fed by TMA. P and dS enter their products rounded to bf16;
+  the plain versions round at the same places with ``p_dtype=torch.bfloat16``.
+  Launches count under ``flash_fwd_sm90``, ``flash_bwd_dq_sm90`` and
+  ``flash_bwd_dkv_sm90``.
+- ``"simt"`` (``csrc/attention_kernels.cu``) for float32, and for bf16 at the
+  other head dims: float32 arithmetic on the CUDA cores, the exact form the
+  reference computes. B9 always runs on it.
+
 They are bound by operations (4*D per visible (q, k) pair in B7 and B9, 6*D
-in the dq pass, 8*D in the dk/dv pass) at the transformer's shapes; see the
-source's note for what the first CUDA form does about it.
+in the dq pass, 8*D in the dk/dv pass) at the transformer's shapes; see each
+source's note for what its design does about it.
 
 Differences from the TPU kernels, none of them in the results:
 
@@ -49,9 +61,12 @@ from mlsl_tpu_torch.log import MLSLError, mlsl_assert
 
 NEG = -1e30
 MAX_HEAD_DIM = 128          # the CUDA kernels' limit (shared-memory tiles)
+SM90_HEAD_DIMS = (64, 128)  # the wgmma form's head dims (one or two 128-byte tiles)
+SM90_KEY_TILE = 64          # keys of each tile the wgmma form's B7 folds
 
-# launches per kernel wrapper; only the CUDA launch site increments
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "block_update": 0}
+# launches per kernel and form; only the CUDA launch site increments
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "block_update": 0,
+            "flash_fwd_sm90": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dkv_sm90": 0}
 
 Offset = Union[int, torch.Tensor]
 
@@ -80,7 +95,10 @@ def scale_of(d: int) -> float:
 
 
 def offsets(off: Offset, bh: int, device) -> torch.Tensor:
-    """An int, a (1,) tensor or a (BH,) tensor -> (BH,) int32 on ``device``."""
+    """An int, a (1,) tensor or a (BH,) tensor -> (BH,) int32 on ``device``
+    (an int is filled in on the device: no copy from the host, no wait)."""
+    if isinstance(off, int):
+        return torch.full((bh,), off, dtype=torch.int32, device=device)
     t = torch.as_tensor(off, dtype=torch.int32).to(device).reshape(-1)
     mlsl_assert(t.numel() in (1, bh), "offsets must hold 1 or %d values, got %d",
                 bh, t.numel())
@@ -103,19 +121,30 @@ def _check(q, k, v, what: str) -> Tuple[int, int, int, int]:
     return bh, sq, sk, d
 
 
-def _cuda_ready(what: str, *tensors) -> int:
-    """-> the kernels' dtype code; raises for what the kernels do not take."""
+def kernel_form(dtype: torch.dtype, d: int) -> str:
+    """The CUDA form of B7 and B8 for inputs of this type and head dim:
+    ``"sm90"`` (bf16 wgmma tiles) for bf16 with head_dim 64 or 128, ``"simt"``
+    (float32 on the CUDA cores) for float32 and the other bf16 head dims.
+    Raises for what neither form takes."""
+    mlsl_assert(d <= MAX_HEAD_DIM, "the CUDA kernels take head_dim <= %d, got %d",
+                MAX_HEAD_DIM, d)
+    mlsl_assert(dtype in (torch.float32, torch.bfloat16),
+                "the CUDA kernels take float32 or bfloat16, got %s", dtype)
+    return "sm90" if dtype == torch.bfloat16 and d in SM90_HEAD_DIMS else "simt"
+
+
+def _cuda_ready(what: str, *tensors, form: Optional[str] = None) -> Tuple[int, str]:
+    """-> (the kernels' dtype code, the form to launch: ``kernel_form``'s, or
+    ``form`` where the caller names one, "simt" being open to every input the
+    kernels take); raises for what the kernels do not take."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise MLSLError(f"{what}: unsupported device {dev}")
     mlsl_assert(all(t.device == dev for t in tensors), "%s: tensors on several devices", what)
-    d = tensors[0].shape[-1]
-    mlsl_assert(d <= MAX_HEAD_DIM, "%s: the CUDA kernel takes head_dim <= %d, got %d",
-                what, MAX_HEAD_DIM, d)
-    code = {torch.float32: 0, torch.bfloat16: 1}.get(tensors[0].dtype)
-    mlsl_assert(code is not None, "%s: the CUDA kernel takes float32 or bfloat16, got %s",
-                what, tensors[0].dtype)
-    return code
+    best = kernel_form(tensors[0].dtype, tensors[0].shape[-1])
+    mlsl_assert(form in (None, "simt", best), "%s: form %r does not take %s with head_dim %d",
+                what, form, tensors[0].dtype, tensors[0].shape[-1])
+    return (1 if tensors[0].dtype == torch.bfloat16 else 0), form or best
 
 
 # -- plain versions -------------------------------------------------------
@@ -131,16 +160,26 @@ def _scores_ref(q, k, q_off, k_off, causal: bool) -> torch.Tensor:
     return s
 
 
-def block_update_ref(q, k, v, acc, m, l, q_off, k_off, causal: bool):
+def _rounded(x: torch.Tensor, p_dtype: torch.dtype) -> torch.Tensor:
+    """x as it enters a product: unchanged for float32, else rounded to
+    ``p_dtype`` (nearest even) and held in float32."""
+    return x if p_dtype == torch.float32 else x.to(p_dtype).float()
+
+
+def block_update_ref(q, k, v, acc, m, l, q_off, k_off, causal: bool,
+                     p_dtype: torch.dtype = torch.float32):
     """The online-softmax fold of one k/v block into (acc, m, l), dense: the
-    plain version of B9 (and, from the empty state, of B7)."""
+    plain version of B9 (and, from the empty state, of B7). ``p_dtype``: the
+    type P is rounded to before P V (bf16 for the wgmma form); l sums P in
+    float32 either way."""
     s = _scores_ref(q, k, q_off, k_off, causal)
     m_new = torch.maximum(m, s.amax(dim=-1))
     p = torch.exp(s - m_new[..., None])
     p = torch.where(s <= NEG / 2, 0.0, p)
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(dim=-1)
-    acc_new = acc * corr[..., None] + torch.einsum("bqk,bkd->bqd", p, v.float())
+    acc_new = acc * corr[..., None] + torch.einsum("bqk,bkd->bqd", _rounded(p, p_dtype),
+                                                   v.float())
     return acc_new, m_new, l_new
 
 
@@ -151,10 +190,16 @@ def empty_state(bh: int, sq: int, d: int, device):
             torch.zeros((bh, sq), dtype=torch.float32, device=device))
 
 
-def flash_fwd_ref(q, k, v, q_off, k_off, causal: bool):
-    """Plain B7: -> (out in q's type, lse (BH, Sq) float32)."""
-    acc, m, l = block_update_ref(q, k, v, *empty_state(*q.shape, q.device),
-                                 q_off, k_off, causal)
+def flash_fwd_ref(q, k, v, q_off, k_off, causal: bool, p_dtype: torch.dtype = torch.float32):
+    """Plain B7: -> (out in q's type, lse (BH, Sq) float32). With a rounded
+    ``p_dtype`` the keys fold in the wgmma form's tiles of SM90_KEY_TILE, so
+    that P is rounded against the same running maximum as in the kernel."""
+    state = empty_state(*q.shape, q.device)
+    tile = k.shape[1] if p_dtype == torch.float32 else SM90_KEY_TILE
+    for k0 in range(0, k.shape[1], tile):
+        state = block_update_ref(q, k[:, k0:k0 + tile], v[:, k0:k0 + tile], *state, q_off,
+                                 k_off + k0, causal, p_dtype)
+    acc, m, l = state
     denom = torch.clamp_min(l, 1e-30)
     return (acc / denom[..., None]).to(q.dtype), m + torch.log(denom)
 
@@ -167,42 +212,64 @@ def _bwd_ref(q, k, v, do, lse, dd, q_off, k_off, causal: bool):
     return p, p * (dp - dd[..., None])
 
 
-def flash_bwd_dq_ref(q, k, v, do, lse, dd, q_off, k_off, causal: bool):
-    """Plain B8, dq pass."""
+def flash_bwd_dq_ref(q, k, v, do, lse, dd, q_off, k_off, causal: bool,
+                     p_dtype: torch.dtype = torch.float32):
+    """Plain B8, dq pass. ``p_dtype``: the type dS is rounded to before dS K."""
     _, ds = _bwd_ref(q, k, v, do, lse, dd, q_off, k_off, causal)
-    return (scale_of(q.shape[-1]) * torch.einsum("bqk,bkd->bqd", ds, k.float())).to(q.dtype)
+    dq = torch.einsum("bqk,bkd->bqd", _rounded(ds, p_dtype), k.float())
+    return (scale_of(q.shape[-1]) * dq).to(q.dtype)
 
 
-def flash_bwd_dkv_ref(q, k, v, do, lse, dd, q_off, k_off, causal: bool):
-    """Plain B8, dk/dv pass."""
+def flash_bwd_dkv_ref(q, k, v, do, lse, dd, q_off, k_off, causal: bool,
+                      p_dtype: torch.dtype = torch.float32):
+    """Plain B8, dk/dv pass. ``p_dtype``: the type P and dS are rounded to
+    before P^T dO and dS^T Q (dS from P in float32)."""
     p, ds = _bwd_ref(q, k, v, do, lse, dd, q_off, k_off, causal)
-    dk = scale_of(q.shape[-1]) * torch.einsum("bqk,bqd->bkd", ds, q.float())
-    dv = torch.einsum("bqk,bqd->bkd", p, do.float())
+    dk = scale_of(q.shape[-1]) * torch.einsum("bqk,bqd->bkd", _rounded(ds, p_dtype), q.float())
+    dv = torch.einsum("bqk,bqd->bkd", _rounded(p, p_dtype), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 # -- the CUDA kernels -----------------------------------------------------
 
-_lib: Optional[ctypes.CDLL] = None
+_libs = {}
+# C entry -> its pointer arguments; every entry then takes bh, sq, sk, d, scale,
+# causal, dtype and the stream
+_ENTRIES = {
+    "attention_kernels": {"mlsl_flash_fwd": 7, "mlsl_flash_bwd_dq": 9,
+                          "mlsl_flash_bwd_dkv": 10, "mlsl_flash_block_update": 11},
+    "attention_sm90": {"mlsl_flash_fwd_sm90": 7, "mlsl_flash_bwd_dq_sm90": 9,
+                       "mlsl_flash_bwd_dkv_sm90": 10},
+}
 
 
-def _kernels() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
+def _kernels(source: str = "attention_kernels") -> ctypes.CDLL:
+    """The bound library of ``csrc/<source>.cu``, built at first use."""
+    lib = _libs.get(source)
+    if lib is None:
         from mlsl_tpu_torch.ops import cuda_build
 
-        lib = cuda_build.load("attention_kernels")
+        lib = cuda_build.load(source)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i, i, i, i, f, i, i, p]           # bh, sq, sk, d, scale, causal, dtype, stream
-        lib.mlsl_flash_fwd.argtypes = [p] * 7 + tail
-        lib.mlsl_flash_bwd_dq.argtypes = [p] * 9 + tail
-        lib.mlsl_flash_bwd_dkv.argtypes = [p] * 10 + tail
-        lib.mlsl_flash_block_update.argtypes = [p] * 11 + tail
-        for fn in (lib.mlsl_flash_fwd, lib.mlsl_flash_bwd_dq, lib.mlsl_flash_bwd_dkv,
-                   lib.mlsl_flash_block_update):
+        for entry, n_ptrs in _ENTRIES[source].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = [p] * n_ptrs + tail
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return lib
+
+
+def _entry(kernel: str, form: str):
+    """-> (the LAUNCHES key, the C function) of ``kernel`` in ``form``."""
+    if form == "sm90":
+        return f"{kernel}_sm90", getattr(_kernels("attention_sm90"), f"mlsl_{kernel}_sm90")
+    return kernel, getattr(_kernels(), f"mlsl_{kernel}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t at a 16-byte aligned address (TMA and bulk copies need it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch(name: str, fn, ptrs, bh, sq, sk, d, causal, code, device) -> None:
@@ -218,21 +285,21 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def flash_fwd(q, k, v, q_off: Offset, k_off: Offset, causal: bool = False,
-              want_lse: bool = True):
+              want_lse: bool = True, form: Optional[str] = None):
     """B7. q (BH, Sq, D), k/v (BH, Sk, D) -> (out (BH, Sq, D) in q's type,
-    lse (BH, Sq) float32 or None)."""
+    lse (BH, Sq) float32 or None). ``form`` ("simt" or "sm90") overrides
+    ``kernel_form`` on the card, to measure one form against the other."""
     bh, sq, sk, d = _check(q, k, v, "flash_fwd")
     qo, ko = offsets(q_off, bh, q.device), offsets(k_off, bh, q.device)
     if q.device.type == "cpu":
         out, lse = flash_fwd_ref(q, k, v, qo, ko, causal)
         return out, (lse if want_lse else None)
-    code = _cuda_ready("flash_fwd", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    code, form = _cuda_ready("flash_fwd", q, k, v, form=form)
+    q, k, v = (_aligned(t.contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device) if want_lse else None
-    _launch("flash_fwd", _kernels().mlsl_flash_fwd,
-            [_ptr(t) for t in (q, k, v, qo, ko, out, lse)], bh, sq, sk, d, causal, code,
-            q.device)
+    _launch(*_entry("flash_fwd", form), [_ptr(t) for t in (q, k, v, qo, ko, out, lse)],
+            bh, sq, sk, d, causal, code, q.device)
     return out, lse
 
 
@@ -245,35 +312,38 @@ def _bwd_inputs(q, k, v, do, lse, dd, what):
     return bh, sq, sk, d
 
 
+def _bwd_contiguous(q, k, v, do, lse, dd):
+    return (*(_aligned(t.contiguous()) for t in (q, k, v, do)),
+            _aligned(lse.float().contiguous()), _aligned(dd.float().contiguous()))
+
+
 def flash_bwd_dq(q, k, v, do, lse, dd, q_off: Offset, k_off: Offset,
-                 causal: bool = False) -> torch.Tensor:
-    """B8, dq pass: -> dq (BH, Sq, D) in q's type."""
+                 causal: bool = False, form: Optional[str] = None) -> torch.Tensor:
+    """B8, dq pass: -> dq (BH, Sq, D) in q's type; ``form`` as in ``flash_fwd``."""
     bh, sq, sk, d = _bwd_inputs(q, k, v, do, lse, dd, "flash_bwd_dq")
     qo, ko = offsets(q_off, bh, q.device), offsets(k_off, bh, q.device)
     if q.device.type == "cpu":
         return flash_bwd_dq_ref(q, k, v, do, lse, dd, qo, ko, causal)
-    code = _cuda_ready("flash_bwd_dq", q, k, v, do, lse, dd)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    lse, dd = lse.float().contiguous(), dd.float().contiguous()
+    code, form = _cuda_ready("flash_bwd_dq", q, k, v, do, lse, dd, form=form)
+    q, k, v, do, lse, dd = _bwd_contiguous(q, k, v, do, lse, dd)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", _kernels().mlsl_flash_bwd_dq,
-            [_ptr(t) for t in (q, k, v, do, lse, dd, qo, ko, dq)], bh, sq, sk, d, causal,
-            code, q.device)
+    _launch(*_entry("flash_bwd_dq", form), [_ptr(t) for t in (q, k, v, do, lse, dd, qo, ko, dq)],
+            bh, sq, sk, d, causal, code, q.device)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, dd, q_off: Offset, k_off: Offset,
-                  causal: bool = False):
-    """B8, dk/dv pass: -> (dk, dv) (BH, Sk, D) in k's and v's type."""
+                  causal: bool = False, form: Optional[str] = None):
+    """B8, dk/dv pass: -> (dk, dv) (BH, Sk, D) in k's and v's type; ``form`` as
+    in ``flash_fwd``."""
     bh, sq, sk, d = _bwd_inputs(q, k, v, do, lse, dd, "flash_bwd_dkv")
     qo, ko = offsets(q_off, bh, q.device), offsets(k_off, bh, q.device)
     if q.device.type == "cpu":
         return flash_bwd_dkv_ref(q, k, v, do, lse, dd, qo, ko, causal)
-    code = _cuda_ready("flash_bwd_dkv", q, k, v, do, lse, dd)
-    q, k, v, do = (t.contiguous() for t in (q, k, v, do))
-    lse, dd = lse.float().contiguous(), dd.float().contiguous()
+    code, form = _cuda_ready("flash_bwd_dkv", q, k, v, do, lse, dd, form=form)
+    q, k, v, do, lse, dd = _bwd_contiguous(q, k, v, do, lse, dd)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", _kernels().mlsl_flash_bwd_dkv,
+    _launch(*_entry("flash_bwd_dkv", form),
             [_ptr(t) for t in (q, k, v, do, lse, dd, qo, ko, dk, dv)], bh, sq, sk, d,
             causal, code, q.device)
     return dk, dv
@@ -291,7 +361,7 @@ def block_update(q, k, v, acc, m, l, q_off: Offset, k_off: Offset, causal: bool 
     qo, ko = offsets(q_off, bh, q.device), offsets(k_off, bh, q.device)
     if q.device.type == "cpu":
         return block_update_ref(q, k, v, acc, m, l, qo, ko, causal)
-    code = _cuda_ready("block_update", q, k, v, acc, m, l)
+    code, _ = _cuda_ready("block_update", q, k, v, acc, m, l)   # always the simt form
     q, k, v, acc, m, l = (t.contiguous() for t in (q, k, v, acc, m, l))
     outs = (torch.empty_like(acc), torch.empty_like(m), torch.empty_like(l))
     _launch("block_update", _kernels().mlsl_flash_block_update,

@@ -3,8 +3,9 @@
 Every kernel source under ``mlsl_tpu_torch/csrc/`` exposes a plain C
 interface; it is compiled at first use into a shared library under
 ``build/mlsl_tpu_torch/`` at the root of the checkout (git-ignored) and
-loaded with ``ctypes``. A library's file name carries a hash of its source
-and flags, so an edited source builds anew and an unchanged one is reused.
+loaded with ``ctypes``. A library's file name carries a hash of its source,
+of every header it includes from ``csrc/`` and of the flags, so an edited
+source or header builds anew and an unchanged one is reused.
 ``build_all`` starts one nvcc per source, all at once.
 
 Nothing here runs at import: this module is imported on machines without
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,6 +34,7 @@ SOURCES = {
     "rhd_kernels": "rhd_kernels.cu",
     "attention_kernels": "attention_kernels.cu",
     "a2a_kernels": "a2a_kernels.cu",
+    "attention_sm90": "attention_sm90.cu",
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,10 +64,24 @@ def nvcc_path() -> str:
     raise MLSLError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
+def _with_headers(path: Path, seen: list) -> list:
+    """``path`` and, depth first, every file it includes from ``csrc/`` with
+    ``#include "..."``, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in re.findall(r'^\s*#\s*include\s*"([^"]+)"', path.read_text(), re.M):
+        if (CSRC / inc).is_file():
+            _with_headers(CSRC / inc, seen)
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"lib{name}-{h}.so"
+    h = hashlib.sha256()
+    for path in _with_headers(CSRC / SOURCES[name], []):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

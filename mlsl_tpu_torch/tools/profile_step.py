@@ -70,7 +70,8 @@ from mlsl_tpu_torch.ops import ring_kernels as rk
 HALVES = ("local_grads", "sync_and_update")
 CLASSES = (
     ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
-    ("attention", re.compile(r"fwd_kernel|dq_kernel|dkv_kernel")),
+    # both forms of B7/B8 (fwd_kernel..., fwd_sm90...) and B9
+    ("attention", re.compile(r"fwd_kernel|dq_kernel|dkv_kernel|fwd_sm90|dq_sm90|dkv_sm90")),
     ("alltoall", re.compile(r"a2a_kernel")),
     # cuDNN's convolutions name their pass (fprop/dgrad/wgrad, implicit gemm);
     # cuBLAS's float32 products are xmma/cutlass/nvjet gemms

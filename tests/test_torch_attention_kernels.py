@@ -189,3 +189,159 @@ def test_per_row_offsets_equal_separate_calls():
         o1, l1 = tak.flash_fwd(q[b:b + 1], k[b:b + 1], v[b:b + 1], int(qo[b]), int(ko[b]), True)
         assert torch.equal(out[b:b + 1], o1) and torch.equal(lse[b:b + 1], l1)
     assert (out[0] == 0).all() and (out[2] != 0).any()
+
+
+# -- the wgmma form's rounding (P and dS to bf16), held against JAX ------------
+#
+# The sm90 form of B7/B8 (bf16 inputs, head_dim 64 or 128) rounds P and dS to
+# bf16 where they enter a product; the plain versions do the same with
+# p_dtype=torch.bfloat16, and the card holds each kernel to them at 2e-3. Here
+# those rounded plain versions meet JAX's kernels (float32 inside, bf16 in and
+# out) on bf16 inputs from a numpy seed: relative L2 error within 1e-2 for the
+# output and the three gradients, the lse within 2e-5 absolute. Per-row offsets
+# are one port call against one JAX call per row with its scalar offsets.
+
+# (name, d, causal, q_off per row, k_off per row); bh 4, sq = sk = 256
+BF16_CASES = [
+    ("d64_noncausal", 64, False, [0, 0, 0, 0], [0, 0, 0, 0]),
+    ("d64_causal_row_offsets", 64, True, [0, 128, 0, 64], [0, 0, 100, 512]),
+    ("d128_noncausal", 128, False, [0, 0, 0, 0], [0, 0, 0, 0]),
+    ("d128_causal_row_offsets", 128, True, [0, 256, 37, 0], [0, 0, 0, 128]),
+]
+BF16_REL = 1e-2
+
+
+def _bf16_inputs(name, d, bh=4, s=256):
+    rng = np.random.default_rng(sum(map(ord, name)) + 7)
+    return [jnp.asarray(rng.normal(size=(bh, s, d)).astype(np.float32), jnp.bfloat16)
+            for _ in range(4)]
+
+
+def _to_torch(x):
+    return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).to(torch.bfloat16)
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _jax_rows(fn, q_off, k_off, *arrays):
+    """fn(*row_arrays, qo, ko) per (b, h) row with its scalar offsets, stacked
+    over the rows of each output."""
+    outs = [fn(*(a[b:b + 1] for a in arrays), *_offs(q_off[b], k_off[b]))
+            for b in range(len(q_off))]
+    return [jnp.concatenate(parts) for parts in zip(*outs)]
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=lambda c: c[0])
+def test_rounded_plain_flash_fwd_matches_jax_bf16(case):
+    name, d, causal, q_off, k_off = case
+    q, k, v, _ = _bf16_inputs(name, d)
+    jo, jl = _jax_rows(lambda a, b, c, qo, ko: jak._flash_fwd(a, b, c, qo, ko, causal=causal,
+                                                              interpret=True),
+                       q_off, k_off, q, k, v)
+    qo, ko = (torch.tensor(x, dtype=torch.int32) for x in (q_off, k_off))
+    to, tl = tak.flash_fwd_ref(_to_torch(q), _to_torch(k), _to_torch(v), qo, ko, causal,
+                               p_dtype=torch.bfloat16)
+    assert to.dtype == torch.bfloat16
+    assert _rel(to, _to_torch(jo)) < BF16_REL
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl)[:, :, 0], atol=2e-5, rtol=2e-5)
+    if causal:
+        rows = torch.from_numpy(np.stack([_masked_rows(256, 256, a, b)
+                                          for a, b in zip(q_off, k_off)]))
+        assert rows.any() and (to[rows] == 0).all()
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=lambda c: c[0])
+def test_rounded_plain_flash_gradients_match_jax_vjp_bf16(case):
+    name, d, causal, q_off, k_off = case
+    q, k, v, g = _bf16_inputs(name, d)
+
+    def vjp_rows(a, b, c, gg, qo, ko):
+        _, vjp = jax.vjp(lambda x, y, z: jak.flash_attention(x, y, z, qo, ko, causal, True),
+                         a, b, c)
+        return vjp(gg)
+
+    want = _jax_rows(vjp_rows, q_off, k_off, q, k, v, g)
+    tq, tk, tv, tg = (_to_torch(x) for x in (q, k, v, g))
+    qo, ko = (torch.tensor(x, dtype=torch.int32) for x in (q_off, k_off))
+    o, lse = tak.flash_fwd_ref(tq, tk, tv, qo, ko, causal, p_dtype=torch.bfloat16)
+    dd = (tg.float() * o.float()).sum(dim=-1)
+    dq = tak.flash_bwd_dq_ref(tq, tk, tv, tg, lse, dd, qo, ko, causal, p_dtype=torch.bfloat16)
+    dk, dv = tak.flash_bwd_dkv_ref(tq, tk, tv, tg, lse, dd, qo, ko, causal,
+                                   p_dtype=torch.bfloat16)
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == torch.bfloat16
+        assert _rel(got, _to_torch(w)) < BF16_REL
+    if causal:
+        rows = torch.from_numpy(np.stack([_masked_rows(256, 256, a, b)
+                                          for a, b in zip(q_off, k_off)]))
+        assert (dq[rows] == 0).all()
+
+
+def _plain_before_rounding(q, k, v, g, qo, ko, causal):
+    """The plain B7 and B8 as they were before ``p_dtype`` existed: one dense
+    fold, P and dS in float32 throughout."""
+    s = tak._scores_ref(q, k, qo, ko, causal)
+    m = torch.maximum(torch.full(s.shape[:2], tak.NEG), s.amax(dim=-1))
+    p = torch.where(s <= tak.NEG / 2, 0.0, torch.exp(s - m[..., None]))
+    corr = torch.exp(torch.full_like(m, tak.NEG) - m)
+    l = torch.zeros_like(m) * corr + p.sum(dim=-1)
+    acc = torch.zeros(q.shape) * corr[..., None] + torch.einsum("bqk,bkd->bqd", p, v.float())
+    denom = torch.clamp_min(l, 1e-30)
+    o, lse = (acc / denom[..., None]).to(q.dtype), m + torch.log(denom)
+    dd = (g.float() * o.float()).sum(dim=-1)
+    pb = torch.where(s <= tak.NEG / 2, 0.0, torch.exp(s - lse[..., None]))
+    ds = pb * (torch.einsum("bqd,bkd->bqk", g.float(), v.float()) - dd[..., None])
+    sc = tak.scale_of(q.shape[-1])
+    dq = (sc * torch.einsum("bqk,bkd->bqd", ds, k.float())).to(q.dtype)
+    dk = (sc * torch.einsum("bqk,bqd->bkd", ds, q.float())).to(k.dtype)
+    dv = torch.einsum("bqk,bqd->bkd", pb, g.float()).to(v.dtype)
+    return o, lse, dd, dq, dk, dv
+
+
+@pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: c[0])
+def test_plain_versions_with_float32_p_are_unchanged(case):
+    """p_dtype=torch.float32 (the default) is the plain B7/B8 of before, bit
+    for bit, and so is B9's fold."""
+    name, bh, sq, sk, d, causal, q_off, k_off = case
+    q, k, v, g = (torch.from_numpy(a) for a in _arrays(name, bh, sq, sk, d))
+    qo, ko = tak.offsets(q_off, bh, "cpu"), tak.offsets(k_off, bh, "cpu")
+    o0, lse0, dd, dq0, dk0, dv0 = _plain_before_rounding(q, k, v, g, qo, ko, causal)
+    o, lse = tak.flash_fwd_ref(q, k, v, qo, ko, causal, p_dtype=torch.float32)
+    dq = tak.flash_bwd_dq_ref(q, k, v, g, lse, dd, qo, ko, causal, p_dtype=torch.float32)
+    dk, dv = tak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, qo, ko, causal, p_dtype=torch.float32)
+    for got, want in ((o, o0), (lse, lse0), (dq, dq0), (dk, dk0), (dv, dv0)):
+        assert torch.equal(got, want)
+    state = tak.empty_state(bh, sq, d, "cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        tak.block_update_ref(q, k, v, *state, qo, ko, causal, p_dtype=torch.float32),
+        tak.block_update_ref(q, k, v, *state, qo, ko, causal)))
+
+
+# (dtype, head_dim, the form or None where the wrappers raise)
+FORM_CASES = [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 64, "simt"), (torch.float32, 128, "simt"),
+    (torch.bfloat16, 72, "simt"), (torch.float32, 72, "simt"), (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 136, None), (torch.float32, 136, None), (torch.float16, 64, None),
+]
+
+
+@pytest.mark.parametrize("case", FORM_CASES, ids=lambda c: f"{c[0]}-d{c[1]}")
+def test_kernel_form_from_dtype_and_head_dim(case):
+    dtype, d, form = case
+    for dev in ("meta", "cpu"):
+        t = torch.empty((2, 128, d), dtype=dtype, device=dev)
+        if form is None:
+            with pytest.raises(MLSLError):
+                tak.kernel_form(t.dtype, t.shape[-1])
+        else:
+            assert tak.kernel_form(t.dtype, t.shape[-1]) == form
+    if form is None and d <= tak.MAX_HEAD_DIM:
+        return
+    # a meta tensor reaches the CUDA branch of the wrapper, which refuses its device
+    q = torch.empty((2, 128, d), dtype=dtype, device="meta")
+    with pytest.raises(MLSLError, match="unsupported device"):
+        tak.flash_fwd(q, q, q, 0, 0, True)
