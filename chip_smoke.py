@@ -62,27 +62,37 @@ Phases, in order; any failure exits non-zero and prints no result:
              versions that round P and dS to bf16 as it does and within 1e-2
              of the float32 ones; B9 at the zigzag chunk (256, 512, 64), diagonal
              and full, and at the ring's (256, 1024, 64) with per-row
-             offsets that mask every row of half the ranks; edge shapes
-             (Sq/Sk 128 and 256, head_dim 8, 16, 24, 128, float32 and bf16,
-             causal and not, offsets that mask whole rows). Relative L2
-             error under 1e-5 in float32 and for the lse and the carried
-             state, 1e-2 for bf16 outputs; fully masked rows, and keys no
-             query sees, exactly 0 (B9: their state unchanged). The card
-             tests of phase 2 include the tile layer's own product test
+             offsets that mask every row of half the ranks, in its wgmma
+             form with the winners (within 2e-3 of the plain version that
+             rounds P in 64-key tiles as it does, m and l 1e-5; m' equal to
+             m bit for bit where no key beat it; the winners the first
+             argmax but at near-ties) with its backward at random
+             cotangents (dq, dk, dv within 2e-3 of the closed form that
+             rounds P, dS and ga to bf16 as the passes do, dacc, dm, dl
+             1e-5), also at head_dim 128, and by request in its CUDA-core
+             form; edge shapes (Sq/Sk 128 and 256, head_dim 8, 16, 24, 128,
+             float32 and bf16, causal and not, offsets that mask whole
+             rows). Relative L2 error under 1e-5 in float32 and for the lse
+             and the carried state, 1e-2 for bf16 outputs against the
+             float32 plain versions; fully masked rows, and keys no query
+             sees, exactly 0 (B9: their state unchanged). The card tests of
+             phase 2 include the tile layer's own product test
              (cuda_tests/test_sm90_tiles.py).
 13. gpt-medium-2k on 1 rank (vocab 32,768, d_model 1,024, 16 heads of 64,
              12 blocks, seq 2,048, batch 8, bf16): three fused steps on one
              batch at lr 0.1. The first loss within 1.0 of ln 32,768, the
              third below the first; B7, B8 dq and B8 dk/dv launched 12 times
              a step in the wgmma form and never in the CUDA-core form, B9
-             never.
+             and its backward never.
 14. gpt-medium-2k on 8 ranks, dp=2 x sp=2 x tp=2, zigzag attention,
              per-layer Start/Wait over the data x seq group, three steps:
-             losses as above, B9 launched 60 times a step (5 a block), B7
-             and B8 never, and every layer's reduced gradient within 1e-6
-             relative L2 error of the float64 sum of its rank rows. Then
-             ring attention at 2 blocks: B9 with per-row offsets, 2
-             launches a block and step. Each run prints its step seconds,
+             losses as above, B9 launched 60 times a step (5 a block) in
+             its wgmma form and never in its CUDA-core form, each of its
+             backward passes 60 times, B7 and B8 never, and every layer's
+             reduced gradient within 1e-6 relative L2 error of the float64
+             sum of its rank rows. Then ring attention at 2 blocks: B9 with
+             per-row offsets and its two backward passes, 2 launches each a
+             block and step. Each run prints its step seconds,
              tokens/s and the last step's split.
 15. a2a parity the fused all-to-all B6 against its plain version, bit for
              bit, dense and int8: the data group of an 8 x 1 world, both
@@ -106,7 +116,8 @@ Phases, in order; any failure exits non-zero and prints no result:
              MLSL_ALGO=alltoall=pallas_a2a, three steps: losses and reduced
              gradients as in 14; per step B6 int8 once a block (the float32
              combine exchange), B6 dense once a block (its backward), the
-             entry quantize (B1) once a block and B9 5 times a block; then
+             entry quantize (B1) once a block, B9 (wgmma) and each of its
+             backward passes 5 times a block; then
              one no-grad forward of the loss on the same weights with the
              exchange on pallas_a2a and on lax, within 0.005 of each other.
 18. zero1    ResNet-50 at full width (224x224, 1000 classes, seed 0) on 8
@@ -199,7 +210,7 @@ def ptxas_summary(text: str) -> str:
 
 def ptxas_functions(text: str) -> str:
     """Each function of a ptxas report with its registers a thread and its spill
-    bytes, templates shortened (``fwd_sm90ILi64ELi2EE...`` -> ``fwd_sm90<64,2>``)."""
+    bytes, templates shortened (``bu_sm90ILi64ELi2ELb1EE...`` -> ``bu_sm90<64,2,1>``)."""
     import re
 
     out = []
@@ -211,9 +222,9 @@ def ptxas_functions(text: str) -> str:
         if m:
             rest = name[m.end():]
             short = rest[:int(m.group(1))]
-            args = re.match(r"ILi(\d+)ELi(\d+)E", rest[int(m.group(1)):])
+            args = re.match(r"I((?:L[ib]\d+E)+)E", rest[int(m.group(1)):])
             if args:
-                short += f"<{args.group(1)},{args.group(2)}>"
+                short += f"<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         out.append(f"{short} {regs.group(1) if regs else '?'}"
@@ -849,6 +860,22 @@ def time_ms(torch, fn, reps=50, warmup=5):
     return start.elapsed_time(end) / reps
 
 
+def time_graph_ms(torch, fn, reps=20):
+    """Device time of one ``fn()``: ``reps`` calls captured into one CUDA
+    graph, replayed. A wrapper whose host work (checks, allocations, the
+    launch) takes longer than its kernel leaves the card idle between calls
+    in ``time_ms``; a graph replay issues them with no host work between."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(torch, graph.replay, reps=5, warmup=2) / reps
+    del graph
+    return ms
+
+
 def entry(*, name, source, replaces, launches, per_path, shape, err, ms, plain_ms,
           library_ms, nbytes, ops, bw, peak, **extra):
     """One kernel's record for the kernels line; the bound is the larger of
@@ -1005,6 +1032,17 @@ ATTN_PY = "mlsl_tpu/ops/attention_kernels.py"
 ATTN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # runs that must not launch the wgmma form of B7/B8
 NO_SM90 = dict(flash_fwd_sm90=0, flash_bwd_dq_sm90=0, flash_bwd_dkv_sm90=0)
+
+
+def b9_counts(n: int) -> dict:
+    """B9's launches on a training path that folds ``n`` blocks: each in the
+    wgmma form with its two backward passes, none in the CUDA-core form."""
+    return dict(block_update_sm90=n, block_update_bwd_dq_sm90=n, block_update_bwd_dkv_sm90=n,
+                block_update=0)
+
+
+# runs that launch no B9 at all
+NO_B9 = b9_counts(0)
 # the wgmma form against the plain versions that round P and dS to bf16 where it
 # does: only summation order and exp differ, so a wrong fragment layout, which
 # the 1e-2 above could pass, cannot
@@ -1033,6 +1071,17 @@ def visible_pairs(torch, ak, bh, sq, sk, qo, ko, causal, dev) -> int:
     q_pos = ak.offsets(qo, bh, dev)[:, None] + torch.arange(sq, device=dev)
     seen = (q_pos - ak.offsets(ko, bh, dev)[:, None] + 1).clamp(0, sk)
     return int(seen.sum())
+
+
+def seen_rows(torch, ak, bh, sq, sk, qo, ko, causal, dev) -> tuple[int, int]:
+    """-> (query rows that see at least one key, key rows that at least one
+    query sees) for these offsets: the rows whose q, or k and v, the
+    function must read."""
+    if not causal:
+        return bh * sq, bh * sk
+    q_pos = ak.offsets(qo, bh, dev)[:, None] + torch.arange(sq, device=dev)
+    seen = (q_pos - ak.offsets(ko, bh, dev)[:, None] + 1).clamp(0, sk)
+    return int((seen > 0).sum()), int(seen[:, -1].sum())
 
 
 def check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag, form=None) -> dict:
@@ -1090,25 +1139,117 @@ def check_flash(torch, ak, q, k, v, g, qo, ko, causal, tag, form=None) -> dict:
     return errs
 
 
-def check_block_update(torch, ak, q, k, v, state, qo, ko, causal, tag):
-    """B9 against its plain version on the same inputs; rows that see no key
-    keep their state exactly. -> ((acc, m, l) from the kernel, max abs error)."""
+def _near_tie(torch, s, m, a, b):
+    """Rows where winners ``a`` and ``b`` (key index, -1 for the carried m)
+    name candidates whose float32 scores lie within 1e-5 of each other."""
+    def pick(w):
+        return torch.where(w >= 0, s.gather(-1, w.clamp_min(0).long()[..., None])[..., 0], m)
+
+    x, y = pick(a), pick(b)
+    return (x - y).abs() <= 1e-5 * torch.maximum(x.abs(), y.abs()).clamp_min(1.0)
+
+
+def check_block_update(torch, ak, q, k, v, state, qo, ko, causal, tag, form=None,
+                       ties=False):
+    """B9 in ``form`` (``kernel_form``'s unless given) against its plain
+    versions on the same inputs: the CUDA-core form within 1e-5 of the float32
+    one; the wgmma form, asked for its winners as the training path asks,
+    within SM90_TOL of the one that rounds P in 64-key tiles as it does and
+    ATTN_TOL of the float32 one (m and l 1e-5 in both), m' equal to m bit for
+    bit where no key beat it, its winners the plain scores' first argmax but
+    at near-ties, in at most one row in 10,000 (with ``ties``, where m ties
+    the block's maximum by design, in any number of rows). Rows that see no
+    key keep their state exactly.
+    -> ((acc, m, l), the winners or None, max abs error of acc against the
+    float32 plain version)."""
     bh, sq, _ = q.shape
-    got = ak.block_update(q, k, v, *state, qo, ko, causal)
+    form = form or ak.kernel_form(q.dtype, q.shape[-1])
+    key = "block_update_sm90" if form == "sm90" else "block_update"
+    before = dict(ak.LAUNCHES)
+    got = ak.block_update(q, k, v, *state, qo, ko, causal, want_winner=form == "sm90",
+                          form=form)
     torch.cuda.synchronize()
-    want = ak.block_update_ref(q, k, v, *state, ak.offsets(qo, bh, q.device),
-                               ak.offsets(ko, bh, q.device), causal)
-    live = want[1] > ak.NEG / 2
-    for name, a, b in (("acc", got[0], want[0]), ("m", got[1][live], want[1][live]),
-                       ("l", got[2], want[2])):
-        if b.numel():
-            rel = rel_err(torch, a, b)
-            check(rel < 1e-5, f"attention parity {tag}: B9 {name} relative error {rel:.3g}")
+    check(ak.LAUNCHES[key] == before[key] + 1,
+          f"attention parity {tag}: B9's {form} form did not run")
+    win, got = (got[3], got[:3]) if form == "sm90" else (None, got)
+    qt, kt = ak.offsets(qo, bh, q.device), ak.offsets(ko, bh, q.device)
+    oracles = [(torch.float32, 1e-5 if form == "simt" else ATTN_TOL["bfloat16"], "")]
+    if form == "sm90":
+        oracles.append((torch.bfloat16, SM90_TOL, " (P rounded in 64-key tiles)"))
+    err = None
+    for p_dtype, tol, note in oracles:
+        want = ak.block_update_tiled_ref(q, k, v, *state, qt, kt, causal, p_dtype=p_dtype)
+        live = want[1] > ak.NEG / 2
+        for name, a, b, t in (("acc", got[0], want[0], tol),
+                              ("m", got[1][live], want[1][live], 1e-5), ("l", got[2], want[2], 1e-5)):
+            if b.numel():
+                rel = rel_err(torch, a, b)
+                check(rel < t, f"attention parity {tag}: B9 {name}{note} relative error {rel:.3g}")
+        check(bool((got[1][~live] == want[1][~live]).all()),
+              f"attention parity {tag}: B9 m of rows that never saw a key differs")
+        if not note:
+            err = float((got[0] - want[0]).abs().max())
+        del want
     if causal:
         rows = _masked(torch, ak, bh, sq, qo, ko, q.device)
         check(all(bool((o[rows] == i[rows]).all()) for o, i in zip(got, state)),
               f"attention parity {tag}: B9 changed the state of rows that see no key")
-    return got, float((got[0] - want[0]).abs().max())
+    if win is not None:
+        kept = win < 0
+        check(bool((got[1][kept] == state[1][kept]).all()),
+              f"attention parity {tag}: B9 moved m where no key beat it")
+        w_ref = ak.block_update_winner_ref(q, k, state[1], qt, kt, causal)
+        off = win != w_ref
+        s = ak._scores_ref(q, k, qt, kt, causal)
+        check((ties or int(off.sum()) <= max(1, win.numel() // 10000))
+              and bool(_near_tie(torch, s, state[1], win, w_ref)[off].all()),
+              f"attention parity {tag}: B9's winners differ from the first argmax in "
+              f"{int(off.sum())} rows")
+        del s
+    return got, win, err
+
+
+def check_block_update_bwd(torch, ak, q, k, v, state, outs, win, qo, ko, causal, tag, gen):
+    """B9's backward (wgmma form) at random cotangents (ga, gm, gl) against the
+    closed form given the kernel's winners: dq, dk, dv within SM90_TOL of the
+    one that rounds P, dS and ga to bf16 as the passes do and ATTN_TOL of the
+    float32 one; dacc, dm, dl (PyTorch ops around the passes) within 1e-5.
+    Rows that see no key, and keys no query sees, exactly 0.
+    -> {name: max abs error against the float32 closed form}."""
+    bh, sq, d = q.shape
+    acc_n, m_n, l_n = outs
+    ga = torch.randn((bh, sq, d), generator=gen, device=q.device)
+    gm, gl = (torch.randn((bh, sq), generator=gen, device=q.device) for _ in range(2))
+    before = dict(ak.LAUNCHES)
+    grads = ak.block_update_bwd(q, k, v, *state, m_n, l_n, acc_n, win, ga, gm, gl, qo, ko,
+                                causal)
+    torch.cuda.synchronize()
+    check(all(ak.LAUNCHES[key] == before[key] + 1
+              for key in ("block_update_bwd_dq_sm90", "block_update_bwd_dkv_sm90")),
+          f"attention parity {tag}: B9's backward passes did not run")
+    qt, kt = ak.offsets(qo, bh, q.device), ak.offsets(ko, bh, q.device)
+    errs = {}
+    names = ("dq", "dk", "dv", "dacc", "dm", "dl")
+    for p_dtype, tol, note in ((torch.bfloat16, SM90_TOL, " (P, dS, ga rounded)"),
+                               (torch.float32, ATTN_TOL["bfloat16"], "")):
+        want = ak.block_update_bwd_ref(q, k, v, *state, m_n, l_n, acc_n, ga, gm, gl, qt, kt,
+                                       causal, p_dtype=p_dtype, g_dtype=p_dtype, win=win)
+        for i, (name, a, b) in enumerate(zip(names, grads, want)):
+            rel = rel_err(torch, a, b)
+            t = tol if i < 3 else 1e-5
+            check(rel < t, f"attention parity {tag}: B9 backward {name}{note} relative error "
+                           f"{rel:.3g} >= {t}")
+            if not note:
+                errs[f"block_update_bwd {name}"] = float((a.float() - b.float()).abs().max())
+        del want
+    if causal:
+        rows = _masked(torch, ak, bh, sq, qo, ko, q.device)
+        k_pos = kt[:, None] + torch.arange(k.shape[1], device=q.device)
+        unseen = k_pos > (qt + sq - 1)[:, None]
+        check(bool((grads[0][rows] == 0).all() and (grads[1][unseen] == 0).all()
+                   and (grads[2][unseen] == 0).all()),
+              f"attention parity {tag}: B9 backward: gradients where no key or query is seen")
+    return errs
 
 
 def ring_offsets(torch, dev, sl, hop, rows_per_rank, grid=(1, 2, 2, 2)):
@@ -1170,28 +1311,80 @@ def phase_attention_parity(torch, ak, dev) -> dict:
         del q, k, v, g
         torch.cuda.empty_cache()
     # B9: the zigzag chunk (c = seq / 4 at sp = 2), its diagonal (causal,
-    # empty state) then a full fold carrying the result
+    # empty state) then a full fold carrying the result, in the wgmma form
+    # with its backward, and by request in the CUDA-core form
     c = s // 4
+    ggen = torch.Generator(device=dev).manual_seed(SEED + 15)
     q, k, v = (rnd(bh9, c, d, bf16) for _ in range(3))
-    state, e1 = check_block_update(torch, ak, q, k, v, ak.empty_state(bh9, c, d, dev), 0, 0,
-                                   True, f"zigzag diag ({bh9}, {c}, {d}) bf16")
     k2, v2 = rnd(bh9, c, d, bf16), rnd(bh9, c, d, bf16)
-    _, e2 = check_block_update(torch, ak, q, k2, v2, state, 0, 0, False,
-                               f"zigzag full ({bh9}, {c}, {d}) bf16")
-    out[f"B9 zigzag ({bh9}, {c}, {d})"] = {"block_update": max(e1, e2)}
-    # B9: the ring's two hops at the local sequence (seq / 2), per-row offsets;
-    # hop 1 leaves every row of the seq-rank-0 ranks fully masked
+    fresh = ak.empty_state(bh9, c, d, dev)
+    errs = {}
+    for form in ("sm90", "simt"):
+        st, win, e1 = check_block_update(torch, ak, q, k, v, fresh, 0, 0, True,
+                                         f"zigzag diag ({bh9}, {c}, {d}) bf16 {form}", form)
+        if form == "sm90":
+            errs.update(check_block_update_bwd(torch, ak, q, k, v, fresh, st, win, 0, 0, True,
+                                               "zigzag diag", ggen))
+        st2, win, e2 = check_block_update(torch, ak, q, k2, v2, st, 0, 0, False,
+                                          f"zigzag full ({bh9}, {c}, {d}) bf16 {form}", form)
+        if form == "sm90":
+            errs.update(check_block_update_bwd(torch, ak, q, k2, v2, st, st2, win, 0, 0, False,
+                                               "zigzag full", ggen))
+        errs["block_update" + ("_sm90" if form == "sm90" else "")] = max(e1, e2)
+        del st, st2, win
+    out[f"B9 zigzag ({bh9}, {c}, {d})"] = errs
+    # B9 folding the same block twice: the second fold's maximal scores tie
+    # the carried m, where the kernel gives the whole term through the max to
+    # m and torch or JAX would split it; the backward held to the closed form
+    # under the kernel's rule
+    sub = slice(0, 16)
+    st = ak.empty_state(16, c, d, dev)
+    for fold in range(2):
+        new, win, _ = check_block_update(torch, ak, q[sub], k2[sub], v2[sub], st, 0, 0, False,
+                                         f"B9 same block, fold {fold}", ties=fold == 1)
+        if fold == 1:
+            check(bool((win < 0).all()),
+                  "attention parity: B9 folding a block twice: a score beat the m it gave")
+            out["B9 same block twice (16, 512, 64)"] = check_block_update_bwd(
+                torch, ak, q[sub], k2[sub], v2[sub], st, new, win, 0, 0, False,
+                "B9 same block twice", ggen)
+        st = new
+    del q, k, v, k2, v2, fresh, st, new, win
+    # B9: the ring's two hops at the local sequence (seq / 2), per-row offsets,
+    # each hop folding another rank's k/v block, as on the path; hop 1 leaves
+    # every row of the seq-rank-0 ranks fully masked
     sl = s // 2
-    q, k, v = (rnd(bh9, sl, d, bf16) for _ in range(3))
-    state = ak.empty_state(bh9, sl, d, dev)
-    errs = []
-    for hop in (0, 1):
-        qo, ko = ring_offsets(torch, dev, sl, hop, rows_per_rank=bh9 // WORLD)
-        state, e = check_block_update(torch, ak, q, k, v, state, qo, ko, True,
-                                      f"ring hop {hop} ({bh9}, {sl}, {d}) bf16")
-        errs.append(e)
-    out[f"B9 ring ({bh9}, {sl}, {d}) offsets"] = {"block_update": max(errs)}
-    # B9 edge shapes: f32, head_dim 8/16/128, rows masked by the offsets
+    q = rnd(bh9, sl, d, bf16)
+    kv = [(rnd(bh9, sl, d, bf16), rnd(bh9, sl, d, bf16)) for _ in range(2)]
+    errs = {}
+    for form in ("sm90", "simt"):
+        state = ak.empty_state(bh9, sl, d, dev)
+        worst = 0.0
+        for hop, (k, v) in enumerate(kv):
+            qo, ko = ring_offsets(torch, dev, sl, hop, rows_per_rank=bh9 // WORLD)
+            new, win, e = check_block_update(torch, ak, q, k, v, state, qo, ko, True,
+                                             f"ring hop {hop} ({bh9}, {sl}, {d}) bf16 {form}",
+                                             form)
+            if form == "sm90" and hop == 1:
+                errs.update(check_block_update_bwd(torch, ak, q, k, v, state, new, win, qo, ko,
+                                                   True, "ring hop 1", ggen))
+            state, worst = new, max(worst, e)
+            torch.cuda.empty_cache()
+        errs["block_update" + ("_sm90" if form == "sm90" else "")] = worst
+        del state
+    out[f"B9 ring ({bh9}, {sl}, {d}) offsets"] = errs
+    del q, k, v, kv
+    # B9 at head_dim 128 in the wgmma form, with its backward
+    qo, ko = rows_of(0, 64, 0, 256), rows_of(128, 0, 200, 0)
+    q, k, v = rnd(4, 256, 128, bf16), rnd(4, 384, 128, bf16), rnd(4, 384, 128, bf16)
+    st = (torch.randn((4, 256, 128), generator=gen, device=dev),
+          torch.randn((4, 256), generator=gen, device=dev),
+          torch.rand((4, 256), generator=gen, device=dev) + 0.5)
+    new, win, e = check_block_update(torch, ak, q, k, v, st, qo, ko, True, "B9 d=128 offsets")
+    out["B9 d=128 bf16 row offsets"] = {
+        "block_update_sm90": e,
+        **check_block_update_bwd(torch, ak, q, k, v, st, new, win, qo, ko, True, "B9 d=128", ggen)}
+    # B9 edge shapes in the CUDA-core form: f32, head_dim 8/16/128, rows masked
     for tag, rows, sq, sk, dh, dt, causal, qo, ko in (
             ("B9 d=8 f32 causal", 4, 128, 128, 8, f32, True, 0, 0),
             ("B9 d=16 bf16 rows masked", 4, 256, 128, 16, bf16, True, 0, 64),
@@ -1199,8 +1392,8 @@ def phase_attention_parity(torch, ak, dev) -> dict:
         st = (torch.randn((rows, sq, dh), generator=gen, device=dev),
               torch.randn((rows, sq), generator=gen, device=dev),
               torch.rand((rows, sq), generator=gen, device=dev) + 0.5)
-        _, e = check_block_update(torch, ak, rnd(rows, sq, dh, dt), rnd(rows, sk, dh, dt),
-                                  rnd(rows, sk, dh, dt), st, qo, ko, causal, tag)
+        _, _, e = check_block_update(torch, ak, rnd(rows, sq, dh, dt), rnd(rows, sk, dh, dt),
+                                     rnd(rows, sk, dh, dt), st, qo, ko, causal, tag)
         out[tag] = {"block_update": e}
     return out
 
@@ -1299,7 +1492,8 @@ def step_line(tag, trainer, losses, secs, split, launches):
 
 
 def attention_entries(torch, F, ak, bw, bf16, runs, dev):
-    """B7, B8 (both passes, in each form) and B9 at the transformer's shapes:
+    """B7, B8 (both passes), B9 (each in both forms) and B9's backward passes
+    at the transformer's shapes:
     time against the bound (bytes over the memory rate or operations over the
     bf16 tensor-core rate, whichever is larger), the plain version's time and,
     for B7 and B8, scaled_dot_product_attention's as the library yardstick
@@ -1388,8 +1582,25 @@ def attention_entries(torch, F, ak, bw, bf16, runs, dev):
     del q, k, v, g, qs, ks, vs
 
     # B9 at the zigzag chunk (the 3 full folds of its 5 calls a block) and at
-    # the ring's second hop, with per-row offsets
+    # the ring's second hop, with per-row offsets: the wgmma form as the
+    # training path calls it (with its winners), its backward's two passes,
+    # and by request the CUDA-core form. ``ms`` is the call as the path pays
+    # for it, the wrapper's host work included (about as long as the wgmma
+    # kernel); ``graph_ms`` the device's time alone, 20 calls captured in one
+    # CUDA graph. Bytes: q, k, v and ga in bf16 for the rows and keys that
+    # some pair sees (``seen_rows``: at the ring hop the offsets hide every
+    # key from half the rows, whose state is only copied through); acc read
+    # and written, m and l read and written, the winners written and the
+    # offsets read for every row; the passes read m', -gl, the winners and g
+    # of the rows that see a key, and write dq or dk and dv whole.
     bh9, c = WORLD * (TFM_BATCH // 2) * (h // 2), s // 4
+    gen9 = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def graph_too(fn, reps=20):
+        """-> (``time_ms`` of ``fn``, its time in a CUDA graph), both counted out."""
+        return (counted(lambda: time_ms(torch, fn, reps=reps)),
+                counted(lambda: time_graph_ms(torch, fn)))
+
     for tag, sq, causal, offs in (("zigzag chunk, full fold", c, False, (0, 0)),
                                   ("zigzag chunk, diagonal", c, True, (0, 0)),
                                   ("ring hop 1, offsets", s // 2, True,
@@ -1398,23 +1609,78 @@ def attention_entries(torch, F, ak, bw, bf16, runs, dev):
         st = (torch.randn((bh9, sq, d), generator=gen, device=dev),
               torch.zeros((bh9, sq), device=dev), torch.ones((bh9, sq), device=dev))
         qo, ko = (ak.offsets(x, bh9, dev) for x in offs)
-        got = counted(lambda: ak.block_update(q, k, v, *st, qo, ko, causal))
-        want = ak.block_update_ref(q, k, v, *st, qo, ko, causal)
         n_pairs = visible_pairs(torch, ak, bh9, sq, sq, qo, ko, causal, dev)
-        el = bh9 * sq * d
-        entries.append(entry(
-            name=f"block_update (B9, {tag})", replaces=f"{ATTN_PY}:442",
-            launches=sum(path("block_update").values()), per_path=path("block_update"),
-            err=float((got[0] - want[0]).abs().max()),
-            ms=counted(lambda: time_ms(
-                torch, lambda: ak.block_update(q, k, v, *st, qo, ko, causal), reps=20)),
-            plain_ms=time_ms(torch, lambda: ak.block_update_ref(q, k, v, *st, qo, ko, causal),
-                             reps=3, warmup=1),
-            library_ms=None, nbytes=3 * el * 2 + 2 * el * 4 + 4 * bh9 * sq * 4 + 2 * bh9 * 4,
-            ops=4 * d * n_pairs, bw=bw, peak=bf16, source=ATTN_SRC, shape=[bh9, sq, sq, d],
-            library_note="no single PyTorch call folds a block into a carried online-"
-                         "softmax state"))
-        del q, k, v, st, got, want
+        q_rows, k_rows = seen_rows(torch, ak, bh9, sq, sq, qo, ko, causal, dev)
+        el, rows9 = bh9 * sq * d, bh9 * sq * 4
+        qb, kb, row_b = q_rows * d * 2, k_rows * d * 2, q_rows * 4
+        common = dict(bw=bw, peak=bf16, shape=[bh9, sq, sq, d], library_ms=None,
+                      library_note="no single PyTorch call folds a block into a carried "
+                                   "online-softmax state, or takes its vjp",
+                      seen_query_rows=q_rows, seen_key_rows=k_rows)
+        fwd = lambda form, win=True: ak.block_update(  # noqa: E731
+            q, k, v, *st, qo, ko, causal, want_winner=win and form == "sm90", form=form)
+        for form, key, src, p_dtype in (("sm90", "_sm90", SM90_SRC, torch.bfloat16),
+                                        ("simt", "", ATTN_SRC, torch.float32)):
+            got = counted(lambda: fwd(form))
+            want = ak.block_update_tiled_ref(q, k, v, *st, qo, ko, causal, p_dtype=p_dtype)
+            ms, graph_ms = graph_too(lambda: fwd(form))
+            extra = {}
+            if form == "sm90":
+                extra["no_winner_ms"], extra["no_winner_graph_ms"] = graph_too(
+                    lambda: fwd(form, win=False))
+            entries.append(entry(
+                name=f"block_update{key} (B9{' wgmma' if form == 'sm90' else ''}, {tag})",
+                replaces=f"{ATTN_PY}:442", source=src, form=form,
+                launches=sum(path(f"block_update{key}").values()),
+                per_path=path(f"block_update{key}"),
+                err=float((got[0] - want[0]).abs().max()), ms=ms, graph_ms=graph_ms, **extra,
+                plain_ms=time_ms(torch, lambda: ak.block_update_tiled_ref(
+                    q, k, v, *st, qo, ko, causal, p_dtype=p_dtype), reps=3, warmup=1),
+                nbytes=qb + 2 * kb + 2 * el * 4 + 4 * rows9
+                + (rows9 if form == "sm90" else 0) + 2 * bh9 * 4,
+                ops=4 * d * n_pairs, **common,
+                note=("with the winners (the training path's call; no_winner_*: the "
+                      "no-grad call); " if form == "sm90" else
+                      "by request: bf16 with head_dim 64 takes the wgmma form on the path; ")
+                + f"graph_ms: a CUDA graph of 20 calls; plain version block_update_tiled_ref, "
+                  f"p_dtype={str(p_dtype).split('.')[-1]}"))
+            del want
+        acc_n, m_n, l_n, win = counted(lambda: fwd("sm90"))
+        ga = torch.randn((bh9, sq, d), generator=gen9, device=dev)
+        gm, gl = torch.zeros((bh9, sq), device=dev), torch.randn((bh9, sq), generator=gen9,
+                                                                  device=dev)
+        bwd = lambda: ak.block_update_bwd(q, k, v, *st, m_n, l_n, acc_n, win,  # noqa: E731
+                                          ga, gm, gl, qo, ko, causal)
+        plain = lambda: ak.block_update_bwd_ref(  # noqa: E731
+            q, k, v, *st, m_n, l_n, acc_n, ga, gm, gl, qo, ko, causal,
+            p_dtype=torch.bfloat16, g_dtype=torch.bfloat16, win=win)
+        got_b, want_b = counted(bwd), plain()
+        plain_ms = time_ms(torch, plain, reps=3, warmup=1)
+        call_ms, call_graph_ms = graph_too(bwd)
+        # each pass alone on the inputs the call prepares (g = 0 here)
+        prep = (q, k, v, ga.to(q.dtype), m_n, (-gl).contiguous(), win, torch.zeros_like(gm),
+                qo, ko, causal)
+        for name, which, pick, ops, nbytes in (
+                ("block_update_bwd_dq_sm90", "dq", slice(0, 1), 6 * d * n_pairs,
+                 2 * qb + 2 * kb + el * 2 + 4 * row_b + 2 * bh9 * 4),
+                ("block_update_bwd_dkv_sm90", "dkv", slice(1, 3), 8 * d * n_pairs,
+                 2 * qb + 2 * kb + 2 * el * 2 + 4 * row_b + 2 * bh9 * 4)):
+            err = max(float((a.float() - w.float()).abs().max())
+                      for a, w in zip(got_b[pick], want_b[pick]))
+            ms, graph_ms = graph_too(lambda: ak.bu_bwd_pass(which, *prep))
+            entries.append(entry(
+                name=f"{name} (B9 backward, {tag})",
+                replaces=f"{ATTN_PY}:530 (_bu_bwd, jax.vjp of _block_update_ref; no Pallas)",
+                source=SM90_SRC, form="sm90", launches=sum(path(name).values()),
+                per_path=path(name), err=err, ms=ms, graph_ms=graph_ms,
+                plain_ms=plain_ms, nbytes=nbytes, ops=ops, **common,
+                note="the pass alone; call_ms: block_update_bwd, both passes and the PyTorch "
+                     "row terms around them; graph_ms and call_graph_ms: as a CUDA graph of "
+                     "20 calls; plain version: block_update_bwd_ref with P, dS and ga rounded "
+                     "to bf16, all of that in one call",
+                call_ms=call_ms, call_graph_ms=call_graph_ms))
+        del q, k, v, st, got, got_b, want_b, acc_n, m_n, l_n, win, ga, gm, gl, prep
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -1705,12 +1971,13 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
     check_losses(losses, cfg_m.vocab, "transformer moe")
     n, steps = cfg_m.n_blocks, len(losses)
     check(counts_are(tm, a2a_quant=n * steps, a2a_dense=n * steps,
-                     quantize_blocks=n * steps, block_update=5 * n * steps, flash_fwd=0,
+                     quantize_blocks=n * steps, **b9_counts(5 * n * steps), flash_fwd=0,
                      flash_bwd_dq=0, flash_bwd_dkv=0, **NO_SM90, dequantize_blocks=0,
                      dense_ring=0,
                      quant_ring=0, rhd_allreduce=0),
           f"transformer moe: launches {tm}, expected per step {n} B6 int8, {n} B6 dense, "
-          f"{n} B1 and {5 * n} B9, and nothing else")
+          f"{n} B1, {5 * n} B9 (wgmma) and {5 * n} of each of its backward passes, and "
+          f"nothing else")
     worst_m = check_transformer_grads(torch, trainer, grads, "transformer moe")
     peak_m = torch.cuda.max_memory_allocated() / 2**30
     del grads
@@ -2151,7 +2418,7 @@ def main() -> int:
         n, steps = trainer.cfg.n_blocks, len(losses)
         check(counts_are(ta, flash_fwd_sm90=n * steps, flash_bwd_dq_sm90=n * steps,
                          flash_bwd_dkv_sm90=n * steps, flash_fwd=0, flash_bwd_dq=0,
-                         flash_bwd_dkv=0, block_update=0),
+                         flash_bwd_dkv=0, **NO_B9),
               f"transformer 1 rank: launches {ta}, expected {n} B7, {n} B8 dq, {n} B8 dk/dv "
               f"in the wgmma form, none in the CUDA-core form, and no B9 per step")
         log(f"# phase transformer 1 rank: ok, losses {losses}, launches {ta}, peak memory "
@@ -2170,9 +2437,10 @@ def main() -> int:
         tb = {k: launches()[k] for k in ak.LAUNCHES}
         check_losses(losses, trainer.cfg.vocab, "transformer 8 ranks")
         n, steps = trainer.cfg.n_blocks, len(losses)
-        check(counts_are(tb, block_update=5 * n * steps, flash_fwd=0, flash_bwd_dq=0,
+        check(counts_are(tb, **b9_counts(5 * n * steps), flash_fwd=0, flash_bwd_dq=0,
                          flash_bwd_dkv=0, **NO_SM90),
-              f"transformer 8 ranks: launches {tb}, expected {5 * n} B9 per step and no B7/B8")
+              f"transformer 8 ranks: launches {tb}, expected {5 * n} B9 (wgmma) and {5 * n} "
+              f"of each of its backward passes per step, and no B7/B8")
         worst_t = check_transformer_grads(torch, trainer, grads)
         log(f"# phase transformer 8 ranks zigzag: ok, losses {losses}, launches {tb}, worst "
             f"layer gradient rel. error {worst_t:.4g}, peak memory "
@@ -2188,8 +2456,9 @@ def main() -> int:
         tr = {k: launches()[k] for k in ak.LAUNCHES}
         n, steps = trainer.cfg.n_blocks, len(losses)
         check(all(np.isfinite(losses)), f"transformer ring: losses {losses}")
-        check(counts_are(tr, block_update=2 * n * steps, flash_fwd=0, **NO_SM90),
-              f"transformer ring: launches {tr}, expected {2 * n} B9 per step")
+        check(counts_are(tr, **b9_counts(2 * n * steps), flash_fwd=0, **NO_SM90),
+              f"transformer ring: launches {tr}, expected {2 * n} B9 (wgmma) and {2 * n} of "
+              f"each of its backward passes per step")
         worst_r = check_transformer_grads(torch, trainer, grads)
         log(f"# phase transformer 8 ranks ring: ok, losses {losses}, launches {tr}, worst "
             f"layer gradient rel. error {worst_r:.4g}")

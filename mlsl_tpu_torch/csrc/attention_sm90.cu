@@ -1,13 +1,20 @@
-// Flash attention for Hopper tensor cores (sm_90a): the forward (B7) and both
-// backward passes (B8) on bf16 wgmma tiles fed by TMA, built on sm90_tiles.cuh.
-// Plain C interface, bound with ctypes by ops/attention_kernels.py, which picks
-// this form for bf16 inputs with head_dim 64 or 128 (`kernel_form`).
+// Flash attention for Hopper tensor cores (sm_90a): the forward (B7), both
+// backward passes (B8), the ring hop's carried-state fold (B9) and B9's
+// backward on bf16 wgmma tiles fed by TMA, built on sm90_tiles.cuh. Plain C
+// interface, bound with ctypes by ops/attention_kernels.py, which picks this
+// form for bf16 inputs with head_dim 64 or 128 (`kernel_form`).
 //
 // Replaces (mlsl_tpu/ops/attention_kernels.py), as a second design of the kernels
 // that attention_kernels.cu ports on the CUDA cores:
 //   mlsl_flash_fwd_sm90      B7 `_flash_fwd` (:154, body `_tile_accumulate` :88)
 //   mlsl_flash_bwd_dq_sm90   B8 `_flash_bwd` (:297), dq pallas_call (:311, `_bwd_dq_kernel` :236)
 //   mlsl_flash_bwd_dkv_sm90  B8 `_flash_bwd` (:297), dk/dv pallas_call (:335, `_bwd_dkv_kernel` :264)
+//   mlsl_block_update_sm90   B9 `_block_update_fwd` (:442, body `_block_kernel` :416):
+//                            `bu_sm90`, the forward's body with the carried state
+//   mlsl_block_update_bwd_dq_sm90, mlsl_block_update_bwd_dkv_sm90
+//                            B9's vjp, which the TPU leaves to XLA (`_bu_bwd` :530,
+//                            jax.vjp of `_block_update_ref`): `bu_dq_sm90`,
+//                            `bu_dkv_sm90`, B8's passes with B9's inputs
 //   mlsl_sm90_tile_test      one 64 x 64 x 64 product of the tile layer, for its own test
 //
 // Contract (that of attention_kernels.cu): q (BH, Sq, D), k/v (BH, Sk, D) bf16
@@ -21,7 +28,25 @@
 // Rounding: the products Q K^T, dO V^T and V dO^T take bf16 inputs and sum in
 // float32, as the reference does up to order. P (forward, dk/dv) and dS (dq, dk)
 // are rounded to bf16 (nearest even) where they enter a product; the row sums l
-// use P in float32. The plain versions reproduce this with p_dtype=bfloat16.
+// use P in float32. B9's backward takes its cotangent ga as dO, rounded to bf16
+// once by the caller. The plain versions reproduce this with p_dtype (and for
+// ga g_dtype) bfloat16.
+//
+// B9 (fwd_body with the carried state): acc, m and l come in as float32 (BH,
+// Sq[, D]): acc straight into the accumulator fragment, l on one of the four
+// lanes of a row, m as the running maximum, which B9 keeps in natural units
+// (of s = (q.k) scale; B7 keeps s scale log2 e) so that m' = max(m, max_j
+// fl(s_j)) exactly and a row that no key beats keeps its m bit for bit; the
+// exponent takes m' log2 e. They leave unnormalised into new tensors, also
+// where the offsets hide every tile (then exactly as they came in). On
+// request the fold also returns, per row, the index of its first maximal key
+// where that key beat the carried m, and -1 where m won: the backward gives
+// the term through the max to that entry alone (torch and JAX split ties).
+// B9's backward (BU): lse := m' makes P = exp(s - m'), dd := -gl and dO := ga
+// make dS = P (ga V^T + gl), B8's dS with other inputs; each pass then adds g
+// = gm - Delta (computed by the caller) to dS at the row's winner in registers
+// before dS is rounded, with no atomics. The dk/dv pass brings the winners and
+// g of a query tile in the same bulk copies as its lse and dd.
 //
 // Design. Blocks of NWG consumer warpgroups (64 rows of the side the pass owns
 // each) and one producer warp whose first lane issues every TMA load. The owned
@@ -47,7 +72,12 @@
 // maximum over its 4 lanes each tile but its sum only once, at the end.
 //
 // Bound on an H100 SXM: operations on the bf16 tensor cores (989 TFLOP/s): 4 D
-// per visible (q, k) pair in B7, 6 D in the dq pass, 8 D in dk/dv. At D = 64
+// per visible (q, k) pair in B7, 6 D in the dq pass, 8 D in dk/dv, the same in
+// B9's backward. B9's forward is bound by bytes (3.35 TB/s): at the ring's
+// shapes its float32 acc, read and written, outweighs q, k and v, so the fold
+// reads acc while Q's tiles arrive and writes it once, straight from the
+// registers; the winner, a compare and select per entry, is tracked only in
+// the instantiation a gradient asks for. At D = 64
 // the element work weighs about as much as the products: one ex2 per 256
 // operations of the forward, where an SM does 16 ex2 and 2,048 tensor-core
 // operations a cycle, besides the FFMA, max and sum. Inside a warpgroup
@@ -232,15 +262,113 @@ __device__ __forceinline__ void ds_step(float (&s)[32], float (&dp)[32], const f
       }
 }
 
-// -- B7 ---------------------------------------------------------------------------
+// B9's term through the row maximum: dS += g at the entry of the row's winning
+// key (win: its index in the block, -1 where the carried maximum won; never a
+// hidden key). Rows of the fragment are queries (the dq pass: win and g per
+// row h, `first` the index of the tile's first key) or keys (KEY_ROWS, the
+// dk/dv pass: win and g per query column from shared memory, `first` the index
+// of the key in row h = 0).
+template <bool KEY_ROWS>
+__device__ __forceinline__ void max_term(float (&ds)[32], const int* win, const float* g,
+                                         int first, int c0) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + c0 + e;
+        if (KEY_ROWS ? win[col] == first + 8 * h : win[h] == first + col)
+          ds[4 * j + 2 * h + e] += KEY_ROWS ? g[col] : g[h];
+      }
+}
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
-fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-         const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_off,
-         const int* __restrict__ k_off, int sq, int sk, float scale, int causal,
-         __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+// B9's online softmax: softmax_step for a carried state. The running row
+// maxima mn stay in natural units (of s * scale), so that m' = max(m, max_j
+// fl(s_j scale)) exactly and a row that no key beats keeps its m bit for bit;
+// m2 = mn log2 e feeds the exponent. Hidden entries keep their raw NEG, and a
+// tile that hides a whole row leaves its state as it was (corr = 1, P = 0).
+// WIN: win[h] becomes the index in the block (key0 + column) of the row's
+// maximal score where it beats the maximum so far, the first of equal maxima.
+template <bool MASK, bool WIN>
+__device__ __forceinline__ void carry_step(float (&s)[32], float (&mn)[2], float (&lp)[2],
+                                           float (&corr)[2], int (&win)[2], float scale,
+                                           float c, int k_first, int q_row, int c0, int key0) {
+  float mx[2] = {NEG, NEG};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        if (MASK && hidden<MASK>(k_first, q_row, j, h, e, c0)) x = NEG;
+        mx[h] = fmaxf(mx[h], x);
+      }
+  float m2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mr = quad_max(mx[h]);                 // the tile's raw row maximum
+    // max(s) scale = max(s scale): scale > 0 and rounding is monotone
+    const float mt = MASK && mr <= 0.5f * NEG ? NEG : mr * scale;
+    const float m_new = fmaxf(mn[h], mt);
+    corr[h] = ex2((mn[h] - m_new) * LOG2E);
+    if (WIN) {
+      int first = 64;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (s[4 * j + 2 * h + e] == mr) first = min(first, 8 * j + c0 + e);
+      first = min(first, __shfl_xor_sync(0xffffffffu, first, 1));
+      first = min(first, __shfl_xor_sync(0xffffffffu, first, 2));
+      if (mt > mn[h]) win[h] = key0 + first;
+    }
+    mn[h] = m_new;
+    m2[h] = m_new * LOG2E;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = MASK && x <= 0.5f * NEG ? 0.f : ex2(fmaf(x, c, -m2[h]));
+        ps[h] += x;
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lp[h] = lp[h] * corr[h] + ps[h];
+}
+
+// -- B7 and B9 ----------------------------------------------------------------------
+
+// B9's carried state: acc (BH, Sq, D), m and l (BH, Sq), float32, read and
+// written unnormalised into new tensors; win (BH, Sq) int32 where the variant
+// tracks the winner.
+struct Carry {
+  const float* acc_in;
+  const float* m_in;
+  const float* l_in;
+  float* acc_out;
+  float* m_out;
+  float* l_out;
+  int* win;
+};
+
+// What fwd_body computes: B7 (a fresh state, output normalised, lse), or B9
+// (the carried state in and out), with or without the winner.
+constexpr int FWD = 0, CARRY = 1, CARRY_WIN = 2;
+
+template <int D, int NWG, int MODE>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& tq, const CUtensorMap& tk,
+                                         const CUtensorMap& tv, const int* __restrict__ q_off,
+                                         const int* __restrict__ k_off, int sq, int sk,
+                                         float scale, int causal, __nv_bfloat16* __restrict__ o,
+                                         float* __restrict__ lse, const Carry& carry) {
   constexpr int NB = D / 64, BM = 64 * NWG;
+  constexpr bool CARRIED = MODE != FWD, WIN = MODE == CARRY_WIN;
   constexpr uint32_t SLOT = 2 * NB * TILE_BYTES;      // K and V tiles
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sQ = align1024(smem_raw);                  // NWG x NB tiles
@@ -281,6 +409,7 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
   const int t = threadIdx.x % 128, r0 = frag_row(t), c0 = frag_col(t);
   const int wg_q = qo + q0 + 64 * wg;                 // first query position of the warpgroup
   const int q_row = wg_q + r0;
+  const long row0 = (long)bh * sq + q0 + 64 * wg + r0;
   const uint8_t* myQ = sQ + wg * NB * TILE_BYTES;
   // this warpgroup's visible tiles are a prefix of the block's: the rest it
   // only waits for and gives back
@@ -291,19 +420,49 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
   }
   const float c = scale * LOG2E;
   float acc[NB][32], m2[2] = {NEG, NEG}, lp[2] = {0.f, 0.f}, corr[2];
+  float mn[2] = {NEG, NEG};                           // B9: the running maxima, natural units
+  int win[2] = {-1, -1};
+  if constexpr (CARRIED) {
+    // the carried state, read while the tiles arrive; l on one lane of the 4
+    // that share a row, so that their sum at the end counts it once
 #pragma unroll
-  for (int nb = 0; nb < NB; ++nb)
+    for (int h = 0; h < 2; ++h) {
+      const long row = row0 + 8 * h;
+      mn[h] = carry.m_in[row];
+      lp[h] = (t & 3) == 0 ? carry.l_in[row] : 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 a =
+              *reinterpret_cast<const float2*>(carry.acc_in + row * D + 64 * nb + 8 * j + c0);
+          acc[nb][4 * j + 2 * h] = a.x;
+          acc[nb][4 * j + 2 * h + 1] = a.y;
+        }
+    }
+  } else {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  }
   float s[32];
   uint32_t pa[4][4];
   auto slot = [&](int i) { return sKV + (i % STAGES) * SLOT; };
   auto softmax = [&](int i) {
     const int k_first = ko + 64 * i;
-    if (causal && k_first + 63 > wg_q)
-      softmax_step<true>(s, m2, lp, corr, c, k_first, q_row, c0);
-    else
-      softmax_step<false>(s, m2, lp, corr, c, k_first, q_row, c0);
+    const bool cross = causal && k_first + 63 > wg_q;
+    if constexpr (CARRIED) {
+      if (cross)
+        carry_step<true, WIN>(s, mn, lp, corr, win, scale, c, k_first, q_row, c0, 64 * i);
+      else
+        carry_step<false, WIN>(s, mn, lp, corr, win, scale, c, k_first, q_row, c0, 64 * i);
+    } else {
+      if (cross)
+        softmax_step<true>(s, m2, lp, corr, c, k_first, q_row, c0);
+      else
+        softmax_step<false>(s, m2, lp, corr, c, k_first, q_row, c0);
+    }
   };
   auto rescale = [&]() {
 #pragma unroll
@@ -354,28 +513,70 @@ fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float denom = fmaxf(quad_sum(lp[h]), 1e-30f);
-    const long row = (long)bh * sq + q0 + 64 * wg + r0 + 8 * h;
+    const long row = row0 + 8 * h;
+    if constexpr (CARRIED) {
+      // a row that saw no key: acc, m and l as they came in, bit for bit
+      const float l_new = quad_sum(lp[h]);
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+      for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        store_pair(o + row * D + 64 * nb + 8 * j + c0, acc[nb][4 * j + 2 * h] / denom,
-                   acc[nb][4 * j + 2 * h + 1] / denom);
-    if (lse != nullptr && (t & 3) == 0)
-      lse[row] = (m2[h] == NEG ? NEG : m2[h] * LN2) + logf(denom);
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<float2*>(carry.acc_out + row * D + 64 * nb + 8 * j + c0) =
+              make_float2(acc[nb][4 * j + 2 * h], acc[nb][4 * j + 2 * h + 1]);
+      if ((t & 3) == 0) {
+        carry.m_out[row] = mn[h];
+        carry.l_out[row] = l_new;
+        if (WIN) carry.win[row] = win[h];
+      }
+    } else {
+      const float denom = fmaxf(quad_sum(lp[h]), 1e-30f);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          store_pair(o + row * D + 64 * nb + 8 * j + c0, acc[nb][4 * j + 2 * h] / denom,
+                     acc[nb][4 * j + 2 * h + 1] / denom);
+      if (lse != nullptr && (t & 3) == 0)
+        lse[row] = (m2[h] == NEG ? NEG : m2[h] * LN2) + logf(denom);
+    }
   }
+}
+
+// B7: a fresh state, the normalised output and the lse.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
+fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_off,
+         const int* __restrict__ k_off, int sq, int sk, float scale, int causal,
+         __nv_bfloat16* __restrict__ o, float* __restrict__ lse) {
+  fwd_body<D, NWG, FWD>(tq, tk, tv, q_off, k_off, sq, sk, scale, causal, o, lse, Carry{});
+}
+
+// B9: the carried state in and out; WIN: also each row's winner.
+template <int D, int NWG, bool WIN>
+__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
+bu_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const int* __restrict__ q_off,
+        const int* __restrict__ k_off, int sq, int sk, float scale, int causal,
+        const Carry carry) {
+  fwd_body<D, NWG, WIN ? CARRY_WIN : CARRY>(tq, tk, tv, q_off, k_off, sq, sk, scale, causal,
+                                            nullptr, nullptr, carry);
 }
 
 // -- B8, dq pass -------------------------------------------------------------------
 
-template <int D, int NWG>
-__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
-dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-        const float* __restrict__ lse, const float* __restrict__ dd,
-        const int* __restrict__ q_off, const int* __restrict__ k_off, int sq, int sk,
-        float scale, int causal, __nv_bfloat16* __restrict__ dq) {
+// BU: B9's backward (lse := m', dd := -gl, dO := ga), plus g = gm - Delta at
+// each row's winner (win, g (BH, Sq)); else B8's, with win and g null.
+template <int D, int NWG, bool BU>
+__device__ __forceinline__ void dq_body(const CUtensorMap& tq, const CUtensorMap& tk,
+                                        const CUtensorMap& tv, const CUtensorMap& tdo,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ dd,
+                                        const int* __restrict__ win,
+                                        const float* __restrict__ gmax,
+                                        const int* __restrict__ q_off,
+                                        const int* __restrict__ k_off, int sq, int sk,
+                                        float scale, int causal, __nv_bfloat16* __restrict__ dq) {
   constexpr int NB = D / 64, BM = 64 * NWG;
   constexpr uint32_t SLOT = 2 * NB * TILE_BYTES;      // K and V tiles
   extern __shared__ uint8_t smem_raw[];
@@ -425,11 +626,16 @@ dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensor
   const uint8_t* myQ = sQ + wg * NB * TILE_BYTES;
   const uint8_t* myO = sO + wg * NB * TILE_BYTES;
   const float c = scale * LOG2E;
-  float lse_r[2], dd_r[2];
+  float lse_r[2], dd_r[2], g_r[2];
+  int win_r[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     lse_r[h] = lse[row0 + 8 * h];
     dd_r[h] = dd[row0 + 8 * h];
+    if (BU) {
+      win_r[h] = win[row0 + 8 * h];
+      g_r[h] = gmax[row0 + 8 * h];
+    }
   }
   int n_my = n_kt;
   if (causal) {
@@ -459,6 +665,7 @@ dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensor
       ds_step<true, false>(s, dp, lse_r, dd_r, c, k_first, q_row, c0);
     else
       ds_step<false, false>(s, dp, lse_r, dd_r, c, k_first, q_row, c0);
+    if (BU) max_term<false>(dp, win_r, g_r, 64 * i, c0);
   };
   auto dsk = [&](int i) {                             // dQ += dS K_i (K read MN-major), issued
     rs_product<NB>(acc, da, slot(i));
@@ -497,18 +704,47 @@ dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensor
                    scale * acc[nb][4 * j + 2 * h], scale * acc[nb][4 * j + 2 * h + 1]);
 }
 
-// -- B8, dk/dv pass ----------------------------------------------------------------
-
 template <int D, int NWG>
 __global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
-dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
-         const float* __restrict__ lse, const float* __restrict__ dd,
-         const int* __restrict__ q_off, const int* __restrict__ k_off, int sq, int sk,
-         float scale, int causal, __nv_bfloat16* __restrict__ dk,
-         __nv_bfloat16* __restrict__ dv) {
+dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+        const float* __restrict__ lse, const float* __restrict__ dd,
+        const int* __restrict__ q_off, const int* __restrict__ k_off, int sq, int sk,
+        float scale, int causal, __nv_bfloat16* __restrict__ dq) {
+  dq_body<D, NWG, false>(tq, tk, tv, tdo, lse, dd, nullptr, nullptr, q_off, k_off, sq, sk,
+                         scale, causal, dq);
+}
+
+// B9's backward, dq pass.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
+bu_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tga,
+           const float* __restrict__ m_new, const float* __restrict__ neg_gl,
+           const int* __restrict__ win, const float* __restrict__ gmax,
+           const int* __restrict__ q_off, const int* __restrict__ k_off, int sq, int sk,
+           float scale, int causal, __nv_bfloat16* __restrict__ dq) {
+  dq_body<D, NWG, true>(tq, tk, tv, tga, m_new, neg_gl, win, gmax, q_off, k_off, sq, sk, scale,
+                        causal, dq);
+}
+
+// -- B8, dk/dv pass ----------------------------------------------------------------
+
+// BU as in dq_body.
+template <int D, int NWG, bool BU>
+__device__ __forceinline__ void dkv_body(const CUtensorMap& tq, const CUtensorMap& tk,
+                                         const CUtensorMap& tv, const CUtensorMap& tdo,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ dd,
+                                         const int* __restrict__ win,
+                                         const float* __restrict__ gmax,
+                                         const int* __restrict__ q_off,
+                                         const int* __restrict__ k_off, int sq, int sk,
+                                         float scale, int causal, __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv) {
   constexpr int NB = D / 64, BN = 64 * NWG;
   // a slot: Q and dO tiles, then the 64 lse and 64 dd values of their rows
+  // (BU: and their 64 winners and g)
   constexpr uint32_t TILES = 2 * NB * TILE_BYTES, SLOT = TILES + 1024;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sK = align1024(smem_raw);                  // NWG x NB tiles
@@ -543,13 +779,17 @@ dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
         uint64_t* full = &bars->full[i % STAGES];
         uint8_t* slot = sQO + (i % STAGES) * SLOT;
         const long qrow = (long)bh * sq + 64 * (qt_first + i);
-        mbar_expect_tx(full, TILES + 512);
+        mbar_expect_tx(full, TILES + (BU ? 1024 : 512));
         for (int b = 0; b < NB; ++b) {
           tma_load(slot + b * TILE_BYTES, &tq, full, (int)qrow, 64 * b);
           tma_load(slot + (NB + b) * TILE_BYTES, &tdo, full, (int)qrow, 64 * b);
         }
         bulk_load(slot + TILES, lse + qrow, 256, full);
         bulk_load(slot + TILES + 256, dd + qrow, 256, full);
+        if (BU) {
+          bulk_load(slot + TILES + 512, win + qrow, 256, full);
+          bulk_load(slot + TILES + 768, gmax + qrow, 256, full);
+        }
       }
     }
     return;
@@ -592,6 +832,9 @@ dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
       ds_step<true, true>(st, dpt, sL, sL + 64, c, q_first, wg_k + r0, c0);
     else
       ds_step<false, true>(st, dpt, sL, sL + 64, c, q_first, wg_k + r0, c0);
+    if (BU)
+      max_term<true>(dpt, reinterpret_cast<const int*>(sL + 128), sL + 192,
+                     k0 + 64 * wg + r0, c0);
   };
   auto convert = [&]() {
     acc_to_a(st, pa);
@@ -641,6 +884,32 @@ dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtenso
         store_pair(dv + row * D + col, gv[nb][4 * j + 2 * h], gv[nb][4 * j + 2 * h + 1]);
       }
   }
+}
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
+dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+         const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+         const float* __restrict__ lse, const float* __restrict__ dd,
+         const int* __restrict__ q_off, const int* __restrict__ k_off, int sq, int sk,
+         float scale, int causal, __nv_bfloat16* __restrict__ dk,
+         __nv_bfloat16* __restrict__ dv) {
+  dkv_body<D, NWG, false>(tq, tk, tv, tdo, lse, dd, nullptr, nullptr, q_off, k_off, sq, sk,
+                          scale, causal, dk, dv);
+}
+
+// B9's backward, dk/dv pass.
+template <int D, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + PRODUCER, 1)
+bu_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tga,
+            const float* __restrict__ m_new, const float* __restrict__ neg_gl,
+            const int* __restrict__ win, const float* __restrict__ gmax,
+            const int* __restrict__ q_off, const int* __restrict__ k_off, int sq, int sk,
+            float scale, int causal, __nv_bfloat16* __restrict__ dk,
+            __nv_bfloat16* __restrict__ dv) {
+  dkv_body<D, NWG, true>(tq, tk, tv, tga, m_new, neg_gl, win, gmax, q_off, k_off, sq, sk, scale,
+                         causal, dk, dv);
 }
 
 // -- the tile layer's own test -------------------------------------------------------
@@ -741,9 +1010,9 @@ int make_maps(Maps* m, const void* q, const void* k, const void* v, const void* 
   return rc;
 }
 
-// Each pass: D = 64 with two consumer warpgroups; D = 128 with two for B7 and
-// dq and one for dk/dv, whose two D-wide float32 accumulators leave no room for
-// a second warpgroup's registers.
+// Each pass: D = 64 with two consumer warpgroups; D = 128 with two for B7, B9
+// and dq and one for dk/dv, whose two D-wide float32 accumulators leave no
+// room for a second warpgroup's registers.
 template <int D>
 int fwd_t(const Maps& m, const int* qo, const int* ko, void* o, float* lse, int bh, int sq,
           int sk, float scale, int causal, cudaStream_t st) {
@@ -757,31 +1026,64 @@ int fwd_t(const Maps& m, const int* qo, const int* ko, void* o, float* lse, int 
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dq_t(const Maps& m, const float* lse, const float* dd, const int* qo, const int* ko,
-         void* dq, int bh, int sq, int sk, float scale, int causal, cudaStream_t st) {
+template <int D, bool WIN>
+int bu_t(const Maps& m, const int* qo, const int* ko, const Carry& carry, int bh, int sq,
+         int sk, float scale, int causal, cudaStream_t st) {
   constexpr int NWG = 2;
-  auto kern = dq_sm90<D, NWG>;
-  const size_t smem = dq_smem<D, NWG>();
+  auto kern = bu_sm90<D, NWG, WIN>;
+  const size_t smem = fwd_smem<D, NWG>();
   int rc = prep(kern, smem);
   if (rc) return rc;
   kern<<<dim3(bh, sq / (64 * NWG)), NWG * 128 + PRODUCER, smem, st>>>(
-      m.q, m.k, m.v, m.o, lse, dd, qo, ko, sq, sk, scale, causal, (__nv_bfloat16*)dq);
+      m.q, m.k, m.v, qo, ko, sq, sk, scale, causal, carry);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int dkv_t(const Maps& m, const float* lse, const float* dd, const int* qo, const int* ko,
-          void* dk, void* dv, int bh, int sq, int sk, float scale, int causal,
-          cudaStream_t st) {
+// B8's passes (BU false; win and gmax null) or B9's (BU).
+template <int D, bool BU>
+int dq_t(const Maps& m, const float* lse, const float* dd, const int* win, const float* gmax,
+         const int* qo, const int* ko, void* dq, int bh, int sq, int sk, float scale,
+         int causal, cudaStream_t st) {
+  constexpr int NWG = 2;
+  const size_t smem = dq_smem<D, NWG>();
+  const dim3 grid(bh, sq / (64 * NWG));
+  int rc;
+  if constexpr (BU) {
+    rc = prep(bu_dq_sm90<D, NWG>, smem);
+    if (rc) return rc;
+    bu_dq_sm90<D, NWG><<<grid, NWG * 128 + PRODUCER, smem, st>>>(
+        m.q, m.k, m.v, m.o, lse, dd, win, gmax, qo, ko, sq, sk, scale, causal,
+        (__nv_bfloat16*)dq);
+  } else {
+    rc = prep(dq_sm90<D, NWG>, smem);
+    if (rc) return rc;
+    dq_sm90<D, NWG><<<grid, NWG * 128 + PRODUCER, smem, st>>>(
+        m.q, m.k, m.v, m.o, lse, dd, qo, ko, sq, sk, scale, causal, (__nv_bfloat16*)dq);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool BU>
+int dkv_t(const Maps& m, const float* lse, const float* dd, const int* win, const float* gmax,
+          const int* qo, const int* ko, void* dk, void* dv, int bh, int sq, int sk, float scale,
+          int causal, cudaStream_t st) {
   constexpr int NWG = D == 64 ? 2 : 1;
-  auto kern = dkv_sm90<D, NWG>;
   const size_t smem = dkv_smem<D, NWG>();
-  int rc = prep(kern, smem);
-  if (rc) return rc;
-  kern<<<dim3(bh, sk / (64 * NWG)), NWG * 128 + PRODUCER, smem, st>>>(
-      m.q, m.k, m.v, m.o, lse, dd, qo, ko, sq, sk, scale, causal, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv);
+  const dim3 grid(bh, sk / (64 * NWG));
+  int rc;
+  if constexpr (BU) {
+    rc = prep(bu_dkv_sm90<D, NWG>, smem);
+    if (rc) return rc;
+    bu_dkv_sm90<D, NWG><<<grid, NWG * 128 + PRODUCER, smem, st>>>(
+        m.q, m.k, m.v, m.o, lse, dd, win, gmax, qo, ko, sq, sk, scale, causal,
+        (__nv_bfloat16*)dk, (__nv_bfloat16*)dv);
+  } else {
+    rc = prep(dkv_sm90<D, NWG>, smem);
+    if (rc) return rc;
+    dkv_sm90<D, NWG><<<grid, NWG * 128 + PRODUCER, smem, st>>>(
+        m.q, m.k, m.v, m.o, lse, dd, qo, ko, sq, sk, scale, causal, (__nv_bfloat16*)dk,
+        (__nv_bfloat16*)dv);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -791,6 +1093,40 @@ bool shapes_ok(int bh, int sq, int sk, int d, int dtype) {
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <bool BU>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+             const float* dd, const int* win, const float* gmax, const int* q_off,
+             const int* k_off, void* dq, int bh, int sq, int sk, int d, float scale, int causal,
+             int dtype, void* stream) {
+  if (!shapes_ok(bh, sq, sk, d, dtype)) return (int)cudaErrorInvalidValue;
+  Maps m;
+  int rc = make_maps(&m, q, k, v, dout, bh, sq, sk, d);
+  if (rc) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  return d == 64 ? dq_t<64, BU>(m, lse, dd, win, gmax, q_off, k_off, dq, bh, sq, sk, scale,
+                                causal, st)
+                 : dq_t<128, BU>(m, lse, dd, win, gmax, q_off, k_off, dq, bh, sq, sk, scale,
+                                 causal, st);
+}
+
+template <bool BU>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* dd, const int* win, const float* gmax, const int* q_off,
+              const int* k_off, void* dk, void* dv, int bh, int sq, int sk, int d, float scale,
+              int causal, int dtype, void* stream) {
+  if (!shapes_ok(bh, sq, sk, d, dtype)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(lse) || !aligned16(dd) || (BU && (!aligned16(win) || !aligned16(gmax))))
+    return (int)cudaErrorMisalignedAddress;
+  Maps m;
+  int rc = make_maps(&m, q, k, v, dout, bh, sq, sk, d);
+  if (rc) return rc;
+  cudaStream_t st = (cudaStream_t)stream;
+  return d == 64 ? dkv_t<64, BU>(m, lse, dd, win, gmax, q_off, k_off, dk, dv, bh, sq, sk, scale,
+                                 causal, st)
+                 : dkv_t<128, BU>(m, lse, dd, win, gmax, q_off, k_off, dk, dv, bh, sq, sk,
+                                  scale, causal, st);
+}
 
 }  // namespace
 
@@ -815,13 +1151,8 @@ int mlsl_flash_bwd_dq_sm90(const void* q, const void* k, const void* v, const vo
                            const float* lse, const float* dd, const int* q_off,
                            const int* k_off, void* dq, int bh, int sq, int sk, int d,
                            float scale, int causal, int dtype, void* stream) {
-  if (!shapes_ok(bh, sq, sk, d, dtype)) return (int)cudaErrorInvalidValue;
-  Maps m;
-  int rc = make_maps(&m, q, k, v, dout, bh, sq, sk, d);
-  if (rc) return rc;
-  cudaStream_t st = (cudaStream_t)stream;
-  return d == 64 ? dq_t<64>(m, lse, dd, q_off, k_off, dq, bh, sq, sk, scale, causal, st)
-                 : dq_t<128>(m, lse, dd, q_off, k_off, dq, bh, sq, sk, scale, causal, st);
+  return dq_entry<false>(q, k, v, dout, lse, dd, nullptr, nullptr, q_off, k_off, dq, bh, sq, sk,
+                         d, scale, causal, dtype, stream);
 }
 
 // B8, dk/dv pass. lse and dd must be 16-byte aligned: their rows travel by bulk copy.
@@ -829,14 +1160,51 @@ int mlsl_flash_bwd_dkv_sm90(const void* q, const void* k, const void* v, const v
                             const float* lse, const float* dd, const int* q_off,
                             const int* k_off, void* dk, void* dv, int bh, int sq, int sk,
                             int d, float scale, int causal, int dtype, void* stream) {
+  return dkv_entry<false>(q, k, v, dout, lse, dd, nullptr, nullptr, q_off, k_off, dk, dv, bh, sq,
+                          sk, d, scale, causal, dtype, stream);
+}
+
+// B9. acc (BH, Sq, D), m, l (BH, Sq) float32 in; acc_out, m_out, l_out new
+// float32 tensors of the same shapes; win (BH, Sq) int32, or null where no
+// winner is wanted.
+int mlsl_block_update_sm90(const void* q, const void* k, const void* v, const int* q_off,
+                           const int* k_off, const float* acc, const float* m_in,
+                           const float* l_in, float* acc_out, float* m_out, float* l_out,
+                           int* win, int bh, int sq, int sk, int d, float scale, int causal,
+                           int dtype, void* stream) {
   if (!shapes_ok(bh, sq, sk, d, dtype)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(lse) || !aligned16(dd)) return (int)cudaErrorMisalignedAddress;
   Maps m;
-  int rc = make_maps(&m, q, k, v, dout, bh, sq, sk, d);
+  int rc = make_maps(&m, q, k, v, nullptr, bh, sq, sk, d);
   if (rc) return rc;
+  const Carry carry{acc, m_in, l_in, acc_out, m_out, l_out, win};
   cudaStream_t st = (cudaStream_t)stream;
-  return d == 64 ? dkv_t<64>(m, lse, dd, q_off, k_off, dk, dv, bh, sq, sk, scale, causal, st)
-                 : dkv_t<128>(m, lse, dd, q_off, k_off, dk, dv, bh, sq, sk, scale, causal, st);
+  if (d == 64)
+    return win ? bu_t<64, true>(m, q_off, k_off, carry, bh, sq, sk, scale, causal, st)
+               : bu_t<64, false>(m, q_off, k_off, carry, bh, sq, sk, scale, causal, st);
+  return win ? bu_t<128, true>(m, q_off, k_off, carry, bh, sq, sk, scale, causal, st)
+             : bu_t<128, false>(m, q_off, k_off, carry, bh, sq, sk, scale, causal, st);
+}
+
+// B9's backward, dq pass: ga (BH, Sq, D) in q's type (bf16), m_new the
+// forward's m', neg_gl = -gl, win the forward's winner and gmax = gm - Delta
+// (BH, Sq).
+int mlsl_block_update_bwd_dq_sm90(const void* q, const void* k, const void* v, const void* ga,
+                                  const float* m_new, const float* neg_gl, const int* win,
+                                  const float* gmax, const int* q_off, const int* k_off,
+                                  void* dq, int bh, int sq, int sk, int d, float scale,
+                                  int causal, int dtype, void* stream) {
+  return dq_entry<true>(q, k, v, ga, m_new, neg_gl, win, gmax, q_off, k_off, dq, bh, sq, sk, d,
+                        scale, causal, dtype, stream);
+}
+
+// B9's backward, dk/dv pass; the four row vectors 16-byte aligned (bulk copies).
+int mlsl_block_update_bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* ga,
+                                   const float* m_new, const float* neg_gl, const int* win,
+                                   const float* gmax, const int* q_off, const int* k_off,
+                                   void* dk, void* dv, int bh, int sq, int sk, int d,
+                                   float scale, int causal, int dtype, void* stream) {
+  return dkv_entry<true>(q, k, v, ga, m_new, neg_gl, win, gmax, q_off, k_off, dk, dv, bh, sq,
+                         sk, d, scale, causal, dtype, stream);
 }
 
 // The tile layer's test: one 64 x 64 x 64 product (see tile_test_kernel).

@@ -5,7 +5,15 @@ state), 1e-2 for bf16 outputs; fully masked rows exactly 0.
 The wgmma form of B7 and B8 (bf16, head_dim 64 or 128) is held twice: within
 2e-3 of the plain versions that round P and dS to bf16 where the kernels do
 (``p_dtype=torch.bfloat16``; lse 1e-5), which a wrong fragment layout cannot
-pass, and within 1e-2 of the float32 plain versions."""
+pass, and within 1e-2 of the float32 plain versions.
+
+B9's wgmma form the same way: its forward within 2e-3 of
+``block_update_tiled_ref(p_dtype=bf16)`` (m and l 1e-5), rows that see no key
+keeping their state bit for bit, m' equal to m bit for bit wherever no key
+beat it, the winner the plain scores' first argmax but at near-ties; its
+backward within 2e-3 of ``block_update_bwd_ref`` with P, dS and ga rounded to
+bf16 (dacc, dm, dl 1e-5) and within 1e-2 of the float32 closed form, both
+given the kernel's winners."""
 
 import numpy as np
 import pytest
@@ -143,3 +151,94 @@ def test_cuda_sm90_flash_kernels_match_both_plain_versions(case):
         assert (o[dead_q] == 0).all() and (dq[dead_q] == 0).all()
         assert (dk[dead_k] == 0).all() and (dv[dead_k] == 0).all()
         assert bool((~dead_q).any()) == bool((dq != 0).any())
+
+
+# (name, bh, sq, sk, d, causal, q_off, k_off, state): B9's wgmma form at the
+# transformer paths' shapes with fewer rows (the zigzag chunk's diagonal on a
+# fresh state and its full fold on a carried one; the ring's second hop, whose
+# offsets hide every row of half the ranks), at head_dim 128, and folding a
+# block into the state its own fold gave, where m ties each row's maximal score
+BU_SM90_CASES = [
+    ("zigzag_diagonal", 16, 512, 512, 64, True, 0, 0, "fresh"),
+    ("zigzag_full_fold", 16, 512, 512, 64, False, 0, 0, "carried"),
+    ("ring_hop_rows_masked", 8, 1024, 1024, 64, True, [0] * 4 + [1024] * 4,
+     [1024] * 4 + [0] * 4, "carried"),
+    ("d128_causal_offsets", 4, 256, 384, 128, True, [0, 64, 0, 256], [128, 0, 200, 0],
+     "carried"),
+    ("same_block_twice", 16, 512, 512, 64, False, 0, 0, "refold"),
+]
+BU_KEYS = ("block_update_sm90", "block_update_bwd_dq_sm90", "block_update_bwd_dkv_sm90")
+
+
+def _near_tie(s, m, a, b):
+    """Rows where winners ``a`` and ``b`` (key index, -1 for m) name candidates
+    whose float32 scores lie within 1e-5 of each other (relative)."""
+    pick = lambda w: torch.where(w >= 0, s.gather(-1, w.clamp_min(0).long()[..., None])[..., 0],
+                                 m)  # noqa: E731
+    x, y = pick(a), pick(b)
+    return (x - y).abs() <= 1e-5 * torch.maximum(x.abs(), y.abs()).clamp_min(1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BU_SM90_CASES, ids=lambda c: c[0])
+def test_cuda_sm90_block_update_and_backward_match_plain(case):
+    name, bh, sq, sk, d, causal, q_off, k_off, kind = case
+    assert tak.kernel_form(torch.bfloat16, d) == "sm90"
+    rng = np.random.default_rng(sum(map(ord, name)))
+    mk = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()  # noqa
+    q, k, v = mk(bh, sq, d).bfloat16(), mk(bh, sk, d).bfloat16(), mk(bh, sk, d).bfloat16()
+    qo, ko = _offs(q_off, bh), _offs(k_off, bh)
+    if kind == "carried":
+        state = (mk(bh, sq, d), mk(bh, sq),
+                 torch.from_numpy(rng.uniform(0.5, 2.0, (bh, sq)).astype(np.float32)).cuda())
+    else:
+        state = tak.empty_state(bh, sq, d, "cuda")
+        if kind == "refold":
+            state = tak.block_update(q, k, v, *state, qo, ko, causal)
+    before = dict(tak.LAUNCHES)
+    acc_n, m_n, l_n, win = tak.block_update(q, k, v, *state, qo, ko, causal, want_winner=True)
+    bare = tak.block_update(q, k, v, *state, qo, ko, causal)
+    ga, gm, gl = mk(bh, sq, d), mk(bh, sq), mk(bh, sq)
+    grads = tak.block_update_bwd(q, k, v, *state, m_n, l_n, acc_n, win, ga, gm, gl, qo, ko,
+                                 causal)
+    torch.cuda.synchronize()
+    ran = {key: tak.LAUNCHES[key] - before[key] for key in tak.LAUNCHES}
+    assert ran == {**{key: 0 for key in ran}, "block_update_sm90": 2,
+                   "block_update_bwd_dq_sm90": 1, "block_update_bwd_dkv_sm90": 1}, ran
+    # the variant without the winner computes the same state, bit for bit
+    assert all(torch.equal(a, b) for a, b in zip((acc_n, m_n, l_n), bare))
+
+    r_acc, r_m, r_l = tak.block_update_tiled_ref(q, k, v, *state, qo, ko, causal,
+                                                 p_dtype=torch.bfloat16)
+    live = r_m > tak.NEG / 2
+    assert _rel(acc_n, r_acc) < 2e-3
+    assert _rel(m_n[live], r_m[live]) < 1e-5 and torch.equal(m_n[~live], r_m[~live])
+    assert _rel(l_n, r_l) < 1e-5
+    q_pos = qo[:, None] + torch.arange(sq, device="cuda")
+    dead = q_pos < ko[:, None] if causal else torch.zeros_like(live)
+    assert bool(dead.any()) == (name == "ring_hop_rows_masked" or name.startswith("d128"))
+    for got, was in zip((acc_n, m_n, l_n), state):
+        assert torch.equal(got[dead], was[dead])
+    kept = win < 0
+    assert torch.equal(m_n[kept], state[1][kept])
+    w_ref = tak.block_update_winner_ref(q, k, state[1], qo, ko, causal)
+    s = tak._scores_ref(q, k, qo, ko, causal)
+    off = win != w_ref
+    # folded twice, m keeps every row (the kernel gives a tie to m); the
+    # plain scores, from another product, may put a key a rounding above it
+    assert bool(kept.all()) if kind == "refold" else int(off.sum()) <= max(1, win.numel() // 10000)
+    assert bool(_near_tie(s, state[1], win, w_ref)[off].all())
+
+    for p_dtype, tol in ((torch.bfloat16, 2e-3), (torch.float32, 1e-2)):
+        want = tak.block_update_bwd_ref(q, k, v, *state, m_n, l_n, acc_n, ga, gm, gl, qo, ko,
+                                        causal, p_dtype=p_dtype, g_dtype=p_dtype, win=win)
+        for i, (got, w) in enumerate(zip(grads, want)):
+            assert got.dtype == w.dtype
+            rel = _rel(got, w)
+            assert rel < (tol if i < 3 else 1e-5), (str(p_dtype), i, rel)
+    dq, dk, dv = grads[:3]
+    if causal:
+        assert (dq[dead] == 0).all()
+        k_pos = ko[:, None] + torch.arange(sk, device="cuda")
+        unseen = k_pos > q_pos[:, -1:]
+        assert (dk[unseen] == 0).all() and (dv[unseen] == 0).all()

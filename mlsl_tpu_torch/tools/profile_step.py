@@ -13,7 +13,8 @@ Run from the root of a checkout, on a machine with a card:
 - ``transformer-1``: gpt-medium-2k (models/transformer.GPT_MEDIUM_2K, bf16,
   batch 8) on 1 rank, the fused step, flash attention kernels B7 and B8;
 - ``transformer-8``: the same model and batch on 8 virtual ranks, dp=2 x
-  sp=2 x tp=2, zigzag attention (kernel B9), per-layer gradient requests;
+  sp=2 x tp=2, zigzag attention (kernel B9 and its backward), per-layer
+  gradient requests;
 - ``moe-8``: gpt-medium-2k-moe8 (models/transformer.GPT_MEDIUM_2K_MOE8, 8
   experts, top-1) at 6 of its 12 blocks on transformer-8's grid (ep = 2),
   with ``MLSL_ALGO=alltoall=pallas_a2a`` unless MLSL_ALGO is exported: the
@@ -35,9 +36,12 @@ many steps again with ``torch.profiler`` (the Chrome trace goes to
   wall seconds, device kernel seconds (the union of kernel intervals, so
   overlapping streams are not counted twice), and the device idle share
   ``1 - kernel / wall``;
-- device kernel seconds by class (codec kernels, attention kernels, the
-  all-to-all, convolution, matrix products, the rest) and the ``--top``
-  kernel names by device time.
+- device kernel seconds by class (codec kernels; B9's wgmma backward
+  passes, B9's forward in either form, the other attention kernels; the
+  all-to-all; every other kernel launched inside a ``block_update_bwd`` host
+  range, the range B9's backward opens, which holds its PyTorch row terms;
+  convolution, matrix products; the rest) and the ``--top`` kernel names by
+  device time.
 
 Traced wall times include the profiler's own host cost; ``step_s`` does not.
 It fails, printing no result, when there is no card or the trace holds no
@@ -70,9 +74,15 @@ from mlsl_tpu_torch.ops import ring_kernels as rk
 HALVES = ("local_grads", "sync_and_update")
 CLASSES = (
     ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
-    # both forms of B7/B8 (fwd_kernel..., fwd_sm90...) and B9
+    # B9's wgmma backward passes; B9's forward in both forms (bu_sm90, the
+    # CUDA-core fwd_kernel<T, NJ, true>); then both forms of B7/B8
+    ("attention_b9_backward", re.compile(r"bu_dq_sm90|bu_dkv_sm90")),
+    ("attention_b9_forward", re.compile(r"bu_sm90|fwd_kernel<[^>]*true>")),
     ("attention", re.compile(r"fwd_kernel|dq_kernel|dkv_kernel|fwd_sm90|dq_sm90|dkv_sm90")),
     ("alltoall", re.compile(r"a2a_kernel")),
+)
+# the library's kernels, after the port's own and after B9's backward range
+LIBRARY_CLASSES = (
     # cuDNN's convolutions name their pass (fprop/dgrad/wgrad, implicit gemm);
     # cuBLAS's float32 products are xmma/cutlass/nvjet gemms
     ("convolution", re.compile(r"conv|cudnn|implicit|wgrad|dgrad|fprop", re.I)),
@@ -143,10 +153,30 @@ def _union(intervals) -> float:
     return total
 
 
+# the range B9's wgmma backward opens around its passes and the PyTorch row
+# terms beside them (ops/attention_kernels.block_update_bwd)
+B9_BWD_RANGE = "block_update_bwd"
+
+
+def _launched_in(events, name):
+    """-> a predicate on kernel events: launched (its runtime call, matched
+    by correlation id) inside a host range called ``name``."""
+    windows = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "user_annotation" and e.get("name") == name and "dur" in e]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+
+    def inside(kernel) -> bool:
+        ts = launch.get(kernel.get("args", {}).get("correlation"))
+        return ts is not None and any(a <= ts <= b for a, b in windows)
+    return inside
+
+
 def summarize(trace: dict, top: int, steps: int) -> dict:
     """Chrome trace of ``steps`` traced steps -> the per-step summary."""
     events = trace["traceEvents"]
-    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+    in_b9_bwd = _launched_in(events, B9_BWD_RANGE)
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"], in_b9_bwd(e)) for e in events
                if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise SystemExit("profile_step: the trace holds no device kernel")
@@ -154,17 +184,25 @@ def summarize(trace: dict, top: int, steps: int) -> dict:
                if e.get("cat") == "user_annotation" and e.get("name") in HALVES]
     halves = {h: {"wall_s": 0.0, "kernel_s": 0.0} for h in HALVES}
     for name, a, b in windows:
-        inside = [(max(s, a), min(t, b)) for s, t, _ in kernels if s < b and t > a]
+        inside = [(max(s, a), min(t, b)) for s, t, *_ in kernels if s < b and t > a]
         halves[name]["wall_s"] += (b - a) * 1e-6 / steps
         halves[name]["kernel_s"] += _union(inside) * 1e-6 / steps
     for h in halves.values():
         h["idle_share"] = 1.0 - h["kernel_s"] / h["wall_s"] if h["wall_s"] else None
-    by_name, by_class = {}, {c: 0.0 for c, _ in CLASSES}
+    by_name = {}
+    by_class = {c: 0.0 for c, _ in CLASSES}
+    by_class["b9_backward_other"] = 0.0
+    by_class.update({c: 0.0 for c, _ in LIBRARY_CLASSES})
     by_class["other"] = 0.0
-    for s, t, name in kernels:
+    for s, t, name, b9_bwd in kernels:
         sec = (t - s) * 1e-6 / steps
         by_name[name] = by_name.get(name, 0.0) + sec
-        by_class[next((c for c, rx in CLASSES if rx.search(name)), "other")] += sec
+        cls = next((c for c, rx in CLASSES if rx.search(name)), None)
+        if cls is None and b9_bwd:
+            cls = "b9_backward_other"
+        if cls is None:
+            cls = next((c for c, rx in LIBRARY_CLASSES if rx.search(name)), "other")
+        by_class[cls] += sec
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "halves": halves,
