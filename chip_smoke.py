@@ -139,6 +139,42 @@ Phases, in order; any failure exits non-zero and prints no result:
              same build_zero1_update on the plain versions; 18 B3 and 18 B3-AG launches
              a call.
 
+20. config 3 buckets (run (g), right after 11): config 5 on the fused int8
+             ring with MLSL_GRAD_BUCKET_MB=25 (PyTorch DDP's default
+             bucket_cap_mb), three steps: every bucket and every layer left
+             alone takes pallas_ring; B4 and B1 launched once per request and
+             step; every round dispatched, none fallen back; the last step's
+             bucket results and residuals bit-exact against the plain B1 + B4
+             on the same packed gradients and residuals, the same on every
+             rank; mean losses within 2 % of the unbucketed run 11's.
+21. zero1 transformer (run (f), right after 14): gpt-medium-2k at 12 blocks
+             on (b)'s grid with optim.adam(1e-4), distributed_update=True,
+             MLSL_GRAD_BUCKET_MB=25 and MLSL_ALGO=reduce_scatter=pallas_ring2d,
+             three steps: losses as in 13; B3 once per reduce_scatter request
+             a step (buckets plus the layers left alone), B3-AG never (the
+             increment all-gather is lax), B9 and its passes as in 14; every
+             bucket round dispatched; the last step's reduce_scatters (each
+             bucket on its packed gradients, each layer left alone on its
+             own) bit-exact against B3's plain version; each data x seq
+             group's ranks hold the same parameter bits; each layer's Adam
+             state owned_kernel_count wide. Then the same weights and data
+             with replicated Adam, unbucketed: each layer's change from the
+             shared initial weights within TFM_ZERO1_TOL_STEP1 (after step 1)
+             and TFM_ZERO1_TOL_STEP3 (after step 3) relative L2 of the ZeRO-1
+             run's, with two planted faults read beside them and required
+             outside those tolerances; its Adam state about 4x as large. Both
+             runs' step seconds, tokens/s and peak memory.
+22. lax buckets (right after 9): MLSL_ALGO=lax, one gradient bucket of five
+             sets (77 to 1,048,600 floats) against the same sets unbucketed,
+             random floats, allreduce and ZeRO-1's reduce_scatter on groups of
+             8 and 4: every member's result bit-exact with its own request's.
+             Then lax's one-pass SUM timed against the member loop the CPU
+             runs, at 256 MiB a rank.
+
+B5's kernels-line rows at 40,000 B and 1 MiB a rank also give B5 and the
+library call timed as CUDA graphs of 20 calls (``graph_ms``,
+``library_graph_ms``), beside the times as the path pays them.
+
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version, or to time
 it, do not count. Then it times each kernel at the path's shapes with CUDA
@@ -150,6 +186,7 @@ the card's name and power limit, one JSON object with the kernels, and last
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -641,7 +678,7 @@ def check_config5(torch, trainer, losses, grads, errs):
 # -- the algorithm engine ---------------------------------------------------
 
 ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
-             "MLSL_PALLAS_A2A_QUANT")
+             "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -654,6 +691,18 @@ def reinit(get_env, world=WORLD, **env_vars):
         os.environ.pop(k, None)
     os.environ.update(env_vars)
     return get_env().init(device=device, world_size=world)
+
+
+def settle(torch) -> tuple:
+    """Free the finished runs' device memory and start a new peak: a
+    parameter set and its operation refer to each other, so a dropped
+    trainer's buffers (its requests' and buckets' last results) go only with
+    the collector. -> (GiB allocated before the collector, after it)."""
+    held = torch.cuda.memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return held, torch.cuda.memory_allocated() / 2**30
 
 
 def plain_result(torch, algos, req, x):
@@ -920,12 +969,15 @@ def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev):
                  library_note="no single PyTorch call computes blockwise int8 quantization")
 
 
-def _sum_broadcast_ms(torch, x, w):
+def _sum_broadcast(x):
     """The yardstick for B3 and B5: one reduction over the members plus the
     broadcast write the kernels also do. The port never calls it."""
     y = x.unsqueeze(0)          # (1, w, n); strided rows stay strided
-    return time_ms(torch, lambda: y.sum(dim=1, keepdim=True).expand_as(y).contiguous(),
-                   reps=20)
+    return lambda: y.sum(dim=1, keepdim=True).expand_as(y).contiguous()
+
+
+def _sum_broadcast_ms(torch, x, w):
+    return time_ms(torch, _sum_broadcast(x), reps=20)
 
 
 def _rows_of(torch, gen, dev, n, ld):
@@ -990,9 +1042,11 @@ def quant_ring_entry(torch, rk, count, tag, bw, f32, per_path, dev):
                               "on every hop")
 
 
-def rhd_entry(torch, rhd, count, bw, f32, per_path, dev, note=None, ld=None):
+def rhd_entry(torch, rhd, count, bw, f32, per_path, dev, note=None, ld=None, graph=False):
     """B5 on 8 ranks at ``count`` float32 per rank; with ``ld`` the rows are
-    strided, one chunk of a wider request."""
+    strided, one chunk of a wider request. ``graph`` also times B5 and the
+    library call as CUDA graphs of 20 calls (device time, no host work
+    between calls), beside the times as the path pays them."""
     from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
 
     plan = rhd.RhdPlan(ProcessGroup(Topology(WORLD, 1, WORLD), ("data",)))
@@ -1002,8 +1056,11 @@ def rhd_entry(torch, rhd, count, bw, f32, per_path, dev, note=None, ld=None):
     before = dict(rhd.LAUNCHES)
     err = float((rhd.rhd_allreduce(x, plan) - rhd.rhd_allreduce_ref(x, plan)).abs().max())
     ms = time_ms(torch, lambda: rhd.rhd_allreduce(x, plan), reps=reps)
-    rhd.LAUNCHES.update(before)
     extra = {"note": note} if note else _path_note(count, ld)
+    if graph:
+        extra["graph_ms"] = time_graph_ms(torch, lambda: rhd.rhd_allreduce(x, plan))
+        extra["library_graph_ms"] = time_graph_ms(torch, _sum_broadcast(x))
+    rhd.LAUNCHES.update(before)
     return entry(name=f"rhd_allreduce ({count * 4} B{', strided' if ld else ''})",
                  source="mlsl_tpu_torch/csrc/rhd_kernels.cu",
                  replaces="mlsl_tpu/ops/rhd_kernels.py:256", launches=sum(per_path.values()),
@@ -1404,7 +1461,8 @@ def gpt_medium():
     return tfm.GPT_MEDIUM_2K
 
 
-def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None, base=None):
+def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None, base=None, **kw):
+    """``kw``: HybridTrainer's options (distributed_update, optimizer)."""
     import dataclasses
 
     from mlsl_tpu_torch.models import transformer as tfm
@@ -1412,7 +1470,7 @@ def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None, base
     base = base or gpt_medium()
     cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16",
                               n_blocks=n_blocks or base.n_blocks)
-    trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=TFM_BATCH, lr=0.1, seed=SEED)
+    trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=TFM_BATCH, lr=0.1, seed=SEED, **kw)
     rng = np.random.default_rng(SEED)
     toks = rng.integers(0, cfg.vocab, size=(TFM_BATCH, cfg.seq_len)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab, size=(TFM_BATCH, cfg.seq_len)).astype(np.int32)
@@ -1435,7 +1493,7 @@ def phase_transformer(torch, trainer, batch, steps=3):
             torch.cuda.synchronize()
             split = {"forward_backward_s": time.perf_counter() - t0}
             t1 = time.perf_counter()
-            trainer._apply(trainer._all_leaves(), g)
+            trainer._fused_update(g)
             loss = ce[:, :, :, 0].sum() / trainer._norm
             torch.cuda.synchronize()
             split["update_s"] = time.perf_counter() - t1
@@ -1959,7 +2017,7 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
     checks, then the no-grad loss on both routes. -> (launches over the
     steps, the combine exchange's float32 count a rank)."""
     env = reinit(get_env, MLSL_ALGO="alltoall=pallas_a2a")
-    torch.cuda.reset_peak_memory_stats()
+    held, kept = settle(torch)
     trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag", n_blocks=MOE_BLOCKS,
                                        base=tfm.GPT_MEDIUM_2K_MOE8)
     check(not trainer.fused, "transformer moe: the step did not take the graph path")
@@ -1983,7 +2041,8 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
     del grads
     route_losses = moe_route_gap(torch, tfm, trainer, batch, a2a)
     log(f"# phase transformer moe: ok, losses {losses}, launches {tm}, worst layer gradient "
-        f"rel. error {worst_m:.4g}, peak memory {peak_m:.2f} GiB, combine exchange "
+        f"rel. error {worst_m:.4g}, peak memory {peak_m:.2f} GiB (at the start {kept:.2f} "
+        f"GiB, {held:.2f} GiB before the collector), combine exchange "
         f"{moe_count} float32 a rank, no-grad mean CE by route {json.dumps(route_losses)}")
     log(step_line(f"transformer moe 8 ranks (gpt-medium-2k-moe8, {n} of "
                   f"{tfm.GPT_MEDIUM_2K_MOE8.n_blocks} blocks, dp=2 x sp=2 x tp=2 = ep 2, "
@@ -2251,7 +2310,400 @@ def run_zero1(torch, np, get_env, launches, reset_launches, dev, layer_counts, i
     return zr, rr, zs
 
 
+# -- ZeRO-1 and Adam on the transformer; gradient buckets (runs f and g) ------
+
+#: MLSL_GRAD_BUCKET_MB of both runs: PyTorch DDP's documented default bucket_cap_mb
+BUCKET_MB = 25
+#: Adam's first steps move every weight by ~lr whatever its gradient's size
+#: (bias correction, no warmup here): at 1e-3 gpt-medium-2k's third loss rose
+#: above its first (10.60, 10.29, 10.70 on the card), at 1e-4 the three fall
+TFM_ADAM_LR = 1e-4
+#: run (f): each layer's change from the shared initial weights against the
+#: replicated Adam run's change, relative L2, after the first step and after
+#: the third. The first step starts both runs from the same weights and data,
+#: so the two differ only in each gradient element's summation order (B3's
+#: snake ring, whose chunk index for an element moves with its offset in the
+#: bucket, against lax's one-pass sum), ~1e-7 relative, except where that
+#: order flips the sign of a sum that nearly cancels: Adam's first step moves
+#: such an element by +lr instead of -lr. The next steps run the bf16 forward
+#: on weights that differ in their last bits, which turns into bf16-step
+#: differences of the gradients. On the H100 (two runs, the same readings)
+#: the worst layer read 9.327e-06 after step 1 and 7.256e-03 after step 3;
+#: the planted faults printed beside them (a layer that skipped its updates
+#: after the first step, a first-step update that lost one owner's shard)
+#: read 0.6016 and 0.4997 at their smallest over the layers. The tolerances
+#: sit 100x and 7x above the readings and 500x and 12x below the faults.
+TFM_ZERO1_TOL_STEP1 = 1e-3
+TFM_ZERO1_TOL_STEP3 = 5e-2
+#: run (g)'s mean loss a step against the unbucketed fused ring's, relative:
+#: the first step's loss comes before any update; the next ones see weights
+#: whose int8 rounding moved with the bucket's block boundaries, each
+#: gradient element off by up to 9 half-steps of its block's amax/127 on
+#: either side, times lr 0.05.
+BUCKET_LOSS_TOL = 0.02
+
+
+def bucket_plan(trainer, attr):
+    """-> (the buckets of one phase, the communicating sets left out of
+    them) of a trainer's parameter sets; ``attr`` is 'bucket' (gradient) or
+    'inc_bucket' (ZeRO-1 increment)."""
+    pss = [trainer.ops[n].get_parameter_set(0) for n in trainer.layers]
+    pss = [ps for ps in pss if ps.need_comm]
+    buckets = {id(getattr(ps, attr)): getattr(ps, attr) for ps in pss
+               if getattr(ps, attr) is not None}
+    return list(buckets.values()), [ps for ps in pss if getattr(ps, attr) is None]
+
+
+def layer_rows(torch, trainer, name):
+    """A transformer layer's leaves as one (R, D, S, M, local) tensor."""
+    return torch.cat([p.detach().reshape(*trainer.grid, -1) for p in trainer._leaves[name]],
+                     dim=-1)
+
+
+def grad_group_identical(torch, trainer) -> bool:
+    """Every member of each data x seq group holds the same parameter bits."""
+    from mlsl_tpu_torch.comm.collectives import group_view
+
+    for name in trainer.layers:
+        rows = group_view(layer_rows(torch, trainer, name), trainer.dist.grad_group)
+        rows = rows.contiguous().view(torch.int32)
+        if not bool((rows == rows[:, :1]).all()):
+            return False
+    return True
+
+
+def model_rows(torch, trainer) -> dict:
+    """{layer: its (model ranks, local) parameters of data x seq position 0},
+    on the host: the other members of a gradient group hold the same bits."""
+    return {name: layer_rows(torch, trainer, name)[0, 0, 0].cpu() for name in trainer.layers}
+
+
+def tfm_state_bytes(trainer) -> int:
+    """Adam state bytes one rank holds: its row of every layer's two moments
+    and the layer's step count."""
+    world = trainer.dist.topology.world_size
+    return sum((st.mu.numel() + st.nu.numel()) * 4 // world + 4
+               for st in trainer.opt_state.values())
+
+
+def check_bucket_plain(torch, algos, trainer, grads, buckets, alone, tag):
+    """The last step's reduce_scatters against B3's plain version on the same
+    plan: each gradient bucket's result on its packed input, and each layer
+    left out of a bucket on its own gradient, bit for bit. -> the count."""
+    by_layer = {id(trainer.ops[x].get_parameter_set(0)): x for x in trainer.layers}
+    for b in buckets:
+        packed = b._pack([grads[by_layer[id(ps)]] for ps in b.members])
+        check(same_bits(torch, b.req._result, plain_result(torch, algos, b.req, packed)),
+              f"{tag}: bucket {b.req.name} differs from B3's plain version")
+    for ps in alone:
+        check(same_bits(torch, ps.grad_req._result,
+                        plain_result(torch, algos, ps.grad_req, grads[by_layer[id(ps)]])),
+              f"{tag}: layer {by_layer[id(ps)]} differs from B3's plain version")
+    return len(buckets) + len(alone)
+
+
+def change_errors(torch, dev, p0, z, r, step1=None):
+    """Each layer's change z - p0 against r - p0, relative L2, computed on
+    ``dev``. With ``step1`` = (z1, r1), the first step's parameters, also the
+    readings of two planted faults: the layer skipped its updates after the
+    first step (z1 against r), and the first step's update lost its first
+    owner's shard (z1 with the first quarter of each row's change zeroed,
+    against r1). -> ({layer: error}, {fault: smallest reading over the
+    layers})."""
+    errs, faults = {}, {"skipped later updates": 1.0, "lost first shard": 1.0}
+    for name in p0:
+        base = p0[name].to(dev)
+        want = r[name].to(dev) - base
+        errs[name] = rel_err(torch, z[name].to(dev) - base, want)
+        if step1 is not None:
+            z1, r1 = step1[0][name].to(dev) - base, step1[1][name].to(dev) - base
+            faults["skipped later updates"] = min(faults["skipped later updates"],
+                                                  rel_err(torch, z1, want))
+            lost = z1.clone()
+            lost[..., :-(-lost.shape[-1] // 4)] = 0
+            faults["lost first shard"] = min(faults["lost first shard"],
+                                             rel_err(torch, lost, r1))
+    return errs, faults
+
+
+def run_transformer_zero1(torch, np, get_env, launches, reset_launches):
+    """Run (f): gpt-medium-2k on (b)'s grid with Adam under ZeRO-1, its
+    requests in 25 MiB buckets and the reduce_scatters on B3 over the snake
+    cycle of the data x seq group; then the same weights and data with
+    replicated Adam, unbucketed. The last step's reduce_scatters are held to
+    B3's plain version bit for bit, and each layer's change after the first
+    and the third step to the replicated run's. -> (launches of both runs)."""
+    from mlsl_tpu_torch import optim
+    from mlsl_tpu_torch.comm import algos
+    from mlsl_tpu_torch.core import stats
+
+    env = reinit(get_env, MLSL_ALGO="reduce_scatter=pallas_ring2d",
+                 MLSL_GRAD_BUCKET_MB=str(BUCKET_MB))
+    settle(torch)
+    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag",
+                                       distributed_update=True,
+                                       optimizer=optim.adam(TFM_ADAM_LR))
+    tag = "zero1 transformer"
+    n_layers = len(trainer.layers)
+    check(not trainer.fused and n_layers == 3 * trainer.cfg.n_blocks + 2,
+          f"{tag}: {n_layers} layers, fused {trainer.fused}")
+    grad_b, grad_alone = bucket_plan(trainer, "bucket")
+    inc_b, inc_alone = bucket_plan(trainer, "inc_bucket")
+    n_rs, n_ag = len(grad_b) + len(grad_alone), len(inc_b) + len(inc_alone)
+    check(grad_b and inc_b, f"{tag}: no bucket formed")
+    check(all(b.kind == "reduce_scatter" and b.req.algo == "pallas_ring2d" for b in grad_b)
+          and all(ps.grad_req.algo == "pallas_ring2d" for ps in grad_alone),
+          f"{tag}: a reduce_scatter did not select pallas_ring2d")
+    for name in trainer.layers:
+        ps = trainer.ops[name].get_parameter_set(0)
+        check(tuple(trainer.opt_state[name].mu.shape) == (*trainer.grid,
+                                                          ps.get_owned_kernel_count()),
+              f"{tag}: layer {name} Adam state {tuple(trainer.opt_state[name].mu.shape)}")
+    z_bytes = tfm_state_bytes(trainer)
+    p0 = model_rows(torch, trainer)
+    stats.reset_bucket_counters()
+    reset_launches()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    z_losses, z_secs, _, grads = phase_transformer(torch, trainer, batch, steps=1)
+    del grads
+    z1 = model_rows(torch, trainer)
+    losses, secs, z_split, grads = phase_transformer(torch, trainer, batch, steps=2)
+    z_losses, z_secs = z_losses + losses, z_secs + secs
+    zl = launches()
+    n_plain = check_bucket_plain(torch, algos, trainer, grads, grad_b, grad_alone, tag)
+    del grads
+    z_peak = torch.cuda.max_memory_allocated() / 2**30
+    # the allocator's cudaFree-and-retry rounds, each a device synchronize
+    z_retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    rounds = dict(stats.BUCKET_COUNTERS)
+    n, steps = trainer.cfg.n_blocks, len(z_losses)
+    check_losses(z_losses, trainer.cfg.vocab, tag)
+    check(counts_are(zl, dense_ring=n_rs * steps, dense_ring_gather=0,
+                     **b9_counts(5 * n * steps), flash_fwd=0, **NO_SM90),
+          f"{tag}: launches {zl}, expected {n_rs} B3 (one a reduce_scatter request), no "
+          f"B3-AG and {5 * n} B9 and of each of its backward passes a step")
+    check(rounds["rounds_dispatched"] == (len(grad_b) + len(inc_b)) * steps
+          and rounds["rounds_fallback"] == 0 and rounds["member_abandons"] == 0,
+          f"{tag}: bucket rounds {rounds}, expected {len(grad_b) + len(inc_b)} "
+          f"dispatched a step and no fallback")
+    check(grad_group_identical(torch, trainer),
+          f"{tag}: the ranks of a data x seq group disagree on a parameter")
+    z3 = model_rows(torch, trainer)
+    z_line = step_line(f"{tag} (gpt-medium-2k, dp=2 x sp=2 x tp=2, zigzag, Adam, ZeRO-1, "
+                       f"{BUCKET_MB} MiB buckets)", trainer, z_losses, z_secs, z_split, zl)
+    del trainer, batch
+    env = reinit(get_env)
+    settle(torch)
+    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag",
+                                       optimizer=optim.adam(TFM_ADAM_LR))
+    check(all(ps.bucket is None for ps in (trainer.ops[x].get_parameter_set(0)
+                                           for x in trainer.layers)),
+          "replicated adam transformer: a bucket formed")
+    check(all(same_bits(torch, a, p0[k]) for k, a in model_rows(torch, trainer).items()),
+          "replicated adam transformer: the initial weights differ from the ZeRO-1 run's")
+    r_bytes = tfm_state_bytes(trainer)
+    reset_launches()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    r_losses, r_secs, _, grads = phase_transformer(torch, trainer, batch, steps=1)
+    del grads
+    r1 = model_rows(torch, trainer)
+    losses, secs, r_split, grads = phase_transformer(torch, trainer, batch, steps=2)
+    r_losses, r_secs = r_losses + losses, r_secs + secs
+    del grads
+    rl = launches()
+    r_peak = torch.cuda.max_memory_allocated() / 2**30
+    r_retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    check_losses(r_losses, trainer.cfg.vocab, "replicated adam transformer")
+    check(counts_are(rl, dense_ring=0, **b9_counts(5 * n * steps)),
+          f"replicated adam transformer: launches {rl}")
+    r3 = model_rows(torch, trainer)
+    check(z_bytes * 3.5 < r_bytes < z_bytes * 4.5,
+          f"{tag}: Adam state {z_bytes} B a rank against {r_bytes} B replicated")
+    r_line = step_line("replicated adam transformer (gpt-medium-2k, dp=2 x sp=2 x tp=2, "
+                       "zigzag, Adam, unbucketed)", trainer, r_losses, r_secs, r_split, rl)
+    dev = env.device
+    del trainer, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    e1, _ = change_errors(torch, dev, p0, z1, r1)
+    e3, faults = change_errors(torch, dev, p0, z3, r3, step1=(z1, r1))
+    del p0, z1, z3, r1, r3
+    worst1, worst3 = max(e1, key=e1.get), max(e3, key=e3.get)
+    check(faults["skipped later updates"] > TFM_ZERO1_TOL_STEP3
+          and faults["lost first shard"] > TFM_ZERO1_TOL_STEP1,
+          f"{tag}: a planted fault reads {faults}, inside its tolerance")
+    for name in e1:
+        check(e1[name] < TFM_ZERO1_TOL_STEP1 and e3[name] < TFM_ZERO1_TOL_STEP3,
+              f"{tag}: layer {name}'s change {e1[name]:.3g} (step 1), {e3[name]:.3g} "
+              f"(step 3) from the replicated Adam run's")
+    log(f"# phase zero1 transformer: ok, losses {z_losses}, replicated {r_losses}, "
+        f"{n_plain} reduce_scatters of the last step bit-exact against B3's plain version, "
+        f"each layer's change against replicated Adam's: worst {e1[worst1]:.4g} after step "
+        f"1 ({worst1}, tolerance {TFM_ZERO1_TOL_STEP1}), {e3[worst3]:.4g} after step 3 "
+        f"({worst3}, tolerance {TFM_ZERO1_TOL_STEP3}), planted faults "
+        f"{json.dumps({k: float(f'{v:.4g}') for k, v in faults.items()})}, Adam state a "
+        f"rank {z_bytes} B (ZeRO-1) / {r_bytes} B (replicated) = {z_bytes / r_bytes:.4f}, "
+        f"buckets {len(grad_b)} gradient + {len(inc_b)} increment, requests a step {n_rs} "
+        f"reduce_scatter + {n_ag} all_gather (unbucketed: {n_layers} + {n_layers}), bucket "
+        f"rounds {json.dumps(rounds)}, launches {zl} / {rl}, peak memory {z_peak:.2f} / "
+        f"{r_peak:.2f} GiB, allocator retries {z_retries} / {r_retries}")
+    log(f"# zero1 transformer change errors a layer (step 1, step 3): "
+        + json.dumps({k: [float(f"{e1[k]:.4g}"), float(f"{e3[k]:.4g}")] for k in e1}))
+    log(z_line)
+    log(r_line)
+    return zl, rl
+
+
+def phase_lax_buckets(torch, get_env, n=(256 << 20) // 4) -> str:
+    """``lax``'s SUM on the card: a gradient bucket's results equal its
+    members' own requests bit for bit on random floats (each element summed
+    in one order wherever it sits in the payload), for both gradient kinds
+    (allreduce, ZeRO-1's reduce_scatter) on groups of 8 and 4. Also times
+    the one-pass sum the card runs against the member loop the CPU runs, on
+    the algos phase's 256 MiB a rank, and says whether the two agree bit for
+    bit. -> a note for the phase line."""
+    from mlsl_tpu_torch import DataType, OpType, ReductionType
+    from mlsl_tpu_torch.comm import collectives
+
+    counts = [64 * 8, 301 * 8, 1000, 77, (1 << 20) + 24]
+    env = reinit(get_env, MLSL_ALGO="lax")
+    dev = env.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cases = 0
+    for dp, tp in ((WORLD, 1), (4, 2)):
+        for du in (False, True):
+            tag = f"lax buckets dp={dp} tp={tp} {'zero1' if du else 'allreduce'}"
+            sides = []
+            for mb in (64, 0):
+                env.config.grad_bucket_mb = mb
+                try:
+                    dist = env.create_distribution(dp, tp)
+                    session = env.create_session()
+                    session.set_global_minibatch_size(WORLD)
+                    pss = []
+                    for c in counts:
+                        reg = session.create_operation_reg_info(OpType.CC)
+                        reg.add_input(WORLD, 4)
+                        reg.add_output(WORLD, 4)
+                        reg.add_parameter_set(c * tp, 1, DataType.FLOAT, distributed_update=du)
+                        op = session.get_operation(session.add_operation(reg, dist))
+                        pss.append(op.get_parameter_set(0))
+                    session.commit()
+                finally:
+                    env.config.grad_bucket_mb = 0
+                sides.append(pss)
+            bucketed, alone = sides
+            check(bucketed[0].bucket is not None
+                  and len({id(ps.bucket) for ps in bucketed}) == 1
+                  and all(ps.bucket is None for ps in alone), f"{tag}: not one bucket")
+            bufs = [torch.randn((*dist.world_shape, ps.get_local_kernel_count()),
+                                generator=gen, device=dev) for ps in bucketed]
+            outs = []
+            for pss in sides:
+                for ps, b in zip(reversed(pss), reversed(bufs)):
+                    ps.start_gradient_comm(b.clone())
+                outs.append([ps.wait_gradient_comm() for ps in pss])
+            check(all(ps._bucket_round for ps in bucketed), f"{tag}: a round fell back")
+            check(all(same_bits(torch, a, b) for a, b in zip(*outs)),
+                  f"{tag}: a member's bucket result differs from its own request")
+            cases += 1
+            del bufs, outs, sides, bucketed, alone
+    y = torch.randn((1, WORLD, n), generator=gen, device=dev)
+    member_order = {}
+    for g in (2, 4, WORLD):
+        v = y.view(WORLD // g, g, n)
+        member_order[g] = same_bits(torch, collectives._reduce(v, ReductionType.SUM),
+                                    collectives._ordered_sum(v))
+    one_ms = time_ms(torch, lambda: collectives._reduce(y, ReductionType.SUM), reps=10)
+    loop_ms = time_ms(torch, lambda: collectives._ordered_sum(y), reps=10)
+    del y
+    return (f"{cases} cases of buckets bit-exact against their members' own requests; the "
+            f"SUM over (1, 8, {n}) float32: one pass {one_ms:.4f} ms, member loop "
+            f"{loop_ms:.4f} ms; one pass bit-exact with the member loop at G=2, 4, 8: "
+            f"{[member_order[g] for g in (2, 4, WORLD)]}")
+
+
+def run_config5_buckets(torch, np, get_env, launches, reset_launches, fused):
+    """Run (g): config 5 on the fused int8 ring (MLSL_ALGO=pallas_ring) with
+    the layer requests in 25 MiB buckets, three steps. The last step's
+    bucket results and residuals bit-exact against the plain B1 + B4 on the
+    same packed gradients and residuals; losses beside the unbucketed fused
+    run's (``fused``: its mean losses, step seconds and launches). -> the
+    run's launches."""
+    from mlsl_tpu_torch import CompressionType
+    from mlsl_tpu_torch.comm import quant_ring
+    from mlsl_tpu_torch.core import stats
+
+    env = reinit(get_env, MLSL_ALGO="pallas_ring", MLSL_GRAD_BUCKET_MB=str(BUCKET_MB))
+    trainer, batch = build_resnet_trainer(torch, env, np)
+    tag = "config5 buckets"
+    n_layers = len(trainer.layers)
+    buckets, alone = bucket_plan(trainer, "bucket")
+    n_req = len(buckets) + len(alone)
+    check(buckets and all(b.compression == CompressionType.QUANTIZATION
+                          and b.req.algo == "pallas_ring" for b in buckets)
+          and all(ps.grad_req.algo == "pallas_ring" for ps in alone),
+          f"{tag}: a request did not take the fused int8 ring")
+    stats.reset_bucket_counters()
+    reset_launches()
+    losses, secs = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < 2:
+            loss = trainer.step(batch)
+        else:
+            # the last step as its halves, so that each bucket's packed input
+            # and residual stay at hand
+            trainer._step_no += 1
+            loss, grads = trainer._local_grads(batch)
+            errs = [b.req._errs[0].clone() for b in buckets]
+            loss = trainer._sync_and_update(grads, loss)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(loss).all()), f"{tag} step {i}: losses {loss}")
+        losses.append(float(loss.mean()))
+    used = launches()
+    rounds = dict(stats.BUCKET_COUNTERS)
+    steps = len(losses)
+    check(counts_are(used, quant_ring=n_req * steps, quantize_blocks=n_req * steps),
+          f"{tag}: launches {used}, expected {n_req} B4 and {n_req} B1 a step")
+    check(rounds["rounds_dispatched"] == len(buckets) * steps
+          and rounds["rounds_fallback"] == 0 and rounds["member_abandons"] == 0,
+          f"{tag}: bucket rounds {rounds}")
+    block = env.config.quant_block_elems
+    by_layer = {id(trainer.ops[x].get_parameter_set(0)): x for x in trainer.layers}
+    for b, err in zip(buckets, errs):
+        packed = b._pack([grads[by_layer[id(ps)]] for ps in b.members])
+        fn, _ = quant_ring.build_quantized_collective("allreduce", b.req.desc.group, b.total,
+                                                      block, ring="pallas", plain=True)
+        res, new_err = fn(packed, err)
+        check(same_bits(torch, res, b.req._result) and same_bits(torch, new_err, b.req._errs[0]),
+              f"{tag}: bucket {b.req.name} differs from the plain B1 + B4")
+        rows = b.req._result.reshape(WORLD, -1)
+        check(bool((rows == rows[:1]).all()), f"{tag}: ranks disagree on {b.req.name}")
+    for p in trainer._all_params():
+        check(bool(torch.isfinite(p).all()), f"{tag}: a parameter is not finite")
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, fused["losses"])]
+    check(max(gaps) < BUCKET_LOSS_TOL, f"{tag}: mean losses {losses} against the "
+                                       f"unbucketed fused ring's {fused['losses']}")
+    del trainer, batch, grads, errs
+    gc.collect()     # the trainers' sessions hold their buffers in reference cycles
+    torch.cuda.empty_cache()
+    log(f"# phase config3 buckets: ok, {len(buckets)} buckets of "
+        f"{[len(b.members) for b in buckets]} layers + {len(alone)} layers alone, requests "
+        f"a step {n_req} (unbucketed: {n_layers}), launches {used} (unbucketed fused run: quant_ring {fused['launches']['quant_ring']}, "
+        f"quantize_blocks {fused['launches']['quantize_blocks']}), bucket rounds "
+        f"{json.dumps(rounds)}, mean losses {losses} against {fused['losses']} (relative "
+        f"gaps {[float(f'{g:.3g}') for g in gaps]}, tolerance {BUCKET_LOSS_TOL}), results "
+        f"bit-exact against the plain B1 + B4")
+    log(f"# config5 bucketed fused-ring train step (host clock, synchronized): "
+        + json.dumps({"step_s": secs, "unbucketed_step_s": fused["secs"]}))
+    return used
+
+
 def main() -> int:
+    started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"{ROOT} holds no mlsl_tpu_torch package: run from a checkout")
     import numpy as np
@@ -2369,6 +2821,10 @@ def main() -> int:
         log(f"# phase small: ok, launches {small_used}")
         torch.cuda.empty_cache()
 
+        lax_note = phase_lax_buckets(torch, get_env)
+        log(f"# phase lax buckets: ok, {lax_note}")
+        torch.cuda.empty_cache()
+
         env = reinit(get_env, MLSL_ALGO="pallas_ring")
         reset_launches()
         xs, outs, errs, req, _ = phase_config4(torch, env, np, qk, roundtrip=False)
@@ -2397,8 +2853,11 @@ def main() -> int:
             f"worst layer gradient rel. error {worst_f:.4g}")
         log(f"# config5 fused-ring train step (host clock, synchronized): "
             f"{json.dumps({'step_s': secs_f, 'last_step_split_s': split_f})}")
+        fused5 = {"losses": [float(v.mean()) for v in losses], "secs": secs_f,
+                  "launches": c5f}
         del grads, errs, trainer, batch
         torch.cuda.empty_cache()
+        c5b = run_config5_buckets(torch, np, get_env, launches, reset_launches, fused5)
 
         # the transformer: attention parity, then gpt-medium-2k on 1 rank (B7,
         # B8) and on 8 ranks (zigzag and ring attention: B9)
@@ -2429,7 +2888,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         env = reinit(get_env)
-        torch.cuda.reset_peak_memory_stats()
+        settle(torch)
         trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag")
         check(not trainer.fused, "transformer 8 ranks: the step did not take the graph path")
         reset_launches()
@@ -2466,6 +2925,7 @@ def main() -> int:
                       "tp=2, ring)", trainer, losses, secs, split, tr))
         del trainer, batch, grads
         torch.cuda.empty_cache()
+        tz, tra = run_transformer_zero1(torch, np, get_env, launches, reset_launches)
 
         # the fused all-to-all (B6): parity, Distribution.all_to_all, then the
         # MoE transformer whose float32 combine exchange runs on it
@@ -2495,7 +2955,8 @@ def main() -> int:
             return {k: v.get(key, 0) for k, v in runs.items()}
 
         runs = dict(config4=c4, config5=c5, algos=dense_used, small=small_used,
-                    config4_fused=c4f, config5_fused=c5f, alltoall=a2a_used, transformer_moe=tm,
+                    config4_fused=c4f, config5_fused=c5f, config5_buckets=c5b,
+                    alltoall=a2a_used, transformer_moe=tm, transformer_zero1=tz,
                     zero1_resnet=zr, replicated_adam_resnet=rr, zero1_staged=zs)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
@@ -2518,15 +2979,17 @@ def main() -> int:
             quant_ring_entry(torch, rk, (64 << 20) // 4, "config 4", bw, f32,
                              path("quant_ring", **runs), dev),
             rhd_entry(torch, rhd, 10_000, bw, f32, path("rhd_allreduce", **runs), dev,
-                      note="launch-latency bound: the byte bound is far below one launch"),
-            rhd_entry(torch, rhd, (1 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev),
+                      note="launch-latency bound: the byte bound is far below one launch",
+                      graph=True),
+            rhd_entry(torch, rhd, (1 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev,
+                      graph=True),
             rhd_entry(torch, rhd, (64 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev,
                       ld=(256 << 20) // 4),
         ]
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
             dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr,
-                 transformer_moe=tm),
+                 transformer_moe=tm, transformer_zero1=tz, transformer_replicated_adam=tra),
             dev)
         for tag, grid, axes, count, quantized in (
                 ("MoE combine exchange, ep=2", (4, 2), ("model",), moe_count, True),
@@ -2541,6 +3004,7 @@ def main() -> int:
     finally:
         get_env().finalize()
 
+    log(f"# smoke wall time: {time.perf_counter() - started:.1f} s")
     log(smi)
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

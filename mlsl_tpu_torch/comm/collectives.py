@@ -65,11 +65,41 @@ def world_view(x: torch.Tensor, topo) -> torch.Tensor:
     return x.reshape(topo.world_size, x.shape[-1])
 
 
+def group_key(group: ProcessGroup, device=None) -> Tuple:
+    """A group's identity for partitioning requests (``_group_key``,
+    collectives.py:691-696 of the JAX package, which keys on the mesh's
+    shape and device ids): the world's grid shape, the device its virtual
+    ranks live on, the group's axes and its colors."""
+    return (group.topology.grid_shape, str(device), group.axes, group.colors)
+
+
+def _ordered_sum(y: torch.Tensor) -> torch.Tensor:
+    """(C, G, n) -> (C, 1, n): the members added one by one in member order,
+    JAX's CPU psum order bit for bit. Half precisions accumulate in float32
+    and round once."""
+    low = y.dtype in (torch.bfloat16, torch.float16)
+    acc = y[:, 0].float() if low else y[:, 0]
+    for j in range(1, y.shape[1]):
+        acc = acc + y[:, j]
+    return acc.to(y.dtype).unsqueeze(1)
+
+
 def _reduce(y: torch.Tensor, op: ReductionType) -> torch.Tensor:
-    """(C, G, n) -> (C, 1, n), reduced over the members."""
+    """(C, G, n) -> (C, 1, n), reduced over the members.
+
+    A SUM must order each element's terms alike wherever the element sits in
+    the payload, so that a gradient bucket's concatenated request gives each
+    member the bits of its own request. Torch's CPU reduction over a middle
+    dim orders them by the element's offset, so the CPU takes the member
+    loop (G - 1 passes, and JAX's order); torch's CUDA reduction sums every
+    element in one order fixed by G alone (a tree for G = 8, not member
+    order) in one pass, and ``chip_smoke.py`` holds a bucket to its members'
+    own requests bit for bit on the card."""
     op = ReductionType(op)
     if op == ReductionType.SUM:
-        return y.sum(dim=1, keepdim=True, dtype=y.dtype)
+        if y.is_cuda:
+            return y.sum(dim=1, keepdim=True, dtype=y.dtype)
+        return _ordered_sum(y)
     if op == ReductionType.MIN:
         return y.amin(dim=1, keepdim=True)
     return y.amax(dim=1, keepdim=True)

@@ -36,6 +36,7 @@ from mlsl_tpu_torch.comm.collectives import group_unview, group_view
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.ops import quant_kernels as qk
+from mlsl_tpu_torch.types import CompressionType, ReductionType
 
 
 def ring_geometry(kind: str, group: ProcessGroup, count: int,
@@ -51,6 +52,37 @@ def ring_geometry(kind: str, group: ProcessGroup, count: int,
         rc = -(-count // g)
     chunk = qk.block_align(rc, block)
     return g, rc, chunk, g * chunk
+
+
+def _chunk_unit(rc: int, use_pallas: bool, block: int) -> int:
+    """Ring-chunk alignment unit (elements), as at quant_ring.py:59-72 of the
+    JAX package: one quant block on the composed ring, the fused int8 ring's
+    (B4) ``ring_kernels.quant_unit`` on it."""
+    from mlsl_tpu_torch.ops import ring_kernels as rk
+
+    return rk.quant_unit(rc, block) if use_pallas else block
+
+
+def use_pallas_for(kind: str, group: ProcessGroup, payload_bytes: int, config) -> bool:
+    """Whether a quantized ``kind`` request of ``payload_bytes`` on ``group``
+    takes the fused int8 ring (B4). The JAX package asks whether the mesh is
+    a TPU; here the kernel route is the selection table's 'pallas_ring'."""
+    from mlsl_tpu_torch.comm import algos
+
+    return algos.select(kind, group, payload_bytes, CompressionType.QUANTIZATION, config,
+                        op=ReductionType.SUM) == "pallas_ring"
+
+
+def ring_aligned_rc(rc: int, block: int, use_pallas: bool) -> int:
+    """Per-rank ring slice length >= ``rc`` aligned to the chunk unit
+    (quant_ring.py:83-98 of the JAX package). A coalesced quantized payload
+    (core/bucketing.py) sizes its bucket with it, so that the ring adds no
+    padding inside a chunk. Aligning can push ``rc`` across the coarse
+    unit's threshold; the units nest, so one more pass reaches the fixpoint."""
+    for _ in range(2):
+        unit = _chunk_unit(rc, use_pallas, block)
+        rc = -(-rc // unit) * unit
+    return rc
 
 
 def logical_residual(err, g, chunk, rc, count):

@@ -2,6 +2,7 @@
 
 The subset of ``mlsl_tpu.config.Config`` that this package reads: the int8
 codec's block, large-message chunking (reference src/comm_ep.cpp:95-97),
+gradient bucketing (core/bucketing.py),
 newest-first priority deferral and its progress thread (reference
 eplib/env.c:135-165), the collective algorithm engine with its tuned profile
 and kernel knobs (comm/algos, tuner/, ops/), and the staging depth of the
@@ -21,6 +22,7 @@ from mlsl_tpu_torch.log import mlsl_assert
 _ENV_FIELDS = {
     "MLSL_LARGE_MSG_SIZE_MB": "large_msg_size_mb",
     "MLSL_LARGE_MSG_CHUNKS": "large_msg_chunks",
+    "MLSL_GRAD_BUCKET_MB": "grad_bucket_mb",
     "MLSL_MSG_PRIORITY_THRESHOLD": "msg_priority_threshold",
     "MLSL_MSG_PRIORITY_FLUSH_MS": "msg_priority_flush_ms",
     "MLSL_QUANT_BLOCK_ELEMS": "quant_block_elems",
@@ -54,6 +56,10 @@ class Config:
     # into independently dispatched chunks so Wait completes incrementally.
     large_msg_size_mb: int = 128    # MLSL_LARGE_MSG_SIZE_MB
     large_msg_chunks: int = 4       # MLSL_LARGE_MSG_CHUNKS
+    # Gradient bucketing (core/bucketing.py): coalesce per-layer gradient
+    # collectives below this bucket size into one concatenated collective
+    # (fewer host dispatches, bandwidth-sized wire messages). 0 = off.
+    grad_bucket_mb: int = 0         # MLSL_GRAD_BUCKET_MB
     # Newest-first priority: requests above the threshold are deferred and
     # launched together, by the progress thread or at the next sync point.
     msg_priority: bool = False           # MLSL_MSG_PRIORITY
@@ -111,6 +117,8 @@ class Config:
         mlsl_assert(self.large_msg_chunks >= 1,
                     "MLSL_LARGE_MSG_CHUNKS must be >= 1 (got %d)",
                     self.large_msg_chunks)
+        mlsl_assert(self.grad_bucket_mb >= 0,
+                    "MLSL_GRAD_BUCKET_MB must be >= 0 (got %d)", self.grad_bucket_mb)
         mlsl_assert(self.quant_block_elems > 0 and self.quant_block_elems % 32 == 0,
                     "MLSL_QUANT_BLOCK_ELEMS must be a positive multiple of 32 "
                     "(one warp per block row; got %d)", self.quant_block_elems)
@@ -133,6 +141,7 @@ class Config:
         c.enable_stats = _env_bool("MLSL_STATS", c.enable_stats)
         c.large_msg_size_mb = _env_int("MLSL_LARGE_MSG_SIZE_MB", c.large_msg_size_mb)
         c.large_msg_chunks = _env_int("MLSL_LARGE_MSG_CHUNKS", c.large_msg_chunks)
+        c.grad_bucket_mb = _env_int("MLSL_GRAD_BUCKET_MB", c.grad_bucket_mb)
         c.msg_priority = _env_bool("MLSL_MSG_PRIORITY", c.msg_priority)
         c.msg_priority_threshold = _env_int(
             "MLSL_MSG_PRIORITY_THRESHOLD", c.msg_priority_threshold

@@ -12,9 +12,13 @@ src/mlsl_impl.cpp:388-444 and include/mlsl.hpp:276-341):
   the local count padded up to owned * dataParts; gradients ReduceScatter'd
   so each data rank owns a shard, the optimizer updates only that shard, and
   the increments AllGather back (``start_increment_comm`` /
-  ``wait_increment_comm``, reference :401-435).
-
-Gradient bucketing (``inc_bucket`` among it) is not ported yet.
+  ``wait_increment_comm``, reference :401-435);
+- gradient bucketing (core/bucketing.py, assigned at Session.commit): the
+  set's gradient collective and, under the distributed update, its increment
+  all_gather may be coalesced with its neighbours' (``bucket``,
+  ``inc_bucket``). The ``*_round`` flags say whether the CURRENT round is the
+  bucket's or the set's own request (a fallback, which for a quantized set
+  runs its own ring with its own residual).
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ class ParameterSet:
             self.owned_kernel_count = self.local_kernel_count
         self.grad_req: Optional[CommRequest] = None
         self.inc_req: Optional[CommRequest] = None
+        self.bucket = None
+        self._bucket_round = False
+        self.inc_bucket = None
+        self._inc_bucket_round = False
         if self.need_comm:
             dispatcher = op.session.env.dispatcher
             n_owned = self.owned_kernel_count * self.kernel_size
@@ -116,11 +124,24 @@ class ParameterSet:
         (R, D, S, M, localKernelCount*kernelSize)."""
         self.op.session._stat_event(self, "start", is_param=True)
         if self.need_comm:
-            self.grad_req.start(grad_buf)
+            if self.bucket is not None and self.bucket.start(self, grad_buf):
+                self._bucket_round = True
+            else:
+                self._bucket_round = False
+                self.grad_req.start(grad_buf)
 
     def wait_gradient_comm(self):
         """-> the reduced gradient buffer, or None when no comm is needed."""
         self.op.session._stat_event(self, "wait", is_param=True)
+        if self.need_comm and self._bucket_round:
+            handled, out = self.bucket.wait(self)
+            if handled:
+                return out
+            # the bucket's fallback just started our individual request
+            self._bucket_round = False
+            return self.grad_req.wait()
+        # a request completed by test() is no longer started but keeps its
+        # result; wait() still delivers it (MPI_Wait on a completed request)
         if self.need_comm and (self.grad_req.is_started
                                or self.grad_req._result is not None):
             return self.grad_req.wait()
@@ -131,6 +152,11 @@ class ParameterSet:
         self.op.session._stat_event(self, "test", is_param=True)
         if not self.need_comm:
             return True, None
+        if self._bucket_round:
+            handled, done, out = self.bucket.test(self)
+            if handled:
+                return done, out
+            self._bucket_round = False
         return self.grad_req.test()
 
     def start_increment_comm(self, inc_buf) -> None:
@@ -138,13 +164,25 @@ class ParameterSet:
         inc_buf: distributed buffer (R, D, S, M, ownedKernelCount*kernelSize)."""
         self.op.session._stat_event(self, "start", is_param=True, is_increment=True)
         if self.need_comm and self.distributed_update:
-            self.inc_req.start(inc_buf)
+            if self.inc_bucket is not None and self.inc_bucket.start(self, inc_buf):
+                self._inc_bucket_round = True
+            else:
+                self._inc_bucket_round = False
+                self.inc_req.start(inc_buf)
 
     def wait_increment_comm(self):
         """-> the gathered increment buffer (R, D, S, M, localKernelCount*
         kernelSize), or None when no comm is needed."""
         self.op.session._stat_event(self, "wait", is_param=True, is_increment=True)
-        if self.need_comm and self.distributed_update and self.inc_req.is_started:
+        if not (self.need_comm and self.distributed_update):
+            return None
+        if self._inc_bucket_round:
+            handled, out = self.inc_bucket.wait(self)
+            if handled:
+                return out
+            self._inc_bucket_round = False
+            return self.inc_req.wait()
+        if self.inc_req.is_started:
             return self.inc_req.wait()
         return None
 

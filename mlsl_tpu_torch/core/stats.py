@@ -2,13 +2,42 @@
 
 The core of ``mlsl_tpu.core.stats``: the counters that ``Session._stat_event``
 feeds (session.py:440) -- starts, waits and bytes per request, keyed by
-operation and parameter set. The JAX package's ``mlsl_stats.log`` table and
-the isolation replay at commit come later.
+operation and parameter set -- and the process-wide bucket-round counters
+of gradient bucketing (stats.py:131-175). The JAX package's
+``mlsl_stats.log`` table and the isolation replay at commit come later.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
+
+# Bucket-round accounting (core/bucketing.py): process-wide, as in the JAX
+# package -- buckets fire from the request layer with no Session handle. The
+# JAX package's event ring and wire-saved estimate are left out: nothing here
+# reads them.
+BUCKET_COUNTERS: Dict[str, int] = {
+    "rounds_dispatched": 0,   # full rounds served by one coalesced dispatch
+    "rounds_fallback": 0,     # early-Wait rounds run as individual requests
+    "member_abandons": 0,     # members restarted mid-flight (ran individually)
+    "bytes_coalesced": 0,     # member payload bytes carried by bucket rounds
+}
+
+
+def record_bucket_round(event: str, members: int = 0, coalesced: int = 0) -> None:
+    """Called by GradBucket at every round transition (dispatch, early-Wait
+    fallback, member-restart abandon)."""
+    if event == "dispatched":
+        BUCKET_COUNTERS["rounds_dispatched"] += 1
+        BUCKET_COUNTERS["bytes_coalesced"] += coalesced
+    elif event == "fallback":
+        BUCKET_COUNTERS["rounds_fallback"] += 1
+    else:  # abandon
+        BUCKET_COUNTERS["member_abandons"] += max(members, 1)
+
+
+def reset_bucket_counters() -> None:
+    for k in BUCKET_COUNTERS:
+        BUCKET_COUNTERS[k] = 0
 
 
 class _Slot:

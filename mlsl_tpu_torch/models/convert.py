@@ -11,7 +11,9 @@ groups the same elements in both.
 Optimizer state crosses the same way: optax's ``ScaleByAdamState`` (``mu``,
 ``nu``, ``count``, as numpy arrays) becomes the port's ``optim.AdamState``,
 both for the ZeRO-1 owned-shard buffers and for a replicated state, whose
-moments are parameter trees flattened layer by layer.
+moments are parameter trees flattened layer by layer; and the transformer
+trainer's per-layer states, whose moments are distributed buffers over
+each rank's flat local (or owned) vector.
 """
 
 from __future__ import annotations
@@ -173,3 +175,39 @@ def adam_state_to_optax(state):
     count) numpy arrays, count a scalar."""
     return (state.mu.detach().cpu().numpy().copy(), state.nu.detach().cpu().numpy().copy(),
             np.int32(state.count.item()))
+
+
+def _adam_fields(state):
+    """optax's Adam state -- the ``ScaleByAdamState`` itself, or the chain's
+    tuple that holds it (``optax.adam`` is scale_by_adam + the learning-rate
+    scale) -> its (mu, nu, count)."""
+    parts = (state,) if hasattr(state, "mu") else tuple(state)
+    for part in parts:
+        if hasattr(part, "mu") and hasattr(part, "nu"):
+            return part.mu, part.nu, part.count
+    raise ValueError(f"no ScaleByAdamState in {type(state).__name__}")
+
+
+def transformer_adam_state_from_optax(states, device=None):
+    """The JAX HybridTrainer's per-layer optax Adam states (``_opt_state``, or
+    ``_du_opt_state`` under ZeRO-1: ``mu`` and ``nu`` distributed buffers
+    (R, D, S, M, local or owned count), ``count`` (R, D, S, M, 1)) -> {layer:
+    the port's ``optim.AdamState`` over the same (R, D, S, M, n)}, the
+    trainer's ``opt_state``."""
+    out = {}
+    for name, state in states.items():
+        mu, nu, count = _adam_fields(state)
+        out[name] = adam_state_from_optax(np.asarray(mu), np.asarray(nu), np.asarray(count),
+                                          device)
+    return out
+
+
+def transformer_adam_state_to_optax(opt_state):
+    """Inverse of ``transformer_adam_state_from_optax``: {layer: AdamState} ->
+    {layer: (mu, nu, count)} numpy arrays in the JAX trainer's layout, the
+    count broadcast to (R, D, S, M, 1)."""
+    out = {}
+    for name, state in opt_state.items():
+        mu, nu, count = adam_state_to_optax(state)
+        out[name] = (mu, nu, np.full((*mu.shape[:-1], 1), count, dtype=np.int32))
+    return out

@@ -40,12 +40,39 @@ import torch
 from mlsl_tpu_torch.comm import collectives
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import tree_leaves
-from mlsl_tpu_torch.types import CompressionType, DataType, OpType, ReductionType
+from mlsl_tpu_torch.types import CompressionType, DataType, OpType
 
 
 def clip_scale(sq_norm: torch.Tensor, clip: float) -> torch.Tensor:
     """The factor of an L2 clip, min(1, clip / norm) (train.py:110)."""
     return torch.clamp(clip / torch.clamp(torch.sqrt(sq_norm), min=1e-12), max=1.0)
+
+
+def member_sum(parts: torch.Tensor) -> torch.Tensor:
+    """(..., G) -> (...): the G entries added one by one in member order, the
+    same bits on every device (a collective's SUM orders its terms as the
+    device's reduction does)."""
+    total = parts[..., 0]
+    for j in range(1, parts.shape[-1]):
+        total = total + parts[..., j]
+    return total
+
+
+def sharded_sq_norm(grads: Dict[str, torch.Tensor], data: int) -> torch.Tensor:
+    """The squared global L2 norm of {layer: (count,) mean gradient}, summed
+    in the order the distributed update sums it: each layer's partial sums
+    over its ``data`` owned shards (ceil(count / data) elements, the last
+    zero-padded), layers in sorted order, then the shards in member order
+    (``member_sum``). Replicated and ZeRO-1 training then clip by the same
+    bits, where sums in two orders would differ by an ulp that three steps
+    of a deep net grow."""
+    parts = 0
+    for name in sorted(grads):
+        g = grads[name]
+        owned = -(-g.numel() // data)
+        g = torch.nn.functional.pad(g, (0, owned * data - g.numel()))
+        parts = parts + (g.reshape(data, owned) ** 2).sum(dim=-1)
+    return member_sum(parts)
 
 
 def owned_increment(g: torch.Tensor, lr: float, norm: float, scale=1.0) -> torch.Tensor:
@@ -223,8 +250,8 @@ class DataParallelTrainer:
         fused step's :713-755 with norm 1)."""
         grads = {n: flat[n][:self.layer_counts[n]] / norm for n in self.layers}
         if self.clip_global_norm is not None:
-            sq = sum((g * g).sum() for g in grads.values())
-            cscale = clip_scale(sq, self.clip_global_norm)
+            sq = sharded_sq_norm(grads, self.data_size)
+            cscale = clip_scale(torch.sqrt(sq) ** 2, self.clip_global_norm)
             grads = {n: g * cscale for n, g in grads.items()}
         for name in self.layers:
             if self.optimizer is None:
@@ -294,15 +321,16 @@ class DataParallelTrainer:
         owned_all, scale = {}, 1.0
         if self.clip_global_norm is not None:
             # the clip needs every owned shard before any increment: wait all,
-            # sum the shards' partial squares over the gradient group, scale
+            # gather the shards' partial squares over the gradient group and
+            # add them in member order (sharded_sq_norm's order), scale
             for name in self.layers:
                 owned_all[name] = self._pset(name).wait_gradient_comm()
                 mlsl_assert(owned_all[name] is not None,
                             "distributed update requires dataParts>1")
             local = sum(((owned_all[n] / norm) ** 2).sum(dim=-1, keepdim=True)
                         for n in sorted(owned_all))
-            total = collectives.build_collective("allreduce", self.dist.grad_group,
-                                                 op=ReductionType.SUM)(local)
+            parts = collectives.build_collective("allgather", self.dist.grad_group)(local)
+            total = member_sum(parts)[..., None]
             scale = clip_scale(torch.sqrt(total) ** 2, self.clip_global_norm)
         for name in self.layers:
             ps = self._pset(name)

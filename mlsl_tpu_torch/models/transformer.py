@@ -28,9 +28,18 @@ engine with the model group and the config (``MLSL_ALGO=alltoall=pallas_a2a``
 puts the float32 combine exchange on kernel B6). Each rank's loss adds
 ``moe_aux_weight`` times its slice's aux loss, scaled as in the JAX package.
 
+The update is the built-in SGD or an elementwise transform of
+``mlsl_tpu_torch.optim`` (``adam``, ``sgd``) over each rank's flat local
+(TP-sharded) layer vector, as the JAX trainer runs optax. With
+``distributed_update`` (ZeRO-1) the gradients are reduce-scattered over data
+x seq, each rank keeps optimizer state for its owned shard only and turns it
+into an increment, and the increments are all-gathered back
+(transformer.py:939-980, 1030-1058). ``step_accum`` sums several
+micro-batches' gradients before one sync.
+
 Compute is bfloat16 by default; parameters, the residual adds, the TP sums,
 layer norms and the loss are float32. Remat, the sharded-vocabulary CE,
-ZeRO-1, optax and the decode-mode functions come later (ROADMAP A).
+ShardedAdafactor and the decode-mode functions come later (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -42,8 +51,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mlsl_tpu_torch import optim
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax, tree_leaves
+from mlsl_tpu_torch.models.train import owned_opt_increment
 from mlsl_tpu_torch.models.moe import init_moe_params, moe_ffn, mxu_einsum
 from mlsl_tpu_torch.parallel.sequence import (
     ring_attention,
@@ -268,7 +279,12 @@ class HybridTrainer:
     layout (numpy arrays or tensors, e.g. ``mlsl_tpu``'s ``init_params``
     converted to numpy); without it they come from ``init_params`` with a
     generator seeded by ``seed``. The parameters live in ``self.params`` as
-    per-rank (R, D, S, M, *local) tensors and are updated in place."""
+    per-rank (R, D, S, M, *local) tensors and are updated in place.
+
+    ``optimizer``: a transform of ``mlsl_tpu_torch.optim``; None means
+    ``optim.sgd(lr)``. Its state per layer is ``self.opt_state[layer]``, over
+    (R, D, S, M, local count) -- every rank's flat local vector -- or under
+    ``distributed_update`` over (R, D, S, M, owned count)."""
 
     def __init__(self, env, cfg: TransformerConfig, dp: int, sp: int, tp: int,
                  batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
@@ -278,16 +294,17 @@ class HybridTrainer:
                                    "(ROADMAP A: the transformer's remaining options)")
         mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
                                            "(ROADMAP A: the transformer's remaining options)")
-        mlsl_assert(not distributed_update, "the distributed update (ZeRO-1) is not ported "
-                                            "yet (ROADMAP A: ZeRO-1 and optax)")
-        mlsl_assert(optimizer is None, "optimizers other than the built-in SGD are not "
-                                       "ported yet (ROADMAP A: ZeRO-1 and optax)")
+        mlsl_assert(optimizer is None or isinstance(optimizer, optim.Transform),
+                    "optimizer must be a transform of mlsl_tpu_torch.optim (adam, sgd); "
+                    "ShardedAdafactor is not ported yet (ROADMAP A)")
         self.env = env
         self.cfg = cfg
         self.dp, self.sp, self.tp = dp, sp, tp
         self.batch = batch if batch is not None else dp
         mlsl_assert(self.batch % dp == 0, "batch %d %% dp %d", self.batch, dp)
         self.lr = lr
+        self.optimizer = optimizer if optimizer is not None else optim.sgd(lr)
+        self.distributed_update = bool(distributed_update)
         self.dist = env.create_distribution(dp, tp, seq_parts=sp)
         mlsl_assert(
             self.dist.replica_count == 1,
@@ -329,6 +346,7 @@ class HybridTrainer:
             # MLSL kernel counts are global: the ParameterSet partitions them over the
             # model group, recovering the per-rank length local_counts[name]
             reg.add_parameter_set(self.local_counts[name] * tp, 1, DataType.FLOAT,
+                                  distributed_update=self.distributed_update,
                                   compression_type=comp)
             self.ops[name] = self.session.get_operation(
                 self.session.add_operation(reg, self.dist)
@@ -339,10 +357,19 @@ class HybridTrainer:
         }
         # When no ParameterSet needs gradient comm (grad group of one: dp=sp=1;
         # TP-only grids qualify -- the TP sums of replicated leaves happen in
-        # the step), fuse loss + grad + update and skip the per-layer buffers.
-        self.fused = not any(self.ops[n].get_parameter_set(0).need_comm for n in self.layers)
-        # synced grads are sums of d(CE sum)/dw over all data x seq shards; SGD on
-        # the mean loss divides by the total token count
+        # the step), fuse loss + grad + update and skip the per-layer buffers;
+        # the distributed update keeps the graph path (owned = local there).
+        self.fused = not self.distributed_update and not any(
+            self.ops[n].get_parameter_set(0).need_comm for n in self.layers)
+        # optimizer state per layer: every rank's flat local vector, or under
+        # ZeRO-1 its owned shard only (transformer.py:641-655)
+        self.opt_state = {}
+        for n in self.layers:
+            ps = self.ops[n].get_parameter_set(0)
+            width = ps.owned_kernel_count if self.distributed_update else self.local_counts[n]
+            self.opt_state[n] = self.optimizer.init((*self.grid, width), device=env.device)
+        # synced grads are sums of d(CE sum)/dw over all data x seq shards; the
+        # optimizer steps on the mean loss's, divided by the total token count
         self._norm = self.batch * cfg.seq_len
         # each rank's aux loss, pre-scaled by its slice's token count, so that
         # after the division by _norm the objective is mean CE + weight x mean
@@ -409,33 +436,89 @@ class HybridTrainer:
         return ce[..., None], flat
 
     @torch.no_grad()
-    def _apply(self, leaves, grads) -> None:
-        """p -= lr * (g / (batch * seq_len)) for each leaf and its gradient."""
-        for p, g in zip(leaves, grads):
-            p.sub_(self.lr * (g / self._norm))
+    def _add_flat(self, name: str, flat: torch.Tensor) -> None:
+        """p += flat over one layer's leaves; flat: (R, D, S, M, >= count)."""
+        off = 0
+        for p in self._leaves[name]:
+            n = int(np.prod(p.shape[GRID:]))
+            p.add_(flat[..., off:off + n].reshape(p.shape))
+            off += n
+
+    @torch.no_grad()
+    def _opt_update(self, name: str, flat_grad: torch.Tensor) -> None:
+        """One layer's optimizer step on every rank's flat local vector
+        (``_flat_opt_layer_update``, transformer.py:724-737); flat_grad is the
+        mean gradient (R, D, S, M, local count)."""
+        upd, self.opt_state[name] = self.optimizer.update(flat_grad, self.opt_state[name])
+        self._add_flat(name, upd)
+
+    def _fused_update(self, grads) -> None:
+        """The no-comm fused path's update (transformer.py:863-895): the
+        per-leaf gradients of ``_backward``, layer by layer."""
+        it = iter(grads)
+        for name in self.layers:
+            g = torch.cat([next(it).reshape(*self.grid, -1) for _ in self._leaves[name]], dim=-1)
+            self._opt_update(name, g / self._norm)
 
     def step(self, tokens, labels) -> torch.Tensor:
         """One training step on sharded (tokens, labels) -> the mean CE."""
         if self.fused:
             ce, grads = self._backward(tokens, labels)
-            self._apply(self._all_leaves(), grads)
+            self._fused_update(grads)
             return ce[:, :, :, 0].sum() / self._norm
         loss, grads = self._grad_fn(tokens, labels)
         return self._sync_and_update(grads, loss)
+
+    def step_accum(self, batches) -> torch.Tensor:
+        """Gradient accumulation (transformer.py:996-1016): k local
+        forward/backward passes over (tokens, labels) pairs, one gradient
+        sync and update; the objective is the mean over all k micro-batches.
+        -> the mean CE."""
+        mlsl_assert(len(batches) >= 1, "step_accum needs at least one batch")
+        total = loss_sum = None
+        for tokens, labels in batches:
+            loss, grads = self._grad_fn(tokens, labels)
+            total = grads if total is None else {n: total[n] + grads[n] for n in self.layers}
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+        k = len(batches)
+        return self._sync_and_update({n: g / k for n, g in total.items()}, loss_sum) / k
 
     def _sync_and_update(self, grads, loss) -> torch.Tensor:
         # newest gradient first: the backward produces the last layer's first
         for name in reversed(self.layers):
             self.ops[name].get_parameter_set(0).start_gradient_comm(grads[name])
-        for name in self.layers:
-            out = self.ops[name].get_parameter_set(0).wait_gradient_comm()
-            reduced = out if out is not None else grads[name]
-            leaves, off, parts = self._leaves[name], 0, []
-            for p in leaves:
-                n = int(np.prod(p.shape[GRID:]))
-                parts.append(reduced[..., off:off + n].reshape(p.shape))
-                off += n
-            self._apply(leaves, parts)
+        if self.distributed_update:
+            self._zero1_update(grads)
+        else:
+            for name in self.layers:
+                out = self.ops[name].get_parameter_set(0).wait_gradient_comm()
+                reduced = out if out is not None else grads[name]
+                self._opt_update(name, reduced[..., :self.local_counts[name]] / self._norm)
         # the loss buffer holds per-(data, seq)-shard CE sums, the same on every
         # model rank -> take slot 0; mean = total / (batch * seq_len)
         return loss[:, :, :, 0].sum() / self._norm
+
+    @torch.no_grad()
+    def _zero1_update(self, grads) -> None:
+        """ZeRO-1 (transformer.py:1030-1058): each rank turns its owned
+        gradient shard into an increment, the increments are all-gathered
+        over data x seq, and every rank adds the gathered increment to its
+        local shard. A grad group of one (owned is None) applies the full
+        local increment."""
+        incs = {}
+        for name in self.layers:
+            ps = self.ops[name].get_parameter_set(0)
+            owned = ps.wait_gradient_comm()
+            src = grads[name] if owned is None else owned
+            inc, self.opt_state[name] = owned_opt_increment(
+                src, self.opt_state[name], self.optimizer, self._norm)
+            if owned is None:
+                incs[name] = inc
+            else:
+                ps.start_increment_comm(inc)
+        for name in self.layers:
+            inc = self.ops[name].get_parameter_set(0).wait_increment_comm()
+            if inc is not None:
+                incs[name] = inc
+        for name in self.layers:
+            self._add_flat(name, incs[name][..., :self.local_counts[name]])

@@ -155,19 +155,25 @@ def dense_geometry(kind: str, group: ProcessGroup, count: int) -> Tuple[int, int
     return g, rc, chunk
 
 
+def quant_unit(rc: int, block: int) -> int:
+    """The int8 ring's chunk unit for a per-rank slice of ``rc`` elements:
+    block * ROW_TILE elements, or block * PACK_ROWS once rc >= 8 * block *
+    PACK_ROWS (the TPU's pallas units, which set the error-feedback length
+    of this wire)."""
+    return block * (PACK_ROWS if rc >= 8 * block * PACK_ROWS else ROW_TILE)
+
+
 def quant_geometry(kind: str, group: ProcessGroup, count: int,
                    block: int) -> Tuple[int, int, int, int]:
     """-> (g, rc, chunk, err_len) for the int8 ring: chunks align to
-    block * ROW_TILE elements, or to block * PACK_ROWS once
-    rc >= 8 * block * PACK_ROWS (the TPU's pallas units, which set the
-    error-feedback length of this wire)."""
+    ``quant_unit``."""
     g = 1 if group.is_self else group.size
     if kind == "reduce_scatter":
         mlsl_assert(count % g == 0, "reduce_scatter count %d %% group %d != 0", count, g)
         rc = count // g
     else:
         rc = -(-count // g)
-    unit = block * (PACK_ROWS if rc >= 8 * block * PACK_ROWS else ROW_TILE)
+    unit = quant_unit(rc, block)
     chunk = -(-rc // unit) * unit
     return g, rc, chunk, g * chunk
 

@@ -3,7 +3,7 @@
 Run from the root of a checkout, on a machine with a card:
 
     python3 -m mlsl_tpu_torch.tools.profile_step [--model resnet] [--steps 3] [--warmup 2]
-        [--blocks N]
+        [--blocks N] [--zero1]
 
 ``--model`` picks the step:
 
@@ -22,6 +22,11 @@ Run from the root of a checkout, on a machine with a card:
   MLSL_PALLAS_A2A_QUANT=0), chip_smoke.py's MoE run.
 
 ``--blocks`` sets a transformer step's depth in place of the one above.
+``--zero1`` trains a transformer step with Adam (lr 1e-4) and the
+distributed update (ZeRO-1), its requests coalesced into gradient buckets:
+``MLSL_GRAD_BUCKET_MB=25`` and ``MLSL_ALGO=reduce_scatter=pallas_ring2d``
+(kernel B3 over the snake cycle of the data x seq group) unless exported --
+chip_smoke.py's run (f).
 
 It warms up, times ``--steps`` steps with the host clock, then traces as
 many steps again with ``torch.profiler`` (the Chrome trace goes to
@@ -32,7 +37,7 @@ many steps again with ``torch.profiler`` (the Chrome trace goes to
   the end of the untraced steps (``torch.cuda.max_memory_allocated``), beside
   the card's ``device_gib``;
 - per half of the step (every rank's forward/backward, then the gradient
-  requests and the SGD update, with a synchronize between them): traced
+  requests and the update, with a synchronize between them): traced
   wall seconds, device kernel seconds (the union of kernel intervals, so
   overlapping streams are not counted twice), and the device idle share
   ``1 - kernel / wall``;
@@ -61,7 +66,8 @@ import time
 import numpy as np
 import torch
 
-from mlsl_tpu_torch import CompressionType, get_env
+from mlsl_tpu_torch import CompressionType, get_env, optim
+from mlsl_tpu_torch.core import stats
 from mlsl_tpu_torch.models import resnet
 from mlsl_tpu_torch.models import transformer as tfm
 from mlsl_tpu_torch.models.train import DataParallelTrainer
@@ -113,12 +119,17 @@ TRANSFORMERS = {"transformer-1": (1, 1, 1, "ring", tfm.GPT_MEDIUM_2K, 12),
                 "moe-8": (2, 2, 2, "zigzag", tfm.GPT_MEDIUM_2K_MOE8, 6)}
 
 
-def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0):
+def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, zero1=False):
     if base.n_experts:
         os.environ.setdefault("MLSL_ALGO", "alltoall=pallas_a2a")
+    kw = {}
+    if zero1:
+        os.environ.setdefault("MLSL_GRAD_BUCKET_MB", "25")
+        os.environ.setdefault("MLSL_ALGO", "reduce_scatter=pallas_ring2d")
+        kw = dict(distributed_update=True, optimizer=optim.adam(1e-4))
     cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16", n_blocks=n_blocks)
     env = get_env().init(world_size=dp * sp * tp)
-    trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=0.1, seed=seed)
+    trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=0.1, seed=seed, **kw)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, size=(batch, cfg.seq_len)).astype(np.int32)
     labels = rng.integers(0, cfg.vocab, size=(batch, cfg.seq_len)).astype(np.int32)
@@ -220,6 +231,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--blocks", type=int, default=None,
                     help="a transformer step's depth (default: its own, see above)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="a transformer step with Adam, ZeRO-1 and 25 MiB gradient buckets")
     ap.add_argument("--trace", default=str(build_dir() / "profile_step.trace.json"),
                     help="where the Chrome trace is written (default: the git-ignored "
                          "build directory of the checkout)")
@@ -228,6 +241,8 @@ def main(argv=None) -> int:
         print("profile_step: torch.cuda.is_available() is false: this needs a card",
               file=sys.stderr)
         return 1
+    if args.zero1 and args.model == "resnet":
+        ap.error("--zero1 takes a transformer model")
     if args.model == "resnet":
         env, trainer, batch = build_trainer()
         blocks = None
@@ -235,8 +250,9 @@ def main(argv=None) -> int:
     else:
         *shape, blocks = TRANSFORMERS[args.model]
         blocks = args.blocks or blocks
-        env, trainer, batch = build_transformer(*shape, blocks)
+        env, trainer, batch = build_transformer(*shape, blocks, zero1=args.zero1)
         step = lambda: trainer.step(*batch)         # noqa: E731
+    bucket_mb = env.config.grad_bucket_mb
     try:
         for _ in range(args.warmup):
             step()
@@ -250,11 +266,13 @@ def main(argv=None) -> int:
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for m in (qk, rk, ak, a2a):
             m.reset_counts()
+        stats.reset_bucket_counters()
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.steps):
                 traced_step(trainer, batch)
         launches = {**qk.LAUNCHES, **rk.LAUNCHES, **ak.LAUNCHES, **a2a.LAUNCHES}
+        buckets = dict(stats.BUCKET_COUNTERS)
         os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
         prof.export_chrome_trace(args.trace)
         with open(args.trace) as f:
@@ -265,7 +283,8 @@ def main(argv=None) -> int:
     out = {"device": torch.cuda.get_device_name(0), "model": args.model, "steps": args.steps,
            "ring": req.algo if req is not None else None,
            "mlsl_algo": os.environ.get("MLSL_ALGO", ""),
-           "blocks": blocks,
+           "blocks": blocks, "zero1": args.zero1,
+           "grad_bucket_mb": bucket_mb, "traced_bucket_rounds": buckets,
            "step_s": step_s, "peak_gib": peak_gib,
            "device_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
            "traced_launches": launches,

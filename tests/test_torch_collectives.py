@@ -170,3 +170,30 @@ def test_newest_first_deferral(tenv):
     for r in reqs[1:]:
         done, res = r.test()
         assert done and res is not None
+
+
+@pytest.mark.parametrize("grid", [(8, 1), (4, 2), (2, 4)])
+@pytest.mark.parametrize("gt", [GroupType.DATA, GroupType.MODEL, GroupType.GLOBAL])
+@pytest.mark.parametrize("kind", ["allreduce", "reduce_scatter"])
+def test_sum_is_jax_psum_bit_for_bit(env, tenv, grid, gt, kind):
+    """On the CPU the SUM adds the members one by one in member order, the
+    order of JAX's CPU psum: random floats agree bit for bit, and an
+    element's sum does not depend on its offset in the payload (a gradient
+    bucket's concatenated request gives each member its own request's
+    bits). The card's one-pass sum is held to the second property by
+    chip_smoke.py."""
+    jd, td = env.create_distribution(*grid), tenv.create_distribution(*grid)
+    jg, tg = jd._group(gt), td._group(gt)
+    n = 8 * 500
+    x = np.random.default_rng(grid[0] + int(gt)).normal(
+        size=(*td.world_shape, n)).astype(np.float32)
+    kw = {"recv_count": n // tg.size} if kind == "reduce_scatter" else {}
+    want = np.asarray(jcoll.build_collective(kind, jg, np.float32, op=ReductionType.SUM, **kw)(
+        jd.topology.shard_buffer(x)))
+    fn = tcoll.build_collective(kind, tg, op=ReductionType.SUM, **kw)
+    got = fn(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want)
+    if kind == "allreduce":
+        part = tcoll.build_collective(kind, tg, op=ReductionType.SUM)(
+            torch.from_numpy(np.ascontiguousarray(x[..., 3:n - 5]))).numpy()
+        np.testing.assert_array_equal(part, got[..., 3:n - 5])

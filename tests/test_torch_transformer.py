@@ -136,7 +136,10 @@ def test_weight_conversion_round_trip():
                                     "distributed_update", "optimizer"])
 def test_unported_options_raise(option):
     """The options still to port raise MLSLError; ``n_experts`` (ported with
-    the MoE slice) constructs a trainer that steps."""
+    the MoE slice), ``distributed_update`` and ``optimizer`` (ported with
+    ZeRO-1 and Adam) construct a trainer that steps."""
+    from mlsl_tpu_torch import optim
+
     cfg_kw, kw = dict(CFG), {}
     if option == "n_experts":
         cfg_kw["n_experts"] = 4
@@ -145,11 +148,13 @@ def test_unported_options_raise(option):
     elif option == "distributed_update":
         kw["distributed_update"] = True
     else:
-        kw["optimizer"] = object()
+        kw["optimizer"] = optim.adam(1e-2)
     tenv = _port_env(2)
     try:
-        if option == "n_experts":
-            tt = ttfm.HybridTrainer(tenv, ttfm.TransformerConfig(**cfg_kw), 1, 1, 2, batch=2)
+        if option in ("n_experts", "distributed_update", "optimizer"):
+            grid = (1, 1, 2) if option == "n_experts" else (2, 1, 1)
+            tt = ttfm.HybridTrainer(tenv, ttfm.TransformerConfig(**cfg_kw), *grid, batch=2,
+                                    **kw)
             losses = [float(tt.step(*tt.shard_tokens(*_data(2)))) for _ in range(2)]
             assert np.isfinite(losses).all() and losses[1] < losses[0]
             return

@@ -279,3 +279,33 @@ def test_owned_geometry_matches_jax(env, tenv, data_parts, model_parts):
                 assert tp.get_global_kernel_offset(m) == jp.get_global_kernel_offset(m)
         js.remove_operations()
         ts.remove_operations()
+
+
+@pytest.mark.parametrize("accum", [False, True], ids=["step", "step_accum"])
+def test_zero1_and_replicated_clip_by_the_same_bits(tenv, accum):
+    """With global-norm clipping, ZeRO-1 Adam and replicated Adam give the
+    same parameters bit for bit: both sum the norm in sharded_sq_norm's
+    order, lax reduces each element in member order on both, and the
+    division by 8 ranks is exact."""
+    from mlsl_tpu_torch.models.train import sharded_sq_norm
+
+    params = jax.tree.map(np.asarray, mlp_init(jax.random.PRNGKey(3)))
+    out = []
+    for du in (True, False):
+        td = tenv.create_distribution(8, 1)
+        ts = tenv.create_session()
+        ts.set_global_minibatch_size(32)
+        tt = TTrainer(tenv, td, ts, tmlp.MLP(device="cpu", params=params_from_jax(params, "cpu")),
+                      tmlp.loss_fn, tmlp.LAYERS, tmlp.get_layer, distributed_update=du,
+                      lr=0.1, optimizer=optim.adam(5e-3), clip_global_norm=0.05)
+        data = _batches(2 if accum else 1)
+        for _ in range(3):
+            tb = [tt.shard_batch(x, y) for x, y in data]
+            tt.step_accum(tb) if accum else tt.step(tb[0])
+        out.append(params_to_jax(tt.model))
+    for layer in LAYERS:
+        for a, b in zip(jax.tree.leaves(out[0][layer]), jax.tree.leaves(out[1][layer])):
+            np.testing.assert_array_equal(a, b, err_msg=layer)
+    g = {"a": torch.arange(13.0), "b": torch.ones(100)}
+    want = sum(float((v.double() ** 2).sum()) for v in g.values())
+    assert abs(float(sharded_sq_norm(g, 8)) - want) <= 1e-6 * want
