@@ -171,6 +171,37 @@ Phases, in order; any failure exits non-zero and prints no result:
              Then lax's one-pass SUM timed against the member loop the CPU
              runs, at 256 MiB a rank.
 
+23. engine int8 (run (h), right after 20): config 5 on the compiled overlap
+             engine (overlap_compiled=True, int8 on the composed ring, B1): the
+             step captured as one CUDA graph by precompile, then 3 replayed
+             steps, held to run 7 (the host Start/Wait path from the same
+             initial state; runs 7 to 26 take cuDNN's deterministic
+             convolutions): losses within rtol 1e-6 and parameters within 1e-6
+             (the JAX package's twin tolerances), the largest gaps printed; B1
+             recorded 162 times into the graph (9 a layer). Step seconds and
+             images/s of both, the capture's seconds.
+24. engine fused ring (run (i)): 23 under MLSL_ALGO=pallas_ring, every unit
+             on B1 + B4, 18 of each a graph, held to run 11.
+25. engine buckets (run (j)): 23 uncompressed under MLSL_ALGO=pallas_ring
+             with MLSL_GRAD_BUCKET_MB=25: fewer units than layers, one B3 a
+             unit, held to the bucketed host path run here; the plan's units
+             and algorithms printed.
+26. overlap_updates (run (k)): config 5 int8 with overlap_updates=True (each
+             layer polled with TestGradientComm and updated as it lands)
+             held to run 7, the barrier path, with the same tolerances; B1 162
+             a step.
+27. multi reduce (run (l)): comm.overlap.build_multi_reduce over ResNet-50's
+             18 layer counts on 8 ranks for pallas_ring (B3), pallas_rhd (B5),
+             lax and rhd on integer-valued payloads, and int8 on the composed
+             ring (B1) and the fused ring (B1 + B4) over 3 rounds: each
+             captured as one CUDA graph, replayed, bit-exact against the same
+             plan on the plain versions run eagerly (results and residuals);
+             ms a call eager and replayed.
+
+A captured graph counts its launches once, when it is recorded: the engine
+runs' launches are those of precompile's eager warm-up step and its capture,
+and each prints the launches of one captured step.
+
 B5's kernels-line rows at 40,000 B and 1 MiB a rank also give B5 and the
 library call timed as CUDA graphs of 20 calls (``graph_ms``,
 ``library_graph_ms``), beside the times as the path pays them.
@@ -572,7 +603,10 @@ def check_config4(torch, env, qk, xs, outs, errs, req, roundtrip):
     check(bool(torch.equal(roundtrip, want)), "config 4: codec round trip differs from plain")
 
 
-def build_resnet_trainer(torch, env, np, image=224, classes=1000, batch=64):
+def build_resnet_trainer(torch, env, np, image=224, classes=1000, batch=64, compression=None,
+                         **kw):
+    """Config 5's trainer, int8 unless ``compression`` says otherwise; ``kw``
+    goes to DataParallelTrainer (the overlap schedules)."""
     from mlsl_tpu_torch import CompressionType
     from mlsl_tpu_torch.models import resnet
     from mlsl_tpu_torch.models.train import DataParallelTrainer
@@ -584,7 +618,8 @@ def build_resnet_trainer(torch, env, np, image=224, classes=1000, batch=64):
     sess.set_global_minibatch_size(batch)
     trainer = DataParallelTrainer(
         env, dist, sess, model, resnet.loss_fn, resnet.layer_names(model),
-        resnet.layer_subtree, compression=CompressionType.QUANTIZATION, lr=0.05,
+        resnet.layer_subtree, lr=0.05,
+        compression=CompressionType.QUANTIZATION if compression is None else compression, **kw,
     )
     rng = np.random.default_rng(SEED)
     x = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
@@ -2062,16 +2097,27 @@ CARD_TESTS = "mlsl_tpu_torch/cuda_tests"
 
 def phase_card_tests(timeout=600) -> str:
     """Run the jax-free kernel-against-plain tests in a subprocess; every
-    test must pass and none skip. -> pytest's summary line."""
-    cmd = [sys.executable, "-m", "pytest", CARD_TESTS, "-q", "-p", "no:cacheprovider"]
+    test must pass and none skip. A failed test is run once more on its own
+    and its outcome added to the report, to tell a fault that repeats from
+    one that does not; the phase fails either way. -> pytest's summary line."""
+    cmd = [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--tb=short"]
     try:
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        proc = subprocess.run(cmd + [CARD_TESTS], cwd=ROOT, capture_output=True, text=True,
+                              timeout=timeout)
     except subprocess.TimeoutExpired:
         raise SmokeFailure(f"card tests: not done in {timeout} s")
     lines = [ln for ln in proc.stdout.strip().splitlines() if ln.strip()]
     summary = lines[-1] if lines else ""
-    check(proc.returncode == 0,
-          f"card tests: rc {proc.returncode}:\n" + "\n".join(lines[-40:]) + proc.stderr[-4000:])
+    if proc.returncode != 0:
+        failed = [ln.split()[1] for ln in lines if ln.startswith("FAILED ")]
+        again = []
+        for node in failed[:4]:
+            rerun = subprocess.run(cmd + [node], cwd=ROOT, capture_output=True, text=True,
+                                   timeout=timeout)
+            tail = [ln for ln in rerun.stdout.strip().splitlines() if ln.strip()][-1:]
+            again.append(f"  {node} alone: rc {rerun.returncode}, {' '.join(tail)}")
+        raise SmokeFailure(f"card tests: rc {proc.returncode}:\n" + "\n".join(lines[-40:]) +
+                           proc.stderr[-4000:] + "\nrun again:\n" + "\n".join(again))
     check(" passed" in summary and "skipped" not in summary and "failed" not in summary,
           f"card tests: {summary!r}")
     return summary
@@ -2702,6 +2748,221 @@ def run_config5_buckets(torch, np, get_env, launches, reset_launches, fused):
     return used
 
 
+# -- the compiled overlap engine and overlap_updates (runs h-l) -------------------
+
+#: the twins' tolerances, the JAX package's (tests/test_overlap_compiled.py:77-81):
+#: losses relative, parameters absolute
+TWIN_LOSS_RTOL = 1e-6
+TWIN_PARAM_ATOL = 1e-6
+
+
+def drive_steps(torch, trainer, batch, steps=3):
+    """-> (each step's per-rank losses, each step's seconds, synchronized)."""
+    losses, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.detach().reshape(-1).cpu())
+    return losses, secs
+
+
+def twin_gaps(torch, losses, ref_losses, params, ref_params, tag) -> tuple:
+    """The largest relative loss gap and absolute parameter gap between two
+    runs from the same initial state, held to the twin tolerances."""
+    for loss in losses + ref_losses:
+        check(loss.shape == (WORLD,) and bool(torch.isfinite(loss).all()),
+              f"{tag}: losses {loss.tolist()}")
+    loss_gap = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(losses, ref_losses))
+    param_gap = max(float((params[n] - ref_params[n]).abs().max()) for n in params)
+    check(loss_gap <= TWIN_LOSS_RTOL and param_gap <= TWIN_PARAM_ATOL,
+          f"{tag}: loss gap {loss_gap:.3g} (rtol {TWIN_LOSS_RTOL}), parameter gap "
+          f"{param_gap:.3g} (atol {TWIN_PARAM_ATOL}) against the host path")
+    return loss_gap, param_gap
+
+
+def host_reference(torch, trainer, losses, secs) -> dict:
+    """A host-path run's results kept for the overlap twins (runs h-k):
+    its per-step losses, step seconds and final parameters."""
+    return {"losses": losses, "secs": secs, "params": layer_vectors(torch, trainer)}
+
+
+def twin_run(torch, np, get_env, launches, reset_launches, tag, env_vars, compression, kw,
+             ref, expect):
+    """Config 5 with trainer options ``kw``, three steps, against ``ref``: the
+    host path's run from the same initial state (``host_reference``), or,
+    where ``ref`` is a dict of trainer options, that run made here; both
+    with cuDNN's deterministic convolutions, so that they see the same
+    gradients. With the compiled engine the step is captured first
+    (``precompile``) and ``expect(launches of one captured step, plan)``
+    must hold; otherwise ``expect(launches, None)``. -> (the run's launches,
+    its summary, its own results as a host reference)."""
+    t0 = time.perf_counter()
+    env = reinit(get_env, **env_vars)
+    settle(torch)
+    trainer, batch = build_resnet_trainer(torch, env, np, compression=compression, **kw)
+    engine = trainer._overlap
+    out = {"tag": tag}
+    reset_launches()
+    if kw.get("overlap_compiled"):
+        check(engine is not None, f"{tag}: the compiled overlap engine did not engage")
+        t1 = time.perf_counter()
+        trainer.precompile(batch)
+        torch.cuda.synchronize()
+        out["precompile_s"] = time.perf_counter() - t1
+        out["capture_s"] = engine.capture_s["step"]
+        one = engine.capture_launches["step"]
+        out["launches_one_captured_step"] = one
+        check(expect(one, engine.plan), f"{tag}: launches of one captured step {one}")
+    losses, secs = drive_steps(torch, trainer, batch)
+    used = launches()
+    if engine is not None:
+        check(list(engine.graphs) == ["step"], f"{tag}: graphs {list(engine.graphs)}")
+        out["units"] = len(engine.plan.units)
+        out["plan_algos"] = engine.plan.algos_summary()
+        out["describe"] = engine.plan.describe()
+    else:
+        check(expect(used, None), f"{tag}: launches {used}")
+    mine = host_reference(torch, trainer, losses, secs)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del trainer, batch, engine
+    if "params" not in ref:
+        settle(torch)
+        host, batch = build_resnet_trainer(torch, env, np, compression=compression, **ref)
+        ref = host_reference(torch, host, *drive_steps(torch, host, batch))
+        del host, batch
+    out["loss_gap"], out["param_gap"] = twin_gaps(torch, losses, ref["losses"],
+                                                  mine["params"], ref["params"], tag)
+    out["losses"] = [float(v.mean()) for v in losses]
+    out["ref_losses"] = [float(v.mean()) for v in ref["losses"]]
+    out["step_s"], out["ref_step_s"] = secs, ref["secs"]
+    out["images_per_s"] = [64 / x for x in secs]
+    out["ref_images_per_s"] = [64 / x for x in ref["secs"]]
+    out["launches"] = used
+    settle(torch)
+    out["run_s"] = time.perf_counter() - t0
+    return used, out, mine
+
+
+def run_engines(torch, np, get_env, launches, reset_launches, composed, fused):
+    """Runs (h) to (k), with cuDNN's deterministic convolutions: config 5 on
+    the compiled overlap engine -- int8 on the composed ring (B1) against
+    the host path's run ``composed`` (run 7), int8 on the fused ring (B1 +
+    B4) against ``fused`` (run 11), uncompressed 25 MiB buckets on B3
+    against a bucketed host run made here -- and overlap_updates against
+    ``composed``, the barrier path. -> {run: its launches}."""
+    from mlsl_tpu_torch import CompressionType
+
+    n = 18                                       # ResNet-50's layers
+    eng = dict(overlap_compiled=True)
+    runs = [
+        ("engine int8", {}, None, eng, composed,
+         lambda c, p: counts_are(c, quantize_blocks=(WORLD + 1) * n, quant_ring=0,
+                                 dense_ring=0) and p.quant_units == n),
+        ("engine fused ring", {"MLSL_ALGO": "pallas_ring"}, None, eng, fused,
+         lambda c, p: counts_are(c, quantize_blocks=n, quant_ring=n, dense_ring=0)
+         and {u.algo for u in p.units} == {"pallas_ring"}),
+        ("engine buckets", {"MLSL_ALGO": "pallas_ring", "MLSL_GRAD_BUCKET_MB": str(BUCKET_MB)},
+         CompressionType.NONE, eng, {},
+         lambda c, p: counts_are(c, dense_ring=len(p.units), quantize_blocks=0, quant_ring=0)
+         and len(p.units) < n and {u.algo for u in p.units} == {"pallas_ring"}),
+        ("overlap_updates", {}, None, dict(overlap_updates=True), composed,
+         lambda c, _: counts_are(c, quantize_blocks=(WORLD + 1) * n * 3, quant_ring=0)),
+    ]
+    used = {}
+    for tag, env_vars, comp, kw, ref, expect in runs:
+        used[tag], out, _ = twin_run(torch, np, get_env, launches, reset_launches, tag,
+                                     env_vars, comp, kw, ref, expect)
+        describe = out.pop("describe", None)
+        log(f"# phase {tag}: ok, {json.dumps(out)}")
+        if describe and tag == "engine buckets":
+            for line in describe:
+                log(f"#   unit: {line}")
+    return used
+
+
+def capture_call(torch, fn, *args):
+    """-> (graph, outputs) of ``fn(*args)`` captured after one eager call."""
+    fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    return graph, out
+
+
+def run_multi_reduce(torch, launches, reset_launches, counts, dev):
+    """Run (l): build_multi_reduce over ``counts`` (ResNet-50's 18 layer
+    counts) on 8 ranks for pallas_ring, pallas_rhd, lax and rhd on
+    integer-valued payloads, and int8 on the composed ring (B1) and on the
+    fused ring (B1 + B4) over 3 rounds: each captured as one CUDA graph,
+    replayed, and bit-exact against the same plan on the plain versions run
+    eagerly, results and residuals. -> (lines, launches of the captured
+    calls)."""
+    from mlsl_tpu_torch.comm import overlap
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.config import Config
+    from mlsl_tpu_torch.types import CompressionType
+
+    group = ProcessGroup(Topology(WORLD, 1, WORLD), ("data",))
+    grid = group.topology.grid_shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)   # the payloads, made on the card
+
+    def payload(shape, quant, scale=1.0):
+        if quant:
+            return torch.randn(shape, generator=gen, device=dev) * scale
+        return torch.randint(-40, 40, shape, generator=gen, device=dev).float()
+
+    lines, used = [], {}
+    cases = [(a, CompressionType.NONE, "") for a in ("pallas_ring", "pallas_rhd", "lax", "rhd")]
+    cases += [("quant_ring", CompressionType.QUANTIZATION, ""),
+              ("pallas_ring", CompressionType.QUANTIZATION, "pallas_ring")]
+    for algo, comp, forced in cases:
+        cfg = Config()
+        cfg.collective_algo = forced
+        cfg.validate()
+        quant = comp == CompressionType.QUANTIZATION
+        kw = dict(compression=comp, config=cfg, algo=None if quant else algo)
+        fn, plan = overlap.build_multi_reduce(group, counts, **kw)
+        ref, _ = overlap.build_multi_reduce(group, counts, plain=True, **kw)
+        check({u.algo for u in plan.units} == {algo},
+              f"multi reduce {algo}: units took {plan.algos_summary()}")
+        bufs = [payload((*grid, c), quant) for c in counts]
+        res = overlap.zero_residuals(plan, group.topology, dev)
+        args = (bufs, res) if quant else (bufs,)
+        reset_launches()
+        graph, got = capture_call(torch, fn, *args)
+        n_launch = {k: v for k, v in launches().items() if v}
+        outs, new_res = got if quant else (got, {})
+        ref_res = {k: v.clone() for k, v in res.items()}
+        for r in range(3 if quant else 1):
+            for b in bufs:
+                b.copy_(payload(b.shape, quant, r + 1))
+            graph.replay()
+            want = ref(bufs, ref_res) if quant else ref(bufs)
+            want, ref_res = want if quant else (want, {})
+            torch.cuda.synchronize()
+            bad = sum(int((o != w).sum()) for o, w in zip(outs, want))
+            bad += sum(int((new_res[k] != ref_res[k]).sum()) for k in new_res)
+            check(bad == 0, f"multi reduce {algo} round {r}: {bad} elements of the replayed "
+                            f"graph differ from the plain versions")
+            for k in res:
+                res[k].copy_(new_res[k])
+        for k, v in n_launch.items():
+            used[k] = used.get(k, 0) + v
+        eager_ms = time_ms(torch, lambda: fn(*args), reps=10, warmup=2)
+        graph_ms = time_ms(torch, graph.replay, reps=10, warmup=2)
+        del graph, got, outs, new_res, bufs, res, ref_res, want
+        lines.append(f"# multi reduce {algo}{' int8' if quant else ''}: {len(plan.units)} "
+                     f"units, {plan.rounds} phases, launches of the warm-up and the capture "
+                     f"{n_launch}, eager {eager_ms:.4f} ms, replayed {graph_ms:.4f} ms a call, "
+                     f"bit-exact over {3 if quant else 1} rounds")
+        torch.cuda.empty_cache()
+    return lines, used
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -2790,6 +3051,10 @@ def main() -> int:
         del xs, outs, errs, req, roundtrip
         log(f"# phase config4: ok, launches {c4}")
 
+        # cuDNN's deterministic convolutions from here to the overlap runs
+        # (h-k), which are held to these host runs
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         trainer, batch = build_resnet_trainer(torch, env, np)
         reset_launches()
         losses, secs, split, grads, errs = phase_config5(torch, trainer, batch)
@@ -2804,6 +3069,7 @@ def main() -> int:
             f"worst layer gradient rel. error {worst:.4g}")
         log(f"# config5 train step (host clock, synchronized): "
             f"{json.dumps({'step_s': secs, 'last_step_split_s': split})}")
+        composed5 = host_reference(torch, trainer, losses, secs)
         del grads, errs, trainer, batch
         torch.cuda.empty_cache()
 
@@ -2855,9 +3121,24 @@ def main() -> int:
             f"{json.dumps({'step_s': secs_f, 'last_step_split_s': split_f})}")
         fused5 = {"losses": [float(v.mean()) for v in losses], "secs": secs_f,
                   "launches": c5f}
+        fused_ref = host_reference(torch, trainer, losses, secs_f)
         del grads, errs, trainer, batch
         torch.cuda.empty_cache()
         c5b = run_config5_buckets(torch, np, get_env, launches, reset_launches, fused5)
+
+        # the compiled overlap engine, overlap_updates and the staged
+        # multi-tensor reduce (runs h-l)
+        engine_used = run_engines(torch, np, get_env, launches, reset_launches, composed5,
+                                  fused_ref)
+        torch.backends.cudnn.deterministic = False
+        del composed5, fused_ref
+        env = reinit(get_env)
+        t0 = time.perf_counter()
+        mr_lines, mr_used = run_multi_reduce(torch, launches, reset_launches,
+                                             list(counts.values()), dev)
+        for line in mr_lines:
+            log(line)
+        log(f"# phase multi reduce: ok in {time.perf_counter() - t0:.1f} s, launches {mr_used}")
 
         # the transformer: attention parity, then gpt-medium-2k on 1 rank (B7,
         # B8) and on 8 ranks (zigzag and ring attention: B9)
@@ -2957,7 +3238,11 @@ def main() -> int:
         runs = dict(config4=c4, config5=c5, algos=dense_used, small=small_used,
                     config4_fused=c4f, config5_fused=c5f, config5_buckets=c5b,
                     alltoall=a2a_used, transformer_moe=tm, transformer_zero1=tz,
-                    zero1_resnet=zr, replicated_adam_resnet=rr, zero1_staged=zs)
+                    zero1_resnet=zr, replicated_adam_resnet=rr, zero1_staged=zs,
+                    engine_int8=engine_used["engine int8"],
+                    engine_fused_ring=engine_used["engine fused ring"],
+                    engine_buckets=engine_used["engine buckets"],
+                    overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,

@@ -170,6 +170,24 @@ def _sum_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize):
     return red_chunks[..., :rc].reshape(c, G, G * rc)[..., :n_orig], new_err
 
 
+def inline_body(kind: str, group: ProcessGroup, count: int, block: int, *, config=None,
+                plain: bool = False) -> Tuple[Callable, int]:
+    """-> (body ``(buf, err) -> (result, new_err)``, error-feedback length):
+    the quantized round as a unit of the compiled overlap engine
+    (comm/overlap.py; quant_ring.py:204-246 of the JAX package). The same
+    choice of body as the host request's: where the selection table picks
+    ``pallas_ring`` for this payload (``use_pallas_for``), the fused int8
+    ring B4 with ``ring_kernels.quant_geometry``'s layout; otherwise the
+    composed ring with B1 on every hop on a single-axis group, the entry
+    quantization + sum on self and multi-axis groups. The residual has the
+    geometry and length of the host request for the same payload. ``plain``
+    runs the kernels' plain versions on any device."""
+    fused = config is not None and use_pallas_for(kind, group, count * 4, config)
+    return build_quantized_collective(
+        kind, group, count, block, ring="pallas" if fused else "lax",
+        bidir=bool(getattr(config, "pallas_ring_bidir", False)), plain=plain)
+
+
 def build_quantized_collective(
     kind: str, group: ProcessGroup, count: int, block: int, *,
     ring: str = "lax", bidir: bool = False, plain: bool = False,

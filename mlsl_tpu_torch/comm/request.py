@@ -51,6 +51,7 @@ import torch
 
 from mlsl_tpu_torch.comm import algos, collectives
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
+from mlsl_tpu_torch.core import stats
 from mlsl_tpu_torch.log import log_error, log_warning, mlsl_assert
 from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType, dtype_size
 
@@ -223,6 +224,8 @@ class CommRequest:
             self._dispatched = True
 
     def _launch(self, buf: torch.Tensor) -> None:
+        # per-algorithm launch attribution, as at request.py:953-956
+        stats.record_algo_dispatch(self.desc.kind, self.algo)
         stream = self.dispatcher.stream_for(buf.device)
         if stream is None:
             self._results = self._run(buf)
@@ -297,6 +300,18 @@ class CommRequest:
             err, self._dispatch_error = self._dispatch_error, None
             self.is_started = False
             raise err
+
+
+def in_graph_descriptor(kind: str, name: str, algo: str, count: int,
+                        data_type: DataType, group: ProcessGroup) -> str:
+    """One-line descriptor of a collective round of the compiled overlap
+    engine (comm/overlap.py), which constructs no CommRequest: the grammar of
+    the JAX package's ``CommRequest.describe`` field for field, with
+    ``in_graph=1`` in place of the epoch (request.py:1238-1251)."""
+    payload = count * dtype_size(data_type)
+    return (f"{kind} name={name} algo={algo} count={count} "
+            f"dtype={DataType(data_type).name} axes={group.axes} "
+            f"payload={payload}B in_graph=1")
 
 
 def _check_recv_count(d: CommDesc) -> None:

@@ -5,8 +5,8 @@ codec's block, large-message chunking (reference src/comm_ep.cpp:95-97),
 gradient bucketing (core/bucketing.py),
 newest-first priority deferral and its progress thread (reference
 eplib/env.c:135-165), the collective algorithm engine with its tuned profile
-and kernel knobs (comm/algos, tuner/, ops/), and the staging depth of the
-ZeRO-1 update (comm/overlap.py).
+and kernel knobs (comm/algos, tuner/, ops/), and the compiled overlap engine
+with the staging depth it shares with the ZeRO-1 update (comm/overlap.py).
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -101,7 +101,13 @@ class Config:
     # Off = the same kernel exchanges dense float32.
     pallas_a2a_quant: bool = True    # MLSL_PALLAS_A2A_QUANT
 
-    # --- the staged ZeRO-1 update (comm/overlap.py) ---
+    # --- the compiled overlap engine and the staged ZeRO-1 update
+    # (comm/overlap.py) ---
+    # Arm the compiled step for every DataParallelTrainer that can take it:
+    # local backward, every layer's gradient collective staged newest-first
+    # and the per-layer update in one step, captured as one CUDA graph on the
+    # card. The host Start/Wait path stays the default and the parity oracle.
+    overlap_compiled: bool = False   # MLSL_OVERLAP_COMPILED
     # A unit's phases are spread over this many unit starts.
     overlap_stages: int = 2          # MLSL_OVERLAP_STAGES
 
@@ -158,5 +164,6 @@ class Config:
         c.pallas_rhd_max_bytes = _env_int("MLSL_PALLAS_RHD_MAX_BYTES",
                                           c.pallas_rhd_max_bytes)
         c.pallas_a2a_quant = _env_bool("MLSL_PALLAS_A2A_QUANT", c.pallas_a2a_quant)
+        c.overlap_compiled = _env_bool("MLSL_OVERLAP_COMPILED", c.overlap_compiled)
         c.overlap_stages = _env_int("MLSL_OVERLAP_STAGES", c.overlap_stages)
         return c

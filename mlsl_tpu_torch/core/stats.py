@@ -2,9 +2,11 @@
 
 The core of ``mlsl_tpu.core.stats``: the counters that ``Session._stat_event``
 feeds (session.py:440) -- starts, waits and bytes per request, keyed by
-operation and parameter set -- and the process-wide bucket-round counters
-of gradient bucketing (stats.py:131-175). The JAX package's
-``mlsl_stats.log`` table and the isolation replay at commit come later.
+operation and parameter set -- and the process-wide counters of the dispatch
+layer: bucket rounds of gradient bucketing (stats.py:131-175), launches per
+(kind, algorithm) and the compiled overlap engine's steps (stats.py:640-695).
+The JAX package's ``mlsl_stats.log`` table and the isolation replay at
+commit come later.
 """
 
 from __future__ import annotations
@@ -38,6 +40,54 @@ def record_bucket_round(event: str, members: int = 0, coalesced: int = 0) -> Non
 def reset_bucket_counters() -> None:
     for k in BUCKET_COUNTERS:
         BUCKET_COUNTERS[k] = 0
+
+
+# Per-algorithm dispatch accounting (comm/algos): process-wide like the
+# bucket counters. Key = (kind, algorithm name); value = launches, from the
+# host requests (CommRequest) and, in bulk per step, the compiled overlap
+# engine's units.
+ALGO_COUNTERS: Dict[Tuple[str, str], int] = {}
+
+
+def record_algo_dispatch(kind: str, algo: str) -> None:
+    """One collective launch under ``algo`` (called by CommRequest._launch)."""
+    key = (kind, algo)
+    ALGO_COUNTERS[key] = ALGO_COUNTERS.get(key, 0) + 1
+
+
+def reset_algo_counters() -> None:
+    ALGO_COUNTERS.clear()
+
+
+# Compiled-overlap engine accounting (comm/overlap.py): its units never
+# construct a CommRequest, so their attribution lands here and, per
+# algorithm, in ALGO_COUNTERS.
+OVERLAP_COUNTERS: Dict[str, int] = {
+    "steps": 0,          # compiled-overlap steps run
+    "split_steps": 0,    # of which ran the split program (step_accum)
+    "units": 0,          # reduction units run (cumulative)
+    "rounds": 0,         # collective phases run
+    "bytes": 0,          # logical gradient bytes reduced
+}
+
+
+def record_overlap_step(units: int, rounds: int, nbytes: int, *, split: bool = False,
+                        breakdown: Optional[Dict[Tuple[str, str], int]] = None) -> None:
+    """One compiled-overlap step, attributed in bulk. ``breakdown`` maps
+    (kind, algo) -> unit count and feeds ALGO_COUNTERS."""
+    OVERLAP_COUNTERS["steps"] += 1
+    if split:
+        OVERLAP_COUNTERS["split_steps"] += 1
+    OVERLAP_COUNTERS["units"] += units
+    OVERLAP_COUNTERS["rounds"] += rounds
+    OVERLAP_COUNTERS["bytes"] += nbytes
+    for key, n in (breakdown or {}).items():
+        ALGO_COUNTERS[key] = ALGO_COUNTERS.get(key, 0) + n
+
+
+def reset_overlap_counters() -> None:
+    for k in OVERLAP_COUNTERS:
+        OVERLAP_COUNTERS[k] = 0
 
 
 class _Slot:

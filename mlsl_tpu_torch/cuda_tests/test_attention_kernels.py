@@ -13,7 +13,13 @@ keeping their state bit for bit, m' equal to m bit for bit wherever no key
 beat it, the winner the plain scores' first argmax but at near-ties; its
 backward within 2e-3 of ``block_update_bwd_ref`` with P, dS and ga rounded to
 bf16 (dacc, dm, dl 1e-5) and within 1e-2 of the float32 closed form, both
-given the kernel's winners."""
+given the kernel's winners.
+
+The plain versions run on the card, in float32 (torch's CUDA matmuls take no
+TF32 unless asked). On the CPU, torch's exp has been seen to return one
+parallel chunk of 32,768 elements about 1e-4 off (relative) on its first call
+in a process, in about 1 process of 30, and a plain version computed there
+then misses the 1e-5 bound by itself."""
 
 import numpy as np
 import pytest
@@ -61,6 +67,31 @@ def _rel(a, b):
     return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
 
 
+def _assert_rel(got, want, tol, what, again=None):
+    """The relative L2 error of ``got`` against ``want`` under ``tol``; a
+    failure names the worst element, the (bh, row) pairs that differ by more
+    than 1e-3, and, given ``again`` (a call that gives the kernel's output and
+    the plain version's once more on the same inputs), whether each repeats
+    its own result bit for bit."""
+    rel = _rel(got, want)
+    if rel < tol:
+        return
+    diff = (got.float() - want.float()).abs()
+    at = int(diff.argmax())
+    worst = tuple(int(i) for i in np.unravel_index(at, tuple(diff.shape)))
+    rows = (diff.reshape(diff.shape[0], diff.shape[1], -1).amax(-1) > 1e-3).nonzero().tolist()
+    note = ""
+    if again is not None:
+        got2, want2 = again()
+        note = (f"; repeated bit for bit: kernel {torch.equal(got2, got)}, plain "
+                f"{torch.equal(want2, want)}")
+    raise AssertionError(
+        f"{what}: relative error {rel:.3g} >= {tol:g}; worst |diff| {float(diff.max()):.3g} "
+        f"at {worst} (got {float(got.flatten()[at]):.6g}, want "
+        f"{float(want.flatten()[at]):.6g}); {len(rows)} (bh, row) pairs off by > 1e-3, "
+        f"first {rows[:8]}{note}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FWD_CASES, ids=lambda c: c[0])
@@ -69,16 +100,21 @@ def test_cuda_flash_kernels_match_plain(case, dtype):
     dt = getattr(torch, dtype)
     q, k, v, g = (torch.from_numpy(a).cuda().to(dt) for a in _arrays(name, bh, sq, sk, d))
     tol = 1e-5 if dtype == "float32" else 1e-2
+    qo, ko = tak.offsets(q_off, bh, "cuda"), tak.offsets(k_off, bh, "cuda")
     o, lse = tak.flash_fwd(q, k, v, q_off, k_off, causal)
-    ro, rl = tak.flash_fwd(q.cpu(), k.cpu(), v.cpu(), q_off, k_off, causal)
-    assert _rel(o.cpu(), ro) < tol and _rel(lse.cpu(), rl) < 1e-5
+    ro, rl = tak.flash_fwd_ref(q, k, v, qo, ko, causal)
+    _assert_rel(o, ro, tol, "flash_fwd out",
+                lambda: (tak.flash_fwd(q, k, v, q_off, k_off, causal)[0],
+                         tak.flash_fwd_ref(q, k, v, qo, ko, causal)[0]))
+    _assert_rel(lse, rl, 1e-5, "flash_fwd lse")
     dd = (g.float() * o.float()).sum(-1)
     dq = tak.flash_bwd_dq(q, k, v, g, lse, dd, q_off, k_off, causal)
     dk, dv = tak.flash_bwd_dkv(q, k, v, g, lse, dd, q_off, k_off, causal)
-    cpu = [t.cpu() for t in (q, k, v, g, lse, dd)]
-    assert _rel(dq.cpu(), tak.flash_bwd_dq(*cpu, q_off, k_off, causal)) < tol
-    for got, want in zip((dk, dv), tak.flash_bwd_dkv(*cpu, q_off, k_off, causal)):
-        assert _rel(got.cpu(), want) < tol
+    _assert_rel(dq, tak.flash_bwd_dq_ref(q, k, v, g, lse, dd, qo, ko, causal), tol,
+                "flash_bwd_dq")
+    for what, got, want in zip(("dk", "dv"), (dk, dv),
+                               tak.flash_bwd_dkv_ref(q, k, v, g, lse, dd, qo, ko, causal)):
+        _assert_rel(got, want, tol, f"flash_bwd_dkv {what}")
     if causal:
         rows = torch.from_numpy(_masked_rows(sq, sk, q_off, k_off))
         assert (o.cpu()[:, rows] == 0).all() and (dq.cpu()[:, rows] == 0).all()
@@ -93,10 +129,10 @@ def test_cuda_block_update_matches_plain(case):
                for s in (sq, sk, sk))
     state = [torch.from_numpy(x).cuda() for x in _state_arrays(rng, bh, sq, d)]
     got = tak.block_update(q, k, v, *state, q_off, k_off, causal)
-    want = tak.block_update(q.cpu(), k.cpu(), v.cpu(), *(s.cpu() for s in state), q_off,
-                            k_off, causal)
-    for a, b in zip(got, want):
-        assert _rel(a.cpu(), b) < 1e-5
+    want = tak.block_update_ref(q, k, v, *state, tak.offsets(q_off, bh, "cuda"),
+                                tak.offsets(k_off, bh, "cuda"), causal)
+    for what, a, b in zip(("acc", "m", "l"), got, want):
+        _assert_rel(a, b, 1e-5, f"block_update {what}")
 
 
 # (name, bh, sq, sk, d, causal, q_off, k_off): offsets are one value or one per row

@@ -3,7 +3,8 @@
 Counterpart of the per-layer Start/Wait path of ``mlsl_tpu.models.train``
 (BASELINE config 5, reference loop tests/examples/mlsl_test/mlsl_test.cpp:660-698):
 
-- every virtual data rank computes its OWN gradient on its own local batch --
+- every virtual data rank computes its OWN gradient on its own local batch
+  (``_local_grads``, the one local-gradient core of every path) --
   one forward/backward per rank, batch norm taking statistics on the rank's
   shard. The ranks' losses are never summed into one autograd graph: that
   would compute the allreduce inside autograd and bypass the collective and
@@ -18,7 +19,14 @@ Counterpart of the per-layer Start/Wait path of ``mlsl_tpu.models.train``
   each rank updates only its owned shard -- the optimizer state lives only
   there, (R, D, S, M, owned) -- and StartIncrementComm all-gathers the
   increments (train.py:1181-1232). The global norm for clipping is then
-  assembled from the owned shards' partial sums over the gradient group.
+  assembled from the owned shards' partial sums over the gradient group;
+- with ``overlap_updates`` the layers are polled with TestGradientComm and
+  each is updated the moment its collective lands (train.py:1140-1168, the
+  reference's canonical loop);
+- with ``overlap_compiled`` (or ``MLSL_OVERLAP_COMPILED=1``) the compiled
+  overlap engine (comm/overlap.py) runs the whole step -- local backward,
+  every layer's gradient collective staged newest-first, the per-layer
+  update -- captured as one CUDA graph on the card and replayed each step.
 
 Gradients cross into the framework as distributed buffers (R, D, S, M, count)
 whose rows are the per-rank flat layer gradients, in the JAX package's
@@ -26,8 +34,8 @@ element order (see convert.py), zero-padded to the parameter set's local
 count. When Commit shows that no parameter set communicates (one data rank),
 the step is fused: one forward/backward and the update, no requests --
 unless ``force_graph_path`` asks for the graph. ``step_accum`` sums the
-gradients of several micro-batches before one sync. The overlap engines, the
-sentinel, straggler detection and telemetry are not ported yet.
+gradients of several micro-batches before one sync. The sentinel, straggler
+detection and telemetry are not ported yet.
 """
 
 from __future__ import annotations
@@ -110,6 +118,8 @@ class DataParallelTrainer:
         force_graph_path: bool = False,
         optimizer=None,
         clip_global_norm: Optional[float] = None,
+        overlap_updates: bool = False,
+        overlap_compiled: Optional[bool] = None,
     ):
         """optimizer: a transform of ``mlsl_tpu_torch.optim`` (``adam``,
         ``sgd``); None keeps the built-in SGD (p - lr * mean_grad). With
@@ -117,7 +127,19 @@ class DataParallelTrainer:
         owned gradient shard (ZeRO-1), so only elementwise transforms are
         correct there, as in the JAX package. ``clip_global_norm`` clips the
         mean gradient to this global L2 norm before the optimizer, on every
-        path."""
+        path (``overlap_updates`` aside, which updates each layer with the
+        built-in SGD as in the JAX package).
+
+        overlap_updates: poll every layer's request with TestGradientComm and
+        update it as soon as it lands, not after every wait. Built-in SGD
+        only; not with ``distributed_update``.
+
+        overlap_compiled: arm the compiled overlap engine (comm/overlap.py;
+        None = ``MLSL_OVERLAP_COMPILED``). Built-in SGD only, and not with
+        ``distributed_update`` or ``overlap_updates``: each raises when
+        asked for explicitly, and the environment's knob skips such trainers
+        quietly. A grid without communication keeps the fused step; a TOPK,
+        custom-codec or color-group graph rides the host path."""
         self.env = env
         self.dist = dist
         self.session = session
@@ -128,6 +150,9 @@ class DataParallelTrainer:
         self.lr = lr
         self.optimizer = optimizer
         self.clip_global_norm = clip_global_norm
+        mlsl_assert(optimizer is None or not overlap_updates,
+                    "overlap_updates is not supported with an optimizer (per-layer state "
+                    "slicing would impose its own schedule)")
         mlsl_assert(
             dist.get_process_count_model() == 1
             and dist.replica_count == 1
@@ -185,6 +210,33 @@ class DataParallelTrainer:
                 else:
                     self.opt_state[name] = optimizer.init(self.layer_counts[name],
                                                           device=self.device)
+        mlsl_assert(not (overlap_updates and distributed_update),
+                    "overlap_updates is not supported together with distributed_update "
+                    "(the increment all-gather imposes its own schedule)")
+        self.overlap_updates = overlap_updates
+        # the compiled overlap engine (train.py:455-488): asked for explicitly
+        # alongside a mode with its own schedule it raises; armed by the
+        # environment it skips such trainers
+        if overlap_compiled:
+            mlsl_assert(optimizer is None,
+                        "overlap_compiled is not supported with an optimizer (per-layer "
+                        "fused updates would impose their own state slicing)")
+            mlsl_assert(not distributed_update,
+                        "overlap_compiled is not supported with distributed_update (the "
+                        "increment all-gather imposes its own schedule)")
+            mlsl_assert(not overlap_updates,
+                        "overlap_compiled replaces overlap_updates (the schedule lives in "
+                        "the compiled step, not the host poll loop)")
+        cfg = env.config
+        want = (overlap_compiled if overlap_compiled is not None
+                else bool(cfg is not None and cfg.overlap_compiled))
+        self._overlap = None
+        if (want and optimizer is None and not distributed_update and not overlap_updates
+                and not self.fused):
+            from mlsl_tpu_torch.comm import overlap
+
+            # None where the graph rides the host path (TOPK, codec, colors)
+            self._overlap = overlap.engine_for_trainer(self, cfg)
         self._step_no = 0
 
     def _pset(self, name: str):
@@ -244,6 +296,13 @@ class DataParallelTrainer:
             off += n
 
     @torch.no_grad()
+    def _sgd_layer(self, name: str, reduced: torch.Tensor) -> None:
+        """The built-in SGD of one layer from its reduced (padded count,)
+        gradient sum: p -= lr * sum / data ranks (train.py:694-712), the
+        per-layer update of ``overlap_updates`` and the compiled engine."""
+        self._add_flat(name, -self.lr * (reduced[:self.layer_counts[name]] / self.data_size))
+
+    @torch.no_grad()
     def _replicated_update(self, flat: Dict[str, torch.Tensor], norm: float) -> None:
         """The update from every layer's reduced (count,) gradient, divided by
         ``norm``: clip, then SGD or the optimizer (train.py:543-638, and the
@@ -274,6 +333,8 @@ class DataParallelTrainer:
                     for n in self.layers}
             self._replicated_update(flat, 1.0)
             return loss.detach()
+        if self._overlap is not None:
+            return self._overlap.step(batch)
         loss, grads = self._local_grads(batch)
         return self._sync_and_update(grads, loss)
 
@@ -293,13 +354,30 @@ class DataParallelTrainer:
             total = grads if total is None else {n: total[n] + grads[n] for n in self.layers}
             loss_sum = loss if loss_sum is None else loss_sum + loss
         k = len(batches)
-        return self._sync_and_update({n: g / k for n, g in total.items()}, loss_sum / k)
+        grads, loss = {n: g / k for n, g in total.items()}, loss_sum / k
+        if self._overlap is not None:
+            # the accumulated gradients ride the engine's split program
+            self._overlap.step(None, grads=grads)
+            return loss
+        return self._sync_and_update(grads, loss)
+
+    def precompile(self, batch) -> None:
+        """Ahead of the first step (train.py:757-785): the compiled overlap
+        engine captures its step's CUDA graph on the card (on the CPU it runs
+        the step once). ``batch`` is a ``shard_batch`` result; it is read,
+        not trained on: parameters, residuals and the step count are
+        unchanged afterwards. The eager paths have nothing to prepare."""
+        if self._overlap is not None:
+            self._overlap.precompile(batch)
 
     def _sync_and_update(self, grads, loss) -> torch.Tensor:
         # Start gradient comms newest-gradient-first (reverse layer order), the
         # stream shape eplib's priority allreduce was built for.
         for name in reversed(self.layers):
             self._pset(name).start_gradient_comm(grads[name])
+        if self.overlap_updates:
+            self._poll_and_update(grads)
+            return loss
         if not (self.distributed_update and self._needs_comm):
             reduced = {}
             for name in self.layers:
@@ -311,6 +389,27 @@ class DataParallelTrainer:
             return loss
         self._zero1_update()
         return loss
+
+    def _poll_and_update(self, grads) -> None:
+        """Poll every layer's request with TestGradientComm and update each
+        as it lands (train.py:1140-1168); when a pass lands nothing, wait on
+        the last pending layer (the first one started) rather than spin."""
+        def apply(name, out):
+            self._sgd_layer(name, (out if out is not None else grads[name])[0, 0, 0, 0])
+
+        pending = list(self.layers)
+        while pending:
+            still = []
+            for name in pending:
+                done, out = self._pset(name).test_gradient_comm()
+                if done:
+                    apply(name, out)
+                else:
+                    still.append(name)
+            if still and len(still) == len(pending):
+                name = still.pop()
+                apply(name, self._pset(name).wait_gradient_comm())
+            pending = still
 
     @torch.no_grad()
     def _zero1_update(self) -> None:

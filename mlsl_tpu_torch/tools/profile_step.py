@@ -3,7 +3,7 @@
 Run from the root of a checkout, on a machine with a card:
 
     python3 -m mlsl_tpu_torch.tools.profile_step [--model resnet] [--steps 3] [--warmup 2]
-        [--blocks N] [--zero1]
+        [--blocks N] [--zero1] [--overlap-compiled]
 
 ``--model`` picks the step:
 
@@ -26,7 +26,15 @@ Run from the root of a checkout, on a machine with a card:
 distributed update (ZeRO-1), its requests coalesced into gradient buckets:
 ``MLSL_GRAD_BUCKET_MB=25`` and ``MLSL_ALGO=reduce_scatter=pallas_ring2d``
 (kernel B3 over the snake cycle of the data x seq group) unless exported --
-chip_smoke.py's run (f).
+chip_smoke.py's run (f). ``--overlap-compiled`` trains the resnet step on the
+compiled overlap engine (comm/overlap.py), chip_smoke.py's run (h): the step
+is captured as one CUDA graph (``precompile``) and replayed; its traced
+steps are single host ranges (``engine_step``), and its halves are split on
+the device timeline at each step's first codec kernel (the first unit's
+entry quantization: every rank's forward and backward run before it, the
+staged schedule and the updates from it). The output adds the capture's
+seconds and the launches recorded into the graph
+(``launches_one_captured_step``).
 
 It warms up, times ``--steps`` steps with the host clock, then traces as
 many steps again with ``torch.profiler`` (the Chrome trace goes to
@@ -78,6 +86,7 @@ from mlsl_tpu_torch.ops import quant_kernels as qk
 from mlsl_tpu_torch.ops import ring_kernels as rk
 
 HALVES = ("local_grads", "sync_and_update")
+ENGINE_STEP = "engine_step"
 CLASSES = (
     ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
     # B9's wgmma backward passes; B9's forward in both forms (bu_sm90, the
@@ -96,7 +105,7 @@ LIBRARY_CLASSES = (
 )
 
 
-def build_trainer(world=8, image=224, classes=1000, batch=64, seed=0):
+def build_trainer(world=8, image=224, classes=1000, batch=64, seed=0, overlap_compiled=False):
     gen = torch.Generator().manual_seed(seed)
     env = get_env().init(world_size=world)
     model = resnet.ResNet50(num_classes=classes, generator=gen, device=env.device)
@@ -106,6 +115,7 @@ def build_trainer(world=8, image=224, classes=1000, batch=64, seed=0):
     trainer = DataParallelTrainer(
         env, dist, sess, model, resnet.loss_fn, resnet.layer_names(model),
         resnet.layer_subtree, compression=CompressionType.QUANTIZATION, lr=0.05,
+        overlap_compiled=overlap_compiled,
     )
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
@@ -137,10 +147,15 @@ def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, ze
 
 
 def traced_step(trainer, batch) -> None:
-    """One step as its two halves, each a named range ending in a
+    """One step as its two halves (the compiled engine's: one range), each a named range ending in a
     synchronize, so the device work of each half lies inside its range
     (the transformer's fused step runs here as its graph form, whose
     requests communicate nothing)."""
+    if getattr(trainer, "_overlap", None) is not None:
+        with torch.profiler.record_function(ENGINE_STEP):
+            trainer.step(batch)
+            torch.cuda.synchronize()
+        return
     with torch.profiler.record_function(HALVES[0]):
         if isinstance(trainer, DataParallelTrainer):
             trainer._step_no += 1
@@ -183,21 +198,38 @@ def _launched_in(events, name):
     return inside
 
 
-def summarize(trace: dict, top: int, steps: int) -> dict:
-    """Chrome trace of ``steps`` traced steps -> the per-step summary."""
+def _span(kernels, lo, hi) -> float:
+    """Kernel time inside [lo, hi): the union of the kernels' intervals."""
+    return _union([(max(s, lo), min(t, hi)) for s, t, *_ in kernels if s < hi and t > lo])
+
+
+def summarize(trace: dict, top: int, steps: int, engine: bool = False) -> dict:
+    """Chrome trace of ``steps`` traced steps -> the per-step summary: the
+    host path's two halves, or the engine's step split at its first codec
+    kernel."""
     events = trace["traceEvents"]
     in_b9_bwd = _launched_in(events, B9_BWD_RANGE)
     kernels = [(e["ts"], e["ts"] + e["dur"], e["name"], in_b9_bwd(e)) for e in events
                if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise SystemExit("profile_step: the trace holds no device kernel")
+    names = (ENGINE_STEP,) if engine else HALVES
     windows = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-               if e.get("cat") == "user_annotation" and e.get("name") in HALVES]
-    halves = {h: {"wall_s": 0.0, "kernel_s": 0.0} for h in HALVES}
+               if e.get("cat") == "user_annotation" and e.get("name") in names]
+    spans = []
     for name, a, b in windows:
-        inside = [(max(s, a), min(t, b)) for s, t, *_ in kernels if s < b and t > a]
+        spans.append((name, a, b))
+        if engine:
+            codec = CLASSES[0][1]
+            cut = min((s for s, t, n, _ in kernels if a <= s < b and codec.search(n)),
+                      default=None)
+            if cut is None:
+                raise SystemExit("profile_step: an engine step launched no codec kernel")
+            spans += [(HALVES[0], a, cut), (HALVES[1], cut, b)]
+    halves = {h: {"wall_s": 0.0, "kernel_s": 0.0} for h in (*names, *HALVES)}
+    for name, a, b in spans:
         halves[name]["wall_s"] += (b - a) * 1e-6 / steps
-        halves[name]["kernel_s"] += _union(inside) * 1e-6 / steps
+        halves[name]["kernel_s"] += _span(kernels, a, b) * 1e-6 / steps
     for h in halves.values():
         h["idle_share"] = 1.0 - h["kernel_s"] / h["wall_s"] if h["wall_s"] else None
     by_name = {}
@@ -233,6 +265,8 @@ def main(argv=None) -> int:
                     help="a transformer step's depth (default: its own, see above)")
     ap.add_argument("--zero1", action="store_true",
                     help="a transformer step with Adam, ZeRO-1 and 25 MiB gradient buckets")
+    ap.add_argument("--overlap-compiled", action="store_true",
+                    help="the resnet step on the compiled overlap engine, one CUDA graph")
     ap.add_argument("--trace", default=str(build_dir() / "profile_step.trace.json"),
                     help="where the Chrome trace is written (default: the git-ignored "
                          "build directory of the checkout)")
@@ -243,9 +277,21 @@ def main(argv=None) -> int:
         return 1
     if args.zero1 and args.model == "resnet":
         ap.error("--zero1 takes a transformer model")
+    if args.overlap_compiled and args.model != "resnet":
+        ap.error("--overlap-compiled takes the resnet model")
+    engine = {}
     if args.model == "resnet":
-        env, trainer, batch = build_trainer()
+        env, trainer, batch = build_trainer(overlap_compiled=args.overlap_compiled)
         blocks = None
+        if args.overlap_compiled:
+            t0 = time.perf_counter()
+            trainer.precompile(batch)
+            torch.cuda.synchronize()
+            engine = {"precompile_s": time.perf_counter() - t0,
+                      "capture_s": trainer._overlap.capture_s["step"],
+                      "launches_one_captured_step": trainer._overlap.capture_launches["step"],
+                      "units": len(trainer._overlap.plan.units),
+                      "plan_algos": trainer._overlap.plan.algos_summary()}
         step = lambda: trainer.step(batch)          # noqa: E731
     else:
         *shape, blocks = TRANSFORMERS[args.model]
@@ -287,8 +333,8 @@ def main(argv=None) -> int:
            "grad_bucket_mb": bucket_mb, "traced_bucket_rounds": buckets,
            "step_s": step_s, "peak_gib": peak_gib,
            "device_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
-           "traced_launches": launches,
-           **summarize(trace, args.top, args.steps)}
+           "traced_launches": launches, "overlap_compiled": args.overlap_compiled, **engine,
+           **summarize(trace, args.top, args.steps, engine=args.overlap_compiled)}
     print(json.dumps(out))
     return 0
 
