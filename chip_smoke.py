@@ -198,6 +198,39 @@ Phases, in order; any failure exits non-zero and prints no result:
              plan on the plain versions run eagerly (results and residuals);
              ms a call eager and replayed.
 
+28. activation graph (run (m), after 18-19): first the port's walkthrough
+             (mlsl_tpu_torch/tools/mlsl_example.py: examples/mlsl_example.py's
+             calls on a data 4 x model 2 grid), then tests/test_e2e_graph.py's
+             two CC ops (FM1 -> FM2 -> FM1) at gpt-medium-2k's MLP widths (FM1 =
+             d_model 1,024, FM2 = d_ff 4,096, fm_size 1, 8 x 2,048 = 16,384
+             tokens, float32, 8 ranks) through the reference loop
+             (mlsl_test.cpp:660-698): pack and start FPROP, wait, start BPROP and
+             wait, then each parameter set's gradient request; two checked
+             iterations, then three timed. (m1) case 1 at model 2 and 4; (m2)
+             cases 2 and 3 from (data 4, model 2); (m3) cases 4 and 5 between
+             (8, 1) and (2, 4); (m4) (m1) at model 2 with int8 sets; (m5) (m1) at
+             model 2 with the distributed update. (m1)-(m4) under SPEC_RING (B3
+             for every allreduce and reduce_scatter) and SPEC_RHD (B5 for the
+             allreduces), B6 dense for every alltoall, MLSL_STATS=1 (the
+             isolation replay at commit, the statistics table). Every round
+             against its closed form (float64 sums within 1e-6, int8 sums within
+             2 %, concatenations and alltoall moves bit for bit) and against the
+             plain version of the same plan bit for bit (residuals too); each
+             variant's launches equal PREDICTED_M. One line a variant: launches,
+             worst errors, commit and isolation seconds, loop iteration seconds,
+             peak GiB, the overlap fraction; one with each request's ms and
+             algbw; the first lines of the statistics table of (m1) at model 4.
+29. collectives (run (n)): every kind (allreduce with each op, reduce,
+             bcast, allgather, allgatherv, gather, scatter, reduce_scatter,
+             alltoall, alltoallv in matrix and per-rank form from SEED,
+             sendrecv on ring pairs) and the barrier through Distribution on a
+             (4, 2) grid's data and model groups, equal color groups (p % 2,
+             p // 4) and ragged ones (3 + 5; allgatherv and alltoallv are
+             refused there), 16 MiB a rank, float32 and int32, against closed
+             forms computed on the card (float64 sums within 1e-6, the rest bit
+             for bit); gather_to_host; configure("color=...") restricting the
+             world; no kernel launches. ms a call.
+
 A captured graph counts its launches once, when it is recorded: the engine
 runs' launches are those of precompile's eager warm-up step and its capture,
 and each prints the launches of one captured step.
@@ -713,7 +746,7 @@ def check_config5(torch, trainer, losses, grads, errs):
 # -- the algorithm engine ---------------------------------------------------
 
 ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
-             "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB")
+             "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB", "MLSL_STATS", "MLSL_STATS_DIR")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -2963,6 +2996,605 @@ def run_multi_reduce(torch, launches, reset_launches, counts, dev):
     return lines, used
 
 
+# -- the model-parallel graph (run (m)) and the eleven collectives (run (n)) ---------
+
+# run (m): tests/test_e2e_graph.py's graph (two CC ops, FM1 -> FM2 -> FM1) at
+# gpt-medium-2k's MLP widths, d_model 1,024 and d_ff 4,096
+# (benchmarks/transformer_bench.py:106-108), fm_size 1, one token a minibatch
+# sample: batch 8 x seq 2,048 = 16,384 tokens, float32, on 8 virtual ranks
+MLP_FM1, MLP_FM2 = 1024, 4096
+MLP_TOKENS = 8 * 2048
+# the engine's kernels for the graph's requests: B3 for every reduce_scatter,
+# B3 or B5 for the allreduces, B6 (dense) for the alltoalls
+SPEC_RING = "allreduce=pallas_ring,reduce_scatter=pallas_ring,alltoall=pallas_a2a"
+SPEC_RHD = "allreduce=pallas_rhd,reduce_scatter=pallas_ring,alltoall=pallas_a2a"
+SUM_RTOL = 1e-6          # float32 sums against the float64 sum of the members
+INT8_REL = 0.02          # int8 gradient sums, relative L2 (tests/test_e2e_graph.py)
+MLP_ITERS = 2            # the reference loop's iterations (test_full_reference_loop)
+# run (n): 16 MiB a rank on a (4, 2) grid
+COLL_N = (16 << 20) // 4
+
+
+def fill(torch, topo, n, scale, dev, dtype=None):
+    """The closed-form fills of the JAX tests: rank p holds scale * (p * 1000
+    + i), as a (R, D, S, M, n) buffer."""
+    p = torch.arange(topo.world_size, device=dev, dtype=torch.float32).view(-1, 1)
+    x = (p * 1000.0 + torch.arange(n, device=dev, dtype=torch.float32)) * scale
+    if dtype is not None:
+        x = x.to(dtype)
+    return x.reshape(*topo.grid_shape, n)
+
+
+def members_of(topo, p, axes):
+    """World ranks of p's group over ``axes``, in member order, from the rank
+    formula alone (the oracle does not use the port's group tables)."""
+    from mlsl_tpu_torch.comm.mesh import GRID_AXES
+
+    keep = [i for i, a in enumerate(GRID_AXES) if a not in axes]
+    idx = [GRID_AXES.index(a) for a in axes]
+    cp = topo.coords(p)
+    qs = [q for q in range(topo.world_size) if all(topo.coords(q)[i] == cp[i] for i in keep)]
+    return sorted(qs, key=lambda q: [topo.coords(q)[i] for i in idx])
+
+
+def group_members(group, p):
+    """p's members for an axis or color group (colors: world-rank order)."""
+    if group.colors is not None:
+        return [q for q in range(len(group.colors)) if group.colors[q] == group.colors[p]]
+    return members_of(group.topology, p, group.axes)
+
+
+def check_request(torch, req, x, out, tag, quant=False, errs=None):
+    """One round of a graph request held to its closed form (float64 sums
+    within SUM_RTOL, int8 sums within INT8_REL, concatenations and alltoall
+    moves bit for bit) and to the plain version of the same plan, bit for
+    bit (with the residuals ``errs`` it started from, for int8). -> the
+    round's new residuals of the plain twin (int8) or None."""
+    d = req.desc
+    group = d.group
+    topo = group.topology
+    xw = x.reshape(topo.world_size, -1)
+    ow = out.reshape(topo.world_size, -1)
+    worst = 0.0
+    for p in range(topo.world_size):
+        mem = group_members(group, p)
+        my = mem.index(p)
+        if d.kind in ("allreduce", "reduce_scatter"):
+            exact = sum(xw[q].double() for q in mem)
+            if d.kind == "reduce_scatter":
+                exact = exact[my * d.recv_count:(my + 1) * d.recv_count]
+            if quant:
+                rel = float((ow[p].double() - exact).norm() / exact.norm())
+                check(rel < INT8_REL, f"{tag}: rank {p} int8 sum {rel:.3g} off")
+            else:
+                rel = float(((ow[p].double() - exact).abs()
+                             / exact.abs().clamp_min(1e-30)).max())
+                check(rel <= SUM_RTOL, f"{tag}: rank {p} sum {rel:.3g} off the float64 sum")
+            worst = max(worst, rel)
+        elif d.kind == "allgather":
+            check(same_bits(torch, ow[p], torch.cat([xw[q] for q in mem])),
+                  f"{tag}: rank {p} is not its members' concatenation")
+        elif d.kind == "alltoall":
+            blk = d.count
+            check(same_bits(torch, ow[p], torch.cat([xw[q, my * blk:(my + 1) * blk]
+                                                     for q in mem])),
+                  f"{tag}: rank {p} did not receive its block of every member")
+    twin, new_errs = req.plain_result(x, errs)
+    check(same_bits(torch, out, twin), f"{tag}: the {req.algo} round differs from the plain "
+                                       f"version of the same plan")
+    if quant:
+        for mine, want in zip(req._errs, new_errs):
+            check(same_bits(torch, mine, want), f"{tag}: residuals differ from the plain "
+                                                f"version's")
+    return worst
+
+
+def time_request(torch, req, buf, launches_mods):
+    """ms of one Start + Wait round of ``req`` on ``buf``, CUDA events over
+    5 rounds; the timing's launches are not the path's."""
+    before = [dict(m.LAUNCHES) for m in launches_mods]
+
+    def round_():
+        req.start(buf)
+        req.wait()
+
+    ms = time_ms(torch, round_, reps=5, warmup=1)
+    for m, b in zip(launches_mods, before):
+        m.LAUNCHES.update(b)
+    return ms
+
+
+def mlp_net(env, dist_a, dist_b=None, edge_fm=None, out_type=None, du=False, quant=False):
+    """(session, op1, op2): with ``dist_b`` None tests/test_e2e_graph.py's
+    _build_net (two CC ops with parameter sets), else its _build_edge: op1
+    on ``dist_a`` with an ``edge_fm`` output of ``out_type`` into an ACT op
+    on ``dist_b``."""
+    from mlsl_tpu_torch import CompressionType, OpType
+
+    comp = CompressionType.QUANTIZATION if quant else CompressionType.NONE
+    s = env.create_session()
+    s.set_global_minibatch_size(MLP_TOKENS)
+    r1 = s.create_operation_reg_info(out_type if dist_b is not None else OpType.CC)
+    r1.add_input(MLP_FM1, 1)
+    r1.add_output(edge_fm or MLP_FM2, 1)
+    if dist_b is None:
+        r1.add_parameter_set(MLP_FM1 * MLP_FM2, 1, distributed_update=du,
+                             compression_type=comp)
+    op1 = s.get_operation(s.add_operation(r1, dist_a))
+    r2 = s.create_operation_reg_info(OpType.CC if dist_b is None else OpType.ACT)
+    r2.add_input(edge_fm or MLP_FM2, 1)
+    r2.add_output(MLP_FM1 if dist_b is None else edge_fm, 1)
+    if dist_b is None:
+        r2.add_parameter_set(MLP_FM2 * MLP_FM1, 1, distributed_update=du,
+                             compression_type=comp)
+    op2 = s.get_operation(s.add_operation(r2, dist_b or dist_a))
+    op1.set_next(op2, 0, 0)
+    s.commit()
+    return s, op1, op2
+
+
+def mlp_round(torch, act, peer, buf, tag, worst, quant=False):
+    """Start ``act``'s request on ``buf``, wait through its peer, check."""
+    errs = ([e.clone() for e in act.comm_req._errs] if quant and act.comm_req._errs
+            else None)
+    act.start_comm(buf)
+    out = peer.wait_comm()
+    torch.cuda.synchronize()
+    worst[tag] = max(worst.get(tag, 0.0), check_request(torch, act.comm_req, buf, out, tag,
+                                                        quant, errs))
+    return out
+
+
+def grad_round(torch, ps, buf, tag, worst, quant=False, inc=False):
+    req = ps.inc_req if inc else ps.grad_req
+    errs = [e.clone() for e in req._errs] if quant and req._errs else None
+    if inc:
+        ps.start_increment_comm(buf)
+        out = ps.wait_increment_comm()
+    else:
+        ps.start_gradient_comm(buf)
+        out = ps.wait_gradient_comm()
+    torch.cuda.synchronize()
+    worst[tag] = max(worst.get(tag, 0.0), check_request(torch, req, buf, out, tag, quant,
+                                                        errs))
+    return out
+
+
+def mlp_loop(torch, env, ops, dev, checked=True, iters=MLP_ITERS):
+    """The reference loop of test_full_reference_loop (mlsl_test.cpp:660-698)
+    on the case-1 graph: Forward (pack, start FPROP), Wait, Backward1 (start
+    BPROP, wait), Backward2 + Update (each parameter set's gradient request,
+    newest first, and the increment under the distributed update). With
+    ``checked`` every round is held to its closed form and its plain twin.
+    -> (worst relative sum errors, wall seconds of each iteration)."""
+    from mlsl_tpu_torch.core.activation import pack_local
+
+    _, op1, op2 = ops
+    out_act, in_act = op1.get_output(0), op2.get_input(0)
+    topo = op1.get_distribution().topology
+    mb = op1.get_local_minibatch_size()
+    worst, secs = {}, []
+    for it in range(iters):
+        acts = fill(torch, topo, mb * out_act.local_fm_count, it + 1.0, dev)
+        wire = pack_local(acts, out_act.pack_blocks, mb, out_act.local_fm_count, 1)
+        del acts
+        grads_a = fill(torch, topo, mb * in_act.local_fm_count, it + 2.0, dev)
+        grads = [(op.get_parameter_set(0),
+                  fill(torch, topo, op.get_parameter_set(0).get_local_kernel_count(),
+                       it + 3.0, dev)) for op in (op2, op1)]
+        incs = [fill(torch, topo, ps.get_owned_kernel_count(), it + 4.0, dev)
+                for ps, _ in grads]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if checked:
+            mlp_round(torch, out_act, in_act, wire, "FPROP", worst)
+            mlp_round(torch, in_act, out_act, grads_a, "BPROP", worst)
+            for (ps, g), inc in zip(grads, incs):
+                quant = ps.compression != 0
+                grad_round(torch, ps, g, f"grad {ps.op.name}", worst, quant)
+                if ps.distributed_update:
+                    grad_round(torch, ps, inc, f"inc {ps.op.name}", worst, inc=True)
+        else:
+            out_act.start_comm(wire)
+            in_act.wait_comm()
+            in_act.start_comm(grads_a)
+            out_act.wait_comm()
+            for ps, g in grads:
+                ps.start_gradient_comm(g)
+            for (ps, _), inc in zip(grads, incs):
+                ps.wait_gradient_comm()
+                if ps.distributed_update:
+                    ps.start_increment_comm(inc)
+                    ps.wait_increment_comm()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        del wire, grads_a, grads, incs
+    return worst, secs
+
+
+def mlp_request_lines(torch, ops, mods, dev):
+    """ms a request and algbw for each of the graph's requests, on its own."""
+    s, op1, op2 = ops
+    out = {}
+    reqs = [("FPROP", op1.get_output(0).comm_req), ("BPROP", op2.get_input(0).comm_req)]
+    for op in (op1, op2):
+        for ps in op.parameter_sets:
+            reqs.append((f"grad {op.name}", ps.grad_req))
+            if ps.inc_req is not None:
+                reqs.append((f"inc {op.name}", ps.inc_req))
+    for name, req in reqs:
+        if req is None:
+            continue
+        topo = req.desc.group.topology
+        buf = fill(torch, topo, req.desc.send_len(), 1.0, dev)
+        ms = time_request(torch, req, buf, mods)
+        nbytes = req.desc.send_len() * 4
+        out[name] = {"kind": req.desc.kind, "algo": req.algo, "bytes_a_rank": nbytes,
+                     "ms": round(ms, 5), "algbw_GBps": round(nbytes / ms / 1e6, 2)}
+        del buf
+    return out
+
+
+def run_activation_graph(torch, np, get_env, launches, reset_launches, mods, dev):
+    """Run (m): (m1) the case-1 loop at model 2 and 4, (m2) cases 2 and 3,
+    (m3) cases 4 and 5, (m4) int8 parameter sets at model 2, (m5) the
+    distributed update at model 2; (m1)-(m4) under SPEC_RING and SPEC_RHD,
+    (m5) under SPEC_RING. Launches of each variant's checked loop are held
+    to PREDICTED_M. -> (lines, launches by variant)."""
+    import tempfile
+
+    from mlsl_tpu_torch import OpType
+    from mlsl_tpu_torch.core.activation import pack_local
+    from mlsl_tpu_torch.tools import mlsl_example
+
+    lines, used = [], {}
+    # the JAX package's examples/mlsl_example.py, its calls unchanged in form
+    reinit(get_env)
+    ex = mlsl_example.main(device=dev, log=lambda s: None)    # finalizes its Environment
+    get_env().init(device=dev, world_size=WORLD)
+    check(ex["data_parts"] == 4 and float(ex["allreduce"][0]) == 36.0
+          and all(v == 4.0 * (it + 1) for (it, _), v in ex["reduced"].items())
+          and ex["case"] == "reduce_scatter" and "GRAD0" in ex["table"],
+          f"walkthrough: {ex}")
+    lines.append(f"# phase activation walkthrough: ok, examples/mlsl_example.py's calls on a "
+                 f"data 4 x model 2 grid: allreduce {float(ex['allreduce'][0])}, case-1 "
+                 f"{ex['case']}, gradient sums {sorted(set(ex['reduced'].values()))}")
+    stats_dir = tempfile.mkdtemp(prefix="mlsl_stats_")
+    variants = [(f"m1 model {m} {tag}", spec, m, "case1", {})
+                for tag, spec in (("ring", SPEC_RING), ("rhd", SPEC_RHD)) for m in (2, 4)]
+    variants += [(f"m2 {case} {tag}", spec, 2, case, {})
+                 for tag, spec in (("ring", SPEC_RING), ("rhd", SPEC_RHD))
+                 for case in ("case2", "case3")]
+    variants += [(f"m3 {case} {tag}", spec, 4, case, {})
+                 for tag, spec in (("ring", SPEC_RING), ("rhd", SPEC_RHD))
+                 for case in ("case4", "case5")]
+    variants += [(f"m4 int8 model 2 {tag}", spec, 2, "case1", {"quant": True})
+                 for tag, spec in (("ring", SPEC_RING), ("rhd", SPEC_RHD))]
+    variants += [("m5 zero1 model 2 ring", SPEC_RING, 2, "case1", {"du": True})]
+    try:
+        for tag, spec, m, case, kw in variants:
+            env = reinit(get_env, MLSL_ALGO=spec, MLSL_PALLAS_A2A_QUANT="0", MLSL_STATS="1",
+                         MLSL_STATS_DIR=stats_dir)
+            held = settle(torch)
+            t0 = time.perf_counter()
+            d = WORLD // m
+            if case == "case1":
+                dist = env.create_distribution(d, m)
+                ops = mlp_net(env, dist, **kw)
+            else:
+                a, b = {"case2": ((d, m), (d, 1)), "case3": ((d, m), (WORLD, 1)),
+                        "case4": ((WORLD, 1), (d, m)), "case5": ((d, m), (WORLD, 1))}[case]
+                cc = case in ("case2", "case3")
+                ops = mlp_net(env, env.create_distribution(*a), env.create_distribution(*b),
+                              edge_fm=MLP_FM2, out_type=OpType.CC if cc else OpType.ACT)
+            commit_s = time.perf_counter() - t0
+            stats = ops[0].get_stats()
+            iso_s = stats.isolation_s
+            reset_launches()
+            if case == "case1":
+                worst, _ = mlp_loop(torch, env, ops, dev)
+            else:
+                worst = {}
+                _, op1, op2 = ops
+                out_act, in_act = op1.get_output(0), op2.get_input(0)
+                mb = op1.get_local_minibatch_size()
+                topo_a = op1.get_distribution().topology
+                topo_b = op2.get_distribution().topology
+                for it in range(MLP_ITERS):
+                    acts = fill(torch, topo_a, mb * out_act.local_fm_count, it + 1.0, dev)
+                    wire = pack_local(acts, out_act.pack_blocks, mb, out_act.local_fm_count, 1)
+                    del acts
+                    mlp_round(torch, out_act, in_act, wire, "FPROP", worst)
+                    if in_act.comm_req is not None:
+                        n_b = in_act.comm_req.desc.send_len()
+                        mlp_round(torch, in_act, out_act, fill(torch, topo_b, n_b, it + 2.0, dev),
+                                  "BPROP", worst)
+                    del wire
+            torch.cuda.synchronize()
+            c = {k: v for k, v in launches().items() if v}
+            want = PREDICTED_M[tag]
+            check(c == want, f"activation {tag}: launches {c}, predicted {want}")
+            used[tag] = c
+            if case == "case1":
+                _, secs = mlp_loop(torch, env, ops, dev, checked=False, iters=3)
+            else:
+                secs = []
+            req_ms = mlp_request_lines(torch, ops, mods, dev)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            rep = stats.overlap_report()
+            lines.append(
+                f"# activation {tag}: ok, launches {json.dumps(c, sort_keys=True)}, worst "
+                f"sum errors "
+                f"{json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}, "
+                f"commit {commit_s:.3f} s (isolation replay {iso_s:.3f} s), "
+                f"loop iteration {[round(s, 5) for s in secs]} s, peak {peak:.2f} GiB "
+                f"(held before {held[0]:.2f} GiB), overlap {rep['total']['overlap_fraction']}")
+            lines.append(f"# activation {tag} requests: {json.dumps(req_ms)}")
+            if tag == "m1 model 4 ring":
+                table = stats.print_()
+                lines += [f"#   stats: {ln}" for ln in table.splitlines()[:12]]
+            del ops, stats
+    finally:
+        import shutil
+
+        shutil.rmtree(stats_dir, ignore_errors=True)
+    return lines, used
+
+
+# launches of each run (m) variant's two checked loop iterations, predicted
+# from the plan before the first chip run (PERF.md §6): B3 = dense_ring,
+# B5 = rhd_allreduce, B6 = a2a_dense, B1 = quantize_blocks, B4 = quant_ring
+PREDICTED_M = {
+    "m1 model 2 ring": {"dense_ring": 6},          # FPROP RS + 2 gradient allreduces
+    "m1 model 4 ring": {"dense_ring": 6},
+    "m1 model 2 rhd": {"dense_ring": 2, "rhd_allreduce": 4},
+    "m1 model 4 rhd": {"dense_ring": 2, "rhd_allreduce": 4},
+    "m2 case2 ring": {"dense_ring": 2},            # FPROP allreduce, no BPROP
+    "m2 case3 ring": {"dense_ring": 2},            # FPROP RS; BPROP allgather on lax
+    "m2 case2 rhd": {"rhd_allreduce": 2},
+    "m2 case3 rhd": {"dense_ring": 2},
+    "m3 case4 ring": {"a2a_dense": 4},             # FPROP and BPROP alltoall
+    "m3 case5 ring": {"a2a_dense": 4},
+    "m3 case4 rhd": {"a2a_dense": 4},
+    "m3 case5 rhd": {"a2a_dense": 4},
+    # FPROP RS on B3; each int8 set: B1 + B4 on the fused ring, 5 B1 (G + 1)
+    # on the composed ring (the int8 request keeps it where pallas_rhd is asked)
+    "m4 int8 model 2 ring": {"dense_ring": 2, "quantize_blocks": 4, "quant_ring": 4},
+    "m4 int8 model 2 rhd": {"dense_ring": 2, "quantize_blocks": 20},
+    # FPROP RS + 2 gradient reduce_scatters on B3; the increments on lax
+    "m5 zero1 model 2 ring": {"dense_ring": 6},
+}
+
+
+def coll_expected(torch, kind, group, x, kw):
+    """The closed form of one collective on world rows x (W, n): float64
+    member sums, moves assembled rank by rank from the members' rows. Ragged
+    color groups pad to the largest group (absent members zeros)."""
+    w = x.shape[0]
+    gmax = group.size
+    rows = []
+    for p in range(w):
+        mem = group_members(group, p)
+        my = mem.index(p)
+        op = kw.get("op")
+        if kind in ("allreduce", "reduce", "reduce_scatter"):
+            vals = torch.stack([x[q] for q in mem]).double()
+            r = (vals.sum(0) if op in (None, 0) else vals.amin(0) if op == 1 else vals.amax(0))
+            if kind == "reduce_scatter":
+                rc = kw["recv_count"]
+                r = r[my * rc:(my + 1) * rc]
+        elif kind == "bcast":
+            r = x[mem[kw["root"]]]
+        elif kind in ("allgather", "gather"):
+            r = torch.cat([x[q] for q in mem] + [torch.zeros_like(x[p])] * (gmax - len(mem)))
+        elif kind == "allgatherv":
+            r = torch.cat([x[q, :kw["recv_counts"][j]] for j, q in enumerate(mem)])
+        elif kind == "scatter":
+            rc = kw["recv_count"]
+            r = x[mem[kw["root"]], my * rc:(my + 1) * rc]
+        elif kind == "alltoall":
+            sc = kw["send_count"]
+            r = torch.cat([x[q, my * sc:(my + 1) * sc] for q in mem]
+                          + [torch.zeros_like(x[p, :sc])] * (gmax - len(mem)))
+        elif kind == "sendrecv":
+            src = [s for s, t in kw["pairs"] if t == my]
+            r = x[mem[src[0]]] if src else torch.zeros_like(x[p])
+        else:   # alltoallv: the per-rank (Sw) or the instance (S) matrices
+            r = torch.zeros(kw["recv_len"], dtype=x.dtype, device=x.device)
+            for j, q in enumerate(mem):
+                if "Sw" in kw:
+                    cnt, soff, roff = kw["Sw"][q][my], kw["Swoff"][q][my], kw["Rwoff"][p][j]
+                else:
+                    cnt, soff, roff = kw["S"][j][my], kw["Soff"][j][my], kw["Roff"][my][j]
+                r[roff:roff + cnt] = x[q, soff:soff + cnt]
+        rows.append(r)
+    return rows
+
+
+def run_collectives(torch, np, get_env, dev):
+    """Run (n): the eleven collectives and the barrier on a (4, 2) grid's
+    data and model groups, equal color groups (p % 2, p // 4) and ragged ones
+    (sizes 3 and 5), at COLL_N float32 a rank and in int32, through
+    Distribution; each against its closed form (sums in float64 within
+    SUM_RTOL, int32 and moves bit for bit); alltoallv with count matrices
+    from SEED in matrix and per-rank form; gather_to_host on axis and ragged
+    groups; configure("color=...") restricting the world. -> lines."""
+    from mlsl_tpu_torch import DataType, GroupType, ReductionType
+    from mlsl_tpu_torch.comm.request import CommDesc, normalize_alltoallv
+
+    env = reinit(get_env)
+    rng = np.random.default_rng(SEED)
+    n = COLL_N
+    lines = []
+    layouts = [("data (4, 2)", "grid", GroupType.DATA), ("model (4, 2)", "grid", GroupType.MODEL),
+               ("colors p % 2", tuple(p % 2 for p in range(WORLD)), GroupType.DATA),
+               ("colors p // 4", tuple(p // 4 for p in range(WORLD)), GroupType.DATA),
+               ("colors 3 + 5", (0, 0, 0, 1, 1, 1, 1, 1), GroupType.DATA)]
+    for name, layout, gt in layouts:
+        dist = (env.create_distribution(4, 2) if layout == "grid" else
+                env.create_distribution_with_colors(layout, (0,) * WORLD))
+        group = dist._group(gt)
+        g, gmin = group.size, (min(group.group_sizes) if group.colors is not None
+                               else group.size)
+        ms_by_kind = {}
+        for dt, dtype in ((DataType.FLOAT, torch.float32), (DataType.INT32, torch.int32)):
+            x = fill(torch, dist.topology, n, 1.0, dev).to(dtype)
+            if dtype == torch.float32:
+                x = x / 7.0          # not integers: sums round
+            xw = x.reshape(WORLD, n)
+            rc = n // g
+            calls = [("allreduce", {"op": op}, lambda op=op: dist.all_reduce(
+                          x, n, dt, op, gt)) for op in ReductionType]
+            calls += [
+                ("reduce", {"op": ReductionType.SUM, "root": 0},
+                 lambda: dist.reduce(x, n, dt, ReductionType.SUM, 0, gt)),
+                ("bcast", {"root": gmin - 1}, lambda: dist.bcast(x, n, dt, gmin - 1, gt)),
+                ("allgather", {}, lambda: dist.all_gather(x, n, dt, gt)),
+                ("gather", {"root": 0}, lambda: dist.gather(x, n, dt, 0, gt)),
+                ("scatter", {"root": gmin - 1, "recv_count": rc},
+                 lambda: dist.scatter(x[..., :g * rc], rc, dt, gmin - 1, gt)),
+                ("reduce_scatter", {"op": ReductionType.SUM, "recv_count": rc},
+                 lambda: dist.reduce_scatter(x[..., :g * rc], rc, dt, ReductionType.SUM, gt)),
+                ("alltoall", {"send_count": rc},
+                 lambda: dist.all_to_all(x[..., :g * rc], rc, dt, gt)),
+                ("sendrecv", {"pairs": tuple((i, (i + 1) % gmin) for i in range(gmin))},
+                 lambda: dist.send_recv_list(x, n, dt, [(i, (i + 1) % gmin)
+                                                        for i in range(gmin)], gt)),
+            ]
+            if group.is_uniform:
+                counts = tuple(int(v) for v in rng.integers(n // 2, n + 1, size=g))
+                calls.append(("allgatherv", {"recv_counts": counts},
+                              lambda c=counts: dist.all_gatherv(x, n, c, dt, gt)))
+                s = rng.integers(rc // 2, rc + 1, size=(g, g))
+                sw = rng.integers(0, rc + 1, size=(WORLD, g))
+                for sm in (s, sw):
+                    kw = normalize_alltoallv(CommDesc("alltoallv", group, 0, dt,
+                                                      send_counts=tuple(map(tuple, sm.tolist()))))
+                    calls.append(("alltoallv", kw, lambda sm=sm: dist.all_to_allv(
+                        x, sm, None, None, None, dt, gt)))
+            for kind, kw, start in calls:
+                req = start()
+                out = env.wait(req).reshape(WORLD, -1)
+                torch.cuda.synchronize()
+                src = xw[:, :g * kw["recv_count"]] if kind in ("scatter", "reduce_scatter") \
+                    else xw[:, :g * kw["send_count"]] if kind == "alltoall" else xw
+                want = coll_expected(torch, kind, group, src, kw)
+                for p in range(WORLD):
+                    if kind in ("allreduce", "reduce", "reduce_scatter") and \
+                            dtype == torch.float32 and kw["op"] == ReductionType.SUM:
+                        rel = float(((out[p].double() - want[p]).abs()
+                                     / want[p].abs().clamp_min(1e-30)).max())
+                        check(rel <= SUM_RTOL, f"collectives {name} {kind}: rank {p} sum "
+                                               f"{rel:.3g} off the float64 sum")
+                    else:
+                        check(same_bits(torch, out[p], want[p].to(dtype)),
+                              f"collectives {name} {kind} {dtype}: rank {p} differs from "
+                              f"the closed form")
+                if dtype == torch.float32:
+                    key = kind if kind != "alltoallv" else (
+                        "alltoallv per-rank" if "Sw" in kw else "alltoallv")
+                    if key == "allreduce" and kw["op"] != ReductionType.SUM:
+                        continue
+                    ms_by_kind[key] = round(time_ms(torch, lambda: env.wait(start()),
+                                                    reps=3, warmup=1), 4)
+                del out, want
+            del x, xw
+        dist.barrier(gt)
+        ms_by_kind["barrier"] = round(time_ms(torch, lambda: dist.barrier(gt), reps=3,
+                                              warmup=1), 4)
+        lines.append(f"# collectives {name} (G={g}, {n * 4} B a rank): ok, ms a call "
+                     f"{json.dumps(ms_by_kind)}")
+        if gt == GroupType.DATA and layout != (tuple(p // 4 for p in range(WORLD))):
+            buf = fill(torch, dist.topology, 1024, 1.0, dev)
+            host = dist.gather_to_host(buf, 1024, DataType.FLOAT, 0, gt)
+            hb = buf.reshape(WORLD, -1).cpu().numpy()
+            for root, got in host.items():
+                mem = group_members(group, root)
+                check(mem[0] == root and np.array_equal(got, np.concatenate([hb[q] for q in mem])),
+                      f"collectives {name}: gather_to_host at root {root}")
+    env.configure("color=0,0,0,0,1,1,1,1")
+    d4 = env.create_distribution(4, 1)
+    out = env.wait(d4.all_reduce(fill(torch, d4.topology, 4, 1.0, dev), 4, DataType.FLOAT,
+                                 ReductionType.SUM, GroupType.DATA))
+    check(d4.get_process_count(GroupType.GLOBAL) == 4
+          and float(out.reshape(4, -1)[0, 0]) == 6000.0,
+          "configure('color=0,0,0,0,1,1,1,1') did not restrict the world to 4 ranks")
+    lines.append("# collectives configure: ok, color=0,0,0,0,1,1,1,1 leaves 4 ranks")
+    from mlsl_tpu_torch.comm import collectives
+
+    collectives.clear_cache()
+    return lines
+
+
+def group_ring_entry(torch, rk, kind, grid, axes, count, tag, bw, f32, per_path, dev):
+    """B3 at a graph request's shape: the world rows of ``grid`` over the
+    group of ``axes``, ``count`` float32 a rank, allreduce or reduce_scatter.
+    Library yardstick: the member sum of the (C, G, n) view in one call (the
+    scatter is a view of it), which the port never calls."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    d, m = grid
+    group = ProcessGroup(Topology(d, m, d * m), axes)
+    w, g = d * m, group.size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x = torch.randn((w, count), generator=gen, device=dev)
+    plan = rk.dense_plan(kind, group, count, bidir=False)
+    before = dict(rk.LAUNCHES)
+    got, want = rk.dense_ring(x, plan), rk.dense_ring_ref(x, plan)
+    torch.cuda.synchronize()
+    check(same_bits(torch, got, want), f"B3 entry ({tag}): differs from the plain version")
+    del got, want
+    ms = time_ms(torch, lambda: rk.dense_ring(x, plan), reps=20)
+    rk.LAUNCHES.update(before)
+    plain_ms = time_ms(torch, lambda: rk.dense_ring_ref(x, plan), reps=3, warmup=1)
+    rows = torch.as_tensor(plan.ring, device=dev).long().flatten()
+    view = x.index_select(0, rows).view(w // g, g, count)
+    if kind == "reduce_scatter":
+        library = lambda: view.sum(dim=1)      # noqa: E731  (member i's slice is a view)
+        note = "x.view(C, G, n).sum(dim=1) on member-ordered rows"
+    else:
+        library = lambda: view.sum(dim=1, keepdim=True).expand_as(view).contiguous()  # noqa: E731
+        note = ("x.view(C, G, n).sum(dim=1, keepdim=True).expand_as(.).contiguous() on "
+                "member-ordered rows")
+    library_ms = time_ms(torch, library, reps=20)
+    out_elems = w * (count // g if kind == "reduce_scatter" else count)
+    return entry(name=f"dense_ring (B3 {kind}, {tag})", source="mlsl_tpu_torch/csrc/ring_kernels.cu",
+                 replaces="mlsl_tpu/ops/ring_kernels.py:698", launches=sum(per_path.values()),
+                 per_path=per_path, shape=[w, count, g], err=0.0, ms=ms, plain_ms=plain_ms,
+                 library_ms=library_ms, nbytes=(w * count + out_elems) * 4,
+                 ops=(g - 1) * (w // g) * count, bw=bw, peak=f32, library_note=note)
+
+
+def group_rhd_entry(torch, rhd, grid, axes, count, tag, bw, f32, per_path, dev):
+    """B5 at a gradient allreduce's shape over the group of ``axes``."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+
+    d, m = grid
+    group = ProcessGroup(Topology(d, m, d * m), axes)
+    w, g = d * m, group.size
+    plan = rhd.RhdPlan(group)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x = torch.randn((w, count), generator=gen, device=dev)
+    before = dict(rhd.LAUNCHES)
+    got, want = rhd.rhd_allreduce(x, plan), rhd.rhd_allreduce_ref(x, plan)
+    torch.cuda.synchronize()
+    check(same_bits(torch, got, want), f"B5 entry ({tag}): differs from the plain version")
+    del got, want
+    ms = time_ms(torch, lambda: rhd.rhd_allreduce(x, plan), reps=20)
+    rhd.LAUNCHES.update(before)
+    rows = torch.as_tensor(plan.rows, device=dev).long().flatten()
+    view = x.index_select(0, rows).view(w // g, g, count)
+    return entry(name=f"rhd_allreduce (B5, {tag})", source="mlsl_tpu_torch/csrc/rhd_kernels.cu",
+                 replaces="mlsl_tpu/ops/rhd_kernels.py:256", launches=sum(per_path.values()),
+                 per_path=per_path, shape=[w, count, g], err=0.0, ms=ms,
+                 plain_ms=time_ms(torch, lambda: rhd.rhd_allreduce_ref(x, plan), reps=5),
+                 library_ms=time_ms(torch, lambda: view.sum(dim=1, keepdim=True)
+                                    .expand_as(view).contiguous(), reps=20),
+                 nbytes=2 * w * count * 4, ops=(g - 1) * (w // g) * count, bw=bw, peak=f32,
+                 library_note="x.view(C, G, n).sum(dim=1, keepdim=True).expand_as(.)"
+                              ".contiguous() on member-ordered rows")
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -3230,6 +3862,27 @@ def main() -> int:
         zr, rr, zs = run_zero1(torch, np, get_env, launches, reset_launches, dev,
                                list(counts.values()))
 
+        # the model-parallel graph (run (m)) and the eleven collectives (run (n))
+        t0 = time.perf_counter()
+        m_lines, m_used = run_activation_graph(torch, np, get_env, launches, reset_launches,
+                                               kernel_mods, dev)
+        for line in m_lines:
+            log(line)
+        activation = {}
+        for c in m_used.values():
+            for k, v in c.items():
+                activation[k] = activation.get(k, 0) + v
+        log(f"# phase activation graph: ok in {time.perf_counter() - t0:.1f} s, launches "
+            f"{json.dumps(activation, sort_keys=True)}")
+        t0 = time.perf_counter()
+        reset_launches()
+        for line in run_collectives(torch, np, get_env, dev):
+            log(line)
+        coll_used = {k: v for k, v in launches().items() if v}
+        check(not coll_used, f"collectives: launched {coll_used}; run (n) takes no kernel")
+        log(f"# phase collectives: ok in {time.perf_counter() - t0:.1f} s")
+        settle(torch)
+
         fc_entry = ring_rows["fc"][0]
 
         def path(key, **runs):
@@ -3242,7 +3895,8 @@ def main() -> int:
                     engine_int8=engine_used["engine int8"],
                     engine_fused_ring=engine_used["engine fused ring"],
                     engine_buckets=engine_used["engine buckets"],
-                    overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used)
+                    overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used,
+                    activation_graph=activation, collectives=coll_used)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -3271,6 +3925,29 @@ def main() -> int:
             rhd_entry(torch, rhd, (64 << 20) // 4, bw, f32, path("rhd_allreduce", **runs), dev,
                       ld=(256 << 20) // 4),
         ]
+        # B3, B5 and B6 at the shapes run (m) gives them: case 1's FPROP
+        # reduce_scatter (op1's packed wire over the model group), the
+        # gradient allreduce of 4 Mi / M floats over the data group, and the
+        # alltoall of cases 4 and 5
+        tokens_a_rank = MLP_TOKENS * MLP_FM2
+        for m in (4, 2):
+            d = WORLD // m
+            entries.append(group_ring_entry(
+                torch, rk, "reduce_scatter", (d, m), ("model",), tokens_a_rank // d,
+                f"case-1 FPROP at model {m}, G={m}", bw, f32, path("dense_ring", **runs), dev))
+            grad = MLP_FM1 * MLP_FM2 // m
+            entries.append(group_ring_entry(
+                torch, rk, "allreduce", (d, m), ("data",), grad,
+                f"gradient allreduce at model {m}, G={d}", bw, f32, path("dense_ring", **runs),
+                dev))
+            entries.append(group_rhd_entry(
+                torch, rhd, (d, m), ("data",), grad, f"gradient allreduce at model {m}, G={d}",
+                bw, f32, path("rhd_allreduce", **runs), dev))
+        entries.append(a2a_entry(
+            torch, a2a, tag="activation cases 4 and 5, G=4", grid=(2, 4), axes=("model",),
+            count=4 * (MLP_TOKENS // WORLD) * (MLP_FM2 // 4), quantized=False, bw=bw, f32=f32,
+            per_path=path("a2a_dense", alltoall=a2a_used, transformer_moe=tm,
+                          activation_graph=activation), dev=dev))
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
             dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr,
@@ -3284,7 +3961,8 @@ def main() -> int:
             key = "a2a_quant" if quantized else "a2a_dense"
             entries.append(a2a_entry(torch, a2a, tag=tag, grid=grid, axes=axes, count=count,
                                      quantized=quantized, bw=bw, f32=f32,
-                                     per_path=path(key, alltoall=a2a_used, transformer_moe=tm),
+                                     per_path=path(key, alltoall=a2a_used, transformer_moe=tm,
+                                                   activation_graph=activation),
                                      dev=dev))
     finally:
         get_env().finalize()

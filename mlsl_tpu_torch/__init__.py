@@ -15,6 +15,7 @@ from mlsl_tpu_torch.types import (
     GroupType,
     OpType,
     PhaseType,
+    QuantParams,
     ReductionType,
 )
 from mlsl_tpu_torch.log import (
@@ -40,6 +41,7 @@ __all__ = [
     "ReductionType",
     "OpType",
     "CompressionType",
+    "QuantParams",
     "Environment",
     "get_env",
     "Distribution",

@@ -63,7 +63,11 @@ NOT_PORTED = ("hier",)
 
 def group_shape(group: ProcessGroup) -> Tuple[int, ...]:
     """The selection-table shape key: per-axis member counts, major ->
-    minor, size-1 axes dropped; ``(1,)`` for a group with none."""
+    minor, size-1 axes dropped; ``(1,)`` for a group with none; ``(-G,)``
+    for a color group (the sign keeps it apart from an axis group of the
+    same size, as in the JAX package)."""
+    if group.colors is not None:
+        return (-int(group.size),)
     topo = group.topology
     shape = tuple(topo.axis_size(a) for a in group.live_axes())
     return shape or (1,)
@@ -252,8 +256,7 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
 
     if algo == DEFAULT:
         return collectives.build_collective(
-            kind, group, **{k: v for k, v in kw.items()
-                            if k in ("op", "root", "recv_count", "send_count")})
+            kind, group, **{k: v for k, v in kw.items() if k in collectives.BUILD_KW})
     mlsl_assert(eligible(algo, kind, group, kw.get("op")),
                 "algorithm %s cannot lower %s on group shape %s", algo, kind,
                 group_shape(group))

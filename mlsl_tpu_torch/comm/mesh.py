@@ -12,13 +12,18 @@ sequence axis, exactly as in the JAX package:
     global rank p  =  ((replicaIdx * D + dataIdx) * S + seqIdx) * M + modelIdx
 so the model axis is minor, then sequence, then data, replicas outermost.
 
-Only axis-aligned groups exist here; color groups come later.
+A group is axis-aligned (the ranks along some grid axes) or a color group
+(``colors[p]`` assigns world rank p to a group, MPI_Comm_split style, as in
+``mlsl_tpu.comm.mesh.ProcessGroup``). Color groups may be ragged: the group
+size is then the largest group's, and collectives pad to it
+(comm/collectives.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from collections import Counter
+from typing import Optional, Tuple
 
 from mlsl_tpu_torch.log import mlsl_assert
 
@@ -75,50 +80,95 @@ class Topology:
     def axis_size(self, axis: str) -> int:
         return self.grid_shape[GRID_AXES.index(axis)]
 
+    def adopt_buffer(self, buf):
+        """Re-view a distributed buffer laid out for ANOTHER grid of the same
+        world as this topology's (R, D, S, M, n) buffer
+        (``mlsl_tpu.comm.mesh.Topology.adopt_buffer``). A cross-distribution
+        graph edge hands one distribution's buffer to a collective over the
+        other's groups; rank p's row is row p of both layouts (the rank
+        formula is the row-major order of either grid), so this is a reshape
+        and never reorders ranks. Anything but a grid buffer of this world is
+        returned as it is, for the caller's shape check to refuse."""
+        grid = self.grid_shape
+        if buf.dim() != NUM_GRID_AXES + 1 or tuple(buf.shape[:NUM_GRID_AXES]) == grid:
+            return buf
+        rows = 1
+        for d in buf.shape[:NUM_GRID_AXES]:
+            rows *= d
+        if rows != self.world_size:
+            return buf
+        return buf.reshape(*grid, buf.shape[-1])
+
 
 @dataclasses.dataclass(frozen=True)
 class ProcessGroup:
-    """An axis-aligned subgroup of the world: the ranks along ``axes``.
+    """A subgroup of the world over which a collective runs.
 
-    The member index is the flattened coordinate over ``axes`` in the given
-    (major -> minor) order, as in the JAX package."""
+    Axis-aligned (colors is None): the ranks along ``axes``; the member index
+    is the flattened coordinate over ``axes`` in the given (major -> minor)
+    order, as in the JAX package.
+
+    Color-based (colors is not None): ``colors[p]`` assigns world rank p to a
+    group; members are ordered by world rank within each color (MPI_Comm_split
+    semantics, reference src/comm_ep.cpp:1821-1827)."""
 
     topology: Topology
     axes: Tuple[str, ...]  # subset of GRID_AXES; () = self
+    colors: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         for a in self.axes:
             mlsl_assert(a in GRID_AXES, "unknown grid axis %r", a)
         mlsl_assert(len(set(self.axes)) == len(self.axes),
                     "repeated grid axis in %r", self.axes)
+        if self.colors is not None:
+            mlsl_assert(len(self.colors) == self.topology.world_size,
+                        "colors must cover the world: %d != %d",
+                        len(self.colors), self.topology.world_size)
 
     @property
     def is_self(self) -> bool:
-        return len(self.axes) == 0
+        return self.colors is None and len(self.axes) == 0
+
+    @property
+    def group_sizes(self) -> Tuple[int, ...]:
+        """Per-color group sizes, ordered by ascending color (colors mode only)."""
+        mlsl_assert(self.colors is not None, "group_sizes requires colors mode")
+        counts = Counter(self.colors)
+        return tuple(counts[c] for c in sorted(counts))
+
+    @property
+    def is_uniform(self) -> bool:
+        """Every group has the same member count (axis groups always do;
+        color groups may be ragged, like MPI_Comm_split's)."""
+        if self.colors is None:
+            return True
+        return len(set(self.group_sizes)) == 1
 
     @property
     def size(self) -> int:
+        """Member count of the group; the largest group's when colors are
+        ragged (collectives pad smaller groups to it)."""
+        if self.colors is not None:
+            return max(self.group_sizes)
         size = 1
         for a in self.axes:
             size *= self.topology.axis_size(a)
         return size
 
-    @property
-    def colors(self):
-        """Color groups are not ported: every group is axis-aligned."""
-        return None
-
-    @property
-    def is_uniform(self) -> bool:
-        """Every instance has the same member count (true of axis groups)."""
-        return True
-
     def live_axes(self) -> Tuple[str, ...]:
         """The group's axes of size > 1, major -> minor."""
         return tuple(a for a in self.axes if self.topology.axis_size(a) > 1)
 
+    def member_world_ranks(self, color: int) -> Tuple[int, ...]:
+        """World ranks of a color group, in group-rank order (colors mode only)."""
+        mlsl_assert(self.colors is not None, "member_world_ranks requires colors mode")
+        return tuple(p for p, c in enumerate(self.colors) if c == color)
+
     def group_idx_of(self, global_idx: int) -> int:
         """Member index of world rank ``global_idx`` within its group."""
+        if self.colors is not None:
+            return self.member_world_ranks(self.colors[global_idx]).index(global_idx)
         coord = dict(zip(GRID_AXES, self.topology.coords(global_idx)))
         idx = 0
         for a in self.axes:
@@ -127,8 +177,12 @@ class ProcessGroup:
 
     def member_table(self) -> Tuple[Tuple[int, ...], ...]:
         """One row of world ranks per group instance, members in group-rank
-        order; rows ordered by the complementary axes (grid order). The same
-        table ``collectives._axis_groups_tbl`` gives in the JAX package."""
+        order. Axis groups: rows ordered by the complementary axes (grid
+        order), as ``collectives._axis_groups_tbl`` of the JAX package; color
+        groups: one row per color, colors ascending (``_color_groups_tbl``).
+        Ragged color groups give rows of different lengths."""
+        if self.colors is not None:
+            return tuple(self.member_world_ranks(c) for c in sorted(set(self.colors)))
         import itertools
 
         topo = self.topology

@@ -42,6 +42,7 @@ this package yet.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import threading
 import time
 from typing import Callable, List, Optional
@@ -53,7 +54,23 @@ from mlsl_tpu_torch.comm import algos, collectives
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
 from mlsl_tpu_torch.core import stats
 from mlsl_tpu_torch.log import log_error, log_warning, mlsl_assert
-from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType, dtype_size
+from mlsl_tpu_torch.types import (
+    CompressionType,
+    DataType,
+    ReductionType,
+    dtype_size,
+    torch_dtype,
+)
+
+
+class ComputeType(enum.IntEnum):
+    """What a request carries (reference CommDesc src/comm.hpp:253-261)."""
+
+    FPROP = 0
+    BPROP = 1
+    PARAM_GRAD = 2
+    PARAM_INC = 3
+    GENERIC = 4
 
 
 @dataclasses.dataclass
@@ -62,13 +79,26 @@ class CommDesc:
     group: ProcessGroup
     count: int                     # elements per rank (send side; alltoall: per member)
     data_type: DataType
+    compute_type: ComputeType = ComputeType.GENERIC
     op: Optional[ReductionType] = None
     root: Optional[int] = None
     recv_count: Optional[int] = None
+    recv_counts: Optional[tuple] = None   # allgatherv; alltoallv: counts or matrix
+    send_counts: Optional[tuple] = None   # alltoallv
+    send_offsets: Optional[tuple] = None
+    recv_offsets: Optional[tuple] = None
+    pairs: Optional[tuple] = None  # sendrecv: ((src, dst), ...) member indices
     compression: CompressionType = CompressionType.NONE
 
     def payload_bytes(self) -> int:
         return self.count * dtype_size(self.data_type)
+
+    def send_len(self) -> int:
+        """Elements a rank's send buffer holds: ``count``, except for
+        alltoall, whose count is one member's chunk."""
+        if self.kind == "alltoall" and not self.group.is_self:
+            return self.count * self.group.size
+        return self.count
 
 
 class CommRequest:
@@ -101,6 +131,8 @@ class CommRequest:
         self.is_setup = False
         self.algo = algos.DEFAULT
         self._payload = desc.payload_bytes()
+        self._plain_build: Optional[Callable] = None
+        self._plain_fns: Optional[List[Callable]] = None
         with CommRequest._seq_lock:
             CommRequest._seq += 1
             self.uid = CommRequest._seq
@@ -129,10 +161,11 @@ class CommRequest:
             chunks = self._plan_chunks()
             self._chunk_slices = chunks or [slice(None)]
             sizes = ([sl.stop - sl.start for sl in chunks] if chunks else [d.count])
-            built = [quant_ring.build_quantized_collective(
-                         d.kind, d.group, n, block, ring="pallas" if fused else "lax",
-                         bidir=cfg.pallas_ring_bidir)
+            qkw = dict(ring="pallas" if fused else "lax", bidir=cfg.pallas_ring_bidir)
+            built = [quant_ring.build_quantized_collective(d.kind, d.group, n, block, **qkw)
                      for n in sizes]
+            self._plain_build = lambda: [quant_ring.build_quantized_collective(   # noqa: E731
+                d.kind, d.group, n, block, plain=True, **qkw)[0] for n in sizes]
             self._quant_fns = [fn for fn, _ in built]
             self._err_lens = [el for _, el in built]
             self._errs = None
@@ -149,8 +182,16 @@ class CommRequest:
             kw["root"] = int(d.root)
         if d.recv_count is not None:
             kw["recv_count"] = int(d.recv_count)
+        if d.recv_counts is not None and d.kind != "alltoallv":
+            # alltoallv's recv_counts may be a (G, G) matrix: normalize_alltoallv
+            # reads it
+            kw["recv_counts"] = tuple(int(c) for c in d.recv_counts)
         if d.kind == "alltoall":
             kw["send_count"] = int(d.count)
+        if d.kind == "sendrecv":
+            kw["pairs"] = tuple((int(a), int(b)) for a, b in d.pairs)
+        if d.kind == "alltoallv":
+            kw.update(normalize_alltoallv(d))
         # explicit config > tuned profile > the 'lax' baseline; a chunked
         # request selects once, on the full payload, and reuses one program
         cfg = self.dispatcher.config
@@ -161,6 +202,8 @@ class CommRequest:
             kw["quantized"] = cfg.pallas_a2a_quant
         chunks = self._plan_chunks()
         fn = algos.build(d.kind, d.group, self.algo, bidir=cfg.pallas_ring_bidir, **kw)
+        self._plain_build = lambda: [algos.build(   # noqa: E731
+            d.kind, d.group, self.algo, bidir=cfg.pallas_ring_bidir, plain=True, **kw)]
         self._chunk_slices = chunks or [slice(None)]
         self._fns = [fn] * len(self._chunk_slices)
         self.is_setup = True
@@ -180,9 +223,68 @@ class CommRequest:
 
     # -- start/wait/test --------------------------------------------------
 
+    def precompile(self) -> int:
+        """Run each of the request's programs once on a zero buffer, so that
+        the first timed round builds no kernel and allocates no table
+        (``mlsl_tpu.comm.request.CommRequest.precompile``). The round state
+        (results, error-feedback residuals, ``is_started``) is left as it
+        was. -> the number of programs run."""
+        mlsl_assert(self.is_setup, "request must be setup() before precompile()")
+        d = self.desc
+        topo = d.group.topology
+        dev = self.dispatcher.device
+        buf = torch.zeros((*topo.grid_shape, max(d.send_len(), 1)),
+                          dtype=torch_dtype(d.data_type), device=dev)
+        n, seen = 0, set()
+        fns = self._quant_fns if self._quant_fns is not None else self._fns
+        for i, (fn, sl) in enumerate(zip(fns, self._chunk_slices)):
+            key = (id(fn), (sl.stop or 0) - (sl.start or 0))
+            if key in seen:
+                continue
+            seen.add(key)
+            x = buf[..., sl]
+            if self._quant_fns is not None:
+                fn(x, torch.zeros((*topo.grid_shape, self._err_lens[i]), dtype=torch.float32,
+                                  device=dev))
+            else:
+                fn(x)
+            n += 1
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return n
+
+    def plain_result(self, buf: torch.Tensor, errs=None):
+        """This request's round on ``buf`` through the plain versions of its
+        algorithm's kernels, on any device, chunk by chunk as the request
+        runs it; a quantized request starts from the residuals ``errs``
+        (zeros when None). -> (result, new residuals or None). The card's
+        checks hold each kernel-driven round to it, bit for bit."""
+        mlsl_assert(self._plain_build is not None,
+                    "request %s has no plain version (a barrier)", self.name or self.uid)
+        if self._plain_fns is None:
+            self._plain_fns = self._plain_build()
+        buf = self.desc.group.topology.adopt_buffer(buf)
+        if self._quant_fns is None:
+            fn = self._plain_fns[0]
+            outs = [fn(buf[..., sl]) for sl in self._chunk_slices]
+            return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), None
+        grid = buf.shape[:NUM_GRID_AXES]
+        outs, new = [], []
+        for i, (fn, sl) in enumerate(zip(self._plain_fns, self._chunk_slices)):
+            e = (errs[i] if errs is not None else
+                 torch.zeros((*grid, self._err_lens[i]), dtype=torch.float32,
+                             device=buf.device))
+            res, ne = fn(buf[..., sl], e)
+            outs.append(res)
+            new.append(ne)
+        return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), new
+
     def start(self, buf: torch.Tensor) -> "CommRequest":
         mlsl_assert(self.is_setup, "request must be setup() before start()")
         topo = self.desc.group.topology
+        # a cross-distribution graph edge hands a buffer laid out for the
+        # other distribution's grid (activation cases 3-5): re-view it
+        buf = topo.adopt_buffer(buf)
         mlsl_assert(
             buf.dim() == NUM_GRID_AXES + 1
             and tuple(buf.shape[:NUM_GRID_AXES]) == topo.grid_shape,
@@ -327,6 +429,86 @@ def _check_recv_count(d: CommDesc) -> None:
     )
 
 
+def normalize_alltoallv(d: CommDesc) -> dict:
+    """Expand the user's alltoallv count and offset arrays into full static
+    matrices (``_normalize_alltoallv``, request.py:1296-1340 of the JAX
+    package). MPI semantics: S[i][j] = elements member i sends to member j. A
+    1-D array means the same on every rank (S[i][j] = counts[j]); a (G, G)
+    array is the full matrix, the same for every group instance. Offsets
+    default to the packed layout. The receive matrix is derived, R[i][j] =
+    S[j][i], and explicit recv_counts must equal it. (W, G) arrays (W != G)
+    select the per-rank form."""
+    g = d.group.size
+    w = d.group.topology.world_size
+    a = np.asarray(d.send_counts, dtype=int)
+    if a.ndim == 2 and a.shape == (w, g) and w != g:
+        return _normalize_alltoallv_per_rank(d, a)
+
+    def packed(mat):
+        return np.hstack([np.zeros((g, 1), int), np.cumsum(mat, axis=1)[:, :-1]])
+
+    def expand(arr):
+        a = np.asarray(arr, dtype=int)
+        if a.ndim == 1:
+            return np.tile(a, (g, 1))
+        mlsl_assert(a.shape == (g, g), "counts/offsets matrix must be (%d,%d)", g, g)
+        return a
+
+    s = expand(d.send_counts)
+    soff = packed(s) if d.send_offsets is None else expand(d.send_offsets)
+    r = s.T
+    if d.recv_counts is not None:
+        # MPI requires recvcounts[i][j] == sendcounts[j][i]
+        mlsl_assert(np.array_equal(expand(d.recv_counts), r),
+                    "alltoallv recv_counts do not match transposed send_counts")
+    roff = packed(r) if d.recv_offsets is None else expand(d.recv_offsets)
+    recv_len = int(np.max(roff + r)) if g > 0 else 1
+    to_t = lambda m: tuple(tuple(int(v) for v in row) for row in m)   # noqa: E731
+    return dict(S=to_t(s), Soff=to_t(soff), Roff=to_t(roff), recv_len=max(recv_len, 1))
+
+
+def _normalize_alltoallv_per_rank(d: CommDesc, s: np.ndarray) -> dict:
+    """Per-rank form: each world rank's own (G,) count and offset rows,
+    stacked as (W, G) arrays (``_normalize_alltoallv_per_rank``,
+    request.py:1342-1390). The receive geometry is derived through the member
+    table, R[w][j] = S[member j of w's instance][position of w]; explicit
+    recv_counts must equal it (MPI's pairwise invariant)."""
+    g = d.group.size
+    w = d.group.topology.world_size
+    mlsl_assert(
+        d.group.is_uniform,
+        "per-rank alltoallv requires equal-size groups (ragged partitions are "
+        "spelled with zero counts on an equal-size group)",
+    )
+    m = collectives.member_world_table(d.group)
+    pos = np.array([list(m[p]).index(p) for p in range(w)], dtype=int)
+
+    def packed(mat):
+        return np.hstack([np.zeros((w, 1), int), np.cumsum(mat, axis=1)[:, :-1]])
+
+    def expand(arr, name):
+        a = np.asarray(arr, dtype=int)
+        if a.ndim == 1:
+            a = np.tile(a, (w, 1))
+        mlsl_assert(a.shape == (w, g),
+                    "per-rank alltoallv %s must be (world=%d, group=%d), got %s",
+                    name, w, g, a.shape)
+        return a
+
+    soff = packed(s) if d.send_offsets is None else expand(d.send_offsets, "send_offsets")
+    r = s[m, pos[:, None]]
+    if d.recv_counts is not None:
+        mlsl_assert(
+            np.array_equal(expand(d.recv_counts, "recv_counts"), r),
+            "alltoallv recv_counts violate the MPI pairwise invariant: "
+            "recv_counts[w][j] must equal member j's send count toward w",
+        )
+    roff = packed(r) if d.recv_offsets is None else expand(d.recv_offsets, "recv_offsets")
+    recv_len = int(np.max(roff + r)) if r.size else 1
+    to_t = lambda m_: tuple(tuple(int(v) for v in row) for row in m_)   # noqa: E731
+    return dict(Sw=to_t(s), Swoff=to_t(soff), Rwoff=to_t(roff), recv_len=max(recv_len, 1))
+
+
 class Dispatcher:
     """Host-side dispatch policy: immediate launch, or newest-first deferral
     with autonomous progress (``mlsl_tpu.comm.request.Dispatcher``).
@@ -342,8 +524,9 @@ class Dispatcher:
     Small messages, barriers and the default configuration (msg_priority off)
     dispatch at once. Also owns the comm stream of each CUDA device."""
 
-    def __init__(self, config):
+    def __init__(self, config, device=None):
         self.config = config
+        self.device = device        # the Environment's device (precompile's buffers)
         self._pending: List[tuple] = []   # (request, buf, epoch), oldest first
         self._streams: dict = {}
         self._lock = threading.Lock()

@@ -1,6 +1,7 @@
 """Typed configuration with MLSL_* environment-variable overrides.
 
-The subset of ``mlsl_tpu.config.Config`` that this package reads: the int8
+The subset of ``mlsl_tpu.config.Config`` that this package reads: statistics,
+the commit-time precompile and the device gather's cap, the int8
 codec's block, large-message chunking (reference src/comm_ep.cpp:95-97),
 gradient bucketing (core/bucketing.py),
 newest-first priority deferral and its progress thread (reference
@@ -29,6 +30,7 @@ _ENV_FIELDS = {
     "MLSL_PALLAS_RHD_MAX_BYTES": "pallas_rhd_max_bytes",
     "MLSL_PALLAS_A2A_QUANT": "pallas_a2a_quant",
     "MLSL_OVERLAP_STAGES": "overlap_stages",
+    "MLSL_GATHER_DEVICE_LIMIT_MB": "gather_device_limit_mb",
 }
 
 
@@ -52,6 +54,12 @@ def _env_bool(name: str, default: bool) -> bool:
 @dataclasses.dataclass
 class Config:
     enable_stats: bool = False      # MLSL_STATS
+    # Session.commit runs every registered request once on zero buffers
+    # (Session.precompile_collectives), so the first step builds nothing.
+    precompile: bool = False        # MLSL_PRECOMPILE
+    # Distribution.gather refuses an output above this many MiB a rank
+    # (rank-uniform buffers hold the concatenation on every member); 0 = no cap.
+    gather_device_limit_mb: int = 1024  # MLSL_GATHER_DEVICE_LIMIT_MB
     # Chunking for very large messages: an allreduce above this size is split
     # into independently dispatched chunks so Wait completes incrementally.
     large_msg_size_mb: int = 128    # MLSL_LARGE_MSG_SIZE_MB
@@ -134,6 +142,9 @@ class Config:
         mlsl_assert(self.msg_priority_flush_ms >= 0,
                     "MLSL_MSG_PRIORITY_FLUSH_MS must be >= 0 (got %s)",
                     self.msg_priority_flush_ms)
+        mlsl_assert(self.gather_device_limit_mb >= 0,
+                    "MLSL_GATHER_DEVICE_LIMIT_MB must be >= 0 (got %d)",
+                    self.gather_device_limit_mb)
         mlsl_assert(self.overlap_stages >= 1,
                     "MLSL_OVERLAP_STAGES must be >= 1 (got %d)", self.overlap_stages)
         mlsl_assert(self.pallas_rhd_max_bytes >= 0,
@@ -145,6 +156,9 @@ class Config:
         c = Config()
         c._explicit = {field for env, field in _ENV_FIELDS.items() if os.environ.get(env)}
         c.enable_stats = _env_bool("MLSL_STATS", c.enable_stats)
+        c.precompile = _env_bool("MLSL_PRECOMPILE", c.precompile)
+        c.gather_device_limit_mb = _env_int("MLSL_GATHER_DEVICE_LIMIT_MB",
+                                            c.gather_device_limit_mb)
         c.large_msg_size_mb = _env_int("MLSL_LARGE_MSG_SIZE_MB", c.large_msg_size_mb)
         c.large_msg_chunks = _env_int("MLSL_LARGE_MSG_CHUNKS", c.large_msg_chunks)
         c.grad_bucket_mb = _env_int("MLSL_GRAD_BUCKET_MB", c.grad_bucket_mb)

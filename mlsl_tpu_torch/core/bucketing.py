@@ -109,8 +109,15 @@ class GradBucket:
         for s in self.slots[:-1]:
             self.offsets.append(self.offsets[-1] + s)
         self.total = total
-        # stats: coalesced member payload bytes per dispatched round
+        # stats: coalesced member payload bytes per dispatched round, and the
+        # wire bytes a quantized round saves against the float32 wire (int8
+        # payload + one float32 scale a block; the JAX package's estimate)
         self._coalesced_bytes = sum(self.counts) * esize * mult
+        n_wire = total * mult
+        self._wire_saved_bytes = (
+            max(0, n_wire * esize - (n_wire + (n_wire // env.config.quant_block_elems) * 4))
+            if quant else 0
+        )
         if kind == "allreduce":
             desc = CommDesc("allreduce", group, total, ps0.data_type, op=ReductionType.SUM,
                             compression=self.compression)
@@ -199,7 +206,8 @@ class GradBucket:
                     self._raise_error_locked(i)
                 self._dispatched = True
                 stats_mod.record_bucket_round("dispatched", members=len(self.members),
-                                              coalesced=self._coalesced_bytes)
+                                              coalesced=self._coalesced_bytes,
+                                              wire_saved=self._wire_saved_bytes)
             return True
 
     def _fallback_locked(self) -> None:

@@ -7,6 +7,11 @@ is CUDA unless the caller asks for the CPU explicitly; without CUDA, a default
 ``init()`` raises instead of falling back. As in the JAX package
 (environment.py:114), ``init`` validates the configuration and then loads the
 tuned profile, if one is named.
+
+``configure("color=...")`` restricts the world as the reference's
+Configure does (src/mlsl.cpp:620-647): one value keeps every rank, one value a
+rank keeps the ranks whose color equals the first one, so later
+distributions span fewer virtual ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 from mlsl_tpu_torch.comm.request import CommRequest, Dispatcher, RequestStorage
 from mlsl_tpu_torch.config import Config
 from mlsl_tpu_torch.log import MLSLError, mlsl_assert
-from mlsl_tpu_torch.types import PhaseType
+from mlsl_tpu_torch.types import DataType, PhaseType, QuantParams, torch_dtype
 
 
 class Environment:
@@ -35,8 +40,10 @@ class Environment:
         self.request_storage = RequestStorage()
         self.device: Optional[torch.device] = None
         self.world_size = 0
+        self.quant_params: Optional[QuantParams] = None
         self._distributions: list = []
         self._sessions: list = []
+        self._global_colors: Optional[tuple] = None
 
     @classmethod
     def get_env(cls) -> "Environment":
@@ -74,8 +81,11 @@ class Environment:
         self.config = config
         self.device = dev
         self.world_size = int(world_size)
-        self.dispatcher = Dispatcher(self.config)
+        self.dispatcher = Dispatcher(self.config, device=dev)
         self._initialized = True
+        if self.quant_params is not None:
+            # parameters set before init apply now that the config exists
+            self.set_quantization_params(self.quant_params)
         return self
 
     def finalize(self) -> None:
@@ -83,6 +93,8 @@ class Environment:
             return
         if self.dispatcher is not None:
             self.dispatcher.shutdown()
+        for s in self._sessions:
+            s._invalidate()
         self._sessions.clear()
         self._distributions.clear()
         self._initialized = False
@@ -97,11 +109,40 @@ class Environment:
         Distribution."""
         return 0
 
+    def configure(self, conf_str: str) -> None:
+        """Color-based restriction of the world (reference Configure("color=N")).
+        'color=N' keeps every rank; 'color=c0,c1,...' (one value a rank)
+        keeps the ranks whose color equals the first listed color, so later
+        distributions span that many virtual ranks."""
+        conf_str = conf_str.strip()
+        mlsl_assert(conf_str.startswith("color="), "unsupported configuration string: %s",
+                    conf_str)
+        values = [int(v) for v in conf_str.split("=", 1)[1].split(",")]
+        if len(values) == 1:
+            self._global_colors = tuple(values * self.world_size)
+            return
+        mlsl_assert(len(values) == self.world_size, "color list length %d != rank count %d",
+                    len(values), self.world_size)
+        self._global_colors = tuple(values)
+        self.world_size = sum(1 for c in values if c == values[0])
+
     def create_distribution(self, data_parts: int, model_parts: int, seq_parts: int = 1):
         from mlsl_tpu_torch.core.distribution import Distribution
 
         mlsl_assert(self._initialized, "Environment not initialized")
         d = Distribution(self, data_parts, model_parts, seq_parts=seq_parts)
+        self._distributions.append(d)
+        return d
+
+    def create_distribution_with_colors(self, data_color_per_rank, model_color_per_rank):
+        """A distribution whose data and model groups are color partitions of
+        the world (reference CreateDistributionWithColors); the groups may be
+        of unequal sizes."""
+        from mlsl_tpu_torch.core.distribution import Distribution
+
+        mlsl_assert(self._initialized, "Environment not initialized")
+        d = Distribution(self, None, None, data_colors=tuple(data_color_per_rank),
+                         model_colors=tuple(model_color_per_rank))
         self._distributions.append(d)
         return d
 
@@ -119,7 +160,18 @@ class Environment:
 
     def delete_session(self, session) -> None:
         if session in self._sessions:
+            session._invalidate()
             self._sessions.remove(session)
+
+    # -- memory (reference Alloc/Free; buffers here are tensors) -------------
+
+    def alloc(self, count: int, data_type: DataType = DataType.FLOAT) -> torch.Tensor:
+        """A zeroed host buffer, for API parity: collectives take distributed
+        tensors directly."""
+        return torch.zeros((int(count),), dtype=torch_dtype(data_type))
+
+    def free(self, buf) -> None:  # noqa: ARG002 - the collector owns the memory
+        return None
 
     # -- generic request completion (reference src/mlsl.cpp:784-796) ------
 
@@ -134,7 +186,46 @@ class Environment:
             self.request_storage.remove(req)
         return done, out
 
+    # -- quantization (reference src/mlsl.cpp:798) ------------------------
+
+    def set_quantization_params(self, params: QuantParams) -> None:
+        """Select the int8 codec's geometry for QUANTIZATION collectives:
+        ``elem_in_block`` becomes ``quant_block_elems``. A codec given as
+        callables or as a library is not ported yet and raises MLSLError,
+        leaving the previous parameters in force. Before init the parameters
+        are kept and applied at init, as in the reference."""
+        mlsl_assert(
+            params.compress_fn is None and params.decompress_fn is None
+            and params.reduce_sum_fn is None and not params.lib_path,
+            "QuantParams with a custom codec (callables or lib_path) are not ported "
+            "yet; only the built-in int8 block codec's geometry is",
+        )
+        if self.config is not None and params.elem_in_block:
+            old = self.config.quant_block_elems
+            self.config.quant_block_elems = int(params.elem_in_block)
+            try:
+                self.config.validate()
+            except MLSLError:
+                self.config.quant_block_elems = old
+                raise
+        self.quant_params = params
+
+    def get_quantization_params(self) -> Optional[QuantParams]:
+        return self.quant_params
+
+    def get_version(self) -> str:
+        from mlsl_tpu_torch import __version__
+
+        return __version__
+
     # PascalCase parity aliases (reference include/mlsl.hpp:799-915)
+    GetVersion = get_version
+    Configure = configure
+    CreateDistributionWithColors = create_distribution_with_colors
+    Alloc = alloc
+    Free = free
+    SetQuantizationParams = set_quantization_params
+    GetQuantizationParams = get_quantization_params
     GetEnv = get_env
     Init = init
     Finalize = finalize

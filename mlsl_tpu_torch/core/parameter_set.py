@@ -129,35 +129,40 @@ class ParameterSet:
             else:
                 self._bucket_round = False
                 self.grad_req.start(grad_buf)
+        self.op.session._stat_event(self, "start_done", is_param=True)
 
     def wait_gradient_comm(self):
         """-> the reduced gradient buffer, or None when no comm is needed."""
         self.op.session._stat_event(self, "wait", is_param=True)
+        out = None
         if self.need_comm and self._bucket_round:
             handled, out = self.bucket.wait(self)
-            if handled:
-                return out
-            # the bucket's fallback just started our individual request
-            self._bucket_round = False
-            return self.grad_req.wait()
+            if not handled:
+                # the bucket's fallback just started our individual request
+                self._bucket_round = False
+                out = self.grad_req.wait()
         # a request completed by test() is no longer started but keeps its
         # result; wait() still delivers it (MPI_Wait on a completed request)
-        if self.need_comm and (self.grad_req.is_started
-                               or self.grad_req._result is not None):
-            return self.grad_req.wait()
-        return None
+        elif self.need_comm and (self.grad_req.is_started
+                                 or self.grad_req._result is not None):
+            out = self.grad_req.wait()
+        self.op.session._stat_event(self, "wait_done", is_param=True)
+        return out
 
     def test_gradient_comm(self):
         """-> (is_completed, result_or_None)."""
         self.op.session._stat_event(self, "test", is_param=True)
         if not self.need_comm:
-            return True, None
-        if self._bucket_round:
+            done, out = True, None
+        elif self._bucket_round:
             handled, done, out = self.bucket.test(self)
-            if handled:
-                return done, out
-            self._bucket_round = False
-        return self.grad_req.test()
+            if not handled:
+                self._bucket_round = False
+                done, out = self.grad_req.test()
+        else:
+            done, out = self.grad_req.test()
+        self.op.session._stat_event(self, "test_done", is_param=True)
+        return done, out
 
     def start_increment_comm(self, inc_buf) -> None:
         """AllGather the locally updated owned shard (distributed update only).
@@ -169,22 +174,22 @@ class ParameterSet:
             else:
                 self._inc_bucket_round = False
                 self.inc_req.start(inc_buf)
+        self.op.session._stat_event(self, "start_done", is_param=True, is_increment=True)
 
     def wait_increment_comm(self):
         """-> the gathered increment buffer (R, D, S, M, localKernelCount*
         kernelSize), or None when no comm is needed."""
         self.op.session._stat_event(self, "wait", is_param=True, is_increment=True)
-        if not (self.need_comm and self.distributed_update):
-            return None
-        if self._inc_bucket_round:
+        out = None
+        if self.need_comm and self.distributed_update and self._inc_bucket_round:
             handled, out = self.inc_bucket.wait(self)
-            if handled:
-                return out
-            self._inc_bucket_round = False
-            return self.inc_req.wait()
-        if self.inc_req.is_started:
-            return self.inc_req.wait()
-        return None
+            if not handled:
+                self._inc_bucket_round = False
+                out = self.inc_req.wait()
+        elif self.need_comm and self.distributed_update and self.inc_req.is_started:
+            out = self.inc_req.wait()
+        self.op.session._stat_event(self, "wait_done", is_param=True, is_increment=True)
+        return out
 
     # PascalCase parity aliases
     GetGlobalKernelCount = get_global_kernel_count

@@ -1,36 +1,76 @@
-"""Per-session communication counters.
+"""Statistics: online comm/compute accounting, the isolation replay and the
+``mlsl_stats.log`` table.
 
-The core of ``mlsl_tpu.core.stats``: the counters that ``Session._stat_event``
-feeds (session.py:440) -- starts, waits and bytes per request, keyed by
-operation and parameter set -- and the process-wide counters of the dispatch
-layer: bucket rounds of gradient bucketing (stats.py:131-175), launches per
-(kind, algorithm) and the compiled overlap engine's steps (stats.py:640-695).
-The JAX package's ``mlsl_stats.log`` table and the isolation replay at
-commit come later.
+Counterpart of ``mlsl_tpu.core.stats`` (reference Statistics,
+include/mlsl.hpp:651-726, src/mlsl_impl_stats.cpp):
+
+- online accounting: every Start/Wait/Test of an activation or a parameter
+  set emits a pre-event and a post-event; the time since the previous event is
+  compute on a pre-event and comm on a post-event, and bytes count on Start
+  (reference UpdateStats :564-668). A wait on an activation completes its
+  peer's request, so its time goes to the peer's slot. "Cycles" are host
+  nanoseconds (``time.perf_counter_ns``);
+- the isolation replay at Commit: every registered request runs
+  ``ISOLATION_ITERS`` times on zero buffers, the first ``ISOLATION_SKIP``
+  dropped, for its pure communication time a round (reference
+  CollectIsolationStats :387-562); on the card each round ends with the
+  stream synchronized, so the time is the collective's, not its launch's;
+- the overlap report: isolation time times starts against the comm time the
+  host spent blocked, per operation and in total;
+- ``print_``: the table appended to ``mlsl_stats.log`` (``MLSL_STATS_DIR``,
+  default the working directory; reference :226-363), for the counters this
+  package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, ALGO and OVERLAP
+  ENGINE lines.
+
+Also the process-wide counters of the dispatch layer: bucket rounds of
+gradient bucketing (stats.py:131-175), launches per (kind, algorithm) and the
+compiled overlap engine's steps (stats.py:640-695). The JAX package's table
+also prints the feed pipeline (FEED), the sentinel (SENTINEL), the elastic
+mesh (ELASTIC), stragglers (STRAGGLER), the control plane (CONTROL), the
+serving engine (SERVE), checkpoint checks (CHKP), the codec lab (CODEC) and
+the recovery ladder (DEGRADE); none of those subsystems is ported, so their
+counters and lines are left out, as are the watchdog record and the span
+tracer's wait-stall percentiles.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import os
+import time
+from typing import Dict, List, Optional, Tuple
+
+ISOLATION_ITERS = 10
+ISOLATION_SKIP = 4
+STATS_OUTPUT_FILE = "mlsl_stats.log"
+
+
+def stats_path(name: str = STATS_OUTPUT_FILE) -> str:
+    """Where the table lands: ``MLSL_STATS_DIR`` (default the working
+    directory), read at each call."""
+    d = os.environ.get("MLSL_STATS_DIR")
+    return os.path.join(d, name) if d else name
+
 
 # Bucket-round accounting (core/bucketing.py): process-wide, as in the JAX
 # package -- buckets fire from the request layer with no Session handle. The
-# JAX package's event ring and wire-saved estimate are left out: nothing here
-# reads them.
+# JAX package's event ring is left out: nothing here reads it.
 BUCKET_COUNTERS: Dict[str, int] = {
     "rounds_dispatched": 0,   # full rounds served by one coalesced dispatch
     "rounds_fallback": 0,     # early-Wait rounds run as individual requests
     "member_abandons": 0,     # members restarted mid-flight (ran individually)
     "bytes_coalesced": 0,     # member payload bytes carried by bucket rounds
+    "wire_bytes_saved": 0,    # est. wire bytes the int8 codec saved vs float32
 }
 
 
-def record_bucket_round(event: str, members: int = 0, coalesced: int = 0) -> None:
+def record_bucket_round(event: str, members: int = 0, coalesced: int = 0,
+                        wire_saved: int = 0) -> None:
     """Called by GradBucket at every round transition (dispatch, early-Wait
     fallback, member-restart abandon)."""
     if event == "dispatched":
         BUCKET_COUNTERS["rounds_dispatched"] += 1
         BUCKET_COUNTERS["bytes_coalesced"] += coalesced
+        BUCKET_COUNTERS["wire_bytes_saved"] += wire_saved
     elif event == "fallback":
         BUCKET_COUNTERS["rounds_fallback"] += 1
     else:  # abandon
@@ -91,26 +131,36 @@ def reset_overlap_counters() -> None:
 
 
 class _Slot:
-    __slots__ = ("starts", "waits", "tests", "bytes")
+    __slots__ = ("bytes", "comm_ns", "comp_ns", "events", "starts", "waits")
 
     def __init__(self):
+        self.bytes = 0
+        self.comm_ns = 0
+        self.comp_ns = 0
+        self.events = 0
         self.starts = 0
         self.waits = 0
-        self.tests = 0
-        self.bytes = 0
 
 
 def _entity_key(entity, is_param: bool, is_increment: bool) -> Tuple:
     if is_param:
-        return ("param", entity.param_index, bool(is_increment))
-    return ("act", entity.act_index, bool(entity.is_input))
+        return ("INC" if is_increment else "GRAD", entity.param_index)
+    return ("IA" if entity.is_input else "OA", entity.act_index)
 
 
 class Statistics:
     def __init__(self, session):
         self.session = session
         self._started = False
-        self._slots: Dict[int, Dict[Tuple, _Slot]] = {}
+        self._last_event_ns: Optional[int] = None
+        self._slots: Dict[Tuple[int, Tuple], _Slot] = {}
+        self._isolation_ns: Dict[int, int] = {}      # op_idx -> comm ns a round
+        self._isolation_bytes: Dict[int, int] = {}
+        # (op_idx, entity key) -> comm ns a round, for the overlap report
+        self._isolation_slot_ns: Dict[Tuple[int, Tuple], int] = {}
+        self.isolation_s = 0.0                       # wall seconds of the replay
+
+    # -- lifecycle ---------------------------------------------------------
 
     def is_enabled(self) -> bool:
         cfg = self.session.env.config
@@ -121,60 +171,294 @@ class Statistics:
 
     def initialize(self) -> None:
         """Called at Commit: MLSL_STATS=1 starts accounting."""
+        self._slots.clear()
         if self.is_enabled():
             self.start()
 
     def start(self) -> None:
         self._started = True
+        self._last_event_ns = time.perf_counter_ns()
 
     def stop(self) -> None:
         self._started = False
 
     def reset(self) -> None:
         self._slots.clear()
+        self._last_event_ns = time.perf_counter_ns()
+
+    # -- online accounting -------------------------------------------------
 
     def _slot(self, op_idx: int, key: Tuple) -> _Slot:
-        per_op = self._slots.setdefault(op_idx, {})
-        s = per_op.get(key)
+        s = self._slots.get((op_idx, key))
         if s is None:
-            s = per_op[key] = _Slot()
+            s = self._slots[(op_idx, key)] = _Slot()
         return s
 
     def update(self, entity, action: str, is_param: bool, is_increment: bool) -> None:
-        slot = self._slot(entity.op.op_idx, _entity_key(entity, is_param, is_increment))
+        """Pre-events ('start', 'wait', 'test') charge the time since the
+        last event to compute, post-events ('*_done') to comm; bytes count on
+        start. A wait on an activation is charged to its peer's slot, whose
+        request it completes."""
+        if not self._started:
+            return
+        now = time.perf_counter_ns()
+        delta = now - (self._last_event_ns or now)
+        self._last_event_ns = now
+        target = entity
+        if (not is_param and action in ("wait", "wait_done")
+                and getattr(entity, "peer_act", None) is not None):
+            target = entity.peer_act
+        slot = self._slot(target.op.op_idx, _entity_key(target, is_param, is_increment))
+        if action.endswith("_done"):
+            slot.comm_ns += delta
+        else:
+            slot.comp_ns += delta
         if action == "start":
             slot.starts += 1
-            req = entity.inc_req if is_increment else entity.grad_req
+            req = _entity_request(entity, is_param, is_increment)
             if req is not None:
                 slot.bytes += req.desc.payload_bytes()
         elif action == "wait":
             slot.waits += 1
-        elif action == "test":
-            slot.tests += 1
+        slot.events += 1
 
-    def _total(self, field: str, op_idx: Optional[int] = None) -> int:
-        ops = [op_idx] if op_idx is not None else list(self._slots)
-        return sum(getattr(s, field)
-                   for o in ops for s in self._slots.get(o, {}).values())
+    # -- the isolation replay ------------------------------------------------
 
-    def get_start_count(self, op_idx: Optional[int] = None) -> int:
-        return self._total("starts", op_idx)
+    def collect_isolation_stats(self) -> None:
+        """Replay every registered request with compute off (reference
+        :387-562); ``isolation_s`` keeps the replay's wall seconds."""
+        t0 = time.perf_counter()
+        for op in self.session.operations:
+            total_ns = total_bytes = 0
+            for key, req in _op_request_slots(op):
+                ns, nbytes = isolation_time_request(req)
+                total_ns += ns
+                total_bytes += nbytes
+                self._isolation_slot_ns[(op.op_idx, key)] = ns
+            self._isolation_ns[op.op_idx] = total_ns
+            self._isolation_bytes[op.op_idx] = total_bytes
+        self.isolation_s = time.perf_counter() - t0
 
-    def get_wait_count(self, op_idx: Optional[int] = None) -> int:
-        return self._total("waits", op_idx)
+    # -- overlap -------------------------------------------------------------
+
+    def _overlap_slots(self):
+        """(op_idx, true comm ns, exposed ns) per slot replayed in isolation
+        and started online: true = isolation ns a round x starts, exposed =
+        the online comm ns (the host blocked in Start/Wait/Test)."""
+        for (oi, key), iso in self._isolation_slot_ns.items():
+            slot = self._slots.get((oi, key))
+            if slot is None or slot.starts == 0 or iso <= 0:
+                continue
+            yield oi, iso * slot.starts, slot.comm_ns
+
+    def overlap_report(self) -> dict:
+        """Hidden against exposed communication time, per operation (by name)
+        and in total: hidden = max(0, true - exposed), overlap fraction =
+        hidden / true (``Statistics.overlap_report``, stats.py:872-935)."""
+        ops: Dict[str, dict] = {}
+        tot_iso = tot_exposed = 0
+        for op_idx, iso, exposed in self._overlap_slots():
+            name = self.session.operations[op_idx].name
+            ent = ops.setdefault(name, {"iso_ns": 0, "exposed_ns": 0})
+            ent["iso_ns"] += iso
+            ent["exposed_ns"] += exposed
+            tot_iso += iso
+            tot_exposed += exposed
+        for ent in ops.values():
+            ent["hidden_ns"] = max(0, ent["iso_ns"] - ent["exposed_ns"])
+            ent["overlap_fraction"] = ent["hidden_ns"] / ent["iso_ns"]
+        total = {
+            "iso_ns": tot_iso,
+            "exposed_ns": tot_exposed,
+            "hidden_ns": max(0, tot_iso - tot_exposed),
+            "overlap_fraction": (max(0, tot_iso - tot_exposed) / tot_iso
+                                 if tot_iso > 0 else None),
+        }
+        return {"ops": ops, "total": total}
+
+    def get_overlap_fraction(self, op_idx: Optional[int] = None) -> Optional[float]:
+        """Fraction of the pure comm time hidden behind compute, for the
+        session or one operation; None before an isolation replay and an
+        accounted step."""
+        iso = exposed = 0
+        for oi, slot_iso, slot_exposed in self._overlap_slots():
+            if op_idx is not None and oi != op_idx:
+                continue
+            iso += slot_iso
+            exposed += slot_exposed
+        return None if iso == 0 else max(0, iso - exposed) / iso
+
+    # -- queries (reference include/mlsl.hpp:680-725) ----------------------
+
+    def _sum(self, field: str, op_idx: Optional[int] = None) -> int:
+        return sum(getattr(s, field) for (oi, _), s in self._slots.items()
+                   if op_idx is None or oi == op_idx)
+
+    def get_isolation_comm_cycles(self, op_idx: int) -> int:
+        return self._isolation_ns.get(op_idx, 0)
 
     def get_comm_size(self, op_idx: int) -> int:
         """Bytes started by ``op_idx``'s requests."""
-        return self._total("bytes", op_idx)
+        return self._sum("bytes", op_idx)
+
+    def get_comm_cycles(self, op_idx: int) -> int:
+        return self._sum("comm_ns", op_idx)
+
+    def get_compute_cycles(self, op_idx: int) -> int:
+        return self._sum("comp_ns", op_idx)
+
+    def get_start_count(self, op_idx: Optional[int] = None) -> int:
+        return self._sum("starts", op_idx)
+
+    def get_wait_count(self, op_idx: Optional[int] = None) -> int:
+        return self._sum("waits", op_idx)
+
+    def get_total_isolation_comm_cycles(self) -> int:
+        return sum(self._isolation_ns.values())
 
     def get_total_comm_size(self) -> int:
-        return self._total("bytes")
+        return self._sum("bytes")
+
+    def get_total_comm_cycles(self) -> int:
+        return self._sum("comm_ns")
+
+    def get_total_compute_cycles(self) -> int:
+        return self._sum("comp_ns")
+
+    # -- the table (reference :226-363) --------------------------------------
+
+    def print_(self, path: Optional[str] = None) -> str:
+        """Append the table to ``path`` (default ``stats_path()``) and return
+        it: the lines of the JAX package's ``print_`` for the counters this
+        package keeps."""
+        if path is None:
+            path = stats_path()
+        lines = []
+        mb = max(self.session.global_minibatch_size, 1)
+        lines.append(
+            f"{'op':<16} {'entity':<8} {'KB':>12} {'comm Kns/img':>14} "
+            f"{'comp Kns/img':>14} {'events':>8}"
+        )
+        for (op_idx, key), slot in sorted(self._slots.items()):
+            op = self.session.operations[op_idx]
+            lines.append(
+                f"{op.name:<16} {key[0] + str(key[1]):<8} "
+                f"{slot.bytes / 1024.0:>12.1f} {slot.comm_ns / 1e3 / mb:>14.2f} "
+                f"{slot.comp_ns / 1e3 / mb:>14.2f} {slot.events:>8}"
+            )
+        for op_idx, ns in sorted(self._isolation_ns.items()):
+            op = self.session.operations[op_idx]
+            lines.append(
+                f"{op.name:<16} {'ISOLATE':<8} "
+                f"{self._isolation_bytes.get(op_idx, 0) / 1024.0:>12.1f} "
+                f"{ns / 1e3 / mb:>14.2f} {'-':>14} {'-':>8}"
+            )
+        rep = self.overlap_report()
+        if rep["total"]["overlap_fraction"] is not None:
+            lines.append(
+                f"{'OVERLAP':<16} {'TOTAL':<8} hidden "
+                f"{rep['total']['hidden_ns'] / 1e3:>10.1f} Kns / iso "
+                f"{rep['total']['iso_ns'] / 1e3:>10.1f} Kns = "
+                f"{rep['total']['overlap_fraction']:.3f}"
+            )
+            for name, ent in sorted(rep["ops"].items()):
+                lines.append(
+                    f"{name:<16} {'OVERLAP':<8} hidden "
+                    f"{ent['hidden_ns'] / 1e3:>10.1f} Kns / iso "
+                    f"{ent['iso_ns'] / 1e3:>10.1f} Kns = "
+                    f"{ent['overlap_fraction']:.3f}"
+                )
+        c = BUCKET_COUNTERS
+        if c["rounds_dispatched"] or c["rounds_fallback"] or c["member_abandons"]:
+            lines.append(
+                f"{'BUCKET':<16} {'ROUNDS':<8} dispatched {c['rounds_dispatched']} "
+                f"fallback {c['rounds_fallback']} abandoned {c['member_abandons']} "
+                f"coalesced {c['bytes_coalesced'] / 1024.0:.1f} KB "
+                f"wire_saved {c['wire_bytes_saved'] / 1024.0:.1f} KB"
+            )
+        if ALGO_COUNTERS:
+            parts = [f"{kind}:{algo}={n}" for (kind, algo), n in sorted(ALGO_COUNTERS.items())]
+            lines.append(f"{'ALGO':<16} {'DISPATCH':<8} " + " ".join(parts))
+        oc = OVERLAP_COUNTERS
+        if oc["steps"]:
+            lines.append(
+                f"{'OVERLAP':<16} {'ENGINE':<8} "
+                f"steps {oc['steps']} (split {oc['split_steps']}) "
+                f"units {oc['units']} rounds {oc['rounds']} "
+                f"bytes {oc['bytes'] / 1e6:.1f} MB"
+            )
+        text = "\n".join(lines) + "\n"
+        try:
+            with open(path, "a") as f:
+                f.write(text)
+        except OSError:
+            pass
+        return text
 
     # PascalCase parity aliases
-    IsEnabled = is_enabled
-    IsStarted = is_started
     Start = start
     Stop = stop
     Reset = reset
+    IsStarted = is_started
+    IsEnabled = is_enabled
+    Print = print_
+    GetIsolationCommCycles = get_isolation_comm_cycles
     GetCommSize = get_comm_size
+    GetCommCycles = get_comm_cycles
+    GetComputeCycles = get_compute_cycles
+    GetTotalIsolationCommCycles = get_total_isolation_comm_cycles
     GetTotalCommSize = get_total_comm_size
+    GetTotalCommCycles = get_total_comm_cycles
+    GetTotalComputeCycles = get_total_compute_cycles
+    OverlapReport = overlap_report
+    GetOverlapFraction = get_overlap_fraction
+
+
+# -- helpers -----------------------------------------------------------------
+
+
+def _entity_request(entity, is_param: bool, is_increment: bool):
+    if is_param:
+        return entity.inc_req if is_increment else entity.grad_req
+    return entity.comm_req
+
+
+def _op_request_slots(op) -> List[Tuple[Tuple, object]]:
+    """(entity key, request) for every registered request of one operation,
+    keyed as the online slots are."""
+    out = []
+    for act in op.inputs + op.outputs:
+        if act.comm_req is not None:
+            out.append((("IA" if act.is_input else "OA", act.act_index), act.comm_req))
+    for ps in op.parameter_sets:
+        if ps.grad_req is not None:
+            out.append((("GRAD", ps.param_index), ps.grad_req))
+        if ps.inc_req is not None:
+            out.append((("INC", ps.param_index), ps.inc_req))
+    return out
+
+
+def isolation_time_request(req) -> Tuple[int, int]:
+    """(ns a round, payload bytes) of one request alone, on a zero buffer:
+    host ``perf_counter_ns`` around Start + Wait, the stream synchronized on
+    the card."""
+    import torch
+
+    from mlsl_tpu_torch.types import torch_dtype
+
+    d = req.desc
+    topo = d.group.topology
+    dev = req.dispatcher.device
+    buf = torch.zeros((*topo.grid_shape, max(d.send_len(), 1)),
+                      dtype=torch_dtype(d.data_type), device=dev)
+    cuda = dev is not None and dev.type == "cuda"
+    times = []
+    for _ in range(ISOLATION_ITERS):
+        t0 = time.perf_counter_ns()
+        req.start(buf)
+        req.wait()
+        if cuda:
+            torch.cuda.current_stream(dev).synchronize()
+        times.append(time.perf_counter_ns() - t0)
+    good = times[ISOLATION_SKIP:]
+    return int(sum(good) / max(len(good), 1)), d.payload_bytes()

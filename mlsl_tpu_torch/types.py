@@ -8,6 +8,7 @@ only the dtype table maps to ``torch`` dtypes instead of ``jnp`` ones.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import torch
@@ -106,3 +107,23 @@ class CompressionType(enum.IntEnum):
     NONE = 0
     QUANTIZATION = 1
     TOPK = 2
+
+
+@dataclasses.dataclass
+class QuantParams:
+    """Quantization configuration (reference include/mlsl.hpp:162-171), the
+    fields of ``mlsl_tpu.types.QuantParams``. This package honours the
+    built-in int8 block codec with its geometry (``elem_in_block``); a
+    codec given as callables (``compress_fn`` ...) or as a library
+    (``lib_path`` + symbol names) is not ported yet and is refused by
+    ``Environment.set_quantization_params``."""
+
+    block_size: int = 256        # bytes per quantized block (scale + int8 payload)
+    elem_in_block: int = 256     # elements quantized per block (one shared scale)
+    lib_path: str | None = None
+    quant_buffer_func_name: str | None = None
+    dequant_buffer_func_name: str | None = None
+    reduce_sum_func_name: str | None = None
+    compress_fn: object = None
+    decompress_fn: object = None
+    reduce_sum_fn: object = None

@@ -42,7 +42,11 @@ def test_importing_the_port_loads_no_jax():
             "mlsl_tpu_torch.parallel, mlsl_tpu_torch.ops.attention_kernels, "
             "mlsl_tpu_torch.ops.a2a_kernels, mlsl_tpu_torch.comm.algos.pallas_a2a, "
             "mlsl_tpu_torch.tools.profile_step, mlsl_tpu_torch.comm.overlap, "
-            "mlsl_tpu_torch.optim, mlsl_tpu_torch.core.bucketing; "
+            "mlsl_tpu_torch.optim, mlsl_tpu_torch.core.bucketing, "
+            "mlsl_tpu_torch.core.activation, mlsl_tpu_torch.core.stats, "
+            "mlsl_tpu_torch.core.session, mlsl_tpu_torch.core.distribution, "
+            "mlsl_tpu_torch.comm.collectives, mlsl_tpu_torch.comm.request, "
+            "mlsl_tpu_torch.comm.mesh, mlsl_tpu_torch.types; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
