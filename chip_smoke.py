@@ -6,16 +6,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. build     nvcc builds every kernel of the path from mlsl_tpu_torch/csrc,
-             one process per source, all started together.
+             one process per source, all started together, while the rest of
+             the program starts up.
 2. parity    each kernel's wrapper against its plain PyTorch version on the
              card, at the shapes the training path gives it and at edge
              shapes: int8 values, scales and dequantized values bit-exact;
              the ring (B3, B4), its all-gather mode (B3-AG) and
              halving/doubling (B5) kernels bit-exact on small groups of 2 to 8
              members, every dtype, both directions, the snake order, ragged
-             counts and shards, strided rows and -0.0. Then the card's own
-             tests, mlsl_tpu_torch/cuda_tests (each kernel against its plain
-             version, no JAX), in a subprocess: every test must pass.
+             counts and shards, strided rows and -0.0. Beside it and configs
+             1-4 (which time nothing), the card's own tests,
+             mlsl_tpu_torch/cuda_tests (each kernel against its plain
+             version, no JAX), in a subprocess, joined before config 5: every
+             test must pass.
 3. config 1  a flat Distribution(8, 1) fp32 SUM AllReduce against the
              closed-form mlsl_test oracle.
 4. config 2  AllReduce, AllGather, Bcast and ReduceScatter over both groups
@@ -230,6 +233,17 @@ Phases, in order; any failure exits non-zero and prints no result:
              forms computed on the card (float64 sums within 1e-6, the rest bit
              for bit); gather_to_host; configure("color=...") restricting the
              world; no kernel launches. ms a call.
+30. mxu (right after 12): ops/mxu.mxu_einsum on bf16 operands at
+             gpt-medium-2k's attention output projection and MLP second
+             product (run (a)'s shapes) and the MoE's first expert product
+             (run (d)'s, with the experts' broadcast ep dim), forward and both
+             gradients on the tensor cores (torch.bmm with a float32
+             out_dtype), held to the plain float32 version on the same
+             inputs: forward within MXU_FWD_TOL, gradients within
+             MXU_GRAD_TOL relative L2; times of both routes beside the bf16
+             tensor-core bound. Every transformer run (13, 14, 17, 21) checks
+             that each block's mxu_einsum products ran on the tensor cores
+             (forward and both backward products: 2 a block, 3 with experts).
 
 A captured graph counts its launches once, when it is recorded: the engine
 runs' launches are those of precompile's eager warm-up step and its capture,
@@ -250,6 +264,7 @@ the card's name and power limit, one JSON object with the kernels, and last
 
 from __future__ import annotations
 
+import concurrent.futures
 import gc
 import json
 import os
@@ -1545,11 +1560,107 @@ def build_transformer(torch, env, np, dp, sp, tp, attention, n_blocks=None, base
     return trainer, trainer.shard_tokens(toks, labels)
 
 
+# the tensor-core product (ops/mxu.py) against its plain float32 version:
+# relative L2 bounds derived before the switch (cuda_tests/test_mxu.py): a
+# bf16 x bf16 product is exact in float32, so the forward differs only in the
+# order of the float32 sum; each gradient is one rounding to bf16 of the
+# same cotangent products, so the two routes differ where differently
+# ordered sums round to neighbouring bf16 values (1e-3: up to 3 % of them)
+MXU_FWD_TOL = 1e-5
+MXU_GRAD_TOL = 1e-3
+
+
+def mxu_products_a_block(cfg) -> int:
+    """mxu_einsum calls a block's forward makes: the attention output
+    projection and the MLP's second product, or the two expert products."""
+    return 3 if cfg.n_experts else 2
+
+
+def phase_mxu(torch, mxu, dev, bf16) -> list:
+    """mxu_einsum on bf16 operands at gpt-medium-2k's ``wo`` and ``w2`` shapes
+    (run (a): batch 8, 1 rank) and the MoE's first expert product (run (d):
+    dp = sp = tp = 2, 4 local experts, capacity 512), forward and backward,
+    held to the plain float32 version on the same inputs; times of both
+    routes (CUDA events) beside the tensor-core bound. -> one dict a shape."""
+    from mlsl_tpu_torch.models import transformer as tfm
+
+    cfg, moe = tfm.GPT_MEDIUM_2K, tfm.GPT_MEDIUM_2K_MOE8
+    b, s, h, dh, dm = TFM_BATCH, cfg.seq_len, cfg.n_heads, cfg.head_dim, cfg.d_model
+    ff = cfg.mlp_ratio * dm
+    one, grid8 = (1, 1, 1, 1), (1, 2, 2, 2)
+    el = moe.n_experts // 2
+    cap = int((TFM_BATCH // 2) * (cfg.seq_len // 2) // 2 * moe.capacity_factor / moe.n_experts)
+    # (tag, spec, a shape, w shape, output elements, contracted length)
+    cases = [("wo, run (a)", "...bhsx,...hxd->...bsd", (*one, b, h, s, dh), (*one, h, dh, dm),
+              b * s * dm, h * dh),
+             ("w2, run (a)", "...bsf,...fd->...bsd", (*one, b, s, ff), (*one, ff, dm),
+              b * s * dm, ff),
+             ("expert w1, run (d)", "...ecd,...edf->...ecf", (*grid8, 2, el, cap, dm),
+              (*grid8, 1, el, dm, ff), 8 * 2 * el * cap * ff, dm)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = []
+    for tag, spec, sa, sw, n_out, k in cases:
+        a = torch.randn(sa, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(sw, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        res = {}
+        for plain in (False, True):
+            x, y = a.clone().requires_grad_(), w.clone().requires_grad_()
+            before = dict(mxu.CALLS)
+            o = mxu.mxu_einsum(spec, x, y, plain=plain)
+            g = torch.randn(o.shape, generator=gen.manual_seed(SEED + 31), device=dev)
+            o.backward(g)
+            torch.cuda.synchronize()
+            calls = {key: mxu.CALLS[key] - before[key] for key in mxu.CALLS}
+            check(calls == ({"mxu_bf16_fwd": 0, "mxu_bf16_bwd": 0} if plain else
+                            {"mxu_bf16_fwd": 1, "mxu_bf16_bwd": 2}),
+                  f"mxu {tag}: calls {calls} (plain={plain})")
+            check(o.dtype == torch.float32 and x.grad.dtype == torch.bfloat16,
+                  f"mxu {tag}: dtypes {o.dtype}, {x.grad.dtype}")
+            res[plain] = (o.detach(), x.grad, y.grad)
+            del x, y, o
+        (o, ga, gw), (po, pga, pgw) = res[False], res[True]
+        errs = {"fwd": rel_err(torch, o, po), "grad_a": rel_err(torch, ga, pga),
+                "grad_w": rel_err(torch, gw, pgw)}
+        check(bool(torch.isfinite(o).all()), f"mxu {tag}: non-finite product")
+        check(errs["fwd"] <= MXU_FWD_TOL, f"mxu {tag}: forward off by {errs['fwd']:.3g}")
+        check(max(errs["grad_a"], errs["grad_w"]) <= MXU_GRAD_TOL,
+              f"mxu {tag}: gradients off by {errs}")
+        gy = torch.randn(o.shape, device=dev)
+        del res, o, ga, gw, po, pga, pgw
+        x, y = a.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def fwd(plain):
+            return lambda: mxu.mxu_einsum(spec, a, w, plain=plain)
+
+        def fwd_bwd(plain):
+            def run():
+                x.grad = y.grad = None
+                mxu.mxu_einsum(spec, x, y, plain=plain).backward(gy)
+            return run
+
+        before = dict(mxu.CALLS)
+        ms = {"ms": time_ms(torch, fwd(False), reps=10, warmup=2),
+              "plain_ms": time_ms(torch, fwd(True), reps=3, warmup=1),
+              "fwd_bwd_ms": time_ms(torch, fwd_bwd(False), reps=10, warmup=2),
+              "plain_fwd_bwd_ms": time_ms(torch, fwd_bwd(True), reps=3, warmup=1)}
+        mxu.CALLS.update(before)
+        flops = 2 * n_out * k      # a forward product; its backward is two more
+        out.append({"shape": tag, "spec": spec, "a": list(sa), "w": list(sw), **errs, **ms,
+                    "bound_ms": flops / bf16 * 1e3, "bound_fwd_bwd_ms": 3 * flops / bf16 * 1e3})
+        del a, w, x, y, gy
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_transformer(torch, trainer, batch, steps=3):
     """``steps`` training steps on one fixed batch. The last runs as its
-    halves (what ``step`` runs) so that its gradients stay at hand. -> (mean
-    losses, step seconds, the last step's split, its gradient rows or None
-    on the fused path)."""
+    halves (what ``step`` runs) so that its gradients stay at hand. Checks
+    that every block's ``mxu_einsum`` products ran on the tensor cores,
+    forward and backward. -> (mean losses, step seconds, the last step's
+    split, its gradient rows or None on the fused path)."""
+    from mlsl_tpu_torch.ops import mxu
+
+    mxu.reset_counts()
     losses, secs, grads = [], [], None
     for i in range(steps):
         torch.cuda.synchronize()
@@ -1577,6 +1688,10 @@ def phase_transformer(torch, trainer, batch, steps=3):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(float(loss))
+    want = mxu_products_a_block(trainer.cfg) * trainer.cfg.n_blocks * steps
+    check(mxu.CALLS == {"mxu_bf16_fwd": want, "mxu_bf16_bwd": 2 * want},
+          f"transformer: mxu_einsum tensor-core calls {mxu.CALLS}, expected {want} forward "
+          f"and {2 * want} backward products")
     return losses, secs, split, grads
 
 
@@ -2128,18 +2243,28 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
 CARD_TESTS = "mlsl_tpu_torch/cuda_tests"
 
 
-def phase_card_tests(timeout=600) -> str:
-    """Run the jax-free kernel-against-plain tests in a subprocess; every
-    test must pass and none skip. A failed test is run once more on its own
-    and its outcome added to the report, to tell a fault that repeats from
-    one that does not; the phase fails either way. -> pytest's summary line."""
+def start_card_tests() -> subprocess.Popen:
+    """Start the jax-free kernel-against-plain tests in a subprocess; they
+    run beside the phases that time nothing (parity, configs 1-4)."""
+    cmd = [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--tb=short",
+           CARD_TESTS]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def phase_card_tests(proc: subprocess.Popen, timeout=600) -> str:
+    """Wait for the card tests; every test must pass and none skip. A failed
+    test is run once more on its own and its outcome added to the report, to
+    tell a fault that repeats from one that does not; the phase fails either
+    way. -> pytest's summary line."""
     cmd = [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "--tb=short"]
     try:
-        proc = subprocess.run(cmd + [CARD_TESTS], cwd=ROOT, capture_output=True, text=True,
-                              timeout=timeout)
+        stdout, stderr = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
         raise SmokeFailure(f"card tests: not done in {timeout} s")
-    lines = [ln for ln in proc.stdout.strip().splitlines() if ln.strip()]
+    lines = [ln for ln in stdout.strip().splitlines() if ln.strip()]
     summary = lines[-1] if lines else ""
     if proc.returncode != 0:
         failed = [ln.split()[1] for ln in lines if ln.startswith("FAILED ")]
@@ -2150,7 +2275,7 @@ def phase_card_tests(timeout=600) -> str:
             tail = [ln for ln in rerun.stdout.strip().splitlines() if ln.strip()][-1:]
             again.append(f"  {node} alone: rc {rerun.returncode}, {' '.join(tail)}")
         raise SmokeFailure(f"card tests: rc {proc.returncode}:\n" + "\n".join(lines[-40:]) +
-                           proc.stderr[-4000:] + "\nrun again:\n" + "\n".join(again))
+                           stderr[-4000:] + "\nrun again:\n" + "\n".join(again))
     check(" passed" in summary and "skipped" not in summary and "failed" not in summary,
           f"card tests: {summary!r}")
     return summary
@@ -3605,13 +3730,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke needs a card")
     sys.path.insert(0, str(ROOT))
+    from mlsl_tpu_torch.ops import cuda_build
+
+    # nvcc builds every source while the rest starts up (imports, the card's
+    # context and name); the build's result is read in phase 1
+    t_build = time.perf_counter()
+    builder = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    building = builder.submit(cuda_build.build_all)
+    builder.shutdown(wait=False)
     from mlsl_tpu_torch import get_env
     from mlsl_tpu_torch.comm import algos
     from mlsl_tpu_torch.models import resnet
     from mlsl_tpu_torch.models import transformer as tfm
     from mlsl_tpu_torch.ops import a2a_kernels as a2a
     from mlsl_tpu_torch.ops import attention_kernels as ak
-    from mlsl_tpu_torch.ops import cuda_build
+    from mlsl_tpu_torch.ops import mxu
     from mlsl_tpu_torch.ops import quant_kernels as qk
     from mlsl_tpu_torch.ops import rhd_kernels as rhd
     from mlsl_tpu_torch.ops import ring_kernels as rk
@@ -3633,9 +3766,8 @@ def main() -> int:
     bw, f32, bf16 = card_rates(name)
     log(f"# card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    took = cuda_build.build_all()
-    log(f"# phase build: ok in {time.perf_counter() - t0:.1f} s {took}")
+    took = building.result()
+    log(f"# phase build: ok in {time.perf_counter() - t_build:.1f} s {took}")
     for src, text in cuda_build.build_logs.items():
         log(f"#   {src}: {ptxas_summary(text)}")
     if "attention_sm90" in cuda_build.build_logs:
@@ -3646,6 +3778,7 @@ def main() -> int:
           ptxas_summary(cuda_build.build_logs.get("attention_sm90", "")))
 
     env = get_env().init(world_size=WORLD)        # the card; raises without one
+    card_tests = None
     try:
         counts = resnet.layer_param_counts(resnet.ResNet50(device="meta"))
         ring_rows = resnet_ring_rows(counts)
@@ -3655,14 +3788,11 @@ def main() -> int:
         shapes = [(r, BLOCK) for r in shapes] + [
             (37, 256), (1, 256), (4096, 128), (4096, 512), (1000, 32), (333, 96),
             (moe_rows, BLOCK)]
+        t_card, card_tests = time.perf_counter(), start_card_tests()
         n_shapes = phase_parity(torch, qk, dev, shapes)
         n_ring = phase_ring_parity(torch, rk, rhd, dev)
         log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize), "
             f"{n_ring} ring, all-gather and halving/doubling cases bit-exact")
-        t0 = time.perf_counter()
-        summary = phase_card_tests()
-        log(f"# phase card tests ({CARD_TESTS}): ok in {time.perf_counter() - t0:.1f} s, "
-            f"{summary}")
 
         phase_config1(torch, env, np)
         log("# phase config1: ok")
@@ -3682,6 +3812,9 @@ def main() -> int:
               f"config 4: kernel launches {c4}, expected 19 quantize and 1 dequantize")
         del xs, outs, errs, req, roundtrip
         log(f"# phase config4: ok, launches {c4}")
+        summary = phase_card_tests(card_tests)
+        log(f"# phase card tests ({CARD_TESTS}, beside parity and configs 1-4): ok in "
+            f"{time.perf_counter() - t_card:.1f} s, {summary}")
 
         # cuDNN's deterministic convolutions from here to the overlap runs
         # (h-k), which are held to these host runs
@@ -3780,6 +3913,12 @@ def main() -> int:
         log(f"# phase attention parity: ok in {time.perf_counter() - t0:.1f} s, max abs errors "
             f"{json.dumps(parity)}")
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for line in phase_mxu(torch, mxu, dev, bf16):
+            log(f"# mxu {json.dumps(line)}")
+        log(f"# phase mxu: ok in {time.perf_counter() - t0:.1f} s (forward within "
+            f"{MXU_FWD_TOL:g}, gradients within {MXU_GRAD_TOL:g} relative L2 of the plain "
+            f"float32 version)")
 
         trainer, batch = build_transformer(torch, env, np, 1, 1, 1, "ring")
         check(trainer.fused, "transformer 1 rank: the step is not the fused one")
@@ -3965,6 +4104,9 @@ def main() -> int:
                                                    activation_graph=activation),
                                      dev=dev))
     finally:
+        if card_tests is not None and card_tests.poll() is None:   # a phase failed first
+            card_tests.kill()
+            card_tests.communicate()
         get_env().finalize()
 
     log(f"# smoke wall time: {time.perf_counter() - started:.1f} s")

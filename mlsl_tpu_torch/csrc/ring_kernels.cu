@@ -26,13 +26,25 @@
 //
 // Bound: memory traffic. Each input element is read once and each output
 // element written once; the arithmetic is one add (dense) or a few operations
-// of the int8 codec (int8) per element and hop. The design streams: for the
-// dense ring a thread owns one element of a chunk and its G loads are
-// coalesced across the warp; for the int8 ring a warp owns one block row, its
-// lanes hold the row's partial in registers across all hops (lane l has
-// elements l, l+32, ...), so a hop costs one coalesced row load and a
-// five-step shuffle for max|x|, and nothing is written until the end. No slot
-// buffers, semaphores or handshakes: nothing is in flight between members.
+// of the int8 codec (int8) per element and hop. No slot buffers, semaphores or
+// handshakes: nothing is in flight between members.
+//
+// The dense ring (B3) is bound by how many bytes are in flight. A thread
+// owns 16-byte vectors of a chunk (4 float32 or int32, 8 bfloat16) where the
+// addresses allow it, grid-stride, with a scalar head and tail in the same
+// kernel. For G = 2, 4 and 8 the hop loop is unrolled at compile time and
+// every member's vector of kRingLoads / G vectors is loaded before the
+// first add, so 8 x 16 bytes a thread are in flight (one 4-byte load at a
+// time, each behind a ring-table load and a `%`, reaches about half the
+// bound); other group sizes load eight members at a time. The block reads
+// its instance's ring row once into shared memory as row offsets in hop
+// order. Each byte is touched once, so the stores stream (__stcs). The sum
+// is the same hop chain as the plain version's, bit for bit.
+//
+// The int8 ring (B4): a warp owns one block row, its lanes hold the row's
+// partial in registers across all hops (lane l has elements l, l+32, ...),
+// so a hop costs one coalesced row load and a five-step shuffle for max|x|,
+// and nothing is written until the end.
 //
 // The all-gather (B3-AG) is the ZeRO-1 increment exchange: each member brings
 // only its own shard of rc elements and ends with all G shards in group-
@@ -91,41 +103,174 @@ struct Add<int32_t> {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ T zero();
-template <>
-__device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16_rn(0.0f); }
-template <>
-__device__ __forceinline__ int32_t zero<int32_t>() { return 0; }
+// B3's launch shape, each measured against its neighbours in one H100 call:
+// 256 threads a block; 8 member values in flight a thread before its first
+// add (fixed group sizes); blocks of all (instance, ring chunk) columns
+// together 8 a SM (sizing the grid to whole waves of resident blocks by the
+// occupancy API measured no faster). Each byte is touched once: plain loads
+// with streaming (__stcs) stores measured best (reduce_scatter at
+// 8 x 32 Mi float32, G = 4: 0.4477 ms against 0.4617 with __ldcs loads and
+// 0.4832 with __ldcs loads and plain stores; ld.global.nc.L1::no_allocate
+// and an L2::256B prefetch hint were no faster).
+constexpr int kRingThreads = 256;
+constexpr int kRingLoads = 8;
+constexpr int kRingBlocksPerSm = 8;
 
-// grid: x over the rc elements of a chunk, y over the C*G (instance, ring chunk)
-// pairs. Logical element idx = chunk_of[i] * rc + e; elements past `count`
-// are the zero padding of the last chunk.
-template <typename T>
-__global__ void dense_ring_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                  const int* __restrict__ ring,
-                                  const int* __restrict__ chunk_of, int G, long long ld,
-                                  long long rc, long long count, long long split, int rs) {
-  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= rc) return;
-  const int i = blockIdx.y % G;
-  const int* rr = ring + static_cast<long long>(blockIdx.y / G) * G;
-  const long long idx = static_cast<long long>(chunk_of[i]) * rc + e;
-  const bool valid = idx < count;
-  const int sign = e >= split ? -1 : 1;
+constexpr int kMaxGroup = 64;   // ops/ring_kernels.py MAX_GROUP
 
-  T acc = valid ? x[static_cast<long long>(rr[wrap(i + sign, G)]) * ld + idx] : zero<T>();
-  for (int s = 2; s <= G; ++s) {
-    const T loc = valid ? x[static_cast<long long>(rr[wrap(i + sign * s, G)]) * ld + idx]
-                        : zero<T>();
-    acc = Add<T>::apply(acc, loc);
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> { using type = uint4; };
+template <>
+struct RawOf<4> { using type = unsigned int; };
+template <>
+struct RawOf<2> { using type = unsigned short; };
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  using R = typename RawOf<sizeof(T) * VEC>::type;
+  Pack<T, VEC> out;
+  *reinterpret_cast<R*>(&out) = *reinterpret_cast<const R*>(p);
+  return out;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store_pack(T* p, const Pack<T, VEC>& v) {
+  using R = typename RawOf<sizeof(T) * VEC>::type;
+  __stcs(reinterpret_cast<R*>(p), *reinterpret_cast<const R*>(&v));
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void add_into(Pack<T, VEC>& acc, const Pack<T, VEC>& b) {
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc.v[k] = Add<T>::apply(acc.v[k], b.v[k]);
+}
+
+// The ring sum at element offset e of one chunk, any group size: the members'
+// values in hop order (row offsets src[0..g)), loaded eight at a time into
+// registers, then added in order.
+template <typename T, int W>
+__device__ __forceinline__ Pack<T, W> ring_sum_batched(const T* __restrict__ x,
+                                                       const long long* src, int g,
+                                                       long long e) {
+  Pack<T, W> acc;
+  for (int s0 = 0; s0 < g; s0 += 8) {
+    Pack<T, W> val[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (s0 + k < g) val[k] = load_pack<T, W>(x + src[s0 + k] + e);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (s0 + k < g) {
+        if (s0 + k == 0) acc = val[k];
+        else add_into(acc, val[k]);
+      }
+    }
   }
-  if (rs) {
-    out[static_cast<long long>(rr[i]) * rc + e] = acc;
-  } else if (valid) {
-    for (int m = 0; m < G; ++m) out[static_cast<long long>(rr[m]) * count + idx] = acc;
+  return acc;
+}
+
+// B3: one block column per (instance, ring chunk i) pair (blockIdx.y); the
+// blocks of a column stride over the chunk's elements. Logical element
+// idx = chunk_of[i] * rc + e; elements past `count` are the last chunk's zero
+// padding and are neither read nor written (they only pad reduce_scatter,
+// whose count is G * rc).
+//
+// The instance's ring row is read once a block into shared memory as row
+// offsets in hop order, both directions (hop[0][s]: member i+1+s, hop[1][s]:
+// member i-1-s), so no table load and no `%` stand on the path of a data
+// load. VEC elements (16 bytes) a load where the addresses allow it, with a
+// scalar head and tail per direction segment; G = 2, 4 or 8 is fixed at
+// compile time, every member load of U = kRingLoads / G vectors is in
+// flight before the first add; G = 0 is any group size (batches of eight).
+template <typename T, int VEC, int G>
+__global__ void __launch_bounds__(kRingThreads)
+dense_ring_kernel(const T* __restrict__ x, T* __restrict__ out, const int* __restrict__ ring,
+                  const int* __restrict__ chunk_of, int g_rt, long long ld, long long rc,
+                  long long count, long long split, int rs) {
+  const int g = G > 0 ? G : g_rt;
+  const int i = blockIdx.y % g;
+  const int* rr = ring + static_cast<long long>(blockIdx.y / g) * g;
+  const long long base = static_cast<long long>(chunk_of[i]) * rc;
+  const long long end = rs ? rc : min(rc, count - base);
+  __shared__ long long hop[2][kMaxGroup];
+  __shared__ long long dst[kMaxGroup];
+  if (end <= 0) return;
+  const int nd = rs ? 1 : g;
+  for (int s = threadIdx.x; s < g; s += blockDim.x) {
+    hop[0][s] = static_cast<long long>(rr[wrap(i + 1 + s, g)]) * ld + base;
+    hop[1][s] = static_cast<long long>(rr[wrap(i - 1 - s, g)]) * ld + base;
+    // reduce_scatter: ring member i's (W, rc) row; allreduce: every member's
+    // (W, count) row at the chunk's logical place
+    dst[s] = rs ? static_cast<long long>(rr[i]) * rc
+                : static_cast<long long>(rr[s]) * count + base;
+  }
+  __syncthreads();
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (int d = 0; d < 2; ++d) {
+    // sign +1 below split, -1 from split on (split is a multiple of 1024)
+    const long long lo = d ? split : 0, hi = d ? end : min(split, end);
+    if (lo >= hi) continue;
+    const long long* src = hop[d];
+    // [lo, a): scalar head up to the first 16-byte aligned element; [a, b):
+    // whole vectors; [b, hi): scalar tail
+    const long long a = min(hi, lo + (VEC - (base + lo) % VEC) % VEC);
+    const long long nv = (hi - a) / VEC;
+    const long long b = a + nv * VEC;
+    if (VEC > 1 && blockIdx.x == 0) {
+      const long long head = a - lo;   // fewer than VEC elements each
+      const long long t = threadIdx.x;
+      if (t < head + (hi - b)) {
+        const long long e = t < head ? lo + t : b + (t - head);
+        const Pack<T, 1> acc = ring_sum_batched<T, 1>(x, src, g, e);
+        for (int m = 0; m < nd; ++m) store_pack<T, 1>(out + dst[m] + e, acc);
+      }
+    }
+    if constexpr (G > 0) {
+      constexpr int U = kRingLoads / G > 0 ? kRingLoads / G : 1;
+      long long off[G], od[G];
+#pragma unroll
+      for (int s = 0; s < G; ++s) {
+        off[s] = src[s];
+        od[s] = dst[s];
+      }
+      for (long long v = tid; v < nv; v += U * stride) {
+        Pack<T, VEC> val[U][G];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (v + u * stride < nv) {
+            const long long e = a + (v + u * stride) * VEC;
+#pragma unroll
+            for (int s = 0; s < G; ++s) val[u][s] = load_pack<T, VEC>(x + off[s] + e);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (v + u * stride < nv) {
+            const long long e = a + (v + u * stride) * VEC;
+            Pack<T, VEC> acc = val[u][0];
+#pragma unroll
+            for (int s = 1; s < G; ++s) add_into(acc, val[u][s]);
+#pragma unroll
+            for (int m = 0; m < G; ++m)
+              if (m < nd) store_pack<T, VEC>(out + od[m] + e, acc);
+          }
+        }
+      }
+    } else {
+      for (long long v = tid; v < nv; v += stride) {
+        const long long e = a + v * VEC;
+        const Pack<T, VEC> acc = ring_sum_batched<T, VEC>(x, src, g, e);
+        for (int m = 0; m < nd; ++m) store_pack<T, VEC>(out + dst[m] + e, acc);
+      }
+    }
   }
 }
 
@@ -228,17 +373,69 @@ __global__ void quant_ring_kernel(const float* __restrict__ x, float* __restrict
   }
 }
 
+template <typename T, int VEC, int G>
+int launch_dense_as(const void* x, void* out, const void* ring, const void* chunk_of, int C,
+                    int g, long long ld, long long rc, long long count, long long split, int rs,
+                    int sms, cudaStream_t stream) {
+  constexpr int U = G > 0 && kRingLoads / G > 0 ? kRingLoads / G : 1;
+  const long long pairs = static_cast<long long>(C) * g;
+  const long long per_block = static_cast<long long>(kRingThreads) * U;
+  const long long want = (rc / VEC + per_block - 1) / per_block;
+  const long long cap = (static_cast<long long>(sms) * kRingBlocksPerSm +
+                         pairs - 1) / pairs;
+  const dim3 grid(static_cast<unsigned int>(want < 1 ? 1 : (want < cap ? want : cap)),
+                  static_cast<unsigned int>(pairs));
+  dense_ring_kernel<T, VEC, G><<<grid, kRingThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const int*>(ring),
+      static_cast<const int*>(chunk_of), g, ld, rc, count, split, rs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_dense_vec(const void* x, void* out, const void* ring, const void* chunk_of, int C,
+                     int G, long long ld, long long rc, long long count, long long split,
+                     int rs, int sms, cudaStream_t stream) {
+  switch (G) {
+    case 2:
+      return launch_dense_as<T, VEC, 2>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs,
+                                        sms, stream);
+    case 4:
+      return launch_dense_as<T, VEC, 4>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs,
+                                        sms, stream);
+    case 8:
+      return launch_dense_as<T, VEC, 8>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs,
+                                        sms, stream);
+    default:
+      return launch_dense_as<T, VEC, 0>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs,
+                                        sms, stream);
+  }
+}
+
+// 16-byte accesses when both base pointers are 16-byte aligned, the row
+// stride keeps every member row aligned and the output rows are whole
+// vectors (reduce_scatter: rc; allreduce: count); else one element a load.
 template <typename T>
 int launch_dense(const void* x, void* out, const void* ring, const void* chunk_of, int C,
                  int G, long long ld, long long rc, long long count, long long split, int rs,
                  cudaStream_t stream) {
   if (rc <= 0 || C <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid(static_cast<unsigned int>((rc + kThreads - 1) / kThreads),
-                  static_cast<unsigned int>(C * G));
-  dense_ring_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), static_cast<const int*>(ring),
-      static_cast<const int*>(chunk_of), G, ld, rc, count, split, rs);
-  return static_cast<int>(cudaGetLastError());
+  if (G < 2 || G > kMaxGroup || split % 1024 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the current device's SM count sizes the grid; queried each launch
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 && ld % kVec == 0 &&
+                   (rs ? rc : count) % kVec == 0;
+  if (vec)
+    return launch_dense_vec<T, kVec>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs,
+                                     sms, stream);
+  return launch_dense_vec<T, 1>(x, out, ring, chunk_of, C, G, ld, rc, count, split, rs, sms,
+                                stream);
 }
 
 template <typename T>

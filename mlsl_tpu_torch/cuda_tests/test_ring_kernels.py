@@ -68,6 +68,86 @@ def test_cuda_dense_ring_bit_exact_vs_plain(name, d, m, axes, algo, kind, dtype,
     assert torch.equal(got, trk.dense_ring_ref(w, plan))
 
 
+# B3 as redesigned for the card: group sizes with a compile-time body (2, 4,
+# 8) and the generic one (3, 5, 16, 64); counts that leave a scalar head or
+# tail (a chunk base off a 16-byte boundary) or that make the last chunk
+# padding; strided rows and a base pointer off 16 bytes (the one-element
+# body); the bidirectional split and the snake order; float32, bf16, int32.
+# (name, (data, model, world), axes, algo, kind, dtype, count, bidir, row pad,
+# column offset)
+B3_CASES = [
+    ("g2_f32_rs_bidir", (4, 2, 8), ("model",), "pallas_ring", "reduce_scatter", "float32",
+     2 * 8 * 4096, True, 0, 0),
+    ("g2_bf16_ar_tail", (4, 2, 8), ("model",), "pallas_ring", "allreduce", "bfloat16",
+     2 * 4096 + 24, False, 0, 0),
+    ("g3_f32_ar_padded", (3, 1, 3), ("data",), "pallas_ring", "allreduce", "float32",
+     3 * 4096 + 7, False, 0, 0),
+    ("g3_f32_ar_head_tail", (3, 1, 3), ("data",), "pallas_ring", "allreduce", "float32",
+     2 * 3 * 4096 + 4, True, 0, 0),
+    ("g4_f32_rs_strided_bidir", (2, 4, 8), ("model",), "pallas_ring", "reduce_scatter",
+     "float32", 4 * 8 * 4096, True, 8, 0),
+    ("g4_bf16_ar_head_tail", (4, 2, 8), ("data",), "pallas_ring", "allreduce", "bfloat16",
+     4 * 4096 + 40, False, 0, 0),
+    ("g4_i32_ar_offset", (2, 4, 8), ("model",), "pallas_ring", "allreduce", "int32",
+     4 * 4096, False, 3, 1),
+    ("g5_i32_ar", (5, 1, 5), ("data",), "pallas_ring", "allreduce", "int32", 5 * 1000 + 3,
+     False, 0, 0),
+    ("g5_f32_rs_bidir", (5, 1, 5), ("data",), "pallas_ring", "reduce_scatter", "float32",
+     5 * 4096, True, 0, 0),
+    ("g8_f32_ar_bidir_head_tail", (8, 1, 8), ("data",), "pallas_ring", "allreduce",
+     "float32", 8 * 3 * 4096 + 4, True, 0, 0),
+    ("g8_bf16_rs_bidir", (8, 1, 8), ("data",), "pallas_ring", "reduce_scatter", "bfloat16",
+     8 * 2 * 4096, True, 0, 0),
+    ("g8_i32_rs_strided", (8, 1, 8), ("data",), "pallas_ring", "reduce_scatter", "int32",
+     8 * 1000, False, 4, 0),
+    ("g8_f32_ar_unaligned", (8, 1, 8), ("data",), "pallas_ring", "allreduce", "float32",
+     8 * 4096 + 5, False, 2, 1),
+    ("g16_f32_ar", (16, 1, 16), ("data",), "pallas_ring", "allreduce", "float32",
+     16 * 4096 + 20, False, 0, 0),
+    ("g16_bf16_rs_bidir", (16, 1, 16), ("data",), "pallas_ring", "reduce_scatter",
+     "bfloat16", 16 * 2 * 4096, True, 0, 0),
+    ("g64_f32_ar", (64, 1, 64), ("data",), "pallas_ring", "allreduce", "float32",
+     64 * 100 + 8, False, 0, 0),
+    ("g64_i32_rs", (64, 1, 64), ("data",), "pallas_ring", "reduce_scatter", "int32",
+     64 * 256, False, 0, 0),
+    ("snake4x2_f32_ar_bidir", (4, 2, 8), ("data", "model"), "pallas_ring2d", "allreduce",
+     "float32", 8 * 2 * 4096 + 16, True, 0, 0),
+    ("snake2x4_i32_rs", (2, 4, 8), ("data", "model"), "pallas_ring2d", "reduce_scatter",
+     "int32", 8 * 4096, False, 0, 0),
+    ("snake4x2_bf16_rs_strided", (4, 2, 8), ("data", "model"), "pallas_ring2d",
+     "reduce_scatter", "bfloat16", 8 * 4096, False, 16, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("special", ["plain", "signed_zero_nan"])
+@pytest.mark.parametrize("name,dmw,axes,algo,kind,dtype,count,bidir,pad,col", B3_CASES,
+                         ids=[c[0] for c in B3_CASES])
+def test_cuda_b3_bit_exact_vs_plain(name, dmw, axes, algo, kind, dtype, count, bidir, pad,
+                                    col, special):
+    """B3 in both modes, one launch each, bit for bit against dense_ring_ref;
+    with ``signed_zero_nan`` every 7th element is -0.0 and every 13th NaN
+    (float types), or a column is INT32_MIN (int32, which wraps)."""
+    d, m, world = dmw
+    tg = ProcessGroup(Topology(d, m, world), axes)
+    wide = _dense_input(name, tg.topology.grid_shape, col + count + pad, dtype).cuda()
+    w = wide.reshape(world, col + count + pad)[:, col:col + count]
+    if special == "signed_zero_nan":
+        if dtype == "int32":
+            w[:, ::11] = -2 ** 31
+        else:
+            w[:, ::7] = -0.0
+            w[:, 5::13] = float("nan")
+    plan = trk.dense_plan(kind, tg, count, snake=algo == "pallas_ring2d", bidir=bidir)
+    before = trk.LAUNCHES["dense_ring"]
+    got = trk.dense_ring(w, plan)
+    torch.cuda.synchronize()
+    assert trk.LAUNCHES["dense_ring"] == before + 1
+    want = trk.dense_ring_ref(w, plan)
+    assert got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
 AG_CASES = [(d, m, axes, snake, shard, dtype)
             for d, m, axes, snake in [(8, 1, ("data",), False), (4, 2, ("data",), False),
                                       (4, 2, ("model",), False),

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.ops.mxu import mxu_einsum
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int, n_experts: int,
@@ -80,23 +81,13 @@ def _expert_ffn(buf: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     """buf (..., El, C, D) against this rank's experts w1 (El, D, F) and w2
     (El, F, D), each with the leading rank dims of buf's (any dims between
     them and El broadcast). The products take ``compute_dtype`` operands and
-    give float32, as ``mxu_einsum`` does."""
+    give float32 (``ops.mxu.mxu_einsum``: bf16 tensor cores on the card)."""
     lead = w1.dim() - 3
     extra = buf.dim() - 3 - lead
     view = lambda w: w.view(*w.shape[:lead], *([1] * extra), *w.shape[lead:])  # noqa: E731
     h = F.gelu(mxu_einsum("...ecd,...edf->...ecf", buf.to(compute_dtype),
                           view(w1).to(compute_dtype)), approximate="tanh")
     return mxu_einsum("...ecf,...efd->...ecd", h.to(compute_dtype), view(w2).to(compute_dtype))
-
-
-def mxu_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Einsum with a float32 result from (possibly) bfloat16 operands.
-
-    On the TPU this is the matrix unit's contract, bf16 in and f32 out. A
-    PyTorch bf16 product returns bf16, rounding its float32 sum once more, so
-    the operands are upcast and the product runs in float32 (full float32 on
-    the card: TF32 is off by default for matrix products)."""
-    return torch.einsum(spec, a.float(), b.float())
 
 
 def _diagonal(x: torch.Tensor, axis: int, ep: int) -> torch.Tensor:

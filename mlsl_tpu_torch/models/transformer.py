@@ -55,7 +55,8 @@ from mlsl_tpu_torch import optim
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax, tree_leaves
 from mlsl_tpu_torch.models.train import owned_opt_increment
-from mlsl_tpu_torch.models.moe import init_moe_params, moe_ffn, mxu_einsum
+from mlsl_tpu_torch.models.moe import init_moe_params, moe_ffn
+from mlsl_tpu_torch.ops.mxu import mxu_einsum
 from mlsl_tpu_torch.parallel.sequence import (
     ring_attention,
     ulysses_attention,

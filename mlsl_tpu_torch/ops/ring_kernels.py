@@ -27,9 +27,12 @@ Kernels (``csrc/ring_kernels.cu``, built by ``ops/cuda_build.py``):
 - ``dense_ring`` replaces the dense ``_ring_call`` (B3; body
   ``_ring_kernel_factory``, ring_kernels.py:473) for float32, bfloat16 and
   int32. Bound by memory traffic: every input element is read once and every
-  output element written once. One thread per chunk element loads the G
-  members' values with coalesced loads, accumulates in the buffer's type and
-  writes the sum to every member.
+  output element written once, so what limits it is the bytes in flight. A
+  thread owns 16-byte vectors of a chunk (grid-stride, a scalar head and
+  tail where a chunk starts off a 16-byte boundary), loads every member's
+  vector before its first add (the hop loop unrolled for G = 2, 4, 8;
+  batches of eight members otherwise), accumulates in the buffer's type in
+  hop order and writes the sum to its member, or to every member.
 - ``dense_ring`` with a plan of kind ``all_gather`` replaces the gather-only
   ``_ring_call`` (B3-AG; the same body, ``mode="all_gather"``), for the same
   dtypes. A pure copy, bound by memory traffic: one thread per (instance,

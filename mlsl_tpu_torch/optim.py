@@ -15,6 +15,12 @@ shard, and all ranks step together (one count for all).
 - ``sgd`` is ``-lr * g``, or with ``momentum`` the trace ``t = g +
   momentum * t`` and ``-lr * t`` (``optax.sgd``, no Nesterov).
 
+``update`` writes the moments (``mu``, ``nu``) and the momentum trace into
+the tensors of the state it is given and returns them, as the reference's
+donated update does: a caller must not read a state after passing it to
+``update``. Each product is rounded on its own before its add, so the bits
+are those of the out-of-place formula (no fused multiply-add).
+
 ``ShardedAdafactor`` (``mlsl_tpu/optim.py:103-489``) is not ported yet.
 """
 
@@ -61,15 +67,21 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          _zeros(shape, device), _zeros(shape, device))
 
     def update(g: torch.Tensor, state: AdamState) -> Tuple[torch.Tensor, AdamState]:
-        mu = (1 - b1) * g + b1 * state.mu
-        nu = (1 - b2) * (g * g) + b2 * state.nu
+        # mu and nu are updated in place (the reference donates its state);
+        # every product rounds on its own before the add, as out of place
+        mu, nu = state.mu, state.nu
+        t = g * (1 - b1)
+        mu.mul_(b1).add_(t)
+        torch.mul(g, g, out=t).mul_(1 - b2)
+        nu.mul_(b2).add_(t)
         limit = torch.iinfo(torch.int32).max
         count = torch.where(state.count < limit, state.count + 1, state.count)
         c = count.to(torch.float32)
         one = torch.ones((), dtype=torch.float32, device=g.device)
-        mu_hat = mu / (one - torch.pow(torch.full_like(one, b1), c))
-        nu_hat = nu / (one - torch.pow(torch.full_like(one, b2), c))
-        updates = -lr * (mu_hat / (torch.sqrt(nu_hat + eps_root) + eps))
+        torch.div(nu, one - torch.pow(torch.full_like(one, b2), c), out=t)   # nu_hat
+        t.add_(eps_root).sqrt_().add_(eps)
+        updates = mu / (one - torch.pow(torch.full_like(one, b1), c))       # mu_hat
+        updates.div_(t).mul_(-lr)
         return updates, AdamState(count, mu, nu)
 
     return Transform(init, update)
@@ -84,7 +96,7 @@ def sgd(lr: float, momentum: Optional[float] = None) -> Transform:
     def update(g: torch.Tensor, state: TraceState) -> Tuple[torch.Tensor, TraceState]:
         if momentum is None:
             return -lr * g, state
-        trace = g + momentum * state.trace
+        trace = state.trace.mul_(momentum).add_(g)      # in place: g + momentum * t
         return -lr * trace, TraceState(trace)
 
     return Transform(init, update)

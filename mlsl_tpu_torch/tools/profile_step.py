@@ -53,8 +53,9 @@ many steps again with ``torch.profiler`` (the Chrome trace goes to
   passes, B9's forward in either form, the other attention kernels; the
   all-to-all; every other kernel launched inside a ``block_update_bwd`` host
   range, the range B9's backward opens, which holds its PyTorch row terms;
-  convolution, matrix products; the rest) and the ``--top`` kernel names by
-  device time.
+  convolution; matrix products split by kernel name into float32 ones on
+  the CUDA cores, bf16 ones on the tensor cores and any other; the rest) and
+  the ``--top`` kernel names by device time.
 
 Traced wall times include the profiler's own host cost; ``step_s`` does not.
 It fails, printing no result, when there is no card or the trace holds no
@@ -98,9 +99,15 @@ CLASSES = (
 )
 # the library's kernels, after the port's own and after B9's backward range
 LIBRARY_CLASSES = (
-    # cuDNN's convolutions name their pass (fprop/dgrad/wgrad, implicit gemm);
-    # cuBLAS's float32 products are xmma/cutlass/nvjet gemms
+    # cuDNN's convolutions name their pass (fprop/dgrad/wgrad, implicit gemm)
     ("convolution", re.compile(r"conv|cudnn|implicit|wgrad|dgrad|fprop", re.I)),
+    # cuBLAS's products by kernel name, as an H100 with torch 2.11 shows them:
+    # float32 on the CUDA cores (cutlass_80_simt_sgemm_*, sm80_xmma_gemm_
+    # f32f32_f32f32_f32_*_ffma_*), bf16 operands on the tensor cores
+    # (nvjet_tss_* with a float32 result, nvjet_tst_* with a bf16 one), then
+    # any other product
+    ("matmul_f32_simt", re.compile(r"sgemm|simt|ffma|f32f32_f32f32", re.I)),
+    ("matmul_bf16_tensor", re.compile(r"nvjet_t|bf16|gmma|hmma|tensorop", re.I)),
     ("matmul", re.compile(r"gemm|cutlass|cublas|nvjet", re.I)),
 )
 

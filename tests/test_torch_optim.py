@@ -87,3 +87,57 @@ def test_adam_state_conversion_round_trips():
     assert c == 4 and per_layer["z"].mu.tolist() == [2.0] * 5
     with pytest.raises(ValueError):
         adam_state_from_optax(mu, nu, np.array([1, 2]), "cpu")
+
+
+def _adam_out_of_place(g, mu, nu, count, lr, b1, b2, eps, eps_root):
+    """The out-of-place formula the port had before its update went in place:
+    the oracle of the in-place update's bits."""
+    mu = (1 - b1) * g + b1 * mu
+    nu = (1 - b2) * (g * g) + b2 * nu
+    limit = torch.iinfo(torch.int32).max
+    count = torch.where(count < limit, count + 1, count)
+    c = count.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32)
+    mu_hat = mu / (one - torch.pow(torch.full_like(one, b1), c))
+    nu_hat = nu / (one - torch.pow(torch.full_like(one, b2), c))
+    return -lr * (mu_hat / (torch.sqrt(nu_hat + eps_root) + eps)), mu, nu, count
+
+
+ADAM_KNOBS = [dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0),
+              dict(lr=5e-3, b1=0.8, b2=0.99, eps=1e-6, eps_root=1e-9)]
+
+
+@pytest.mark.parametrize("shape", [(1000,), (1, 8, 1, 1, 37)], ids=["flat", "per-rank"])
+@pytest.mark.parametrize("knobs", ADAM_KNOBS, ids=["default", "knobs"])
+def test_adam_in_place_keeps_the_bits_and_the_storage(knobs, shape):
+    """``adam().update`` writes mu and nu into the state it was given (the
+    reference donates its state) and gives the out-of-place formula's bits
+    over 5 steps, updates and state."""
+    opt = optim.adam(**knobs)
+    state = opt.init(shape if len(shape) > 1 else shape[0], device="cpu")
+    mu0, nu0 = state.mu.data_ptr(), state.nu.data_ptr()
+    ref = (state.mu.clone(), state.nu.clone(), state.count.clone())
+    for g in _grads(shape, seed=11):
+        g = torch.from_numpy(g)
+        upd, state = opt.update(g, state)
+        want, *ref = _adam_out_of_place(g, *ref, **knobs)
+        assert torch.equal(upd, want)
+        assert torch.equal(state.mu, ref[0]) and torch.equal(state.nu, ref[1])
+        assert int(state.count) == int(ref[2])
+        assert (state.mu.data_ptr(), state.nu.data_ptr()) == (mu0, nu0)
+
+
+def test_sgd_momentum_in_place_keeps_the_bits_and_the_storage():
+    """The momentum trace is updated in place: t = g + momentum * t, bit for
+    bit, in the storage ``init`` made; without momentum the state is empty."""
+    opt = optim.sgd(0.1, momentum=0.9)
+    state = opt.init(1000, device="cpu")
+    ptr, trace = state.trace.data_ptr(), state.trace.clone()
+    for g in _grads((1000,), seed=12):
+        g = torch.from_numpy(g)
+        upd, state = opt.update(g, state)
+        trace = g + 0.9 * trace
+        assert torch.equal(state.trace, trace) and torch.equal(upd, -0.1 * trace)
+        assert state.trace.data_ptr() == ptr
+    plain = optim.sgd(0.1)
+    assert plain.init(10).trace is None
