@@ -6,8 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. build     nvcc builds every kernel of the path from mlsl_tpu_torch/csrc,
-             one process per source, all started together, while the rest of
-             the program starts up.
+             one process per source, all started together, and g++ the
+             port's C library (mlsl_tpu_torch/capi/c_api.cpp) and the four
+             unchanged C/C++ programs linked to it (capi/build.py), while
+             the rest of the program starts up.
 2. parity    each kernel's wrapper against its plain PyTorch version on the
              card, at the shapes the training path gives it and at edge
              shapes: int8 values, scales and dequantized values bit-exact;
@@ -114,15 +116,17 @@ Phases, in order; any failure exits non-zero and prints no result:
              exact-scale payload, each bit-exact to lax; one line a route
              with its time and algbw.
 17. gpt-medium-2k-moe8 (gpt-medium-2k's widths, 8 experts, top-1, capacity
-             factor 2.0, aux weight 0.01; depth cut to 6 of 12 blocks) on 8
-             ranks, dp=2 x sp=2 x tp=2 (ep = 2), zigzag, batch 8,
-             MLSL_ALGO=alltoall=pallas_a2a, three steps: losses and reduced
-             gradients as in 14; per step B6 int8 once a block (the float32
-             combine exchange), B6 dense once a block (its backward), the
-             entry quantize (B1) once a block, B9 (wgmma) and each of its
-             backward passes 5 times a block; then
-             one no-grad forward of the loss on the same weights with the
-             exchange on pallas_a2a and on lax, within 0.005 of each other.
+             factor 2.0, aux weight 0.01) at its 12 blocks under remat
+             "full" (run (d)) on 8 ranks, dp=2 x sp=2 x tp=2 (ep = 2),
+             zigzag, batch 8, MLSL_ALGO=alltoall=pallas_a2a, three steps:
+             losses and reduced gradients as in 14, the peak under the
+             card's memory; per step B6 int8 twice a block (the float32
+             combine exchange, in the forward and in its replay), B6 dense
+             once a block (its backward), the entry quantize (B1) twice a
+             block, B9 (wgmma) 10 times a block and each of its backward
+             passes 5 times; then one no-grad forward of the loss on the
+             same weights with the exchange on pallas_a2a and on lax, within
+             0.005 of each other.
 18. zero1    ResNet-50 at full width (224x224, 1000 classes, seed 0) on 8
              virtual data ranks with distributed_update=True, optim.adam(1e-3),
              clip_global_norm=1.0 and MLSL_ALGO=reduce_scatter=pallas_ring:
@@ -245,6 +249,39 @@ Phases, in order; any failure exits non-zero and prints no result:
              that each block's mxu_einsum products ran on the tensor cores
              (forward and both backward products: 2 a block, 3 with experts).
 
+31. capi programs (run (o1), beside parity and configs 1-4 with the card
+             tests, joined before config 5): the four unchanged programs
+             (native/test_c_api.c, native/test_cpp_api.cpp,
+             examples/compat_example.cpp, native/compat_test.cpp over the
+             reference matrix group_count 1, 2, 4 x dist_update 0, 1 and the
+             use_test run) against the port's library on the card with
+             MLSL_ALGO=pallas_ring, then test_c_api under pallas_rhd and
+             alltoall=pallas_a2a: each exits 0 with the lines
+             tests/test_c_api.py and tests/test_compat.py assert, and prints
+             its launches when it finalizes (a sitecustomize on its
+             PYTHONPATH); the pallas_ring runs launched B3, the pallas_rhd run
+             B5.
+32. remat (run (p), right after 17): gpt-medium-2k-moe8 at 6 blocks, one
+             batch's gradient rows before sync twice without remat, then
+             under "full" and "dots" on the same weights: losses bit for bit;
+             every layer bit for bit where the two plain runs agree bit for
+             bit, else within REMAT_TWIN_TOL. Then run (a) under "full" and
+             "dots": three steps each, the first loss bit for bit the plain
+             run's, B7 launched twice a block and step, B8's passes once;
+             step seconds and peak memory beside plain (a)'s.
+33. capi in process (run (o2), after 29): the port's library loaded with
+             ctypes, its entry reusing this interpreter (and so these launch
+             counters), MLSL_ALGO=SPEC_RING: an 8 x 256 MiB float32 allreduce
+             SUM on B3, config 4 (64 MiB a rank int8 set through
+             mlsl_environment_set_quantization_params(NULL, ..., 256, 256),
+             two rounds, B1 + B4), config 5's per-layer graph (ResNet-50's 18
+             layer counts int8 through the session / reg info / parameter set
+             calls, 3 iterations) and a 64 MiB a rank all-to-all on B6 int8,
+             each from numpy host buffers and held bit for bit, and launch
+             for launch, to the same calls through the Python API on the same
+             buffers; one line a case with the host -> card copy, the
+             collective, the card -> host copy and the algbw.
+
 A captured graph counts its launches once, when it is recorded: the engine
 runs' launches are those of precompile's eager warm-up step and its capture,
 and each prints the launches of one captured step.
@@ -270,6 +307,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1174,11 +1212,20 @@ ATTN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 NO_SM90 = dict(flash_fwd_sm90=0, flash_bwd_dq_sm90=0, flash_bwd_dkv_sm90=0)
 
 
-def b9_counts(n: int) -> dict:
+def b9_counts(n: int, forward=None) -> dict:
     """B9's launches on a training path that folds ``n`` blocks: each in the
-    wgmma form with its two backward passes, none in the CUDA-core form."""
-    return dict(block_update_sm90=n, block_update_bwd_dq_sm90=n, block_update_bwd_dkv_sm90=n,
-                block_update=0)
+    wgmma form with its two backward passes, none in the CUDA-core form;
+    ``forward`` launches of the fold itself where remat replays it."""
+    return dict(block_update_sm90=n if forward is None else forward,
+                block_update_bwd_dq_sm90=n, block_update_bwd_dkv_sm90=n, block_update=0)
+
+
+def replays(cfg) -> int:
+    """How often a training step runs each block's forward: twice under
+    remat (the forward, and its replay in the backward; both policies
+    replay the kernels and the mxu_einsum Functions, "dots" taking their
+    products' outputs from what the forward kept), else once."""
+    return 2 if cfg.remat else 1
 
 
 # runs that launch no B9 at all
@@ -1689,8 +1736,9 @@ def phase_transformer(torch, trainer, batch, steps=3):
         secs.append(time.perf_counter() - t0)
         losses.append(float(loss))
     want = mxu_products_a_block(trainer.cfg) * trainer.cfg.n_blocks * steps
-    check(mxu.CALLS == {"mxu_bf16_fwd": want, "mxu_bf16_bwd": 2 * want},
-          f"transformer: mxu_einsum tensor-core calls {mxu.CALLS}, expected {want} forward "
+    fwd = want * replays(trainer.cfg)
+    check(mxu.CALLS == {"mxu_bf16_fwd": fwd, "mxu_bf16_bwd": 2 * want},
+          f"transformer: mxu_einsum tensor-core calls {mxu.CALLS}, expected {fwd} forward "
           f"and {2 * want} backward products")
     return losses, secs, split, grads
 
@@ -1929,13 +1977,19 @@ def attention_entries(torch, F, ak, bw, bf16, runs, dev):
 
 A2A_SRC = "mlsl_tpu_torch/csrc/a2a_kernels.cu"
 A2A_PY = "mlsl_tpu/ops/a2a_kernels.py"
-# gpt-medium-2k-moe8's depth on the card: 6 of its 12 blocks, for memory (8
-# virtual ranks hold 4 local experts of 2 x 4 Mi parameters a block each, with
-# their gradients, gradient rows and reduced rows in float32: the training step
-# alone grows 7.3 GiB a block, 62.5 GiB at 6 blocks and 77.1 GiB at 8 on an
-# 80 GB H100, profile_step --model moe-8 --blocks N; this phase holds ~6.4 GiB
-# more for its gradient checks)
-MOE_BLOCKS = 6
+# gpt-medium-2k-moe8 runs at its full 12 blocks under remat="full": without
+# remat the step alone grows 7.3 GiB a block (62.5 GiB at 6 blocks, 77.1 at 8
+# of an 80 GB H100's 79.2, profile_step --model moe-8 --blocks N); with it a
+# block keeps only its input residual stream. The twin check of the two
+# policies against the plain step runs at 6 blocks, where the plain step fits.
+MOE_REMAT = "full"
+REMAT_TWIN_BLOCKS = 6
+# remat against the plain step, gradient rows before sync: a layer whose rows
+# two plain runs give bit for bit (every kernel's order fixed) must match bit
+# for bit; a layer whose plain runs differ (an order not fixed: atomic adds,
+# as the embedding gather's backward) within this relative L2 error, a few
+# float32 ulps of rows summed over 16,384 tokens in another order
+REMAT_TWIN_TOL = 1e-5
 
 
 def exact_scale(torch, gen, shape, block, dev):
@@ -2195,14 +2249,18 @@ def a2a_entry(torch, a2a, *, tag, grid, axes, count, quantized, bw, f32, per_pat
 
 
 def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches):
-    """gpt-medium-2k-moe8 at MOE_BLOCKS blocks on 8 ranks, dp=2 x sp=2 x tp=2
-    (ep = 2), zigzag, MLSL_ALGO=alltoall=pallas_a2a: three steps with their
-    checks, then the no-grad loss on both routes. -> (launches over the
-    steps, the combine exchange's float32 count a rank)."""
+    """gpt-medium-2k-moe8 at its 12 blocks under remat="full" on 8 ranks,
+    dp=2 x sp=2 x tp=2 (ep = 2), zigzag, MLSL_ALGO=alltoall=pallas_a2a: three
+    steps with their checks (a replayed block launches its forward kernels
+    again), the peak under the card's memory, then the no-grad loss on both
+    routes. -> (launches over the steps, the combine exchange's float32 count
+    a rank)."""
+    import dataclasses
+
     env = reinit(get_env, MLSL_ALGO="alltoall=pallas_a2a")
     held, kept = settle(torch)
-    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag", n_blocks=MOE_BLOCKS,
-                                       base=tfm.GPT_MEDIUM_2K_MOE8)
+    base = dataclasses.replace(tfm.GPT_MEDIUM_2K_MOE8, remat=True, remat_policy=MOE_REMAT)
+    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag", base=base)
     check(not trainer.fused, "transformer moe: the step did not take the graph path")
     cfg_m = trainer.cfg
     moe_count = moe_combine_count(cfg_m, trainer.dp, trainer.sp, trainer.tp, trainer.batch)
@@ -2210,28 +2268,469 @@ def phase_transformer_moe(torch, np, tfm, a2a, get_env, launches, reset_launches
     losses, secs, split, grads = phase_transformer(torch, trainer, batch)
     tm = launches()
     check_losses(losses, cfg_m.vocab, "transformer moe")
-    n, steps = cfg_m.n_blocks, len(losses)
-    check(counts_are(tm, a2a_quant=n * steps, a2a_dense=n * steps,
-                     quantize_blocks=n * steps, **b9_counts(5 * n * steps), flash_fwd=0,
+    n, steps, r = cfg_m.n_blocks, len(losses), replays(cfg_m)
+    check(counts_are(tm, a2a_quant=r * n * steps, a2a_dense=n * steps,
+                     quantize_blocks=r * n * steps,
+                     **b9_counts(5 * n * steps, forward=r * 5 * n * steps), flash_fwd=0,
                      flash_bwd_dq=0, flash_bwd_dkv=0, **NO_SM90, dequantize_blocks=0,
-                     dense_ring=0,
-                     quant_ring=0, rhd_allreduce=0),
-          f"transformer moe: launches {tm}, expected per step {n} B6 int8, {n} B6 dense, "
-          f"{n} B1, {5 * n} B9 (wgmma) and {5 * n} of each of its backward passes, and "
-          f"nothing else")
+                     dense_ring=0, quant_ring=0, rhd_allreduce=0),
+          f"transformer moe: launches {tm}, expected per step {r * n} B6 int8, {n} B6 dense, "
+          f"{r * n} B1, {r * 5 * n} B9 (wgmma) and {5 * n} of each of its backward passes, "
+          f"and nothing else")
     worst_m = check_transformer_grads(torch, trainer, grads, "transformer moe")
     peak_m = torch.cuda.max_memory_allocated() / 2**30
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    check(peak_m < card_gib, f"transformer moe: peak {peak_m:.2f} GiB of {card_gib:.2f}")
     del grads
     route_losses = moe_route_gap(torch, tfm, trainer, batch, a2a)
     log(f"# phase transformer moe: ok, losses {losses}, launches {tm}, worst layer gradient "
-        f"rel. error {worst_m:.4g}, peak memory {peak_m:.2f} GiB (at the start {kept:.2f} "
-        f"GiB, {held:.2f} GiB before the collector), combine exchange "
+        f"rel. error {worst_m:.4g}, peak memory {peak_m:.2f} GiB of {card_gib:.2f} (at the "
+        f"start {kept:.2f} GiB, {held:.2f} GiB before the collector), combine exchange "
         f"{moe_count} float32 a rank, no-grad mean CE by route {json.dumps(route_losses)}")
-    log(step_line(f"transformer moe 8 ranks (gpt-medium-2k-moe8, {n} of "
-                  f"{tfm.GPT_MEDIUM_2K_MOE8.n_blocks} blocks, dp=2 x sp=2 x tp=2 = ep 2, "
-                  f"zigzag, alltoall=pallas_a2a)", trainer, losses, secs, split, tm))
+    log(step_line(f"transformer moe 8 ranks (gpt-medium-2k-moe8, {n} blocks, remat "
+                  f"{MOE_REMAT!r}, dp=2 x sp=2 x tp=2 = ep 2, zigzag, alltoall=pallas_a2a)",
+                  trainer, losses, secs, split, tm))
     del trainer, batch
     return tm, moe_count
+
+
+def phase_remat_twins(torch, np, tfm, get_env):
+    """gpt-medium-2k-moe8 at REMAT_TWIN_BLOCKS blocks, run (d)'s grid and
+    route: the gradient rows before sync of one batch, twice without remat,
+    then under remat "full" and "dots", on the same weights. The losses bit
+    for bit; each layer bit for bit where the two plain runs agree bit for
+    bit, else within REMAT_TWIN_TOL. Comparisons: no launch counts. -> the
+    report."""
+    import dataclasses
+
+    env = reinit(get_env, MLSL_ALGO="alltoall=pallas_a2a")
+    settle(torch)
+    base = dataclasses.replace(tfm.GPT_MEDIUM_2K_MOE8, n_blocks=REMAT_TWIN_BLOCKS)
+    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag", base=base)
+    plain_cfg = trainer.cfg
+
+    def rows(**remat):
+        trainer.cfg = dataclasses.replace(plain_cfg, **remat)
+        torch.cuda.reset_peak_memory_stats()
+        loss, flat = trainer._grad_fn(*batch)
+        torch.cuda.synchronize()
+        return loss, flat, torch.cuda.max_memory_allocated() / 2**30
+
+    loss0, ref, peak0 = rows()
+    loss1, again, _ = rows()
+    check(bool(torch.equal(loss0, loss1)), "remat twins: two plain runs give other losses")
+    fixed = {name: bool(torch.equal(ref[name], again[name])) for name in ref}
+    del again
+    report = {"blocks": REMAT_TWIN_BLOCKS, "plain_peak_gib": peak0,
+              "layers_not_fixed": sorted(n for n, f in fixed.items() if not f)}
+    for policy in ("full", "dots"):
+        loss, got, peak = rows(remat=True, remat_policy=policy)
+        check(bool(torch.equal(loss, loss0)), f"remat twins {policy}: the losses differ")
+        worst, equal = 0.0, 0
+        for name, row in got.items():
+            if fixed[name]:
+                check(bool(torch.equal(row, ref[name])),
+                      f"remat twins {policy}: layer {name} differs from the plain run")
+                equal += 1
+            else:
+                e = rel_err(torch, row, ref[name])
+                check(e <= REMAT_TWIN_TOL, f"remat twins {policy}: layer {name} off by {e:.3g}")
+                worst = max(worst, e)
+        report[policy] = {"layers_bit_equal": equal, "layers": len(got),
+                          "worst_rel_err_not_fixed": worst, "peak_gib": peak}
+        del got
+    trainer.cfg = plain_cfg
+    del trainer, batch, ref
+    return report
+
+
+def phase_remat_a(torch, np, get_env, launches, reset_launches, plain):
+    """Run (a) under remat "full" and "dots": gpt-medium-2k on 1 rank, batch
+    8, three fused steps each, B7 launched twice a block and step (the
+    forward and its replay), B8's passes once; the first loss bit for bit the
+    plain run's (the same forward on the same weights). ``plain``: run (a)'s
+    losses, step seconds and peak GiB, printed beside. -> {policy: launches}."""
+    import dataclasses
+
+    from mlsl_tpu_torch.ops import attention_kernels as ak
+
+    out = {}
+    for policy in ("full", "dots"):
+        env = reinit(get_env, world=1)
+        settle(torch)
+        base = dataclasses.replace(gpt_medium(), remat=True, remat_policy=policy)
+        trainer, batch = build_transformer(torch, env, np, 1, 1, 1, "ring", base=base)
+        check(trainer.fused, f"transformer 1 rank remat {policy}: not the fused step")
+        reset_launches()
+        losses, secs, split, _ = phase_transformer(torch, trainer, batch)
+        ta = {k: launches()[k] for k in ak.LAUNCHES}
+        check_losses(losses, trainer.cfg.vocab, f"transformer 1 rank remat {policy}")
+        check(losses[0] == plain["losses"][0],
+              f"transformer 1 rank remat {policy}: first loss {losses[0]}, plain "
+              f"{plain['losses'][0]}")
+        n, steps = trainer.cfg.n_blocks, len(losses)
+        check(counts_are(ta, flash_fwd_sm90=2 * n * steps, flash_bwd_dq_sm90=n * steps,
+                         flash_bwd_dkv_sm90=n * steps, flash_fwd=0, flash_bwd_dq=0,
+                         flash_bwd_dkv=0, **NO_B9),
+              f"transformer 1 rank remat {policy}: launches {ta}, expected {2 * n} B7, {n} "
+              f"B8 dq and {n} B8 dk/dv in the wgmma form per step")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"# phase transformer 1 rank remat {policy}: ok, losses {losses} (plain "
+            f"{plain['losses']}), step seconds {secs} (plain {plain['secs']}), peak memory "
+            f"{peak:.2f} GiB (plain {plain['peak']:.2f}), launches {ta}")
+        log(step_line(f"transformer 1 rank remat {policy} (gpt-medium-2k, batch 8, fused "
+                      f"step)", trainer, losses, secs, split, ta))
+        out[policy] = ta
+        del trainer, batch
+    return out
+
+
+# -- the C and C++ entry (run (o)) ----------------------------------------------
+
+# the lines tests/test_c_api.py:32-41 asserts of test_c_api's output
+TEST_C_API_LINES = ("C API TEST PASSED", "world = 8", "allreduce OK (36)",
+                    "allgatherv/alltoallv OK", "alltoallv_full per-rank OK",
+                    "activation fwd ReduceScatter OK", "activation bwd AllGather OK",
+                    "distributed-update increment AllGather OK", "statistics queries OK")
+# (program, arguments, MLSL_ALGO, lines its output must hold): the four
+# unchanged programs against the port's library, compat_test over the
+# reference matrix (group_count x dist_update, then use_test), and
+# test_c_api again on halving/doubling and on the all-to-all kernel
+CAPI_RUNS = (
+    [("test_c_api", (), "pallas_ring", TEST_C_API_LINES),
+     ("test_cpp_api", (), "pallas_ring", ("CPP API TEST PASSED",)),
+     ("compat_example", (), "pallas_ring", ("compat example OK (world=8)",))]
+    + [("compat_test", (str(g), str(du), "1", "0"), "pallas_ring",
+        ("compat_test: PASSED", f"dist={WORLD // g}x{g}"))
+       for g in (1, 2, 4) for du in (0, 1)]
+    + [("compat_test", ("2", "1", "0", "1"), "pallas_ring", ("compat_test: PASSED",)),
+       ("test_c_api", (), "pallas_rhd", TEST_C_API_LINES),
+       ("test_c_api", (), "alltoall=pallas_a2a", TEST_C_API_LINES)])
+CAPI_TIMEOUT = 240
+# a program prints the port's kernel launches when it finalizes its
+# Environment (the embedded interpreter imports this from the PYTHONPATH)
+LAUNCH_REPORT = '''\
+import json
+from mlsl_tpu_torch import c_shim
+from mlsl_tpu_torch.ops import a2a_kernels, quant_kernels, rhd_kernels, ring_kernels
+
+_finalize = c_shim.env_finalize
+
+
+def env_finalize():
+    counts = {k: v for m in (quant_kernels, ring_kernels, rhd_kernels, a2a_kernels)
+              for k, v in m.LAUNCHES.items() if v}
+    print("# launches " + json.dumps(counts, sort_keys=True), flush=True)
+    return _finalize()
+
+
+c_shim.env_finalize = env_finalize
+'''
+
+
+class CapiPrograms:
+    """Run (o1): every entry of CAPI_RUNS as a subprocess on the card, three
+    at a time, started beside the phases that time nothing. ``kill`` stops
+    the ones still running."""
+
+    def __init__(self, paths, capi_build):
+        site = capi_build.build_dir() / "launch_report"
+        site.mkdir(exist_ok=True)
+        (site / "sitecustomize.py").write_text(LAUNCH_REPORT)
+        self.procs, self.stopped = [], False
+        self._lock = threading.Lock()
+
+        def run(prog, args, algo):
+            env = capi_build.program_env(MLSL_ALGO=algo, MLSL_STATS="1")
+            env["PYTHONPATH"] = os.pathsep.join([str(site), env["PYTHONPATH"]])
+            for k in ("MLSL_TPU_PLATFORM", "MLSL_STATS_DIR"):
+                env.pop(k, None)
+            with self._lock:
+                if self.stopped:
+                    raise SmokeFailure("capi: stopped")
+                proc = subprocess.Popen([paths[prog], *args], stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True, env=env, cwd=site)
+                self.procs.append(proc)
+            t0 = time.perf_counter()
+            try:
+                stdout, stderr = proc.communicate(timeout=CAPI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            return proc.returncode, stdout, stderr, time.perf_counter() - t0
+
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+        self.futures = [pool.submit(run, prog, args, algo) for prog, args, algo, _ in CAPI_RUNS]
+        pool.shutdown(wait=False)
+
+    def kill(self):
+        with self._lock:
+            self.stopped = True
+            for proc in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+
+
+def phase_capi_programs(runs: CapiPrograms) -> list:
+    """Join run (o1): each program exits 0 and prints its lines; the
+    halving/doubling and ring runs launched their kernels. -> one dict a
+    run (program, arguments, MLSL_ALGO, seconds, launches)."""
+    out = []
+    for (prog, args, algo, lines), fut in zip(CAPI_RUNS, runs.futures):
+        rc, stdout, stderr, secs = fut.result()
+        tag = f"{prog} {' '.join(args)} (MLSL_ALGO={algo})".replace("  ", " ")
+        check(rc == 0, f"capi {tag}: exit {rc}\nstdout:\n{stdout[-3000:]}\nstderr:\n"
+                       f"{stderr[-3000:]}")
+        missing = [ln for ln in lines if ln not in stdout]
+        check(not missing, f"capi {tag}: output lacks {missing}:\n{stdout[-3000:]}")
+        reports = [ln for ln in stdout.splitlines() if ln.startswith("# launches ")]
+        check(len(reports) == 1, f"capi {tag}: {len(reports)} launch reports")
+        used = json.loads(reports[0][len("# launches "):])
+        want = {"pallas_ring": "dense_ring", "pallas_rhd": "rhd_allreduce"}.get(algo)
+        check(want is None or used.get(want, 0) > 0,
+              f"capi {tag}: {want} never launched ({used})")
+        out.append({"program": prog, "args": list(args), "MLSL_ALGO": algo, "s": secs,
+                    "launches": used})
+    return out
+
+
+def bind_capi(path):
+    """The port's C library, loaded into this process with its prototypes
+    (include/mlsl_tpu.h): its embedded-Python entry reuses this interpreter,
+    so this process's launch counters see the C path."""
+    import ctypes as C
+
+    lib = C.CDLL(path)
+    h, i64, vp, cp = C.c_uint64, C.c_int64, C.c_void_p, C.c_char_p
+    protos = {
+        "mlsl_environment_init": (C.c_int, []),
+        "mlsl_environment_finalize": (C.c_int, []),
+        "mlsl_environment_get_process_count": (i64, []),
+        "mlsl_environment_create_distribution": (h, [i64, i64, i64]),
+        "mlsl_environment_create_session": (h, []),
+        "mlsl_environment_set_quantization_params": (C.c_int, [cp, cp, cp, cp, i64, i64]),
+        "mlsl_distribution_all_reduce": (h, [h, vp, i64, C.c_int, C.c_int, C.c_int]),
+        "mlsl_distribution_all_to_all": (h, [h, vp, i64, C.c_int, C.c_int]),
+        "mlsl_request_wait": (C.c_int, [h, vp, i64, C.c_int]),
+        "mlsl_session_set_global_minibatch_size": (C.c_int, [h, i64]),
+        "mlsl_session_create_operation_reg_info": (h, [h, C.c_int]),
+        "mlsl_operation_reg_info_add_input": (i64, [h, i64, i64, C.c_int]),
+        "mlsl_operation_reg_info_add_output": (i64, [h, i64, i64, C.c_int]),
+        "mlsl_operation_reg_info_add_parameter_set": (i64, [h, i64, i64, C.c_int, C.c_int,
+                                                            C.c_int]),
+        "mlsl_session_add_operation": (h, [h, h, h]),
+        "mlsl_session_commit": (C.c_int, [h]),
+        "mlsl_parameter_set_start_gradient_comm": (C.c_int, [h, i64, vp, C.c_int]),
+        "mlsl_parameter_set_wait_gradient_comm": (i64, [h, i64, vp, C.c_int]),
+        "mlsl_handle_release": (C.c_int, [h]),
+        "mlsl_get_last_error": (cp, []),
+    }
+    for name, (res, args) in protos.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def c_status(lib, rc, what):
+    """A C call's status must be MLSL_TPU_SUCCESS; else the MLSLError text."""
+    if rc != 0:
+        raise SmokeFailure(f"capi {what}: returned {rc}: {lib.mlsl_get_last_error().decode()}")
+
+
+def c_handle(lib, hid, what):
+    """A C call's handle must be non-zero; else the MLSLError text."""
+    if not hid:
+        raise SmokeFailure(f"capi {what}: no handle: {lib.mlsl_get_last_error().decode()}")
+    return hid
+
+
+# C enums (include/mlsl_tpu.h)
+C_FLOAT, C_SUM, C_DATA, C_CC = 0, 0, 0, 0
+
+
+def c_grad_ops(lib, dist_h, counts, compression):
+    """A session of one CC operation a layer through the C calls, each with
+    one parameter set of the layer's count. -> the operation handles."""
+    sess = c_handle(lib, lib.mlsl_environment_create_session(), "create session")
+    c_status(lib, lib.mlsl_session_set_global_minibatch_size(sess, 64), "minibatch")
+    ops = []
+    for n in counts:
+        reg = c_handle(lib, lib.mlsl_session_create_operation_reg_info(sess, C_CC), "reg info")
+        lib.mlsl_operation_reg_info_add_input(reg, 1, 1, C_FLOAT)
+        lib.mlsl_operation_reg_info_add_output(reg, 1, 1, C_FLOAT)
+        idx = lib.mlsl_operation_reg_info_add_parameter_set(reg, n, 1, C_FLOAT, 0,
+                                                            int(compression))
+        check(idx == 0, f"capi: add_parameter_set returned {idx}")
+        ops.append(c_handle(lib, lib.mlsl_session_add_operation(sess, reg, dist_h),
+                            "add operation"))
+    c_status(lib, lib.mlsl_session_commit(sess), "commit")
+    return ops
+
+
+def py_grad_ops(env, dist, counts, compression):
+    """The same session through the Python API. -> the parameter sets."""
+    from mlsl_tpu_torch import DataType, OpType
+
+    sess = env.create_session()
+    sess.set_global_minibatch_size(64)
+    sets = []
+    for n in counts:
+        reg = sess.create_operation_reg_info(OpType.CC)
+        reg.add_input(1, 1)
+        reg.add_output(1, 1)
+        reg.add_parameter_set(n, 1, DataType.FLOAT, compression_type=compression)
+        sets.append(sess.get_operation(sess.add_operation(reg, dist)))
+    sess.commit()
+    return [op.get_parameter_set(0) for op in sets]
+
+
+def same_host_bits(np, a, b) -> bool:
+    return a.shape == b.shape and bool(np.array_equal(a.view(np.uint32), b.view(np.uint32)))
+
+
+def capi_line(tag, nbytes_a_rank, rounds, secs, timings, py_secs, used):
+    """One case's split: the C path's wall less its two copies is the
+    collective as the C caller pays it; algbw is the payload a rank over it."""
+    coll = secs - timings["h2d_s"] - timings["d2h_s"]
+    return {"case": tag, "bytes_a_rank_a_round": nbytes_a_rank, "rounds": rounds,
+            "c_wall_s": secs, "h2d_s": timings["h2d_s"], "d2h_s": timings["d2h_s"],
+            "collective_s": coll, "algbw_GBps": nbytes_a_rank * rounds / coll / 1e9,
+            "python_path_s": py_secs, "launches": used}
+
+
+def run_capi_in_process(torch, np, get_env, launches, reset_launches, lib_path, counts, dev,
+                        n=(256 << 20) // 4, n4=(64 << 20) // 4):
+    """Run (o2): the port's C library loaded into this process; three cases
+    driven from numpy host buffers through the C calls and again through the
+    Python API on the same buffers, held bit for bit, with the same launches:
+    (1) BASELINE's message, an 8 x 256 MiB float32 allreduce SUM on B3; (2)
+    config 4, 64 MiB a rank int8 (set through
+    mlsl_environment_set_quantization_params(NULL, ..., 256, 256)) over 2
+    rounds on B1 + B4; (3) config 5's per-layer graph, ResNet-50's 18 layer
+    counts int8, 3 iterations of gradient Start/Wait; and (4) an all-to-all
+    of 64 MiB a rank on B6 (int8). MLSL_ALGO=SPEC_RING. -> (one dict a case,
+    the launches of the C path)."""
+    from mlsl_tpu_torch import CompressionType, DataType, GroupType, ReductionType, c_shim
+
+    get_env().finalize()
+    for k in ALGO_VARS:
+        os.environ.pop(k, None)
+    os.environ["MLSL_ALGO"] = SPEC_RING
+    lib = bind_capi(lib_path)
+    c_status(lib, lib.mlsl_environment_init(), "init")
+    env = get_env()
+    check(env.device.type == dev.type and lib.mlsl_environment_get_process_count() == WORLD,
+          f"capi: the C entry's Environment is on {env.device} with "
+          f"{env.get_process_count()} ranks")
+    dist_h = c_handle(lib, lib.mlsl_environment_create_distribution(WORLD, 1, 1), "dist")
+    dist = env.create_distribution(WORLD, 1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    lines, c_used = [], {}
+
+    def host(c):
+        return torch.randn((WORLD, c), generator=gen, device=dev).cpu().numpy()
+
+    def tally(used):
+        for k, v in used.items():
+            c_used[k] = c_used.get(k, 0) + v
+
+    def collective(tag, kind, c, x, start_c, start_py, want_algo, want_kernel):
+        """One Distribution collective through the C calls and through the
+        Python API on the same host buffer."""
+        out = np.empty_like(x)
+        reset_launches()
+        c_shim.reset_timings()
+        t0 = time.perf_counter()
+        req = c_handle(lib, start_c(x), kind)
+        c_status(lib, lib.mlsl_request_wait(req, out.ctypes.data, c, C_FLOAT), f"{kind} wait")
+        secs, timings, used = time.perf_counter() - t0, dict(c_shim.TIMINGS), launches()
+        tally(used)
+        buf = torch.from_numpy(x).reshape(*dist.world_shape, c).to(dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        py_req = start_py(buf)
+        res = env.wait(py_req)
+        torch.cuda.synchronize()
+        py_secs, py_used = time.perf_counter() - t0, launches()
+        check(py_req.algo == want_algo, f"capi {kind}: selected {py_req.algo!r}")
+        check(same_host_bits(np, out, res.reshape(WORLD, c).cpu().numpy()),
+              f"capi {kind}: the C path's result differs from the Python path's")
+        check(used == py_used and used[want_kernel] > 0,
+              f"capi {kind}: launches {used}, the Python path's {py_used}")
+        lines.append(capi_line(tag, c * 4, 1, secs, timings, py_secs,
+                               {k: v for k, v in used.items() if v}))
+
+    # (1) the allreduce
+    collective(f"allreduce 8 x {n * 4 / 2**20:g} MiB float32 (B3)", "allreduce", n, host(n),
+               lambda x: lib.mlsl_distribution_all_reduce(dist_h, x.ctypes.data, n, C_FLOAT,
+                                                          C_SUM, C_DATA),
+               lambda b: dist.all_reduce(b, n, DataType.FLOAT, ReductionType.SUM,
+                                         GroupType.DATA),
+               "pallas_ring", "dense_ring")
+
+    # (2) and (3): int8 gradient requests through sessions
+    c_status(lib, lib.mlsl_environment_set_quantization_params(None, None, None, None, 256,
+                                                               256), "quantization params")
+    check(env.config.quant_block_elems == 256, "capi: the codec block is not 256")
+    for tag, layer_counts, rounds in (
+            (f"config 4: {n4 * 4 / 2**20:g} MiB a rank int8 (B1 + B4)", [n4], 2),
+            (f"config 5: ResNet-50's {len(counts)} layers int8 (B1 + B4)", list(counts), 3)):
+        xs = [host(c) for c in layer_counts]
+        c_ops = c_grad_ops(lib, dist_h, layer_counts, CompressionType.QUANTIZATION)
+        outs = [[np.empty_like(x) for x in xs] for _ in range(rounds)]
+        reset_launches()
+        c_shim.reset_timings()
+        t0 = time.perf_counter()
+        for r in range(rounds):
+            for op, x in reversed(list(zip(c_ops, xs))):
+                c_status(lib, lib.mlsl_parameter_set_start_gradient_comm(
+                    op, 0, x.ctypes.data, C_FLOAT), "start gradient comm")
+            for op, o, c in zip(c_ops, outs[r], layer_counts):
+                got = lib.mlsl_parameter_set_wait_gradient_comm(op, 0, o.ctypes.data, C_FLOAT)
+                check(got == c, f"capi {tag}: wait wrote {got} of {c} a rank: "
+                                f"{lib.mlsl_get_last_error().decode()}")
+        secs, timings, used = time.perf_counter() - t0, dict(c_shim.TIMINGS), launches()
+        tally(used)
+        sets = py_grad_ops(env, dist, layer_counts, CompressionType.QUANTIZATION)
+        bufs = [torch.from_numpy(x).reshape(*dist.world_shape, x.shape[1]).to(dev)
+                for x in xs]
+        reset_launches()
+        torch.cuda.synchronize()
+        py_secs, worst = 0.0, 0
+        for r in range(rounds):
+            t0 = time.perf_counter()
+            for ps, b in reversed(list(zip(sets, bufs))):
+                ps.start_gradient_comm(b)
+            res = [ps.wait_gradient_comm() for ps in sets]
+            torch.cuda.synchronize()
+            py_secs += time.perf_counter() - t0
+            for ps, rr, o, c in zip(sets, res, outs[r], layer_counts):
+                check(ps.grad_req.algo == "pallas_ring",
+                      f"capi {tag}: selected {ps.grad_req.algo!r}")
+                check(same_host_bits(np, o, rr.reshape(WORLD, -1)[:, :c].cpu().numpy()),
+                      f"capi {tag} round {r}: the C path's result differs from the Python "
+                      f"path's")
+        py_used = launches()
+        want = len(layer_counts) * rounds
+        check(used == py_used and used["quant_ring"] == want
+              and used["quantize_blocks"] == want,
+              f"capi {tag}: launches {used}, the Python path's {py_used}, expected {want} "
+              f"B4 and {want} B1")
+        lines.append(capi_line(tag, 4 * sum(layer_counts), rounds, secs, timings, py_secs,
+                               {k: v for k, v in used.items() if v}))
+        del xs, outs, bufs, res, sets
+
+    # (4) the all-to-all: member j receives chunk j of every member
+    collective(f"alltoall 8 x {n4 * 4 / 2**20:g} MiB float32 (B6 int8)", "alltoall", n4,
+               host(n4),
+               lambda x: lib.mlsl_distribution_all_to_all(dist_h, x.ctypes.data, n4, C_FLOAT,
+                                                          C_DATA),
+               lambda b: dist.all_to_all(b, n4 // WORLD, DataType.FLOAT, GroupType.DATA),
+               "pallas_a2a", "a2a_quant")
+    c_status(lib, lib.mlsl_environment_finalize(), "finalize")
+    os.environ.pop("MLSL_ALGO", None)
+    return lines, c_used
 
 
 # -- main -----------------------------------------------------------------
@@ -3730,13 +4229,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this smoke needs a card")
     sys.path.insert(0, str(ROOT))
+    from mlsl_tpu_torch.capi import build as capi_build
     from mlsl_tpu_torch.ops import cuda_build
 
-    # nvcc builds every source while the rest starts up (imports, the card's
-    # context and name); the build's result is read in phase 1
+    # nvcc builds every source, and g++ the C library and the four programs,
+    # while the rest starts up (imports, the card's context and name); the
+    # builds' results are read in phase 1
     t_build = time.perf_counter()
-    builder = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    def build_capi():
+        t0 = time.perf_counter()
+        return capi_build.build(), time.perf_counter() - t0
+
+    builder = concurrent.futures.ThreadPoolExecutor(max_workers=2)
     building = builder.submit(cuda_build.build_all)
+    building_capi = builder.submit(build_capi)
     builder.shutdown(wait=False)
     from mlsl_tpu_torch import get_env
     from mlsl_tpu_torch.comm import algos
@@ -3767,7 +4273,9 @@ def main() -> int:
     log(f"# card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     took = building.result()
-    log(f"# phase build: ok in {time.perf_counter() - t_build:.1f} s {took}")
+    capi_paths, capi_s = building_capi.result()
+    log(f"# phase build: ok in {time.perf_counter() - t_build:.1f} s {took}; the C library "
+        f"and its four programs in {capi_s:.1f} s ({capi_build.build_dir().name})")
     for src, text in cuda_build.build_logs.items():
         log(f"#   {src}: {ptxas_summary(text)}")
     if "attention_sm90" in cuda_build.build_logs:
@@ -3778,7 +4286,7 @@ def main() -> int:
           ptxas_summary(cuda_build.build_logs.get("attention_sm90", "")))
 
     env = get_env().init(world_size=WORLD)        # the card; raises without one
-    card_tests = None
+    card_tests = capi_runs = None
     try:
         counts = resnet.layer_param_counts(resnet.ResNet50(device="meta"))
         ring_rows = resnet_ring_rows(counts)
@@ -3789,6 +4297,7 @@ def main() -> int:
             (37, 256), (1, 256), (4096, 128), (4096, 512), (1000, 32), (333, 96),
             (moe_rows, BLOCK)]
         t_card, card_tests = time.perf_counter(), start_card_tests()
+        capi_runs = CapiPrograms(capi_paths, capi_build)
         n_shapes = phase_parity(torch, qk, dev, shapes)
         n_ring = phase_ring_parity(torch, rk, rhd, dev)
         log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize), "
@@ -3815,6 +4324,12 @@ def main() -> int:
         summary = phase_card_tests(card_tests)
         log(f"# phase card tests ({CARD_TESTS}, beside parity and configs 1-4): ok in "
             f"{time.perf_counter() - t_card:.1f} s, {summary}")
+        o1 = phase_capi_programs(capi_runs)
+        for run in o1:
+            log(f"# capi program {json.dumps(run)}")
+        log(f"# phase capi programs (run (o1), beside parity and configs 1-4): ok in "
+            f"{time.perf_counter() - t_card:.1f} s, {len(o1)} runs of the four unchanged "
+            f"programs against {Path(capi_paths['lib']).name}")
 
         # cuDNN's deterministic convolutions from here to the overlap runs
         # (h-k), which are held to these host runs
@@ -3932,8 +4447,10 @@ def main() -> int:
                          flash_bwd_dkv=0, **NO_B9),
               f"transformer 1 rank: launches {ta}, expected {n} B7, {n} B8 dq, {n} B8 dk/dv "
               f"in the wgmma form, none in the CUDA-core form, and no B9 per step")
+        plain_a = {"losses": losses, "secs": secs,
+                   "peak": torch.cuda.max_memory_allocated() / 2**30}
         log(f"# phase transformer 1 rank: ok, losses {losses}, launches {ta}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{plain_a['peak']:.2f} GiB")
         log(step_line("transformer 1 rank (gpt-medium-2k, batch 8, fused step)", trainer,
                       losses, secs, split, ta))
         del trainer, batch
@@ -3998,6 +4515,14 @@ def main() -> int:
         check(moe_path_count == moe_count,
               f"transformer moe: the combine exchange is {moe_path_count} a rank, the parity "
               f"phase checked {moe_count}")
+        # remat (run (p)): the policies against the plain step, then run (a)
+        # under both
+        t0 = time.perf_counter()
+        twins = phase_remat_twins(torch, np, tfm, get_env)
+        log(f"# phase remat twins: ok in {time.perf_counter() - t0:.1f} s, "
+            f"{json.dumps(twins)}")
+        remat_a = phase_remat_a(torch, np, get_env, launches, reset_launches, plain_a)
+        env = reinit(get_env)
         zr, rr, zs = run_zero1(torch, np, get_env, launches, reset_launches, dev,
                                list(counts.values()))
 
@@ -4022,6 +4547,18 @@ def main() -> int:
         log(f"# phase collectives: ok in {time.perf_counter() - t0:.1f} s")
         settle(torch)
 
+        # the C entry in this process (run (o2)): the port's library loaded
+        # with ctypes reuses this interpreter and its launch counters
+        t0 = time.perf_counter()
+        o2_lines, capi_used = run_capi_in_process(torch, np, get_env, launches, reset_launches,
+                                                  capi_paths["lib"], list(counts.values()), dev)
+        for line in o2_lines:
+            log(f"# capi {json.dumps(line)}")
+        log(f"# phase capi in process (run (o2)): ok in {time.perf_counter() - t0:.1f} s, "
+            f"bit for bit and launch for launch against the Python path, launches "
+            f"{json.dumps({k: v for k, v in capi_used.items() if v}, sort_keys=True)}")
+        settle(torch)
+
         fc_entry = ring_rows["fc"][0]
 
         def path(key, **runs):
@@ -4035,7 +4572,7 @@ def main() -> int:
                     engine_fused_ring=engine_used["engine fused ring"],
                     engine_buckets=engine_used["engine buckets"],
                     overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used,
-                    activation_graph=activation, collectives=coll_used)
+                    activation_graph=activation, collectives=coll_used, capi=capi_used)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -4086,11 +4623,13 @@ def main() -> int:
             torch, a2a, tag="activation cases 4 and 5, G=4", grid=(2, 4), axes=("model",),
             count=4 * (MLP_TOKENS // WORLD) * (MLP_FM2 // 4), quantized=False, bw=bw, f32=f32,
             per_path=path("a2a_dense", alltoall=a2a_used, transformer_moe=tm,
-                          activation_graph=activation), dev=dev))
+                          activation_graph=activation, capi=capi_used), dev=dev))
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
             dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr,
-                 transformer_moe=tm, transformer_zero1=tz, transformer_replicated_adam=tra),
+                 transformer_moe=tm, transformer_zero1=tz, transformer_replicated_adam=tra,
+                 transformer_1rank_remat_full=remat_a["full"],
+                 transformer_1rank_remat_dots=remat_a["dots"]),
             dev)
         for tag, grid, axes, count, quantized in (
                 ("MoE combine exchange, ep=2", (4, 2), ("model",), moe_count, True),
@@ -4101,12 +4640,15 @@ def main() -> int:
             entries.append(a2a_entry(torch, a2a, tag=tag, grid=grid, axes=axes, count=count,
                                      quantized=quantized, bw=bw, f32=f32,
                                      per_path=path(key, alltoall=a2a_used, transformer_moe=tm,
-                                                   activation_graph=activation),
+                                                   activation_graph=activation,
+                                                   capi=capi_used),
                                      dev=dev))
     finally:
         if card_tests is not None and card_tests.poll() is None:   # a phase failed first
             card_tests.kill()
             card_tests.communicate()
+        if capi_runs is not None:
+            capi_runs.kill()
         get_env().finalize()
 
     log(f"# smoke wall time: {time.perf_counter() - started:.1f} s")

@@ -38,18 +38,29 @@ into an increment, and the increments are all-gathered back
 micro-batches' gradients before one sync.
 
 Compute is bfloat16 by default; parameters, the residual adds, the TP sums,
-layer norms and the loss are float32. Remat, the sharded-vocabulary CE,
-ShardedAdafactor and the decode-mode functions come later (ROADMAP A).
+layer norms and the loss are float32. ``remat`` replays each block in the
+backward (``"full"``) or everything in it but its matrix products
+(``"dots"``). The gradient requests start after ``torch.autograd.grad``
+returns, not from hooks, so a replayed block cannot start one twice. The
+sharded-vocabulary CE, ShardedAdafactor and the decode-mode functions come
+later (ROADMAP A).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from mlsl_tpu_torch import optim
 from mlsl_tpu_torch.log import mlsl_assert
@@ -83,8 +94,10 @@ class TransformerConfig:
     # tokens/labels in zigzag sequence order and the position embedding rows
     # follow, so training is mathematically identical to 'ring'.
     dtype: str = "bfloat16"  # compute dtype; 'float32' for exactness tests
-    remat: bool = False      # recompute each block in the backward (not ported)
-    remat_policy: str = "full"  # 'full' | 'dots' (with remat=True)
+    remat: bool = False      # keep only each block's input; replay the block in
+    # the backward (torch.utils.checkpoint)
+    remat_policy: str = "full"  # 'full' | 'dots' (with remat=True): 'dots' also
+    # keeps the matrix products' outputs
     n_experts: int = 0       # >0: MoE FFN with expert parallelism over 'model'
     moe_top_k: int = 1       # 1 = switch routing; 2 = GShard-style top-2
     moe_aux_weight: float = 0.01
@@ -199,6 +212,24 @@ def _positions(sp: int, sl: int, zigzag: bool, device) -> torch.Tensor:
     return torch.arange(sp * sl, device=device).view(sp, sl)
 
 
+# the products whose outputs remat_policy="dots" keeps (jax.checkpoint_policies.
+# checkpoint_dots): every matrix product, as ops/mxu.py's bf16 tensor-core
+# product (aten.bmm.dtype) and the float32 einsums lower to them; the rest,
+# kernel launches included, is replayed
+_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+             torch.ops.aten.baddbmm)
+
+
+def _products_policy(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_products():
+    return create_selective_checkpoint_contexts(_products_policy)
+
+
 def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm=None):
     """The forward of every rank at once.
 
@@ -231,9 +262,7 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
     else:
         attn_fn = ring_attention if cfg.attention == "ring" else ulysses_attention
 
-    aux_total = 0.0
-    for i in range(cfg.n_blocks):
-        lnp, ap, mp = (params[f"blk{i}.{part}"] for part in ("ln", "attn", "mlp"))
+    def block(h, lnp, ap, mp):
         a = _ln(h.float(), lnp["ln1_scale"], lnp["ln1_bias"]).to(cdt)
         qkv = torch.einsum("...bsd,...dchx->...bcshx", a, ap["wqkv"].to(cdt))
         q, k, v = (qkv[..., c, :, :, :].movedim(-2, -3) for c in range(3))  # (*grid, Bl, Hl, Sl, Dh)
@@ -248,13 +277,26 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
                              cfg.capacity_factor, cfg.moe_top_k, compute_dtype=cdt,
                              group=comm[0] if comm else None,
                              config=comm[1] if comm else None)
-            h = (h.float() + o.reshape(*grid, bl, sl, dm)).to(cdt)
+            return (h.float() + o.reshape(*grid, bl, sl, dm)).to(cdt), aux
+        f = F.gelu(torch.einsum("...bsd,...df->...bsf", a, mp["w1"].to(cdt))
+                   + _bcast(mp["b1"], 2).to(cdt), approximate="tanh")
+        o = mxu_einsum("...bsf,...fd->...bsd", f, mp["w2"].to(cdt))
+        return (h.float() + _model_sum(o, tp) + _bcast(mp["b2"], 2)).to(cdt), None
+
+    # cfg.remat (transformer.py:256-275 of the JAX package): keep only each
+    # block's input residual stream and replay the block in the backward
+    mlsl_assert(cfg.remat_policy in ("full", "dots"),
+                "unknown remat_policy %r", cfg.remat_policy)
+    if cfg.remat:
+        context = _save_products if cfg.remat_policy == "dots" else noop_context_fn
+        blk = functools.partial(checkpoint, block, use_reentrant=False, context_fn=context)
+    else:
+        blk = block
+    aux_total = 0.0
+    for i in range(cfg.n_blocks):
+        h, aux = blk(h, *(params[f"blk{i}.{part}"] for part in ("ln", "attn", "mlp")))
+        if aux is not None:
             aux_total = aux_total + aux
-        else:
-            f = F.gelu(torch.einsum("...bsd,...df->...bsf", a, mp["w1"].to(cdt))
-                       + _bcast(mp["b1"], 2).to(cdt), approximate="tanh")
-            o = mxu_einsum("...bsf,...fd->...bsd", f, mp["w2"].to(cdt))
-            h = (h.float() + _model_sum(o, tp) + _bcast(mp["b2"], 2)).to(cdt)
 
     fin = params["final"]
     return _ln(h.float(), fin["ln_scale"], fin["ln_bias"]), aux_total
@@ -291,8 +333,6 @@ class HybridTrainer:
                  batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
                  distributed_update: bool = False, compression=None, optimizer=None,
                  params=None):
-        mlsl_assert(not cfg.remat, "remat is not ported yet "
-                                   "(ROADMAP A: the transformer's remaining options)")
         mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
                                            "(ROADMAP A: the transformer's remaining options)")
         mlsl_assert(optimizer is None or isinstance(optimizer, optim.Transform),
@@ -428,10 +468,15 @@ class HybridTrainer:
         gradient rows in JAX leaf order}), before any sync: the buffers the
         ParameterSet requests take."""
         ce, grads = self._backward(tokens, labels)
-        it = iter(grads)
-        flat = {}
+        flat, i = {}, 0
         for name in self.layers:
-            g = torch.cat([next(it).reshape(*self.grid, -1) for _ in self._leaves[name]], dim=-1)
+            n = len(self._leaves[name])
+            g = torch.cat([p.reshape(*self.grid, -1) for p in grads[i:i + n]], dim=-1)
+            # each layer's leaf gradients go once packed: the rows and the leaf
+            # gradients never coexist in full (gpt-medium-2k-moe8 at 12 blocks
+            # holds 15 GiB of each)
+            grads[i:i + n] = [None] * n
+            i += n
             pad = self.padded_counts[name] - g.shape[-1]
             flat[name] = F.pad(g, (0, pad)) if pad else g
         return ce[..., None], flat

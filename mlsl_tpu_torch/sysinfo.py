@@ -21,6 +21,25 @@ class SysInfo:
     memory_per_device: int     # bytes, 0 without CUDA
 
 
+def platform_override():
+    """The device an entry point that takes no arguments (the C shim) runs
+    on, from ``MLSL_TPU_PLATFORM`` (``mlsl_tpu.sysinfo.apply_platform_override``):
+    ``cpu`` -> ``"cpu"``; unset, ``gpu`` or ``cuda`` -> None, the card
+    (``Environment.init``'s default, which raises without CUDA). Any other
+    value raises ``MLSLError``."""
+    import os
+
+    from mlsl_tpu_torch.log import MLSLError
+
+    platform = os.environ.get("MLSL_TPU_PLATFORM", "").strip().lower()
+    if platform == "cpu":
+        return "cpu"
+    if platform in ("", "gpu", "cuda"):
+        return None
+    raise MLSLError(f"MLSL_TPU_PLATFORM={platform!r}: the port runs on 'cpu' or the card "
+                    f"('gpu', 'cuda' or unset)")
+
+
 def on_gpu() -> bool:
     """True when PyTorch sees a CUDA device."""
     return torch.cuda.is_available()

@@ -3,7 +3,7 @@
 Run from the root of a checkout, on a machine with a card:
 
     python3 -m mlsl_tpu_torch.tools.profile_step [--model resnet] [--steps 3] [--warmup 2]
-        [--blocks N] [--zero1] [--overlap-compiled]
+        [--blocks N] [--remat full|dots] [--zero1] [--overlap-compiled]
 
 ``--model`` picks the step:
 
@@ -21,7 +21,11 @@ Run from the root of a checkout, on a machine with a card:
   float32 combine exchange on the fused all-to-all B6 (int8 codec unless
   MLSL_PALLAS_A2A_QUANT=0), chip_smoke.py's MoE run.
 
-``--blocks`` sets a transformer step's depth in place of the one above.
+``--blocks`` sets a transformer step's depth in place of the one above;
+``--remat full|dots`` trains it with ``remat`` and that ``remat_policy``
+(each block replayed in the backward; ``dots`` keeps the matrix products'
+outputs), so ``--model moe-8 --blocks 12 --remat full`` is chip_smoke.py's
+MoE run at its full depth.
 ``--zero1`` trains a transformer step with Adam (lr 1e-4) and the
 distributed update (ZeRO-1), its requests coalesced into gradient buckets:
 ``MLSL_GRAD_BUCKET_MB=25`` and ``MLSL_ALGO=reduce_scatter=pallas_ring2d``
@@ -136,7 +140,8 @@ TRANSFORMERS = {"transformer-1": (1, 1, 1, "ring", tfm.GPT_MEDIUM_2K, 12),
                 "moe-8": (2, 2, 2, "zigzag", tfm.GPT_MEDIUM_2K_MOE8, 6)}
 
 
-def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, zero1=False):
+def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, zero1=False,
+                      remat=None):
     if base.n_experts:
         os.environ.setdefault("MLSL_ALGO", "alltoall=pallas_a2a")
     kw = {}
@@ -144,7 +149,8 @@ def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, ze
         os.environ.setdefault("MLSL_GRAD_BUCKET_MB", "25")
         os.environ.setdefault("MLSL_ALGO", "reduce_scatter=pallas_ring2d")
         kw = dict(distributed_update=True, optimizer=optim.adam(1e-4))
-    cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16", n_blocks=n_blocks)
+    cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16", n_blocks=n_blocks,
+                              remat=remat is not None, remat_policy=remat or "full")
     env = get_env().init(world_size=dp * sp * tp)
     trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=0.1, seed=seed, **kw)
     rng = np.random.default_rng(seed)
@@ -270,6 +276,8 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--blocks", type=int, default=None,
                     help="a transformer step's depth (default: its own, see above)")
+    ap.add_argument("--remat", choices=("full", "dots"), default=None,
+                    help="a transformer step with remat and this remat_policy")
     ap.add_argument("--zero1", action="store_true",
                     help="a transformer step with Adam, ZeRO-1 and 25 MiB gradient buckets")
     ap.add_argument("--overlap-compiled", action="store_true",
@@ -282,8 +290,8 @@ def main(argv=None) -> int:
         print("profile_step: torch.cuda.is_available() is false: this needs a card",
               file=sys.stderr)
         return 1
-    if args.zero1 and args.model == "resnet":
-        ap.error("--zero1 takes a transformer model")
+    if (args.zero1 or args.remat) and args.model == "resnet":
+        ap.error("--zero1 and --remat take a transformer model")
     if args.overlap_compiled and args.model != "resnet":
         ap.error("--overlap-compiled takes the resnet model")
     engine = {}
@@ -303,7 +311,8 @@ def main(argv=None) -> int:
     else:
         *shape, blocks = TRANSFORMERS[args.model]
         blocks = args.blocks or blocks
-        env, trainer, batch = build_transformer(*shape, blocks, zero1=args.zero1)
+        env, trainer, batch = build_transformer(*shape, blocks, zero1=args.zero1,
+                                                remat=args.remat)
         step = lambda: trainer.step(*batch)         # noqa: E731
     bucket_mb = env.config.grad_bucket_mb
     try:
@@ -336,7 +345,7 @@ def main(argv=None) -> int:
     out = {"device": torch.cuda.get_device_name(0), "model": args.model, "steps": args.steps,
            "ring": req.algo if req is not None else None,
            "mlsl_algo": os.environ.get("MLSL_ALGO", ""),
-           "blocks": blocks, "zero1": args.zero1,
+           "blocks": blocks, "remat": args.remat, "zero1": args.zero1,
            "grad_bucket_mb": bucket_mb, "traced_bucket_rounds": buckets,
            "step_s": step_s, "peak_gib": peak_gib,
            "device_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,

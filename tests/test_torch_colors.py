@@ -583,4 +583,7 @@ def test_environment_alloc_version_and_quant_params(env, tenv):
     e = Environment.get_env()
     e.set_quantization_params(QuantParams(elem_in_block=512))
     e.init(device="cpu", world_size=8)
-    assert e.config.quant_block_elems == 512
+    try:
+        assert e.config.quant_block_elems == 512
+    finally:
+        e.finalize()   # the fixture finalizes the first Environment only

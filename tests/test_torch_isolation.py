@@ -16,6 +16,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "mlsl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+C_SOURCES = sorted((ROOT / "mlsl_tpu_torch" / "capi").glob("*.cpp"))
 
 
 def _imported_roots(path: Path):
@@ -35,6 +36,21 @@ def test_port_sources_import_no_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+@pytest.mark.parametrize("path", C_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_c_entry_imports_only_the_port(path):
+    """The port's C entry embeds Python and imports modules by name: only
+    ``mlsl_tpu_torch.*``, and the shim among them."""
+    import re
+
+    text = path.read_text()
+    names = re.findall(r'PyImport_Import(?:Module)?\s*\(\s*"([^"]+)"', text)
+    names += re.findall(r'PyImport_ImportModuleLevel\s*\(\s*"([^"]+)"', text)
+    assert names, f"{path.relative_to(ROOT)} imports no module"
+    bad = [n for n in names if n.split(".")[0] != "mlsl_tpu_torch"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    assert "mlsl_tpu_torch.c_shim" in names
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, mlsl_tpu_torch, mlsl_tpu_torch.models.train, "
             "mlsl_tpu_torch.models.resnet, mlsl_tpu_torch.ops.cuda_build, "
@@ -46,7 +62,8 @@ def test_importing_the_port_loads_no_jax():
             "mlsl_tpu_torch.core.activation, mlsl_tpu_torch.core.stats, "
             "mlsl_tpu_torch.core.session, mlsl_tpu_torch.core.distribution, "
             "mlsl_tpu_torch.comm.collectives, mlsl_tpu_torch.comm.request, "
-            "mlsl_tpu_torch.comm.mesh, mlsl_tpu_torch.types; "
+            "mlsl_tpu_torch.comm.mesh, mlsl_tpu_torch.types, mlsl_tpu_torch.c_shim, "
+            "mlsl_tpu_torch.capi.build; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

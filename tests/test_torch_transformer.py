@@ -137,7 +137,7 @@ def test_weight_conversion_round_trip():
 def test_unported_options_raise(option):
     """The options still to port raise MLSLError; ``n_experts`` (ported with
     the MoE slice), ``distributed_update`` and ``optimizer`` (ported with
-    ZeRO-1 and Adam) construct a trainer that steps."""
+    ZeRO-1 and Adam) and ``remat`` construct a trainer that steps."""
     from mlsl_tpu_torch import optim
 
     cfg_kw, kw = dict(CFG), {}
@@ -151,7 +151,7 @@ def test_unported_options_raise(option):
         kw["optimizer"] = optim.adam(1e-2)
     tenv = _port_env(2)
     try:
-        if option in ("n_experts", "distributed_update", "optimizer"):
+        if option in ("n_experts", "distributed_update", "optimizer", "remat"):
             grid = (1, 1, 2) if option == "n_experts" else (2, 1, 1)
             tt = ttfm.HybridTrainer(tenv, ttfm.TransformerConfig(**cfg_kw), *grid, batch=2,
                                     **kw)
