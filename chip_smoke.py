@@ -1699,12 +1699,17 @@ def phase_mxu(torch, mxu, dev, bf16) -> list:
     return out
 
 
-def phase_transformer(torch, trainer, batch, steps=3):
-    """``steps`` training steps on one fixed batch. The last runs as its
-    halves (what ``step`` runs) so that its gradients stay at hand. Checks
-    that every block's ``mxu_einsum`` products ran on the tensor cores,
-    forward and backward. -> (mean losses, step seconds, the last step's
-    split, its gradient rows or None on the fused path)."""
+def phase_transformer(torch, trainer, batch, steps=3, first=None):
+    """``steps`` training steps on one fixed batch. On the fused path every
+    step is ``step``: the first captures the step's CUDA graph (one eager
+    warm-up, then the recording), the others replay it. Otherwise the last
+    runs as its halves (what ``step`` runs) so that its gradients stay at
+    hand, and with ``first`` (a dict) the first too, whose loss and gradient
+    rows before sync go to the host into ``first``. Checks that every
+    block's ``mxu_einsum`` products ran on the tensor cores, forward and
+    backward (on the fused path in the warm-up and the recording). -> (mean
+    losses, step seconds, the last step's split, its gradient rows or None on
+    the fused path)."""
     from mlsl_tpu_torch.ops import mxu
 
     mxu.reset_counts()
@@ -1712,18 +1717,17 @@ def phase_transformer(torch, trainer, batch, steps=3):
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if i < steps - 1:
+        if trainer.fused:
             loss = trainer.step(*batch)
-        elif trainer.fused:
-            ce, g = trainer._backward(*batch)
-            torch.cuda.synchronize()
-            split = {"forward_backward_s": time.perf_counter() - t0}
-            t1 = time.perf_counter()
-            trainer._fused_update(g)
-            loss = ce[:, :, :, 0].sum() / trainer._norm
-            torch.cuda.synchronize()
-            split["update_s"] = time.perf_counter() - t1
-            del g
+            split = {"graph_replay_s": None}
+        elif i == 0 and first is not None:
+            loss, g0 = trainer._grad_fn(*batch)
+            first["loss"] = loss.cpu()
+            first["rows"] = {name: row.cpu() for name, row in g0.items()}
+            loss = trainer._sync_and_update(g0, loss)
+            del g0
+        elif i < steps - 1:
+            loss = trainer.step(*batch)
         else:
             loss, grads = trainer._grad_fn(*batch)
             torch.cuda.synchronize()
@@ -1735,7 +1739,12 @@ def phase_transformer(torch, trainer, batch, steps=3):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    want = mxu_products_a_block(trainer.cfg) * trainer.cfg.n_blocks * steps
+    if trainer.fused:
+        split["graph_replay_s"] = secs[-1]
+        split["capture_s"] = [c.capture_s for _, c in trainer._graphs.values()]
+    # the graph's products ran in the warm-up and the recording only
+    ran = 2 if trainer.fused and trainer._graphs else steps
+    want = mxu_products_a_block(trainer.cfg) * trainer.cfg.n_blocks * ran
     fwd = want * replays(trainer.cfg)
     check(mxu.CALLS == {"mxu_bf16_fwd": fwd, "mxu_bf16_bwd": 2 * want},
           f"transformer: mxu_einsum tensor-core calls {mxu.CALLS}, expected {fwd} forward "
@@ -1778,6 +1787,208 @@ def step_line(tag, trainer, losses, secs, split, launches):
             + json.dumps({"losses": losses, "step_s": secs, "tokens_per_s":
                           [tokens / x for x in secs], "last_step_split_s": split,
                           "launches": launches}))
+
+
+def model_flops(cfg, batch):
+    """The analytic model FLOPs of a train step, the reference bench's MFU
+    denominator (benchmarks/_common.py:107): 3x the forward's, per token and
+    block 8 d ad (q, k, v, o) + 4 mlp_ratio d^2 (MLP) + 2 S ad (causal
+    attention), plus 2 d V for the head; no remat replay counted."""
+    t = batch * cfg.seq_len
+    d, ad = cfg.d_model, cfg.n_heads * cfg.head_dim
+    per_tok_blk = 8 * d * ad + 4 * cfg.mlp_ratio * d * d + 2 * cfg.seq_len * ad
+    return 3.0 * t * (cfg.n_blocks * per_tok_blk + 2 * d * cfg.vocab)
+
+
+def check_fused_launches(ta, trainer, compiled, tag):
+    """A fused run's B7/B8 launches: the graph records one step's (B7 once a
+    block, twice under remat; each B8 pass once), and the launches that ran
+    are the warm-up's and the recording's, twice as many; no B9 and no
+    CUDA-core form. -> the recorded launches."""
+    from mlsl_tpu_torch.ops import attention_kernels as ak
+
+    n = trainer.cfg.n_blocks
+    want = dict(flash_fwd_sm90=n * replays(trainer.cfg), flash_bwd_dq_sm90=n,
+                flash_bwd_dkv_sm90=n)
+    rec = {k: compiled.launches.get(k, 0) for k in ak.LAUNCHES}
+    check(counts_are(rec, **want, flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0, **NO_B9),
+          f"{tag}: launches recorded in the graph {rec}, expected {want} and no other")
+    check(counts_are(ta, **{k: 2 * v for k, v in want.items()}, flash_fwd=0, flash_bwd_dq=0,
+                     flash_bwd_dkv=0, **NO_B9),
+          f"{tag}: launches {ta}, expected twice {want} (the warm-up and the recording)")
+    return rec
+
+
+def phase_graph_twin(torch, np, env, trainer, batch, losses, secs):
+    """Run (r): run (a), its step one CUDA graph (the first step captures,
+    the others replay), against an eager twin from the same seed that takes
+    the same steps through ``_eager_step``: the losses and every parameter
+    bit for bit. Where two eager twins already differ from each other, the
+    bound is what they show (the largest difference of a parameter, and of a
+    loss), and it is printed. With the step's FLOPs (``compiled_step``)
+    against the reference bench's model FLOPs. -> (the report, the eager
+    twins' attention launches)."""
+    from mlsl_tpu_torch.ops import attention_kernels as ak
+
+    compiled = trainer.compiled_step(*batch)
+    graph_params = [p.detach().clone() for p in trainer._all_leaves()]
+
+    def eager():
+        twin, b = build_transformer(torch, env, np, 1, 1, 1, "ring")
+        ls, ss = [], []
+        for _ in losses:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ls.append(float(twin._eager_step(*b)))
+            torch.cuda.synchronize()
+            ss.append(time.perf_counter() - t0)
+        ps = [p.detach().clone() for p in twin._all_leaves()]
+        check(not twin._graphs, "graph twin: the eager twin captured a graph")
+        return ls, ps, ss
+
+    def gap(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    before = {k: v for k, v in ak.LAUNCHES.items()}
+    e_losses, e_params, e_secs = eager()
+    same = losses == e_losses and all(torch.equal(a, b) for a, b in zip(graph_params, e_params))
+    report = {"bit_for_bit": same, "graph_losses": losses, "eager_losses": e_losses,
+              "graph_step_s": secs, "eager_step_s": e_secs, "capture_s": compiled.capture_s,
+              "launches_recorded": {k: v for k, v in compiled.launches.items() if v},
+              "memory": compiled.memory_analysis()}
+    if not same:
+        e2_losses, e2_params, _ = eager()
+        bound, loss_bound = gap(e_params, e2_params), max(
+            abs(a - b) for a, b in zip(e_losses, e2_losses))
+        got, loss_got = gap(graph_params, e_params), max(
+            abs(a - b) for a, b in zip(losses, e_losses))
+        report.update(eager_twins_param_gap=bound, eager_twins_loss_gap=loss_bound,
+                      graph_param_gap=got, graph_loss_gap=loss_got)
+        check(bound > 0 and got <= bound and loss_got <= loss_bound,
+              f"graph twin: the graph run differs from its eager twin by {got:.3g} "
+              f"(losses {loss_got:.3g}), two eager twins by {bound:.3g} ({loss_bound:.3g})")
+    twins = {k: v - before[k] for k, v in ak.LAUNCHES.items()}
+    flops = compiled.cost_analysis()["flops"]
+    mf = model_flops(trainer.cfg, trainer.batch)
+    report.update(flops=flops, kernel_flops=compiled.kernel_flops, model_flops=mf,
+                  flops_over_model_flops=flops / mf)
+    del graph_params, e_params
+    return report, twins
+
+
+# the sharded-vocabulary run (q) against run (b): its first step's loss
+SV_LOSS_RTOL = 1e-5
+# the final layer's gradient rows, of their largest magnitude: the head's
+# shards and the final norm see the same float32 cotangents in both runs
+SV_HEAD_TOL = 1e-5
+# every other layer's rows, of their largest magnitude. The two heads split
+# the cotangent of the final hidden states differently between the model
+# ranks (each rank its vocabulary shard's share, against half of the whole),
+# and each rank's share is rounded to bf16 where it enters the blocks
+# (2^-8 relative a rounding); on the CPU at d_model 128 the rows differ by
+# 0.44-0.77 % at 2 blocks and up to 1.3 % at 8
+SV_BLOCK_TOL = 2 ** -5
+
+
+def sharded_rows_like(torch, trainer, rows, name):
+    """Run (b)'s gradient row of ``name`` in run (q)'s layout: the final
+    layer's replicated head gradient cut to each model rank's vocabulary
+    shard."""
+    if name != "final":
+        return rows
+    cfg, tp = trainer.cfg, trainer.tp
+    dm, v = cfg.d_model, cfg.vocab
+    grid = rows.shape[:4]
+    head = rows[..., :dm * v].reshape(*grid, dm, tp, v // tp)
+    shard = torch.stack([head[:, :, :, m, :, m] for m in range(tp)], dim=3)
+    tail = rows[..., dm * v:dm * v + 2 * dm]
+    return torch.cat([shard.reshape(*grid, -1), tail], dim=-1)
+
+
+def head_ms(torch, tfm, trainer, batch, sharded: bool, dev) -> float:
+    """The LM head and its CE, forward and backward (``head_ce``), at run
+    (b)'s shapes on random inputs: the replicated head, or each rank's
+    vocabulary shard. CUDA events."""
+    import dataclasses
+
+    cfg = dataclasses.replace(trainer.cfg, sharded_vocab=sharded)
+    grid, (bl, sl) = trainer.grid, batch[0].shape[-2:]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    v = cfg.vocab // trainer.tp if sharded else cfg.vocab
+    h = torch.randn((*grid, bl, sl, cfg.d_model), generator=gen, device=dev).requires_grad_()
+    head = (torch.randn((*grid, cfg.d_model, v), generator=gen, device=dev) * 0.02
+            ).requires_grad_()
+
+    def run():
+        ce = tfm.head_ce(h, head, batch[1], cfg, trainer.tp)
+        torch.autograd.grad(ce.sum(), (h, head))
+
+    ms = time_ms(torch, run, reps=5, warmup=1)
+    del h, head
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_sharded_vocab(torch, np, get_env, launches, reset_launches, b_run, dev):
+    """Run (q): run (b) (gpt-medium-2k, dp=2 x sp=2 x tp=2, zigzag, B9) with
+    the LM head sharded over the model axis, on (b)'s weights and batch: the
+    first step's loss and gradient rows before sync against (b)'s first step
+    (``b_run["first"]``; the final layer's head rows compared shard by
+    shard), then three steps whose losses fall; step time, peak memory and
+    the head's seconds beside (b)'s. -> (the report, the launches of the
+    three steps)."""
+    import dataclasses
+
+    from mlsl_tpu_torch.models import transformer as tfm
+    from mlsl_tpu_torch.ops import attention_kernels as ak
+
+    env = reinit(get_env)
+    settle(torch)
+    base = dataclasses.replace(gpt_medium(), sharded_vocab=True)
+    trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag", base=base)
+    check(not trainer.fused, "transformer sharded vocab: the step did not take the graph path")
+    first = b_run["first"]
+    loss, rows = trainer._grad_fn(*batch)
+    torch.cuda.synchronize()
+    ref_loss = first["loss"].to(dev)
+    loss_err = float(((loss - ref_loss).abs() / ref_loss.abs()).max())
+    check(loss_err <= SV_LOSS_RTOL, f"transformer sharded vocab: first loss {loss_err:.3g} "
+                                    f"from run (b)'s")
+    errs = {}
+    for name in trainer.layers:
+        got = rows[name]
+        ref = sharded_rows_like(torch, trainer, first["rows"][name].to(dev), name)
+        n = min(got.shape[-1], ref.shape[-1])
+        errs[name] = float((got[..., :n] - ref[..., :n]).abs().max() / ref.abs().max())
+        tol = SV_HEAD_TOL if name == "final" else SV_BLOCK_TOL
+        check(errs[name] <= tol, f"transformer sharded vocab: layer {name} rows "
+                                 f"{errs[name]:.3g} of their largest magnitude from run (b)'s "
+                                 f"(bound {tol:g})")
+        del ref
+    del rows, loss, first, b_run["first"]
+    settle(torch)
+    reset_launches()
+    losses, secs, split, _ = phase_transformer(torch, trainer, batch)
+    tq = {k: launches()[k] for k in ak.LAUNCHES}
+    check_losses(losses, trainer.cfg.vocab, "transformer sharded vocab")
+    n, steps = trainer.cfg.n_blocks, len(losses)
+    check(counts_are(tq, **b9_counts(5 * n * steps), flash_fwd=0, flash_bwd_dq=0,
+                     flash_bwd_dkv=0, **NO_SM90),
+          f"transformer sharded vocab: launches {tq}, expected {5 * n} B9 (wgmma) and {5 * n} "
+          f"of each of its backward passes per step")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report = {"first_loss_rel_err": loss_err, "final_rows_err": errs["final"],
+              "worst_other_rows_err": max(v for k, v in errs.items() if k != "final"),
+              "rows_err": errs, "losses": losses, "b_losses": b_run["losses"],
+              "step_s": secs, "b_step_s": b_run["secs"], "peak_gib": peak,
+              "b_peak_gib": b_run["peak"], "split": split}
+    reset_launches()
+    report["head_ce_fwd_bwd_ms"] = head_ms(torch, tfm, trainer, batch, True, dev)
+    report["b_head_ce_fwd_bwd_ms"] = head_ms(torch, tfm, trainer, batch, False, dev)
+    reset_launches()
+    del trainer, batch
+    settle(torch)
+    return report, tq
 
 
 def attention_entries(torch, F, ak, bw, bf16, runs, dev):
@@ -2346,10 +2557,11 @@ def phase_remat_twins(torch, np, tfm, get_env):
 
 def phase_remat_a(torch, np, get_env, launches, reset_launches, plain):
     """Run (a) under remat "full" and "dots": gpt-medium-2k on 1 rank, batch
-    8, three fused steps each, B7 launched twice a block and step (the
-    forward and its replay), B8's passes once; the first loss bit for bit the
-    plain run's (the same forward on the same weights). ``plain``: run (a)'s
-    losses, step seconds and peak GiB, printed beside. -> {policy: launches}."""
+    8, three fused steps each as one CUDA graph, B7 recorded twice a block
+    (the forward and its replay), B8's passes once; the first loss bit for
+    bit the plain run's (the same forward on the same weights). ``plain``:
+    run (a)'s losses, step seconds, peak GiB and step FLOPs, printed beside
+    (the FLOP ratio is run (r)'s). -> {policy: launches}."""
     import dataclasses
 
     from mlsl_tpu_torch.ops import attention_kernels as ak
@@ -2368,18 +2580,17 @@ def phase_remat_a(torch, np, get_env, launches, reset_launches, plain):
         check(losses[0] == plain["losses"][0],
               f"transformer 1 rank remat {policy}: first loss {losses[0]}, plain "
               f"{plain['losses'][0]}")
-        n, steps = trainer.cfg.n_blocks, len(losses)
-        check(counts_are(ta, flash_fwd_sm90=2 * n * steps, flash_bwd_dq_sm90=n * steps,
-                         flash_bwd_dkv_sm90=n * steps, flash_fwd=0, flash_bwd_dq=0,
-                         flash_bwd_dkv=0, **NO_B9),
-              f"transformer 1 rank remat {policy}: launches {ta}, expected {2 * n} B7, {n} "
-              f"B8 dq and {n} B8 dk/dv in the wgmma form per step")
+        compiled = trainer.compiled_step(*batch)
+        rec = check_fused_launches(ta, trainer, compiled, f"transformer 1 rank remat {policy}")
         peak = torch.cuda.max_memory_allocated() / 2**30
+        flops = compiled.cost_analysis()["flops"]
         log(f"# phase transformer 1 rank remat {policy}: ok, losses {losses} (plain "
             f"{plain['losses']}), step seconds {secs} (plain {plain['secs']}), peak memory "
-            f"{peak:.2f} GiB (plain {plain['peak']:.2f}), launches {ta}")
+            f"{peak:.2f} GiB (plain {plain['peak']:.2f}), launches {ta} (recorded {rec}), "
+            f"step FLOPs {flops:.6g}, {flops / plain['flops']:.4f} of the plain step's "
+            f"(run (r))")
         log(step_line(f"transformer 1 rank remat {policy} (gpt-medium-2k, batch 8, fused "
-                      f"step)", trainer, losses, secs, split, ta))
+                      f"step as one CUDA graph)", trainer, losses, secs, split, rec))
         out[policy] = ta
         del trainer, batch
     return out
@@ -2429,7 +2640,7 @@ c_shim.env_finalize = env_finalize
 
 
 class CapiPrograms:
-    """Run (o1): every entry of CAPI_RUNS as a subprocess on the card, three
+    """Run (o1): every entry of CAPI_RUNS as a subprocess on the card, four
     at a time, started beside the phases that time nothing. ``kill`` stops
     the ones still running."""
 
@@ -2459,7 +2670,7 @@ class CapiPrograms:
                 stdout, stderr = proc.communicate()
             return proc.returncode, stdout, stderr, time.perf_counter() - t0
 
-        pool = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=4)
         self.futures = [pool.submit(run, prog, args, algo) for prog, args, algo, _ in CAPI_RUNS]
         pool.shutdown(wait=False)
 
@@ -2789,10 +3000,10 @@ ZERO1_BATCH = 64
 
 
 def build_zero1_resnet(torch, env, np, *, distributed_update, image=224, classes=1000,
-                       batch=ZERO1_BATCH, micro=ZERO1_MICRO):
-    """ResNet-50 (seed 0) on WORLD data ranks with Adam and global-norm
-    clipping; ``micro`` batches of ``batch`` images each (seed 0 + 20) for
-    step_accum. -> (trainer, batches)."""
+                       batch=ZERO1_BATCH, micro=ZERO1_MICRO, optimizer=None):
+    """ResNet-50 (seed 0) on WORLD data ranks with Adam (or ``optimizer``)
+    and global-norm clipping; ``micro`` batches of ``batch`` images each
+    (seed 0 + 20) for step_accum. -> (trainer, batches)."""
     from mlsl_tpu_torch import optim
     from mlsl_tpu_torch.models import resnet
     from mlsl_tpu_torch.models.train import DataParallelTrainer
@@ -2805,7 +3016,8 @@ def build_zero1_resnet(torch, env, np, *, distributed_update, image=224, classes
     trainer = DataParallelTrainer(
         env, dist, sess, model, resnet.loss_fn, resnet.layer_names(model),
         resnet.layer_subtree, distributed_update=distributed_update,
-        optimizer=optim.adam(ZERO1_LR), clip_global_norm=ZERO1_CLIP,
+        optimizer=optimizer if optimizer is not None else optim.adam(ZERO1_LR),
+        clip_global_norm=ZERO1_CLIP,
     )
     rng = np.random.default_rng(SEED + 20)
     batches = []
@@ -3011,6 +3223,138 @@ def run_zero1(torch, np, get_env, launches, reset_launches, dev, layer_counts, i
     log(f"# phase zero1 staged: ok, launches {zs}")
     torch.cuda.empty_cache()
     return zr, rr, zs
+
+
+# -- ShardedAdafactor under ZeRO-1 and the owned-state reshard (run s) ---------
+
+#: the reference's defaults (mlsl_tpu/optim.py:103-127) at learning rate 1e-3
+AF_LR = 1e-3
+#: parameters after 3 steps against the replicated twin: the reference
+#: test's bound (tests/test_optimizers.py:423)
+AF_ATOL, AF_RTOL = 2e-5, 2e-4
+
+
+def tensor_bytes(state, ranks: int) -> int:
+    """Bytes a rank holds of an optimizer state: a ZeRO-1 dict of (R, D, S,
+    M, n) buffers counts one rank's row of each, a replicated state every
+    tensor."""
+    import torch
+
+    if isinstance(state, dict):
+        return sum(t.numel() * t.element_size() for t in state.values()) // ranks
+    leaves = [t for part in state for t in (part if isinstance(part, list) else [part])
+              if torch.is_tensor(t)]
+    return sum(t.numel() * t.element_size() for t in leaves)
+
+
+def run_adafactor(torch, np, get_env, launches, reset_launches, dev, steps=3, image=224,
+                  classes=1000):
+    """Run (s): config 5's ResNet-50 (224^2, batch 64 on WORLD ranks) with
+    ShardedAdafactor (the reference's defaults, lr 1e-3) and global-norm
+    clipping, under the distributed update with the gradient reduce_scatter
+    on pallas_ring (B3), beside its replicated Adafactor twin (allreduce on
+    B3), cuDNN's deterministic convolutions in both: after each of ``steps``
+    steps the parameters within AF_ATOL / AF_RTOL of the twin's. Free-running
+    twins cannot be held to that bound: this model at this learning rate
+    turns a 1e-8 parameter difference into 2.6e-3 in one step (ROADMAP C.11),
+    and the two forms sum their statistics in different orders. So the twin
+    takes the ZeRO-1 run's parameters after each comparison, and each step
+    starts both from the same weights (so the same gradient bits) with the
+    optimizer states they built on their own. Then the fc layer's owned
+    elementwise moment drains to the host (``gather_owned_full``, B3-AG) and
+    lands on a 4-rank world (``place_owned_vector``), bit for bit against
+    the host arrays, and drains back from there. -> (the report, the ZeRO-1
+    run's launches with the reshard's, the twin's launches)."""
+    from mlsl_tpu_torch import optim
+    from mlsl_tpu_torch.comm.mesh import Topology
+
+    cfg = optim.ShardedAdafactor(learning_rate=AF_LR)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    env = reinit(get_env, MLSL_ALGO="allreduce=pallas_ring,reduce_scatter=pallas_ring")
+    settle(torch)
+    tags = {True: "adafactor zero1", False: "adafactor replicated"}
+    trainers, runs = {}, {}
+    for du, tag in tags.items():
+        trainer, batches = build_zero1_resnet(torch, env, np, distributed_update=du,
+                                              image=image, classes=classes, micro=1,
+                                              optimizer=cfg)
+        check(all(_grad_req(trainer, n).algo == "pallas_ring" for n in trainer.layers),
+              f"{tag}: a layer's gradient request did not select pallas_ring")
+        trainers[du] = (trainer, batches[0])
+        runs[tag] = {"losses": [], "step_s": [], "launches": {}}
+    z, r = trainers[True][0], trainers[False][0]
+    gaps = []
+    for i in range(steps):
+        for du, tag in tags.items():
+            trainer, batch = trainers[du]
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.step(batch)
+            torch.cuda.synchronize()
+            runs[tag]["step_s"].append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(loss).all()), f"{tag} step {i}: losses {loss}")
+            runs[tag]["losses"].append(float(loss.mean()))
+            for k, v in launches().items():
+                runs[tag]["launches"][k] = runs[tag]["launches"].get(k, 0) + v
+        worst = 0.0
+        with torch.no_grad():
+            for name in r.layers:
+                for got, want in zip(z.layer_params[name], r.layer_params[name]):
+                    excess = float(((got - want).abs() - AF_RTOL * want.abs()).max())
+                    check(excess <= AF_ATOL,
+                          f"adafactor zero1 step {i}: layer {name} parameters beyond atol "
+                          f"{AF_ATOL:g} + rtol {AF_RTOL:g} of the replicated twin's "
+                          f"({excess:.3g})")
+                    worst = max(worst, float((got - want).abs().max()))
+                    want.copy_(got)
+        gaps.append(worst)
+    n_layers = len(r.layers)
+    for tag, run in runs.items():
+        check(counts_are(run["launches"], dense_ring=n_layers * steps, dense_ring_gather=0),
+              f"{tag}: launches {run['launches']}, expected {n_layers} B3 a step")
+        run["images_per_s"] = [ZERO1_BATCH / x for x in run["step_s"]]
+    for du, tag in tags.items():
+        trainer = trainers[du][0]
+        runs[tag]["state_bytes_a_rank"] = sum(tensor_bytes(trainer.opt_state[n], WORLD)
+                                              for n in trainer.layers)
+    v = z.opt_state["fc"]["v"]
+    ps = z.ops["fc"].get_parameter_set(0)
+    check(tuple(v.shape) == (1, WORLD, 1, 1, ps.get_owned_kernel_count()),
+          f"adafactor zero1: fc's elementwise moment {tuple(v.shape)} is not its owned shard")
+    host = v.cpu().numpy().reshape(-1)
+    reset_launches()
+    full = optim.gather_owned_full(z.dist.topology, v)
+    count = z.layer_counts["fc"]
+    padded = -(-count // 4) * 4
+    new_topo = Topology(4, 1, 4)
+    placed = optim.place_owned_vector(new_topo, full, count, padded, 4, device=dev)
+    want = np.pad(host[:count], (0, padded - count))
+    back = optim.gather_owned_full(new_topo, placed)
+    torch.cuda.synchronize()
+    reshard = launches()
+    check(np.array_equal(full.view(np.int32), host.view(np.int32)),
+          "adafactor reshard: the drained vector differs from the owned shards")
+    check(np.array_equal(placed.cpu().numpy().reshape(-1).view(np.int32), want.view(np.int32)),
+          "adafactor reshard: the 4-rank placement differs from the host arrays")
+    check(np.array_equal(back.view(np.int32), want.view(np.int32)),
+          "adafactor reshard: the 4-rank world drains to another vector")
+    check(counts_are(reshard, dense_ring_gather=2, dense_ring=0),
+          f"adafactor reshard: launches {reshard}, expected 2 B3-AG")
+    report = {"step_param_abs_gaps": gaps, **runs,
+              "reshard": {"layer": "fc", "count": count, "owned_8": int(v.shape[-1]),
+                          "owned_4": int(placed.shape[-1]), "launches": {
+                              k: c for k, c in reshard.items() if c}},
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.backends.cudnn.deterministic = False
+    zl = runs[tags[True]]["launches"]
+    zl = {k: c + reshard.get(k, 0) for k, c in zl.items()}
+    rl = runs[tags[False]]["launches"]
+    del trainers, z, r, v, placed
+    reinit(get_env)
+    settle(torch)
+    return report, zl, rl
 
 
 # -- ZeRO-1 and Adam on the transformer; gradient buckets (runs f and g) ------
@@ -4435,33 +4779,40 @@ def main() -> int:
             f"{MXU_FWD_TOL:g}, gradients within {MXU_GRAD_TOL:g} relative L2 of the plain "
             f"float32 version)")
 
+        # run (a): the fused step, one CUDA graph (captured at the first step,
+        # replayed after), and run (r): against its eager twin; the peak
+        # counts from here
+        settle(torch)
         trainer, batch = build_transformer(torch, env, np, 1, 1, 1, "ring")
         check(trainer.fused, "transformer 1 rank: the step is not the fused one")
         reset_launches()
         losses, secs, split, _ = phase_transformer(torch, trainer, batch)
         ta = {k: launches()[k] for k in ak.LAUNCHES}
         check_losses(losses, trainer.cfg.vocab, "transformer 1 rank")
-        n, steps = trainer.cfg.n_blocks, len(losses)
-        check(counts_are(ta, flash_fwd_sm90=n * steps, flash_bwd_dq_sm90=n * steps,
-                         flash_bwd_dkv_sm90=n * steps, flash_fwd=0, flash_bwd_dq=0,
-                         flash_bwd_dkv=0, **NO_B9),
-              f"transformer 1 rank: launches {ta}, expected {n} B7, {n} B8 dq, {n} B8 dk/dv "
-              f"in the wgmma form, none in the CUDA-core form, and no B9 per step")
+        check(len(trainer._graphs) == 1, "transformer 1 rank: the step did not replay a graph")
+        rec_a = check_fused_launches(ta, trainer, trainer.compiled_step(*batch),
+                                     "transformer 1 rank")
         plain_a = {"losses": losses, "secs": secs,
                    "peak": torch.cuda.max_memory_allocated() / 2**30}
-        log(f"# phase transformer 1 rank: ok, losses {losses}, launches {ta}, peak memory "
-            f"{plain_a['peak']:.2f} GiB")
-        log(step_line("transformer 1 rank (gpt-medium-2k, batch 8, fused step)", trainer,
-                      losses, secs, split, ta))
+        log(f"# phase transformer 1 rank: ok, losses {losses}, launches {ta} (recorded "
+            f"{rec_a}), peak memory {plain_a['peak']:.2f} GiB")
+        log(step_line("transformer 1 rank (gpt-medium-2k, batch 8, fused step as one CUDA "
+                      "graph)", trainer, losses, secs, split, rec_a))
+        t0 = time.perf_counter()
+        twin_r, ta_eager = phase_graph_twin(torch, np, env, trainer, batch, losses, secs)
+        plain_a["flops"] = twin_r["flops"]
+        log(f"# phase graph twin (run (r)): ok in {time.perf_counter() - t0:.1f} s, "
+            f"{json.dumps(twin_r)}")
         del trainer, batch
-        torch.cuda.empty_cache()
+        settle(torch)
 
         env = reinit(get_env)
         settle(torch)
         trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "zigzag")
         check(not trainer.fused, "transformer 8 ranks: the step did not take the graph path")
         reset_launches()
-        losses, secs, split, grads = phase_transformer(torch, trainer, batch)
+        first_b = {}
+        losses, secs, split, grads = phase_transformer(torch, trainer, batch, first=first_b)
         tb = {k: launches()[k] for k in ak.LAUNCHES}
         check_losses(losses, trainer.cfg.vocab, "transformer 8 ranks")
         n, steps = trainer.cfg.n_blocks, len(losses)
@@ -4475,7 +4826,14 @@ def main() -> int:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         log(step_line("transformer 8 ranks (gpt-medium-2k, dp=2 x sp=2 x tp=2, zigzag)",
                       trainer, losses, secs, split, tb))
-        del trainer, batch, grads
+        b_run = {"first": first_b, "losses": losses, "secs": secs,
+                 "peak": torch.cuda.max_memory_allocated() / 2**30}
+        del trainer, batch, grads, first_b
+        t0 = time.perf_counter()
+        sv, tq = phase_sharded_vocab(torch, np, get_env, launches, reset_launches, b_run, dev)
+        log(f"# phase transformer sharded vocab (run (q)): ok in "
+            f"{time.perf_counter() - t0:.1f} s, {json.dumps(sv)}")
+        del b_run
 
         env = reinit(get_env)
         trainer, batch = build_transformer(torch, env, np, 2, 2, 2, "ring", n_blocks=2)
@@ -4525,6 +4883,11 @@ def main() -> int:
         env = reinit(get_env)
         zr, rr, zs = run_zero1(torch, np, get_env, launches, reset_launches, dev,
                                list(counts.values()))
+        t0 = time.perf_counter()
+        af, afz, afr = run_adafactor(torch, np, get_env, launches, reset_launches, dev)
+        log(f"# phase adafactor (run (s)): ok in {time.perf_counter() - t0:.1f} s, "
+            f"{json.dumps(af)}")
+        env = reinit(get_env)
 
         # the model-parallel graph (run (m)) and the eleven collectives (run (n))
         t0 = time.perf_counter()
@@ -4568,6 +4931,7 @@ def main() -> int:
                     config4_fused=c4f, config5_fused=c5f, config5_buckets=c5b,
                     alltoall=a2a_used, transformer_moe=tm, transformer_zero1=tz,
                     zero1_resnet=zr, replicated_adam_resnet=rr, zero1_staged=zs,
+                    adafactor_zero1=afz, adafactor_replicated=afr,
                     engine_int8=engine_used["engine int8"],
                     engine_fused_ring=engine_used["engine fused ring"],
                     engine_buckets=engine_used["engine buckets"],
@@ -4626,7 +4990,9 @@ def main() -> int:
                           activation_graph=activation, capi=capi_used), dev=dev))
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
-            dict(transformer_1rank=ta, transformer_8rank_zigzag=tb, transformer_8rank_ring=tr,
+            dict(transformer_1rank=ta, transformer_1rank_eager_twin=ta_eager,
+                 transformer_8rank_zigzag=tb, transformer_8rank_sharded_vocab=tq,
+                 transformer_8rank_ring=tr,
                  transformer_moe=tm, transformer_zero1=tz, transformer_replicated_adam=tra,
                  transformer_1rank_remat_full=remat_a["full"],
                  transformer_1rank_remat_dots=remat_a["dots"]),

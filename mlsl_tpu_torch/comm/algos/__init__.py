@@ -388,13 +388,39 @@ def inline_alltoall(x: torch.Tensor, group: ProcessGroup, *, config=None) -> tor
     return _group_exchange(x, group)
 
 
-def inline_allgather(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
+def inline_allgather(x: torch.Tensor, group: ProcessGroup, *, config=None) -> torch.Tensor:
     """The tiled all-gather of per-rank tensors (R, D, S, M, T, *rest) over
-    ``group`` (the MoE output reassembly): every member receives every
-    member's tensor, concatenated along T in member order. Autograd sums the
-    cotangent over the members, as JAX transposes ``lax.all_gather``."""
+    ``group`` (the MoE output reassembly, the ZeRO-1 state drain): every
+    member receives every member's tensor, concatenated along T in member
+    order. Autograd sums the cotangent over the members, as JAX transposes
+    ``lax.all_gather``.
+
+    With a config whose table routes the group's reduce_scatter to the fused
+    ring (``pallas_ring``, ``pallas_ring2d``), the gather is one B3-AG launch
+    over the same ring or snake cycle, as the staged ZeRO-1 update pairs the
+    two (comm/overlap.py). The kernel has no autograd and takes float32, bf16
+    or int32: a tensor that needs a gradient, or of another type, raises
+    MLSLError on that route. Otherwise the plain gather."""
     from mlsl_tpu_torch.comm import collectives
 
     grid, local = x.shape[:NUM_GRID_AXES], x.shape[NUM_GRID_AXES:]
+    n = math.prod(local)
+    if config is not None and not group.is_self and group.size > 1:
+        algo = select("reduce_scatter", group, n * group.size * x.element_size(),
+                      CompressionType.NONE, config)
+        if algo in ("pallas_ring", "pallas_ring2d"):
+            from mlsl_tpu_torch.ops import ring_kernels
+
+            mlsl_assert(not (torch.is_grad_enabled() and x.requires_grad),
+                        "inline_allgather: the %s route (B3-AG) has no gradient; gather "
+                        "a tensor that needs one without a config", algo)
+            mlsl_assert(x.dtype in (torch.float32, torch.bfloat16, torch.int32),
+                        "inline_allgather: the %s route (B3-AG) takes float32, bfloat16 "
+                        "or int32, not %s", algo, x.dtype)
+            plan = ring_kernels.dense_plan("all_gather", group, n, bidir=False,
+                                           snake=algo == "pallas_ring2d")
+            w = group.topology.world_size
+            y = ring_kernels.dense_ring(x.reshape(w, n), plan)
+            return y.reshape(*grid, group.size * local[0], *local[1:])
     y = collectives.build_collective("allgather", group)(x.reshape(*grid, -1))
     return y.reshape(*grid, group.size * local[0], *local[1:])

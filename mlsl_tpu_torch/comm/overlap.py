@@ -39,23 +39,17 @@ chaos site and tracer span are not ported.
 
 from __future__ import annotations
 
-import dataclasses
-import time
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
 from mlsl_tpu_torch.comm import algos, collectives, quant_ring
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
-from mlsl_tpu_torch.core import stats
-from mlsl_tpu_torch.log import MLSLError, log_debug, mlsl_assert
+from mlsl_tpu_torch.core import graph_capture, stats
+from mlsl_tpu_torch.log import log_debug, mlsl_assert
 from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType
 
 DEFAULT_STAGES = 2
-#: eager runs of a step before its capture: they build every kernel, ring
-#: table and library handle the step touches, which must not happen inside
-#: a capture
-WARMUP_RUNS = 1
 
 
 # -- the plan: what is reduced, how, in what order -------------------------------
@@ -467,28 +461,6 @@ def build_zero1_update(group: ProcessGroup, counts: Sequence[int], *, lr: float,
 # -- the trainer's engine -------------------------------------------------------------
 
 
-def _launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by key."""
-    from mlsl_tpu_torch.ops import (a2a_kernels, attention_kernels, quant_kernels,
-                                    rhd_kernels, ring_kernels)
-
-    return {k: v for m in (quant_kernels, ring_kernels, rhd_kernels, a2a_kernels,
-                           attention_kernels) for k, v in m.LAUNCHES.items()}
-
-
-@dataclasses.dataclass
-class _Graph:
-    """One captured program: its static inputs and its output."""
-
-    graph: "torch.cuda.CUDAGraph"
-    inputs: List[torch.Tensor]
-    output: Optional[torch.Tensor]
-
-    def fits(self, args) -> bool:
-        return all(s.shape == a.shape and s.dtype == a.dtype
-                   for s, a in zip(self.inputs, args))
-
-
 class OverlapEngine:
     """The trainer's compiled overlap step (overlap.py:692-881): owns the
     plan, the step's programs and the error-feedback residuals.
@@ -504,11 +476,11 @@ class OverlapEngine:
     use (``precompile`` captures the fused one ahead) and replayed every step:
     the batch or the gradients are copied into the graph's static inputs,
     parameters and residuals are updated in place, and the loss is read from
-    the graph's static output. The capture runs ``WARMUP_RUNS`` eager steps
-    first; parameters, module buffers, residuals and the trainer's step count
-    are restored afterwards, so a capture leaves the trainer as it was. A
-    capture that fails raises MLSLError; the engine never runs eagerly on the
-    card. On the CPU the same programs run eagerly and no graph exists.
+    the graph's static output. The capture (core/graph_capture.py) runs
+    one eager warm-up first; parameters, module buffers, residuals and the
+    trainer's step count are restored afterwards, so a capture leaves the
+    trainer as it was. A capture that fails raises MLSLError; the engine
+    never runs eagerly on the card. On the CPU the same programs run eagerly and no graph exists.
     ``capture_launches`` holds each graph's kernel launches (the wrappers
     count a launch when it is recorded, not when it is replayed) and
     ``capture_s`` each capture's seconds."""
@@ -517,7 +489,7 @@ class OverlapEngine:
         self.plan = plan
         self._trainer = trainer
         self.residuals = zero_residuals(plan, trainer.dist.topology, trainer.device)
-        self.graphs: Dict[str, _Graph] = {}
+        self.graphs: Dict[str, graph_capture.Captured] = {}
         self.capture_s: Dict[str, float] = {}
         self.capture_launches: Dict[str, Dict[str, int]] = {}
         log_debug("compiled overlap plan: %d units (%s), stages=%d, %d phases",
@@ -563,10 +535,8 @@ class OverlapEngine:
             g = self.graphs.get(key)
             if g is None or not g.fits(args):
                 g = self._prepare(key, fn, args)
-            for s, a in zip(g.inputs, args):
-                s.copy_(a)
-            g.graph.replay()
-            out = None if g.output is None else g.output.clone()
+            out = g.replay(args)
+            out = None if out is None else out.clone()
         else:
             out = fn(*args)
         plan = self.plan
@@ -586,45 +556,26 @@ class OverlapEngine:
         model = self._trainer.model
         return [*model.parameters(), *model.buffers(), *self.residuals.values()]
 
-    def _prepare(self, key: str, fn: Callable, args: List[torch.Tensor]) -> Optional[_Graph]:
-        """Warm ``fn`` up on copies of ``args``, capture it on a CUDA device,
-        then restore the state the warm-up moved. -> the graph, or None on
+    def _prepare(self, key: str, fn: Callable,
+                 args: List[torch.Tensor]) -> Optional[graph_capture.Captured]:
+        """Capture ``fn`` on a CUDA device (the trainer's state restored
+        after its warm-up and its recording); on the CPU run it once on
+        copies of ``args`` and restore the state. -> the graph, or None on
         the CPU."""
         tr = self._trainer
-        saved = [t.detach().clone() for t in self._state()]
         step_no = tr._step_no
-        cuda = tr.device.type == "cuda"
-        inputs = [a.detach().clone() for a in args]
         try:
-            if not cuda:
-                fn(*inputs)
+            if tr.device.type != "cuda":
+                with graph_capture.restored(self._state()):
+                    fn(*[a.detach().clone() for a in args])
                 return None
-            cur = torch.cuda.current_stream(tr.device)
-            side = torch.cuda.Stream(tr.device)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP_RUNS):
-                    fn(*inputs)
-            cur.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            before = _launch_counts()
-            t0 = time.perf_counter()
-            try:
-                with torch.cuda.graph(graph):
-                    out = fn(*inputs)
-            except Exception as e:
-                raise MLSLError(f"compiled overlap: capturing the {key} program as a CUDA "
-                                f"graph failed: {e!r}") from e
-            self.capture_s[key] = time.perf_counter() - t0
-            self.capture_launches[key] = {k: v - before.get(k, 0)
-                                          for k, v in _launch_counts().items()
-                                          if v != before.get(k, 0)}
-            self.graphs[key] = _Graph(graph, inputs, out)
-            return self.graphs[key]
+            g = graph_capture.capture(fn, args, self._state(),
+                                      f"the compiled overlap {key} program")
+            self.graphs[key] = g
+            self.capture_s[key] = g.seconds
+            self.capture_launches[key] = g.launches
+            return g
         finally:
-            with torch.no_grad():
-                for t, s in zip(self._state(), saved):
-                    t.copy_(s)
             tr._step_no = step_no
 
 

@@ -72,6 +72,9 @@ class Environment:
                 dev = torch.device("cuda", torch.cuda.current_device())
         else:
             mlsl_assert(dev.type == "cpu", "unsupported device %s", dev)
+            from mlsl_tpu_torch.ops import cpu_exp
+
+            cpu_exp.warm(dev)   # before any CPU path's first exp (ROADMAP C.3)
         mlsl_assert(world_size >= 1, "world_size must be >= 1 (got %d)", world_size)
         config = Config.from_env()
         config.validate()

@@ -13,7 +13,9 @@ Optimizer state crosses the same way: optax's ``ScaleByAdamState`` (``mu``,
 both for the ZeRO-1 owned-shard buffers and for a replicated state, whose
 moments are parameter trees flattened layer by layer; and the transformer
 trainer's per-layer states, whose moments are distributed buffers over
-each rank's flat local (or owned) vector.
+each rank's flat local (or owned) vector. ``optax.adafactor``'s state
+becomes the port's: per layer an ``optim.FactoredState`` on the plain path,
+the ZeRO-1 dict of (R, D, S, M, n) buffers under the distributed update.
 """
 
 from __future__ import annotations
@@ -211,3 +213,59 @@ def transformer_adam_state_to_optax(opt_state):
         mu, nu, count = adam_state_to_optax(state)
         out[name] = (mu, nu, np.full((*mu.shape[:-1], 1), count, dtype=np.int32))
     return out
+
+
+def _optax_parts(state):
+    """The leaf states of an optax chain's (nested) state tuple."""
+    if hasattr(state, "_fields") or not isinstance(state, (tuple, list)):
+        return [state]
+    return [leaf for part in state for leaf in _optax_parts(part)]
+
+
+def adafactor_state_from_optax(state, device=None, *, layers=None, get_layer=None):
+    """``optax.adafactor``'s state -> the port's.
+
+    - ZeRO-1: one layer's state of the JAX ``DataParallelTrainer``
+      (``_du_opt_state[name]``, a dict of distributed buffers ``count``,
+      ``v_row``, ``v_col``, ``v`` and ``m`` with momentum) -> the same dict of
+      tensors, the trainer's ``opt_state[name]``.
+    - The plain path: the chain's state over the whole parameter tree, with
+      ``layers`` and ``get_layer(tree, name)`` -> {layer: ``optim.
+      FactoredState`` over the layer's leaves in leaf order}; the momentum
+      trace comes from the chain's ``EmaState``."""
+    from mlsl_tpu_torch.core.environment import default_device
+    from mlsl_tpu_torch.optim import FactoredState
+
+    device = default_device() if device is None else device
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+    if isinstance(state, dict):
+        return {k: t(v, np.int32 if k == "count" else np.float32) for k, v in state.items()}
+    parts = _optax_parts(state)
+    fs = next(p for p in parts if hasattr(p, "v_row"))
+    ema = next((p for p in parts if hasattr(p, "ema")), None)
+
+    def leaves(tree, name):
+        return [t(a) for a in tree_leaves(get_layer(tree, name))]
+
+    return {name: FactoredState(t(int(np.asarray(fs.count)), np.int32), leaves(fs.v_row, name),
+                                leaves(fs.v_col, name), leaves(fs.v, name),
+                                None if ema is None else leaves(ema.ema, name))
+            for name in layers}
+
+
+def adafactor_state_to_optax(state):
+    """Inverse of ``adafactor_state_from_optax`` for one layer: the ZeRO-1
+    dict -> a dict of numpy arrays; a ``FactoredState`` -> {"count", "v_row",
+    "v_col", "v", "m"} with lists of numpy arrays (``m`` None without
+    momentum)."""
+    def a(x):
+        return x.detach().cpu().numpy().copy()
+
+    if isinstance(state, dict):
+        return {k: a(v) for k, v in state.items()}
+    return {"count": np.int32(state.count.item()), "v_row": [a(x) for x in state.v_row],
+            "v_col": [a(x) for x in state.v_col], "v": [a(x) for x in state.v],
+            "m": None if state.m is None else [a(x) for x in state.m]}

@@ -23,6 +23,11 @@ Counterpart of the per-layer Start/Wait path of ``mlsl_tpu.models.train``
 - with ``overlap_updates`` the layers are polled with TestGradientComm and
   each is updated the moment its collective lands (train.py:1140-1168, the
   reference's canonical loop);
+- ``ShardedAdafactor`` runs on both update paths: replicated, as a tree
+  transform that sees each layer's leaves and parameters (the JAX trainer
+  hands optax the whole tree); under ZeRO-1 as the cross-shard form of
+  ``optim`` whose factored statistics are assembled from the owned shards
+  (train.py:495-515, 1210-1225);
 - with ``overlap_compiled`` (or ``MLSL_OVERLAP_COMPILED=1``) the compiled
   overlap engine (comm/overlap.py) runs the whole step -- local backward,
   every layer's gradient collective staged newest-first, the per-layer
@@ -45,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from mlsl_tpu_torch import optim
 from mlsl_tpu_torch.comm import collectives
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import tree_leaves
@@ -122,10 +128,13 @@ class DataParallelTrainer:
         overlap_compiled: Optional[bool] = None,
     ):
         """optimizer: a transform of ``mlsl_tpu_torch.optim`` (``adam``,
-        ``sgd``); None keeps the built-in SGD (p - lr * mean_grad). With
-        ``distributed_update`` the optimizer state lives only on each rank's
-        owned gradient shard (ZeRO-1), so only elementwise transforms are
-        correct there, as in the JAX package. ``clip_global_norm`` clips the
+        ``sgd``, a ``TreeTransform`` such as ``adafactor``) or a
+        ``ShardedAdafactor``; None keeps the built-in SGD (p - lr *
+        mean_grad). With ``distributed_update`` the optimizer state lives only
+        on each rank's owned gradient shard (ZeRO-1), so only elementwise
+        transforms are correct there, as in the JAX package, and
+        ``ShardedAdafactor``, whose factored statistics are assembled across
+        the shards (a tree transform raises there). ``clip_global_norm`` clips the
         mean gradient to this global L2 norm before the optimizer, on every
         path (``overlap_updates`` aside, which updates each layer with the
         built-in SGD as in the JAX package).
@@ -149,6 +158,11 @@ class DataParallelTrainer:
         self.get_layer = get_layer
         self.lr = lr
         self.optimizer = optimizer
+        # ShardedAdafactor is a config: the replicated path runs its tree
+        # transform, ZeRO-1 the cross-shard form (train.py:273-290)
+        self._af_cfg = optimizer if isinstance(optimizer, optim.ShardedAdafactor) else None
+        self._tree_opt = (optimizer.as_transform() if self._af_cfg is not None
+                          else optimizer if isinstance(optimizer, optim.TreeTransform) else None)
         self.clip_global_norm = clip_global_norm
         mlsl_assert(optimizer is None or not overlap_updates,
                     "overlap_updates is not supported with an optimizer (per-layer state "
@@ -200,13 +214,33 @@ class DataParallelTrainer:
         # optimizer state: per layer over each rank's owned shard under ZeRO-1,
         # else one replicated state per layer's flat parameter vector
         self.opt_state: Dict[str, object] = {}
+        self._af_inc: Dict[str, Callable] = {}
         if optimizer is not None:
             grid = dist.topology.grid_shape
+            zero1 = distributed_update and needs_comm
+            mlsl_assert(not (zero1 and self._tree_opt is not None and self._af_cfg is None),
+                        "a tree transform needs whole leaves; under distributed_update each "
+                        "rank holds a flat owned shard (use ShardedAdafactor or an "
+                        "elementwise transform)")
             for name in self.layers:
-                if distributed_update and needs_comm:
+                if zero1 and self._af_cfg is not None:
+                    # the layer's index layout and its owned-shard state
+                    # (train.py:495-515)
+                    layout = optim.build_adafactor_layout(
+                        [tuple(p.shape) for p in self.layer_params[name]],
+                        self.padded_counts[name], self.data_size,
+                        self._af_cfg.min_dim_size_to_factor)
+                    self.opt_state[name] = optim.init_adafactor_state(
+                        dist.topology, layout, self._af_cfg, self.data_size, self.device)
+                    self._af_inc[name] = optim.build_adafactor_inc_fn(
+                        dist.topology, self._af_cfg, layout, self.data_size, self.device)
+                elif zero1:
                     # one state over every rank's owned shard (train.py:115)
                     self.opt_state[name] = optimizer.init(
                         (*grid, self._pset(name).get_owned_kernel_count()), device=self.device)
+                elif self._tree_opt is not None:
+                    self.opt_state[name] = self._tree_opt.init(self.layer_params[name],
+                                                               device=self.device)
                 else:
                     self.opt_state[name] = optimizer.init(self.layer_counts[name],
                                                           device=self.device)
@@ -315,6 +349,15 @@ class DataParallelTrainer:
         for name in self.layers:
             if self.optimizer is None:
                 self._add_flat(name, -self.lr * grads[name])
+            elif self._tree_opt is not None:
+                # the transform sees the layer's leaves and its parameters
+                # (train.py:600-616 hands optax the tree)
+                leaves = self.layer_params[name]
+                parts = torch.split(grads[name], [p.numel() for p in leaves])
+                upd, self.opt_state[name] = self._tree_opt.update(
+                    [g.view_as(p) for g, p in zip(parts, leaves)], self.opt_state[name],
+                    [p.detach() for p in leaves])
+                self._add_flat(name, torch.cat([u.reshape(-1) for u in upd]))
             else:
                 upd, self.opt_state[name] = self.optimizer.update(grads[name],
                                                                   self.opt_state[name])
@@ -439,6 +482,12 @@ class DataParallelTrainer:
                 mlsl_assert(owned is not None, "distributed update requires dataParts>1")
             if self.optimizer is None:
                 inc = owned_increment(owned, self.lr, norm, scale)
+            elif self._af_cfg is not None:
+                # the factored statistics need the layer's replicated leaves
+                # (train.py:1210-1225)
+                inc, self.opt_state[name] = self._af_inc[name](
+                    owned, self.opt_state[name], [p.detach() for p in self.layer_params[name]],
+                    scale)
             else:
                 inc, self.opt_state[name] = owned_opt_increment(
                     owned, self.opt_state[name], self.optimizer, norm, scale)

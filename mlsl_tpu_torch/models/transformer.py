@@ -28,6 +28,10 @@ engine with the model group and the config (``MLSL_ALGO=alltoall=pallas_a2a``
 puts the float32 combine exchange on kernel B6). Each rank's loss adds
 ``moe_aux_weight`` times its slice's aux loss, scaled as in the JAX package.
 
+With ``sharded_vocab`` the LM head shards over the model axis and the CE
+comes from each rank's slice of the logits (a max, a sum of exps and the
+label's logit, each summed over M): the full-vocabulary logits never exist.
+
 The update is the built-in SGD or an elementwise transform of
 ``mlsl_tpu_torch.optim`` (``adam``, ``sgd``) over each rank's flat local
 (TP-sharded) layer vector, as the JAX trainer runs optax. With
@@ -41,16 +45,21 @@ Compute is bfloat16 by default; parameters, the residual adds, the TP sums,
 layer norms and the loss are float32. ``remat`` replays each block in the
 backward (``"full"``) or everything in it but its matrix products
 (``"dots"``). The gradient requests start after ``torch.autograd.grad``
-returns, not from hooks, so a replayed block cannot start one twice. The
-sharded-vocabulary CE, ShardedAdafactor and the decode-mode functions come
-later (ROADMAP A).
+returns, not from hooks, so a replayed block cannot start one twice.
+
+Where no parameter set communicates (the fused path: one data x seq rank, no
+ZeRO-1), ``step`` on the card replays the whole step -- forward, backward,
+the TP sums and the update -- as one CUDA graph, the counterpart of the
+reference's one donated jit (transformer.py:813-895); ``compiled_step``
+gives its FLOPs, memory and recorded launches. On the CPU the same step runs
+eagerly. The decode-mode functions come later (ROADMAP A).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +72,7 @@ from torch.utils.checkpoint import (
 )
 
 from mlsl_tpu_torch import optim
+from mlsl_tpu_torch.core import graph_capture
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax, tree_leaves
 from mlsl_tpu_torch.models.train import owned_opt_increment
@@ -102,7 +112,8 @@ class TransformerConfig:
     moe_top_k: int = 1       # 1 = switch routing; 2 = GShard-style top-2
     moe_aux_weight: float = 0.01
     capacity_factor: float = 2.0
-    sharded_vocab: bool = False  # shard the LM head over 'model' (not ported)
+    sharded_vocab: bool = False  # shard the LM head over 'model': the CE from
+    # per-shard logits, the full-vocabulary logits never formed
 
 
 # gpt-medium-2k, the JAX package's realistic transformer row
@@ -289,7 +300,10 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
                 "unknown remat_policy %r", cfg.remat_policy)
     if cfg.remat:
         context = _save_products if cfg.remat_policy == "dots" else noop_context_fn
-        blk = functools.partial(checkpoint, block, use_reentrant=False, context_fn=context)
+        # the block draws no random numbers: no RNG state to keep, which a
+        # CUDA graph could not read back while it records
+        blk = functools.partial(checkpoint, block, use_reentrant=False, context_fn=context,
+                                preserve_rng_state=False)
     else:
         blk = block
     aux_total = 0.0
@@ -302,17 +316,114 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
     return _ln(h.float(), fin["ln_scale"], fin["ln_bias"]), aux_total
 
 
+def _sharded_vocab_ce(h, head_local, labels, tp: int) -> torch.Tensor:
+    """CE over a vocabulary sharded over the model axis (transformer.py:
+    282-301): per-shard logits (..., Bl, Sl, V/tp), float32; the stability
+    max is the max over M of the shards' maxima, without gradient (it cancels
+    in d lse / d logits); the sum of exps and the label's logit, picked on
+    the shard that holds it, are summed over M. -> (R, D, S, M) CE sums, the
+    same on every model rank. Every rank's loss enters the objective scaled
+    by 1/tp and ``_model_sum``'s backward adds the M cotangents, so each
+    shard's logits get exactly softmax - onehot."""
+    logits = torch.einsum("...bsd,...dv->...bsv", h, head_local)
+    vl = logits.shape[-1]
+    with torch.no_grad():
+        mx = logits.amax(dim=-1).amax(dim=MODEL_DIM, keepdim=True)       # (R, D, S, 1, Bl, Sl)
+    se = _model_sum(torch.exp(logits - mx[..., None]).sum(dim=-1), tp)
+    lse = torch.log(se) + mx
+    off = torch.arange(tp, device=labels.device).view(1, 1, 1, tp, 1, 1) * vl
+    local = labels.long() - off
+    in_range = (local >= 0) & (local < vl)
+    picked = torch.gather(logits, -1, local.clamp(0, vl - 1).unsqueeze(-1)).squeeze(-1)
+    label_logit = _model_sum(torch.where(in_range, picked, 0.0), tp)
+    return (lse - label_logit).sum(dim=(-2, -1))
+
+
 def local_loss(params, tokens, labels, cfg: TransformerConfig, sp: int, tp: int, comm=None):
     """Sum (not mean) of CE over each rank's local token shard -> ((R, D, S,
     M) float32, aux). The reduction across data/seq shards belongs to the
-    gradient requests. The LM head is replicated over the model axis."""
-    mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
-                                       "(ROADMAP A: the transformer's remaining options)")
+    gradient requests. The LM head is replicated over the model axis (dense
+    log-softmax) or, with ``cfg.sharded_vocab`` and tp > 1, sharded over it
+    (``_sharded_vocab_ce``)."""
     h, aux = forward_local(params, tokens, cfg, sp, tp, comm=comm)
-    logits = torch.einsum("...bsd,...dv->...bsv", h, params["final"]["head"].float())
+    return head_ce(h, params["final"]["head"], labels, cfg, tp), aux
+
+
+def head_ce(h, head, labels, cfg: TransformerConfig, tp: int) -> torch.Tensor:
+    """The LM head and its CE on the final hidden states h (R, D, S, M, Bl,
+    Sl, d_model) float32 -> (R, D, S, M) CE sums: the dense log-softmax over
+    the replicated head, or ``_sharded_vocab_ce`` over the rank's shard."""
+    head = head.float()
+    if cfg.sharded_vocab and tp > 1:
+        return _sharded_vocab_ce(h, head, labels, tp)
+    logits = torch.einsum("...bsd,...dv->...bsv", h, head)
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
-    return ce.sum(dim=(-2, -1)), aux
+    return ce.sum(dim=(-2, -1))
+
+
+@dataclasses.dataclass
+class CompiledStep:
+    """The fused step as ``compiled_step`` gives it, the counterpart of the
+    jax ``Compiled`` object the reference returns (transformer.py:679-690):
+    ``cost_analysis()`` -> {"flops": ...}, ``memory_analysis()`` -> the peak
+    device bytes as of the capture's end (``torch.cuda.max_memory_allocated``,
+    which the capture does not reset: a caller that wants the step's own
+    peak resets it before the first step) and the graph's pool,
+    ``as_text()`` the kernel launches the graph recorded, by class.
+
+    The FLOPs are ``torch.utils.flop_counter.FlopCounterMode``'s count of one
+    eager step plus each B7/B8 launch's from its shape (``attention_kernels.
+    count_flops``): the counter cannot see a ctypes launch. On the CPU the
+    plain versions run instead and the counter sees them; there is no graph
+    and no device memory to report."""
+
+    flops: float = 0.0
+    op_flops: Dict[str, int] = dataclasses.field(default_factory=dict)
+    kernel_flops: Dict[str, int] = dataclasses.field(default_factory=dict)
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    peak_bytes: Optional[int] = None
+    graph_pool_bytes: Optional[int] = None
+    capture_s: Optional[float] = None
+
+    def cost_analysis(self) -> Dict[str, float]:
+        return {"flops": self.flops}
+
+    def memory_analysis(self) -> Dict[str, Optional[int]]:
+        return {"peak_bytes": self.peak_bytes, "graph_pool_bytes": self.graph_pool_bytes}
+
+    def as_text(self) -> str:
+        lines = [f"fused step: {self.flops:.6g} flops"
+                 + ("" if self.capture_s is None else
+                    f", one CUDA graph captured in {self.capture_s:.3f} s")]
+        lines.append("launches recorded: " + (", ".join(
+            f"{k} {v}" for k, v in sorted(self.launches.items())) or "none"))
+        for k, v in sorted({**self.op_flops, **self.kernel_flops}.items()):
+            lines.append(f"  {k}: {v} flops")
+        return "\n".join(lines)
+
+
+def _bmm_flops(a_shape, b_shape, *rest, out_shape=None, **kwargs) -> int:
+    """2 b m n k for a (b, m, k) x (b, k, n) product. The counter's own
+    formula takes a third positional argument for its output shape, so it
+    fails on ``aten.bmm.dtype``'s ``out_dtype`` (ops/mxu.py's tensor-core
+    product)."""
+    b, m, k = a_shape
+    return 2 * b * m * b_shape[-1] * k
+
+
+def _count_step(step, *args):
+    """Run ``step(*args)`` under the FLOP counters. -> (FLOPs by op, FLOPs by
+    kernel launch)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from mlsl_tpu_torch.ops import attention_kernels as ak
+
+    counter = FlopCounterMode(display=False, custom_mapping={torch.ops.aten.bmm: _bmm_flops})
+    with ak.count_flops() as kernels, counter:
+        step(*args)
+    ops = {str(op): int(n) for op, n in counter.get_flop_counts().get("Global", {}).items()}
+    return ops, dict(kernels)
 
 
 class HybridTrainer:
@@ -333,11 +444,13 @@ class HybridTrainer:
                  batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
                  distributed_update: bool = False, compression=None, optimizer=None,
                  params=None):
-        mlsl_assert(not cfg.sharded_vocab, "the sharded-vocabulary CE is not ported yet "
-                                           "(ROADMAP A: the transformer's remaining options)")
+        mlsl_assert(not isinstance(optimizer, optim.ShardedAdafactor),
+                    "ShardedAdafactor's cross-shard factored stats are implemented for "
+                    "DataParallelTrainer's distributed update; HybridTrainer takes the "
+                    "elementwise transforms of mlsl_tpu_torch.optim (adam, sgd)")
         mlsl_assert(optimizer is None or isinstance(optimizer, optim.Transform),
-                    "optimizer must be a transform of mlsl_tpu_torch.optim (adam, sgd); "
-                    "ShardedAdafactor is not ported yet (ROADMAP A)")
+                    "optimizer must be an elementwise transform of mlsl_tpu_torch.optim "
+                    "(adam, sgd)")
         self.env = env
         self.cfg = cfg
         self.dp, self.sp, self.tp = dp, sp, tp
@@ -353,6 +466,8 @@ class HybridTrainer:
         )
         mlsl_assert(cfg.n_heads % tp == 0, "heads %d %% tp %d", cfg.n_heads, tp)
         mlsl_assert(cfg.seq_len % sp == 0, "seq %d %% sp %d", cfg.seq_len, sp)
+        if cfg.sharded_vocab:
+            mlsl_assert(cfg.vocab % tp == 0, "vocab %d %% tp %d (sharded head)", cfg.vocab, tp)
         if cfg.n_experts > 0:
             local_tokens = (self.batch // dp) * (cfg.seq_len // sp)
             mlsl_assert(cfg.n_experts % tp == 0, "n_experts %d must be divisible by tp %d "
@@ -420,6 +535,8 @@ class HybridTrainer:
         # the model group and config route the MoE exchanges through the
         # selection table
         self._comm = (self.dist.model_group, env.config) if tp > 1 else None
+        # the fused step's CUDA graphs, one per batch shape (card only)
+        self._graphs: Dict[tuple, Tuple[graph_capture.Captured, CompiledStep]] = {}
 
     # -- data placement ----------------------------------------------------
 
@@ -494,8 +611,12 @@ class HybridTrainer:
     def _opt_update(self, name: str, flat_grad: torch.Tensor) -> None:
         """One layer's optimizer step on every rank's flat local vector
         (``_flat_opt_layer_update``, transformer.py:724-737); flat_grad is the
-        mean gradient (R, D, S, M, local count)."""
-        upd, self.opt_state[name] = self.optimizer.update(flat_grad, self.opt_state[name])
+        mean gradient (R, D, S, M, local count). The state keeps its tensors:
+        a new one (Adam's count) is copied into the old, so that a CUDA graph
+        of the step reads and writes the same storage each replay."""
+        state = self.opt_state[name]
+        upd, new = self.optimizer.update(flat_grad, state)
+        self.opt_state[name] = optim.keep_in_place(state, new)
         self._add_flat(name, upd)
 
     def _fused_update(self, grads) -> None:
@@ -507,13 +628,75 @@ class HybridTrainer:
             self._opt_update(name, g / self._norm)
 
     def step(self, tokens, labels) -> torch.Tensor:
-        """One training step on sharded (tokens, labels) -> the mean CE."""
+        """One training step on sharded (tokens, labels) -> the mean CE. On
+        the fused path the card replays the step's CUDA graph (captured at
+        the first step of each batch shape), as the reference always runs its
+        fused jit."""
         if self.fused:
-            ce, grads = self._backward(tokens, labels)
-            self._fused_update(grads)
-            return ce[:, :, :, 0].sum() / self._norm
+            if tokens.device.type == "cuda":
+                return self._replay(tokens, labels)
+            return self._eager_step(tokens, labels)
         loss, grads = self._grad_fn(tokens, labels)
         return self._sync_and_update(grads, loss)
+
+    def _eager_step(self, tokens, labels) -> torch.Tensor:
+        """The fused no-comm step (transformer.py:813-895), run eagerly: the
+        graph's body, and its twin on the card. -> the mean CE (0-d)."""
+        ce, grads = self._backward(tokens, labels)
+        self._fused_update(grads)
+        return ce[:, :, :, 0].sum() / self._norm
+
+    # -- the fused step as one CUDA graph ------------------------------------
+
+    def compiled_step(self, tokens, labels) -> Optional[CompiledStep]:
+        """The fused step's profile (transformer.py:679-690), or None off the
+        fused path, where the step is many programs. On the card it describes
+        the step's captured graph (captured here if ``step`` has not yet).
+        Its FLOPs come from one eager step under the FLOP counters, run at the
+        first call for a batch shape; the parameters and the optimizer state
+        are restored afterwards."""
+        if not self.fused:
+            return None
+        compiled = (self._graph_for(tokens, labels)[1] if tokens.device.type == "cuda"
+                    else CompiledStep())
+        if not compiled.op_flops and not compiled.kernel_flops:
+            with graph_capture.restored(self._state_tensors()):
+                compiled.op_flops, compiled.kernel_flops = _count_step(
+                    self._eager_step, tokens, labels)
+            compiled.flops = float(sum(compiled.op_flops.values())
+                                   + sum(compiled.kernel_flops.values()))
+        return compiled
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """What a step writes: the parameters and the optimizer state."""
+        state = [t for n in self.layers for t in self.opt_state[n] if torch.is_tensor(t)]
+        return self._all_leaves() + state
+
+    def _replay(self, tokens, labels) -> torch.Tensor:
+        captured, _ = self._graph_for(tokens, labels)
+        return captured.replay((tokens, labels)).clone()
+
+    def _graph_for(self, tokens, labels) -> Tuple[graph_capture.Captured, CompiledStep]:
+        """The batch shape's graph and its profile, captured at the first
+        call (core/graph_capture.py: one eager warm-up on a side stream, the
+        parameters and optimizer state put back, the recording; a capture
+        that fails raises MLSLError and nothing runs eagerly in its place).
+        The wrappers count a launch when the graph records it, not at
+        replay; the warm-up's launches are real and count too."""
+        key = (tuple(tokens.shape), tuple(labels.shape), tokens.dtype, labels.dtype)
+        hit = self._graphs.get(key)
+        if hit is None:
+            captured = graph_capture.capture(self._eager_step, (tokens, labels),
+                                             self._state_tensors(),
+                                             "HybridTrainer's fused step")
+            pool = tuple(captured.graph.pool())
+            pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                             if tuple(seg["segment_pool_id"]) == pool)
+            compiled = CompiledStep(launches=captured.launches,
+                                    peak_bytes=torch.cuda.max_memory_allocated(tokens.device),
+                                    graph_pool_bytes=pool_bytes, capture_s=captured.seconds)
+            hit = self._graphs[key] = (captured, compiled)
+        return hit
 
     def step_accum(self, batches) -> torch.Tensor:
         """Gradient accumulation (transformer.py:996-1016): k local

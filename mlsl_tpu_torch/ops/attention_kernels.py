@@ -71,12 +71,14 @@ back from the kernel to the plain version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.ops import cpu_exp
 
 NEG = -1e30
 MAX_HEAD_DIM = 128          # the CUDA kernels' limit (shared-memory tiles)
@@ -95,6 +97,37 @@ Offset = Union[int, torch.Tensor]
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# FLOPs a (q, k) pair costs in B7 (S and P V) and in B8's two passes (S, dP,
+# dQ; S, dP, dV, dK), per head-dim element
+_PAIR_FLOPS = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+_FLOP_SINKS = []
+
+
+@contextlib.contextmanager
+def count_flops():
+    """Sum the FLOPs of the B7 and B8 launches made inside, by LAUNCHES key:
+    ``torch.utils.flop_counter`` cannot see a ctypes launch. A causal launch
+    counts the pairs its rows see at equal query and key offsets, as the
+    fused transformer step gives them (offsets are device tensors, not read
+    back); others count every pair."""
+    sink: Dict[str, int] = {}
+    _FLOP_SINKS.append(sink)
+    try:
+        yield sink
+    finally:
+        _FLOP_SINKS.remove(sink)
+
+
+def _launch_flops(name: str, bh: int, sq: int, sk: int, d: int, causal: bool) -> int:
+    per = _PAIR_FLOPS.get(name.removesuffix("_sm90"), 0)
+    if not causal:
+        pairs = sq * sk
+    else:   # row i sees keys 0..i
+        n = min(sq, sk)
+        pairs = n * (n + 1) // 2 + (sq - n) * sk
+    return per * d * bh * pairs
 
 
 def _pick_tiles(sq: int, sk: int):
@@ -180,6 +213,7 @@ def pick_form(what: str, q: torch.Tensor, form: Optional[str] = None) -> str:
 
 def _scores_ref(q, k, q_off, k_off, causal: bool) -> torch.Tensor:
     """(BH, Sq, Sk) float32 scaled scores, NEG where the causal mask hides."""
+    cpu_exp.warm(q.device)     # ROADMAP C.3
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale_of(q.shape[-1])
     if causal:
         q_pos = q_off[:, None] + torch.arange(q.shape[1], device=q.device)
@@ -278,6 +312,7 @@ def _bu_row_terms(acc, m, l, m_new, l_new, acc_new, ga, gm, gl):
     """B9's backward per row, with c = exp(m - m'): -> (g = gm - Delta with
     Delta = gl l' + ga . acc', dacc = c ga, the part of dm that does not go
     through the max, dl = c gl), all float32."""
+    cpu_exp.warm(m.device)
     ga, gm, gl = ga.float(), gm.float(), gl.float()
     corr = torch.exp(m - m_new)
     g = gm - (gl * l_new + (ga * acc_new).sum(dim=-1))
@@ -371,6 +406,8 @@ def _launch(name: str, fn, ptrs, bh, sq, sk, d, causal, code, device) -> None:
     if rc != 0:
         raise MLSLError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+    for sink in _FLOP_SINKS:
+        sink[name] = sink.get(name, 0) + _launch_flops(name, bh, sq, sk, d, causal)
 
 
 def _ptr(t: Optional[torch.Tensor]):

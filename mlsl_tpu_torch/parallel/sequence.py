@@ -84,7 +84,8 @@ def _attn_block_update(q, k_blk, v_blk, acc, m, l, q_pos, k_pos, causal, scale):
 def _inv_sqrt(d: int, dtype, device) -> torch.Tensor:
     """``1.0 / jnp.sqrt(d).astype(dtype)``: the scale as the JAX einsum paths
     round it."""
-    return 1.0 / torch.sqrt(torch.tensor(float(d), device=device)).to(dtype)
+    # filled on the device: no host copy, so that a CUDA graph can record it
+    return 1.0 / torch.sqrt(torch.full((), float(d), device=device)).to(dtype)
 
 
 def ring_attention(q, k, v, axis: int, axis_size: int, causal: bool = False,

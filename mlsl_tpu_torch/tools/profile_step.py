@@ -3,7 +3,7 @@
 Run from the root of a checkout, on a machine with a card:
 
     python3 -m mlsl_tpu_torch.tools.profile_step [--model resnet] [--steps 3] [--warmup 2]
-        [--blocks N] [--remat full|dots] [--zero1] [--overlap-compiled]
+        [--blocks N] [--remat full|dots] [--zero1] [--sharded-vocab] [--overlap-compiled]
 
 ``--model`` picks the step:
 
@@ -11,7 +11,9 @@ Run from the root of a checkout, on a machine with a card:
   1000 classes, global batch 64 on 8 virtual data ranks, int8 error-feedback
   gradient ring (with MLSL_ALGO=pallas_ring exported, the fused int8 ring);
 - ``transformer-1``: gpt-medium-2k (models/transformer.GPT_MEDIUM_2K, bf16,
-  batch 8) on 1 rank, the fused step, flash attention kernels B7 and B8;
+  batch 8) on 1 rank, the fused step as one CUDA graph (captured in the
+  warm-up, replayed in the timed and traced steps), flash attention kernels
+  B7 and B8;
 - ``transformer-8``: the same model and batch on 8 virtual ranks, dp=2 x
   sp=2 x tp=2, zigzag attention (kernel B9 and its backward), per-layer
   gradient requests;
@@ -26,6 +28,9 @@ Run from the root of a checkout, on a machine with a card:
 (each block replayed in the backward; ``dots`` keeps the matrix products'
 outputs), so ``--model moe-8 --blocks 12 --remat full`` is chip_smoke.py's
 MoE run at its full depth.
+``--sharded-vocab`` shards a transformer's LM head over the model axis
+(``sharded_vocab=True``: the CE from per-shard logits), so ``--model
+transformer-8 --sharded-vocab`` is chip_smoke.py's run (q).
 ``--zero1`` trains a transformer step with Adam (lr 1e-4) and the
 distributed update (ZeRO-1), its requests coalesced into gradient buckets:
 ``MLSL_GRAD_BUCKET_MB=25`` and ``MLSL_ALGO=reduce_scatter=pallas_ring2d``
@@ -52,7 +57,9 @@ many steps again with ``torch.profiler`` (the Chrome trace goes to
   requests and the update, with a synchronize between them): traced
   wall seconds, device kernel seconds (the union of kernel intervals, so
   overlapping streams are not counted twice), and the device idle share
-  ``1 - kernel / wall``;
+  ``1 - kernel / wall``; the fused transformer step is one graph replay, one
+  range (``graph_step``), with its capture's seconds, its recorded
+  launches and its FLOPs (``compiled_step``) beside;
 - device kernel seconds by class (codec kernels; B9's wgmma backward
   passes, B9's forward in either form, the other attention kernels; the
   all-to-all; every other kernel launched inside a ``block_update_bwd`` host
@@ -92,6 +99,7 @@ from mlsl_tpu_torch.ops import ring_kernels as rk
 
 HALVES = ("local_grads", "sync_and_update")
 ENGINE_STEP = "engine_step"
+GRAPH_STEP = "graph_step"
 CLASSES = (
     ("codec", re.compile(r"quantize_rows|quant_ring_kernel")),
     # B9's wgmma backward passes; B9's forward in both forms (bu_sm90, the
@@ -141,7 +149,7 @@ TRANSFORMERS = {"transformer-1": (1, 1, 1, "ring", tfm.GPT_MEDIUM_2K, 12),
 
 
 def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, zero1=False,
-                      remat=None):
+                      remat=None, sharded_vocab=False):
     if base.n_experts:
         os.environ.setdefault("MLSL_ALGO", "alltoall=pallas_a2a")
     kw = {}
@@ -150,7 +158,8 @@ def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, ze
         os.environ.setdefault("MLSL_ALGO", "reduce_scatter=pallas_ring2d")
         kw = dict(distributed_update=True, optimizer=optim.adam(1e-4))
     cfg = dataclasses.replace(base, attention=attention, dtype="bfloat16", n_blocks=n_blocks,
-                              remat=remat is not None, remat_policy=remat or "full")
+                              remat=remat is not None, remat_policy=remat or "full",
+                              sharded_vocab=sharded_vocab)
     env = get_env().init(world_size=dp * sp * tp)
     trainer = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=0.1, seed=seed, **kw)
     rng = np.random.default_rng(seed)
@@ -160,13 +169,18 @@ def build_transformer(dp, sp, tp, attention, base, n_blocks, batch=8, seed=0, ze
 
 
 def traced_step(trainer, batch) -> None:
-    """One step as its two halves (the compiled engine's: one range), each a named range ending in a
-    synchronize, so the device work of each half lies inside its range
-    (the transformer's fused step runs here as its graph form, whose
-    requests communicate nothing)."""
+    """One step as its two halves, each a named range ending in a
+    synchronize, so the device work of each half lies inside its range; the
+    compiled engine's step and the fused transformer's graph replay are one
+    range each."""
     if getattr(trainer, "_overlap", None) is not None:
         with torch.profiler.record_function(ENGINE_STEP):
             trainer.step(batch)
+            torch.cuda.synchronize()
+        return
+    if isinstance(trainer, tfm.HybridTrainer) and trainer.fused:
+        with torch.profiler.record_function(GRAPH_STEP):
+            trainer.step(*batch)
             torch.cuda.synchronize()
         return
     with torch.profiler.record_function(HALVES[0]):
@@ -216,17 +230,18 @@ def _span(kernels, lo, hi) -> float:
     return _union([(max(s, lo), min(t, hi)) for s, t, *_ in kernels if s < hi and t > lo])
 
 
-def summarize(trace: dict, top: int, steps: int, engine: bool = False) -> dict:
+def summarize(trace: dict, top: int, steps: int, engine: bool = False,
+              graph: bool = False) -> dict:
     """Chrome trace of ``steps`` traced steps -> the per-step summary: the
-    host path's two halves, or the engine's step split at its first codec
-    kernel."""
+    host path's two halves, the engine's step split at its first codec
+    kernel, or the fused transformer's graph replay whole."""
     events = trace["traceEvents"]
     in_b9_bwd = _launched_in(events, B9_BWD_RANGE)
     kernels = [(e["ts"], e["ts"] + e["dur"], e["name"], in_b9_bwd(e)) for e in events
                if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise SystemExit("profile_step: the trace holds no device kernel")
-    names = (ENGINE_STEP,) if engine else HALVES
+    names = (ENGINE_STEP,) if engine else (GRAPH_STEP,) if graph else HALVES
     windows = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
                if e.get("cat") == "user_annotation" and e.get("name") in names]
     spans = []
@@ -239,7 +254,8 @@ def summarize(trace: dict, top: int, steps: int, engine: bool = False) -> dict:
             if cut is None:
                 raise SystemExit("profile_step: an engine step launched no codec kernel")
             spans += [(HALVES[0], a, cut), (HALVES[1], cut, b)]
-    halves = {h: {"wall_s": 0.0, "kernel_s": 0.0} for h in (*names, *HALVES)}
+    halves = {h: {"wall_s": 0.0, "kernel_s": 0.0}
+              for h in (names if graph else (*names, *HALVES))}
     for name, a, b in spans:
         halves[name]["wall_s"] += (b - a) * 1e-6 / steps
         halves[name]["kernel_s"] += _span(kernels, a, b) * 1e-6 / steps
@@ -280,6 +296,8 @@ def main(argv=None) -> int:
                     help="a transformer step with remat and this remat_policy")
     ap.add_argument("--zero1", action="store_true",
                     help="a transformer step with Adam, ZeRO-1 and 25 MiB gradient buckets")
+    ap.add_argument("--sharded-vocab", action="store_true",
+                    help="a transformer step with the LM head sharded over the model axis")
     ap.add_argument("--overlap-compiled", action="store_true",
                     help="the resnet step on the compiled overlap engine, one CUDA graph")
     ap.add_argument("--trace", default=str(build_dir() / "profile_step.trace.json"),
@@ -290,8 +308,8 @@ def main(argv=None) -> int:
         print("profile_step: torch.cuda.is_available() is false: this needs a card",
               file=sys.stderr)
         return 1
-    if (args.zero1 or args.remat) and args.model == "resnet":
-        ap.error("--zero1 and --remat take a transformer model")
+    if (args.zero1 or args.remat or args.sharded_vocab) and args.model == "resnet":
+        ap.error("--zero1, --remat and --sharded-vocab take a transformer model")
     if args.overlap_compiled and args.model != "resnet":
         ap.error("--overlap-compiled takes the resnet model")
     engine = {}
@@ -312,8 +330,10 @@ def main(argv=None) -> int:
         *shape, blocks = TRANSFORMERS[args.model]
         blocks = args.blocks or blocks
         env, trainer, batch = build_transformer(*shape, blocks, zero1=args.zero1,
-                                                remat=args.remat)
+                                                remat=args.remat,
+                                                sharded_vocab=args.sharded_vocab)
         step = lambda: trainer.step(*batch)         # noqa: E731
+    graph = isinstance(trainer, tfm.HybridTrainer) and trainer.fused
     bucket_mb = env.config.grad_bucket_mb
     try:
         for _ in range(args.warmup):
@@ -326,6 +346,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if graph:
+            compiled = trainer.compiled_step(*batch)
+            engine = {"capture_s": compiled.capture_s,
+                      "launches_recorded": {k: v for k, v in compiled.launches.items() if v},
+                      "flops": compiled.cost_analysis()["flops"],
+                      **compiled.memory_analysis()}
         for m in (qk, rk, ak, a2a):
             m.reset_counts()
         stats.reset_bucket_counters()
@@ -346,11 +372,13 @@ def main(argv=None) -> int:
            "ring": req.algo if req is not None else None,
            "mlsl_algo": os.environ.get("MLSL_ALGO", ""),
            "blocks": blocks, "remat": args.remat, "zero1": args.zero1,
+           "sharded_vocab": args.sharded_vocab, "graph_step": graph,
            "grad_bucket_mb": bucket_mb, "traced_bucket_rounds": buckets,
            "step_s": step_s, "peak_gib": peak_gib,
            "device_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
            "traced_launches": launches, "overlap_compiled": args.overlap_compiled, **engine,
-           **summarize(trace, args.top, args.steps, engine=args.overlap_compiled)}
+           **summarize(trace, args.top, args.steps, engine=args.overlap_compiled,
+                       graph=graph)}
     print(json.dumps(out))
     return 0
 

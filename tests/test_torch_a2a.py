@@ -196,6 +196,25 @@ def test_inline_allgather_matches_lax(d, m, axes, local):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_inline_allgather_fused_ring_route_refuses_what_b3_ag_cannot_take():
+    """Where the config's table sends the group's reduce_scatter to the fused
+    ring, the gather is B3-AG (its plain version on the CPU), bit for bit the
+    plain gather; a tensor that needs a gradient, or of a type the kernel does
+    not take, raises MLSLError on that route instead of taking the plain
+    gather."""
+    _, tg = _groups(8, 1, ("data",))
+    config = TConfig()
+    config._forced_algos = {"reduce_scatter": "pallas_ring"}
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(*tg.topology.grid_shape, 6)).astype(np.float32))
+    np.testing.assert_array_equal(talgos.inline_allgather(x, tg, config=config).numpy(),
+                                  talgos.inline_allgather(x, tg).numpy())
+    with pytest.raises(MLSLError, match="no gradient"):
+        talgos.inline_allgather(x.clone().requires_grad_(), tg, config=config)
+    with pytest.raises(MLSLError, match="float64"):
+        talgos.inline_allgather(x.double(), tg, config=config)
+
+
 # -- B6's plain version against the JAX kernel ---------------------------------------
 
 # (d, m, axes, count per rank): padding where rc is not a chunk unit

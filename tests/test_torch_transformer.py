@@ -137,7 +137,8 @@ def test_weight_conversion_round_trip():
 def test_unported_options_raise(option):
     """The options still to port raise MLSLError; ``n_experts`` (ported with
     the MoE slice), ``distributed_update`` and ``optimizer`` (ported with
-    ZeRO-1 and Adam) and ``remat`` construct a trainer that steps."""
+    ZeRO-1 and Adam), ``remat`` and ``sharded_vocab`` (its head sharded over
+    tp = 2) construct a trainer that steps."""
     from mlsl_tpu_torch import optim
 
     cfg_kw, kw = dict(CFG), {}
@@ -151,8 +152,9 @@ def test_unported_options_raise(option):
         kw["optimizer"] = optim.adam(1e-2)
     tenv = _port_env(2)
     try:
-        if option in ("n_experts", "distributed_update", "optimizer", "remat"):
-            grid = (1, 1, 2) if option == "n_experts" else (2, 1, 1)
+        if option in ("n_experts", "distributed_update", "optimizer", "remat",
+                      "sharded_vocab"):
+            grid = (1, 1, 2) if option in ("n_experts", "sharded_vocab") else (2, 1, 1)
             tt = ttfm.HybridTrainer(tenv, ttfm.TransformerConfig(**cfg_kw), *grid, batch=2,
                                     **kw)
             losses = [float(tt.step(*tt.shard_tokens(*_data(2)))) for _ in range(2)]
