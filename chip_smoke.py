@@ -282,6 +282,30 @@ Phases, in order; any failure exits non-zero and prints no result:
              buffers; one line a case with the host -> card copy, the
              collective, the card -> host copy and the algbw.
 
+34. codecs (run (t), after 33): config 5 on the host path with the
+             compressed wires beyond int8, each sub-run's step seconds beside
+             an uncompressed config 5 run of the same call: (t1) TOPK at
+             MLSL_TOPK_RATIO=0.01 on all 18 gradient requests, the first
+             round equal to the float64 sum of the ranks' top-k contributions
+             within the float32 sum bound, the error feedback telescoping
+             over the 3 rounds, the ring merge forced on fc against the
+             all-gather format; (t2) MLSL_CODEC=f32 (its first round's
+             gradients against the uncompressed run's within the float32 sum
+             bound), then prune and vq (each chunk's new residual is (x +
+             e_old) - decode(encode(x + e_old)) bit for bit), each codec's
+             wire bytes in the statistics equal to wire_len x the rounds;
+             (t3) MLSL_TUNE_CODEC=1 at commit on the 18 sets (every int8
+             candidate on B1 + B2, launches counted), the profile written
+             under build/, a fresh Environment routing each set to its
+             assigned codec, one guardrail demotion through codecs.guard_note
+             whose residual is flushed exactly once, then rounds bit for bit
+             a fresh int8 request's; (t4) native/sample_codec.c compiled
+             with gcc into build/mlsl_tpu_torch/ and registered through
+             set_quantization_params: config 4's 64 MiB-a-rank allreduce for
+             2 rounds bit for bit against the same collective on the CPU,
+             with the time split between host copies and codec calls, then
+             one C-entry registration through c_shim.
+
 A captured graph counts its launches once, when it is recorded: the engine
 runs' launches are those of precompile's eager warm-up step and its capture,
 and each prints the launches of one captured step.
@@ -799,7 +823,8 @@ def check_config5(torch, trainer, losses, grads, errs):
 # -- the algorithm engine ---------------------------------------------------
 
 ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
-             "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB", "MLSL_STATS", "MLSL_STATS_DIR")
+             "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB", "MLSL_STATS", "MLSL_STATS_DIR",
+             "MLSL_TOPK_RATIO", "MLSL_CODEC", "MLSL_TUNE_CODEC", "MLSL_TUNE_PROFILE")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -4563,6 +4588,377 @@ def group_rhd_entry(torch, rhd, grid, axes, count, tag, bw, f32, per_path, dev):
                               ".contiguous() on member-ordered rows")
 
 
+# -- run (t): the compressed wires beyond int8 ---------------------------------
+
+TOPK_RATIO = 0.01
+CODEC_STEPS = 3
+# relative L2 bound of the error feedback's telescoping over CODEC_STEPS
+# rounds: each round's entry adds x + e in float32 (one rounding an element)
+TELESCOPE_TOL = 1e-5
+CODEC_PROFILE = ROOT / "build" / "mlsl_tpu_torch" / "codec_profile.json"
+# (t4)'s request: config 4's 64 MiB of float32 a rank
+CODEC_LIB_N = (64 << 20) // 4
+
+
+def sum_bound(torch, terms):
+    """Elementwise bound on a float32 sum of the G terms against its float64
+    value: G x 2**-24 x the sum of their magnitudes."""
+    return terms.abs().sum(dim=0) * (terms.shape[0] * 2.0 ** -24)
+
+
+def codec_steps(torch, trainer, batch, steps=CODEC_STEPS, keep=()):
+    """``steps`` host-path steps, each as its two halves (``step`` is exactly
+    them). -> (per-rank losses, step seconds, {step: {layer: (local grads,
+    residuals before the round, reduced result)}} for the steps in
+    ``keep``)."""
+    losses, secs, kept = [], [], {}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer._step_no += 1
+        loss, grads = trainer._local_grads(batch)
+        if i in keep:
+            before = {n: ([e.clone() for e in _grad_req(trainer, n)._errs]
+                          if _grad_req(trainer, n)._errs is not None else None)
+                      for n in trainer.layers}
+            snap = {n: grads[n].clone() for n in trainer.layers}
+        loss = trainer._sync_and_update(grads, loss)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.detach().reshape(-1).cpu())
+        if i in keep:
+            kept[i] = {n: (snap[n], before[n], _grad_req(trainer, n)._result.clone())
+                       for n in trainer.layers}
+    for i, loss in enumerate(losses):
+        check(loss.shape == (WORLD,) and bool(torch.isfinite(loss).all()),
+              f"codec run step {i}: losses {loss.tolist()}")
+    return losses, secs, kept
+
+
+def codec_trainer(torch, np, get_env, compression, **env_vars):
+    from mlsl_tpu_torch.core import stats as stats_mod
+
+    env = reinit(get_env, **env_vars)
+    settle(torch)
+    stats_mod.reset_codec_counters()
+    trainer, batch = build_resnet_trainer(torch, env, np, compression=compression)
+    return env, trainer, batch
+
+
+def check_topk(torch, trainer, kept, tag):
+    """(t1): the first round against the float64 sum of the ranks' top-k
+    contributions; the feedback's telescoping over the rounds; -> the worst
+    first-round error over its bound and the worst telescoping error."""
+    from mlsl_tpu_torch.codecs import _stable_topk
+
+    worst_first, worst_tel = 0.0, 0.0
+    for name in trainer.layers:
+        req = _grad_req(trainer, name)
+        check(req.algo == "topk", f"{tag}: layer {name} took {req.algo!r}")
+        g0, _, r0 = kept[0][name]
+        n = g0.shape[-1]
+        k = max(1, int(n * TOPK_RATIO))
+        rows = g0.reshape(WORLD, n).double()
+        idx = _stable_topk(rows.abs(), k)
+        sparse = torch.zeros_like(rows).scatter_(1, idx, rows.gather(1, idx))
+        exact = sparse.sum(dim=0)
+        bound = sum_bound(torch, sparse) + 1e-30
+        got = r0.reshape(WORLD, -1)
+        check(bool((got == got[:1]).all()), f"{tag}: ranks disagree on layer {name}")
+        ratio = float(((got[0].double() - exact).abs() / bound).max())
+        worst_first = max(worst_first, ratio)
+        check(ratio <= 1.0, f"{tag}: layer {name} first round off by {ratio:.3g} of its bound")
+        # the telescoping: results + final residuals == the inputs, summed
+        total_in = sum(kept[i][name][0].reshape(WORLD, n).double().sum(dim=0) for i in kept)
+        total_out = sum(kept[i][name][2].reshape(WORLD, -1)[0].double() for i in kept)
+        resid = req._errs[0].reshape(WORLD, n).double().sum(dim=0)
+        rel = float((total_out + resid - total_in).norm() / total_in.norm())
+        worst_tel = max(worst_tel, rel)
+        check(rel < TELESCOPE_TOL, f"{tag}: layer {name} feedback telescopes to {rel:.3g}")
+    return worst_first, worst_tel
+
+
+def check_ring_merge(torch, trainer, kept):
+    """(t1): the ring format forced on the fc request (G = 8) against the
+    all-gather format on the same inputs: within the float32 sum bound of
+    the other order. -> the worst error over the bound."""
+    from mlsl_tpu_torch.comm import sparse
+
+    req = _grad_req(trainer, "fc")
+    g0 = kept[0]["fc"][0]
+    n = g0.shape[-1]
+    zero = torch.zeros_like(g0)
+    ring, _ = sparse.build_sparse_collective("allreduce", req.desc.group, n, TOPK_RATIO,
+                                             use_ring=True)
+    gather, _ = sparse.build_sparse_collective("allreduce", req.desc.group, n, TOPK_RATIO,
+                                               use_ring=False)
+    (a, ea), (b, eb) = ring(g0, zero), gather(g0, zero)
+    check(same_bits(torch, ea, eb), "ring merge: the residuals differ")
+    check(same_bits(torch, b, kept[0]["fc"][2]), "ring merge: the all-gather format is not the "
+                                            "request's first round")
+    bound = 2 * sum_bound(torch, g0.reshape(WORLD, n).double()) + 1e-30
+    ratio = float(((a - b).reshape(WORLD, n).double().abs() / bound).max())
+    check(ratio <= 1.0, f"ring merge: off the all-gather format by {ratio:.3g} of its bound")
+    return ratio
+
+
+def check_registry_residuals(torch, trainer, kept, name, step):
+    """(t2): every chunk's new residual is (x + e_old) - decode(encode(x +
+    e_old)), recomputed here with the registry codec, bit for bit."""
+    from mlsl_tpu_torch import codecs
+    from mlsl_tpu_torch.comm.collectives import group_view
+    from mlsl_tpu_torch.comm.quant_ring import _to_chunks
+
+    codec = codecs.configure(name, trainer.env.config)
+    for layer in trainer.layers:
+        req = _grad_req(trainer, layer)
+        check(req.algo == f"codec:{name}", f"{name}: layer {layer} took {req.algo!r}")
+        g, before, _ = kept[step][layer]
+        group = req.desc.group
+        gsz = group.size
+        n = g.shape[-1]
+        rc = -(-n // gsz)
+        x = group_view(g, group)
+        e_old = group_view(before[0], group)
+        c = x.shape[0]
+        xq = _to_chunks(x, gsz, rc, rc) + e_old.reshape(c, gsz, gsz, rc)
+        rows = xq.reshape(-1, rc)
+        want = (rows - codec.decode(codec.encode(rows), rc)).reshape(c, gsz, gsz * rc)
+        check(same_bits(torch, group_view(req._errs[0], group).contiguous(), want.contiguous()),
+              f"{name}: layer {layer}'s residual is not x + e - decode(encode(x + e))")
+
+
+def check_wire_bytes(trainer, name, rounds):
+    from mlsl_tpu_torch import codecs
+    from mlsl_tpu_torch.core import stats as stats_mod
+
+    codec = codecs.configure(name, trainer.env.config)
+    want = rounds * sum(codec.wire_len(_grad_req(trainer, n).desc.count)
+                        for n in trainer.layers)
+    got = stats_mod.CODEC_WIRE_BYTES.get(name, 0)
+    check(got == want, f"{name}: wire bytes {got} in the statistics, expected {want}")
+    return got
+
+
+def guard_demotion(torch, env, trainer, batch, tag):
+    """(t3): one guardrail demotion through codecs.guard_note on a request
+    running a calibrated codec other than int8: the residual it held goes
+    out once with the next round, which equals a fresh int8 request fed the
+    gradient plus that residual bit for bit; the round after equals the
+    fresh request on the plain gradient. -> the demoted request's name."""
+    from mlsl_tpu_torch import codecs
+    from mlsl_tpu_torch.comm.quant_ring import logical_residual
+    from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
+
+    guarded = codecs.guard_status()["guarded"]
+    check(guarded, f"{tag}: no request runs a calibrated codec other than int8")
+    layer = next(n for n in reversed(trainer.layers)
+                 if _grad_req(trainer, n).name in guarded)
+    req = _grad_req(trainer, layer)
+    old = req.algo
+    held = [e.clone() for e in req._errs]
+    lens = list(req._err_lens)
+    window = env.config.codec_guard_breaches
+    fired = [codecs.guard_note(True, window=window, step=s) for s in range(window)]
+    check(fired == [False] * (window - 1) + [True], f"{tag}: guard_note fired {fired}")
+    check(req._codec_demoted and req.algo == "quant_ring" and req.codec_source == "demoted",
+          f"{tag}: {req.name} after the demotion: {req.algo} {req.codec_source}")
+    d = req.desc
+    oracle = CommRequest(CommDesc(d.kind, d.group, d.count, d.data_type, op=d.op,
+                                  compression=d.compression), env.dispatcher,
+                         name="oracle-int8")
+    oracle.setup()
+    check(oracle.algo == "quant_ring", f"{tag}: the int8 oracle took {oracle.algo}")
+    n = d.count
+    g = d.group.size
+    rc = -(-n // g)
+    res = logical_residual(held[0], g, lens[0] // g, rc, n) if old != "topk" else held[0]
+    _, grads = trainer._local_grads(batch)
+    x = grads[layer]
+    a = req.start(x).wait()
+    check(req._pending_flush is None, f"{tag}: the flush is still pending after a round")
+    b = oracle.start(x + res).wait()
+    check(same_bits(torch, a, b), f"{tag}: the flush round differs from int8 on the flushed payload")
+    a, b = req.start(x).wait(), oracle.start(x).wait()
+    check(same_bits(torch, a, b) and same_bits(torch, req._errs[0], oracle._errs[0]),
+          f"{tag}: the round after the flush is not the plain int8 request's")
+    return {"layer": layer, "from": old, "to": req.algo}
+
+
+def run_codecs(torch, np, get_env, launches, reset_launches, lib_path, dev):
+    """Run (t). -> ({sub-run: launches}, log lines)."""
+    from mlsl_tpu_torch import CompressionType, c_shim
+    from mlsl_tpu_torch.comm import codec as codec_mod
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.core import stats as stats_mod
+    from mlsl_tpu_torch.types import QuantParams
+
+    lines, used = [], {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        # the uncompressed host path: the step time every sub-run stands beside
+        t0 = time.perf_counter()
+        env, tr, batch = codec_trainer(torch, np, get_env, CompressionType.NONE)
+        _, secs_none, kept_none = codec_steps(torch, tr, batch, keep=(0,))
+        first_none = {n: kept_none[0][n][2][0, 0, 0, 0] for n in tr.layers}
+        grads_none = {n: kept_none[0][n][0] for n in tr.layers}
+        del tr, kept_none
+        base = {"step_s": secs_none}
+        lines.append(f"# codecs uncompressed config 5 (host path): "
+                     f"{json.dumps({'step_s': secs_none, 'run_s': time.perf_counter() - t0})}")
+
+        # (t1) TOPK on all 18 gradient requests
+        t0 = time.perf_counter()
+        env, tr, batch = codec_trainer(torch, np, get_env, CompressionType.TOPK,
+                                       MLSL_TOPK_RATIO=str(TOPK_RATIO))
+        reset_launches()
+        losses, secs, kept = codec_steps(torch, tr, batch, keep=tuple(range(CODEC_STEPS)))
+        used["topk"] = launches()
+        first, tel = check_topk(torch, tr, kept, "topk")
+        ring = check_ring_merge(torch, tr, kept)
+        k_fc = max(1, int(_grad_req(tr, "fc").desc.count * TOPK_RATIO))
+        out = {"losses": [float(v.mean()) for v in losses], "step_s": secs,
+               "uncompressed_step_s": base["step_s"], "k_fc": k_fc,
+               "first_round_worst_over_bound": first, "telescope_worst_rel": tel,
+               "ring_vs_allgather_worst_over_bound": ring,
+               "wire_bytes": dict(stats_mod.CODEC_WIRE_BYTES),
+               "run_s": time.perf_counter() - t0}
+        lines.append(f"# codecs (t1) topk: {json.dumps(out)}")
+        del tr, kept
+
+        # (t2) the registry codecs on the compressed ring
+        for name in ("f32", "prune", "vq"):
+            t0 = time.perf_counter()
+            env, tr, batch = codec_trainer(torch, np, get_env, None, MLSL_CODEC=name)
+            reset_launches()
+            losses, secs, kept = codec_steps(torch, tr, batch, keep=(0, CODEC_STEPS - 1))
+            used[name] = launches()
+            check_registry_residuals(torch, tr, kept, name, CODEC_STEPS - 1)
+            wire = check_wire_bytes(tr, name, CODEC_STEPS)
+            out = {"losses": [float(v.mean()) for v in losses], "step_s": secs,
+                   "uncompressed_step_s": base["step_s"], "wire_bytes": wire}
+            if name == "f32":
+                worst = 0.0
+                for n in tr.layers:
+                    check(same_bits(torch, kept[0][n][0], grads_none[n]),
+                          f"f32: layer {n}'s local gradients differ from the uncompressed run")
+                    bound = 2 * sum_bound(torch, grads_none[n].reshape(WORLD, -1).double())
+                    diff = (kept[0][n][2][0, 0, 0, 0].double() - first_none[n].double()).abs()
+                    worst = max(worst, float((diff / (bound + 1e-30)).max()))
+                check(worst <= 1.0, f"f32: first-round gradients off the uncompressed run by "
+                                    f"{worst:.3g} of the float32 sum bound")
+                out["first_round_vs_uncompressed_worst_over_bound"] = worst
+            out["run_s"] = time.perf_counter() - t0
+            lines.append(f"# codecs (t2) {name}: {json.dumps(out)}")
+            del tr, kept
+        del first_none, grads_none
+
+        # (t3) the calibration at commit, its profile and the guardrail
+        t0 = time.perf_counter()
+        if CODEC_PROFILE.exists():
+            CODEC_PROFILE.unlink()
+        CODEC_PROFILE.parent.mkdir(parents=True, exist_ok=True)
+        reset_launches()
+        env, tr, _ = codec_trainer(torch, np, get_env, None, MLSL_TUNE_CODEC="1",
+                                   MLSL_TUNE_PROFILE=str(CODEC_PROFILE))
+        used["calibration"] = launches()
+        n_sets = len(tr.layers)
+        want = 3 * n_sets
+        check(counts_are(used["calibration"], quantize_blocks=want, dequantize_blocks=want),
+              f"calibration: launches {used['calibration']}, expected {want} of B1 and B2 "
+              f"(3 int8 blocks on each of {n_sets} sets)")
+        table = {k: v["codec"] for k, v in env.config.codec_assignment.items()}
+        check(CODEC_PROFILE.is_file() and set(json.loads(CODEC_PROFILE.read_text())["codecs"])
+              == set(table), "calibration: the profile does not hold the table")
+        check(stats_mod.CODEC_COUNTERS["assignments"] == n_sets,
+              f"calibration: {stats_mod.CODEC_COUNTERS}")
+        calib_s = time.perf_counter() - t0
+        del tr
+        env, tr, batch = codec_trainer(torch, np, get_env, None,
+                                       MLSL_TUNE_PROFILE=str(CODEC_PROFILE))
+        for n in tr.layers:
+            req = _grad_req(tr, n)
+            check(req.codec_source == "calibrated" and req.codec_name == table[req.name],
+                  f"fresh environment: {req.name} runs {req.codec_name} ({req.codec_source}), "
+                  f"the profile says {table[req.name]}")
+        reset_launches()
+        losses, secs, _ = codec_steps(torch, tr, batch, steps=2)
+        used["calibrated"] = launches()
+        demoted = guard_demotion(torch, env, tr, batch, "guardrail")
+        mix = {}
+        for c in table.values():
+            mix[c] = mix.get(c, 0) + 1
+        out = {"codecs": mix, "losses": [float(v.mean()) for v in losses], "step_s": secs,
+               "uncompressed_step_s": base["step_s"], "calibration_s": calib_s,
+               "launches_calibration": used["calibration"], "demotion": demoted,
+               "wire_bytes": dict(stats_mod.CODEC_WIRE_BYTES),
+               "run_s": time.perf_counter() - t0}
+        lines.append(f"# codecs (t3) calibration: {json.dumps(out)}")
+        del tr
+
+        # (t4) the library codec on config 4's request, and the C entry
+        t0 = time.perf_counter()
+        env = reinit(get_env)
+        settle(torch)
+        params = QuantParams(lib_path=lib_path, quant_buffer_func_name="sample_compress",
+                             dequant_buffer_func_name="sample_decompress",
+                             reduce_sum_func_name="sample_reduce_sum", elem_in_block=128,
+                             block_size=256)
+        env.set_quantization_params(params)
+        from mlsl_tpu_torch import DataType, GroupType, ReductionType
+
+        n = CODEC_LIB_N
+        dist = env.create_distribution(WORLD, 1)
+        gen = torch.Generator().manual_seed(SEED + 4)
+        xs = [torch.randn((*dist.world_shape, n), generator=gen) for _ in range(2)]
+        codec_mod.reset_timings()
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        req = dist.all_reduce(xs[0].to(dev), n, DataType.FLOAT, ReductionType.SUM,
+                              GroupType.DATA, compression=CompressionType.QUANTIZATION)
+        outs = [env.wait(req).cpu()]
+        errs = [req._errs[0].cpu()]
+        outs.append(req.start(xs[1].to(dev)).wait().cpu())
+        errs.append(req._errs[0].cpu())
+        card_s = time.perf_counter() - t1
+        used["library_codec"] = launches()
+        timings = dict(codec_mod.TIMINGS)
+        check(req.algo == "custom_codec", f"library codec: the request took {req.algo}")
+        topo = Topology(WORLD, 1, WORLD)
+        fn, el = codec_mod.build_custom_collective("allreduce", ProcessGroup(topo, ("data",)),
+                                                   n, env.config.custom_codec)
+        err = torch.zeros((*topo.grid_shape, el))
+        t1 = time.perf_counter()
+        for r, x in enumerate(xs):
+            out, err = fn(x, err)
+            check(same_bits(torch, out, outs[r]) and same_bits(torch, err, errs[r]),
+                  f"library codec round {r}: the card's result or residual differs from the "
+                  f"CPU's")
+            exact = x.sum(dim=1, keepdim=True)
+            rel = float((out[:, :1] - exact).norm() / exact.norm())
+            check(rel < 0.01, f"library codec round {r}: relative error {rel}")
+        cpu_s = time.perf_counter() - t1
+        check(c_shim.env_set_quantization_params(lib_path, "sample_compress",
+                                                 "sample_decompress", "sample_reduce_sum",
+                                                 256, 128) == 0
+              and env.config.custom_codec is not None, "c_shim: the library did not register")
+        out = {"bytes_a_rank": n * 4, "rounds": 2, "card_s": card_s, "cpu_twin_s": cpu_s,
+               "d2h_s": timings["d2h_s"], "codec_s": timings["codec_s"],
+               "h2d_s": timings["h2d_s"], "codec_calls": timings["calls"],
+               "rest_s": card_s - timings["d2h_s"] - timings["codec_s"] - timings["h2d_s"],
+               "launches": {k: v for k, v in used["library_codec"].items() if v},
+               "run_s": time.perf_counter() - t0}
+        lines.append(f"# codecs (t4) library codec: {json.dumps(out)}")
+        del xs, outs, errs, req
+    finally:
+        torch.backends.cudnn.deterministic = False
+    env = reinit(get_env)
+    settle(torch)
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -4584,10 +4980,11 @@ def main() -> int:
         t0 = time.perf_counter()
         return capi_build.build(), time.perf_counter() - t0
 
-    builder = concurrent.futures.ThreadPoolExecutor(max_workers=2)
-    building = builder.submit(cuda_build.build_all)
-    building_capi = builder.submit(build_capi)
-    builder.shutdown(wait=False)
+    compiles = concurrent.futures.ThreadPoolExecutor(max_workers=3)
+    building = compiles.submit(cuda_build.build_all)
+    building_capi = compiles.submit(build_capi)
+    building_codec = compiles.submit(capi_build.build_sample_codec)
+    compiles.shutdown(wait=False)
     from mlsl_tpu_torch import get_env
     from mlsl_tpu_torch.comm import algos
     from mlsl_tpu_torch.models import resnet
@@ -4922,6 +5319,16 @@ def main() -> int:
             f"{json.dumps({k: v for k, v in capi_used.items() if v}, sort_keys=True)}")
         settle(torch)
 
+        # the compressed wires beyond int8 (run (t))
+        t0 = time.perf_counter()
+        codec_used, codec_lines = run_codecs(torch, np, get_env, launches, reset_launches,
+                                             building_codec.result(), dev)
+        for line in codec_lines:
+            log(line)
+        log(f"# phase codecs (run (t)): ok in {time.perf_counter() - t0:.1f} s, launches "
+            f"{json.dumps({k: {n: c for n, c in v.items() if c} for k, v in codec_used.items()})}")
+        settle(torch)
+
         fc_entry = ring_rows["fc"][0]
 
         def path(key, **runs):
@@ -4936,7 +5343,8 @@ def main() -> int:
                     engine_fused_ring=engine_used["engine fused ring"],
                     engine_buckets=engine_used["engine buckets"],
                     overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used,
-                    activation_graph=activation, collectives=coll_used, capi=capi_used)
+                    activation_graph=activation, collectives=coll_used, capi=capi_used,
+                    **{f"codec_{k}": v for k, v in codec_used.items()})
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,

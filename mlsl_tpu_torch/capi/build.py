@@ -19,6 +19,9 @@ carries a hash of the sources and flags, so an unchanged tree reuses it.
 The Python flags come from ``sysconfig`` (``INCLUDEPY``, ``LIBDIR``,
 ``LDVERSION``), not ``python3-config``. Nothing builds at import.
 
+``build_sample_codec()`` compiles the reference-ABI sample codec
+(``native/sample_codec.c``) for ``QuantParams.lib_path`` the same way.
+
 Usage::
 
     from mlsl_tpu_torch.capi import build
@@ -150,6 +153,42 @@ def build() -> Dict[str, str]:
         if tmp.exists():
             shutil.rmtree(tmp, ignore_errors=True)
     return paths(out)
+
+
+SAMPLE_CODEC = "native/sample_codec.c"
+SAMPLE_CODEC_FLAGS = ("-shared", "-fPIC", "-O2")
+
+
+def build_sample_codec() -> str:
+    """Compile the reference-ABI sample codec (``native/sample_codec.c``, a
+    float16 truncation codec: 128 elements -> 256 bytes a block) with
+    ``gcc`` into ``build/mlsl_tpu_torch/sample_codec-<hash>/`` (keyed by the
+    source and flags; an unchanged tree reuses it). -> the library's path,
+    for ``QuantParams.lib_path``. Raises MLSLError when the build fails."""
+    src = ROOT / SAMPLE_CODEC
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(SAMPLE_CODEC_FLAGS).encode())
+    out = ROOT / "build" / "mlsl_tpu_torch" / f"sample_codec-{h.hexdigest()[:16]}"
+    lib = out / "libsample_codec.so"
+    if lib.is_file():
+        return str(lib)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="sample-codec-tmp-", dir=out.parent))
+    try:
+        proc = subprocess.run([_compilers()["cc"], *SAMPLE_CODEC_FLAGS, "-o",
+                               str(tmp / lib.name), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise MLSLError(f"sample codec build failed:\n{proc.stdout}")
+        try:
+            os.rename(tmp, out)
+        except OSError:
+            if not lib.is_file():    # not a finished tree from a concurrent build
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+    return str(lib)
 
 
 def program_env(**extra: str) -> Dict[str, str]:

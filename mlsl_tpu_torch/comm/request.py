@@ -33,10 +33,30 @@ device and makes the comm stream wait on that event. A failure while the
 progress thread dispatches stays on its request and is raised again by that
 request's ``wait`` or ``test``.
 
-A quantized request keeps its error-feedback residual from one round to the
-next. The JAX package's supervisor, chaos sites, codec registry, top-k wire,
-circuit breakers, tracing hooks and native priority queue are not part of
-this package yet.
+A compressed request keeps its error-feedback residual from one round to the
+next. The compressed wires (request.py:183-430 of the JAX package):
+
+- ``CompressionType.TOPK``, or a QUANTIZATION request whose codec resolves
+  to ``topk``: the sparse wire of comm/sparse.py (``algo`` "topk");
+- a user codec (``config.custom_codec``, from ``set_quantization_params``):
+  the compressed ring of comm/codec.py (``algo`` "custom_codec");
+- a registry codec other than int8 (``MLSL_CODEC``, a calibrated per-set
+  assignment, ``config.codec``, or ``desc.codec`` pinned by a bucket or a
+  demotion; ``codecs.assigned`` orders them): the same ring through
+  ``Codec.as_custom()`` (``algo`` "codec:<name>");
+- int8: the int8 ring of comm/quant_ring.py, composed or fused (B4), as
+  before.
+
+``codec_name`` and ``codec_source`` name the resolved codec and where it came
+from; every start adds the compressed image of the payload to the codec's
+wire bytes (``stats.record_codec_wire``). ``demote_codec`` (the guardrail's
+rung, codecs.guard_note) pins a request to int8: the old wire's residual is
+taken, added once to the payload of the next round that succeeds, and from
+then on the request runs the plain int8 build.
+
+Not ported (ROADMAP A.7): the JAX package's supervisor with its circuit
+breakers and degraded dispatch (``_dispatch_ladder``, ``_breaker_gate``), the
+chaos sites, the watchdog, the tracing hooks and the native priority queue.
 """
 
 from __future__ import annotations
@@ -89,6 +109,11 @@ class CommDesc:
     recv_offsets: Optional[tuple] = None
     pairs: Optional[tuple] = None  # sendrecv: ((src, dst), ...) member indices
     compression: CompressionType = CompressionType.NONE
+    # registry codec pin for QUANTIZATION wires: '' = resolved by request name
+    # (codecs.assigned); set by bucketing (members share one codec)
+    codec: str = ""
+    # the int8 block of this request (0 = config.quant_block_elems)
+    quant_block: int = 0
 
     def payload_bytes(self) -> int:
         return self.count * dtype_size(self.data_type)
@@ -133,6 +158,16 @@ class CommRequest:
         self._payload = desc.payload_bytes()
         self._plain_build: Optional[Callable] = None
         self._plain_fns: Optional[List[Callable]] = None
+        # the codec: the resolved registry name and its source, the wire
+        # accounting (codec label, compressed bytes of one payload), the
+        # registry geometry a chunk, the demotion latch and the residual a
+        # demotion leaves for the next round
+        self.codec_name = ""
+        self.codec_source = ""
+        self._wire_rec: Optional[tuple] = None
+        self._codec_geoms: Optional[List[dict]] = None
+        self._codec_demoted = False
+        self._pending_flush: Optional[tuple] = None
         with CommRequest._seq_lock:
             CommRequest._seq += 1
             self.uid = CommRequest._seq
@@ -141,35 +176,24 @@ class CommRequest:
 
     def setup(self) -> None:
         d = self.desc
-        mlsl_assert(d.compression in (CompressionType.NONE, CompressionType.QUANTIZATION),
-                    "compression %s is not ported yet", CompressionType(d.compression).name)
+        mlsl_assert(d.compression in (CompressionType.NONE, CompressionType.QUANTIZATION,
+                                      CompressionType.TOPK),
+                    "compression %s is not supported", CompressionType(d.compression).name)
+        if d.compression == CompressionType.TOPK:
+            mlsl_assert(d.kind in ("allreduce", "reduce_scatter")
+                        and d.op in (None, ReductionType.SUM),
+                        "TOPK compression supports allreduce/reduce_scatter SUM only "
+                        "(got %s/%s)", d.kind, d.op)
+            _check_recv_count(d)
+            self._setup_sparse(self.dispatcher.config.topk_ratio)
+            return
         if d.compression == CompressionType.QUANTIZATION and d.kind in (
             "allreduce", "reduce_scatter",
         ):
-            from mlsl_tpu_torch.comm import quant_ring
-
             mlsl_assert(d.op in (None, ReductionType.SUM),
                         "quantized collectives support SUM only (got %s)", d.op)
             _check_recv_count(d)
-            cfg = self.dispatcher.config
-            block = cfg.quant_block_elems
-            # a forced or tuned 'pallas_ring' routes the same compressed wire
-            # through the fused int8 ring kernel (quant_ring ring='pallas')
-            fused = algos.select(d.kind, d.group, self._payload, d.compression, cfg,
-                                 op=d.op) == "pallas_ring"
-            self.algo = "pallas_ring" if fused else "quant_ring"
-            chunks = self._plan_chunks()
-            self._chunk_slices = chunks or [slice(None)]
-            sizes = ([sl.stop - sl.start for sl in chunks] if chunks else [d.count])
-            qkw = dict(ring="pallas" if fused else "lax", bidir=cfg.pallas_ring_bidir)
-            built = [quant_ring.build_quantized_collective(d.kind, d.group, n, block, **qkw)
-                     for n in sizes]
-            self._plain_build = lambda: [quant_ring.build_quantized_collective(   # noqa: E731
-                d.kind, d.group, n, block, plain=True, **qkw)[0] for n in sizes]
-            self._quant_fns = [fn for fn, _ in built]
-            self._err_lens = [el for _, el in built]
-            self._errs = None
-            self.is_setup = True
+            self._setup_compressed()
             return
         if d.kind == "barrier":
             self._fns = [collectives.build_barrier(d.group)]
@@ -207,6 +231,158 @@ class CommRequest:
         self._chunk_slices = chunks or [slice(None)]
         self._fns = [fn] * len(self._chunk_slices)
         self.is_setup = True
+
+    def _setup_sparse(self, ratio: float) -> None:
+        """The top-k sparse wire (comm/sparse.py): one program, a residual in
+        the logical layout."""
+        from mlsl_tpu_torch.comm import sparse
+
+        d = self.desc
+        fn, el = sparse.build_sparse_collective(d.kind, d.group, d.count, ratio)
+        self._quant_fns, self._err_lens, self._errs = [fn], [el], None
+        self._chunk_slices = [slice(None)]
+        self._plain_build = lambda: [fn]     # noqa: E731 (no kernel: its own twin)
+        self._plain_fns = None
+        self.algo = "topk"
+        # the sparse image: k (value, index) pairs of the whole payload
+        self._wire_rec = ("topk", 8 * max(1, int(d.count * ratio)))
+        self.is_setup = True
+
+    def _setup_compressed(self) -> None:
+        """A QUANTIZATION allreduce / reduce_scatter: resolve the codec (a user
+        codec, then ``desc.codec``, then ``codecs.assigned``; int8 once
+        demoted) and build its programs, one a chunk of a large message
+        (request.py:209-430 of the JAX package). Called again by a
+        calibration's re-route and by ``demote_codec``."""
+        from mlsl_tpu_torch import codecs as codecs_mod
+        from mlsl_tpu_torch.comm import codec as codec_mod
+        from mlsl_tpu_torch.comm import quant_ring
+
+        d = self.desc
+        cfg = self.dispatcher.config
+        custom = getattr(cfg, "custom_codec", None)
+        self._quant_fns = self._err_lens = self._errs = None
+        self._plain_fns = None
+        self._codec_geoms = None
+        reg_name, reg_cell, reg_src = "int8", None, "default"
+        if custom is None:
+            if self._codec_demoted:
+                reg_name, reg_src = "int8", "demoted"
+            elif d.codec:
+                reg_name, reg_src = d.codec, "desc"
+            else:
+                reg_name, reg_cell, reg_src = codecs_mod.assigned(cfg, self.name)
+        self.codec_name = "custom" if custom is not None else reg_name
+        self.codec_source = "custom" if custom is not None else reg_src
+        block = int(d.quant_block or (reg_cell or {}).get("block", 0) or cfg.quant_block_elems)
+        if custom is None and reg_name == "topk":
+            # the registry's route into the sparse wire, its ratio from the cell
+            ratio = float((reg_cell or {}).get("params", {}).get("ratio", 0) or cfg.topk_ratio)
+            self._setup_sparse(ratio)
+            if reg_src == "calibrated":
+                codecs_mod.guard_register(self)
+            return
+        chunks = self._plan_chunks()
+        self._chunk_slices = chunks or [slice(None)]
+        sizes = [sl.stop - sl.start for sl in chunks] if chunks else [d.count]
+        reg_codec = None
+        if custom is not None or reg_name != "int8":
+            if custom is not None:
+                wire, self.algo = custom, "custom_codec"
+            else:
+                reg_codec = codecs_mod.configure(reg_name, cfg, reg_cell)
+                wire, self.algo = reg_codec.as_custom(), f"codec:{reg_name}"
+            built = [codec_mod.build_custom_collective(d.kind, d.group, n, wire) for n in sizes]
+            fns = [fn for fn, _ in built]
+            self._plain_build = lambda: fns      # noqa: E731 (no kernel of its own)
+        else:
+            # a forced or tuned 'pallas_ring' routes the same compressed wire
+            # through the fused int8 ring kernel (quant_ring ring='pallas')
+            fused = algos.select(d.kind, d.group, self._payload, d.compression, cfg,
+                                 op=d.op) == "pallas_ring"
+            self.algo = "pallas_ring" if fused else "quant_ring"
+            qkw = dict(ring="pallas" if fused else "lax", bidir=cfg.pallas_ring_bidir)
+            built = [quant_ring.build_quantized_collective(d.kind, d.group, n, block, **qkw)
+                     for n in sizes]
+            self._plain_build = lambda: [quant_ring.build_quantized_collective(   # noqa: E731
+                d.kind, d.group, n, block, plain=True, **qkw)[0] for n in sizes]
+        self._quant_fns = [fn for fn, _ in built]
+        self._err_lens = [el for _, el in built]
+        # the wire accounting: the compressed image of one full payload
+        g = 1 if d.group.is_self else d.group.size
+        if reg_codec is not None:
+            rs = d.kind == "reduce_scatter"
+            self._codec_geoms = []
+            for n, el in zip(sizes, self._err_lens):
+                geom = reg_codec.geometry(n // g if rs else -(-n // g))
+                geom.update(err_len=int(el), hops=g)
+                self._codec_geoms.append(geom)
+            self._wire_rec = (reg_name, sum(reg_codec.wire_len(n) for n in sizes))
+        elif custom is not None:
+            self._wire_rec = ("custom", sum(codec_mod.wire_bytes(custom, n) for n in sizes))
+        else:
+            int8 = codecs_mod.get("int8", block=block)
+            self._wire_rec = ("int8", sum(int8.wire_len(n) for n in sizes))
+        if reg_src == "calibrated" and reg_name != "int8":
+            # under the guardrail: demoted to int8 on a sustained loss breach
+            codecs_mod.guard_register(self)
+        self.is_setup = True
+
+    def _flush_fn(self) -> Callable:
+        """(buf, residuals) -> buf as float32 plus each chunk's residual in the
+        logical layout at its slice: how a demotion delivers the old wire's
+        undelivered gradient (``_degrade_programs``' flush, request.py:839-877
+        of the JAX package)."""
+        from mlsl_tpu_torch.comm.quant_ring import logical_residual
+
+        d = self.desc
+        g = 1 if d.group.is_self else d.group.size
+        rs = d.kind == "reduce_scatter"
+        flat = self.algo == "topk"
+        slices = list(self._chunk_slices)
+        sizes = [d.count if sl == slice(None) else sl.stop - sl.start for sl in slices]
+        lens = list(self._err_lens)
+
+        def flush(buf, errs):
+            x = buf.to(torch.float32).clone()
+            for sl, n, el, e in zip(slices, sizes, lens, errs):
+                res = e if flat else logical_residual(e, g, el // g, n // g if rs else -(-n // g),
+                                                      n)
+                x[..., sl] += res
+            return x
+
+        return flush
+
+    def _take_residuals(self) -> List[torch.Tensor]:
+        """Consume the residuals (zeros before a first round): the flush
+        delivers them, and the next program starts from zero feedback."""
+        topo = self.desc.group.topology
+        errs = self._errs if self._errs is not None else [
+            torch.zeros((*topo.grid_shape, el), dtype=torch.float32, device=self.dispatcher.device)
+            for el in self._err_lens]
+        self._errs = None
+        return errs
+
+    def demote_codec(self, reason: str = "") -> None:
+        """The guardrail's demotion (``codecs.guard_note``): pin this
+        request's wire to int8. The old wire's residual is taken now and
+        added once to the payload of the next round that succeeds; from then
+        on the programs are the plain int8 build, bit for bit
+        (request.py:917-951 of the JAX package)."""
+        from mlsl_tpu_torch import codecs as codecs_mod
+
+        with self._dlock:
+            if (self._codec_demoted or self.desc.compression != CompressionType.QUANTIZATION
+                    or self._quant_fns is None):
+                return
+            label = self.algo
+            self._pending_flush = (self._flush_fn(), self._take_residuals())
+            self._codec_demoted = True
+            self.setup()
+        codecs_mod.guard_unregister(self)
+        stats.record_codec_demotion(self.name or str(self.uid), label, reason or "guardrail")
+        log_warning("codec guardrail: %s demoted %s -> int8 (%s); its residual goes out with "
+                    "the next round", self.name or self.uid, label, reason or "guardrail")
 
     def _plan_chunks(self):
         """Chunk only elementwise-decomposable hot collectives (allreduce)."""
@@ -305,6 +481,8 @@ class CommRequest:
                 self._ready = torch.cuda.Event()
                 self._ready.record(torch.cuda.current_stream(buf.device))
             self.is_started = True
+        if self._wire_rec is not None:
+            stats.record_codec_wire(*self._wire_rec)
         self.dispatcher.submit(self, buf)
         return self
 
@@ -345,6 +523,11 @@ class CommRequest:
 
     def _run(self, buf: torch.Tensor) -> List[torch.Tensor]:
         if self._quant_fns is not None:
+            pf = self._pending_flush
+            if pf is not None:
+                # a demotion's residual rides this round's payload; it is
+                # cleared only once the round succeeds, so it lands once
+                buf = pf[0](buf, pf[1])
             if self._errs is None:
                 self._errs = [
                     torch.zeros((*buf.shape[:NUM_GRID_AXES], el), dtype=torch.float32,
@@ -355,6 +538,7 @@ class CommRequest:
             for i, (fn, sl) in enumerate(zip(self._quant_fns, self._chunk_slices)):
                 res, self._errs[i] = fn(buf[..., sl], self._errs[i])
                 out.append(res)
+            self._pending_flush = None
             return out
         return [fn(buf[..., sl]) for fn, sl in zip(self._fns, self._chunk_slices)]
 

@@ -6,8 +6,10 @@ codec's block, large-message chunking (reference src/comm_ep.cpp:95-97),
 gradient bucketing (core/bucketing.py),
 newest-first priority deferral and its progress thread (reference
 eplib/env.c:135-165), the collective algorithm engine with its tuned profile
-and kernel knobs (comm/algos, tuner/, ops/), and the compiled overlap engine
-with the staging depth it shares with the ZeRO-1 update (comm/overlap.py).
+and kernel knobs (comm/algos, tuner/, ops/), the compiled overlap engine
+with the staging depth it shares with the ZeRO-1 update (comm/overlap.py), and
+the compressed wires beyond int8: the top-k ratio, a user codec, the codec
+registry's knobs and its calibration (codecs/, tuner/calibrate.py).
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -31,7 +33,17 @@ _ENV_FIELDS = {
     "MLSL_PALLAS_A2A_QUANT": "pallas_a2a_quant",
     "MLSL_OVERLAP_STAGES": "overlap_stages",
     "MLSL_GATHER_DEVICE_LIMIT_MB": "gather_device_limit_mb",
+    "MLSL_CODEC": "codec",
+    "MLSL_CODEC_NSR_BUDGET": "codec_nsr_budget",
+    "MLSL_CODEC_GUARD_BREACHES": "codec_guard_breaches",
+    "MLSL_VQ_DIM": "vq_dim",
+    "MLSL_VQ_CODEBOOK": "vq_codebook",
+    "MLSL_PRUNE_RATIO": "prune_ratio",
 }
+
+# the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
+# validate() needs no import of the registry; codecs.get re-checks them
+_CODEC_NAMES = ("f32", "int8", "prune", "topk", "vq")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -78,6 +90,33 @@ class Config:
     msg_priority_flush_ms: float = 2.0   # MLSL_MSG_PRIORITY_FLUSH_MS
     # Elements per int8 quantization block (one float32 scale each).
     quant_block_elems: int = 256    # MLSL_QUANT_BLOCK_ELEMS
+    # Fraction of a TOPK request's elements each rank sends (comm/sparse.py).
+    topk_ratio: float = 0.01        # MLSL_TOPK_RATIO
+    # A user codec (comm/codec.CustomCodec), registered through
+    # Environment.set_quantization_params; None = the registry's codecs.
+    custom_codec: object = None
+
+    # --- the codec registry (codecs/) and its calibration (tuner/calibrate.py) ---
+    # Registry codec of every QUANTIZATION gradient wire: '' = the int8 ring;
+    # 'vq', 'prune', 'topk' or 'f32' route through the registry's transport.
+    # An exported MLSL_CODEC beats a calibrated per-set assignment; a value
+    # set in code is the default that calibration overrides per set.
+    codec: str = ""                 # MLSL_CODEC
+    # Calibrate at Session.commit: measure each set's noise-to-signal under
+    # every candidate codec, assign the cheapest within codec_nsr_budget,
+    # write the table into the tuned profile and re-route the live requests.
+    tune_codec: bool = False        # MLSL_TUNE_CODEC
+    # Request name -> calibration cell, from calibration or a loaded profile.
+    codec_assignment: dict = dataclasses.field(default_factory=dict)
+    codec_nsr_budget: float = 0.02  # MLSL_CODEC_NSR_BUDGET
+    # Consecutive loss breaches (codecs.guard_note) before the guardrail
+    # demotes every calibrated set to int8.
+    codec_guard_breaches: int = 3   # MLSL_CODEC_GUARD_BREACHES
+    vq_dim: int = 4                 # MLSL_VQ_DIM: elements a vector
+    vq_codebook: int = 16           # MLSL_VQ_CODEBOOK: rows (one index byte a vector)
+    prune_ratio: float = 0.05       # MLSL_PRUNE_RATIO: the pruning codec's keep ratio
+    # The 'hier' lowering's DCN codec; 'hier' is not ported, so a value raises.
+    hier_dcn_codec: str = ""        # MLSL_HIER_DCN_CODEC
 
     # --- collective algorithm engine (comm/algos) + tuned profile (tuner/) ---
     # Forced algorithm: '' = auto (tuned profile, else the 'lax' baseline).
@@ -147,6 +186,29 @@ class Config:
                     self.gather_device_limit_mb)
         mlsl_assert(self.overlap_stages >= 1,
                     "MLSL_OVERLAP_STAGES must be >= 1 (got %d)", self.overlap_stages)
+        mlsl_assert(0.0 < self.topk_ratio <= 1.0,
+                    "MLSL_TOPK_RATIO must be in (0, 1] (got %r)", self.topk_ratio)
+        mlsl_assert(self.codec in ("",) + _CODEC_NAMES,
+                    "MLSL_CODEC must be '' or one of %s (got %r)",
+                    "/".join(_CODEC_NAMES), self.codec)
+        mlsl_assert(isinstance(self.codec_assignment, dict),
+                    "codec_assignment must be a dict of request name -> calibration cell "
+                    "(got %r)", type(self.codec_assignment).__name__)
+        mlsl_assert(self.codec_nsr_budget > 0.0,
+                    "MLSL_CODEC_NSR_BUDGET must be > 0 (got %r)", self.codec_nsr_budget)
+        mlsl_assert(self.codec_guard_breaches >= 1,
+                    "MLSL_CODEC_GUARD_BREACHES must be >= 1 (got %d)",
+                    self.codec_guard_breaches)
+        mlsl_assert(1 <= self.vq_dim <= 64, "MLSL_VQ_DIM must be in [1, 64] (got %d)",
+                    self.vq_dim)
+        mlsl_assert(2 <= self.vq_codebook <= 256,
+                    "MLSL_VQ_CODEBOOK must be in [2, 256] (one index byte per vector; "
+                    "got %d)", self.vq_codebook)
+        mlsl_assert(0.0 < self.prune_ratio <= 1.0,
+                    "MLSL_PRUNE_RATIO must be in (0, 1] (got %r)", self.prune_ratio)
+        mlsl_assert(not self.hier_dcn_codec,
+                    "MLSL_HIER_DCN_CODEC=%s: the 'hier' lowering is not ported yet",
+                    self.hier_dcn_codec)
         mlsl_assert(self.pallas_rhd_max_bytes >= 0,
                     "MLSL_PALLAS_RHD_MAX_BYTES must be >= 0 (0 = derive from "
                     "MLSL_MSG_PRIORITY_THRESHOLD; got %d)", self.pallas_rhd_max_bytes)
@@ -180,4 +242,13 @@ class Config:
         c.pallas_a2a_quant = _env_bool("MLSL_PALLAS_A2A_QUANT", c.pallas_a2a_quant)
         c.overlap_compiled = _env_bool("MLSL_OVERLAP_COMPILED", c.overlap_compiled)
         c.overlap_stages = _env_int("MLSL_OVERLAP_STAGES", c.overlap_stages)
+        c.topk_ratio = _env_float("MLSL_TOPK_RATIO", c.topk_ratio)
+        c.codec = os.environ.get("MLSL_CODEC", c.codec).strip().lower()
+        c.tune_codec = _env_bool("MLSL_TUNE_CODEC", c.tune_codec)
+        c.codec_nsr_budget = _env_float("MLSL_CODEC_NSR_BUDGET", c.codec_nsr_budget)
+        c.codec_guard_breaches = _env_int("MLSL_CODEC_GUARD_BREACHES", c.codec_guard_breaches)
+        c.vq_dim = _env_int("MLSL_VQ_DIM", c.vq_dim)
+        c.vq_codebook = _env_int("MLSL_VQ_CODEBOOK", c.vq_codebook)
+        c.prune_ratio = _env_float("MLSL_PRUNE_RATIO", c.prune_ratio)
+        c.hier_dcn_codec = os.environ.get("MLSL_HIER_DCN_CODEC", "").strip().lower()
         return c

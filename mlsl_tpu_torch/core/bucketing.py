@@ -3,7 +3,7 @@
 Counterpart of ``mlsl_tpu.core.bucketing`` (bucketing.py:52-662). A deep
 model's backward pass starts one small collective per parameter set, each
 paying a host dispatch and a launch; buckets pack eligible ParameterSets --
-same gradient group, same dtype, same compression -- into
+same gradient group, same dtype, same compression, same codec -- into
 ``MLSL_GRAD_BUCKET_MB``-sized groups in REVERSE creation order (the
 backward-pass start order), at Session.commit. The last member to Start
 triggers ONE concatenated collective for the whole bucket; each member's
@@ -16,8 +16,12 @@ one int8 ring whose single error-feedback residual carries each member's
 slice: member slots align to the quant block (a block never straddles two
 members) and the total to the ring's chunk unit (``quant_ring.
 ring_aligned_rc``), and a quantized allreduce bucket stays under 7/8 of
-``MLSL_LARGE_MSG_SIZE_MB`` so that it is never chunked. TOPK stays
-individual (and its wire is not ported).
+``MLSL_LARGE_MSG_SIZE_MB`` so that it is never chunked. The members'
+resolved registry codec is part of the bucket's key, so that sets of
+different codecs never share a ring (each codec owns its wire and residual
+layout), and it is pinned into the coalesced request's ``desc.codec``; a
+user codec routes through the config instead. TOPK stays individual: the
+sparse wire has no coalesced form.
 
 Opportunistic by design: a Wait or Test before the bucket fills falls back
 to the registered members' individual requests, and a member restarted
@@ -30,7 +34,6 @@ Not ported, by design or for now:
   a failed kernel inside a bucket raises to every member -- also when it
   fails at the Start that dispatches it, where the JAX package raises only
   to that caller -- and never quietly re-runs on another route;
-- ``precompile`` (bucketing.py:494), a JAX compile warm with no counterpart;
 - the ``checker``, ``supervisor`` and ``obs`` hooks (ROADMAP A.8, A.12);
 - the stats' round-event ring and wire-saved estimate: nothing reads them.
 """
@@ -49,7 +52,7 @@ from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
 from mlsl_tpu_torch.core import stats as stats_mod
 from mlsl_tpu_torch.log import log_debug, mlsl_assert
 from mlsl_tpu_torch.ops.quant_kernels import block_align
-from mlsl_tpu_torch.types import CompressionType, ReductionType, dtype_size
+from mlsl_tpu_torch.types import CompressionType, ReductionType, dtype_size, torch_dtype
 
 
 def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -69,11 +72,15 @@ class GradBucket:
     round (counts as consumed) and runs individually."""
 
     def __init__(self, members: List, env, kind: str = "allreduce",
-                 compression: CompressionType = CompressionType.NONE):
+                 compression: CompressionType = CompressionType.NONE, codec: str = ""):
         # members in START order (reverse creation = backward pass order)
         self.members = members
         self.kind = kind
         self.compression = CompressionType(compression)
+        # the registry codec the members resolved to, pinned into the
+        # coalesced desc so that the bucket rides their wire (a user codec
+        # routes through the config, not the pin)
+        self.codec = codec if codec not in ("", "custom") else ""
         quant = self.compression == CompressionType.QUANTIZATION
         # which ParameterSet round flag / fallback request this bucket drives
         self.round_attr = "_inc_bucket_round" if kind == "allgather" else "_bucket_round"
@@ -96,8 +103,8 @@ class GradBucket:
             # wire the coalesced request will take
             self.slots = [block_align(c, block) for c in self.counts]
             total_slots = sum(self.slots)
-            fused = quant_ring.use_pallas_for(kind, group, total_slots * esize * mult,
-                                              env.config)
+            fused = self.codec in ("", "int8") and quant_ring.use_pallas_for(
+                kind, group, total_slots * esize * mult, env.config)
             if kind == "reduce_scatter":
                 total = quant_ring.ring_aligned_rc(total_slots, block, fused)
             else:
@@ -120,14 +127,14 @@ class GradBucket:
         )
         if kind == "allreduce":
             desc = CommDesc("allreduce", group, total, ps0.data_type, op=ReductionType.SUM,
-                            compression=self.compression)
+                            compression=self.compression, codec=self.codec)
         elif kind == "reduce_scatter":
             # member m's buffer is G chunks of counts[m]; chunk r of the
             # PACKED buffer holds every member's chunk r, so the scatter
             # hands rank r one contiguous (total,) block
             desc = CommDesc("reduce_scatter", group, total * g, ps0.data_type,
                             op=ReductionType.SUM, recv_count=total,
-                            compression=self.compression)
+                            compression=self.compression, codec=self.codec)
         elif kind == "allgather":
             # the result is G blocks of (total,); member m's shard
             # concatenation is its offsets[m] slice of every block, in
@@ -152,6 +159,19 @@ class GradBucket:
         # first waiter (CommRequest consumes its error once)
         self._error = None
         self._error_left: set = set()
+
+    def precompile(self) -> int:
+        """Run the pack, the coalesced request and the split once on zero
+        buffers (bucketing.py:494-530 of the JAX package), so that the first
+        round builds nothing; the round state is left as it was. -> the
+        number of programs run."""
+        d = self.req.desc
+        topo = d.group.topology
+        mult = self._g if self.kind == "reduce_scatter" else 1
+        bufs = [torch.zeros((*topo.grid_shape, c * mult), dtype=torch_dtype(d.data_type),
+                            device=self.req.dispatcher.device) for c in self.counts]
+        self._split(self._pack(bufs))
+        return self.req.precompile()
 
     # -- pack / unpack -------------------------------------------------------
 
@@ -378,7 +398,9 @@ def build_buckets(session, bucket_mb: int) -> int:
         for ps in op.parameter_sets:
             if not ps.need_comm:
                 continue
-            key = (group_key(ps.dist.grad_group, device), ps.data_type, ps.compression)
+            # the codec keeps mixed-codec sets apart: one ring, one wire
+            key = (group_key(ps.dist.grad_group, device), ps.data_type, ps.compression,
+                   ps.codec_name)
             if (not ps.distributed_update and ps.compression in _BUCKETABLE
                     and ps.bucket is None):
                 plain.setdefault(key, []).append(ps)
@@ -390,7 +412,7 @@ def build_buckets(session, bucket_mb: int) -> int:
     cfg = session.env.config
     n_buckets = 0
 
-    def form(pss, kind, attr, compression=CompressionType.NONE):
+    def form(pss, kind, attr, compression=CompressionType.NONE, codec=""):
         nonlocal n_buckets
         if not pss:
             return
@@ -415,17 +437,18 @@ def build_buckets(session, bucket_mb: int) -> int:
             return ps.owned_kernel_count * ps.kernel_size * esize * mult
 
         for members in pack_by_size(pss, limit_eff, size_of):
-            bucket = GradBucket(members, session.env, kind=kind, compression=compression)
+            bucket = GradBucket(members, session.env, kind=kind, compression=compression,
+                                codec=codec)
             for ps in members:
                 setattr(ps, attr, bucket)
             n_buckets += 1
 
-    for (_, _, comp), pss in plain.items():
-        form(pss, "allreduce", "bucket", compression=comp)
-    for (_, _, comp), pss in du.items():
+    for (_, _, comp, cname), pss in plain.items():
+        form(pss, "allreduce", "bucket", compression=comp, codec=cname)
+    for (_, _, comp, cname), pss in du.items():
         if comp in _BUCKETABLE:
             form([ps for ps in pss if ps.bucket is None], "reduce_scatter", "bucket",
-                 compression=comp)
+                 compression=comp, codec=cname)
     for pss in du_inc.values():
         form([ps for ps in pss if ps.inc_bucket is None], "allgather", "inc_bucket")
     if n_buckets:

@@ -87,8 +87,17 @@ class Environment:
         self.dispatcher = Dispatcher(self.config, device=dev)
         self._initialized = True
         if self.quant_params is not None:
-            # parameters set before init apply now that the config exists
-            self.set_quantization_params(self.quant_params)
+            # parameters set before init apply now that the config exists; a
+            # codec that no longer loads unwinds init, so that a retry loads
+            # it again instead of running the built-in codec
+            try:
+                self.set_quantization_params(self.quant_params)
+            except Exception:
+                self._initialized = False
+                self.dispatcher.shutdown()
+                self.dispatcher = None
+                self.config = None
+                raise
         return self
 
     def finalize(self) -> None:
@@ -192,25 +201,35 @@ class Environment:
     # -- quantization (reference src/mlsl.cpp:798) ------------------------
 
     def set_quantization_params(self, params: QuantParams) -> None:
-        """Select the int8 codec's geometry for QUANTIZATION collectives:
-        ``elem_in_block`` becomes ``quant_block_elems``. A codec given as
-        callables or as a library is not ported yet and raises MLSLError,
-        leaving the previous parameters in force. Before init the parameters
-        are kept and applied at init, as in the reference."""
-        mlsl_assert(
-            params.compress_fn is None and params.decompress_fn is None
-            and params.reduce_sum_fn is None and not params.lib_path,
-            "QuantParams with a custom codec (callables or lib_path) are not ported "
-            "yet; only the built-in int8 block codec's geometry is",
-        )
-        if self.config is not None and params.elem_in_block:
+        """Select the codec of QUANTIZATION collectives (reference
+        src/mlsl.cpp:798 -> quant_load, quant/quant.c:96-133): callables
+        register a user codec on torch tensors, ``lib_path`` loads a library
+        of the reference's ABI (comm/codec.py; MLSLError when it cannot be
+        honoured), and otherwise the built-in int8 codec runs; in every case
+        ``elem_in_block`` becomes ``quant_block_elems``. State changes
+        only once the codec has loaded and the block is valid, so a failed
+        registration leaves the previous one in force. Before init the
+        parameters are kept and applied at init, as in the reference."""
+        from mlsl_tpu_torch.comm import codec as codec_mod
+
+        codec = None
+        if params.compress_fn is not None:
+            mlsl_assert(params.decompress_fn is not None, "compress_fn requires decompress_fn")
+            codec = codec_mod.CustomCodec(compress=params.compress_fn,
+                                          decompress=params.decompress_fn,
+                                          reduce=params.reduce_sum_fn)
+        elif params.lib_path:
+            codec = codec_mod.load_library_codec(params)   # MLSLError on failure
+        if self.config is not None:
             old = self.config.quant_block_elems
-            self.config.quant_block_elems = int(params.elem_in_block)
-            try:
-                self.config.validate()
-            except MLSLError:
-                self.config.quant_block_elems = old
-                raise
+            if params.elem_in_block:
+                self.config.quant_block_elems = int(params.elem_in_block)
+                try:
+                    self.config.validate()
+                except MLSLError:
+                    self.config.quant_block_elems = old
+                    raise
+            self.config.custom_codec = codec
         self.quant_params = params
 
     def get_quantization_params(self) -> Optional[QuantParams]:

@@ -89,6 +89,13 @@ class ParameterSet:
                 )
             self.grad_req.setup()
 
+    @property
+    def codec_name(self) -> str:
+        """The gradient request's resolved registry codec ('int8', 'vq',
+        ...; 'custom' for a user codec; '' without communication or for
+        TOPK): bucketing partitions on it."""
+        return self.grad_req.codec_name if self.grad_req is not None else ""
+
     # -- introspection (reference include/mlsl.hpp:284-341) ----------------
 
     def get_global_kernel_count(self) -> int:

@@ -5,10 +5,11 @@ src/mlsl_impl.cpp:540-600): a Session collects Operations sharing a global
 minibatch size; each Operation is registered from an OperationRegInfo
 (activation shapes + parameter sets) against a Distribution; Commit
 finalizes every edge (the peer-connection case of each, core/activation.py),
-forms the gradient buckets (``MLSL_GRAD_BUCKET_MB``, core/bucketing.py), runs
-every request once under ``MLSL_PRECOMPILE`` and, with statistics on
-(``MLSL_STATS``), replays every request in isolation (core/stats.py). The
-plan verifier and codec calibration of the JAX package are not ported.
+calibrates the gradient sets' codecs under ``MLSL_TUNE_CODEC``
+(tuner/calibrate.py), forms the gradient buckets (``MLSL_GRAD_BUCKET_MB``,
+core/bucketing.py), runs every request once under ``MLSL_PRECOMPILE`` and,
+with statistics on (``MLSL_STATS``), replays every request in isolation
+(core/stats.py). The plan verifier of the JAX package is not ported.
 """
 
 from __future__ import annotations
@@ -269,7 +270,8 @@ class Session:
     def commit(self) -> None:
         """Finalize all graph edges (reference SessionImpl::Commit,
         src/mlsl_impl.cpp:567-578): the peer connection over both ends of
-        every edge; then, with ``grad_bucket_mb`` > 0, the gradient buckets;
+        every edge; then, with ``tune_codec``, the codec calibration; with
+        ``grad_bucket_mb`` > 0, the gradient buckets;
         with ``precompile``, one run of every request; then the statistics,
         and with them on the isolation replay (session.py:287-335 of the JAX
         package). Gradient requests were set up when their operations bound a
@@ -284,6 +286,12 @@ class Session:
                 act.init_peer_connection()
         self._committed = True
         cfg = self.env.config
+        if cfg is not None and cfg.tune_codec:
+            # MLSL_TUNE_CODEC=1: assign each set its codec before the
+            # buckets form, so that they partition on the calibrated codecs
+            from mlsl_tpu_torch.tuner.calibrate import calibrate_session
+
+            calibrate_session(self)
         if cfg is not None and cfg.grad_bucket_mb > 0:
             from mlsl_tpu_torch.core.bucketing import build_buckets
 
@@ -318,8 +326,9 @@ class Session:
                 warm(ps.grad_req)
                 warm(ps.inc_req)
                 for b in (ps.bucket, ps.inc_bucket):
-                    if b is not None:
-                        warm(b.req)
+                    if b is not None and id(b.req) not in seen:
+                        seen.add(id(b.req))
+                        n += b.precompile()
         if n:
             log_debug("precompile: %d collective program(s) run at commit", n)
         return n

@@ -19,18 +19,21 @@ include/mlsl.hpp:651-726, src/mlsl_impl_stats.cpp):
   host spent blocked, per operation and in total;
 - ``print_``: the table appended to ``mlsl_stats.log`` (``MLSL_STATS_DIR``,
   default the working directory; reference :226-363), for the counters this
-  package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, ALGO and OVERLAP
-  ENGINE lines.
+  package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, ALGO, OVERLAP
+  ENGINE and CODEC lines.
 
 Also the process-wide counters of the dispatch layer: bucket rounds of
 gradient bucketing (stats.py:131-175), launches per (kind, algorithm) and the
-compiled overlap engine's steps (stats.py:640-695). The JAX package's table
-also prints the feed pipeline (FEED), the sentinel (SENTINEL), the elastic
-mesh (ELASTIC), stragglers (STRAGGLER), the control plane (CONTROL), the
-serving engine (SERVE), checkpoint checks (CHKP), the codec lab (CODEC) and
-the recovery ladder (DEGRADE); none of those subsystems is ported, so their
+compiled overlap engine's steps (stats.py:640-695), and the codec registry's
+wire bytes a codec and its calibration and guardrail events (stats.py:268-310).
+The JAX package's table also prints the feed pipeline (FEED), the sentinel
+(SENTINEL), the elastic mesh (ELASTIC), stragglers (STRAGGLER), the control
+plane (CONTROL), the serving engine (SERVE), checkpoint checks (CHKP) and the
+recovery ladder (DEGRADE); none of those subsystems is ported, so their
 counters and lines are left out, as are the watchdog record and the span
-tracer's wait-stall percentiles.
+tracer's wait-stall percentiles. A guardrail demotion, which the JAX package
+also files as a DEGRADE ladder event, is counted here only in the CODEC
+lines.
 """
 
 from __future__ import annotations
@@ -128,6 +131,46 @@ def record_overlap_step(units: int, rounds: int, nbytes: int, *, split: bool = F
 def reset_overlap_counters() -> None:
     for k in OVERLAP_COUNTERS:
         OVERLAP_COUNTERS[k] = 0
+
+
+# The codec registry's accounting (codecs/): wire bytes a codec (the
+# compressed image of each started round's payload) and the calibration and
+# guardrail events; process-wide, as the guardrail fires with no Session at
+# hand. Demotions also keep a bounded list of who, which codec and why.
+CODEC_WIRE_BYTES: Dict[str, int] = {}
+CODEC_COUNTERS: Dict[str, int] = {
+    "calibrations": 0,     # calibration passes run (Session.commit)
+    "assignments": 0,      # requests routed to a calibrated codec
+    "guard_breaches": 0,   # loss breaches while a calibrated codec is guarded
+    "demotions": 0,        # guardrail demotions to int8
+}
+CODEC_DEMOTIONS: List[str] = []
+_CODEC_DEMOTIONS_MAX = 64
+
+
+def record_codec(event: str) -> None:
+    """One codec event: a key of CODEC_COUNTERS."""
+    CODEC_COUNTERS[event] += 1
+
+
+def record_codec_wire(codec: str, nbytes: int) -> None:
+    """One started compressed round: ``nbytes`` of wire image under ``codec``
+    (called by CommRequest.start)."""
+    CODEC_WIRE_BYTES[codec] = CODEC_WIRE_BYTES.get(codec, 0) + int(nbytes)
+
+
+def record_codec_demotion(request: str, codec: str, reason: str) -> None:
+    """A guardrail demotion: the counter and the bounded attribution row."""
+    CODEC_COUNTERS["demotions"] += 1
+    if len(CODEC_DEMOTIONS) < _CODEC_DEMOTIONS_MAX:
+        CODEC_DEMOTIONS.append(f"{request}: {codec} -> int8 ({reason})")
+
+
+def reset_codec_counters() -> None:
+    for k in CODEC_COUNTERS:
+        CODEC_COUNTERS[k] = 0
+    CODEC_WIRE_BYTES.clear()
+    CODEC_DEMOTIONS.clear()
 
 
 class _Slot:
@@ -387,6 +430,19 @@ class Statistics:
                 f"units {oc['units']} rounds {oc['rounds']} "
                 f"bytes {oc['bytes'] / 1e6:.1f} MB"
             )
+        xc = CODEC_COUNTERS
+        if any(xc.values()) or CODEC_WIRE_BYTES:
+            wire = " ".join(f"{name}={n}" for name, n in sorted(CODEC_WIRE_BYTES.items()))
+            lines.append(
+                f"{'CODEC':<16} {'LAB':<8} "
+                f"calibrations {xc['calibrations']} "
+                f"assignments {xc['assignments']} "
+                f"breaches {xc['guard_breaches']} "
+                f"demotions {xc['demotions']}"
+                + (f" wire_bytes {wire}" if wire else "")
+            )
+            for row in CODEC_DEMOTIONS:
+                lines.append(f"{'CODEC':<16} {'DEMOTE':<8} {row}")
         text = "\n".join(lines) + "\n"
         try:
             with open(path, "a") as f:

@@ -22,6 +22,10 @@ def log_warning(msg: str, *args) -> None:
     _logger.warning(msg, *args)
 
 
+def log_info(msg: str, *args) -> None:
+    _logger.info(msg, *args)
+
+
 def log_debug(msg: str, *args) -> None:
     _logger.debug(msg, *args)
 

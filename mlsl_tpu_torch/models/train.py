@@ -128,9 +128,12 @@ class DataParallelTrainer:
         overlap_compiled: Optional[bool] = None,
     ):
         """optimizer: a transform of ``mlsl_tpu_torch.optim`` (``adam``,
-        ``sgd``, a ``TreeTransform`` such as ``adafactor``) or a
-        ``ShardedAdafactor``; None keeps the built-in SGD (p - lr *
-        mean_grad). With ``distributed_update`` the optimizer state lives only
+        ``sgd``, a ``chain``, a ``TreeTransform`` such as ``adamw`` or
+        ``adafactor``) or a ``ShardedAdafactor``; None keeps the built-in SGD
+        (p - lr * mean_grad). A tree transform runs once a layer on its
+        leaves (state ``opt_state[layer]``), a whole-tree one
+        (``clip_by_global_norm``) once a step over every layer's leaves
+        (state ``tree_state``); leaves outside ``layers`` are never touched. With ``distributed_update`` the optimizer state lives only
         on each rank's owned gradient shard (ZeRO-1), so only elementwise
         transforms are correct there, as in the JAX package, and
         ``ShardedAdafactor``, whose factored statistics are assembled across
@@ -214,15 +217,22 @@ class DataParallelTrainer:
         # optimizer state: per layer over each rank's owned shard under ZeRO-1,
         # else one replicated state per layer's flat parameter vector
         self.opt_state: Dict[str, object] = {}
+        # a whole-tree transform (clip_by_global_norm, a chain holding it)
+        # keeps one state over every layer's leaves, in layer order
+        self.tree_state = None
         self._af_inc: Dict[str, Callable] = {}
         if optimizer is not None:
             grid = dist.topology.grid_shape
             zero1 = distributed_update and needs_comm
             mlsl_assert(not (zero1 and self._tree_opt is not None and self._af_cfg is None),
-                        "a tree transform needs whole leaves; under distributed_update each "
-                        "rank holds a flat owned shard (use ShardedAdafactor or an "
-                        "elementwise transform)")
-            for name in self.layers:
+                        "a tree transform needs whole leaves (and adamw the parameters); "
+                        "under distributed_update each rank holds a flat owned shard (use "
+                        "ShardedAdafactor, an elementwise transform or a chain of them, and "
+                        "clip_global_norm= for a global-norm clip)")
+            if self._tree_opt is not None and self._tree_opt.whole_tree:
+                self.tree_state = self._tree_opt.init(
+                    [p for n in self.layers for p in self.layer_params[n]], device=self.device)
+            for name in self.layers if self.tree_state is None else ():
                 if zero1 and self._af_cfg is not None:
                     # the layer's index layout and its owned-shard state
                     # (train.py:495-515)
@@ -346,6 +356,21 @@ class DataParallelTrainer:
             sq = sharded_sq_norm(grads, self.data_size)
             cscale = clip_scale(torch.sqrt(sq) ** 2, self.clip_global_norm)
             grads = {n: g * cscale for n, g in grads.items()}
+        if self.tree_state is not None:
+            # one call over every layer's leaves (train.py:600-616 hands optax
+            # the whole tree), then each layer's share of the updates
+            leaves = [p for n in self.layers for p in self.layer_params[n]]
+            parts = [g.view_as(p) for n in self.layers for g, p in zip(
+                torch.split(grads[n], [p.numel() for p in self.layer_params[n]]),
+                self.layer_params[n])]
+            upd, self.tree_state = self._tree_opt.update(parts, self.tree_state,
+                                                         [p.detach() for p in leaves])
+            i = 0
+            for name in self.layers:
+                k = len(self.layer_params[name])
+                self._add_flat(name, torch.cat([u.reshape(-1) for u in upd[i:i + k]]))
+                i += k
+            return
         for name in self.layers:
             if self.optimizer is None:
                 self._add_flat(name, -self.lr * grads[name])

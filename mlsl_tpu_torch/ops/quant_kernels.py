@@ -106,7 +106,7 @@ def quantize_blocks(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x2d.device.type != "cuda":
         raise MLSLError(f"quantize_blocks: unsupported device {x2d.device}")
     n, block = x2d.shape
-    mlsl_assert(block % 32 == 0, "CUDA quantize needs block % 32 == 0 (got %d)", block)
+    mlsl_assert(block % 32 == 0, "CUDA quantize needs block %% 32 == 0 (got %d)", block)
     q = torch.empty((n, block), dtype=torch.int8, device=x2d.device)
     s = torch.empty((n,), dtype=torch.float32, device=x2d.device)
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
@@ -132,7 +132,7 @@ def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     if q2d.device.type != "cuda":
         raise MLSLError(f"dequantize_blocks: unsupported device {q2d.device}")
     n, block = q2d.shape
-    mlsl_assert(block % 32 == 0, "CUDA dequantize needs block % 32 == 0 (got %d)", block)
+    mlsl_assert(block % 32 == 0, "CUDA dequantize needs block %% 32 == 0 (got %d)", block)
     x = torch.empty((n, block), dtype=torch.float32, device=q2d.device)
     stream = torch.cuda.current_stream(q2d.device).cuda_stream
     rc = _kernels().mlsl_dequantize_rows(

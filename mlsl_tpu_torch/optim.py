@@ -21,11 +21,15 @@ donated update does: a caller must not read a state after passing it to
 ``update``. Each product is rounded on its own before its add, so the bits
 are those of the out-of-place formula (no fused multiply-add).
 
-Transforms that need the parameters' shapes or values take trees:
+``chain`` of elementwise transforms is elementwise too. Transforms that need
+the parameters' shapes or values take trees:
 ``TreeTransform`` is ``init(params) -> state`` and ``update(grads, state,
 params) -> (updates, state)`` over lists of tensors (a layer's leaves in JAX
 leaf order), optax's own signature, which the JAX trainer's plain path hands
-the whole parameter tree. ``adafactor`` is one: ``optax.adafactor``'s chain
+the whole parameter tree. ``adamw`` (Adam with a masked weight decay),
+``clip_by_global_norm`` (which reads every layer: ``whole_tree``), a
+``chain`` holding either, and ``adafactor`` are tree transforms;
+``adafactor`` is ``optax.adafactor``'s chain
 (``scale_by_factored_rms`` -> ``clip_by_block_rms`` -> learning rate ->
 ``scale_by_param_block_rms`` -> momentum EMA -> weight decay -> sign).
 
@@ -95,24 +99,30 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          _zeros(shape, device), _zeros(shape, device))
 
     def update(g: torch.Tensor, state: AdamState) -> Tuple[torch.Tensor, AdamState]:
-        # mu and nu are updated in place (the reference donates its state);
-        # every product rounds on its own before the add, as out of place
-        mu, nu = state.mu, state.nu
-        t = g * (1 - b1)
-        mu.mul_(b1).add_(t)
-        torch.mul(g, g, out=t).mul_(1 - b2)
-        nu.mul_(b2).add_(t)
-        limit = torch.iinfo(torch.int32).max
-        count = torch.where(state.count < limit, state.count + 1, state.count)
-        c = count.to(torch.float32)
-        one = torch.ones((), dtype=torch.float32, device=g.device)
-        torch.div(nu, one - torch.pow(torch.full_like(one, b2), c), out=t)   # nu_hat
-        t.add_(eps_root).sqrt_().add_(eps)
-        updates = mu / (one - torch.pow(torch.full_like(one, b1), c))       # mu_hat
-        updates.div_(t).mul_(-lr)
-        return updates, AdamState(count, mu, nu)
+        updates, state = _adam_direction(g, state, b1, b2, eps, eps_root)
+        return updates.mul_(-lr), state
 
     return Transform(init, update)
+
+
+def _adam_direction(g, state: AdamState, b1, b2, eps, eps_root):
+    """optax's ``scale_by_adam``: mu_hat / (sqrt(nu_hat + eps_root) + eps)
+    and the new state. mu and nu are updated in place (the reference donates
+    its state); every product rounds on its own before the add, as out of
+    place."""
+    mu, nu = state.mu, state.nu
+    t = g * (1 - b1)
+    mu.mul_(b1).add_(t)
+    torch.mul(g, g, out=t).mul_(1 - b2)
+    nu.mul_(b2).add_(t)
+    limit = torch.iinfo(torch.int32).max
+    count = torch.where(state.count < limit, state.count + 1, state.count)
+    c = count.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=g.device)
+    torch.div(nu, one - torch.pow(torch.full_like(one, b2), c), out=t)   # nu_hat
+    t.add_(eps_root).sqrt_().add_(eps)
+    updates = mu / (one - torch.pow(torch.full_like(one, b1), c))       # mu_hat
+    return updates.div_(t), AdamState(count, mu, nu)
 
 
 def sgd(lr: float, momentum: Optional[float] = None) -> Transform:
@@ -151,10 +161,136 @@ def keep_in_place(old, new):
 
 class TreeTransform(NamedTuple):
     """``init(params) -> state``, ``update(grads, state, params) -> (updates,
-    state)`` over lists of float32 tensors: optax's signature."""
+    state)`` over lists of float32 tensors: optax's signature. ``whole_tree``:
+    the transform reads every layer's leaves at once (a global norm), so
+    ``DataParallelTrainer`` calls it once a step over all layers, not once a
+    layer."""
 
     init: object
     update: object
+    whole_tree: bool = False
+
+
+def _leaf_mask(mask, params) -> List[bool]:
+    """optax's ``mask``: None (every leaf), a sequence of bools a leaf, or a
+    callable of the leaves returning one."""
+    if mask is None:
+        return [True] * len(params)
+    m = list(mask(params) if callable(mask) else mask)
+    mlsl_assert(len(m) == len(params), "mask has %d entries for %d leaves", len(m),
+                len(params))
+    return [bool(v) for v in m]
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          eps_root: float = 0.0, weight_decay: float = 1e-4, mask=None) -> TreeTransform:
+    """``optax.adamw(lr, b1, b2, eps, eps_root, weight_decay=..., mask=...)``:
+    Adam's direction, plus ``weight_decay * p`` on the leaves the mask
+    keeps, times ``-lr`` (``chain(scale_by_adam, add_decayed_weights,
+    scale_by_learning_rate)``). ``mask`` is a sequence of bools, one a leaf,
+    or a callable of the leaves (a layer's, in ``DataParallelTrainer``)
+    returning one. State: ``AdamState`` with lists of per-leaf moments.
+
+    The decay reads the parameters, so this is a tree transform: the
+    trainers' ZeRO-1 path, which hands an optimizer each rank's flat owned
+    gradient shard and no parameters (a shard also crosses leaf boundaries,
+    so no per-leaf mask applies to it), raises MLSLError for it, as the JAX
+    package's ZeRO-1 path cannot run ``optax.adamw`` either (it passes no
+    parameters, mlsl_tpu/models/train.py:240-275). ``adam`` is its
+    elementwise, shardable form."""
+
+    def init(params: Sequence[torch.Tensor], device=None) -> AdamState:
+        dev = device if device is not None else (params[0].device if params else None)
+        return AdamState(torch.zeros((), dtype=torch.int32, device=dev),
+                         [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in params],
+                         [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in params])
+
+    def update(grads, state: AdamState, params=None):
+        mlsl_assert(params is not None, "adamw's weight decay needs the parameters")
+        keep = _leaf_mask(mask, params)
+        out, count = [], _safe_increment(state.count)
+        for g, mu, nu, p, k in zip(grads, state.mu, state.nu, params, keep):
+            d, _ = _adam_direction(g.float(), AdamState(state.count, mu, nu), b1, b2, eps,
+                                   eps_root)
+            if k:
+                d.add_(p.float() * weight_decay)
+            out.append(d.mul_(-lr))
+        return out, AdamState(count, state.mu, state.nu)
+
+    return TreeTransform(init, update)
+
+
+def clip_by_global_norm(max_norm: float) -> TreeTransform:
+    """``optax.clip_by_global_norm(max_norm)``: every leaf scaled by
+    ``max_norm / ||grads||`` when the global L2 norm exceeds ``max_norm``.
+    It reads every leaf of the tree (``whole_tree``), so it is no
+    elementwise transform: under ZeRO-1 use the trainers'
+    ``clip_global_norm=``, which sums the owned shards' squares over the
+    gradient group."""
+
+    def init(params, device=None):
+        return ()
+
+    def update(grads, state, params=None):
+        sq = sum((g.float() * g.float()).sum() for g in grads)
+        norm = torch.sqrt(sq)
+        trigger = norm < max_norm
+        return [torch.where(trigger, g, (g / norm) * max_norm) for g in grads], state
+
+    return TreeTransform(init, update, whole_tree=True)
+
+
+def _lift(t: Transform) -> TreeTransform:
+    """An elementwise transform over a tree: one state a leaf."""
+
+    def init(params, device=None):
+        return [t.init(tuple(p.shape), device=device if device is not None else p.device)
+                for p in params]
+
+    def update(grads, state, params=None):
+        out = [t.update(g, s) for g, s in zip(grads, state)]
+        return [u for u, _ in out], [s for _, s in out]
+
+    return TreeTransform(init, update)
+
+
+def chain(*transforms):
+    """``optax.chain``: the transforms in turn, each on the previous one's
+    updates. Of elementwise transforms only (``adam``, ``sgd``, ``chain``s of
+    them) it is elementwise itself, a ``Transform`` over one tensor that
+    every path takes, ZeRO-1 and ``HybridTrainer`` included; with a tree
+    transform among them (``clip_by_global_norm``, ``adamw``, ``adafactor``)
+    it is a ``TreeTransform``, the elementwise members lifted to one state a
+    leaf, and ``whole_tree`` when any member is."""
+    mlsl_assert(len(transforms) > 0, "chain needs at least one transform")
+    for t in transforms:
+        mlsl_assert(isinstance(t, (Transform, TreeTransform)),
+                    "chain takes transforms of mlsl_tpu_torch.optim, got %r", type(t))
+    if all(isinstance(t, Transform) for t in transforms):
+        def init(shape: Shape, device=None):
+            return tuple(t.init(shape, device=device) for t in transforms)
+
+        def update(g, state):
+            new = []
+            for t, s in zip(transforms, state):
+                g, s = t.update(g, s)
+                new.append(s)
+            return g, tuple(new)
+
+        return Transform(init, update)
+    trees = [t if isinstance(t, TreeTransform) else _lift(t) for t in transforms]
+
+    def tree_init(params, device=None):
+        return tuple(t.init(params, device=device) for t in trees)
+
+    def tree_update(grads, state, params=None):
+        new = []
+        for t, s in zip(trees, state):
+            grads, s = t.update(grads, s, params)
+            new.append(s)
+        return grads, tuple(new)
+
+    return TreeTransform(tree_init, tree_update, whole_tree=any(t.whole_tree for t in trees))
 
 
 class FactoredState(NamedTuple):

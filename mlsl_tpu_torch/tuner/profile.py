@@ -1,7 +1,8 @@
 """Tuner profile: the persisted selection table and tuned knob set.
 
-Counterpart of ``mlsl_tpu.tuner.profile``, load path only (the sweep that
-writes profiles is not ported). A profile is one JSON document keyed by a
+Counterpart of ``mlsl_tpu.tuner.profile``: the load path and ``save``, which
+the codec calibration (tuner/calibrate.py) writes its table with (the
+algorithm sweep is not ported). A profile is one JSON document keyed by a
 topology fingerprint (``sysinfo.topology_fingerprint``). Cells map (kind,
 group shape, compression, payload band) to an algorithm; knobs are whole-config
 values. The file format is the JAX package's.
@@ -11,6 +12,8 @@ algorithm or an out-of-range value of a knob the port has is an MLSLError
 at init. A cell naming an
 algorithm that the JAX registry has and the port does not (``hier``) is an
 MLSLError too, saying so. ``alltoall`` cells name ``lax`` or ``pallas_a2a``.
+The ``codecs`` table (request name -> calibration cell) must name registry
+codecs.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from mlsl_tpu_torch.log import MLSLError
 from mlsl_tpu_torch.types import CompressionType
 
 PROFILE_VERSION = 1
+DEFAULT_PROFILE_FILE = "mlsl_tune_profile.json"
 
 #: knob name -> minimum legal value, for the knobs the port's Config has
 #: (the JAX package's limits). A profile's other knobs are not checked; the
@@ -36,7 +40,18 @@ KNOB_RANGES = {
     "pallas_rhd_max_bytes": 0,
     # the 'pallas_a2a' codec toggle, carried as 0/1 (a bool is rejected)
     "pallas_a2a_quant": 0,
+    # the codec registry's whole-run knobs, beside the calibration's table
+    "vq_dim": 1,
+    "vq_codebook": 2,
+    "prune_ratio": 1e-4,
 }
+
+
+def default_profile_path() -> str:
+    """Where an unnamed profile lands: ``MLSL_STATS_DIR`` (default the
+    working directory), as ``mlsl_stats.log``."""
+    d = os.environ.get("MLSL_STATS_DIR")
+    return os.path.join(d, DEFAULT_PROFILE_FILE) if d else DEFAULT_PROFILE_FILE
 
 
 def _comp_name(compression) -> str:
@@ -56,8 +71,8 @@ class TunedProfile:
     cells: List[dict] = dataclasses.field(default_factory=list)
     knobs: dict = dataclasses.field(default_factory=dict)
     created: str = ""
-    # the codec-calibration table; the codec registry is not ported, so
-    # init_profile names it in a warning and applies none of it
+    # the codec calibration's table (tuner/calibrate.py): request name ->
+    # {"codec", "block", "params", "nsr", "wire_bytes", "spectrum"}
     codecs: dict = dataclasses.field(default_factory=dict)
 
     def select(self, kind: str, shape: Tuple[int, ...], compression,
@@ -83,6 +98,22 @@ class TunedProfile:
 
     def matches(self, fingerprint: dict) -> bool:
         return dict(self.fingerprint) == dict(fingerprint)
+
+    def to_doc(self) -> dict:
+        doc = {"version": PROFILE_VERSION, "fingerprint": self.fingerprint,
+               "created": self.created, "cells": self.cells, "knobs": self.knobs}
+        if self.codecs:
+            doc["codecs"] = self.codecs
+        return doc
+
+    def save(self, path: str) -> str:
+        """Write the document atomically (a reader never sees half a file)."""
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(self.to_doc(), f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+        return path
 
 
 def load_profile(path: str) -> TunedProfile:
@@ -115,5 +146,18 @@ def load_profile(path: str) -> TunedProfile:
         if isinstance(v, bool) or not isinstance(v, (int, float)) or v < lo:
             raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has invalid knob {name}={v!r} "
                             f"(expected a number >= {lo})")
+    codec_cells = doc.get("codecs", {}) or {}
+    if not isinstance(codec_cells, dict) or not all(
+            isinstance(k, str) and isinstance(v, dict) and isinstance(v.get("codec"), str)
+            for k, v in codec_cells.items()):
+        raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has a malformed codecs table "
+                        f"(expected request name -> {{'codec': name, ...}})")
+    from mlsl_tpu_torch import codecs as codecs_mod
+
+    for rname, cell in codec_cells.items():
+        if cell["codec"] not in codecs_mod.names():
+            raise MLSLError(f"MLSL_TUNE_PROFILE file {path} assigns unknown codec "
+                            f"{cell['codec']!r} to {rname!r} "
+                            f"(registry: {', '.join(codecs_mod.names())})")
     return TunedProfile(fingerprint=doc["fingerprint"], cells=cells, knobs=knobs,
-                        created=str(doc.get("created", "")), codecs=doc.get("codecs") or {})
+                        created=str(doc.get("created", "")), codecs=codec_cells)

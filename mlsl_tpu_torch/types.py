@@ -112,11 +112,10 @@ class CompressionType(enum.IntEnum):
 @dataclasses.dataclass
 class QuantParams:
     """Quantization configuration (reference include/mlsl.hpp:162-171), the
-    fields of ``mlsl_tpu.types.QuantParams``. This package honours the
-    built-in int8 block codec with its geometry (``elem_in_block``); a
-    codec given as callables (``compress_fn`` ...) or as a library
-    (``lib_path`` + symbol names) is not ported yet and is refused by
-    ``Environment.set_quantization_params``."""
+    fields of ``mlsl_tpu.types.QuantParams``: the built-in int8 block
+    codec's geometry (``elem_in_block``), or a user codec given as
+    callables on torch tensors (``compress_fn`` ...) or as a library of the
+    reference's ABI (``lib_path`` + symbol names); see comm/codec.py."""
 
     block_size: int = 256        # bytes per quantized block (scale + int8 payload)
     elem_in_block: int = 256     # elements quantized per block (one shared scale)

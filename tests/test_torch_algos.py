@@ -275,7 +275,8 @@ def test_tuned_profile_selects_its_cell(tmp_path, monkeypatch, caplog):
     try:
         assert env.config.tuned_profile is not None
         assert env.config.pallas_rhd_max_bytes == 4096
-        assert "overlap_stages" in caplog.text and "codec table" in caplog.text
+        assert "overlap_stages" in caplog.text
+        assert env.config.codec_assignment == {"l1": {"codec": "int8"}}   # applied
         assert "pallas_ring_slots" in caplog.text          # named, not applied
         assert not hasattr(env.config, "pallas_ring_slots")
         g = env.create_distribution(8, 1).data_group

@@ -185,8 +185,8 @@ def test_build_buckets_matches_jax(env, tenv, name, bucket_mb):
 
 def test_eligibility(env, tenv):
     """Singletons stay individual, dtypes and compressions never mix, the
-    increment bucket coalesces across compressions, and TOPK -- which JAX
-    keeps individual -- has no wire in the port at all."""
+    increment bucket coalesces across compressions, and TOPK stays
+    individual, as in JAX (the sparse wire has no coalesced form)."""
     specs = [(64, False, CompressionType.NONE, DataType.FLOAT),
              (64, True, CompressionType.NONE, DataType.FLOAT),
              (64, False, CompressionType.QUANTIZATION, DataType.FLOAT),
@@ -204,8 +204,8 @@ def test_eligibility(env, tenv):
     s.set_global_minibatch_size(8)
     r = s.create_operation_reg_info(OpType.CC)
     r.add_parameter_set(64, 1, compression_type=CompressionType.TOPK)
-    with pytest.raises(MLSLError, match="not ported yet"):
-        s.add_operation(r, tenv.create_distribution(8, 1))
+    op = s.get_operation(s.add_operation(r, tenv.create_distribution(8, 1)))
+    assert op.get_parameter_set(0).grad_req.algo == "topk"
 
 
 def test_config_knob(monkeypatch):

@@ -401,10 +401,10 @@ def test_stats_queries_match_jax(shims, monkeypatch):
 
 
 def test_custom_codec_and_bad_input_raise(shims):
-    """A lib_path codec is not ported (ROADMAP A.4): the port raises
-    MLSLError, which the C entry returns as MLSL_TPU_FAILURE; an indivisible
-    scatter count raises in both packages."""
-    with pytest.raises(MLSLError, match="not ported"):
+    """A lib_path codec that cannot be opened raises MLSLError in the port's
+    loader (comm.codec.load_library_codec), which the C entry returns as
+    MLSL_TPU_FAILURE; an indivisible scatter count raises in both packages."""
+    with pytest.raises(MLSLError, match="can't be opened"):
         tshim.env_set_quantization_params("/nonexistent/libcodec.so", "c", "d", "r", 256, 256)
     d = handle("env_create_distribution", WORLD, 1, 1)
     x = np.zeros((WORLD, 10), np.float32)

@@ -570,11 +570,18 @@ def test_environment_alloc_version_and_quant_params(env, tenv):
     qp = QuantParams(elem_in_block=128)
     tenv.set_quantization_params(qp)
     assert tenv.get_quantization_params() is qp and tenv.config.quant_block_elems == 128
-    for bad in (QuantParams(compress_fn=lambda x: x, decompress_fn=lambda x, n: x),
-                QuantParams(lib_path="libquant.so")):
-        with pytest.raises(MLSLError, match="not ported yet"):
-            tenv.set_quantization_params(bad)
-        assert tenv.get_quantization_params() is qp
+    with pytest.raises(MLSLError, match="can't be opened"):
+        tenv.set_quantization_params(QuantParams(lib_path="libquant.so",
+                                                 quant_buffer_func_name="c",
+                                                 dequant_buffer_func_name="d",
+                                                 reduce_sum_func_name="r"))
+    assert tenv.get_quantization_params() is qp and tenv.config.custom_codec is None
+    custom = QuantParams(elem_in_block=128, compress_fn=lambda x: x,
+                         decompress_fn=lambda x, n: x)
+    tenv.set_quantization_params(custom)
+    assert tenv.get_quantization_params() is custom and tenv.config.custom_codec is not None
+    tenv.set_quantization_params(qp)
+    assert tenv.config.custom_codec is None
     with pytest.raises(MLSLError):
         tenv.set_quantization_params(QuantParams(elem_in_block=100))
     assert tenv.config.quant_block_elems == 128

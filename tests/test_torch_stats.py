@@ -19,7 +19,7 @@ torch.set_num_threads(2)
 
 #: table lines of subsystems the port has not ported (core/stats.py)
 NOT_PORTED_LINES = ("FEED", "SENTINEL", "ELASTIC", "STRAGGLER", "CONTROL", "SERVE", "CHKP",
-                    "CODEC", "DEGRADE")
+                    "DEGRADE")
 
 
 @pytest.fixture()
@@ -206,7 +206,7 @@ ISO = {(0, ("OA", 0)): 900_000, (0, ("GRAD", 0)): 200_000, (1, ("IA", 0)): 400_0
        (1, ("GRAD", 0)): 50_000}
 
 
-@pytest.mark.parametrize("counters", ["none", "bucket", "algo", "engine", "all"])
+@pytest.mark.parametrize("counters", ["none", "bucket", "algo", "engine", "codec", "all"])
 def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
     """On the same slot values, isolation times and process-wide counters,
     the overlap report, the fractions and every table line the port prints
@@ -221,6 +221,13 @@ def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
         mod.reset_bucket_counters()
         mod.reset_algo_counters()
         mod.reset_overlap_counters()
+        mod.reset_codec_counters()
+        if counters in ("codec", "all"):
+            mod.record_codec_wire("prune", 1234)
+            mod.record_codec_wire("int8", 99)
+            mod.record_codec("calibrations")
+            mod.record_codec("guard_breaches")
+            mod.record_codec_demotion("l1/grad0", "codec:prune", "test")
         if counters in ("bucket", "all"):
             mod.record_bucket_round("dispatched", *(("allreduce",) if mod is jstats else ()),
                                     members=3, coalesced=3 << 20, wire_saved=9 << 10)
@@ -248,6 +255,7 @@ def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
         mod.reset_bucket_counters()
         mod.reset_algo_counters()
         mod.reset_overlap_counters()
+        mod.reset_codec_counters()
 
 
 def test_bucket_wire_saved_matches_jax(stats_env):
