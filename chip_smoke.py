@@ -306,6 +306,43 @@ Phases, in order; any failure exits non-zero and prints no result:
              with the time split between host copies and codec calls, then
              one C-entry registration through c_shim.
 
+35. hier (run (u), after 34): the two-tier lowering on the 8 virtual ranks
+             split by MLSL_MESH_TIERS. (u1) BASELINE's 8 x 256 MiB float32
+             allreduce and a reduce_scatter under MLSL_ALGO=hier on the 2x4,
+             4x2 and 1x8 splits: random floats within SUM_RTOL of the float64
+             sum, one ``# algos hier ...`` line each (time, algbw, launches:
+             none, hier has no kernel), integers bit for bit against lax.
+             (u2) config 4's 64 MiB-a-rank int8 allreduce on the ring="hier"
+             wire: the sentinel payload (tests/test_hier.py:226-233) on the
+             three splits gives the exact integer sum, bit for bit the flat
+             ring's, zero residuals; on 2x4 each DCN codec (int8, f32, topk,
+             prune, vq), random payloads, 2 rounds bit for bit (outputs and
+             residuals) against an independently built hier.quant_body; f32
+             bit for bit the dense hier on integers; each codec's encoded
+             shard, ring-modelled, equal to hier.dcn_wire_bytes. (u3) config 5
+             on 2x4 with int8 forced onto hier (cuDNN's deterministic
+             convolutions): a flat int8 step from run 7's state (its loss run
+             7's first, bit for bit), then 3 host hier steps, losses finite and
+             falling, each layer's first-step reduced gradient no farther from
+             the exact rank sum than the flat step's plus amax/127; fc demoted
+             through demote_codec, its shard residual flushed once at each
+             member's logical offset, then rounds bit for bit the twin wire's;
+             the compiled overlap engine with 18 staged hier units as one CUDA
+             graph, 3 steps bit for bit against the host run.
+36. tuner sweep (run (v), after 35): MLSL_TUNE=1 MLSL_TUNE_QUANT=1 at
+             Environment.init on the 2x4 world with MLSL_TUNE_SIZES=TUNE_SIZES,
+             the profile written to TUNE_PROFILE under build/: every cell's
+             winner its fastest candidate, B1, B3, B4, B5 and B6 launched,
+             quantized cells timing hier; each cell, the knobs (with the chunk
+             probe's large_single_us / large_chunked_us) and the sweep's
+             seconds and launches printed. A fresh Environment on the profile
+             takes 2 config 5 steps, every gradient request (or its bucket's)
+             on the lowering its quantized cell names; a flat world rejects the
+             profile with a warning.
+
+Every ``# phase`` line gives its seconds: its own where it states them, else
+the wall time since the previous ``# phase`` line.
+
 A captured graph counts its launches once, when it is recorded: the engine
 runs' launches are those of precompile's eager warm-up step and its capture,
 and each prints the launches of one captured step.
@@ -360,7 +397,18 @@ def check(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+_PHASE_CLOCK = [time.perf_counter()]
+
+
 def log(msg: str) -> None:
+    """Print a line. A ``# phase ...: ok`` line that states no time of its own
+    gets the wall seconds since the previous ``# phase`` line (the phases run
+    one after the other, so these add up to the wall time)."""
+    if msg.startswith("# phase "):
+        now = time.perf_counter()
+        if ": ok" in msg and ": ok in " not in msg:
+            msg = msg.replace(": ok", f": ok in {now - _PHASE_CLOCK[0]:.1f} s", 1)
+        _PHASE_CLOCK[0] = now
     print(msg, flush=True)
 
 
@@ -824,7 +872,9 @@ def check_config5(torch, trainer, losses, grads, errs):
 
 ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
              "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB", "MLSL_STATS", "MLSL_STATS_DIR",
-             "MLSL_TOPK_RATIO", "MLSL_CODEC", "MLSL_TUNE_CODEC", "MLSL_TUNE_PROFILE")
+             "MLSL_TOPK_RATIO", "MLSL_CODEC", "MLSL_TUNE_CODEC", "MLSL_TUNE_PROFILE",
+             "MLSL_MESH_TIERS", "MLSL_HIER_DCN_CODEC", "MLSL_TUNE", "MLSL_TUNE_QUANT",
+             "MLSL_TUNE_SIZES", "MLSL_TUNE_ITERS")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -4242,6 +4292,7 @@ def run_activation_graph(torch, np, get_env, launches, reset_launches, mods, dev
 
     lines, used = [], {}
     # the JAX package's examples/mlsl_example.py, its calls unchanged in form
+    t0 = time.perf_counter()
     reinit(get_env)
     ex = mlsl_example.main(device=dev, log=lambda s: None)    # finalizes its Environment
     get_env().init(device=dev, world_size=WORLD)
@@ -4249,7 +4300,8 @@ def run_activation_graph(torch, np, get_env, launches, reset_launches, mods, dev
           and all(v == 4.0 * (it + 1) for (it, _), v in ex["reduced"].items())
           and ex["case"] == "reduce_scatter" and "GRAD0" in ex["table"],
           f"walkthrough: {ex}")
-    lines.append(f"# phase activation walkthrough: ok, examples/mlsl_example.py's calls on a "
+    lines.append(f"# phase activation walkthrough: ok in {time.perf_counter() - t0:.1f} s, "
+                 f"examples/mlsl_example.py's calls on a "
                  f"data 4 x model 2 grid: allreduce {float(ex['allreduce'][0])}, case-1 "
                  f"{ex['case']}, gradient sums {sorted(set(ex['reduced'].values()))}")
     stats_dir = tempfile.mkdtemp(prefix="mlsl_stats_")
@@ -4959,6 +5011,341 @@ def run_codecs(torch, np, get_env, launches, reset_launches, lib_path, dev):
     return used, lines
 
 
+# -- the two-tier lowering (run (u)) and the sweep (run (v)) ---------------------------
+
+# the synthetic tier splits of the 8 virtual ranks (MLSL_MESH_TIERS): T tiers
+# of L ranks, tier = rank // L
+HIER_SPLITS = ("2x4", "4x2", "1x8")
+HIER_CODECS = ("int8", "f32", "topk", "prune", "vq")
+# (v): the reference's default sizes and one bandwidth-bound size, KiB a rank
+TUNE_SIZES = "16,256,2048,65536"
+TUNE_PROFILE = ROOT / "build" / "mlsl_tpu_torch" / "tune_profile.json"
+
+
+def phase_hier_dense(torch, get_env, drive, n=(256 << 20) // 4):
+    """(u1): BASELINE's 8 x 256 MiB float32 allreduce and a reduce_scatter
+    under MLSL_ALGO=hier on each split: random floats within SUM_RTOL of the
+    float64 sum (one ``# algos hier ...`` line each with time, algbw and
+    launches), integers bit for bit against ``lax``. -> relative errors."""
+    from mlsl_tpu_torch import DataType, GroupType, ReductionType
+
+    dev = get_env().device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = torch.randn((1, WORLD, 1, 1, n), generator=gen, device=dev)
+    xi = torch.randint(-8, 8, (1, WORLD, 1, 1, n), generator=gen, device=dev).float()
+    rels = {}
+    for spec in HIER_SPLITS:
+        env = reinit(get_env, MLSL_ALGO="hier", MLSL_MESH_TIERS=spec)
+        dist = env.create_distribution(WORLD, 1)
+        group = dist.data_group
+        for kind in ("allreduce", "reduce_scatter"):
+            tag = f"hier {kind} {spec}"
+            out = drive(env, dist, GroupType.DATA, kind, x, n, DataType.FLOAT, "hier", tag)
+            rels[tag] = check_sums(torch, out, x, group, tag, SUM_RTOL)
+            del out
+            got = drive(env, dist, GroupType.DATA, kind, xi, n, DataType.FLOAT, "hier",
+                        f"{tag} integers", time_it=False)
+            kw = {"recv_count": n // WORLD} if kind == "reduce_scatter" else {}
+            lax = drive.algos.build(kind, group, "lax", op=ReductionType.SUM, **kw)(xi)
+            torch.cuda.synchronize()
+            check(same_bits(torch, got, lax), f"algos {tag}: integers differ from lax")
+            del got, lax
+    del x, xi
+    return rels
+
+
+def hier_sentinel(torch, n, dev, gen):
+    """The same integers on every rank with 127 at each block start
+    (tests/test_hier.py:226-233): every scale of both int8 wires is an exact
+    integer, so both deliver the exact integer sum."""
+    v = torch.randint(-8, 8, (n,), generator=gen, device=dev).float()
+    v[::BLOCK] = 127.0
+    return v.expand(1, WORLD, 1, 1, n).contiguous(), v
+
+
+def dcn_member_bytes(torch, codec, slen, dev):
+    """The bytes of one member's encoded DCN shard: the int8 codec's wire
+    (payload and shared scales), the float32 shard for f32 and topk (a dense
+    sum on the DCN), a registry codec's encoded wire."""
+    from mlsl_tpu_torch import codecs
+
+    if codec in ("f32", "topk"):
+        return 4 * slen
+    c = codecs.get("int8", block=BLOCK) if codec == "int8" else codecs.configure(codec)
+    return int(c.encode(torch.randn((1, slen), device=dev)).shape[-1])
+
+
+def phase_hier_quant(torch, np, get_env, qk, n=(64 << 20) // 4):
+    """(u2): config 4's 64 MiB-a-rank int8 allreduce on the ring="hier" wire.
+    The sentinel payload on each split: the exact integer sum bit for bit,
+    equal to the flat ring's, a zero residual. Then on 2x4 each DCN codec,
+    random payloads, 2 rounds: outputs and residuals bit for bit against an
+    independently built twin (``hier.quant_body``); f32 against the dense
+    hier on integers; the encoded shard against ``dcn_wire_bytes``. -> log
+    lines."""
+    from mlsl_tpu_torch import CompressionType, DataType, GroupType, ReductionType
+    from mlsl_tpu_torch.comm import algos, quant_ring
+    from mlsl_tpu_torch.comm.algos import hier
+
+    dev = get_env().device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    lines = []
+    for spec in HIER_SPLITS:
+        env = reinit(get_env, MLSL_ALGO="hier", MLSL_MESH_TIERS=spec)
+        dist = env.create_distribution(WORLD, 1)
+        x, v = hier_sentinel(torch, n, dev, gen)
+        req = dist.all_reduce(x, n, DataType.FLOAT, ReductionType.SUM, GroupType.DATA,
+                              compression=CompressionType.QUANTIZATION)
+        out = env.wait(req)
+        flat, el = quant_ring.build_quantized_collective("allreduce", dist.data_group, n, BLOCK)
+        want = flat(x, torch.zeros((*dist.world_shape, el), device=dev))[0]
+        torch.cuda.synchronize()
+        check(req.algo == "hier", f"hier sentinel {spec}: selected {req.algo!r}")
+        check(bool((out == v * WORLD).all()), f"hier sentinel {spec}: not the exact sum")
+        check(same_bits(torch, out, want), f"hier sentinel {spec}: differs from the flat ring")
+        check(float(req._errs[0].abs().max()) == 0.0, f"hier sentinel {spec}: residual not 0")
+        del x, v, out, want, req
+    lines.append(f"# hier sentinel: the int8 wire's exact integer sum on {', '.join(HIER_SPLITS)}"
+                 f", bit for bit the flat ring's, zero residuals")
+    for codec in HIER_CODECS:
+        env = reinit(get_env, MLSL_ALGO="hier", MLSL_MESH_TIERS="2x4",
+                     MLSL_HIER_DCN_CODEC=codec)
+        group = env.create_distribution(WORLD, 1).data_group
+        t0 = time.perf_counter()
+        xs, outs, errs, req, _ = phase_config4(torch, env, np, qk, n=n, roundtrip=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(req.algo == "hier" and req._err_layout == "hier",
+              f"hier {codec}: selected {req.algo!r} ({req._err_layout})")
+        twin, el = hier.quant_body("allreduce", group, n, BLOCK, codec=codec,
+                                   topk_ratio=env.config.topk_ratio)
+        check(req._err_lens == [el], f"hier {codec}: err_len {req._err_lens} != {el}")
+        err = torch.zeros((*group.topology.grid_shape, el), device=dev)
+        rels = []
+        for r, x in enumerate(xs):
+            entered = x.sum(dim=1, keepdim=True)
+            o, err = twin(x, err)
+            torch.cuda.synchronize()
+            check(same_bits(torch, o, outs[r]) and same_bits(torch, err, errs[r]),
+                  f"hier {codec} round {r}: differs from its independently built twin")
+            rels.append(float((o[:, :1] - entered).norm() / entered.norm()))
+        if codec == "int8":
+            check(max(rels) < 0.02, f"hier int8: relative errors {rels}")
+        if codec == "f32":
+            check(max(float(e.abs().max()) for e in errs) == 0.0, "hier f32: residual not 0")
+            xi = torch.randint(-8, 8, xs[0].shape, generator=gen, device=dev).float()
+            fn, fel = quant_ring.build_quantized_collective("allreduce", group, n, BLOCK,
+                                                            ring="hier", dcn_codec="f32")
+            o, _ = fn(xi, torch.zeros((*group.topology.grid_shape, fel), device=dev))
+            dense = algos.build("allreduce", group, "hier", op=ReductionType.SUM)(xi)
+            torch.cuda.synchronize()
+            check(same_bits(torch, o, dense), "hier f32: differs from the dense hier")
+            del xi, o, dense
+        t, l = hier.tier_structure(group)
+        per = dcn_member_bytes(torch, codec, el, dev)
+        wire = int(2 * (t - 1) / t * per)
+        check(wire == hier.dcn_wire_bytes(n, (t, l), codec, BLOCK),
+              f"hier {codec}: {wire} B on the DCN a member, dcn_wire_bytes says "
+              f"{hier.dcn_wire_bytes(n, (t, l), codec, BLOCK)}")
+        ms = time_ms(torch, lambda: req.start(xs[0]).wait(), reps=3, warmup=1)
+        lines.append(f"# hier {codec} 2x4: 64 MiB a rank, 2 rounds bit-exact with the twin "
+                     f"(outputs and residuals), relative errors {[round(v, 6) for v in rels]}, "
+                     f"{ms:.4f} ms a round (first 2 rounds {secs:.2f} s), algbw "
+                     f"{n * 4 / ms / 1e6:.2f} GB/s, DCN bytes a member {wire} "
+                     f"(= dcn_wire_bytes), {hier.dcn_phases((t, l), codec)} DCN phases")
+        del xs, outs, errs, req, err
+        torch.cuda.empty_cache()
+    return lines
+
+
+def run_hier_config5(torch, np, get_env, launches, reset_launches, composed):
+    """(u3): config 5 with int8 forced onto hier on the 2x4 world, cuDNN's
+    deterministic convolutions. A flat int8 step from the same state (its
+    loss run 7's first, bit for bit), then 3 host-path hier steps: losses
+    finite and falling; each layer's first-step reduced gradient no farther
+    from the exact rank sum than the flat run's plus one quantization step
+    of the layer (amax/127). The compiled overlap engine with hier units,
+    captured as one CUDA graph, against the host run bit for bit. One
+    hier-routed set demoted through ``demote_codec``: its residual (each
+    member's 1/L shard) added once at the member's logical offset, in
+    float32, to the next round, which equals the twin wire on that payload;
+    the round after carries no flush. -> (launches by sub-run, log lines)."""
+    from mlsl_tpu_torch.comm.algos import hier
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    lines, used = [], {}
+    env = reinit(get_env)
+    settle(torch)
+    trainer, batch = build_resnet_trainer(torch, env, np)
+    loss = trainer.step(batch).detach().reshape(-1).cpu()
+    check(torch.equal(loss, composed["losses"][0]),
+          f"hier config 5: the flat step's losses {loss.tolist()} are not run 7's first")
+    flat = {nm: _grad_req(trainer, nm)._result[:, :1].clone() for nm in trainer.layers}
+    del trainer, batch
+
+    env = reinit(get_env, MLSL_ALGO="hier", MLSL_MESH_TIERS="2x4")
+    settle(torch)
+    trainer, batch = build_resnet_trainer(torch, env, np)
+    algos_seen = {_grad_req(trainer, nm).algo for nm in trainer.layers}
+    check(algos_seen == {"hier"}, f"hier config 5: requests took {algos_seen}")
+    reset_launches()
+    losses, secs, kept = codec_steps(torch, trainer, batch, steps=3, keep=(0,))
+    used["hier_config5"] = {k: v for k, v in launches().items() if v}
+    means = [float(v.mean()) for v in losses]
+    check(means[2] < means[0], f"hier config 5: losses {means} do not fall")
+    worst = {}
+    for nm in trainer.layers:
+        g0, _, r0 = kept[0][nm]
+        exact = g0.double().sum(dim=1, keepdim=True)
+        err_h = float((r0[:, :1].double() - exact).abs().max())
+        err_f = float((flat[nm].double() - exact).abs().max())
+        step = float(exact.abs().max()) / 127.0
+        check(err_h <= err_f + step, f"hier config 5: layer {nm} off the exact sum by {err_h:.3g}"
+                                     f", the flat run by {err_f:.3g}, one step {step:.3g}")
+        worst[nm] = round(err_h / step, 4), round(err_f / step, 4)
+    ref = host_reference(torch, trainer, losses, secs)
+    lines.append(f"# hier config5 (2x4, int8 on the DCN hop): losses {means}, step seconds "
+                 f"{[round(v, 4) for v in secs]}, launches {used['hier_config5']}; each "
+                 f"layer's first-step error against the exact sum in steps of amax/127 "
+                 f"(hier, flat): {json.dumps(worst)}")
+
+    # demote the fc set: its residual goes out once, at each member's offset
+    req = _grad_req(trainer, "fc")
+    group = req.desc.group
+    held, slen = req._errs[0].clone(), req._err_lens[0]
+    t, l = hier.tier_structure(group)
+    req.demote_codec("smoke run (u3)")
+    check(req.algo == "hier" and req._pending_flush is not None,
+          f"hier demotion: {req.algo}, pending flush {req._pending_flush is not None}")
+    _, grads = trainer._local_grads(batch)
+    x = grads["fc"]
+    n = x.shape[-1]
+    a = req.start(x).wait()
+    check(req._pending_flush is None, "hier demotion: the flush is still pending")
+    # each member's shard at its intra-tier offset l * slen, the other
+    # offsets 0 * residual (the one-hot product's signed zeros)
+    placed = torch.zeros((*x.shape[:-1], l * slen), device=x.device)
+    for p in range(WORLD):
+        li = group.group_idx_of(p) % l
+        at = group.topology.coords(p)
+        for j in range(l):
+            placed[at][j * slen:(j + 1) * slen] = held[at] * (1.0 if j == li else 0.0)
+    twin, _ = hier.quant_body("allreduce", group, n, env.config.quant_block_elems)
+    b, eb = twin(x + placed[..., :n], torch.zeros_like(held))
+    check(same_bits(torch, a, b) and same_bits(torch, req._errs[0], eb),
+          "hier demotion: the flush round differs from the twin on the flushed payload")
+    a2 = req.start(x).wait()
+    b2, _ = twin(x, eb)
+    check(same_bits(torch, a2, b2), "hier demotion: the round after the flush flushed again")
+    lines.append(f"# hier demotion: fc demoted, its {slen}-float shard residuals flushed once "
+                 f"at their logical offsets (L = {l}), then rounds bit for bit the twin's")
+    del trainer, batch, grads, x, a, b, a2, b2, placed, held, kept, flat
+    settle(torch)
+
+    eng = dict(overlap_compiled=True)
+    used["engine_hier"], out, _ = twin_run(
+        torch, np, get_env, launches, reset_launches, "engine hier",
+        {"MLSL_ALGO": "hier", "MLSL_MESH_TIERS": "2x4"}, None, eng, ref,
+        lambda c, p: not any(c.values()) and p.quant_units == 18
+        and {u.algo for u in p.units} == {"hier"} and all(u.nphases == 3 for u in p.units))
+    check(out["loss_gap"] == 0.0 and out["param_gap"] == 0.0,
+          f"engine hier: not bit for bit the host run ({out['loss_gap']}, {out['param_gap']})")
+    out.pop("describe", None)
+    lines.append(f"# engine hier: {json.dumps(out)}")
+    torch.backends.cudnn.deterministic = False
+    return used, lines
+
+
+def run_tuned(torch, np, get_env, launches, reset_launches):
+    """(v): MLSL_TUNE=1 MLSL_TUNE_QUANT=1 at Environment.init over the 2x4
+    world at TUNE_SIZES, the profile written to TUNE_PROFILE; then a fresh
+    Environment on it takes 2 config 5 steps, each gradient request (or its
+    bucket's) on the lowering the profile's quantized cell names; a flat
+    world rejects the profile with a warning. -> (launches of the sweep and
+    of the steps, log lines)."""
+    import logging
+
+    from mlsl_tpu_torch.comm import algos
+    from mlsl_tpu_torch.types import CompressionType
+
+    TUNE_PROFILE.parent.mkdir(parents=True, exist_ok=True)
+    if TUNE_PROFILE.exists():
+        TUNE_PROFILE.unlink()
+    lines, used = [], {}
+    settle(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    env = reinit(get_env, MLSL_TUNE="1", MLSL_TUNE_QUANT="1", MLSL_TUNE_SIZES=TUNE_SIZES,
+                 MLSL_TUNE_PROFILE=str(TUNE_PROFILE), MLSL_MESH_TIERS="2x4")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    used["sweep"] = {k: v for k, v in launches().items() if v}
+    prof = env.config.tuned_profile
+    check(prof is not None and TUNE_PROFILE.exists(), "sweep: no profile written")
+    check(prof.fingerprint["tiers"] == [2, 4], f"sweep: fingerprint {prof.fingerprint}")
+    for key in ("dense_ring", "quant_ring", "quantize_blocks", "rhd_allreduce", "a2a_quant"):
+        check(used["sweep"].get(key, 0) > 0, f"sweep: {key} never launched ({used['sweep']})")
+    for c in prof.cells:
+        check("lax" in c["us"] and c["algo"] == min(c["us"], key=c["us"].get),
+              f"sweep: cell {c}")
+        lines.append(f"# tune cell {c['kind']} {c['shape']} {c['compression']} "
+                     f"{c['payload_bytes']} B -> {c['algo']} {json.dumps(c['us'])}")
+    check(any("hier" in c["us"] for c in prof.cells if c["compression"] == "quantization"),
+          "sweep: no quantized hier cell")
+    lines.append(f"# tune knobs {json.dumps(prof.knobs, sort_keys=True)}")
+    lines.append(f"# tune sweep: {len(prof.cells)} cells in {sweep_s:.1f} s (Environment.init "
+                 f"included), launches {used['sweep']}, profile {TUNE_PROFILE.name}")
+
+    env = reinit(get_env, MLSL_TUNE_PROFILE=str(TUNE_PROFILE), MLSL_MESH_TIERS="2x4")
+    check(env.config.tuned_profile is not None, "tuned: the fresh Environment rejected it")
+    settle(torch)
+    trainer, batch = build_resnet_trainer(torch, env, np)
+    reset_launches()
+    losses, secs = drive_steps(torch, trainer, batch, steps=2)
+    used["tuned_config5"] = {k: v for k, v in launches().items() if v}
+    for loss in losses:
+        check(bool(torch.isfinite(loss).all()), f"tuned config 5: losses {loss.tolist()}")
+    picked = {}
+    for nm in trainer.layers:
+        ps = trainer.ops[nm].get_parameter_set(0)
+        req = ps.bucket.req if ps.bucket is not None else ps.grad_req
+        cell = env.config.tuned_profile.select("allreduce", algos.group_shape(req.desc.group),
+                                               CompressionType.QUANTIZATION, req._payload)
+        want = {"hier": "hier", "pallas_ring": "pallas_ring"}.get(cell, "quant_ring")
+        check(req.algo == want, f"tuned config 5: layer {nm} took {req.algo!r}, the profile's "
+                                f"cell {cell!r} for {req._payload} B")
+        picked[req.algo] = picked.get(req.algo, 0) + 1
+    lines.append(f"# tuned config5 (fresh Environment on the profile): losses "
+                 f"{[float(v.mean()) for v in losses]}, step seconds "
+                 f"{[round(v, 4) for v in secs]}, layers by lowering {picked}, knobs applied: "
+                 f"quant_block_elems {env.config.quant_block_elems}, grad_bucket_mb "
+                 f"{env.config.grad_bucket_mb}, overlap_stages {env.config.overlap_stages}, "
+                 f"launches {used['tuned_config5']}")
+    del trainer, batch
+
+    class Catch(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def emit(self, record):
+            self.seen.append(record.getMessage())
+
+    catch = Catch()
+    logging.getLogger("mlsl_tpu_torch").addHandler(catch)
+    try:
+        env = reinit(get_env, MLSL_TUNE_PROFILE=str(TUNE_PROFILE))
+    finally:
+        logging.getLogger("mlsl_tpu_torch").removeHandler(catch)
+    check(env.config.tuned_profile is None
+          and any("different topology" in m for m in catch.seen),
+          "tuned: a flat world did not reject the 2x4 profile with a warning")
+    lines.append("# tuned flat world: the 2x4 profile rejected with a warning")
+    settle(torch)
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -5091,6 +5478,7 @@ def main() -> int:
         log(f"# config5 train step (host clock, synchronized): "
             f"{json.dumps({'step_s': secs, 'last_step_split_s': split})}")
         composed5 = host_reference(torch, trainer, losses, secs)
+        run7_first = {"losses": composed5["losses"][:1]}
         del grads, errs, trainer, batch
         torch.cuda.empty_cache()
 
@@ -5329,6 +5717,29 @@ def main() -> int:
             f"{json.dumps({k: {n: c for n, c in v.items() if c} for k, v in codec_used.items()})}")
         settle(torch)
 
+        # the two-tier lowering on the 2 x 4 world of virtual ranks (run (u))
+        # and the tuner's sweep over it (run (v))
+        drive = PathRun(torch, algos, launches, reset_launches)
+        hier_rels = phase_hier_dense(torch, get_env, drive)
+        for line in drive.lines:
+            log(line)
+        log(f"# phase hier dense (run (u1)): ok, launches {drive.used}, relative errors "
+            f"{json.dumps(hier_rels)}")
+        torch.cuda.empty_cache()
+        for line in phase_hier_quant(torch, np, get_env, qk):
+            log(line)
+        log("# phase hier quantized (run (u2)): ok")
+        hier_used, hier_lines = run_hier_config5(torch, np, get_env, launches, reset_launches,
+                                                 run7_first)
+        for line in hier_lines:
+            log(line)
+        log(f"# phase hier config5 (run (u3)): ok, launches {json.dumps(hier_used)}")
+        tune_used, tune_lines = run_tuned(torch, np, get_env, launches, reset_launches)
+        for line in tune_lines:
+            log(line)
+        log(f"# phase tuner sweep (run (v)): ok, launches {json.dumps(tune_used)}")
+        env = reinit(get_env)
+
         fc_entry = ring_rows["fc"][0]
 
         def path(key, **runs):
@@ -5344,7 +5755,8 @@ def main() -> int:
                     engine_buckets=engine_used["engine buckets"],
                     overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used,
                     activation_graph=activation, collectives=coll_used, capi=capi_used,
-                    **{f"codec_{k}": v for k, v in codec_used.items()})
+                    **{f"codec_{k}": v for k, v in codec_used.items()},
+                    hier_dense=drive.used, **hier_used, **tune_used)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -5395,7 +5807,8 @@ def main() -> int:
             torch, a2a, tag="activation cases 4 and 5, G=4", grid=(2, 4), axes=("model",),
             count=4 * (MLP_TOKENS // WORLD) * (MLP_FM2 // 4), quantized=False, bw=bw, f32=f32,
             per_path=path("a2a_dense", alltoall=a2a_used, transformer_moe=tm,
-                          activation_graph=activation, capi=capi_used), dev=dev))
+                          activation_graph=activation, capi=capi_used, **tune_used),
+            dev=dev))
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
             dict(transformer_1rank=ta, transformer_1rank_eager_twin=ta_eager,
@@ -5415,7 +5828,7 @@ def main() -> int:
                                      quantized=quantized, bw=bw, f32=f32,
                                      per_path=path(key, alltoall=a2a_used, transformer_moe=tm,
                                                    activation_graph=activation,
-                                                   capi=capi_used),
+                                                   capi=capi_used, **tune_used),
                                      dev=dev))
     finally:
         if card_tests is not None and card_tests.poll() is None:   # a phase failed first

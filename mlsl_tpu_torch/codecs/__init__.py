@@ -9,7 +9,13 @@ Counterpart of ``mlsl_tpu.codecs`` (codecs/__init__.py:65-429). A codec is
   accounting behind the per-codec wire statistics and the calibration's cost;
 - ``geometry(n)``: the static layout dict;
 - ``aggregate(a, b)`` (optional): a sum of two wire images into one, with no
-  decode on the hop.
+  decode on the hop;
+- ``hier_aggregate(xq, t=T)``: the two-tier lowering's DCN hop
+  (comm/algos/hier.py). The generic form encodes every member's shard,
+  exchanges the wires across the tier peers and folds them through
+  ``aggregate``, or decodes and sums them in tier order, which makes every
+  registry codec a DCN codec; ``int8``, ``f32`` and ``topk`` take the
+  lowering's own exact hops.
 
 Here ``encode``, ``decode`` and ``aggregate`` also take a 2-D batch of rows
 (``(R, n)`` -> ``(R, wire_len(n))``), each row coded on its own: the virtual
@@ -34,8 +40,7 @@ registers here; ``guard_note`` takes one screened step's verdict and, after
 ``window`` breaches in a row, demotes every registered request to int8
 (``CommRequest.demote_codec``, with its exactly-once residual flush). The
 JAX package's sentinel feeds ``guard_note``; the sentinel is not ported
-(ROADMAP A.7), so here a caller feeds it. ``hier_aggregate``, the two-tier
-lowering's DCN hop, raises: ``hier`` is not ported (ROADMAP A.3).
+(ROADMAP A.7), so here a caller feeds it.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import mlsl_assert
 
 __all__ = [
     "Codec", "register", "get", "names", "configure", "assigned",
@@ -129,11 +134,32 @@ class Codec:
     def geometry(self, n: int) -> dict:
         return {"codec": self.name, "chunk": int(n), "wire_len": int(self.wire_len(n))}
 
-    def hier_aggregate(self, xq, *, axis=None, inter=None, t: int = 1):
-        """The two-tier lowering's DCN hop (codecs/__init__.py:121-146 of the
-        JAX package): ``hier`` is not ported (ROADMAP A.3)."""
-        raise MLSLError("collective algorithm 'hier' is not ported yet "
-                        f"(codec {self.name!r}: hier_aggregate)")
+    def hier_aggregate(self, xq: torch.Tensor, *, t: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One inter-tier hop of the two-tier lowering (codecs/__init__.py:
+        109-135 of the JAX package) over the tier view ``xq`` (C, T, L, s):
+        member (t, l)'s shard at [:, t, l]. Each shard is encoded, the wires
+        of the T tier peers are exchanged, and each member folds them in
+        tier order through ``aggregate`` and decodes once, or decodes each
+        and adds. -> (the reduced shard of every member, the entry
+        residual ``xq - decode(encode(xq))``), both (C, T, L, s)."""
+        c, tt, l, n = xq.shape
+        mlsl_assert(tt == t, "hier_aggregate: the tier view has %d tiers, not %d", tt, t)
+        w = self.encode(xq.reshape(-1, n)).reshape(c, t, l, -1)
+        xhat = self.decode(w.reshape(c * t * l, -1), n).reshape(c, t, l, n)
+        new_err = xq - xhat
+        if t == 1:
+            return xhat, new_err
+        if self.aggregate is not None:
+            acc = w[:, 0]
+            for i in range(1, t):
+                acc = self.aggregate(acc.reshape(c * l, -1),
+                                     w[:, i].reshape(c * l, -1)).reshape(c, l, -1)
+            red = self.decode(acc.reshape(c * l, -1), n).reshape(c, l, n)
+        else:
+            red = self.decode(w[:, 0].reshape(c * l, -1), n).reshape(c, l, n)
+            for i in range(1, t):
+                red = red + self.decode(w[:, i].reshape(c * l, -1), n).reshape(c, l, n)
+        return red[:, None].expand(c, t, l, n), new_err
 
     def as_custom(self):
         """This codec as a ``comm.codec.CustomCodec`` on the compressed ring,
@@ -267,6 +293,12 @@ class Int8Codec(Codec):
         s = _f32_of_bytes(wire[:, body:body + 4 * nb]).reshape(r * nb)
         return qk.dequantize_blocks(q, s).reshape(r, body)[:, :n]
 
+    def hier_aggregate(self, xq, *, t):
+        """The shared-scale int8 hop (comm/algos/hier.py)."""
+        from mlsl_tpu_torch.comm.algos import hier
+
+        return hier._block_quant_shared(xq, self.block)
+
 
 @register
 class F32Codec(Codec):
@@ -287,6 +319,12 @@ class F32Codec(Codec):
 
     def aggregate(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _bytes_of_f32(_f32_of_bytes(a) + _f32_of_bytes(b))
+
+    def hier_aggregate(self, xq, *, t):
+        """The dense hop: the tier-order sum, the residual drained to zero."""
+        from mlsl_tpu_torch.comm.algos import hier
+
+        return hier._inter_sum(xq), torch.zeros_like(xq)
 
 
 # -- assignment ----------------------------------------------------------------

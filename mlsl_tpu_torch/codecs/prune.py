@@ -8,7 +8,8 @@ elements are the ``kept(n)`` largest magnitudes; among equal magnitudes the
 lower index wins, as in ``lax.top_k`` (``codecs._stable_topk``), so the mask
 is the same bits in both packages and on both devices. ``ratio=1.0`` keeps
 every element and round-trips bit for bit. ``topk`` is the same wire at the
-top-k sparsifier's default ratio.
+top-k sparsifier's default ratio, with the two-tier hop pinned to the
+lowering's threshold form (``hier._topk_shared``).
 """
 
 from __future__ import annotations
@@ -81,3 +82,9 @@ class TopKCodec(PruneCodec):
 
     def __init__(self, ratio: float = 0.01) -> None:
         super().__init__(ratio=ratio)
+
+    def hier_aggregate(self, xq, *, t):
+        """The two-tier lowering's top-k hop (comm/algos/hier.py)."""
+        from mlsl_tpu_torch.comm.algos import hier
+
+        return hier._topk_shared(xq, self.ratio)

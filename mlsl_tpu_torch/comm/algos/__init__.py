@@ -18,10 +18,14 @@ and the in-graph helpers of 615-665). The registry lists what the port has:
 - ``pallas_a2a``    the fused all-to-all, CUDA kernel B6, with or without the
                     int8 codec (algos/pallas_a2a.py): the ``alltoall`` kind's
                     one alternative to ``lax``, serving the MoE dispatch and
-                    combine exchanges and ``Distribution.all_to_all``.
+                    combine exchanges and ``Distribution.all_to_all``;
+- ``hier``          the two-tier lowering for an ``MLSL_MESH_TIERS`` world
+                    (algos/hier.py): intra-tier reduce-scatter, inter-tier
+                    allreduce of the 1/L shard, intra-tier all-gather, with
+                    the DCN codec on the inter-tier hop of a QUANTIZATION
+                    request (quant_ring's ``ring="hier"`` wire).
 
-The JAX registry's ``hier`` is not ported: naming it in MLSL_ALGO or a
-profile raises MLSLError. The kernel algorithms are eligible wherever the
+The kernel algorithms are eligible wherever the
 group qualifies: a CUDA buffer launches the kernel, a CPU buffer runs its
 plain version. The same holds in-graph: JAX emits ``pallas_a2a`` inside a
 training graph only on a TPU (``a2a_kernels.inline_ok``), the port wherever
@@ -56,9 +60,6 @@ DEFAULT = "lax"
 #: the elementwise-reduction collectives the engine chooses for, and the MoE
 #: dispatch/combine exchange
 ENGINE_KINDS = ("allreduce", "reduce_scatter", "alltoall")
-
-#: registry names of the JAX package that the port does not have yet
-NOT_PORTED = ("hier",)
 
 
 def group_shape(group: ProcessGroup) -> Tuple[int, ...]:
@@ -117,6 +118,13 @@ def _eligible_pallas_a2a(kind: str, group: ProcessGroup, op) -> bool:
     return a2a_kernels.eligible(kind, group, op=op)
 
 
+def _eligible_hier(kind: str, group: ProcessGroup, op) -> bool:
+    # a single live axis with a uniform tier split, SUM only
+    from mlsl_tpu_torch.comm.algos import hier
+
+    return hier.eligible(kind, group, op)
+
+
 #: name -> eligibility predicate, in the JAX registry's order
 _ELIGIBLE = {
     "lax": lambda kind, group, op: True,
@@ -126,6 +134,7 @@ _ELIGIBLE = {
     "pallas_rhd": _eligible_pallas_rhd,
     "pallas_ring2d": _eligible_pallas_ring2d,
     "pallas_a2a": _eligible_pallas_a2a,
+    "hier": _eligible_hier,
 }
 
 ALGORITHMS = tuple(_ELIGIBLE)
@@ -149,9 +158,7 @@ def candidates(kind: str, group: ProcessGroup, op=None) -> Tuple[str, ...]:
 
 
 def check_name(name: str, what: str) -> None:
-    """Raise MLSLError for an algorithm name the port cannot run."""
-    mlsl_assert(name not in NOT_PORTED,
-                "%s %r is not ported yet (ported: %s)", what, name, ", ".join(ALGORITHMS))
+    """Raise MLSLError for a name the registry does not have."""
     mlsl_assert(name in ALGORITHMS,
                 "%s %r is not a registered collective algorithm (registry: %s)",
                 what, name, ", ".join(ALGORITHMS))
@@ -159,8 +166,8 @@ def check_name(name: str, what: str) -> None:
 
 def parse_forced(spec: str) -> dict:
     """Parse MLSL_ALGO: one algorithm name (forced for every engine kind) or
-    a comma list of kind=name entries. Raises MLSLError on unknown or
-    unported names and kinds, at init rather than deep in dispatch."""
+    a comma list of kind=name entries. Raises MLSLError on unknown names and
+    kinds, at init rather than deep in dispatch."""
     spec = (spec or "").strip()
     out: dict = {}
     if not spec:
@@ -194,13 +201,17 @@ def select(kind: str, group: ProcessGroup, payload_bytes: int,
     if compression != CompressionType.NONE:
         # compressed collectives keep their own wire (the composed int8
         # ring), except that a forced or tuned 'pallas_ring' routes a
-        # QUANTIZATION request through the fused int8 ring when the group
-        # qualifies
-        if compression == CompressionType.QUANTIZATION:
+        # QUANTIZATION request through the fused int8 ring, and a forced or
+        # tuned 'hier' through the two-tier wire (its codec on the DCN hop
+        # only), when the group qualifies
+        if (compression == CompressionType.QUANTIZATION
+                and getattr(config, "custom_codec", None) is None):
             name = _requested(kind, group, payload_bytes, compression, config)
             if name == "pallas_ring" and _quant_pallas_eligible(group, config):
                 return name
-            if name == "pallas_ring":
+            if name == "hier" and _quant_hier_eligible(kind, group, config):
+                return name
+            if name in ("pallas_ring", "hier"):
                 log_debug("%s not eligible for quantized %s on group %s; keeping the "
                           "composed quant ring", name, kind, group_shape(group))
         return DEFAULT
@@ -244,6 +255,15 @@ def _quant_pallas_eligible(group: ProcessGroup, config) -> bool:
     return ring_kernels.eligible_quant(group, int(getattr(config, "quant_block_elems", 256)))
 
 
+def _quant_hier_eligible(kind: str, group: ProcessGroup, config) -> bool:
+    """The compressed two-tier wire serves allreduce on a tiered group."""
+    from mlsl_tpu_torch.comm.algos import hier
+
+    if kind != "allreduce":
+        return False
+    return hier.eligible_quant(group, int(getattr(config, "quant_block_elems", 256)))
+
+
 def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
     """-> fn: distributed buffer (R, D, S, M, n) -> result buffer, the
     calling convention of collectives.build_collective. ``algo='lax'`` is
@@ -270,6 +290,8 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
         from mlsl_tpu_torch.comm.algos import pallas_ring2d as impl
     elif algo == "pallas_a2a":
         from mlsl_tpu_torch.comm.algos import pallas_a2a as impl
+    elif algo == "hier":
+        from mlsl_tpu_torch.comm.algos import hier as impl
     else:
         from mlsl_tpu_torch.comm.algos import pallas_rhd as impl
     return impl.build(kind, group, **kw)
@@ -296,8 +318,8 @@ def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=Non
     ``(prep, phases, finish)`` over distributed buffers, ``prep(buf) ->
     carry``, each ``phases[i](carry) -> carry`` one collective phase (the
     unit the ZeRO-1 update interleaves between layers), ``finish(carry) ->
-    result buffer``. ``lax`` is one phase, the baseline collective; ``rhd``
-    and ``ring2d`` have the phases of their JAX schedules; the kernel
+    result buffer``. ``lax`` is one phase, the baseline collective; ``rhd``,
+    ``ring2d`` and ``hier`` have the phases of their JAX schedules; the kernel
     algorithms one phase, one launch (``plain``: their plain versions).
     ``count`` is the per-member element count. allreduce and reduce_scatter
     only."""
@@ -326,6 +348,10 @@ def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=Non
         from mlsl_tpu_torch.comm.algos import ring2d
 
         return ring2d.steps(kind, group, count, op=rop, recv_count=recv_count)
+    if algo == "hier":
+        from mlsl_tpu_torch.comm.algos import hier
+
+        return hier.steps(kind, group, count, op=rop, recv_count=recv_count)
     if algo == "pallas_rhd":
         from mlsl_tpu_torch.comm.algos import pallas_rhd
 

@@ -17,11 +17,24 @@ A group is axis-aligned (the ranks along some grid axes) or a color group
 ``mlsl_tpu.comm.mesh.ProcessGroup``). Color groups may be ragged: the group
 size is then the largest group's, and collectives pad to it
 (comm/collectives.py).
+
+Tiers (``mesh.py:72-153`` of the JAX package): ``MLSL_MESH_TIERS=TxL``
+splits the world's virtual ranks into T tiers of L contiguous ranks (tier =
+world rank // L), the synthetic two-tier world the ``hier`` lowering
+(comm/algos/hier.py) and the tuner's fingerprint read. The card sits alone,
+so this split is the only source of tiers: the JAX package's second source,
+TPU multislice's ``device.slice_index``, has no counterpart until a
+multi-process transport exists (ROADMAP A.8), and a world without the
+variable is flat. A world here is the virtual ranks of one Topology, so the
+JAX package's topologies over a subset of the devices have no counterpart
+either; the split must cover the topology's world exactly. The tier-aware
+survivor shrink (``survivor_devices``) is elastic, ROADMAP A.7.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from collections import Counter
 from typing import Optional, Tuple
 
@@ -33,6 +46,45 @@ SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
 GRID_AXES = (REPLICA_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
 NUM_GRID_AXES = len(GRID_AXES)
+
+
+def parse_mesh_tiers(spec: str) -> Optional[Tuple[int, int]]:
+    """``MLSL_MESH_TIERS='TxL'`` -> (T tiers, L ranks a tier), or None for
+    an empty spec. MLSLError on anything but two positive ints joined by
+    'x' (``mlsl_tpu.comm.mesh.parse_mesh_tiers``)."""
+    spec = (spec or "").strip().lower()
+    if not spec:
+        return None
+    parts = spec.split("x")
+    mlsl_assert(len(parts) == 2 and all(p.strip().isdigit() for p in parts),
+                "MLSL_MESH_TIERS must be 'TxL' (slices x devices-per-slice), got %r", spec)
+    t, l = int(parts[0]), int(parts[1])
+    mlsl_assert(t >= 1 and l >= 1, "MLSL_MESH_TIERS slices/locals must be >= 1 (got %dx%d)",
+                t, l)
+    return t, l
+
+
+def world_tier_ids(world_size: int) -> Optional[Tuple[int, ...]]:
+    """Each virtual rank's tier id (rank // L) under ``MLSL_MESH_TIERS``,
+    or None for a flat world (the variable unset). MLSLError when T*L is not
+    the world's size."""
+    spec = parse_mesh_tiers(os.environ.get("MLSL_MESH_TIERS", ""))
+    if spec is None:
+        return None
+    t, l = spec
+    mlsl_assert(t * l == world_size, "MLSL_MESH_TIERS=%dx%d does not cover the %d-rank world",
+                t, l, world_size)
+    return tuple(p // l for p in range(world_size))
+
+
+def world_tiers(world_size: int) -> Optional[Tuple[int, int]]:
+    """(T, L) of a tiered world, None for a flat one: the shape the
+    fingerprint of a tuner profile carries."""
+    ids = world_tier_ids(world_size)
+    if ids is None:
+        return None
+    t = len(set(ids))
+    return t, world_size // t
 
 
 class Topology:

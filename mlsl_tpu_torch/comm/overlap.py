@@ -13,6 +13,10 @@ for each; this module holds the schedule of the whole gradient sync instead:
   (``quant_ring.inline_body``: the composed ring with B1 on every hop, or B1
   and the fused int8 ring B4 where the selection table picks
   ``pallas_ring``), its error-feedback residual carried from step to step.
+  Where the table routes a quantized unit to ``hier`` (a tiered group), the
+  unit is staged: the intra-tier reduce-scatter, the compressed DCN hop as
+  its own phase, the intra-tier all-gather (``hier.quant_steps``), the
+  residual threaded through the carry.
 - ``build_plan`` orders the units newest-gradient-first and gives each unit
   ``per_tick = ceil(nphases / stages)`` (``MLSL_OVERLAP_STAGES``);
   ``emit_schedule`` emits them: each unit start is followed by a tick that
@@ -33,8 +37,8 @@ PyTorch runs eagerly, so the schedule is the order in which the phases are
 launched: on the card they queue on one stream in that order, in a captured
 graph as in an eager call. That order is the pin the JAX program needs
 ``lax.optimization_barrier`` (``_pin``) for; nothing here corresponds to it.
-The JAX engine's ``hier`` quantized unit, its ``MLSL_VERIFY`` plan check,
-chaos site and tracer span are not ported.
+The JAX engine's ``MLSL_VERIFY`` plan check, chaos site and tracer span are
+not ported.
 """
 
 from __future__ import annotations
@@ -72,7 +76,19 @@ class OverlapUnit:
         self.key: Optional[str] = None    # residual key (quantized units)
         self.err_len = 0
         self.per_tick = 1                 # phases advanced per tick (set by the plan)
-        if compression == CompressionType.QUANTIZATION:
+        self._quant_staged = False
+        if compression == CompressionType.QUANTIZATION and algo == "hier":
+            # the table routed the compressed wire through the two tiers:
+            # staged phases (overlap.py:92-111 of the JAX package)
+            from mlsl_tpu_torch.comm.algos import hier
+
+            self._qprep, self._phases, self._qfinish, self.err_len = hier.quant_steps(
+                group, self.total, block, codec=getattr(config, "hier_dcn_codec", None),
+                topk_ratio=float(getattr(config, "topk_ratio", 0.01)))
+            self._quant_staged = True
+            self.key = f"q{index}/{self.names[0]}"
+            self.nphases = len(self._phases)
+        elif compression == CompressionType.QUANTIZATION:
             self._body, self.err_len = quant_ring.inline_body(
                 "allreduce", group, self.total, block, config=config, plain=plain)
             self.key = f"q{index}/{self.names[0]}"
@@ -91,18 +107,22 @@ class OverlapUnit:
     def prep(self, flat: Dict[str, torch.Tensor], err: Optional[torch.Tensor]):
         x = (torch.cat([flat[n] for n in self.names], dim=-1) if len(self.names) > 1
              else flat[self.names[0]])
+        if self._quant_staged:
+            return self._qprep(x, err)
         if self.compression == CompressionType.QUANTIZATION:
             return x, err
         return self._prep(x)
 
     def advance(self, carry, i: int):
-        if self.compression == CompressionType.QUANTIZATION:
+        if self.compression == CompressionType.QUANTIZATION and not self._quant_staged:
             return self._body(*carry)
         return self._phases[i](carry)
 
     def finish(self, carry) -> Tuple[Dict[str, torch.Tensor], Optional[torch.Tensor]]:
         """-> ({member name: its reduced buffer}, the new residual or None)."""
-        if self.compression == CompressionType.QUANTIZATION:
+        if self._quant_staged:
+            out, new_err = self._qfinish(carry)
+        elif self.compression == CompressionType.QUANTIZATION:
             out, new_err = carry
         else:
             out, new_err = self._finish(carry), None
@@ -154,8 +174,15 @@ def _unit_algo(group: ProcessGroup, payload: int, compression: CompressionType, 
                forced: Optional[str]) -> str:
     """A dense unit's algorithm: ``forced``, else the selection table, and
     the baseline where the choice cannot serve the group in stages. A
-    compressed unit carries its own wire family (OverlapUnit)."""
+    compressed unit carries its own wire family (OverlapUnit), except that a
+    forced or tuned ``hier`` stages a quantized unit over the two tiers when
+    the group qualifies (overlap.py:223-232 of the JAX package)."""
     if compression != CompressionType.NONE:
+        if compression == CompressionType.QUANTIZATION and config is not None:
+            name = forced or algos.select("allreduce", group, payload, compression, config,
+                                          op=ReductionType.SUM)
+            if name == "hier" and algos._quant_hier_eligible("allreduce", group, config):
+                return "hier"
         return algos.DEFAULT
     name = forced or algos.select("allreduce", group, payload, compression, config,
                                   op=ReductionType.SUM)

@@ -23,7 +23,8 @@ JAX ring (quant_ring.py:48-56).
 The ``ring="pallas"`` wire runs the same entry error feedback (kernel B1) and
 then the whole ring as one launch of the fused int8 ring kernel B4
 (ops/ring_kernels.py), which the selection table picks for a forced or tuned
-``pallas_ring``.
+``pallas_ring``. The ``ring="hier"`` wire is the two-tier lowering of
+comm/algos/hier.py, for a forced or tuned ``hier``.
 """
 
 from __future__ import annotations
@@ -191,6 +192,7 @@ def inline_body(kind: str, group: ProcessGroup, count: int, block: int, *, confi
 def build_quantized_collective(
     kind: str, group: ProcessGroup, count: int, block: int, *,
     ring: str = "lax", bidir: bool = False, plain: bool = False,
+    dcn_codec: Optional[str] = None, topk_ratio: float = 0.01,
 ) -> Tuple[Callable, int]:
     """-> (fn (buf, err) -> (result, new_err), error-feedback length).
 
@@ -205,10 +207,31 @@ def build_quantized_collective(
     but the chunks align to ``ring_kernels.quant_geometry``'s units, so
     ``err_len`` differs from the composed ring's. ``bidir`` runs the second
     half of each chunk's block rows the other way round. ``plain`` runs the
-    kernels' plain versions on any device (the card's parity checks)."""
+    kernels' plain versions on any device (the card's parity checks).
+    ``ring="hier"``: the two-tier wire (comm/algos/hier.py, quant_ring.py:
+    250-290 of the JAX package), allreduce on a tiered group; ``dcn_codec``
+    (None: MLSL_HIER_DCN_CODEC, else int8) applies on the inter-tier hop
+    only and ``topk_ratio`` is the top-k codec's. Its residual covers each
+    member's own 1/L shard (``hier.flush_residual`` places it); it launches
+    no kernel, so ``plain`` changes nothing."""
     mlsl_assert(kind in ("allreduce", "reduce_scatter"),
                 "quantized collectives support allreduce/reduce_scatter (got %s)", kind)
-    mlsl_assert(ring in ("lax", "pallas"), "quantized ring wire %r is not ported", ring)
+    mlsl_assert(ring in ("lax", "pallas", "hier"), "quantized ring wire %r is not ported",
+                ring)
+    if ring == "hier":
+        from mlsl_tpu_torch.comm.algos import hier
+
+        mlsl_assert(hier.tier_structure(group) is not None,
+                    "hier quantized wire needs a tiered group (MLSL_MESH_TIERS)")
+        body, err_len = hier.quant_body(kind, group, count, block,
+                                        codec=hier.dcn_codec(dcn_codec), topk_ratio=topk_ratio)
+
+        def hier_fn(buf: torch.Tensor, err: torch.Tensor):
+            mlsl_assert(buf.shape[-1] == count, "buffer count %d != request count %d",
+                        buf.shape[-1], count)
+            return body(buf, err)
+
+        return hier_fn, err_len
     quantize = qk.quantize_blocks_ref if plain else qk.quantize_blocks
     if ring == "pallas":
         from mlsl_tpu_torch.comm.collectives import world_view

@@ -44,8 +44,10 @@ next. The compressed wires (request.py:183-430 of the JAX package):
   assignment, ``config.codec``, or ``desc.codec`` pinned by a bucket or a
   demotion; ``codecs.assigned`` orders them): the same ring through
   ``Codec.as_custom()`` (``algo`` "codec:<name>");
-- int8: the int8 ring of comm/quant_ring.py, composed or fused (B4), as
-  before.
+- int8: the int8 ring of comm/quant_ring.py, composed or fused (B4), or, for
+  a forced or tuned ``hier`` allreduce on a tiered group, the two-tier wire
+  (``algo`` "hier": ``config.hier_dcn_codec`` on the DCN hop, a residual
+  over each member's own shard, ``_err_layout`` "hier").
 
 ``codec_name`` and ``codec_source`` name the resolved codec and where it came
 from; every start adds the compressed image of the payload to the codec's
@@ -168,6 +170,10 @@ class CommRequest:
         self._codec_geoms: Optional[List[dict]] = None
         self._codec_demoted = False
         self._pending_flush: Optional[tuple] = None
+        # the residual's layout ('ring', 'flat' or 'hier') and, for 'hier',
+        # (L, the members' intra-tier ranks (R, D, S, M)): what a flush reads
+        self._err_layout = "ring"
+        self._hier_meta: Optional[tuple] = None
         with CommRequest._seq_lock:
             CommRequest._seq += 1
             self.uid = CommRequest._seq
@@ -243,6 +249,7 @@ class CommRequest:
         self._chunk_slices = [slice(None)]
         self._plain_build = lambda: [fn]     # noqa: E731 (no kernel: its own twin)
         self._plain_fns = None
+        self._err_layout = "flat"
         self.algo = "topk"
         # the sparse image: k (value, index) pairs of the whole payload
         self._wire_rec = ("topk", 8 * max(1, int(d.count * ratio)))
@@ -297,17 +304,34 @@ class CommRequest:
             self._plain_build = lambda: fns      # noqa: E731 (no kernel of its own)
         else:
             # a forced or tuned 'pallas_ring' routes the same compressed wire
-            # through the fused int8 ring kernel (quant_ring ring='pallas')
-            fused = algos.select(d.kind, d.group, self._payload, d.compression, cfg,
-                                 op=d.op) == "pallas_ring"
-            self.algo = "pallas_ring" if fused else "quant_ring"
-            qkw = dict(ring="pallas" if fused else "lax", bidir=cfg.pallas_ring_bidir)
+            # through the fused int8 ring kernel (quant_ring ring='pallas'),
+            # a forced or tuned 'hier' through the two-tier wire, whose codec
+            # applies on the DCN hop only (ring='hier')
+            sel = algos.select(d.kind, d.group, self._payload, d.compression, cfg, op=d.op)
+            if sel == "hier":
+                self.algo = "hier"
+                qkw = dict(ring="hier", dcn_codec=cfg.hier_dcn_codec,
+                           topk_ratio=cfg.topk_ratio)
+            else:
+                fused = sel == "pallas_ring"
+                self.algo = "pallas_ring" if fused else "quant_ring"
+                qkw = dict(ring="pallas" if fused else "lax", bidir=cfg.pallas_ring_bidir)
             built = [quant_ring.build_quantized_collective(d.kind, d.group, n, block, **qkw)
                      for n in sizes]
             self._plain_build = lambda: [quant_ring.build_quantized_collective(   # noqa: E731
                 d.kind, d.group, n, block, plain=True, **qkw)[0] for n in sizes]
         self._quant_fns = [fn for fn, _ in built]
         self._err_lens = [el for _, el in built]
+        if self.algo == "hier":
+            # each member's residual covers its own 1/L shard; a flush puts
+            # it back at the shard's logical offset through the members'
+            # intra-tier ranks (request.py:379-389 of the JAX package)
+            from mlsl_tpu_torch.comm.algos import hier
+
+            self._err_layout = "hier"
+            self._hier_meta = (hier.tier_structure(d.group)[1], hier.intra_positions(d.group))
+        else:
+            self._err_layout = "ring"
         # the wire accounting: the compressed image of one full payload
         g = 1 if d.group.is_self else d.group.size
         if reg_codec is not None:
@@ -332,22 +356,34 @@ class CommRequest:
         """(buf, residuals) -> buf as float32 plus each chunk's residual in the
         logical layout at its slice: how a demotion delivers the old wire's
         undelivered gradient (``_degrade_programs``' flush, request.py:839-877
-        of the JAX package)."""
+        of the JAX package). The residual's layout is the wire's: logical
+        already (``flat``, the sparse wire), the ring's chunks (``ring``), or
+        each member's own shard (``hier``, placed by ``hier.flush_residual``
+        at the member's intra-tier offset)."""
         from mlsl_tpu_torch.comm.quant_ring import logical_residual
 
         d = self.desc
         g = 1 if d.group.is_self else d.group.size
         rs = d.kind == "reduce_scatter"
-        flat = self.algo == "topk"
+        layout = self._err_layout
         slices = list(self._chunk_slices)
         sizes = [d.count if sl == slice(None) else sl.stop - sl.start for sl in slices]
         lens = list(self._err_lens)
+        if layout == "hier":
+            from mlsl_tpu_torch.comm.algos import hier
+
+            hier_l, l_np = self._hier_meta
+            l_idx = torch.from_numpy(l_np)
 
         def flush(buf, errs):
             x = buf.to(torch.float32).clone()
             for sl, n, el, e in zip(slices, sizes, lens, errs):
-                res = e if flat else logical_residual(e, g, el // g, n // g if rs else -(-n // g),
-                                                      n)
+                if layout == "flat":
+                    res = e
+                elif layout == "hier":
+                    res = hier.flush_residual(e, l_idx.to(e.device), hier_l, el, n)
+                else:
+                    res = logical_residual(e, g, el // g, n // g if rs else -(-n // g), n)
                 x[..., sl] += res
             return x
 

@@ -9,7 +9,8 @@ eplib/env.c:135-165), the collective algorithm engine with its tuned profile
 and kernel knobs (comm/algos, tuner/, ops/), the compiled overlap engine
 with the staging depth it shares with the ZeRO-1 update (comm/overlap.py), and
 the compressed wires beyond int8: the top-k ratio, a user codec, the codec
-registry's knobs and its calibration (codecs/, tuner/calibrate.py).
+registry's knobs and its calibration (codecs/, tuner/calibrate.py), and the
+two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py).
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -39,6 +40,7 @@ _ENV_FIELDS = {
     "MLSL_VQ_DIM": "vq_dim",
     "MLSL_VQ_CODEBOOK": "vq_codebook",
     "MLSL_PRUNE_RATIO": "prune_ratio",
+    "MLSL_HIER_DCN_CODEC": "hier_dcn_codec",
 }
 
 # the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
@@ -115,8 +117,16 @@ class Config:
     vq_dim: int = 4                 # MLSL_VQ_DIM: elements a vector
     vq_codebook: int = 16           # MLSL_VQ_CODEBOOK: rows (one index byte a vector)
     prune_ratio: float = 0.05       # MLSL_PRUNE_RATIO: the pruning codec's keep ratio
-    # The 'hier' lowering's DCN codec; 'hier' is not ported, so a value raises.
-    hier_dcn_codec: str = ""        # MLSL_HIER_DCN_CODEC
+    # The synthetic two-tier split 'TxL' (T tiers of L virtual ranks, world
+    # rank // L): the world the 'hier' lowering sees as tiered
+    # (comm/mesh.world_tier_ids, which reads the environment variable on each
+    # build). The grammar is checked here; that T*L covers the world, where
+    # the world is known.
+    mesh_tiers: str = ""            # MLSL_MESH_TIERS
+    # The 'hier' lowering's DCN-tier codec (comm/algos/hier.py): 'int8' (the
+    # shared-scale integer sum), 'f32', 'topk', or the registry's 'vq' and
+    # 'prune'. The intra-tier phases are always float32.
+    hier_dcn_codec: str = "int8"    # MLSL_HIER_DCN_CODEC
 
     # --- collective algorithm engine (comm/algos) + tuned profile (tuner/) ---
     # Forced algorithm: '' = auto (tuned profile, else the 'lax' baseline).
@@ -124,7 +134,8 @@ class Config:
     # entries ('allreduce=rhd,reduce_scatter=ring2d'); validate() parses it
     # into _forced_algos and rejects names the port does not have.
     collective_algo: str = ""       # MLSL_ALGO
-    # The autotuner's sweep; not ported (tuner.init_profile rejects it).
+    # Run the autotuner's sweep at init over the live world (tuner/sweep.py),
+    # write the profile and use it.
     tune: bool = False              # MLSL_TUNE
     # Profile file read at init (tuner.init_profile). A profile measured on
     # another topology is rejected with a warning; a missing or corrupt file
@@ -206,9 +217,17 @@ class Config:
                     "got %d)", self.vq_codebook)
         mlsl_assert(0.0 < self.prune_ratio <= 1.0,
                     "MLSL_PRUNE_RATIO must be in (0, 1] (got %r)", self.prune_ratio)
-        mlsl_assert(not self.hier_dcn_codec,
-                    "MLSL_HIER_DCN_CODEC=%s: the 'hier' lowering is not ported yet",
-                    self.hier_dcn_codec)
+        # the MLSL_MESH_TIERS grammar (comm/mesh.parse_mesh_tiers)
+        spec = (self.mesh_tiers or "").strip().lower()
+        if spec:
+            parts = spec.split("x")
+            mlsl_assert(len(parts) == 2
+                        and all(p.strip().isdigit() and int(p) >= 1 for p in parts),
+                        "MLSL_MESH_TIERS must be 'TxL' with positive ints (got %r)",
+                        self.mesh_tiers)
+        mlsl_assert(self.hier_dcn_codec in _CODEC_NAMES,
+                    "MLSL_HIER_DCN_CODEC must be one of %s (got %r)",
+                    "/".join(_CODEC_NAMES), self.hier_dcn_codec)
         mlsl_assert(self.pallas_rhd_max_bytes >= 0,
                     "MLSL_PALLAS_RHD_MAX_BYTES must be >= 0 (0 = derive from "
                     "MLSL_MSG_PRIORITY_THRESHOLD; got %d)", self.pallas_rhd_max_bytes)
@@ -250,5 +269,7 @@ class Config:
         c.vq_dim = _env_int("MLSL_VQ_DIM", c.vq_dim)
         c.vq_codebook = _env_int("MLSL_VQ_CODEBOOK", c.vq_codebook)
         c.prune_ratio = _env_float("MLSL_PRUNE_RATIO", c.prune_ratio)
-        c.hier_dcn_codec = os.environ.get("MLSL_HIER_DCN_CODEC", "").strip().lower()
+        c.mesh_tiers = os.environ.get("MLSL_MESH_TIERS", c.mesh_tiers).strip()
+        c.hier_dcn_codec = (os.environ.get("MLSL_HIER_DCN_CODEC", "").strip().lower()
+                            or c.hier_dcn_codec)
         return c

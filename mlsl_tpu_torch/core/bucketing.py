@@ -34,7 +34,7 @@ Not ported, by design or for now:
   a failed kernel inside a bucket raises to every member -- also when it
   fails at the Start that dispatches it, where the JAX package raises only
   to that caller -- and never quietly re-runs on another route;
-- the ``checker``, ``supervisor`` and ``obs`` hooks (ROADMAP A.8, A.12);
+- the ``checker``, ``supervisor`` and ``obs`` hooks (ROADMAP A.7);
 - the stats' round-event ring and wire-saved estimate: nothing reads them.
 """
 

@@ -308,7 +308,11 @@ class Session:
         coalesced requests -- so that the first step builds no kernel, table
         or plan (``Session.precompile_collectives``, session.py:336-380 of
         the JAX package). Round state is left as it was. -> the number of
-        programs run."""
+        programs run. The JAX package keys its plan cache by each request's
+        algorithm, and a ``hier`` request also by its DCN codec and tier
+        split, so that a changed codec is warmed again; the port keeps no
+        plan cache and warms every request of the graph at each commit,
+        under the codec it was built with (``req._hier_meta``)."""
         n = 0
         seen = set()
 

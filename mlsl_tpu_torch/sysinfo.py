@@ -60,18 +60,24 @@ def probe(device: int = 0) -> SysInfo:
 
 def topology_fingerprint(world_size: int, device: torch.device) -> dict:
     """The identity a tuner profile is keyed by (``mlsl_tpu.sysinfo``'s
-    keys): platform, the card's name, the number of virtual ranks and hosts.
-    A profile measured on a TPU, on another card or at another world size
-    is stale here. ``device``: the Environment's device."""
+    keys): platform, the card's name, the number of virtual ranks and hosts,
+    and the two-tier shape ``[T, L]`` of an ``MLSL_MESH_TIERS`` world (None
+    for a flat one: a profile swept with ``hier`` cells must not steer a
+    flat world, nor the reverse). A profile measured on a TPU, on another
+    card or at another world size is stale here. ``device``: the
+    Environment's device."""
+    from mlsl_tpu_torch.comm.mesh import world_tiers
+
     device = torch.device(device)
     if device.type == "cuda":
         si = probe(torch.cuda.current_device() if device.index is None else device.index)
     else:
         si = SysInfo("cpu", "cpu", 0, (), 0)
+    tiers = world_tiers(int(world_size))
     return {
         "platform": si.platform,
         "device_kind": si.device_kind,
         "num_devices": int(world_size),
         "num_hosts": 1,
-        "tiers": None,
+        "tiers": list(tiers) if tiers is not None else None,
     }

@@ -1,19 +1,17 @@
 """Tuner profile: the persisted selection table and tuned knob set.
 
 Counterpart of ``mlsl_tpu.tuner.profile``: the load path and ``save``, which
-the codec calibration (tuner/calibrate.py) writes its table with (the
-algorithm sweep is not ported). A profile is one JSON document keyed by a
+the sweep (tuner/sweep.py) and the codec calibration (tuner/calibrate.py)
+write theirs with. A profile is one JSON document keyed by a
 topology fingerprint (``sysinfo.topology_fingerprint``). Cells map (kind,
 group shape, compression, payload band) to an algorithm; knobs are whole-config
 values. The file format is the JAX package's.
 
 Load contract: a missing or corrupt file, an unknown version, an unknown
-algorithm or an out-of-range value of a knob the port has is an MLSLError
-at init. A cell naming an
-algorithm that the JAX registry has and the port does not (``hier``) is an
-MLSLError too, saying so. ``alltoall`` cells name ``lax`` or ``pallas_a2a``.
-The ``codecs`` table (request name -> calibration cell) must name registry
-codecs.
+algorithm, an out-of-range value of a knob the port has or a string knob
+outside its choices (``KNOB_CHOICES``: ``hier_dcn_codec``) is an MLSLError
+at init. ``alltoall`` cells name ``lax`` or ``pallas_a2a``. The ``codecs``
+table (request name -> calibration cell) must name registry codecs.
 """
 
 from __future__ import annotations
@@ -34,6 +32,8 @@ DEFAULT_PROFILE_FILE = "mlsl_tune_profile.json"
 #: tuner names them in a warning and applies none of them.
 KNOB_RANGES = {
     "msg_priority_threshold": 1,
+    "grad_bucket_mb": 0,
+    "overlap_stages": 1,
     "large_msg_size_mb": 0,
     "large_msg_chunks": 1,
     "quant_block_elems": 1,
@@ -44,6 +44,13 @@ KNOB_RANGES = {
     "vq_dim": 1,
     "vq_codebook": 2,
     "prune_ratio": 1e-4,
+}
+
+
+#: string-valued knobs -> their legal values (the JAX package's), checked at
+#: load like KNOB_RANGES: the 'hier' lowering's DCN codec
+KNOB_CHOICES = {
+    "hier_dcn_codec": ("int8", "f32", "topk", "vq", "prune"),
 }
 
 
@@ -146,6 +153,11 @@ def load_profile(path: str) -> TunedProfile:
         if isinstance(v, bool) or not isinstance(v, (int, float)) or v < lo:
             raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has invalid knob {name}={v!r} "
                             f"(expected a number >= {lo})")
+    for name, choices in KNOB_CHOICES.items():
+        v = knobs.get(name)
+        if v is not None and v not in choices:
+            raise MLSLError(f"MLSL_TUNE_PROFILE file {path} has invalid knob {name}={v!r} "
+                            f"(expected one of {', '.join(choices)})")
     codec_cells = doc.get("codecs", {}) or {}
     if not isinstance(codec_cells, dict) or not all(
             isinstance(k, str) and isinstance(v, dict) and isinstance(v.get("codec"), str)

@@ -6,8 +6,8 @@ the JAX package's, and its composed lowerings against the JAX ones.
   payload x compression x op x forced / tuned / heuristic configuration. The
   JAX side runs with MLSL_PALLAS_INTERPRET=1 so that its kernel algorithms are
   eligible off the TPU, as the port's always are.
-- Names the JAX registry has and the port lacks raise MLSLError, as do
-  unknown names and MLSL_TUNE=1.
+- Unknown algorithm names raise MLSLError, as in the JAX package; MLSL_TUNE=1
+  sweeps at init.
 - A tuned profile written to a file selects its cell through a CommRequest;
   a profile measured elsewhere is rejected with a warning.
 - The composed ``rhd`` is bit-exact against ``mlsl_tpu.comm.algos.rhd`` on
@@ -140,18 +140,11 @@ def test_select_matches_jax(forced, tuned):
                                   "reduce_scatter=pallas_a2a", "alltoall=lax", "nope",
                                   "allreduce=nope", "bcast=rhd", "allreduce"])
 def test_names_not_ported_raise(spec, monkeypatch):
-    """``hier`` is not ported and raises saying so; every other spec parses
-    as the JAX package's parse_forced does: the same result where JAX
+    """Every spec parses as the JAX package's parse_forced does (``hier``
+    too, since the two-tier lowering is ported): the same result where JAX
     accepts it, MLSLError (and no Environment) where JAX raises."""
     monkeypatch.setenv("MLSL_ALGO", spec)
     env = Environment.get_env()
-    if "hier" in spec:
-        with pytest.raises(MLSLError, match="not ported yet"):
-            talgos.parse_forced(spec)
-        with pytest.raises(MLSLError):
-            env.init(device="cpu", world_size=8)
-        assert not Environment.is_initialized()
-        return
     try:
         want = jalgos.parse_forced(spec)
     except Exception:
@@ -169,7 +162,7 @@ def test_names_not_ported_raise(spec, monkeypatch):
         env.finalize()
 
 
-def test_config_fields_and_validation(monkeypatch):
+def test_config_fields_and_validation(monkeypatch, tmp_path):
     jc, tc = JConfig(), TConfig()
     for name in ("collective_algo", "tune", "tune_profile", "tuned_profile",
                  "pallas_ring_bidir", "pallas_rhd", "pallas_rhd_max_bytes"):
@@ -190,11 +183,18 @@ def test_config_fields_and_validation(monkeypatch):
     bad.pallas_rhd_max_bytes = -1
     with pytest.raises(MLSLError, match="RHD_MAX_BYTES"):
         bad.validate()
-    monkeypatch.delenv("MLSL_TUNE_PROFILE")
+    # MLSL_TUNE=1 sweeps at init (tests/test_torch_tuner_sweep.py) and writes
+    # the profile where MLSL_TUNE_PROFILE points
+    monkeypatch.setenv("MLSL_TUNE_PROFILE", str(tmp_path / "swept.json"))
     monkeypatch.setenv("MLSL_TUNE", "1")
-    with pytest.raises(MLSLError, match="not ported yet"):
-        Environment.get_env().init(device="cpu", world_size=8)
-    assert not Environment.is_initialized()
+    monkeypatch.setenv("MLSL_TUNE_SIZES", "4")
+    monkeypatch.setenv("MLSL_TUNE_ITERS", "1")
+    env = Environment.get_env().init(device="cpu", world_size=8)
+    try:
+        assert env.config.tune and env.config.tuned_profile is not None
+        assert (tmp_path / "swept.json").exists()
+    finally:
+        env.finalize()
 
 
 # -- requests select through the table -------------------------------------------
@@ -275,7 +275,7 @@ def test_tuned_profile_selects_its_cell(tmp_path, monkeypatch, caplog):
     try:
         assert env.config.tuned_profile is not None
         assert env.config.pallas_rhd_max_bytes == 4096
-        assert "overlap_stages" in caplog.text
+        assert env.config.overlap_stages == 3              # a knob the sweep writes
         assert env.config.codec_assignment == {"l1": {"codec": "int8"}}   # applied
         assert "pallas_ring_slots" in caplog.text          # named, not applied
         assert not hasattr(env.config, "pallas_ring_slots")
@@ -324,7 +324,8 @@ def test_mismatched_fingerprint_is_rejected_with_a_warning(tmp_path, monkeypatch
 @pytest.mark.parametrize("doc,match", [
     (None, "missing file"), ("{not json", "corrupt"), ({"cells": []}, "not a tuner profile"),
     ({"version": 2, "fingerprint": {}, "cells": []}, "unsupported version"),
-    ({"version": 1, "fingerprint": {}, "cells": [{"algo": "hier"}]}, "not ported yet"),
+    ({"version": 1, "fingerprint": {}, "cells": [], "knobs": {"hier_dcn_codec": "fp8"}},
+     "hier_dcn_codec"),
     ({"version": 1, "fingerprint": {}, "cells": [{"algo": "nope"}]}, "not a registered"),
     ({"version": 1, "fingerprint": {}, "cells": [], "knobs": {"pallas_rhd_max_bytes": -1}},
      "invalid knob"),

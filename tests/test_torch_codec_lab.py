@@ -23,9 +23,9 @@ Tolerances:
 - the guardrail: the flush round and the rounds after it bit for bit a fresh
   int8 request fed the flushed payload.
 
-Not mirrored here, because they need modules this package has not ported:
-the two-tier DCN hop (``test_hier_dcn_hop_through_registry``, ``hier``,
-ROADMAP A.3), the sentinel's feed into ``guard_note``
+The two-tier DCN hop (``test_hier_dcn_hop_through_registry``) is held in
+tests/test_torch_hier.py. Not mirrored, because they need modules this
+package has not ported: the sentinel's feed into ``guard_note``
 (``test_sentinel_gate_feeds_guardrail``) and ``supervisor.status()``
 (``test_supervisor_status_codecs_section``; ``codecs.status()`` is tested
 instead), both ROADMAP A.7, and the codec-lab bench smoke.
@@ -263,11 +263,17 @@ def test_vq_learned_codebook_matches_jax_and_reduces_nsr():
 
 
 def test_hier_names_still_raise():
-    with pytest.raises(MLSLError, match="not ported"):
-        codecs.get("int8").hier_aggregate(torch.zeros(8), axis="data", inter=None, t=2)
+    """The two-tier DCN hop is ported (tests/test_torch_hier.py): every
+    registry codec serves it, and only a name outside the DCN codecs raises."""
+    xq = torch.linspace(-1.0, 1.0, 2 * 4 * 256).reshape(1, 2, 4, 256)
+    for name in NAMES:
+        red, err = codecs.get(name).hier_aggregate(xq, t=2)
+        assert red.shape == err.shape == xq.shape
     cfg = Config()
     cfg.hier_dcn_codec = "int8"
-    with pytest.raises(MLSLError, match="hier"):
+    cfg.validate()
+    cfg.hier_dcn_codec = "fp4"
+    with pytest.raises(MLSLError, match="HIER_DCN_CODEC"):
         cfg.validate()
 
 
