@@ -340,6 +340,37 @@ Phases, in order; any failure exits non-zero and prints no result:
              on the lowering its quantized cell names; a flat world rejects the
              profile with a warning.
 
+37. feed (run (w), after 36): config 5 (ResNet-50, 224 x 224 x 3, global
+             batch 64 on 8 data ranks, cuDNN deterministic, lr FEED_LR) fed
+             through trainer.feed, 2 epochs of 4 batches from SEED: (w1) raw
+             uint8 images normalized by ImageNet's mean and std on the card,
+             the epoch cached: the first decoded batch bit for bit the host's
+             float32 math, the first 3 losses bit for bit the same trainer's
+             fed by shard_batch on the host-decoded batches, epoch 2 staging
+             nothing (every read a cache hit); (w2) float32 images on the int8
+             wire: B2 launched once a decoded batch (8), the decoded batch bit
+             for bit dequantize_blocks_ref of the numpy encode, wire and full
+             bytes those of the layout; (w3) (w1)'s feed at depth 2 into the
+             compiled overlap engine (MLSL_OVERLAP_COMPILED=1), its step
+             captured while the loader's worker runs (held off the card for
+             the capture by graph_capture.CAPTURE_LOCK), the first 3 losses
+             within the twin tolerances of (w1)'s. One line a batch: wire and full
+             bytes, the copy's and the decode's ms on the card, the loader's
+             stall and producer wait, the step seconds (and shard_batch's).
+38. pipeline (run (x), after 37): 12 residual MLP blocks at gpt-medium-2k's
+             widths (d_model 1,024, d_ff 4,096, float32) on a (2 data x 4
+             model) grid, 8 microbatches of 1,024 tokens a data shard: GPipe
+             (pipeline_loss and autograd, remat off and on), 1F1B and
+             interleaved 1F1B (3 chunks of 1 block), each against a dense
+             oracle (the 12 blocks in sequence on each data shard) within
+             PIPE_LOSS_RTOL and PIPE_GRAD_TOL; 1F1B's peak memory below
+             GPipe's; then reduce_microbatch_grads of 1F1B's stage gradients
+             over the data group on B3 (MLSL_ALGO=pallas_ring), B5
+             (pallas_rhd) and int8 (B1 + B4), launches as the plan predicts,
+             each bit for bit its plain version; inline_allreduce forced to
+             B3 and to B5. One line a schedule (step seconds, peak GiB, bubble
+             share) and one a reduction route (ms a call).
+
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
 
@@ -1137,7 +1168,7 @@ def entry(*, name, source, replaces, launches, per_path, shape, err, ms, plain_m
     }
 
 
-def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev):
+def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev, tag=None):
     gen = torch.Generator().manual_seed(SEED + 9)
     x = _rows(torch, rows, block, dev, gen)
     elems = rows * block
@@ -1158,6 +1189,8 @@ def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev):
         name, replaces = "dequantize_blocks", "mlsl_tpu/ops/quant_kernels.py:140"
     ms = time_ms(torch, fn)
     qk.LAUNCHES.update(before)      # timing launches are not the path's
+    if tag:
+        name += f" ({tag})"
     return entry(name=name, source="mlsl_tpu_torch/csrc/quant_kernels.cu", replaces=replaces,
                  launches=sum(per_path.values()), per_path=per_path, shape=[rows, block],
                  err=err, ms=ms, plain_ms=time_ms(torch, plain), library_ms=None,
@@ -5346,6 +5379,535 @@ def run_tuned(torch, np, get_env, launches, reset_launches):
     return used, lines
 
 
+# -- the device feed (run (w)) and the pipeline schedules (run (x)) ------------------
+
+# run (w): config 5 (ResNet-50, 224 x 224 x 3 NHWC, 1000 classes, global batch 64 on
+# 8 data ranks) fed through trainer.feed: 2 epochs of FEED_BATCHES batches
+FEED_BATCHES = 4
+FEED_EPOCHS = 2
+FEED_IMAGE, FEED_CLASSES, FEED_BATCH = 224, 1000, 64
+FEED_LR = 0.01                # 8 steps on 4 random-label batches: below config 5's 0.05
+FEED_CACHE_MB = 64            # holds an epoch of uint8 (4 x 9.6 MB) or int8 wire
+# ImageNet's channel mean and std, in 0-255 pixel units
+FEED_MEAN = (123.675, 116.28, 103.53)
+FEED_STD = (58.395, 57.12, 57.375)
+
+
+class FeedProbe:
+    """Records, while it is installed, every batch FeedCodec stages (its wire
+    batch with its copy events, wire and full bytes) and the CUDA events
+    around every decode. Installed on the class, so that the codec
+    ``trainer.feed`` builds is the one probed."""
+
+    def __init__(self, torch):
+        from mlsl_tpu_torch.data.wire import FeedCodec
+
+        self.staged, self.decodes = [], []
+        self._cls = FeedCodec
+        self._stage, self._decode = FeedCodec.stage, FeedCodec.decode
+        probe = self
+
+        def stage(codec, host_batch, corrupt=False):
+            out = probe._stage(codec, host_batch, corrupt)
+            probe.staged.append(out)
+            return out
+
+        def decode(codec, wire_batch, donate=False):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = probe._decode(codec, wire_batch, donate)
+            e.record()
+            probe.decodes.append((s, e))
+            return out
+
+        FeedCodec.stage, FeedCodec.decode = stage, decode
+
+    def remove(self):
+        self._cls.stage, self._cls.decode = self._stage, self._decode
+
+    def copy_ms(self):
+        return [w.copy_ms() for w, _, _ in self.staged]
+
+    def decode_ms(self):
+        return [s.elapsed_time(e) for s, e in self.decodes]
+
+
+def feed_batches(np, kind, seed):
+    """FEED_BATCHES host batches of config 5's shape from ``seed``: raw uint8
+    pixels or float32 normal images, int32 labels."""
+    rng = np.random.default_rng(seed)
+    shape = (FEED_BATCH, FEED_IMAGE, FEED_IMAGE, 3)
+    out = []
+    for _ in range(FEED_BATCHES):
+        if kind == "uint8":
+            x = rng.integers(0, 256, size=shape, dtype=np.uint8)
+        else:
+            x = rng.normal(size=shape).astype(np.float32)
+        out.append((x, rng.integers(0, FEED_CLASSES, size=(FEED_BATCH,)).astype(np.int32)))
+    return out
+
+
+def feed_b2_rows(block):
+    """B2's rows for one decoded config 5 batch on the int8 wire: each of the 8
+    shards padded to whole block x ROW_TILE units (data/wire.py)."""
+    from mlsl_tpu_torch.data.wire import ROW_TILE
+
+    n = FEED_BATCH // WORLD * FEED_IMAGE * FEED_IMAGE * 3
+    unit = block * ROW_TILE
+    return WORLD * (-(-n // unit) * unit) // block
+
+
+def feed_trainer(torch, env, np):
+    """Config 5's int8 trainer at run (w)'s sizes and FEED_LR (its own batch
+    dropped)."""
+    trainer, _ = build_resnet_trainer(torch, env, np, image=FEED_IMAGE,
+                                      classes=FEED_CLASSES, batch=FEED_BATCH)
+    trainer.lr = FEED_LR
+    return trainer
+
+
+def fed_steps(torch, trainer, loader):
+    """Step ``trainer`` on every batch ``loader`` yields. -> (per-rank losses,
+    step seconds, the loader's stall and producer-wait ms after each batch,
+    the decoded batches' first leaf of batch 0 on the host)."""
+    losses, secs, waits, first = [], [], [], None
+    while True:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            batch = next(loader)
+        except StopIteration:
+            break
+        loss = trainer.step(batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        st = loader.stats()
+        waits.append((st["stall_ms"], st["producer_wait_ms"]))
+        losses.append(loss.detach().reshape(-1).cpu())
+        if first is None:
+            first = batch[0][:, :, 0, 0].cpu()
+    return losses, secs, waits, first
+
+
+def feed_lines(tag, probe, secs, waits, twin_secs=None):
+    """One line a fed batch: staged wire and full bytes, the copy and the
+    decode on the card, the loader's stall and producer wait (cumulative),
+    the step seconds (fed, and shard_batch's where there is a twin)."""
+    copies, decodes = probe.copy_ms(), probe.decode_ms()
+    lines = []
+    for i, s in enumerate(secs):
+        row = {"batch": i, "step_s": s, "stall_ms": waits[i][0],
+               "producer_wait_ms": waits[i][1], "decode_ms": decodes[i]}
+        if i < len(probe.staged):
+            _, wb, fb = probe.staged[i]
+            row.update(wire_bytes=wb, full_bytes=fb, h2d_ms=copies[i])
+        else:
+            row["cache_hit"] = True
+        if twin_secs and i < len(twin_secs):
+            row["shard_batch_step_s"] = twin_secs[i]
+        lines.append(f"# feed {tag} {json.dumps(row)}")
+    return lines
+
+
+def run_feed(torch, np, get_env, launches, reset_launches):
+    """Run (w): config 5 fed through trainer.feed, 2 epochs of 4 batches.
+
+    (w1) raw uint8 images normalized by ImageNet's mean and std on the
+    card, cache for the epoch: the first decoded batch bit for bit the host's
+    float32 math; the first 3 losses bit for bit those of the same trainer fed
+    by shard_batch on the host-decoded batches (cuDNN deterministic, as
+    (h)-(k)); epoch 2 stages nothing, every read a cache hit.
+    (w2) float32 images on the int8 wire: B2 once a decoded batch; the
+    decoded batch bit for bit dequantize_blocks_ref of the numpy encode;
+    wire bytes as the layout gives them.
+    (w3) (w1)'s feed at depth 2 into the compiled overlap engine
+    (MLSL_OVERLAP_COMPILED=1), the step captured while the loader's worker,
+    slowed to one batch a quarter second, stages the next batches (it holds
+    off the card for the capture): its first 3 losses within the twin
+    tolerances of (w1)'s.
+    -> ({run: launches}, lines)."""
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.data.wire import ROW_TILE, _encode_int8
+    from mlsl_tpu_torch.ops import quant_kernels as qk
+
+    lines, used = [], {}
+    n_dec = FEED_BATCHES * FEED_EPOCHS
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    probe = FeedProbe(torch)
+    try:
+        # (w1)
+        t0 = time.perf_counter()
+        env = reinit(get_env)
+        settle(torch)
+        raw = feed_batches(np, "uint8", SEED + 30)
+        mean, std = np.array(FEED_MEAN, np.float32), np.array(FEED_STD, np.float32)
+        trainer = feed_trainer(torch, env, np)
+        stats.reset_feed_counters()
+        reset_launches()
+        loader = trainer.feed(lambda: iter(raw), wire="uint8", normalize=(mean, std),
+                              cache_mb=FEED_CACHE_MB, epochs=FEED_EPOCHS, depth=2)
+        losses, secs, waits, first = fed_steps(torch, trainer, loader)
+        loader.close()
+        used["feed_uint8"] = launches()
+        fc = dict(stats.FEED_COUNTERS)
+        check(len(losses) == n_dec, f"feed uint8: {len(losses)} steps, not {n_dec}")
+        host = [((x.astype(np.float32) - mean) * (np.float32(1.0) / std), y) for x, y in raw]
+        check(np.array_equal(first.numpy().reshape(host[0][0].shape).view(np.uint32),
+                             host[0][0].view(np.uint32)),
+              "feed uint8: the first decoded batch differs from the host float32 math")
+        per_batch = probe.staged[0][1]
+        check(fc["batches_staged"] == FEED_BATCHES and fc["cache_hits"] == FEED_BATCHES
+              and fc["cache_misses"] == FEED_BATCHES
+              and fc["wire_bytes"] == FEED_BATCHES * per_batch,
+              f"feed uint8: epoch 2 staged or missed: {fc}")
+        del trainer
+        settle(torch)
+        twin = feed_trainer(torch, env, np)
+        twin_losses, twin_secs = [], []
+        for x, y in host[:3]:
+            batch = twin.shard_batch(x, y)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = twin.step(batch)
+            torch.cuda.synchronize()
+            twin_secs.append(time.perf_counter() - t1)
+            twin_losses.append(loss.detach().reshape(-1).cpu())
+        check(all(same_bits(torch, a, b) for a, b in zip(losses[:3], twin_losses)),
+              f"feed uint8: losses {[float(v.mean()) for v in losses[:3]]} differ from "
+              f"shard_batch's {[float(v.mean()) for v in twin_losses]}")
+        del twin
+        lines += feed_lines("uint8", probe, secs, waits, twin_secs)
+        w1 = {"losses": [float(v.mean()) for v in losses], "feed": fc,
+              "wire_bytes_a_batch": per_batch, "full_bytes_a_batch": probe.staged[0][2],
+              "step_s": secs, "shard_batch_step_s": twin_secs, "launches": used["feed_uint8"],
+              "run_s": time.perf_counter() - t0}
+        lines.append(f"# phase feed uint8 (run (w1)): ok, {json.dumps(w1)}")
+        w1_losses = losses
+
+        # (w2)
+        probe.staged.clear()
+        probe.decodes.clear()
+        t0 = time.perf_counter()
+        settle(torch)
+        floats = feed_batches(np, "float32", SEED + 31)
+        trainer = feed_trainer(torch, env, np)
+        block = env.config.quant_block_elems
+        stats.reset_feed_counters()
+        reset_launches()
+        loader = trainer.feed(floats, wire="int8", cache_mb=FEED_CACHE_MB,
+                              epochs=FEED_EPOCHS, depth=2)
+        losses, secs, waits, first = fed_steps(torch, trainer, loader)
+        loader.close()
+        used["feed"] = launches()
+        check(used["feed"]["dequantize_blocks"] == n_dec,
+              f"feed int8: B2 launched {used['feed']['dequantize_blocks']} times for "
+              f"{n_dec} decoded batches (predicted one a batch)")
+        check(all(bool(torch.isfinite(v).all()) for v in losses),
+              f"feed int8: losses {[v.tolist() for v in losses]}")
+        x0 = floats[0][0]
+        local = FEED_BATCH // WORLD
+        n = local * FEED_IMAGE * FEED_IMAGE * 3
+        want = []
+        for d in range(WORLD):
+            q, s = _encode_int8(x0[d * local:(d + 1) * local], block)
+            want.append(qk.dequantize_blocks_ref(torch.from_numpy(q).reshape(-1, block),
+                                                 torch.from_numpy(s)).reshape(-1)[:n])
+        check(same_bits(torch, first.reshape(WORLD, n), torch.stack(want)),
+              "feed int8: the decoded batch differs from dequantize_blocks_ref")
+        unit = block * ROW_TILE
+        npad = -(-n // unit) * unit
+        wire_want = WORLD * (npad + npad // block * 4) + FEED_BATCH * 4
+        full_want = FEED_BATCH * (FEED_IMAGE * FEED_IMAGE * 3 * 4 + 4)
+        _, wb, fb = probe.staged[0]
+        check((wb, fb) == (wire_want, full_want),
+              f"feed int8: wire {wb} and full {fb} bytes, the layout gives {wire_want} and "
+              f"{full_want}")
+        lines += feed_lines("int8", probe, secs, waits)
+        w2 = {"losses": [float(v.mean()) for v in losses], "feed": dict(stats.FEED_COUNTERS),
+              "wire_bytes_a_batch": wb, "full_bytes_a_batch": fb, "wire_share": wb / fb,
+              "b2_launches": used["feed"]["dequantize_blocks"], "step_s": secs,
+              "launches": used["feed"], "run_s": time.perf_counter() - t0}
+        lines.append(f"# phase feed int8 (run (w2)): ok, {json.dumps(w2)}")
+        del trainer
+
+        # (w3)
+        probe.staged.clear()
+        probe.decodes.clear()
+        t0 = time.perf_counter()
+        os.environ["MLSL_OVERLAP_COMPILED"] = "1"
+        env = reinit(get_env)
+        settle(torch)
+        trainer = feed_trainer(torch, env, np)
+        engine = trainer._overlap
+        check(engine is not None, "feed engine: the compiled overlap engine did not engage")
+
+        def slow():
+            for i, b in enumerate(raw):
+                if i:
+                    time.sleep(0.25)   # the worker is busy while the step is captured
+                yield b
+
+        stats.reset_feed_counters()
+        reset_launches()
+        loader = trainer.feed(slow, wire="uint8", normalize=(mean, std),
+                              cache_mb=FEED_CACHE_MB, epochs=FEED_EPOCHS, depth=2)
+        batch = next(loader)
+        t1 = time.perf_counter()
+        trainer.precompile(batch)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t1
+        staged_in_capture = len(probe.staged)
+        losses = [trainer.step(batch).detach().reshape(-1).cpu()]
+        more, secs, waits, _ = fed_steps(torch, trainer, loader)
+        loader.close()
+        losses += more
+        used["feed_engine"] = launches()
+        check(list(engine.graphs) == ["step"] and len(losses) == n_dec,
+              f"feed engine: graphs {list(engine.graphs)}, {len(losses)} steps")
+        gap = max(float(((a - b).abs() / b.abs()).max()) for a, b in zip(losses[:3],
+                                                                          w1_losses[:3]))
+        check(gap <= TWIN_LOSS_RTOL, f"feed engine: loss gap {gap:.3g} to run (w1)")
+        w3 = {"losses": [float(v.mean()) for v in losses], "loss_gap_to_w1": gap,
+              "capture_s": capture_s, "batches_staged_by_capture_end": staged_in_capture,
+              "launches_one_captured_step": engine.capture_launches["step"],
+              "step_s": secs, "launches": used["feed_engine"],
+              "run_s": time.perf_counter() - t0}
+        lines += feed_lines("engine", probe, [None] + secs, [(0.0, 0.0)] + waits)
+        lines.append(f"# phase feed engine (run (w3)): ok, {json.dumps(w3)}")
+        del trainer, engine, batch
+    finally:
+        probe.remove()
+        os.environ.pop("MLSL_OVERLAP_COMPILED", None)
+        torch.backends.cudnn.deterministic = False
+    settle(torch)
+    return used, lines
+
+
+# run (x): the pipeline schedules at gpt-medium-2k's FFN widths (d_model 1,024,
+# d_ff 4,096, models/transformer.py:121-122) and its 12 blocks, each the residual
+# MLP x + gelu(x W1 + b1) W2 + b2 in float32, on a (2 data x 4 model) grid of 8
+# virtual ranks: 4 stages of 3 blocks; a data shard holds 8 microbatches of 1,024
+# tokens (batch 8 x seq 2,048 = 16,384 tokens over the 2 data shards); the loss
+# head is the mean squared error against a seeded target
+PIPE_BLOCKS, PIPE_DMODEL, PIPE_DFF = 12, 1024, 4096
+PIPE_STAGES, PIPE_DATA, PIPE_MICRO, PIPE_TOKENS = 4, 2, 8, 1024
+PIPE_CHUNKS = 3
+# Float32 sums over 1,024 tokens and 16 microbatches taken in another order (a
+# microbatch's product, the microbatches accumulated tick by tick, against one
+# product over 8,192 tokens) differ by about sqrt(16,384) x 2^-24 = 7.6e-6 of a
+# sum's magnitude; 12 chained blocks can grow that about tenfold: losses within
+# 1e-5 relative, gradients within 1e-4 relative L2 of each other and the oracle
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD_TOL = 1e-4
+PIPE_LEAVES = ("w1", "b1", "w2", "b2")
+
+
+def pipe_stage(torch):
+    gelu = torch.nn.functional.gelu
+
+    def stage(p, x):
+        for j in range(p["w1"].shape[0]):
+            x = x + gelu(x @ p["w1"][j] + p["b1"][j]) @ p["w2"][j] + p["b2"][j]
+        return x
+
+    return stage
+
+
+def pipe_loss_head(y, t):
+    return ((y - t) ** 2).mean()
+
+
+def pipe_rel(torch, a, b) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm())
+
+
+def run_pipeline(torch, np, launches, reset_launches, dev):
+    """Run (x): GPipe (remat off and on), 1F1B and interleaved 1F1B (3 chunks
+    of 1 block) on the same 12 blocks against a dense oracle (the 12 blocks in
+    sequence on each data shard); then reduce_microbatch_grads over the data
+    group on B3, B5 and int8 (B1 + B4), each bit for bit its plain version,
+    and inline_allreduce forced to B3 and B5. -> (launches of the reduction
+    phase, lines)."""
+    from mlsl_tpu_torch.comm import algos, overlap
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.config import Config
+    from mlsl_tpu_torch.parallel import pipeline as pp
+    from mlsl_tpu_torch.types import CompressionType
+
+    S, V, M, T = PIPE_STAGES, PIPE_CHUNKS, PIPE_MICRO, PIPE_TOKENS
+    nb, dm, df = PIPE_BLOCKS, PIPE_DMODEL, PIPE_DFF
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    blocks = {"w1": torch.randn((nb, dm, df), generator=gen, device=dev) / dm ** 0.5,
+              "b1": torch.randn((nb, df), generator=gen, device=dev) * 0.02,
+              "w2": torch.randn((nb, df, dm), generator=gen, device=dev) * 0.5 / df ** 0.5,
+              "b2": torch.randn((nb, dm), generator=gen, device=dev) * 0.02}
+    x = torch.randn((PIPE_DATA, M, T, dm), generator=gen, device=dev)
+    tgt = torch.randn((PIPE_DATA, M, T, dm), generator=gen, device=dev)
+    stage = pipe_stage(torch)
+    lines, out = [], {}
+    # the first torch.utils.checkpoint call of a process imports torch._dynamo
+    # (6.3 s for GPipe with remat on the card in a process that had not run
+    # it): pay that before anything is timed
+    torch.utils.checkpoint.checkpoint(torch.sin, torch.ones(1, device=dev, requires_grad=True),
+                                      use_reentrant=False).sum().backward()
+
+    def timed(fn):
+        settle(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    # the dense oracle: the 12 blocks in sequence on each data shard
+    def oracle():
+        p = {k: v.clone().requires_grad_() for k, v in blocks.items()}
+        total, grads = 0.0, None
+        for d in range(PIPE_DATA):
+            y = stage(p, x[d].reshape(M * T, dm)).reshape(M, T, dm)
+            loss = ((y - tgt[d]) ** 2).mean(dim=(1, 2)).sum()
+            g = torch.autograd.grad(loss, list(p.values()))
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            total = total + float(loss.detach())
+        return total, dict(zip(p, grads))
+
+    (o_loss, o_grads), o_s, o_peak = timed(oracle)
+    grid = (1, PIPE_DATA, 1, S)
+    xs = x.reshape(1, PIPE_DATA, 1, 1, M, T, dm).expand(*grid, M, T, dm)
+    ts = tgt.reshape(1, PIPE_DATA, 1, 1, M, T, dm).expand(*grid, M, T, dm)
+    # stage s holds blocks 3s..3s+2, the same weights on both data ranks
+    stage_params = {k: v.reshape(1, 1, 1, S, nb // S, *v.shape[1:]) for k, v in blocks.items()}
+
+    def stage_grads(g):
+        """(data, 4, 3, ...) rank gradients -> (12, ...) block gradients."""
+        return g.sum(dim=0).reshape(nb, *g.shape[3:])
+
+    def check_run(tag, loss, grads):
+        rel_loss = abs(loss - o_loss) / abs(o_loss)
+        rel = {k: pipe_rel(torch, grads[k], o_grads[k]) for k in PIPE_LEAVES}
+        check(rel_loss <= PIPE_LOSS_RTOL and max(rel.values()) <= PIPE_GRAD_TOL,
+              f"pipeline {tag}: loss {loss} against the oracle's {o_loss} "
+              f"(rel {rel_loss:.3g}), gradient rel. L2 {rel}")
+        return rel_loss, max(rel.values())
+
+    for remat in (False, True):
+        def gpipe():
+            p = {k: v.clone().requires_grad_() for k, v in stage_params.items()}
+            loss = pp.pipeline_loss(stage, pipe_loss_head, p, xs, ts, 3, S, remat=remat)
+            objective = loss[0, :, 0, 0].sum()
+            g = torch.autograd.grad(objective, list(p.values()))
+            return float(objective.detach()), {k: gk.reshape(nb, *gk.shape[5:]) for k, gk in zip(p, g)}
+
+        (loss, grads), secs, peak = timed(gpipe)
+        tag = f"gpipe{' remat' if remat else ''}"
+        out[tag] = {"loss": loss, "step_s": secs, "peak_gib": peak,
+                    "bubble": (S - 1) / (M + S - 1),
+                    "gaps": check_run(tag, loss, grads)}
+        del grads
+    gpipe_peak = out["gpipe"]["peak_gib"]
+
+    def f1b():
+        return pp.one_f1b_step(stage, pipe_loss_head, stage_params, xs, ts, 3, S)
+
+    (loss, f1b_grads), secs, peak = timed(f1b)
+    total = float(loss[0, :, 0, 0].sum())
+    grads = {k: stage_grads(g[0, :, 0]) for k, g in f1b_grads.items()}
+    out["1f1b"] = {"loss": total, "step_s": secs, "peak_gib": peak,
+                   "bubble": pp.f1b_schedule(S, M)["bubble_fraction"],
+                   "gaps": check_run("1f1b", total, grads)}
+    check(peak < gpipe_peak, f"pipeline: 1F1B's peak {peak:.3f} GiB is not below GPipe's "
+                             f"{gpipe_peak:.3f} GiB without remat")
+    del grads
+
+    # interleaved: global stage k = c * S + d holds block k
+    chunk_params = {k: v.reshape(V, 1, 1, 1, S, 1, *v.shape[1:]) for k, v in blocks.items()}
+
+    def inter():
+        return pp.interleaved_1f1b_step(stage, pipe_loss_head, chunk_params, xs, ts, 3, S, V)
+
+    (loss, ig), secs, peak = timed(inter)
+    total = float(loss[0, :, 0, 0].sum())
+    grads = {k: g[:, 0, :, 0].sum(dim=1).reshape(nb, *g.shape[6:]) for k, g in ig.items()}
+    out["interleaved"] = {"loss": total, "step_s": secs, "peak_gib": peak,
+                          "bubble": pp.interleaved_schedule(S, V, M)["bubble_fraction"],
+                          "gaps": check_run("interleaved", total, grads)}
+    del ig, grads
+    out["oracle"] = {"loss": o_loss, "step_s": o_s, "peak_gib": o_peak}
+    for tag, row in out.items():
+        lines.append(f"# pipeline {tag} {json.dumps(row)}")
+
+    # (x4) the data-parallel reduction of 1F1B's stage gradients
+    group = ProcessGroup(Topology(PIPE_DATA, S, WORLD), ("data",))
+    bufs = [f1b_grads[k].reshape(*grid, -1).contiguous() for k in PIPE_LEAVES]
+    counts = [b.shape[-1] for b in bufs]
+    used = {}
+    for route, forced, comp in (("B3", "pallas_ring", CompressionType.NONE),
+                                ("B5", "pallas_rhd", CompressionType.NONE),
+                                ("B1 + B4", "pallas_ring", CompressionType.QUANTIZATION)):
+        cfg = Config()
+        cfg.collective_algo = forced
+        cfg.validate()
+        quant = comp == CompressionType.QUANTIZATION
+        fn, plan = pp.reduce_microbatch_grads(group, counts, config=cfg, compression=comp)
+        ref, _ = overlap.build_multi_reduce(group, counts, compression=comp, config=cfg,
+                                            plain=True)
+        want_launch = ({"quantize_blocks": len(plan.units), "quant_ring": len(plan.units)}
+                       if quant else
+                       {"dense_ring" if forced == "pallas_ring" else "rhd_allreduce":
+                        len(plan.units)})
+        check({u.algo for u in plan.units} == {forced},
+              f"pipeline reduce {route}: units took {plan.algos_summary()}")
+        reset_launches()
+        got = fn(bufs)
+        torch.cuda.synchronize()
+        n_launch = {k: v for k, v in launches().items() if v}
+        check(n_launch == want_launch, f"pipeline reduce {route}: launches {n_launch}, the "
+                                       f"plan predicts {want_launch}")
+        want = ref(bufs)
+        outs = got[0] if quant else got
+        wants = want[0] if quant else want
+        check(all(same_bits(torch, a, b) for a, b in zip(outs, wants)),
+              f"pipeline reduce {route}: differs from its plain version")
+        if quant:
+            check(all(same_bits(torch, got[1][k], want[1][k]) for k in got[1]),
+                  f"pipeline reduce {route}: residuals differ from the plain ring's")
+        for i, k in enumerate(PIPE_LEAVES):
+            r = outs[i]
+            check(same_bits(torch, r[0, 0], r[0, 1]), f"pipeline reduce {route}: the data "
+                                                      f"ranks disagree on {k}")
+            rel = pipe_rel(torch, r[0, 0, 0].reshape(nb, *o_grads[k].shape[1:]), o_grads[k])
+            check(rel <= (PIPE_GRAD_TOL if not quant else 0.02),
+                  f"pipeline reduce {route}: {k} rel. L2 {rel:.3g} from the oracle")
+        for k, v in n_launch.items():
+            used[k] = used.get(k, 0) + v
+        ms = time_ms(torch, lambda: fn(bufs), reps=5, warmup=1)
+        lines.append(f"# pipeline reduce {route} ({forced}{', int8' if quant else ''}): "
+                     f"{len(plan.units)} units, launches {n_launch} (predicted "
+                     f"{want_launch}), {ms:.4f} ms a call, bit for bit the plain version")
+        del got, want, outs, wants
+    # inline_allreduce with a group and a config forced to each kernel
+    per_rank = torch.randn((*grid, 1), generator=gen, device=dev)
+    for forced, key in (("pallas_ring", "dense_ring"), ("pallas_rhd", "rhd_allreduce")):
+        cfg = Config()
+        cfg.collective_algo = forced
+        cfg.validate()
+        reset_launches()
+        r = algos.inline_allreduce(per_rank, 1, group=group, config=cfg)
+        torch.cuda.synchronize()
+        n_launch = {k: v for k, v in launches().items() if v}
+        check(n_launch == {key: 1}, f"inline_allreduce {forced}: launches {n_launch}")
+        check(pipe_rel(torch, r, per_rank.sum(dim=1, keepdim=True).expand_as(per_rank)) < 1e-6,
+              f"inline_allreduce {forced}: wrong sum")
+        used[key] = used.get(key, 0) + 1
+    lines.append(f"# phase pipeline (run (x)): ok, launches {json.dumps(used)}")
+    del bufs, f1b_grads, blocks, x, tgt
+    settle(torch)
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -5738,6 +6300,16 @@ def main() -> int:
         for line in tune_lines:
             log(line)
         log(f"# phase tuner sweep (run (v)): ok, launches {json.dumps(tune_used)}")
+
+        # the device feed (run (w)) and the pipeline schedules (run (x)), one
+        # after the other with nothing beside them
+        feed_used, feed_out = run_feed(torch, np, get_env, launches, reset_launches)
+        for line in feed_out:
+            log(line)
+        env = reinit(get_env)
+        pipe_used, pipe_out = run_pipeline(torch, np, launches, reset_launches, dev)
+        for line in pipe_out:
+            log(line)
         env = reinit(get_env)
 
         fc_entry = ring_rows["fc"][0]
@@ -5756,7 +6328,8 @@ def main() -> int:
                     overlap_updates=engine_used["overlap_updates"], multi_reduce=mr_used,
                     activation_graph=activation, collectives=coll_used, capi=capi_used,
                     **{f"codec_{k}": v for k, v in codec_used.items()},
-                    hier_dense=drive.used, **hier_used, **tune_used)
+                    hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
+                    pipeline=pipe_used)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -5765,6 +6338,10 @@ def main() -> int:
             codec_entry(torch, qk, "dequantize", WORLD * ((64 << 20) // 4) // BLOCK, BLOCK,
                         bw, f32, path("dequantize_blocks", **runs), dev),
             dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev),
+            # B2 at the feed's int8 wire (run (w2)): every shard's rows of a batch
+            codec_entry(torch, qk, "dequantize", feed_b2_rows(env.config.quant_block_elems),
+                        env.config.quant_block_elems, bw, f32,
+                        path("dequantize_blocks", **runs), dev, tag="feed int8 wire"),
             # B3 and B5 at the 256 MiB path's own launch shape: four strided chunks
             dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev,
                              n=(64 << 20) // 4, ld=(256 << 20) // 4),

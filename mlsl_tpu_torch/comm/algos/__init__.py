@@ -365,10 +365,55 @@ def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=Non
 
 # -- engine-owned collectives inside a training graph ---------------------------
 #
-# The MoE layer (models/moe.py) exchanges and gathers per-rank tensors with the
-# leading (R, D, S, M) grid dims. With a group and a config the exchange goes
-# through the selection table; both helpers are plain tensor work on the plain
-# route, so autograd runs through them.
+# The pipeline schedules (parallel/pipeline.py) sum their microbatch losses
+# over the stage dim; the MoE layer (models/moe.py) exchanges and gathers
+# per-rank tensors with the leading (R, D, S, M) grid dims. With a group and a
+# config the exchange goes through the selection table; the helpers are plain
+# tensor work on the plain route, so autograd runs through them.
+
+
+def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
+                     config=None, op=None) -> torch.Tensor:
+    """The allreduce inside model and parallelism code (algos/__init__.py:580-612).
+
+    With a ``group`` of more than one member, ``x`` is a grid buffer (R, D, S,
+    M, ...) and the selection table picks the lowering (``config``): a
+    non-default choice that ``inline_eligible`` admits runs through
+    ``inline_plan`` (prep, phases, finish), anything else the baseline
+    collective over the group. Otherwise ``x`` holds per-rank values with
+    leading rank dims and the SUM / MIN / MAX runs along the rank dim ``dim``
+    (the JAX package's axis name), every rank receiving the result. On the CPU
+    a SUM adds the members one by one, in member order, as the baseline
+    collective does; on the card it is one reduction. Autograd runs through
+    the plain routes."""
+    from mlsl_tpu_torch.comm import collectives
+
+    rop = ReductionType(op) if op is not None else ReductionType.SUM
+    if group is not None and not group.is_self and group.size > 1:
+        grid = x.shape[:NUM_GRID_AXES]
+        count = math.prod(x.shape[NUM_GRID_AXES:])
+        buf = x.reshape(*grid, count)
+        algo = select("allreduce", group, count * 4, CompressionType.NONE, config, op=rop)
+        if algo != DEFAULT and inline_eligible(algo, "allreduce", group, rop):
+            prep, phases, finish = inline_plan("allreduce", group, algo, count, op=rop,
+                                               config=config)
+            carry = prep(buf)
+            for phase in phases:
+                carry = phase(carry)
+            return finish(carry).reshape(x.shape)
+        return collectives.build_collective("allreduce", group, op=rop)(buf).reshape(x.shape)
+    if rop == ReductionType.SUM:
+        if x.is_cuda:
+            r = x.sum(dim=dim, keepdim=True)
+        else:
+            r = x.narrow(dim, 0, 1)
+            for j in range(1, x.shape[dim]):
+                r = r + x.narrow(dim, j, 1)
+    elif rop == ReductionType.MIN:
+        r = x.amin(dim=dim, keepdim=True)
+    else:
+        r = x.amax(dim=dim, keepdim=True)
+    return r.expand_as(x)
 
 
 def _group_exchange(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:

@@ -10,7 +10,8 @@ and kernel knobs (comm/algos, tuner/, ops/), the compiled overlap engine
 with the staging depth it shares with the ZeRO-1 update (comm/overlap.py), and
 the compressed wires beyond int8: the top-k ratio, a user codec, the codec
 registry's knobs and its calibration (codecs/, tuner/calibrate.py), and the
-two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py).
+two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py), and
+the device feed's wire, cache, depth and retries (data/).
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -41,6 +42,9 @@ _ENV_FIELDS = {
     "MLSL_VQ_CODEBOOK": "vq_codebook",
     "MLSL_PRUNE_RATIO": "prune_ratio",
     "MLSL_HIER_DCN_CODEC": "hier_dcn_codec",
+    "MLSL_FEED_DEPTH": "feed_depth",
+    "MLSL_FEED_CACHE_MB": "feed_cache_mb",
+    "MLSL_FEED_WIRE_DTYPE": "feed_wire_dtype",
 }
 
 # the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
@@ -169,6 +173,20 @@ class Config:
     # A unit's phases are spread over this many unit starts.
     overlap_stages: int = 2          # MLSL_OVERLAP_STAGES
 
+    # --- the device feed (data/) ---
+    # Wire dtype of the host->device batch copy: '' = full width, 'uint8'
+    # (images), 'bf16', 'int8' (the block codec of the quantized
+    # collectives); per-leaf overrides in the same string ('uint8,y=none'),
+    # parsed by data.common.parse_wire_spec at validate().
+    feed_wire_dtype: str = ""       # MLSL_FEED_WIRE_DTYPE
+    # Budget (MiB) of the device-resident feed cache; 0 = off.
+    feed_cache_mb: int = 0          # MLSL_FEED_CACHE_MB
+    # Batches in flight ahead of the consumer (2 = double buffering);
+    # a tuned profile may set it, an exported value wins.
+    feed_depth: int = 2             # MLSL_FEED_DEPTH
+    # TRANSIENT source-read retries per batch.
+    feed_retries: int = 2           # MLSL_FEED_RETRIES
+
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
         into ``_forced_algos`` (comm/algos.select reads it)."""
@@ -231,6 +249,21 @@ class Config:
         mlsl_assert(self.pallas_rhd_max_bytes >= 0,
                     "MLSL_PALLAS_RHD_MAX_BYTES must be >= 0 (0 = derive from "
                     "MLSL_MSG_PRIORITY_THRESHOLD; got %d)", self.pallas_rhd_max_bytes)
+        try:
+            # data.common imports nothing of the kernel stack
+            from mlsl_tpu_torch.data.common import parse_wire_spec
+
+            parse_wire_spec(self.feed_wire_dtype)
+        except ValueError as e:
+            from mlsl_tpu_torch.log import MLSLError
+
+            raise MLSLError(f"MLSL_FEED_WIRE_DTYPE: {e}") from e
+        mlsl_assert(self.feed_depth >= 1,
+                    "MLSL_FEED_DEPTH must be >= 1 (got %d)", self.feed_depth)
+        mlsl_assert(self.feed_cache_mb >= 0,
+                    "MLSL_FEED_CACHE_MB must be >= 0 (got %d)", self.feed_cache_mb)
+        mlsl_assert(self.feed_retries >= 0,
+                    "MLSL_FEED_RETRIES must be >= 0 (got %d)", self.feed_retries)
 
     @staticmethod
     def from_env() -> "Config":
@@ -272,4 +305,8 @@ class Config:
         c.mesh_tiers = os.environ.get("MLSL_MESH_TIERS", c.mesh_tiers).strip()
         c.hier_dcn_codec = (os.environ.get("MLSL_HIER_DCN_CODEC", "").strip().lower()
                             or c.hier_dcn_codec)
+        c.feed_wire_dtype = os.environ.get("MLSL_FEED_WIRE_DTYPE", c.feed_wire_dtype)
+        c.feed_cache_mb = _env_int("MLSL_FEED_CACHE_MB", c.feed_cache_mb)
+        c.feed_depth = _env_int("MLSL_FEED_DEPTH", c.feed_depth)
+        c.feed_retries = _env_int("MLSL_FEED_RETRIES", c.feed_retries)
         return c

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Iterator, List, Sequence
 
@@ -27,6 +28,12 @@ import torch
 from mlsl_tpu_torch.log import MLSLError
 
 WARMUP_RUNS = 1
+
+#: Held for the whole of a capture (warm-up and recording). A thread that
+#: issues CUDA work beside the training loop (the feed's loader, data/wire.py)
+#: takes it around that work, so none of it is issued while a graph is
+#: captured.
+CAPTURE_LOCK = threading.Lock()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -87,7 +94,7 @@ def capture(fn: Callable, args: Sequence[torch.Tensor], state: Sequence[torch.Te
     names the program in the error a failed capture raises."""
     dev = args[0].device
     inputs = [a.detach().clone() for a in args]
-    with restored(state) as saved:
+    with CAPTURE_LOCK, restored(state) as saved:
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
@@ -101,7 +108,10 @@ def capture(fn: Callable, args: Sequence[torch.Tensor], state: Sequence[torch.Te
         before = launch_counts()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            # thread_local: a CUDA call of another thread does not
+            # invalidate this capture (the feed's loader also holds off,
+            # CAPTURE_LOCK)
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 out = fn(*inputs)
         except Exception as e:
             raise MLSLError(f"capturing {what} as a CUDA graph failed: {e!r}") from e

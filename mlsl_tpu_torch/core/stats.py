@@ -19,14 +19,15 @@ include/mlsl.hpp:651-726, src/mlsl_impl_stats.cpp):
   host spent blocked, per operation and in total;
 - ``print_``: the table appended to ``mlsl_stats.log`` (``MLSL_STATS_DIR``,
   default the working directory; reference :226-363), for the counters this
-  package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, ALGO, OVERLAP
-  ENGINE and CODEC lines.
+  package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, FEED, ALGO,
+  OVERLAP ENGINE and CODEC lines.
 
 Also the process-wide counters of the dispatch layer: bucket rounds of
 gradient bucketing (stats.py:131-175), launches per (kind, algorithm) and the
-compiled overlap engine's steps (stats.py:640-695), and the codec registry's
-wire bytes a codec and its calibration and guardrail events (stats.py:268-310).
-The JAX package's table also prints the feed pipeline (FEED), the sentinel
+compiled overlap engine's steps (stats.py:640-695), the codec registry's
+wire bytes a codec and its calibration and guardrail events (stats.py:268-310),
+and the device feed's staged bytes, cache outcomes, stalls and retries
+(stats.py:537-590). The JAX package's table also prints the sentinel
 (SENTINEL), the elastic mesh (ELASTIC), stragglers (STRAGGLER), the control
 plane (CONTROL), the serving engine (SERVE), checkpoint checks (CHKP) and the
 recovery ladder (DEGRADE); none of those subsystems is ported, so their
@@ -39,6 +40,7 @@ lines.
 from __future__ import annotations
 
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -171,6 +173,66 @@ def reset_codec_counters() -> None:
         CODEC_COUNTERS[k] = 0
     CODEC_WIRE_BYTES.clear()
     CODEC_DEMOTIONS.clear()
+
+
+# Device-feed accounting (data/): process-wide, as in the JAX package -- the
+# feed stages batches from a loader thread with no Session handle. Wire bytes
+# are what crossed the host->device copy; bytes_saved is the full-width
+# float32 baseline minus that; stall_ms is time the training loop blocked on
+# an empty prefetch queue, producer_wait_ms the worker's wait on a full one.
+# Several loaders' worker threads and the consumer add to it at once: every
+# update holds the lock (a dict's += is a read, an add and a write).
+_FEED_LOCK = threading.Lock()
+FEED_COUNTERS: Dict[str, float] = {
+    "batches_staged": 0,     # batches that crossed the host->device copy
+    "wire_bytes": 0,         # bytes shipped (payload + scales)
+    "bytes_saved": 0,        # float32-baseline bytes minus wire bytes
+    "cache_hits": 0,         # batches served from the device cache
+    "cache_misses": 0,
+    "cache_rejects": 0,      # batches the cache budget refused to keep
+    "stall_ms": 0.0,         # consumer blocked on an empty prefetch queue
+    "producer_wait_ms": 0.0,  # worker blocked on a full queue (backpressure)
+    "retries": 0,            # TRANSIENT source-read retries
+}
+
+
+def _feed_add(key: str, v) -> None:
+    with _FEED_LOCK:
+        FEED_COUNTERS[key] += v
+
+
+def record_feed_stage(wire_bytes: int, full_bytes: int) -> None:
+    """One batch staged over the wire (FeedCodec.stage)."""
+    with _FEED_LOCK:
+        FEED_COUNTERS["batches_staged"] += 1
+        FEED_COUNTERS["wire_bytes"] += wire_bytes
+        FEED_COUNTERS["bytes_saved"] += max(0, full_bytes - wire_bytes)
+
+
+def record_feed_cache(event: str) -> None:
+    """One cache lookup outcome: 'hit' / 'miss' / 'reject'."""
+    _feed_add("cache_misses" if event == "miss" else f"cache_{event}s", 1)
+
+
+def record_feed_stall(ms: float) -> None:
+    """Consumer blocked on the prefetch queue for ``ms`` (AsyncLoader)."""
+    _feed_add("stall_ms", ms)
+
+
+def record_feed_wait(ms: float) -> None:
+    """Producer backpressure wait (AsyncLoader worker, full queue)."""
+    _feed_add("producer_wait_ms", ms)
+
+
+def record_feed_retry() -> None:
+    """One TRANSIENT source-read retry (MLSL_FEED_RETRIES)."""
+    _feed_add("retries", 1)
+
+
+def reset_feed_counters() -> None:
+    with _FEED_LOCK:
+        for k in FEED_COUNTERS:
+            FEED_COUNTERS[k] = 0 if isinstance(FEED_COUNTERS[k], int) else 0.0
 
 
 class _Slot:
@@ -418,6 +480,24 @@ class Statistics:
                 f"fallback {c['rounds_fallback']} abandoned {c['member_abandons']} "
                 f"coalesced {c['bytes_coalesced'] / 1024.0:.1f} KB "
                 f"wire_saved {c['wire_bytes_saved'] / 1024.0:.1f} KB"
+            )
+        fc = FEED_COUNTERS
+        if (fc["batches_staged"] or fc["cache_hits"] or fc["cache_misses"]
+                or fc["stall_ms"] or fc["retries"]):
+            # a stall alone surfaces the line too: a plain AsyncLoader that
+            # kept the training loop waiting is an input-bound run
+            staged = max(int(fc["batches_staged"]), 1)
+            lines.append(
+                f"{'FEED':<16} {'PIPELINE':<8} "
+                f"staged {int(fc['batches_staged'])} "
+                f"wire {fc['wire_bytes'] / 1e6:.1f} MB "
+                f"({fc['wire_bytes'] / 1e6 / staged:.2f} MB/batch) "
+                f"saved {fc['bytes_saved'] / 1e6:.1f} MB "
+                f"cache {int(fc['cache_hits'])}h/{int(fc['cache_misses'])}m/"
+                f"{int(fc['cache_rejects'])}r "
+                f"stall {fc['stall_ms']:.1f} ms "
+                f"bp_wait {fc['producer_wait_ms']:.1f} ms "
+                f"retries {int(fc['retries'])}"
             )
         if ALGO_COUNTERS:
             parts = [f"{kind}:{algo}={n}" for (kind, algo), n in sorted(ALGO_COUNTERS.items())]

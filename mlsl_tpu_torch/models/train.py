@@ -301,6 +301,41 @@ class DataParallelTrainer:
 
         return place(x), place(y)
 
+    def shard_batch_local(self, x: np.ndarray, y: np.ndarray):
+        """Multi-process batch placement (train.py:854-882): x/y are THIS
+        process's contiguous rows of the global batch. The port's world is one
+        process (multi-process worlds are still to come), so the process count
+        is 1, the rows are the whole batch and the placement is
+        :meth:`shard_batch`'s; the divisibility check is the JAX package's."""
+        r, d = self.dist.topology.grid_shape[:2]
+        nproc = 1
+        mlsl_assert((r * d) % nproc == 0 and (r == 1 or r % nproc == 0),
+                    "data ranks (r=%d x d=%d) must split contiguously over %d processes",
+                    r, d, nproc)
+        return self.shard_batch(x, y)
+
+    def feed(self, source, *, depth: Optional[int] = None, **kw):
+        """The wire-compressed prefetching device feed for this trainer's
+        topology (train.py:884-908): an :class:`mlsl_tpu_torch.data.AsyncLoader`
+        over a :class:`mlsl_tpu_torch.data.DeviceFeed` whose decoded batches
+        are the distributed buffers :meth:`shard_batch` gives, so ``step``
+        takes them unchanged. Defaults come from the environment's Config
+        (``MLSL_FEED_*``, the int8 block from ``MLSL_QUANT_BLOCK_ELEMS``) and
+        the trainer's device; any DeviceFeed keyword (wire, cache_mb, epochs,
+        shuffle_seed, normalize, augment, ...) overrides them. ``close()`` the
+        returned loader."""
+        from mlsl_tpu_torch.data import AsyncLoader, DeviceFeed
+
+        cfg = self.env.config
+        kw.setdefault("wire", cfg.feed_wire_dtype if cfg else None)
+        kw.setdefault("cache_mb", cfg.feed_cache_mb if cfg else None)
+        kw.setdefault("retries", cfg.feed_retries if cfg else None)
+        kw.setdefault("quant_block", cfg.quant_block_elems if cfg else None)
+        kw.setdefault("device", self.device)
+        if depth is None:
+            depth = cfg.feed_depth if cfg else None
+        return AsyncLoader(DeviceFeed(source, self.dist.topology, **kw), depth=depth)
+
     # -- the training step -------------------------------------------------
 
     def _all_params(self) -> List[torch.nn.Parameter]:

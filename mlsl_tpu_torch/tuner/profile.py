@@ -34,6 +34,9 @@ KNOB_RANGES = {
     "msg_priority_threshold": 1,
     "grad_bucket_mb": 0,
     "overlap_stages": 1,
+    # the feed's prefetch depth (data/loader.py); an exported MLSL_FEED_DEPTH
+    # wins
+    "feed_depth": 1,
     "large_msg_size_mb": 0,
     "large_msg_chunks": 1,
     "quant_block_elems": 1,

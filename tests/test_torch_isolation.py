@@ -65,7 +65,10 @@ def test_importing_the_port_loads_no_jax():
             "mlsl_tpu_torch.comm.mesh, mlsl_tpu_torch.types, mlsl_tpu_torch.c_shim, "
             "mlsl_tpu_torch.capi.build, mlsl_tpu_torch.codecs, mlsl_tpu_torch.codecs.prune, "
             "mlsl_tpu_torch.codecs.vq, mlsl_tpu_torch.comm.sparse, mlsl_tpu_torch.comm.codec, "
-            "mlsl_tpu_torch.tuner.calibrate; "
+            "mlsl_tpu_torch.tuner.calibrate, mlsl_tpu_torch.data.wire, "
+            "mlsl_tpu_torch.data.feed, mlsl_tpu_torch.data.loader, "
+            "mlsl_tpu_torch.data.cache, mlsl_tpu_torch.data.sources, "
+            "mlsl_tpu_torch.parallel.pipeline, mlsl_tpu_torch.supervisor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
