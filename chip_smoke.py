@@ -370,6 +370,38 @@ Phases, in order; any failure exits non-zero and prints no result:
              each bit for bit its plain version; inline_allreduce forced to
              B3 and to B5. One line a schedule (step seconds, peak GiB, bubble
              share) and one a reduction route (ms a call).
+39. serve (run (y), after 38): gpt-medium-2k (bf16, weights from
+             init_params with torch.Generator seed 0) served through
+             InferenceEngine -> submit -> run, 32 new tokens a request, 4
+             slots, 4,096 MiB of KV pages of 16 tokens, prompts of 64-1,024
+             tokens (from SEED). (y1) tp = 1, float32 KV: 240 requests
+             arriving as a Poisson stream of 12 a second after one warm-up
+             request; TTFT from each
+             arrival, the gaps between a request's tokens (all, and those a
+             joining prefill stalled), TPOT and the decode step's own time,
+             each with the percentiles its sample supports; two planted
+             faults (positions off by one, block 0's K/V write lost) must
+             fail the oracle rule. (y2)-(y5b) take the first 8
+             requests at once. (y2) tp = 2 with MLSL_PALLAS_RHD=1: B5 twice a
+             block in the decode graph, never in a prefill; (y3) tp = 2 with
+             MLSL_ALGO=allreduce=pallas_ring: B3 twice a block in each prefill
+             and in the graph; (y4) tp = 1 with MLSL_SERVE_KV_QUANT=1: B1 twice
+             a prefill write and twice a block in the graph, B2 twice a block
+             in the graph, the pools bit for bit the plain kv_block_quant of
+             the same K and V, the first tokens (y1)'s; (y5a) two 1,000-token
+             prompts, 48 new tokens, 2 slots and 129 pages: the younger
+             evicted and resumed; (y5b) the float32 model with two forced
+             sheds mid-run: the bf16 graph captured mid-run, finite logits, the
+             SERVE lines of the sheds and the recoveries, then, the ladder
+             recovered, two requests held to the float32 rule
+             (SERVE_F32_DELTA), which all three planted faults (block 11's
+             K/V write lost too) must fail. Each sub-run's graph
+             records its kernels once and its capture's warm-up launches them
+             once more; SERVE_ORACLE's requests a sub-run against the unpaged
+             oracle under the card's rule (every step's logits within
+             SERVE_DELTA of the oracle's on the engine's own stream); the
+             decode graph bit for bit against the same step run eagerly
+             ((y1), (y2), (y4)). One line a sub-run.
 
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
@@ -905,7 +937,9 @@ ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
              "MLSL_PALLAS_A2A_QUANT", "MLSL_GRAD_BUCKET_MB", "MLSL_STATS", "MLSL_STATS_DIR",
              "MLSL_TOPK_RATIO", "MLSL_CODEC", "MLSL_TUNE_CODEC", "MLSL_TUNE_PROFILE",
              "MLSL_MESH_TIERS", "MLSL_HIER_DCN_CODEC", "MLSL_TUNE", "MLSL_TUNE_QUANT",
-             "MLSL_TUNE_SIZES", "MLSL_TUNE_ITERS")
+             "MLSL_TUNE_SIZES", "MLSL_TUNE_ITERS", "MLSL_SERVE_MAX_BATCH",
+             "MLSL_SERVE_KV_CACHE_MB", "MLSL_SERVE_KV_QUANT", "MLSL_SERVE_KV_PAGE_ELEMS",
+             "MLSL_SERVE_QUEUE_DEPTH")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -5908,6 +5942,415 @@ def run_pipeline(torch, np, launches, reset_launches, dev):
     return used, lines
 
 
+# -- run (y): decode mode and the serving engine ------------------------------------
+
+# gpt-medium-2k served at its full width and depth (models/transformer.GPT_MEDIUM_2K,
+# bf16 compute), weights from init_params with torch.Generator seed SEED
+SERVE_BATCH = 4             # MLSL_SERVE_MAX_BATCH of (y1)-(y5b)
+SERVE_KV_MB = 4096          # MLSL_SERVE_KV_CACHE_MB: 2,730 float32 pages of 1.5 MiB
+SERVE_LOAD = 240            # (y1)'s requests, arriving as a Poisson stream ...
+SERVE_RATE = 12.0           # ... of this many a second (SEED): about 60 % of 4 slots
+SERVE_REQUESTS = 8          # (y2)-(y5b): the first 8 of them, submitted at once
+SERVE_NEW = 32
+SERVE_PROMPT = (64, 1024)   # prompt lengths, uniform, from SEED; ids in 1..vocab-1
+SERVE_ORACLE = {"y1": 8, "y2": 4, "y3": 2, "y4": 8, "y5a": 2, "y5b": 2}   # held to the oracle
+SERVE_JAX_RULE = 4          # (y4) requests counted against the oracle's own stream
+# The card's oracle rule (serve/checks.oracle_rule): the unpaged oracle runs on
+# the engine's own token stream, and at every step each logit the engine
+# picked from lies within SERVE_DELTA of the oracle's (SERVE_INT8_DELTA with
+# int8 KV, whose dequantized K and V are up to amax/254 off). cuBLAS sums the
+# prefill's 2,048-row products in another order than the decode step's few-row
+# ones (and rounds the bf16 QKV and MLP products after them), so paged and
+# unpaged logits differ in their last bits; where the engine's token is not
+# the oracle's top one, the oracle's margin is at most twice the bound. The
+# float32-compute model of (y5b) is held to SERVE_F32_DELTA, over its own
+# float32 noise; every planted fault of SERVE_FAULTS must fail that rule at
+# this width, and the first two the bf16 rule of (y1) as well (a lost write of
+# the last block moves the logits less than bf16's own noise). Measured on an
+# H100 (PERF.md).
+SERVE_DELTA = 0.05          # largest seen on an H100: 0.0346 (y1-y3, 14 requests)
+SERVE_INT8_DELTA = 0.07     # largest seen on an H100: 0.0350 (y4, 8 requests)
+SERVE_F32_DELTA = 1e-4      # largest seen on an H100: 6.4e-6; the faults 1.8e-3 and up
+SERVE_FAULTS = ("position+1", "drop_kv:0", "drop_kv:11")
+SERVE_EVICT_MB = 194        # (y5a): 129 float32 pages, one full sequence plus one
+SERVE_EVICT_PROMPT = 1000
+SERVE_EVICT_NEW = 48
+SERVE_STATS_DIR = ROOT / "build" / "mlsl_tpu_torch" / "serve_stats"
+
+
+def serve_prompts(np, vocab, n=SERVE_LOAD, seed=SEED):
+    """``n`` prompts, lengths uniform in SERVE_PROMPT, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, size=n)
+    return [rng.integers(1, vocab, size=int(k)).astype(np.int32) for k in sizes]
+
+
+def serve_kernel_mods():
+    from mlsl_tpu_torch.ops import (a2a_kernels, attention_kernels, quant_kernels,
+                                    rhd_kernels, ring_kernels)
+
+    return (quant_kernels, ring_kernels, rhd_kernels, a2a_kernels, attention_kernels)
+
+
+def serve_oracle(eng, reqs, probe, delta, tag):
+    """The card's oracle rule (SERVE_DELTA above) on each of ``reqs``. ->
+    their records."""
+    from mlsl_tpu_torch.serve import checks
+
+    recs = []
+    for r in reqs:
+        rec = checks.oracle_rule(eng, r, probe.logits[r.id], delta)
+        check(rec["ok"], f"serve {tag}: request {r.id} is {rec['max_abs_delta']:.4g} from the "
+                         f"oracle's logits (bound {delta}): {rec}")
+        recs.append({k: v for k, v in rec.items() if k not in ("ok", "request")})
+    return recs
+
+
+def serve_twin(torch, np, eng):
+    """The decode graph's replay against the same step run eagerly on the
+    card from the same pools (serve/checks.decode_twin): the live slots'
+    logits and every pool page but the garbage page 0 bit for bit. Launches
+    here are comparison launches: the counts are put back."""
+    from mlsl_tpu_torch.serve import checks
+
+    before = [(m, dict(m.LAUNCHES)) for m in serve_kernel_mods()]
+    g, e, same_pools, n_live = checks.decode_twin(eng)
+    torch.cuda.synchronize()
+    for m, counts in before:
+        m.LAUNCHES.update(counts)
+    check(n_live > 0 and np.array_equal(g, e) and same_pools,
+          f"serve twin: graph replay against the eager step: logits max |delta| "
+          f"{float(np.abs(g - e).max()) if g.shape == e.shape else 'shape'}, pools equal "
+          f"{same_pools}")
+    return n_live
+
+
+def serve_faults(torch, np, eng, prompts, delta, faults):
+    """Each planted fault of ``faults`` (serve/checks.planted) on two
+    requests of 8 new tokens, run eagerly: the oracle rule must fail it.
+    Launches here are comparison launches: the counts are put back. -> the
+    largest |logit delta| of each."""
+    from mlsl_tpu_torch.serve import checks
+
+    before = [(m, dict(m.LAUNCHES)) for m in serve_kernel_mods()]
+    out = {}
+    for fault in faults:
+        probe = checks.Probe(eng)
+        with checks.planted(eng, fault):
+            reqs = [eng.submit(p, 8) for p in prompts[:2]]
+            eng.run()
+        recs = [checks.oracle_rule(eng, r, probe.logits[r.id], delta) for r in reqs]
+        out[fault] = [rec["max_abs_delta"] for rec in recs]
+        check(not all(rec["ok"] for rec in recs),
+              f"serve faults: the oracle rule passed the planted fault {fault}: {recs}")
+    torch.cuda.synchronize()
+    for m, counts in before:
+        m.LAUNCHES.update(counts)
+    return out
+
+
+def tail(np, xs):
+    """A sample's count, p50, each of p90 and p99 that it supports (ten
+    values or more above it) and its largest value."""
+    xs = np.asarray(xs, np.float64)
+    out = {"n": int(xs.size)}
+    if xs.size:
+        out["p50"] = float(np.percentile(xs, 50))
+        for q in (90, 99):
+            if xs.size * (100 - q) / 100 >= 10:
+                out[f"p{q}"] = float(np.percentile(xs, q))
+        out["max"] = float(xs.max())
+    return out
+
+
+def serve_run(torch, np, get_env, launches, reset_launches, tag, cfg, params, tp, prompts,
+              new, env_vars, shed_after=None, rate=None, oracle=0):
+    """One sub-run of (y): a fresh Environment of ``tp`` ranks with
+    ``env_vars``, an InferenceEngine on ``params`` and every prompt submitted
+    at once, then ``run()`` to idle (with ``shed_after``: ``run(max_steps=...)``,
+    two force_shed calls, then ``run()``). With ``rate``, the prompts arrive
+    instead as a Poisson stream of ``rate`` a second (from SEED), each
+    submitted at the first scheduler step after its arrival, after one
+    warm-up request has captured the decode graph (as a server warms up
+    before it takes traffic). The launch counts are set to 0 just before the
+    engine is built and read just after the run.
+    The record: TTFT from each request's arrival; the gaps between a
+    request's consecutive tokens (the inter-token latency), all of them, and
+    apart those inside which a joining request's prefill ran; each request's
+    time a token over its whole stream (TPOT); the decode step's own host
+    time (the warm-up's steps and the capturing step left out); tokens/s
+    over the run. -> (engine, requests, probe, launches, the record)."""
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.serve import InferenceEngine, checks
+
+    env = reinit(get_env, world=tp, **env_vars)
+    settle(torch)
+    stats.reset_serve_counters()
+    reset_launches()
+    eng = InferenceEngine(env, cfg, tp=tp, params=params)
+    probe = checks.Probe(eng, keep=None if shed_after else set(range(oracle)))
+    if rate:
+        warm = eng.submit(prompts[0], 2)
+        eng.run()
+        check(warm.state == "done", f"serve {tag}: the warm-up request {warm.state}")
+        probe.keep = {i + warm.id + 1 for i in range(oracle)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = time.monotonic()
+    first_step = len(probe.step_ms)
+    if rate:
+        due = start + np.cumsum(np.random.default_rng(SEED + 7).exponential(1.0 / rate,
+                                                                            len(prompts)))
+        reqs = []
+        while True:
+            now = time.monotonic()
+            while len(reqs) < len(prompts) and due[len(reqs)] <= now:
+                reqs.append(eng.submit(prompts[len(reqs)], new))
+            if eng.step() == 0 and not eng._pending:
+                if len(reqs) == len(prompts):
+                    break
+                time.sleep(max(0.0, min(due[len(reqs)] - time.monotonic(), 0.001)))
+    else:
+        due = np.full(len(prompts), start)
+        reqs = [eng.submit(p, new) for p in prompts]
+        if shed_after:
+            eng.run(max_steps=shed_after)
+            eng.governor.force_shed("chip_smoke (y5b)")
+            eng.governor.force_shed("chip_smoke (y5b)")
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    used = {k: v for k, v in launches().items() if v}
+    check(all(r.state == "done" and len(r.tokens) == new for r in reqs),
+          f"serve {tag}: states {[r.state for r in reqs]}, tokens "
+          f"{[len(r.tokens) for r in reqs]}")
+    eng.cache.check()
+    check(len(eng.cache) == 0, f"serve {tag}: {len(eng.cache)} sequences hold pages after the run")
+    counters = dict(stats.SERVE_COUNTERS)
+    ids = [r.id for r in reqs]
+    gaps, stalled = probe.gaps(ids)
+    gaps, stalled = np.asarray(gaps), np.asarray(stalled, bool)
+    graphs = {dt: {"capture_s": c.seconds, "launches_recorded": c.launches}
+              for dt, c in eng._decode_cache.items()}
+    rec = {"tp": tp, "requests": len(reqs),
+           "succeeded": sum(r.state == "done" for r in reqs), "new_tokens": new,
+           "arrivals_per_s": rate, "prompt_tokens": int(sum(p.size for p in prompts)),
+           "ttft_ms": tail(np, [(probe.stamps[i][0] - d) * 1e3 for i, d in zip(ids, due)]),
+           "itl_ms": tail(np, gaps), "itl_ms_over_a_prefill": tail(np, gaps[stalled]),
+           "itl_ms_no_prefill": tail(np, gaps[~stalled]),
+           "tpot_ms": tail(np, [(probe.stamps[i][-1] - probe.stamps[i][0]) * 1e3
+                                / (len(probe.stamps[i]) - 1) for i in ids]),
+           "step_ms": tail(np, probe.step_ms[max(first_step, 1):]),
+           "first_step_ms": probe.step_ms[0],
+           "decode_steps": int(counters["decode_steps"]), "prefills": int(counters["prefills"]),
+           "tokens_per_s": sum(len(r.tokens) for r in reqs) / wall, "wall_s": wall,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "kv_pages": eng.cache.num_pages, "graphs": graphs, "launches": used,
+           "evictions": int(counters["kv_evictions"])}
+    return eng, reqs, probe, used, rec
+
+
+def serve_check_launches(tag, eng, used, rec, want_graph, per_prefill):
+    """The path's launches: each kernel ``want_graph`` times in the one
+    decode graph (recorded once; the capture's warm-up launches as many),
+    ``per_prefill`` times in each prefill and write, and nothing else."""
+    dtype = eng.cfg.dtype
+    check(list(eng._decode_cache) == [dtype], f"serve {tag}: graphs {list(eng._decode_cache)}")
+    recorded = {k: v for k, v in eng._decode_cache[dtype].launches.items() if v}
+    check(recorded == want_graph, f"serve {tag}: the decode graph recorded {recorded}, "
+                                  f"expected {want_graph}")
+    want = {k: 2 * want_graph.get(k, 0) + per_prefill.get(k, 0) * rec["prefills"]
+            for k in set(want_graph) | set(per_prefill)}
+    check(used == want, f"serve {tag}: launches {used}, expected {want} "
+                        f"({rec['prefills']} prefills)")
+
+
+def run_serve(torch, np, get_env, launches, reset_launches):
+    """Run (y): gpt-medium-2k served through InferenceEngine -> submit -> run
+    at its full width and depth. (y1) tp = 1, float32 KV; (y2) tp = 2 with
+    MLSL_PALLAS_RHD=1 (B5 in the decode graph); (y3) tp = 2 with
+    MLSL_ALGO=allreduce=pallas_ring (B3 in the prefill and the graph); (y4)
+    tp = 1 with int8 KV (B1 at the write and in the graph, B2 in the graph);
+    (y5a) eviction at a budget of one full sequence plus one page; (y5b) the
+    float32-compute model with two forced sheds mid-run (the bf16 graph, a
+    second capture) and the recoveries. -> (launches by sub-run, lines)."""
+    import dataclasses
+
+    from mlsl_tpu_torch.models import transformer as tfm
+    from mlsl_tpu_torch.ops import quant_kernels as qk
+    from mlsl_tpu_torch.ops import rhd_kernels as rhd
+    from mlsl_tpu_torch.serve import oracle_generate
+
+    cfg = tfm.GPT_MEDIUM_2K
+    t_all = time.perf_counter()
+    params = tfm.init_params(torch.Generator().manual_seed(SEED), cfg)
+    load = serve_prompts(np, cfg.vocab, SERVE_LOAD)
+    prompts = load[:SERVE_REQUESTS]
+    base = {"MLSL_SERVE_MAX_BATCH": str(SERVE_BATCH), "MLSL_SERVE_KV_CACHE_MB": str(SERVE_KV_MB)}
+    lines, used_by = [], {}
+    blocks = cfg.n_blocks
+
+    def finish(tag, eng, reqs, probe, rec, delta=SERVE_DELTA, twin=True, faults=()):
+        t0 = time.perf_counter()
+        rec["oracle"] = serve_oracle(eng, reqs[:SERVE_ORACLE[tag]], probe, delta, tag)
+        if faults:
+            rec["planted_faults_max_abs_delta"] = serve_faults(torch, np, eng, prompts, delta,
+                                                               faults)
+        if twin:
+            # two more requests, two steps, then the twin on the live batch
+            for p in prompts[:2]:
+                eng.submit(p, 4)
+            eng.run(max_steps=2)
+            rec["twin_slots"] = serve_twin(torch, np, eng)
+            eng.run()
+        rec["checks_s"] = time.perf_counter() - t0
+        lines.append(f"# serve {tag} {json.dumps(rec)}")
+
+    # (y1) tp = 1, float32 KV
+    eng, reqs, probe, used, rec = serve_run(torch, np, get_env, launches, reset_launches,
+                                            "y1", cfg, params, 1, load, SERVE_NEW,
+                                            {**base, "MLSL_SERVE_QUEUE_DEPTH": str(SERVE_LOAD)},
+                                            rate=SERVE_RATE, oracle=SERVE_ORACLE["y1"])
+    serve_check_launches("y1", eng, used, rec, {}, {})
+    first_tokens = [r.tokens[0] for r in reqs[:SERVE_REQUESTS]]
+    finish("y1", eng, reqs, probe, rec, faults=SERVE_FAULTS[:2])
+    used_by["serve_y1"] = used
+    eng.close()
+    del eng, reqs, probe
+
+    # (y2) tp = 2, the decode step's reductions on B5 (B x 1,024 float32 <=
+    # 40,000 B); the prefill's 8 MiB stay on lax
+    eng, reqs, probe, used, rec = serve_run(torch, np, get_env, launches, reset_launches,
+                                            "y2", cfg, params, 2, prompts, SERVE_NEW,
+                                            {**base, "MLSL_PALLAS_RHD": "1"},
+                                            oracle=SERVE_ORACLE["y2"])
+    serve_check_launches("y2", eng, used, rec, {"rhd_allreduce": 2 * blocks}, {})
+    plan = rhd.RhdPlan(eng.dist.model_group)
+    x = torch.randn((2, SERVE_BATCH * cfg.d_model), device=eng.device)
+    before = dict(rhd.LAUNCHES)
+    rec["b5_ms_a_call"] = time_ms(torch, lambda: rhd.rhd_allreduce(x, plan), reps=50)
+    rhd.LAUNCHES.update(before)
+    finish("y2", eng, reqs, probe, rec)
+    used_by["serve_y2"] = used
+    eng.close()
+    del eng, reqs, probe
+
+    # (y3) tp = 2, every reduction on B3
+    eng, reqs, probe, used, rec = serve_run(torch, np, get_env, launches, reset_launches,
+                                            "y3", cfg, params, 2, prompts, SERVE_NEW,
+                                            {**base, "MLSL_ALGO": "allreduce=pallas_ring"},
+                                            oracle=SERVE_ORACLE["y3"])
+    serve_check_launches("y3", eng, used, rec, {"dense_ring": 2 * blocks},
+                         {"dense_ring": 2 * blocks})
+    finish("y3", eng, reqs, probe, rec, twin=False)
+    used_by["serve_y3"] = used
+    eng.close()
+    del eng, reqs, probe
+
+    # (y4) tp = 1, int8 KV: B1 twice a prefill write (K, V over every block) and
+    # twice a block in the graph, B2 twice a block in the graph
+    eng, reqs, probe, used, rec = serve_run(torch, np, get_env, launches, reset_launches,
+                                            "y4", cfg, params, 1, prompts, SERVE_NEW,
+                                            {**base, "MLSL_SERVE_KV_QUANT": "1"},
+                                            oracle=SERVE_ORACLE["y4"])
+    serve_check_launches("y4", eng, used, rec,
+                         {"quantize_blocks": 2 * blocks, "dequantize_blocks": 2 * blocks},
+                         {"quantize_blocks": 2})
+    check([r.tokens[0] for r in reqs] == first_tokens,
+          f"serve y4: first tokens {[r.tokens[0] for r in reqs]} differ from (y1)'s "
+          f"{first_tokens}")
+    # the pools hold what the plain kv_block_quant gives for the same K and V
+    before = dict(qk.LAUNCHES)
+    p = prompts[0]
+    padded = torch.zeros((eng.ctx_len,), dtype=torch.long, device=eng.device)
+    padded[:p.size] = torch.from_numpy(p.astype(np.int64)).to(eng.device)
+    _, k, v = eng._prefill(padded, p.size)
+    sid = -1
+    check(eng.cache.admit(sid, eng.ctx_len), "serve y4: no pages for the write check")
+    table = eng.cache.table_padded(sid)
+    eng._write(k, v, torch.as_tensor(table, dtype=torch.long, device=eng.device))
+    live = torch.as_tensor(table, dtype=torch.long, device=eng.device)
+    for x, pool, spool in ((k, eng.kpool, eng.kscale), (v, eng.vpool, eng.vscale)):
+        rq, rs = qk.quantize_blocks_ref(x.reshape(-1, cfg.head_dim))
+        got_q = pool[:, :, :, :, :, live].reshape(-1, cfg.head_dim)
+        got_s = spool[:, :, :, :, :, live].reshape(-1)
+        check(torch.equal(got_q, rq) and torch.equal(got_s, rs),
+              "serve y4: the int8 pools differ from the plain kv_block_quant of the same K, V")
+    eng.cache.release(sid)
+    qk.LAUNCHES.update(before)
+    del k, v
+    finish("y4", eng, reqs, probe, rec, delta=SERVE_INT8_DELTA)
+    # the JAX package's rule (tests/test_serve.py:96-114): the first token
+    # exact and at most one token apart from the oracle's own greedy stream
+    agree = [sum(a == b for a, b in zip(r.tokens, oracle_generate(eng, r.prompt, SERVE_NEW)))
+             for r in reqs[:SERVE_JAX_RULE]]
+    held = all(n >= SERVE_NEW - 1 for n in agree)
+    lines.append(f"# serve y4 against the float32 oracle's own stream: JAX's rule (first token "
+                 f"exact, at most one differing token) {'held' if held else 'did not hold'} on "
+                 f"{SERVE_JAX_RULE} requests: tokens that agree {agree} of {SERVE_NEW}")
+    used_by["serve_y4"] = used
+    eng.close()
+    del eng, reqs, probe
+
+    # (y5a) eviction: two 1,000-token prompts, 48 new tokens each, 2 slots, 129
+    # pages; both reach their 65th page and the younger is evicted and resumed
+    rng = np.random.default_rng(SEED + 50)
+    long = [rng.integers(1, cfg.vocab, size=SERVE_EVICT_PROMPT).astype(np.int32)
+            for _ in range(2)]
+    eng, reqs, probe, used, rec = serve_run(
+        torch, np, get_env, launches, reset_launches, "y5a", cfg, params, 1, long,
+        SERVE_EVICT_NEW, {"MLSL_SERVE_MAX_BATCH": "2", "MLSL_SERVE_KV_CACHE_MB": str(SERVE_EVICT_MB)},
+        oracle=SERVE_ORACLE["y5a"])
+    check(eng.cache.num_pages == eng.cache.max_pages_per_seq + 1,
+          f"serve y5a: {eng.cache.num_pages} pages, expected one sequence plus one")
+    check(rec["evictions"] >= 1 and rec["prefills"] >= 3,
+          f"serve y5a: evictions {rec['evictions']}, prefills {rec['prefills']}")
+    serve_check_launches("y5a", eng, used, rec, {}, {})
+    finish("y5a", eng, reqs, probe, rec, twin=False)
+    used_by["serve_y5a"] = used
+    eng.close()
+    del eng, reqs, probe
+
+    # (y5b) the float32-compute model, two forced sheds after 5 steps: batch
+    # (2 slots), then precision (the bf16 graph, captured mid-run); the ladder
+    # recovers after 16 clear ticks a rung
+    SERVE_STATS_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = SERVE_STATS_DIR / "mlsl_stats.log"
+    if log_path.exists():
+        log_path.unlink()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    eng, reqs, probe, used, rec = serve_run(
+        torch, np, get_env, launches, reset_launches, "y5b", cfg32, params, 1, prompts,
+        SERVE_NEW, {**base, "MLSL_STATS_DIR": str(SERVE_STATS_DIR)}, shed_after=5)
+    check(sorted(eng._decode_cache) == ["bfloat16", "float32"],
+          f"serve y5b: graphs {sorted(eng._decode_cache)}")
+    check(all(np.isfinite(a).all() for ls in probe.logits.values() for a in ls),
+          "serve y5b: non-finite logits")
+    serve_lines = [ln for ln in log_path.read_text().splitlines() if ln.startswith("SERVE")]
+    kinds = [ln.split()[1] for ln in serve_lines]
+    check(kinds[:2] == ["BATCH", "PRECISION"] and kinds.count("RECOVERY") >= 1,
+          f"serve y5b: SERVE lines {serve_lines}")
+    rec["serve_lines"] = serve_lines
+    rec["rung_at_end"] = eng.governor.rung
+    # the ladder back at its first rung, the float32 graph serves again: the
+    # float32 model's rule (SERVE_F32_DELTA) on two more requests, and every
+    # planted fault must fail it
+    check(eng.governor.rung == 0, f"serve y5b: rung {eng.governor.rung} after the run")
+    from mlsl_tpu_torch.serve import checks
+    probe = checks.Probe(eng)
+    reqs = [eng.submit(p, SERVE_NEW // 2) for p in prompts[:SERVE_ORACLE["y5b"]]]
+    eng.run()
+    finish("y5b", eng, reqs, probe, rec, delta=SERVE_F32_DELTA, twin=False,
+           faults=SERVE_FAULTS)
+    used_by["serve_y5b"] = used
+    eng.close()
+    del eng, reqs, probe, params
+    settle(torch)
+    lines.append(f"# phase serve (run (y)): ok in {time.perf_counter() - t_all:.1f} s, "
+                 f"launches {json.dumps(used_by)}")
+    return used_by, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -6310,6 +6753,10 @@ def main() -> int:
         pipe_used, pipe_out = run_pipeline(torch, np, launches, reset_launches, dev)
         for line in pipe_out:
             log(line)
+        # decode mode and the serving engine (run (y))
+        serve_used, serve_out = run_serve(torch, np, get_env, launches, reset_launches)
+        for line in serve_out:
+            log(line)
         env = reinit(get_env)
 
         fc_entry = ring_rows["fc"][0]
@@ -6329,7 +6776,7 @@ def main() -> int:
                     activation_graph=activation, collectives=coll_used, capi=capi_used,
                     **{f"codec_{k}": v for k, v in codec_used.items()},
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
-                    pipeline=pipe_used)
+                    pipeline=pipe_used, **serve_used)
         entries = [
             # B1 at its largest shape on the path (the fc layer's entry quantize)
             codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
@@ -6407,6 +6854,26 @@ def main() -> int:
                                                    activation_graph=activation,
                                                    capi=capi_used, **tune_used),
                                      dev=dev))
+        # B1 and B2 at the serving path's int8 KV shapes (run (y4)): a prefill's
+        # K over every block, a decode step's K rows of one block, and the gather
+        # of one block's K; B5 and B3 at its tp = 2 reductions ((y2), (y3))
+        srv = tfm.GPT_MEDIUM_2K
+        for kind, rows, tag in (
+                ("quantize", srv.n_blocks * srv.seq_len * srv.n_heads, "serve: a prefill's K"),
+                ("quantize", SERVE_BATCH * srv.n_heads, "serve: a decode step's K, one block"),
+                ("dequantize", SERVE_BATCH * srv.seq_len * srv.n_heads,
+                 "serve: the gathered K of one block")):
+            key = "quantize_blocks" if kind == "quantize" else "dequantize_blocks"
+            entries.append(codec_entry(torch, qk, kind, rows, srv.head_dim, bw, f32,
+                                       path(key, **runs), dev, tag=tag))
+        entries.append(group_rhd_entry(
+            torch, rhd, (1, 2), ("model",), SERVE_BATCH * srv.d_model,
+            "serve decode reduction, tp 2", bw, f32, path("rhd_allreduce", **runs), dev))
+        for count, tag in ((srv.seq_len * srv.d_model, "serve prefill reduction, tp 2"),
+                           (SERVE_BATCH * srv.d_model, "serve decode reduction, tp 2")):
+            entries.append(group_ring_entry(
+                torch, rk, "allreduce", (1, 2), ("model",), count, tag, bw, f32,
+                path("dense_ring", **runs), dev))
     finally:
         if card_tests is not None and card_tests.poll() is None:   # a phase failed first
             card_tests.kill()

@@ -372,6 +372,11 @@ def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=Non
 # tensor work on the plain route, so autograd runs through them.
 
 
+#: inline_allreduce's staged forms, by (algorithm, group key, count, op,
+#: bidir); Environment.finalize empties it
+_INLINE_PLANS: dict = {}
+
+
 def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
                      config=None, op=None) -> torch.Tensor:
     """The allreduce inside model and parallelism code (algos/__init__.py:580-612).
@@ -385,7 +390,12 @@ def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
     (the JAX package's axis name), every rank receiving the result. On the CPU
     a SUM adds the members one by one, in member order, as the baseline
     collective does; on the card it is one reduction. Autograd runs through
-    the plain routes."""
+    the plain routes.
+
+    A staged form is built once per (algorithm, group, count, op) and kept
+    until the Environment is finalized, with the member tables its kernels
+    read on the card: a second call copies nothing to the card, so a CUDA
+    graph can record it (the serving engine's decode step)."""
     from mlsl_tpu_torch.comm import collectives
 
     rop = ReductionType(op) if op is not None else ReductionType.SUM
@@ -395,8 +405,13 @@ def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
         buf = x.reshape(*grid, count)
         algo = select("allreduce", group, count * 4, CompressionType.NONE, config, op=rop)
         if algo != DEFAULT and inline_eligible(algo, "allreduce", group, rop):
-            prep, phases, finish = inline_plan("allreduce", group, algo, count, op=rop,
-                                               config=config)
+            key = (algo, collectives.group_key(group, x.device), count, rop,
+                   bool(getattr(config, "pallas_ring_bidir", False)))
+            plan = _INLINE_PLANS.get(key)
+            if plan is None:
+                plan = _INLINE_PLANS[key] = inline_plan("allreduce", group, algo, count,
+                                                        op=rop, config=config)
+            prep, phases, finish = plan
             carry = prep(buf)
             for phase in phases:
                 carry = phase(carry)

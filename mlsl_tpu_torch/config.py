@@ -10,8 +10,10 @@ and kernel knobs (comm/algos, tuner/, ops/), the compiled overlap engine
 with the staging depth it shares with the ZeRO-1 update (comm/overlap.py), and
 the compressed wires beyond int8: the top-k ratio, a user codec, the codec
 registry's knobs and its calibration (codecs/, tuner/calibrate.py), and the
-two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py), and
-the device feed's wire, cache, depth and retries (data/).
+two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py),
+the device feed's wire, cache, depth and retries (data/), and the serving
+engine's batch, KV pages, KV budget, queue and int8 KV (serve/) with the
+transient-fault retries its decode step reads.
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -45,6 +47,10 @@ _ENV_FIELDS = {
     "MLSL_FEED_DEPTH": "feed_depth",
     "MLSL_FEED_CACHE_MB": "feed_cache_mb",
     "MLSL_FEED_WIRE_DTYPE": "feed_wire_dtype",
+    "MLSL_SERVE_MAX_BATCH": "serve_max_batch",
+    "MLSL_SERVE_KV_PAGE_ELEMS": "serve_kv_page_elems",
+    "MLSL_SERVE_KV_CACHE_MB": "serve_kv_cache_mb",
+    "MLSL_SERVE_QUEUE_DEPTH": "serve_queue_depth",
 }
 
 # the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
@@ -187,6 +193,26 @@ class Config:
     # TRANSIENT source-read retries per batch.
     feed_retries: int = 2           # MLSL_FEED_RETRIES
 
+    # --- the serving engine (serve/) ---
+    # Decode slots of the continuous batch; the SLA ladder sheds below it. A
+    # tuned profile may set it, an exported value wins (as for the three
+    # knobs below).
+    serve_max_batch: int = 8        # MLSL_SERVE_MAX_BATCH
+    # Tokens a KV page: the paged cache's allocation unit.
+    serve_kv_page_elems: int = 16   # MLSL_SERVE_KV_PAGE_ELEMS
+    # Device budget (MiB) of the paged KV cache: it caps the pages.
+    serve_kv_cache_mb: int = 64     # MLSL_SERVE_KV_CACHE_MB
+    # Requests waiting beyond the in-flight batch; over it submit() rejects
+    # 429-style with a retry-after hint.
+    serve_queue_depth: int = 32     # MLSL_SERVE_QUEUE_DEPTH
+    # KV pages int8 with one float32 scale a (token, head) row (kernels B1
+    # and B2) instead of float32.
+    serve_kv_quant: bool = False    # MLSL_SERVE_KV_QUANT
+    # TRANSIENT retries of a failed decode step in place, with jittered
+    # exponential backoff from this base (supervisor.jittered_backoff).
+    comm_retries: int = 2               # MLSL_COMM_RETRIES
+    comm_retry_backoff_s: float = 0.05  # MLSL_COMM_RETRY_BACKOFF_S
+
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
         into ``_forced_algos`` (comm/algos.select reads it)."""
@@ -264,6 +290,21 @@ class Config:
                     "MLSL_FEED_CACHE_MB must be >= 0 (got %d)", self.feed_cache_mb)
         mlsl_assert(self.feed_retries >= 0,
                     "MLSL_FEED_RETRIES must be >= 0 (got %d)", self.feed_retries)
+        mlsl_assert(self.comm_retries >= 0,
+                    "MLSL_COMM_RETRIES must be >= 0 (got %d)", self.comm_retries)
+        mlsl_assert(self.comm_retry_backoff_s >= 0,
+                    "MLSL_COMM_RETRY_BACKOFF_S must be >= 0 (got %r)",
+                    self.comm_retry_backoff_s)
+        mlsl_assert(self.serve_max_batch >= 1,
+                    "MLSL_SERVE_MAX_BATCH must be >= 1 (got %d)", self.serve_max_batch)
+        mlsl_assert(self.serve_kv_page_elems >= 1,
+                    "MLSL_SERVE_KV_PAGE_ELEMS must be >= 1 (got %d)",
+                    self.serve_kv_page_elems)
+        mlsl_assert(self.serve_kv_cache_mb >= 1,
+                    "MLSL_SERVE_KV_CACHE_MB must be >= 1 -- a zero-page cache cannot "
+                    "admit any sequence (got %d)", self.serve_kv_cache_mb)
+        mlsl_assert(self.serve_queue_depth >= 1,
+                    "MLSL_SERVE_QUEUE_DEPTH must be >= 1 (got %d)", self.serve_queue_depth)
 
     @staticmethod
     def from_env() -> "Config":
@@ -309,4 +350,12 @@ class Config:
         c.feed_cache_mb = _env_int("MLSL_FEED_CACHE_MB", c.feed_cache_mb)
         c.feed_depth = _env_int("MLSL_FEED_DEPTH", c.feed_depth)
         c.feed_retries = _env_int("MLSL_FEED_RETRIES", c.feed_retries)
+        c.serve_max_batch = _env_int("MLSL_SERVE_MAX_BATCH", c.serve_max_batch)
+        c.serve_kv_page_elems = _env_int("MLSL_SERVE_KV_PAGE_ELEMS", c.serve_kv_page_elems)
+        c.serve_kv_cache_mb = _env_int("MLSL_SERVE_KV_CACHE_MB", c.serve_kv_cache_mb)
+        c.serve_queue_depth = _env_int("MLSL_SERVE_QUEUE_DEPTH", c.serve_queue_depth)
+        c.serve_kv_quant = _env_bool("MLSL_SERVE_KV_QUANT", c.serve_kv_quant)
+        c.comm_retries = _env_int("MLSL_COMM_RETRIES", c.comm_retries)
+        c.comm_retry_backoff_s = _env_float("MLSL_COMM_RETRY_BACKOFF_S",
+                                            c.comm_retry_backoff_s)
         return c

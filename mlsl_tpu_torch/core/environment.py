@@ -109,6 +109,11 @@ class Environment:
             s._invalidate()
         self._sessions.clear()
         self._distributions.clear()
+        # inline_allreduce's staged forms hold this world's member tables and
+        # the kernel functions they were built with: none outlives the world
+        from mlsl_tpu_torch.comm import algos
+
+        algos._INLINE_PLANS.clear()
         self._initialized = False
         Environment._instance = None
 

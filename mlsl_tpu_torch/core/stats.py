@@ -20,17 +20,19 @@ include/mlsl.hpp:651-726, src/mlsl_impl_stats.cpp):
 - ``print_``: the table appended to ``mlsl_stats.log`` (``MLSL_STATS_DIR``,
   default the working directory; reference :226-363), for the counters this
   package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, FEED, ALGO,
-  OVERLAP ENGINE and CODEC lines.
+  OVERLAP ENGINE, CODEC and SERVE ENGINE lines.
 
 Also the process-wide counters of the dispatch layer: bucket rounds of
 gradient bucketing (stats.py:131-175), launches per (kind, algorithm) and the
 compiled overlap engine's steps (stats.py:640-695), the codec registry's
 wire bytes a codec and its calibration and guardrail events (stats.py:268-310),
-and the device feed's staged bytes, cache outcomes, stalls and retries
-(stats.py:537-590). The JAX package's table also prints the sentinel
-(SENTINEL), the elastic mesh (ELASTIC), stragglers (STRAGGLER), the control
-plane (CONTROL), the serving engine (SERVE), checkpoint checks (CHKP) and the
-recovery ladder (DEGRADE); none of those subsystems is ported, so their
+the device feed's staged bytes, cache outcomes, stalls and retries
+(stats.py:537-590), and the serving engine's admissions, decode progress,
+KV paging and SLA ladder transitions (stats.py:592-640; each transition also
+appends an immediate SERVE line). The JAX package's table also prints the
+sentinel (SENTINEL), the elastic mesh (ELASTIC), stragglers (STRAGGLER), the
+control plane (CONTROL), checkpoint checks (CHKP) and the recovery ladder
+(DEGRADE); none of those subsystems is ported, so their
 counters and lines are left out, as are the watchdog record and the span
 tracer's wait-stall percentiles. A guardrail demotion, which the JAX package
 also files as a DEGRADE ladder event, is counted here only in the CODEC
@@ -233,6 +235,52 @@ def reset_feed_counters() -> None:
     with _FEED_LOCK:
         for k in FEED_COUNTERS:
             FEED_COUNTERS[k] = 0 if isinstance(FEED_COUNTERS[k], int) else 0.0
+
+
+# Serving-engine accounting (serve/): process-wide like the feed counters --
+# the engine admits requests from callers' threads with no Session handle.
+# Statistics.print_ renders the totals as the SERVE ENGINE line.
+SERVE_COUNTERS: Dict[str, float] = {
+    "admitted": 0,        # requests accepted into the admission queue
+    "rejected": 0,        # 429-style admission rejections
+    "completed": 0,       # sequences that finished (eos or max_new_tokens)
+    "failed": 0,          # sequences abandoned by a fault
+    "prefills": 0,        # prefills run
+    "decode_steps": 0,    # decode steps over the batch
+    "tokens_out": 0,      # generated tokens over all sequences
+    "retries": 0,         # TRANSIENT decode-step retries
+    "kv_pages_alloc": 0,  # KV pages taken off the free-list
+    "kv_pages_freed": 0,  # KV pages returned
+    "kv_evictions": 0,    # sequences evicted to reclaim pages
+    "kv_rejects": 0,      # admissions or extensions refused for want of pages
+    "shed_batch": 0,      # SLA ladder: batch sheds (rung 1)
+    "shed_precision": 0,  # SLA ladder: precision sheds (rung 2)
+    "shed_admission": 0,  # SLA ladder: admission sheds (rung 3)
+    "recoveries": 0,      # ladder steps back toward healthy
+}
+
+
+def record_serve(event: str, n: int = 1) -> None:
+    """One serving-engine event (a ``SERVE_COUNTERS`` key)."""
+    SERVE_COUNTERS[event] += n
+
+
+def record_serve_shed(rung: str, detail: str = "") -> None:
+    """One SLA-ladder transition ('batch' / 'precision' / 'admission' /
+    'recovery'): counted, and appended at once to ``mlsl_stats.log`` as a
+    SERVE line, so that the log shows when the engine degraded."""
+    key = "recoveries" if rung == "recovery" else f"shed_{rung}"
+    SERVE_COUNTERS[key] += 1
+    try:
+        with open(stats_path(), "a") as f:
+            f.write(f"{'SERVE':<16} {rung.upper():<10} {detail}\n")
+    except OSError:
+        pass
+
+
+def reset_serve_counters() -> None:
+    for k in SERVE_COUNTERS:
+        SERVE_COUNTERS[k] = 0 if isinstance(SERVE_COUNTERS[k], int) else 0.0
 
 
 class _Slot:
@@ -523,6 +571,23 @@ class Statistics:
             )
             for row in CODEC_DEMOTIONS:
                 lines.append(f"{'CODEC':<16} {'DEMOTE':<8} {row}")
+        vc = SERVE_COUNTERS
+        if any(vc.values()):
+            lines.append(
+                f"{'SERVE':<16} {'ENGINE':<10} "
+                f"admitted {int(vc['admitted'])} "
+                f"rejected {int(vc['rejected'])} "
+                f"completed {int(vc['completed'])} "
+                f"failed {int(vc['failed'])} "
+                f"tokens {int(vc['tokens_out'])} "
+                f"steps {int(vc['decode_steps'])} "
+                f"retries {int(vc['retries'])} "
+                f"kv {int(vc['kv_pages_alloc'])}a/{int(vc['kv_pages_freed'])}f/"
+                f"{int(vc['kv_evictions'])}e/{int(vc['kv_rejects'])}r "
+                f"sheds {int(vc['shed_batch'])}b/{int(vc['shed_precision'])}p/"
+                f"{int(vc['shed_admission'])}a "
+                f"recoveries {int(vc['recoveries'])}"
+            )
         text = "\n".join(lines) + "\n"
         try:
             with open(path, "a") as f:

@@ -52,7 +52,15 @@ ZeRO-1), ``step`` on the card replays the whole step -- forward, backward,
 the TP sums and the update -- as one CUDA graph, the counterpart of the
 reference's one donated jit (transformer.py:813-895); ``compiled_step``
 gives its FLOPs, memory and recorded launches. On the CPU the same step runs
-eagerly. The decode-mode functions come later (ROADMAP A).
+eagerly.
+
+Decode mode (``prefill_local``, ``decode_local``; transformer.py:319-509 of
+the JAX package) serves a dense model for ``mlsl_tpu_torch.serve``: a
+prefill over one padded sequence, and the batched decode step over the paged
+KV pools, the model's TP reductions through the collective engine's
+selection table (``_decode_reduce``). Attention runs in float32 over float32
+(or int8 + scale, ``kv_block_quant`` on kernel B1, read back on B2) KV at
+rest.
 """
 
 from __future__ import annotations
@@ -360,6 +368,194 @@ def head_ce(h, head, labels, cfg: TransformerConfig, tp: int) -> torch.Tensor:
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     return ce.sum(dim=(-2, -1))
+
+
+# -- decode mode (mlsl_tpu_torch.serve): prefill and paged one-token steps -----
+#
+# The serving engine (serve/engine.py) runs these over its 1 x tp slice (dp =
+# sp = 1): a prefill a sequence, and the batched decode step over the paged
+# KV pools, which shard over the model axis on the heads dim (as wqkv). The
+# TP output reductions go through the collective engine's selection table
+# (``algos.inline_allreduce``) when a (model group, config) pair is passed,
+# so that the decode step's small reductions can take kernel B5 under
+# MLSL_PALLAS_RHD=1 and every reduction B3 under MLSL_ALGO=allreduce=pallas_ring.
+#
+# Numerics, as the JAX package's: the QKV, MLP and output products in the
+# compute dtype, attention in float32 over float32 KV at rest in both paths,
+# and the engine pins the decode step's gathered context (max_pages x page)
+# to the prefill's padded length, so that both reduce over the same extents
+# and masked positions add exact zeros.
+
+
+def _decode_reduce(x: torch.Tensor, tp: int, comm) -> torch.Tensor:
+    """The TP output reduction of the decode path: routed by the selection
+    table when a (model group, config) pair is given, else the plain model
+    sum."""
+    if tp <= 1:
+        return x
+    if comm is not None:
+        from mlsl_tpu_torch.comm import algos
+
+        return algos.inline_allreduce(x, MODEL_DIM, group=comm[0], config=comm[1])
+    return _model_sum(x, tp)
+
+
+def _causal_attn_f32(q, k, v, scale: float) -> torch.Tensor:
+    """Plain causal attention on one sequence (sp = 1): (..., Hl, S, Dh)
+    float32 -> (..., Hl, S, Dh) float32. The prefill twin of the decode
+    step's masked softmax."""
+    s = torch.einsum("...hsx,...htx->...hst", q * scale, k)
+    n = q.shape[-2]
+    mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, -torch.inf)
+    return torch.einsum("...hst,...htx->...hsx", torch.softmax(s, dim=-1), v)
+
+
+def kv_block_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the trailing (head_dim) dim, one row a (token,
+    head): kernel B1 (``ops.quant_kernels.quantize_blocks``, the blockwise
+    contract with block = head_dim) on a CUDA tensor, its plain version on a
+    CPU one. -> (q int8 of x's shape, float32 scales without the trailing
+    dim); ``kv_block_dequant`` is the inverse, ``q * scales[..., None]``."""
+    from mlsl_tpu_torch.ops import quant_kernels as qk
+
+    q, s = qk.quantize_blocks(x.reshape(-1, x.shape[-1]).contiguous())
+    return q.view(x.shape), s.view(x.shape[:-1])
+
+
+def kv_block_dequant(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``q * scales[..., None]`` in float32: kernel B2
+    (``ops.quant_kernels.dequantize_blocks``) on a CUDA tensor, its plain
+    version on a CPU one."""
+    from mlsl_tpu_torch.ops import quant_kernels as qk
+
+    x = qk.dequantize_blocks(q.reshape(-1, q.shape[-1]).contiguous(),
+                             scales.reshape(-1).contiguous())
+    return x.view(q.shape)
+
+
+def _decode_mlp(h, lnp, mp, cdt, tp, comm):
+    """The block's second half, on (..., rows, d_model) activations."""
+    a = _ln(h.float(), lnp["ln2_scale"], lnp["ln2_bias"]).to(cdt)
+    f = F.gelu(torch.einsum("...sd,...df->...sf", a, mp["w1"].to(cdt))
+               + _bcast(mp["b1"], 1).to(cdt), approximate="tanh")
+    o = _decode_reduce(mxu_einsum("...sf,...fd->...sd", f, mp["w2"].to(cdt)), tp, comm)
+    return (h.float() + o + _bcast(mp["b2"], 1)).to(cdt)
+
+
+@torch.no_grad()
+def prefill_local(params, tokens, length, cfg: TransformerConfig, tp: int, comm=None,
+                  dtype=None):
+    """Decode-mode prefill over one sequence, every rank at once.
+
+    tokens: (S,) int on the parameters' device, padded past ``length`` with
+    any value: the padded positions' K/V are computed but land on the KV
+    cache's reserved garbage page or on positions the decode step writes
+    before it reads them. ``params``: per-rank leaves (R, D, S, M, *local).
+    -> (next-token logits (R, D, S, M, V) float32 read at position
+    length - 1, the same on every model rank; k, v: (R, D, S, M, n_blocks,
+    S, Hl, Dh) float32, each model rank's head shard).
+    """
+    mlsl_assert(cfg.n_experts == 0, "decode mode serves dense-MLP models")
+    mlsl_assert(not cfg.sharded_vocab, "decode mode serves a replicated LM head")
+    cdt = _dtype(dtype or cfg.dtype)
+    emb = params["embed"]
+    n = tokens.shape[0]
+    tok = emb["tok"].index_select(GRID, tokens.long())                  # (*grid, S, dm)
+    h = (tok + emb["pos"][..., :n, :]).to(cdt)
+    scale = 1.0 / float(np.sqrt(cfg.head_dim))
+    ks, vs = [], []
+    for i in range(cfg.n_blocks):
+        lnp, ap, mp = (params[f"blk{i}.{part}"] for part in ("ln", "attn", "mlp"))
+        a = _ln(h.float(), lnp["ln1_scale"], lnp["ln1_bias"]).to(cdt)
+        qkv = torch.einsum("...sd,...dchx->...cshx", a, ap["wqkv"].to(cdt))
+        # (*grid, S, Hl, Dh) float32: the page layout and the at-rest dtype
+        q, k, v = (qkv[..., c, :, :, :].float() for c in range(3))
+        ks.append(k)
+        vs.append(v)
+        attn = _causal_attn_f32(q.movedim(-2, -3), k.movedim(-2, -3), v.movedim(-2, -3),
+                                scale)                                    # (*grid, Hl, S, Dh)
+        o = mxu_einsum("...hsx,...hxd->...sd", attn.to(cdt), ap["wo"].to(cdt))
+        h = (h.float() + _decode_reduce(o, tp, comm)).to(cdt)
+        h = _decode_mlp(h, lnp, mp, cdt, tp, comm)
+
+    fin = params["final"]
+    h = _ln(h.float(), fin["ln_scale"], fin["ln_bias"])
+    last = torch.as_tensor(length, device=h.device).reshape(1).long() - 1
+    h = h.index_select(GRID, last).squeeze(GRID)                          # (*grid, dm)
+    logits = torch.einsum("...d,...dv->...v", h, fin["head"].float())
+    return logits, torch.stack(ks, dim=GRID), torch.stack(vs, dim=GRID)
+
+
+@torch.no_grad()
+def decode_local(params, tokens, positions, pt, kpool, vpool, cfg: TransformerConfig,
+                 tp: int, comm=None, dtype=None, kscale=None, vscale=None):
+    """One continuous-batching decode step, every rank at once.
+
+    tokens: (B,) int the token each slot feeds; positions: (B,) int the
+    index that token takes (its K/V is written there and it attends over
+    the indices <= it); pt: (B, M) int page tables (0 = the reserved garbage
+    page: inactive slots carry all-zero tables and positions, and their
+    writes land there); kpool, vpool: (R, D, S, M, n_blocks, Np, page, Hl,
+    Dh) KV pools, float32, or int8 with kscale, vscale (R, D, S, M,
+    n_blocks, Np, page, Hl) float32 (``kv_block_quant``). The pools are
+    written in place. -> (logits (R, D, S, M, B, V) float32, kpool, vpool[,
+    kscale, vscale]), as the JAX function returns its donated pools.
+
+    Nothing here reads a value back to the host, so that on the card the
+    whole step records as one CUDA graph.
+    """
+    mlsl_assert(cfg.n_experts == 0, "decode mode serves dense-MLP models")
+    mlsl_assert(not cfg.sharded_vocab, "decode mode serves a replicated LM head")
+    cdt = _dtype(dtype or cfg.dtype)
+    quant = kscale is not None
+    page = kpool.shape[GRID + 2]
+    b, n_pages = pt.shape
+    t_ctx = n_pages * page
+    emb = params["embed"]
+    tokens, positions, pt = tokens.long(), positions.long(), pt.long()
+    h = (emb["tok"].index_select(GRID, tokens)
+         + emb["pos"].index_select(GRID, positions)).to(cdt)               # (*grid, B, dm)
+    scale = 1.0 / float(np.sqrt(cfg.head_dim))
+    pages_b = pt.gather(1, (positions // page)[:, None])[:, 0]            # (B,)
+    offs_b = positions % page
+    flat_pt = pt.reshape(-1)
+    mask = torch.arange(t_ctx, device=pt.device)[None, :] <= positions[:, None]   # (B, T)
+
+    def gathered(pool, i):
+        """Block i's pages of every slot: (*grid, B, T, ...)."""
+        g = pool[:, :, :, :, i].index_select(GRID, flat_pt)
+        return g.view(*g.shape[:GRID], b, t_ctx, *g.shape[GRID + 2:])
+
+    for i in range(cfg.n_blocks):
+        lnp, ap, mp = (params[f"blk{i}.{part}"] for part in ("ln", "attn", "mlp"))
+        a = _ln(h.float(), lnp["ln1_scale"], lnp["ln1_bias"]).to(cdt)
+        qkv = torch.einsum("...bd,...dchx->...bchx", a, ap["wqkv"].to(cdt))
+        q, knew, vnew = (qkv[..., c, :, :].float() for c in range(3))     # (*grid, B, Hl, Dh)
+        if quant:
+            for pool, spool, x in ((kpool, kscale, knew), (vpool, vscale, vnew)):
+                xq, xs = kv_block_quant(x)
+                pool[:, :, :, :, i][:, :, :, :, pages_b, offs_b] = xq
+                spool[:, :, :, :, i][:, :, :, :, pages_b, offs_b] = xs
+            kseq = kv_block_dequant(gathered(kpool, i), gathered(kscale, i))
+            vseq = kv_block_dequant(gathered(vpool, i), gathered(vscale, i))
+        else:
+            kpool[:, :, :, :, i][:, :, :, :, pages_b, offs_b] = knew
+            vpool[:, :, :, :, i][:, :, :, :, pages_b, offs_b] = vnew
+            kseq, vseq = gathered(kpool, i), gathered(vpool, i)           # (*grid, B, T, Hl, Dh)
+        s = torch.einsum("...bhx,...bthx->...bht", q * scale, kseq)
+        s = torch.where(mask[:, None, :], s, -torch.inf)
+        attn = torch.einsum("...bht,...bthx->...bhx", torch.softmax(s, dim=-1), vseq)
+        o = mxu_einsum("...bhx,...hxd->...bd", attn.to(cdt), ap["wo"].to(cdt))
+        h = (h.float() + _decode_reduce(o, tp, comm)).to(cdt)
+        h = _decode_mlp(h, lnp, mp, cdt, tp, comm)
+
+    fin = params["final"]
+    h = _ln(h.float(), fin["ln_scale"], fin["ln_bias"])
+    logits = torch.einsum("...bd,...dv->...bv", h, fin["head"].float())
+    if quant:
+        return logits, kpool, vpool, kscale, vscale
+    return logits, kpool, vpool
 
 
 @dataclasses.dataclass

@@ -1,14 +1,18 @@
 """The failure taxonomy: exception type -> recovery class.
 
 Counterpart of the table at the head of ``mlsl_tpu.supervisor``
-(``ErrorClass``, ``_TAXONOMY``, ``classify``). The device feed's retry gate
-(data/common.py) reads it: only a TRANSIENT failure is retried in place. The
-breakers, the recovery ladder and ``status()`` are not ported yet.
+(``ErrorClass``, ``_TAXONOMY``, ``classify``) and of its retry delay
+(``jittered_backoff``). The device feed's retry gate (data/common.py) and the
+serving engine's decode retry (serve/engine.py) read them: only a TRANSIENT
+failure is retried in place. The breakers, the recovery ladder and
+``status()`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import enum
+import random
+from typing import Optional
 
 from mlsl_tpu_torch.log import (
     MLSLCorruptionError,
@@ -58,3 +62,19 @@ def classify(exc: BaseException) -> ErrorClass:
         if isinstance(exc, typ):
             return cls
     return ErrorClass.FATAL
+
+
+# -- retry policy (rung 2) ----------------------------------------------------
+
+# process-wide jitter source
+_rng = random.Random()
+
+
+def jittered_backoff(base_s: float, attempt: int,
+                     rng: Optional[random.Random] = None) -> float:
+    """Delay before retry ``attempt`` (0-based): ``base * 2**attempt`` scaled
+    by a uniform jitter in [0.5, 1.5), so that workers retrying the same
+    transient fault do not collide again in lockstep:
+    0.5 * base * 2^a <= delay < 1.5 * base * 2^a."""
+    r = rng if rng is not None else _rng
+    return base_s * (2.0 ** attempt) * (0.5 + r.random())

@@ -23,6 +23,19 @@ Run from the root of a checkout, on a machine with a card:
   float32 combine exchange on the fused all-to-all B6 (int8 codec unless
   MLSL_PALLAS_A2A_QUANT=0), chip_smoke.py's MoE run.
 
+- ``serve``: gpt-medium-2k served by ``serve.InferenceEngine`` (bf16,
+  ``MLSL_SERVE_MAX_BATCH=4`` and ``MLSL_SERVE_KV_CACHE_MB=4096`` unless
+  exported), chip_smoke.py's run (y1): every slot filled, then the decode
+  step -- one CUDA graph replay a step, each step a ``decode_step`` range --
+  and one prefill with its write into the pools (a ``prefill`` range);
+  ``--tp 2`` serves over two model ranks (export ``MLSL_PALLAS_RHD=1`` for
+  B5 in the decode graph, as run (y2), or ``MLSL_ALGO=allreduce=pallas_ring``
+  for B3, as (y3)); ``--kv-quant`` keeps the KV pages int8 (B1, B2; run
+  (y4)). Its output has, per range, the wall and kernel seconds and the idle
+  share, kernel seconds by class (the KV codec, the TP reductions, gathers
+  and scatters, softmax, the products), the capture's seconds and recorded
+  launches, and the peak memory.
+
 ``--blocks`` sets a transformer step's depth in place of the one above;
 ``--remat full|dots`` trains it with ``remat`` and that ``remat_policy``
 (each block replayed in the backward; ``dots`` keeps the matrix products'
@@ -284,9 +297,126 @@ def summarize(trace: dict, top: int, steps: int, engine: bool = False,
     }
 
 
+# the serving profile's classes: the port's kernels, then the library's
+SERVE_RANGES = ("decode_step", "prefill")
+SERVE_CLASSES = (
+    ("kv_codec", re.compile(r"quantize_rows")),
+    ("tp_reduction", re.compile(r"rhd_kernel|dense_ring_kernel")),
+    ("gather_scatter", re.compile(r"index|gather|scatter", re.I)),
+    ("softmax", re.compile(r"softmax", re.I)),
+    *LIBRARY_CLASSES[1:],
+)
+
+
+def serve_summary(trace: dict, top: int) -> dict:
+    """Chrome trace of the serving profile -> per range (``decode_step``
+    averaged over its steps, ``prefill`` once): wall and kernel seconds, the
+    idle share, kernels and kernel seconds by class."""
+    events = trace["traceEvents"]
+    kernels = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    if not kernels:
+        raise SystemExit("profile_step: the trace holds no device kernel")
+    out = {}
+    for rng in SERVE_RANGES:
+        windows = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") == rng and "dur" in e]
+        if not windows:
+            continue
+        n = len(windows)
+        inside = [k for k in kernels if any(a <= k[0] < b for a, b in windows)]
+        wall = sum(b - a for a, b in windows) * 1e-6 / n
+        busy = sum(_span(kernels, a, b) for a, b in windows) * 1e-6 / n
+        by_class = {c: 0.0 for c, _ in SERVE_CLASSES}
+        by_class["other"] = 0.0
+        by_name = {}
+        for s, t, name in inside:
+            sec = (t - s) * 1e-6 / n
+            by_name[name] = by_name.get(name, 0.0) + sec
+            by_class[next((c for c, rx in SERVE_CLASSES if rx.search(name)), "other")] += sec
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        out[rng] = {"ranges": n, "wall_s": wall, "kernel_s": busy,
+                    "idle_share": 1.0 - busy / wall if wall else None,
+                    "kernels": len(inside) / n, "kernel_s_by_class": by_class,
+                    "top_kernels": [{"name": k[:120], "s": v} for k, v in ranked]}
+    return out
+
+
+def profile_serve(args) -> dict:
+    """The serving profile (``--model serve``): run (y1)'s engine with every
+    slot filled, ``--steps`` decode steps timed untraced and as many traced,
+    then one prefill and its write traced."""
+    from mlsl_tpu_torch.serve import InferenceEngine
+
+    os.environ.setdefault("MLSL_SERVE_MAX_BATCH", "4")
+    os.environ.setdefault("MLSL_SERVE_KV_CACHE_MB", "4096")
+    if args.kv_quant:
+        os.environ["MLSL_SERVE_KV_QUANT"] = "1"
+    cfg = tfm.GPT_MEDIUM_2K
+    env = get_env().init(world_size=args.tp)
+    try:
+        eng = InferenceEngine(env, cfg, tp=args.tp, seed=0)
+        rng = np.random.default_rng(0)
+        new = 2 + args.warmup + 2 * args.steps + 1
+        prompts = [rng.integers(1, cfg.vocab, size=int(n)).astype(np.int32)
+                   for n in rng.integers(64, 1025, size=eng.max_batch)]
+        for p in prompts:
+            eng.submit(p, new)
+        eng.step()                                # the prefills and the capture
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(args.warmup):
+            eng.step()
+        step_s = []
+        for _ in range(args.steps):
+            t0 = time.perf_counter()
+            eng.step()                            # ends in the logits' readback
+            step_s.append(time.perf_counter() - t0)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        dtype = cfg.dtype
+        captured = eng._decode_cache[dtype]
+        for m in (qk, rk, ak, a2a):
+            m.reset_counts()
+        padded = torch.zeros((eng.ctx_len,), dtype=torch.long, device=eng.device)
+        padded[:prompts[0].size] = torch.from_numpy(prompts[0].astype(np.int64))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(args.steps):
+                with torch.profiler.record_function(SERVE_RANGES[0]):
+                    eng.step()
+            with torch.profiler.record_function(SERVE_RANGES[1]):
+                assert eng.cache.admit(-1, prompts[0].size + 1)
+                _, k, v = eng._prefill(padded, prompts[0].size)
+                eng._write(k, v, torch.as_tensor(eng.cache.table_padded(-1),
+                                                 dtype=torch.long, device=eng.device))
+                torch.cuda.synchronize()
+                eng.cache.release(-1)
+        os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+        with open(args.trace) as f:
+            trace = json.load(f)
+        out = {"device": torch.cuda.get_device_name(0), "model": "serve", "tp": args.tp,
+               "kv_quant": eng.quant, "batch": eng.max_batch, "kv_pages": eng.cache.num_pages,
+               "mlsl_algo": os.environ.get("MLSL_ALGO", ""),
+               "pallas_rhd": env.config.pallas_rhd, "steps": args.steps,
+               "decode_step_s": step_s, "peak_gib": peak_gib,
+               "device_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
+               "capture_s": captured.seconds,
+               "launches_recorded": {k: v for k, v in captured.launches.items() if v},
+               "traced_prefill_launches": {k: v for m in (qk, rk) for k, v in m.LAUNCHES.items()
+                                           if v},
+               **serve_summary(trace, args.top)}
+        eng.close()
+    finally:
+        env.finalize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("resnet", *TRANSFORMERS), default="resnet")
+    ap.add_argument("--model", choices=("resnet", *TRANSFORMERS, "serve"), default="resnet")
+    ap.add_argument("--tp", type=int, default=1, help="the serving engine's model ranks")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="the serving engine with int8 KV pages (MLSL_SERVE_KV_QUANT=1)")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--top", type=int, default=12)
@@ -312,6 +442,11 @@ def main(argv=None) -> int:
         ap.error("--zero1, --remat and --sharded-vocab take a transformer model")
     if args.overlap_compiled and args.model != "resnet":
         ap.error("--overlap-compiled takes the resnet model")
+    if (args.tp != 1 or args.kv_quant) and args.model != "serve":
+        ap.error("--tp and --kv-quant take the serve model")
+    if args.model == "serve":
+        print(json.dumps(profile_serve(args)))
+        return 0
     engine = {}
     if args.model == "resnet":
         env, trainer, batch = build_trainer(overlap_compiled=args.overlap_compiled)

@@ -47,6 +47,12 @@ KNOB_RANGES = {
     "vq_dim": 1,
     "vq_codebook": 2,
     "prune_ratio": 1e-4,
+    # the serving engine's decode slots, KV page size, KV budget (MiB) and
+    # admission queue (serve/); an exported MLSL_SERVE_* wins
+    "serve_max_batch": 1,
+    "serve_kv_page_elems": 1,
+    "serve_kv_cache_mb": 1,
+    "serve_queue_depth": 1,
 }
 
 

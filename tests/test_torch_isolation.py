@@ -68,7 +68,10 @@ def test_importing_the_port_loads_no_jax():
             "mlsl_tpu_torch.tuner.calibrate, mlsl_tpu_torch.data.wire, "
             "mlsl_tpu_torch.data.feed, mlsl_tpu_torch.data.loader, "
             "mlsl_tpu_torch.data.cache, mlsl_tpu_torch.data.sources, "
-            "mlsl_tpu_torch.parallel.pipeline, mlsl_tpu_torch.supervisor; "
+            "mlsl_tpu_torch.parallel.pipeline, mlsl_tpu_torch.supervisor, "
+            "mlsl_tpu_torch.serve, mlsl_tpu_torch.serve.engine, "
+            "mlsl_tpu_torch.serve.kv_cache, mlsl_tpu_torch.serve.sla, "
+            "mlsl_tpu_torch.serve.checks; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
