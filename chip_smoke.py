@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              unchanged C/C++ programs linked to it (capi/build.py), while
              the rest of the program starts up.
 2. parity    each kernel's wrapper against its plain PyTorch version on the
-             card, at the shapes the training path gives it and at edge
-             shapes: int8 values, scales and dequantized values bit-exact;
+             card, at the shapes the training, feed and serving paths give
+             it and at edge shapes (odd blocks, blocks above 512 and 2,048,
+             views off a 16-byte boundary on the codec's scalar path): int8
+             values, scales and dequantized values bit-exact;
              the ring (B3, B4), its all-gather mode (B3-AG) and
              halving/doubling (B5) kernels bit-exact on small groups of 2 to 8
              members, every dtype, both directions, the snake order, ragged
@@ -412,7 +414,9 @@ and each prints the launches of one captured step.
 
 B5's kernels-line rows at 40,000 B and 1 MiB a rank also give B5 and the
 library call timed as CUDA graphs of 20 calls (``graph_ms``,
-``library_graph_ms``), beside the times as the path pays them.
+``library_graph_ms``), beside the times as the path pays them; every B1 and
+B2 row gives its ``graph_ms`` too (``codec_rows``: the shapes of the training,
+feed and serving paths).
 
 Launch counts are set to 0 just before each path is driven and read just
 after; launches made to compare a kernel with its plain version, or to time
@@ -565,24 +569,33 @@ def _rows(torch, n, block, dev, gen, zero_every=0):
 # -- phases ---------------------------------------------------------------
 
 
-def phase_parity(torch, qk, dev, shapes):
+def phase_parity(torch, qk, dev, shapes, misaligned=()):
     """Every (rows, block) in ``shapes`` through both wrappers against the
-    plain versions on the card: -> number of comparisons."""
+    plain versions on the card, and every one in ``misaligned`` again on views
+    whose storage starts off a 16-byte boundary (the float32 input 1 element
+    in, the int8 input 3), which take the scalar path: -> number of
+    comparisons."""
     gen = torch.Generator().manual_seed(SEED)
-    for rows, block in shapes:
+    cases = [(r, b, False) for r, b in shapes] + [(r, b, True) for r, b in misaligned]
+    for rows, block, off in cases:
         x = _rows(torch, rows, block, dev, gen, zero_every=7)
+        if off:
+            x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(rows, block)
+        tag = f"({rows}, {block}{', misaligned' if off else ''})"
         q, s = qk.quantize_blocks(x)
         torch.cuda.synchronize()
         rq, rs = qk.quantize_blocks_ref(x)
         bad_q = int((q != rq).sum())
         bad_s = int((s != rs).sum())
         check(bad_q == 0 and bad_s == 0,
-              f"quantize ({rows}, {block}): {bad_q} int8 and {bad_s} scale mismatches")
+              f"quantize {tag}: {bad_q} int8 and {bad_s} scale mismatches")
+        if off:
+            q = torch.cat([q.new_zeros(3), q.reshape(-1)])[3:].view(rows, block)
         d = qk.dequantize_blocks(q, s)
         torch.cuda.synchronize()
         bad_d = int((d != qk.dequantize_blocks_ref(rq, rs)).sum())
-        check(bad_d == 0, f"dequantize ({rows}, {block}): {bad_d} mismatches")
-    return len(shapes)
+        check(bad_d == 0, f"dequantize {tag}: {bad_d} mismatches")
+    return len(cases)
 
 
 def phase_config1(torch, env, np, n=1 << 20):
@@ -1202,7 +1215,36 @@ def entry(*, name, source, replaces, launches, per_path, shape, err, ms, plain_m
     }
 
 
+def codec_rows(feed_block=BLOCK):
+    """B1's and B2's rows of the kernels line, at the shapes their paths give
+    them: [(kind, rows, block, tag)]."""
+    from mlsl_tpu_torch.models import resnet
+    from mlsl_tpu_torch.models import transformer as tfm
+
+    fc_entry = resnet_ring_rows(
+        resnet.layer_param_counts(resnet.ResNet50(device="meta")))["fc"][0]
+    srv = tfm.GPT_MEDIUM_2K
+    return [
+        # the training path's largest (the fc layer's entry quantize) and config
+        # 4's round trip
+        ("quantize", fc_entry, BLOCK, None),
+        ("dequantize", WORLD * ((64 << 20) // 4) // BLOCK, BLOCK, None),
+        # the feed's int8 wire (run (w2)): every shard's rows of a batch
+        ("dequantize", feed_b2_rows(feed_block), feed_block, "feed int8 wire"),
+        # the serving path's int8 KV (run (y4)): a prefill's K over every block,
+        # a decode step's K rows of one block, the gather of one block's K
+        ("quantize", srv.n_blocks * srv.seq_len * srv.n_heads, srv.head_dim,
+         "serve: a prefill's K"),
+        ("quantize", SERVE_BATCH * srv.n_heads, srv.head_dim,
+         "serve: a decode step's K, one block"),
+        ("dequantize", SERVE_BATCH * srv.seq_len * srv.n_heads, srv.head_dim,
+         "serve: the gathered K of one block"),
+    ]
+
+
 def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev, tag=None):
+    """B1's or B2's record at (rows, block): ``ms`` as the path pays it, the
+    wrapper's host work included, and ``graph_ms``, device time alone."""
     gen = torch.Generator().manual_seed(SEED + 9)
     x = _rows(torch, rows, block, dev, gen)
     elems = rows * block
@@ -1221,14 +1263,14 @@ def codec_entry(torch, qk, kind, rows, block, bw, f32, per_path, dev, tag=None):
         err = float((fn() - plain()).abs().max())
         nbytes, ops = elems + rows * 4 + elems * 4, 2 * elems   # convert, multiply
         name, replaces = "dequantize_blocks", "mlsl_tpu/ops/quant_kernels.py:140"
-    ms = time_ms(torch, fn)
+    ms, graph_ms = time_ms(torch, fn), time_graph_ms(torch, fn)
     qk.LAUNCHES.update(before)      # timing launches are not the path's
     if tag:
         name += f" ({tag})"
     return entry(name=name, source="mlsl_tpu_torch/csrc/quant_kernels.cu", replaces=replaces,
                  launches=sum(per_path.values()), per_path=per_path, shape=[rows, block],
                  err=err, ms=ms, plain_ms=time_ms(torch, plain), library_ms=None,
-                 nbytes=nbytes, ops=ops, bw=bw, peak=f32,
+                 nbytes=nbytes, ops=ops, bw=bw, peak=f32, graph_ms=graph_ms,
                  library_note="no single PyTorch call computes blockwise int8 quantization")
 
 
@@ -6426,12 +6468,17 @@ def main() -> int:
         shapes = sorted({r for pair in ring_rows.values() for r in pair})
         # the MoE path's entry codec: every rank's padded combine payload
         moe_rows = WORLD * moe_combine_count(tfm.GPT_MEDIUM_2K_MOE8, 2, 2, 2) // BLOCK
+        # with the kernels line's codec rows (the serving KV's block 64 among
+        # them), odd blocks (groups of 6, 10 and 34 segments) and rows above
+        # 512 and 2,048 elements
         shapes = [(r, BLOCK) for r in shapes] + [
             (37, 256), (1, 256), (4096, 128), (4096, 512), (1000, 32), (333, 96),
-            (moe_rows, BLOCK)]
+            (8003, 160), (7, 544), (8003, 1024), (515, 2048), (67, 4096), (moe_rows, BLOCK)]
+        shapes += [(r, b) for _, r, b, _ in codec_rows() if (r, b) not in shapes]
+        misaligned = [(37, 256), (8003, 64), (7, 96), (67, 2048)]
         t_card, card_tests = time.perf_counter(), start_card_tests()
         capi_runs = CapiPrograms(capi_paths, capi_build)
-        n_shapes = phase_parity(torch, qk, dev, shapes)
+        n_shapes = phase_parity(torch, qk, dev, shapes, misaligned)
         n_ring = phase_ring_parity(torch, rk, rhd, dev)
         log(f"# phase parity: ok, {n_shapes} shapes bit-exact (quantize, dequantize), "
             f"{n_ring} ring, all-gather and halving/doubling cases bit-exact")
@@ -6759,8 +6806,6 @@ def main() -> int:
             log(line)
         env = reinit(get_env)
 
-        fc_entry = ring_rows["fc"][0]
-
         def path(key, **runs):
             return {k: v.get(key, 0) for k, v in runs.items()}
 
@@ -6778,17 +6823,11 @@ def main() -> int:
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
                     pipeline=pipe_used, **serve_used)
         entries = [
-            # B1 at its largest shape on the path (the fc layer's entry quantize)
-            codec_entry(torch, qk, "quantize", fc_entry, BLOCK, bw, f32,
-                        path("quantize_blocks", **runs), dev),
-            # B2 at its shape on the path (config 4's round trip)
-            codec_entry(torch, qk, "dequantize", WORLD * ((64 << 20) // 4) // BLOCK, BLOCK,
-                        bw, f32, path("dequantize_blocks", **runs), dev),
+            codec_entry(torch, qk, kind, rows, block, bw, f32,
+                        path(f"{kind}_blocks", **runs), dev, tag=tag)
+            for kind, rows, block, tag in codec_rows(env.config.quant_block_elems)]
+        entries += [
             dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev),
-            # B2 at the feed's int8 wire (run (w2)): every shard's rows of a batch
-            codec_entry(torch, qk, "dequantize", feed_b2_rows(env.config.quant_block_elems),
-                        env.config.quant_block_elems, bw, f32,
-                        path("dequantize_blocks", **runs), dev, tag="feed int8 wire"),
             # B3 and B5 at the 256 MiB path's own launch shape: four strided chunks
             dense_ring_entry(torch, rk, bw, f32, path("dense_ring", **runs), dev,
                              n=(64 << 20) // 4, ld=(256 << 20) // 4),
@@ -6854,18 +6893,8 @@ def main() -> int:
                                                    activation_graph=activation,
                                                    capi=capi_used, **tune_used),
                                      dev=dev))
-        # B1 and B2 at the serving path's int8 KV shapes (run (y4)): a prefill's
-        # K over every block, a decode step's K rows of one block, and the gather
-        # of one block's K; B5 and B3 at its tp = 2 reductions ((y2), (y3))
+        # B5 and B3 at the serving path's tp = 2 reductions ((y2), (y3))
         srv = tfm.GPT_MEDIUM_2K
-        for kind, rows, tag in (
-                ("quantize", srv.n_blocks * srv.seq_len * srv.n_heads, "serve: a prefill's K"),
-                ("quantize", SERVE_BATCH * srv.n_heads, "serve: a decode step's K, one block"),
-                ("dequantize", SERVE_BATCH * srv.seq_len * srv.n_heads,
-                 "serve: the gathered K of one block")):
-            key = "quantize_blocks" if kind == "quantize" else "dequantize_blocks"
-            entries.append(codec_entry(torch, qk, kind, rows, srv.head_dim, bw, f32,
-                                       path(key, **runs), dev, tag=tag))
         entries.append(group_rhd_entry(
             torch, rhd, (1, 2), ("model",), SERVE_BATCH * srv.d_model,
             "serve decode reduction, tp 2", bw, f32, path("rhd_allreduce", **runs), dev))

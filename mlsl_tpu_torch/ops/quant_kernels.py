@@ -8,15 +8,28 @@ error-feedback residual is kept by the caller (comm/quant_ring.py).
 Kernels (``csrc/quant_kernels.cu``, built by ``ops/cuda_build.py``):
 
 - ``quantize_blocks`` replaces the TPU kernel ``_quantize_pallas``
-  (mlsl_tpu/ops/quant_kernels.py:99). It is bound by memory traffic: it reads
-  4 B per element and writes 1 B per element plus 4 B per block. One warp per
-  row streams the row with coalesced 16-byte loads, reduces the maximum with
-  warp shuffles in registers and writes int8 and the scale in a second pass
-  over the (L1-resident) row, so it moves each byte once and does no other
-  work.
+  (mlsl_tpu/ops/quant_kernels.py:99). It is bound by HBM bytes: it reads 4 B
+  an element and writes 1 B an element plus 4 B a row.
 - ``dequantize_blocks`` replaces ``_dequantize_pallas`` (:140). Also bound by
-  memory traffic, the other way round: 1 B per element plus 4 B per block in,
-  4 B per element out; the same one-warp-per-row vector streaming.
+  HBM bytes, the other way round: 1 B an element plus 4 B a row in, 4 B an
+  element out.
+
+Both share one geometry (``geometry``): a thread owns 16 consecutive
+elements of a row, and a row spreads over the power of two of neighbouring
+lanes at or above block / 16, at most a warp (block 64: 4 lanes, 8 rows a
+warp; block 256: 16 lanes), for every block the kernels take (any multiple
+of 32). Quantize loads its 16 float32 values as four float4, keeps the row in
+registers, reduces its maximum over the group's lanes with warp shuffles and
+writes the 16 int8 values as one 16-byte store, so it reads the row once
+(rows above 2,048 elements are read twice); it divides without a branch (a
+reciprocal and one FMA correction, the same bits as the IEEE quotient for
+the scales where it is used). Dequantize deals the row's 4-byte words out
+across the group's lanes, so that its loads and its float4 stores are
+contiguous over the group and every store fills whole sectors. A CTA has up
+to 256 threads, fewer (down to one warp) where a launch has too few rows to
+give every SM a CTA. A scalar path, one warp a row and one element a lane,
+remains only for storage that is not 16-byte aligned, such as a view at an
+element offset, where 16-byte accesses would fault.
 
 Each wrapper checks device, dtype, shape and contiguity. For a CUDA tensor it
 launches its kernel on the current stream and adds one to its count in
@@ -27,6 +40,7 @@ nothing); any other device raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -72,8 +86,8 @@ def _kernels() -> ctypes.CDLL:
         from mlsl_tpu_torch.ops import cuda_build
 
         lib = cuda_build.load("quant_kernels")
-        argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         for fn in (lib.mlsl_quantize_rows, lib.mlsl_dequantize_rows):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -86,9 +100,46 @@ def _check_launch(rc: int, what: str) -> None:
         raise MLSLError(f"{what} kernel launch failed: cudaError {rc}")
 
 
-def _vec_ok(block: int, *tensors: torch.Tensor) -> int:
-    """The 16-byte vector path needs block % 128 == 0 and aligned rows."""
-    return int(block % 128 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+CTA_THREADS = 256   # threads a CTA at most, on both paths
+SEGMENT = 16        # elements of a row a thread owns on the vector path
+
+
+def geometry(block: int, n_rows: int, *ptrs: int, sms: int = 132) -> Tuple[str, int, int]:
+    """-> (path, lanes a row, rows a CTA) of a launch over ``n_rows`` rows of
+    ``block`` elements (a multiple of 32) whose storage starts at the data
+    pointers ``ptrs``, on a card of ``sms`` SMs. "vector" when every pointer
+    is 16-byte aligned (a row's start then is too): a row spreads over the
+    power of two of lanes at or above block / 16, at most a warp. "scalar"
+    otherwise: a warp a row. A CTA runs up to CTA_THREADS threads, down to
+    one warp where fewer would leave SMs without a CTA: a launch of few rows
+    (a decode step's 64) is bound by its threads' latency, not by bytes."""
+    return _geometry(block, n_rows, not any(p % 16 for p in ptrs), sms)
+
+
+@functools.lru_cache(maxsize=4096)
+def _geometry(block: int, n_rows: int, aligned: bool, sms: int) -> Tuple[str, int, int]:
+    if aligned:
+        path, lanes = "vector", min(32, 1 << (block // SEGMENT - 1).bit_length())
+    else:
+        path, lanes = "scalar", 32
+    warp_rows = 32 // lanes
+    spread = -(-n_rows // sms)                     # rows a CTA with one CTA a SM
+    rows = min(CTA_THREADS // lanes, max(1, -(-spread // warp_rows)) * warp_rows)
+    return path, lanes, rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(fn, a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, n: int, block: int,
+            rows_in: torch.Tensor, rows_out: torch.Tensor) -> int:
+    """One launch of ``fn`` over (a, b, c) with the geometry of its row arrays."""
+    path, lanes, rows = _geometry(block, n, (rows_in.data_ptr() | rows_out.data_ptr()) % 16 == 0,
+                                  _sms(a.device.index))
+    return fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), n, block, int(path == "vector"),
+              lanes, rows, torch.cuda.current_stream(a.device).cuda_stream)
 
 
 def _check_2d(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
@@ -109,11 +160,7 @@ def quantize_blocks(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     mlsl_assert(block % 32 == 0, "CUDA quantize needs block %% 32 == 0 (got %d)", block)
     q = torch.empty((n, block), dtype=torch.int8, device=x2d.device)
     s = torch.empty((n,), dtype=torch.float32, device=x2d.device)
-    stream = torch.cuda.current_stream(x2d.device).cuda_stream
-    rc = _kernels().mlsl_quantize_rows(
-        x2d.data_ptr(), q.data_ptr(), s.data_ptr(), n, block,
-        _vec_ok(block, x2d, q), stream,
-    )
+    rc = _launch(_kernels().mlsl_quantize_rows, x2d, q, s, n, block, x2d, q)
     _check_launch(rc, "quantize")
     LAUNCHES["quantize_blocks"] += 1
     return q, s
@@ -134,11 +181,7 @@ def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     n, block = q2d.shape
     mlsl_assert(block % 32 == 0, "CUDA dequantize needs block %% 32 == 0 (got %d)", block)
     x = torch.empty((n, block), dtype=torch.float32, device=q2d.device)
-    stream = torch.cuda.current_stream(q2d.device).cuda_stream
-    rc = _kernels().mlsl_dequantize_rows(
-        q2d.data_ptr(), scales.data_ptr(), x.data_ptr(), n, block,
-        _vec_ok(block, q2d, x), stream,
-    )
+    rc = _launch(_kernels().mlsl_dequantize_rows, q2d, scales, x, n, block, q2d, x)
     _check_launch(rc, "dequantize")
     LAUNCHES["dequantize_blocks"] += 1
     return x
