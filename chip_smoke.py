@@ -952,7 +952,9 @@ ALGO_VARS = ("MLSL_ALGO", "MLSL_PALLAS_RHD", "MLSL_PALLAS_RING_BIDIR",
              "MLSL_MESH_TIERS", "MLSL_HIER_DCN_CODEC", "MLSL_TUNE", "MLSL_TUNE_QUANT",
              "MLSL_TUNE_SIZES", "MLSL_TUNE_ITERS", "MLSL_SERVE_MAX_BATCH",
              "MLSL_SERVE_KV_CACHE_MB", "MLSL_SERVE_KV_QUANT", "MLSL_SERVE_KV_PAGE_ELEMS",
-             "MLSL_SERVE_QUEUE_DEPTH")
+             "MLSL_SERVE_QUEUE_DEPTH", "MLSL_MSG_PRIORITY", "MLSL_MSG_PRIORITY_THRESHOLD",
+             "MLSL_MSG_PRIORITY_FLUSH_MS", "MLSL_WATCHDOG_TIMEOUT", "MLSL_TRACE_DIR",
+             "MLSL_LOCK_WITNESS", "MLSL_COMM_RETRY_BACKOFF_S")
 
 
 def reinit(get_env, world=WORLD, **env_vars):
@@ -6393,6 +6395,458 @@ def run_serve(torch, np, get_env, launches, reset_launches):
     return used_by, lines
 
 
+# -- the fault plane and telemetry (run (z)) ---------------------------------------
+
+FAULT_DIR = ROOT / "build" / "mlsl_tpu_torch" / "fault_plane"
+FAULT_N = 16 << 20          # (z1): 16 Mi float32 a rank, 8 ranks
+FAULT_QN = 4 << 20          # (z2): 4 Mi float32 a rank on the fused int8 ring
+FAULT_RING_TOL = 1e-6       # a ring's float sum against torch's one-pass sum (~1e-7 seen)
+FAULT_FLUSH_TOL = 1e-6      # the degraded round against the float64 sum of payload + residual
+FAULT_SERVE_NEW = 16
+FAULT_IDLE_STEPS = 8
+
+
+def fault_request(env, dist, n, name, quant=False):
+    """A SUM allreduce over the data group, set up, as a user builds one."""
+    from mlsl_tpu_torch import CompressionType
+    from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
+    from mlsl_tpu_torch.types import DataType, ReductionType
+
+    req = CommRequest(CommDesc("allreduce", dist.data_group, n, DataType.FLOAT,
+                               op=ReductionType.SUM,
+                               compression=(CompressionType.QUANTIZATION if quant
+                                            else CompressionType.NONE)),
+                      env.dispatcher, name=name)
+    req.setup()
+    return req
+
+
+def fault_round(torch, req, buf):
+    """One Start/Wait -> (a copy of the result, its exception's type name or
+    None)."""
+    try:
+        out = req.start(buf).wait().clone()
+        torch.cuda.synchronize()
+        return out, None
+    except Exception as e:   # the schedule's raise, checked by the caller
+        torch.cuda.synchronize()
+        return None, type(e).__name__
+
+
+def phase_fault_dense(torch, np, get_env, launches, reset_launches):
+    """(z1): a pallas_ring (B3) allreduce of 8 x 16 Mi float32 -- a TRANSIENT
+    dispatch fault retried in place (bit for bit the unfaulted round), then
+    ``breaker_threshold`` PERSISTENT faults trip the algo breaker: the
+    tripping round and the next run degraded on ``lax`` (no B3 launch) within
+    the ring's bound of B3's result, and after the cooldown the HALF_OPEN
+    probe launches B3 again and re-closes the breaker. -> (launches, record)."""
+    from mlsl_tpu_torch import chaos, supervisor
+    from mlsl_tpu_torch.core import stats
+
+    env = reinit(get_env, MLSL_ALGO="allreduce=pallas_ring", MLSL_STATS_DIR=str(FAULT_DIR))
+    settle(torch)
+    supervisor.reset_all()
+    dist = env.create_distribution(WORLD, 1)
+    req = fault_request(env, dist, FAULT_N, "z1")
+    check(req.algo == "pallas_ring", f"fault z1: selected {req.algo!r}")
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 90)
+    buf = torch.randn((*dist.topology.grid_shape, FAULT_N), generator=gen, device=env.device)
+    reset_launches()
+    base, err = fault_round(torch, req, buf)
+    check(err is None and launches()["dense_ring"] == 1, f"fault z1: unfaulted round {err}")
+    rec = {}
+    # rung 2: an OSError (TRANSIENT in the taxonomy) retried in place
+    chaos.plan("collective.dispatch", "error", exc=OSError)
+    out, err = fault_round(torch, req, buf)
+    check(err is None and torch.equal(out, base),
+          f"fault z1: the retried round ({err}) is not the unfaulted one bit for bit")
+    rec["retries"] = stats.DEGRADE_COUNTERS["comm_retries"]
+    check(rec["retries"] == 1, f"fault z1: {rec['retries']} retries counted")
+    # rung 3: threshold one-shot RuntimeErrors (PERSISTENT)
+    br = supervisor.breaker("algo")
+    raised = []
+    for _ in range(br.threshold):
+        chaos.plan("collective.dispatch", "error", exc=RuntimeError)
+        before = launches()["dense_ring"]
+        out, err = fault_round(torch, req, buf)
+        raised.append(err)
+    chaos.clear()
+    check(raised[:-1] == ["RuntimeError"] * (br.threshold - 1) and raised[-1] is None
+          and br.state == supervisor.OPEN,
+          f"fault z1: rounds {raised}, breaker {br.state}")
+    check(launches()["dense_ring"] == before, "fault z1: the tripping round launched B3")
+    before = launches()["dense_ring"]
+    degraded, err = fault_round(torch, req, buf)
+    check(err is None and launches()["dense_ring"] == before,
+          f"fault z1: the degraded round ({err}) launched B3")
+    rel = float((degraded.double() - base.double()).norm() / base.double().norm())
+    check(rel <= FAULT_RING_TOL and torch.equal(out, degraded),
+          f"fault z1: lax against B3 {rel:.3g} (bound {FAULT_RING_TOL})")
+    rec["degraded_vs_b3_rel"] = rel
+    rec["fallbacks"] = dict(stats.DEGRADE_FALLBACKS)
+    check(rec["fallbacks"] == {"algo": 2}, f"fault z1: fallbacks {rec['fallbacks']}")
+    # the cooldown, then the probe: B3 again, bit for bit, breaker CLOSED
+    supervisor.configure(cooldown_s=0.05)
+    time.sleep(0.1)
+    probe, err = fault_round(torch, req, buf)
+    check(err is None and launches()["dense_ring"] == before + 1 and torch.equal(probe, base)
+          and br.state == supervisor.CLOSED,
+          f"fault z1: probe {err}, breaker {br.state}")
+    rec["ladder"] = {k: v for k, v in stats.DEGRADE_COUNTERS.items() if v}
+    check(rec["ladder"] == {"comm_retries": 1, "breaker_trips": 1, "breaker_probes": 1,
+                            "breaker_resets": 1}, f"fault z1: ladder {rec['ladder']}")
+    used = {k: v for k, v in launches().items() if v}
+    del buf, base, out, degraded, probe, req
+    supervisor.reset_all()
+    return used, rec
+
+
+def phase_fault_quant(torch, np, get_env, launches, reset_launches):
+    """(z2): the same ladder on the quant breaker, a fused int8 request (B1 +
+    B4) of 8 x 4 Mi float32 under codec.roundtrip faults: the tripping round
+    is the plain float32 SUM of payload plus residual (flushed once), within
+    FAULT_FLUSH_TOL relative of the float64 sum; the next degraded round is
+    bit for bit the plain request's; DEGRADE lines in mlsl_stats.log; the
+    probe re-closes and launches B4 again. -> (launches, record)."""
+    from mlsl_tpu_torch import chaos, supervisor
+    from mlsl_tpu_torch.comm import collectives
+    from mlsl_tpu_torch.comm.quant_ring import logical_residual
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.ops import ring_kernels as rk
+    from mlsl_tpu_torch.types import ReductionType
+
+    FAULT_DIR.mkdir(parents=True, exist_ok=True)
+    log_path = FAULT_DIR / "mlsl_stats.log"
+    if log_path.exists():
+        log_path.unlink()
+    env = reinit(get_env, MLSL_ALGO="pallas_ring", MLSL_STATS_DIR=str(FAULT_DIR))
+    settle(torch)
+    supervisor.reset_all()
+    dist = env.create_distribution(WORLD, 1)
+    req = fault_request(env, dist, FAULT_QN, "z2", quant=True)
+    check(req.algo == "pallas_ring", f"fault z2: selected {req.algo!r}")
+    # the uncompressed request's program, the degraded path's
+    plain = collectives.unwrap_chaos(collectives.build_collective(
+        "allreduce", dist.data_group, op=ReductionType.SUM))
+    gen = torch.Generator(device=env.device).manual_seed(SEED + 91)
+    buf = torch.randn((*dist.topology.grid_shape, FAULT_QN), generator=gen, device=env.device)
+    reset_launches()
+    first, err = fault_round(torch, req, buf)
+    check(err is None and launches()["quant_ring"] == 1, f"fault z2: healthy round {err}")
+    errs = [e.clone() for e in req._errs]
+    br = supervisor.breaker("quant")
+    raised = []
+    for _ in range(br.threshold):
+        chaos.plan("codec.roundtrip", "error", exc=RuntimeError)
+    for i in range(br.threshold):
+        if i == br.threshold - 1:
+            # the residual the tripping round flushes: the Start snapshot
+            errs = [e.clone() for e in req._errs]
+            b4 = launches()["quant_ring"]
+        out, err = fault_round(torch, req, buf)
+        raised.append(err)
+    chaos.clear()
+    check(raised[:-1] == ["RuntimeError"] * (br.threshold - 1) and raised[-1] is None
+          and br.state == supervisor.OPEN, f"fault z2: rounds {raised}, breaker {br.state}")
+    check(launches()["quant_ring"] == b4, "fault z2: the tripping round launched B4")
+    g, rc, chunk, _ = rk.quant_geometry("allreduce", dist.data_group, FAULT_QN,
+                                        env.config.quant_block_elems)
+    entered = buf.double() + logical_residual(errs[0], g, chunk, rc, FAULT_QN).double()
+    exact = entered.reshape(WORLD, FAULT_QN).sum(dim=0)
+    rows = out.reshape(WORLD, FAULT_QN)
+    rel = float((rows[0].double() - exact).norm() / exact.norm())
+    check(rel <= FAULT_FLUSH_TOL and bool((rows == rows[:1]).all()),
+          f"fault z2: the flushed round {rel:.3g} (bound {FAULT_FLUSH_TOL})")
+    check(req._errs is None, "fault z2: the degraded round left a residual")
+    degraded, err = fault_round(torch, req, buf)
+    want = plain(buf)
+    torch.cuda.synchronize()
+    check(err is None and torch.equal(degraded, want),
+          "fault z2: the degraded round is not the plain request's bit for bit")
+    lines = [ln for ln in log_path.read_text().splitlines() if ln.startswith("DEGRADE")]
+    check([ln.split()[1:3] for ln in lines] == [["TRIP", "quant"]],
+          f"fault z2: DEGRADE lines {lines}")
+    supervisor.configure(cooldown_s=0.05)
+    time.sleep(0.1)
+    b4 = launches()["quant_ring"]
+    probe, err = fault_round(torch, req, buf)
+    lines = [ln for ln in log_path.read_text().splitlines() if ln.startswith("DEGRADE")]
+    check(err is None and launches()["quant_ring"] == b4 + 1 and br.state == supervisor.CLOSED
+          and [ln.split()[1] for ln in lines] == ["TRIP", "PROBE", "RESET"],
+          f"fault z2: probe {err}, breaker {br.state}, DEGRADE lines {lines}")
+    rec = {"flushed_vs_f64_rel": rel, "fallbacks": dict(stats.DEGRADE_FALLBACKS),
+           "degrade_lines": [" ".join(ln.split()[:3]) for ln in lines]}
+    check(rec["fallbacks"] == {"quant": 2}, f"fault z2: fallbacks {rec['fallbacks']}")
+    used = {k: v for k, v in launches().items() if v}
+    del buf, first, out, degraded, want, probe, req, plain
+    supervisor.reset_all()
+    return used, rec
+
+
+def phase_fault_watchdog(torch, np, get_env):
+    """(z3): a deferred allreduce whose dispatch hangs at the
+    collective.dispatch site on the progress thread; a 0.5 s watchdog trips
+    MLSLTimeoutError, and with the tracer on the trip writes a
+    trace-crash-*.json that loads and holds the request's spans and the
+    watchdog.trip instant. The hang released, the same request completes
+    with the right sum. -> record."""
+    from mlsl_tpu_torch import chaos, obs, supervisor
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.log import MLSLTimeoutError
+
+    env = reinit(get_env, MLSL_MSG_PRIORITY="1", MLSL_MSG_PRIORITY_THRESHOLD="0",
+                 MLSL_MSG_PRIORITY_FLUSH_MS="1", MLSL_WATCHDOG_TIMEOUT="0.5",
+                 MLSL_TRACE_DIR=str(FAULT_DIR), MLSL_STATS_DIR=str(FAULT_DIR))
+    supervisor.reset_all()
+    for old in FAULT_DIR.glob("trace-crash-*.json"):
+        old.unlink()
+    obs.enable(capacity=1 << 16)
+    dist = env.create_distribution(WORLD, 1)
+    req = fault_request(env, dist, 1 << 20, "z3")
+    buf = torch.ones((*dist.topology.grid_shape, 1 << 20), device=env.device)
+    plan = chaos.plan("collective.dispatch", "hang", seconds=30)
+    t0 = time.monotonic()
+    req.start(buf)
+    time.sleep(0.2)
+    tripped = None
+    try:
+        req.wait()
+    except MLSLTimeoutError as e:
+        tripped = str(e)
+    waited = time.monotonic() - t0
+    chaos.remove(plan)        # wakes the hang; the dispatch goes on
+    check(tripped is not None and "z3" in tripped and waited < 5,
+          f"fault z3: the watchdog did not trip ({tripped!r} after {waited:.2f} s)")
+    evt = stats.WATCHDOG_EVENTS[-1]
+    doc = json.loads(Path(evt["flight_record"]).read_text())
+    names = {e["name"] for e in doc["traceEvents"]}
+    check({"submit", "defer", "watchdog.trip", "chaos.fired"} <= names
+          and doc["otherData"]["kind"] == "flight_record",
+          f"fault z3: the flight record holds {sorted(names)}")
+    out = req.wait(timeout=0)     # no deadline: the dispatch may still be finishing
+    torch.cuda.synchronize()
+    check(bool((out == WORLD).all()), "fault z3: the request's result after the hang")
+    rec = {"watchdog_s": 0.5, "tripped_after_s": waited, "phase": evt["phase"],
+           "flight_record": evt["flight_record"],
+           "flight_record_events": len(doc["traceEvents"])}
+    del buf, out, req
+    obs.disable()
+    env.config.msg_priority = False
+    supervisor.reset_all()
+    return rec
+
+
+def phase_fault_engine(torch, np, get_env, launches, reset_launches):
+    """(z4): config 5 on the compiled overlap engine (ResNet-50 at 224²,
+    int8 on the composed ring), ``collective.dispatch:error x*`` armed before
+    its capture: the capture passes no site (0 hits) and succeeds, and the
+    next step raises at its host site before the replay, the state
+    untouched; disarmed, two replayed steps with the tracer on give one
+    step.overlap span each, and their losses equal, bit for bit, an untraced
+    twin's from the same state; a plan armed after the capture raises at the
+    next step. Then the step's time with the tracer and metrics off and on.
+    -> (launches, record)."""
+    from mlsl_tpu_torch import chaos, obs, supervisor
+    from mlsl_tpu_torch.core import graph_capture
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    env = reinit(get_env)
+    settle(torch)
+    supervisor.reset_all()
+    trainer, batch = build_resnet_trainer(torch, env, np, overlap_compiled=True)
+    engine = trainer._overlap
+    check(engine is not None, "fault z4: the compiled overlap engine did not engage")
+    reset_launches()
+    plan = chaos.plan("collective.dispatch", "error", times=None)
+    trainer.precompile(batch)
+    torch.cuda.synchronize()
+    check(plan.hits == 0 and list(engine.graphs) == ["step"],
+          f"fault z4: the capture passed the site {plan.hits} times, graphs "
+          f"{list(engine.graphs)}")
+    state = [t.detach().clone() for t in engine._state()]
+    raised = None
+    try:
+        trainer.step(batch)
+    except chaos.ChaosError:
+        raised = "ChaosError"
+    torch.cuda.synchronize()
+    check(raised and plan.fires == 1
+          and all(torch.equal(a, b) for a, b in zip(engine._state(), state)),
+          f"fault z4: the armed step raised {raised}, fires {plan.fires}, or moved the state")
+    chaos.clear()
+    step0 = trainer._step_no
+    tr = obs.enable(capacity=4096)
+    traced = [trainer.step(batch).detach().reshape(-1).cpu() for _ in range(2)]
+    spans = [e for e in tr.snapshot() if e[1] == "step.overlap"]
+    obs.disable()
+    check(len(spans) == 2, f"fault z4: {len(spans)} step.overlap spans in two steps")
+    graph_capture.put_back(engine._state(), state)
+    trainer._step_no = step0
+    twin = [trainer.step(batch).detach().reshape(-1).cpu() for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(traced, twin)),
+          f"fault z4: traced losses {traced} differ from the untraced twin's {twin}")
+    used = {k: v for k, v in launches().items() if v}
+    chaos.plan("collective.dispatch", "error")
+    raised = None
+    try:
+        trainer.step(batch)
+    except chaos.ChaosError:
+        raised = "ChaosError"
+    check(raised == "ChaosError", "fault z4: a plan armed after the capture did not fire")
+    # (z6)'s half: the replayed step with the plane off and on
+    idle = {}
+    for key, on in (("off", False), ("on", True), ("off_again", False)):
+        if on:
+            obs.enable(capacity=4096)
+            obs.enable_metrics()
+        secs = drive_steps(torch, trainer, batch, steps=FAULT_IDLE_STEPS)[1]
+        idle[key] = float(np.median(secs)) * 1e3
+        supervisor.reset_all()
+    rec = {"capture_s": engine.capture_s["step"], "losses": [float(v.mean()) for v in traced],
+           "step_overlap_spans_ms": [e[4] / 1e6 for e in spans], "step_ms_median": idle}
+    del trainer, batch, engine, state
+    torch.backends.cudnn.deterministic = False
+    settle(torch)
+    return used, rec
+
+
+def phase_fault_serve(torch, np, get_env, launches, reset_launches):
+    """(z5): run (y)'s engine (gpt-medium-2k, tp 1, weights from SEED) with
+    the tracer, the metrics registry and the lock witness on and the scrape
+    server on 127.0.0.1, port 0: a TRANSIENT serve.decode fault retried in
+    place gives the unfaulted tokens; a serve.admit fault fails one request
+    closed; /metrics holds the mlsl_serve_* families and /healthz is JSON
+    with the serve, codecs and breaker keys; the trace holds serve.prefill,
+    serve.decode and kv.evict (a preemption of the youngest sequence); the
+    witness reports no cycle. Then (z6)'s half: the decode step's host time
+    with the plane off and on. -> (launches, record)."""
+    import urllib.request
+
+    from mlsl_tpu_torch import chaos, obs, supervisor
+    from mlsl_tpu_torch.analysis import witness
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.models import transformer as tfm
+    from mlsl_tpu_torch.serve import InferenceEngine, checks
+
+    cfg = tfm.GPT_MEDIUM_2K
+    env = reinit(get_env, world=1, MLSL_SERVE_MAX_BATCH=str(SERVE_BATCH),
+                 MLSL_SERVE_KV_CACHE_MB=str(SERVE_KV_MB), MLSL_LOCK_WITNESS="1",
+                 MLSL_COMM_RETRY_BACKOFF_S="0.001", MLSL_STATS_DIR=str(FAULT_DIR),
+                 MLSL_TRACE_DIR=str(FAULT_DIR))
+    settle(torch)
+    supervisor.reset_all()
+    stats.reset_serve_counters()
+    params = tfm.init_params(torch.Generator().manual_seed(SEED), cfg)
+    prompts = serve_prompts(np, cfg.vocab, 6, seed=SEED + 5)
+    reset_launches()
+    eng = InferenceEngine(env, cfg, tp=1, params=params)
+    check(isinstance(eng._lock, witness.WitnessLock), "fault z5: the engine lock is not witnessed")
+    tr = obs.enable(capacity=1 << 16)
+    reg = obs.enable_metrics(every=1)
+    srv = obs.start_server(port=0, addr="127.0.0.1")
+    check(srv is not None, "fault z5: the scrape server did not start")
+    base = [eng.submit(p, FAULT_SERVE_NEW) for p in prompts[:3]]
+    eng.run()
+    check(all(r.state == "done" for r in base), f"fault z5: {[r.state for r in base]}")
+    plan = chaos.plan("serve.decode", "error", exc=OSError, times=2)
+    again = [eng.submit(p, FAULT_SERVE_NEW) for p in prompts[:3]]
+    eng.run()
+    check(plan.fires == 2 and [r.tokens for r in again] == [r.tokens for r in base],
+          f"fault z5: the retried decode gave other tokens ({plan.fires} fires)")
+    chaos.plan("serve.admit", "error", times=1)
+    admit = [eng.submit(p, 4) for p in prompts[3:6]]
+    eng.run()
+    states = [r.state for r in admit]
+    check(sorted(states) == ["done", "done", "failed"], f"fault z5: admit states {states}")
+    chaos.clear()
+    # a preemption: the youngest of two live sequences evicted and resumed
+    ev = [eng.submit(p, 8) for p in prompts[:2]]
+    eng.run(max_steps=2)
+    check(len(eng._active) == 2, f"fault z5: {len(eng._active)} sequences in flight")
+    eng._evict_youngest()
+    eng.run()
+    check(all(r.state == "done" for r in ev), f"fault z5: after the eviction {ev}")
+    url = f"http://127.0.0.1:{srv.port}"
+    prom = urllib.request.urlopen(url + "/metrics", timeout=10).read().decode()
+    health = json.loads(urllib.request.urlopen(url + "/healthz", timeout=10).read().decode())
+    families = sorted({ln.split()[2] for ln in prom.splitlines()
+                       if ln.startswith("# TYPE mlsl_serve_")})
+    check({"mlsl_serve_ttft_ms", "mlsl_serve_tpot_ms", "mlsl_serve_requests_total",
+           "mlsl_serve_queue_depth", "mlsl_serve_kv_free_pages"} <= set(families),
+          f"fault z5: /metrics families {families}")
+    check({"serve", "codecs", "quant", "bucket", "algo", "tracer"} <= set(health)
+          and health["serve"]["state"] != "off", f"fault z5: /healthz keys {sorted(health)}")
+    names = {e[1] for e in tr.snapshot()}
+    check({"serve.prefill", "serve.decode", "kv.evict", "chaos.fired"} <= names,
+          f"fault z5: the trace holds {sorted(names)}")
+    path = obs.write_trace(str(FAULT_DIR / "trace-z5.json"))
+    rep = witness.report()
+    check(not rep["cycles"], f"fault z5: the witness saw cycles {rep['cycles']}")
+    used = {k: v for k, v in launches().items() if v}
+    rec = {"families": families, "healthz_keys": sorted(health), "trace": path,
+           "trace_events": len(tr.snapshot()), "witness_edges": sorted(rep["edges"]),
+           "admit_states": states, "retries": int(stats.SERVE_COUNTERS["retries"])}
+    check(rec["retries"] == 2, f"fault z5: {rec['retries']} decode retries counted")
+    # (z6)'s half: the decode step's host time, plane off and on
+    idle = {}
+    for key, on in (("on", True), ("off", False), ("on_again", True)):
+        if on:
+            obs.enable(capacity=1 << 16)
+            obs.enable_metrics(every=1)
+        else:
+            obs.disable()
+            obs.disable_metrics()
+        probe = checks.Probe(eng, keep=set())
+        for p in prompts[:SERVE_BATCH]:
+            eng.submit(p, FAULT_SERVE_NEW * 2)
+        eng.run()
+        idle[key] = float(np.median(probe.step_ms[1:]))
+    rec["decode_step_ms_median"] = idle
+    eng.close()
+    del eng, params
+    supervisor.reset_all()
+    os.environ.pop("MLSL_LOCK_WITNESS", None)
+    settle(torch)
+    return used, rec
+
+
+def run_fault_plane(torch, np, get_env, launches, reset_launches):
+    """Run (z): the fault plane and the telemetry on the card, parts (z1) to
+    (z6); every part starts from ``supervisor.reset_all()``.
+    -> (launches by part, lines)."""
+    lines, used = [], {}
+    t0 = time.perf_counter()
+    used["fault_z1"], rec = phase_fault_dense(torch, np, get_env, launches, reset_launches)
+    lines.append(f"# fault z1 {json.dumps(rec)}")
+    lines.append(f"# phase fault dense ladder (run (z1)): ok in {time.perf_counter() - t0:.1f} "
+                 f"s, launches {json.dumps(used['fault_z1'])}")
+    t0 = time.perf_counter()
+    used["fault_z2"], rec = phase_fault_quant(torch, np, get_env, launches, reset_launches)
+    lines.append(f"# fault z2 {json.dumps(rec)}")
+    lines.append(f"# phase fault quant ladder (run (z2)): ok in {time.perf_counter() - t0:.1f} "
+                 f"s, launches {json.dumps(used['fault_z2'])}")
+    t0 = time.perf_counter()
+    rec = phase_fault_watchdog(torch, np, get_env)
+    lines.append(f"# fault z3 {json.dumps(rec)}")
+    lines.append(f"# phase fault watchdog (run (z3)): ok in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    used["fault_z4"], rec4 = phase_fault_engine(torch, np, get_env, launches, reset_launches)
+    lines.append(f"# fault z4 {json.dumps(rec4)}")
+    lines.append(f"# phase fault compiled engine (run (z4)): ok in "
+                 f"{time.perf_counter() - t0:.1f} s, launches {json.dumps(used['fault_z4'])}")
+    t0 = time.perf_counter()
+    used["fault_z5"], rec5 = phase_fault_serve(torch, np, get_env, launches, reset_launches)
+    lines.append(f"# fault z5 {json.dumps(rec5)}")
+    lines.append(f"# phase fault serving (run (z5)): ok in {time.perf_counter() - t0:.1f} s, "
+                 f"launches {json.dumps(used['fault_z5'])}")
+    idle = {"decode_step_host_ms_median": rec5["decode_step_ms_median"],
+            "config5_compiled_step_ms_median": rec4["step_ms_median"]}
+    lines.append(f"# fault z6 idle cost (not gated): {json.dumps(idle)}")
+    lines.append("# phase fault idle cost (run (z6)): ok in 0.0 s")
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -6804,6 +7258,10 @@ def main() -> int:
         serve_used, serve_out = run_serve(torch, np, get_env, launches, reset_launches)
         for line in serve_out:
             log(line)
+        # the fault plane and the telemetry (run (z))
+        fault_used, fault_out = run_fault_plane(torch, np, get_env, launches, reset_launches)
+        for line in fault_out:
+            log(line)
         env = reinit(get_env)
 
         def path(key, **runs):
@@ -6821,7 +7279,7 @@ def main() -> int:
                     activation_graph=activation, collectives=coll_used, capi=capi_used,
                     **{f"codec_{k}": v for k, v in codec_used.items()},
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
-                    pipeline=pipe_used, **serve_used)
+                    pipeline=pipe_used, **serve_used, **fault_used)
         entries = [
             codec_entry(torch, qk, kind, rows, block, bw, f32,
                         path(f"{kind}_blocks", **runs), dev, tag=tag)

@@ -37,10 +37,11 @@ compression), with the JAX package's precedence:
     explicit config (MLSL_ALGO)  >  tuned profile (tuner/)  >  heuristic
 
 and the heuristic is the baseline, except that with ``pallas_rhd`` armed a
-dense SUM allreduce inside the small-message band selects ``pallas_rhd``. The
-JAX package's circuit-breaker gate (``_breaker_gate``) is the identity while
-its breaker is closed, and the port has no supervisor to open it, so
-``select`` returns its choice directly.
+dense SUM allreduce inside the small-message band selects ``pallas_rhd``. A
+forced or tuned choice passes the ``algo`` circuit breaker's gate
+(``_breaker_gate``): while that breaker is OPEN a new request is built on the
+baseline. A kernel's build or launch failure never opens it
+(``MLSLKernelError`` is FATAL in ``supervisor.classify``).
 """
 
 from __future__ import annotations
@@ -208,9 +209,9 @@ def select(kind: str, group: ProcessGroup, payload_bytes: int,
                 and getattr(config, "custom_codec", None) is None):
             name = _requested(kind, group, payload_bytes, compression, config)
             if name == "pallas_ring" and _quant_pallas_eligible(group, config):
-                return name
+                return _breaker_gate(name, kind)
             if name == "hier" and _quant_hier_eligible(kind, group, config):
-                return name
+                return _breaker_gate(name, kind)
             if name in ("pallas_ring", "hier"):
                 log_debug("%s not eligible for quantized %s on group %s; keeping the "
                           "composed quant ring", name, kind, group_shape(group))
@@ -218,7 +219,7 @@ def select(kind: str, group: ProcessGroup, payload_bytes: int,
     name = _requested(kind, group, payload_bytes, compression, config)
     if name and name != DEFAULT:
         if eligible(name, kind, group, op):
-            return name
+            return _breaker_gate(name, kind)
         log_debug("selected algorithm %s not eligible for %s on group %s; falling back "
                   "to %s", name, kind, group_shape(group), DEFAULT)
         return DEFAULT
@@ -232,8 +233,21 @@ def select(kind: str, group: ProcessGroup, payload_bytes: int,
         from mlsl_tpu_torch.ops import rhd_kernels
 
         if payload_bytes <= rhd_kernels.env_max_bytes(config):
-            return "pallas_rhd"
+            return _breaker_gate("pallas_rhd", kind)
     return DEFAULT
+
+
+def _breaker_gate(name: str, kind: str) -> str:
+    """Rung 3 at selection time (algos/__init__.py:360-373 of the JAX
+    package): a non-baseline choice holds only while the ``algo`` circuit
+    breaker admits it. An OPEN breaker pins NEW requests to the baseline;
+    requests already built degrade per dispatch in CommRequest."""
+    from mlsl_tpu_torch import supervisor
+
+    if not supervisor.breaker("algo").allow():
+        log_debug("algo breaker open: %s for %s degrades to %s", name, kind, DEFAULT)
+        return DEFAULT
+    return name
 
 
 def _requested(kind, group, payload_bytes, compression, config):
@@ -277,6 +291,7 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
     if algo == DEFAULT:
         return collectives.build_collective(
             kind, group, **{k: v for k, v in kw.items() if k in collectives.BUILD_KW})
+    plain = bool(kw.get("plain"))
     mlsl_assert(eligible(algo, kind, group, kw.get("op")),
                 "algorithm %s cannot lower %s on group shape %s", algo, kind,
                 group_shape(group))
@@ -294,7 +309,10 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
         from mlsl_tpu_torch.comm.algos import hier as impl
     else:
         from mlsl_tpu_torch.comm.algos import pallas_rhd as impl
-    return impl.build(kind, group, **kw)
+    fn = impl.build(kind, group, **kw)
+    # the dispatch chaos sites, as build_collective's (algos/__init__.py:562
+    # of the JAX package); a plain version is a check and passes none
+    return fn if plain else collectives.chaos_dispatch(fn, kind)
 
 
 # -- the staged forms (the ZeRO-1 update, comm/overlap.py) ------------------------
@@ -339,7 +357,7 @@ def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=Non
         return ident, [], ident
     if algo == DEFAULT:
         kw = {"recv_count": recv_count} if kind == "reduce_scatter" else {}
-        return ident, [collectives.build_collective(kind, group, op=rop, **kw)], ident
+        return ident, [collectives.build_raw(kind, group, op=rop, **kw)], ident
     if algo == "rhd":
         from mlsl_tpu_torch.comm.algos import rhd
 
@@ -416,7 +434,7 @@ def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
             for phase in phases:
                 carry = phase(carry)
             return finish(carry).reshape(x.shape)
-        return collectives.build_collective("allreduce", group, op=rop)(buf).reshape(x.shape)
+        return collectives.build_raw("allreduce", group, op=rop)(buf).reshape(x.shape)
     if rop == ReductionType.SUM:
         if x.is_cuda:
             r = x.sum(dim=dim, keepdim=True)
@@ -439,7 +457,7 @@ def _group_exchange(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
 
     grid = x.shape[:NUM_GRID_AXES]
     n = math.prod(x.shape[NUM_GRID_AXES + 1:])
-    fn = collectives.build_collective("alltoall", group, send_count=n)
+    fn = collectives.build_raw("alltoall", group, send_count=n)
     return fn(x.reshape(*grid, -1)).reshape(x.shape)
 
 
@@ -508,5 +526,5 @@ def inline_allgather(x: torch.Tensor, group: ProcessGroup, *, config=None) -> to
             w = group.topology.world_size
             y = ring_kernels.dense_ring(x.reshape(w, n), plan)
             return y.reshape(*grid, group.size * local[0], *local[1:])
-    y = collectives.build_collective("allgather", group)(x.reshape(*grid, -1))
+    y = collectives.build_raw("allgather", group)(x.reshape(*grid, -1))
     return y.reshape(*grid, group.size * local[0], *local[1:])

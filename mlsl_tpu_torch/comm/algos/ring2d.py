@@ -26,7 +26,7 @@ from typing import Callable, List, Tuple
 
 import torch
 
-from mlsl_tpu_torch.comm.collectives import build_collective, group_unview, group_view
+from mlsl_tpu_torch.comm.collectives import build_raw, group_unview, group_view
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.types import ReductionType
@@ -84,7 +84,7 @@ def steps(kind: str, group: ProcessGroup, n: int, *, op=None,
         return ProcessGroup(topo, tuple(axes))
 
     def scatter(axis, width):
-        fn = build_collective("reduce_scatter", sub([axis]), op=ReductionType.SUM,
+        fn = build_raw("reduce_scatter", sub([axis]), op=ReductionType.SUM,
                               recv_count=width // topo.axis_size(axis))
         return fn
 
@@ -115,6 +115,6 @@ def steps(kind: str, group: ProcessGroup, n: int, *, op=None,
 
     phases = [scatter(minor, m)]
     if rest:
-        phases.append(build_collective("allreduce", sub(rest), op=ReductionType.SUM))
-    phases.append(build_collective("allgather", sub([minor])))
+        phases.append(build_raw("allreduce", sub(rest), op=ReductionType.SUM))
+    phases.append(build_raw("allgather", sub([minor])))
     return prep, phases, lambda buf: buf[..., :n]

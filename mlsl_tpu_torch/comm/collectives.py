@@ -443,7 +443,67 @@ def _build_ragged(kind: str, group: ProcessGroup, body: Callable, kw: dict) -> C
     return fn
 
 
+class _ChaosDispatch:
+    """A built collective whose every call passes the ``collective.dispatch``
+    and ``device.lost`` chaos sites first (collectives.py:634-670 of the JAX
+    package): one armed-check when idle. ``_mlsl_inner`` is the function
+    beneath, for the callers that must not pass the sites: a precompile warm,
+    the sweep's timing, a plain-version check, and the collectives composed
+    into a larger program (the staged phases of comm/algos, ring2d), which
+    the JAX package runs inside one compiled program. While a CUDA graph
+    captures, the sites are idle (chaos.inject): a fault there would break
+    the capture, and a delay would be paid once, not every replay."""
+
+    __slots__ = ("_fn", "_kind")
+
+    def __init__(self, fn: Callable, kind: str):
+        self._fn = fn
+        self._kind = kind
+
+    def __call__(self, *bufs):
+        from mlsl_tpu_torch import chaos
+
+        if chaos._plans:
+            chaos.inject("collective.dispatch", kind=self._kind)
+            # a vanished peer surfaces at dispatch; 'silent' plans are the
+            # elastic rejoin's (ROADMAP A.7c) and must not be spent here
+            chaos.inject("device.lost", kinds=("error", "delay", "hang"), kind=self._kind)
+        return self._fn(*bufs)
+
+    @property
+    def _mlsl_inner(self) -> Callable:
+        return self._fn
+
+
+def chaos_dispatch(fn: Callable, kind: str) -> Callable:
+    """``fn`` behind the dispatch chaos sites (once: a wrapped function is
+    returned as it is)."""
+    return fn if isinstance(fn, _ChaosDispatch) else _ChaosDispatch(fn, kind)
+
+
+def unwrap_chaos(fn: Callable) -> Callable:
+    """The function beneath the chaos instrumentation (itself when bare)."""
+    return getattr(fn, "_mlsl_inner", fn)
+
+
+def build_plain_fallback(kind: str, group: ProcessGroup, count: int) -> Callable:
+    """The always-correct SUM a degraded compressed request falls back to
+    (the supervisor's rung 3, collectives.py:676-688 of the JAX package): the
+    ``build_collective`` program the uncompressed request runs, over the
+    float32 payload the flush hands it."""
+    kw = {"op": ReductionType.SUM}
+    if kind == "reduce_scatter":
+        kw["recv_count"] = count // (1 if group.is_self else group.size)
+    return build_collective(kind, group, **kw)
+
+
 def build_collective(kind: str, group: ProcessGroup, **kw) -> Callable:
+    """The collective behind the ``collective.dispatch`` / ``device.lost``
+    chaos sites (``_ChaosDispatch``); ``build_raw`` is the bare function."""
+    return chaos_dispatch(build_raw(kind, group, **kw), kind)
+
+
+def build_raw(kind: str, group: ProcessGroup, **kw) -> Callable:
     """-> fn: distributed buffer (R, D, S, M, n) -> result buffer (R, D, S, M, n').
 
     kw per kind: op (allreduce/reduce/reduce_scatter), root (bcast/reduce/
@@ -488,4 +548,4 @@ def build_barrier(group: ProcessGroup) -> Callable:
     barrier, like JAX's, sums over the whole world."""
     if group.colors is not None or not group.axes:
         group = ProcessGroup(group.topology, GRID_AXES)
-    return build_collective("allreduce", group, op=ReductionType.SUM)
+    return chaos_dispatch(build_raw("allreduce", group, op=ReductionType.SUM), "barrier")

@@ -37,8 +37,13 @@ PyTorch runs eagerly, so the schedule is the order in which the phases are
 launched: on the card they queue on one stream in that order, in a captured
 graph as in an eager call. That order is the pin the JAX program needs
 ``lax.optimization_barrier`` (``_pin``) for; nothing here corresponds to it.
-The JAX engine's ``MLSL_VERIFY`` plan check, chaos site and tracer span are
-not ported.
+The step passes the ``collective.dispatch`` chaos site once, on the host
+before the replay ("the whole comm segment is ONE dispatch", overlap.py:
+834-862 of the JAX package), and with the tracer armed is one
+``step.overlap`` span of host time. Nothing inside the captured graph passes
+a site (a capture runs in ``chaos.quiet()``), and the units' collectives are
+the bare staged phases. The JAX engine's ``MLSL_VERIFY`` plan check waits for
+ROADMAP A.7d.
 """
 
 from __future__ import annotations
@@ -47,10 +52,12 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
+from mlsl_tpu_torch import chaos
 from mlsl_tpu_torch.comm import algos, collectives, quant_ring
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
 from mlsl_tpu_torch.core import graph_capture, stats
 from mlsl_tpu_torch.log import log_debug, mlsl_assert
+from mlsl_tpu_torch.obs import tracer as obs
 from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType
 
 DEFAULT_STAGES = 2
@@ -381,7 +388,7 @@ class _Zero1Unit:
         else:
             ident = lambda buf: buf   # noqa: E731
             self._ag_prep, self._ag_finish = ident, ident
-            self._ag_phases = [collectives.build_collective("allgather", group)]
+            self._ag_phases = [collectives.build_raw("allgather", group)]
         # reduce phases + the owned-shard update (its own stage: the boundary
         # between the two wire directions) + gather phases
         self.nphases = len(self._rs_phases) + 1 + len(self._ag_phases)
@@ -555,6 +562,12 @@ class OverlapEngine:
         """One compiled-overlap step: the fused program on ``batch``, or with
         ``grads`` the split one. -> the fused step's loss (R, D, S, M, 1)."""
         tr = self._trainer
+        trace = obs._tracer
+        t0 = trace.now() if trace is not None else 0
+        if chaos._plans:
+            # the whole comm segment is ONE dispatch: an armed budget fires
+            # at the step boundary it targets, before the replay
+            chaos.inject("collective.dispatch", kind="overlap")
         split = grads is not None
         key, fn, args = (("sync", self._sync, [grads[n] for n in tr.layers]) if split
                          else ("step", self._fused, list(batch)))
@@ -569,6 +582,11 @@ class OverlapEngine:
         plan = self.plan
         stats.record_overlap_step(len(plan.units), plan.rounds, plan.total_bytes, split=split,
                                   breakdown=plan.breakdown)
+        if trace is not None:
+            trace.complete("step.overlap", "step", t0, step=tr._step_no,
+                           layers=len(tr.layers), units=len(plan.units), stages=plan.stages,
+                           phases=plan.rounds, algos=plan.algos_summary(),
+                           quant_units=plan.quant_units, bytes=plan.total_bytes, split=split)
         return out
 
     def precompile(self, batch) -> None:

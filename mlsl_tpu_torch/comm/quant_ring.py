@@ -25,6 +25,13 @@ then the whole ring as one launch of the fused int8 ring kernel B4
 (ops/ring_kernels.py), which the selection table picks for a forced or tuned
 ``pallas_ring``. The ``ring="hier"`` wire is the two-tier lowering of
 comm/algos/hier.py, for a forced or tuned ``hier``.
+
+``build_quantized_collective`` puts every wire behind the ``codec.roundtrip``
+chaos site and its ``quant.roundtrip`` span (``chaos_roundtrip``,
+quant_ring.py:336-360 of the JAX package); the sparse wire (comm/sparse.py)
+shares it. ``inline_body`` -- the compiled overlap engine's unit, one part
+of its step -- passes neither, as in the JAX package, whose engine is one
+compiled program.
 """
 
 from __future__ import annotations
@@ -184,12 +191,52 @@ def inline_body(kind: str, group: ProcessGroup, count: int, block: int, *, confi
     geometry and length of the host request for the same payload. ``plain``
     runs the kernels' plain versions on any device."""
     fused = config is not None and use_pallas_for(kind, group, count * 4, config)
-    return build_quantized_collective(
+    return _build_quantized(
         kind, group, count, block, ring="pallas" if fused else "lax",
         bidir=bool(getattr(config, "pallas_ring_bidir", False)), plain=plain)
 
 
+def chaos_roundtrip(fn: Callable, algo: str = "quant_ring") -> Callable:
+    """``fn`` (buf, err) -> (result, new_err) behind the ``codec.roundtrip``
+    chaos site, and, with the tracer armed, recorded as a ``quant.roundtrip``
+    span of host time (the launches' enqueue; the device completion lands in
+    the owning request's wait span). ``algo`` names the wire family. While a
+    CUDA graph captures, both are idle. ``_mlsl_inner`` is ``fn``, for the
+    callers that must not pass the site (a precompile warm, the sweep)."""
+    from mlsl_tpu_torch import chaos
+    from mlsl_tpu_torch.obs import tracer as obs
+
+    def roundtrip(buf, err):
+        if chaos._plans:
+            chaos.inject("codec.roundtrip")
+        tr = obs._tracer
+        if tr is None or chaos._idle():
+            return fn(buf, err)
+        t0 = tr.now()
+        out = fn(buf, err)
+        tr.complete("quant.roundtrip", "quant", t0, elems=int(buf.shape[-1]), algo=algo)
+        return out
+
+    roundtrip._mlsl_inner = fn
+    return roundtrip
+
+
 def build_quantized_collective(
+    kind: str, group: ProcessGroup, count: int, block: int, *,
+    ring: str = "lax", bidir: bool = False, plain: bool = False,
+    dcn_codec: Optional[str] = None, topk_ratio: float = 0.01,
+) -> Tuple[Callable, int]:
+    """``_build_quantized``'s wire behind ``chaos_roundtrip`` (a plain
+    version, a check, passes no site)."""
+    fn, err_len = _build_quantized(kind, group, count, block, ring=ring, bidir=bidir,
+                                   plain=plain, dcn_codec=dcn_codec, topk_ratio=topk_ratio)
+    if plain:
+        return fn, err_len
+    algo = {"lax": "quant_ring", "pallas": "pallas_ring", "hier": "hier"}[ring]
+    return chaos_roundtrip(fn, algo), err_len
+
+
+def _build_quantized(
     kind: str, group: ProcessGroup, count: int, block: int, *,
     ring: str = "lax", bidir: bool = False, plain: bool = False,
     dcn_codec: Optional[str] = None, topk_ratio: float = 0.01,

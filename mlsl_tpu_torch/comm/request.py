@@ -56,9 +56,42 @@ rung, codecs.guard_note) pins a request to int8: the old wire's residual is
 taken, added once to the payload of the next round that succeeds, and from
 then on the request runs the plain int8 build.
 
-Not ported (ROADMAP A.7): the JAX package's supervisor with its circuit
-breakers and degraded dispatch (``_dispatch_ladder``, ``_breaker_gate``), the
-chaos sites, the watchdog, the tracing hooks and the native priority queue.
+The fault plane (request.py:620-1250 of the JAX package):
+
+- chaos sites: ``request.start`` at Start, ``request.wait`` at each wait
+  attempt, ``request.test`` at each poll; the collectives pass
+  ``collective.dispatch`` / ``device.lost`` (comm/collectives.py), the
+  compressed wires ``codec.roundtrip`` (comm/quant_ring.py);
+- the recovery ladder around every dispatch (``_dispatch_ladder``): a
+  TRANSIENT failure retries in place with ``comm_retries`` /
+  ``comm_retry_backoff_s`` (on the progress thread for a deferred request);
+  CORRUPTION and PERSISTENT failures count against the request's breaker
+  (``quant`` for a compressed wire, ``algo`` for a forced or tuned
+  algorithm); once it is OPEN the dispatch is served by
+  ``_dispatch_degraded`` -- the plain float32 SUM over the payload with the
+  residual flushed into it once, or ``lax`` -- on the same stream and device
+  as the healthy path, counted in ``stats.DEGRADE_FALLBACKS`` and filed as a
+  DEGRADE event; after the cooldown one HALF_OPEN probe runs the healthy path
+  again; DEVICE_LOSS and FATAL failures raise. A kernel that cannot be
+  built, loaded or launched (``MLSLKernelError``) is FATAL: it never counts
+  against a breaker, so no round is ever served by the plain version in a
+  kernel's place. Every re-attempt rewinds the error-feedback residuals to
+  their state at Start;
+- a TRANSIENT failure at wait re-starts the stored buffer (rung 2 on the
+  wait side). Only the ``request.wait`` site raises one after a dispatch
+  that succeeded, so unless a plan is armed there the stored buffer and the
+  residuals' Start snapshot are released as soon as the dispatch succeeds;
+- the watchdog: with ``watchdog_timeout_s`` set, a request in flight longer
+  than that (a dispatch wedged on the progress thread, or on the card an
+  event not done) raises MLSLTimeoutError and writes the tracer's flight
+  record (``stats.record_watchdog_event``);
+- with the tracer armed, ``submit`` / ``dispatch.error`` / ``test.done``
+  instants and ``dispatch`` / ``wait`` spans on the request's own track, all
+  host time; with the metrics registry armed, the dispatch-to-wait latency
+  and the achieved algbw at each completed round.
+
+Not ported: the JAX package's native priority queue (standing difference "No
+native dispatcher queue") and the buffer checker (ROADMAP A.7b).
 """
 
 from __future__ import annotations
@@ -72,10 +105,13 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from mlsl_tpu_torch import chaos, supervisor
 from mlsl_tpu_torch.comm import algos, collectives
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
 from mlsl_tpu_torch.core import stats
-from mlsl_tpu_torch.log import log_error, log_warning, mlsl_assert
+from mlsl_tpu_torch.log import MLSLTimeoutError, log_debug, log_error, log_warning, mlsl_assert
+from mlsl_tpu_torch.obs import metrics as obs_metrics
+from mlsl_tpu_torch.obs import tracer as obs
 from mlsl_tpu_torch.types import (
     CompressionType,
     DataType,
@@ -174,9 +210,23 @@ class CommRequest:
         # (L, the members' intra-tier ranks (R, D, S, M)): what a flush reads
         self._err_layout = "ring"
         self._hier_meta: Optional[tuple] = None
+        # the recovery ladder: the subsystem breaker (None for a request with
+        # no degradable subsystem, the plain 'lax' path), the lax fallback of
+        # a forced or tuned algorithm, the last Start's buffer (a wait-side
+        # retry starts it again) and the residuals at Start (every
+        # re-attempt rewinds to them)
+        self._breaker: Optional[supervisor.CircuitBreaker] = None
+        self._degrade_subsys: Optional[str] = None
+        self._lax_kw: Optional[dict] = None
+        self._lax_fns: Optional[List[Callable]] = None
+        self._degrade_fns: Optional[tuple] = None
+        self._last_buf: Optional[torch.Tensor] = None
+        self._ef_snapshot: Optional[List[torch.Tensor]] = None
+        self._started_at: Optional[float] = None   # the watchdog's stamp
         with CommRequest._seq_lock:
             CommRequest._seq += 1
             self.uid = CommRequest._seq
+        self._trace_name = f"mlsl:{desc.kind}:{name or self.uid}"
 
     # -- setup ------------------------------------------------------------
 
@@ -236,6 +286,14 @@ class CommRequest:
             d.kind, d.group, self.algo, bidir=cfg.pallas_ring_bidir, plain=True, **kw)]
         self._chunk_slices = chunks or [slice(None)]
         self._fns = [fn] * len(self._chunk_slices)
+        self._breaker = self._degrade_subsys = None
+        self._lax_fns = None
+        if self.algo != algos.DEFAULT:
+            # a forced or tuned algorithm degrades to the 'lax' baseline per
+            # dispatch; the baseline has no lower rung
+            self._breaker = supervisor.breaker("algo")
+            self._degrade_subsys = "algo"
+            self._lax_kw = {k: v for k, v in kw.items() if k in collectives.BUILD_KW}
         self.is_setup = True
 
     def _setup_sparse(self, ratio: float) -> None:
@@ -251,6 +309,10 @@ class CommRequest:
         self._plain_fns = None
         self._err_layout = "flat"
         self.algo = "topk"
+        # the sparse wire rides the codec subsystem's breaker
+        self._breaker = supervisor.breaker("quant")
+        self._degrade_subsys = "quant"
+        self._degrade_fns = None
         # the sparse image: k (value, index) pairs of the whole payload
         self._wire_rec = ("topk", 8 * max(1, int(d.count * ratio)))
         self.is_setup = True
@@ -271,6 +333,11 @@ class CommRequest:
         self._quant_fns = self._err_lens = self._errs = None
         self._plain_fns = None
         self._codec_geoms = None
+        self._degrade_fns = None
+        # codec faults count against the quant breaker; once it trips the
+        # dispatch degrades to the plain float32 SUM, residual flushed
+        self._breaker = supervisor.breaker("quant")
+        self._degrade_subsys = "quant"
         reg_name, reg_cell, reg_src = "int8", None, "default"
         if custom is None:
             if self._codec_demoted:
@@ -414,6 +481,7 @@ class CommRequest:
             label = self.algo
             self._pending_flush = (self._flush_fn(), self._take_residuals())
             self._codec_demoted = True
+            self._ef_snapshot = None
             self.setup()
         codecs_mod.guard_unregister(self)
         stats.record_codec_demotion(self.name or str(self.uid), label, reason or "guardrail")
@@ -455,6 +523,8 @@ class CommRequest:
                 continue
             seen.add(key)
             x = buf[..., sl]
+            # the warm passes no chaos site: it must not spend an armed budget
+            fn = collectives.unwrap_chaos(fn)
             if self._quant_fns is not None:
                 fn(x, torch.zeros((*topo.grid_shape, self._err_lens[i]), dtype=torch.float32,
                                   device=dev))
@@ -474,7 +544,8 @@ class CommRequest:
         mlsl_assert(self._plain_build is not None,
                     "request %s has no plain version (a barrier)", self.name or self.uid)
         if self._plain_fns is None:
-            self._plain_fns = self._plain_build()
+            # a check: the plain versions pass no chaos site
+            self._plain_fns = [collectives.unwrap_chaos(f) for f in self._plain_build()]
         buf = self.desc.group.topology.adopt_buffer(buf)
         if self._quant_fns is None:
             fn = self._plain_fns[0]
@@ -491,8 +562,13 @@ class CommRequest:
             new.append(ne)
         return (outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)), new
 
-    def start(self, buf: torch.Tensor) -> "CommRequest":
+    def start(self, buf: torch.Tensor, *, _rewind_ef: bool = False) -> "CommRequest":
+        """``_rewind_ef`` (a wait-side retry only): put the residuals back to
+        the previous Start's inside the epoch bump, so that the replay
+        quantizes from the state the suspect round saw."""
         mlsl_assert(self.is_setup, "request must be setup() before start()")
+        if chaos._plans:
+            chaos.inject("request.start", request=self.name or self.uid, kind=self.desc.kind)
         topo = self.desc.group.topology
         # a cross-distribution graph edge hands a buffer laid out for the
         # other distribution's grid (activation cases 3-5): re-view it
@@ -505,6 +581,8 @@ class CommRequest:
         )
         with self._dlock:
             self._epoch += 1
+            if _rewind_ef:
+                self._ef_restore()
             self._results = []
             self._result = None
             self._event = None
@@ -517,6 +595,13 @@ class CommRequest:
                 self._ready = torch.cuda.Event()
                 self._ready.record(torch.cuda.current_stream(buf.device))
             self.is_started = True
+            self._started_at = time.monotonic()
+            self._last_buf = buf
+            self._ef_snapshot = list(self._errs) if self._errs is not None else None
+        tr = obs._tracer
+        if tr is not None:
+            tr.instant("submit", "req", track=self._trace_name, req=self.name or self.uid,
+                       epoch=self._epoch, bytes=self._payload)
         if self._wire_rec is not None:
             stats.record_codec_wire(*self._wire_rec)
         self.dispatcher.submit(self, buf)
@@ -531,31 +616,149 @@ class CommRequest:
         with self._dlock:
             if epoch is not None and epoch != self._epoch:
                 return
+            tr = obs._tracer
+            t0 = tr.now() if tr is not None else 0
             try:
                 self._launch(buf)
             except Exception as e:
+                if tr is not None:
+                    tr.instant("dispatch.error", "req", track=self._trace_name,
+                               req=self.name or self.uid, error=repr(e))
                 if epoch is None:
                     raise
                 self._dispatch_error = e
+            else:
+                if tr is not None:
+                    # host time of the enqueue: the device's completion lands
+                    # in the wait span
+                    tr.complete("dispatch", "req", t0, track=self._trace_name,
+                                req=self.name or self.uid, epoch=self._epoch, algo=self.algo)
             self._dispatched = True
 
     def _launch(self, buf: torch.Tensor) -> None:
-        # per-algorithm launch attribution, as at request.py:953-956
-        stats.record_algo_dispatch(self.desc.kind, self.algo)
+        """The ladder on the comm stream for a CUDA buffer (every attempt,
+        the degraded one included, is ordered before the event a wait takes),
+        in place on the CPU."""
         stream = self.dispatcher.stream_for(buf.device)
         if stream is None:
-            self._results = self._run(buf)
+            self._dispatch_ladder(buf)
             return
         with torch.cuda.device(buf.device):
             stream.wait_event(self._ready)
             with torch.cuda.stream(stream):
-                self._results = self._run(buf)
+                self._dispatch_ladder(buf)
                 event = torch.cuda.Event()
                 event.record(stream)
         # the caller's stream allocated buf: its memory must not be
         # recycled while the comm stream still reads it
         buf.record_stream(stream)
         self._event = event
+
+    def _dispatch_ladder(self, buf: torch.Tensor) -> None:
+        """Rungs 2 and 3 around one dispatch (the caller holds ``_dlock``;
+        request.py:721-797 of the JAX package). TRANSIENT failures retry in
+        place with jittered exponential backoff; CORRUPTION and PERSISTENT
+        failures count against the request's breaker, and once it is OPEN --
+        the tripping failure included -- the dispatch is served by the
+        degraded path instead of raising. A healthy dispatch while the
+        breaker is HALF_OPEN is the probe: its success re-closes it.
+        DEVICE_LOSS and FATAL failures raise untouched. The backoff sleeps in
+        place, on the progress thread for a deferred request."""
+        br = self._breaker
+        attempt = 0
+        forced_degrade = False
+        while True:
+            degraded = forced_degrade or (br is not None and not br.allow())
+            try:
+                if degraded:
+                    self._dispatch_degraded(buf)
+                else:
+                    self._dispatch_inner(buf)
+            except Exception as e:
+                # any re-attempt replays the round from the Start residuals
+                self._ef_restore()
+                cfg = self.dispatcher.config
+                cls = supervisor.classify(e)
+                if cls is supervisor.ErrorClass.TRANSIENT and attempt < cfg.comm_retries:
+                    delay = supervisor.jittered_backoff(cfg.comm_retry_backoff_s, attempt)
+                    stats.record_comm_retry("dispatch", self.name or str(self.uid), e,
+                                            attempt + 1, delay)
+                    log_debug("transient dispatch failure of %s (%s); retry %d in %.3fs",
+                              self.name or self.uid, e, attempt + 1, delay)
+                    attempt += 1
+                    time.sleep(delay)
+                    continue
+                if cls is supervisor.ErrorClass.DEVICE_LOSS:
+                    # capacity left the world: a fallback on the same ranks
+                    # would mask the loss
+                    raise
+                if (not degraded and br is not None and cls is not supervisor.ErrorClass.FATAL
+                        and br.record_failure(e)):
+                    # OPEN now: serve THIS dispatch degraded, without asking
+                    # allow() again (a zero cooldown must not ping-pong)
+                    forced_degrade = True
+                    continue
+                raise
+            else:
+                if br is not None and not degraded:
+                    br.record_success()   # a no-op unless HALF_OPEN (the probe)
+                if "request.wait" not in chaos._plans:
+                    # no wait-side retry can replay this round (that site is
+                    # the only TRANSIENT failure a wait sees after a dispatch
+                    # that succeeded): the retry buffer and the previous
+                    # residuals go now, not at the end of the round
+                    self._last_buf = None
+                    self._ef_snapshot = None
+                return
+
+    def _dispatch_inner(self, buf: torch.Tensor) -> None:
+        # per-algorithm launch attribution, as at request.py:953-956
+        stats.record_algo_dispatch(self.desc.kind, self.algo)
+        self._results = self._run(buf)
+
+    def _dispatch_degraded(self, buf: torch.Tensor) -> None:
+        """Rung 3's dispatch (request.py:799-830 of the JAX package): a
+        compressed wire runs the plain float32 SUM with the residual flushed
+        into the payload (delivered once, not dropped); a forced or tuned
+        algorithm runs the ``lax`` baseline. The result has the healthy
+        path's shape and dtype; only the statistics tell a degraded round
+        from a healthy one."""
+        d = self.desc
+        stats.record_degrade(self._degrade_subsys or "?", "fallback")
+        if self._quant_fns is not None:
+            pf = self._pending_flush
+            if pf is not None:
+                # a breaker degrade racing a codec demotion: the demoted
+                # codec's residual still rides this round
+                buf = pf[0](buf, pf[1])
+            flush, plain = self._degrade_programs()
+            out = plain(flush(buf, self._take_residuals()))
+            self._results = [out]
+            self._pending_flush = None
+            stats.record_algo_dispatch(d.kind, "degraded-plain")
+            return
+        if self._lax_fns is None:
+            fn = algos.build(d.kind, d.group, algos.DEFAULT, **self._lax_kw)
+            self._lax_fns = [fn] * len(self._chunk_slices)
+        stats.record_algo_dispatch(d.kind, algos.DEFAULT)
+        self._results = [fn(buf[..., sl]) for fn, sl in zip(self._lax_fns, self._chunk_slices)]
+
+    def _degrade_programs(self) -> tuple:
+        """(flush, plain SUM) of the degraded compressed path, built at the
+        first degrade: the flush is ``_flush_fn``, the plain SUM the
+        uncompressed request's program (``collectives.build_plain_fallback``)."""
+        if self._degrade_fns is None:
+            d = self.desc
+            self._degrade_fns = (self._flush_fn(),
+                                 collectives.build_plain_fallback(d.kind, d.group, d.count))
+        return self._degrade_fns
+
+    def _ef_restore(self) -> None:
+        """Rewind the residuals to the Start snapshot before a re-attempt: a
+        failed chunked dispatch may have advanced some of them, a degraded
+        one consumed them; the replay must see what the first attempt saw."""
+        snap = self._ef_snapshot
+        self._errs = list(snap) if snap is not None else None
 
     def _run(self, buf: torch.Tensor) -> List[torch.Tensor]:
         if self._quant_fns is not None:
@@ -586,15 +789,113 @@ class CommRequest:
                 self._result = torch.cat(self._results, dim=-1)
         return self._result
 
-    def wait(self) -> torch.Tensor:
+    # -- watchdog ----------------------------------------------------------
+
+    def _watchdog_deadline(self, timeout: Optional[float]) -> Optional[float]:
+        """The absolute deadline of this wait, from the Start stamp: the
+        watchdog bounds the whole time in flight, not the time in wait()."""
+        t = timeout
+        if t is None:
+            t = getattr(self.dispatcher.config, "watchdog_timeout_s", 0.0)
+        if not t or t <= 0:
+            return None
+        return (self._started_at or time.monotonic()) + t
+
+    def describe(self) -> str:
+        """One-line descriptor of the request (the watchdog's log); a breaker
+        off CLOSED is part of it while it lasts."""
+        d = self.desc
+        s = (f"{d.kind} name={self.name or self.uid} algo={self.algo} "
+             f"count={d.count} dtype={DataType(d.data_type).name} axes={d.group.axes} "
+             f"payload={self._payload}B epoch={self._epoch}")
+        br = self._breaker
+        if br is not None and br.state != supervisor.CLOSED:
+            s += f" breaker={br.name}:{br.state}"
+        return s
+
+    def _watchdog_trip(self, phase: str) -> None:
+        """Log the stuck descriptor, keep the event record (with the tracer's
+        flight record) and raise the recoverable timeout."""
+        waited = time.monotonic() - (self._started_at or time.monotonic())
+        desc = self.describe()
+        tr = obs._tracer
+        if tr is not None:
+            # on the stuck request's own track, before the flight record is
+            # cut, so that the record holds it
+            tr.instant("watchdog.trip", "watchdog", track=self._trace_name,
+                       req=self.name or self.uid, phase=phase,
+                       waited_s=round(waited, 3), descriptor=desc)
+        stats.record_watchdog_event(desc, phase, waited)
+        raise MLSLTimeoutError(f"watchdog: request stuck in {phase} for {waited:.2f}s: {desc}")
+
+    def _block_ready(self, deadline: Optional[float]) -> None:
+        """With a deadline, poll the round's event until it is done or the
+        deadline trips (an exponential backoff from 10 us to 1 ms); without
+        one, return at once (wait orders the caller's stream after it)."""
+        if deadline is None or self._event is None:
+            return
+        delay = 1e-5
+        while not self._event.query():
+            if time.monotonic() > deadline:
+                self._watchdog_trip("wait")
+            time.sleep(delay)
+            delay = min(delay * 2, 1e-3)
+
+    # -- wait/test ---------------------------------------------------------
+
+    def wait(self, timeout: Optional[float] = None) -> torch.Tensor:
         # A completed request can be wait()ed any number of times (MPI_Wait on
         # a completed request returns immediately).
         if not self.is_started and self._result is not None:
             return self._result
         mlsl_assert(self.is_started, "request was not started")
-        self.dispatcher.wait_dispatched(self)
+        tr = obs._tracer
+        t0 = tr.now() if tr is not None else 0
+        attempt = 0
+        while True:
+            try:
+                out = self._wait_inner(timeout)
+            except Exception as e:
+                # rung 2 on the wait side: a TRANSIENT failure at wait starts
+                # the stored buffer again (the round in flight is suspect)
+                cfg = self.dispatcher.config
+                if (supervisor.classify(e) is not supervisor.ErrorClass.TRANSIENT
+                        or attempt >= cfg.comm_retries or self._last_buf is None):
+                    raise
+                delay = supervisor.jittered_backoff(cfg.comm_retry_backoff_s, attempt)
+                stats.record_comm_retry("wait", self.name or str(self.uid), e, attempt + 1,
+                                        delay)
+                log_debug("transient wait failure of %s (%s); restarting, retry %d in "
+                          "%.3fs", self.name or self.uid, e, attempt + 1, delay)
+                attempt += 1
+                time.sleep(delay)
+                self.start(self._last_buf, _rewind_ef=True)
+                continue
+            break
+        self._finish_round()
+        if tr is not None:
+            # the wait stall: host time blocked for this request
+            tr.complete("wait", "req", t0, track=self._trace_name,
+                        req=self.name or self.uid, epoch=self._epoch, algo=self.algo)
+        m = obs_metrics._registry
+        if m is not None:
+            self._record_done_metrics(m)
+        return out
+
+    def _wait_inner(self, timeout: Optional[float]) -> torch.Tensor:
+        """One wait attempt: the chaos site, the dispatch drain, the error,
+        the stream order, the result."""
+        if chaos._plans:
+            chaos.inject("request.wait", request=self.name or self.uid, kind=self.desc.kind)
+        deadline = self._watchdog_deadline(timeout)
+        self.dispatcher.wait_dispatched(self, deadline)
         self._raise_dispatch_error()
         mlsl_assert(self._dispatched, "request %s was never dispatched", self.name or self.uid)
+        self._block_ready(deadline)
+        self._order_results()
+        return self._assemble()
+
+    def _order_results(self) -> None:
         if self._event is not None:
             # the comm stream allocated the results; the caller's stream now
             # uses them too
@@ -602,19 +903,35 @@ class CommRequest:
             cur.wait_event(self._event)
             for t in self._results:
                 t.record_stream(cur)
-        out = self._assemble()
+
+    def _finish_round(self) -> None:
+        """The round is over: the retry buffer and the residual snapshot are
+        needed only in flight."""
         self.is_started = False
-        return out
+        self._last_buf = None
+        self._ef_snapshot = None
 
     def test(self) -> tuple:
         """Non-blocking completion poll -> (is_completed, result_or_None)."""
         if not self.is_started:
             return True, self._result
+        if chaos._plans:
+            chaos.inject("request.test", request=self.name or self.uid, kind=self.desc.kind)
         self.dispatcher.wait_dispatched(self)
         self._raise_dispatch_error()
         if self._event is not None and not self._event.query():
             return False, None
-        return True, self.wait()
+        self._order_results()
+        out = self._assemble()
+        self._finish_round()
+        tr = obs._tracer
+        if tr is not None:
+            tr.instant("test.done", "req", track=self._trace_name,
+                       req=self.name or self.uid, epoch=self._epoch)
+        m = obs_metrics._registry
+        if m is not None:
+            self._record_done_metrics(m)
+        return True, out
 
     def _raise_dispatch_error(self) -> None:
         """Re-raise a failure of a queued dispatch, once, and end the round."""
@@ -622,6 +939,20 @@ class CommRequest:
             err, self._dispatch_error = self._dispatch_error, None
             self.is_started = False
             raise err
+
+    def _record_done_metrics(self, m) -> None:
+        """At a completed round with the registry armed: the dispatch-to-wait
+        latency and the achieved algbw (payload over time in flight, host
+        clock), by algorithm and tier shape."""
+        started = self._started_at
+        if not started:
+            return
+        waited_s = time.monotonic() - started
+        m.observe("mlsl_dispatch_wait_ms", waited_s * 1e3, kind=self.desc.kind)
+        if waited_s > 0 and self._payload:
+            m.observe("mlsl_algbw_gbps", self._payload / waited_s / 1e9,
+                      buckets=obs_metrics.ALGBW_BUCKETS_GBPS, algo=self.algo,
+                      tier="two-tier" if self.algo == "hier" else "flat")
 
 
 def in_graph_descriptor(kind: str, name: str, algo: str, count: int,
@@ -785,6 +1116,10 @@ class Dispatcher:
                                                 name="mlsl-dispatch")
                 self._thread.start()
             self._cv.notify_all()
+        tr = obs._tracer
+        if tr is not None:
+            tr.instant("defer", "req", track=req._trace_name, req=req.name or req.uid,
+                       bytes=req._payload, scheduler="python")
 
     def _progress_loop(self) -> None:
         while True:
@@ -821,15 +1156,24 @@ class Dispatcher:
                     self._in_flight.discard(req.uid)
                 self._cv.notify_all()
 
-    def wait_dispatched(self, req: CommRequest) -> None:
+    def wait_dispatched(self, req: CommRequest, deadline: Optional[float] = None) -> None:
         """Make sure ``req`` has been launched: flush the queue, then wait out
-        a dispatch of it that the progress thread is running."""
+        a dispatch of it that the progress thread is running. ``deadline``
+        (monotonic) is the request watchdog's: a dispatch wedged on the
+        progress thread past it trips MLSLTimeoutError instead of blocking
+        forever."""
         self.flush()
         if req.uid not in self._in_flight:
             return
         with self._cv:
             while req.uid in self._in_flight:
-                self._cv.wait()
+                if deadline is None:
+                    self._cv.wait()
+                    continue
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    req._watchdog_trip("dispatch")
+                self._cv.wait(min(remaining, 0.05))
 
     def shutdown(self) -> None:
         """Launch anything still deferred and stop the progress thread."""

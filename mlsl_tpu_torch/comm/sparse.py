@@ -81,7 +81,9 @@ def build_sparse_collective(kind: str, group: ProcessGroup, count: int, ratio: f
     ``kind``: 'allreduce' or 'reduce_scatter' (MPI slice placement); SUM
     only, axis-aligned groups. ``use_ring``: None picks the ring for
     single-axis groups of ``RING_THRESHOLD`` members or more. The function
-    is plain tensor work on the buffer's device: no kernel."""
+    is plain tensor work on the buffer's device: no kernel. It passes the
+    ``codec.roundtrip`` chaos site (``quant_ring.chaos_roundtrip``), as
+    every compressed wire does (sparse.py:129-139 of the JAX package)."""
     mlsl_assert(kind in ("allreduce", "reduce_scatter"),
                 "sparse collectives support allreduce/reduce_scatter (got %s)", kind)
     mlsl_assert(group.colors is None, "sparse collectives require axis-aligned groups")
@@ -110,5 +112,8 @@ def build_sparse_collective(kind: str, group: ProcessGroup, count: int, ratio: f
                                     n=count, recv_count=recv_count, use_ring=use_ring)
         return group_unview(out, group), group_unview(new_err, group)
 
+    from mlsl_tpu_torch.comm.quant_ring import chaos_roundtrip
+
+    fn = chaos_roundtrip(fn, algo="topk")
     _cache[key] = fn
     return fn, count

@@ -213,6 +213,50 @@ class Config:
     comm_retries: int = 2               # MLSL_COMM_RETRIES
     comm_retry_backoff_s: float = 0.05  # MLSL_COMM_RETRY_BACKOFF_S
 
+    # --- the fault plane and telemetry (chaos.py, supervisor.py, obs/,
+    # analysis/witness.py; config.py:281-474 of the JAX package).
+    # Environment.init hands each knob to the module that acts on it
+    # (supervisor.configure, supervisor.configure_fault_plane); before any
+    # init those modules read the environment variables themselves. ---
+    # Request watchdog: wait() on a request in flight longer than this raises
+    # MLSLTimeoutError and writes the tracer's flight record (0 = off).
+    watchdog_timeout_s: float = 0.0     # MLSL_WATCHDOG_TIMEOUT (seconds)
+    # Rung 3: per-subsystem circuit breakers (quant, bucket, algo, tracer).
+    # After `threshold` classified failures inside the sliding window the
+    # breaker trips OPEN and the subsystem degrades; after the cooldown one
+    # half-open probe decides.
+    breaker_threshold: int = 3          # MLSL_BREAKER_THRESHOLD
+    breaker_window_s: float = 30.0      # MLSL_BREAKER_WINDOW_S
+    breaker_cooldown_s: float = 10.0    # MLSL_BREAKER_COOLDOWN_S
+    # Runtime lock witness (analysis/witness.py): named locks created while
+    # it is armed are instrumented; holds over the budget are reported.
+    lock_witness: bool = False          # MLSL_LOCK_WITNESS
+    lock_witness_budget_ms: float = 250.0   # MLSL_LOCK_WITNESS_BUDGET_MS
+    # Fault-injection spec (chaos.py's grammar), armed at init unless it is
+    # the spec the plans were last armed from.
+    chaos_spec: str = ""            # MLSL_CHAOS
+    # Telemetry plane: the metrics registry (armed by MLSL_METRICS or a
+    # scrape port), its sampler cadence and ring size, and the scrape port
+    # of /metrics, /healthz and /statusz (0 = off).
+    metrics: bool = False           # MLSL_METRICS
+    metrics_every: int = 20         # MLSL_METRICS_EVERY
+    metrics_port: int = 0           # MLSL_METRICS_PORT
+    metrics_retention: int = 512    # MLSL_METRICS_RETENTION
+    # Straggler sentinel (obs/straggler.py): fire when one replica's window
+    # median exceeds skew x its peers', sustained over `sustain` audits.
+    straggler_skew: float = 0.0     # MLSL_STRAGGLER_SKEW (0 = off)
+    straggler_every: int = 20       # MLSL_STRAGGLER_EVERY
+    straggler_sustain: int = 2      # MLSL_STRAGGLER_SUSTAIN
+    straggler_shed: bool = False    # MLSL_STRAGGLER_SHED
+    # On a watchdog trip, a short torch.profiler trace next to the flight
+    # record (core/stats._profile_on_trip).
+    profile_on_trip: bool = False   # MLSL_PROFILE_ON_TRIP
+    # The span tracer (obs/tracer.py): armed at init with this many slots,
+    # its exports written to trace_dir ("" = MLSL_TRACE_DIR, else CWD).
+    trace: bool = False             # MLSL_TRACE
+    trace_dir: str = ""             # MLSL_TRACE_DIR
+    trace_capacity: int = 65536     # MLSL_TRACE_CAPACITY
+
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
         into ``_forced_algos`` (comm/algos.select reads it)."""
@@ -305,6 +349,31 @@ class Config:
                     "admit any sequence (got %d)", self.serve_kv_cache_mb)
         mlsl_assert(self.serve_queue_depth >= 1,
                     "MLSL_SERVE_QUEUE_DEPTH must be >= 1 (got %d)", self.serve_queue_depth)
+        mlsl_assert(self.watchdog_timeout_s >= 0,
+                    "MLSL_WATCHDOG_TIMEOUT must be >= 0 (got %r)", self.watchdog_timeout_s)
+        mlsl_assert(self.breaker_threshold >= 1,
+                    "MLSL_BREAKER_THRESHOLD must be >= 1 (got %d)", self.breaker_threshold)
+        mlsl_assert(self.breaker_window_s >= 0 and self.breaker_cooldown_s >= 0,
+                    "MLSL_BREAKER_WINDOW_S / MLSL_BREAKER_COOLDOWN_S must be >= 0 "
+                    "(got %r / %r)", self.breaker_window_s, self.breaker_cooldown_s)
+        mlsl_assert(self.lock_witness_budget_ms > 0,
+                    "MLSL_LOCK_WITNESS_BUDGET_MS must be > 0 (got %s)",
+                    self.lock_witness_budget_ms)
+        mlsl_assert(self.metrics_every >= 1,
+                    "MLSL_METRICS_EVERY must be >= 1 (got %d)", self.metrics_every)
+        mlsl_assert(0 <= self.metrics_port <= 65535,
+                    "MLSL_METRICS_PORT must be in [0, 65535] (0 = off; got %d)",
+                    self.metrics_port)
+        mlsl_assert(self.metrics_retention >= 2,
+                    "MLSL_METRICS_RETENTION must be >= 2 (got %d)", self.metrics_retention)
+        mlsl_assert(self.straggler_skew == 0 or self.straggler_skew > 1.0,
+                    "MLSL_STRAGGLER_SKEW must be 0 (off) or > 1 -- a skew ratio at or "
+                    "below 1 would flag healthy replicas (got %r)", self.straggler_skew)
+        mlsl_assert(self.straggler_every >= 3,
+                    "MLSL_STRAGGLER_EVERY must be >= 3 (a replica needs 3 window samples "
+                    "to be judged; got %d)", self.straggler_every)
+        mlsl_assert(self.straggler_sustain >= 1,
+                    "MLSL_STRAGGLER_SUSTAIN must be >= 1 (got %d)", self.straggler_sustain)
 
     @staticmethod
     def from_env() -> "Config":
@@ -358,4 +427,24 @@ class Config:
         c.comm_retries = _env_int("MLSL_COMM_RETRIES", c.comm_retries)
         c.comm_retry_backoff_s = _env_float("MLSL_COMM_RETRY_BACKOFF_S",
                                             c.comm_retry_backoff_s)
+        c.watchdog_timeout_s = _env_float("MLSL_WATCHDOG_TIMEOUT", c.watchdog_timeout_s)
+        c.breaker_threshold = _env_int("MLSL_BREAKER_THRESHOLD", c.breaker_threshold)
+        c.breaker_window_s = _env_float("MLSL_BREAKER_WINDOW_S", c.breaker_window_s)
+        c.breaker_cooldown_s = _env_float("MLSL_BREAKER_COOLDOWN_S", c.breaker_cooldown_s)
+        c.lock_witness = _env_bool("MLSL_LOCK_WITNESS", c.lock_witness)
+        c.lock_witness_budget_ms = _env_float("MLSL_LOCK_WITNESS_BUDGET_MS",
+                                              c.lock_witness_budget_ms)
+        c.chaos_spec = os.environ.get("MLSL_CHAOS", c.chaos_spec)
+        c.metrics = _env_bool("MLSL_METRICS", c.metrics)
+        c.metrics_every = _env_int("MLSL_METRICS_EVERY", c.metrics_every)
+        c.metrics_port = _env_int("MLSL_METRICS_PORT", c.metrics_port)
+        c.metrics_retention = _env_int("MLSL_METRICS_RETENTION", c.metrics_retention)
+        c.straggler_skew = _env_float("MLSL_STRAGGLER_SKEW", c.straggler_skew)
+        c.straggler_every = _env_int("MLSL_STRAGGLER_EVERY", c.straggler_every)
+        c.straggler_sustain = _env_int("MLSL_STRAGGLER_SUSTAIN", c.straggler_sustain)
+        c.straggler_shed = _env_bool("MLSL_STRAGGLER_SHED", c.straggler_shed)
+        c.profile_on_trip = _env_bool("MLSL_PROFILE_ON_TRIP", c.profile_on_trip)
+        c.trace = _env_bool("MLSL_TRACE", c.trace)
+        c.trace_dir = os.environ.get("MLSL_TRACE_DIR", c.trace_dir)
+        c.trace_capacity = _env_int("MLSL_TRACE_CAPACITY", c.trace_capacity)
         return c

@@ -29,13 +29,21 @@ while the bucket is in flight abandons its slot and runs individually; the
 bucket re-arms for the next round. A failed bucket collective raises at
 EVERY member's Wait/Test, once each.
 
-Not ported, by design or for now:
-- ``_degrade_locked`` (bucketing.py:367), the supervisor's degrade ladder:
-  a failed kernel inside a bucket raises to every member -- also when it
-  fails at the Start that dispatches it, where the JAX package raises only
-  to that caller -- and never quietly re-runs on another route;
-- the ``checker``, ``supervisor`` and ``obs`` hooks (ROADMAP A.7);
-- the stats' round-event ring and wire-saved estimate: nothing reads them.
+The recovery ladder (``_degrade_locked``, bucketing.py:235-310 and 367-380
+of the JAX package): a classified failure of the coalesced request counts
+against the process-wide ``bucket`` breaker. Below its threshold the error
+escalates to every member, also when the dispatch failed at the Start that
+triggered it (the JAX package raises that one to the starting caller alone
+and lets the other members' waits run their own requests; here no member
+quietly changes route below the threshold). Once the breaker is OPEN the
+failed round degrades: every registered member's own request starts with its
+registered buffer, the round is counted as a ``bucket`` fallback and filed as
+a DEGRADE event, and fresh rounds run individually until the cooldown admits
+a half-open probe round, whose success re-closes the breaker. With the
+tracer armed, a dispatched round's pack and Start is a ``bucket.pack`` span.
+
+Not ported: the ``checker`` hook (ROADMAP A.7b) and the stats' round-event
+ring (nothing reads it).
 """
 
 from __future__ import annotations
@@ -46,11 +54,13 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from mlsl_tpu_torch import supervisor
 from mlsl_tpu_torch.comm import quant_ring
 from mlsl_tpu_torch.comm.collectives import group_key
 from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
 from mlsl_tpu_torch.core import stats as stats_mod
 from mlsl_tpu_torch.log import log_debug, mlsl_assert
+from mlsl_tpu_torch.obs import tracer as obs
 from mlsl_tpu_torch.ops.quant_kernels import block_align
 from mlsl_tpu_torch.types import CompressionType, ReductionType, dtype_size, torch_dtype
 
@@ -159,6 +169,11 @@ class GradBucket:
         # first waiter (CommRequest consumes its error once)
         self._error = None
         self._error_left: set = set()
+        self._degraded_round = -1    # _round value the last degrade fired on
+        # the recovery ladder: classified failures of the coalesced request
+        # count against the process-wide bucket breaker; once OPEN, rounds
+        # run the members' individual requests until a probe round succeeds
+        self._breaker = supervisor.breaker("bucket")
 
     def precompile(self) -> int:
         """Run the pack, the coalesced request and the split once on zero
@@ -211,23 +226,43 @@ class GradBucket:
             if self._dispatched:
                 # restart while the bucket is in flight: abandon the slot for
                 # this round and run individually
-                stats_mod.record_bucket_round("abandon")
+                stats_mod.record_bucket_round("abandon", kind=self.kind)
                 self._consume_locked(i)
+                return False
+            if not self._bufs and not self._breaker.allow():
+                # the bucket breaker is OPEN: deny the fresh round at its
+                # boundary -- every member runs its own request until the
+                # cooldown admits a probe round. Members of a round already
+                # registering keep registering, so that an admitted round
+                # completes or fails as a unit.
                 return False
             self._bufs[i] = buf  # a pre-dispatch restart supersedes
             if len(self._bufs) == len(self.members):
                 ordered = [self._bufs[j] for j in range(len(self.members))]
+                tr = obs._tracer
+                t0 = tr.now() if tr is not None else 0
                 try:
                     self.req.start(self._pack(ordered))
                 except Exception as e:
-                    # a direct dispatch fails here, not at the waits: every
-                    # member raises it, this caller first
+                    # a direct dispatch fails at Start, not at the waits: run
+                    # the ladder here. A degrade pops OUR buffer first (the
+                    # caller starts our request on the False return, the
+                    # fallback everyone else's); below the threshold every
+                    # member raises the error, this caller first
+                    del self._bufs[i]
+                    if self._degrade_locked(e):
+                        return False
                     self._record_error_locked(e)
                     self._raise_error_locked(i)
+                if tr is not None:
+                    tr.complete("bucket.pack", "bucket", t0, track=self.req._trace_name,
+                                kind=self.kind, members=len(self.members),
+                                bytes=self._coalesced_bytes, algo=self.req.algo)
                 self._dispatched = True
                 stats_mod.record_bucket_round("dispatched", members=len(self.members),
                                               coalesced=self._coalesced_bytes,
-                                              wire_saved=self._wire_saved_bytes)
+                                              wire_saved=self._wire_saved_bytes,
+                                              kind=self.kind)
             return True
 
     def _fallback_locked(self) -> None:
@@ -236,7 +271,7 @@ class GradBucket:
         current round becomes individual (their round flag cleared)."""
         log_debug("%s bucket fallback: %d/%d members started",
                   self.kind, len(self._bufs), len(self.members))
-        stats_mod.record_bucket_round("fallback", members=len(self._bufs))
+        stats_mod.record_bucket_round("fallback", members=len(self._bufs), kind=self.kind)
         for j, buf in self._bufs.items():
             ps = self.members[j]
             getattr(ps, self.req_attr).start(buf)
@@ -270,6 +305,26 @@ class GradBucket:
         self._dispatched = False
         self._parts = None
         self._round += 1
+
+    def _degrade_locked(self, e: BaseException) -> bool:
+        """Rung 3 for a failed coalesced round (the caller holds ``_lock``):
+        count the classified failure against the bucket breaker; once it is
+        OPEN (this failure tripped it, or a probe round failed) the round
+        degrades -- every registered member's own request starts with its
+        registered buffer and the bucket re-arms. -> True when degraded;
+        False leaves the error to escalate (below the threshold)."""
+        if supervisor.classify(e) is supervisor.ErrorClass.FATAL:
+            return False
+        if not self._breaker.record_failure(e):
+            return False
+        stats_mod.record_degrade("bucket", "fallback",
+                                 detail=f"{self.kind}[{len(self.members)}]: "
+                                        f"{type(e).__name__}: {e}")
+        self._degraded_round = self._round
+        self._dispatched = False
+        self._parts = None
+        self._fallback_locked()
+        return True
 
     def _raise_error_locked(self, i: int) -> None:
         err = self._error
@@ -307,10 +362,18 @@ class GradBucket:
         except Exception as e:
             with self._lock:
                 if self._round == r0:
-                    # the first waiter to see the failure records it for all
+                    # the first waiter to see the failure decides the round:
+                    # degrade (breaker OPEN -- the individual requests run
+                    # now, ours included) or record it for every member
+                    if self._degrade_locked(e):
+                        return False, None
                     if self._error is None:
                         self._record_error_locked(e)
                     self._raise_error_locked(i)
+                if self._degraded_round == r0:
+                    # a concurrent waiter degraded this round under us; its
+                    # fallback started our request
+                    return False, None
                 if self._error is not None and i in self._error_left:
                     self._raise_error_locked(i)
                 # the round completed under us despite our local failure:
@@ -318,6 +381,7 @@ class GradBucket:
                 if self._error is None:
                     self._record_error_locked(e)
                 self._raise_error_locked(i)
+        self._breaker.record_success()   # a no-op unless HALF_OPEN (the probe)
         with self._lock:
             if self._round != r0:
                 # the round completed (or failed) under us: a concurrent
@@ -343,10 +407,16 @@ class GradBucket:
             try:
                 done, out = self.req.test()
             except Exception as e:
-                self._record_error_locked(e)
+                if self._degrade_locked(e):
+                    # the member's own request runs now: handled=False sends
+                    # the caller to poll it
+                    return False, False, None
+                if self._error is None:
+                    self._record_error_locked(e)
                 self._raise_error_locked(i)
             if not done:
                 return True, False, None
+            self._breaker.record_success()   # a no-op unless HALF_OPEN
             return True, True, self._part_locked(out, i)
 
 

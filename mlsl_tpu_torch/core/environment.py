@@ -78,7 +78,13 @@ class Environment:
         mlsl_assert(world_size >= 1, "world_size must be >= 1 (got %d)", world_size)
         config = Config.from_env()
         config.validate()
-        from mlsl_tpu_torch import tuner
+        # the breakers are process-wide and keep their state across a
+        # rebuild, but adopt the validated thresholds
+        from mlsl_tpu_torch import supervisor, tuner
+
+        supervisor.configure(config)
+        # chaos_spec, trace*, lock_witness*, straggler_*, profile_on_trip
+        supervisor.configure_fault_plane(config)
 
         tuner.init_profile(config, world_size, dev)
         self.config = config
@@ -86,6 +92,18 @@ class Environment:
         self.world_size = int(world_size)
         self.dispatcher = Dispatcher(self.config, device=dev)
         self._initialized = True
+        # the telemetry plane (process-wide and idempotent, like the tracer):
+        # the registry when MLSL_METRICS or a scrape port asks for it, and the
+        # /metrics, /healthz and /statusz thread on MLSL_METRICS_PORT
+        if config.metrics or config.metrics_port:
+            from mlsl_tpu_torch.obs import metrics as obs_metrics
+
+            obs_metrics.enable(every=config.metrics_every,
+                               retention=config.metrics_retention)
+        if config.metrics_port:
+            from mlsl_tpu_torch.obs import serve as obs_serve
+
+            obs_serve.start_server(config.metrics_port)
         if self.quant_params is not None:
             # parameters set before init apply now that the config exists; a
             # codec that no longer loads unwinds init, so that a retry loads
@@ -93,6 +111,9 @@ class Environment:
             try:
                 self.set_quantization_params(self.quant_params)
             except Exception:
+                from mlsl_tpu_torch import supervisor
+
+                supervisor.configure_fault_plane(None)
                 self._initialized = False
                 self.dispatcher.shutdown()
                 self.dispatcher = None
@@ -114,6 +135,10 @@ class Environment:
         from mlsl_tpu_torch.comm import algos
 
         algos._INLINE_PLANS.clear()
+        # the fault plane's modules read their environment variables again
+        from mlsl_tpu_torch import supervisor
+
+        supervisor.configure_fault_plane(None)
         self._initialized = False
         Environment._instance = None
 

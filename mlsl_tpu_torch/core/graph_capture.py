@@ -13,6 +13,11 @@ A capture that fails raises MLSLError; nothing runs eagerly in its place.
 The kernel wrappers count a launch when the graph records it, not when it is
 replayed: ``Captured.launches`` holds the launches one recording made. The
 warm-up's launches are real and count too.
+
+The warm-up and the recording run inside ``chaos.quiet()``: no chaos site
+fires and no plan's budget is spent while a program is captured (Python that
+a graph records runs once, at the capture). A site that must fire every step
+sits on the host before ``replay``.
 """
 
 from __future__ import annotations
@@ -92,9 +97,11 @@ def capture(fn: Callable, args: Sequence[torch.Tensor], state: Sequence[torch.Te
     """``fn(*args)`` as one CUDA graph; ``state``: every tensor ``fn`` writes
     in place, put back after the warm-up and after the recording; ``what``
     names the program in the error a failed capture raises."""
+    from mlsl_tpu_torch import chaos
+
     dev = args[0].device
     inputs = [a.detach().clone() for a in args]
-    with CAPTURE_LOCK, restored(state) as saved:
+    with CAPTURE_LOCK, chaos.quiet(), restored(state) as saved:
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)

@@ -29,22 +29,28 @@ wire bytes a codec and its calibration and guardrail events (stats.py:268-310),
 the device feed's staged bytes, cache outcomes, stalls and retries
 (stats.py:537-590), and the serving engine's admissions, decode progress,
 KV paging and SLA ladder transitions (stats.py:592-640; each transition also
-appends an immediate SERVE line). The JAX package's table also prints the
-sentinel (SENTINEL), the elastic mesh (ELASTIC), stragglers (STRAGGLER), the
-control plane (CONTROL), checkpoint checks (CHKP) and the recovery ladder
-(DEGRADE); none of those subsystems is ported, so their
-counters and lines are left out, as are the watchdog record and the span
-tracer's wait-stall percentiles. A guardrail demotion, which the JAX package
-also files as a DEGRADE ladder event, is counted here only in the CODEC
-lines.
+appends an immediate SERVE line), and the fault plane's (stats.py:49-130,
+180-245, 377-535): the watchdog record with its flight record and
+``torch.profiler`` trace on a trip, the recovery ladder (DEGRADE: breaker
+transitions, degraded dispatches, retries; a guardrail demotion is filed
+there too), straggler audits (STRAGGLER), the lock witness (LOCKWITNESS) and
+analysis verdicts (ANALYSIS). The JAX package's table also prints the
+sentinel (SENTINEL), the elastic mesh (ELASTIC), the control plane (CONTROL)
+and checkpoint checks (CHKP); those subsystems are not ported yet (ROADMAP
+A.7b, A.7c), so their counters and lines are left out, as are the span
+tracer's wait-stall percentiles in the OVERLAP and BUCKET lines.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Deque, Dict, List, Optional, Tuple
+
+from mlsl_tpu_torch.log import log_warning
+from mlsl_tpu_torch.obs import tracer as obs
 
 ISOLATION_ITERS = 10
 ISOLATION_SKIP = 4
@@ -71,9 +77,10 @@ BUCKET_COUNTERS: Dict[str, int] = {
 
 
 def record_bucket_round(event: str, members: int = 0, coalesced: int = 0,
-                        wire_saved: int = 0) -> None:
+                        wire_saved: int = 0, *, kind: str = "") -> None:
     """Called by GradBucket at every round transition (dispatch, early-Wait
-    fallback, member-restart abandon)."""
+    fallback, member-restart abandon); a ``bucket.<event>`` instant on the
+    tracer's timeline."""
     if event == "dispatched":
         BUCKET_COUNTERS["rounds_dispatched"] += 1
         BUCKET_COUNTERS["bytes_coalesced"] += coalesced
@@ -82,6 +89,8 @@ def record_bucket_round(event: str, members: int = 0, coalesced: int = 0,
         BUCKET_COUNTERS["rounds_fallback"] += 1
     else:  # abandon
         BUCKET_COUNTERS["member_abandons"] += max(members, 1)
+    if obs._tracer is not None:
+        obs._tracer.instant(f"bucket.{event}", "bucket", kind=kind, members=members)
 
 
 def reset_bucket_counters() -> None:
@@ -164,10 +173,12 @@ def record_codec_wire(codec: str, nbytes: int) -> None:
 
 
 def record_codec_demotion(request: str, codec: str, reason: str) -> None:
-    """A guardrail demotion: the counter and the bounded attribution row."""
+    """A guardrail demotion: the counter, the bounded attribution row and the
+    DEGRADE ladder event (``codec_demote``)."""
     CODEC_COUNTERS["demotions"] += 1
     if len(CODEC_DEMOTIONS) < _CODEC_DEMOTIONS_MAX:
         CODEC_DEMOTIONS.append(f"{request}: {codec} -> int8 ({reason})")
+    record_degrade("quant", "codec_demote", f"{request} {codec}->int8 {reason}")
 
 
 def reset_codec_counters() -> None:
@@ -175,6 +186,289 @@ def reset_codec_counters() -> None:
         CODEC_COUNTERS[k] = 0
     CODEC_WIRE_BYTES.clear()
     CODEC_DEMOTIONS.clear()
+
+
+# Watchdog event record: every request the watchdog declared stuck, with its
+# descriptor and how long it had been in flight. Process-wide (the watchdog
+# fires from the request layer, which has no Session handle); bounded so a
+# recurrently flaky interconnect cannot grow memory across recoveries — the
+# full history lives in STATS_OUTPUT_FILE, appended per event below.
+WATCHDOG_EVENTS: Deque[dict] = collections.deque(maxlen=256)
+
+
+def record_watchdog_event(descriptor: str, phase: str, waited_s: float) -> None:
+    """Called by CommRequest._watchdog_trip just before it raises
+    MLSLTimeoutError."""
+    evt = {
+        "descriptor": descriptor,
+        "phase": phase,
+        "waited_s": waited_s,
+        "at": time.time(),
+    }
+    WATCHDOG_EVENTS.append(evt)
+    log_warning(
+        "watchdog: request stuck in %s for %.2fs: %s", phase, waited_s, descriptor
+    )
+    if obs._tracer is not None:
+        # flight recorder: dump the trailing window of spans around the stall
+        # (the stuck epoch plus margin) so the timeout report carries the
+        # timeline that led to it — the stuck request's own watchdog.trip
+        # instant is already in the ring (CommRequest._watchdog_trip)
+        from mlsl_tpu_torch.obs import export as obs_export
+
+        path = obs_export.flight_record(
+            window_s=max(2 * waited_s, 30.0),
+            reason=f"watchdog {phase}: {descriptor}",
+        )
+        if path:
+            evt["flight_record"] = path
+            log_warning("watchdog flight record written: %s", path)
+    prof = _profile_on_trip(descriptor)
+    if prof:
+        evt["device_profile"] = prof
+    try:
+        with open(stats_path(), "a") as f:
+            f.write(
+                f"{'WATCHDOG':<16} {phase:<8} waited {waited_s:>10.2f} s  "
+                f"{descriptor}\n"
+            )
+    except OSError:
+        pass
+
+
+#: how long the on-trip device profile samples the wedged state (seconds):
+#: long enough for the profiler to catch the in-flight executable / idle
+#: devices, short enough that the trip still raises promptly
+PROFILE_ON_TRIP_WINDOW_S = 0.25
+
+
+#: the live Environment's Config (:func:`configure`)
+_config = None
+
+
+def configure(config=None) -> None:
+    """Read ``profile_on_trip`` from ``config`` (``Environment.init`` hands
+    over its own, ``finalize`` takes it back with ``None``) or from
+    MLSL_PROFILE_ON_TRIP."""
+    global _config
+    _config = config
+
+
+def _profile_on_trip(reason: str) -> Optional[str]:
+    """``MLSL_PROFILE_ON_TRIP=1``: capture a short ``torch.profiler`` trace
+    of the wedged state (the card's activity where CUDA is up, else the
+    CPU's), exported as a Chrome trace next to the flight record -- the host
+    timeline says WHERE the wait stuck, the device profile what the card was
+    doing under it. Best-effort by contract: a profiler failure (already
+    active, no CUPTI) must never replace the MLSLTimeoutError the watchdog
+    exists to raise."""
+    v = (os.environ.get("MLSL_PROFILE_ON_TRIP") or "").strip().lower()
+    armed = _config is not None and _config.profile_on_trip
+    if not armed and v in ("", "0", "false", "no", "off"):
+        return None
+    out_dir = os.path.join(
+        obs.trace_dir(), f"profile-trip-{time.time_ns() // 1_000_000}"
+    )
+    try:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(out_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            time.sleep(PROFILE_ON_TRIP_WINDOW_S)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    except Exception as e:  # profiler busy/unsupported: keep the trip primary
+        log_warning(
+            "MLSL_PROFILE_ON_TRIP capture failed (%s: %s); continuing with "
+            "the host flight record only (%s)", type(e).__name__, e, reason,
+        )
+        return None
+    log_warning("watchdog device profile written: %s", out_dir)
+    return out_dir
+
+
+# Degradation-ladder accounting (supervisor.py): breaker transitions,
+# degraded dispatches, comm retries, and supervised recoveries — process-wide
+# like the watchdog record (breakers fire from the request layer with no
+# Session handle). Breaker transitions append a DEGRADE line to
+# STATS_OUTPUT_FILE immediately (cold path — trips are rare by construction);
+# per-dispatch fallbacks and retries only bump counters + the obs timeline
+# (an OPEN breaker degrades every dispatch, and a file append per layer per
+# step would be the new bottleneck). Statistics.print_ renders the counter
+# totals as the DEGRADE summary line.
+DEGRADE_EVENTS: Deque[dict] = collections.deque(maxlen=256)
+DEGRADE_COUNTERS: Dict[str, int] = {
+    "breaker_trips": 0,     # closed/half_open -> open transitions
+    "breaker_probes": 0,    # open -> half_open probe admissions
+    "breaker_resets": 0,    # half_open -> closed (healthy path re-engaged)
+    "comm_retries": 0,      # rung-2 transient retries (dispatch + wait)
+    "recoveries": 0,        # rung-4 supervised checkpoint restarts
+}
+#: degraded dispatches per subsystem (quant->plain, bucket->individual,
+#: algo->lax, tracer->no-op)
+DEGRADE_FALLBACKS: Dict[str, int] = {}
+
+
+def record_degrade(subsystem: str, event: str, detail: str = "") -> None:
+    """One ladder event: ``event`` is a breaker transition ('trip' /
+    'probe' / 'reset'), a degraded dispatch ('fallback'), or a supervised
+    restart ('recover'). Called by supervisor.CircuitBreaker and the
+    degraded call sites."""
+    if event == "trip":
+        DEGRADE_COUNTERS["breaker_trips"] += 1
+    elif event == "probe":
+        DEGRADE_COUNTERS["breaker_probes"] += 1
+    elif event == "reset":
+        DEGRADE_COUNTERS["breaker_resets"] += 1
+    elif event == "recover":
+        DEGRADE_COUNTERS["recoveries"] += 1
+    elif event == "codec_demote":
+        # guardrail demotion (mlsl_tpu.codecs): counted in its own family
+        # (CODEC_COUNTERS, via record_codec_demotion) — here it only joins
+        # the event deque + DEGRADE file line, not the fallback counter
+        pass
+    else:  # fallback: one dispatch served by the degraded path
+        DEGRADE_FALLBACKS[subsystem] = DEGRADE_FALLBACKS.get(subsystem, 0) + 1
+    DEGRADE_EVENTS.append(
+        {"subsystem": subsystem, "event": event, "detail": detail,
+         "at": time.time()}
+    )
+    if obs._tracer is not None:
+        # trip/reset instants bracket the degraded interval on the timeline;
+        # fallback instants attribute each degraded dispatch
+        name = f"breaker.{event}" if event != "fallback" else "degrade.fallback"
+        obs._tracer.instant(name, "degrade", subsystem=subsystem,
+                            detail=detail or None)
+    if event in ("trip", "probe", "reset", "recover", "codec_demote"):
+        try:
+            with open(stats_path(), "a") as f:
+                f.write(
+                    f"{'DEGRADE':<16} {event.upper():<8} {subsystem:<10} "
+                    f"{detail}\n"
+                )
+        except OSError:
+            pass
+
+
+# Static-analysis accounting (analysis/): verifier/linter runs and
+# their finding counts. Process-wide like the other event families (the
+# verifier fires from Session.commit, which may run for several sessions in
+# one process); each run also appends an immediate ANALYSIS line below.
+ANALYSIS_COUNTERS: Dict[str, int] = {
+    "runs": 0,       # verify/lint passes completed
+    "errors": 0,     # error-severity findings across all runs
+    "warnings": 0,   # warn-severity findings across all runs
+}
+
+
+def record_analysis(kind: str, errors: int, warnings: int,
+                    codes: List[str], duration_s: float = 0.0) -> None:
+    """One finished static-analysis pass (called by analysis.diagnostics
+    .record): counters plus an immediate ANALYSIS line in the stats log —
+    the verifier's verdict belongs next to the DEGRADE/WATCHDOG history it
+    exists to prevent."""
+    ANALYSIS_COUNTERS["runs"] += 1
+    ANALYSIS_COUNTERS["errors"] += int(errors)
+    ANALYSIS_COUNTERS["warnings"] += int(warnings)
+    verdict = "FAIL" if errors else "PASS"
+    try:
+        with open(stats_path(), "a") as f:
+            f.write(
+                f"{'ANALYSIS':<16} {kind:<8} {verdict:<5} "
+                f"errors={errors} warnings={warnings} "
+                f"dt={duration_s * 1e3:.2f}ms"
+                + (f"  codes={','.join(codes)}" if codes else "") + "\n"
+            )
+    except OSError:
+        pass
+
+
+def reset_analysis_counters() -> None:
+    for k in ANALYSIS_COUNTERS:
+        ANALYSIS_COUNTERS[k] = 0
+
+
+# Straggler-sentinel accounting (obs/straggler.py): cross-replica
+# skew audits, confirmed-straggler flags, and elastic sheds — process-wide
+# like the degrade counters (the sentinel is fed from the trainer with no
+# Session handle). Flags and sheds are cold (a confirmed straggler is rarer
+# than a breaker trip) and append an immediate STRAGGLER line, the DEGRADE
+# transition contract; per-audit bookkeeping only bumps the counter.
+STRAGGLER_COUNTERS: Dict[str, int] = {
+    "audits": 0,          # cross-replica comparisons run
+    "flags": 0,           # confirmed stragglers (sustained skew) flagged
+    "sheds": 0,           # flagged replicas handed to the elastic coordinator
+    "shed_fallbacks": 0,  # shed handoffs the coordinator refused/failed
+}
+
+
+def record_straggler(event: str, detail: str = "") -> None:
+    """One straggler-sentinel event (see STRAGGLER_COUNTERS keys)."""
+    STRAGGLER_COUNTERS[event] += 1
+    if event != "audits":  # audits are the per-interval heartbeat, not news
+        try:
+            with open(stats_path(), "a") as f:
+                f.write(f"{'STRAGGLER':<16} {event.upper():<8} {detail}\n")
+        except OSError:
+            pass
+
+
+def reset_straggler_counters() -> None:
+    for k in STRAGGLER_COUNTERS:
+        STRAGGLER_COUNTERS[k] = 0
+
+
+# Runtime lock-witness accounting (analysis/witness.py,
+# MLSL_LOCK_WITNESS=1): the dynamic half of the A21x concurrency suite.
+# Acquisitions are the hot path (every witnessed critical section) and only
+# bump the counter; edges/cycles/over-budget holds are cold findings and
+# append an immediate LOCKWITNESS line — a witnessed order cycle must be
+# readable from mlsl_stats.log next to the CONTROL story it would deadlock.
+LOCKWITNESS_COUNTERS: Dict[str, int] = {
+    "acquisitions": 0,       # witnessed acquisitions (hot: counter only)
+    "edges_observed": 0,     # distinct acquisition-order edges seen
+    "cycles_detected": 0,    # runtime lock-order cycles (potential deadlock)
+    "over_budget_holds": 0,  # holds past MLSL_LOCK_WITNESS_BUDGET_MS
+}
+
+_LOCKWITNESS_HOT = ("acquisitions",)
+
+
+def record_lock_witness(event: str, detail: str = "") -> None:
+    """One lock-witness event (see LOCKWITNESS_COUNTERS keys)."""
+    LOCKWITNESS_COUNTERS[event] += 1
+    if event not in _LOCKWITNESS_HOT:
+        try:
+            with open(stats_path(), "a") as f:
+                f.write(f"{'LOCKWITNESS':<16} {event.upper():<16} {detail}\n")
+        except OSError:
+            pass
+
+
+def reset_lock_witness_counters() -> None:
+    for k in LOCKWITNESS_COUNTERS:
+        LOCKWITNESS_COUNTERS[k] = 0
+
+
+def record_comm_retry(phase: str, request: str, error: BaseException,
+                      attempt: int, delay_s: float) -> None:
+    """One rung-2 retry of a transient dispatch/wait failure (called by
+    CommRequest before it backs off)."""
+    DEGRADE_COUNTERS["comm_retries"] += 1
+    if obs._tracer is not None:
+        obs._tracer.instant(f"{phase}.retry", "degrade", request=request,
+                            attempt=attempt, delay_s=round(delay_s, 4),
+                            error=repr(error))
+
+
+def reset_degrade_counters() -> None:
+    for k in DEGRADE_COUNTERS:
+        DEGRADE_COUNTERS[k] = 0
+    DEGRADE_FALLBACKS.clear()
+    DEGRADE_EVENTS.clear()
 
 
 # Device-feed accounting (data/): process-wide, as in the JAX package -- the
@@ -587,6 +881,42 @@ class Statistics:
                 f"sheds {int(vc['shed_batch'])}b/{int(vc['shed_precision'])}p/"
                 f"{int(vc['shed_admission'])}a "
                 f"recoveries {int(vc['recoveries'])}"
+            )
+        gc = STRAGGLER_COUNTERS
+        if any(gc.values()):
+            lines.append(
+                f"{'STRAGGLER':<16} {'SKEW':<8} "
+                f"audits {gc['audits']} flags {gc['flags']} "
+                f"sheds {gc['sheds']} "
+                f"shed_fallbacks {gc['shed_fallbacks']}"
+            )
+        dc = DEGRADE_COUNTERS
+        if any(dc.values()) or DEGRADE_FALLBACKS:
+            # the ladder summary: every trip, probe, reset, retry and degraded
+            # dispatch of this run, and the breakers that left CLOSED
+            from mlsl_tpu_torch import supervisor  # lazy: supervisor imports stats
+
+            states = " ".join(
+                f"{name}:{st['state']}"
+                for name, st in supervisor.status().items()
+                if "state" in st
+                and (st["state"] == "tripped" if name == "sentinel"
+                     else st["state"] == "shrunk" if name == "elastic"
+                     else st["state"] == "flagged" if name == "straggler"
+                     else bool(st.get("dead")) or st.get("evicted")
+                     if name == "control"
+                     else st["state"] not in ("off", "healthy")
+                     if name == "serve"
+                     else st.get("trips") or st["state"] != supervisor.CLOSED)
+            )
+            fb = " ".join(f"{name}={n}" for name, n in sorted(DEGRADE_FALLBACKS.items()))
+            lines.append(
+                f"{'DEGRADE':<16} {'LADDER':<8} retries {dc['comm_retries']} "
+                f"trips {dc['breaker_trips']} probes {dc['breaker_probes']} "
+                f"resets {dc['breaker_resets']} "
+                f"recoveries {dc['recoveries']}"
+                + (f" fallbacks {fb}" if fb else "")
+                + (f" breakers {states}" if states else "")
             )
         text = "\n".join(lines) + "\n"
         try:

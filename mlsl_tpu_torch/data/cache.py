@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from mlsl_tpu_torch.obs import tracer as obs_trace
+
 
 class AdmissionBudget:
     """Admit-or-reject accounting against a fixed byte budget, with release
@@ -70,6 +72,9 @@ class FeedCache(AdmissionBudget):
             return None
         self.hits += 1
         stats.record_feed_cache("hit")
+        tr = obs_trace._tracer
+        if tr is not None:
+            tr.instant("feed.cache_hit", "feed", batch=key)
         return item
 
     def put(self, key: int, wire_batch) -> bool:

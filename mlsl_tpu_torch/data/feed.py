@@ -24,9 +24,14 @@ Source forms:
   cache and raise MLSLError if it does not hold the whole dataset.
 
 ``shuffle_seed`` needs a sequence source: a stream cannot replay out of order.
-The JAX package's ``data.prefetch`` chaos site and its checkpoint-level
-finiteness check of decoded batches are not ported yet; ``_checked_decode``
-is where the check goes.
+
+The ``data.prefetch`` chaos site fires at every host read, before the source
+is touched (feed.py:122-150 of the JAX package): ``error`` / ``delay`` /
+``hang`` act there, and a TRANSIENT error retries as a failed read does. The
+``bitrot`` kind, which rots the wire payload through the codec and the cache,
+and the checkpoint-level finiteness check of decoded batches wait for
+ROADMAP A.7b (``_checked_decode`` is where the check goes); a ``bitrot`` plan
+stays armed here.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from mlsl_tpu_torch import chaos
 from mlsl_tpu_torch.data.cache import FeedCache
 from mlsl_tpu_torch.data.common import env_default as _env_default, retry_or_raise
 from mlsl_tpu_torch.data.wire import FeedCodec
@@ -52,6 +58,9 @@ class DeviceFeed:
     normalize / train_dtype / augment / quant_block / device pass through to
     :class:`FeedCodec`.
     """
+
+    #: an AsyncLoader over this feed leaves the site to the feed's own reads
+    _chaos_site = "data.prefetch"
 
     def __init__(self, source, topology, *,
                  wire: Optional[str] = None,
@@ -104,12 +113,21 @@ class DeviceFeed:
 
     def _read_host(self, index: Optional[int], it):
         """One host batch (a sequence index, or an iterator step) with the
-        TRANSIENT-retry loop. Only a sequence read is attempted again: an
+        chaos site and the TRANSIENT-retry loop. A fault at the site fires
+        before the source is touched, so it retries for either source. Only
+        a sequence read is attempted again after the source failed: an
         iterator whose frame raised is dead (next() would give StopIteration,
         which ``_drive`` would read as a truncated epoch), so its failure
         propagates at once with the original exception."""
         attempt = 0
         while True:
+            if chaos._plans:
+                try:
+                    chaos.inject("data.prefetch", kinds=("error", "delay", "hang"),
+                                 batch=index)
+                except BaseException as e:
+                    attempt = retry_or_raise(e, attempt, self.retries, 0.05)
+                    continue
             try:
                 return self._seq[index] if it is None else next(it)
             except StopIteration:

@@ -20,8 +20,12 @@ training loop's launches.
 Failure contract: a worker that dies surfaces its ORIGINAL exception on the
 consumer's next ``__next__`` (never a hang on an empty queue). TRANSIENT
 source errors (``supervisor.classify``) retry in place with exponential
-backoff under ``MLSL_FEED_RETRIES`` first. The JAX package's ``data.prefetch``
-chaos site is not ported yet.
+backoff under ``MLSL_FEED_RETRIES`` first.
+
+The ``data.prefetch`` chaos site fires at every read of a plain source,
+before it is touched (loader.py:113-135 of the JAX package); over a
+:class:`DeviceFeed` it does not, since the feed's own reads pass it (no
+double fire, ``_chaos_site``). ``bitrot`` plans stay armed, as in the feed.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import threading
 import time
 from typing import Callable, Iterator, Optional
 
+from mlsl_tpu_torch import chaos
 from mlsl_tpu_torch.data.common import env_int as _env_int, retry_or_raise
 from mlsl_tpu_torch.log import log_warning, mlsl_assert
 
@@ -52,6 +57,9 @@ class AsyncLoader:
                  retry_backoff_s: float = 0.05):
         self._finalize = getattr(source, "_consumer_decode", None)
         feed = self._finalize is not None and hasattr(source, "_prefetch_iter")
+        # a DeviceFeed passes the site at its own reads: read the hint before
+        # the source is swapped for its wire stream
+        self._inject = getattr(source, "_chaos_site", None) != "data.prefetch"
         self._depth = max(1, depth if depth is not None
                           else _env_int("MLSL_FEED_DEPTH", 2))
         if feed:
@@ -98,6 +106,14 @@ class AsyncLoader:
         propagates at once with the original exception."""
         attempt = 0
         while True:
+            if self._inject and chaos._plans:
+                try:
+                    chaos.inject("data.prefetch", kinds=("error", "delay", "hang"),
+                                 batch=self._batches)
+                except BaseException as e:
+                    attempt = retry_or_raise(e, attempt, self._retries,
+                                             self._retry_backoff_s, self._stop.is_set)
+                    continue
             try:
                 return self._next_host_batch()
             except StopIteration:

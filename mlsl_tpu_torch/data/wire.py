@@ -36,6 +36,11 @@ CPU each batch gets fresh tensors. The decoded leaves are (R, D, S, M, localB,
 shard_batch`` gives them.
 
 Non-float leaves (labels) always ride unchanged.
+
+With the tracer armed, a staged batch is an ``h2d.transfer`` span and a
+decode a ``feed.decode`` span (wire.py:234-360 of the JAX package): host time
+of the encode and the copy's enqueue, and of the decode's launches; neither
+waits for the card.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 from mlsl_tpu_torch.core import graph_capture
 from mlsl_tpu_torch.data.common import WIRE_KINDS, parse_wire_spec  # noqa: F401
 from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.obs import tracer as obs_trace
 from mlsl_tpu_torch.ops import quant_kernels
 
 #: the int8 payload of a shard is padded to ``block * ROW_TILE`` elements, the
@@ -302,6 +308,7 @@ class FeedCodec:
         (the copy itself is made once for the S x M ranks of a shard).
         ``corrupt`` flips the first 64 payload bytes (a bad host read must flow
         through decode and the cache, not crash them)."""
+        t0 = obs_trace.Tracer.now() if obs_trace._tracer is not None else 0
         leaves, treedef = _flatten(host_batch)
         if self._layout is None:
             self._treedef = treedef
@@ -355,6 +362,10 @@ class FeedCodec:
         from mlsl_tpu_torch.core import stats
 
         stats.record_feed_stage(wire_bytes, full_bytes)
+        tr = obs_trace._tracer
+        if tr is not None:
+            tr.complete("h2d.transfer", "feed", t0, batch=self._batches,
+                        wire_bytes=wire_bytes, saved=full_bytes - wire_bytes)
         return wire, wire_bytes, full_bytes
 
     def _host_tensor(self, parts) -> torch.Tensor:
@@ -436,6 +447,8 @@ class FeedCodec:
         work is done); a cached batch decodes with ``donate=False`` and
         survives any number of decodes."""
         mlsl_assert(self._layout is not None, "decode before any staged batch")
+        tr = obs_trace._tracer
+        t0 = tr.now() if tr is not None else 0
         wires = wire_batch.leaves
         mlsl_assert(wires is not None, "decode of a donated wire batch")
         if donate:
@@ -480,4 +493,6 @@ class FeedCodec:
         batch = _unflatten(self._treedef, out)
         if self.augment is not None:
             batch = self.augment(batch)
+        if tr is not None:
+            tr.complete("feed.decode", "feed", t0, donated=donate)
         return batch

@@ -51,6 +51,13 @@ class MLSLDeviceLossError(MLSLError):
         self.devices = tuple(devices)
 
 
+class MLSLKernelError(MLSLError):
+    """A hand-written CUDA kernel could not be built, loaded or launched, or its
+    wrapper was handed a device it has no kernel for. The recovery ladder never
+    retries or degrades past it (FATAL): a wrapper on the card launches its
+    kernel or raises, and never gives way to the plain version."""
+
+
 class MLSLIntegrityError(MLSLCorruptionError):
     """Training-state integrity failure (diverged replicas, a failed audit)."""
 

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import MLSLKernelError, mlsl_assert
 from mlsl_tpu_torch.ops import quant_kernels as qk
 from mlsl_tpu_torch.ops import ring_kernels as rk
 
@@ -212,7 +212,7 @@ def alltoall(x: torch.Tensor, p: A2APlan) -> torch.Tensor:
     if x.device.type == "cpu":
         return alltoall_ref(x, p)
     if x.device.type != "cuda":
-        raise MLSLError(f"alltoall: unsupported device {x.device}")
+        raise MLSLKernelError(f"alltoall: unsupported device {x.device}")
     rows = p.table(x.device)
     c = rows.shape[0]
     mlsl_assert(c * g == x.shape[0], "member table covers %d ranks, buffer has %d", c * g,
@@ -233,7 +233,7 @@ def alltoall(x: torch.Tensor, p: A2APlan) -> torch.Tensor:
             p.rc, p.rc, p.rc, stream)
         name = "a2a_dense"
     if rc != 0:
-        raise MLSLError(f"{name} kernel launch failed: cudaError {rc}")
+        raise MLSLKernelError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
     return out
 

@@ -77,7 +77,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import MLSLKernelError, mlsl_assert
 from mlsl_tpu_torch.ops import cpu_exp
 
 NEG = -1e30
@@ -193,7 +193,7 @@ def _cuda_ready(what: str, *tensors, form: Optional[str] = None) -> Tuple[int, s
     kernels take); raises for what the kernels do not take."""
     dev = tensors[0].device
     if dev.type != "cuda":
-        raise MLSLError(f"{what}: unsupported device {dev}")
+        raise MLSLKernelError(f"{what}: unsupported device {dev}")
     mlsl_assert(all(t.device == dev for t in tensors), "%s: tensors on several devices", what)
     return (1 if tensors[0].dtype == torch.bfloat16 else 0), pick_form(what, tensors[0], form)
 
@@ -404,7 +404,7 @@ def _launch(name: str, fn, ptrs, bh, sq, sk, d, causal, code, device) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*ptrs, bh, sq, sk, d, scale_of(d), int(bool(causal)), code, stream)
     if rc != 0:
-        raise MLSLError(f"{name} kernel launch failed: cudaError {rc}")
+        raise MLSLKernelError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
     for sink in _FLOP_SINKS:
         sink[name] = sink.get(name, 0) + _launch_flops(name, bh, sq, sk, d, causal)

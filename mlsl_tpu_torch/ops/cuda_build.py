@@ -25,7 +25,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-from mlsl_tpu_torch.log import MLSLError
+from mlsl_tpu_torch.log import MLSLKernelError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {
@@ -61,7 +61,7 @@ def nvcc_path() -> str:
 
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise MLSLError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    raise MLSLKernelError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
 
 
 def _with_headers(path: Path, seen: list) -> list:
@@ -87,7 +87,7 @@ def lib_path(name: str) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library, one nvcc per source, all started
     together. -> {name: seconds its build took (0.0 when already built)}.
-    Raises MLSLError with the compiler's output when a build fails."""
+    Raises MLSLKernelError with the compiler's output when a build fails."""
     names = list(SOURCES) if names is None else list(names)
     build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -115,7 +115,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         os.replace(tmp, out)
     if failed:
-        raise MLSLError("CUDA kernel build failed: " + "\n".join(failed))
+        raise MLSLKernelError("CUDA kernel build failed: " + "\n".join(failed))
     return took
 
 
@@ -125,6 +125,9 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if not lib_path(name).exists():
             build_all([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
+        try:
+            lib = ctypes.CDLL(str(lib_path(name)))
+        except OSError as e:
+            raise MLSLKernelError(f"CUDA kernel library {name} cannot be loaded: {e}") from e
         _loaded[name] = lib
     return lib

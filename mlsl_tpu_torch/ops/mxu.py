@@ -45,7 +45,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from mlsl_tpu_torch.log import MLSLError
+from mlsl_tpu_torch.log import MLSLError, MLSLKernelError
 
 # calls of the tensor-core route (both operands bf16 on the card), forward
 # and backward products each; a count of library calls, not of a kernel
@@ -64,7 +64,7 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor, plain: bool) -> torch.Tensor:
     if a.device.type == "cuda" and not plain:
         return torch.bmm(a, b, out_dtype=torch.float32)
     if a.device.type not in ("cpu", "cuda"):
-        raise MLSLError(f"mxu_einsum: unsupported device {a.device}")
+        raise MLSLKernelError(f"mxu_einsum: unsupported device {a.device}")
     return torch.bmm(a.float(), b.float())
 
 

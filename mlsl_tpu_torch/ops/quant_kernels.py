@@ -45,7 +45,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import MLSLKernelError, mlsl_assert
 
 # launches per kernel wrapper; only the CUDA launch site increments
 LAUNCHES = {"quantize_blocks": 0, "dequantize_blocks": 0}
@@ -97,7 +97,7 @@ def _kernels() -> ctypes.CDLL:
 
 def _check_launch(rc: int, what: str) -> None:
     if rc != 0:
-        raise MLSLError(f"{what} kernel launch failed: cudaError {rc}")
+        raise MLSLKernelError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 CTA_THREADS = 256   # threads a CTA at most, on both paths
@@ -155,7 +155,7 @@ def quantize_blocks(x2d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x2d.device.type == "cpu":
         return quantize_blocks_ref(x2d)
     if x2d.device.type != "cuda":
-        raise MLSLError(f"quantize_blocks: unsupported device {x2d.device}")
+        raise MLSLKernelError(f"quantize_blocks: unsupported device {x2d.device}")
     n, block = x2d.shape
     mlsl_assert(block % 32 == 0, "CUDA quantize needs block %% 32 == 0 (got %d)", block)
     q = torch.empty((n, block), dtype=torch.int8, device=x2d.device)
@@ -177,7 +177,7 @@ def dequantize_blocks(q2d: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     if q2d.device.type == "cpu":
         return dequantize_blocks_ref(q2d, scales)
     if q2d.device.type != "cuda":
-        raise MLSLError(f"dequantize_blocks: unsupported device {q2d.device}")
+        raise MLSLKernelError(f"dequantize_blocks: unsupported device {q2d.device}")
     n, block = q2d.shape
     mlsl_assert(block % 32 == 0, "CUDA dequantize needs block %% 32 == 0 (got %d)", block)
     x = torch.empty((n, block), dtype=torch.float32, device=q2d.device)

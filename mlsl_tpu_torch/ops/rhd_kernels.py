@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import MLSLKernelError, mlsl_assert
 from mlsl_tpu_torch.ops.ring_kernels import MAX_GROUP
 from mlsl_tpu_torch.types import ReductionType
 
@@ -153,7 +153,7 @@ def rhd_allreduce(x: torch.Tensor, plan: RhdPlan) -> torch.Tensor:
     if x.device.type == "cpu":
         return rhd_allreduce_ref(x, plan)
     if x.device.type != "cuda":
-        raise MLSLError(f"rhd_allreduce: unsupported device {x.device}")
+        raise MLSLKernelError(f"rhd_allreduce: unsupported device {x.device}")
     if x.dtype != torch.float32:
         x = x.to(torch.float32)
     rows = plan.table(x.device)
@@ -165,6 +165,6 @@ def rhd_allreduce(x: torch.Tensor, plan: RhdPlan) -> torch.Tensor:
     rc = _kernels().mlsl_rhd_allreduce(x.data_ptr(), out.data_ptr(), rows.data_ptr(), cinst,
                                        g, x.stride(0), x.shape[1], stream)
     if rc != 0:
-        raise MLSLError(f"rhd allreduce kernel launch failed: cudaError {rc}")
+        raise MLSLKernelError(f"rhd allreduce kernel launch failed: cudaError {rc}")
     LAUNCHES["rhd_allreduce"] += 1
     return out

@@ -66,7 +66,7 @@ import numpy as np
 import torch
 
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import MLSLKernelError, mlsl_assert
 from mlsl_tpu_torch.ops import quant_kernels as qk
 from mlsl_tpu_torch.types import ReductionType
 
@@ -434,7 +434,7 @@ def _kernels() -> ctypes.CDLL:
 
 def _check_launch(rc: int, what: str) -> None:
     if rc != 0:
-        raise MLSLError(f"{what} kernel launch failed: cudaError {rc}")
+        raise MLSLKernelError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 def _check_rows(x: torch.Tensor, width: int, what: str) -> None:
@@ -453,7 +453,7 @@ def dense_ring(x: torch.Tensor, plan: RingPlan) -> torch.Tensor:
     if x.device.type == "cpu":
         return dense_ring_ref(x, plan)
     if x.device.type != "cuda":
-        raise MLSLError(f"dense_ring: unsupported device {x.device}")
+        raise MLSLKernelError(f"dense_ring: unsupported device {x.device}")
     ring, chunk_of = plan.tables(x.device)
     c, g = ring.shape
     mlsl_assert(c * g == x.shape[0], "ring table covers %d ranks, buffer has %d", c * g,
@@ -490,7 +490,7 @@ def quant_ring(xhat: torch.Tensor, plan: RingPlan) -> torch.Tensor:
     if xhat.device.type == "cpu":
         return quant_ring_ref(xhat, plan)
     if xhat.device.type != "cuda":
-        raise MLSLError(f"quant_ring: unsupported device {xhat.device}")
+        raise MLSLKernelError(f"quant_ring: unsupported device {xhat.device}")
     block = plan.cols
     mlsl_assert(block % 128 == 0 and block <= MAX_QUANT_BLOCK,
                 "the CUDA int8 ring takes blocks that are multiples of 128 up to %d (got %d)",

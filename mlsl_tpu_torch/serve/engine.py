@@ -31,14 +31,24 @@ Scheduling runs on the caller's thread (``step()`` / ``run()``): ``submit()``
 is the only entry for other threads and only touches the queue under a lock,
 never the card.
 
-Fault story: an admission fault fails the one request closed; a decode
-fault goes through ``supervisor.classify`` -- TRANSIENT retries with jittered
-backoff (``MLSL_COMM_RETRIES``), FATAL propagates, anything else
-force-sheds the SLA ladder and skips the step; after ``_DECODE_FAIL_CAP``
-failed steps in a row the batch in flight fails closed and the engine keeps
-admitting. The JAX package's chaos sites, tracer spans and metric families
-around these paths wait for the port's robustness and obs layers (ROADMAP
-A.7).
+Fault story (chaos sites ``serve.admit`` and ``serve.decode``): an
+admission fault fails the one request closed; a decode fault goes through
+``supervisor.classify`` -- TRANSIENT retries in place with jittered backoff
+(``MLSL_COMM_RETRIES``), FATAL propagates, anything else force-sheds the SLA
+ladder and skips the step; after ``_DECODE_FAIL_CAP`` failed steps in a row
+the batch in flight fails closed and the engine keeps admitting. A chaos
+``hang`` at ``serve.decode`` is no exception at all: the step takes its
+time, breaches the TPOT window and the governor sheds. The decode site sits
+on the host before the graph's replay, so it fires every step.
+
+Telemetry (engine.py:300-590 of the JAX package): with the tracer armed,
+``serve.prefill`` and ``serve.decode`` spans of host time (the decode span
+ends once the logits are on the host) and the ``kv.evict`` instant; with the
+metrics registry armed, the ``mlsl_serve_*`` families (requests, rejections,
+TTFT, TPOT, queue depth, slots in flight, free KV pages, batch limit,
+tokens/s); ``supervisor.status()["serve"]`` is the ladder's state. ``step()``
+reads the straggler sentinel: a shed candidate counts as a straggler signal
+for the ladder. The engine's lock is ``witness.named_lock("serve.engine")``.
 """
 
 from __future__ import annotations
@@ -52,11 +62,14 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from mlsl_tpu_torch import supervisor
+from mlsl_tpu_torch import chaos, supervisor
+from mlsl_tpu_torch.analysis import witness
 from mlsl_tpu_torch.core import graph_capture, stats
 from mlsl_tpu_torch.log import mlsl_assert
 from mlsl_tpu_torch.models import transformer as tfm
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax
+from mlsl_tpu_torch.obs import metrics, tracer as obs_trace
+from mlsl_tpu_torch.obs import straggler as obs_straggler
 from mlsl_tpu_torch.serve import kv_cache as kvc, sla
 
 #: consecutive failed decode steps before the batch in flight is failed
@@ -170,13 +183,15 @@ class InferenceEngine:
         # the decode step's captured graphs, one a compute dtype (card only)
         self._decode_cache: Dict[str, graph_capture.Captured] = {}
 
-        self._lock = threading.Lock()
+        self._lock = witness.named_lock("serve.engine")
         self._pending: Deque[Request] = collections.deque()
         self._active: Dict[int, _Seq] = {}
         self._next_req_id = 0
         self._next_seq_id = 0
         self._admit_counter = 0
         self._decode_fails = 0
+        self._t_start: Optional[float] = None
+        self._tokens_total = 0
 
     # -- the programs ------------------------------------------------------
 
@@ -264,6 +279,9 @@ class InferenceEngine:
                 reason = "queue_full"
             if reason is not None:
                 stats.record_serve("rejected")
+                m = metrics._registry
+                if m is not None:
+                    m.inc("mlsl_serve_rejected_total", 1.0, route=route, reason=reason)
                 raise sla.ServeOverloadError(
                     f"admission rejected ({reason}); retry after "
                     f"{self.governor.retry_after_s}s",
@@ -283,15 +301,20 @@ class InferenceEngine:
         """One scheduler iteration: observe and tick the SLA ladder, admit up
         to the rung's batch limit, advance every sequence in flight one
         token, retire the finished. -> the sequences in flight after it."""
+        if self._t_start is None:
+            self._t_start = time.monotonic()
+        sentinel = obs_straggler.get_active()
+        straggler = sentinel is not None and sentinel.shed_candidate() is not None
         with self._lock:
             qlen = len(self._pending)
-        self.governor.observe(queue_len=qlen)
+        self.governor.observe(queue_len=qlen, straggler=straggler)
         self.governor.tick()
 
         self._admit()
         if self._active:
             self._decode_step()
         self._retire()
+        self._gauges()
         return len(self._active)
 
     def run(self, deadline_s: Optional[float] = None, until_idle: bool = True,
@@ -331,6 +354,7 @@ class InferenceEngine:
             self._next_seq_id += 1
             admitted_kv = False
             try:
+                chaos.inject("serve.admit", req_id=req.id)
                 prefix = req._resume if req._resume is not None else req.prompt
                 if not self.cache.admit(seq_id, prefix.size + 1):
                     # pool backpressure: leave it queued, stop admitting
@@ -347,21 +371,32 @@ class InferenceEngine:
                 req.error = e
                 req._done.set()
                 stats.record_serve("failed")
+                m = metrics._registry
+                if m is not None:
+                    m.inc("mlsl_serve_requests_total", 1.0, route=req.route, outcome="failed")
 
     def _prefill_seq(self, req: Request, seq_id: int, prefix: np.ndarray) -> None:
         n = int(prefix.size)
         tokens = np.zeros((self.ctx_len,), np.int64)
         tokens[:n] = prefix
+        tr = obs_trace._tracer
+        t0 = tr.now() if tr is not None else 0
         logits, k, v = self._prefill(torch.from_numpy(tokens).to(self.device), n)
         page_ids = torch.as_tensor(self.cache.table_padded(seq_id), dtype=torch.long,
                                    device=self.device)
         self._write(k, v, page_ids)
         del k, v
         tok = self._pick(logits[0, 0, 0, 0][None].cpu().numpy(), [req])[0]
+        if tr is not None:
+            tr.complete("serve.prefill", "serve", t0, seq=seq_id, tokens=n)
         stats.record_serve("prefills")
         stats.record_serve("tokens_out")
+        self._tokens_total += 1
         if req._resume is None:
             req.ttft_ms = (time.monotonic() - req.t_submit) * 1e3
+            m = metrics._registry
+            if m is not None:
+                m.observe("mlsl_serve_ttft_ms", req.ttft_ms, route=req.route)
         req._resume = None
         req.state = "active"
         req.tokens.append(tok)
@@ -421,9 +456,15 @@ class InferenceEngine:
         live, (tokens, positions, pt) = self._batch()
         dtype = "bfloat16" if self.governor.precision_shed else self.cfg.dtype
         attempt = 0
+        tr = obs_trace._tracer
         while True:
             t_step = time.monotonic()
+            t0 = tr.now() if tr is not None else 0
             try:
+                # on the host before the replay; a chaos 'hang' is a slow
+                # step, inside the timed window: it breaches the TPOT SLO
+                # and the governor sheds (degraded, never down)
+                chaos.inject("serve.decode", inflight=len(live))
                 logits = self._decode(dtype, tokens, positions, pt)
                 break
             except Exception as e:
@@ -438,12 +479,18 @@ class InferenceEngine:
                 self._decode_fault(e)
                 return
         step_ms = (time.monotonic() - t_step) * 1e3
+        if tr is not None:
+            tr.complete("serve.decode", "serve", t0, inflight=len(live))
         self._decode_fails = 0
         if attempt > 0:
             stats.record_serve("recoveries")
         self.governor.observe(tpot_ms=step_ms)
+        m = metrics._registry
+        if m is not None:
+            m.observe("mlsl_serve_tpot_ms", step_ms)
         stats.record_serve("decode_steps")
         stats.record_serve("tokens_out", len(live))
+        self._tokens_total += len(live)
         toks = self._pick(logits, [seq.req for seq in live])
         for seq, tok in zip(live, toks):
             seq.position += 1
@@ -473,12 +520,30 @@ class InferenceEngine:
         self._decode_fails = 0
 
     def _retire(self) -> None:
+        m = metrics._registry
         for seq in [s for s in self._active.values() if s.finished]:
             self._active.pop(seq.seq_id)
             self.cache.release(seq.seq_id)
             seq.req.state = "done"
             seq.req._done.set()
             stats.record_serve("completed")
+            if m is not None:
+                m.inc("mlsl_serve_requests_total", 1.0, route=seq.req.route, outcome="done")
+
+    def _gauges(self) -> None:
+        m = metrics._registry
+        if m is None:
+            return
+        with self._lock:
+            qlen = len(self._pending)
+        m.set("mlsl_serve_queue_depth", float(qlen))
+        m.set("mlsl_serve_inflight", float(len(self._active)))
+        m.set("mlsl_serve_kv_free_pages", float(self.cache.free_pages))
+        m.set("mlsl_serve_batch_limit", float(self.governor.batch_limit))
+        if self._t_start is not None:
+            dt = time.monotonic() - self._t_start
+            if dt > 0:
+                m.set("mlsl_serve_tokens_per_s", self._tokens_total / dt)
 
     def close(self) -> None:
         """Detach the SLA governor from the module registry (tests and

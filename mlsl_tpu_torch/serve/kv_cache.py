@@ -35,6 +35,7 @@ from typing import Dict, List
 
 from mlsl_tpu_torch.data.cache import AdmissionBudget
 from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.obs import tracer as obs_trace
 
 
 class PagedKVCache:
@@ -130,7 +131,8 @@ class PagedKVCache:
 
     def release(self, seq_id: int, evict: bool = False) -> None:
         """Return a sequence's pages to the free-list and the budget.
-        ``evict=True`` is the preemption path, counted apart."""
+        ``evict=True`` is the preemption path, counted apart and a
+        ``kv.evict`` instant on the tracer's timeline."""
         from mlsl_tpu_torch.core import stats
 
         table = self._tables.pop(seq_id)
@@ -139,6 +141,9 @@ class PagedKVCache:
         stats.record_serve("kv_pages_freed", len(table))
         if evict:
             stats.record_serve("kv_evictions")
+            tr = obs_trace._tracer
+            if tr is not None:
+                tr.instant("kv.evict", "serve", seq=seq_id, pages=len(table))
 
     def table_padded(self, seq_id: int) -> List[int]:
         """The fixed-width page table of the decode gather: the live pages,

@@ -26,9 +26,11 @@ Environment's virtual ranks on one device, and the programs are the port's:
 
 The world's shapes are the 1D ring over every rank and, where the world
 factors, the (W/2, 2) grid. ``MLSL_TUNE_SIZES`` (KiB, comma separated) and
-``MLSL_TUNE_ITERS`` override the sizes and the iterations. The JAX sweep
-times its programs beneath the chaos instrumentation (``_mlsl_inner``);
-chaos is not ported (ROADMAP A.7), so there is nothing to bypass here.
+``MLSL_TUNE_ITERS`` override the sizes and the iterations. The sweep times
+its programs beneath the chaos instrumentation (``_mlsl_inner``, the bypass
+a precompile warm takes; sweep.py:60-79 and :218 of the JAX package): an
+armed ``MLSL_CHAOS`` budget fires at the step it targets, and is not spent
+inside the sweep's measurement calls.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from mlsl_tpu_torch.comm import collectives
 from mlsl_tpu_torch.log import log_debug, log_info
 
 #: payload sizes swept by default (bytes)
@@ -68,7 +71,9 @@ def _sync() -> None:
 def _time_fn(fn, args, iters: int) -> float:
     """Best-of-``iters`` wall seconds of ``fn(*args)`` after ``WARMUP``
     calls, each call ended by a synchronize on the card (the minimum: the
-    least noisy estimate of a deterministic program's time)."""
+    least noisy estimate of a deterministic program's time). Times the
+    function beneath the chaos instrumentation."""
+    fn = collectives.unwrap_chaos(fn)
     for _ in range(WARMUP):
         fn(*args)
         _sync()
@@ -188,7 +193,8 @@ def run_sweep(world_size: int = 8, device=None, sizes: Optional[Sequence[int]] =
             # the chunk probe: four quarter-slice dispatches against one
             grp, topo = largest["group"], largest["topo"]
             elems = largest["bytes"] // 4
-            fn = algos.build("allreduce", grp, "lax", op=ReductionType.SUM)
+            fn = collectives.unwrap_chaos(algos.build("allreduce", grp, "lax",
+                                                      op=ReductionType.SUM))
             full = _zeros(topo, elems, device)
             single = _time_fn(fn, (full,), iters)
             q = elems // 4

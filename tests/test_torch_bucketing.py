@@ -400,7 +400,12 @@ def test_wait_error_reaches_every_member(tenv, monkeypatch):
     """A failed bucket collective raises at EVERY member's wait, once each
     (tests/test_bucketing.py:201-273); the next complete round supersedes
     the error; a member that retries alone falls back; a member that never
-    collected its error and restarts supersedes it."""
+    collected its error and restarts supersedes it. Three rounds fail here:
+    the bucket breaker's threshold is raised so that the test stays below
+    it (the rounds after a trip degrade, test_bucket_ladder_matches_jax)."""
+    from mlsl_tpu_torch import supervisor
+
+    supervisor.configure(threshold=100)
     dist = tenv.create_distribution(8, 1)
     tenv.config.grad_bucket_mb = 4
     s = tenv.create_session()
@@ -625,3 +630,113 @@ def test_bucketed_training_matches_unbucketed_and_jax(env, tenv, du):
             np.testing.assert_allclose(g, np.asarray(w), err_msg=layer, **TOL)
     assert tstats.BUCKET_COUNTERS["rounds_dispatched"] == 3 * (2 if du else 1)
     assert _counters(tstats) == _counters(jstats)
+
+
+# -- the degrade ladder (bucketing.py:235-310, 367-380 of the JAX package) -------------
+
+
+@pytest.fixture(autouse=True)
+def fault_plane():
+    """Before and after every test of this file: the port's fault plane as
+    a fresh process has it, and the JAX chaos registry clear. Its breakers
+    are process-wide (a breaker one test trips would degrade the next
+    test's rounds), and an Environment another file left live must not
+    hand its Config to this file's tests."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import supervisor
+
+    jchaos.clear()
+    supervisor.reset_all()
+    yield
+    supervisor.reset_all()
+    jchaos.clear()
+
+
+def _ladder_sets(e, op_t, n=64, layers=3):
+    e.config.grad_bucket_mb = 4
+    try:
+        dist = e.create_distribution(8, 1)
+        s = e.create_session()
+        s.set_global_minibatch_size(8)
+        pss = []
+        for _ in range(layers):
+            r = s.create_operation_reg_info(op_t.CC)
+            r.add_parameter_set(n, 1)
+            pss.append(s.get_operation(s.add_operation(r, dist)).get_parameter_set(0))
+        s.commit()
+    finally:
+        e.config.grad_bucket_mb = 0
+    return dist, pss
+
+
+def _try_round(pss, buf):
+    try:
+        return _round(pss, [buf] * len(pss)), None
+    except Exception as e:   # the schedule's raise, compared by type name
+        return None, type(e).__name__
+
+
+@pytest.mark.parametrize("deferred", [False, True], ids=["direct", "deferred"])
+def test_bucket_ladder_matches_jax(env, tenv, fault_plane, deferred):
+    """The same fault schedule on both packages' buckets -- a one-shot
+    dispatch fault a round until the bucket breaker trips, two rounds on the
+    individual requests, then the half-open probe round -- gives the same
+    raises, the same bit-exact results (integer payloads), the same bucket
+    and ladder counters. ``deferred``: the coalesced dispatch runs on the
+    progress thread, so the failure surfaces at the members' waits."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu import supervisor as jsup
+    from mlsl_tpu.core import stats as jst
+    from mlsl_tpu_torch import chaos, supervisor
+
+    for e in (env, tenv):
+        e.config.breaker_cooldown_s = 60.0
+        e.config.msg_priority = deferred
+        e.config.msg_priority_threshold = 0
+        e.config.msg_priority_flush_ms = 0.5
+    jsup.configure(env.config)
+    supervisor.configure(tenv.config)
+    jst.reset_degrade_counters()
+    trace = {}
+    try:
+        for key, e, op_t, mod, sup in (("t", tenv, OpType, chaos, supervisor),
+                                       ("j", env, JOp, jchaos, jsup)):
+            dist, pss = _ladder_sets(e, op_t)
+            buf = dist.make_buffer(lambda p: np.arange(64, dtype=np.float32) + p, 64)
+            out = []
+            for _ in range(sup.breaker("bucket").threshold):
+                mod.plan("collective.dispatch", "error")
+                res, err = _try_round(pss, buf)
+                mod.clear()
+                out.append(err or [_row(r).tolist() for r in res])
+            out.append(sup.breaker("bucket").state)
+            for _ in range(2):
+                out.append([_row(r).tolist() for r in _round(pss, [buf] * 3)])
+            sup.configure(cooldown_s=0.0)
+            out.append([_row(r).tolist() for r in _round(pss, [buf] * 3)])
+            out.append(sup.breaker("bucket").state)
+            trace[key] = out
+        assert trace["t"] == trace["j"]
+        assert trace["t"][2][0] == (np.arange(64) * 8 + 28).tolist()
+        assert trace["t"][3] == "open" and trace["t"][-1] == "closed"
+        assert _counters(tstats) == _counters(jstats)
+        assert tstats.DEGRADE_FALLBACKS == jst.DEGRADE_FALLBACKS == {"bucket": 1}
+        assert tstats.DEGRADE_COUNTERS == jst.DEGRADE_COUNTERS
+    finally:
+        for e in (env, tenv):
+            e.config.msg_priority = False
+        jst.reset_degrade_counters()
+
+
+def test_bucket_pack_span_and_round_instants(tenv, fault_plane):
+    from mlsl_tpu_torch import obs
+
+    tr = obs.enable()
+    dist, pss = _ladder_sets(tenv, OpType, layers=2)
+    buf = dist.make_buffer(lambda p: np.full(64, float(p)), 64)
+    _round(pss, [buf] * 2)
+    pss[0].start_gradient_comm(buf)
+    pss[0].wait_gradient_comm()              # a partial round falls back
+    names = [(e[1], (e[7] or {}).get("members")) for e in tr.snapshot()
+             if e[2] == "bucket"]
+    assert names == [("bucket.pack", 2), ("bucket.dispatched", 2), ("bucket.fallback", 1)]

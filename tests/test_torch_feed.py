@@ -780,3 +780,105 @@ def test_many_loaders_under_a_short_switch_interval(tenv):
     assert results == [list(range(n_batches))] * n_loaders
     assert tstats.FEED_COUNTERS["batches_staged"] == n_loaders * n_batches
     assert tstats.FEED_COUNTERS["wire_bytes"] == n_loaders * n_batches * (16 * 4 + 8 * 8 + 16 * 4)
+
+
+# -- the fault plane (tests/test_feed.py: the data.prefetch site and the spans) --------
+
+
+@pytest.fixture(autouse=True)
+def fault_plane():
+    """Before and after every test of this file: the port's fault plane as
+    a fresh process has it, and the JAX chaos registry clear. Its breakers
+    are process-wide (a breaker one test trips would degrade the next
+    test's rounds), and an Environment another file left live must not
+    hand its Config to this file's tests."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import supervisor
+
+    jchaos.clear()
+    supervisor.reset_all()
+    yield
+    supervisor.reset_all()
+    jchaos.clear()
+
+
+def test_chaos_error_and_delay_through_feed(env, tenv, fault_plane):
+    """The same plans on both feeds: a PERSISTENT error surfaces; a
+    TRANSIENT one is retried away (its retries counted alike); a delay slows
+    and never corrupts -- the batches bit for bit the JAX feed's."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import chaos
+
+    jt, tt = _topos(env, tenv)
+    batches = _batches(2, 16, (8,), seed=10)
+    for mod, feed_cls, topo in ((chaos, DeviceFeed, tt), (jchaos, JFeed, jt)):
+        mod.plan("data.prefetch", "error")
+        with pytest.raises(mod.ChaosError):
+            list(feed_cls(batches, topo, wire="uint8", cache_mb=64))
+        mod.clear()
+        p = mod.plan("data.prefetch", "error", exc=OSError)
+        assert len(list(feed_cls(batches, topo, wire="uint8", cache_mb=64, retries=2))) == 2
+        assert p.fires == 1
+        mod.clear()
+    assert tstats.FEED_COUNTERS["retries"] == jstats.FEED_COUNTERS["retries"] >= 1
+    outs = []
+    for mod, feed_cls, topo in ((chaos, DeviceFeed, tt), (jchaos, JFeed, jt)):
+        mod.plan("data.prefetch", "delay", seconds=0.01, times=None)
+        outs.append([_host(jax.tree.leaves(b)[0] if mod is jchaos else b[0])
+                     for b in feed_cls(batches, topo, wire="uint8", cache_mb=64, epochs=2)])
+        mod.clear()
+    assert len(outs[0]) == 4
+    _same_bits(outs[0][0], outs[0][2])
+    for a, b in zip(*outs):
+        _same_bits(a, b)
+
+
+def test_loader_does_not_double_fire_chaos_over_devicefeed(tenv, fault_plane):
+    """An AsyncLoader over a DeviceFeed leaves the site to the feed: one hit
+    a batch, not two; over a plain source it passes the site itself."""
+    from mlsl_tpu_torch import chaos
+
+    tt = tenv.create_distribution(8, 1).topology
+    p = chaos.plan("data.prefetch", "delay", seconds=0.0, times=None)
+    loader = AsyncLoader(DeviceFeed(_batches(3, 16, (8,), seed=13), tt, wire="none",
+                                    cache_mb=0), depth=2)
+    assert len(list(loader)) == 3
+    loader.close()
+    assert p.hits == 3
+    it = iter(_batches(2, seed=1))
+    loader = AsyncLoader(lambda: next(it), place=lambda x, y: (x, y), depth=1, retries=0)
+    with pytest.raises(StopIteration):
+        for _ in range(5):
+            next(loader)
+    loader.close()
+    assert p.hits == 3 + 3      # two reads and the one that ended the stream
+
+
+def test_feed_bitrot_plans_stay_armed(tenv, fault_plane):
+    """The bitrot kind waits for ROADMAP A.7b: the feed's reads neither fire
+    nor spend a bitrot plan."""
+    from mlsl_tpu_torch import chaos
+
+    tt = tenv.create_distribution(8, 1).topology
+    p = chaos.plan("data.prefetch", "bitrot")
+    assert len(list(DeviceFeed(_batches(2, seed=3), tt, wire="uint8", cache_mb=0))) == 2
+    assert (p.hits, p.fires) == (0, 0) and chaos.active()
+
+
+def test_feed_spans_on_timeline(env, tenv, fault_plane):
+    from mlsl_tpu import obs as jobs
+    from mlsl_tpu_torch import obs
+
+    jt, tt = _topos(env, tenv)
+    names = []
+    for mod, feed_cls, topo in ((obs, DeviceFeed, tt), (jobs, JFeed, jt)):
+        tr = mod.enable()
+        tr.clear()
+        list(feed_cls(_batches(2, 16, (8,), seed=14), topo, wire="uint8", cache_mb=64,
+                      epochs=2))
+        names.append(sorted((e[2], e[1]) for e in tr.snapshot()))
+        assert len(tr.span_durations("h2d.transfer", "feed")) == 2
+        mod.disable()
+    assert names[0] == names[1]
+    assert {("feed", "h2d.transfer"), ("feed", "feed.decode"),
+            ("feed", "feed.cache_hit")} <= set(names[0])

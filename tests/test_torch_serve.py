@@ -795,3 +795,191 @@ def test_serve_package_is_import_light():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- the fault plane (tests/test_serve.py:248-380) -------------------------------------
+#
+# The chaos sites serve.admit and serve.decode, the spans, the mlsl_serve_*
+# families and /healthz. Each test resets the port's fault plane afterwards
+# (``supervisor.reset_all``) and the JAX chaos registry. The fault schedules
+# are the JAX tests'; where the JAX engine runs beside the port (the admit
+# fault, the transient decode fault) the states, counters and tokens are
+# equal.
+
+
+@pytest.fixture(autouse=True)
+def fault_plane():
+    """Before and after every test of this file: the port's fault plane as
+    a fresh process has it, and the JAX chaos registry clear. Its breakers
+    are process-wide (a breaker one test trips would degrade the next
+    test's rounds), and an Environment another file left live must not
+    hand its Config to this file's tests."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import supervisor
+
+    jchaos.clear()
+    supervisor.reset_all()
+    yield
+    supervisor.reset_all()
+    jchaos.clear()
+
+
+def _jax_engine():
+    from mlsl_tpu.core import stats as jstats
+
+    jstats.reset_serve_counters()
+    env = JaxEnvironment.get_env().init()
+    cfg = jtfm.TransformerConfig(**_kw(1))
+    return jserve.InferenceEngine(env, cfg, tp=1, params=_params(1)), jstats
+
+
+def test_chaos_admit_fault_fails_one_request_closed(fault_plane):
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import chaos
+
+    out = []
+    for mod, make in ((chaos, lambda: (_engine(1), stats)), (jchaos, _jax_engine)):
+        eng, st = make()
+        mod.plan("serve.admit", "error", times=1)
+        reqs = [eng.submit(p, 4) for p in _prompts(3)]
+        eng.run()
+        states = [r.state for r in reqs]
+        failed = next(r for r in reqs if r.state == "failed")
+        with pytest.raises(Exception):
+            failed.result(timeout=5)
+        eng.cache.check()
+        out.append((states, st.SERVE_COUNTERS["failed"],
+                    [r.tokens for r in reqs if r.state == "done"]))
+        eng.close()
+    assert out[0] == out[1]
+    assert sorted(out[0][0]) == ["done", "done", "failed"] and out[0][1] == 1
+
+
+def test_chaos_decode_transient_retries_in_place(fault_plane):
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import chaos
+
+    p = np.arange(1, 9, dtype=np.int32)
+    toks = []
+    for mod, make in ((chaos, lambda: (_engine(1, comm_retry_backoff_s=0.0), stats)),
+                      (jchaos, _jax_engine)):
+        eng, st = make()
+        mod.plan("serve.decode", "error", exc=OSError, times=2)
+        req = eng.submit(p, 4)
+        eng.run()
+        toks.append(req.result(timeout=5))
+        assert st.SERVE_COUNTERS["retries"] == 2
+        eng.close()
+    assert toks[0] == toks[1] == oracle_generate(_engine(1), p, 4)
+
+
+def test_chaos_decode_loss_sheds_engine_survives(fault_plane):
+    from mlsl_tpu_torch import chaos
+    from mlsl_tpu_torch.log import MLSLDeviceLossError
+
+    eng = _engine(1)
+    chaos.plan("serve.decode", "error", exc=MLSLDeviceLossError, times=2)
+    reqs = [eng.submit(p, 4) for p in _prompts(3)]
+    eng.run()
+    assert all(r.state == "done" for r in reqs)
+    assert eng.governor.sheds >= 1 and stats.SERVE_COUNTERS["shed_batch"] >= 1
+    eng.close()
+
+
+def test_chaos_decode_hang_breaches_tpot_and_sheds(fault_plane):
+    """A hang is a slow step: the TPOT window breaches the SLO and the
+    governor sheds, degraded and not down (hangs of 0.12 s against a 30 ms
+    bound, fourfold)."""
+    from mlsl_tpu_torch import chaos
+
+    env = _port_env(1)
+    eng = InferenceEngine(env, tfm.TransformerConfig(**_kw(1)), tp=1, params=_params(1),
+                          tpot_p99_ms=30.0)
+    eng.governor.breach_ticks = 1
+    chaos.plan("serve.decode", "hang", seconds=0.12, after=4, times=3)
+    reqs = [eng.submit(p, 12) for p in _prompts(4)]
+    eng.run()
+    assert all(r.state == "done" for r in reqs)
+    assert eng.governor.sheds >= 1
+    assert not eng._pending and not eng._active
+    eng.close()
+
+
+def test_serve_metric_families_and_healthz(fault_plane):
+    import json
+
+    from mlsl_tpu_torch import supervisor
+    from mlsl_tpu_torch.obs import metrics as obs_metrics
+
+    reg = obs_metrics.enable(every=1)
+    eng = _engine(1)
+    req = eng.submit(np.arange(1, 9), 3, route="short")
+    eng.run()
+    assert req.state == "done"
+    reg.sample_families()
+    text = reg.to_prometheus()
+    for name in ("mlsl_serve_admitted", "mlsl_serve_completed", "mlsl_serve_tokens_out",
+                 "mlsl_serve_decode_steps", "mlsl_serve_queue_depth",
+                 "mlsl_serve_kv_free_pages", "mlsl_serve_ttft_ms", "mlsl_serve_tpot_ms",
+                 "mlsl_serve_requests_total", "mlsl_serve_inflight",
+                 "mlsl_serve_batch_limit", "mlsl_serve_tokens_per_s"):
+        assert name in text, name
+    assert reg.find("mlsl_serve_requests_total", route="short", outcome="done").value == 1
+    st = supervisor.status()
+    assert st["serve"]["state"] == "healthy" and json.dumps(st)
+    assert set(st["codecs"]) >= {"registered", "counters", "wire_bytes", "demotions"}
+    eng.close()
+    assert supervisor.status()["serve"] == {"state": "off"}
+
+
+def test_serve_spans_on_timeline(fault_plane):
+    """serve.prefill and serve.decode spans and, when the pool evicts, the
+    kv.evict instant -- with the serving engine's lock under the witness."""
+    from mlsl_tpu_torch import obs
+    from mlsl_tpu_torch.analysis import witness
+
+    tr = obs.enable()
+    eng = _engine(1)
+    eng.submit(np.arange(1, 9), 3)
+    eng.run()
+    names = {e[1] for e in tr.snapshot()}
+    assert "serve.prefill" in names and "serve.decode" in names
+    eng.cache.admit(99, 4)
+    eng.cache.release(99, evict=True)
+    ev = [e for e in tr.snapshot() if e[1] == "kv.evict"]
+    assert ev and ev[0][7]["seq"] == 99
+    eng.close()
+    assert not witness.report()["cycles"]
+
+
+def test_serve_lock_is_witnessed_when_armed(fault_plane, monkeypatch):
+    from mlsl_tpu_torch.analysis import witness
+
+    monkeypatch.setenv(witness.ENV_ARM, "1")
+    eng = _engine(1)
+    assert isinstance(eng._lock, witness.WitnessLock) and eng._lock.name == "serve.engine"
+    eng.submit(np.arange(1, 9), 2)
+    eng.run()
+    assert stats.LOCKWITNESS_COUNTERS["acquisitions"] > 0
+    assert not witness.report()["cycles"]
+    eng.close()
+
+
+def test_straggler_shed_candidate_reaches_the_ladder(fault_plane):
+    """step() reads the straggler sentinel: a confirmed shed candidate is
+    pressure for the SLA ladder (the JAX engine's :335-338)."""
+    from mlsl_tpu_torch.obs import straggler
+
+    eng = _engine(1)
+    eng.governor.breach_ticks = 1
+    s = straggler.StragglerSentinel(skew=1.2, every=3, sustain=1, shed=True)
+    for _ in range(3):
+        s.observe(0, 10.0)
+        s.observe(1, 50.0)
+    s.maybe_audit(step=3)
+    assert s.shed_candidate() == 1
+    eng.submit(np.arange(1, 9), 2)
+    eng.step()
+    assert eng.governor.rung >= 1 and "straggler" in eng.governor.last_reason
+    eng.run()
+    eng.close()
