@@ -405,6 +405,30 @@ Phases, in order; any failure exits non-zero and prints no result:
              decode graph bit for bit against the same step run eagerly
              ((y1), (y2), (y4)). One line a sub-run.
 
+40. integrity (run (aa), after config 4, beside the card tests): config 5
+             (ResNet-50 at full width, int8 on the composed ring, 8 ranks).
+             (aa1) MLSL_SENTINEL_GATE=skip_step on the host path and on the
+             compiled engine's split graph: a train.grads plan of 1e8 and a
+             NaN plan each skipped, the parameters and residuals bit for bit
+             as before, a twin that never saw them bit for bit equal after
+             the next step, 'rollback' raising MLSLIntegrityError with the
+             state untouched; the gated step against the ungated twin's and
+             the screen alone. (aa2) MLSL_SENTINEL_EVERY=1, one step each
+             from the same weights: one digest for the plain and bucketed
+             trainers on lax (uncompressed, bit-exact), the int8 trainer's
+             step through B1 and B4 moving it, that state loaded into the
+             plain trainer giving the int8 trainer's digest, a sampled leaf's
+             block sums against numpy's, a flipped bit changing the digest,
+             ZeRO-1's owned shards (Adam, one step); the audit's ms a call. (aa3) MLSL_CHKP: a short bucket member refused at the
+             pack; a NaN in one of three allreduces named at the round's first
+             wait with one host read; a bitrot plan on the int8 wire decoding
+             finite but different values, the cache replaying the clean copy
+             next epoch. (aa4) MLSL_AUTO_CONFIG_TYPE=1: the card's class and
+             row applied, an exported knob winning. (aa5), two processes
+             beside the card tests: one builds the smallest kernel source
+             into a fresh MLSL_COMPILE_CACHE_DIR, the next loads it with nvcc
+             refused.
+
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
 
@@ -6847,6 +6871,486 @@ def run_fault_plane(torch, np, get_env, launches, reset_launches):
     return used, lines
 
 
+# -- the integrity layer and the core tier (run (aa)) -------------------------------
+
+# the integrity and core-tier knobs run (aa) sets; every sub-run starts with
+# none of them exported, and the run ends with none
+AA_VARS = ("MLSL_SENTINEL_GATE", "MLSL_SENTINEL_EVERY", "MLSL_SENTINEL_WARMUP",
+           "MLSL_SENTINEL_SPIKE", "MLSL_SENTINEL_ZMAX", "MLSL_SENTINEL_BLOCK", "MLSL_CHKP",
+           "MLSL_AUTO_CONFIG_TYPE", "MLSL_LARGE_MSG_CHUNKS", "MLSL_GATHER_DEVICE_LIMIT_MB",
+           "MLSL_OVERLAP_COMPILED")
+AA_SPIKE = 1e8              # (aa1): the finite train.grads plan the spike screen must skip
+# (aa1)'s MLSL_SENTINEL_SPIKE: far above a healthy step's gradient norm against
+# its EMA (config 5 at lr 0.05 may double it from one step to the next) and far
+# below the AA_SPIKE plan's (~1e7 x)
+AA_SPIKE_FACTOR = "1000"
+AA_CHKP_N = 1 << 20         # (aa3): floats a rank of the three checked allreduces
+# (aa5): the smallest kernel source, built cold into a fresh cache directory by
+# one process and loaded warm by a second that may not run nvcc
+AA_CACHE_SOURCE = "rhd_kernels"
+AA_CACHE_PROG = """
+import json, sys, time
+sys.path.insert(0, {root!r})
+from mlsl_tpu_torch.ops import cuda_build
+if {warm}:
+    def no_nvcc():
+        raise SystemExit("the warm process asked for nvcc")
+    cuda_build.nvcc_path = no_nvcc
+t0 = time.perf_counter()
+cuda_build.load({name!r})
+print(json.dumps({{"dir": str(cuda_build.build_dir()), "lib": cuda_build.lib_path({name!r}).name,
+                  "load_s": time.perf_counter() - t0, "built": sorted(cuda_build.build_logs)}}))
+"""
+
+
+def aa_env(get_env, **env_vars):
+    """``reinit`` with ``env_vars`` exported and run (aa)'s other knobs unset."""
+    for k in AA_VARS:
+        os.environ.pop(k, None)
+    return reinit(get_env, **env_vars)
+
+
+def aa_batch(np, trainer, seed, image=224, classes=1000, batch=64):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
+    return trainer.shard_batch(x, rng.integers(0, classes, size=(batch,)).astype(np.int32))
+
+
+def aa_state(trainer) -> list:
+    """Copies of the parameters and of every error-feedback residual (the
+    host requests' and the compiled engine's)."""
+    out = [p.detach().clone() for p in trainer._all_params()]
+    for n in trainer.layers:
+        out += [e.clone() for e in (_grad_req(trainer, n)._errs or [])]
+    if trainer._overlap is not None:
+        out += [v.clone() for v in trainer._overlap.residuals.values()]
+    return out
+
+
+def same_state(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_integrity_gate(torch, np, get_env, launches, reset_launches, engine: bool):
+    """(aa1): MLSL_SENTINEL_GATE=skip_step on config 5 (int8, composed ring),
+    on the host path or (``engine``) the compiled engine's split graph. A
+    train.grads plan of 1e8 (the spike screen) and a NaN plan (the non-finite
+    screen) are each skipped, the parameters and residuals bit for bit as
+    before; a twin that never saw the poisoned steps agrees bit for bit after
+    the next step; under 'rollback' the gate raises MLSLIntegrityError and
+    the state is untouched. On the host path the twin runs ungated (its gate
+    disarmed: the same arithmetic), which times the gated step against the
+    ungated one, and the screen is timed alone on the step's gradients.
+    -> (launches, record)."""
+    from mlsl_tpu_torch import chaos
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.log import MLSLIntegrityError
+
+    tag = "compiled engine" if engine else "host path"
+    env = aa_env(get_env, MLSL_SENTINEL_GATE="skip_step", MLSL_SENTINEL_WARMUP="1",
+                 MLSL_SENTINEL_SPIKE=AA_SPIKE_FACTOR,
+                 **({"MLSL_OVERLAP_COMPILED": "1"} if engine else {}))
+    settle(torch)
+    a, b0 = build_resnet_trainer(torch, env, np)
+    twin, _ = build_resnet_trainer(torch, env, np)
+    b1 = aa_batch(np, a, SEED + 41)
+    check(a.sentinel is not None and a.sentinel.gate_armed and not a.fused,
+          f"(aa1) {tag}: the gate is not armed on the graph path")
+    if engine:
+        check(a._overlap is not None, "(aa1) compiled engine: the engine did not engage")
+    else:
+        twin.sentinel.gate_response = ""
+    stats.reset_sentinel_counters()
+    stats.reset_overlap_counters()
+    reset_launches()
+    secs = {"gated": [], "twin": []}
+
+    def timed(tr, batch, key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.step(batch)
+        torch.cuda.synchronize()
+        secs[key].append(time.perf_counter() - t0)
+        check(bool(torch.isfinite(loss).all()), f"(aa1) {tag}: losses {loss.reshape(-1)}")
+
+    timed(a, b0, "gated")
+    timed(twin, b0, "twin")
+    before = aa_state(a)
+    for mag in (AA_SPIKE, float("nan")):
+        plan = chaos.plan("train.grads", "silent", mag=mag)
+        a.step(b1)
+        check(plan.fires == 1, f"(aa1) {tag}: the {mag} plan did not fire")
+    torch.cuda.synchronize()
+    sc = dict(stats.SENTINEL_COUNTERS)
+    check(sc["gate_skip"] == 2, f"(aa1) {tag}: counters {sc}, expected 2 skips")
+    check(same_state(torch, before, aa_state(a)),
+          f"(aa1) {tag}: a skipped step moved the parameters or residuals")
+    timed(a, b1, "gated")
+    timed(twin, b1, "twin")
+    check(stats.SENTINEL_COUNTERS["gate_skip"] == 2,
+          f"(aa1) {tag}: the gate fired on the healthy step after the skips")
+    check(same_state(torch, aa_state(a), aa_state(twin)),
+          f"(aa1) {tag}: the skipping trainer and its twin differ after the next step")
+    used = launches()
+    rec = {"tag": tag, "counters": sc, "grad_norm_ema": a.sentinel._ema_norm,
+           "gated_step_s": secs["gated"], "twin_step_s": secs["twin"]}
+    if engine:
+        oc = stats.OVERLAP_COUNTERS
+        check(list(a._overlap.graphs) == ["sync"] and oc["split_steps"] == oc["steps"] > 0,
+              f"(aa1) compiled engine: graphs {list(a._overlap.graphs)}, counters {oc}")
+        rec["split_steps"], rec["capture_s"] = oc["split_steps"], a._overlap.capture_s["sync"]
+    else:
+        # the gate's own cost: one screen (its one host read included) on the
+        # step's real gradients
+        loss, grads = a._local_grads(b1)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.sentinel.screen(loss, grads)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rec["gate_screen_ms"] = ms
+        del loss, grads
+    a.sentinel.gate_response = "rollback"
+    before = aa_state(a)
+    chaos.plan("train.grads", "silent", mag=float("nan"))
+    try:
+        a.step(b0)
+        raised = False
+    except MLSLIntegrityError:
+        raised = True
+    check(raised and stats.SENTINEL_COUNTERS["gate_rollback"] == 1,
+          f"(aa1) {tag}: rollback did not raise MLSLIntegrityError")
+    check(same_state(torch, before, aa_state(a)), f"(aa1) {tag}: rollback moved the state")
+    chaos.clear()
+    del a, twin, b0, b1, before
+    settle(torch)
+    return used, rec
+
+
+def host_blocks(np, a, block):
+    """The audit's block sums of one float32 leaf on the host: its bits as
+    int32, zero-padded, summed exactly and wrapped to int32."""
+    v = np.ascontiguousarray(a, dtype=np.float32).reshape(-1).view(np.int32).astype(np.int64)
+    v = np.concatenate([v, np.zeros((-v.size) % block, np.int64)])
+    s = v.reshape(-1, block).sum(axis=1)
+    return ((s + 2**31) % 2**32 - 2**31).astype(np.int32)
+
+
+def timed_audit(torch, trainer, step):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trainer.sentinel.maybe_audit(trainer, step)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def phase_integrity_audit(torch, np, get_env, launches, reset_launches):
+    """(aa2): MLSL_SENTINEL_EVERY=1 on config 5, one step on the same batch
+    (cuDNN deterministic) from the same initial weights. The plain trainer
+    and the bucketed one, both uncompressed on ``lax`` (an element is summed
+    in one order wherever it sits in the payload: the lax buckets phase, 22),
+    hold the same state bit for bit after it, so their audits give one
+    digest. The int8 trainer's step runs B1 and B4 (its launches counted):
+    its audit holds, its digest moved off the plain step's, the fc weight's
+    block sums on the card equal the host's numpy sums, and the plain trainer
+    loaded with that state gives the int8 trainer's digest (the audit reads
+    the state, not the path that made it). One flipped bit changes the
+    digest. ZeRO-1 (Adam, one step_accum step): the owned moments enter
+    summed over the ranks, and a bit flipped in one rank's shard changes the
+    digest. The bucketed trainer is kept for (aa3). -> (launches by part,
+    record, the bucketed trainer)."""
+    from mlsl_tpu_torch import CompressionType, chaos, sentinel
+
+    rec = {"digest": {}, "audit_ms": {}}
+    used = {}
+
+    def audited(tr, tag, step):
+        res, ms = timed_audit(torch, tr, step)
+        check(res.equal, f"(aa2) {tag}: the audit of one copy disagrees with itself")
+        rec["digest"][tag] = res.digest[:16]
+        rec["audit_ms"][tag] = [ms] + [timed_audit(torch, tr, step)[1] for _ in range(2)]
+        return res
+
+    def stepped(tag, env_vars, comp):
+        env = aa_env(get_env, MLSL_SENTINEL_EVERY="1", **env_vars)
+        settle(torch)
+        tr, b0 = build_resnet_trainer(torch, env, np, compression=comp)
+        initial = audited(tr, f"{tag}, initial", 0)
+        reset_launches()
+        loss = tr.step(b0)
+        torch.cuda.synchronize()
+        used[tag] = launches()
+        check(bool(torch.isfinite(loss).all()), f"(aa2) {tag}: losses {loss.reshape(-1)}")
+        res = audited(tr, f"{tag}, after a step", 1)
+        check(res.digest != initial.digest, f"(aa2) {tag}: the step left the digest as it was")
+        return tr, initial, res
+
+    plain, initial, res = stepped("plain", {"MLSL_ALGO": "lax"}, CompressionType.NONE)
+    rec["blocks"] = res.blocks
+    bucketed, _, bres = stepped("bucketed", {"MLSL_ALGO": "lax",
+                                             "MLSL_GRAD_BUCKET_MB": str(BUCKET_MB)},
+                                CompressionType.NONE)
+    check(any(bucketed._pset(n).bucket is not None for n in bucketed.layers),
+          "(aa2) bucketed: no bucket formed")
+    check(bres.digest == res.digest and bres.blocks == res.blocks,
+          f"(aa2) one step plain and bucketed gave digests {rec['digest']}")
+    int8, i_initial, ires = stepped("int8 B4", {"MLSL_ALGO": "pallas_ring"}, None)
+    check(used["int8 B4"]["quant_ring"] > 0 and used["int8 B4"]["quantize_blocks"] > 0,
+          f"(aa2) int8 B4: the step launched {used['int8 B4']}")
+    check(i_initial.digest == initial.digest,
+          "(aa2) the same initial weights gave another digest on the int8 trainer")
+    check(ires.digest != res.digest, "(aa2) the int8 step left the plain step's state")
+    fc = int8.layer_params["fc"][-1].detach()
+    got = int8.sentinel._leaf_blocks(fc).cpu().numpy()
+    check(np.array_equal(got, host_blocks(np, fc.cpu().numpy(), int8.sentinel.block)),
+          "(aa2) the fc weight's block sums on the card differ from numpy's")
+    rec["sampled_leaf"] = {"shape": list(fc.shape), "blocks": int(got.size)}
+    with torch.no_grad():
+        for p, q in zip(plain._all_params(), int8._all_params()):
+            p.copy_(q)
+    loaded = audited(plain, "plain loaded with the int8 state", 1)
+    check(loaded.digest == ires.digest,
+          "(aa2) the plain trainer holding the int8 trainer's state gave another digest")
+    chaos.seed(SEED)
+    sentinel.corrupt_silent(plain._all_params(), chaos.Plan(site="train.params", kind="silent"))
+    flipped = plain.sentinel.audit_now(plain, 1)
+    check(flipped.equal and flipped.digest != loaded.digest,
+          "(aa2) a flipped parameter bit did not change the digest")
+    del plain, int8, fc
+    # ZeRO-1
+    env = aa_env(get_env, MLSL_SENTINEL_EVERY="1")
+    settle(torch)
+    tr, batches = build_zero1_resnet(torch, env, np, distributed_update=True)
+    reset_launches()
+    loss = tr.step_accum(batches)
+    torch.cuda.synchronize()
+    used["zero1"] = launches()
+    check(bool(torch.isfinite(loss).all()), f"(aa2) ZeRO-1: losses {loss.reshape(-1)}")
+    res, ms = timed_audit(torch, tr, 1)
+    _, sh = tr._audit_state()
+    check(res.equal and len(sh["du_opt_state"]) == 2 * len(tr.layers),
+          f"(aa2) ZeRO-1: {len(sh['du_opt_state'])} owned leaves")
+    chaos.seed(SEED)
+    sentinel.corrupt_silent(tr.opt_state["fc"], chaos.Plan(site="train.opt_state",
+                                                           kind="silent"),
+                            tr.dist.topology.grid_shape)
+    flipped = tr.sentinel.audit_now(tr, 1)
+    check(flipped.equal and flipped.digest != res.digest,
+          "(aa2) ZeRO-1: a flipped bit of one rank's shard did not change the digest")
+    rec["zero1"] = {"digest": res.digest[:16], "blocks": res.blocks, "audit_ms": ms,
+                    "owned_leaves": len(sh["du_opt_state"])}
+    del tr, batches, sh
+    rec["launches"] = used
+    return used, rec, bucketed
+
+
+def phase_integrity_chkp(torch, np, get_env, launches, reset_launches, bucketed, dev):
+    """(aa3): MLSL_CHKP=1 refuses a bucket member of the wrong count at the
+    pack; MLSL_CHKP=2: of three allreduces started together, the one holding
+    a NaN raises at the round's first wait, named by its count, with one host
+    read; a data.prefetch bitrot plan on (w2)'s int8 wire decodes finite but
+    different values, and the next epoch replays the clean copy the cache
+    kept. -> (launches, record)."""
+    from mlsl_tpu_torch import chaos
+    from mlsl_tpu_torch.core import stats
+    from mlsl_tpu_torch.data import DeviceFeed
+    from mlsl_tpu_torch.data.wire import ROW_TILE
+    from mlsl_tpu_torch.log import MLSLError
+
+    rec = {}
+    ps = bucketed._pset(bucketed.layers[-1])
+    os.environ["MLSL_CHKP"] = "1"
+    short = torch.zeros((*bucketed.dist.topology.grid_shape, 7), device=dev)
+    try:
+        ps.start_gradient_comm(short)
+        refused = ""
+    except MLSLError as e:
+        refused = str(e)
+    check("OUT_OF_RANGE" in refused, f"(aa3) the short bucket member was not refused: "
+                                     f"{refused!r}")
+    rec["bucket_refusal"] = refused
+    del ps, short, bucketed
+    env = aa_env(get_env, MLSL_CHKP="2")
+    settle(torch)
+    stats.reset_chkp_counters()
+    dist = env.create_distribution(WORLD, 1)
+    counts = (AA_CHKP_N, AA_CHKP_N + 256, AA_CHKP_N + 512)
+    bufs = []
+    for i, n in enumerate(counts):
+        b = torch.ones((*dist.topology.grid_shape, n), device=dev)
+        if i == 1:
+            b[0, 3, 0, 0, 12345] = float("nan")
+        bufs.append(b)
+    from mlsl_tpu_torch import DataType, GroupType, ReductionType
+
+    reqs = [dist.all_reduce(b, n, DataType.FLOAT, ReductionType.SUM, GroupType.DATA)
+            for b, n in zip(bufs, counts)]
+    try:
+        env.wait(reqs[0])
+        msg = ""
+    except MLSLError as e:
+        msg = str(e)
+    check(f"allreduce[{counts[1]}]" in msg and f"allreduce[{counts[0]}]" not in msg,
+          f"(aa3) the first wait did not name the NaN buffer: {msg!r}")
+    out = env.wait(reqs[2])
+    check(bool((out == WORLD).all()), "(aa3) a clean round's sum is wrong")
+    kc = dict(stats.CHKP_COUNTERS)
+    check(kc["value_checks"] == 3 and kc["value_syncs"] == 1 and kc["violations"] == 1,
+          f"(aa3) CHKP counters {kc}")
+    rec["nan_raised_at_first_wait"], rec["chkp_requests"] = msg, kc
+    del reqs, bufs, out
+    # the feed: two config-5 float batches on the int8 wire, a cache that
+    # holds one of them, three streamed epochs
+    rng = np.random.default_rng(SEED + 42)
+    floats = [(rng.normal(size=(FEED_BATCH, FEED_IMAGE, FEED_IMAGE, 3)).astype(np.float32),
+               rng.integers(0, FEED_CLASSES, size=(FEED_BATCH,)).astype(np.int32))
+              for _ in range(2)]
+    n = FEED_BATCH // WORLD * FEED_IMAGE * FEED_IMAGE * 3
+    unit = BLOCK * ROW_TILE
+    npad = -(-n // unit) * unit
+    wire = WORLD * (npad + npad // BLOCK * 4) + FEED_BATCH * 4
+    stats.reset_chkp_counters()
+    reset_launches()
+    feed = DeviceFeed(lambda: iter(floats), dist.topology, wire="int8",
+                      cache_mb=1.5 * wire / 2**20, epochs=3, quant_block=BLOCK, device=dev)
+    it = iter(feed)
+    clean = next(it)[0].clone()
+    next(it)
+    check(len(feed.cache) == 1, f"(aa3) the feed cache holds {len(feed.cache)} batches")
+    plan = chaos.plan("data.prefetch", "bitrot", after=1)
+    rotted = next(it)[0].clone()
+    check(plan.fires == 1, "(aa3) the bitrot plan did not fire on epoch 1's first read")
+    check(bool(torch.isfinite(rotted).all()) and not torch.equal(rotted, clean),
+          "(aa3) the rotted batch is not finite, or equals the clean one")
+    next(it)
+    check(torch.equal(next(it)[0], clean), "(aa3) epoch 2 did not replay the clean copy")
+    torch.cuda.synchronize()
+    used = launches()
+    kc = dict(stats.CHKP_COUNTERS)
+    check(kc["value_syncs"] == 5 and kc["violations"] == 0,
+          f"(aa3) the decoded batches' checks: {kc}")
+    chaos.clear()
+    rec["feed"] = {"rotted_elements": int((rotted != clean).sum()), "chkp": kc,
+                   "cache_batches": len(feed.cache)}
+    del feed, it, clean, rotted, floats
+    os.environ.pop("MLSL_CHKP", None)
+    return used, rec
+
+
+def phase_autoconfig(get_env, dev):
+    """(aa4): MLSL_AUTO_CONFIG_TYPE=1 applies the probed card's class and row
+    (the HBM-keyed entries by the JAX package's formulas); an exported knob
+    wins. -> record."""
+    from mlsl_tpu_torch import sysinfo
+    from mlsl_tpu_torch.config import Config
+
+    si = sysinfo.probe(dev.index)
+    cls = sysinfo.device_class(si)
+    check(cls == "gpu-hopper", f"(aa4) the card {si.device_kind} {si.capability} is class "
+                               f"{cls!r}")
+    want = dict(sysinfo._CLASS_DEFAULTS[cls])
+    want["large_msg_size_mb"] = min(want["large_msg_size_mb"],
+                                    max(8, si.memory_per_device // (64 << 20)))
+    want["gather_device_limit_mb"] = max(256, si.memory_per_device // (4 << 20))
+    env = aa_env(get_env, MLSL_AUTO_CONFIG_TYPE="1")
+    got = {k: getattr(env.config, k) for k in want}
+    check(got == want, f"(aa4) applied {got}, the row is {want}")
+    default = Config()
+    changed = {k: (getattr(default, k), v) for k, v in want.items() if getattr(default, k) != v}
+    env = aa_env(get_env, MLSL_AUTO_CONFIG_TYPE="1", MLSL_LARGE_MSG_CHUNKS="3",
+                 MLSL_GATHER_DEVICE_LIMIT_MB="1024")
+    check(env.config.large_msg_chunks == 3 and env.config.gather_device_limit_mb == 1024
+          and env.config.large_msg_size_mb == want["large_msg_size_mb"],
+          "(aa4) an exported knob did not win over the row")
+    return {"class": cls, "memory_gib": round(si.memory_per_device / 2**30, 2), "row": got,
+            "changed_from_default": changed}
+
+
+def start_compile_cache_runs():
+    """(aa5), beside the card tests: one process builds AA_CACHE_SOURCE cold
+    into a fresh MLSL_COMPILE_CACHE_DIR, then a second loads it with nvcc
+    refused. -> (thread, results, the directory)."""
+    import tempfile
+
+    cache = tempfile.mkdtemp(prefix="mlsl_compile_cache_")
+    results = {}
+
+    def run():
+        env = dict(os.environ, MLSL_COMPILE_CACHE_DIR=cache)
+        for warm in (False, True):
+            prog = AA_CACHE_PROG.format(root=str(ROOT), warm=warm, name=AA_CACHE_SOURCE)
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-c", prog], env=env, capture_output=True,
+                               text=True, timeout=300)
+            results["warm" if warm else "cold"] = (r.returncode, r.stdout, r.stderr[-2000:],
+                                                   time.perf_counter() - t0)
+
+    thread = threading.Thread(target=run, name="compile-cache-runs")
+    thread.start()
+    return thread, results, cache
+
+
+def phase_compile_cache(thread, results, cache) -> dict:
+    import shutil
+
+    thread.join(timeout=600)
+    check(not thread.is_alive() and set(results) == {"cold", "warm"},
+          "(aa5) the compile-cache processes did not finish")
+    rec = {}
+    for key, built in (("cold", [AA_CACHE_SOURCE]), ("warm", [])):
+        rc, out, err, secs = results[key]
+        check(rc == 0, f"(aa5) the {key} process failed: rc {rc}\n{err}")
+        got = json.loads(out.strip().splitlines()[-1])
+        check(got["dir"] == str(Path(cache).resolve()) and got["built"] == built,
+              f"(aa5) {key}: {got}")
+        check((Path(cache) / got["lib"]).is_file(), f"(aa5) {key}: no library in the cache")
+        rec[key] = {"process_s": secs, "load_s": got["load_s"], "built": got["built"]}
+    shutil.rmtree(cache, ignore_errors=True)
+    return rec
+
+
+def run_integrity(torch, np, get_env, launches, reset_launches, dev):
+    """Run (aa), (aa1)-(aa4), beside the card tests: the gate, the audit, the
+    checker and the device class's defaults, a ``# phase`` line each, with
+    cuDNN's deterministic convolutions for the twins; none of its knobs is
+    left exported. -> (launches by part, lines)."""
+    lines, used = [], {}
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for engine, key in ((False, "integrity_gate_host"), (True, "integrity_gate_engine")):
+            t0 = time.perf_counter()
+            used[key], rec = phase_integrity_gate(torch, np, get_env, launches, reset_launches,
+                                                  engine)
+            lines.append(f"# integrity aa1 {json.dumps(rec)}")
+            lines.append(f"# phase integrity gate, {rec['tag']} (run (aa1)): ok in "
+                         f"{time.perf_counter() - t0:.1f} s, launches {json.dumps(used[key])}")
+        t0 = time.perf_counter()
+        aa2, rec, bucketed = phase_integrity_audit(torch, np, get_env, launches,
+                                                   reset_launches)
+        used.update({f"integrity_audit_{k}": v for k, v in aa2.items()})
+        lines.append(f"# integrity aa2 {json.dumps(rec)}")
+        lines.append(f"# phase integrity audit (run (aa2)): ok in "
+                     f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        used["integrity_feed"], rec = phase_integrity_chkp(torch, np, get_env, launches,
+                                                           reset_launches, bucketed, dev)
+        del bucketed
+        lines.append(f"# integrity aa3 {json.dumps(rec)}")
+        lines.append(f"# phase integrity checker (run (aa3)): ok in "
+                     f"{time.perf_counter() - t0:.1f} s, launches "
+                     f"{json.dumps(used['integrity_feed'])}")
+        t0 = time.perf_counter()
+        rec = phase_autoconfig(get_env, dev)
+        lines.append(f"# integrity aa4 {json.dumps(rec)}")
+        lines.append(f"# phase autoconfig (run (aa4)): ok in {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        for k in AA_VARS:
+            os.environ.pop(k, None)
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -6915,7 +7419,7 @@ def main() -> int:
           ptxas_summary(cuda_build.build_logs.get("attention_sm90", "")))
 
     env = get_env().init(world_size=WORLD)        # the card; raises without one
-    card_tests = capi_runs = None
+    card_tests = capi_runs = cache_runs = None
     try:
         counts = resnet.layer_param_counts(resnet.ResNet50(device="meta"))
         ring_rows = resnet_ring_rows(counts)
@@ -6931,6 +7435,7 @@ def main() -> int:
         shapes += [(r, b) for _, r, b, _ in codec_rows() if (r, b) not in shapes]
         misaligned = [(37, 256), (8003, 64), (7, 96), (67, 2048)]
         t_card, card_tests = time.perf_counter(), start_card_tests()
+        cache_runs = start_compile_cache_runs()
         capi_runs = CapiPrograms(capi_paths, capi_build)
         n_shapes = phase_parity(torch, qk, dev, shapes, misaligned)
         n_ring = phase_ring_parity(torch, rk, rhd, dev)
@@ -6955,9 +7460,21 @@ def main() -> int:
               f"config 4: kernel launches {c4}, expected 19 quantize and 1 dequantize")
         del xs, outs, errs, req, roundtrip
         log(f"# phase config4: ok, launches {c4}")
+        # the integrity layer and the core tier (run (aa)), beside the card tests
+        integrity_used, integrity_lines = run_integrity(torch, np, get_env, launches,
+                                                        reset_launches, dev)
+        for line in integrity_lines:
+            log(line)
+        env = reinit(get_env)
+        settle(torch)
         summary = phase_card_tests(card_tests)
-        log(f"# phase card tests ({CARD_TESTS}, beside parity and configs 1-4): ok in "
-            f"{time.perf_counter() - t_card:.1f} s, {summary}")
+        log(f"# phase card tests ({CARD_TESTS}, beside parity, configs 1-4 and run (aa)): ok "
+            f"in {time.perf_counter() - t_card:.1f} s, {summary}")
+        t0 = time.perf_counter()
+        rec = phase_compile_cache(*cache_runs)
+        log(f"# integrity aa5 {json.dumps(rec)}")
+        log(f"# phase compile cache (run (aa5), beside the card tests): ok, waited "
+            f"{time.perf_counter() - t0:.1f} s")
         o1 = phase_capi_programs(capi_runs)
         for run in o1:
             log(f"# capi program {json.dumps(run)}")
@@ -7279,7 +7796,7 @@ def main() -> int:
                     activation_graph=activation, collectives=coll_used, capi=capi_used,
                     **{f"codec_{k}": v for k, v in codec_used.items()},
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
-                    pipeline=pipe_used, **serve_used, **fault_used)
+                    pipeline=pipe_used, **serve_used, **fault_used, **integrity_used)
         entries = [
             codec_entry(torch, qk, kind, rows, block, bw, f32,
                         path(f"{kind}_blocks", **runs), dev, tag=tag)
@@ -7367,6 +7884,8 @@ def main() -> int:
             card_tests.communicate()
         if capi_runs is not None:
             capi_runs.kill()
+        if cache_runs is not None:
+            cache_runs[0].join(timeout=300)
         get_env().finalize()
 
     log(f"# smoke wall time: {time.perf_counter() - started:.1f} s")

@@ -11,9 +11,10 @@ the code under test.
 Sites (see ``SITES``) are compiled into the registry, not discovered, so a
 typo in a plan is an error instead of a fault that never fires. The registry
 is the reference's whole table, so every plan the JAX package parses parses
-here too; the ``checkpoint.*``, ``train.*`` and ``control.*`` sites and the
-``bitrot`` / ``silent`` kinds at ``data.prefetch`` are registered and wait
-for the integrity and recovery layers that consume them (ROADMAP A.7b, A.7c).
+here too. The ``train.*`` sites' ``silent`` plans are applied by the trainer
+(``sentinel.corrupt_silent``) and ``data.prefetch``'s ``bitrot`` by the feed;
+the ``checkpoint.*`` and ``control.*`` sites are registered and wait for the
+recovery layer that consumes them (ROADMAP A.7c).
 
 Python API::
 

@@ -39,8 +39,8 @@ The registry also keeps the guardrail of calibrated assignments
 registers here; ``guard_note`` takes one screened step's verdict and, after
 ``window`` breaches in a row, demotes every registered request to int8
 (``CommRequest.demote_codec``, with its exactly-once residual flush). The
-JAX package's sentinel feeds ``guard_note``; the sentinel is not ported
-(ROADMAP A.7), so here a caller feeds it.
+sentinel's gate (sentinel.py) feeds ``guard_note`` from the loss z-score
+screen, as the JAX package's does; a caller may feed it too.
 """
 
 from __future__ import annotations

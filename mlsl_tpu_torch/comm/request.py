@@ -90,8 +90,15 @@ The fault plane (request.py:620-1250 of the JAX package):
   host time; with the metrics registry armed, the dispatch-to-wait latency
   and the achieved algbw at each completed round.
 
+With ``MLSL_CHKP`` set, ``start`` checks the buffer against the request's
+descriptor (checker.check_buffer: layout, length, dtype; at level 2 a queued
+finiteness verdict), and the round's first completed ``wait`` or ``test``
+resolves the queued verdicts with one host read; a failing round drains them
+into the log, so that its own error stays the one raised and no later round
+inherits them.
+
 Not ported: the JAX package's native priority queue (standing difference "No
-native dispatcher queue") and the buffer checker (ROADMAP A.7b).
+native dispatcher queue").
 """
 
 from __future__ import annotations
@@ -105,11 +112,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from mlsl_tpu_torch import chaos, supervisor
+from mlsl_tpu_torch import chaos, checker, supervisor
 from mlsl_tpu_torch.comm import algos, collectives
 from mlsl_tpu_torch.comm.mesh import NUM_GRID_AXES, ProcessGroup
 from mlsl_tpu_torch.core import stats
-from mlsl_tpu_torch.log import MLSLTimeoutError, log_debug, log_error, log_warning, mlsl_assert
+from mlsl_tpu_torch.log import (MLSLError, MLSLTimeoutError, log_debug, log_error, log_warning,
+                                mlsl_assert)
 from mlsl_tpu_torch.obs import metrics as obs_metrics
 from mlsl_tpu_torch.obs import tracer as obs
 from mlsl_tpu_torch.types import (
@@ -569,6 +577,10 @@ class CommRequest:
         mlsl_assert(self.is_setup, "request must be setup() before start()")
         if chaos._plans:
             chaos.inject("request.start", request=self.name or self.uid, kind=self.desc.kind)
+        chkp = checker.level()
+        if chkp:
+            # the buffer as handed over, before a cross-distribution re-view
+            checker.check_buffer(buf, self.desc, chkp)
         topo = self.desc.group.topology
         # a cross-distribution graph edge hands a buffer laid out for the
         # other distribution's grid (activation cases 3-5): re-view it
@@ -861,6 +873,9 @@ class CommRequest:
                 cfg = self.dispatcher.config
                 if (supervisor.classify(e) is not supervisor.ErrorClass.TRANSIENT
                         or attempt >= cfg.comm_retries or self._last_buf is None):
+                    # the round fails: its queued verdicts go to the log, so
+                    # that a later healthy round cannot inherit them
+                    self._drain_chkp_logged()
                     raise
                 delay = supervisor.jittered_backoff(cfg.comm_retry_backoff_s, attempt)
                 stats.record_comm_retry("wait", self.name or str(self.uid), e, attempt + 1,
@@ -873,6 +888,10 @@ class CommRequest:
                 continue
             break
         self._finish_round()
+        if checker._pending:
+            # the round's boundary: one host read resolves every finiteness
+            # verdict queued since the last completion (MLSL_CHKP=2)
+            checker.flush_values()
         if tr is not None:
             # the wait stall: host time blocked for this request
             tr.complete("wait", "req", t0, track=self._trace_name,
@@ -904,6 +923,18 @@ class CommRequest:
             for t in self._results:
                 t.record_stream(cur)
 
+    def _drain_chkp_logged(self) -> None:
+        """Resolve the queued finiteness verdicts of a failing round without
+        letting a violation replace the round's own error: it is logged (and
+        counted), and the queue is clean for the next round."""
+        if not checker._pending:
+            return
+        try:
+            checker.flush_values()
+        except MLSLError as ce:
+            log_warning("CHKP verdicts from the failed round of %s: %s",
+                        self.name or self.uid, ce)
+
     def _finish_round(self) -> None:
         """The round is over: the retry buffer and the residual snapshot are
         needed only in flight."""
@@ -918,12 +949,16 @@ class CommRequest:
         if chaos._plans:
             chaos.inject("request.test", request=self.name or self.uid, kind=self.desc.kind)
         self.dispatcher.wait_dispatched(self)
+        if self._dispatch_error is not None:
+            self._drain_chkp_logged()
         self._raise_dispatch_error()
         if self._event is not None and not self._event.query():
             return False, None
         self._order_results()
         out = self._assemble()
         self._finish_round()
+        if checker._pending:
+            checker.flush_values()
         tr = obs._tracer
         if tr is not None:
             tr.instant("test.done", "req", track=self._trace_name,

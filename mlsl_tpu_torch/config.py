@@ -11,9 +11,12 @@ with the staging depth it shares with the ZeRO-1 update (comm/overlap.py), and
 the compressed wires beyond int8: the top-k ratio, a user codec, the codec
 registry's knobs and its calibration (codecs/, tuner/calibrate.py), and the
 two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py),
-the device feed's wire, cache, depth and retries (data/), and the serving
+the device feed's wire, cache, depth and retries (data/), the serving
 engine's batch, KV pages, KV budget, queue and int8 KV (serve/) with the
-transient-fault retries its decode step reads.
+transient-fault retries its decode step reads, the fault plane's and the
+telemetry's knobs, the integrity sentinel's (sentinel.py), and the core
+tier: the log level, the device-class defaults (sysinfo.auto_config), the
+kernels' build directory and the reference's parity knobs.
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -51,6 +54,8 @@ _ENV_FIELDS = {
     "MLSL_SERVE_KV_PAGE_ELEMS": "serve_kv_page_elems",
     "MLSL_SERVE_KV_CACHE_MB": "serve_kv_cache_mb",
     "MLSL_SERVE_QUEUE_DEPTH": "serve_queue_depth",
+    "MLSL_NUM_SERVERS": "num_servers",
+    "MLSL_SENTINEL_EVERY": "sentinel_every",
 }
 
 # the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
@@ -77,7 +82,26 @@ def _env_bool(name: str, default: bool) -> bool:
 
 @dataclasses.dataclass
 class Config:
+    # --- the core tier (reference src/env.cpp:26-40) ---
+    # Log level of the package's logger (log.LogLevel: 0 ERROR, 1 INFO,
+    # 2 DEBUG, 3 TRACE), applied by Environment.init.
+    log_level: int = 0              # MLSL_LOG_LEVEL
     enable_stats: bool = False      # MLSL_STATS
+    # Device-class defaults at init (sysinfo.auto_config): 0 = off; any other
+    # value applies the probed class's row to every knob not exported.
+    auto_config_type: int = 0       # MLSL_AUTO_CONFIG_TYPE
+    # Where the CUDA kernels are built and loaded from (ops/cuda_build.py);
+    # '' = build/mlsl_tpu_torch at the root of the checkout.
+    compile_cache_dir: str = ""     # MLSL_COMPILE_CACHE_DIR
+    # Accepted for parity with the reference and read by nothing, as in the
+    # JAX package: the MPI endpoint, server and shared-memory knobs.
+    dup_group: bool = False         # MLSL_DUP_GROUP
+    num_servers: int = 4            # MLSL_NUM_SERVERS
+    max_short_msg_size: int = 0     # MLSL_MAX_SHORT_MSG_SIZE
+    server_affinity: str = ""       # MLSL_SERVER_AFFINITY
+    heap_size_gb: int = 0           # MLSL_HEAP_SIZE_GB
+    alltoall_split: int = 1         # MLSL_ALLTOALL_SPLIT
+    thp_threshold_mb: int = 0       # MLSL_THP_THRESHOLD_MB
     # Session.commit runs every registered request once on zero buffers
     # (Session.precompile_collectives), so the first step builds nothing.
     precompile: bool = False        # MLSL_PRECOMPILE
@@ -257,6 +281,27 @@ class Config:
     trace_dir: str = ""             # MLSL_TRACE_DIR
     trace_capacity: int = 65536     # MLSL_TRACE_CAPACITY
 
+    # --- the integrity sentinel (sentinel.py; config.py:337-362 of the JAX
+    # package), armed on each DataParallelTrainer ---
+    # Step quality gate: '' = off; 'warn' logs and continues, 'skip_step'
+    # drops the step before any comm starts (residuals and data order stay
+    # as if it never ran), 'rollback' raises MLSLIntegrityError. An armed
+    # gate turns the fused no-comm step off (it needs the gradients).
+    sentinel_gate: str = ""         # MLSL_SENTINEL_GATE
+    # Consistency audit interval in steps (0 = off): a blockwise int32
+    # fingerprint of the parameters and optimizer state. A tuned profile may
+    # set it; an exported value wins.
+    sentinel_every: int = 0         # MLSL_SENTINEL_EVERY
+    # Gradient-norm spike screen: fire above this factor times its EMA.
+    sentinel_spike: float = 10.0    # MLSL_SENTINEL_SPIKE
+    # Loss z-score screen: fire beyond this many EMA standard deviations.
+    sentinel_zmax: float = 8.0      # MLSL_SENTINEL_ZMAX
+    # Healthy steps before the spike and z-score screens arm (the
+    # non-finite screen is always armed).
+    sentinel_warmup: int = 5        # MLSL_SENTINEL_WARMUP
+    # Fingerprint block in elements: one int32 sum a block.
+    sentinel_block: int = 4096      # MLSL_SENTINEL_BLOCK
+
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
         into ``_forced_algos`` (comm/algos.select reads it)."""
@@ -374,12 +419,37 @@ class Config:
                     "to be judged; got %d)", self.straggler_every)
         mlsl_assert(self.straggler_sustain >= 1,
                     "MLSL_STRAGGLER_SUSTAIN must be >= 1 (got %d)", self.straggler_sustain)
+        mlsl_assert(self.sentinel_gate in ("", "warn", "skip_step", "rollback"),
+                    "MLSL_SENTINEL_GATE must be '', 'warn', 'skip_step' or 'rollback' "
+                    "(got %r)", self.sentinel_gate)
+        mlsl_assert(self.sentinel_every >= 0,
+                    "MLSL_SENTINEL_EVERY must be >= 0 (got %d)", self.sentinel_every)
+        mlsl_assert(self.sentinel_spike > 1.0,
+                    "MLSL_SENTINEL_SPIKE must be > 1 (got %r)", self.sentinel_spike)
+        mlsl_assert(self.sentinel_zmax > 0,
+                    "MLSL_SENTINEL_ZMAX must be > 0 (got %r)", self.sentinel_zmax)
+        mlsl_assert(self.sentinel_warmup >= 0,
+                    "MLSL_SENTINEL_WARMUP must be >= 0 (got %d)", self.sentinel_warmup)
+        mlsl_assert(self.sentinel_block > 0,
+                    "MLSL_SENTINEL_BLOCK must be > 0 (got %d)", self.sentinel_block)
 
     @staticmethod
     def from_env() -> "Config":
         c = Config()
+        # the knobs exported explicitly: neither a tuned profile nor
+        # sysinfo.auto_config overrides them (reference src/mlsl.cpp:649-682)
         c._explicit = {field for env, field in _ENV_FIELDS.items() if os.environ.get(env)}
+        c.log_level = _env_int("MLSL_LOG_LEVEL", c.log_level)
         c.enable_stats = _env_bool("MLSL_STATS", c.enable_stats)
+        c.auto_config_type = _env_int("MLSL_AUTO_CONFIG_TYPE", c.auto_config_type)
+        c.compile_cache_dir = os.environ.get("MLSL_COMPILE_CACHE_DIR", c.compile_cache_dir)
+        c.dup_group = _env_bool("MLSL_DUP_GROUP", c.dup_group)
+        c.num_servers = _env_int("MLSL_NUM_SERVERS", c.num_servers)
+        c.max_short_msg_size = _env_int("MLSL_MAX_SHORT_MSG_SIZE", c.max_short_msg_size)
+        c.server_affinity = os.environ.get("MLSL_SERVER_AFFINITY", c.server_affinity)
+        c.heap_size_gb = _env_int("MLSL_HEAP_SIZE_GB", c.heap_size_gb)
+        c.alltoall_split = _env_int("MLSL_ALLTOALL_SPLIT", c.alltoall_split)
+        c.thp_threshold_mb = _env_int("MLSL_THP_THRESHOLD_MB", c.thp_threshold_mb)
         c.precompile = _env_bool("MLSL_PRECOMPILE", c.precompile)
         c.gather_device_limit_mb = _env_int("MLSL_GATHER_DEVICE_LIMIT_MB",
                                             c.gather_device_limit_mb)
@@ -447,4 +517,10 @@ class Config:
         c.trace = _env_bool("MLSL_TRACE", c.trace)
         c.trace_dir = os.environ.get("MLSL_TRACE_DIR", c.trace_dir)
         c.trace_capacity = _env_int("MLSL_TRACE_CAPACITY", c.trace_capacity)
+        c.sentinel_gate = os.environ.get("MLSL_SENTINEL_GATE", c.sentinel_gate)
+        c.sentinel_every = _env_int("MLSL_SENTINEL_EVERY", c.sentinel_every)
+        c.sentinel_spike = _env_float("MLSL_SENTINEL_SPIKE", c.sentinel_spike)
+        c.sentinel_zmax = _env_float("MLSL_SENTINEL_ZMAX", c.sentinel_zmax)
+        c.sentinel_warmup = _env_int("MLSL_SENTINEL_WARMUP", c.sentinel_warmup)
+        c.sentinel_block = _env_int("MLSL_SENTINEL_BLOCK", c.sentinel_block)
         return c

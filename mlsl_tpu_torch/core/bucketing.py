@@ -42,8 +42,12 @@ a DEGRADE event, and fresh rounds run individually until the cooldown admits
 a half-open probe round, whose success re-closes the breaker. With the
 tracer armed, a dispatched round's pack and Start is a ``bucket.pack`` span.
 
-Not ported: the ``checker`` hook (ROADMAP A.7b) and the stats' round-event
-ring (nothing reads it).
+With ``MLSL_CHKP`` set, a member's buffer is checked against its own
+request's descriptor as it registers (``checker.check_buffer``), before it
+joins the packed round, so a bad buffer is named as that member's; a
+declined round runs the member's own request, whose Start checks it.
+
+Not ported: the stats' round-event ring (nothing reads it).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from mlsl_tpu_torch import supervisor
+from mlsl_tpu_torch import checker, supervisor
 from mlsl_tpu_torch.comm import quant_ring
 from mlsl_tpu_torch.comm.collectives import group_key
 from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
@@ -236,6 +240,12 @@ class GradBucket:
                 # registering keep registering, so that an admitted round
                 # completes or fails as a unit.
                 return False
+            chkp = checker.level()
+            if chkp:
+                # the member's buffer against ITS OWN descriptor, on the
+                # registering path only (a declined round's individual Start
+                # checks it itself; checking here too would count it twice)
+                checker.check_buffer(buf, getattr(ps, self.req_attr).desc, chkp)
             self._bufs[i] = buf  # a pre-dispatch restart supersedes
             if len(self._bufs) == len(self.members):
                 ordered = [self._bufs[j] for j in range(len(self.members))]

@@ -5,8 +5,10 @@ src/mlsl.cpp:684-812). ``init`` builds no process world: it fixes the device
 and the number of virtual ranks that live on it (see comm/mesh.py). The device
 is CUDA unless the caller asks for the CPU explicitly; without CUDA, a default
 ``init()`` raises instead of falling back. As in the JAX package
-(environment.py:114), ``init`` validates the configuration and then loads the
-tuned profile, if one is named.
+(environment.py:80-114), ``init`` applies the log level and the device
+class's defaults (``MLSL_AUTO_CONFIG_TYPE``), validates the configuration,
+points the kernel builds at ``compile_cache_dir`` and then loads the tuned
+profile, if one is named.
 
 ``configure("color=...")`` restricts the world as the reference's
 Configure does (src/mlsl.cpp:620-647): one value keeps every rank, one value a
@@ -23,7 +25,7 @@ import torch
 
 from mlsl_tpu_torch.comm.request import CommRequest, Dispatcher, RequestStorage
 from mlsl_tpu_torch.config import Config
-from mlsl_tpu_torch.log import MLSLError, mlsl_assert
+from mlsl_tpu_torch.log import MLSLError, mlsl_assert, set_log_level
 from mlsl_tpu_torch.types import DataType, PhaseType, QuantParams, torch_dtype
 
 
@@ -76,15 +78,24 @@ class Environment:
 
             cpu_exp.warm(dev)   # before any CPU path's first exp (ROADMAP C.3)
         mlsl_assert(world_size >= 1, "world_size must be >= 1 (got %d)", world_size)
+        from mlsl_tpu_torch import supervisor, sysinfo, tuner
+        from mlsl_tpu_torch.ops import cuda_build
+
+        # the JAX package's order (environment.py:80-86): the log level, the
+        # device class's defaults (explicit exports win), then validation
         config = Config.from_env()
+        set_log_level(config.log_level)
+        sysinfo.auto_config(config, sysinfo.probe(dev.index) if dev.type == "cuda"
+                            else sysinfo.SysInfo("cpu", "cpu", 0, (), 0))
         config.validate()
         # the breakers are process-wide and keep their state across a
         # rebuild, but adopt the validated thresholds
-        from mlsl_tpu_torch import supervisor, tuner
-
         supervisor.configure(config)
         # chaos_spec, trace*, lock_witness*, straggler_*, profile_on_trip
         supervisor.configure_fault_plane(config)
+        # the kernels' build directory (compile_cache_dir) before the sweep,
+        # which builds every kernel it times
+        cuda_build.configure(config)
 
         tuner.init_profile(config, world_size, dev)
         self.config = config
@@ -111,9 +122,8 @@ class Environment:
             try:
                 self.set_quantization_params(self.quant_params)
             except Exception:
-                from mlsl_tpu_torch import supervisor
-
                 supervisor.configure_fault_plane(None)
+                cuda_build.configure(None)
                 self._initialized = False
                 self.dispatcher.shutdown()
                 self.dispatcher = None
@@ -139,6 +149,9 @@ class Environment:
         from mlsl_tpu_torch import supervisor
 
         supervisor.configure_fault_plane(None)
+        from mlsl_tpu_torch.ops import cuda_build
+
+        cuda_build.configure(None)
         self._initialized = False
         Environment._instance = None
 

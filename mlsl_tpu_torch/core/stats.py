@@ -20,7 +20,7 @@ include/mlsl.hpp:651-726, src/mlsl_impl_stats.cpp):
 - ``print_``: the table appended to ``mlsl_stats.log`` (``MLSL_STATS_DIR``,
   default the working directory; reference :226-363), for the counters this
   package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, FEED, ALGO,
-  OVERLAP ENGINE, CODEC and SERVE ENGINE lines.
+  OVERLAP ENGINE, SENTINEL, CODEC, SERVE ENGINE and CHKP lines.
 
 Also the process-wide counters of the dispatch layer: bucket rounds of
 gradient bucketing (stats.py:131-175), launches per (kind, algorithm) and the
@@ -34,11 +34,12 @@ appends an immediate SERVE line), and the fault plane's (stats.py:49-130,
 ``torch.profiler`` trace on a trip, the recovery ladder (DEGRADE: breaker
 transitions, degraded dispatches, retries; a guardrail demotion is filed
 there too), straggler audits (STRAGGLER), the lock witness (LOCKWITNESS) and
-analysis verdicts (ANALYSIS). The JAX package's table also prints the
-sentinel (SENTINEL), the elastic mesh (ELASTIC), the control plane (CONTROL)
-and checkpoint checks (CHKP); those subsystems are not ported yet (ROADMAP
-A.7b, A.7c), so their counters and lines are left out, as are the span
-tracer's wait-stall percentiles in the OVERLAP and BUCKET lines.
+analysis verdicts (ANALYSIS), and the integrity layer's (stats.py:239-270,
+355-373): the sentinel's gate and audits (SENTINEL) and the buffer
+checker's checks (CHKP). The JAX package's table also prints the elastic
+mesh (ELASTIC) and the control plane (CONTROL); those subsystems are not
+ported yet (ROADMAP A.7c), so their counters and lines are left out, as are
+the span tracer's wait-stall percentiles in the OVERLAP and BUCKET lines.
 """
 
 from __future__ import annotations
@@ -389,6 +390,53 @@ def record_analysis(kind: str, errors: int, warnings: int,
 def reset_analysis_counters() -> None:
     for k in ANALYSIS_COUNTERS:
         ANALYSIS_COUNTERS[k] = 0
+
+
+# Integrity-sentinel accounting (sentinel.py; stats.py:239-270 of the JAX
+# package): gate screens and fires, consistency audits -- process-wide like
+# the degrade counters (the sentinel fires from the trainer with no Session
+# handle); the SENTINEL line of print_ and the mlsl_sentinel_* family.
+SENTINEL_COUNTERS: Dict[str, int] = {
+    "screened": 0,        # steps the quality gate inspected
+    "gate_warn": 0,       # gate fired with response 'warn' (the run went on)
+    "gate_skip": 0,       # gate fired with response 'skip_step'
+    "gate_rollback": 0,   # gate fired with response 'rollback' (raised)
+    "audits": 0,          # consistency audits run
+    "audit_mismatch": 0,  # audits that found per-rank copies diverged
+    "verified_saves": 0,  # checkpoint fingerprints given with a passing audit
+    "reaudits": 0,        # post-restore re-audits (A.7c's recovery)
+}
+
+
+def record_sentinel(event: str) -> None:
+    """One sentinel event: a key of SENTINEL_COUNTERS."""
+    SENTINEL_COUNTERS[event] += 1
+
+
+def reset_sentinel_counters() -> None:
+    for k in SENTINEL_COUNTERS:
+        SENTINEL_COUNTERS[k] = 0
+
+
+# Buffer-checker accounting (checker.py; stats.py:355-373 of the JAX
+# package): buffers checked, violations, and the host reads the batched
+# finiteness verdicts paid (value_checks >> value_syncs on a many-request
+# round); the CHKP line of print_ and the mlsl_chkp_* family.
+CHKP_COUNTERS: Dict[str, int] = {
+    "checks": 0,        # buffers checked (layout, length, dtype)
+    "violations": 0,    # checks that raised (either level)
+    "value_checks": 0,  # finiteness verdicts queued (MLSL_CHKP=2)
+    "value_syncs": 0,   # host reads paid to resolve them
+}
+
+
+def record_chkp(event: str, n: int = 1) -> None:
+    CHKP_COUNTERS[event] += n
+
+
+def reset_chkp_counters() -> None:
+    for k in CHKP_COUNTERS:
+        CHKP_COUNTERS[k] = 0
 
 
 # Straggler-sentinel accounting (obs/straggler.py): cross-replica
@@ -852,6 +900,19 @@ class Statistics:
                 f"units {oc['units']} rounds {oc['rounds']} "
                 f"bytes {oc['bytes'] / 1e6:.1f} MB"
             )
+        sc = SENTINEL_COUNTERS
+        if any(sc.values()):
+            # one grep ('SENTINEL') answers "did this run's state stay
+            # trustworthy"
+            lines.append(
+                f"{'SENTINEL':<16} {'GATE':<8} "
+                f"screened {sc['screened']} "
+                f"warn {sc['gate_warn']} skip {sc['gate_skip']} "
+                f"rollback {sc['gate_rollback']} audits {sc['audits']} "
+                f"mismatch {sc['audit_mismatch']} "
+                f"verified_saves {sc['verified_saves']} "
+                f"reaudits {sc['reaudits']}"
+            )
         xc = CODEC_COUNTERS
         if any(xc.values()) or CODEC_WIRE_BYTES:
             wire = " ".join(f"{name}={n}" for name, n in sorted(CODEC_WIRE_BYTES.items()))
@@ -881,6 +942,14 @@ class Statistics:
                 f"sheds {int(vc['shed_batch'])}b/{int(vc['shed_precision'])}p/"
                 f"{int(vc['shed_admission'])}a "
                 f"recoveries {int(vc['recoveries'])}"
+            )
+        kc = CHKP_COUNTERS
+        if any(kc.values()):
+            lines.append(
+                f"{'CHKP':<16} {'BUFFERS':<8} checks {kc['checks']} "
+                f"violations {kc['violations']} "
+                f"value_checks {kc['value_checks']} "
+                f"value_syncs {kc['value_syncs']}"
             )
         gc = STRAGGLER_COUNTERS
         if any(gc.values()):

@@ -26,12 +26,15 @@ Source forms:
 ``shuffle_seed`` needs a sequence source: a stream cannot replay out of order.
 
 The ``data.prefetch`` chaos site fires at every host read, before the source
-is touched (feed.py:122-150 of the JAX package): ``error`` / ``delay`` /
-``hang`` act there, and a TRANSIENT error retries as a failed read does. The
-``bitrot`` kind, which rots the wire payload through the codec and the cache,
-and the checkpoint-level finiteness check of decoded batches wait for
-ROADMAP A.7b (``_checked_decode`` is where the check goes); a ``bitrot`` plan
-stays armed here.
+is touched (feed.py:122-215 of the JAX package): ``error`` / ``delay`` /
+``hang`` act there, and a TRANSIENT error retries as a failed read does. A
+fired ``bitrot`` plan rots that read: the batch is staged with
+``stage(corrupt=True)`` (its wire payload's first bytes flipped, through the
+codec and, when it is cached, the cache), and on a streaming epoch the cache
+hit is skipped so that the rot is what is served; a clean copy the cache
+already holds stays pinned. Under ``MLSL_CHKP=2`` every float leaf of a
+decoded batch must be finite (``checker.check_feed_batch``, one host read a
+batch on the consumer's thread).
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from mlsl_tpu_torch import chaos
+from mlsl_tpu_torch import chaos, checker
 from mlsl_tpu_torch.data.cache import FeedCache
 from mlsl_tpu_torch.data.common import env_default as _env_default, retry_or_raise
 from mlsl_tpu_torch.data.wire import FeedCodec
@@ -113,23 +116,27 @@ class DeviceFeed:
 
     def _read_host(self, index: Optional[int], it):
         """One host batch (a sequence index, or an iterator step) with the
-        chaos site and the TRANSIENT-retry loop. A fault at the site fires
-        before the source is touched, so it retries for either source. Only
-        a sequence read is attempted again after the source failed: an
-        iterator whose frame raised is dead (next() would give StopIteration,
-        which ``_drive`` would read as a truncated epoch), so its failure
-        propagates at once with the original exception."""
+        chaos site and the TRANSIENT-retry loop. -> (host batch, whether a
+        ``bitrot`` plan fired). A fault at the site fires before the source
+        is touched, so it retries for either source. Only a sequence read is
+        attempted again after the source failed: an iterator whose frame
+        raised is dead (next() would give StopIteration, which ``_drive``
+        would read as a truncated epoch), so its failure propagates at once
+        with the original exception."""
         attempt = 0
         while True:
+            fired = None
             if chaos._plans:
                 try:
-                    chaos.inject("data.prefetch", kinds=("error", "delay", "hang"),
-                                 batch=index)
+                    fired = chaos.inject("data.prefetch",
+                                         kinds=("error", "delay", "hang", "bitrot"),
+                                         batch=index)
                 except BaseException as e:
                     attempt = retry_or_raise(e, attempt, self.retries, 0.05)
                     continue
             try:
-                return self._seq[index] if it is None else next(it)
+                host = self._seq[index] if it is None else next(it)
+                return host, (fired is not None and fired.kind == "bitrot")
             except StopIteration:
                 raise
             except BaseException as e:
@@ -145,9 +152,15 @@ class DeviceFeed:
         return self._checked_decode(wire_batch, donate)
 
     def _checked_decode(self, wire_batch, donate):
-        """The decode; the place of the JAX package's finiteness check of a
-        decoded batch (its checkpoint levels are not ported yet)."""
-        return self.codec.decode(wire_batch, donate=donate)
+        """The decode and the checker's boundary: under ``MLSL_CHKP=2`` every
+        float leaf of the decoded batch is checked finite (one host read), so
+        that a wire or cache fault surfaces here and not as a poisoned
+        gradient."""
+        batch = self.codec.decode(wire_batch, donate=donate)
+        lvl = checker.level()
+        if lvl >= checker.CHKP_VALUES:
+            checker.check_feed_batch(batch, lvl)
+        return batch
 
     @property
     def cache_complete(self) -> bool:
@@ -176,8 +189,10 @@ class DeviceFeed:
         stays aligned with its source, and the cache then only saves the copy;
         random access skips the host read on a hit."""
         if it is not None:
-            host = self._read_host(None, it)
-            if self.cache is not None:
+            host, rot = self._read_host(None, it)
+            # a fired bitrot is what is served: skip the cache hit (the
+            # clean copy stays pinned -- a transient rot, not a poisoned pin)
+            if self.cache is not None and not rot:
                 cached = self.cache.get(key)
                 if cached is not None:
                     return cached, False
@@ -186,8 +201,8 @@ class DeviceFeed:
                 cached = self.cache.get(key)
                 if cached is not None:
                     return cached, False
-            host = self._read_host(key, None)
-        wire_batch, _, _ = self.codec.stage(host)
+            host, rot = self._read_host(key, None)
+        wire_batch, _, _ = self.codec.stage(host, corrupt=rot)
         kept = self.cache is not None and self.cache.put(key, wire_batch)
         return wire_batch, not kept
 

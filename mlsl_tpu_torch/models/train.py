@@ -39,20 +39,40 @@ element order (see convert.py), zero-padded to the parameter set's local
 count. When Commit shows that no parameter set communicates (one data rank),
 the step is fused: one forward/backward and the update, no requests --
 unless ``force_graph_path`` asks for the graph. ``step_accum`` sums the
-gradients of several micro-batches before one sync. The sentinel, straggler
-detection and telemetry are not ported yet.
+gradients of several micro-batches before one sync.
+
+The trainer's hooks (train.py:345-395, 908-1035, 1107-1127): the integrity
+sentinel (``self.sentinel``, armed by ``MLSL_SENTINEL_GATE`` /
+``MLSL_SENTINEL_EVERY``) screens each step's per-rank loss and gradients
+between the gradient computation and any comm (``_screen``); ``skip_step``
+returns the loss with no comm started, so error-feedback residuals and the
+data order stay as if the step never ran. An armed gate turns the fused
+step off, and the compiled engine takes its split program (the gradients on
+the host path, the comm and update as the engine's own graph). At step entry
+the ``train.params`` / ``train.opt_state`` chaos sites apply ``silent``
+plans (``sentinel.corrupt_silent``), and ``train.grads`` before the gate.
+The straggler sentinel (``self.straggler``, ``MLSL_STRAGGLER_SKEW``) and the
+metrics registry (``MLSL_METRICS``) take the step's wall time, and on the
+registry's cadence the loss, the gradient norm, the input stall and every
+counter family; with neither armed ``step`` adds nothing and no sync.
+``sentinel.maybe_audit(trainer, step)`` audits ``_audit_state()``; the
+fault-tolerant loop that calls it each step is ROADMAP A.7c's.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from mlsl_tpu_torch import optim
+from mlsl_tpu_torch import chaos, optim
+from mlsl_tpu_torch import sentinel as sentinel_mod
 from mlsl_tpu_torch.comm import collectives
 from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.obs import metrics as obs_metrics
+from mlsl_tpu_torch.obs import straggler as obs_straggler
 from mlsl_tpu_torch.models.convert import tree_leaves
 from mlsl_tpu_torch.types import CompressionType, DataType, OpType
 
@@ -212,8 +232,27 @@ class DataParallelTrainer:
         needs_comm = any(self._pset(n).need_comm for n in self.layers)
         self._needs_comm = needs_comm
         self.distributed_update = distributed_update
-        # fuse the whole step when no parameter set communicates (train.py:388-391)
-        self.fused = not needs_comm and not force_graph_path
+        cfg = env.config
+        # the integrity sentinel and the straggler sentinel, armed from the
+        # Config (MLSL_SENTINEL_*, MLSL_STRAGGLER_*; train.py:345-376)
+        self.sentinel = None
+        self.straggler = None
+        if cfg is not None:
+            if sentinel_mod.armed(cfg):
+                self.sentinel = sentinel_mod.Sentinel.from_config(
+                    cfg, dist.topology.grid_shape)
+            if obs_straggler.armed(cfg):
+                self.straggler = obs_straggler.StragglerSentinel(
+                    skew=cfg.straggler_skew, every=cfg.straggler_every,
+                    sustain=cfg.straggler_sustain, shed=cfg.straggler_shed)
+        # the one process is replica 0 (the JAX package's process index)
+        self._replica_id = 0
+        self._stall_ms_seen = 0.0   # the FEED stall total at the last sample
+        # fuse the whole step when no parameter set communicates
+        # (train.py:388-391); an armed gate screens at the gradient boundary,
+        # which the fused step does not expose
+        self.fused = (not needs_comm and not force_graph_path
+                      and not (self.sentinel is not None and self.sentinel.gate_armed))
         # optimizer state: per layer over each rank's owned shard under ZeRO-1,
         # else one replicated state per layer's flat parameter vector
         self.opt_state: Dict[str, object] = {}
@@ -271,7 +310,6 @@ class DataParallelTrainer:
             mlsl_assert(not overlap_updates,
                         "overlap_compiled replaces overlap_updates (the schedule lives in "
                         "the compiled step, not the host poll loop)")
-        cfg = env.config
         want = (overlap_compiled if overlap_compiled is not None
                 else bool(cfg is not None and cfg.overlap_compiled))
         self._overlap = None
@@ -423,10 +461,136 @@ class DataParallelTrainer:
                                                                   self.opt_state[name])
                 self._add_flat(name, upd)
 
+    # -- the silent-corruption sites and the quality gate ------------------
+
+    def _gate_armed(self) -> bool:
+        return self.sentinel is not None and self.sentinel.gate_armed
+
+    def _chaos_state_sites(self) -> None:
+        """The ``train.params`` / ``train.opt_state`` sites at step entry
+        (train.py:910-935): a fired ``silent`` plan corrupts one element of
+        the live state without raising. The parameters are the one copy every
+        virtual rank reads; ZeRO-1's owned state is per rank, so one rank's
+        shard of one layer is hit."""
+        p = chaos.inject("train.params", step=self._step_no)
+        if p is not None and p.kind == "silent":
+            sentinel_mod.corrupt_silent(self._all_params(), p)
+        if self.opt_state or self.tree_state is not None:
+            # consulted only with state to corrupt: a plan's budget is never
+            # spent on a stateless SGD trainer
+            p = chaos.inject("train.opt_state", step=self._step_no)
+            if p is not None and p.kind == "silent":
+                if self.distributed_update and self._needs_comm:
+                    name = sorted(self.opt_state)[chaos._rng.randrange(len(self.opt_state))]
+                    sentinel_mod.corrupt_silent(self.opt_state[name], p,
+                                                self.dist.topology.grid_shape)
+                else:
+                    sentinel_mod.corrupt_silent((self.opt_state, self.tree_state), p)
+
+    def _screen(self, loss, grads):
+        """The ``train.grads`` site and the quality gate, between the
+        gradients and any comm (train.py:937-962). -> (grads, proceed);
+        proceed False is ``skip_step``: the caller returns the loss with no
+        comm started."""
+        if chaos._plans:
+            p = chaos.inject("train.grads", step=self._step_no)
+            if p is not None and p.kind == "silent":
+                sentinel_mod.corrupt_silent(grads, p, self.dist.topology.grid_shape)
+        if self._gate_armed() and not self.sentinel.gate(loss, grads, None, self._step_no):
+            return grads, False
+        m = obs_metrics._registry
+        if m is not None and self._step_no % m.every == 0:
+            # the gradient norm at the cadence tick: only the host paths
+            # expose a gradient boundary
+            self._record_grad_norm(m, grads)
+        return grads, True
+
+    def _audit_state(self):
+        """The state the consistency audit covers (train.py's
+        ``Sentinel._audit_state``): (replicated, sharded) trees. Replicated:
+        the parameters by layer and the replicated optimizer state, one copy
+        each; sharded: ZeRO-1's owned optimizer state, one shard a rank, whose
+        rank-less leaves (Adam's step count) join the replicated tree."""
+        rep = {"params": {n: list(self.layer_params[n]) for n in self.layers}}
+        sh = {}
+        if self.distributed_update and self._needs_comm:
+            grid = tuple(self.dist.topology.grid_shape)
+            leaves = sentinel_mod.tree_leaves(self.opt_state)
+            sh["du_opt_state"] = [l for l in leaves if tuple(l.shape[:4]) == grid]
+            rest = [l for l in leaves if tuple(l.shape[:4]) != grid]
+            if rest:
+                rep["opt_state"] = rest
+        elif self.opt_state or self.tree_state is not None:
+            rep["opt_state"] = (self.opt_state, self.tree_state)
+        return rep, sh
+
+    # -- telemetry (train.py:964-1035) ---------------------------------------
+
+    def _post_step_telemetry(self, m, loss, t0: float) -> None:
+        """The armed epilogue: the step's wall time into ``mlsl_step_ms`` and
+        the straggler sentinel, and the cadence tick every ``m.every``
+        steps."""
+        step_ms = (time.perf_counter() - t0) * 1e3
+        if m is not None:
+            m.observe("mlsl_step_ms", step_ms)
+            if self._step_no % m.every == 0:
+                self._sample_telemetry(m, loss)
+        if self.straggler is not None:
+            self.straggler.observe(self._replica_id, step_ms)
+            self.straggler.maybe_audit(self._step_no)
+
+    def _sample_telemetry(self, m, loss) -> None:
+        """One cadence tick: the mean loss over the ranks (one host read), the
+        input stall since the last tick, every counter family, one sample a
+        series, and the JSONL append."""
+        from mlsl_tpu_torch.core import stats as stats_mod
+
+        m.set("mlsl_loss", float(loss.detach().float().mean()))
+        stall = float(stats_mod.FEED_COUNTERS["stall_ms"])
+        m.set("mlsl_input_stall_ms", max(0.0, stall - self._stall_ms_seen))
+        self._stall_ms_seen = stall
+        m.sample_families()
+        m.write_jsonl(records=m.sample())
+
+    def _record_grad_norm(self, m, grads) -> None:
+        """The gradient norm over every rank's local gradients at the cadence
+        tick (one host read)."""
+        sq = sum(g.float().square().sum() for g in grads.values())
+        m.set("mlsl_grad_norm", float(torch.sqrt(sq)))
+
+    # -- the step ----------------------------------------------------------
+
     def step(self, batch) -> torch.Tensor:
         """One training step. -> the loss: per rank (R, D, S, M, 1) on the graph
-        path, a scalar on the fused path."""
+        path, a scalar on the fused path. With neither the metrics registry
+        nor the straggler sentinel armed this is a pass-through; armed, the
+        step's wall time and the cadence tick follow it."""
+        m = obs_metrics._registry
+        if m is None and self.straggler is None:
+            return self._step_impl(batch)
+        t0 = time.perf_counter()
+        loss = self._step_impl(batch)
+        self._post_step_telemetry(m, loss, t0)
+        return loss
+
+    def step_accum(self, batches: Sequence) -> torch.Tensor:
+        """Gradient accumulation (train.py:1038-1077): k local
+        forward/backward passes, ONE gradient sync and update. Each entry of
+        ``batches`` is a ``shard_batch`` result with the same local batch
+        size; the gradients and losses are summed in order and divided by k.
+        -> the mean loss per rank (R, D, S, M, 1)."""
+        m = obs_metrics._registry
+        if m is None and self.straggler is None:
+            return self._step_accum_impl(batches)
+        t0 = time.perf_counter()
+        loss = self._step_accum_impl(batches)
+        self._post_step_telemetry(m, loss, t0)
+        return loss
+
+    def _step_impl(self, batch) -> torch.Tensor:
         self._step_no += 1
+        if chaos._plans:
+            self._chaos_state_sites()
         if self.fused:
             x, y = batch
             c = (0, 0, 0, 0)
@@ -436,28 +600,35 @@ class DataParallelTrainer:
                     for n in self.layers}
             self._replicated_update(flat, 1.0)
             return loss.detach()
-        if self._overlap is not None:
+        if self._overlap is not None and not self._gate_armed():
             return self._overlap.step(batch)
         loss, grads = self._local_grads(batch)
+        grads, proceed = self._screen(loss, grads)
+        if not proceed:
+            return loss
+        if self._overlap is not None:
+            # the gated engine: the screened gradients ride its split program
+            self._overlap.step(None, grads=grads)
+            return loss
         return self._sync_and_update(grads, loss)
 
-    def step_accum(self, batches: Sequence) -> torch.Tensor:
-        """Gradient accumulation (train.py:1038-1077): k local
-        forward/backward passes, ONE gradient sync and update. Each entry of
-        ``batches`` is a ``shard_batch`` result with the same local batch
-        size; the gradients and losses are summed in order and divided by k.
-        -> the mean loss per rank (R, D, S, M, 1)."""
+    def _step_accum_impl(self, batches: Sequence) -> torch.Tensor:
         mlsl_assert(len(batches) >= 1, "step_accum needs at least one batch")
         mlsl_assert(not self.fused, "step_accum takes the graph path (use "
                     "force_graph_path=True on a grid without communication)")
         self._step_no += 1
+        if chaos._plans:
+            self._chaos_state_sites()
         total = loss_sum = None
         for b in batches:
             loss, grads = self._local_grads(b)
             total = grads if total is None else {n: total[n] + grads[n] for n in self.layers}
             loss_sum = loss if loss_sum is None else loss_sum + loss
         k = len(batches)
-        grads, loss = {n: g / k for n, g in total.items()}, loss_sum / k
+        loss = loss_sum / k
+        grads, proceed = self._screen(loss, {n: g / k for n, g in total.items()})
+        if not proceed:
+            return loss
         if self._overlap is not None:
             # the accumulated gradients ride the engine's split program
             self._overlap.step(None, grads=grads)

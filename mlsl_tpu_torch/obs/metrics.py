@@ -1,9 +1,9 @@
 """Process-wide typed time-series metrics: the telemetry plane's data model.
 
 Counterpart of ``mlsl_tpu.obs.metrics``, by adapted copy. The sampler reads
-the counter families the port keeps (BUCKET, FEED, DEGRADE, OVERLAP,
-ANALYSIS, STRAGGLER, SERVE, CODEC, LOCKWITNESS); the SENTINEL, ELASTIC and
-CHKP families wait for their subsystems (ROADMAP A.7b, A.7c).
+the counter families the port keeps (BUCKET, FEED, SENTINEL, DEGRADE,
+OVERLAP, ANALYSIS, CHKP, STRAGGLER, SERVE, CODEC, LOCKWITNESS); the ELASTIC
+family waits for its subsystem (ROADMAP A.7c).
 
 The span tracer (``obs/tracer.py``) answers *which request stalled and when*;
 the ``core/stats.py`` counter families answer *how much, in total, since
@@ -310,9 +310,11 @@ class MetricsRegistry:
         for fam, d in (
             ("bucket", st.BUCKET_COUNTERS),
             ("feed", st.FEED_COUNTERS),
+            ("sentinel", st.SENTINEL_COUNTERS),
             ("degrade", st.DEGRADE_COUNTERS),
             ("overlap", st.OVERLAP_COUNTERS),
             ("analysis", st.ANALYSIS_COUNTERS),
+            ("chkp", st.CHKP_COUNTERS),
             ("straggler", st.STRAGGLER_COUNTERS),
             ("serve", st.SERVE_COUNTERS),
             ("codec", st.CODEC_COUNTERS),

@@ -1,12 +1,24 @@
 """Build the package's CUDA kernels with nvcc and bind them with ctypes.
 
 Every kernel source under ``mlsl_tpu_torch/csrc/`` exposes a plain C
-interface; it is compiled at first use into a shared library under
-``build/mlsl_tpu_torch/`` at the root of the checkout (git-ignored) and
-loaded with ``ctypes``. A library's file name carries a hash of its source,
-of every header it includes from ``csrc/`` and of the flags, so an edited
-source or header builds anew and an unchanged one is reused.
-``build_all`` starts one nvcc per source, all at once.
+interface; it is compiled at first use into a shared library in the build
+directory and loaded with ``ctypes``. A library's file name carries a hash
+of its source, of every header it includes from ``csrc/`` and of the flags,
+so an edited source or header builds anew, an unchanged one is reused, and
+a stale library is never loaded. ``build_all`` starts one nvcc per source,
+all at once.
+
+The build directory is the port's compile cache, the counterpart of the JAX
+package's persistent XLA cache (``MLSL_COMPILE_CACHE_DIR``,
+``mlsl_tpu/core/environment.py:213-240``): ``Config.compile_cache_dir`` of
+the initialized Environment (handed over by ``configure``), else the
+environment variable; empty means ``build/mlsl_tpu_torch/`` at the root of
+the checkout (git-ignored). A cold process fills the directory, a warm one
+loads from it without running nvcc. The toggle is symmetric across
+init/finalize cycles: an Environment without the knob builds in the default
+directory again. A library already loaded in a process stays loaded (a
+process cannot unload it), so a change of directory applies to the sources
+not loaded yet.
 
 Nothing here runs at import: this module is imported on machines without
 nvcc or a card, where only the kernels' plain versions are used.
@@ -45,9 +57,26 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}   # name -> nvcc output (ptxas register/spill report)
 
 
+#: ``build/mlsl_tpu_torch`` beside the package, at the root of the checkout
+DEFAULT_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mlsl_tpu_torch"
+
+# the initialized Environment's Config (Environment.init hands it over,
+# finalize takes it back): its compile_cache_dir is read at each use
+_config = None
+
+
+def configure(config=None) -> None:
+    global _config
+    _config = config
+
+
 def build_dir() -> Path:
-    """``build/mlsl_tpu_torch`` beside the package, at the root of the checkout."""
-    return Path(__file__).resolve().parents[2] / "build" / "mlsl_tpu_torch"
+    """Where the libraries are built and loaded from: the compile cache
+    directory when one is set (the live Config's ``compile_cache_dir``, else
+    ``MLSL_COMPILE_CACHE_DIR``), else :data:`DEFAULT_BUILD_DIR`."""
+    d = (_config.compile_cache_dir if _config is not None
+         else os.environ.get("MLSL_COMPILE_CACHE_DIR", ""))
+    return Path(d).expanduser().resolve() if d else DEFAULT_BUILD_DIR
 
 
 def nvcc_path() -> str:

@@ -321,14 +321,6 @@ def configure(config=None, threshold: Optional[int] = None,
                 br.cooldown_s = float(cooldown_s)
 
 
-def _never_armed_sentinel() -> dict:
-    """What the JAX package's ``sentinel.status()`` reports before the
-    integrity sentinel ever ran (ROADMAP A.7b ports it)."""
-    return {"state": "idle", "screened": 0, "gate_warn": 0, "gate_skip": 0,
-            "gate_rollback": 0, "audits": 0, "audit_mismatch": 0,
-            "verified_saves": 0, "reaudits": 0}
-
-
 def _never_armed_elastic() -> dict:
     """What the JAX package's ``elastic.status()`` reports with no shrink
     ever made (ROADMAP A.7c ports the elastic mesh): the whole world active,
@@ -355,10 +347,11 @@ def status() -> Dict[str, dict]:
     - ``serve``: the live serving engine's SLA ladder ({"state": "off"} with
       none);
     - ``codecs``: the codec registry, its guardrail and demotions;
-    - ``sentinel``, ``elastic``, ``control``: their subsystems are not
-      ported yet (ROADMAP A.7b, A.7c); they hold what the JAX package
-      reports when that subsystem was never armed (sentinel "idle" with zero
-      counters, elastic "full" over the Environment's world, control
+    - ``sentinel``: the integrity sentinel's counters and last audit
+      (``sentinel.status()``);
+    - ``elastic``, ``control``: their subsystems are not ported yet (ROADMAP
+      A.7c); they hold what the JAX package reports when that subsystem was
+      never armed (elastic "full" over the Environment's world, control
       "off")."""
     out = {}
     for name in sorted(set(SUBSYSTEMS) | set(_breakers)):
@@ -370,9 +363,10 @@ def status() -> Dict[str, dict]:
     from mlsl_tpu_torch.obs import metrics as _metrics
     from mlsl_tpu_torch.obs import straggler as _straggler
     from mlsl_tpu_torch import codecs as _codecs
+    from mlsl_tpu_torch import sentinel as _sentinel
     from mlsl_tpu_torch.serve import sla as _sla
 
-    out["sentinel"] = _never_armed_sentinel()
+    out["sentinel"] = _sentinel.status()
     out["analysis"] = _analysis.status()
     out["elastic"] = _never_armed_elastic()
     out["straggler"] = _straggler.status()
@@ -422,8 +416,10 @@ def reset_all() -> None:
     stopped, the straggler sentinel, the lock witness and the analysis
     verdicts dropped, and the fault plane's counters at 0. The port's tests
     call it after every test (they share worker processes with the JAX
-    package's tests) and ``chip_smoke.py`` between the parts of run (z)."""
-    from mlsl_tpu_torch import chaos
+    package's tests) and ``chip_smoke.py`` between the parts of runs (z)
+    and (aa). The integrity layer goes back too: the sentinel's counters and
+    last audit, the checker's queued verdicts and counters."""
+    from mlsl_tpu_torch import chaos, checker, sentinel
     from mlsl_tpu_torch.analysis import diagnostics, witness as _witness
     from mlsl_tpu_torch.config import Config
     from mlsl_tpu_torch.core import stats as stats_mod
@@ -449,3 +445,6 @@ def reset_all() -> None:
     stats_mod.reset_lock_witness_counters()
     stats_mod.reset_analysis_counters()
     stats_mod.WATCHDOG_EVENTS.clear()
+    sentinel.reset()
+    checker.clear()
+    stats_mod.reset_chkp_counters()

@@ -104,7 +104,7 @@ from mlsl_tpu_torch.core import stats
 from mlsl_tpu_torch.models import resnet
 from mlsl_tpu_torch.models import transformer as tfm
 from mlsl_tpu_torch.models.train import DataParallelTrainer
-from mlsl_tpu_torch.ops.cuda_build import build_dir
+from mlsl_tpu_torch.ops.cuda_build import DEFAULT_BUILD_DIR
 from mlsl_tpu_torch.ops import a2a_kernels as a2a
 from mlsl_tpu_torch.ops import attention_kernels as ak
 from mlsl_tpu_torch.ops import quant_kernels as qk
@@ -430,7 +430,7 @@ def main(argv=None) -> int:
                     help="a transformer step with the LM head sharded over the model axis")
     ap.add_argument("--overlap-compiled", action="store_true",
                     help="the resnet step on the compiled overlap engine, one CUDA graph")
-    ap.add_argument("--trace", default=str(build_dir() / "profile_step.trace.json"),
+    ap.add_argument("--trace", default=str(DEFAULT_BUILD_DIR / "profile_step.trace.json"),
                     help="where the Chrome trace is written (default: the git-ignored "
                          "build directory of the checkout)")
     args = ap.parse_args(argv)

@@ -53,6 +53,9 @@ KNOB_RANGES = {
     "serve_kv_page_elems": 1,
     "serve_kv_cache_mb": 1,
     "serve_queue_depth": 1,
+    # the integrity sentinel's audit interval (0 = off); an exported
+    # MLSL_SENTINEL_EVERY wins
+    "sentinel_every": 0,
 }
 
 

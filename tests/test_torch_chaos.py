@@ -160,8 +160,9 @@ SITE_CONFIGS = {
     "data.prefetch": ("plain", 3),
     "device.lost": ("plain", 3),
 }
-# registered for the integrity, recovery and control layers (ROADMAP A.7b,
-# A.7c) and the serving engine (tests/test_torch_serve.py)
+# consumed by the trainer (train.*: tests/test_torch_integrity.py), by the
+# recovery and control layers (ROADMAP A.7c) and by the serving engine
+# (tests/test_torch_serve.py)
 LATER_SITES = {"checkpoint.save", "checkpoint.restore", "train.params", "train.opt_state",
                "train.grads", "control.heartbeat", "control.notice"}
 SERVE_SITES = {"serve.admit", "serve.decode"}

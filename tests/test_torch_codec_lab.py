@@ -24,11 +24,10 @@ Tolerances:
   int8 request fed the flushed payload.
 
 The two-tier DCN hop (``test_hier_dcn_hop_through_registry``) is held in
-tests/test_torch_hier.py. Not mirrored, because they need modules this
-package has not ported: the sentinel's feed into ``guard_note``
-(``test_sentinel_gate_feeds_guardrail``) and ``supervisor.status()``
-(``test_supervisor_status_codecs_section``; ``codecs.status()`` is tested
-instead), both ROADMAP A.7, and the codec-lab bench smoke.
+tests/test_torch_hier.py; the sentinel's feed into ``guard_note``
+(``test_sentinel_gate_feeds_guardrail``) through the port's sentinel. Not
+mirrored: ``test_supervisor_status_codecs_section`` (``codecs.status()`` is
+tested instead) and the codec-lab bench smoke.
 """
 
 import json
@@ -597,6 +596,53 @@ def test_explicit_codec_blocks_calibrated_assignment(tenv):
     tenv.config.codec_assignment = {"g": {"codec": "prune", "params": {"ratio": 0.05}}}
     req = _req(tenv, tenv.create_distribution(8, 1), 512, name="g")
     assert req.codec_name == "int8" and req.codec_source == "env"
+
+
+def test_sentinel_gate_feeds_guardrail(monkeypatch):
+    """tests/test_codec_lab.py:647 through the port's sentinel: a pinned loss
+    EMA makes every screened step a z-score outlier, and after
+    ``codec_guard_breaches`` screens in a row the calibrated request demotes
+    to int8, with no training-loop plumbing."""
+    import jax
+
+    from mlsl_tpu.models.mlp import init as mlp_init
+    from mlsl_tpu_torch import sentinel, supervisor
+    from mlsl_tpu_torch.models import mlp as tmlp
+    from mlsl_tpu_torch.models.convert import params_from_jax
+    from mlsl_tpu_torch.models.train import DataParallelTrainer
+
+    for k, v in (("MLSL_SENTINEL_GATE", "warn"), ("MLSL_SENTINEL_WARMUP", "1"),
+                 ("MLSL_SENTINEL_ZMAX", "3"), ("MLSL_CODEC_GUARD_BREACHES", "2")):
+        monkeypatch.setenv(k, v)
+    e = Environment.get_env().init(device="cpu", world_size=8)
+    try:
+        dist = e.create_distribution(8, 1)
+        sess = e.create_session()
+        sess.set_global_minibatch_size(16)
+        host = jax.tree.map(np.asarray, mlp_init(jax.random.PRNGKey(0)))
+        tr = DataParallelTrainer(e, dist, sess,
+                                 tmlp.MLP(device="cpu", params=params_from_jax(host, "cpu")),
+                                 tmlp.loss_fn, tmlp.LAYERS, tmlp.get_layer, lr=0.1)
+        req = _calibrated_prune_req(e, dist, 512, name="guarded")
+        assert codecs.guard_active()
+
+        def batch(step):
+            rng = np.random.default_rng(step)
+            return (rng.normal(size=(16, 8)).astype(np.float32),
+                    rng.integers(0, 4, size=(16,)).astype(np.int32))
+
+        tr.step(tr.shard_batch(*batch(0)))      # warmup: the EMA seeds
+        for step, demoted in ((1, False), (2, True)):
+            tr.sentinel._loss_mean = 1e6        # every later loss is an outlier
+            tr.sentinel._loss_var = 1.0
+            tr.step(tr.shard_batch(*batch(step)))
+            assert req._codec_demoted is demoted
+        assert req.codec_name == "int8"
+        assert stats.SENTINEL_COUNTERS["gate_warn"] == 2
+    finally:
+        e.finalize()
+        sentinel.reset()
+        supervisor.reset_all()
 
 
 # -- the guardrail ---------------------------------------------------------------

@@ -16,8 +16,9 @@ The same seeded numpy batches go through both packages: the JAX side on the
   retries, dead generators, ``place`` refused over a DeviceFeed) and the
   FEED line of ``mlsl_stats.log``.
 
-The JAX tests of the chaos sites, the bitrot trigger and the tracer spans are
-not ported (those subsystems are not in the port yet).
+The chaos sites (error, delay, hang and the bitrot trigger), the tracer's
+spans and the checker's check of decoded batches (``MLSL_CHKP=2``) are held
+against the JAX package's in the fault-plane section at the end.
 """
 
 import time
@@ -855,14 +856,96 @@ def test_loader_does_not_double_fire_chaos_over_devicefeed(tenv, fault_plane):
 
 
 def test_feed_bitrot_plans_stay_armed(tenv, fault_plane):
-    """The bitrot kind waits for ROADMAP A.7b: the feed's reads neither fire
-    nor spend a bitrot plan."""
+    """A bitrot plan is the feed's since ROADMAP A.7b: each read passes it and
+    spends its budget; an unlimited plan stays armed and rots every read."""
     from mlsl_tpu_torch import chaos
 
     tt = tenv.create_distribution(8, 1).topology
-    p = chaos.plan("data.prefetch", "bitrot")
-    assert len(list(DeviceFeed(_batches(2, seed=3), tt, wire="uint8", cache_mb=0))) == 2
-    assert (p.hits, p.fires) == (0, 0) and chaos.active()
+    batches = _batches(2, seed=3)
+    clean = [_host(b[0]) for b in DeviceFeed(batches, tt, wire="uint8", cache_mb=0)]
+    p = chaos.plan("data.prefetch", "bitrot", times=None)
+    rotted = [_host(b[0]) for b in DeviceFeed(batches, tt, wire="uint8", cache_mb=0)]
+    assert (p.hits, p.fires) == (2, 2) and chaos.active()
+    for c, r in zip(clean, rotted):
+        assert r.shape == c.shape and not np.array_equal(r, c)
+
+
+def test_chaos_bitrot_through_codec_and_cache(env, tenv, fault_plane):
+    """tests/test_feed.py:531: a fired bitrot rots the encoded wire payload:
+    the decode survives (shape and dtype, finite values that differ) and the
+    cache replays the rotted batch; the rotted batch is the JAX package's,
+    bit for bit."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import chaos
+
+    jt, tt = _topos(env, tenv)
+    batches = _batches(1, 16, (8,), seed=12)
+    outs = []
+    for mod, feed_cls, topo, leaf in ((jchaos, JFeed, jt, lambda b: jax.tree.leaves(b)[0]),
+                                      (chaos, DeviceFeed, tt, lambda b: b[0])):
+        clean = _host(leaf(next(iter(feed_cls(batches, topo, wire="uint8", cache_mb=0)))))
+        mod.plan("data.prefetch", "bitrot")
+        it = iter(feed_cls(batches, topo, wire="uint8", cache_mb=64, epochs=2))
+        rotted = _host(leaf(next(it)))
+        assert rotted.shape == clean.shape and rotted.dtype == clean.dtype
+        assert not np.array_equal(rotted, clean)
+        _same_bits(rotted, _host(leaf(next(it))))          # the cache is consistent
+        assert np.isfinite(rotted).all()
+        mod.clear()
+        outs.append(rotted)
+    _same_bits(outs[0], outs[1])
+
+
+def test_chaos_bitrot_not_swallowed_by_streaming_cache_hit(env, tenv, fault_plane):
+    """tests/test_feed.py:651: on a partly cached streaming epoch a fired
+    bitrot corrupts what is served, not the cache hit; the clean copy stays
+    pinned and the next epoch replays it."""
+    from mlsl_tpu import chaos as jchaos
+    from mlsl_tpu_torch import chaos
+
+    jt, tt = _topos(env, tenv)
+    batches = _batches(2, 16, (8,), seed=19)
+    served = []
+    for mod, feed_cls, topo, leaf in ((jchaos, JFeed, jt, lambda b: jax.tree.leaves(b)[0]),
+                                      (chaos, DeviceFeed, tt, lambda b: b[0])):
+        # the budget fits ONE wire batch: the cache never completes, so every
+        # epoch streams (and reads) while key 0 is a cache hit
+        feed = feed_cls(lambda: iter(list(batches)), topo, wire="uint8",
+                        cache_mb=0.0003, epochs=3)
+        it = iter(feed)
+        first_clean = _host(leaf(next(it)))
+        next(it)
+        assert len(feed.cache) == 1 and feed.cache.rejects >= 1
+        # after=1: the next hit is epoch 0's end-of-epoch read
+        p = mod.plan("data.prefetch", "bitrot", after=1)
+        rotted = _host(leaf(next(it)))
+        assert p.fires == 1
+        assert not np.array_equal(rotted, first_clean)     # served rot, not the cache
+        next(it)
+        _same_bits(_host(leaf(next(it))), first_clean)     # epoch 2: the clean pin
+        mod.clear()
+        served.append(rotted)
+    _same_bits(served[0], served[1])
+
+
+@pytest.mark.parametrize("wire", ["none", "bf16", "int8"])
+def test_chkp_checks_decoded_batches_as_jax(env, tenv, fault_plane, monkeypatch, wire):
+    """MLSL_CHKP=2 checks every float leaf of a decoded batch at the decode,
+    in the feed's own domain: a non-finite batch raises there, in both
+    packages; a finite one passes with one host read."""
+    from mlsl_tpu.log import MLSLError as JMLSLError
+
+    jt, tt = _topos(env, tenv)
+    monkeypatch.setenv("MLSL_CHKP", "2")
+    good = _batches(1, 16, (64,), seed=21)
+    bad = [(good[0][0].copy(), good[0][1])]
+    bad[0][0][5, 3] = np.nan
+    for feed_cls, topo, err in ((JFeed, jt, JMLSLError), (DeviceFeed, tt, MLSLError)):
+        assert len(list(feed_cls(good, topo, wire=wire, cache_mb=0, quant_block=32))) == 1
+        with pytest.raises(err, match=r"non-finite values: feed\.decode\[leaf0\]"):
+            list(feed_cls(bad, topo, wire=wire, cache_mb=0, quant_block=32))
+    assert tstats.CHKP_COUNTERS == jstats.CHKP_COUNTERS
+    assert tstats.CHKP_COUNTERS["value_syncs"] == 2 and tstats.CHKP_COUNTERS["violations"] == 1
 
 
 def test_feed_spans_on_timeline(env, tenv, fault_plane):

@@ -8,9 +8,10 @@ straggler) against the JAX package's, mirroring tests/test_metrics.py.
   verdicts, flags, candidates and counters.
 - The scrape surface: the port's server on 127.0.0.1, port 0; /metrics
   parses as Prometheus text, /healthz is ``supervisor.status()`` verbatim.
-- The trainer's per-step feed, its straggler arming and the elastic shed
-  hand-off wait for ROADMAP A.7b / A.7c (tests/test_metrics.py:209-250,
-  430-496); the JAX package's bench and trace_view smokes test its harness.
+- The trainer's per-step feed and its straggler arming are held in
+  tests/test_torch_integrity.py; the elastic shed hand-off waits for ROADMAP
+  A.7c (tests/test_metrics.py:430-496); the JAX package's bench and
+  trace_view smokes test its harness.
 """
 
 import json
