@@ -429,6 +429,32 @@ Phases, in order; any failure exits non-zero and prints no result:
              into a fresh MLSL_COMPILE_CACHE_DIR, the next loads it with nvcc
              refused.
 
+41. recovery (run (ab), after run (aa), beside the card tests): config 5
+             at full width (ResNet-50, 1,000 classes, 224², global batch 64,
+             seed 0), ZeRO-1 Adam, MLSL_ALGO=pallas_ring, cuDNN's
+             deterministic convolutions. (ab1) FaultTolerantLoop, save_every
+             2, 6 steps on 8 ranks, MLSL_SENTINEL_EVERY=1: an OSError at the
+             first save retried, a bitrot plan on step 4, a fault at step 5
+             from the fault hook; the restore skips step 4, takes step 2 and
+             replays 3-5; the final parameters and Adam state bit for bit
+             the uninterrupted twin's, one recovery, on_step once a step, the
+             re-audit passing, every manifest with the audit's fingerprint;
+             the write of step 2 held until step 3 has updated in place, the
+             checkpoint still step 2's state bit for bit. (ab2)
+             MLSL_MESH_TIERS=2x4, MLSL_ELASTIC=1: a device.lost plan at step
+             3 (rank 7 shed) drops tier 1 (8 -> 4), the drain 36 B3-AG
+             launches, verify_reshard green, the placed Adam state the
+             gathered vector re-partitioned, no restore; step 3 a 4-rank
+             twin's and, after announce_return(), step 4 an 8-rank twin's
+             bit for bit; a second loss at 5 and a grow at 6 under a silent
+             plan: refused, re-synced, admitted; the ELASTIC counters
+             exactly the transitions. (ab3) SIGTERM after step 2: one final
+             save, the loop returns preempted, a new loop resumes and ends on
+             (ab1)'s twin bit for bit. (ab4) a 3-member pod on 127.0.0.1: a
+             member's death committed as one epoch drives (ab2)'s shrink
+             with zero restores. Save, restore, sha256, drain, plan-verify,
+             placement and rebuild times in the ``# recovery`` lines.
+
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
 
@@ -7351,6 +7377,533 @@ def run_integrity(torch, np, get_env, launches, reset_launches, dev):
     return used, lines
 
 
+# -- recovery (run (ab)) --------------------------------------------------------------
+
+# the knobs run (ab) sets; every sub-run starts with none of them exported,
+# and the run ends with none
+AB_VARS = ("MLSL_ALGO", "MLSL_MESH_TIERS", "MLSL_ELASTIC", "MLSL_ELASTIC_ADMIT_RETRIES",
+           "MLSL_SENTINEL_EVERY", "MLSL_CKPT_RETRY_BACKOFF_S", "MLSL_CAPACITY_BUDGET")
+AB_STEPS = 6                # (ab1), (ab3): steps of config 5 ZeRO-1 Adam
+AB_ELASTIC_STEPS = 8        # (ab2): shrink at 3, grow at 4, shrink at 5, grow at 6
+AB_POD_STEPS = 8            # (ab4): the member dies before step 1
+AB_POD_INTERVAL = 0.1       # (ab4): heartbeat interval (s), 3 misses
+
+
+def ab_env(get_env, **env_vars):
+    """Finalize the Environment with run (ab)'s knobs reset and ``env_vars``
+    exported: the loop's factory initializes it again, on the card, over the
+    active world."""
+    get_env().finalize()
+    for k in AB_VARS:
+        os.environ.pop(k, None)
+    os.environ.update(env_vars)
+
+
+class ABRun:
+    """Config 5 at full width (ResNet-50, 1,000 classes, 224², global batch
+    64, seed 0) with ZeRO-1 Adam and the clip as run (e) has them, built by
+    an elastic factory over the active world; each step's batch from a seed
+    of its own, cached on the host."""
+
+    def __init__(self, torch, np, get_env, image=224, classes=1000, batch=ZERO1_BATCH):
+        self.torch, self.np, self.get_env = torch, np, get_env
+        self.image, self.classes, self.batch = image, classes, batch
+        self._host = {}
+        self.built = 0
+        self.last = None      # the trainer the loop last handed the batch function
+        self.calls = []       # the steps the loop asked batches for
+
+    def make(self):
+        from mlsl_tpu_torch import optim
+        from mlsl_tpu_torch.models import resnet
+        from mlsl_tpu_torch.models.train import DataParallelTrainer
+
+        env = self.get_env().init()          # the card; the active world
+        gen = self.torch.Generator().manual_seed(SEED)
+        model = resnet.ResNet50(num_classes=self.classes, generator=gen, device=env.device)
+        dist = env.create_distribution(env.get_process_count(), 1)
+        sess = env.create_session()
+        sess.set_global_minibatch_size(self.batch)
+        self.built += 1
+        return DataParallelTrainer(env, dist, sess, model, resnet.loss_fn,
+                                   resnet.layer_names(model), resnet.layer_subtree,
+                                   distributed_update=True, optimizer=optim.adam(ZERO1_LR),
+                                   clip_global_norm=ZERO1_CLIP)
+
+    def batch_fn(self, trainer, step):
+        if step not in self._host:
+            rng = self.np.random.default_rng(SEED + 100 + step)
+            self._host[step] = (
+                rng.normal(size=(self.batch, self.image, self.image, 3)).astype(self.np.float32),
+                rng.integers(0, self.classes, size=(self.batch,)).astype(self.np.int32))
+        self.last = trainer
+        self.calls.append(step)
+        return trainer.shard_batch(*self._host[step])
+
+
+def _ab_leaves(trainer) -> list:
+    """The parameters and every ZeRO-1 Adam leaf, in a checkpoint's order."""
+    from mlsl_tpu_torch.checkpoint import _trainer_state
+    from mlsl_tpu_torch.sentinel import tree_leaves
+
+    st = _trainer_state(trainer, 0)
+    return tree_leaves(st["params"]) + tree_leaves(st["du_opt_state"])
+
+
+def ab_state(trainer) -> list:
+    return [t.detach().clone() for t in _ab_leaves(trainer)]
+
+
+def ab_load(torch, trainer, state) -> None:
+    dst = _ab_leaves(trainer)
+    check(len(dst) == len(state), "run (ab): state layouts differ")
+    with torch.no_grad():
+        for d, s in zip(dst, state):
+            d.copy_(s)
+
+
+def ab_twin_step(torch, run, state, step, ranks):
+    """A trainer built directly on ``ranks`` (None: the full world), loaded
+    with ``state``, one step at ``step``'s batch. -> its state after."""
+    from mlsl_tpu_torch import elastic
+
+    run.get_env().finalize()
+    elastic._set_active(ranks)
+    try:
+        twin = run.make()
+        ab_load(torch, twin, state)
+        twin.step(run.batch_fn(twin, step))
+        torch.cuda.synchronize()
+        return ab_state(twin)
+    finally:
+        elastic._set_active(None)
+        run.get_env().finalize()
+
+
+def phase_recovery_ckpt(torch, np, get_env, launches, reset_launches, run, tmp):
+    """(ab1): FaultTolerantLoop, save_every 2, 6 steps: an OSError at the
+    first save retried, a bitrot plan on the newest step (4), a fault at step
+    5 from the loop's fault hook. The restore skips the rotted step, takes
+    step 2 and replays; the final state is the uninterrupted twin's bit for
+    bit. The write of step 2 is held until step 3 has updated Adam's state
+    in place: the checkpoint still holds step 2's. -> (launches, record,
+    the twin's final state)."""
+    from mlsl_tpu_torch import chaos
+    from mlsl_tpu_torch.checkpoint import CheckpointManager
+    from mlsl_tpu_torch.core import stats as stats_mod
+    from mlsl_tpu_torch.resilience import FaultTolerantLoop
+
+    ab_env(get_env, MLSL_ALGO="pallas_ring", MLSL_SENTINEL_EVERY="1",
+           MLSL_CKPT_RETRY_BACKOFF_S="0.01")
+    twin = run.make()
+    at2 = None
+    for s in range(AB_STEPS):
+        twin.step(run.batch_fn(twin, s))
+        if s == 2:
+            at2 = ab_state(twin)
+    torch.cuda.synchronize()
+    want = ab_state(twin)
+    del twin
+    get_env().finalize()
+    settle(torch)
+
+    gate = threading.Event()
+    seen, rec = [], {}
+
+    def hook(step, attempt):
+        if step == 4 and attempt == 0 and not rec.get("bitrot"):
+            rec["bitrot"] = chaos.plan("checkpoint.save", "bitrot", times=1)
+        if step == 5 and attempt == 0 and not rec.get("faulted"):
+            rec["faulted"] = True
+            raise RuntimeError("run (ab1): fault at step 5")
+
+    def on_step(step, loss):
+        seen.append(step)
+        if step == 3:
+            gate.set()
+
+    loop = FaultTolerantLoop(run.make, str(tmp / "ab1"), save_every=2, fault_hook=hook)
+    write = loop.ckpt._write
+
+    def held_write(step, path, snap):
+        if step == 2:
+            check(gate.wait(600), "run (ab1): step 3 never ran")
+        t0 = time.perf_counter()
+        write(step, path, snap)
+        rec.setdefault("write_ms", []).append((time.perf_counter() - t0) * 1e3)
+
+    loop.ckpt._write = held_write
+    oserr = chaos.plan("checkpoint.save", "error", exc=OSError, times=1)
+    stats_mod.reset_sentinel_counters()
+    run.calls = []
+    reset_launches()
+    dispatch = []
+    save = loop.ckpt.save
+
+    def timed_save(*a, **k):
+        save(*a, **k)
+        dispatch.append(loop.ckpt.timings["dispatch_ms"])
+
+    loop.ckpt.save = timed_save
+    t0 = time.perf_counter()
+    final = loop.run(run.batch_fn, steps=AB_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = launches()
+    got = ab_state(final)
+    check(oserr.fires == 1 and rec["bitrot"].fires == 1,
+          f"run (ab1): plans fired {oserr.fires}, {rec['bitrot'].fires}")
+    check(loop.recoveries == 1, f"run (ab1): {loop.recoveries} recoveries, expected 1")
+    check(seen == list(range(AB_STEPS)), f"run (ab1): on_step fired at {seen}")
+    # the fault at 5 restored step 2 (the bitrotted 4 skipped) and replayed 3, 4
+    check(run.calls == [0, 1, 2, 3, 4, 3, 4, 5], f"run (ab1): batches at {run.calls}")
+    check(len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want)),
+          "run (ab1): the recovered state differs from the uninterrupted twin's")
+    sc = dict(stats_mod.SENTINEL_COUNTERS)
+    check(sc["reaudits"] == 1 and sc["audit_mismatch"] == 0 and sc["verified_saves"] >= 3,
+          f"run (ab1): sentinel counters {sc}")
+    check(all(loop.ckpt.recorded_fingerprint(s) for s in loop.ckpt.all_steps()),
+          "run (ab1): a checkpoint without the audit's fingerprint")
+    ck = CheckpointManager(loop.ckpt.directory)
+    h0 = time.perf_counter()
+    verified = ck.verify(2)
+    sha_ms = (time.perf_counter() - h0) * 1e3
+    check(verified is True, "run (ab1): step 2 fails its checksum")
+    state = ck.restore(2, template={"t": got[0]})
+    from mlsl_tpu_torch.sentinel import tree_leaves
+
+    held = [t for k in ("params", "du_opt_state") for t in tree_leaves(state[k])]
+    check(len(held) == len(at2) and all(torch.equal(a, b) for a, b in zip(held, at2)),
+          "run (ab1): the async save of step 2 does not hold step 2's state")
+    nbytes = loop.ckpt.timings["bytes"]
+    del held, state, got, final
+    loop.ckpt.close()
+    get_env().finalize()
+    out = {"steps": AB_STEPS, "recoveries": loop.recoveries, "on_step": seen,
+           "resumed_from": 2, "skipped_bitrot_step": 4, "secs": secs,
+           "save_dispatch_ms": dispatch, "write_ms": rec.get("write_ms"),
+           "restore_ms": loop.ckpt.timings.get("restore_ms"),
+           "sha256_ms_a_checkpoint": sha_ms, "bytes_a_checkpoint": nbytes,
+           "sentinel": sc, "launches": used}
+    return used, out, want
+
+
+def ab_coordinator(launches, **kw):
+    """An ElasticCoordinator that keeps what (ab2) checks: the launches and
+    timings of each reshard, the state right after it and the harvested
+    ZeRO-1 vectors."""
+    from mlsl_tpu_torch import elastic
+
+    class Coordinator(elastic.ElasticCoordinator):
+        def _harvest(self, trainer):
+            before = dict(launches())
+            out = super()._harvest(trainer)
+            after = launches()
+            self.drains.append({k: after[k] - before.get(k, 0) for k in after
+                                if after[k] != before.get(k, 0)})
+            self.harvests.append(out)
+            return out
+
+        def shrink(self, trainer, make_trainer, error=None, step=0):
+            new = super().shrink(trainer, make_trainer, error=error, step=step)
+            self.events.append(("shrink", step, ab_state(new), dict(self.timings)))
+            return new
+
+        def grow(self, trainer, make_trainer, step):
+            new = super().grow(trainer, make_trainer, step)
+            self.events.append(("grow", step, ab_state(new), dict(self.timings)))
+            return new
+
+    c = Coordinator(**kw)
+    c.drains, c.harvests, c.events = [], [], []
+    return c
+
+
+def ab_owned_oracle(np, trainer, harvest) -> bool:
+    """Every owned Adam leaf on the rebuilt world equals the gathered vector
+    re-partitioned: the real elements, zero-padded to the new world's chunks."""
+    from mlsl_tpu_torch.sentinel import tree_leaves
+
+    for name in trainer.layers:
+        count, padded = trainer.layer_counts[name], trainer.padded_counts[name]
+        for old, new in zip(harvest["du"][name], tree_leaves(trainer.opt_state[name])):
+            if not isinstance(old, np.ndarray):
+                continue      # the one step count, carried
+            want = np.pad(np.asarray(old).reshape(-1)[:count], (0, padded - count))
+            if not np.array_equal(new.detach().reshape(-1).cpu().numpy(), want):
+                return False
+    return True
+
+
+def phase_recovery_elastic(torch, np, get_env, launches, reset_launches, run, tmp):
+    """(ab2): MLSL_MESH_TIERS=2x4, MLSL_ELASTIC=1. A device.lost plan at step
+    3 (the default attribution names rank 7, of tier 1) drops the whole tier
+    (8 -> 4): the ZeRO-1 drain on B3-AG, verify_reshard green, the owned
+    Adam state re-partitioned exactly, the loop on at step 3 with no restore;
+    step 3 a 4-rank twin's bit for bit. announce_return() before step 4:
+    the grow through a passing audit, step 4 an 8-rank twin's bit for bit.
+    A second loss at step 5 and a grow at step 6 under a silent device.lost
+    plan: refused, re-synced, admitted (MLSL_ELASTIC_ADMIT_RETRIES=1).
+    -> (launches, record)."""
+    from mlsl_tpu_torch import chaos, elastic
+    from mlsl_tpu_torch.analysis import diagnostics
+    from mlsl_tpu_torch.core import stats as stats_mod
+    from mlsl_tpu_torch.resilience import FaultTolerantLoop
+
+    ab_env(get_env, MLSL_ALGO="pallas_ring", MLSL_MESH_TIERS="2x4", MLSL_ELASTIC="1",
+           MLSL_ELASTIC_ADMIT_RETRIES="1")
+    get_env().init()
+    coord = ab_coordinator(launches, capacity_budget=8, admit_retries=1)
+    get_env().finalize()
+    plans, after_step, seen = {}, {}, []
+
+    def hook(step, attempt):
+        if step in (3, 5) and step not in plans:
+            plans[step] = chaos.plan("device.lost", "error", times=1)
+
+    def on_step(step, loss):
+        seen.append(step)
+        if step in (3, 4):
+            after_step[step] = ab_state(run.last)
+        if step in (3, 5):
+            # capacity is back: the loop's next between-steps poll grows; the
+            # second time a silent plan corrupts the rejoining copy
+            if step == 5:
+                plans[6] = chaos.plan("device.lost", "silent", times=1)
+            coord.announce_return()
+
+    stats_mod.reset_elastic_counters()
+    diagnostics.reset()
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = FaultTolerantLoop(run.make, str(tmp / "ab2"), save_every=100, fault_hook=hook,
+                             elastic=coord)
+    final = loop.run(run.batch_fn, steps=AB_ELASTIC_STEPS, on_step=on_step)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = launches()
+    ec = dict(stats_mod.ELASTIC_COUNTERS)
+    check(plans[3].fires == 1 and plans[5].fires == 1 and plans[6].fires == 1,
+          "run (ab2): a device.lost plan did not fire")
+    check(loop.recoveries == 0 and seen == list(range(AB_ELASTIC_STEPS)),
+          f"run (ab2): {loop.recoveries} recoveries, on_step {seen}")
+    check(final.dist.topology.world_size == WORLD and elastic.active_devices() is None,
+          "run (ab2): the world did not grow back to 8")
+    kinds = [(k, s) for k, s, _, _ in coord.events]
+    check(kinds == [("shrink", 3), ("grow", 4), ("shrink", 5), ("grow", 6)],
+          f"run (ab2): transitions {kinds}")
+    n_owned = 2 * len(final.layers)
+    check(all(d.get("dense_ring_gather", 0) == n_owned and set(d) == {"dense_ring_gather"}
+              for d in coord.drains),
+          f"run (ab2): drain launches {coord.drains}, expected {n_owned} B3-AG each")
+    check(diagnostics.status()["plan"]["verdict"] == "pass", "run (ab2): a reshard plan failed")
+    # the shrink's placement against the numpy re-partition, and the twins
+    shrink_state = coord.events[0][2]
+    harvest = coord.harvests[0]
+    twin3 = ab_twin_step(torch, run, shrink_state, 3, (0, 1, 2, 3))
+    check(all(torch.equal(a, b) for a, b in zip(twin3, after_step[3])),
+          "run (ab2): step 3 on the survivors differs from a 4-rank twin's")
+    del twin3
+    twin4 = ab_twin_step(torch, run, coord.events[1][2], 4, None)
+    check(all(torch.equal(a, b) for a, b in zip(twin4, after_step[4])),
+          "run (ab2): step 4 after the grow differs from an 8-rank twin's")
+    del twin4
+    # the placement oracle on a 4-rank trainer loaded with the shrink's state
+    elastic._set_active((0, 1, 2, 3))
+    probe = run.make()
+    ab_load(torch, probe, shrink_state)
+    placed_ok = ab_owned_oracle(np, probe, harvest)
+    del probe
+    elastic._set_active(None)
+    get_env().finalize()
+    check(placed_ok, "run (ab2): the owned Adam state is not the gathered vector re-partitioned")
+    layers = len(final.layers)
+    want_ec = {"device_losses": 2, "shrinks": 2, "grows": 2, "grow_abandons": 0, "admits": 2,
+               "admit_rejects": 1, "resyncs": 1, "reshard_buffers": 4 * 3 * layers,
+               "restart_fallbacks": 0}
+    check(ec == want_ec, f"run (ab2): ELASTIC counters {ec}, expected {want_ec}")
+    out = {"steps": AB_ELASTIC_STEPS, "secs": secs, "transitions": kinds,
+           "worlds": [8, 4, 8, 4, 8], "survivors": [0, 1, 2, 3],
+           "drain_launches": coord.drains,
+           "reshards": [{"kind": k, "step": s, **{t: round(v, 4) for t, v in tm.items()}}
+                        for k, s, _, tm in coord.events],
+           "elastic": ec, "launches": used}
+    del coord, final, after_step, shrink_state, harvest
+    loop.ckpt.close()
+    get_env().finalize()
+    return used, out
+
+
+def phase_recovery_preempt(torch, np, get_env, launches, reset_launches, run, tmp, want):
+    """(ab3): SIGTERM to this process after step 2: exactly one final save,
+    the loop returns ``preempted``; a new loop resumes from it and ends bit
+    for bit on (ab1)'s uninterrupted twin. -> (launches, record)."""
+    import signal
+
+    from mlsl_tpu_torch.resilience import FaultTolerantLoop
+
+    ab_env(get_env, MLSL_ALGO="pallas_ring", MLSL_SENTINEL_EVERY="1")
+
+    def on_step(step, loss):
+        if step == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    loop = FaultTolerantLoop(run.make, str(tmp / "ab3"), save_every=10)
+    loop.run(run.batch_fn, steps=AB_STEPS, on_step=on_step)
+    check(loop.preempted, "run (ab3): the loop did not return preempted")
+    check(loop.ckpt.all_steps() == [0, 2] and loop.ckpt.verify(2) is True,
+          f"run (ab3): checkpoints {loop.ckpt.all_steps()}, expected the cadence's 0 and one "
+          "final save at 2")
+    loop.ckpt.close()
+    get_env().finalize()
+    seen = []
+    loop2 = FaultTolerantLoop(run.make, str(tmp / "ab3"), save_every=10)
+    final = loop2.run(run.batch_fn, steps=AB_STEPS, on_step=lambda s, l: seen.append(s))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    used = launches()
+    check(not loop2.preempted and seen == list(range(3, AB_STEPS)),
+          f"run (ab3): the resumed loop stepped {seen}")
+    got = ab_state(final)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "run (ab3): the resumed run differs from the uninterrupted twin")
+    del got, final
+    loop2.ckpt.close()
+    get_env().finalize()
+    return used, {"preempted_at": 2, "checkpoints": [0, 2], "resumed": seen, "secs": secs,
+                  "restore_ms": loop2.ckpt.timings.get("restore_ms"), "launches": used}
+
+
+def phase_recovery_pod(torch, np, get_env, launches, reset_launches, run, tmp):
+    """(ab4): an in-process 3-member pod on 127.0.0.1 (this process is rank 0;
+    members 1 and 2 contribute ranks 4-5 and 6-7). Member 1 dies before step
+    1; the pod commits one epoch and the committed loss drives (ab2)'s shrink
+    on the card trainer (tier 1 drops: 8 -> 4) with zero restores.
+    -> (launches, record)."""
+    from mlsl_tpu_torch import control, elastic
+    from mlsl_tpu_torch.control.plane import ControlPlane
+    from mlsl_tpu_torch.resilience import FaultTolerantLoop
+
+    ab_env(get_env, MLSL_ALGO="pallas_ring", MLSL_MESH_TIERS="2x4", MLSL_ELASTIC="1")
+    dmap = {0: (0, 1, 2, 3), 1: (4, 5), 2: (6, 7)}
+    planes = [ControlPlane(r, [("127.0.0.1", 0)] * 3, device_map=dmap if r == 0 else None,
+                           interval_s=AB_POD_INTERVAL, misses=3, grace_s=5.0)
+              for r in range(3)]
+    try:
+        for p in planes:
+            p.start()
+        addrs = [("127.0.0.1", p.listen_port) for p in planes]
+        for p in planes:
+            p.addrs = addrs
+        control.set_active(planes[0])
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline and not all(
+                len(p.status()["hb_age_s"]) == 2 for p in planes):
+            time.sleep(0.02)
+        check(all(len(p.status()["hb_age_s"]) == 2 for p in planes),
+              "run (ab4): the pod never formed")
+        killed = {}
+
+        def hook(step, attempt):
+            if step == 1 and "t" not in killed:
+                killed["t"] = time.monotonic()
+                planes[1].kill()
+
+        def batch_fn(trainer, step):
+            if trainer.dist.topology.world_size == WORLD and "t" in killed:
+                # hold the full world until the commit lands, as a pod whose
+                # collectives stall on a dead member would
+                end = killed["t"] + 10 * AB_POD_INTERVAL * 3
+                while time.monotonic() < end and planes[0].status()["epoch"] == 0:
+                    time.sleep(0.01)
+            return run.batch_fn(trainer, step)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        loop = FaultTolerantLoop(run.make, str(tmp / "ab4"), save_every=100, fault_hook=hook,
+                                 elastic=elastic.ElasticCoordinator(capacity_budget=4))
+        final = loop.run(batch_fn, steps=AB_POD_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        used = launches()
+        commits = [e for e in planes[0].events if e["kind"] == "commit"]
+        check(loop.recoveries == 0 and final.dist.topology.world_size == 4,
+              f"run (ab4): {loop.recoveries} restores, world {final.dist.topology.world_size}")
+        check(len(commits) == 1 and commits[0]["dead"] == [1] and
+              planes[0].status()["alive"] == [0, 2],
+              f"run (ab4): commits {commits}")
+        detect_s = commits[0].get("detect_s")
+        loop.ckpt.close()
+        del final
+        return used, {"steps": AB_POD_STEPS, "restores": loop.recoveries, "epochs": len(commits),
+                      "survivor_ranks": list(elastic.active_devices() or ()),
+                      "detect_s": detect_s, "secs": secs, "launches": used}
+    finally:
+        for p in planes:
+            p.stop()
+        control.reset()
+        get_env().finalize()
+
+
+def run_recovery(torch, np, get_env, launches, reset_launches, dev):
+    """Run (ab), (ab1)-(ab4), beside the card tests, with cuDNN's
+    deterministic convolutions for the twins; each part ends with
+    ``supervisor.reset_all()`` and none of its knobs is left exported.
+    -> (launches by part, lines)."""
+    import tempfile
+
+    from mlsl_tpu_torch import supervisor
+
+    lines, used = [], {}
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    run = ABRun(torch, np, get_env)
+    try:
+        with tempfile.TemporaryDirectory(prefix="mlsl-ab-") as d:
+            tmp = Path(d)
+            t0 = time.perf_counter()
+            used["recovery_ckpt"], rec, want = phase_recovery_ckpt(
+                torch, np, get_env, launches, reset_launches, run, tmp)
+            supervisor.reset_all()
+            lines.append(f"# recovery ab1 {json.dumps(rec)}")
+            lines.append(f"# phase recovery checkpoint and restart (run (ab1)): ok in "
+                         f"{time.perf_counter() - t0:.1f} s")
+            settle(torch)
+            t0 = time.perf_counter()
+            used["recovery_elastic"], rec = phase_recovery_elastic(
+                torch, np, get_env, launches, reset_launches, run, tmp)
+            supervisor.reset_all()
+            lines.append(f"# recovery ab2 {json.dumps(rec)}")
+            lines.append(f"# phase recovery elastic shrink and grow (run (ab2)): ok in "
+                         f"{time.perf_counter() - t0:.1f} s")
+            settle(torch)
+            t0 = time.perf_counter()
+            used["recovery_preempt"], rec = phase_recovery_preempt(
+                torch, np, get_env, launches, reset_launches, run, tmp, want)
+            del want
+            supervisor.reset_all()
+            lines.append(f"# recovery ab3 {json.dumps(rec)}")
+            lines.append(f"# phase recovery preemption (run (ab3)): ok in "
+                         f"{time.perf_counter() - t0:.1f} s")
+            settle(torch)
+            t0 = time.perf_counter()
+            used["recovery_pod"], rec = phase_recovery_pod(
+                torch, np, get_env, launches, reset_launches, run, tmp)
+            supervisor.reset_all()
+            lines.append(f"# recovery ab4 {json.dumps(rec)}")
+            lines.append(f"# phase recovery control plane (run (ab4)): ok in "
+                         f"{time.perf_counter() - t0:.1f} s, trainers built {run.built}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        for k in AB_VARS:
+            os.environ.pop(k, None)
+        supervisor.reset_all()
+        settle(torch)
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -7465,10 +8018,16 @@ def main() -> int:
                                                         reset_launches, dev)
         for line in integrity_lines:
             log(line)
+        # the recovery layer (run (ab)), beside the card tests
+        recovery_used, recovery_lines = run_recovery(torch, np, get_env, launches,
+                                                     reset_launches, dev)
+        for line in recovery_lines:
+            log(line)
         env = reinit(get_env)
         settle(torch)
         summary = phase_card_tests(card_tests)
-        log(f"# phase card tests ({CARD_TESTS}, beside parity, configs 1-4 and run (aa)): ok "
+        log(f"# phase card tests ({CARD_TESTS}, beside parity, configs 1-4 and runs (aa), "
+            f"(ab)): ok "
             f"in {time.perf_counter() - t_card:.1f} s, {summary}")
         t0 = time.perf_counter()
         rec = phase_compile_cache(*cache_runs)
@@ -7796,7 +8355,8 @@ def main() -> int:
                     activation_graph=activation, collectives=coll_used, capi=capi_used,
                     **{f"codec_{k}": v for k, v in codec_used.items()},
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
-                    pipeline=pipe_used, **serve_used, **fault_used, **integrity_used)
+                    pipeline=pipe_used, **serve_used, **fault_used, **integrity_used,
+                    **recovery_used)
         entries = [
             codec_entry(torch, qk, kind, rows, block, bw, f32,
                         path(f"{kind}_blocks", **runs), dev, tag=tag)

@@ -27,8 +27,9 @@ TPU multislice's ``device.slice_index``, has no counterpart until a
 multi-process transport exists (ROADMAP A.8), and a world without the
 variable is flat. A world here is the virtual ranks of one Topology, so the
 JAX package's topologies over a subset of the devices have no counterpart
-either; the split must cover the topology's world exactly. The tier-aware
-survivor shrink (``survivor_devices``) is elastic, ROADMAP A.7.
+either; the split must cover the full world exactly, and a shrunk world's
+ranks keep their tiers by identity. ``survivor_devices`` is the elastic
+mesh's tier-aware shrink: losing any member of a tier drops the whole tier.
 """
 
 from __future__ import annotations
@@ -64,17 +65,39 @@ def parse_mesh_tiers(spec: str) -> Optional[Tuple[int, int]]:
     return t, l
 
 
-def world_tier_ids(world_size: int) -> Optional[Tuple[int, ...]]:
-    """Each virtual rank's tier id (rank // L) under ``MLSL_MESH_TIERS``,
-    or None for a flat world (the variable unset). MLSLError when T*L is not
-    the world's size."""
+def _survivor_ranks(world_size: int) -> Optional[Tuple[int, ...]]:
+    """The elastic registry's survivor ranks (full-world numbering) when the
+    world of ``world_size`` ranks is that survivor world, else None."""
+    from mlsl_tpu_torch import elastic
+
+    active = elastic.active_devices()
+    return active if active is not None and len(active) == world_size else None
+
+
+def world_tier_ids(world_size: int, ranks=None) -> Optional[Tuple[int, ...]]:
+    """Each virtual rank's tier id under ``MLSL_MESH_TIERS``, or None for a
+    flat world (the variable unset). ``ranks``: the world's ranks in the
+    full world's numbering (default: the elastic survivor ranks when the
+    world is a shrunk one, else ``range(world_size)``). The split describes
+    the full world and a rank keeps its tier by identity, as a device keeps
+    its slice in the JAX package (``mesh.py:94-135``): a survivor world of
+    one tier is one tier. MLSLError when T*L does not cover the full world."""
     spec = parse_mesh_tiers(os.environ.get("MLSL_MESH_TIERS", ""))
     if spec is None:
         return None
     t, l = spec
-    mlsl_assert(t * l == world_size, "MLSL_MESH_TIERS=%dx%d does not cover the %d-rank world",
-                t, l, world_size)
-    return tuple(p // l for p in range(world_size))
+    if ranks is None:
+        ranks = _survivor_ranks(world_size)
+    if ranks is None:
+        mlsl_assert(t * l == world_size,
+                    "MLSL_MESH_TIERS=%dx%d does not cover the %d-rank world", t, l, world_size)
+        ranks = range(world_size)
+    ranks = [int(r) for r in ranks]
+    mlsl_assert(all(0 <= r < t * l for r in ranks),
+                "MLSL_MESH_TIERS=%dx%d does not cover ranks %s", t, l, ranks)
+    raw = [r // l for r in ranks]
+    order = {s: i for i, s in enumerate(sorted(set(raw)))}
+    return tuple(order[s] for s in raw)
 
 
 def world_tiers(world_size: int) -> Optional[Tuple[int, int]]:
@@ -85,6 +108,31 @@ def world_tiers(world_size: int) -> Optional[Tuple[int, int]]:
         return None
     t = len(set(ids))
     return t, world_size // t
+
+
+def survivor_devices(lost, devices) -> Tuple[int, ...]:
+    """The post-loss world (``mlsl_tpu/comm/mesh.py:156-182``) over virtual
+    ranks: ``devices`` (the active world's ranks, full-world numbering) less
+    ``lost``, in world order -- the survivor set an elastic reshard
+    (``mlsl_tpu_torch.elastic``) rebuilds its Topology over. Tier-aware: on
+    an ``MLSL_MESH_TIERS`` world, losing any member of a tier drops the whole
+    tier; a flat world sheds exactly the lost ranks. MLSLError when no rank
+    survives."""
+    from mlsl_tpu_torch.log import MLSLError
+
+    devices = tuple(int(d) for d in devices)
+    lost_set = {int(d) for d in lost}
+    ids = world_tier_ids(len(devices), ranks=devices)
+    if ids is not None:
+        dead_tiers = {t for d, t in zip(devices, ids) if d in lost_set}
+        out = tuple(d for d, t in zip(devices, ids) if t not in dead_tiers)
+    else:
+        out = tuple(d for d in devices if d not in lost_set)
+    if not out:
+        raise MLSLError(
+            f"device loss of {len(lost_set)} device(s) leaves no survivors "
+            f"in the {len(devices)}-device world (tiered={ids is not None})")
+    return out
 
 
 class Topology:

@@ -14,9 +14,11 @@ two-tier split with the ``hier`` lowering's DCN codec (comm/algos/hier.py),
 the device feed's wire, cache, depth and retries (data/), the serving
 engine's batch, KV pages, KV budget, queue and int8 KV (serve/) with the
 transient-fault retries its decode step reads, the fault plane's and the
-telemetry's knobs, the integrity sentinel's (sentinel.py), and the core
-tier: the log level, the device-class defaults (sysinfo.auto_config), the
-kernels' build directory and the reference's parity knobs.
+telemetry's knobs, the integrity sentinel's (sentinel.py), the recovery
+layer's (checkpoint retries, the restart and capacity budgets, the elastic
+mesh, the control plane), and the core tier: the log level, the
+device-class defaults (sysinfo.auto_config), the kernels' build directory
+and the reference's parity knobs.
 Field names, defaults and environment names are the JAX package's.
 """
 
@@ -56,6 +58,7 @@ _ENV_FIELDS = {
     "MLSL_SERVE_QUEUE_DEPTH": "serve_queue_depth",
     "MLSL_NUM_SERVERS": "num_servers",
     "MLSL_SENTINEL_EVERY": "sentinel_every",
+    "MLSL_HEARTBEAT_MISSES": "heartbeat_misses",
 }
 
 # the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
@@ -302,6 +305,36 @@ class Config:
     # Fingerprint block in elements: one int32 sum a block.
     sentinel_block: int = 4096      # MLSL_SENTINEL_BLOCK
 
+    # --- recovery (checkpoint.py, resilience.py, elastic.py, control/;
+    # config.py:285-340, 430-460 of the JAX package) ---
+    # Checkpoint save retries on OSError beyond the first, with exponential
+    # backoff from the base; CheckpointManager reads the same variables.
+    ckpt_save_retries: int = 3          # MLSL_CKPT_SAVE_RETRIES
+    ckpt_retry_backoff_s: float = 0.05  # MLSL_CKPT_RETRY_BACKOFF_S
+    # Checkpoint recoveries FaultTolerantLoop may make across a run.
+    restart_budget: int = 20            # MLSL_RESTART_BUDGET
+    # Answer a DEVICE_LOSS fault by shrinking to the survivor ranks and
+    # resharding ZeRO-1 state live instead of restarting.
+    elastic: bool = False               # MLSL_ELASTIC
+    # Ranks the run may shed in all before a loss restarts (0 = half the world).
+    capacity_budget: int = 0            # MLSL_CAPACITY_BUDGET
+    # Steps after a shrink at which the lost ranks rejoin (0 = only on
+    # ElasticCoordinator.announce_return()).
+    elastic_grow_after: int = 0         # MLSL_ELASTIC_GROW_AFTER
+    # Re-syncs of a rejoining copy that fails its admission audit.
+    elastic_admit_retries: int = 1      # MLSL_ELASTIC_ADMIT_RETRIES
+    # The control plane (control/): heartbeat cadence and miss budget on its
+    # own localhost TCP sockets, the boot grace, the scheduler's notice file
+    # and the pod's address table ("host:port,..." or a base port + world).
+    heartbeat_interval_s: float = 2.0   # MLSL_HEARTBEAT_INTERVAL_S
+    heartbeat_misses: int = 3           # MLSL_HEARTBEAT_MISSES
+    heartbeat_grace_s: float = 30.0     # MLSL_HEARTBEAT_GRACE_S
+    preemption_file: str = ""           # MLSL_PREEMPTION_FILE
+    control_addrs: str = ""             # MLSL_CONTROL_ADDRS
+    control_port: int = 0               # MLSL_CONTROL_PORT
+    control_world: int = 0              # MLSL_CONTROL_WORLD
+    control_rank: int = -1              # MLSL_CONTROL_RANK
+
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
         into ``_forced_algos`` (comm/algos.select reads it)."""
@@ -432,6 +465,43 @@ class Config:
                     "MLSL_SENTINEL_WARMUP must be >= 0 (got %d)", self.sentinel_warmup)
         mlsl_assert(self.sentinel_block > 0,
                     "MLSL_SENTINEL_BLOCK must be > 0 (got %d)", self.sentinel_block)
+        mlsl_assert(self.ckpt_save_retries >= 0,
+                    "MLSL_CKPT_SAVE_RETRIES must be >= 0 (got %d)", self.ckpt_save_retries)
+        mlsl_assert(self.ckpt_retry_backoff_s >= 0,
+                    "MLSL_CKPT_RETRY_BACKOFF_S must be >= 0 (got %r)",
+                    self.ckpt_retry_backoff_s)
+        mlsl_assert(self.restart_budget >= 0,
+                    "MLSL_RESTART_BUDGET must be >= 0 (got %d)", self.restart_budget)
+        mlsl_assert(self.capacity_budget >= 0,
+                    "MLSL_CAPACITY_BUDGET must be >= 0 (0 = half the world; got %d)",
+                    self.capacity_budget)
+        mlsl_assert(self.elastic_grow_after >= 0,
+                    "MLSL_ELASTIC_GROW_AFTER must be >= 0 (0 = manual announce; got %d)",
+                    self.elastic_grow_after)
+        mlsl_assert(self.elastic_admit_retries >= 0,
+                    "MLSL_ELASTIC_ADMIT_RETRIES must be >= 0 (got %d)",
+                    self.elastic_admit_retries)
+        mlsl_assert(self.heartbeat_interval_s > 0,
+                    "MLSL_HEARTBEAT_INTERVAL_S must be > 0 (got %r)", self.heartbeat_interval_s)
+        mlsl_assert(self.heartbeat_misses >= 1,
+                    "MLSL_HEARTBEAT_MISSES must be >= 1 (a zero miss budget would declare "
+                    "every peer dead on the first tick; got %d)", self.heartbeat_misses)
+        mlsl_assert(self.heartbeat_grace_s >= 0,
+                    "MLSL_HEARTBEAT_GRACE_S must be >= 0 (got %r)", self.heartbeat_grace_s)
+        mlsl_assert(0 <= self.control_port <= 65535,
+                    "MLSL_CONTROL_PORT must be in [0, 65535] (0 = off; got %d)",
+                    self.control_port)
+        mlsl_assert(self.control_world >= 0,
+                    "MLSL_CONTROL_WORLD must be >= 0 (got %d)", self.control_world)
+        mlsl_assert(not (self.control_addrs and self.control_world),
+                    "MLSL_CONTROL_ADDRS and MLSL_CONTROL_PORT/WORLD are mutually exclusive "
+                    "bootstrap forms -- set one")
+        if self.control_addrs or self.control_world:
+            world = (len(self.control_addrs.split(",")) if self.control_addrs
+                     else self.control_world)
+            mlsl_assert(0 <= self.control_rank < world,
+                        "MLSL_CONTROL_RANK must name this process's slot in the %d-member "
+                        "control world (got %d)", world, self.control_rank)
 
     @staticmethod
     def from_env() -> "Config":
@@ -523,4 +593,21 @@ class Config:
         c.sentinel_zmax = _env_float("MLSL_SENTINEL_ZMAX", c.sentinel_zmax)
         c.sentinel_warmup = _env_int("MLSL_SENTINEL_WARMUP", c.sentinel_warmup)
         c.sentinel_block = _env_int("MLSL_SENTINEL_BLOCK", c.sentinel_block)
+        c.ckpt_save_retries = _env_int("MLSL_CKPT_SAVE_RETRIES", c.ckpt_save_retries)
+        c.ckpt_retry_backoff_s = _env_float("MLSL_CKPT_RETRY_BACKOFF_S", c.ckpt_retry_backoff_s)
+        c.restart_budget = _env_int("MLSL_RESTART_BUDGET", c.restart_budget)
+        c.elastic = _env_bool("MLSL_ELASTIC", c.elastic)
+        c.capacity_budget = _env_int("MLSL_CAPACITY_BUDGET", c.capacity_budget)
+        c.elastic_grow_after = _env_int("MLSL_ELASTIC_GROW_AFTER", c.elastic_grow_after)
+        c.elastic_admit_retries = _env_int("MLSL_ELASTIC_ADMIT_RETRIES",
+                                           c.elastic_admit_retries)
+        c.heartbeat_interval_s = _env_float("MLSL_HEARTBEAT_INTERVAL_S",
+                                            c.heartbeat_interval_s)
+        c.heartbeat_misses = _env_int("MLSL_HEARTBEAT_MISSES", c.heartbeat_misses)
+        c.heartbeat_grace_s = _env_float("MLSL_HEARTBEAT_GRACE_S", c.heartbeat_grace_s)
+        c.preemption_file = os.environ.get("MLSL_PREEMPTION_FILE", c.preemption_file)
+        c.control_addrs = os.environ.get("MLSL_CONTROL_ADDRS", c.control_addrs)
+        c.control_port = _env_int("MLSL_CONTROL_PORT", c.control_port)
+        c.control_world = _env_int("MLSL_CONTROL_WORLD", c.control_world)
+        c.control_rank = _env_int("MLSL_CONTROL_RANK", c.control_rank)
         return c

@@ -10,6 +10,10 @@ class's defaults (``MLSL_AUTO_CONFIG_TYPE``), validates the configuration,
 points the kernel builds at ``compile_cache_dir`` and then loads the tuned
 profile, if one is named.
 
+With no world size, ``init`` adopts the elastic mesh's survivor ranks after a
+shrink (``elastic.py``); it joins the pod control plane when the Config names
+a control world (``control/``).
+
 ``configure("color=...")`` restricts the world as the reference's
 Configure does (src/mlsl.cpp:620-647): one value keeps every rank, one value a
 rank keeps the ranks whose color equals the first one, so later
@@ -58,11 +62,19 @@ class Environment:
     def is_initialized(cls) -> bool:
         return cls._instance is not None and cls._instance._initialized
 
-    def init(self, device=None, world_size: int = 8) -> "Environment":
+    def init(self, device=None, world_size: Optional[int] = None) -> "Environment":
         """Bootstrap ``world_size`` virtual ranks on ``device``: 'cuda' (or
-        'cuda:N') by default, 'cpu' only when asked for."""
+        'cuda:N') by default, 'cpu' only when asked for. With no
+        ``world_size`` the world is the elastic registry's survivor ranks
+        after a shrink (``elastic.active_devices()``, as the JAX package's
+        init adopts the survivor devices), else 8."""
         if self._initialized:
             return self
+        if world_size is None:
+            from mlsl_tpu_torch import elastic
+
+            active = elastic.active_devices()
+            world_size = len(active) if active is not None else 8
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -115,6 +127,12 @@ class Environment:
             from mlsl_tpu_torch.obs import serve as obs_serve
 
             obs_serve.start_server(config.metrics_port)
+        # the pod control plane (environment.py:134-144 of the JAX package):
+        # a no-op unless the Config names a control world; it survives
+        # rebuilds like the elastic registry
+        from mlsl_tpu_torch import control
+
+        control.ensure_started(config)
         if self.quant_params is not None:
             # parameters set before init apply now that the config exists; a
             # codec that no longer loads unwinds init, so that a retry loads

@@ -20,7 +20,8 @@ include/mlsl.hpp:651-726, src/mlsl_impl_stats.cpp):
 - ``print_``: the table appended to ``mlsl_stats.log`` (``MLSL_STATS_DIR``,
   default the working directory; reference :226-363), for the counters this
   package keeps: per-slot rows, ISOLATE, OVERLAP, BUCKET, FEED, ALGO,
-  OVERLAP ENGINE, SENTINEL, CODEC, SERVE ENGINE and CHKP lines.
+  OVERLAP ENGINE, SENTINEL, ELASTIC, STRAGGLER, CONTROL, SERVE ENGINE, CHKP,
+  CODEC and DEGRADE lines.
 
 Also the process-wide counters of the dispatch layer: bucket rounds of
 gradient bucketing (stats.py:131-175), launches per (kind, algorithm) and the
@@ -36,10 +37,12 @@ transitions, degraded dispatches, retries; a guardrail demotion is filed
 there too), straggler audits (STRAGGLER), the lock witness (LOCKWITNESS) and
 analysis verdicts (ANALYSIS), and the integrity layer's (stats.py:239-270,
 355-373): the sentinel's gate and audits (SENTINEL) and the buffer
-checker's checks (CHKP). The JAX package's table also prints the elastic
-mesh (ELASTIC) and the control plane (CONTROL); those subsystems are not
-ported yet (ROADMAP A.7c), so their counters and lines are left out, as are
-the span tracer's wait-stall percentiles in the OVERLAP and BUCKET lines.
+checker's checks (CHKP), and the recovery layer's (stats.py:313-355,
+443-485): the elastic mesh's shrinks, grows and admission verdicts
+(ELASTIC) and the control plane's membership, election and drain events
+(CONTROL), each cold event also an immediate line. The table prints its
+lines in the JAX package's order; the span tracer's wait-stall percentiles
+in the OVERLAP and BUCKET lines are left out.
 """
 
 from __future__ import annotations
@@ -467,6 +470,83 @@ def record_straggler(event: str, detail: str = "") -> None:
 def reset_straggler_counters() -> None:
     for k in STRAGGLER_COUNTERS:
         STRAGGLER_COUNTERS[k] = 0
+
+
+# Elastic-mesh accounting (elastic.py): device losses routed to the reshard
+# rung, shrink and grow cycles and the admission audit's verdicts --
+# process-wide like the degrade counters (the coordinator outlives every
+# Environment rebuild it makes). Every event but the per-buffer count is
+# cold and appends an immediate ELASTIC line.
+ELASTIC_COUNTERS: Dict[str, int] = {
+    "device_losses": 0,     # DEVICE_LOSS faults reaching the coordinator
+    "shrinks": 0,           # successful shrink reshard cycles
+    "grows": 0,             # successful grow (re-admission) cycles
+    "grow_abandons": 0,     # grows abandoned on persistent divergence
+    "admits": 0,            # replicas admitted on a passing fingerprint audit
+    "admit_rejects": 0,     # admission audits that found divergence
+    "resyncs": 0,           # rejected copies re-synced from the survivors
+    "reshard_buffers": 0,   # ZeRO-1 state buffers moved by reshard plans
+    "restart_fallbacks": 0,  # losses escalated to checkpoint restart
+}
+
+
+def record_elastic(event: str, detail: str = "", n: int = 1) -> None:
+    """One elastic-mesh event (see ELASTIC_COUNTERS keys)."""
+    ELASTIC_COUNTERS[event] += n
+    if event != "reshard_buffers":
+        try:
+            with open(stats_path(), "a") as f:
+                f.write(f"{'ELASTIC':<16} {event.upper():<16} {detail}\n")
+        except OSError:
+            pass
+
+
+def reset_elastic_counters() -> None:
+    for k in ELASTIC_COUNTERS:
+        ELASTIC_COUNTERS[k] = 0
+
+
+# Control-plane accounting (control/): heartbeat traffic, membership
+# detection and commit, elections and drain coordination, process-wide (pod
+# membership outlives every Environment rebuild). Heartbeat traffic is hot
+# and only counts; every other event appends an immediate CONTROL line.
+CONTROL_COUNTERS: Dict[str, int] = {
+    "heartbeats_sent": 0,   # frames sent (hot: counter only)
+    "heartbeats_recv": 0,   # frames received (hot: counter only)
+    "send_failures": 0,     # control-channel sends that failed (hot)
+    "deaths_detected": 0,   # peers locally declared dead (miss budget)
+    "epochs_committed": 0,  # membership/drain epochs applied (fenced)
+    "stale_rejected": 0,    # stale-epoch / deposed-leader orders rejected
+    "elections": 0,         # leadership changes observed
+    "notices": 0,           # preemption notices submitted locally
+    "drain_decisions": 0,   # pod-wide drain verdicts made (leader only)
+    "drains_executed": 0,   # local drain executions completed
+    "evicted": 0,           # this rank declared dead by the pod (partition)
+}
+
+_CONTROL_HOT = ("heartbeats_sent", "heartbeats_recv", "send_failures")
+_CONTROL_LOCK = threading.Lock()
+
+
+def record_control(event: str, detail: str = "", line: bool = True,
+                   count: bool = True) -> None:
+    """One control-plane event (see CONTROL_COUNTERS keys); called from the
+    plane's heartbeat and listener threads too."""
+    if count:
+        with _CONTROL_LOCK:
+            CONTROL_COUNTERS[event] += 1
+    if line and event not in _CONTROL_HOT:
+        try:
+            with open(stats_path(), "a") as f:
+                f.write(f"{'CONTROL':<16} {event.upper():<16} {detail}\n")
+        except OSError:
+            pass
+
+
+def reset_control_counters() -> None:
+    with _CONTROL_LOCK:
+        for k in CONTROL_COUNTERS:
+            CONTROL_COUNTERS[k] = 0
 
 
 # Runtime lock-witness accounting (analysis/witness.py,
@@ -913,19 +993,43 @@ class Statistics:
                 f"verified_saves {sc['verified_saves']} "
                 f"reaudits {sc['reaudits']}"
             )
-        xc = CODEC_COUNTERS
-        if any(xc.values()) or CODEC_WIRE_BYTES:
-            wire = " ".join(f"{name}={n}" for name, n in sorted(CODEC_WIRE_BYTES.items()))
+        ec = ELASTIC_COUNTERS
+        if any(ec.values()):
+            # one grep ('ELASTIC') answers "did capacity churn cost this run
+            # a restart"
             lines.append(
-                f"{'CODEC':<16} {'LAB':<8} "
-                f"calibrations {xc['calibrations']} "
-                f"assignments {xc['assignments']} "
-                f"breaches {xc['guard_breaches']} "
-                f"demotions {xc['demotions']}"
-                + (f" wire_bytes {wire}" if wire else "")
+                f"{'ELASTIC':<16} {'MESH':<8} "
+                f"losses {ec['device_losses']} "
+                f"shrinks {ec['shrinks']} grows {ec['grows']} "
+                f"abandons {ec['grow_abandons']} "
+                f"admits {ec['admits']} rejects {ec['admit_rejects']} "
+                f"resyncs {ec['resyncs']} "
+                f"reshard_buffers {ec['reshard_buffers']} "
+                f"restart_fallbacks {ec['restart_fallbacks']}"
             )
-            for row in CODEC_DEMOTIONS:
-                lines.append(f"{'CODEC':<16} {'DEMOTE':<8} {row}")
+        gc = STRAGGLER_COUNTERS
+        if any(gc.values()):
+            lines.append(
+                f"{'STRAGGLER':<16} {'SKEW':<8} "
+                f"audits {gc['audits']} flags {gc['flags']} "
+                f"sheds {gc['sheds']} "
+                f"shed_fallbacks {gc['shed_fallbacks']}"
+            )
+        cc = CONTROL_COUNTERS
+        if any(cc.values()):
+            # one grep ('CONTROL') answers "did the pod agree on what happened"
+            lines.append(
+                f"{'CONTROL':<16} {'POD':<8} "
+                f"hb_sent {cc['heartbeats_sent']} "
+                f"hb_recv {cc['heartbeats_recv']} "
+                f"send_failures {cc['send_failures']} "
+                f"deaths {cc['deaths_detected']} "
+                f"epochs {cc['epochs_committed']} "
+                f"stale_rejected {cc['stale_rejected']} "
+                f"elections {cc['elections']} notices {cc['notices']} "
+                f"drain_decisions {cc['drain_decisions']} "
+                f"drains {cc['drains_executed']} evicted {cc['evicted']}"
+            )
         vc = SERVE_COUNTERS
         if any(vc.values()):
             lines.append(
@@ -951,14 +1055,19 @@ class Statistics:
                 f"value_checks {kc['value_checks']} "
                 f"value_syncs {kc['value_syncs']}"
             )
-        gc = STRAGGLER_COUNTERS
-        if any(gc.values()):
+        xc = CODEC_COUNTERS
+        if any(xc.values()) or CODEC_WIRE_BYTES:
+            wire = " ".join(f"{name}={n}" for name, n in sorted(CODEC_WIRE_BYTES.items()))
             lines.append(
-                f"{'STRAGGLER':<16} {'SKEW':<8} "
-                f"audits {gc['audits']} flags {gc['flags']} "
-                f"sheds {gc['sheds']} "
-                f"shed_fallbacks {gc['shed_fallbacks']}"
+                f"{'CODEC':<16} {'LAB':<8} "
+                f"calibrations {xc['calibrations']} "
+                f"assignments {xc['assignments']} "
+                f"breaches {xc['guard_breaches']} "
+                f"demotions {xc['demotions']}"
+                + (f" wire_bytes {wire}" if wire else "")
             )
+            for row in CODEC_DEMOTIONS:
+                lines.append(f"{'CODEC':<16} {'DEMOTE':<8} {row}")
         dc = DEGRADE_COUNTERS
         if any(dc.values()) or DEGRADE_FALLBACKS:
             # the ladder summary: every trip, probe, reset, retry and degraded

@@ -56,7 +56,7 @@ metrics registry (``MLSL_METRICS``) take the step's wall time, and on the
 registry's cadence the loss, the gradient norm, the input stall and every
 counter family; with neither armed ``step`` adds nothing and no sync.
 ``sentinel.maybe_audit(trainer, step)`` audits ``_audit_state()``; the
-fault-tolerant loop that calls it each step is ROADMAP A.7c's.
+fault-tolerant loop (``resilience.FaultTolerantLoop``) calls it each step.
 """
 
 from __future__ import annotations
@@ -245,8 +245,11 @@ class DataParallelTrainer:
                 self.straggler = obs_straggler.StragglerSentinel(
                     skew=cfg.straggler_skew, every=cfg.straggler_every,
                     sustain=cfg.straggler_sustain, shed=cfg.straggler_shed)
-        # the one process is replica 0 (the JAX package's process index)
-        self._replica_id = 0
+        # the pod rank with a control plane armed, else the one process's 0
+        # (the JAX package's process index)
+        from mlsl_tpu_torch import control
+
+        self._replica_id = control.replica_id(0)
         self._stall_ms_seen = 0.0   # the FEED stall total at the last sample
         # fuse the whole step when no parameter set communicates
         # (train.py:388-391); an armed gate screens at the gradient boundary,

@@ -2,8 +2,8 @@
 
 Counterpart of ``mlsl_tpu.obs.metrics``, by adapted copy. The sampler reads
 the counter families the port keeps (BUCKET, FEED, SENTINEL, DEGRADE,
-OVERLAP, ANALYSIS, CHKP, STRAGGLER, SERVE, CODEC, LOCKWITNESS); the ELASTIC
-family waits for its subsystem (ROADMAP A.7c).
+OVERLAP, ELASTIC, ANALYSIS, CHKP, STRAGGLER, SERVE, CODEC, LOCKWITNESS), the
+JAX package's.
 
 The span tracer (``obs/tracer.py``) answers *which request stalled and when*;
 the ``core/stats.py`` counter families answer *how much, in total, since
@@ -313,6 +313,7 @@ class MetricsRegistry:
             ("sentinel", st.SENTINEL_COUNTERS),
             ("degrade", st.DEGRADE_COUNTERS),
             ("overlap", st.OVERLAP_COUNTERS),
+            ("elastic", st.ELASTIC_COUNTERS),
             ("analysis", st.ANALYSIS_COUNTERS),
             ("chkp", st.CHKP_COUNTERS),
             ("straggler", st.STRAGGLER_COUNTERS),

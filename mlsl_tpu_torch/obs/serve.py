@@ -50,13 +50,18 @@ DEFAULT_ADDR = ""  # all interfaces: the scrape surface is for remote collectors
 
 
 def healthz_doc() -> dict:
-    """The /healthz body: ``supervisor.status()`` verbatim (lazy import --
-    supervisor sits above obs in the import graph). The JAX package adds a
-    ``pod`` key on a control-plane leader; the control plane is not ported
-    (ROADMAP A.7c)."""
+    """The /healthz body: ``supervisor.status()`` (lazy import -- supervisor
+    sits above obs in the import graph), plus, on the pod leader only, a
+    ``pod`` key merging every member's last pushed status and heartbeat age
+    (``control``): one scrape of the leader answers for the whole pod."""
+    from mlsl_tpu_torch import control as control_mod
     from mlsl_tpu_torch import supervisor
 
-    return supervisor.status()
+    doc = supervisor.status()
+    plane = control_mod.get_active()
+    if plane is not None and plane.is_leader():
+        doc["pod"] = plane.pod_status()
+    return doc
 
 
 def statusz_text() -> str:

@@ -1,9 +1,10 @@
 """Straggler sentinel: cross-replica step-time/wait-latency skew detection.
 
-Counterpart of ``mlsl_tpu.obs.straggler``, by adapted copy. The shed
-hand-off to an elastic coordinator waits for ROADMAP A.7c: until then
-:meth:`StragglerSentinel.shed_candidate` is reported (``/healthz``, the
-serving engine's ladder) and nothing acts on it.
+Counterpart of ``mlsl_tpu.obs.straggler``, by adapted copy. With
+``MLSL_STRAGGLER_SHED`` armed, ``resilience.FaultTolerantLoop`` hands
+:meth:`StragglerSentinel.shed_candidate` to the elastic coordinator
+(``ElasticCoordinator.shed``) between steps; remote pod members' step times
+arrive through the control plane (:meth:`StragglerSentinel.observe_remote`).
 
 The integrity sentinel (the JAX package's sentinel) catches replicas whose *state*
 diverges; nothing catches a replica whose *speed* diverges — a thermally
@@ -78,9 +79,9 @@ def _median(vals: List[float]) -> float:
 
 
 class StragglerSentinel:
-    """Per-replica skew monitor. Constructed explicitly (tests, soaks; the
-    fault-tolerant loop that builds it when ``straggler_skew`` arms it is
-    ROADMAP A.7c's). A knob left at None takes the Config that
+    """Per-replica skew monitor. Constructed explicitly (tests, soaks) or by
+    ``DataParallelTrainer`` when ``straggler_skew`` arms it. A knob left at
+    None takes the Config that
     ``Environment.init`` handed over (:func:`configure`), else its
     environment variable."""
 

@@ -20,8 +20,10 @@ Counterpart of ``mlsl_tpu.supervisor``: the four-rung escalation ladder.
    DEGRADE event; it runs on the same device as the healthy path. After
    ``MLSL_BREAKER_COOLDOWN_S`` the breaker goes HALF_OPEN and lets the
    healthy path probe; one success re-closes it, one failure re-opens.
-4. **Restart**: what rungs 1-3 could not absorb raises to the caller (the
-   JAX package's FaultTolerantLoop waits for ROADMAP A.7c).
+4. **Restart**: what rungs 1-3 could not absorb raises to the caller:
+   ``resilience.FaultTolerantLoop`` restores the newest verified checkpoint
+   within its restart budget, or, with the elastic mesh armed, answers a
+   DEVICE_LOSS by shrinking to the survivor ranks (``elastic.py``).
 
 Breakers are process-wide: subsystem health survives an Environment
 rebuild. Knobs are (re)applied from :class:`mlsl_tpu_torch.config.Config`
@@ -321,22 +323,6 @@ def configure(config=None, threshold: Optional[int] = None,
                 br.cooldown_s = float(cooldown_s)
 
 
-def _never_armed_elastic() -> dict:
-    """What the JAX package's ``elastic.status()`` reports with no shrink
-    ever made (ROADMAP A.7c ports the elastic mesh): the whole world active,
-    every counter 0, no capacity budget. The world is the initialized
-    Environment's virtual ranks (None before ``init``)."""
-    from mlsl_tpu_torch.core.environment import Environment
-
-    env = Environment._instance
-    world = env.world_size if env is not None and env._initialized else None
-    return {"state": "full", "world_size": world, "active_size": world,
-            "device_losses": 0, "shrinks": 0, "grows": 0, "grow_abandons": 0,
-            "admits": 0, "admit_rejects": 0, "resyncs": 0, "reshard_buffers": 0,
-            "restart_fallbacks": 0, "capacity_budget": None,
-            "budget_remaining": None}
-
-
 def status() -> Dict[str, dict]:
     """Per-subsystem breaker status (subsystems never touched report a
     virgin closed breaker), plus every plane ``/healthz`` reports, under the
@@ -349,10 +335,10 @@ def status() -> Dict[str, dict]:
     - ``codecs``: the codec registry, its guardrail and demotions;
     - ``sentinel``: the integrity sentinel's counters and last audit
       (``sentinel.status()``);
-    - ``elastic``, ``control``: their subsystems are not ported yet (ROADMAP
-      A.7c); they hold what the JAX package reports when that subsystem was
-      never armed (elastic "full" over the Environment's world, control
-      "off")."""
+    - ``elastic``: the active and full world, the capacity budget, the
+      ELASTIC counters and the last reshard (``elastic.status()``);
+    - ``control``: the pod control plane's membership view
+      (``control.status()``, {"state": "off"} unarmed)."""
     out = {}
     for name in sorted(set(SUBSYSTEMS) | set(_breakers)):
         br = _breakers.get(name)
@@ -363,15 +349,17 @@ def status() -> Dict[str, dict]:
     from mlsl_tpu_torch.obs import metrics as _metrics
     from mlsl_tpu_torch.obs import straggler as _straggler
     from mlsl_tpu_torch import codecs as _codecs
+    from mlsl_tpu_torch import control as _control
+    from mlsl_tpu_torch import elastic as _elastic
     from mlsl_tpu_torch import sentinel as _sentinel
     from mlsl_tpu_torch.serve import sla as _sla
 
     out["sentinel"] = _sentinel.status()
     out["analysis"] = _analysis.status()
-    out["elastic"] = _never_armed_elastic()
+    out["elastic"] = _elastic.status()
     out["straggler"] = _straggler.status()
     out["metrics"] = _metrics.status()
-    out["control"] = {"state": "off"}
+    out["control"] = _control.status()
     out["serve"] = _sla.status()
     out["codecs"] = _codecs.status()
     return out
@@ -416,10 +404,13 @@ def reset_all() -> None:
     stopped, the straggler sentinel, the lock witness and the analysis
     verdicts dropped, and the fault plane's counters at 0. The port's tests
     call it after every test (they share worker processes with the JAX
-    package's tests) and ``chip_smoke.py`` between the parts of runs (z)
-    and (aa). The integrity layer goes back too: the sentinel's counters and
-    last audit, the checker's queued verdicts and counters."""
-    from mlsl_tpu_torch import chaos, checker, sentinel
+    package's tests) and ``chip_smoke.py`` between the parts of runs (z),
+    (aa) and (ab). The integrity layer goes back too: the sentinel's counters
+    and last audit, the checker's queued verdicts and counters; and the
+    recovery layer: the elastic registry (the active world, the last
+    reshard, the capacity budget) with the ELASTIC counters, and the control
+    plane, stopped, with the CONTROL counters."""
+    from mlsl_tpu_torch import chaos, checker, control, elastic, sentinel
     from mlsl_tpu_torch.analysis import diagnostics, witness as _witness
     from mlsl_tpu_torch.config import Config
     from mlsl_tpu_torch.core import stats as stats_mod
@@ -448,3 +439,7 @@ def reset_all() -> None:
     sentinel.reset()
     checker.clear()
     stats_mod.reset_chkp_counters()
+    elastic.reset()
+    stats_mod.reset_elastic_counters()
+    control.reset()
+    stats_mod.reset_control_counters()

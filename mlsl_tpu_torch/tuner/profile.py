@@ -56,6 +56,9 @@ KNOB_RANGES = {
     # the integrity sentinel's audit interval (0 = off); an exported
     # MLSL_SENTINEL_EVERY wins
     "sentinel_every": 0,
+    # the control plane's heartbeat miss budget (control/plane.py); an
+    # exported MLSL_HEARTBEAT_MISSES wins
+    "heartbeat_misses": 1,
 }
 
 

@@ -1,12 +1,13 @@
 """The port's fault injection (mlsl_tpu_torch.chaos) and its sites against
 the JAX package's, mirroring tests/test_chaos.py (its checkpoint tests,
-:269-382, wait for ROADMAP A.7c).
+:269-382, are tests/test_torch_checkpoint.py; the loop matrix's checkpoint
+rows tests/test_torch_resilience.py; the control sites'
+tests/test_torch_control.py).
 
 - The registry, kinds, grammar and parsed plans equal the JAX package's.
-- The fault matrix: a fault at every site this slice wires, armed at a step
-  of an MLP training run, is recovered by restarting the run from its
-  initial state (the JAX package's FaultTolerantLoop, restarting from a step-0
-  checkpoint, waits for ROADMAP A.7c), and the final parameters equal the
+- The fault matrix: a fault at every site of a training step, armed at a
+  step of an MLP training run, is recovered by restarting the run from its
+  initial state (a fresh Environment and trainer), and the final parameters equal the
   fault-free run's bit for bit; the fault-free port run is held to the JAX
   package's within rtol/atol 1e-6, as tests/test_torch_bucketing.py holds the
   trainer.
@@ -161,7 +162,8 @@ SITE_CONFIGS = {
     "device.lost": ("plain", 3),
 }
 # consumed by the trainer (train.*: tests/test_torch_integrity.py), by the
-# recovery and control layers (ROADMAP A.7c) and by the serving engine
+# recovery and control layers (tests/test_torch_resilience.py,
+# tests/test_torch_control.py) and by the serving engine
 # (tests/test_torch_serve.py)
 LATER_SITES = {"checkpoint.save", "checkpoint.restore", "train.params", "train.opt_state",
                "train.grads", "control.heartbeat", "control.notice"}
@@ -279,7 +281,15 @@ def test_fault_matrix(site):
         if step == arm_step and attempt == 0 and armed["plan"] is None:
             armed["plan"] = chaos.plan(site, "error")
 
-    got, restarts = _run(cfg, arm, via_loader=site == "data.prefetch")
+    try:
+        got, restarts = _run(cfg, arm, via_loader=site == "data.prefetch")
+    finally:
+        if site == "data.prefetch":
+            # the loader's stall and back-pressure waits are process-wide
+            # FEED counts: leave none for a later test's table
+            from mlsl_tpu_torch.core import stats
+
+            stats.reset_feed_counters()
     assert armed["plan"] is not None and armed["plan"].fires == 1
     assert restarts >= 1, f"fault at {site} never took the recovery path"
     _assert_params_equal(base, got)

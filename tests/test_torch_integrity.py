@@ -883,8 +883,7 @@ def test_trainer_step_feeds_and_cadence(env, monkeypatch, tmp_path):
     cadence tick's loss (the mean over the ranks) and gradient norm (over
     every rank's local gradients, before any comm) agree within float32
     rtol 1e-5 (sums in another order); the step's wall time is observed once
-    a step; the JSONL holds the same series, apart from the elastic family,
-    whose subsystem the port does not have yet (ROADMAP A.7c)."""
+    a step; the JSONL holds the same series, the elastic family's included."""
     from mlsl_tpu.obs import metrics as jmetrics
     from mlsl_tpu_torch.obs import metrics
 
@@ -914,8 +913,7 @@ def test_trainer_step_feeds_and_cadence(env, monkeypatch, tmp_path):
     assert tl == pytest.approx(jl, rel=1e-5) and tl > 0
     assert tg == pytest.approx(jg, rel=1e-5) and tg > 0
     assert tn == jn == 4
-    unported = {s for s in jser if s.startswith("mlsl_elastic_")}
-    assert tser == jser - unported
+    assert tser == jser
     assert {"mlsl_step_ms", "mlsl_loss", "mlsl_grad_norm"} <= tser
 
 

@@ -71,7 +71,10 @@ def test_importing_the_port_loads_no_jax():
             "mlsl_tpu_torch.parallel.pipeline, mlsl_tpu_torch.supervisor, "
             "mlsl_tpu_torch.serve, mlsl_tpu_torch.serve.engine, "
             "mlsl_tpu_torch.serve.kv_cache, mlsl_tpu_torch.serve.sla, "
-            "mlsl_tpu_torch.serve.checks; "
+            "mlsl_tpu_torch.serve.checks, mlsl_tpu_torch.checkpoint, "
+            "mlsl_tpu_torch.resilience, mlsl_tpu_torch.elastic, mlsl_tpu_torch.control, "
+            "mlsl_tpu_torch.control.channel, mlsl_tpu_torch.control.plane, "
+            "mlsl_tpu_torch.control.sim, mlsl_tpu_torch.analysis.plan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

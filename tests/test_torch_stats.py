@@ -17,9 +17,42 @@ from mlsl_tpu_torch.types import CompressionType, OpType
 
 torch.set_num_threads(2)
 
-#: table lines of subsystems the port has not ported (core/stats.py)
-NOT_PORTED_LINES = ("FEED", "SENTINEL", "ELASTIC", "STRAGGLER", "CONTROL", "SERVE", "CHKP",
-                    "DEGRADE")
+#: table lines of subsystems the port has not ported (core/stats.py): none
+#: left; the families below are compared line for line
+NOT_PORTED_LINES = ()
+
+
+def _reset_families(mod):
+    """Every process-wide counter family the two tables read, at 0: an
+    earlier test in the same worker (a loader's stall, a breaker's trip)
+    must show on neither side."""
+    for name in ("bucket", "algo", "overlap", "codec", "feed", "serve", "degrade",
+                 "straggler", "sentinel", "chkp", "elastic", "control"):
+        getattr(mod, f"reset_{name}_counters")()
+
+
+def _record_families(mod):
+    """One event of each family the later slices ported (FEED, SERVE,
+    DEGRADE, STRAGGLER, SENTINEL, CHKP, ELASTIC, CONTROL), the same values on
+    both sides."""
+    mod.record_feed_stage(3 << 20, 12 << 20)
+    mod.record_feed_cache("hit")
+    mod.record_feed_stall(0.625)
+    mod.record_feed_wait(37.75)
+    mod.record_feed_retry()
+    mod.record_serve("admitted", 3)
+    mod.record_serve("tokens_out", 96)
+    mod.record_degrade("loop", "recover", detail="#1/20 RuntimeError: x")
+    mod.record_straggler("audits")
+    mod.record_sentinel("screened")
+    mod.record_sentinel("verified_saves")
+    mod.record_chkp("checks", 4)
+    mod.record_elastic("device_losses", "step=3 world 8->4")
+    mod.record_elastic("shrinks", "step=3 world 8->4")
+    mod.record_elastic("reshard_buffers", n=12)
+    mod.record_control("deaths_detected", "rank=2")
+    mod.record_control("epochs_committed", "epoch=1")
+    mod.record_control("heartbeats_sent", line=False)
 
 
 @pytest.fixture()
@@ -206,11 +239,7 @@ ISO = {(0, ("OA", 0)): 900_000, (0, ("GRAD", 0)): 200_000, (1, ("IA", 0)): 400_0
        (1, ("GRAD", 0)): 50_000}
 
 
-@pytest.mark.parametrize("counters", ["none", "bucket", "algo", "engine", "codec", "all"])
-def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
-    """On the same slot values, isolation times and process-wide counters,
-    the overlap report, the fractions and every table line the port prints
-    are the JAX package's."""
+def _check_tables(stats_env, tmp_path, counters):
     env, t = stats_env
     sessions = []
     for e, mod in ((env, jstats), (t, tstats)):
@@ -218,10 +247,7 @@ def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
         _fill(s.get_stats(), mod, SLOTS, ISO, {0: 6144, 1: 1536})
         sessions.append(s)
     for mod in (jstats, tstats):
-        mod.reset_bucket_counters()
-        mod.reset_algo_counters()
-        mod.reset_overlap_counters()
-        mod.reset_codec_counters()
+        _reset_families(mod)
         if counters in ("codec", "all"):
             mod.record_codec_wire("prune", 1234)
             mod.record_codec_wire("int8", 99)
@@ -239,23 +265,67 @@ def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
         if counters in ("engine", "all"):
             mod.record_overlap_step(5, 9, 123_456_789, split=True,
                                     breakdown={("allreduce", "quant_ring"): 5})
-    js, ts = (s.get_stats() for s in sessions)
-    assert ts.overlap_report() == js.overlap_report()
-    assert ts.get_overlap_fraction() == js.get_overlap_fraction()
-    for i in (0, 1):
-        assert ts.get_overlap_fraction(i) == js.get_overlap_fraction(i)
-        assert ts.get_isolation_comm_cycles(i) == js.get_isolation_comm_cycles(i)
-        assert ts.get_comm_cycles(i) == js.get_comm_cycles(i)
-        assert ts.get_compute_cycles(i) == js.get_compute_cycles(i)
-    want = [ln for ln in js.print_(str(tmp_path / "j.log")).splitlines()
-            if ln.split()[0] not in NOT_PORTED_LINES]
-    got = ts.print_(str(tmp_path / "t.log")).splitlines()
-    assert got == want
-    for mod in (jstats, tstats):
-        mod.reset_bucket_counters()
-        mod.reset_algo_counters()
-        mod.reset_overlap_counters()
-        mod.reset_codec_counters()
+        if counters in ("families", "all"):
+            _record_families(mod)
+    try:
+        js, ts = (s.get_stats() for s in sessions)
+        assert ts.overlap_report() == js.overlap_report()
+        assert ts.get_overlap_fraction() == js.get_overlap_fraction()
+        for i in (0, 1):
+            assert ts.get_overlap_fraction(i) == js.get_overlap_fraction(i)
+            assert ts.get_isolation_comm_cycles(i) == js.get_isolation_comm_cycles(i)
+            assert ts.get_comm_cycles(i) == js.get_comm_cycles(i)
+            assert ts.get_compute_cycles(i) == js.get_compute_cycles(i)
+        want = [ln for ln in js.print_(str(tmp_path / "j.log")).splitlines()
+                if ln.split()[0] not in NOT_PORTED_LINES]
+        got = ts.print_(str(tmp_path / "t.log")).splitlines()
+        assert got == want
+        if counters in ("families", "all"):
+            heads = {ln.split()[0] for ln in got}
+            assert {"FEED", "SERVE", "DEGRADE", "STRAGGLER", "SENTINEL", "CHKP", "ELASTIC",
+                    "CONTROL"} <= heads
+    finally:
+        for mod in (jstats, tstats):
+            _reset_families(mod)
+
+
+@pytest.mark.parametrize("counters",
+                         ["none", "bucket", "algo", "engine", "codec", "families", "all"])
+def test_overlap_report_and_table_match_jax(stats_env, tmp_path, counters):
+    """On the same slot values, isolation times and process-wide counters,
+    the overlap report, the fractions and every table line the port prints
+    are the JAX package's, in its order: every counter family both tables
+    read is reset on both sides before and after, so what an earlier test
+    left behind shows on neither."""
+    _check_tables(stats_env, tmp_path, counters)
+
+
+def test_table_matches_jax_after_the_chaos_loader_row(stats_env, tmp_path):
+    """The order that once failed under ``--dist loadfile``: the chaos
+    matrix's ``data.prefetch`` row (an AsyncLoader whose stall and
+    back-pressure waits land in FEED_COUNTERS) and then the table
+    comparison, in one process."""
+    import importlib.util
+    import pathlib
+
+    from mlsl_tpu_torch import supervisor
+
+    path = pathlib.Path(__file__).with_name("test_torch_chaos.py")
+    spec = importlib.util.spec_from_file_location("_torch_chaos_rows", path)
+    rows = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(rows)
+    env, t = stats_env
+    t.finalize()
+    try:
+        supervisor.reset_all()
+        rows.test_fault_matrix("data.prefetch")
+        assert not any(tstats.FEED_COUNTERS.values()), "the loader row left FEED counts"
+        tstats.record_feed_stall(0.6)    # and a stall the row might still leave
+        tstats.record_feed_wait(37.7)
+    finally:
+        supervisor.reset_all()
+    t = Environment.get_env().init(device="cpu", world_size=8)
+    _check_tables((env, t), tmp_path, "all")
 
 
 def test_bucket_wire_saved_matches_jax(stats_env):
