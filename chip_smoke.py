@@ -454,6 +454,25 @@ Phases, in order; any failure exits non-zero and prints no result:
              member's death committed as one epoch drives (ab2)'s shrink
              with zero restores. Save, restore, sha256, drain, plan-verify,
              placement and rebuild times in the ``# recovery`` lines.
+42. analysis (run (ac), after run (ab), beside the card tests): the static
+             analysis on the card. (ac1) config 5 (ResNet-50 at full width, 8
+             virtual ranks) committed under MLSL_VERIFY=1 in three forms, each
+             beside its MLSL_VERIFY=0 twin: int8 gradients in 25 MiB buckets
+             on pallas_ring (B1 + B4); ZeRO-1 Adam on pallas_ring (B3 reduce-
+             scatters), then the staged ZeRO-1 update over its layer counts
+             (B3 + B3-AG; not a committed plan, so no verifier covers it in
+             either package); the compiled engine's int8 plan on the fused
+             ring (verify_overlap_plan where the engine is built, then one
+             replayed step on B4). Each commit green, one step of each bit
+             for bit its twin's, verify ms against commit ms. (ac2) run (m)'s
+             graph at gpt-medium-2k's MLP widths on B3, B5 and B6 committed
+             under MLSL_VERIFY=1, green, one checked round. (ac3) the
+             misordered-groups fixture: MLSLError naming MLSL-A101 under
+             ``error``; under ``warn`` it commits with the verdict in
+             supervisor.status()["analysis"] and on the ANALYSIS line. (ac4)
+             ``python -m mlsl_tpu_torch.analysis``, ``--concurrency`` and
+             ``--graph`` (on the card) exit 0, in subprocesses started with
+             the run.
 
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
@@ -7904,6 +7923,416 @@ def run_recovery(torch, np, get_env, launches, reset_launches, dev):
     return used, lines
 
 
+# -- static analysis (run (ac)) ---------------------------------------------------------
+
+# the knobs run (ac) sets besides ALGO_VARS; every part starts with none of
+# them exported
+AC_VARS = ("MLSL_VERIFY", "MLSL_VERIFY_SEVERITY")
+AC_BUCKET_MB = "25"         # (ac1): int8 gradients in 25 MiB buckets
+
+
+def ac_env(get_env, dev, **env_vars):
+    """Initialise the Environment again on the card with run (ac)'s knobs
+    reset and ``env_vars`` exported."""
+    get_env().finalize()
+    for k in AC_VARS + ALGO_VARS:
+        if k != "MLSL_STATS_DIR":     # run (ac)'s own, for its ANALYSIS lines
+            os.environ.pop(k, None)
+    os.environ.update(env_vars)
+    return get_env().init(device=dev, world_size=WORLD)
+
+
+class CommitClock:
+    """Times every ``Session.commit`` while it is entered and keeps what the
+    commit recorded: its milliseconds and the plan verifier's and the
+    protocol checker's verdicts (``supervisor.status()["analysis"]``) just
+    after it."""
+
+    def __init__(self):
+        self.commits = []
+
+    def __enter__(self):
+        from mlsl_tpu_torch.analysis import diagnostics
+        from mlsl_tpu_torch.core.session import Session
+
+        self._real = real = Session.commit
+        commits = self.commits
+
+        def commit(sess):
+            t0 = time.perf_counter()
+            real(sess)
+            st = diagnostics.status()
+            commits.append({"commit_ms": (time.perf_counter() - t0) * 1e3,
+                            "plan": dict(st["plan"]), "protocol": dict(st["protocol"])})
+
+        Session.commit = commit
+        return self
+
+    def __exit__(self, *exc):
+        from mlsl_tpu_torch.core.session import Session
+
+        Session.commit = self._real
+        return False
+
+
+def ac_state(trainer) -> list:
+    """The trainer's parameters, its optimizer state and every error-feedback
+    residual (requests, buckets, the compiled engine's), cloned."""
+    from mlsl_tpu_torch.sentinel import tree_leaves
+
+    out = [p.detach().clone() for p in trainer._all_params()]
+    for name in sorted(trainer.opt_state):
+        out += [t.detach().clone() for t in tree_leaves(trainer.opt_state[name])
+                if hasattr(t, "detach")]
+    seen = set()
+    for name in trainer.layers:
+        ps = trainer.ops[name].get_parameter_set(0)
+        for req in (ps.grad_req, ps.bucket.req if ps.bucket is not None else None):
+            if req is None or id(req) in seen or not req._errs:
+                continue
+            seen.add(id(req))
+            out += [e.detach().clone() for e in req._errs]
+    if trainer._overlap is not None:
+        out += [v.detach().clone() for _, v in sorted(trainer._overlap.residuals.items())]
+    return out
+
+
+def ac_twins(torch, np, get_env, launches, reset_launches, dev, tag, build, drive,
+             **env_vars):
+    """One (ac1) form: the trainer ``build(env)`` makes, committed with
+    MLSL_VERIFY=0 and then 1, each driven once by ``drive(trainer, batch)``.
+    -> (record, launches of the verified drive, the verified trainer's
+    reduced-gradient request algorithms)."""
+    from mlsl_tpu_torch.analysis import diagnostics
+
+    runs = {}
+    for verify in ("0", "1"):
+        env = ac_env(get_env, dev, MLSL_VERIFY=verify, **env_vars)
+        settle(torch)
+        diagnostics.reset()
+        with CommitClock() as clock:
+            t0 = time.perf_counter()
+            trainer, batch = build(env)
+            build_s = time.perf_counter() - t0
+        after = diagnostics.status()
+        reset_launches()
+        t0 = time.perf_counter()
+        drive(trainer, batch)
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        used = {k: v for k, v in launches().items() if v}
+        (commit,) = clock.commits
+        runs[verify] = dict(state=ac_state(trainer), commit=commit, after=after, used=used,
+                            build_s=build_s, drive_s=drive_s,
+                            algos=sorted({trainer.ops[n].get_parameter_set(0).grad_req.algo
+                                          for n in trainer.layers}),
+                            buckets=len({id(trainer.ops[n].get_parameter_set(0).bucket)
+                                         for n in trainer.layers
+                                         if trainer.ops[n].get_parameter_set(0).bucket}),
+                            engine=trainer._overlap is not None)
+        del trainer, batch
+    off, on = runs["0"], runs["1"]
+    plan, proto = on["commit"]["plan"], on["commit"]["protocol"]
+    check(off["commit"]["plan"]["verdict"] == "never_ran",
+          f"ac1 {tag}: the verifier ran with MLSL_VERIFY=0")
+    check(plan["verdict"] == "pass" and proto["verdict"] == "pass",
+          f"ac1 {tag}: commit verdicts {plan}, {proto}")
+    check(len(off["state"]) == len(on["state"]) and all(
+        same_bits(torch, a, b) for a, b in zip(off["state"], on["state"])),
+          f"ac1 {tag}: the verified step differs from its MLSL_VERIFY=0 twin's")
+    check(off["used"] == on["used"] and off["algos"] == on["algos"],
+          f"ac1 {tag}: launches {off['used']} / {on['used']}, algos {off['algos']} / "
+          f"{on['algos']}")
+    rec = {"tag": tag, "algos": on["algos"], "buckets": on["buckets"], "launches": on["used"],
+           "state_tensors": len(on["state"]), "bit_for_bit": True,
+           "commit_ms": on["commit"]["commit_ms"], "twin_commit_ms": off["commit"]["commit_ms"],
+           "verify_ms": plan["duration_s"] * 1e3, "protocol_ms": proto["duration_s"] * 1e3,
+           "build_s": on["build_s"], "drive_s": on["drive_s"],
+           "twin_drive_s": off["drive_s"]}
+    if on["engine"]:
+        eng = on["after"]["plan"]
+        check(eng["verdict"] == "pass" and eng["at"] != plan["at"],
+              f"ac1 {tag}: the engine's plan was not verified where it was built: {eng}")
+        rec["engine_verify_ms"] = eng["duration_s"] * 1e3
+    return rec, on["used"], on["algos"]
+
+
+def ac_staged_update(torch, trainer_counts, dev, launches, reset_launches):
+    """The staged ZeRO-1 update over config 5's layer counts on pallas_ring:
+    one call (B3 reduce-scatter + B3-AG all-gather a layer) held bit for
+    bit to the same update on the plain versions. -> (launches, ms)."""
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.comm.overlap import build_zero1_update
+
+    topo = Topology(WORLD, 1, WORLD)
+    group = ProcessGroup(topo, ("data",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    params = [torch.randn((*topo.grid_shape, c), generator=gen, device=dev)
+              for c in trainer_counts]
+    grads = [torch.randn((*topo.grid_shape, c), generator=gen, device=dev)
+             for c in trainer_counts]
+    fn, units = build_zero1_update(group, trainer_counts, lr=ZERO1_LR, denom=float(WORLD),
+                                   algo="pallas_ring")
+    ref, _ = build_zero1_update(group, trainer_counts, lr=ZERO1_LR, denom=float(WORLD),
+                                algo="pallas_ring", plain=True)
+    check(all(u.algo == "pallas_ring" for u in units), "ac1 staged: a unit left pallas_ring")
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn(params, grads)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    used = {k: v for k, v in launches().items() if v}
+    want = ref(params, grads)
+    check(all(same_bits(torch, a, b) for a, b in zip(out, want)),
+          "ac1 staged: the kernels' update differs from the plain versions'")
+    n = len(trainer_counts)
+    check(used == {"dense_ring": n, "dense_ring_gather": n},
+          f"ac1 staged: launches {used}, expected {n} B3 and {n} B3-AG")
+    return used, ms
+
+
+def tempfile_dir(prefix: str) -> str:
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=prefix)
+
+
+def start_analysis_cli(dev) -> list:
+    """(ac4): the analysis CLI from the checkout, in three subprocesses
+    started together: the lint gate, --concurrency, --graph on the run's
+    device (the card). -> [(args, Popen, start time)]."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MLSL_")}
+    env["MLSL_STATS_DIR"] = tempfile_dir("mlsl_ac4_")
+    graph = ["--graph"] + ([] if dev.type == "cuda" else ["--device", dev.type])
+    procs = []
+    for args in ([], ["--concurrency"], graph):
+        procs.append((args, subprocess.Popen(
+            [sys.executable, "-m", "mlsl_tpu_torch.analysis", *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), time.perf_counter()))
+    return procs
+
+
+def join_analysis_cli(procs, timeout=300) -> list:
+    """-> one record a CLI call; every call must exit 0 with no finding."""
+    out = []
+    for args, proc, t0 in procs:
+        try:
+            stdout, stderr = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SmokeFailure(f"ac4: analysis {args} not done in {timeout} s")
+        summaries = [ln for ln in stderr.splitlines() if "error(s)" in ln]
+        check(proc.returncode == 0 and summaries and all(
+            "0 error(s), 0 warning(s)" in ln for ln in summaries),
+              f"ac4: python -m mlsl_tpu_torch.analysis {' '.join(args)}: rc "
+              f"{proc.returncode}, {stdout[-2000:]} {stderr[-2000:]}")
+        out.append({"args": " ".join(args) or "(default: lint + locks)", "rc": proc.returncode,
+                    "summaries": summaries, "s": time.perf_counter() - t0})
+    return out
+
+
+def ac_misordered(env):
+    """tests/fixtures/analysis/misordered_groups.py on the card: the world
+    group's 16 KiB gradient defers under MLSL_MSG_PRIORITY while a 4-rank
+    color group's 1 KiB one dispatches at once (MLSL-A101)."""
+    from mlsl_tpu_torch import OpType
+
+    env.config.msg_priority = True
+    env.config.msg_priority_threshold = 4096
+    n = env.get_process_count()
+    colors = env.create_distribution_with_colors([p // max(n // 2, 1) for p in range(n)],
+                                                 [0] * n)
+    world = env.create_distribution(n, 1)
+    s = env.create_session()
+    s.set_global_minibatch_size(max(8, n))
+    for name, count, dist in (("sub_small", 256, colors), ("world_big", 4096, world)):
+        r = s.create_operation_reg_info(OpType.CC)
+        r.set_name(name)
+        r.add_output(4, 4)
+        r.add_parameter_set(count, 1)
+        s.add_operation(r, dist)
+    s.commit()
+    return s
+
+
+def run_analysis(torch, np, get_env, launches, reset_launches, dev, smi):
+    """Run (ac), (ac1)-(ac4), beside the card tests, with cuDNN's
+    deterministic convolutions for the twins; none of its knobs is left
+    exported. -> (launches by part, lines)."""
+    from mlsl_tpu_torch import OpType, supervisor
+    from mlsl_tpu_torch.analysis import diagnostics
+    from mlsl_tpu_torch.core import stats as stats_mod
+    from mlsl_tpu_torch.log import MLSLError
+    from mlsl_tpu_torch.models import resnet
+
+    lines, used = [], {}
+    stats_dir = tempfile_dir("mlsl_ac_")
+    os.environ["MLSL_STATS_DIR"] = stats_dir
+    cli = start_analysis_cli(dev)
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        # (ac1) config 5 in three forms, each beside its MLSL_VERIFY=0 twin
+        t0 = time.perf_counter()
+        forms = []
+
+        def step(trainer, batch):
+            trainer.step(batch)
+
+        rec, used["analysis_buckets"], algos = ac_twins(
+            torch, np, get_env, launches, reset_launches, dev, "int8 buckets pallas_ring",
+            lambda env: build_resnet_trainer(torch, env, np), step,
+            MLSL_ALGO="pallas_ring", MLSL_GRAD_BUCKET_MB=AC_BUCKET_MB)
+        check(algos == ["pallas_ring"] and rec["buckets"] > 0
+              and used["analysis_buckets"].get("quant_ring", 0) > 0
+              and used["analysis_buckets"].get("quantize_blocks", 0) > 0,
+              f"ac1 buckets: algos {algos}, {rec['buckets']} buckets, launches "
+              f"{used['analysis_buckets']}")
+        forms.append(rec)
+
+        def zero1(env):
+            trainer, batches = build_zero1_resnet(torch, env, np, distributed_update=True,
+                                                  micro=1)
+            return trainer, batches[0]
+
+        rec, used["analysis_zero1"], algos = ac_twins(
+            torch, np, get_env, launches, reset_launches, dev, "zero1 adam pallas_ring",
+            zero1, step, MLSL_ALGO="pallas_ring")
+        check(algos == ["pallas_ring"] and used["analysis_zero1"].get("dense_ring", 0) > 0,
+              f"ac1 zero1: algos {algos}, launches {used['analysis_zero1']}")
+        counts = resnet.layer_param_counts(resnet.ResNet50(device="meta"))
+        settle(torch)
+        used["analysis_staged"], rec["staged_update_ms"] = ac_staged_update(
+            torch, list(counts.values()), dev, launches, reset_launches)
+        rec["staged_launches"] = used["analysis_staged"]
+        forms.append(rec)
+
+        def engine(env):
+            return build_resnet_trainer(torch, env, np, overlap_compiled=True)
+
+        def replay(trainer, batch):
+            trainer.precompile(batch)
+            check("step" in trainer._overlap.graphs, "ac1 engine: no captured step")
+            trainer.step(batch)
+
+        rec, used["analysis_engine"], _ = ac_twins(
+            torch, np, get_env, launches, reset_launches, dev, "engine int8 fused ring",
+            engine, replay, MLSL_ALGO="pallas_ring")
+        check(used["analysis_engine"].get("quant_ring", 0) > 0,
+              f"ac1 engine: launches {used['analysis_engine']}")
+        forms.append(rec)
+        for rec in forms:
+            lines.append(f"# analysis ac1 {json.dumps(rec)} on {smi}")
+        lines.append(f"# phase analysis config 5 verified (run (ac1)): ok in "
+                     f"{time.perf_counter() - t0:.1f} s")
+        settle(torch)
+
+        # (ac2) run (m)'s graph on B3, B5 and B6, verified at commit
+        t0 = time.perf_counter()
+        recs = []
+        for tag, spec, case in (("m1 model 2 ring", SPEC_RING, "case1"),
+                                ("m1 model 2 rhd", SPEC_RHD, "case1"),
+                                ("m3 case4 ring", SPEC_RING, "case4")):
+            env = ac_env(get_env, dev, MLSL_VERIFY="1", MLSL_ALGO=spec,
+                         MLSL_PALLAS_A2A_QUANT="0")
+            diagnostics.reset()
+            with CommitClock() as clock:
+                if case == "case1":
+                    ops = mlp_net(env, env.create_distribution(WORLD // 2, 2))
+                else:
+                    ops = mlp_net(env, env.create_distribution(WORLD, 1),
+                                  env.create_distribution(WORLD // 4, 4), edge_fm=MLP_FM2,
+                                  out_type=OpType.ACT)
+            (commit,) = clock.commits
+            check(commit["plan"]["verdict"] == "pass" and commit["protocol"]["verdict"] == "pass",
+                  f"ac2 {tag}: commit verdicts {commit['plan']}, {commit['protocol']}")
+            reset_launches()
+            if case == "case1":
+                worst, _ = mlp_loop(torch, env, ops, dev, iters=1)
+            else:
+                from mlsl_tpu_torch.core.activation import pack_local
+
+                worst = {}
+                _, op1, op2 = ops
+                out_act, in_act = op1.get_output(0), op2.get_input(0)
+                mb = op1.get_local_minibatch_size()
+                acts = fill(torch, op1.get_distribution().topology,
+                            mb * out_act.local_fm_count, 1.0, dev)
+                wire = pack_local(acts, out_act.pack_blocks, mb, out_act.local_fm_count, 1)
+                mlp_round(torch, out_act, in_act, wire, "FPROP", worst)
+                del acts, wire
+            torch.cuda.synchronize()
+            c = {k: v for k, v in launches().items() if v}
+            key = {"m1 model 2 ring": "dense_ring", "m1 model 2 rhd": "rhd_allreduce",
+                   "m3 case4 ring": "a2a_dense"}[tag]
+            check(c.get(key, 0) > 0, f"ac2 {tag}: launches {c}, no {key}")
+            used[f"analysis_{tag.replace(' ', '_')}"] = c
+            algos = sorted({r.algo for op in ops[0].operations for r in
+                            [a.comm_req for a in op.inputs + op.outputs]
+                            + [ps.grad_req for ps in op.parameter_sets] if r is not None})
+            recs.append({"tag": tag, "algos": algos, "launches": c,
+                         "commit_ms": commit["commit_ms"],
+                         "verify_ms": commit["plan"]["duration_s"] * 1e3,
+                         "worst": {k: float(f"{v:.3g}") for k, v in worst.items()}})
+            del ops
+        for rec in recs:
+            lines.append(f"# analysis ac2 {json.dumps(rec)} on {smi}")
+        lines.append(f"# phase analysis model-parallel graph verified (run (ac2)): ok in "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+        # (ac3) the planted fault: the misordered groups under both severities
+        t0 = time.perf_counter()
+        env = ac_env(get_env, dev, MLSL_VERIFY="1", MLSL_VERIFY_SEVERITY="error")
+        diagnostics.reset()
+        try:
+            ac_misordered(env)
+            raise SmokeFailure("ac3: the misordered graph committed under severity error")
+        except MLSLError as e:
+            check("MLSL-A101" in str(e), f"ac3: refused without MLSL-A101: {e}")
+            refused = str(e)[:160]
+        env = ac_env(get_env, dev, MLSL_VERIFY="1", MLSL_VERIFY_SEVERITY="warn")
+        diagnostics.reset()
+        s = ac_misordered(env)
+        st = supervisor.status()["analysis"]["plan"]
+        check(s._committed and st["verdict"] == "fail" and "MLSL-A101" in st["codes"],
+              f"ac3: warn commit {s._committed}, status {st}")
+        with open(stats_mod.stats_path()) as f:
+            analysis_lines = [ln.strip() for ln in f if ln.startswith("ANALYSIS")]
+        check(any("FAIL" in ln and "MLSL-A101" in ln for ln in analysis_lines),
+              f"ac3: no failing ANALYSIS line with MLSL-A101: {analysis_lines[-3:]}")
+        del s
+        lines.append(f"# analysis ac3 " + json.dumps({
+            "error": refused, "warn_status": st,
+            "analysis_line": next(ln for ln in reversed(analysis_lines) if "MLSL-A101" in ln)}))
+        lines.append(f"# phase analysis planted fault (run (ac3)): ok in "
+                     f"{time.perf_counter() - t0:.1f} s")
+
+        # (ac4) the CLI, started with the run
+        t0 = time.perf_counter()
+        for rec in join_analysis_cli(cli):
+            lines.append(f"# analysis ac4 {json.dumps(rec)}")
+        cli = None
+        lines.append(f"# phase analysis CLI (run (ac4), started with run (ac)): ok, waited "
+                     f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        if cli is not None:
+            for _, proc, _ in cli:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.communicate()
+        get_env().finalize()
+        for k in AC_VARS + ("MLSL_STATS_DIR",):
+            os.environ.pop(k, None)
+        supervisor.reset_all()
+        import shutil
+
+        shutil.rmtree(stats_dir, ignore_errors=True)
+        settle(torch)
+    return used, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -8023,11 +8452,16 @@ def main() -> int:
                                                      reset_launches, dev)
         for line in recovery_lines:
             log(line)
+        # the static analysis on the card (run (ac)), beside the card tests
+        analysis_used, analysis_lines = run_analysis(torch, np, get_env, launches,
+                                                     reset_launches, dev, smi)
+        for line in analysis_lines:
+            log(line)
         env = reinit(get_env)
         settle(torch)
         summary = phase_card_tests(card_tests)
         log(f"# phase card tests ({CARD_TESTS}, beside parity, configs 1-4 and runs (aa), "
-            f"(ab)): ok "
+            f"(ab), (ac)): ok "
             f"in {time.perf_counter() - t_card:.1f} s, {summary}")
         t0 = time.perf_counter()
         rec = phase_compile_cache(*cache_runs)
@@ -8356,7 +8790,7 @@ def main() -> int:
                     **{f"codec_{k}": v for k, v in codec_used.items()},
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
                     pipeline=pipe_used, **serve_used, **fault_used, **integrity_used,
-                    **recovery_used)
+                    **recovery_used, **analysis_used)
         entries = [
             codec_entry(torch, qk, kind, rows, block, bw, f32,
                         path(f"{kind}_blocks", **runs), dev, tag=tag)
@@ -8405,7 +8839,8 @@ def main() -> int:
             torch, a2a, tag="activation cases 4 and 5, G=4", grid=(2, 4), axes=("model",),
             count=4 * (MLP_TOKENS // WORLD) * (MLP_FM2 // 4), quantized=False, bw=bw, f32=f32,
             per_path=path("a2a_dense", alltoall=a2a_used, transformer_moe=tm,
-                          activation_graph=activation, capi=capi_used, **tune_used),
+                          activation_graph=activation, capi=capi_used, **tune_used,
+                          **analysis_used),
             dev=dev))
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
@@ -8426,7 +8861,8 @@ def main() -> int:
                                      quantized=quantized, bw=bw, f32=f32,
                                      per_path=path(key, alltoall=a2a_used, transformer_moe=tm,
                                                    activation_graph=activation,
-                                                   capi=capi_used, **tune_used),
+                                                   capi=capi_used, **tune_used,
+                                                   **analysis_used),
                                      dev=dev))
         # B5 and B3 at the serving path's tp = 2 reductions ((y2), (y3))
         srv = tfm.GPT_MEDIUM_2K

@@ -1,8 +1,10 @@
 """Shared structured-diagnostic format for the static-analysis passes.
 
-Counterpart of ``mlsl_tpu.analysis.diagnostics``, by adapted copy. The
-passes themselves (the plan verifier, the linter, the lock-order analyzer,
-the protocol checker) wait for ROADMAP A.7d.
+Counterpart of ``mlsl_tpu.analysis.diagnostics``, by adapted copy: the same
+codes, severities and titles, so that both packages' findings compare as
+``(code, anchor)`` sets. Where a code's title names the TPU (``lax``, VMEM,
+Pallas semaphores), the port's pass checks the card's counterpart: see the
+module docstrings of ``plan`` and ``lint``.
 
 Both passes — the commit-time plan verifier (``analysis/plan.py``) and the
 project concurrency linter (``analysis/lint.py``) — emit the same record: a

@@ -42,12 +42,14 @@ before the replay ("the whole comm segment is ONE dispatch", overlap.py:
 834-862 of the JAX package), and with the tracer armed is one
 ``step.overlap`` span of host time. Nothing inside the captured graph passes
 a site (a capture runs in ``chaos.quiet()``), and the units' collectives are
-the bare staged phases. The JAX engine's ``MLSL_VERIFY`` plan check waits for
-ROADMAP A.7d.
+the bare staged phases. With ``MLSL_VERIFY=1``, ``engine_for_trainer``
+verifies the plan before it builds the engine (analysis/plan.py
+``verify_overlap_plan``), as overlap.py:907-924 of the JAX package does.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
@@ -640,4 +642,18 @@ def engine_for_trainer(trainer, config) -> Optional[OverlapEngine]:
     if any(comp == CompressionType.TOPK for _, _, comp in layers):
         log_debug("overlap: TOPK compression rides the host path")
         return None
-    return OverlapEngine(trainer, build_plan(group, layers, config))
+    plan = build_plan(group, layers, config)
+    if getattr(config, "verify", False):
+        # MLSL_VERIFY=1 covers the compiled engine's plan too: its residual
+        # carry and stage geometry are fixed here, before the step is
+        # captured (analysis/plan.py A112/A120/A122; the same severity gate
+        # as Session.commit)
+        from mlsl_tpu_torch.analysis import plan as plan_verifier
+
+        t0 = time.perf_counter()
+        plan_verifier.enforce(
+            plan_verifier.verify_overlap_plan(
+                plan, block=getattr(config, "quant_block_elems", None)
+                if plan.quant_units else None),
+            config, "compiled-overlap plan", t0)
+    return OverlapEngine(trainer, plan)

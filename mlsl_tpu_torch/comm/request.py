@@ -101,6 +101,12 @@ Not ported: the JAX package's native priority queue (standing difference "No
 native dispatcher queue").
 """
 
+# mlsl-lint: disable-file=A202 -- this module IS the dispatch engine: the
+# Dispatcher's progress thread owns deferred dispatch, with explicit
+# ordering and supersede invariants (see Dispatcher and flush docstrings).
+# The A202 rule exists to keep dispatch OUT of every other background
+# thread; the engine itself is the sanctioned site.
+
 from __future__ import annotations
 
 import dataclasses
@@ -212,6 +218,9 @@ class CommRequest:
         self.codec_source = ""
         self._wire_rec: Optional[tuple] = None
         self._codec_geoms: Optional[List[dict]] = None
+        # the int8 block a compressed request resolved to (desc, calibrated
+        # cell or config): what the plan verifier checks its geometry at
+        self._eff_quant_block = 0
         self._codec_demoted = False
         self._pending_flush: Optional[tuple] = None
         # the residual's layout ('ring', 'flat' or 'hier') and, for 'hier',
@@ -357,6 +366,7 @@ class CommRequest:
         self.codec_name = "custom" if custom is not None else reg_name
         self.codec_source = "custom" if custom is not None else reg_src
         block = int(d.quant_block or (reg_cell or {}).get("block", 0) or cfg.quant_block_elems)
+        self._eff_quant_block = block
         if custom is None and reg_name == "topk":
             # the registry's route into the sparse wire, its ratio from the cell
             ratio = float((reg_cell or {}).get("params", {}).get("ratio", 0) or cfg.topk_ratio)
@@ -631,6 +641,11 @@ class CommRequest:
             tr = obs._tracer
             t0 = tr.now() if tr is not None else 0
             try:
+                # retry-in-place under _dlock IS the dispatch/restart
+                # serialization contract: the only other takers are this
+                # request's own wait()/test()/restart, which must see the
+                # ladder's outcome before touching round state
+                # mlsl-lint: disable=A211 -- deliberate hold across the retry ladder
                 self._launch(buf)
             except Exception as e:
                 if tr is not None:

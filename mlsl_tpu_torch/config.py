@@ -59,6 +59,8 @@ _ENV_FIELDS = {
     "MLSL_NUM_SERVERS": "num_servers",
     "MLSL_SENTINEL_EVERY": "sentinel_every",
     "MLSL_HEARTBEAT_MISSES": "heartbeat_misses",
+    "MLSL_VERIFY": "verify",
+    "MLSL_VERIFY_SEVERITY": "verify_severity",
 }
 
 # the registry's codec names (mlsl_tpu_torch.codecs), mirrored so that
@@ -305,6 +307,19 @@ class Config:
     # Fingerprint block in elements: one int32 sum a block.
     sentinel_block: int = 4096      # MLSL_SENTINEL_BLOCK
 
+    # --- static analysis (analysis/; config.py:363-374 of the JAX package) ---
+    # Commit-time collective-plan verifier: MLSL_VERIFY=1 walks the committed
+    # graph at Session.commit (and the compiled engine's plan where it is
+    # built) and checks issue order, in-flight budgets, quantization and codec
+    # geometry, the degrade machinery and the kernel routes' launch limits
+    # (analysis/plan.py), then explores the control-plane and elastic protocol
+    # models (analysis/protocol.py).
+    verify: bool = False                # MLSL_VERIFY
+    # What an error-severity finding does: 'error' raises MLSLError naming
+    # every code; 'warn' logs the findings and goes on. Both record the
+    # verdict in supervisor.status()['analysis'] and the ANALYSIS stats line.
+    verify_severity: str = "error"      # MLSL_VERIFY_SEVERITY
+
     # --- recovery (checkpoint.py, resilience.py, elastic.py, control/;
     # config.py:285-340, 430-460 of the JAX package) ---
     # Checkpoint save retries on OSError beyond the first, with exponential
@@ -437,6 +452,9 @@ class Config:
         mlsl_assert(self.lock_witness_budget_ms > 0,
                     "MLSL_LOCK_WITNESS_BUDGET_MS must be > 0 (got %s)",
                     self.lock_witness_budget_ms)
+        mlsl_assert(self.verify_severity in ("error", "warn"),
+                    "MLSL_VERIFY_SEVERITY must be 'error' or 'warn' (got %r)",
+                    self.verify_severity)
         mlsl_assert(self.metrics_every >= 1,
                     "MLSL_METRICS_EVERY must be >= 1 (got %d)", self.metrics_every)
         mlsl_assert(0 <= self.metrics_port <= 65535,
@@ -593,6 +611,9 @@ class Config:
         c.sentinel_zmax = _env_float("MLSL_SENTINEL_ZMAX", c.sentinel_zmax)
         c.sentinel_warmup = _env_int("MLSL_SENTINEL_WARMUP", c.sentinel_warmup)
         c.sentinel_block = _env_int("MLSL_SENTINEL_BLOCK", c.sentinel_block)
+        c.verify = _env_bool("MLSL_VERIFY", c.verify)
+        c.verify_severity = os.environ.get(
+            "MLSL_VERIFY_SEVERITY", c.verify_severity).strip().lower() or c.verify_severity
         c.ckpt_save_retries = _env_int("MLSL_CKPT_SAVE_RETRIES", c.ckpt_save_retries)
         c.ckpt_retry_backoff_s = _env_float("MLSL_CKPT_RETRY_BACKOFF_S", c.ckpt_retry_backoff_s)
         c.restart_budget = _env_int("MLSL_RESTART_BUDGET", c.restart_budget)

@@ -110,6 +110,11 @@ def capture(fn: Callable, args: Sequence[torch.Tensor], state: Sequence[torch.Te
                 fn(*inputs)
         cur.wait_stream(side)
         put_back(state, saved)
+        # the warm-up drains before the recording starts; CAPTURE_LOCK is
+        # held on purpose across the whole capture, the wait included: its
+        # one other taker, the feed's loader, must issue no CUDA work
+        # until the graph is recorded
+        # mlsl-lint: disable=A211 -- deliberate hold across the capture's drain
         torch.cuda.synchronize(dev)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()

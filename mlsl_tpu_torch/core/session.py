@@ -296,6 +296,18 @@ class Session:
             from mlsl_tpu_torch.core.bucketing import build_buckets
 
             build_buckets(self, cfg.grad_bucket_mb)
+        if cfg is not None and cfg.verify:
+            # MLSL_VERIFY=1: statically verify the collective plan now --
+            # after the buckets formed (their geometry is checked) and before
+            # the precompile warm builds kernels for a plan the verifier may
+            # reject (analysis/plan.py; MLSL_VERIFY_SEVERITY picks raise or
+            # warn), then explore the control-plane and elastic protocol
+            # models (analysis/protocol.py, memoized process-wide)
+            from mlsl_tpu_torch.analysis.plan import run_commit_verify
+            from mlsl_tpu_torch.analysis.protocol import run_commit_protocol_check
+
+            run_commit_verify(self)
+            run_commit_protocol_check(self)
         if cfg is not None and cfg.precompile:
             self.precompile_collectives()
         self.stats.initialize()

@@ -240,6 +240,11 @@ def record_watchdog_event(descriptor: str, phase: str, waited_s: float) -> None:
         pass
 
 
+def reset_watchdog_events() -> None:
+    """Drop the watchdog record (the fault plane's reset, between tests)."""
+    WATCHDOG_EVENTS.clear()
+
+
 #: how long the on-trip device profile samples the wedged state (seconds):
 #: long enough for the profiler to catch the in-flight executable / idle
 #: devices, short enough that the trip still raises promptly

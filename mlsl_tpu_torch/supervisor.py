@@ -435,7 +435,7 @@ def reset_all() -> None:
     stats_mod.reset_straggler_counters()
     stats_mod.reset_lock_witness_counters()
     stats_mod.reset_analysis_counters()
-    stats_mod.WATCHDOG_EVENTS.clear()
+    stats_mod.reset_watchdog_events()
     sentinel.reset()
     checker.clear()
     stats_mod.reset_chkp_counters()

@@ -74,7 +74,9 @@ def test_importing_the_port_loads_no_jax():
             "mlsl_tpu_torch.serve.checks, mlsl_tpu_torch.checkpoint, "
             "mlsl_tpu_torch.resilience, mlsl_tpu_torch.elastic, mlsl_tpu_torch.control, "
             "mlsl_tpu_torch.control.channel, mlsl_tpu_torch.control.plane, "
-            "mlsl_tpu_torch.control.sim, mlsl_tpu_torch.analysis.plan; "
+            "mlsl_tpu_torch.control.sim, mlsl_tpu_torch.analysis.plan, "
+            "mlsl_tpu_torch.analysis.lint, mlsl_tpu_torch.analysis.locks, "
+            "mlsl_tpu_torch.analysis.protocol, mlsl_tpu_torch.analysis.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'mlsl_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
