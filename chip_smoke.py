@@ -474,6 +474,34 @@ Phases, in order; any failure exits non-zero and prints no result:
              ``--graph`` (on the card) exit 0, in subprocesses started with
              the run.
 
+43. multiprocess (run (ad), after run (ac), beside the card tests): the
+             multi-process transport (comm/transport.py). (ad1) two processes
+             on cuda:0 over gloo (every cross-process hop staged through host
+             memory), 4 virtual ranks each, each the worker of
+             mlsl_tpu_torch/tools/mp_worker.py under MLSL_ALGO=SPEC_RING with
+             B6 dense: the JAX package's multi-process matrix (the hierarchy
+             contract, gather_to_host, the reference loop on the 4 x 2 grid,
+             model parts 1, 2, 8 x ZeRO-1 off and on), every collective kind
+             on the two grids' groups and on color groups, an MLP trained by
+             shard_batch and by shard_batch_local, run (m)'s graph at
+             gpt-medium-2k's MLP widths (the model groups inside each process on
+             B3 and B6, the data group's gradient across processes), and two
+             config 5 steps (ResNet-50, 224 x 224, 1000 classes, global batch
+             64) replicated and ZeRO-1. Each child checks the closed forms on
+             its own ranks; this process runs the same worker as one process
+             of 8 ranks beside them and holds every row to it: moves and
+             integer-valued sums bit for bit, float sums within 1e-6, config
+             5's first-step reduced gradients within 1e-6 relative L2 a layer
+             (its twin is never free-running), both processes' parameters bit
+             for bit. A child that fails, exits non-zero or outlives
+             AD_TIMEOUT fails the run. (ad2) NCCL in a one-process world: each
+             hop (all_reduce, reduce_scatter, all_gather, broadcast) on a 64
+             MiB CUDA tensor and the spanning forms on a (4, 2) grid's groups
+             bit for bit their plain versions; config 5's step on it bit for
+             bit the transport-less step. Printed: the backend, the process
+             count, the bytes that crossed processes a config 5 step, each
+             hop's seconds, the phase's wall time, the card and its limit.
+
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
 
@@ -8333,6 +8361,266 @@ def run_analysis(torch, np, get_env, launches, reset_launches, dev, smi):
     return used, lines
 
 
+# -- run (ad): the multi-process transport -----------------------------------------
+
+AD_PROCS = 2                # (ad1): processes on the one card, over gloo
+AD_TIMEOUT = 420            # (ad1): the children's limit, start to exit
+AD_PHASES = ("hierarchy", "gather", "loop", "matrix", "kinds", "train", "graph", "resnet")
+AD_GRAPH = (MLP_FM1, MLP_FM2, MLP_TOKENS)     # run (m)'s graph at gpt-medium-2k's widths
+AD_RESNET = (224, 1000, 64)                   # config 5
+AD_VARS = {"MLSL_ALGO": SPEC_RING, "MLSL_PALLAS_A2A_QUANT": "0"}
+AD_RTOL = 1e-6              # float sums that cross processes, and config 5's gradients
+AD_HOP_N = (16 << 20) // 4  # (ad2): floats a hop
+AD_DEVICE = "cuda:0"
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def start_ad_children(out_dir: str) -> list:
+    """(ad1): two processes of one world of 8 virtual ranks on cuda:0 over
+    gloo, each the worker of mlsl_tpu_torch/tools/mp_worker.py. -> [(Popen,
+    log path)]."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MLSL_")}
+    env.update(AD_VARS)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    port = free_port()
+    procs = []
+    for i in range(AD_PROCS):
+        path = os.path.join(out_dir, f"child{i}.log")
+        with open(path, "w") as fh:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "mlsl_tpu_torch.tools.mp_worker", "--pid", str(i),
+                 "--nproc", str(AD_PROCS), "--port", str(port), "--device", AD_DEVICE,
+                 "--backend", "gloo", "--out", out_dir, "--phases", ",".join(AD_PHASES),
+                 "--graph", ",".join(map(str, AD_GRAPH)),
+                 "--resnet", ",".join(map(str, AD_RESNET))],
+                cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT), path))
+    return procs
+
+
+def join_ad_children(procs, t_start: float) -> list:
+    """Wait for every child; one that fails, exits non-zero or outlives
+    AD_TIMEOUT fails the phase (all are killed). -> each child's REPORT."""
+    reports = []
+    try:
+        for i, (proc, path) in enumerate(procs):
+            left = max(1.0, AD_TIMEOUT - (time.perf_counter() - t_start))
+            try:
+                rc = proc.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"ad1: child {i} not done in {AD_TIMEOUT} s: "
+                                   f"{Path(path).read_text()[-3000:]}")
+            text = Path(path).read_text()
+            check(rc == 0 and f"proc {i} E2E OK" in text,
+                  f"ad1: child {i} exited {rc}: {text[-3000:]}")
+            rep = [ln for ln in text.splitlines() if ln.startswith("REPORT ")]
+            check(len(rep) == 1, f"ad1: child {i} printed no report")
+            reports.append(json.loads(rep[0][len("REPORT "):]))
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return reports
+
+
+def ad_hold(np, twin: dict, rows: dict) -> dict:
+    """Every row of the two processes against the one-process twin: moves
+    and integer-valued sums bit for bit, float sums within AD_RTOL, config
+    5's gradients within AD_RTOL relative L2 a layer and rank; replicated
+    rows (gather_to_host, the MLP's parameters) bit for bit between the
+    processes. -> the worst error of each kind."""
+    worst = {"float_rel": 0.0, "resnet_grad_rel_l2": 0.0}
+    for k, want in twin.items():
+        if k.startswith("csum/"):
+            continue
+        got = rows.get(k)
+        check(got is not None, f"ad1: no process wrote {k}")
+        if isinstance(got, list):
+            check(all(np.array_equal(g, got[0]) for g in got[1:]),
+                  f"ad1: the processes disagree on {k}")
+            got = got[0]
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if k.startswith("resnet/") and not k.endswith("/loss") and "/loss/" not in k:
+            rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+            worst["resnet_grad_rel_l2"] = max(worst["resnet_grad_rel_l2"], rel)
+            check(rel <= AD_RTOL, f"ad1: {k} off the one-process twin by {rel:.3g}")
+        elif k.startswith(("gather/", "kinds/", "graph")) or "bprop" in k:
+            check(np.array_equal(got, want), f"ad1: {k} differs from the one-process twin")
+        else:
+            rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+            worst["float_rel"] = max(worst["float_rel"], rel)
+            check(rel <= AD_RTOL, f"ad1: {k} off the one-process twin by {rel:.3g}")
+    return worst
+
+
+def ad_rows(np, out_dir: str, n: int) -> dict:
+    """The children's npz rows merged; rows more than one process holds as
+    lists."""
+    rows = {}
+    for i in range(n):
+        with np.load(os.path.join(out_dir, f"proc{i}.npz")) as z:
+            for k in z.files:
+                if k.startswith(("gather/", "train/params/", "csum/")):
+                    rows.setdefault(k, []).append(z[k])
+                else:
+                    check(k not in rows, f"ad1: two processes wrote rank row {k}")
+                    rows[k] = z[k]
+    return rows
+
+
+def phase_ad1(torch, np, get_env, launches, reset_launches):
+    """(ad1): the two children over gloo beside their one-process twin in
+    this process, then every row held to the twin's. -> (record, the
+    children's launches summed)."""
+    from mlsl_tpu_torch.tools import mp_worker
+
+    t0 = time.perf_counter()
+    out_dir, twin_dir = tempfile_dir("mlsl_ad1_"), tempfile_dir("mlsl_ad1_twin_")
+    procs = start_ad_children(out_dir)
+    try:
+        get_env().finalize()
+        settle(torch)
+        for k in ALGO_VARS:
+            os.environ.pop(k, None)
+        os.environ.update(AD_VARS)
+        reset_launches()
+        t1 = time.perf_counter()
+        twin = mp_worker.run(0, 1, None, AD_DEVICE, twin_dir, phases=AD_PHASES, graph=AD_GRAPH,
+                             resnet=AD_RESNET, log=lambda m: None)
+        twin_s = time.perf_counter() - t1
+        twin_used = {k: v for k, v in launches().items() if v}
+    finally:
+        for k in AD_VARS:
+            os.environ.pop(k, None)
+        reports = join_ad_children(procs, t0)
+    wall = time.perf_counter() - t0
+    rows = ad_rows(np, out_dir, AD_PROCS)
+    worst = ad_hold(np, twin, rows)
+    for tag in ("resnet/du0", "resnet/du1"):
+        cs = rows[f"csum/{tag}"]
+        check(all(c == cs[0] for c in cs), f"ad1: {tag}: the processes' parameters differ "
+                                           f"({[float(c) for c in cs]})")
+    used = {}
+    for rep in reports:
+        for k, v in rep["launches"].items():
+            used[k] = used.get(k, 0) + v
+    check(used.get("dense_ring", 0) > 0 and used.get("a2a_dense", 0) > 0,
+          f"ad1: the children launched {used}: B3 and B6 on the process-local model groups "
+          f"expected")
+    per_step = {}
+    for tag in ("resnet/du0", "resnet/du1"):
+        r = reports[0][tag]
+        per_step[tag] = {"bytes_a_step": sum(h["bytes"] for h in r["hops"].values())
+                         // r["steps"], "step_s": r["s"] / r["steps"],
+                         "hop_s_a_step": sum(h["s"] for h in r["hops"].values()) / r["steps"]}
+    rec = {"backend": "gloo", "processes": AD_PROCS, "ranks_a_process": WORLD // AD_PROCS,
+           "device": AD_DEVICE, "wall_s": wall, "twin_s": twin_s, "twin_launches": twin_used,
+           "launches": used, "worst": worst, "config5": per_step,
+           "phases": [{k: {"s": v["s"], "hops": v.get("hops", {})} for k, v in rep.items()
+                       if isinstance(v, dict) and "s" in v and not k.startswith("resnet/")}
+                      for rep in reports]}
+    return rec, used
+
+
+def phase_ad2(torch, np, get_env, dev):
+    """(ad2): NCCL in a one-process world: each hop on a CUDA tensor and
+    the spanning forms against their plain versions, bit for bit, and
+    config 5's step bit for bit the transport-less run's. -> record."""
+    from mlsl_tpu_torch.comm import collectives, transport
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup, Topology
+    from mlsl_tpu_torch.types import ReductionType
+
+    t0 = time.perf_counter()
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    rec = {"backend": "nccl", "processes": 1}
+    try:
+        steps = {}
+        for mode in ("transportless", "nccl"):
+            get_env().finalize()
+            settle(torch)
+            for k in ALGO_VARS:
+                os.environ.pop(k, None)
+            if mode == "nccl":
+                env = get_env().init(world_size=WORLD,
+                                     coordinator_address=f"127.0.0.1:{free_port()}",
+                                     num_processes=1, process_id=0)
+                check(transport.world().backend == "nccl", "ad2: the world is not on NCCL")
+            else:
+                env = get_env().init(world_size=WORLD)
+            trainer, batch = build_resnet_trainer(torch, env, np)
+            t1 = time.perf_counter()
+            loss = trainer.step(batch)
+            torch.cuda.synchronize()
+            steps[mode] = {"s": time.perf_counter() - t1, "loss": loss.detach().clone(),
+                           "params": [p.detach().clone() for p in trainer._all_params()]}
+            del trainer, batch
+        a, b = steps["transportless"], steps["nccl"]
+        check(torch.equal(a["loss"], b["loss"]) and all(
+            torch.equal(x, y) for x, y in zip(a["params"], b["params"])),
+              "ad2: config 5's step on the NCCL world differs from the transport-less one")
+        rec["config5_step_s"] = {k: v["s"] for k, v in steps.items()}
+        del steps, a, b
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(AD_HOP_N, device=dev, generator=gen)
+        hops = {}
+        for name, fn, want in (
+                ("all_reduce", lambda: transport.all_reduce(x), x),
+                ("reduce_scatter", lambda: transport.reduce_scatter(x.view(1, -1)), x),
+                ("all_gather", lambda: transport.all_gather(x), x.view(1, -1)),
+                ("broadcast", lambda: transport.broadcast(x, 0), x)):
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            hops[name] = {"s": time.perf_counter() - t1, "bytes": AD_HOP_N * 4}
+            check(got.is_cuda and torch.equal(got, want), f"ad2: {name} on NCCL differs")
+        rec["hops"] = hops
+        topo = Topology(4, 2, WORLD)
+        buf = torch.randn(*topo.grid_shape, 4096, device=dev, generator=gen)
+        forms = []
+        for axes in (("data",), ("model",)):
+            group = ProcessGroup(topo, axes)
+            g = group.size
+            for kind, kw in (("allreduce", {"op": ReductionType.SUM}),
+                             ("reduce_scatter", {"op": ReductionType.SUM,
+                                                 "recv_count": 4096 // g}),
+                             ("allgather", {}), ("bcast", {"root": g - 1}),
+                             ("alltoall", {"send_count": 4096 // g})):
+                plain = collectives.build_raw(kind, group, **kw)(buf)
+                span = transport.build_spanning(
+                    kind, group, collectives._build_raw(kind, group, dict(kw)), **kw)(buf)
+                check(torch.equal(span, plain), f"ad2: the spanning {kind} on {axes} differs")
+                forms.append(f"{kind}/{axes[0]}")
+        rec["spanning_forms"] = forms
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+        get_env().finalize()
+        transport.shutdown()
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi):
+    """Run (ad): (ad1) and (ad2). -> (launches by part, lines)."""
+    t0 = time.perf_counter()
+    ad1, used = phase_ad1(torch, np, get_env, launches, reset_launches)
+    ad2 = phase_ad2(torch, np, get_env, dev)
+    lines = [f"# multiprocess ad1 {json.dumps(ad1)}", f"# multiprocess ad2 {json.dumps(ad2)}",
+             f"# phase multiprocess (run (ad)): ok in {time.perf_counter() - t0:.1f} s; "
+             f"two processes over gloo on one card (host-staged hops) and NCCL in a "
+             f"one-process world; {smi}"]
+    return {"multiprocess": used}, lines
+
+
 def main() -> int:
     started = time.perf_counter()
     if not (ROOT / "mlsl_tpu_torch" / "__init__.py").is_file():
@@ -8457,11 +8745,16 @@ def main() -> int:
                                                      reset_launches, dev, smi)
         for line in analysis_lines:
             log(line)
+        # the multi-process transport (run (ad)), beside the card tests
+        mp_used, mp_lines = run_multiprocess(torch, np, get_env, launches, reset_launches,
+                                             dev, smi)
+        for line in mp_lines:
+            log(line)
         env = reinit(get_env)
         settle(torch)
         summary = phase_card_tests(card_tests)
         log(f"# phase card tests ({CARD_TESTS}, beside parity, configs 1-4 and runs (aa), "
-            f"(ab), (ac)): ok "
+            f"(ab), (ac), (ad)): ok "
             f"in {time.perf_counter() - t_card:.1f} s, {summary}")
         t0 = time.perf_counter()
         rec = phase_compile_cache(*cache_runs)
@@ -8790,7 +9083,7 @@ def main() -> int:
                     **{f"codec_{k}": v for k, v in codec_used.items()},
                     hier_dense=drive.used, **hier_used, **tune_used, **feed_used,
                     pipeline=pipe_used, **serve_used, **fault_used, **integrity_used,
-                    **recovery_used, **analysis_used)
+                    **recovery_used, **analysis_used, **mp_used)
         entries = [
             codec_entry(torch, qk, kind, rows, block, bw, f32,
                         path(f"{kind}_blocks", **runs), dev, tag=tag)
@@ -8840,7 +9133,7 @@ def main() -> int:
             count=4 * (MLP_TOKENS // WORLD) * (MLP_FM2 // 4), quantized=False, bw=bw, f32=f32,
             per_path=path("a2a_dense", alltoall=a2a_used, transformer_moe=tm,
                           activation_graph=activation, capi=capi_used, **tune_used,
-                          **analysis_used),
+                          **analysis_used, **mp_used),
             dev=dev))
         entries += attention_entries(
             torch, torch.nn.functional, ak, bw, bf16,
@@ -8862,7 +9155,7 @@ def main() -> int:
                                      per_path=path(key, alltoall=a2a_used, transformer_moe=tm,
                                                    activation_graph=activation,
                                                    capi=capi_used, **tune_used,
-                                                   **analysis_used),
+                                                   **analysis_used, **mp_used),
                                      dev=dev))
         # B5 and B3 at the serving path's tp = 2 reductions ((y2), (y3))
         srv = tfm.GPT_MEDIUM_2K

@@ -6,7 +6,8 @@ codes and pragma grammar over ``mlsl_tpu_torch/``. Each rule encodes a
 hazard the reference hit:
 
 - **A201** a raw ``torch.distributed`` collective (``all_reduce``,
-  ``reduce_scatter_tensor``, ``all_gather_into_tensor``,
+  ``reduce_scatter_tensor``, ``all_gather_into_tensor`` and the
+  ``*_single`` names torch 2.13 gives them,
   ``all_to_all_single``, ``broadcast``, ``send`` / ``recv`` and their
   list and async forms) outside ``comm/algos/`` and the allowlisted engine
   modules: collectives must route through the selection table so tuning,
@@ -63,6 +64,7 @@ from mlsl_tpu_torch.analysis.diagnostics import Report, WARN, normalize_code
 #: collectives — deliberately not listed)
 COLLECTIVE_NAMES = {
     "all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor",
+    "reduce_scatter_single", "all_gather_single",
     "all_to_all_single", "broadcast", "send", "recv", "isend", "irecv",
     "batch_isend_irecv", "reduce", "reduce_scatter", "all_gather",
     "all_to_all", "gather", "scatter",
@@ -79,6 +81,7 @@ A201_ALLOWED_FILES = {
     "comm/codec.py",         # custom-codec wire family
     "comm/overlap.py",       # the compiled engine (phases come from algos/)
     "ops/ring_kernels.py",   # the fused ring
+    "comm/transport.py",     # the cross-process hops (the port's own, A.8)
 }
 
 #: attribute/function names whose call means "a device program is being

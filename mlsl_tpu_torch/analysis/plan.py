@@ -40,7 +40,8 @@ committed state and statically checks the invariants the runtime relies on:
   members and B6's launch grid (A132, the kernel's budget), an int8 block
   that is a multiple of 128 (A111, its geometry) and at most
   ``MAX_QUANT_BLOCK`` (1,024) elements (A132), both for B4 and B6 (standing
-  difference "A130-A132 on the CUDA routes").
+  difference "A130-A132 on the CUDA routes"), and, across processes, a
+  process-local group (A132: the kernel reads every member on one device).
 - **A140/A141** elastic reshard coverage (``verify_reshard``), run
   unconditionally by the elastic coordinator, not gated by MLSL_VERIFY.
 
@@ -730,6 +731,13 @@ def _check_kernel_route(rep: Report, req, cfg, anchor: str) -> None:
     sub = "pallas" if req.algo in ("pallas_ring", "pallas_ring2d") else req.algo
     at = f"{anchor}/{sub}"
     name = req.name or req.uid
+    if d.group.topology.num_procs > 1 and d.group.spans:
+        # the single-device kernels serve process-local groups only
+        # (comm/algos.eligible); the selection never routes a spanning
+        # group here, so a request that is must have been built by hand
+        rep.add("MLSL-A132",
+                f"'{name}' routes a group that spans processes to {req.algo}; its "
+                "CUDA kernel reads every member on one device", at, severity=ERROR)
     if g > rk.MAX_GROUP:
         rep.add("MLSL-A132",
                 f"'{name}' routes a group of {g} members to {req.algo}; its "

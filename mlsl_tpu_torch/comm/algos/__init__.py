@@ -27,7 +27,12 @@ and the in-graph helpers of 615-665). The registry lists what the port has:
 
 The kernel algorithms are eligible wherever the
 group qualifies: a CUDA buffer launches the kernel, a CPU buffer runs its
-plain version. The same holds in-graph: JAX emits ``pallas_a2a`` inside a
+plain version. Across processes (comm/transport.py) one rule is added: the
+single-device kernel routes (``KERNEL_ROUTES``) are eligible only on
+process-local groups, which ``build`` lowers on the process's box; a group
+that spans processes takes the transport's form whatever the table named,
+and ``req.algo`` keeps that name (standing difference "kernel routes on
+process-local groups"). The same holds in-graph: JAX emits ``pallas_a2a`` inside a
 training graph only on a TPU (``a2a_kernels.inline_ok``), the port wherever
 it is selected.
 
@@ -61,6 +66,9 @@ DEFAULT = "lax"
 #: the elementwise-reduction collectives the engine chooses for, and the MoE
 #: dispatch/combine exchange
 ENGINE_KINDS = ("allreduce", "reduce_scatter", "alltoall")
+
+#: the routes that launch a single-device CUDA kernel of their own
+KERNEL_ROUTES = ("pallas_ring", "pallas_ring2d", "pallas_rhd", "pallas_a2a")
 
 
 def group_shape(group: ProcessGroup) -> Tuple[int, ...]:
@@ -148,6 +156,8 @@ def eligible(algo: str, kind: str, group: ProcessGroup, op=None) -> bool:
     if kind == "alltoall" and algo not in (DEFAULT, "pallas_a2a"):
         # the reduction algorithms' predicates do not check the kind: this
         # guard keeps a global MLSL_ALGO=rhd off the MoE exchange
+        return False
+    if algo in KERNEL_ROUTES and group.topology.num_procs > 1 and group.spans:
         return False
     pred = _ELIGIBLE.get(algo)
     return bool(pred and pred(kind, group, op))
@@ -288,13 +298,15 @@ def build(kind: str, group: ProcessGroup, algo: str, **kw) -> Callable:
     keywords it has no use for."""
     from mlsl_tpu_torch.comm import collectives
 
-    if algo == DEFAULT:
+    if algo == DEFAULT or (group.topology.num_procs > 1 and group.spans):
+        # the baseline, and the transport's form of a spanning group
         return collectives.build_collective(
             kind, group, **{k: v for k, v in kw.items() if k in collectives.BUILD_KW})
     plain = bool(kw.get("plain"))
     mlsl_assert(eligible(algo, kind, group, kw.get("op")),
                 "algorithm %s cannot lower %s on group shape %s", algo, kind,
                 group_shape(group))
+    group = group.localize()
     if algo == "rhd":
         from mlsl_tpu_torch.comm.algos import rhd as impl
     elif algo == "ring2d":
@@ -350,6 +362,12 @@ def inline_plan(kind: str, group: ProcessGroup, algo: str, count: int, *, op=Non
                 group_shape(group))
     rop = ReductionType(op) if op is not None else ReductionType.SUM
     ident = lambda buf: buf   # noqa: E731
+    if group.topology.num_procs > 1:
+        if group.spans:
+            # the transport's form, one phase
+            kw = {"recv_count": recv_count} if kind == "reduce_scatter" else {}
+            return ident, [collectives.build_raw(kind, group, op=rop, **kw)], ident
+        group = group.localize()
     if group.is_self or group.size <= 1:
         # a degenerate group: every reduction is the identity
         if kind == "reduce_scatter" and recv_count is not None:
@@ -475,6 +493,10 @@ def inline_alltoall(x: torch.Tensor, group: ProcessGroup, *, config=None) -> tor
     g = group.size
     if group.is_self or g <= 1:
         return x
+    if group.topology.num_procs > 1:
+        if group.spans:
+            return _group_exchange(x, group)
+        group = group.localize()
     local = x.shape[NUM_GRID_AXES:]
     mlsl_assert(local[0] == g, "alltoall needs a leading local dim of size %d, got %s", g,
                 tuple(local))
@@ -509,7 +531,10 @@ def inline_allgather(x: torch.Tensor, group: ProcessGroup, *, config=None) -> to
 
     grid, local = x.shape[:NUM_GRID_AXES], x.shape[NUM_GRID_AXES:]
     n = math.prod(local)
-    if config is not None and not group.is_self and group.size > 1:
+    if group.topology.num_procs > 1 and not group.spans:
+        group = group.localize()
+    if (config is not None and not group.is_self and group.size > 1
+            and not (group.topology.num_procs > 1 and group.spans)):
         algo = select("reduce_scatter", group, n * group.size * x.element_size(),
                       CompressionType.NONE, config)
         if algo in ("pallas_ring", "pallas_ring2d"):

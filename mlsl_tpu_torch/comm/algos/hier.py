@@ -10,10 +10,14 @@ three phases:
      or a registry codec's ``hier_aggregate``);
   3. intra-tier all-gather (float32)      -> every member holds n again.
 
-The tiers come from ``mesh.world_tier_ids``: on the card the synthetic
-``MLSL_MESH_TIERS=TxL`` split of the virtual ranks (world rank // L). The
-JAX package's other source, TPU multislice's ``slice_index``, has no
-counterpart until a multi-process transport exists (ROADMAP A.8).
+The tiers come from ``mesh.world_tier_ids``: the synthetic
+``MLSL_MESH_TIERS=TxL`` split of the virtual ranks (world rank // L), else,
+for the JAX package's other source (TPU multislice's ``slice_index``), the
+host of each rank's process when the processes sit on more than one host
+(comm/transport.py). A group that spans processes takes the transport's
+two-level form whatever the table named -- a local sum, one hop across the
+processes, a local broadcast -- so there the cross-process hop is the
+inter-tier phase; ``hier`` itself lowers process-local groups.
 
 Virtual ranks: a group's members are one dim of a (C, G, n) tensor
 (collectives.group_view), and member m sits in tier m // L, so the (C, T, L,

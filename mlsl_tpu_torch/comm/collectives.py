@@ -511,9 +511,27 @@ def build_raw(kind: str, group: ProcessGroup, **kw) -> Callable:
     (alltoall: the elements each member sends each member), recv_counts
     (allgatherv), pairs (sendrecv: (src, dst) member pairs), and alltoallv's
     matrices from ``request.normalize_alltoallv``. The functions are plain
-    tensor work, so autograd runs through them."""
+    tensor work, so autograd runs through them.
+
+    In a world of several processes the buffer is this process's box: a
+    process-local group runs on it as on a world of its own
+    (``ProcessGroup.localize``), a spanning one through the transport's
+    spanning form (comm/transport.py)."""
     mlsl_assert(kind in KINDS and kind != "barrier", "collective %r is not ported yet", kind)
     kw = {k: v for k, v in kw.items() if v is not None}
+    if group.topology.num_procs > 1:
+        # alltoallv's per-rank tables name world ranks: it takes the world form
+        local = group.localize() if kind != "alltoallv" else None
+        if local is not None:
+            return _build_raw(kind, local, kw)
+        from mlsl_tpu_torch.comm import transport
+
+        return transport.build_spanning(kind, group, _build_raw(kind, group, kw), **kw)
+    return _build_raw(kind, group, kw)
+
+
+def _build_raw(kind: str, group: ProcessGroup, kw: dict) -> Callable:
+    """``build_raw`` over one process's whole grid."""
     if kind == "alltoallv":
         if group.colors is not None and not group.is_uniform:
             _build_ragged(kind, group, None, kw)
@@ -548,4 +566,13 @@ def build_barrier(group: ProcessGroup) -> Callable:
     barrier, like JAX's, sums over the whole world."""
     if group.colors is not None or not group.axes:
         group = ProcessGroup(group.topology, GRID_AXES)
-    return chaos_dispatch(build_raw("allreduce", group, op=ReductionType.SUM), "barrier")
+    fn = build_raw("allreduce", group, op=ReductionType.SUM)
+    if group.topology.num_procs > 1 and group.spans:
+        from mlsl_tpu_torch.comm import transport
+
+        inner = fn
+
+        def fn(x):
+            transport.barrier(transport.subgroup(group.process_partition()))
+            return inner(x)
+    return chaos_dispatch(fn, "barrier")

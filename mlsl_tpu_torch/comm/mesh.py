@@ -21,20 +21,34 @@ size is then the largest group's, and collectives pad to it
 Tiers (``mesh.py:72-153`` of the JAX package): ``MLSL_MESH_TIERS=TxL``
 splits the world's virtual ranks into T tiers of L contiguous ranks (tier =
 world rank // L), the synthetic two-tier world the ``hier`` lowering
-(comm/algos/hier.py) and the tuner's fingerprint read. The card sits alone,
-so this split is the only source of tiers: the JAX package's second source,
-TPU multislice's ``device.slice_index``, has no counterpart until a
-multi-process transport exists (ROADMAP A.8), and a world without the
-variable is flat. A world here is the virtual ranks of one Topology, so the
-JAX package's topologies over a subset of the devices have no counterpart
-either; the split must cover the full world exactly, and a shrunk world's
-ranks keep their tiers by identity. ``survivor_devices`` is the elastic
+(comm/algos/hier.py) and the tuner's fingerprint read. The JAX package's
+second source, TPU multislice's ``device.slice_index``, is the host here: a
+world whose processes (comm/transport.py) sit on more than one host is
+tiered by host, each rank in the tier of its process's host; a one-host
+world without the variable is flat. A world here is the virtual ranks of one
+Topology, so the JAX package's topologies over a subset of the devices have
+no counterpart either; the split must cover the full world exactly, and a
+shrunk world's ranks keep their tiers by identity. ``survivor_devices`` is the elastic
 mesh's tier-aware shrink: losing any member of a tier drops the whole tier.
+
+Processes (``Environment.init(coordinator_address=..., num_processes=P,
+process_id=i)``): process i owns the contiguous global ranks [i*L, (i+1)*L),
+L = W / P, the JAX package's global-rank-major device order
+(``dcn_aware_devices``). Its distributed buffers hold only those ranks' rows:
+the box (R_l, D_l, S_l, M_l, n) of ``Topology.local_shape``. A contiguous
+aligned block of a row-major grid is a box when it covers whole minor axes
+and an aligned run of one axis; any other grid is refused with MLSLError
+(standing difference "the local box"). A group whose every instance lies in
+one process is *process-local* and runs on the box as on a world of its own
+(``ProcessGroup.localize``); a group that spans processes crosses them
+through comm/transport.py. With one process the box is the whole grid and
+nothing changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 from collections import Counter
 from typing import Optional, Tuple
@@ -74,17 +88,47 @@ def _survivor_ranks(world_size: int) -> Optional[Tuple[int, ...]]:
     return active if active is not None and len(active) == world_size else None
 
 
+def dcn_aware_devices(model_parts: int, seq_parts: int = 1, ranks=None) -> Tuple[int, ...]:
+    """The ranks in process-major order, each process's ranks by id, after
+    the JAX package's check (``mesh.py:39-69``): model_parts * seq_parts
+    must divide every process's rank count, so that model and sequence
+    groups stay inside one process (one host) and only the data axis
+    crosses processes. ``ranks``: objects with ``process_index`` and ``id``
+    (the JAX package's devices) or (process, id) pairs; default the world's
+    virtual ranks under the process layout (``transport.world()``), which
+    are already in that order. -> the ranks' ids."""
+    if ranks is None:
+        from mlsl_tpu_torch.comm import transport
+
+        w = transport.world()
+        ranks = [(transport.owner_of(p, w.world_size, w.count), p)
+                 for p in range(w.world_size)]
+    by_proc: dict = {}
+    for r in ranks:
+        proc, rid = (r.process_index, r.id) if hasattr(r, "process_index") else r
+        by_proc.setdefault(int(proc), []).append(int(rid))
+    block = model_parts * seq_parts
+    for proc, ids in by_proc.items():
+        mlsl_assert(len(ids) % block == 0,
+                    "host %d has %d devices; model_parts*seq_parts=%d must divide the "
+                    "per-host device count for model/seq groups to stay on ICI",
+                    proc, len(ids), block)
+    return tuple(rid for proc in sorted(by_proc) for rid in sorted(by_proc[proc]))
+
+
 def world_tier_ids(world_size: int, ranks=None) -> Optional[Tuple[int, ...]]:
-    """Each virtual rank's tier id under ``MLSL_MESH_TIERS``, or None for a
-    flat world (the variable unset). ``ranks``: the world's ranks in the
-    full world's numbering (default: the elastic survivor ranks when the
+    """Each virtual rank's tier id, or None for a flat world. First
+    ``MLSL_MESH_TIERS``; without it, the host of each rank's process when
+    the processes sit on more than one host (the JAX package's
+    ``slice_index``, ``mesh.py:94-136``). ``ranks``: the world's ranks in
+    the full world's numbering (default: the elastic survivor ranks when the
     world is a shrunk one, else ``range(world_size)``). The split describes
     the full world and a rank keeps its tier by identity, as a device keeps
-    its slice in the JAX package (``mesh.py:94-135``): a survivor world of
-    one tier is one tier. MLSLError when T*L does not cover the full world."""
+    its slice in the JAX package: a survivor world of one tier is one tier.
+    MLSLError when T*L does not cover the full world."""
     spec = parse_mesh_tiers(os.environ.get("MLSL_MESH_TIERS", ""))
     if spec is None:
-        return None
+        return _host_tier_ids(world_size, ranks)
     t, l = spec
     if ranks is None:
         ranks = _survivor_ranks(world_size)
@@ -98,6 +142,20 @@ def world_tier_ids(world_size: int, ranks=None) -> Optional[Tuple[int, ...]]:
     raw = [r // l for r in ranks]
     order = {s: i for i, s in enumerate(sorted(set(raw)))}
     return tuple(order[s] for s in raw)
+
+
+def _host_tier_ids(world_size: int, ranks) -> Optional[Tuple[int, ...]]:
+    """Tiers by host: rank p's tier is the index, in sorted host names, of
+    the host of the process that owns p. None on a one-host world."""
+    from mlsl_tpu_torch.comm import transport
+
+    w = transport.world()
+    if w.count <= 1 or len(set(w.hosts)) <= 1 or w.world_size != world_size:
+        return None
+    order = {h: i for i, h in enumerate(sorted(set(w.hosts)))}
+    ranks = range(world_size) if ranks is None else ranks
+    return tuple(order[w.hosts[transport.owner_of(int(r), world_size, w.count)]]
+                 for r in ranks)
 
 
 def world_tiers(world_size: int) -> Optional[Tuple[int, int]]:
@@ -135,11 +193,43 @@ def survivor_devices(lost, devices) -> Tuple[int, ...]:
     return out
 
 
+def process_box(grid: Tuple[int, ...], nproc: int, index: int):
+    """-> (origin, shape): the box of the grid that process ``index`` of
+    ``nproc`` owns, the ranks [index*L, (index+1)*L) of the row-major grid.
+    MLSLError when the world does not split evenly or the block is not a
+    box (standing difference "the local box")."""
+    world = math.prod(grid)
+    mlsl_assert(nproc >= 1 and world % nproc == 0,
+                "a world of %d ranks does not split over %d processes", world, nproc)
+    rem = world // nproc
+    shape = [1] * len(grid)
+    for i in range(len(grid) - 1, -1, -1):
+        if rem >= grid[i]:
+            mlsl_assert(rem % grid[i] == 0,
+                        "process block of %d ranks is not a box of the grid %s: it "
+                        "splits axis %d of %d (use a grid whose minor axes divide the "
+                        "ranks a process holds)", world // nproc, tuple(grid), i, grid[i])
+            shape[i] = grid[i]
+            rem //= grid[i]
+        else:
+            mlsl_assert(grid[i] % rem == 0,
+                        "process block of %d ranks is not a box of the grid %s: %d ranks "
+                        "do not tile axis %d of %d", world // nproc, tuple(grid), rem, i,
+                        grid[i])
+            shape[i] = rem
+            rem = 1
+    lo = index * (world // nproc)
+    origin = [(lo // math.prod(grid[i + 1:])) % grid[i] for i in range(len(grid))]
+    return tuple(origin), tuple(shape)
+
+
 class Topology:
-    """``world_size`` virtual ranks arranged as a (replica, data, seq, model) grid."""
+    """``world_size`` virtual ranks arranged as a (replica, data, seq, model)
+    grid; with ``procs=(P, i)``, process i of P holds the box of its ranks
+    (``local_shape``)."""
 
     def __init__(self, data_parts: int, model_parts: int, world_size: int,
-                 seq_parts: int = 1):
+                 seq_parts: int = 1, procs: Tuple[int, int] = (1, 0)):
         mlsl_assert(
             data_parts > 0 and model_parts > 0 and seq_parts > 0,
             "numbers for data/model/seq groups must be positive",
@@ -156,6 +246,40 @@ class Topology:
         self.seq_parts = seq_parts
         self.replica_count = world_size // l_size
         self.world_size = world_size
+        self.num_procs, self.proc_index = int(procs[0]), int(procs[1])
+        self.local_origin, self.local_shape = process_box(self.grid_shape, self.num_procs,
+                                                          self.proc_index)
+        self.local_size = world_size // self.num_procs
+        self.local_lo = self.proc_index * self.local_size
+        self._local_topo: Optional["Topology"] = None
+
+    # -- the process layout ------------------------------------------------
+
+    def owner(self, global_idx: int) -> int:
+        """The process that holds rank ``global_idx``."""
+        return int(global_idx) // self.local_size
+
+    def is_local(self, global_idx: int) -> bool:
+        return self.owner(global_idx) == self.proc_index
+
+    def local_ranks(self) -> range:
+        """This process's global ranks, in order (row-major in its box)."""
+        return range(self.local_lo, self.local_lo + self.local_size)
+
+    def local_coords(self, global_idx: int) -> Tuple[int, int, int, int]:
+        """A local rank's index into this process's box."""
+        mlsl_assert(self.is_local(global_idx), "rank %d is held by process %d, not %d",
+                    global_idx, self.owner(global_idx), self.proc_index)
+        return tuple(c - o for c, o in zip(self.coords(global_idx), self.local_origin))
+
+    def local_topology(self) -> "Topology":
+        """The box as a world of its own: itself with one process."""
+        if self.num_procs == 1:
+            return self
+        if self._local_topo is None:
+            r, d, s, m = self.local_shape
+            self._local_topo = Topology(d, m, self.local_size, seq_parts=s)
+        return self._local_topo
 
     # -- rank <-> coordinate math (reference src/mlsl_impl.hpp:224-240) --
 
@@ -189,15 +313,19 @@ class Topology:
         formula is the row-major order of either grid), so this is a reshape
         and never reorders ranks. Anything but a grid buffer of this world is
         returned as it is, for the caller's shape check to refuse."""
-        grid = self.grid_shape
+        grid = self.local_shape
         if buf.dim() != NUM_GRID_AXES + 1 or tuple(buf.shape[:NUM_GRID_AXES]) == grid:
             return buf
         rows = 1
         for d in buf.shape[:NUM_GRID_AXES]:
             rows *= d
-        if rows != self.world_size:
+        if rows != self.local_size:
             return buf
         return buf.reshape(*grid, buf.shape[-1])
+
+
+#: ProcessGroup -> its localized group (or None for a spanning one)
+_LOCALIZED: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,6 +402,54 @@ class ProcessGroup:
         for a in self.axes:
             idx = idx * self.topology.axis_size(a) + coord[a]
         return idx
+
+    # -- the process layout (comm/transport.py) ------------------------------
+
+    @property
+    def spans(self) -> bool:
+        """Some instance of the group has members in more than one process."""
+        return self.localize() is None
+
+    def localize(self) -> Optional["ProcessGroup"]:
+        """The group over this process's box (``Topology.local_topology``)
+        when every instance lies inside one process, else None. Members keep
+        their order: an axis group's axes are whole in the box, a color
+        group's members keep world-rank order. Itself with one process."""
+        topo = self.topology
+        if topo.num_procs == 1:
+            return self
+        cached = _LOCALIZED.get(self, False)
+        if cached is not False:
+            return cached
+        out = None
+        if self.colors is not None:
+            owner: dict = {}
+            if all(owner.setdefault(c, topo.owner(p)) == topo.owner(p)
+                   for p, c in enumerate(self.colors)):
+                lo = topo.local_lo
+                out = ProcessGroup(topo.local_topology(), (),
+                                   colors=tuple(self.colors[lo:lo + topo.local_size]))
+        elif all(topo.local_shape[GRID_AXES.index(a)] == topo.axis_size(a)
+                 for a in self.axes):
+            out = ProcessGroup(topo.local_topology(), self.axes)
+        _LOCALIZED[self] = out
+        return out
+
+    def process_partition(self) -> Tuple[Tuple[int, ...], ...]:
+        """The processes that hold the same instances, one tuple each, in
+        process order: the subgroups a spanning group's hops ride. An axis
+        group: processes whose boxes cover the same complementary
+        coordinates. A color group: the whole world, one subgroup."""
+        topo = self.topology
+        if self.colors is not None:
+            return (tuple(range(topo.num_procs)),)
+        gdims = {GRID_AXES.index(a) for a in self.axes}
+        parts: dict = {}
+        for j in range(topo.num_procs):
+            origin, shape = process_box(topo.grid_shape, topo.num_procs, j)
+            key = tuple((origin[i], shape[i]) for i in range(NUM_GRID_AXES) if i not in gdims)
+            parts.setdefault(key, []).append(j)
+        return tuple(sorted(tuple(v) for v in parts.values()))
 
     def member_table(self) -> Tuple[Tuple[int, ...], ...]:
         """One row of world ranks per group instance, members in group-rank

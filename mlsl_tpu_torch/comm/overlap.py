@@ -58,7 +58,7 @@ from mlsl_tpu_torch import chaos
 from mlsl_tpu_torch.comm import algos, collectives, quant_ring
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
 from mlsl_tpu_torch.core import graph_capture, stats
-from mlsl_tpu_torch.log import log_debug, mlsl_assert
+from mlsl_tpu_torch.log import MLSLError, log_debug, mlsl_assert
 from mlsl_tpu_torch.obs import tracer as obs
 from mlsl_tpu_torch.types import CompressionType, DataType, ReductionType
 
@@ -327,6 +327,7 @@ def build_multi_reduce(group: ProcessGroup, counts: Sequence[int], *,
     buffer starts first, as in a backward pass. A quantized plan starts from
     zero residuals when none are given. ``plain`` runs the kernels' plain
     versions (the card's parity check)."""
+    refuse_spanning(group, "build_multi_reduce")
     layers = [(f"t{i}", int(c), compression) for i, c in enumerate(counts)]
     plan = build_plan(group, layers, config, stages=stages, bucket_mb=bucket_mb, block=block,
                       algo=algo, plain=plain)
@@ -460,6 +461,7 @@ def build_zero1_update(group: ProcessGroup, counts: Sequence[int], *, lr: float,
     reduce-scatter algorithm; ``stages`` defaults to
     ``config.overlap_stages``; ``plain`` runs the kernel algorithms' plain
     versions (the card's parity check)."""
+    refuse_spanning(group, "build_zero1_update")
     mlsl_assert(len(counts) > 0, "zero1 plan needs at least one layer")
     stages = int(stages if stages is not None
                  else getattr(config, "overlap_stages", DEFAULT_STAGES))
@@ -626,11 +628,20 @@ class OverlapEngine:
             tr._step_no = step_no
 
 
+def refuse_spanning(group: ProcessGroup, what: str) -> None:
+    """A compiled form over a group that spans processes is A.8b: a gloo
+    hop cannot be captured in a CUDA graph."""
+    if group.topology.num_procs > 1 and group.spans:
+        raise MLSLError(f"{what} over a group that spans processes is ROADMAP A.8b")
+
+
 def engine_for_trainer(trainer, config) -> Optional[OverlapEngine]:
     """The trainer's OverlapEngine, or None where its graph rides the host
     path (overlap.py:884-925): a custom codec keeps its host wire, TOPK its
-    sparse requests, a color group its flat-mesh programs."""
+    sparse requests, a color group its flat-mesh programs. A gradient group
+    that spans processes raises (A.8b)."""
     group = trainer.dist.grad_group
+    refuse_spanning(group, "the compiled overlap engine")
     if getattr(config, "custom_codec", None) is not None:
         log_debug("overlap: custom codec rides the host path")
         return None

@@ -24,7 +24,9 @@ Also, as host-side scheduling policy:
   and launched together ``msg_priority_flush_ms`` after the last deferral by
   the dispatcher's progress thread, newest first (``msg_priority_mode`` 1) or
   oldest first (0), with no call from the app; a wait, a test, a barrier or
-  an explicit flush launches them sooner.
+  an explicit flush launches them sooner. A request whose group spans
+  processes is never deferred: every process must issue its hops in the
+  same order (comm/transport.py).
 
 A request deferred on a CUDA buffer may be launched from the progress thread,
 whose current stream and device are not the caller's. So ``start`` records an
@@ -208,6 +210,8 @@ class CommRequest:
         self.is_setup = False
         self.algo = algos.DEFAULT
         self._payload = desc.payload_bytes()
+        self._spans = False
+        self._bgroup = desc.group
         self._plain_build: Optional[Callable] = None
         self._plain_fns: Optional[List[Callable]] = None
         # the codec: the resolved registry name and its source, the wire
@@ -249,6 +253,14 @@ class CommRequest:
 
     def setup(self) -> None:
         d = self.desc
+        # across processes: a spanning request is never deferred (the hop
+        # order, comm/transport.py), and the compressed wires build on the
+        # box of a process-local group
+        self._spans = d.group.topology.num_procs > 1 and d.group.spans
+        self._bgroup = d.group.localize() or d.group
+        if self._spans and d.compression != CompressionType.NONE:
+            raise MLSLError(f"a {CompressionType(d.compression).name} {d.kind} over a group "
+                            "that spans processes is ROADMAP A.8b")
         mlsl_assert(d.compression in (CompressionType.NONE, CompressionType.QUANTIZATION,
                                       CompressionType.TOPK),
                     "compression %s is not supported", CompressionType(d.compression).name)
@@ -319,7 +331,7 @@ class CommRequest:
         from mlsl_tpu_torch.comm import sparse
 
         d = self.desc
-        fn, el = sparse.build_sparse_collective(d.kind, d.group, d.count, ratio)
+        fn, el = sparse.build_sparse_collective(d.kind, self._bgroup, d.count, ratio)
         self._quant_fns, self._err_lens, self._errs = [fn], [el], None
         self._chunk_slices = [slice(None)]
         self._plain_build = lambda: [fn]     # noqa: E731 (no kernel: its own twin)
@@ -384,7 +396,8 @@ class CommRequest:
             else:
                 reg_codec = codecs_mod.configure(reg_name, cfg, reg_cell)
                 wire, self.algo = reg_codec.as_custom(), f"codec:{reg_name}"
-            built = [codec_mod.build_custom_collective(d.kind, d.group, n, wire) for n in sizes]
+            built = [codec_mod.build_custom_collective(d.kind, self._bgroup, n, wire)
+                     for n in sizes]
             fns = [fn for fn, _ in built]
             self._plain_build = lambda: fns      # noqa: E731 (no kernel of its own)
         else:
@@ -392,7 +405,7 @@ class CommRequest:
             # through the fused int8 ring kernel (quant_ring ring='pallas'),
             # a forced or tuned 'hier' through the two-tier wire, whose codec
             # applies on the DCN hop only (ring='hier')
-            sel = algos.select(d.kind, d.group, self._payload, d.compression, cfg, op=d.op)
+            sel = algos.select(d.kind, self._bgroup, self._payload, d.compression, cfg, op=d.op)
             if sel == "hier":
                 self.algo = "hier"
                 qkw = dict(ring="hier", dcn_codec=cfg.hier_dcn_codec,
@@ -401,10 +414,10 @@ class CommRequest:
                 fused = sel == "pallas_ring"
                 self.algo = "pallas_ring" if fused else "quant_ring"
                 qkw = dict(ring="pallas" if fused else "lax", bidir=cfg.pallas_ring_bidir)
-            built = [quant_ring.build_quantized_collective(d.kind, d.group, n, block, **qkw)
+            built = [quant_ring.build_quantized_collective(d.kind, self._bgroup, n, block, **qkw)
                      for n in sizes]
             self._plain_build = lambda: [quant_ring.build_quantized_collective(   # noqa: E731
-                d.kind, d.group, n, block, plain=True, **qkw)[0] for n in sizes]
+                d.kind, self._bgroup, n, block, plain=True, **qkw)[0] for n in sizes]
         self._quant_fns = [fn for fn, _ in built]
         self._err_lens = [el for _, el in built]
         if self.algo == "hier":
@@ -414,11 +427,12 @@ class CommRequest:
             from mlsl_tpu_torch.comm.algos import hier
 
             self._err_layout = "hier"
-            self._hier_meta = (hier.tier_structure(d.group)[1], hier.intra_positions(d.group))
+            self._hier_meta = (hier.tier_structure(self._bgroup)[1],
+                               hier.intra_positions(self._bgroup))
         else:
             self._err_layout = "ring"
         # the wire accounting: the compressed image of one full payload
-        g = 1 if d.group.is_self else d.group.size
+        g = 1 if self._bgroup.is_self else self._bgroup.size
         if reg_codec is not None:
             rs = d.kind == "reduce_scatter"
             self._codec_geoms = []
@@ -479,7 +493,7 @@ class CommRequest:
         delivers them, and the next program starts from zero feedback."""
         topo = self.desc.group.topology
         errs = self._errs if self._errs is not None else [
-            torch.zeros((*topo.grid_shape, el), dtype=torch.float32, device=self.dispatcher.device)
+            torch.zeros((*topo.local_shape, el), dtype=torch.float32, device=self.dispatcher.device)
             for el in self._err_lens]
         self._errs = None
         return errs
@@ -531,7 +545,7 @@ class CommRequest:
         d = self.desc
         topo = d.group.topology
         dev = self.dispatcher.device
-        buf = torch.zeros((*topo.grid_shape, max(d.send_len(), 1)),
+        buf = torch.zeros((*topo.local_shape, max(d.send_len(), 1)),
                           dtype=torch_dtype(d.data_type), device=dev)
         n, seen = 0, set()
         fns = self._quant_fns if self._quant_fns is not None else self._fns
@@ -544,7 +558,7 @@ class CommRequest:
             # the warm passes no chaos site: it must not spend an armed budget
             fn = collectives.unwrap_chaos(fn)
             if self._quant_fns is not None:
-                fn(x, torch.zeros((*topo.grid_shape, self._err_lens[i]), dtype=torch.float32,
+                fn(x, torch.zeros((*topo.local_shape, self._err_lens[i]), dtype=torch.float32,
                                   device=dev))
             else:
                 fn(x)
@@ -597,9 +611,9 @@ class CommRequest:
         buf = topo.adopt_buffer(buf)
         mlsl_assert(
             buf.dim() == NUM_GRID_AXES + 1
-            and tuple(buf.shape[:NUM_GRID_AXES]) == topo.grid_shape,
+            and tuple(buf.shape[:NUM_GRID_AXES]) == topo.local_shape,
             "buffer must have shape (R=%d, D=%d, S=%d, M=%d, n), got %s",
-            *topo.grid_shape, tuple(buf.shape),
+            *topo.local_shape, tuple(buf.shape),
         )
         with self._dlock:
             self._epoch += 1
@@ -1152,7 +1166,7 @@ class Dispatcher:
         if req.desc.kind == "barrier":
             # a barrier orders everything before it
             self.flush()
-        if (not cfg.msg_priority or req.desc.kind == "barrier"
+        if (not cfg.msg_priority or req.desc.kind == "barrier" or getattr(req, "_spans", False)
                 or req._payload <= cfg.msg_priority_threshold):
             req._dispatch(buf)
             return

@@ -349,6 +349,10 @@ class Config:
     control_port: int = 0               # MLSL_CONTROL_PORT
     control_world: int = 0              # MLSL_CONTROL_WORLD
     control_rank: int = -1              # MLSL_CONTROL_RANK
+    # the multi-process bootstrap's retry budget (comm/transport.bootstrap):
+    # attempts beyond the first, backoff dist_init_backoff_s * 2**(k-1)
+    dist_init_retries: int = 3          # MLSL_DIST_INIT_RETRIES
+    dist_init_backoff_s: float = 0.5    # MLSL_DIST_INIT_BACKOFF_S
 
     def validate(self) -> None:
         """Reject unserviceable settings at init. Parses ``collective_algo``
@@ -520,6 +524,10 @@ class Config:
             mlsl_assert(0 <= self.control_rank < world,
                         "MLSL_CONTROL_RANK must name this process's slot in the %d-member "
                         "control world (got %d)", world, self.control_rank)
+        mlsl_assert(self.dist_init_retries >= 0,
+                    "MLSL_DIST_INIT_RETRIES must be >= 0 (got %d)", self.dist_init_retries)
+        mlsl_assert(self.dist_init_backoff_s >= 0,
+                    "MLSL_DIST_INIT_BACKOFF_S must be >= 0 (got %r)", self.dist_init_backoff_s)
 
     @staticmethod
     def from_env() -> "Config":
@@ -631,4 +639,6 @@ class Config:
         c.control_port = _env_int("MLSL_CONTROL_PORT", c.control_port)
         c.control_world = _env_int("MLSL_CONTROL_WORLD", c.control_world)
         c.control_rank = _env_int("MLSL_CONTROL_RANK", c.control_rank)
+        c.dist_init_retries = _env_int("MLSL_DIST_INIT_RETRIES", c.dist_init_retries)
+        c.dist_init_backoff_s = _env_float("MLSL_DIST_INIT_BACKOFF_S", c.dist_init_backoff_s)
         return c

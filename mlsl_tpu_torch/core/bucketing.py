@@ -187,7 +187,7 @@ class GradBucket:
         d = self.req.desc
         topo = d.group.topology
         mult = self._g if self.kind == "reduce_scatter" else 1
-        bufs = [torch.zeros((*topo.grid_shape, c * mult), dtype=torch_dtype(d.data_type),
+        bufs = [torch.zeros((*topo.local_shape, c * mult), dtype=torch_dtype(d.data_type),
                             device=self.req.dispatcher.device) for c in self.counts]
         self._split(self._pack(bufs))
         return self.req.precompile()

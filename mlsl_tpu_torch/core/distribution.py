@@ -62,7 +62,7 @@ class Distribution:
                               or len(set(model_sizes.values())) > 1)
             self.seq_parts = 1
             # the grid is flat (W, 1, 1, 1): a storage layout, not replicas
-            self.topology = Topology(1, 1, n)
+            self.topology = Topology(1, 1, n, procs=env.process_layout())
             self.data_group = ProcessGroup(self.topology, (), colors=tuple(data_colors))
             self.model_group = ProcessGroup(self.topology, (), colors=tuple(model_colors))
             self.seq_group = ProcessGroup(self.topology, ())
@@ -71,7 +71,7 @@ class Distribution:
             self.replica_count = 1
             return
         self.topology = Topology(data_parts, model_parts, env.world_size,
-                                 seq_parts=seq_parts)
+                                 seq_parts=seq_parts, procs=env.process_layout())
         self.data_parts = data_parts
         self.model_parts = model_parts
         self.seq_parts = seq_parts
@@ -134,19 +134,25 @@ class Distribution:
 
     @property
     def world_shape(self) -> Tuple[int, int, int, int]:
-        return self.topology.grid_shape
+        """The shape of this process's distributed buffers: the whole grid
+        with one process, else the box of its ranks (``Topology.local_shape``)."""
+        return self.topology.local_shape
 
     def make_buffer(self, per_rank_fn, count: int, data_type=DataType.FLOAT) -> torch.Tensor:
-        """Distributed buffer from a function global_rank -> np.ndarray(count)."""
-        n = self.topology.world_size
-        host = np.stack([np.asarray(per_rank_fn(p)) for p in range(n)], axis=0)
+        """Distributed buffer from a function global_rank -> np.ndarray(count),
+        called for this process's ranks only."""
+        host = np.stack([np.asarray(per_rank_fn(p)) for p in self.topology.local_ranks()],
+                        axis=0)
         t = torch.from_numpy(np.ascontiguousarray(host)).to(torch_dtype(data_type))
         return t.reshape(*self.world_shape, count).to(self.device)
 
-    def local_part(self, buf: torch.Tensor, global_idx: int) -> np.ndarray:
+    def local_part(self, buf: torch.Tensor, global_idx: int) -> Optional[np.ndarray]:
         """Rank-local row of a distributed buffer, on the host (bfloat16,
-        which numpy lacks, comes back as float32)."""
-        r, d, s, m = self.topology.coords(global_idx)
+        which numpy lacks, comes back as float32); None for a rank another
+        process holds (the JAX package's ``local_part`` helper)."""
+        if not self.topology.is_local(global_idx):
+            return None
+        r, d, s, m = self.topology.local_coords(global_idx)
         row = buf[r, d, s, m].detach()
         if row.dtype == torch.bfloat16:
             row = row.to(torch.float32)
@@ -309,16 +315,21 @@ class Distribution:
     def gather_to_host(self, send_buffer, send_count, data_type, root_idx,
                        group_type) -> dict:
         """Rooted gather delivered to the host: ``{root world rank:
-        np.ndarray(G * send_count)}``, one entry per group instance. The
-        concatenations are assembled on the host from ONE device-to-host copy
-        of the buffer; no collective runs. Ragged color groups need no
-        padding here."""
+        np.ndarray(G * send_count)}``, one entry per group instance, on every
+        process. The concatenations are assembled on the host from ONE
+        device-to-host copy of the buffer; across processes the other
+        processes' rows come in one all-gather first. Ragged color groups
+        need no padding here."""
         g = self._group(group_type)
         world = self.topology.world_size
         n = int(send_count)
-        rows_dev = send_buffer.detach().reshape(world, -1)[:, :n]
+        rows_dev = send_buffer.detach().reshape(self.topology.local_size, -1)[:, :n]
         if rows_dev.dtype == torch.bfloat16:
             rows_dev = rows_dev.to(torch.float32)
+        if self.topology.num_procs > 1:
+            from mlsl_tpu_torch.comm import transport
+
+            rows_dev = transport.all_gather(rows_dev.contiguous()).reshape(world, n)
         host = rows_dev.cpu().numpy()
         if g.is_self:
             return {p: host[p].copy() for p in range(world)}

@@ -14,6 +14,17 @@ With no world size, ``init`` adopts the elastic mesh's survivor ranks after a
 shrink (``elastic.py``); it joins the pod control plane when the Config names
 a control world (``control/``).
 
+With a ``coordinator_address``, ``num_processes`` and ``process_id``, the
+world's virtual ranks are spread over that many processes, each holding its
+own contiguous block (comm/mesh.py, comm/transport.py): ``init`` brings up
+``torch.distributed`` once per process (NCCL on the card, gloo on the CPU,
+``backend=`` to choose), with ``MLSL_DIST_INIT_RETRIES`` further attempts
+``MLSL_DIST_INIT_BACKOFF_S * 2**(k-1)`` seconds apart, and ``finalize`` keeps
+it up, as the JAX package keeps ``jax.distributed``. ``process_index`` and
+``process_count`` name this process and the processes; ``get_process_count``
+still counts virtual ranks. Without a coordinator no ``torch.distributed``
+call is made.
+
 ``configure("color=...")`` restricts the world as the reference's
 Configure does (src/mlsl.cpp:620-647): one value keeps every rank, one value a
 rank keeps the ranks whose color equals the first one, so later
@@ -62,12 +73,17 @@ class Environment:
     def is_initialized(cls) -> bool:
         return cls._instance is not None and cls._instance._initialized
 
-    def init(self, device=None, world_size: Optional[int] = None) -> "Environment":
+    def init(self, device=None, world_size: Optional[int] = None,
+             coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
+             process_id: Optional[int] = None, backend: Optional[str] = None) -> "Environment":
         """Bootstrap ``world_size`` virtual ranks on ``device``: 'cuda' (or
         'cuda:N') by default, 'cpu' only when asked for. With no
         ``world_size`` the world is the elastic registry's survivor ranks
         after a shrink (``elastic.active_devices()``, as the JAX package's
-        init adopts the survivor devices), else 8."""
+        init adopts the survivor devices), else 8. With a
+        ``coordinator_address`` ('host:port'), the ranks are spread over
+        ``num_processes`` processes, this one ``process_id``, over
+        ``backend`` ('nccl' on the card, 'gloo' on the CPU by default)."""
         if self._initialized:
             return self
         if world_size is None:
@@ -91,8 +107,25 @@ class Environment:
             cpu_exp.warm(dev)   # before any CPU path's first exp (ROADMAP C.3)
         mlsl_assert(world_size >= 1, "world_size must be >= 1 (got %d)", world_size)
         from mlsl_tpu_torch import supervisor, sysinfo, tuner
+        from mlsl_tpu_torch.comm import transport
         from mlsl_tpu_torch.ops import cuda_build
 
+        if coordinator_address is not None:
+            mlsl_assert(num_processes is not None and process_id is not None,
+                        "a coordinator_address needs num_processes and process_id")
+            mlsl_assert(world_size % int(num_processes) == 0,
+                        "%d virtual ranks do not split over %d processes", world_size,
+                        int(num_processes))
+            pre = Config.from_env()
+            transport.bootstrap(coordinator_address, num_processes, process_id,
+                                backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                                max(0, pre.dist_init_retries),
+                                max(0.0, pre.dist_init_backoff_s), dev)
+        else:
+            mlsl_assert(num_processes in (None, 1) and process_id in (None, 0)
+                        and backend is None,
+                        "num_processes, process_id and backend need a coordinator_address")
+        transport.set_world_size(world_size)
         # the JAX package's order (environment.py:80-86): the log level, the
         # device class's defaults (explicit exports win), then validation
         config = Config.from_env()
@@ -163,6 +196,9 @@ class Environment:
         from mlsl_tpu_torch.comm import algos
 
         algos._INLINE_PLANS.clear()
+        from mlsl_tpu_torch.comm import mesh
+
+        mesh._LOCALIZED.clear()
         # the fault plane's modules read their environment variables again
         from mlsl_tpu_torch import supervisor
 
@@ -182,6 +218,23 @@ class Environment:
         Distribution."""
         return 0
 
+    def process_index(self) -> int:
+        """This process's index among the processes (0 without a coordinator)."""
+        from mlsl_tpu_torch.comm import transport
+
+        return transport.world().index
+
+    def process_count(self) -> int:
+        """The number of processes the virtual ranks are spread over."""
+        from mlsl_tpu_torch.comm import transport
+
+        return transport.world().count
+
+    def process_layout(self) -> tuple:
+        """(process count, this process's index): what a Topology's boxes
+        follow."""
+        return self.process_count(), self.process_index()
+
     def configure(self, conf_str: str) -> None:
         """Color-based restriction of the world (reference Configure("color=N")).
         'color=N' keeps every rank; 'color=c0,c1,...' (one value a rank)
@@ -196,6 +249,10 @@ class Environment:
             return
         mlsl_assert(len(values) == self.world_size, "color list length %d != rank count %d",
                     len(values), self.world_size)
+        if len(set(values)) > 1:
+            from mlsl_tpu_torch.comm import transport
+
+            transport.refuse("configure('color=...') restricting the world")
         self._global_colors = tuple(values)
         self.world_size = sum(1 for c in values if c == values[0])
 

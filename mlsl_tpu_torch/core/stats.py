@@ -1163,7 +1163,7 @@ def isolation_time_request(req) -> Tuple[int, int]:
     d = req.desc
     topo = d.group.topology
     dev = req.dispatcher.device
-    buf = torch.zeros((*topo.grid_shape, max(d.send_len(), 1)),
+    buf = torch.zeros((*topo.local_shape, max(d.send_len(), 1)),
                       dtype=torch_dtype(d.data_type), device=dev)
     cuda = dev is not None and dev.type == "cuda"
     times = []

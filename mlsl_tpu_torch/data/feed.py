@@ -76,6 +76,9 @@ class DeviceFeed:
                  quant_block: Optional[int] = None,
                  retries: Optional[int] = None,
                  device=None):
+        from mlsl_tpu_torch.comm import transport
+
+        transport.refuse("the device feed")
         if wire is None:
             wire = os.environ.get("MLSL_FEED_WIRE_DTYPE", "")
         if cache_mb is None:

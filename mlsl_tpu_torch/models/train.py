@@ -240,7 +240,7 @@ class DataParallelTrainer:
         if cfg is not None:
             if sentinel_mod.armed(cfg):
                 self.sentinel = sentinel_mod.Sentinel.from_config(
-                    cfg, dist.topology.grid_shape)
+                    cfg, dist.topology.local_shape)
             if obs_straggler.armed(cfg):
                 self.straggler = obs_straggler.StragglerSentinel(
                     skew=cfg.straggler_skew, every=cfg.straggler_every,
@@ -264,7 +264,7 @@ class DataParallelTrainer:
         self.tree_state = None
         self._af_inc: Dict[str, Callable] = {}
         if optimizer is not None:
-            grid = dist.topology.grid_shape
+            grid = dist.topology.local_shape
             zero1 = distributed_update and needs_comm
             mlsl_assert(not (zero1 and self._tree_opt is not None and self._af_cfg is None),
                         "a tree transform needs whole leaves (and adamw the parameters); "
@@ -330,30 +330,42 @@ class DataParallelTrainer:
     # -- data placement ----------------------------------------------------
 
     def shard_batch(self, x: np.ndarray, y: np.ndarray):
-        """Global batch (B, ...) -> distributed buffers (R, D, S, M, localB, ...)."""
-        r, d, s, m = self.dist.topology.grid_shape
+        """Global batch (B, ...) -> distributed buffers (R, D, S, M, localB, ...):
+        this process's box of them, the rows of its data ranks."""
+        topo = self.dist.topology
+        r, d = topo.grid_shape[:2]
         local_b = x.shape[0] // (r * d)
+        r0, d0 = topo.local_origin[:2]
+        rl, dl = topo.local_shape[:2]
+        lo = (r0 * d + d0) * local_b
+        return self._place(x[lo:lo + rl * dl * local_b], y[lo:lo + rl * dl * local_b])
+
+    def _place(self, x: np.ndarray, y: np.ndarray):
+        """This process's contiguous rows of the global batch -> its box."""
+        rl, dl, sl, ml = self.dist.topology.local_shape
+        local_b = x.shape[0] // (rl * dl)
 
         def place(a):
             t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            return t.reshape(r, d, 1, 1, local_b, *a.shape[1:]).expand(
-                r, d, s, m, local_b, *a.shape[1:]
+            return t.reshape(rl, dl, 1, 1, local_b, *a.shape[1:]).expand(
+                rl, dl, sl, ml, local_b, *a.shape[1:]
             )
 
         return place(x), place(y)
 
     def shard_batch_local(self, x: np.ndarray, y: np.ndarray):
         """Multi-process batch placement (train.py:854-882): x/y are THIS
-        process's contiguous rows of the global batch. The port's world is one
-        process (multi-process worlds are still to come), so the process count
-        is 1, the rows are the whole batch and the placement is
-        :meth:`shard_batch`'s; the divisibility check is the JAX package's."""
-        r, d = self.dist.topology.grid_shape[:2]
-        nproc = 1
+        process's contiguous rows of the global batch (global batch /
+        process count rows); no process holds the whole batch. The data-rank
+        count must split over the processes with replica-major contiguity,
+        the JAX package's check."""
+        topo = self.dist.topology
+        r, d = topo.grid_shape[:2]
+        nproc = topo.num_procs
         mlsl_assert((r * d) % nproc == 0 and (r == 1 or r % nproc == 0),
                     "data ranks (r=%d x d=%d) must split contiguously over %d processes",
                     r, d, nproc)
-        return self.shard_batch(x, y)
+        return self._place(x, y)
 
     def feed(self, source, *, depth: Optional[int] = None, **kw):
         """The wire-compressed prefetching device feed for this trainer's
@@ -386,7 +398,8 @@ class DataParallelTrainer:
         """Per-rank loss and flat per-layer gradients as distributed buffers:
         -> (loss (R, D, S, M, 1), {layer: (R, D, S, M, padded count)})."""
         x, y = batch
-        grid = self.dist.topology.grid_shape
+        topo = self.dist.topology
+        grid = topo.local_shape
         params = self._all_params()
         losses = torch.empty((*grid, 1), dtype=torch.float32, device=self.device)
         grads = {}
@@ -394,8 +407,8 @@ class DataParallelTrainer:
             count, padded = self.layer_counts[name], self.padded_counts[name]
             alloc = torch.zeros if padded > count else torch.empty
             grads[name] = alloc((*grid, padded), dtype=torch.float32, device=self.device)
-        for p in range(self.dist.topology.world_size):
-            c = self.dist.topology.coords(p)
+        for p in topo.local_ranks():
+            c = topo.local_coords(p)
             loss = self.loss_fn(self.model, (x[c], y[c]))
             gs = iter(torch.autograd.grad(loss, params))
             losses[c] = loss.detach()
@@ -486,7 +499,7 @@ class DataParallelTrainer:
                 if self.distributed_update and self._needs_comm:
                     name = sorted(self.opt_state)[chaos._rng.randrange(len(self.opt_state))]
                     sentinel_mod.corrupt_silent(self.opt_state[name], p,
-                                                self.dist.topology.grid_shape)
+                                                self.dist.topology.local_shape)
                 else:
                     sentinel_mod.corrupt_silent((self.opt_state, self.tree_state), p)
 
@@ -498,7 +511,7 @@ class DataParallelTrainer:
         if chaos._plans:
             p = chaos.inject("train.grads", step=self._step_no)
             if p is not None and p.kind == "silent":
-                sentinel_mod.corrupt_silent(grads, p, self.dist.topology.grid_shape)
+                sentinel_mod.corrupt_silent(grads, p, self.dist.topology.local_shape)
         if self._gate_armed() and not self.sentinel.gate(loss, grads, None, self._step_no):
             return grads, False
         m = obs_metrics._registry
@@ -517,7 +530,7 @@ class DataParallelTrainer:
         rep = {"params": {n: list(self.layer_params[n]) for n in self.layers}}
         sh = {}
         if self.distributed_update and self._needs_comm:
-            grid = tuple(self.dist.topology.grid_shape)
+            grid = tuple(self.dist.topology.local_shape)
             leaves = sentinel_mod.tree_leaves(self.opt_state)
             sh["du_opt_state"] = [l for l in leaves if tuple(l.shape[:4]) == grid]
             rest = [l for l in leaves if tuple(l.shape[:4]) != grid]

@@ -640,6 +640,9 @@ class HybridTrainer:
                  batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
                  distributed_update: bool = False, compression=None, optimizer=None,
                  params=None):
+        from mlsl_tpu_torch.comm import transport
+
+        transport.refuse("HybridTrainer")
         mlsl_assert(not isinstance(optimizer, optim.ShardedAdafactor),
                     "ShardedAdafactor's cross-shard factored stats are implemented for "
                     "DataParallelTrainer's distributed update; HybridTrainer takes the "

@@ -47,6 +47,9 @@ from mlsl_tpu_torch.log import mlsl_assert
 
 def _ranks(x_micro: torch.Tensor, axis: int, n_stages: int):
     """-> (rank dims, rank count) of a (*ranks, M, mb, d) microbatch tensor."""
+    from mlsl_tpu_torch.comm import transport
+
+    transport.refuse("the pipeline schedules")
     nr = x_micro.dim() - 3
     ranks = tuple(x_micro.shape[:nr])
     mlsl_assert(0 <= axis < nr and ranks[axis] == n_stages,

@@ -134,6 +134,9 @@ class InferenceEngine:
     def __init__(self, env, cfg, tp: int = 1, params=None, seed: int = 0, config=None,
                  max_batch: Optional[int] = None, queue_depth: Optional[int] = None,
                  tpot_p99_ms: float = 0.0):
+        from mlsl_tpu_torch.comm import transport
+
+        transport.refuse("the serving engine")
         self.env = env
         self.cfg = cfg
         self.tp = int(tp)

@@ -68,6 +68,7 @@ def topology_fingerprint(world_size: int, device: torch.device) -> dict:
     flat world, nor the reverse). A profile measured on a TPU, on another
     card or at another world size is stale here. ``device``: the
     Environment's device."""
+    from mlsl_tpu_torch.comm import transport
     from mlsl_tpu_torch.comm.mesh import world_tiers
 
     device = torch.device(device)
@@ -80,7 +81,7 @@ def topology_fingerprint(world_size: int, device: torch.device) -> dict:
         "platform": si.platform,
         "device_kind": si.device_kind,
         "num_devices": int(world_size),
-        "num_hosts": 1,
+        "num_hosts": len(set(transport.world().hosts)),
         "tiers": list(tiers) if tiers is not None else None,
     }
 
