@@ -303,8 +303,10 @@ Phases, in order; any failure exits non-zero and prints no result:
              whose residual is flushed exactly once, then rounds bit for bit
              a fresh int8 request's; (t4) native/sample_codec.c compiled
              with gcc into build/mlsl_tpu_torch/ and registered through
-             set_quantization_params: config 4's 64 MiB-a-rank allreduce for
-             2 rounds bit for bit against the same collective on the CPU,
+             set_quantization_params: a 16 MiB-a-rank allreduce (config
+             4's request cut to a quarter for the smoke's wall, ROADMAP
+             C.14) for 2 rounds bit for bit against the same collective on
+             the CPU,
              with the time split between host copies and codec calls, then
              one C-entry registration through c_shim.
 
@@ -487,20 +489,35 @@ Phases, in order; any failure exits non-zero and prints no result:
              gpt-medium-2k's MLP widths (the model groups inside each process on
              B3 and B6, the data group's gradient across processes), and two
              config 5 steps (ResNet-50, 224 x 224, 1000 classes, global batch
-             64) replicated and ZeRO-1. Each child checks the closed forms on
-             its own ranks; this process runs the same worker as one process
-             of 8 ranks beside them and holds every row to it: moves and
-             integer-valued sums bit for bit, float sums within 1e-6, config
-             5's first-step reduced gradients within 1e-6 relative L2 a layer
-             (its twin is never free-running), both processes' parameters bit
-             for bit. A child that fails, exits non-zero or outlives
-             AD_TIMEOUT fails the run. (ad2) NCCL in a one-process world: each
+             64) replicated and ZeRO-1; then the direct alltoall, bcast and
+             sendrecv against their assembled form (phase exchanges), the
+             compressed wires at config 4's size, 64 MiB a rank over the
+             8-rank data group, three rounds with the residual carried: the
+             int8 allreduce and reduce_scatter (B1 on every hop, the int8
+             rows and scales crossing by the ring shift), top-k at 0.01 in
+             both formats and the prune codec (phase wires), and two config 5
+             steps on config 4's int8 ring in 25 MiB buckets, replicated and
+             ZeRO-1 (phase resnet_int8; the forced pallas_ring keeps the
+             composed ring on the spanning data group). Each child checks
+             the closed forms on its own ranks; this process runs the same
+             worker as one process of 8 ranks beside them (the int8 phases
+             without AD_VARS, so that it takes the same composed ring) and
+             holds every row to it: moves, integer-valued sums, the wires'
+             digests and samples, config 5's ring inputs and its int8
+             gradients and parameters bit for bit, float sums within 1e-6,
+             config 5's float first-step reduced gradients within 1e-6
+             relative L2 a layer (its twin is never free-running), both
+             processes' parameters bit for bit. A child that fails, exits
+             non-zero or outlives AD_TIMEOUT fails the run. (ad2) NCCL in a one-process world: each
              hop (all_reduce, reduce_scatter, all_gather, broadcast) on a 64
              MiB CUDA tensor and the spanning forms on a (4, 2) grid's groups
              bit for bit their plain versions; config 5's step on it bit for
              bit the transport-less step. Printed: the backend, the process
-             count, the bytes that crossed processes a config 5 step, each
-             hop's seconds, the phase's wall time, the card and its limit.
+             count, the bytes that crossed processes a config 5 step (float
+             and int8, by dtype), the ring shifts a step, each hop kind's
+             staging and wire seconds, the int8 step's time over the float
+             step's, the direct exchanges' bytes against the assembled
+             form's, the phase's wall time, the card and its limit.
 
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
@@ -4856,8 +4873,10 @@ CODEC_STEPS = 3
 # rounds: each round's entry adds x + e in float32 (one rounding an element)
 TELESCOPE_TOL = 1e-5
 CODEC_PROFILE = ROOT / "build" / "mlsl_tpu_torch" / "codec_profile.json"
-# (t4)'s request: config 4's 64 MiB of float32 a rank
-CODEC_LIB_N = (64 << 20) // 4
+# (t4)'s request: config 4's allreduce cut to 16 MiB of float32 a rank (from 64 in
+# PR 26, for the smoke's wall: ROADMAP C.14); the library codec's host round
+# trip and its CPU twin scale with it
+CODEC_LIB_N = (16 << 20) // 4
 
 
 def sum_bound(torch, terms):
@@ -5157,7 +5176,8 @@ def run_codecs(torch, np, get_env, launches, reset_launches, lib_path, dev):
         lines.append(f"# codecs (t3) calibration: {json.dumps(out)}")
         del tr
 
-        # (t4) the library codec on config 4's request, and the C entry
+        # (t4) the library codec on config 4's request cut to CODEC_LIB_N, and
+        # the C entry
         t0 = time.perf_counter()
         env = reinit(get_env)
         settle(torch)
@@ -8366,12 +8386,22 @@ def run_analysis(torch, np, get_env, launches, reset_launches, dev, smi):
 AD_PROCS = 2                # (ad1): processes on the one card, over gloo
 AD_TIMEOUT = 420            # (ad1): the children's limit, start to exit
 AD_PHASES = ("hierarchy", "gather", "loop", "matrix", "kinds", "train", "graph", "resnet")
+#: (ad1)'s compressed wires and direct exchanges, after AD_PHASES; the twin
+#: runs them without AD_VARS, so that its one process takes the composed int8
+#: ring the children's spanning data group takes (a forced pallas_ring would
+#: give it B4, another wire)
+AD_INT8_PHASES = ("exchanges", "wires", "resnet_int8")
 AD_GRAPH = (MLP_FM1, MLP_FM2, MLP_TOKENS)     # run (m)'s graph at gpt-medium-2k's widths
 AD_RESNET = (224, 1000, 64)                   # config 5
+AD_WIRES_N = (64 << 20) // 4                  # config 4: 64 MiB a rank
 AD_VARS = {"MLSL_ALGO": SPEC_RING, "MLSL_PALLAS_A2A_QUANT": "0"}
 AD_RTOL = 1e-6              # float sums that cross processes, and config 5's gradients
 AD_HOP_N = (16 << 20) // 4  # (ad2): floats a hop
 AD_DEVICE = "cuda:0"
+#: (ad1)'s rows held to the twin bit for bit: moves, integer-valued sums, the
+#: compressed wires' digests and samples, config 5's ring inputs, and config
+#: 5 on the int8 ring (the same arithmetic on the same inputs)
+AD_EXACT = ("gather/", "kinds/", "graph", "exch/", "wires/", "resnet_int8/")
 
 
 def free_port() -> int:
@@ -8397,9 +8427,10 @@ def start_ad_children(out_dir: str) -> list:
             procs.append((subprocess.Popen(
                 [sys.executable, "-m", "mlsl_tpu_torch.tools.mp_worker", "--pid", str(i),
                  "--nproc", str(AD_PROCS), "--port", str(port), "--device", AD_DEVICE,
-                 "--backend", "gloo", "--out", out_dir, "--phases", ",".join(AD_PHASES),
+                 "--backend", "gloo", "--out", out_dir,
+                 "--phases", ",".join(AD_PHASES + AD_INT8_PHASES),
                  "--graph", ",".join(map(str, AD_GRAPH)),
-                 "--resnet", ",".join(map(str, AD_RESNET))],
+                 "--resnet", ",".join(map(str, AD_RESNET)), "--wires", str(AD_WIRES_N)],
                 cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT), path))
     return procs
 
@@ -8431,11 +8462,11 @@ def join_ad_children(procs, t_start: float) -> list:
 
 
 def ad_hold(np, twin: dict, rows: dict) -> dict:
-    """Every row of the two processes against the one-process twin: moves
-    and integer-valued sums bit for bit, float sums within AD_RTOL, config
-    5's gradients within AD_RTOL relative L2 a layer and rank; replicated
-    rows (gather_to_host, the MLP's parameters) bit for bit between the
-    processes. -> the worst error of each kind."""
+    """Every row of the two processes against the one-process twin:
+    AD_EXACT's rows and config 5's ring inputs bit for bit, float sums
+    within AD_RTOL, config 5's float gradients within AD_RTOL relative L2 a
+    layer and rank; replicated rows (gather_to_host, the MLP's parameters)
+    bit for bit between the processes. -> the worst error of each kind."""
     worst = {"float_rel": 0.0, "resnet_grad_rel_l2": 0.0}
     for k, want in twin.items():
         if k.startswith("csum/"):
@@ -8446,18 +8477,30 @@ def ad_hold(np, twin: dict, rows: dict) -> dict:
             check(all(np.array_equal(g, got[0]) for g in got[1:]),
                   f"ad1: the processes disagree on {k}")
             got = got[0]
+        if k.startswith(AD_EXACT) or "bprop" in k or "/in/" in k:
+            same = np.array_equal(np.ascontiguousarray(np.atleast_1d(got)).view(np.uint8),
+                                  np.ascontiguousarray(np.atleast_1d(want)).view(np.uint8))
+            check(same, f"ad1: {k} differs from the one-process twin")
+            continue
         got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
         if k.startswith("resnet/") and not k.endswith("/loss") and "/loss/" not in k:
             rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
             worst["resnet_grad_rel_l2"] = max(worst["resnet_grad_rel_l2"], rel)
             check(rel <= AD_RTOL, f"ad1: {k} off the one-process twin by {rel:.3g}")
-        elif k.startswith(("gather/", "kinds/", "graph")) or "bprop" in k:
-            check(np.array_equal(got, want), f"ad1: {k} differs from the one-process twin")
         else:
             rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
             worst["float_rel"] = max(worst["float_rel"], rel)
             check(rel <= AD_RTOL, f"ad1: {k} off the one-process twin by {rel:.3g}")
     return worst
+
+
+def ad_hops(rep: dict, steps: int = 1) -> dict:
+    """A phase's hops a step: calls, bytes and their dtypes, staging and
+    wire seconds, by hop kind."""
+    return {k: {"calls": h["calls"] / steps, "bytes": h["bytes"] // steps,
+                "dtypes": {t: b // steps for t, b in h.get("dtypes", {}).items()},
+                "stage_s": h.get("stage_s", 0.0) / steps, "wire_s": h.get("wire_s", 0.0) / steps}
+            for k, h in rep["hops"].items()}
 
 
 def ad_rows(np, out_dir: str, n: int) -> dict:
@@ -8467,7 +8510,8 @@ def ad_rows(np, out_dir: str, n: int) -> dict:
     for i in range(n):
         with np.load(os.path.join(out_dir, f"proc{i}.npz")) as z:
             for k in z.files:
-                if k.startswith(("gather/", "train/params/", "csum/")):
+                if k.startswith(("gather/", "train/params/", "csum/", "train8/params/",
+                                 "guard/")):
                     rows.setdefault(k, []).append(z[k])
                 else:
                     check(k not in rows, f"ad1: two processes wrote rank row {k}")
@@ -8482,31 +8526,44 @@ def phase_ad1(torch, np, get_env, launches, reset_launches):
     from mlsl_tpu_torch.tools import mp_worker
 
     t0 = time.perf_counter()
-    out_dir, twin_dir = tempfile_dir("mlsl_ad1_"), tempfile_dir("mlsl_ad1_twin_")
+    out_dir = tempfile_dir("mlsl_ad1_")
+    twin_dirs = tempfile_dir("mlsl_ad1_twin_"), tempfile_dir("mlsl_ad1_twin8_")
     procs = start_ad_children(out_dir)
+    twin, twin_s, twin_used = {}, [], []
     try:
-        get_env().finalize()
-        settle(torch)
-        for k in ALGO_VARS:
-            os.environ.pop(k, None)
-        os.environ.update(AD_VARS)
-        reset_launches()
-        t1 = time.perf_counter()
-        twin = mp_worker.run(0, 1, None, AD_DEVICE, twin_dir, phases=AD_PHASES, graph=AD_GRAPH,
-                             resnet=AD_RESNET, log=lambda m: None)
-        twin_s = time.perf_counter() - t1
-        twin_used = {k: v for k, v in launches().items() if v}
+        for phases, env_vars, twin_dir in ((AD_PHASES, AD_VARS, twin_dirs[0]),
+                                           (AD_INT8_PHASES, {}, twin_dirs[1])):
+            get_env().finalize()
+            settle(torch)
+            for k in ALGO_VARS:
+                os.environ.pop(k, None)
+            os.environ.update(env_vars)
+            reset_launches()
+            t1 = time.perf_counter()
+            try:
+                twin.update(mp_worker.run(0, 1, None, AD_DEVICE, twin_dir, phases=phases,
+                                          graph=AD_GRAPH, resnet=AD_RESNET, wires=AD_WIRES_N,
+                                          log=lambda m: None))
+            finally:
+                for k in env_vars:
+                    os.environ.pop(k, None)
+            twin_s.append(time.perf_counter() - t1)
+            twin_used.append({k: v for k, v in launches().items() if v})
     finally:
-        for k in AD_VARS:
-            os.environ.pop(k, None)
         reports = join_ad_children(procs, t0)
     wall = time.perf_counter() - t0
     rows = ad_rows(np, out_dir, AD_PROCS)
     worst = ad_hold(np, twin, rows)
-    for tag in ("resnet/du0", "resnet/du1"):
+    for tag in ("resnet/du0", "resnet/du1", "resnet_int8/du0", "resnet_int8/du1"):
         cs = rows[f"csum/{tag}"]
         check(all(c == cs[0] for c in cs), f"ad1: {tag}: the processes' parameters differ "
                                            f"({[float(c) for c in cs]})")
+    for tag in ("resnet_int8/du0", "resnet_int8/du1"):
+        # the same arithmetic on the same ring inputs: the twin's parameters
+        check(float(rows[f"csum/{tag}"][0]) == float(twin[f"csum/{tag}"]),
+              f"ad1: {tag}: the parameters differ from the one-process twin's")
+        check(all(r[tag]["algos"] == ["quant_ring"] for r in reports),
+              f"ad1: {tag} took {[r[tag]['algos'] for r in reports]}, not the composed ring")
     used = {}
     for rep in reports:
         for k, v in rep["launches"].items():
@@ -8514,17 +8571,44 @@ def phase_ad1(torch, np, get_env, launches, reset_launches):
     check(used.get("dense_ring", 0) > 0 and used.get("a2a_dense", 0) > 0,
           f"ad1: the children launched {used}: B3 and B6 on the process-local model groups "
           f"expected")
+    for ph in ("wires", "resnet_int8"):
+        for i, rep in enumerate(reports):
+            lc = rep[ph]["launches"]
+            check(lc.get("quantize_blocks", 0) > 0 and not lc.get("quant_ring", 0),
+                  f"ad1: child {i}'s {ph} launched {lc}: B1 and no B4 on the spanning "
+                  f"data group expected")
     per_step = {}
-    for tag in ("resnet/du0", "resnet/du1"):
+    for tag in ("resnet/du0", "resnet/du1", "resnet_int8/du0", "resnet_int8/du1"):
         r = reports[0][tag]
-        per_step[tag] = {"bytes_a_step": sum(h["bytes"] for h in r["hops"].values())
-                         // r["steps"], "step_s": r["s"] / r["steps"],
-                         "hop_s_a_step": sum(h["s"] for h in r["hops"].values()) / r["steps"]}
+        hops = ad_hops(r, r["steps"])
+        per_step[tag] = {"bytes_a_step": sum(h["bytes"] for h in hops.values()),
+                         "step_s": r["s"] / r["steps"],
+                         "hop_s_a_step": sum(h["s"] for h in r["hops"].values()) / r["steps"],
+                         "shifts_a_step": hops.get("ring_shift", {}).get("calls", 0),
+                         "hops": hops}
+    wires = {f"child{i}": ad_hops(rep["wires"]) for i, rep in enumerate(reports)}
+    # the direct exchanges (each child held them to the assembled form bit
+    # for bit): bytes handed the backend, summed over the children, by kind
+    exch = {}
+    for key in reports[0]["exchange_bytes"]:
+        kind = key.rsplit("/", 1)[1].split("_")[0]
+        e = exch.setdefault(kind, {"direct": 0, "assembled": 0})
+        for rep in reports:
+            e["direct"] += rep["exchange_bytes"][key]["direct"]
+            e["assembled"] += rep["exchange_bytes"][key]["assembled"]
+    check(set(exch) == {"alltoall", "bcast", "sendrecv"}
+          and all(e["direct"] < e["assembled"] for e in exch.values()),
+          f"ad1: the direct exchanges' bytes {exch}: fewer than the assembled form expected")
     rec = {"backend": "gloo", "processes": AD_PROCS, "ranks_a_process": WORLD // AD_PROCS,
            "device": AD_DEVICE, "wall_s": wall, "twin_s": twin_s, "twin_launches": twin_used,
            "launches": used, "worst": worst, "config5": per_step,
+           "int8_step_over_float_step": {
+               du: per_step[f"resnet_int8/{du}"]["step_s"] / per_step[f"resnet/{du}"]["step_s"]
+               for du in ("du0", "du1")},
+           "wires": wires, "wires_launches": [rep["wires"]["launches"] for rep in reports],
+           "exchange_bytes": exch,
            "phases": [{k: {"s": v["s"], "hops": v.get("hops", {})} for k, v in rep.items()
-                       if isinstance(v, dict) and "s" in v and not k.startswith("resnet/")}
+                       if isinstance(v, dict) and "s" in v and not k.startswith("resnet")}
                       for rep in reports]}
     return rec, used
 
@@ -8614,7 +8698,19 @@ def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi):
     t0 = time.perf_counter()
     ad1, used = phase_ad1(torch, np, get_env, launches, reset_launches)
     ad2 = phase_ad2(torch, np, get_env, dev)
-    lines = [f"# multiprocess ad1 {json.dumps(ad1)}", f"# multiprocess ad2 {json.dumps(ad2)}",
+    c5 = ad1["config5"]
+    summary = {
+        tag: {"bytes_a_step": c5[tag]["bytes_a_step"],
+              "dtypes_a_step": {k: h["dtypes"] for k, h in c5[tag]["hops"].items()},
+              "shifts_a_step": c5[tag]["shifts_a_step"], "step_s": c5[tag]["step_s"],
+              "stage_s_a_step": sum(h["stage_s"] for h in c5[tag]["hops"].values()),
+              "wire_s_a_step": sum(h["wire_s"] for h in c5[tag]["hops"].values())}
+        for tag in c5}
+    summary["int8_step_over_float_step"] = ad1["int8_step_over_float_step"]
+    summary["exchange_bytes"] = ad1["exchange_bytes"]
+    lines = [f"# multiprocess ad1 {json.dumps(ad1)}",
+             f"# multiprocess ad1 wires {json.dumps(summary)} {smi}",
+             f"# multiprocess ad2 {json.dumps(ad2)}",
              f"# phase multiprocess (run (ad)): ok in {time.perf_counter() - t0:.1f} s; "
              f"two processes over gloo on one card (host-staged hops) and NCCL in a "
              f"one-process world; {smi}"]

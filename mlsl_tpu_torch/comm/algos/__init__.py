@@ -274,16 +274,21 @@ def _requested(kind, group, payload_bytes, compression, config):
 
 
 def _quant_pallas_eligible(group: ProcessGroup, config) -> bool:
+    """The fused int8 ring (B4) reads every member on one device: a
+    process-local group only, as the dense kernel routes."""
     from mlsl_tpu_torch.ops import ring_kernels
 
+    if group.topology.num_procs > 1 and group.spans:
+        return False
     return ring_kernels.eligible_quant(group, int(getattr(config, "quant_block_elems", 256)))
 
 
 def _quant_hier_eligible(kind: str, group: ProcessGroup, config) -> bool:
-    """The compressed two-tier wire serves allreduce on a tiered group."""
+    """The compressed two-tier wire serves allreduce on a tiered group that
+    lies inside one process (across processes it is ROADMAP A.8b.7)."""
     from mlsl_tpu_torch.comm.algos import hier
 
-    if kind != "allreduce":
+    if kind != "allreduce" or (group.topology.num_procs > 1 and group.spans):
         return False
     return hier.eligible_quant(group, int(getattr(config, "quant_block_elems", 256)))
 

@@ -39,6 +39,11 @@ on the compressed payloads when the codec has one); then the owned chunks
 circulate compressed. Degenerate (one member) and multi-axis groups take the
 entry compression and a plain sum. Nothing here launches a kernel of its
 own; the registry's int8 codec launches B1 and B2.
+
+Over a group that spans processes each process runs its own members' rows
+(their compression, their residual; a library codec's host round trip on
+the process that holds the rank), and a hop's payloads cross by the ring
+shift (comm/transport.py) in compressed form: the same bits as one process.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from mlsl_tpu_torch.comm import transport
 from mlsl_tpu_torch.comm.collectives import _reduce, group_key, group_unview, group_view
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
 from mlsl_tpu_torch.comm.quant_ring import _to_chunks
@@ -269,7 +275,8 @@ def wire_bytes(codec: CustomCodec, n: int) -> int:
 class _Wire:
     """The codec over a batch of R rows (the virtual ranks' chunks): one call
     for a row-batched codec, one call a row otherwise; ``take`` moves the
-    payloads between rows (the ring's hop)."""
+    payloads between rows (the ring's hop in one process), ``shift`` over
+    the ring shift of a group that spans processes (comm/transport.py)."""
 
     def __init__(self, codec: CustomCodec):
         self.codec = codec
@@ -295,6 +302,21 @@ class _Wire:
             return p[src]
         return [p[i] for i in src_list]
 
+    def shift(self, p, span, c: int):
+        """Member i's payloads to member i + 1 over ``span``. The payloads
+        cross as they are: a row-batched codec's (rows, ...) tensor, or a
+        per-row codec's tensors stacked, which must then have one shape and
+        dtype for every row of a chunk length."""
+        rows = self.codec.rows
+        mlsl_assert((isinstance(p, torch.Tensor) if rows else
+                     all(isinstance(q, torch.Tensor) and q.shape == p[0].shape
+                         and q.dtype == p[0].dtype for q in p)),
+                    "across processes the codec %s must compress a chunk to a tensor of one "
+                    "shape and dtype for every row", self.codec.name)
+        t = p if rows else torch.stack(list(p))
+        moved = span.shift(t.reshape(c, span.gl, *t.shape[1:]))[0].reshape(t.shape)
+        return moved if rows else list(moved.unbind(0))
+
 
 def _entry(wire: _Wire, xq: torch.Tensor):
     """Entry compression with the transport's error feedback: xq (..., chunk)
@@ -304,58 +326,70 @@ def _entry(wire: _Wire, xq: torch.Tensor):
     return xhat, xq - xhat
 
 
-def _ring_body(x, err, *, G, rc, chunk, count, mode, wire):
-    """x: (C, G, count), err: (C, G, G*chunk) -> (result (C, G, n'), new_err)."""
-    c = x.shape[0]
-    xq = _to_chunks(x.to(torch.float32), G, rc, chunk) + err.reshape(c, G, G, chunk)
+def _ring_body(x, err, *, G, rc, chunk, count, mode, wire, span):
+    """x: (C, G_l, count), err: (C, G_l, G*chunk) -> (result (C, G_l, n'),
+    new_err), for the members [off, off + G_l) of the group (``span``; all
+    of them in one process)."""
+    c, gl = x.shape[:2]
+    xq = _to_chunks(x.to(torch.float32), G, rc, chunk) + err.reshape(c, gl, G, chunk)
     chunks, new_err = _entry(wire, xq)                 # [instance, member, chunk idx]
-    new_err = new_err.reshape(c, G, G * chunk)
-    me = torch.arange(G, device=x.device)
-    # after a hop member i holds what member i - 1 sent (row c*G + i <- c*G + i-1)
-    src_list = [i * G + (j - 1) % G for i in range(c) for j in range(G)]
-    src = torch.tensor(src_list, device=x.device)
+    new_err = new_err.reshape(c, gl, G * chunk)
+    li = torch.arange(gl, device=x.device)
+    me = li + span.off
+    if span.crosses:
+        def hop(p):
+            return wire.shift(p, span, c)
+    else:
+        # after a hop member i holds what member i - 1 sent (row c*G + i <- c*G + i-1)
+        src_list = [i * G + (j - 1) % G for i in range(c) for j in range(G)]
+        src = torch.tensor(src_list, device=x.device)
+
+        def hop(p):
+            return wire.take(p, src, src_list)
 
     def rows(t):
         return t.reshape(-1, chunk)
 
     # ring reduce-scatter over the compressed wire
-    partial = chunks[:, me, (me - 1) % G]
+    partial = chunks[:, li, (me - 1) % G]
     for t in range(G - 1):
-        local = chunks[:, me, (me - 2 - t) % G]
-        p = wire.take(wire.enc(rows(partial)), src, src_list)
+        local = chunks[:, li, (me - 2 - t) % G]
+        p = hop(wire.enc(rows(partial)))
         if wire.codec.reduce is not None:
             # compressed-domain accumulation (the reference's reduce_sum op)
             p = wire.red(p, wire.enc(rows(local)))
-            partial = wire.dec(p, chunk).reshape(c, G, chunk)
+            partial = wire.dec(p, chunk).reshape(c, gl, chunk)
         else:
-            partial = wire.dec(p, chunk).reshape(c, G, chunk) + local
+            partial = wire.dec(p, chunk).reshape(c, gl, chunk) + local
     if mode == "reduce_scatter":
         return partial[..., :rc], new_err
 
     # ring all-gather over the compressed wire
     own = wire.enc(rows(partial))
-    out = torch.zeros((c, G, G, chunk), dtype=torch.float32, device=x.device)
-    out[:, me, me] = wire.dec(own, chunk).reshape(c, G, chunk)
+    out = torch.zeros((c, gl, G, chunk), dtype=torch.float32, device=x.device)
+    out[:, li, me] = wire.dec(own, chunk).reshape(c, gl, chunk)
     p = own
     for k in range(G - 1):
-        p = wire.take(p, src, src_list)
-        out[:, me, (me - 1 - k) % G] = wire.dec(p, chunk).reshape(c, G, chunk)
-    return out[..., :rc].reshape(c, G, G * rc)[..., :count], new_err
+        p = hop(p)
+        out[:, li, (me - 1 - k) % G] = wire.dec(p, chunk).reshape(c, gl, chunk)
+    return out[..., :rc].reshape(c, gl, G * rc)[..., :count], new_err
 
 
-def _sum_body(x, err, *, G, rc, chunk, count, mode, wire):
+def _sum_body(x, err, *, G, rc, chunk, count, mode, wire, span):
     """Degenerate and multi-axis groups: entry compression, then a plain sum
-    of the members (uncompressed wire, the same feedback numerics)."""
-    c = x.shape[0]
-    xq = _to_chunks(x.to(torch.float32), G, rc, chunk) + err.reshape(c, G, G, chunk)
+    of the members (uncompressed wire, the same feedback numerics); across
+    processes the members' float rows are gathered and summed in one
+    process's order."""
+    c, gl = x.shape[:2]
+    xq = _to_chunks(x.to(torch.float32), G, rc, chunk) + err.reshape(c, gl, G, chunk)
     chunks, new_err = _entry(wire, xq)
-    new_err = new_err.reshape(c, G, G * chunk)
-    red = (_reduce(chunks.reshape(c, G, G * chunk), ReductionType.SUM).reshape(c, 1, G, chunk)
-           .expand(c, G, G, chunk) if G > 1 else chunks)
+    new_err = new_err.reshape(c, gl, G * chunk)
+    red = (_reduce(span.gather(chunks.reshape(c, gl, G * chunk)), ReductionType.SUM)
+           .reshape(c, 1, G, chunk).expand(c, gl, G, chunk) if G > 1 else chunks)
     if mode == "reduce_scatter":
-        me = torch.arange(G, device=x.device)
-        return red[:, me, me, :rc], new_err
-    return red[..., :rc].reshape(c, G, G * rc)[..., :count], new_err
+        li = torch.arange(gl, device=x.device)
+        return red[:, li, li + span.off, :rc], new_err
+    return red[..., :rc].reshape(c, gl, G * rc)[..., :count], new_err
 
 
 def build_custom_collective(kind: str, group: ProcessGroup, count: int,
@@ -376,19 +410,22 @@ def build_custom_collective(kind: str, group: ProcessGroup, count: int,
         rc = -(-count // g)
     chunk = rc
     err_len = g * chunk
-    key = (kind, group_key(group), count)
+    topo = group.topology
+    key = (kind, group_key(group), topo.num_procs, topo.proc_index, count)
     fn = codec._programs.get(key)
     if fn is not None:
         return fn, err_len
     body = _ring_body if (g > 1 and len(group.axes) == 1) else _sum_body
     wire = _Wire(codec)
+    span = transport.span_of(group)
+    box = span.box
 
     def fn(buf: torch.Tensor, err: torch.Tensor):
         mlsl_assert(buf.shape[-1] == count, "buffer count %d != request count %d",
                     buf.shape[-1], count)
-        out, new_err = body(group_view(buf, group), group_view(err, group), G=g, rc=rc,
-                            chunk=chunk, count=count, mode=kind, wire=wire)
-        return group_unview(out, group), group_unview(new_err, group)
+        out, new_err = body(group_view(buf, box), group_view(err, box), G=g, rc=rc,
+                            chunk=chunk, count=count, mode=kind, wire=wire, span=span)
+        return group_unview(out, box), group_unview(new_err, box)
 
     codec._programs[key] = fn
     return fn, err_len

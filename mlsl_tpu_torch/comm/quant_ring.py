@@ -20,6 +20,17 @@ ONE kernel launch covering all C*G ranks (their rows are independent). The
 hop's dequantize stays a plain multiply fused into the accumulate, as in the
 JAX ring (quant_ring.py:48-56).
 
+Across processes (comm/transport.py) a process holds the members
+[off, off + G_l) of each of its C_l instances: the bodies index chunks by the
+group's member numbers, each hop quantizes the C_l * G_l local rows in one
+launch, and the ring shift moves the int8 rows and their float32 scales to
+the next member, across a process boundary where it falls. The arithmetic
+is the one-process ring's, so the results and residuals are its bits. The
+sum body gathers the G dequantized float rows and sums them as one process
+does (the same bits again). B4 and the two-tier wire read every member on
+one device: a spanning group takes the composed ring (the selection keeps
+them off it; a direct build raises, the two-tier wire naming A.8b.7).
+
 The ``ring="pallas"`` wire runs the same entry error feedback (kernel B1) and
 then the whole ring as one launch of the fused int8 ring kernel B4
 (ops/ring_kernels.py), which the selection table picks for a forced or tuned
@@ -42,7 +53,7 @@ import torch
 
 from mlsl_tpu_torch.comm.collectives import group_unview, group_view
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
-from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.log import MLSLError, mlsl_assert
 from mlsl_tpu_torch.ops import quant_kernels as qk
 from mlsl_tpu_torch.types import CompressionType, ReductionType
 
@@ -127,25 +138,30 @@ def _entry(x, err, G, rc, chunk, block, quantize):
     return xhat, xq - xhat
 
 
-def _ring_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize):
-    """x: (C, G, n_orig), err: (C, G, G*chunk) -> (result (C, G, n'), new_err)."""
-    c = x.shape[0]
+def _ring_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize, span):
+    """x: (C, G_l, n_orig), err: (C, G_l, G*chunk) -> (result (C, G_l, n'),
+    new_err): the members [off, off + G_l) of a G-member ring (``span``,
+    comm/transport.py; all of them in one process). Member numbers are the
+    group's, so each process indexes its own members' chunks, and every
+    hop is one quantize launch over the local rows and a ring shift."""
+    c, gl = x.shape[:2]
     xhat, new_err = _entry(x, err, G, rc, chunk, block, quantize)
-    chunks = xhat.reshape(c, G, G, chunk)          # [instance, member, chunk idx]
-    me = torch.arange(G, device=x.device)
+    chunks = xhat.reshape(c, gl, G, chunk)         # [instance, member, chunk idx]
+    li = torch.arange(gl, device=x.device)
+    me = li + span.off
 
     if G == 1:
         result = xhat[..., :n_orig] if mode == "allreduce" else xhat[..., :rc]
         return result, new_err
 
     # --- phase 1: ring reduce-scatter (quantized wire) ---
-    partial = chunks[:, me, (me - 1) % G]          # (C, G, chunk)
+    partial = chunks[:, li, (me - 1) % G]          # (C, G_l, chunk)
     for t in range(G - 1):
         q, s = _quant(partial, block, quantize)
-        q = torch.roll(q.reshape(c, G, chunk), shifts=1, dims=1)   # member i -> i+1
-        s = torch.roll(s.reshape(c, G, -1), shifts=1, dims=1)
+        # member i -> i+1: int8 rows and their float32 scales
+        q, s = span.shift(q.reshape(c, gl, chunk), s.reshape(c, gl, -1))
         received = _dequant(q.reshape(-1, block), s.reshape(-1), partial.shape)
-        partial = received + chunks[:, me, (me - 2 - t) % G]
+        partial = received + chunks[:, li, (me - 2 - t) % G]
     # partial = fully reduced chunk `me`; its first rc elements are MPI slice `me`
 
     if mode == "reduce_scatter":
@@ -153,29 +169,34 @@ def _ring_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize):
 
     # --- phase 2: ring all-gather (quantized wire) ---
     q, s = _quant(partial, block, quantize)
-    q, s = q.reshape(c, G, chunk), s.reshape(c, G, -1)
-    out = torch.zeros((c, G, G, chunk), dtype=torch.float32, device=x.device)
-    out[:, me, me] = _dequant(q.reshape(-1, block), s.reshape(-1), partial.shape)
+    q, s = q.reshape(c, gl, chunk), s.reshape(c, gl, -1)
+    out = torch.zeros((c, gl, G, chunk), dtype=torch.float32, device=x.device)
+    out[:, li, me] = _dequant(q.reshape(-1, block), s.reshape(-1), partial.shape)
     for k in range(G - 1):
-        q = torch.roll(q, shifts=1, dims=1)
-        s = torch.roll(s, shifts=1, dims=1)
+        q, s = span.shift(q, s)
         val = _dequant(q.reshape(-1, block), s.reshape(-1), partial.shape)
-        out[:, me, (me - 1 - k) % G] = val
-    return out[..., :rc].reshape(c, G, G * rc)[..., :n_orig], new_err
+        out[:, li, (me - 1 - k) % G] = val
+    return out[..., :rc].reshape(c, gl, G * rc)[..., :n_orig], new_err
 
 
-def _sum_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize):
+def _sum_body(x, err, *, G, rc, chunk, block, n_orig, mode, quantize, span):
     """Degenerate (G == 1 of a self group) and multi-axis groups: entry
     quantization + sum (same numerics contract, uncompressed wire),
-    as at quant_ring.py:229-245. x: (C, G, n_orig)."""
-    c = x.shape[0]
+    as at quant_ring.py:229-245. x: (C, G_l, n_orig). Across processes the
+    G dequantized float rows are gathered and summed as one process sums
+    them, so the result is the same bits (the entry quantization and its
+    residual stay with the process that holds the rank)."""
+    c, gl = x.shape[:2]
     xhat, new_err = _entry(x, err, G, rc, chunk, block, quantize)
-    red = xhat.sum(dim=1, keepdim=True).expand_as(xhat) if G > 1 else xhat
-    red_chunks = red.reshape(c, G, G, chunk)
+    if G > 1:
+        red = span.gather(xhat).sum(dim=1, keepdim=True).expand(c, gl, G * chunk)
+    else:
+        red = xhat
+    red_chunks = red.reshape(c, gl, G, chunk)
     if mode == "reduce_scatter":
-        me = torch.arange(G, device=x.device)
-        return red_chunks[:, me, me, :rc], new_err
-    return red_chunks[..., :rc].reshape(c, G, G * rc)[..., :n_orig], new_err
+        li = torch.arange(gl, device=x.device)
+        return red_chunks[:, li, li + span.off, :rc], new_err
+    return red_chunks[..., :rc].reshape(c, gl, G * rc)[..., :n_orig], new_err
 
 
 def inline_body(kind: str, group: ProcessGroup, count: int, block: int, *, config=None,
@@ -265,6 +286,15 @@ def _build_quantized(
                 "quantized collectives support allreduce/reduce_scatter (got %s)", kind)
     mlsl_assert(ring in ("lax", "pallas", "hier"), "quantized ring wire %r is not ported",
                 ring)
+    from mlsl_tpu_torch.comm import transport
+
+    if transport.spans(group):
+        # B4 and the two-tier wire read every member on one device
+        if ring == "hier":
+            raise MLSLError("the compressed two-tier wire over a group that spans processes "
+                            "is ROADMAP A.8b.7")
+        mlsl_assert(ring == "lax", "the fused int8 ring (B4) serves process-local groups "
+                    "only; a spanning group takes the composed ring")
     if ring == "hier":
         from mlsl_tpu_torch.comm.algos import hier
 
@@ -304,15 +334,18 @@ def _build_quantized(
         return pallas_fn, err_len
     g, rc, chunk, err_len = ring_geometry(kind, group, count, block)
     body = _ring_body if (g > 1 and len(group.axes) == 1) else _sum_body
+    # the members this process holds and the ring shift between processes
+    span = transport.span_of(group)
+    box = span.box
 
     def fn(buf: torch.Tensor, err: torch.Tensor):
         mlsl_assert(buf.shape[-1] == count, "buffer count %d != request count %d",
                     buf.shape[-1], count)
         out, new_err = body(
-            group_view(buf, group), group_view(err, group),
+            group_view(buf, box), group_view(err, box),
             G=g, rc=rc, chunk=chunk, block=block, n_orig=count, mode=kind,
-            quantize=quantize,
+            quantize=quantize, span=span,
         )
-        return group_unview(out, group), group_unview(new_err, group)
+        return group_unview(out, box), group_unview(new_err, box)
 
     return fn, err_len

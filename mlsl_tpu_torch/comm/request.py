@@ -51,6 +51,13 @@ next. The compressed wires (request.py:183-430 of the JAX package):
   (``algo`` "hier": ``config.hier_dcn_codec`` on the DCN hop, a residual
   over each member's own shard, ``_err_layout`` "hier").
 
+Over a group that spans processes every compressed wire runs on this
+process's members, their residuals kept here, and only the compressed rows
+cross (comm/transport.py's ring shift): the int8 ring composed (B4 and the
+two-tier wire serve process-local groups), the sparse wire and the codec
+ring. A chunked request runs its chunks' programs in chunk order, which is
+every process's order.
+
 ``codec_name`` and ``codec_source`` name the resolved codec and where it came
 from; every start adds the compressed image of the payload to the codec's
 wire bytes (``stats.record_codec_wire``). ``demote_codec`` (the guardrail's
@@ -254,13 +261,13 @@ class CommRequest:
     def setup(self) -> None:
         d = self.desc
         # across processes: a spanning request is never deferred (the hop
-        # order, comm/transport.py), and the compressed wires build on the
-        # box of a process-local group
+        # order, comm/transport.py); the compressed wires build on the box
+        # of a process-local group, and over a spanning one run their
+        # members' rows here with the compressed rows crossing by the ring
+        # shift (the composed wires only: the selection keeps B4 and the
+        # two-tier wire off a spanning group)
         self._spans = d.group.topology.num_procs > 1 and d.group.spans
         self._bgroup = d.group.localize() or d.group
-        if self._spans and d.compression != CompressionType.NONE:
-            raise MLSLError(f"a {CompressionType(d.compression).name} {d.kind} over a group "
-                            "that spans processes is ROADMAP A.8b")
         mlsl_assert(d.compression in (CompressionType.NONE, CompressionType.QUANTIZATION,
                                       CompressionType.TOPK),
                     "compression %s is not supported", CompressionType(d.compression).name)

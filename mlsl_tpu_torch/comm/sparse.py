@@ -14,8 +14,12 @@ Wire formats, over the group's (C, G, n) view (comm/collectives.py):
   card too;
 - ring (at or above ``RING_THRESHOLD``, or forced on a single-axis group):
   each member's pair travels the ring, ``torch.roll`` on the member dim as
-  ``lax.ppermute``, and each arrival is scatter-added into the member's own
-  sparse vector.
+  ``lax.ppermute`` (the ring shift across processes, comm/transport.py),
+  and each arrival is scatter-added into the member's own sparse vector.
+
+Over a group that spans processes each process runs its members' rows; the
+(value, index) pairs cross, never a dense row, and the sums are the one
+process's bits.
 
 Exactness contract: the result is the sum of every member's top-k-sparsified
 contribution. The two formats add an element's terms in different orders
@@ -34,6 +38,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from mlsl_tpu_torch.codecs import _stable_topk
+from mlsl_tpu_torch.comm import transport
 from mlsl_tpu_torch.comm.collectives import group_key, group_unview, group_view
 from mlsl_tpu_torch.comm.mesh import ProcessGroup
 from mlsl_tpu_torch.log import mlsl_assert
@@ -45,32 +50,37 @@ _cache: dict = {}
 RING_THRESHOLD = 16
 
 
-def _sparse_body(x, err, *, k: int, n: int, recv_count: Optional[int], use_ring: bool):
-    """(C, G, n), (C, G, n) -> (result, new_err): the dense sum of the
+def _sparse_body(x, err, *, k: int, n: int, recv_count: Optional[int], use_ring: bool,
+                 span):
+    """(C, G_l, n), (C, G_l, n) -> (result, new_err): the dense sum of the
     sparsified contributions (allreduce), or member i's slice i of it
-    (reduce_scatter, ``recv_count`` set)."""
-    c, g, _ = x.shape
+    (reduce_scatter, ``recv_count`` set), for the members [off, off + G_l)
+    of the group (``span``, comm/transport.py; all of them in one
+    process). Across processes the (value, index) pairs cross: on the ring
+    by the ring shift, in the all-gather format gathered in member order."""
+    c, gl, _ = x.shape
+    g = span.g
     xq = x.to(torch.float32) + err
-    idx = _stable_topk(xq.abs().reshape(c * g, n), k).reshape(c, g, k)
+    idx = _stable_topk(xq.abs().reshape(c * gl, n), k).reshape(c, gl, k)
     vals = xq.gather(2, idx)
     sparse_mine = torch.zeros_like(xq).scatter_(2, idx, vals)
     new_err = xq - sparse_mine
     if g > 1 and use_ring:
         out, v, i = sparse_mine.clone(), vals, idx
         for _ in range(g - 1):
-            v = torch.roll(v, shifts=1, dims=1)          # member j -> j + 1
-            i = torch.roll(i, shifts=1, dims=1)
+            v, i = span.shift(v, i)                      # member j -> j + 1
             out.scatter_add_(2, i, v)
     elif g > 1:
+        all_idx, all_vals = span.gather(idx), span.gather(vals)
         acc = torch.zeros((c, 1, n), dtype=torch.float32, device=x.device)
         for j in range(g):
-            acc.scatter_add_(2, idx[:, j:j + 1], vals[:, j:j + 1])
-        out = acc.expand(c, g, n)
+            acc.scatter_add_(2, all_idx[:, j:j + 1], all_vals[:, j:j + 1])
+        out = acc.expand(c, gl, n)
     else:
         out = sparse_mine
     if recv_count is not None:
-        me = torch.arange(g, device=x.device)
-        out = out.reshape(c, g, g, recv_count)[:, me, me]
+        li = torch.arange(gl, device=x.device)
+        out = out.reshape(c, gl, g, recv_count)[:, li, li + span.off]
     return out, new_err
 
 
@@ -100,17 +110,21 @@ def build_sparse_collective(kind: str, group: ProcessGroup, count: int, ratio: f
         mlsl_assert(count % g == 0, "reduce_scatter count %d %% group %d", count, g)
         recv_count = count // g
     k = max(1, int(count * ratio))
-    key = (kind, group_key(group), count, k, use_ring)
+    key = (kind, group_key(group), group.topology.num_procs, group.topology.proc_index, count, k,
+           use_ring)
     fn = _cache.get(key)
     if fn is not None:
         return fn, count
+    span = transport.span_of(group)
+    box = span.box
 
     def fn(buf: torch.Tensor, err: torch.Tensor):
         mlsl_assert(buf.shape[-1] == count, "buffer count %d != request count %d",
                     buf.shape[-1], count)
-        out, new_err = _sparse_body(group_view(buf, group), group_view(err, group), k=k,
-                                    n=count, recv_count=recv_count, use_ring=use_ring)
-        return group_unview(out, group), group_unview(new_err, group)
+        out, new_err = _sparse_body(group_view(buf, box), group_view(err, box), k=k,
+                                    n=count, recv_count=recv_count, use_ring=use_ring,
+                                    span=span)
+        return group_unview(out, box), group_unview(new_err, box)
 
     from mlsl_tpu_torch.comm.quant_ring import chaos_roundtrip
 

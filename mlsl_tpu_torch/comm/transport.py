@@ -14,7 +14,7 @@ calls its collectives.
 The spanning forms (``build_spanning``), over the local view (C_l, G_l, n)
 of a group -- the C_l instances this process holds, G_l of their members
 each -- and the subgroup of processes that hold the same instances
-(``ProcessGroup.process_partition``), in member order:
+(``ProcessGroup.process_partition``), in member order (``Span``):
 
 - allreduce, reduce: a local reduction of the G_l members, ``all_reduce``
   over the subgroup, the result to every local member;
@@ -22,12 +22,24 @@ each -- and the subgroup of processes that hold the same instances
   subgroup, each local member its slice: the local members are an aligned
   run of the group's members, so a process's chunk is exactly their slices;
 - allgather: ``all_gather_into_tensor`` of the local members' rows;
-- every other kind (bcast, gather, scatter, alltoall, allgatherv, sendrecv):
-  the assembled form, the group's rows gathered over the subgroup, the
-  single-process body run on the assembled (C_l, G, n) view, the local
-  members' rows kept. It moves G x the bytes of a direct exchange (standing
-  difference "the assembled form"; a direct ``all_to_all_single`` is A.8b).
-  A color group's and alltoallv's assembled form gathers the world's rows.
+- alltoall: ``all_to_all_single``, each process's members' blocks for
+  another process's members sent to it, its own kept (``all_to_all``);
+- bcast: one ``broadcast`` of the root's rows from the process that holds
+  the root;
+- sendrecv: a pair whose two ends sit in one process is a local copy; the
+  rows one process sends another go as one ``isend`` / ``irecv``
+  (``exchange``);
+- gather, scatter and allgatherv: the assembled form, the group's rows
+  gathered over the subgroup, the single-process body run on the assembled
+  (C_l, G, n) view, the local members' rows kept (standing difference "the
+  assembled form"). A color group's and alltoallv's assembled form gathers
+  the world's rows.
+
+The compressed wires (comm/quant_ring.py, comm/sparse.py, comm/codec.py)
+run their one-process bodies over the local view with the ring shift
+(``ring_shift``) in place of ``torch.roll`` on the member dim: a local roll
+plus one boundary exchange, the last local member's rows to the next
+process of the subgroup's ring. Their rows cross in compressed form.
 
 Float sums that cross processes add in another order than one process's
 member loop (a local sum, then the backend's), within 1e-6 relative; integer
@@ -45,15 +57,22 @@ Traps, each guarded by a test (tests/test_torch_transport.py):
 3. torch 2.13 deprecates ``all_gather_into_tensor`` and
    ``reduce_scatter_tensor`` for ``*_single`` names that 2.11 lacks: the
    old names are used, their deprecation warning silenced here.
+4. A process must destroy its group before it exits (``bootstrap``
+   registers ``shutdown`` at exit).
+5. A compressed ring issues 2(G - 1) ring shifts a round and a chunked
+   request one round a chunk: every process issues them in the same order
+   and count, because the bodies loop over the global G and the chunks in
+   order, and the Dispatcher never defers a spanning request.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import socket
 import time
 import warnings
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -79,7 +98,8 @@ _WORLD = ProcessWorld()
 #: partition -> {process: its subgroup's handle}
 _SUBGROUPS: Dict[tuple, dict] = {}
 
-#: per hop kind: calls, bytes this process handed over, host seconds
+#: per hop kind: calls, bytes this process handed the backend, host seconds,
+#: of them the staging copies' and the wire's, and the bytes by dtype
 HOP_STATS: Dict[str, list] = {}
 
 
@@ -97,8 +117,14 @@ def reset_stats() -> None:
 
 
 def hop_totals() -> dict:
-    """{kind: {"calls", "bytes", "s"}} since the last reset."""
-    return {k: {"calls": v[0], "bytes": v[1], "s": v[2]} for k, v in HOP_STATS.items()}
+    """{kind: {"calls", "bytes", "s", "stage_s", "wire_s", "dtypes"}} since
+    the last reset: ``s`` is the hop's host seconds, ``stage_s`` the part
+    around the backend's call (packing a tuple into one message, and for
+    gloo a CUDA tensor's copies to and from the host), ``wire_s`` the
+    backend's call (on NCCL its enqueue), ``dtypes`` the bytes by the dtype
+    that crossed."""
+    return {k: {"calls": v[0], "bytes": v[1], "s": v[2], "stage_s": v[3], "wire_s": v[4],
+                "dtypes": dict(v[5])} for k, v in HOP_STATS.items()}
 
 
 # -- bootstrap -------------------------------------------------------------------
@@ -152,12 +178,19 @@ def bootstrap(coordinator_address: str, num_processes: int, process_id: int,
     dist.all_gather_object(hosts, socket.gethostname())
     _WORLD.count, _WORLD.index, _WORLD.backend = num_processes, process_id, backend
     _WORLD.hosts, _WORLD.up = tuple(str(h) for h in hosts), True
+    # trap 4: a process that exits with its gloo group still up lets the
+    # interpreter's teardown destroy the group's threads unjoined, and C++
+    # aborts it ("terminate called without an active exception") after its
+    # work is done; jax.distributed's client shuts down at exit the same way
+    atexit.unregister(shutdown)
+    atexit.register(shutdown)
     return _WORLD
 
 
 def shutdown() -> None:
-    """Destroy the process group (a test's teardown; ``Environment.finalize``
-    keeps it up, as the JAX package keeps ``jax.distributed``)."""
+    """Destroy the process group: a test's teardown, and at the process's
+    exit (trap 4). ``Environment.finalize`` keeps it up, as the JAX package
+    keeps ``jax.distributed``."""
     if _WORLD.up:
         import torch.distributed as dist
 
@@ -210,100 +243,303 @@ def _staged(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def _record(kind: str, nbytes: int, t0: float) -> None:
-    rec = HOP_STATS.setdefault(kind, [0, 0, 0.0])
-    rec[0] += 1
-    rec[1] += int(nbytes)
-    rec[2] += time.perf_counter() - t0
+class _Clock:
+    """A hop's host seconds in three parts: staging in, the wire, staging
+    back (``wire()`` and ``back()`` mark the boundaries)."""
+
+    def __init__(self):
+        self.t0 = self.t1 = self.t2 = time.perf_counter()
+
+    def wire(self) -> None:
+        self.t1 = self.t2 = time.perf_counter()
+
+    def back(self) -> None:
+        self.t2 = time.perf_counter()
+
+    def record(self, kind: str, tensors: Sequence[torch.Tensor]) -> None:
+        t3 = time.perf_counter()
+        rec = HOP_STATS.setdefault(kind, [0, 0, 0.0, 0.0, 0.0, {}])
+        rec[0] += 1
+        rec[2] += t3 - self.t0
+        rec[3] += (self.t1 - self.t0) + (t3 - self.t2)
+        rec[4] += self.t2 - self.t1
+        for t in tensors:
+            nb = t.numel() * t.element_size()
+            rec[1] += nb
+            name = str(t.dtype).replace("torch.", "")
+            rec[5][name] = rec[5].get(name, 0) + nb
+
+
+def _peer(group, index: int) -> int:
+    """The global rank of the subgroup's ``index``-th process."""
+    import torch.distributed as dist
+
+    return dist.get_global_rank(group, int(index)) if group is not None else int(index)
 
 
 def all_reduce(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
     """-> the reduction of ``t`` over the subgroup, on ``t``'s device."""
     import torch.distributed as dist
 
-    t0 = time.perf_counter()
+    clk = _Clock()
     x = _staged(t).clone()
+    clk.wire()
     dist.all_reduce(x, op=_op(op), group=group)
-    _record("all_reduce", x.numel() * x.element_size(), t0)
-    return x.to(t.device)
+    clk.back()
+    out = x.to(t.device)
+    clk.record("all_reduce", (x,))
+    return out
 
 
 def reduce_scatter(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
     """``t`` (P_s, *chunk) -> this process's chunk of the reduction."""
     import torch.distributed as dist
 
-    t0 = time.perf_counter()
+    clk = _Clock()
     x = _staged(t)
     out = x.new_empty(x.shape[1:])
+    clk.wire()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         dist.reduce_scatter_tensor(out.view(-1), x.view(-1), op=_op(op), group=group)
-    _record("reduce_scatter", x.numel() * x.element_size(), t0)
-    return out.to(t.device)
+    clk.back()
+    res = out.to(t.device)
+    clk.record("reduce_scatter", (x,))
+    return res
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """-> (P_s, *t.shape): every process's ``t``, in process order."""
     import torch.distributed as dist
 
-    t0 = time.perf_counter()
+    clk = _Clock()
     x = _staged(t)
     n = dist.get_world_size(group)
     out = x.new_empty((n, *x.shape))
+    clk.wire()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         dist.all_gather_into_tensor(out.view(-1), x.view(-1), group=group)
-    _record("all_gather", x.numel() * x.element_size(), t0)
-    return out.to(t.device)
+    clk.back()
+    res = out.to(t.device)
+    clk.record("all_gather", (x,))
+    return res
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """-> process ``src``'s ``t`` (its index in the subgroup)."""
     import torch.distributed as dist
 
-    t0 = time.perf_counter()
+    clk = _Clock()
     x = _staged(t).clone()
-    dist.broadcast(x, src=dist.get_global_rank(group, int(src)) if group is not None
-                   else int(src), group=group)
-    _record("broadcast", x.numel() * x.element_size(), t0)
-    return x.to(t.device)
+    clk.wire()
+    dist.broadcast(x, src=_peer(group, src), group=group)
+    clk.back()
+    out = x.to(t.device)
+    clk.record("broadcast", (x,) if dist.get_rank(group) == int(src) else ())
+    return out
+
+
+def all_to_all(t: torch.Tensor, index: int, group=None) -> torch.Tensor:
+    """``t`` (P_s, *block): row q for the subgroup's process q -> (P_s,
+    *block), row q from process q. This process's own row stays here: the
+    backend gets only the rows that cross (``all_to_all_single`` with a
+    zero split for itself)."""
+    import torch.distributed as dist
+
+    ps, index = t.shape[0], int(index)
+    if ps == 1:
+        return t.clone()
+    clk = _Clock()
+    others = [q for q in range(ps) if q != index]
+    x = _staged(t[others].reshape(-1))
+    m = t[0].numel()
+    splits = [0 if q == index else m for q in range(ps)]
+    got = x.new_empty((ps - 1) * m)
+    clk.wire()
+    dist.all_to_all_single(got, x, output_split_sizes=splits, input_split_sizes=splits,
+                           group=group)
+    clk.back()
+    out = t.new_empty(t.shape)
+    out[others] = got.to(t.device).view(ps - 1, *t.shape[1:])
+    out[index] = t[index]
+    clk.record("all_to_all", (x,))
+    return out
+
+
+def _pack(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The tensors' bytes, one flat uint8 tensor (one message for a tuple)."""
+    return torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in ts])
+
+
+def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor]) -> list:
+    """``_pack``'s inverse, shaped and typed as ``like``."""
+    out, at = [], 0
+    for t in like:
+        nb = t.numel() * t.element_size()
+        # a copy: a slice off the dtype's alignment cannot be re-viewed
+        out.append(buf[at:at + nb].clone().view(t.dtype).reshape(t.shape))
+        at += nb
+    return out
+
+
+def exchange(sends: Dict[int, Sequence[torch.Tensor]],
+             recvs: Dict[int, Sequence[torch.Tensor]], group=None,
+             kind: str = "send_recv") -> Dict[int, list]:
+    """Point to point over the subgroup: ``sends[q]``'s tensors go to its
+    process q as one message, and from each process q one message arrives,
+    shaped as ``recvs[q]``'s tensors (templates, not written). Every send
+    and receive is posted at once (``batch_isend_irecv``), so no process
+    blocks on a send before its receives are posted. -> {q: tensors}."""
+    import torch.distributed as dist
+
+    clk = _Clock()
+    out_bufs = {q: _staged(_pack(ts)) for q, ts in sends.items()}
+    dev = next(iter(recvs.values()))[0].device if recvs else None
+    in_bufs = {}
+    for q, ts in recvs.items():
+        nb = sum(t.numel() * t.element_size() for t in ts)
+        host = ts[0].is_cuda and _WORLD.backend == "gloo"
+        in_bufs[q] = torch.empty(nb, dtype=torch.uint8, device="cpu" if host else ts[0].device)
+    ops = [dist.P2POp(dist.isend, b, _peer(group, q), group) for q, b in out_bufs.items()]
+    ops += [dist.P2POp(dist.irecv, b, _peer(group, q), group) for q, b in in_bufs.items()]
+    clk.wire()
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    clk.back()
+    got = {q: _unpack(b.to(dev), recvs[q]) for q, b in in_bufs.items()}
+    clk.record(kind, [t for ts in sends.values() for t in ts])
+    return got
+
+
+def ring_shift(ts: Sequence[torch.Tensor], group, index: int, size: int) -> tuple:
+    """``torch.roll(t, 1, dims=1)`` of each (C_l, G_l, ...) tensor over a
+    group whose members [off, off + G_l) of each instance sit here and the
+    rest in the ``size`` processes of the subgroup, in member order: member
+    i's rows move to member i + 1. A local roll, then the last local
+    member's rows go to the next process of the ring and the previous
+    process's arrive in the first local member's place (one message for
+    the tuple; with one process in the subgroup, nothing crosses)."""
+    rolled = [torch.roll(t, shifts=1, dims=1) for t in ts]
+    if size == 1:
+        return tuple(rolled)
+    edge = [t[:, -1] for t in ts]
+    nxt, prv = (int(index) + 1) % size, (int(index) - 1) % size
+    got = exchange({nxt: edge}, {prv: edge}, group, kind="ring_shift")[prv]
+    for r, g in zip(rolled, got):
+        r[:, 0] = g
+    return tuple(rolled)
 
 
 def barrier(group=None) -> None:
     import torch.distributed as dist
 
-    t0 = time.perf_counter()
+    clk = _Clock()
+    clk.wire()
     dist.barrier(group=group)
-    _record("barrier", 0, t0)
+    clk.back()
+    clk.record("barrier", ())
 
 
 # -- the spanning forms ---------------------------------------------------------------
 
 
-def build_spanning(kind: str, group, world_body: Callable, **kw) -> Callable:
-    """-> fn: this process's box (R_l, D_l, S_l, M_l, n) -> its rows of the
-    collective's result, for a ``group`` that spans processes.
-    ``world_body`` is the single-process function over the whole grid, which
-    the world form runs on the assembled world."""
-    from mlsl_tpu_torch.comm import collectives
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """This process's piece of an axis group: the group's axes over its box
+    (``box``), whose view (C_l, G_l, n) holds the members [off, off + G_l)
+    of each of the C_l instances (G in all), and the ``size`` processes of
+    its subgroup (``partition``'s, this one at ``index``) that hold the
+    rest, in member order. ``local_span`` is the one-process form: the box
+    is the group, nothing crosses. The subgroup is built at the first hop,
+    as every process reaches it in program order (trap 1), so a build
+    makes no ``torch.distributed`` call."""
+
+    box: object
+    g: int
+    gl: int
+    off: int
+    partition: Optional[tuple] = None
+    index: int = 0
+    size: int = 1
+
+    @property
+    def crosses(self) -> bool:
+        return self.size > 1
+
+    @property
+    def handle(self):
+        return subgroup(self.partition) if self.crosses else None
+
+    def shift(self, *ts: torch.Tensor) -> tuple:
+        """Member i's rows to member i + 1 (``torch.roll`` in one process)."""
+        if not self.crosses:
+            return tuple(torch.roll(t, shifts=1, dims=1) for t in ts)
+        return ring_shift(ts, self.handle, self.index, self.size)
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """(C_l, G_l, ...) -> (C_l, G, ...): every member's rows, in member
+        order (itself in one process)."""
+        if not self.crosses:
+            return y
+        c = y.shape[0]
+        return all_gather(y, self.handle).transpose(0, 1).reshape(c, self.g, *y.shape[2:])
+
+
+def spans(group) -> bool:
+    """``group`` spans processes in a world of more than one."""
+    return group.topology.num_procs > 1 and group.spans
+
+
+def span_of(group) -> Span:
+    """The Span of an axis group: ``local_span`` unless it spans processes,
+    else its subgroup (built at first use, on every process: trap 1)."""
     from mlsl_tpu_torch.comm.mesh import GRID_AXES, ProcessGroup
 
+    if not spans(group):
+        return local_span(group)
     mlsl_assert(_WORLD.up, "a group spans processes but no process world is up")
-    topo = group.topology
-    if group.colors is not None or kind == "alltoallv":
-        return _world_form(topo, world_body)
+    mlsl_assert(group.colors is None, "a color group spanning processes has no Span")
     mlsl_assert(list(group.axes) == sorted(group.axes, key=GRID_AXES.index),
                 "a spanning group's axes must be in grid order (major -> minor), got %s",
                 group.axes)
+    topo = group.topology
     partition = group.process_partition()
     part = next(p for p in partition if topo.proc_index in p)
-    handle = subgroup(partition)
     # the group's axes over this process's box: the local view's layout
     box = ProcessGroup(topo.local_topology(), group.axes)
     g, gl, ps = group.size, box.size, len(part)
     mlsl_assert(gl * ps == g, "the local members (%d) times the processes (%d) are not "
                 "the group (%d)", gl, ps, g)
-    off = part.index(topo.proc_index) * gl
+    index = part.index(topo.proc_index)
+    return Span(box=box, g=g, gl=gl, off=index * gl, partition=partition, index=index,
+                size=ps)
+
+
+def local_span(group) -> Span:
+    """A process-local group's Span (itself with one process)."""
+    box = group.localize() or group
+    g = 1 if box.is_self else box.size
+    return Span(box=box, g=g, gl=g, off=0)
+
+
+def build_spanning(kind: str, group, world_body: Callable, *, direct: bool = True,
+                   **kw) -> Callable:
+    """-> fn: this process's box (R_l, D_l, S_l, M_l, n) -> its rows of the
+    collective's result, for a ``group`` that spans processes.
+    ``world_body`` is the single-process function over the whole grid, which
+    the world form runs on the assembled world. ``direct=False`` takes the
+    assembled form for alltoall, bcast and sendrecv too (the direct forms'
+    reference)."""
+    from mlsl_tpu_torch.comm import collectives
+
+    mlsl_assert(_WORLD.up, "a group spans processes but no process world is up")
+    topo = group.topology
+    if group.colors is not None or kind == "alltoallv":
+        return _world_form(topo, world_body)
+    sp = span_of(group)
+    box, g, gl, ps, off = sp.box, sp.g, sp.gl, sp.size, sp.off
     op = kw.get("op")
 
     def view(x):
@@ -315,7 +551,7 @@ def build_spanning(kind: str, group, world_body: Callable, **kw) -> Callable:
     if kind in ("allreduce", "reduce"):
         def fn(x):
             y = view(x)
-            s = all_reduce(collectives._reduce(y, op or ReductionType.SUM), handle, op)
+            s = all_reduce(collectives._reduce(y, op or ReductionType.SUM), sp.handle, op)
             return unview(s.expand_as(y))
     elif kind == "reduce_scatter":
         rc = int(kw["recv_count"])
@@ -326,23 +562,72 @@ def build_spanning(kind: str, group, world_body: Callable, **kw) -> Callable:
             mlsl_assert(n == g * rc, "reduce_scatter count %d != group %d * recv_count %d",
                         n, g, rc)
             s = collectives._reduce(y, op or ReductionType.SUM).reshape(c, ps, gl * rc)
-            mine = reduce_scatter(s.transpose(0, 1).contiguous(), handle, op)
+            mine = reduce_scatter(s.transpose(0, 1).contiguous(), sp.handle, op)
             return unview(mine.reshape(c, gl, rc))
     elif kind == "allgather":
         def fn(x):
             y = view(x)
             c, _, n = y.shape
-            rows = all_gather(y.reshape(c, gl * n), handle)
+            rows = all_gather(y.reshape(c, gl * n), sp.handle)
             out = rows.transpose(0, 1).reshape(c, 1, g * n)
             return unview(out.expand(c, gl, g * n))
+    elif kind == "alltoall" and direct:
+        sc = int(kw["send_count"])
+
+        def fn(x):
+            y = view(x)
+            c, _, n = y.shape
+            mlsl_assert(n == g * sc, "alltoall count %d != group %d * send_count %d", n, g, sc)
+            # [process q, instance, local sender, q's local receiver, block]
+            send = y.reshape(c, gl, ps, gl, sc).permute(2, 0, 1, 3, 4).contiguous()
+            got = all_to_all(send, sp.index, sp.handle)
+            # member j receives chunk j of every member, in member order
+            return unview(got.permute(1, 3, 0, 2, 4).reshape(c, gl, n))
+    elif kind == "bcast" and direct:
+        root = int(kw["root"])
+        mlsl_assert(0 <= root < g, "root member index %d out of range for group size %d",
+                    root, g)
+        src = root // gl
+
+        def fn(x):
+            y = view(x)
+            rows = y[:, root - off] if src == sp.index else y[:, 0]
+            got = broadcast(rows.contiguous(), src, sp.handle)
+            return unview(got.unsqueeze(1).expand_as(y))
+    elif kind == "sendrecv" and direct:
+        pairs = [(int(a), int(b)) for a, b in kw["pairs"]]
+        mlsl_assert(all(0 <= v < g for pr in pairs for v in pr),
+                    "SendRecvList pairs %s out of range for group size %d", pairs, g)
+        mlsl_assert(len({b for _, b in pairs}) == len(pairs),
+                    "SendRecvList destinations must be unique")
+        mine = range(off, off + gl)
+        # rows this process sends each other process, and receives, in pair order
+        out_pairs: Dict[int, list] = {}
+        in_pairs: Dict[int, list] = {}
+        for a, b in pairs:
+            pa, pb = a // gl, b // gl
+            if pa == sp.index and pb != sp.index:
+                out_pairs.setdefault(pb, []).append(a - off)
+            if pb == sp.index and pa != sp.index:
+                in_pairs.setdefault(pa, []).append(b - off)
+        local = [(a - off, b - off) for a, b in pairs if a in mine and b in mine]
+
+        def fn(x):
+            y = view(x)
+            out = torch.zeros_like(y)
+            got = exchange({q: [y[:, idx]] for q, idx in out_pairs.items()},
+                           {q: [y[:, idx]] for q, idx in in_pairs.items()}, sp.handle)
+            for q, idx in in_pairs.items():
+                out[:, idx] = got[q][0]
+            for a, b in local:
+                out[:, b] = y[:, a]
+            return unview(out)
     else:
         body = collectives._BODIES[kind]
 
         def fn(x):
             y = view(x)
-            c, _, n = y.shape
-            full = all_gather(y, handle).transpose(0, 1).reshape(c, g, n)
-            return unview(body(full, **kw)[:, off:off + gl])
+            return unview(body(sp.gather(y), **kw)[:, off:off + gl])
     return fn
 
 

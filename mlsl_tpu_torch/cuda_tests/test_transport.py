@@ -5,8 +5,12 @@ through host memory): each hop returns a CUDA tensor bit for bit its plain
 version (a one-member reduction, gather or broadcast is the tensor itself),
 and the spanning forms -- the two-level allreduce and reduce_scatter, the
 allgather and the assembled form of the other kinds -- equal the
-single-process collective on a (4, 2) grid's groups bit for bit. The
-process group is destroyed after each test.
+single-process collective on a (4, 2) grid's groups bit for bit, the direct
+alltoall, bcast and sendrecv their assembled form too. The ring shift of a
+tuple of CUDA tensors is ``torch.roll`` (nothing crosses in one process), and
+one composed int8 ring round on a Span launches B1 once a hop, bit for bit
+the round on ``quantize_blocks_ref``. The process group is destroyed after
+each test.
 """
 
 import socket
@@ -69,3 +73,54 @@ def test_cuda_spanning_forms_match_the_collective(backend):
             span = transport.build_spanning(
                 kind, group, collectives._build_raw(kind, group, dict(kw)), **kw)(buf)
             assert span.is_cuda and torch.equal(span, plain), f"{backend} {kind} {axes}"
+
+
+def test_cuda_ring_shift_is_roll(backend):
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f = torch.randn(2, 8, 33, device="cuda", generator=gen)
+    f[:, :, 0] = -0.0
+    q = torch.randint(-127, 128, (2, 8, 256), device="cuda", generator=gen).to(torch.int8)
+    span = transport.span_of(ProcessGroup(Topology(8, 1, 8), ("data",)))
+    for got in (transport.ring_shift((f, q), None, 0, 1), span.shift(f, q)):
+        assert got[0].is_cuda and torch.equal(got[0].view(torch.int32),
+                                              torch.roll(f, 1, dims=1).view(torch.int32))
+        assert torch.equal(got[1], torch.roll(q, 1, dims=1))
+
+
+def test_cuda_direct_exchanges_match_the_assembled_form(backend):
+    topo = Topology(4, 2, 8)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    buf = torch.randn(*topo.grid_shape, 1024, device="cuda", generator=gen)
+    for axes in (("data",), ("model",)):
+        group = ProcessGroup(topo, axes)
+        g = group.size
+        for kind, kw in (("alltoall", {"send_count": 1024 // g}), ("bcast", {"root": g - 1}),
+                         ("sendrecv", {"pairs": ((g - 1, 0), (0, g // 2))})):
+            plain = collectives.build_raw(kind, group, **kw)(buf)
+            direct = transport.build_spanning(kind, group, None, **kw)(buf)
+            asm = transport.build_spanning(kind, group, None, direct=False, **kw)(buf)
+            assert direct.is_cuda and torch.equal(direct, asm) and torch.equal(direct, plain), \
+                f"{backend} {kind} {axes}"
+
+
+def test_cuda_composed_int8_round_on_b1(backend):
+    """One int8 allreduce round of the composed ring over a Span: B1 on the
+    entry, every hop and the all-gather's quantize (G + 1 launches), the
+    result and the residual bit for bit the round on its plain version."""
+    from mlsl_tpu_torch.comm import quant_ring
+    from mlsl_tpu_torch.ops import quant_kernels as qk
+
+    topo = Topology(8, 1, 8)
+    group = ProcessGroup(topo, ("data",))
+    n = 8 * 3 * 256 + 5
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(*topo.grid_shape, n, device="cuda", generator=gen) * 3.0
+    fn, el = quant_ring.build_quantized_collective("allreduce", group, n, 256)
+    ref, _ = quant_ring.build_quantized_collective("allreduce", group, n, 256, plain=True)
+    err = torch.randn(*topo.grid_shape, el, device="cuda", generator=gen) * 0.01
+    qk.reset_counts()
+    got, got_err = fn(x, err)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES["quantize_blocks"] == group.size + 1
+    want, want_err = ref(x, err)
+    assert torch.equal(got, want) and torch.equal(got_err, want_err)

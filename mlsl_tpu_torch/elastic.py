@@ -308,22 +308,39 @@ class ElasticCoordinator:
 
     def shed(self, trainer, make_trainer, replica: int, step: int = 0):
         """Hand a confirmed straggler replica to the shrink machinery as a
-        synthetic DEVICE_LOSS. The port's world is one process, so the id is
-        the replica's position in the active world (the straggler sentinel's
-        numbering). Raises MLSLError when the replica names no active rank or
-        the shrink refuses; the caller keeps the full world."""
+        synthetic DEVICE_LOSS. ``replica`` carries the straggler sentinel's
+        numbering, the feeding process's index (models/train.py). On a world
+        of more than one process it names every active rank that process
+        holds (comm/transport.py's layout: the slow host is the straggler
+        unit), as ``mlsl_tpu/elastic.py:348-356`` does by ``process_index``;
+        with one process, every rank shares index 0, and the id is the
+        replica's position in the active world. Raises MLSLError when the
+        replica names no active rank or the shrink refuses; the caller keeps
+        the full world."""
+        from mlsl_tpu_torch.comm import transport
         from mlsl_tpu_torch.core import stats as stats_mod
 
         active = _active if _active is not None else self.world
-        devs = (active[int(replica)],) if 0 <= int(replica) < len(active) else ()
+        count = transport.world().count
+
+        def proc(r):
+            return transport.owner_of(r, len(self.world), count)
+
+        procs = {proc(r) for r in active}
+        if len(procs) > 1:
+            devs = tuple(r for r in active if proc(r) == int(replica))
+        elif 0 <= int(replica) < len(active):
+            devs = (active[int(replica)],)
+        else:
+            devs = ()
         if not devs:
             stats_mod.record_straggler(
                 "shed_fallbacks",
                 f"replica={replica} names no active capacity (world={len(active)}, "
-                f"processes=1)")
+                f"processes={len(procs)})")
             raise MLSLError(f"straggler shed: replica {replica} does not name active "
-                            f"capacity (active world {len(active)} devices across 1 "
-                            "process(es))")
+                            f"capacity (active world {len(active)} devices across "
+                            f"{len(procs)} process(es))")
         err = MLSLDeviceLossError(f"straggler shed: replica {replica} confirmed slow at step "
                                   f"{step}", devices=devs)
         try:

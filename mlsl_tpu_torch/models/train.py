@@ -245,11 +245,12 @@ class DataParallelTrainer:
                 self.straggler = obs_straggler.StragglerSentinel(
                     skew=cfg.straggler_skew, every=cfg.straggler_every,
                     sustain=cfg.straggler_sustain, shed=cfg.straggler_shed)
-        # the pod rank with a control plane armed, else the one process's 0
-        # (the JAX package's process index)
+        # the pod rank with a control plane armed, else this process's index
+        # (the JAX package's jax.process_index(), train.py:380)
         from mlsl_tpu_torch import control
+        from mlsl_tpu_torch.comm import transport
 
-        self._replica_id = control.replica_id(0)
+        self._replica_id = control.replica_id(transport.world().index)
         self._stall_ms_seen = 0.0   # the FEED stall total at the last sample
         # fuse the whole step when no parameter set communicates
         # (train.py:388-391); an armed gate screens at the gradient boundary,

@@ -208,9 +208,10 @@ class Sentinel:
 
     def screen(self, loss: torch.Tensor, grads) -> Tuple[np.ndarray, np.ndarray]:
         """-> (each rank's float32 squared gradient norm, each rank's local
-        loss), both (W,), from one host read. ``grads``: a tree of per-rank
-        ``(*grid, ...)`` buffers; ``loss``: ``(*grid, ...)``, its first
-        element a rank's loss."""
+        loss), both (W,), from one host read; across processes the world's
+        rows, in rank order, gathered from every process. ``grads``: a tree
+        of per-rank ``(*grid, ...)`` buffers; ``loss``: ``(*grid, ...)``,
+        its first element a rank's loss."""
         sq = None
         for leaf in tree_leaves(grads):
             if leaf.is_floating_point():
@@ -219,7 +220,16 @@ class Sentinel:
         lv = self._rows(loss)[:, 0].float()
         if sq is None:
             sq = torch.zeros_like(lv)
-        host = torch.stack([sq, lv]).cpu().numpy()
+        host = torch.stack([sq, lv])
+        from mlsl_tpu_torch.comm import transport
+
+        w = transport.world()
+        if w.count > 1 and w.up:
+            # every process screens the whole world's rows, the JAX
+            # package's global arrays: one verdict on every process, so the
+            # codec guardrail demotes everywhere at the same round
+            host = transport.all_gather(host).transpose(0, 1).reshape(2, -1)
+        host = host.cpu().numpy()
         return host[0], host[1]
 
     def gate(self, loss, grads, params, step: int) -> bool:

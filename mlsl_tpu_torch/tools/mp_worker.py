@@ -6,7 +6,9 @@ on the port, with its own MLP.
         --device cpu --out DIR [--params params.npz]
 
 Start P of them, one a process id, with the same free port; each holds 8 / P
-of the world's 8 virtual ranks (comm/mesh.py). Phases, in order:
+of the world's 8 virtual ranks (comm/mesh.py). Without ``--port`` (and with
+``--pid 0 --nproc 1``) the worker is the one-process twin, with no
+coordinator. Phases, in order:
 
 - ``basic``: a data-group allreduce (36 on every rank), a (2, 4) grid's
   model-group allgather, a global barrier, ``dcn_aware_devices`` and its
@@ -24,10 +26,24 @@ of the world's 8 virtual ranks (comm/mesh.py). Phases, in order:
 - ``kinds``: every collective kind over a (2, 4) and a (4, 2) grid's groups
   and over color groups, for the caller to hold against one process;
 - ``train``: a DataParallelTrainer step of the MLP on an (8, 1) world fed by
-  ``shard_batch``, and a twin fed by ``shard_batch_local``.
+  ``shard_batch``, and a twin fed by ``shard_batch_local``;
+- ``wires``: every compressed wire (``WIRE_CASES``: the int8 error-feedback
+  ring and its entry-quantization-and-sum body, top-k in both formats, the
+  registry codecs prune and vq, a user codec of callables) over the grids'
+  groups, ``WIRE_ROUNDS`` rounds with the residual carried, each rank's
+  result and residual kept;
+- ``exchanges``: alltoall, bcast and sendrecv over every group of three
+  grids, the direct form (the request's) against the assembled one on the
+  same buffer, bit for bit, with the bytes each handed the backend;
+- ``train_int8``: the MLP's DataParallelTrainer on the int8 ring, two steps;
+- ``guard``: the sentinel's gate over a guarded codec request, with the
+  loss outliers on rank 0 alone: the step of the demotion, which every
+  process must take at the same round.
 
-Each closed form is checked on the ranks this process holds (within 1e-6
-relative for float sums, exactly otherwise). The results are written to
+``graph``, ``resnet`` and ``resnet_int8`` (config 5 on config 4's int8 ring
+in ``RESNET_BUCKET_MB`` buckets) are the card's run (ad). Each closed form is
+checked on the ranks this process holds (within 1e-6 relative for float
+sums, exactly otherwise). The results are written to
 ``DIR/proc<I>.npz`` (keys ``phase/name/rank``) for a caller to hold against a
 single-process run, and the process prints ``proc I OK csum=<sum of the
 trained parameters>`` at the end.
@@ -48,6 +64,49 @@ FM1, FM2 = 16, 8
 FM_SIZE = 4
 WORLD = 8
 TRAIN_B = 16
+#: config 3's gradient buckets (PyTorch DDP's default bucket_cap_mb)
+RESNET_BUCKET_MB = 25
+
+#: the compressed wires of phase ``wires``: (name, grid (data, model), the
+#: group's axes, wire, kind, count a rank). Wires: ``int8`` (the request's
+#: int8 ring, or its sum body on a multi-axis group), ``topk`` (the request's
+#: sparse wire, the all-gather format below 16 members), ``topk_ring`` (the
+#: sparse ring format, built directly), ``prune`` / ``vq`` (registry codecs
+#: pinned by the descriptor), ``f16`` / ``f16_reduce`` (a user codec of
+#: callables, without and with a compressed-domain reduce)
+WIRE_CASES = (
+    ("g8_int8_ar", (8, 1), ("data",), "int8", "allreduce", 1000),
+    ("g8_int8_ar_multiblock", (8, 1), ("data",), "int8", "allreduce", 8 * 3 * 256 + 5),
+    ("g8_int8_rs", (8, 1), ("data",), "int8", "reduce_scatter", 8 * 300),
+    ("g4_int8_ar", (4, 2), ("data",), "int8", "allreduce", 777),
+    ("m4_int8_ar", (2, 4), ("model",), "int8", "allreduce", 513),
+    ("multi_int8_ar", (4, 2), ("data", "model"), "int8", "allreduce", 999),
+    ("multi_int8_rs", (4, 2), ("data", "model"), "int8", "reduce_scatter", 8 * 100),
+    ("g8_topk_ar", (8, 1), ("data",), "topk", "allreduce", 1024),
+    ("g8_topk_rs", (8, 1), ("data",), "topk", "reduce_scatter", 1024),
+    ("g8_topk_ring_ar", (8, 1), ("data",), "topk_ring", "allreduce", 1024),
+    ("g4_topk_ring_rs", (4, 2), ("data",), "topk_ring", "reduce_scatter", 1024),
+    ("g8_prune_ar", (8, 1), ("data",), "prune", "allreduce", 768),
+    ("g8_vq_ar", (8, 1), ("data",), "vq", "allreduce", 768),
+    ("g4_prune_rs", (4, 2), ("data",), "prune", "reduce_scatter", 768),
+    ("g8_f16_ar", (8, 1), ("data",), "f16", "allreduce", 1024),
+    ("g8_f16r_rs", (8, 1), ("data",), "f16_reduce", "reduce_scatter", 2048),
+)
+WIRE_ROUNDS = 3
+TOPK_RATIO = 0.05
+PRUNE_RATIO = 0.25
+#: phase ``wires`` at a size: config 4's int8 allreduce and reduce_scatter
+#: over the 8-rank data group, top-k at config 4's ratio in both formats, and
+#: the prune codec; rows made on the device, kept as digests and samples
+BIG_WIRE_CASES = (
+    ("g8_int8_ar", (8, 1), ("data",), "int8", "allreduce"),
+    ("g8_int8_rs", (8, 1), ("data",), "int8", "reduce_scatter"),
+    ("g8_topk_ar", (8, 1), ("data",), "topk", "allreduce"),
+    ("g8_topk_ring_ar", (8, 1), ("data",), "topk_ring", "allreduce"),
+    ("g8_prune_ar", (8, 1), ("data",), "prune", "allreduce"),
+)
+BIG_TOPK_RATIO = 0.01
+SAMPLE_STRIDE = 4099
 
 
 def rank_fill(p: int, n: int) -> np.ndarray:
@@ -85,6 +144,97 @@ def kind_requests(dist, g: int, n: int, T):
             (f"{gt_name}/alltoallv", lambda b, gt=gt: dist.all_to_allv(
                 b, [[1 + (i + j) % 2 for j in range(g)] for i in range(g)], None, None,
                 None, F, gt)),
+        ]
+    return out
+
+
+def wire_vals(name: str, r: int, n: int) -> dict:
+    """Round ``r``'s rows of a wire case, {rank: (n,) float32}: normal rows
+    of ranks' own scales, shifted by the round, a signed zero every 37th
+    element (a sign flip shows in the bits)."""
+    rng = np.random.default_rng([sum(map(ord, name)), r])
+    x = rng.normal(size=(WORLD, n)) * rng.uniform(0.1, 10.0, size=(WORLD, 1)) + r
+    x = x.astype(np.float32)
+    x[:, ::37] = -0.0
+    return {p: x[p] for p in range(WORLD)}
+
+
+def run_wires(kit, env, save, cases=WIRE_CASES, rounds=WIRE_ROUNDS, fill=None,
+              topk_ratio=TOPK_RATIO) -> None:
+    """The wire cases through either package's front doors (``kit``: its
+    ``types``, ``CommDesc``, ``CommRequest``, ``ProcessGroup``, ``sparse``,
+    ``QuantParams``, ``custom(wire)`` -> the user codec's QuantParams
+    keywords, and ``err(req)`` -> a request's residual), each round's
+    result and residual handed to ``save(key, dist, buf)``. ``fill(name,
+    r, n, dist)`` makes round r's buffer (None: ``wire_vals``'s rows)."""
+    T = kit.types
+    if fill is None:
+        def fill(name, r, n, dist):
+            vals = wire_vals(name, r, n)
+            return dist.make_buffer(lambda p: vals[p], n)
+    for name, shape, axes, wire, kind, n in cases:
+        dist = env.create_distribution(*shape)
+        group = kit.ProcessGroup(dist.topology, axes)
+        g = group.size
+        rc = n // g if kind == "reduce_scatter" else None
+        if wire == "topk_ring":
+            fn, el = kit.sparse.build_sparse_collective(kind, group, n, topk_ratio,
+                                                        use_ring=True)
+            err = dist.make_buffer(lambda p: np.zeros(el, np.float32), el)
+            for r in range(rounds):
+                res, err = fn(fill(name, r, n, dist), err)
+                save(f"wires/{name}/{r}/res", dist, res)
+                save(f"wires/{name}/{r}/err", dist, err)
+            continue
+        if wire.startswith("f16"):
+            env.set_quantization_params(kit.QuantParams(**kit.custom(wire)))
+        env.config.topk_ratio, env.config.prune_ratio = topk_ratio, PRUNE_RATIO
+        try:
+            comp = (T.CompressionType.TOPK if wire == "topk"
+                    else T.CompressionType.QUANTIZATION)
+            req = kit.CommRequest(kit.CommDesc(
+                kind, group, n, T.DataType.FLOAT, op=T.ReductionType.SUM, recv_count=rc,
+                compression=comp, codec=wire if wire in ("prune", "vq") else ""),
+                env.dispatcher, name=name)
+            req.setup()
+            for r in range(rounds):
+                req.start(fill(name, r, n, dist))
+                save(f"wires/{name}/{r}/res", dist, req.wait())
+                save(f"wires/{name}/{r}/err", dist, kit.err(req))
+        finally:
+            if wire.startswith("f16"):
+                env.set_quantization_params(kit.QuantParams())
+
+
+def exchange_fill(p: int, n: int) -> np.ndarray:
+    """Rank p's row for phase ``exchanges``: distinct values, a signed zero
+    and a NaN (moves carry every bit)."""
+    x = rank_fill(p, n) - 3500.5
+    x[3] = -0.0
+    x[5] = np.nan
+    return x
+
+
+def exchange_requests(dist, g: int, n: int, T):
+    """(tag, kind, build keywords, start) of the direct exchanges over a
+    group of ``g`` members through either package's Distribution API."""
+    out = []
+    F = T.DataType.FLOAT
+    for gt_name in ("DATA", "MODEL"):
+        gt = getattr(T.GroupType, gt_name)
+        if dist.get_process_count(gt) != g:
+            continue
+        ring = tuple((i, (i + 1) % g) for i in range(g))
+        few = ((g - 1, 0), (0, g // 2))
+        out += [
+            (f"{gt_name}/alltoall", "alltoall", {"send_count": n // g},
+             lambda b, gt=gt: dist.all_to_all(b, n // g, F, gt)),
+            (f"{gt_name}/bcast", "bcast", {"root": g - 1},
+             lambda b, gt=gt: dist.bcast(b, n, F, g - 1, gt)),
+            (f"{gt_name}/sendrecv_ring", "sendrecv", {"pairs": ring},
+             lambda b, gt=gt: dist.send_recv_list(b, n, F, list(ring), gt)),
+            (f"{gt_name}/sendrecv_few", "sendrecv", {"pairs": few},
+             lambda b, gt=gt: dist.send_recv_list(b, n, F, list(few), gt)),
         ]
     return out
 
@@ -393,50 +543,64 @@ class Worker:
         assert torch.equal(a2a, want), f"graph alltoall of rank {p}"
 
     def resnet(self, image: int, classes: int, batch: int, steps: int = 2,
-               stride: int = 101) -> dict:
+               stride: int = 101, int8: bool = False) -> dict:
         """Config 5: ResNet-50 data-parallel on an (8, 1) world (SGD, lr
         0.05), replicated and ZeRO-1, ``steps`` steps each from the same
-        weights (seed 0). Kept: the first step's losses and every layer's
-        reduced gradient (its rank rows, every ``stride``-th element) and the
-        sum of the parameters after the last step. -> {mode: csum}."""
+        weights (seed 0); ``int8``: on config 4's int8 ring with the layer
+        requests in ``RESNET_BUCKET_MB`` buckets. Kept: the first step's
+        losses, its local gradients (the reduction's input) and every
+        reduced gradient (each layer's, or each bucket's, rank rows, every
+        ``stride``-th element), and the sum of the parameters after the last
+        step. -> {mode: csum}."""
         import torch
 
         from mlsl_tpu_torch.comm import transport
         from mlsl_tpu_torch.models import resnet
         from mlsl_tpu_torch.models.train import DataParallelTrainer
+        from mlsl_tpu_torch.types import CompressionType
 
         env = self.env
         rng = np.random.default_rng(0)
         x = rng.normal(size=(batch, image, image, 3)).astype(np.float32)
         y = rng.integers(0, classes, size=(batch,)).astype(np.int32)
         csums = {}
+        kw = {"compression": CompressionType.QUANTIZATION} if int8 else {}
         for du in (False, True):
             gen = torch.Generator().manual_seed(0)
             model = resnet.ResNet50(num_classes=classes, generator=gen, device=env.device)
             dist = env.create_distribution(WORLD, 1)
             sess = env.create_session()
             sess.set_global_minibatch_size(batch)
-            tr = DataParallelTrainer(env, dist, sess, model, resnet.loss_fn,
-                                     resnet.layer_names(model), resnet.layer_subtree, lr=0.05,
-                                     distributed_update=du)
+            env.config.grad_bucket_mb = RESNET_BUCKET_MB if int8 else 0
+            try:
+                tr = DataParallelTrainer(env, dist, sess, model, resnet.loss_fn,
+                                         resnet.layer_names(model), resnet.layer_subtree,
+                                         lr=0.05, distributed_update=du, **kw)
+            finally:
+                env.config.grad_bucket_mb = 0
             b = tr.shard_batch(x, y)
-            tag = f"resnet/du{int(du)}"
+            tag = f"resnet{'_int8' if int8 else ''}/du{int(du)}"
             before = transport.hop_totals()
             t0 = time.perf_counter()
             for step in range(steps):
-                loss = tr.step(b)
                 if step == 0:
-                    self.sample(f"{tag}/loss", dist, loss.reshape(*dist.world_shape, 1), 1)
+                    tr._step_no += 1
+                    loss, grads = tr._local_grads(b)
                     for name in tr.layers:
-                        self.sample(f"{tag}/{name}", dist, tr._pset(name).grad_req._result,
-                                    stride)
+                        self.sample(f"{tag}/in/{name}", dist, grads[name], stride)
+                    loss = tr._sync_and_update(grads, loss)
+                    self.sample(f"{tag}/loss", dist, loss.reshape(*dist.world_shape, 1), 1)
+                    for key, req in reduced_requests(tr):
+                        self.sample(f"{tag}/{key}", dist, req._result, stride)
+                else:
+                    loss = tr.step(b)
                 assert bool(torch.isfinite(loss).all()), f"{tag} step {step}: {loss}"
             if env.device.type == "cuda":
                 torch.cuda.synchronize(env.device)
             after = transport.hop_totals()
-            self.report[tag] = {"steps": steps, "s": time.perf_counter() - t0, "hops": {
-                k: {f: v[f] - before.get(k, {}).get(f, 0) for f in v}
-                for k, v in after.items() if v["calls"] > before.get(k, {}).get("calls", 0)}}
+            self.report[tag] = {"steps": steps, "s": time.perf_counter() - t0,
+                                "algos": sorted({req.algo for _, req in reduced_requests(tr)}),
+                                "hops": hop_delta(before, after)}
             leaves = [prm.detach().double().sum() for prm in tr._all_params()]
             csums[tag] = float(torch.stack(leaves).sum())
             del tr, model, sess
@@ -481,8 +645,199 @@ class Worker:
         self.log(f"proc {self.pid} train OK")
         return csum
 
+    # -- the compressed wires and the direct exchanges ----------------------------
+
+    def wires(self, n: int = 0) -> None:
+        """Every wire case (``WIRE_CASES``) through the port's front doors;
+        ``n``: ``BIG_WIRE_CASES`` at ``n`` elements a rank instead, each
+        rank's rows made on the device from its own seed and kept as a
+        digest and a sample (``save_digest``)."""
+        from types import SimpleNamespace
+
+        import torch
+
+        from mlsl_tpu_torch import types as T
+        from mlsl_tpu_torch.comm import sparse
+        from mlsl_tpu_torch.comm.mesh import ProcessGroup
+        from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
+
+        def custom(wire):
+            kw = dict(compress_fn=lambda x: x.to(torch.float16),
+                      decompress_fn=lambda p, n: p.to(torch.float32))
+            if wire == "f16_reduce":
+                kw["reduce_sum_fn"] = lambda a, b: a + b
+            return kw
+
+        kit = SimpleNamespace(types=T, CommDesc=CommDesc, CommRequest=CommRequest,
+                              ProcessGroup=ProcessGroup, sparse=sparse,
+                              QuantParams=T.QuantParams, custom=custom,
+                              err=lambda req: req._errs[0])
+        if not n:
+            run_wires(kit, self.env, self.save)
+        else:
+            dev = self.env.device
+
+            def fill(name, r, count, dist):
+                rows = []
+                for p in dist.topology.local_ranks():
+                    gen = torch.Generator(device=dev).manual_seed(
+                        sum(map(ord, name)) * 1000 + r * 10 + p)
+                    rows.append(torch.randn(count, device=dev, generator=gen) * (1 + p) + r)
+                return torch.stack(rows).reshape(*dist.world_shape, count)
+
+            run_wires(kit, self.env, self.save_digest, fill=fill, topk_ratio=BIG_TOPK_RATIO,
+                      cases=[(*c, n) for c in BIG_WIRE_CASES])
+        self.log(f"proc {self.pid} wires OK")
+
+    def save_digest(self, key: str, dist, buf) -> None:
+        """Each local rank's row as two exact integer digests of its bits
+        (their sum, and their sum weighted by the position mod 65521, both
+        wrapping in int64) and every ``SAMPLE_STRIDE``-th element."""
+        import torch
+
+        for p in dist.topology.local_ranks():
+            row = buf[dist.topology.local_coords(p)].reshape(-1).contiguous()
+            bits = row.view(torch.int32).to(torch.int64)
+            w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            self.out[f"{key}/{p}/digest"] = torch.stack(
+                [bits.sum(), (bits * w).sum()]).cpu().numpy()
+            self.out[f"{key}/{p}/sample"] = row[::SAMPLE_STRIDE].cpu().numpy()
+
+    def exchanges(self, n_per_member: int = 6) -> None:
+        """alltoall, bcast and sendrecv over every group of the (8, 1), (4, 2)
+        and (2, 4) grids: the request's form (direct where the group spans
+        processes) against the assembled one on the same buffer, bit for
+        bit; each one's bytes handed to the backend go to the report."""
+        import torch
+
+        from mlsl_tpu_torch import types as T
+        from mlsl_tpu_torch.comm import transport
+
+        def bits(t):
+            return t.contiguous().view(torch.int32)
+
+        rec = {}
+        for shape in ((8, 1), (4, 2), (2, 4)):
+            dist = self.env.create_distribution(*shape)
+            for g in sorted({s for s in shape if s > 1}):
+                n = n_per_member * g
+                for tag, kind, kw, start in exchange_requests(dist, g, n, T):
+                    buf = dist.make_buffer(lambda p: exchange_fill(p, n), n)
+                    key = f"exch/{shape[0]}x{shape[1]}/{tag}"
+                    transport.reset_stats()
+                    out = self.env.wait(start(buf))
+                    direct = transport.hop_totals()
+                    self.save(key, dist, out)
+                    group = dist._group(getattr(T.GroupType, tag.split("/")[0]))
+                    if not transport.spans(group):
+                        continue
+                    transport.reset_stats()
+                    asm = transport.build_spanning(kind, group, None, direct=False, **kw)(buf)
+                    assembled = transport.hop_totals()
+                    assert torch.equal(bits(out), bits(asm)), f"{key}: direct != assembled"
+                    rec[key] = {f: sum(h["bytes"] for h in hops.values())
+                                for f, hops in (("direct", direct), ("assembled", assembled))}
+                    # a process hands over no more; summed over the processes, less
+                    assert rec[key]["direct"] <= rec[key]["assembled"], (key, rec[key])
+        self.report["exchange_bytes"] = rec
+        self.log(f"proc {self.pid} exchanges OK")
+
+    def guard(self, steps: int = 12, outlier_from: int = 7) -> None:
+        """The codec guardrail across processes: a sentinel gate (warmup 5,
+        z 3, three breaches) screens ``steps`` steps of losses that wiggle
+        around 1, rank 0's jumping to 50 from ``outlier_from`` on, over a
+        stand-in for a guarded request that notes the step it is demoted
+        at. The gate screens the world's rows on every process
+        (``Sentinel.screen``), so every process demotes at the same step."""
+        import torch
+
+        from mlsl_tpu_torch import codecs, sentinel
+
+        class Guarded:
+            name, step, demoted_at = "guarded", -1, -1
+
+            def demote_codec(self, reason=""):
+                self.demoted_at = self.step
+
+        req = Guarded()
+        codecs.guard_reset()
+        codecs.guard_register(req)
+        dist = self.env.create_distribution(WORLD, 1)
+        grid = dist.topology.local_shape
+        gate = sentinel.Sentinel(grid, gate="warn", warmup=5, zmax=3.0, codec_guard_window=3)
+        for step in range(steps):
+            req.step = step
+            loss = [50.0 if p == 0 and step >= outlier_from else 1.0 + 0.01 * ((p + step) % 3)
+                    for p in dist.topology.local_ranks()]
+            gate.gate(torch.tensor(loss).reshape(*grid, 1),
+                      {"w": torch.ones((*grid, 4))}, None, step)
+        codecs.guard_reset()
+        assert req.demoted_at >= outlier_from, req.demoted_at
+        self.out["guard/demoted_at"] = np.int64(req.demoted_at)
+        self.log(f"proc {self.pid} guard OK demoted_at={req.demoted_at}")
+
+    def train_int8(self, params, steps: int = 2) -> float:
+        """The MLP's DataParallelTrainer on the int8 ring, ``steps`` steps on
+        an (8, 1) world. -> the sum of the trained parameters."""
+        from mlsl_tpu_torch.models import mlp
+        from mlsl_tpu_torch.models.train import DataParallelTrainer
+        from mlsl_tpu_torch.types import CompressionType
+
+        env = self.env
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(TRAIN_B, 8)).astype(np.float32)
+        y = rng.integers(0, 4, size=(TRAIN_B,)).astype(np.int64)
+        dist = env.create_distribution(WORLD, 1)
+        sess = env.create_session()
+        sess.set_global_minibatch_size(TRAIN_B)
+        model = mlp.MLP(params=params, device=env.device)
+        tr = DataParallelTrainer(env, dist, sess, model, mlp.loss_fn, mlp.LAYERS, mlp.get_layer,
+                                 lr=0.1, compression=CompressionType.QUANTIZATION)
+        assert all(tr._pset(n).grad_req.algo == "quant_ring" for n in mlp.LAYERS)
+        batch = tr.shard_batch(x, y)
+        for step in range(steps):
+            loss = tr.step(batch)
+            self.save(f"train8/loss{step}", dist, loss.reshape(*dist.world_shape, 1))
+        leaves = {k: {n: v.detach().cpu().numpy() for n, v in leaf.items()}
+                  for k, leaf in model.jax_tree().items()}
+        for k in leaves:
+            for n in leaves[k]:
+                self.out[f"train8/params/{k}/{n}"] = leaves[k][n]
+        self.log(f"proc {self.pid} train_int8 OK")
+        return float(sum(leaves[k][n].astype(np.float64).sum() for k in sorted(leaves)
+                         for n in sorted(leaves[k])))
+
 
 PHASES = ("basic", "hierarchy", "gather", "loop", "matrix", "kinds", "train")
+
+
+def reduced_requests(trainer):
+    """(key, request) of every request that reduced a gradient in the last
+    round: a bucket's (``bucket<i>``), or a layer's own."""
+    out, seen = [], set()
+    for name in trainer.layers:
+        ps = trainer._pset(name)
+        if not ps.need_comm:
+            continue
+        bucket = ps.bucket if ps._bucket_round else None
+        req = bucket.req if bucket is not None else ps.grad_req
+        if id(req) not in seen:
+            seen.add(id(req))
+            out.append((f"bucket{len(out)}" if bucket is not None else name, req))
+    return out
+
+
+def hop_delta(before: dict, after: dict) -> dict:
+    """``transport.hop_totals()`` of what ran between two readings."""
+    out = {}
+    for k, v in after.items():
+        b = before.get(k, {})
+        if v["calls"] <= b.get("calls", 0):
+            continue
+        d = {f: v[f] - b.get(f, 0) for f in v if f != "dtypes"}
+        d["dtypes"] = {t: nb - b.get("dtypes", {}).get(t, 0) for t, nb in v["dtypes"].items()}
+        out[k] = d
+    return out
 
 
 def kernel_launches() -> dict:
@@ -495,12 +850,14 @@ def kernel_launches() -> dict:
 
 def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
         phases=PHASES, backend=None, log=print, graph=(1024, 4096, 16384),
-        resnet=(224, 1000, 64)) -> dict:
+        resnet=(224, 1000, 64), wires=0) -> dict:
     """Bring this process into the world (``port`` None: a world of one
     process and no coordinator, the twin a caller holds a world against),
     run ``phases``, write its results. ``graph``: (FM1, FM2, tokens) of the
     ``graph`` phase; ``resnet``: (image, classes, global batch) of
-    ``resnet``. -> the results (also in ``out_dir/proc<pid>.npz``)."""
+    ``resnet`` and ``resnet_int8``; ``wires``: the elements a rank of the
+    ``wires`` phase's cases at a size (0: the small cases). -> the results
+    (also in ``out_dir/proc<pid>.npz``)."""
     from mlsl_tpu_torch import get_env
 
     if port is None:
@@ -531,20 +888,28 @@ def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
     try:
         for ph in phases:
             transport.reset_stats()
+            launched = kernel_launches()
             t0 = time.perf_counter()
             if ph == "train":
                 csum = w.train(params)
+            elif ph == "train_int8":
+                out["csum/train8"] = np.float64(w.train_int8(params))
             elif ph == "graph":
                 w.graph(*graph)
-            elif ph == "resnet":
-                for k, v in w.resnet(*resnet).items():
+            elif ph == "wires":
+                w.wires(wires)
+            elif ph in ("resnet", "resnet_int8"):
+                for k, v in w.resnet(*resnet, int8=ph == "resnet_int8").items():
                     out[f"csum/{k}"] = np.float64(v)
             else:
                 getattr(w, ph)()
             if env.device.type == "cuda":
                 torch.cuda.synchronize(env.device)
-            w.report.setdefault(ph, {}).update(s=time.perf_counter() - t0,
-                                               hops=transport.hop_totals())
+            now = kernel_launches()
+            w.report.setdefault(ph, {}).update(
+                s=time.perf_counter() - t0, hops=transport.hop_totals(),
+                launches={k: v - launched.get(k, 0) for k, v in now.items()
+                          if v > launched.get(k, 0)})
     finally:
         env.finalize()
     w.report["launches"] = kernel_launches()
@@ -561,7 +926,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pid", type=int, required=True)
     ap.add_argument("--nproc", type=int, required=True)
-    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--port", type=int, default=None,
+                    help="the coordinator's port (none: a one-process world, no coordinator)")
     ap.add_argument("--device", default=None)
     ap.add_argument("--backend", default=None)
     ap.add_argument("--out", required=True)
@@ -569,11 +935,13 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--graph", default="1024,4096,16384", help="FM1,FM2,tokens")
     ap.add_argument("--resnet", default="224,1000,64", help="image,classes,batch")
+    ap.add_argument("--wires", type=int, default=0,
+                    help="elements a rank of phase wires's cases at a size (0: the small cases)")
     a = ap.parse_args(argv)
     ints = lambda v: tuple(int(x) for x in v.split(","))   # noqa: E731
     run(a.pid, a.nproc, a.port, a.device, a.out, a.params, tuple(a.phases.split(",")),
         a.backend, log=lambda m: print(m, flush=True), graph=ints(a.graph),
-        resnet=ints(a.resnet))
+        resnet=ints(a.resnet), wires=a.wires)
     print(json.dumps({"proc": a.pid, "ok": True}), flush=True)
     return 0
 

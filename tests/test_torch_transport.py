@@ -6,9 +6,12 @@ rank layout of ``dcn_aware_devices`` and ``Topology`` on fake devices that
 carry ``process_index`` and ``id``. The rest states the port's own
 contracts: the box layout and its refusal, the subgroup partitions, tiers by
 host, the A.8b refusals, a one-process gloo world bit for bit the
-transport-less one, and the hop order under ``msg_priority`` across two
-processes. Tests that bring up ``torch.distributed`` destroy it in teardown:
-this file shares an xdist worker with others.
+transport-less one, the hop order under ``msg_priority`` across two
+processes, the ring shift and the direct exchanges against their plain
+versions across two processes, the compressed routes' process-local rule,
+and the process index of the straggler shed and the trainer's replica id.
+Tests that bring up ``torch.distributed`` destroy it in teardown: this file
+shares an xdist worker with others.
 """
 
 import dataclasses
@@ -274,17 +277,25 @@ def test_refusals_on_more_than_one_process(fake_world):
         assert not algos.eligible(algo, "allreduce", dist.data_group)
     grid = env.create_distribution(4, 2)
     assert algos.eligible("pallas_ring", "reduce_scatter", grid.model_group)
-    # a compressed wire over a spanning group is A.8b
-    buf = torch.zeros(1, 4, 1, 1, 256)
-    with pytest.raises(MLSLError, match="A.8b"):
-        dist.all_reduce(buf, 256, DataType.FLOAT, ReductionType.SUM, GroupType.DATA,
-                        compression=CompressionType.QUANTIZATION)
-    # the compiled overlap engine over a spanning gradient group (trap 6)
-    sess = env.create_session()
-    sess.set_global_minibatch_size(16)
-    with pytest.raises(MLSLError, match="A.8b"):
-        DataParallelTrainer(env, dist, sess, mlp.MLP(device="cpu"), mlp.loss_fn, mlp.LAYERS,
-                            mlp.get_layer, lr=0.1, overlap_compiled=True)
+    # a compressed wire over a spanning group builds (A.8b.1): the composed
+    # ring and the sparse wire, no hop until it is started
+    from mlsl_tpu_torch.comm.request import CommDesc, CommRequest
+
+    for comp, algo in ((CompressionType.QUANTIZATION, "quant_ring"),
+                       (CompressionType.TOPK, "topk")):
+        req = CommRequest(CommDesc("allreduce", dist.data_group, 256, DataType.FLOAT,
+                                   op=ReductionType.SUM, compression=comp), env.dispatcher)
+        req.setup()
+        assert req._spans and req.algo == algo
+    # the compiled overlap engine over a spanning gradient group (trap 6),
+    # int8 or not (A.8b.6): never another program in its place
+    for comp in (CompressionType.NONE, CompressionType.QUANTIZATION):
+        sess = env.create_session()
+        sess.set_global_minibatch_size(16)
+        with pytest.raises(MLSLError, match="A.8b"):
+            DataParallelTrainer(env, dist, sess, mlp.MLP(device="cpu"), mlp.loss_fn,
+                                mlp.LAYERS, mlp.get_layer, lr=0.1, overlap_compiled=True,
+                                compression=comp)
     from mlsl_tpu_torch.comm import overlap
 
     with pytest.raises(MLSLError, match="build_multi_reduce.*A.8b"):
@@ -387,9 +398,19 @@ def test_no_distributed_call_without_a_coordinator(monkeypatch):
     def boom(*a, **kw):
         raise AssertionError("torch.distributed called without a coordinator")
     for name in ("init_process_group", "all_reduce", "all_gather_into_tensor",
-                 "reduce_scatter_tensor", "broadcast", "barrier", "new_subgroups_by_enumeration"):
+                 "reduce_scatter_tensor", "broadcast", "barrier", "new_subgroups_by_enumeration",
+                 "all_to_all_single", "batch_isend_irecv", "isend", "irecv"):
         monkeypatch.setattr(dist, name, boom)
     _mlp_run(get_env().init(device="cpu", world_size=8))
+    # the compressed wires too: their ring shift is torch.roll in one process
+    from mlsl_tpu_torch.types import CompressionType, DataType, GroupType, ReductionType
+
+    env = get_env().init(device="cpu", world_size=8)
+    dist8 = env.create_distribution(8, 1)
+    for comp in (CompressionType.QUANTIZATION, CompressionType.TOPK):
+        buf = dist8.make_buffer(lambda p: np.full(512, p + 0.5, np.float32), 512)
+        env.wait(dist8.all_reduce(buf, 512, DataType.FLOAT, ReductionType.SUM, GroupType.DATA,
+                                  compression=comp))
     assert not transport.world().up
 
 
@@ -467,3 +488,235 @@ def test_transport_is_the_only_module_calling_torch_distributed():
                 if "MLSL-A201" in lint.lint_source(src, "probe/module.py").codes():
                     callers.add(os.path.relpath(path, pkg))
     assert callers == {os.path.join("comm", "transport.py")}
+
+
+# -- the ring shift and the direct exchanges ----------------------------------------
+
+
+def _shift_inputs(c=2, g=8, n=5):
+    """A tuple of (c, g, ...) tensors of the compressed wires' dtypes, with
+    signed zeros and a NaN in the floats."""
+    gen = torch.Generator().manual_seed(3)
+    f = torch.randn(c, g, n, generator=gen)
+    f[:, :, 0] = -0.0
+    f[0, 1, 1] = float("nan")
+    q = torch.randint(-127, 128, (c, g, n * 4), generator=gen).to(torch.int8)
+    i = torch.randint(0, 1 << 40, (c, g, 3), generator=gen)
+    return f, q, i
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def test_ring_shift_on_a_one_process_world_is_roll():
+    """In a one-process gloo world nothing crosses: the shift of a tuple is
+    ``torch.roll`` along the member dim, bit for bit, and a process-local
+    group's Span is the one-process form."""
+    get_env().init(device="cpu", world_size=8, coordinator_address=f"127.0.0.1:{_free_port()}",
+                   num_processes=1, process_id=0)
+    ts = _shift_inputs()
+    group = ProcessGroup(Topology(8, 1, 8), ("data",))
+    span = transport.span_of(group)
+    assert not span.crosses and (span.g, span.gl, span.off) == (8, 8, 0)
+    for got in (transport.ring_shift(ts, None, 0, 1), span.shift(*ts)):
+        assert all(_same_bits(a, torch.roll(t, 1, dims=1)) for a, t in zip(got, ts))
+    assert torch.equal(span.gather(ts[1]), ts[1])
+
+
+SHIFT_WORKER = textwrap.dedent('''
+    import sys
+    import torch
+    pid, port = int(sys.argv[1]), sys.argv[2]
+    sys.path.insert(0, sys.argv[3])
+    from test_torch_transport import _same_bits, _shift_inputs
+    from mlsl_tpu_torch import get_env
+    from mlsl_tpu_torch.comm import collectives, transport
+    from mlsl_tpu_torch.types import ReductionType
+    env = get_env().init(device="cpu", world_size=8, coordinator_address="127.0.0.1:" + port,
+                         num_processes=2, process_id=pid)
+    ts = _shift_inputs()
+    mine = [t[:, pid * 4:(pid + 1) * 4] for t in ts]
+    got = transport.ring_shift(mine, None, pid, 2)
+    for a, t in zip(got, ts):
+        assert _same_bits(a, torch.roll(t, 1, dims=1)[:, pid * 4:(pid + 1) * 4]), t.dtype
+    # the direct exchanges against the assembled form on every group
+    for shape in ((8, 1), (4, 2), (2, 4)):
+        dist = env.create_distribution(*shape)
+        for group in (dist.data_group, dist.model_group):
+            g = group.size
+            if not transport.spans(group):
+                continue
+            buf = dist.make_buffer(lambda p: ts[0].reshape(-1)[:6 * g] + p, 6 * g)
+            for kind, kw in (("alltoall", {"send_count": 6}), ("bcast", {"root": g - 1}),
+                             ("bcast", {"root": 0}),
+                             ("sendrecv", {"pairs": ((g - 1, 0), (0, g // 2))}),
+                             ("sendrecv", {"pairs": tuple((i, (i + 3) % g) for i in range(g))})):
+                direct = collectives.build_raw(kind, group, **kw)(buf)
+                asm = transport.build_spanning(kind, group, None, direct=False, **kw)(buf)
+                assert _same_bits(direct, asm), (shape, group.axes, kind, kw)
+    env.finalize()
+    print("SHIFT OK", flush=True)
+''')
+
+
+def test_ring_shift_and_direct_exchanges_across_two_processes(tmp_path):
+    """Two processes of 4 ranks: each shifts its members' rows of a global
+    tuple, which is then the global ``torch.roll`` bit for bit; the direct
+    alltoall, bcast and sendrecv are the assembled form bit for bit."""
+    script = tmp_path / "shift.py"
+    script.write_text(SHIFT_WORKER)
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, str(script), str(i), port,
+                               os.path.join(ROOT, "tests")], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            tails = "\n".join(f"-- process {i}:\n{q.communicate()[0][-2000:]}"
+                              for i, q in enumerate(procs))
+            pytest.fail("the two processes deadlocked\n" + tails)
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "SHIFT OK" in out, out[-2000:]
+
+
+# -- the compressed routes on spanning groups --------------------------------------
+
+
+def test_compressed_kernel_routes_are_process_local(fake_world, monkeypatch):
+    """B4 and the two-tier wire read every member on one device: neither is
+    eligible for a spanning group (``use_pallas_for`` false), both as before
+    on a process-local one, and the bucket planner sizes to the composed
+    ring."""
+    from mlsl_tpu_torch.comm import quant_ring
+
+    monkeypatch.setenv("MLSL_MESH_TIERS", "2x4")
+    cfg = Config()
+    cfg._forced_algos = algos.parse_forced("pallas_ring")
+    fake_world(2)
+    t2 = Topology(8, 1, 8, procs=(2, 0))
+    spanning = ProcessGroup(t2, ("data",))
+    local = ProcessGroup(Topology(2, 4, 8, procs=(2, 0)), ("model",))
+    assert spanning.spans and not local.spans
+    assert not algos._quant_pallas_eligible(spanning, cfg)
+    assert algos._quant_pallas_eligible(local, cfg)
+    assert not quant_ring.use_pallas_for("allreduce", spanning, 1 << 20, cfg)
+    assert quant_ring.use_pallas_for("allreduce", local, 1 << 20, cfg)
+    # one process: the same group shape keeps the fused ring, as before
+    one = ProcessGroup(Topology(8, 1, 8), ("data",))
+    assert quant_ring.use_pallas_for("allreduce", one, 1 << 20, cfg)
+    assert not algos._quant_hier_eligible("allreduce", spanning, cfg)
+    assert algos._quant_hier_eligible("allreduce", one, cfg)
+    # the aligned slice the planner sizes a bucket with follows the choice
+    rc = 3 * 256 + 1
+    assert quant_ring.ring_aligned_rc(rc, 256, False) != quant_ring.ring_aligned_rc(
+        rc, 256, True)
+
+
+@pytest.mark.parametrize("forced", ["pallas_ring", "hier"])
+def test_forced_route_on_a_spanning_compressed_bucket_keeps_the_composed_ring(
+        fake_world, monkeypatch, forced):
+    """A forced ``pallas_ring`` or ``hier`` on an int8 request or bucket
+    whose group spans processes builds the composed ring (``req.algo`` says
+    so), the bucket's total is the composed ring's alignment, and the
+    commit-time verifier passes its bucket geometry (A110/A111)."""
+    from mlsl_tpu_torch.analysis import plan
+    from mlsl_tpu_torch.comm import quant_ring
+    from mlsl_tpu_torch.types import CompressionType, OpType
+
+    monkeypatch.setenv("MLSL_ALGO", forced)
+    monkeypatch.setenv("MLSL_MESH_TIERS", "2x4")
+    fake_world(2)
+    env = get_env().init(device="cpu", world_size=8)
+    env.config.grad_bucket_mb = 1
+    dist = env.create_distribution(8, 1)
+    s = env.create_session()
+    s.set_global_minibatch_size(8)
+    ops = []
+    for i, count in enumerate((3000, 1000)):
+        r = s.create_operation_reg_info(OpType.CC)
+        r.set_name(f"q{i}")
+        r.add_output(4, 4)
+        r.add_parameter_set(count, 1, compression_type=CompressionType.QUANTIZATION)
+        ops.append(s.get_operation(s.add_operation(r, dist)))
+    s.commit()
+    bucket = ops[0].parameter_sets[0].bucket
+    assert bucket is not None and bucket.req.algo == "quant_ring"
+    g = dist.grad_group.size
+    rc = -(-sum(bucket.slots) // g)
+    assert bucket.total == g * quant_ring.ring_aligned_rc(rc, 256, False)
+    rep = plan.verify_session(s)
+    assert not {"MLSL-A110", "MLSL-A111", "MLSL-A132"} & set(rep.codes()), rep.codes()
+
+
+def test_compressed_two_tier_wire_across_processes_is_a8b7(fake_world, monkeypatch):
+    from mlsl_tpu_torch.comm import quant_ring
+
+    monkeypatch.setenv("MLSL_MESH_TIERS", "2x4")
+    fake_world(2)
+    group = ProcessGroup(Topology(8, 1, 8, procs=(2, 0)), ("data",))
+    with pytest.raises(MLSLError, match="A.8b.7"):
+        quant_ring.build_quantized_collective("allreduce", group, 1024, 256, ring="hier")
+    with pytest.raises(MLSLError, match="process-local"):
+        quant_ring.build_quantized_collective("allreduce", group, 1024, 256, ring="pallas")
+
+
+# -- the process index (A.8b.3) -----------------------------------------------------
+
+
+@pytest.mark.parametrize("nproc", [1, 2, 4])
+def test_straggler_shed_maps_the_process_index_as_jax(fake_world, monkeypatch, nproc):
+    """The shed names every active rank of the process ``replica`` on a
+    world of more than one process, and the replica's position with one,
+    as ``mlsl_tpu/elastic.py`` does by ``process_index`` on devices that
+    carry it; both refuse a replica that names nothing."""
+    from mlsl_tpu import elastic as jelastic
+    from mlsl_tpu.log import MLSLError as JMLSLError
+    from mlsl_tpu_torch import elastic
+
+    fake_world(nproc)
+    fakes = tuple(FakeDevice(i, i // (8 // nproc)) for i in range(8))
+    taken = {}
+    jc = object.__new__(jelastic.ElasticCoordinator)
+    jc.world = fakes
+    monkeypatch.setattr(jc, "shrink", lambda tr, mk, error=None, step=0:
+                        taken.setdefault("jax", tuple(d.id for d in error.devices)),
+                        raising=False)
+    tc = elastic.ElasticCoordinator(capacity_budget=4)
+    tc._adopt_world(8)
+    monkeypatch.setattr(tc, "shrink", lambda tr, mk, error=None, step=0:
+                        taken.setdefault("torch", tuple(error.devices)))
+    monkeypatch.setattr(jelastic, "_active", None)
+    for replica in range(-1, 9):
+        taken.clear()
+        for side, c, err in (("jax", jc, JMLSLError), ("torch", tc, MLSLError)):
+            try:
+                c.shed(None, None, replica)
+            except err:
+                taken[side] = None
+        assert taken["jax"] == taken["torch"], (replica, taken)
+    elastic.reset()
+
+
+def test_trainer_replica_id_is_the_process_index(fake_world):
+    """Process 1 of 2 reports its straggler samples as replica 1, as the JAX
+    trainer's ``jax.process_index()``."""
+    from mlsl_tpu_torch.models import mlp
+    from mlsl_tpu_torch.models.train import DataParallelTrainer
+
+    fake_world(2, index=1)
+    env = get_env().init(device="cpu", world_size=8)
+    dist = env.create_distribution(8, 1)
+    sess = env.create_session()
+    sess.set_global_minibatch_size(16)
+    tr = DataParallelTrainer(env, dist, sess, mlp.MLP(device="cpu"), mlp.loss_fn, mlp.LAYERS,
+                             mlp.get_layer, lr=0.1)
+    assert tr._replica_id == 1
