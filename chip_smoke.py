@@ -479,7 +479,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 43. multiprocess (run (ad), after run (ac), beside the card tests): the
              multi-process transport (comm/transport.py). (ad1) two processes
              on cuda:0 over gloo (every cross-process hop staged through host
-             memory), 4 virtual ranks each, each the worker of
+             memory), started with the card tests so that they run beside
+             parity, configs 1-4 and runs (aa)-(ac), 4 virtual ranks each,
+             each the worker of
              mlsl_tpu_torch/tools/mp_worker.py under MLSL_ALGO=SPEC_RING with
              B6 dense: the JAX package's multi-process matrix (the hierarchy
              contract, gather_to_host, the reference loop on the 4 x 2 grid,
@@ -518,6 +520,37 @@ Phases, in order; any failure exits non-zero and prints no result:
              staging and wire seconds, the int8 step's time over the float
              step's, the direct exchanges' bytes against the assembled
              form's, the phase's wall time, the card and its limit.
+             (ad1) then runs the trainers across the two processes
+             (AD_TRAINER_PHASES, ROADMAP A.8b.4; the twin beside them with
+             AD_VARS too): HybridTrainer at gpt-medium-2k's full widths, two
+             blocks, two steps, on run (b)'s grid with zigzag (the data axis
+             spans the processes; ZeRO-1 off, then on) and on dp 1 x sp 2 x
+             tp 4 on the ring with the head sharded (the seq axis spans: the
+             K/V shifts and their cotangents cross, B9 folds what arrived);
+             gpt-medium-2k-moe8 at two blocks, tp 8, batch 2 (the model axis
+             spans: the model sums and the expert exchanges cross on the
+             transport, never B6, and the fused step runs eagerly); GPipe
+             and 1F1B of run (x)'s MLP blocks at gpt-medium-2k's widths over
+             the 8 stages of the (1, 8) grid, each against the dense oracle
+             within (x)'s bounds; config 5 fed through trainer.feed on the
+             int8 wire (B2), two batches, replicated and ZeRO-1, each
+             decoded box and loss bit for bit those of the same trainer fed
+             by shard_batch. Held to the twin: the attention's outputs and
+             gradients on their own (B9 forward and backward), the decoded
+             feed batches and the first fed losses bit for bit; each rank's
+             CE and gradient rows before the sync (their digests counted:
+             a 4-rank box's reductions may differ from the 8-rank twin's in
+             the last bits, ROADMAP C.19), the first step's reduced
+             gradients and the pipelines within AD_RTOL relative L2 a
+             layer; the parameters after two steps and the second losses,
+             a free-running twin (C.11), reported; every rank of a model
+             shard holds the same parameter bits in either process, and
+             both return the same world losses, the first within AD_RTOL
+             of the twin's.
+             Printed (``# multiprocess ad1 trainers``): each case's bytes a
+             step by hop kind (shift, axis sum, all-to-all, the gradient
+             requests' all_reduce / reduce_scatter / all_gather), their
+             staging and wire seconds, and its step time against the twin's.
 
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
@@ -8391,6 +8424,19 @@ AD_PHASES = ("hierarchy", "gather", "loop", "matrix", "kinds", "train", "graph",
 #: ring the children's spanning data group takes (a forced pallas_ring would
 #: give it B4, another wire)
 AD_INT8_PHASES = ("exchanges", "wires", "resnet_int8")
+#: (ad1)'s trainers across processes (ROADMAP A.8b.4), after AD_INT8_PHASES,
+#: at the worker's full size; the twin runs them with AD_VARS, as the children
+AD_TRAINER_PHASES = ("hybrid", "moe", "pipeline", "feed")
+AD_SIZE, AD_FEED = "full", "resnet"           # the worker's cases: gpt-medium-2k, config 5
+#: the trainer phases' rows held bit for bit: the attention on its own (B9
+#: forward and backward), the decoded feed batches and labels, the first fed
+#: losses, replicated and ZeRO-1 (config 5's per-rank loop)
+AD_TRAINER_EXACT = ("/attn/", "/decoded/", "/labels/", "/loss0/")
+#: each rank's CE and gradient rows before the sync: bit for bit on the CPU;
+#: on the card within AD_RTOL by their samples, their digests counted (a
+#: CUDA reduction over a batch of ranks splits by the batch's size, so a
+#: 4-rank box's rows may differ from the 8-rank twin's in the last bits)
+AD_TRAINER_BOX = ("/ce/", "/in/")
 AD_GRAPH = (MLP_FM1, MLP_FM2, MLP_TOKENS)     # run (m)'s graph at gpt-medium-2k's widths
 AD_RESNET = (224, 1000, 64)                   # config 5
 AD_WIRES_N = (64 << 20) // 4                  # config 4: 64 MiB a rank
@@ -8428,9 +8474,10 @@ def start_ad_children(out_dir: str) -> list:
                 [sys.executable, "-m", "mlsl_tpu_torch.tools.mp_worker", "--pid", str(i),
                  "--nproc", str(AD_PROCS), "--port", str(port), "--device", AD_DEVICE,
                  "--backend", "gloo", "--out", out_dir,
-                 "--phases", ",".join(AD_PHASES + AD_INT8_PHASES),
+                 "--phases", ",".join(AD_PHASES + AD_INT8_PHASES + AD_TRAINER_PHASES),
                  "--graph", ",".join(map(str, AD_GRAPH)),
-                 "--resnet", ",".join(map(str, AD_RESNET)), "--wires", str(AD_WIRES_N)],
+                 "--resnet", ",".join(map(str, AD_RESNET)), "--wires", str(AD_WIRES_N),
+                 "--size", AD_SIZE, "--feed", AD_FEED],
                 cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT), path))
     return procs
 
@@ -8469,7 +8516,7 @@ def ad_hold(np, twin: dict, rows: dict) -> dict:
     bit for bit between the processes. -> the worst error of each kind."""
     worst = {"float_rel": 0.0, "resnet_grad_rel_l2": 0.0}
     for k, want in twin.items():
-        if k.startswith("csum/"):
+        if k.startswith(("csum/",) + AD_TRAINER_KEYS):
             continue
         got = rows.get(k)
         check(got is not None, f"ad1: no process wrote {k}")
@@ -8494,6 +8541,130 @@ def ad_hold(np, twin: dict, rows: dict) -> dict:
     return worst
 
 
+#: the trainer phases' rows (ad_trainer_hold)
+AD_TRAINER_KEYS = ("hybrid/", "pipeline/", "feed/", "rep/")
+
+
+def ad_trainer_hold(np, twin: dict, rows: dict) -> dict:
+    """The trainer phases' rows of the two processes against the twin:
+    AD_TRAINER_EXACT's rows (digests and samples) bit for bit; the rest a
+    layer at a time, every rank's samples together, within AD_RTOL relative
+    L2 (AD_TRAINER_BOX's digests counted as bit for bit or not), except what
+    follows a first update, which is a free-running twin (C.11) and only
+    reported: the parameters after two steps, the second world loss, the
+    second fed loss. Every rank of one model shard holds the same parameter
+    bits, in either process, and both processes return the same world
+    losses. -> the worst gap of each kind, and the box rows' digest counts."""
+    worst, box, layers = {}, {"bit_for_bit": 0, "last_bits_differ": 0}, {}
+    for k, want in twin.items():
+        if not k.startswith(AD_TRAINER_KEYS):
+            continue
+        got = rows.get(k)
+        check(got is not None, f"ad1: no process wrote {k}")
+        if k.startswith("rep/"):
+            check(all(np.array_equal(g, got[0]) for g in got[1:]),
+                  f"ad1: the processes return different {k}: {[list(g) for g in got]}")
+            rel = abs(float(got[0][0]) - float(want[0])) / abs(float(want[0]))
+            check(rel <= AD_RTOL, f"ad1: {k}: first loss {float(got[0][0])!r} against the "
+                                  f"twin's {float(want[0])!r}")
+            worst[k] = {"first_rel": rel, "then": [float(v) for v in got[0][1:]],
+                        "twin_then": [float(v) for v in want[1:]]}
+        elif any(p in k for p in AD_TRAINER_EXACT):
+            same = np.array_equal(np.ascontiguousarray(np.atleast_1d(got)).view(np.uint8),
+                                  np.ascontiguousarray(np.atleast_1d(want)).view(np.uint8))
+            check(same, f"ad1: {k} differs from the one-process twin")
+        elif k.endswith("/digest"):
+            if any(p in k for p in AD_TRAINER_BOX):
+                box["bit_for_bit" if np.array_equal(got, want) else "last_bits_differ"] += 1
+        else:
+            # a layer: the key without its rank (and its /sample)
+            parts = k.split("/")
+            layer = "/".join(parts[:-2] if parts[-1] == "sample" else parts[:-1])
+            pair = layers.setdefault(layer, ([], []))
+            pair[0].append(np.asarray(got, np.float64).reshape(-1))
+            pair[1].append(np.asarray(want, np.float64).reshape(-1))
+    for layer, (got, want) in layers.items():
+        got, want = np.concatenate(got), np.concatenate(want)
+        rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+        parts = layer.split("/")
+        kind = "/".join(parts[:3])
+        worst[kind] = max(worst.get(kind, 0.0), rel)
+        if parts[2:3] == ["params"] or (parts[0] == "feed" and parts[-1] == "loss1"):
+            continue                       # after an update: a free-running twin
+        check(rel <= AD_RTOL, f"ad1: {layer} off the one-process twin by {rel:.3g} relative L2")
+    from mlsl_tpu_torch.tools import mp_worker
+
+    tps = {case[0]: case[2][2] for case in mp_worker.HYBRID_FULL + mp_worker.MOE_FULL
+           + mp_worker.HYBRID_TINY + mp_worker.MOE_TINY}
+    for k in rows:
+        # the data and seq replicas of a model shard hold its bits, in either process
+        parts = k.split("/")
+        if parts[0] == "hybrid" and parts[2] == "params" and parts[-1] != "sample":
+            rank = int(parts[-2] if parts[-1] == "digest" else parts[-1])
+            first = "/".join(parts[:4] + [str(rank % tps[parts[1]])] + parts[5:])
+            check(np.array_equal(rows[k], rows[first]),
+                  f"ad1: {k}: rank {rank} holds other parameter bits than {first}")
+    worst["box_rows"] = box
+    return worst
+
+
+def ad_trainer_record(reports, twin_report) -> dict:
+    """(ad1)'s trainer phases: per case the bytes a step by hop kind, their
+    staging and wire seconds, each step's time against the twin's; the
+    pipelines' gaps to the dense oracle; the feed's per-process counters;
+    the children's launches by phase. Checks that the spanning groups took
+    no kernel route and no CUDA graph, and that each phase ran its kernels
+    (B9 in hybrid, B7/B8 in moe, B2 in feed)."""
+    rec = {"cases": {}, "pipeline": {}, "feed": [r["feed"] for r in reports],
+           "launches": {ph: [r[ph]["launches"] for r in reports]
+                        for ph in AD_TRAINER_PHASES}}
+    routes = ("dense_ring", "dense_ring_gather", "quant_ring", "rhd_allreduce", "a2a_dense",
+              "a2a_quant")
+    for ph in ("hybrid", "moe"):
+        for i, r in enumerate(reports):
+            lc = r[ph]["launches"]
+            check(not any(lc.get(k) for k in routes),
+                  f"ad1: child {i}'s {ph} launched {lc}: a spanning group took a kernel route")
+    for i, r in enumerate(reports):
+        check(r["hybrid"]["launches"].get("block_update_sm90", 0) > 0
+              and r["hybrid"]["launches"].get("block_update_bwd_dkv_sm90", 0) > 0,
+              f"ad1: child {i}'s hybrid launched {r['hybrid']['launches']}: B9 expected")
+        check(r["moe"]["launches"].get("flash_fwd_sm90", 0) > 0,
+              f"ad1: child {i}'s moe launched {r['moe']['launches']}: B7 expected")
+        check(r["feed"]["launches"].get("dequantize_blocks", 0) > 0,
+              f"ad1: child {i}'s feed launched {r['feed']['launches']}: B2 expected")
+    for key, row in reports[0].items():
+        if key.startswith(("hybrid/", "pipeline/")):
+            for i, r in enumerate(reports):
+                calls = {k: h["calls"] for k, h in r[key]["hops"].items()}
+                want = {k: h["calls"] for k, h in row["hops"].items()}
+                check(calls == want, f"ad1: {key}: child {i} made hops {calls}, child 0 {want}")
+        if key.startswith("hybrid/"):
+            check(all(r[key]["graphs"] == 0 for r in reports),
+                  f"ad1: {key}: a CUDA graph was captured over a spanning group")
+            steps = row["steps"]
+            rec["cases"][key] = {
+                "spans": row["spans"], "fused": row["fused"],
+                "step_s": [r[key]["step_s"] for r in reports],
+                "twin_step_s": twin_report[key]["step_s"],
+                "losses": row["losses"], "twin_losses": twin_report[key]["losses"],
+                "bytes_a_step": {k: h["bytes"] // steps for k, h in row["hops"].items()},
+                "stage_s_a_step": {k: h["stage_s"] / steps for k, h in row["hops"].items()},
+                "wire_s_a_step": {k: h["wire_s"] / steps for k, h in row["hops"].items()},
+                "calls_a_step": {k: h["calls"] / steps for k, h in row["hops"].items()}}
+        elif key.startswith("pipeline/"):
+            for i, r in enumerate(reports):
+                gaps = r[key]["oracle_gaps"]
+                check(gaps["loss"] <= PIPE_LOSS_RTOL and gaps["grad"] <= PIPE_GRAD_TOL,
+                      f"ad1: child {i}'s {key} off the dense oracle: {gaps}")
+            rec["pipeline"][key] = {
+                "s": [r[key]["s"] for r in reports], "twin_s": twin_report[key]["s"],
+                "oracle_gaps": [r[key]["oracle_gaps"] for r in reports],
+                "bytes": {k: h["bytes"] for k, h in row["hops"].items()},
+                "calls": {k: h["calls"] for k, h in row["hops"].items()}}
+    return rec
+
+
 def ad_hops(rep: dict, steps: int = 1) -> dict:
     """A phase's hops a step: calls, bytes and their dtypes, staging and
     wire seconds, by hop kind."""
@@ -8511,7 +8682,7 @@ def ad_rows(np, out_dir: str, n: int) -> dict:
         with np.load(os.path.join(out_dir, f"proc{i}.npz")) as z:
             for k in z.files:
                 if k.startswith(("gather/", "train/params/", "csum/", "train8/params/",
-                                 "guard/")):
+                                 "guard/", "rep/")):
                     rows.setdefault(k, []).append(z[k])
                 else:
                     check(k not in rows, f"ad1: two processes wrote rank row {k}")
@@ -8519,20 +8690,38 @@ def ad_rows(np, out_dir: str, n: int) -> dict:
     return rows
 
 
-def phase_ad1(torch, np, get_env, launches, reset_launches):
-    """(ad1): the two children over gloo beside their one-process twin in
-    this process, then every row held to the twin's. -> (record, the
-    children's launches summed)."""
+def start_ad1() -> tuple:
+    """(ad1)'s two children, started with the card tests: they run beside
+    parity, configs 1-4 and runs (aa)-(ac), which their twin in this process
+    does not wait for. -> (children, their output directory, start time)."""
+    out_dir = tempfile_dir("mlsl_ad1_")
+    return start_ad_children(out_dir), out_dir, time.perf_counter()
+
+
+def stop_ad1(started) -> None:
+    """Kill (ad1)'s children if a phase failed before they were joined."""
+    if started is not None:
+        for proc, _ in started[0]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_ad1(torch, np, get_env, launches, reset_launches, started):
+    """(ad1): the two children over gloo (``start_ad1``'s), their
+    one-process twin run here, then every row held to the twin's. ->
+    (record, the children's launches summed)."""
     from mlsl_tpu_torch.tools import mp_worker
 
-    t0 = time.perf_counter()
-    out_dir = tempfile_dir("mlsl_ad1_")
-    twin_dirs = tempfile_dir("mlsl_ad1_twin_"), tempfile_dir("mlsl_ad1_twin8_")
-    procs = start_ad_children(out_dir)
-    twin, twin_s, twin_used = {}, [], []
+    procs, out_dir, t0 = started
+    t_twin = time.perf_counter()
+    twin_dirs = (tempfile_dir("mlsl_ad1_twin_"), tempfile_dir("mlsl_ad1_twin8_"),
+                 tempfile_dir("mlsl_ad1_twin_trainers_"))
+    twin, twin_s, twin_used, twin_reports = {}, [], [], []
     try:
         for phases, env_vars, twin_dir in ((AD_PHASES, AD_VARS, twin_dirs[0]),
-                                           (AD_INT8_PHASES, {}, twin_dirs[1])):
+                                           (AD_INT8_PHASES, {}, twin_dirs[1]),
+                                           (AD_TRAINER_PHASES, AD_VARS, twin_dirs[2])):
             get_env().finalize()
             settle(torch)
             for k in ALGO_VARS:
@@ -8541,19 +8730,24 @@ def phase_ad1(torch, np, get_env, launches, reset_launches):
             reset_launches()
             t1 = time.perf_counter()
             try:
-                twin.update(mp_worker.run(0, 1, None, AD_DEVICE, twin_dir, phases=phases,
-                                          graph=AD_GRAPH, resnet=AD_RESNET, wires=AD_WIRES_N,
-                                          log=lambda m: None))
+                twin.update(mp_worker.run(
+                    0, 1, None, AD_DEVICE, twin_dir, phases=phases, graph=AD_GRAPH,
+                    resnet=AD_RESNET, wires=AD_WIRES_N, size=AD_SIZE, feed_model=AD_FEED,
+                    log=lambda m: twin_reports.append(json.loads(m[len("REPORT "):]))
+                    if m.startswith("REPORT ") else None))
             finally:
                 for k in env_vars:
                     os.environ.pop(k, None)
             twin_s.append(time.perf_counter() - t1)
             twin_used.append({k: v for k, v in launches().items() if v})
     finally:
+        t_join = time.perf_counter()
         reports = join_ad_children(procs, t0)
     wall = time.perf_counter() - t0
     rows = ad_rows(np, out_dir, AD_PROCS)
     worst = ad_hold(np, twin, rows)
+    worst["trainers"] = ad_trainer_hold(np, twin, rows)
+    trainers = ad_trainer_record(reports, twin_reports[-1])
     for tag in ("resnet/du0", "resnet/du1", "resnet_int8/du0", "resnet_int8/du1"):
         cs = rows[f"csum/{tag}"]
         check(all(c == cs[0] for c in cs), f"ad1: {tag}: the processes' parameters differ "
@@ -8600,7 +8794,9 @@ def phase_ad1(torch, np, get_env, launches, reset_launches):
           and all(e["direct"] < e["assembled"] for e in exch.values()),
           f"ad1: the direct exchanges' bytes {exch}: fewer than the assembled form expected")
     rec = {"backend": "gloo", "processes": AD_PROCS, "ranks_a_process": WORLD // AD_PROCS,
-           "device": AD_DEVICE, "wall_s": wall, "twin_s": twin_s, "twin_launches": twin_used,
+           "device": AD_DEVICE, "wall_s": wall, "children_before_twin_s": t_twin - t0,
+           "waited_for_children_s": time.perf_counter() - t_join, "twin_s": twin_s,
+           "twin_launches": twin_used,
            "launches": used, "worst": worst, "config5": per_step,
            "int8_step_over_float_step": {
                du: per_step[f"resnet_int8/{du}"]["step_s"] / per_step[f"resnet/{du}"]["step_s"]
@@ -8608,8 +8804,10 @@ def phase_ad1(torch, np, get_env, launches, reset_launches):
            "wires": wires, "wires_launches": [rep["wires"]["launches"] for rep in reports],
            "exchange_bytes": exch,
            "phases": [{k: {"s": v["s"], "hops": v.get("hops", {})} for k, v in rep.items()
-                       if isinstance(v, dict) and "s" in v and not k.startswith("resnet")}
-                      for rep in reports]}
+                       if isinstance(v, dict) and "s" in v
+                       and not k.startswith(("resnet", "hybrid/", "pipeline/"))}
+                      for rep in reports],
+           "trainers": trainers}
     return rec, used
 
 
@@ -8693,10 +8891,11 @@ def phase_ad2(torch, np, get_env, dev):
     return rec
 
 
-def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi):
-    """Run (ad): (ad1) and (ad2). -> (launches by part, lines)."""
+def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi, started):
+    """Run (ad): (ad1), whose children ``started``, and (ad2). -> (launches by
+    part, lines)."""
     t0 = time.perf_counter()
-    ad1, used = phase_ad1(torch, np, get_env, launches, reset_launches)
+    ad1, used = phase_ad1(torch, np, get_env, launches, reset_launches, started)
     ad2 = phase_ad2(torch, np, get_env, dev)
     c5 = ad1["config5"]
     summary = {
@@ -8708,8 +8907,10 @@ def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi):
         for tag in c5}
     summary["int8_step_over_float_step"] = ad1["int8_step_over_float_step"]
     summary["exchange_bytes"] = ad1["exchange_bytes"]
+    trainers = ad1.pop("trainers")
     lines = [f"# multiprocess ad1 {json.dumps(ad1)}",
              f"# multiprocess ad1 wires {json.dumps(summary)} {smi}",
+             f"# multiprocess ad1 trainers {json.dumps(trainers)} {smi}",
              f"# multiprocess ad2 {json.dumps(ad2)}",
              f"# phase multiprocess (run (ad)): ok in {time.perf_counter() - t0:.1f} s; "
              f"two processes over gloo on one card (host-staged hops) and NCCL in a "
@@ -8785,7 +8986,7 @@ def main() -> int:
           ptxas_summary(cuda_build.build_logs.get("attention_sm90", "")))
 
     env = get_env().init(world_size=WORLD)        # the card; raises without one
-    card_tests = capi_runs = cache_runs = None
+    card_tests = capi_runs = cache_runs = ad1_started = None
     try:
         counts = resnet.layer_param_counts(resnet.ResNet50(device="meta"))
         ring_rows = resnet_ring_rows(counts)
@@ -8801,6 +9002,7 @@ def main() -> int:
         shapes += [(r, b) for _, r, b, _ in codec_rows() if (r, b) not in shapes]
         misaligned = [(37, 256), (8003, 64), (7, 96), (67, 2048)]
         t_card, card_tests = time.perf_counter(), start_card_tests()
+        ad1_started = start_ad1()
         cache_runs = start_compile_cache_runs()
         capi_runs = CapiPrograms(capi_paths, capi_build)
         n_shapes = phase_parity(torch, qk, dev, shapes, misaligned)
@@ -8843,7 +9045,7 @@ def main() -> int:
             log(line)
         # the multi-process transport (run (ad)), beside the card tests
         mp_used, mp_lines = run_multiprocess(torch, np, get_env, launches, reset_launches,
-                                             dev, smi)
+                                             dev, smi, ad1_started)
         for line in mp_lines:
             log(line)
         env = reinit(get_env)
@@ -9238,7 +9440,7 @@ def main() -> int:
                  transformer_8rank_ring=tr,
                  transformer_moe=tm, transformer_zero1=tz, transformer_replicated_adam=tra,
                  transformer_1rank_remat_full=remat_a["full"],
-                 transformer_1rank_remat_dots=remat_a["dots"]),
+                 transformer_1rank_remat_dots=remat_a["dots"], **mp_used),
             dev)
         for tag, grid, axes, count, quantized in (
                 ("MoE combine exchange, ep=2", (4, 2), ("model",), moe_count, True),
@@ -9267,6 +9469,7 @@ def main() -> int:
         if card_tests is not None and card_tests.poll() is None:   # a phase failed first
             card_tests.kill()
             card_tests.communicate()
+        stop_ad1(ad1_started)
         if capi_runs is not None:
             capi_runs.kill()
         if cache_runs is not None:

@@ -436,10 +436,19 @@ def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
     A staged form is built once per (algorithm, group, count, op) and kept
     until the Environment is finalized, with the member tables its kernels
     read on the card: a second call copies nothing to the card, so a CUDA
-    graph can record it (the serving engine's decode step)."""
-    from mlsl_tpu_torch.comm import collectives
+    graph can record it (the serving engine's decode step). Over a group
+    that spans processes it is the transport's differentiable sum
+    (``transport.axis_sum``), whatever the table names."""
+    from mlsl_tpu_torch.comm import collectives, transport
 
     rop = ReductionType(op) if op is not None else ReductionType.SUM
+    if transport.spans(group):
+        mlsl_assert(rop == ReductionType.SUM, "inline_allreduce over a group that spans "
+                    "processes sums (got %s)", rop.name)
+        # the transport's sum, the members added as below (one by one on
+        # the CPU, one reduction on the card), and differentiable
+        return _over_span(x, group, lambda sp, y: transport.axis_sum(
+            sp, y, 1, ordered=not x.is_cuda)).reshape(x.shape)
     if group is not None and not group.is_self and group.size > 1:
         grid = x.shape[:NUM_GRID_AXES]
         count = math.prod(x.shape[NUM_GRID_AXES:])
@@ -472,6 +481,28 @@ def inline_allreduce(x: torch.Tensor, dim: int, *, group: ProcessGroup = None,
     return r.expand_as(x)
 
 
+def _over_span(x: torch.Tensor, group: ProcessGroup, hop) -> torch.Tensor:
+    """``hop(span, y)`` on the (C_l, G_l, n) view of a grid tensor (R_l,
+    D_l, S_l, M_l, ...) over a group that spans processes -> its result
+    (C_l, G_l, ...) laid back out as (R_l, D_l, S_l, M_l, n')."""
+    from mlsl_tpu_torch.comm import collectives, transport
+
+    sp = transport.span_of(group)
+    y = collectives.group_view(x.reshape(*x.shape[:NUM_GRID_AXES], -1), sp.box)
+    out = hop(sp, y)
+    return collectives.group_unview(out.reshape(*out.shape[:2], -1), sp.box)
+
+
+def _spanning_route(kind: str, group: ProcessGroup) -> None:
+    """An in-graph exchange over a spanning group takes the transport's
+    differentiable hop, never a kernel route: counted and logged as such."""
+    from mlsl_tpu_torch.core import stats
+
+    stats.record_algo_dispatch(kind, "transport")
+    log_debug("in-graph %s over group %s spans processes: the transport's hop, not a kernel "
+              "route", kind, group.axes)
+
+
 def _group_exchange(x: torch.Tensor, group: ProcessGroup) -> torch.Tensor:
     """The plain all-to-all of per-rank tensors (R, D, S, M, G, *rest) whose
     first local dim holds one chunk per member: member j receives chunk j of
@@ -494,13 +525,19 @@ def inline_alltoall(x: torch.Tensor, group: ProcessGroup, *, config=None) -> tor
     (``pallas_a2a``, kernel B6) takes a float32 payload, as in the JAX
     package; any other type, or the ``lax`` choice, takes the plain
     exchange. The kernel route's gradient is the dense exchange of the
-    cotangent (ops/a2a_kernels.py)."""
+    cotangent (ops/a2a_kernels.py). Over a group that spans processes the
+    exchange is the transport's differentiable ``axis_all_to_all``, never
+    B6 (``ALGO_COUNTERS`` counts it as ``transport``)."""
     g = group.size
     if group.is_self or g <= 1:
         return x
     if group.topology.num_procs > 1:
         if group.spans:
-            return _group_exchange(x, group)
+            _spanning_route("alltoall", group)
+            from mlsl_tpu_torch.comm import transport
+
+            return _over_span(x, group, lambda sp, y: transport.axis_all_to_all(
+                sp, y.reshape(*y.shape[:2], g, -1), 1, 2)).reshape(x.shape)
         group = group.localize()
     local = x.shape[NUM_GRID_AXES:]
     mlsl_assert(local[0] == g, "alltoall needs a leading local dim of size %d, got %s", g,
@@ -531,11 +568,18 @@ def inline_allgather(x: torch.Tensor, group: ProcessGroup, *, config=None) -> to
     over the same ring or snake cycle, as the staged ZeRO-1 update pairs the
     two (comm/overlap.py). The kernel has no autograd and takes float32, bf16
     or int32: a tensor that needs a gradient, or of another type, raises
-    MLSLError on that route. Otherwise the plain gather."""
+    MLSLError on that route. Otherwise the plain gather; over a group that
+    spans processes, the transport's differentiable ``axis_all_gather``."""
     from mlsl_tpu_torch.comm import collectives
 
     grid, local = x.shape[:NUM_GRID_AXES], x.shape[NUM_GRID_AXES:]
     n = math.prod(local)
+    if group.topology.num_procs > 1 and group.spans and group.size > 1:
+        from mlsl_tpu_torch.comm import transport
+
+        _spanning_route("allgather", group)
+        y = _over_span(x, group, lambda sp, v: transport.axis_all_gather(sp, v, 1, 2))
+        return y.reshape(*grid, group.size * local[0], *local[1:])
     if group.topology.num_procs > 1 and not group.spans:
         group = group.localize()
     if (config is not None and not group.is_self and group.size > 1

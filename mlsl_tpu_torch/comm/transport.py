@@ -41,6 +41,15 @@ run their one-process bodies over the local view with the ring shift
 plus one boundary exchange, the last local member's rows to the next
 process of the subgroup's ring. Their rows cross in compressed form.
 
+The trainers (HybridTrainer, the MoE layer, the sequence-parallel
+attention, the pipeline schedules) differentiate through their hops: the
+ring's ``shift`` (+1 or -1), ``axis_sum`` (and ``axis_max`` without a
+gradient), ``axis_all_to_all`` and ``axis_all_gather`` are autograd
+Functions over a Span along one rank dim, each backward the transposed hop.
+The sums gather the G members' rows and add them as one process does, so
+they are the one-process run's bits; ``world_rows`` gathers a small tensor
+(a step's loss rows) over the world.
+
 Float sums that cross processes add in another order than one process's
 member loop (a local sum, then the backend's), within 1e-6 relative; integer
 payloads are exact, and every process receives the same bits.
@@ -63,6 +72,11 @@ Traps, each guarded by a test (tests/test_torch_transport.py):
    request one round a chunk: every process issues them in the same order
    and count, because the bodies loop over the global G and the chunks in
    order, and the Dispatcher never defers a spanning request.
+6. Under autograd, every process must build the same graph of hops: no
+   branch on the process index may change their number or order, and one
+   Function carries a whole tuple (K and V together) in one message, so the
+   backward engine cannot order two ready hops differently on two
+   processes; a remat replay replays its hops on every process alike.
 """
 
 from __future__ import annotations
@@ -308,7 +322,7 @@ def reduce_scatter(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
     return res
 
 
-def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+def all_gather(t: torch.Tensor, group=None, kind: str = "all_gather") -> torch.Tensor:
     """-> (P_s, *t.shape): every process's ``t``, in process order."""
     import torch.distributed as dist
 
@@ -322,7 +336,7 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
         dist.all_gather_into_tensor(out.view(-1), x.view(-1), group=group)
     clk.back()
     res = out.to(t.device)
-    clk.record("all_gather", (x,))
+    clk.record(kind, (x,))
     return res
 
 
@@ -340,7 +354,7 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     return out
 
 
-def all_to_all(t: torch.Tensor, index: int, group=None) -> torch.Tensor:
+def all_to_all(t: torch.Tensor, index: int, group=None, kind: str = "all_to_all") -> torch.Tensor:
     """``t`` (P_s, *block): row q for the subgroup's process q -> (P_s,
     *block), row q from process q. This process's own row stays here: the
     backend gets only the rows that cross (``all_to_all_single`` with a
@@ -363,7 +377,7 @@ def all_to_all(t: torch.Tensor, index: int, group=None) -> torch.Tensor:
     out = t.new_empty(t.shape)
     out[others] = got.to(t.device).view(ps - 1, *t.shape[1:])
     out[index] = t[index]
-    clk.record("all_to_all", (x,))
+    clk.record(kind, (x,))
     return out
 
 
@@ -413,22 +427,26 @@ def exchange(sends: Dict[int, Sequence[torch.Tensor]],
     return got
 
 
-def ring_shift(ts: Sequence[torch.Tensor], group, index: int, size: int) -> tuple:
-    """``torch.roll(t, 1, dims=1)`` of each (C_l, G_l, ...) tensor over a
-    group whose members [off, off + G_l) of each instance sit here and the
-    rest in the ``size`` processes of the subgroup, in member order: member
-    i's rows move to member i + 1. A local roll, then the last local
-    member's rows go to the next process of the ring and the previous
-    process's arrive in the first local member's place (one message for
-    the tuple; with one process in the subgroup, nothing crosses)."""
-    rolled = [torch.roll(t, shifts=1, dims=1) for t in ts]
+def ring_shift(ts: Sequence[torch.Tensor], group, index: int, size: int, *, dim: int = 1,
+               step: int = 1, kind: str = "ring_shift") -> tuple:
+    """``torch.roll(t, step, dims=dim)`` of each tensor over a group whose
+    members [off, off + G_l) of each instance sit here, along ``dim`` (the
+    (C_l, G_l, ...) view's dim 1 by default), and the rest in the ``size``
+    processes of the subgroup, in member order: member i's rows move to
+    member i + step (step +1 or -1). A local roll, then the edge member's
+    rows go to the neighbouring process of the ring and the other
+    neighbour's arrive in the opposite edge's place (one message for the
+    tuple; with one process in the subgroup, nothing crosses)."""
+    mlsl_assert(step in (1, -1), "a ring shift moves one member (step +1 or -1), not %d", step)
+    rolled = [torch.roll(t, shifts=step, dims=dim) for t in ts]
     if size == 1:
         return tuple(rolled)
-    edge = [t[:, -1] for t in ts]
-    nxt, prv = (int(index) + 1) % size, (int(index) - 1) % size
-    got = exchange({nxt: edge}, {prv: edge}, group, kind="ring_shift")[prv]
+    send_at, recv_at = (-1, 0) if step == 1 else (0, -1)
+    edge = [t.select(dim, send_at) for t in ts]
+    dst, src = (int(index) + step) % size, (int(index) - step) % size
+    got = exchange({dst: edge}, {src: edge}, group, kind=kind)[src]
     for r, g in zip(rolled, got):
-        r[:, 0] = g
+        r.select(dim, recv_at).copy_(g)
     return tuple(rolled)
 
 
@@ -481,15 +499,220 @@ class Span:
     def gather(self, y: torch.Tensor) -> torch.Tensor:
         """(C_l, G_l, ...) -> (C_l, G, ...): every member's rows, in member
         order (itself in one process)."""
-        if not self.crosses:
-            return y
-        c = y.shape[0]
-        return all_gather(y, self.handle).transpose(0, 1).reshape(c, self.g, *y.shape[2:])
+        return _gather_dim(self, y, 1, "all_gather") if self.crosses else y
 
 
 def spans(group) -> bool:
     """``group`` spans processes in a world of more than one."""
-    return group.topology.num_procs > 1 and group.spans
+    return group is not None and group.topology.num_procs > 1 and group.spans
+
+
+def span_or_none(group) -> Optional[Span]:
+    """The Span of a single-axis group that spans processes, else None (no
+    group, or one whose box holds its every member: today's code runs)."""
+    if not spans(group):
+        return None
+    mlsl_assert(len(group.live_axes()) == 1, "a hop along a rank dim needs a group of one "
+                "axis, got %s", group.axes)
+    return span_of(group)
+
+
+# -- the differentiable hops ----------------------------------------------------------
+#
+# The trainers (models/transformer.py, models/moe.py, parallel/sequence.py,
+# parallel/pipeline.py) differentiate through their hops. Each hop below is
+# one torch.autograd.Function over a Span whose backward is the transposed
+# hop, along the dim ``dim`` of the tensors that holds the group's G_l local
+# members. One Function carries a whole tuple in one message (K and V
+# together), so the backward engine cannot interleave two ready hops in
+# another order on another process: every process builds the same graph of
+# hops, in the same order, and no branch on the process index may change
+# their number (trap 6). The sums gather the G members' rows and add them
+# as the one process does, so every process holds the one-process run's
+# bits.
+
+
+#: the moves carry 16-bit floats as their bytes: a move needs only the bits,
+#: and not every backend takes every 16-bit type in every collective
+_MOVED_AS_BYTES = (torch.bfloat16, torch.float16)
+
+
+def _bytes(t: torch.Tensor, lead: int) -> torch.Tensor:
+    """A 16-bit float tensor -> its bytes, (*t.shape[:lead], nbytes); any
+    other tensor as it is."""
+    if t.dtype not in _MOVED_AS_BYTES:
+        return t
+    return t.contiguous().reshape(*t.shape[:lead], -1).view(torch.uint8)
+
+
+def _unbytes(t: torch.Tensor, like: torch.Tensor, shape) -> torch.Tensor:
+    """``_bytes``' inverse for a tensor shaped ``shape`` of ``like``'s dtype."""
+    if like.dtype not in _MOVED_AS_BYTES:
+        return t
+    return t.view(like.dtype).reshape(shape)
+
+
+def _gather_dim(span: Span, x: torch.Tensor, dim: int, kind: str) -> torch.Tensor:
+    """x with its G_l local members at ``dim`` -> every member's rows at
+    ``dim`` (G), in member order."""
+    rows = all_gather(_bytes(x.contiguous(), 0), span.handle, kind=kind)
+    rows = _unbytes(rows, x, (span.size, *x.shape))                 # (P_s, *x.shape)
+    rows = rows.movedim(0, dim)                                     # P_s just before G_l
+    return rows.reshape(*x.shape[:dim], span.g, *x.shape[dim + 1:])
+
+
+def _sum_members(full: torch.Tensor, dim: int, ordered: bool) -> torch.Tensor:
+    """The members at ``dim`` added: one by one in member order
+    (``ordered``, as ``algos.inline_allreduce`` sums on the CPU) or as one
+    reduction (as ``transformer._model_sum``). keepdim."""
+    if not ordered:
+        return full.sum(dim=dim, keepdim=True)
+    r = full.narrow(dim, 0, 1)
+    for j in range(1, full.shape[dim]):
+        r = r + full.narrow(dim, j, 1)
+    return r
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, span, dim, step, *ts):
+        ctx.span, ctx.dim, ctx.step = span, dim, step
+        return ring_shift(ts, span.handle, span.index, span.size, dim=dim, step=step,
+                          kind="shift")
+
+    @staticmethod
+    def backward(ctx, *gs):
+        sp = ctx.span
+        back = ring_shift(gs, sp.handle, sp.index, sp.size, dim=ctx.dim, step=-ctx.step,
+                          kind="shift")
+        return (None, None, None, *back)
+
+
+def shift(span: Span, *ts: torch.Tensor, step: int = 1, dim: int = 1) -> tuple:
+    """Member i's rows move to member i + step (±1) along ``dim``: the
+    ring's ``lax.ppermute``, ``torch.roll`` in one process. Differentiable:
+    the backward shifts the cotangents the opposite way."""
+    if not span.crosses:
+        return tuple(torch.roll(t, shifts=step, dims=dim) for t in ts)
+    return _Shift.apply(span, dim, step, *ts)
+
+
+class _AxisSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, span, dim, ordered, x):
+        ctx.span, ctx.dim = span, dim
+        full = _gather_dim(span, x, dim, "axis_sum")
+        return _sum_members(full, dim, ordered).expand_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the one process's backward of a keepdim sum broadcast back: the
+        # cotangents' sum over the members, as one reduction
+        full = _gather_dim(ctx.span, g, ctx.dim, "axis_sum")
+        return None, None, None, full.sum(dim=ctx.dim, keepdim=True).expand(g.shape)
+
+
+def axis_sum(span: Span, x: torch.Tensor, dim: int, ordered: bool = False) -> torch.Tensor:
+    """``lax.psum`` over the span's members at ``dim``, on every member
+    (``x.sum(dim, keepdim=True).expand_as(x)`` in one process; ``ordered``
+    adds the members one by one). Differentiable: the backward is the same
+    sum of the cotangents."""
+    if not span.crosses:
+        return _sum_members(x, dim, ordered).expand_as(x)
+    return _AxisSum.apply(span, dim, ordered, x)
+
+
+def axis_max(span: Span, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The MAX over the span's members at ``dim``, keepdim, without a
+    gradient (the sharded vocabulary's stability max)."""
+    with torch.no_grad():
+        full = _gather_dim(span, x.detach(), dim, "axis_sum") if span.crosses else x.detach()
+        return full.amax(dim=dim, keepdim=True)
+
+
+def _exchange_chunks(span: Span, x: torch.Tensor, dim: int, cdim: int) -> torch.Tensor:
+    """out[member m at ``dim``, i at ``cdim``] = member i's chunk m: each
+    process's blocks for another's members in one ``all_to_all``."""
+    gl = span.gl
+    send = torch.stack([x.narrow(cdim, q * gl, gl) for q in range(span.size)])
+    got = all_to_all(_bytes(send, 1), span.index, span.handle, kind="axis_all_to_all")
+    got = _unbytes(got, x, send.shape)
+    return torch.cat([got[q].transpose(dim, cdim) for q in range(span.size)], dim=cdim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, span, dim, cdim, x):
+        ctx.span, ctx.dim, ctx.cdim = span, dim, cdim
+        return _exchange_chunks(span, x, dim, cdim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the exchange is its own inverse
+        return None, None, None, _exchange_chunks(ctx.span, g, ctx.dim, ctx.cdim)
+
+
+def axis_all_to_all(span: Span, x: torch.Tensor, dim: int, cdim: int) -> torch.Tensor:
+    """``lax.all_to_all`` (split = concat = ``cdim``, untiled) over the
+    members at ``dim``: x holds one chunk a member along ``cdim`` (G), and
+    member j receives chunk j of every member, in member order, at the same
+    place (``x.transpose(dim, cdim)`` in one process). Differentiable: the
+    backward is the inverse exchange."""
+    mlsl_assert(dim < cdim and x.shape[cdim] == span.g and x.shape[dim] == span.gl,
+                "axis_all_to_all: dim %d must hold the %d local members and dim %d the %d "
+                "chunks, got %s", dim, span.gl, cdim, span.g, tuple(x.shape))
+    if not span.crosses:
+        return x.transpose(dim, cdim)
+    return _AllToAll.apply(span, dim, cdim, x)
+
+
+def _concat_members(full: torch.Tensor, dim: int, tdim: int, gl: int) -> torch.Tensor:
+    """(..., G at dim, ..., T at tdim, ...) -> (..., G_l at dim, ..., G*T at
+    tdim, ...): the members' rows concatenated along T, on every local member."""
+    y = full.movedim(dim, tdim - 1).flatten(tdim - 1, tdim).unsqueeze(dim)
+    return y.expand(*y.shape[:dim], gl, *y.shape[dim + 1:])
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, span, dim, tdim, x):
+        ctx.span, ctx.dim, ctx.tdim, ctx.t = span, dim, tdim, x.shape[tdim]
+        full = _gather_dim(span, x, dim, "axis_all_gather")
+        return _concat_members(full, dim, tdim, span.gl)
+
+    @staticmethod
+    def backward(ctx, g):
+        # JAX's transpose of lax.all_gather: the members' cotangents summed
+        # (one reduction, as the one process's broadcast backward), this
+        # member's slice kept
+        sp, dim, tdim = ctx.span, ctx.dim, ctx.tdim
+        s = _gather_dim(sp, g, dim, "axis_all_gather").sum(dim=dim, keepdim=True).squeeze(dim)
+        s = s.unflatten(tdim - 1, (sp.g, ctx.t)).narrow(tdim - 1, sp.off, sp.gl)
+        return None, None, None, s.movedim(tdim - 1, dim)
+
+
+def axis_all_gather(span: Span, x: torch.Tensor, dim: int, tdim: int) -> torch.Tensor:
+    """The tiled ``lax.all_gather`` over the members at ``dim``: every
+    member receives every member's x, concatenated along ``tdim`` in member
+    order. Differentiable: the backward sums the members' cotangents and
+    keeps this member's slice."""
+    mlsl_assert(dim < tdim and x.shape[dim] == span.gl,
+                "axis_all_gather: dim %d must hold the %d local members, got %s", dim,
+                span.gl, tuple(x.shape))
+    if not span.crosses:
+        return _concat_members(x, dim, tdim, span.gl)
+    return _AllGather.apply(span, dim, tdim, x)
+
+
+def world_rows(x: torch.Tensor, topo) -> torch.Tensor:
+    """This process's box (R_l, D_l, S_l, M_l, ...) -> the world's grid (R,
+    D, S, M, ...), every process's rows gathered (a small tensor: a step's
+    loss rows). Itself in one process."""
+    if topo.num_procs == 1:
+        return x
+    rest = x.shape[len(topo.local_shape):]
+    rows = all_gather(x.contiguous().reshape(topo.local_size, -1), None, kind="world_rows")
+    return rows.reshape(*topo.grid_shape, *rest)
 
 
 def span_of(group) -> Span:

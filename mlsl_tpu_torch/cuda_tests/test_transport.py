@@ -9,8 +9,11 @@ single-process collective on a (4, 2) grid's groups bit for bit, the direct
 alltoall, bcast and sendrecv their assembled form too. The ring shift of a
 tuple of CUDA tensors is ``torch.roll`` (nothing crosses in one process), and
 one composed int8 ring round on a Span launches B1 once a hop, bit for bit
-the round on ``quantize_blocks_ref``. The process group is destroyed after
-each test.
+the round on ``quantize_blocks_ref``. The four differentiable hops of the
+trainers (the shift both ways, the sum, the all-to-all, the all-gather), as
+their autograd Functions on a one-member span of the world, give CUDA
+tensors whose rows and gradients are their plain versions' bit for bit. The
+process group is destroyed after each test.
 """
 
 import socket
@@ -124,3 +127,40 @@ def test_cuda_composed_int8_round_on_b1(backend):
     assert qk.LAUNCHES["quantize_blocks"] == group.size + 1
     want, want_err = ref(x, err)
     assert torch.equal(got, want) and torch.equal(got_err, want_err)
+
+
+def _hops():
+    one = transport.Span(box=None, g=4, gl=4, off=0, partition=((0,),), index=0, size=1)
+    return (
+        ("shift+1", lambda t: transport._Shift.apply(one, 1, 1, t)[0],
+         lambda t: torch.roll(t, 1, dims=1)),
+        ("shift-1", lambda t: transport._Shift.apply(one, 1, -1, t)[0],
+         lambda t: torch.roll(t, -1, dims=1)),
+        ("axis_sum", lambda t: transport._AxisSum.apply(one, 1, False, t),
+         lambda t: t.sum(dim=1, keepdim=True).expand_as(t)),
+        ("axis_all_to_all", lambda t: transport._AllToAll.apply(one, 1, 3, t),
+         lambda t: t.transpose(1, 3)),
+        ("axis_all_gather", lambda t: transport._AllGather.apply(one, 1, 2, t),
+         lambda t: transport._concat_members(t, 1, 2, 4)))
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def test_cuda_differentiable_hops_match_plain(backend):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    hops = _hops()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(2, 4, 33, 4, 65, device="cuda", generator=gen).to(dtype)
+        x[:, :, 0] = -0.0
+        for name, hop, plain in hops:
+            a, b = x.clone().requires_grad_(), x.clone().requires_grad_()
+            ya, yb = hop(a), plain(b)
+            assert ya.is_cuda and torch.equal(_bits(ya), _bits(yb)), f"{backend} {name} {dtype}"
+            g = torch.randn(ya.shape, device="cuda", generator=gen).to(dtype)
+            (ga,) = torch.autograd.grad(ya, a, g)
+            (gb,) = torch.autograd.grad(yb, b, g)
+            assert ga.is_cuda and torch.equal(_bits(ga), _bits(gb)), \
+                f"{backend} {name} {dtype} backward"

@@ -11,7 +11,11 @@ Counterpart of ``mlsl_tpu.data.feed``. It composes
    or off, so the cache changes where the bytes come from, never the data.
 
 Iteration yields decoded batches in the layout ``DataParallelTrainer.
-shard_batch`` gives, so ``trainer.step`` takes them unchanged. Wrap in
+shard_batch`` gives, so ``trainer.step`` takes them unchanged. In a world of
+several processes each process feeds its box: every process reads the same
+source in the same (shuffled) order, and stages, caches and counts only its
+own shards (data/wire.py); the FEED counters and the cache are this
+process's. Wrap in
 :class:`AsyncLoader` (or use ``DataParallelTrainer.feed``) for prefetch.
 
 Source forms:
@@ -76,9 +80,6 @@ class DeviceFeed:
                  quant_block: Optional[int] = None,
                  retries: Optional[int] = None,
                  device=None):
-        from mlsl_tpu_torch.comm import transport
-
-        transport.refuse("the device feed")
         if wire is None:
             wire = os.environ.get("MLSL_FEED_WIRE_DTYPE", "")
         if cache_mb is None:

@@ -35,6 +35,13 @@ CPU each batch gets fresh tensors. The decoded leaves are (R, D, S, M, localB,
 ...) views expanded from (R, D, 1, 1, ...), as ``DataParallelTrainer.
 shard_batch`` gives them.
 
+In a world of several processes every process reads the whole host batch
+(the same source and shuffle seed) and encodes, copies, caches and counts
+only the (r, d) shards of its box (``Topology.local_origin`` /
+``local_shape``); the decode gives the box (R_l, D_l, S_l, M_l, localB,
+...), ``shard_batch``'s local part. The wire and full bytes are this
+process's.
+
 Non-float leaves (labels) always ride unchanged.
 
 With the tracer armed, a staged batch is an ``h2d.transfer`` span and a
@@ -317,7 +324,9 @@ class FeedCodec:
             mlsl_assert(treedef == self._treedef,
                         "feed batch structure changed mid-stream (got %s, staged %s)",
                         treedef, self._treedef)
-        r_, d_, s_, m_ = self.topo.grid_shape
+        r_, d_ = self.topo.grid_shape[:2]
+        (r0, d0), (rl, dl, sl, ml) = self.topo.local_origin[:2], self.topo.local_shape
+        shards = [(r0 + i) * d_ + d0 + j for i in range(rl) for j in range(dl)]
         cuda = self.device.type == "cuda"
         staged = []
         wire_bytes = full_bytes = 0
@@ -333,7 +342,7 @@ class FeedCodec:
             f32_nbytes = (arr[:local_b].size * 4 if np.issubdtype(arr.dtype, np.floating)
                           else arr[:local_b].nbytes)
             q_parts, s_parts = [], []
-            for i in range(r_ * d_):
+            for i in shards:
                 q, meta = _encode_slice(leaf.kind, arr[i * local_b:(i + 1) * local_b],
                                         self.block, leaf.key)
                 if corrupt:
@@ -343,9 +352,9 @@ class FeedCodec:
                     corrupt = False  # one rotted block a batch
                 q_parts.append(q)
                 s_parts.append(meta)
-            per_dev = s_ * m_
+            per_dev = sl * ml
             wire_bytes += sum(q.nbytes for q in q_parts) * per_dev
-            full_bytes += f32_nbytes * r_ * d_ * per_dev
+            full_bytes += f32_nbytes * len(shards) * per_dev
             parts = {"q": q_parts}
             if leaf.has_meta:
                 parts["s"] = s_parts
@@ -369,8 +378,8 @@ class FeedCodec:
         return wire, wire_bytes, full_bytes
 
     def _host_tensor(self, parts) -> torch.Tensor:
-        """Per-shard arrays -> one (R, D, *payload) tensor (fresh memory)."""
-        r_, d_ = self.topo.grid_shape[:2]
+        """Per-shard arrays -> one (R_l, D_l, *payload) tensor (fresh memory)."""
+        r_, d_ = self.topo.local_shape[:2]
         a = np.stack(parts).reshape(r_, d_, *parts[0].shape)
         t = torch.from_numpy(a)
         return t.view(torch.bfloat16) if a.dtype == np.int16 else t
@@ -388,7 +397,7 @@ class FeedCodec:
     def _copy_to_card(self, staged, slot: _Slot) -> WireBatch:
         """Write the shards into the slot's pinned tensors and copy them to the
         card on the copy stream; -> the WireBatch with its copy events."""
-        r_, d_ = self.topo.grid_shape[:2]
+        r_, d_ = self.topo.local_shape[:2]
         if self._copy_stream is None:
             # from the high-priority pool: PyTorch hands out pool streams round
             # robin, so a default-priority one can be the very stream a CUDA
@@ -460,7 +469,7 @@ class FeedCodec:
             for w in wires:
                 for t in w.values():
                     t.record_stream(cur)
-        r_, d_, s_, m_ = self.topo.grid_shape
+        r_, d_, s_, m_ = self.topo.local_shape
         out = []
         for leaf, w in zip(self._layout, wires):
             ls = leaf.local_shape

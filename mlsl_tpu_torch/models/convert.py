@@ -68,19 +68,25 @@ def params_to_jax(tree_or_module):
     return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
-def transformer_params_from_jax(tree, cfg, grid, device=None):
+def transformer_params_from_jax(tree, cfg, grid, device=None, box=None):
     """The JAX package's transformer parameters (the global tree of numpy
     arrays that ``mlsl_tpu.models.transformer.init_params`` gives) -> the
     port's per-rank layout: each leaf a float32 tensor of shape
     (R, D, S, M, *local) on ``device`` (default: the Environment's device),
     where model rank m holds the m-th of ``tp`` equal slices of a leaf that
     ``param_specs`` shards over the model axis and a copy of every other.
-    Every rank has its own copy, so autograd gives each its own gradient."""
+    Every rank has its own copy, so autograd gives each its own gradient.
+
+    ``box``: (origin, shape) of this process's ranks in a world of several
+    processes (``Topology.local_origin`` / ``local_shape``): only they are
+    placed, as (R_l, D_l, S_l, M_l, *local), model rank m0 + m holding slice
+    m0 + m."""
     from mlsl_tpu_torch.core.environment import default_device
     from mlsl_tpu_torch.models.transformer import param_specs
 
     device = default_device() if device is None else device
     r, d, s, m = grid
+    m0, (r, d, s, ml) = (0, grid) if box is None else (box[0][3], box[1])
     specs = param_specs(cfg)
 
     def place(a, dim):
@@ -88,7 +94,7 @@ def transformer_params_from_jax(tree, cfg, grid, device=None):
         if dim is not None and t.shape[dim] % m:
             raise ValueError(f"dim {dim} of a {tuple(t.shape)} leaf does not split {m} ways")
         parts = [t] * m if dim is None else list(t.chunk(m, dim=dim))
-        x = torch.stack(parts).to(device)                       # (M, *local)
+        x = torch.stack(parts[m0:m0 + ml]).to(device)           # (M_l, *local)
         return x.unsqueeze(0).unsqueeze(0).unsqueeze(0).expand(r, d, s, *x.shape).contiguous()
 
     return {name: {k: place(tree[name][k], specs[name][k]) for k in sorted(specs[name])}

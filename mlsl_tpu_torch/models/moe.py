@@ -21,6 +21,11 @@ axis among them (the trainer passes the model dim of (R, D, S, M)):
   combine exchange through kernel B6 (``pallas_a2a``); without a group they
   are the plain transpose of the expert axis with the chunk dim;
 - the all-gather reassembles the output over the expert axis.
+
+Across processes, a model group that spans them leaves this process the
+M_l expert ranks [off, off + M_l): rank m keeps token slice off + m, and
+both exchanges and the gather are the transport's differentiable hops
+(``comm/algos`` ``inline_alltoall`` / ``inline_allgather``), never B6.
 """
 
 from __future__ import annotations
@@ -90,12 +95,15 @@ def _expert_ffn(buf: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return mxu_einsum("...ecf,...efd->...ecd", h.to(compute_dtype), view(w2).to(compute_dtype))
 
 
-def _diagonal(x: torch.Tensor, axis: int, ep: int) -> torch.Tensor:
+def _diagonal(x: torch.Tensor, axis: int, ep: int, off: int = 0) -> torch.Tensor:
     """x (*ranks, T, D) -> (*ranks, T/ep, D): rank m along ``axis`` keeps
-    token slice m."""
+    token slice m (off + m where this process holds the ranks [off, off +
+    M_l) of the ep)."""
     nr = x.dim() - 2
     t, d = x.shape[nr:]
     x5 = x.reshape(*x.shape[:nr], ep, t // ep, d)
+    if off or x.shape[axis] != ep:
+        x5 = x5.narrow(nr, off, x.shape[axis])
     return torch.diagonal(x5, dim1=axis, dim2=nr).movedim(-1, axis)
 
 
@@ -144,10 +152,14 @@ def moe_ffn(x: torch.Tensor, params: Dict, axis: int, ep: int,
         return _moe_slice(x, params, n_experts, capacity_factor, top_k, compute_dtype)
     mlsl_assert(t % ep == 0, "moe_ffn: token count %d not divisible by ep=%d (trailing "
                              "tokens would be silently dropped)", t, ep)
-    mlsl_assert(x.shape[axis] == ep, "moe_ffn: rank dim %d has %d ranks, not ep=%d", axis,
-                x.shape[axis], ep)
+    from mlsl_tpu_torch.comm import transport
+
+    span = transport.span_or_none(group)
+    local, off = (ep, 0) if span is None else (span.gl, span.off)
+    mlsl_assert(x.shape[axis] == local, "moe_ffn: rank dim %d has %d ranks, not %d of ep=%d",
+                axis, x.shape[axis], local, ep)
     tl = t // ep
-    xs = _diagonal(x, axis, ep)                                       # (*ranks, Tl, D)
+    xs = _diagonal(x, axis, ep, off)                                  # (*ranks, Tl, D)
     capacity = max(1, int(tl * capacity_factor * top_k / n_experts))
     dispatch, combine, aux = _route(xs, params["wg"], n_experts, capacity, top_k)
     buf = torch.einsum("...tec,...td->...ecd", dispatch, xs.float())

@@ -81,7 +81,7 @@ from torch.utils.checkpoint import (
 
 from mlsl_tpu_torch import optim
 from mlsl_tpu_torch.core import graph_capture
-from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.log import MLSLError, mlsl_assert
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax, tree_leaves
 from mlsl_tpu_torch.models.train import owned_opt_increment
 from mlsl_tpu_torch.models.moe import init_moe_params, moe_ffn
@@ -216,19 +216,41 @@ def _ln(x, scale, bias, eps=1e-5):
     return y * _bcast(scale, n) + _bcast(bias, n)
 
 
-def _model_sum(x: torch.Tensor, tp: int) -> torch.Tensor:
-    """``lax.psum(x, 'model')``: the sum over the M dim on every model rank."""
+def _model_sum(x: torch.Tensor, tp: int, span=None) -> torch.Tensor:
+    """``lax.psum(x, 'model')``: the sum over the M dim on every model rank;
+    over a model group that spans processes (``span``), the transport's
+    differentiable sum of the gathered rows, the same reduction."""
+    if span is not None:
+        from mlsl_tpu_torch.comm import transport
+
+        return transport.axis_sum(span, x, MODEL_DIM)
     return x.sum(dim=MODEL_DIM, keepdim=True).expand_as(x) if tp > 1 else x
 
 
-def _positions(sp: int, sl: int, zigzag: bool, device) -> torch.Tensor:
-    """(S, sl) int64: the position-embedding rows of each sequence rank."""
+def _spans(groups):
+    """(seq Span, model Span) of the trainer's groups, None where a group
+    lies inside this process's box (or no groups are given)."""
+    if groups is None:
+        return None, None
+    from mlsl_tpu_torch.comm import transport
+
+    return tuple(transport.span_or_none(g) for g in groups)
+
+
+def _positions(sp: int, sl: int, zigzag: bool, device, s_off: int = 0,
+               s_local: Optional[int] = None) -> torch.Tensor:
+    """(S, sl) int64: the position-embedding rows of each sequence rank (the
+    S_l ranks from ``s_off`` that this process holds, where given)."""
     if zigzag and sp > 1:
         # zigzag layout: tokens/labels arrive zigzag-ordered (shard_tokens), so
         # the position rows follow the same permutation of the run-time global
         # length sp*sl
-        return torch.as_tensor(zigzag_perm(sp * sl, sp), device=device).view(sp, sl)
-    return torch.arange(sp * sl, device=device).view(sp, sl)
+        idx = torch.as_tensor(zigzag_perm(sp * sl, sp), device=device).view(sp, sl)
+    else:
+        idx = torch.arange(sp * sl, device=device).view(sp, sl)
+    if s_local is not None and s_local != sp:
+        idx = idx[s_off:s_off + s_local]
+    return idx
 
 
 # the products whose outputs remat_policy="dots" keeps (jax.checkpoint_policies.
@@ -249,12 +271,17 @@ def _save_products():
     return create_selective_checkpoint_contexts(_products_policy)
 
 
-def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm=None):
+def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm=None,
+                  groups=None):
     """The forward of every rank at once.
 
     tokens: (R, D, S, M, Bl, Sl) int. params: per-rank local shards, each leaf
     (R, D, S, M, *local). ``comm``: (model group, Config) for the MoE
-    exchanges' selection, or None for the plain exchange. Returns (final
+    exchanges' selection, or None for the plain exchange. ``groups``: the
+    (seq, model) ProcessGroups in a world of several processes, where the
+    tensors are this process's box (R_l, D_l, S_l, M_l, ...): a group that
+    spans processes takes the transport's differentiable hops, and the
+    position rows start at the box's seq origin. Returns (final
     hidden states (R, D, S, M, Bl, Sl, d_model) float32 post final-LN, the
     same on every model rank, and the MoE aux-loss total of each rank's
     slices, (R, D, S, M), or 0.0 without experts). The LM head is applied by
@@ -264,8 +291,12 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
     emb = params["embed"]
     cdt = _dtype(cfg.dtype)
     dm = cfg.d_model
-    idx = _positions(sp, sl, cfg.attention == "zigzag", tokens.device)
-    idx = idx.view(1, 1, sp, 1, sl, 1).expand(*grid, sl, dm)
+    s_span, m_span = _spans(groups)
+    seq_group = groups[0] if groups is not None else None
+    s_l = grid[SEQ_DIM]
+    idx = _positions(sp, sl, cfg.attention == "zigzag", tokens.device,
+                     s_span.off if s_span is not None else 0, s_l)
+    idx = idx.view(1, 1, s_l, 1, sl, 1).expand(*grid, sl, dm)
     pos = torch.gather(emb["pos"], GRID, idx)                         # (*grid, Sl, dm)
     tok_idx = tokens.reshape(*grid, bl * sl, 1).long().expand(*grid, bl * sl, dm)
     tok = torch.gather(emb["tok"], GRID, tok_idx).view(*grid, bl, sl, dm)
@@ -276,10 +307,11 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
             mlsl_assert(causal, "zigzag attention is causal-only "
                                 "(use attention='ring' for non-causal)")
             if n > 1:
-                return zigzag_ring_attention(q, k, v, ax, n)
-            return ring_attention(q, k, v, ax, n, causal=True)
+                return zigzag_ring_attention(q, k, v, ax, n, group=seq_group)
+            return ring_attention(q, k, v, ax, n, causal=True, group=seq_group)
     else:
-        attn_fn = ring_attention if cfg.attention == "ring" else ulysses_attention
+        attn_fn = functools.partial(
+            ring_attention if cfg.attention == "ring" else ulysses_attention, group=seq_group)
 
     def block(h, lnp, ap, mp):
         a = _ln(h.float(), lnp["ln1_scale"], lnp["ln1_bias"]).to(cdt)
@@ -288,7 +320,7 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
         attn = attn_fn(q, k, v, SEQ_DIM, sp, causal=True)
         # bf16 operands, f32 product: the residual add and the TP sum stay f32
         o = mxu_einsum("...bhsx,...hxd->...bsd", attn.to(cdt), ap["wo"].to(cdt))
-        h = (h.float() + _model_sum(o, tp)).to(cdt)
+        h = (h.float() + _model_sum(o, tp, m_span)).to(cdt)
 
         a = _ln(h.float(), lnp["ln2_scale"], lnp["ln2_bias"]).to(cdt)
         if cfg.n_experts > 0:
@@ -300,7 +332,7 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
         f = F.gelu(torch.einsum("...bsd,...df->...bsf", a, mp["w1"].to(cdt))
                    + _bcast(mp["b1"], 2).to(cdt), approximate="tanh")
         o = mxu_einsum("...bsf,...fd->...bsd", f, mp["w2"].to(cdt))
-        return (h.float() + _model_sum(o, tp) + _bcast(mp["b2"], 2)).to(cdt), None
+        return (h.float() + _model_sum(o, tp, m_span) + _bcast(mp["b2"], 2)).to(cdt), None
 
     # cfg.remat (transformer.py:256-275 of the JAX package): keep only each
     # block's input residual stream and replay the block in the backward
@@ -324,7 +356,7 @@ def forward_local(params, tokens, cfg: TransformerConfig, sp: int, tp: int, comm
     return _ln(h.float(), fin["ln_scale"], fin["ln_bias"]), aux_total
 
 
-def _sharded_vocab_ce(h, head_local, labels, tp: int) -> torch.Tensor:
+def _sharded_vocab_ce(h, head_local, labels, tp: int, span=None) -> torch.Tensor:
     """CE over a vocabulary sharded over the model axis (transformer.py:
     282-301): per-shard logits (..., Bl, Sl, V/tp), float32; the stability
     max is the max over M of the shards' maxima, without gradient (it cancels
@@ -332,38 +364,49 @@ def _sharded_vocab_ce(h, head_local, labels, tp: int) -> torch.Tensor:
     the shard that holds it, are summed over M. -> (R, D, S, M) CE sums, the
     same on every model rank. Every rank's loss enters the objective scaled
     by 1/tp and ``_model_sum``'s backward adds the M cotangents, so each
-    shard's logits get exactly softmax - onehot."""
+    shard's logits get exactly softmax - onehot. Over a model group that
+    spans processes (``span``) the max and both sums cross them, and this
+    process's M_l shards start at vocabulary slice ``span.off``."""
     logits = torch.einsum("...bsd,...dv->...bsv", h, head_local)
     vl = logits.shape[-1]
     with torch.no_grad():
-        mx = logits.amax(dim=-1).amax(dim=MODEL_DIM, keepdim=True)       # (R, D, S, 1, Bl, Sl)
-    se = _model_sum(torch.exp(logits - mx[..., None]).sum(dim=-1), tp)
+        mx = logits.amax(dim=-1)
+        if span is None:
+            mx = mx.amax(dim=MODEL_DIM, keepdim=True)                  # (R, D, S, 1, Bl, Sl)
+        else:
+            from mlsl_tpu_torch.comm import transport
+
+            mx = transport.axis_max(span, mx, MODEL_DIM)
+    se = _model_sum(torch.exp(logits - mx[..., None]).sum(dim=-1), tp, span)
     lse = torch.log(se) + mx
-    off = torch.arange(tp, device=labels.device).view(1, 1, 1, tp, 1, 1) * vl
+    m0, ml = (0, tp) if span is None else (span.off, span.gl)
+    off = torch.arange(m0, m0 + ml, device=labels.device).view(1, 1, 1, ml, 1, 1) * vl
     local = labels.long() - off
     in_range = (local >= 0) & (local < vl)
     picked = torch.gather(logits, -1, local.clamp(0, vl - 1).unsqueeze(-1)).squeeze(-1)
-    label_logit = _model_sum(torch.where(in_range, picked, 0.0), tp)
+    label_logit = _model_sum(torch.where(in_range, picked, 0.0), tp, span)
     return (lse - label_logit).sum(dim=(-2, -1))
 
 
-def local_loss(params, tokens, labels, cfg: TransformerConfig, sp: int, tp: int, comm=None):
+def local_loss(params, tokens, labels, cfg: TransformerConfig, sp: int, tp: int, comm=None,
+               groups=None):
     """Sum (not mean) of CE over each rank's local token shard -> ((R, D, S,
     M) float32, aux). The reduction across data/seq shards belongs to the
     gradient requests. The LM head is replicated over the model axis (dense
     log-softmax) or, with ``cfg.sharded_vocab`` and tp > 1, sharded over it
     (``_sharded_vocab_ce``)."""
-    h, aux = forward_local(params, tokens, cfg, sp, tp, comm=comm)
-    return head_ce(h, params["final"]["head"], labels, cfg, tp), aux
+    h, aux = forward_local(params, tokens, cfg, sp, tp, comm=comm, groups=groups)
+    return head_ce(h, params["final"]["head"], labels, cfg, tp, _spans(groups)[1]), aux
 
 
-def head_ce(h, head, labels, cfg: TransformerConfig, tp: int) -> torch.Tensor:
+def head_ce(h, head, labels, cfg: TransformerConfig, tp: int, span=None) -> torch.Tensor:
     """The LM head and its CE on the final hidden states h (R, D, S, M, Bl,
     Sl, d_model) float32 -> (R, D, S, M) CE sums: the dense log-softmax over
-    the replicated head, or ``_sharded_vocab_ce`` over the rank's shard."""
+    the replicated head, or ``_sharded_vocab_ce`` over the rank's shard
+    (``span``: the model group's, where it spans processes)."""
     head = head.float()
     if cfg.sharded_vocab and tp > 1:
-        return _sharded_vocab_ce(h, head, labels, tp)
+        return _sharded_vocab_ce(h, head, labels, tp, span)
     logits = torch.einsum("...bsd,...dv->...bsv", h, head)
     logp = torch.log_softmax(logits, dim=-1)
     ce = -torch.gather(logp, -1, labels.long().unsqueeze(-1)).squeeze(-1)
@@ -634,15 +677,26 @@ class HybridTrainer:
     ``optimizer``: a transform of ``mlsl_tpu_torch.optim``; None means
     ``optim.sgd(lr)``. Its state per layer is ``self.opt_state[layer]``, over
     (R, D, S, M, local count) -- every rank's flat local vector -- or under
-    ``distributed_update`` over (R, D, S, M, owned count)."""
+    ``distributed_update`` over (R, D, S, M, owned count).
+
+    In a world of several processes (comm/transport.py) every tensor is this
+    process's box (R_l, D_l, S_l, M_l, ...) of ``Topology.local_shape``
+    (``self.grid``): ``shard_tokens`` places the box's tokens, the weights
+    are the box's ranks, a seq or model group that spans processes takes
+    the transport's differentiable hops (the ring's K/V shift, Ulysses'
+    exchanges, the model sums, the sharded vocabulary's max and sums, the
+    MoE exchanges), the gradient requests cross as the data-parallel
+    trainer's do, and the returned mean CE is the world's, the same on
+    every process. Every process builds the same graph of hops, so a
+    replayed (remat) block replays its hops on every process alike. Where
+    the seq or model group spans processes, ``step`` runs the fused step
+    eagerly on the card too (a CUDA graph cannot hold a gloo hop) and
+    ``compiled_step`` raises (ROADMAP A.8b.6)."""
 
     def __init__(self, env, cfg: TransformerConfig, dp: int, sp: int, tp: int,
                  batch: Optional[int] = None, lr: float = 0.1, seed: int = 0,
                  distributed_update: bool = False, compression=None, optimizer=None,
                  params=None):
-        from mlsl_tpu_torch.comm import transport
-
-        transport.refuse("HybridTrainer")
         mlsl_assert(not isinstance(optimizer, optim.ShardedAdafactor),
                     "ShardedAdafactor's cross-shard factored stats are implemented for "
                     "DataParallelTrainer's distributed update; HybridTrainer takes the "
@@ -673,14 +727,23 @@ class HybridTrainer:
                         "(experts shard over the model axis)", cfg.n_experts, tp)
             mlsl_assert(local_tokens % tp == 0, "local token count %d (batch/dp * seq/sp) must "
                         "be divisible by tp %d for expert-parallel routing", local_tokens, tp)
-        self.grid = self.dist.topology.grid_shape
+        topo = self.dist.topology
+        # this process's box: the whole grid in one process
+        self.grid = topo.local_shape
+        self.global_grid = topo.grid_shape
+        self._groups = (self.dist.seq_group, self.dist.model_group)
+        self._seq_span, self._model_span = _spans(self._groups)
+        # a CUDA graph cannot hold a hop across processes (ROADMAP A.8b.6)
+        self._hops_in_step = self._seq_span is not None or self._model_span is not None
         self.session = env.create_session()
         self.session.set_global_minibatch_size(self.batch)
 
         self.specs = param_specs(cfg)
         if params is None:
             params = init_params(torch.Generator().manual_seed(seed), cfg)
-        self.params = transformer_params_from_jax(params, cfg, self.grid, device=env.device)
+        self.params = transformer_params_from_jax(
+            params, cfg, self.global_grid, device=env.device,
+            box=(topo.local_origin, topo.local_shape) if topo.num_procs > 1 else None)
         for leaf in tree_leaves(self.params):
             leaf.requires_grad_(True)
         self.layers = layer_names(cfg)
@@ -742,13 +805,18 @@ class HybridTrainer:
     def shard_tokens(self, tokens: np.ndarray, labels: np.ndarray):
         """Global (B, S) tokens and labels -> (R, D, S, M, Bl, Sl) int64 on the
         Environment's device: batch over data, sequence over seq, the same on
-        every model rank; in zigzag order when attention is 'zigzag'."""
+        every model rank; in zigzag order when attention is 'zigzag'. Every
+        process is given the whole batch and keeps its box: the zigzag
+        permutation is of the global sequence, before the box takes its
+        seq rows."""
         if self.cfg.attention == "zigzag" and self.sp > 1:
             # CE is position-wise, so a consistent (tokens, labels) permutation
             # leaves the loss and the parameter trajectory unchanged
             perm = zigzag_perm(tokens.shape[1], self.sp)
             tokens, labels = np.asarray(tokens)[:, perm], np.asarray(labels)[:, perm]
-        r, d, s, m = self.grid
+        r, d, s, m = self.global_grid
+        topo = self.dist.topology
+        (r0, d0, s0, _), (rl, dl, sl, ml) = topo.local_origin, topo.local_shape
         b, n = tokens.shape
         mlsl_assert(b % d == 0 and n % s == 0, "tokens (%d, %d) do not split over a "
                     "(%d data, %d seq) grid", b, n, d, s)
@@ -756,7 +824,8 @@ class HybridTrainer:
         def place(a):
             t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64)).to(self.env.device)
             t = t.reshape(r, d, b // d, s, n // s).permute(0, 1, 3, 2, 4)
-            return t.unsqueeze(3).expand(r, d, s, m, b // d, n // s)
+            t = t[r0:r0 + rl, d0:d0 + dl, s0:s0 + sl]
+            return t.unsqueeze(3).expand(rl, dl, sl, ml, b // d, n // s)
 
         return place(tokens), place(labels)
 
@@ -771,11 +840,11 @@ class HybridTrainer:
         to replicated leaves."""
         with torch.enable_grad():
             ce, aux = local_loss(self.params, tokens, labels, self.cfg, self.sp, self.tp,
-                                 comm=self._comm)
+                                 comm=self._comm, groups=self._groups)
             grads = torch.autograd.grad((ce / self.tp + self._aux_w * aux).sum(),
                                         self._all_leaves())
         specs = [s for n in self.layers for s in self._leaf_specs[n]]
-        grads = [_model_sum(g.float(), self.tp) if spec is None else g.float()
+        grads = [_model_sum(g.float(), self.tp, self._model_span) if spec is None else g.float()
                  for g, spec in zip(grads, specs)]
         return ce.detach(), grads
 
@@ -784,6 +853,11 @@ class HybridTrainer:
         gradient rows in JAX leaf order}), before any sync: the buffers the
         ParameterSet requests take."""
         ce, grads = self._backward(tokens, labels)
+        return ce[..., None], self._rows(grads)
+
+    def _rows(self, grads) -> Dict[str, torch.Tensor]:
+        """``_backward``'s per-leaf gradients (the list is emptied as each
+        layer is packed) -> {layer: (R, D, S, M, padded count) rows}."""
         flat, i = {}, 0
         for name in self.layers:
             n = len(self._leaves[name])
@@ -795,7 +869,7 @@ class HybridTrainer:
             i += n
             pad = self.padded_counts[name] - g.shape[-1]
             flat[name] = F.pad(g, (0, pad)) if pad else g
-        return ce[..., None], flat
+        return flat
 
     @torch.no_grad()
     def _add_flat(self, name: str, flat: torch.Tensor) -> None:
@@ -830,9 +904,10 @@ class HybridTrainer:
         """One training step on sharded (tokens, labels) -> the mean CE. On
         the fused path the card replays the step's CUDA graph (captured at
         the first step of each batch shape), as the reference always runs its
-        fused jit."""
+        fused jit, except where a seq or model group spans processes: a
+        graph cannot hold their hops, and the step runs eagerly."""
         if self.fused:
-            if tokens.device.type == "cuda":
+            if tokens.device.type == "cuda" and not self._hops_in_step:
                 return self._replay(tokens, labels)
             return self._eager_step(tokens, labels)
         loss, grads = self._grad_fn(tokens, labels)
@@ -843,6 +918,16 @@ class HybridTrainer:
         graph's body, and its twin on the card. -> the mean CE (0-d)."""
         ce, grads = self._backward(tokens, labels)
         self._fused_update(grads)
+        return self._mean_ce(ce)
+
+    def _mean_ce(self, ce: torch.Tensor) -> torch.Tensor:
+        """(R_l, D_l, S_l, M_l[, 1]) CE sums, the same on every model rank ->
+        the mean CE over the world's tokens: in several processes every
+        process's rows gathered first and summed in the one process's order,
+        so every process returns the same bits."""
+        from mlsl_tpu_torch.comm import transport
+
+        ce = transport.world_rows(ce.detach(), self.dist.topology)
         return ce[:, :, :, 0].sum() / self._norm
 
     # -- the fused step as one CUDA graph ------------------------------------
@@ -853,9 +938,14 @@ class HybridTrainer:
         the step's captured graph (captured here if ``step`` has not yet).
         Its FLOPs come from one eager step under the FLOP counters, run at the
         first call for a batch shape; the parameters and the optimizer state
-        are restored afterwards."""
+        are restored afterwards. Where a seq or model group spans processes
+        there is no graph to describe: MLSLError (ROADMAP A.8b.6)."""
         if not self.fused:
             return None
+        if self._hops_in_step:
+            raise MLSLError("HybridTrainer.compiled_step: the fused step over a seq or model "
+                            "group that spans processes runs eagerly; its compiled form is "
+                            "ROADMAP A.8b.6")
         compiled = (self._graph_for(tokens, labels)[1] if tokens.device.type == "cuda"
                     else CompiledStep())
         if not compiled.op_flops and not compiled.kernel_flops:
@@ -924,7 +1014,7 @@ class HybridTrainer:
                 self._opt_update(name, reduced[..., :self.local_counts[name]] / self._norm)
         # the loss buffer holds per-(data, seq)-shard CE sums, the same on every
         # model rank -> take slot 0; mean = total / (batch * seq_len)
-        return loss[:, :, :, 0].sum() / self._norm
+        return self._mean_ce(loss)
 
     @torch.no_grad()
     def _zero1_update(self, grads) -> None:

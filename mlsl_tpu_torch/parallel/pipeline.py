@@ -29,6 +29,16 @@ The microbatch loss sums go through ``algos.inline_allreduce`` along the
 stage dim, and ``reduce_microbatch_grads`` builds the data-parallel gradient
 reduction on the compiled overlap engine (kernels B3 / B5 dense, B4 + B1
 int8, as the selection table routes them).
+
+Across processes (comm/transport.py) every schedule takes ``group``, the
+stage axis's ProcessGroup, and the leading dims are this process's box. A
+group that spans processes leaves this process the S_l = n_stages / P
+stages [off, off + S_l): the coordinates start at ``off``, the stage
+boundary is the transport's ``shift`` (differentiable in GPipe, plain in
+1F1B's legs), and the loss sum crosses through ``inline_allreduce`` over
+the group. Every tick issues its hops on every process, whatever rows it
+selects there. In a world of several processes a call without ``group``
+raises: the stage dim of a box is not the pipeline's.
 """
 
 from __future__ import annotations
@@ -42,27 +52,39 @@ from torch.func import vmap
 from torch.utils import _pytree as pytree
 
 from mlsl_tpu_torch.comm import algos
-from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.log import MLSLError, mlsl_assert
 
 
-def _ranks(x_micro: torch.Tensor, axis: int, n_stages: int):
-    """-> (rank dims, rank count) of a (*ranks, M, mb, d) microbatch tensor."""
+def _ranks(x_micro: torch.Tensor, axis: int, n_stages: int, group=None):
+    """-> (rank dims, rank count, the stage group's Span or None) of a
+    (*ranks, M, mb, d) microbatch tensor."""
     from mlsl_tpu_torch.comm import transport
 
-    transport.refuse("the pipeline schedules")
+    if group is None and transport.world().count > 1:
+        raise MLSLError("the pipeline schedules in a world of several processes need "
+                        "group=, the stage axis's ProcessGroup")
+    span = transport.span_or_none(group)
     nr = x_micro.dim() - 3
     ranks = tuple(x_micro.shape[:nr])
-    mlsl_assert(0 <= axis < nr and ranks[axis] == n_stages,
+    local = n_stages if span is None else span.gl
+    mlsl_assert(span is None or (span.g == n_stages and nr == 4),
+                "the stage group has %d members, not %d, or %s is not a box's (R, D, S, M, "
+                "M, mb, d) microbatches", 0 if span is None else span.g, n_stages,
+                tuple(x_micro.shape))
+    mlsl_assert(0 <= axis < nr and ranks[axis] == local,
                 "axis %d of %s is not a stage dim of %d ranks", axis,
-                tuple(x_micro.shape), n_stages)
-    return ranks, math.prod(ranks)
+                tuple(x_micro.shape), local)
+    return ranks, math.prod(ranks), span
 
 
-def _coords(ranks, axis: int) -> np.ndarray:
-    """Each flattened rank's stage coordinate (numpy, (P,))."""
+def _coords(ranks, axis: int, span=None) -> np.ndarray:
+    """Each flattened rank's stage coordinate (numpy, (P,)); this process's
+    stages start at ``span.off`` where the stage group spans processes."""
     shape = [1] * len(ranks)
     shape[axis] = ranks[axis]
-    return np.broadcast_to(np.arange(ranks[axis]).reshape(shape), ranks).reshape(-1)
+    off = 0 if span is None else span.off
+    return np.broadcast_to(np.arange(off, off + ranks[axis]).reshape(shape),
+                           ranks).reshape(-1)
 
 
 def _flat(tree, ranks, lead=()):
@@ -74,9 +96,20 @@ def _flat(tree, ranks, lead=()):
             *t.shape[:nl], -1, *t.shape[nl + nr:]), tree)
 
 
-def _roll(x: torch.Tensor, ranks, axis: int, shift: int) -> torch.Tensor:
-    """The stage boundary: (P, ...) rolled by ``shift`` along the stage dim."""
-    return torch.roll(x.reshape(*ranks, *x.shape[1:]), shift, axis).reshape(x.shape)
+def _roll(x: torch.Tensor, ranks, axis: int, shift: int, span=None) -> torch.Tensor:
+    """The stage boundary: (P, ...) rolled by ``shift`` along the stage dim
+    (across processes, the transport's differentiable shift)."""
+    y = x.reshape(*ranks, *x.shape[1:])
+    if span is None:
+        return torch.roll(y, shift, axis).reshape(x.shape)
+    from mlsl_tpu_torch.comm import transport
+
+    return transport.shift(span, y, step=shift, dim=axis)[0].reshape(x.shape)
+
+
+def _loss_sum(loss: torch.Tensor, axis: int, span, group) -> torch.Tensor:
+    """The loss summed over the stage dim, every stage holding it."""
+    return algos.inline_allreduce(loss, axis, group=group if span is not None else None)
 
 
 def _device_indices(arrays: List[np.ndarray], device) -> List[torch.Tensor]:
@@ -95,7 +128,7 @@ def _check_width(y: torch.Tensor, d: int) -> None:
 
 
 def gpipe_forward(stage_fn: Callable, stage_params, x_micro: torch.Tensor, axis: int,
-                  n_stages: int, remat: bool = False) -> torch.Tensor:
+                  n_stages: int, remat: bool = False, group=None) -> torch.Tensor:
     """The fill-drain forward (pipeline.py:38-105).
 
     stage_params: every rank's stage weights, leaves (*ranks, ...).
@@ -103,10 +136,11 @@ def gpipe_forward(stage_fn: Callable, stage_params, x_micro: torch.Tensor, axis:
     not read). remat: wrap the stage in ``torch.utils.checkpoint``
     (non-reentrant), so the backward recomputes stage internals instead of
     keeping every tick's activations. -> (*ranks, M, mb, d): the last stage's
-    outputs, zeros elsewhere. Differentiable by autograd."""
-    ranks, n = _ranks(x_micro, axis, n_stages)
+    outputs, zeros elsewhere. Differentiable by autograd. ``group``: the
+    stage axis's ProcessGroup (module docstring)."""
+    ranks, n, span = _ranks(x_micro, axis, n_stages, group)
     m_count, mb, d = x_micro.shape[len(ranks):]
-    me = _coords(ranks, axis)
+    me = _coords(ranks, axis, span)
     params = _flat(stage_params, ranks)
     xm = x_micro.reshape(n, m_count, mb, d)
     fn = vmap(stage_fn)
@@ -131,7 +165,7 @@ def gpipe_forward(stage_fn: Callable, stage_params, x_micro: torch.Tensor, axis:
         _check_width(y, d)
         y = torch.where(active[t][:, None, None], y, torch.zeros_like(y))
         ys.append(y)
-        recv = _roll(y, ranks, axis, 1)
+        recv = _roll(y, ranks, axis, 1, span)
     # the last stage banks microbatch i at tick i + S - 1
     last = torch.from_numpy(me == n_stages - 1).to(dev)[:, None, None, None]
     outs = torch.stack([ys[i + n_stages - 1] for i in range(m_count)], dim=1)
@@ -201,17 +235,18 @@ def _backward_leg(fn, loss_head, p_sel, x_in, dy, last_rows, targets):
 
 def one_f1b_step(stage_fn: Callable, loss_head: Callable, stage_params,
                  x_micro: torch.Tensor, y_micro: torch.Tensor, axis: int,
-                 n_stages: int):
+                 n_stages: int, group=None):
     """The 1F1B schedule (pipeline.py:159-273): (loss, stage grads) without
     O(M) activation memory. A stage keeps at most S - s boundary inputs; the
     backward leg recomputes the stage from its saved input. loss_head(y,
     target) -> scalar. -> (loss summed over the microbatches and the stage
     dim, every rank holding it (*ranks,); grads, leaves (*ranks, ...): each
-    rank's own stage gradient, summed over its microbatches)."""
-    ranks, n = _ranks(x_micro, axis, n_stages)
+    rank's own stage gradient, summed over its microbatches). ``group``: the
+    stage axis's ProcessGroup (module docstring)."""
+    ranks, n, span = _ranks(x_micro, axis, n_stages, group)
     m_count, mb, d = x_micro.shape[len(ranks):]
     S = n_stages
-    me = _coords(ranks, axis)
+    me = _coords(ranks, axis, span)
     dev = x_micro.device
     params = pytree.tree_map(lambda t: t.detach(), _flat(stage_params, ranks))
     xm = x_micro.reshape(n, m_count, mb, d)
@@ -260,9 +295,9 @@ def one_f1b_step(stage_fn: Callable, loss_head: Callable, stage_params,
             if lv is not None:
                 loss_acc[b_rows[b_last]] += lv.detach().float()
             send_b[b_rows] = dx
-        recv_f = _roll(send_f, ranks, axis, 1)
-        recv_b = _roll(send_b, ranks, axis, -1)
-    loss = algos.inline_allreduce(loss_acc.reshape(ranks), axis)
+        recv_f = _roll(send_f, ranks, axis, 1, span)
+        recv_b = _roll(send_b, ranks, axis, -1, span)
+    loss = _loss_sum(loss_acc.reshape(ranks), axis, span, group)
     return loss, pytree.tree_map(lambda g: g.reshape(*ranks, *g.shape[1:]), grads)
 
 
@@ -455,21 +490,22 @@ def interleaved_schedule(n_stages: int, v_chunks: int, m_count: int) -> dict:
 
 def interleaved_1f1b_step(stage_fn: Callable, loss_head: Callable, chunk_params,
                           x_micro: torch.Tensor, y_micro: torch.Tensor, axis: int,
-                          n_stages: int, v_chunks: int):
+                          n_stages: int, v_chunks: int, group=None):
     """Interleaved (virtual-stage) 1F1B (pipeline.py:473-608): (loss, chunk
     grads). chunk_params: leaves (V, *ranks, ...); chunk c of the rank at
     stage coordinate d is global stage c*S + d (reshape a (V*S, ...)-stacked
     model to (V, S, ...)). The schedule's tables (``interleaved_schedule``)
     give each rank its op a tick: a forward of one chunk (F rows) or an
     explicit-remat vjp (B rows), with the bubble cut about V-fold. -> (loss
-    (*ranks,), grads with the leaves' layout (V, *ranks, ...))."""
-    ranks, n = _ranks(x_micro, axis, n_stages)
+    (*ranks,), grads with the leaves' layout (V, *ranks, ...)). ``group``: the
+    stage axis's ProcessGroup (module docstring)."""
+    ranks, n, span = _ranks(x_micro, axis, n_stages, group)
     m_count, mb, d = x_micro.shape[len(ranks):]
     S, V = int(n_stages), int(v_chunks)
     sched = interleaved_schedule(S, V, m_count)
     tb = sched["tables"]
     k_f, k_b, k_s = sched["k_f"], sched["k_b"], sched["k_s"]
-    me = _coords(ranks, axis)
+    me = _coords(ranks, axis, span)
     dev = x_micro.device
     params = pytree.tree_map(lambda t: t.detach(), _flat(chunk_params, ranks, lead=(V,)))
     xm = x_micro.reshape(n, m_count, mb, d)
@@ -522,32 +558,33 @@ def interleaved_1f1b_step(stage_fn: Callable, loss_head: Callable, chunk_params,
             if lv is not None:
                 loss_acc[b_rows[b_last]] += lv.detach().float()
             send_b[b_rows] = dx
-        recv_f = _roll(send_f, ranks, axis, 1)
-        recv_b = _roll(send_b, ranks, axis, -1)
+        recv_f = _roll(send_f, ranks, axis, 1, span)
+        recv_b = _roll(send_b, ranks, axis, -1, span)
         if nfs:
             fwd_in[fs_rows, fs_idx] = recv_f[fs_rows]
         if nbs:
             bwd_in[bs_rows, bs_idx] = recv_b[bs_rows]
-    loss = algos.inline_allreduce(loss_acc.reshape(ranks), axis)
+    loss = _loss_sum(loss_acc.reshape(ranks), axis, span, group)
     return loss, pytree.tree_map(lambda g: g.reshape(V, *ranks, *g.shape[2:]), grads)
 
 
 def pipeline_loss(stage_fn: Callable, loss_head: Callable, stage_params,
                   x_micro: torch.Tensor, y_micro: torch.Tensor, axis: int,
-                  n_stages: int, remat: bool = False) -> torch.Tensor:
+                  n_stages: int, remat: bool = False, group=None) -> torch.Tensor:
     """The GPipe forward and the loss on the last stage, summed over the
     stage dim so that every stage holds it (pipeline.py:611-627): -> (*ranks,),
     ready for ``torch.autograd`` (the backward replays the schedule in
-    reverse)."""
-    ranks, n = _ranks(x_micro, axis, n_stages)
-    outs = gpipe_forward(stage_fn, stage_params, x_micro, axis, n_stages, remat=remat)
+    reverse). ``group``: the stage axis's ProcessGroup (module docstring)."""
+    ranks, n, span = _ranks(x_micro, axis, n_stages, group)
+    outs = gpipe_forward(stage_fn, stage_params, x_micro, axis, n_stages, remat=remat,
+                         group=group)
     m_count = outs.shape[len(ranks)]
     per_micro = vmap(vmap(loss_head))(
         outs.reshape(n, m_count, *outs.shape[len(ranks) + 1:]),
         y_micro.reshape(n, m_count, *y_micro.shape[len(ranks) + 1:]))      # (P, M)
-    last = torch.from_numpy(_coords(ranks, axis) == n_stages - 1).to(outs.device)
+    last = torch.from_numpy(_coords(ranks, axis, span) == n_stages - 1).to(outs.device)
     local = torch.where(last, per_micro.sum(dim=1), torch.zeros_like(per_micro[:, 0]))
-    return algos.inline_allreduce(local.reshape(ranks), axis)
+    return _loss_sum(local.reshape(ranks), axis, span, group)
 
 
 def reduce_microbatch_grads(group, counts: Sequence[int], *, config=None, compression=None,

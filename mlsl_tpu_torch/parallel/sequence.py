@@ -15,6 +15,15 @@ the index of the leading dim that is the sequence group. So
 and each kernel launch covers every rank at once, with per-row position
 offsets where ranks differ (kernels B7-B9, ``ops/attention_kernels.py``).
 
+Across processes (comm/transport.py) each function takes ``group``, the
+sequence axis's ProcessGroup. A group that spans processes leaves this
+process the S_l seq ranks [off, off + S_l) of the G: the coordinate is
+``off + arange(S_l)``, the rotation is the transport's differentiable
+``shift`` (a local roll and one boundary message for K and V together),
+and Ulysses' two re-shards are its ``axis_all_to_all``. B9 folds what
+arrived as it folds a local block. With ``None`` or a process-local group
+the code below is today's, bit for bit.
+
 ``use_flash``: None routes through the kernels wherever ``supports()``
 admits the shapes and head_dim is at most ``MAX_HEAD_DIM`` (128), what the
 CUDA kernels take (the plain versions on a CPU tensor); any other shape takes
@@ -43,16 +52,38 @@ from mlsl_tpu_torch.ops.attention_kernels import (
 _NEG = -1e30
 
 
-def _coord(x: torch.Tensor, axis: int, axis_size: int) -> torch.Tensor:
+def _span(group, axis_size: int):
+    """The seq group's Span when it spans processes (else None)."""
+    from mlsl_tpu_torch.comm import transport
+
+    span = transport.span_or_none(group)
+    mlsl_assert(span is None or span.g == axis_size, "the seq group has %d members, not %d",
+                0 if span is None else span.g, axis_size)
+    return span
+
+
+def _coord(x: torch.Tensor, axis: int, axis_size: int, span=None) -> torch.Tensor:
     """The rank's coordinate along ``axis``: an int64 tensor over the leading
-    rank dims of x (size ``axis_size`` at ``axis``, 1 elsewhere)."""
+    rank dims of x (size ``axis_size`` at ``axis``, 1 elsewhere; this
+    process's S_l ranks from ``span.off`` when the group spans processes)."""
     nr = x.dim() - 4
-    mlsl_assert(0 <= axis < nr and x.shape[axis] == axis_size,
+    local, off = (axis_size, 0) if span is None else (span.gl, span.off)
+    mlsl_assert(0 <= axis < nr and x.shape[axis] == local,
                 "axis %d of %s is not a sequence group of %d ranks", axis,
-                tuple(x.shape), axis_size)
+                tuple(x.shape), local)
     shape = [1] * nr
-    shape[axis] = axis_size
-    return torch.arange(axis_size, device=x.device).view(shape)
+    shape[axis] = local
+    return torch.arange(off, off + local, device=x.device).view(shape)
+
+
+def _rotate(k, v, axis: int, span):
+    """K and V passed one seq rank on (``lax.ppermute``): ``torch.roll`` in
+    one process, else one differentiable hop carrying both."""
+    if span is None:
+        return torch.roll(k, 1, dims=axis), torch.roll(v, 1, dims=axis)
+    from mlsl_tpu_torch.comm import transport
+
+    return transport.shift(span, k, v, dim=axis)
 
 
 def _per_row(x: torch.Tensor, lead) -> torch.Tensor:
@@ -89,10 +120,11 @@ def _inv_sqrt(d: int, dtype, device) -> torch.Tensor:
 
 
 def ring_attention(q, k, v, axis: int, axis_size: int, causal: bool = False,
-                   use_flash: Optional[bool] = None) -> torch.Tensor:
+                   use_flash: Optional[bool] = None, group=None) -> torch.Tensor:
     """Exact attention over the full (sharded) sequence via a k/v ring."""
     if axis_size == 1:
         return _dense_attention(q, k, v, causal, 0)
+    span = _span(group, axis_size)
     sl, d = q.shape[-2:]
     if use_flash is None:
         use_flash = _use_flash(sl, sl, d)
@@ -103,9 +135,9 @@ def ring_attention(q, k, v, axis: int, axis_size: int, causal: bool = False,
             "(got seq=%d, head_dim=%d); use use_flash=False",
             sl, d,
         )
-        return _ring_flash(q, k, v, axis, axis_size, causal)
+        return _ring_flash(q, k, v, axis, axis_size, causal, span)
     scale = _inv_sqrt(d, q.dtype, q.device)
-    me = _coord(q, axis, axis_size)
+    me = _coord(q, axis, axis_size, span)
     ar = torch.arange(sl, device=q.device)
     q_pos = me[..., None] * sl + ar
     init = (
@@ -120,26 +152,27 @@ def ring_attention(q, k, v, axis: int, axis_size: int, causal: bool = False,
         return _attn_block_update(qf, k_cur.float(), v_cur.float(), *carry, q_pos, k_pos,
                                   causal, scale)
 
-    acc, m, l = _ring_schedule(k, v, axis, axis_size, init, step_fn)
+    acc, m, l = _ring_schedule(k, v, axis, axis_size, init, step_fn, span)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.to(q.dtype)
 
 
-def _ring_schedule(k, v, axis: int, axis_size: int, init_carry, step_fn):
+def _ring_schedule(k, v, axis: int, axis_size: int, init_carry, step_fn, span=None):
     """The shared k/v rotation loop: at hop t every rank folds the block
-    originally owned by rank (me - t) into its carry, then passes it right."""
-    me = _coord(k, axis, axis_size)
+    originally owned by rank (me - t) into its carry, then passes it right.
+    Every process runs the G - 1 hops of the global ring (trap 6 of
+    comm/transport.py)."""
+    me = _coord(k, axis, axis_size, span)
     carry, k_cur, v_cur = init_carry, k, v
     for t in range(axis_size):
         src = (me - t) % axis_size          # original owner of the current block
         carry = step_fn(carry, k_cur, v_cur, src)
         if t + 1 < axis_size:               # the last hop's rotation is never read
-            k_cur = torch.roll(k_cur, 1, dims=axis)
-            v_cur = torch.roll(v_cur, 1, dims=axis)
+            k_cur, v_cur = _rotate(k_cur, v_cur, axis, span)
     return carry
 
 
-def _ring_flash(q, k, v, axis: int, axis_size: int, causal: bool) -> torch.Tensor:
+def _ring_flash(q, k, v, axis: int, axis_size: int, causal: bool, span=None) -> torch.Tensor:
     """Ring attention with kernel B9 as the inner step: each hop folds the
     visiting k/v block into the carried (acc, m, l) of every rank in one
     launch, with per-row offsets me*sl and src*sl."""
@@ -147,7 +180,7 @@ def _ring_flash(q, k, v, axis: int, axis_size: int, causal: bool) -> torch.Tenso
     sl, d = q.shape[-2:]
     bh = math.prod(lead)
     qf = q.reshape(bh, sl, d)
-    me = _coord(q, axis, axis_size)
+    me = _coord(q, axis, axis_size, span)
     q_off = _per_row(me * sl, lead) if causal else 0
 
     def step_fn(carry, k_cur, v_cur, src):
@@ -156,7 +189,7 @@ def _ring_flash(q, k, v, axis: int, axis_size: int, causal: bool) -> torch.Tenso
                                   *carry, q_off, k_off, causal)
 
     acc, m, l = _ring_schedule(k, v, axis, axis_size, empty_state(bh, sl, d, q.device),
-                               step_fn)
+                               step_fn, span)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(q.shape).to(q.dtype)
 
@@ -188,7 +221,7 @@ def zigzag_perm_inverse(seq_len: int, axis_size: int) -> np.ndarray:
 
 
 def zigzag_ring_attention(q, k, v, axis: int, axis_size: int,
-                          use_flash: Optional[bool] = None) -> torch.Tensor:
+                          use_flash: Optional[bool] = None, group=None) -> torch.Tensor:
     """Load-balanced CAUSAL ring attention over zigzag-sharded sequences.
 
     Rank r holds global chunks r and 2G-1-r (see zigzag_perm). The self hop
@@ -202,15 +235,18 @@ def zigzag_ring_attention(q, k, v, axis: int, axis_size: int,
 
     Which chunk a rank takes differs across ranks, so each update selects
     every rank's chunk first and then runs once for all ranks (one B9 launch
-    on the flash path). Inputs are zigzag-sharded (*ranks, B, H, 2c, D).
+    on the flash path). Inputs are zigzag-sharded (*ranks, B, H, 2c, D): the
+    chunk pair of seq rank ``me`` is (me, 2G-1-me) in the global numbering,
+    whichever process holds it.
     """
     if axis_size == 1:
         return _dense_attention(q, k, v, True, 0)
+    span = _span(group, axis_size)
     lead = q.shape[:-2]
     sl, d = q.shape[-2:]
     mlsl_assert(sl % 2 == 0, "zigzag shard length must be even (got %d)", sl)
     c, g, bh = sl // 2, axis_size, math.prod(lead)
-    me = _coord(q, axis, axis_size)
+    me = _coord(q, axis, axis_size, span)
     if use_flash is None:
         use_flash = _use_flash(c, c, d)
 
@@ -274,7 +310,7 @@ def zigzag_ring_attention(q, k, v, axis: int, axis_size: int,
     a1, m1, l1 = full_update(q1, chunk(kz, 0), chunk(vz, 0), *empty_state(bh, c, d, q.device))
     a1, m1, l1 = diag_update(q1, chunk(kz, 1), chunk(vz, 1), a1, m1, l1)
 
-    k_cur, v_cur = torch.roll(kz, 1, dims=axis), torch.roll(vz, 1, dims=axis)
+    k_cur, v_cur = _rotate(kz, vz, axis, span)
     for t in range(1, g):
         src = (me - t) % g                      # original owner of the visiting kv
         early = _per_row(src < me, lead)         # visitor's chunks precede mine
@@ -289,7 +325,7 @@ def zigzag_ring_attention(q, k, v, axis: int, axis_size: int,
         a1, m1, l1 = full_update(q1, torch.where(e3, k0, k1), torch.where(e3, v0, v1),
                                  a1, m1, l1)
         if t + 1 < g:
-            k_cur, v_cur = torch.roll(k_cur, 1, dims=axis), torch.roll(v_cur, 1, dims=axis)
+            k_cur, v_cur = _rotate(k_cur, v_cur, axis, span)
 
     out = torch.stack([a0 / torch.clamp_min(l0[..., None], 1e-30),
                        a1 / torch.clamp_min(l1[..., None], 1e-30)], dim=1)
@@ -297,7 +333,7 @@ def zigzag_ring_attention(q, k, v, axis: int, axis_size: int,
 
 
 def ulysses_attention(q, k, v, axis: int, axis_size: int,
-                      causal: bool = False) -> torch.Tensor:
+                      causal: bool = False, group=None) -> torch.Tensor:
     """Exact attention by re-sharding seq->heads with all-to-all, attending, and
     re-sharding back."""
     nr = q.dim() - 4
@@ -306,19 +342,27 @@ def ulysses_attention(q, k, v, axis: int, axis_size: int,
         return _dense_attention(q, k, v, causal, 0)
     mlsl_assert(h % axis_size == 0,
                 "heads_local %d must be divisible by seq axis size %d", h, axis_size)
-    _coord(q, axis, axis_size)
+    span = _span(group, axis_size)
+    _coord(q, axis, axis_size, span)
     g = axis_size
     ranks = q.shape[:nr]
 
+    def exchange(y):  # the seq rank dim <-> the head-group dim (nr + 1)
+        if span is None:
+            return y.transpose(axis, nr + 1)
+        from mlsl_tpu_torch.comm import transport
+
+        return transport.axis_all_to_all(span, y, axis, nr + 1)
+
     def to_heads(x):  # (ranks, B, H, Sl, D) -> (ranks, B, H/G, S, D)
         b, _, sl, d = x.shape[nr:]
-        y = x.reshape(*ranks, b, g, h // g, sl, d).transpose(axis, nr + 1)
+        y = exchange(x.reshape(*ranks, b, g, h // g, sl, d))
         return y.movedim(nr + 1, nr + 2).reshape(*ranks, b, h // g, g * sl, d)
 
     def to_seq(x):    # (ranks, B, H/G, S, D) -> (ranks, B, H, Sl, D)
         b, hg, s, d = x.shape[nr:]
         y = x.reshape(*ranks, b, hg, g, s // g, d).movedim(nr + 2, nr + 1)
-        return y.transpose(axis, nr + 1).reshape(*ranks, b, g * hg, s // g, d)
+        return exchange(y).reshape(*ranks, b, g * hg, s // g, d)
 
     out = _dense_attention(to_heads(q), to_heads(k), to_heads(v), causal, 0)
     return to_seq(out)

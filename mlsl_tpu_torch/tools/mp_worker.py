@@ -40,8 +40,23 @@ coordinator. Phases, in order:
   loss outliers on rank 0 alone: the step of the demotion, which every
   process must take at the same round.
 
+The trainers across processes (ROADMAP A.8b.4):
+
+- ``hybrid``: HybridTrainer over the boxes, every case of ``HYBRID_TINY``
+  (``--size full``: ``HYBRID_FULL``, gpt-medium-2k at its widths), each
+  rank's CE and gradient rows before the sync, the first step's reduced
+  gradients, two steps' world losses and the parameters after them, and
+  the case's attention on its own, forward and backward (B9 on the card);
+- ``moe``: the same for gpt-medium-2k-moe8 (or the tiny MoE) at tp 8;
+- ``pipeline``: GPipe, 1F1B and (tiny) interleaved 1F1B over the (1, 8)
+  grid's model axis, each rank's loss and stage gradients;
+- ``feed``: ``trainer.feed`` on the int8 wire (``--feed mlp|resnet``), each
+  decoded box held to ``shard_batch``'s local part and each loss to a twin
+  fed by ``shard_batch``, both bit for bit.
+
 ``graph``, ``resnet`` and ``resnet_int8`` (config 5 on config 4's int8 ring
-in ``RESNET_BUCKET_MB`` buckets) are the card's run (ad). Each closed form is
+in ``RESNET_BUCKET_MB`` buckets) are the card's run (ad), with the four above
+at ``--size full --feed resnet``. Each closed form is
 checked on the ranks this process holds (within 1e-6 relative for float
 sums, exactly otherwise). The results are written to
 ``DIR/proc<I>.npz`` (keys ``phase/name/rank``) for a caller to hold against a
@@ -52,6 +67,7 @@ trained parameters>`` at the end.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -107,6 +123,48 @@ BIG_WIRE_CASES = (
 )
 BIG_TOPK_RATIO = 0.01
 SAMPLE_STRIDE = 4099
+
+#: phases ``hybrid`` and ``moe`` (HybridTrainer over the world's boxes): the
+#: tiny float32 config of tests/test_torch_transformer.py, heads widened to 8
+#: where tp = 8 needs them. A case: (tag, config fields, (dp, sp, tp), ZeRO-1,
+#: global batch). Between the 2 x 4 and 4 x 2 worlds every axis spans
+#: processes: the data axis (ZeRO-1 too), the seq axis under ring, zigzag,
+#: Ulysses and remat, the model axis with its sums, the sharded vocabulary
+#: and the MoE exchanges
+TFM_TINY = dict(vocab=32, d_model=16, n_heads=4, head_dim=4, n_blocks=2, seq_len=16,
+                dtype="float32")
+HYBRID_TINY = (
+    ("zigzag_222", dict(attention="zigzag"), (2, 2, 2), False, 4),
+    ("zigzag_222_zero1", dict(attention="zigzag"), (2, 2, 2), True, 4),
+    ("ring_124", dict(attention="ring"), (1, 2, 4), False, 2),
+    ("ulysses_241", dict(attention="ulysses"), (2, 4, 1), False, 4),
+    ("ring_142_remat", dict(attention="ring", remat=True), (1, 4, 2), False, 2),
+    ("vocab_118", dict(n_heads=8, head_dim=2, sharded_vocab=True), (1, 1, 8), False, 2),
+)
+MOE_TINY = (("moe_118", dict(n_heads=8, head_dim=2, n_experts=8), (1, 1, 8), False, 2),)
+#: the card's: gpt-medium-2k at its full widths, two blocks, bf16; run (b)'s
+#: grid with zigzag (the data axis spans two processes), then dp 1 x sp 2 x
+#: tp 4 on the ring with the head sharded (the seq axis spans); and
+#: gpt-medium-2k-moe8 at tp 8 (the model axis spans), batch 2 (dp = 1: every
+#: rank holds the batch's 4,096 tokens)
+HYBRID_FULL = (
+    ("zigzag_222", dict(attention="zigzag"), (2, 2, 2), False, 8),
+    ("zigzag_222_zero1", dict(attention="zigzag"), (2, 2, 2), True, 8),
+    ("ring_124_vocab", dict(attention="ring", sharded_vocab=True), (1, 2, 4), False, 8),
+)
+MOE_FULL = (("moe_118", dict(n_experts=8), (1, 1, 8), False, 2),)
+TFM_STEPS = 2
+TFM_LR = {"tiny": 0.5, "full": 0.1}
+#: phase ``pipeline``: stages over the (1, 8) grid's model axis, one a rank.
+#: Tiny: tests/test_torch_pipeline.py's tanh stage (d 8, 6 microbatches of 2
+#: rows). Full: run (x)'s residual MLP blocks at gpt-medium-2k's widths (d_model
+#: 1,024, d_ff 4,096, float32), one block a stage, 8 microbatches of 1,024
+#: tokens
+PIPE_TINY = dict(d=8, micro=6, rows=2, v_chunks=2)
+PIPE_FULL = dict(d=1024, d_ff=4096, micro=8, rows=1024)
+PIPE_STAGES = WORLD
+#: phase ``feed``: batches through ``trainer.feed`` on the int8 wire
+FEED_BATCHES = 2
 
 
 def rank_fill(p: int, n: int) -> np.ndarray:
@@ -808,7 +866,380 @@ class Worker:
                          for n in sorted(leaves[k])))
 
 
+    # -- the trainers across processes (HybridTrainer, the pipelines, the feed) --
+
+    def keep(self, key: str, dist, buf, size: str) -> None:
+        """Each local rank's row of a (R_l, D_l, S_l, M_l, ...) tensor: whole
+        at the tiny size, as two digests and a sample at the full one."""
+        buf = buf.detach().reshape(*buf.shape[:4], -1).float()
+        if size == "tiny":
+            self.save(key, dist, buf)
+        else:
+            self.save_digest(key, dist, buf)
+
+    def tfm_case(self, case, size: str, tparams) -> None:
+        """One HybridTrainer case over this process's box: the per-rank CE
+        and gradient rows before the sync, the reduced gradients of the
+        first step, TFM_STEPS steps' world losses (every process's), the
+        parameters after them; a standalone attention call of the case's
+        schedule (B9 on the card) where the seq axis has ranks."""
+        import torch
+
+        from mlsl_tpu_torch.comm import transport
+        from mlsl_tpu_torch.models import transformer as tfm
+
+        tag, fields, (dp, sp, tp), zero1, batch = case
+        env = self.env
+        base = tfm.TransformerConfig(**TFM_TINY) if size == "tiny" else dataclasses.replace(
+            tfm.GPT_MEDIUM_2K, n_blocks=2)
+        cfg = dataclasses.replace(base, **fields)
+        params = None
+        if tparams is not None:
+            params = {}
+            for k, v in tparams.items():
+                c, layer, leaf = k.split("/")
+                if c == tag:
+                    params.setdefault(layer, {})[leaf] = v
+        tr = tfm.HybridTrainer(env, cfg, dp, sp, tp, batch=batch, lr=TFM_LR[size],
+                               distributed_update=zero1, params=params)
+        dist = tr.dist
+        st, sl = tr.shard_tokens(*tfm_tokens(cfg.vocab, cfg.seq_len, batch))
+        key = f"hybrid/{tag}"
+        if sp > 1:
+            self.attention_call(tr, cfg, key, size)
+        before = transport.hop_totals()
+        secs, losses = [], []
+        sync = lambda: torch.cuda.synchronize(env.device) if env.device.type == "cuda" else None
+        for step in range(TFM_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            if step == 0:
+                # the step as ``step`` runs it, its gradient rows kept first
+                if tr.fused:
+                    ce, grads = tr._backward(st, sl)
+                    loss, rows = ce[..., None], tr._rows(list(grads))
+                else:
+                    loss, rows = tr._grad_fn(st, sl)
+                self.save(f"{key}/ce", dist, loss.reshape(*tr.grid, 1))
+                for name in tr.layers:
+                    self.keep(f"{key}/in/{name}", dist, rows[name], size)
+                if tr.fused:
+                    del rows
+                    tr._fused_update(grads)
+                    lv = tr._mean_ce(ce)
+                    del grads
+                else:
+                    lv = tr._sync_and_update(rows, loss)
+                    for name in tr.layers:
+                        ps = tr.ops[name].get_parameter_set(0)
+                        if ps.need_comm:
+                            self.keep(f"{key}/red/{name}", dist, ps.grad_req._result, size)
+                    del rows
+            else:
+                lv = tr.step(st, sl)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(lv))
+            assert np.isfinite(losses[-1]), (tag, step, losses)
+        hops = hop_delta(before, transport.hop_totals())
+        self.out[f"rep/{key}/losses"] = np.asarray(losses, np.float64)
+        for name in tr.layers:
+            flat = torch.cat([p.detach().reshape(*tr.grid, -1) for p in tr._leaves[name]], -1)
+            self.keep(f"{key}/params/{name}", dist, flat, size)
+        self.report[key] = {"steps": TFM_STEPS, "step_s": secs, "losses": losses,
+                            "fused": tr.fused, "graphs": len(tr._graphs), "hops": hops,
+                            "spans": {a: g.spans for a, g in (
+                                ("data", dist.data_group), ("seq", dist.seq_group),
+                                ("model", dist.model_group))}}
+        del tr, st, sl
+        if env.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def attention_call(self, tr, cfg, key: str, size: str) -> None:
+        """The case's sequence-parallel attention on its own, forward and
+        backward, over the box: q, k, v and the cotangent of every rank from
+        a seed of its global rank, so that a fold of a block that arrived from
+        another process shows against the twin (B9 on the card)."""
+        import torch
+
+        from mlsl_tpu_torch.models import transformer as tfm
+        from mlsl_tpu_torch.parallel import sequence
+
+        dist, env = tr.dist, self.env
+        topo = dist.topology
+        dt = tfm._dtype(cfg.dtype)
+        shape = (1 if size == "full" else 2, cfg.n_heads // tr.tp, cfg.seq_len // tr.sp,
+                 cfg.head_dim)
+        ts = [torch.empty((*tr.grid, *shape), dtype=dt, device=env.device) for _ in range(4)]
+        for p in topo.local_ranks():
+            c = topo.local_coords(p)
+            gen = torch.Generator(device=env.device).manual_seed(1000 + p)
+            for t in ts:
+                t[c] = torch.randn(shape, generator=gen, device=env.device).to(dt)
+        q, k, v = (t.requires_grad_() for t in ts[:3])
+        if cfg.attention == "zigzag":
+            out = sequence.zigzag_ring_attention(q, k, v, tfm.SEQ_DIM, tr.sp,
+                                                 group=dist.seq_group)
+        elif cfg.attention == "ring":
+            out = sequence.ring_attention(q, k, v, tfm.SEQ_DIM, tr.sp, causal=True,
+                                          group=dist.seq_group)
+        else:
+            out = sequence.ulysses_attention(q, k, v, tfm.SEQ_DIM, tr.sp, causal=True,
+                                             group=dist.seq_group)
+        grads = torch.autograd.grad((out.float() * ts[3].float()).sum(), (q, k, v))
+        for name, t in zip(("out", "dq", "dk", "dv"), (out, *grads)):
+            self.keep(f"{key}/attn/{name}", dist, t, size)
+
+    def hybrid(self, size: str = "tiny", tparams=None, cases=None) -> None:
+        """HybridTrainer across processes: every case of HYBRID_TINY (or
+        HYBRID_FULL on the card, ``size="full"``). ``tparams``: the starting
+        weights, ``case/layer/leaf`` arrays (the JAX package's init_params),
+        else the port's from seed 0."""
+        for case in cases or (HYBRID_TINY if size == "tiny" else HYBRID_FULL):
+            self.tfm_case(case, size, tparams)
+        self.log(f"proc {self.pid} hybrid OK")
+
+    def moe(self, size: str = "tiny", tparams=None) -> None:
+        """gpt-medium-2k-moe8 (or the tiny MoE) at tp 8: the model axis spans
+        processes, the exchanges and the model sums cross them."""
+        self.hybrid(size, tparams, MOE_TINY if size == "tiny" else MOE_FULL)
+
+    def pipeline(self, size: str = "tiny") -> None:
+        """GPipe, 1F1B (and interleaved 1F1B at the tiny size) over the (1, 8)
+        grid's model axis, one stage a rank: the stage boundary and the loss
+        sum cross processes. Kept: each rank's loss and stage gradients;
+        reported: each schedule's seconds, hops and gaps to the dense oracle
+        (every stage in sequence) on this process's stages."""
+        import torch
+
+        from mlsl_tpu_torch.comm import transport
+        from mlsl_tpu_torch.parallel import pipeline as pp
+
+        env, S = self.env, PIPE_STAGES
+        dist = env.create_distribution(1, S)
+        topo = dist.topology
+        m0, ml = topo.local_origin[3], topo.local_shape[3]
+        data = pipe_data(size)
+        dev = env.device
+        w = {k: torch.from_numpy(v).to(dev) for k, v in data["weights"].items()}
+        x, t = (torch.from_numpy(data[k]).to(dev) for k in ("x", "t"))
+        grid = topo.local_shape
+        xs = x.expand(*grid, *x.shape)
+        ys = t.expand(*grid, *t.shape)
+        group = dist.model_group
+        box = {k: v[m0:m0 + ml].reshape(1, 1, 1, ml, *v.shape[1:]) for k, v in w.items()}
+        scheds = ("gpipe", "1f1b") + (("interleaved",) if size == "tiny" else ())
+        sync = lambda: torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        oracles = {}
+
+        def rel(a, b):
+            a, b = a.detach().double(), b.detach().double()
+            return float((a - b).norm() / b.norm())
+
+        for sched in scheds:
+            before = transport.hop_totals()
+            sync()
+            t0 = time.perf_counter()
+            if sched == "gpipe":
+                p = {k: v.clone().requires_grad_() for k, v in box.items()}
+                loss = pp.pipeline_loss(pipe_stage, pipe_loss, p, xs, ys, 3, S, group=group)
+                grads = dict(zip(p, torch.autograd.grad(loss.sum() / S, list(p.values()))))
+            elif sched == "1f1b":
+                loss, grads = pp.one_f1b_step(pipe_stage, pipe_loss, box, xs, ys, 3, S,
+                                              group=group)
+            else:
+                v_chunks = PIPE_TINY["v_chunks"]
+                chunks = {k: torch.stack([v[c * S + m0:c * S + m0 + ml] for c in
+                                          range(v_chunks)]).reshape(v_chunks, 1, 1, 1, ml,
+                                                                    *v.shape[1:])
+                          for k, v in w.items()}
+                loss, grads = pp.interleaved_1f1b_step(pipe_stage, pipe_loss, chunks, xs, ys,
+                                                       3, S, v_chunks, group=group)
+            sync()
+            secs = time.perf_counter() - t0
+            hops = hop_delta(before, transport.hop_totals())
+            key = f"pipeline/{sched}"
+            self.save(f"{key}/loss", dist, loss.detach().reshape(*grid, 1))
+            # the dense oracle (every stage in sequence), this process's stages
+            k_stages = S * (PIPE_TINY["v_chunks"] if sched == "interleaved" else 1)
+            if k_stages not in oracles:
+                oracles[k_stages] = pipe_dense(torch, {k: v[:k_stages] for k, v in w.items()},
+                                               x, t, k_stages)
+            o_loss, o_grads = oracles[k_stages]
+            first = float(loss.detach().reshape(-1)[0])
+            gaps = {"loss": abs(first - o_loss) / abs(o_loss), "grad": 0.0}
+            for k, g in grads.items():
+                g = g.detach()
+                if sched == "interleaved":
+                    g = g.movedim(0, 4)                    # (1, 1, 1, M_l, V, ...)
+                    want = o_grads[k].reshape(-1, S, *o_grads[k].shape[1:])[:, m0:m0 + ml]
+                    want = want.movedim(0, 1)
+                else:
+                    want = o_grads[k][m0:m0 + ml]
+                gaps["grad"] = max(gaps["grad"], rel(g.reshape(want.shape), want))
+                self.keep(f"{key}/grad/{k}", dist, g.reshape(*grid, -1), size)
+            self.report[key] = {"s": secs, "hops": hops, "oracle_gaps": gaps}
+            del loss, grads
+        self.log(f"proc {self.pid} pipeline OK")
+
+    def feed(self, model: str = "mlp", resnet=(224, 1000, 64)) -> None:
+        """The fed path across processes: ``trainer.feed`` on the int8 wire,
+        FEED_BATCHES batches, replicated and ZeRO-1, the MLP or config 5
+        (``model="resnet"`` at ``resnet``'s image, classes and batch). Each
+        decoded box is held bit for bit to ``shard_batch``'s local part of
+        the host-decoded batch, and each loss to a twin trainer's fed by
+        ``shard_batch``; kept: the decoded rows and both steps' per-rank
+        losses (``feed/du<0|1>/...``), this process's FEED counters."""
+        import torch
+
+        from mlsl_tpu_torch.core import stats
+        from mlsl_tpu_torch.data.wire import _encode_int8
+        from mlsl_tpu_torch.models import mlp, resnet as rn
+        from mlsl_tpu_torch.models.train import DataParallelTrainer
+        from mlsl_tpu_torch.ops import quant_kernels as qk
+
+        env = self.env
+        host = feed_batches(model, resnet)
+        batch = host[0][0].shape[0]
+        classes = 4 if model == "mlp" else resnet[1]
+        block = env.config.quant_block_elems
+        shards = WORLD
+        local = batch // shards
+
+        def decoded(x):
+            """The host's decode of the int8 wire, shard by shard."""
+            out = []
+            for i in range(shards):
+                part = x[i * local:(i + 1) * local]
+                q, sc = _encode_int8(part, block)
+                d = qk.dequantize_blocks_ref(torch.from_numpy(q).reshape(-1, block),
+                                             torch.from_numpy(sc))
+                out.append(d.reshape(-1)[:part.size].reshape(part.shape).numpy())
+            return np.concatenate(out)
+
+        def build(du):
+            dist = env.create_distribution(WORLD, 1)
+            sess = env.create_session()
+            sess.set_global_minibatch_size(batch)
+            if model == "mlp":
+                net = mlp.MLP(device=env.device)
+                return DataParallelTrainer(env, dist, sess, net, mlp.loss_fn, mlp.LAYERS,
+                                           mlp.get_layer, lr=0.1, distributed_update=du), dist
+            net = rn.ResNet50(num_classes=classes, generator=torch.Generator().manual_seed(0),
+                              device=env.device)
+            return DataParallelTrainer(env, dist, sess, net, rn.loss_fn, rn.layer_names(net),
+                                       rn.layer_subtree, lr=0.05, distributed_update=du), dist
+
+        self.report["feed"] = {"model": model}
+        for du in (False, True):
+            tag = f"feed/du{int(du)}"
+            tr, dist = build(du)
+            stats.reset_feed_counters()
+            loader = tr.feed(host, wire="int8", cache_mb=0, epochs=1, depth=2)
+            fed, secs = [], []
+            try:
+                for b in range(FEED_BATCHES):
+                    t0 = time.perf_counter()
+                    xb, yb = next(loader)
+                    loss = tr.step((xb, yb))
+                    if env.device.type == "cuda":
+                        torch.cuda.synchronize(env.device)
+                    secs.append(time.perf_counter() - t0)
+                    self.keep(f"{tag}/decoded/{b}", dist, xb[:, :, :1, :1].contiguous(),
+                              "tiny" if model == "mlp" else "full")
+                    self.save(f"{tag}/labels/{b}", dist, yb[:, :, :1, :1].reshape(
+                        *dist.topology.local_shape[:2], 1, 1, -1))
+                    self.save(f"{tag}/loss{b}", dist,
+                              loss.detach().reshape(*dist.world_shape, 1))
+                    fed.append((xb, loss.detach().clone()))
+            finally:
+                loader.close()
+            counters = dict(stats.FEED_COUNTERS)
+            twin, _ = build(du)
+            for b, (x, y) in enumerate(host):
+                want = twin.shard_batch(decoded(x), y)
+                assert torch.equal(fed[b][0], want[0]), \
+                    f"{tag}: batch {b}'s decoded box differs from shard_batch's local part"
+                loss = twin.step(want)
+                assert torch.equal(loss.detach(), fed[b][1]), \
+                    f"{tag}: batch {b}'s losses differ from the trainer fed by shard_batch"
+            self.report["feed"][f"du{int(du)}"] = {"counters": counters, "step_s": secs}
+            del tr, twin, fed
+        self.log(f"proc {self.pid} feed OK")
+
+
 PHASES = ("basic", "hierarchy", "gather", "loop", "matrix", "kinds", "train")
+
+
+def tfm_tokens(vocab: int, seq_len: int, batch: int):
+    """A HybridTrainer case's global (tokens, labels), int32, from seed 1."""
+    rng = np.random.default_rng(1)
+    toks = rng.integers(0, vocab, size=(batch, seq_len)).astype(np.int32)
+    return toks, rng.integers(0, vocab, size=(batch, seq_len)).astype(np.int32)
+
+
+def feed_batches(model: str = "mlp", resnet=(224, 1000, 64)) -> list:
+    """Phase ``feed``'s host batches: FEED_BATCHES (x float32, y int32) of
+    the MLP's (TRAIN_B, 8) or config 5's images, from seed 7."""
+    rng = np.random.default_rng(7)
+    if model == "mlp":
+        shape, classes, batch = (8,), 4, TRAIN_B
+    else:
+        image, classes, batch = resnet
+        shape = (image, image, 3)
+    return [(rng.standard_normal((batch, *shape), np.float32),
+             rng.integers(0, classes, size=(batch,)).astype(np.int32))
+            for _ in range(FEED_BATCHES)]
+
+
+def pipe_stage(params, x):
+    """A pipeline stage: the tanh layer (``w``, ``b``) or run (x)'s residual
+    MLP blocks (``w1``, ``b1``, ``w2``, ``b2``, a leading block dim)."""
+    import torch
+
+    if "w" in params:
+        return torch.tanh(x @ params["w"] + params["b"])
+    for j in range(params["w1"].shape[0]):
+        h = torch.nn.functional.gelu(x @ params["w1"][j] + params["b1"][j])
+        x = x + h @ params["w2"][j] + params["b2"][j]
+    return x
+
+
+def pipe_loss(y, t):
+    return ((y - t) ** 2).mean()
+
+
+def pipe_data(size: str, n_stages: int = PIPE_STAGES, seed: int = 40) -> dict:
+    """The pipeline phase's stage weights (n_stages, ...), microbatches and
+    targets (micro, rows, d), float32 numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    if size == "tiny":
+        c = PIPE_TINY
+        d, k = c["d"], n_stages * c["v_chunks"]
+        w = {"w": rng.normal(size=(k, d, d)).astype(np.float32) * 0.5,
+             "b": rng.normal(size=(k, d)).astype(np.float32) * 0.1}
+    else:
+        c = PIPE_FULL
+        d, f = c["d"], c["d_ff"]
+        w = {"w1": (rng.standard_normal((n_stages, 1, d, f), np.float32) / d ** 0.5),
+             "b1": rng.standard_normal((n_stages, 1, f), np.float32) * 0.02,
+             "w2": rng.standard_normal((n_stages, 1, f, d), np.float32) * (0.5 / f ** 0.5),
+             "b2": rng.standard_normal((n_stages, 1, d), np.float32) * 0.02}
+    x = rng.standard_normal((c["micro"], c["rows"], d), np.float32)
+    t = rng.standard_normal((c["micro"], c["rows"], d), np.float32)
+    return {"weights": w, "x": x, "t": t}
+
+
+def pipe_dense(torch, weights: dict, x, t, n_stages: int = PIPE_STAGES):
+    """The dense oracle: every stage in sequence on each microbatch. ->
+    (loss summed over the microbatches, {leaf: (n_stages, ...) gradient})."""
+    p = {k: v.clone().requires_grad_() for k, v in weights.items()}
+    h = x.reshape(-1, x.shape[-1])
+    for s in range(n_stages):
+        h = pipe_stage({k: v[s] for k, v in p.items()}, h)
+    loss = ((h.reshape(t.shape) - t) ** 2).mean(dim=(1, 2)).sum()
+    grads = torch.autograd.grad(loss, list(p.values()))
+    return float(loss.detach()), dict(zip(p, grads))
 
 
 def reduced_requests(trainer):
@@ -842,22 +1273,33 @@ def hop_delta(before: dict, after: dict) -> dict:
 
 def kernel_launches() -> dict:
     """The kernels' launch counts in this process (each wrapper's count)."""
-    from mlsl_tpu_torch.ops import a2a_kernels, quant_kernels, rhd_kernels, ring_kernels
+    from mlsl_tpu_torch.ops import (
+        a2a_kernels,
+        attention_kernels,
+        quant_kernels,
+        rhd_kernels,
+        ring_kernels,
+    )
 
-    return {k: v for m in (quant_kernels, ring_kernels, rhd_kernels, a2a_kernels)
+    return {k: v for m in (quant_kernels, ring_kernels, rhd_kernels, a2a_kernels,
+                           attention_kernels)
             for k, v in m.LAUNCHES.items() if v}
 
 
 def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
         phases=PHASES, backend=None, log=print, graph=(1024, 4096, 16384),
-        resnet=(224, 1000, 64), wires=0) -> dict:
+        resnet=(224, 1000, 64), wires=0, size="tiny", tparams_path=None,
+        feed_model="mlp") -> dict:
     """Bring this process into the world (``port`` None: a world of one
     process and no coordinator, the twin a caller holds a world against),
     run ``phases``, write its results. ``graph``: (FM1, FM2, tokens) of the
     ``graph`` phase; ``resnet``: (image, classes, global batch) of
-    ``resnet`` and ``resnet_int8``; ``wires``: the elements a rank of the
-    ``wires`` phase's cases at a size (0: the small cases). -> the results
-    (also in ``out_dir/proc<pid>.npz``)."""
+    ``resnet``, ``resnet_int8`` and ``feed`` on config 5; ``wires``: the
+    elements a rank of the ``wires`` phase's cases at a size (0: the small
+    cases); ``size``: the ``hybrid``, ``moe`` and ``pipeline`` phases' cases
+    (``tiny`` or ``full``); ``tparams_path``: their starting weights (an npz
+    of ``case/layer/leaf``); ``feed_model``: ``mlp`` or ``resnet``. -> the
+    results (also in ``out_dir/proc<pid>.npz``)."""
     from mlsl_tpu_torch import get_env
 
     if port is None:
@@ -876,6 +1318,10 @@ def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
             for k in z.files:
                 layer, leaf = k.split("/")
                 params.setdefault(layer, {})[leaf] = z[k]
+    tparams = None
+    if tparams_path:
+        with np.load(tparams_path) as z:
+            tparams = {k: z[k] for k in z.files}
     csum = None
     import torch
 
@@ -898,6 +1344,12 @@ def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
                 w.graph(*graph)
             elif ph == "wires":
                 w.wires(wires)
+            elif ph in ("hybrid", "moe"):
+                getattr(w, ph)(size, tparams)
+            elif ph == "pipeline":
+                w.pipeline(size)
+            elif ph == "feed":
+                w.feed(feed_model, resnet)
             elif ph in ("resnet", "resnet_int8"):
                 for k, v in w.resnet(*resnet, int8=ph == "resnet_int8").items():
                     out[f"csum/{k}"] = np.float64(v)
@@ -937,11 +1389,18 @@ def main(argv=None) -> int:
     ap.add_argument("--resnet", default="224,1000,64", help="image,classes,batch")
     ap.add_argument("--wires", type=int, default=0,
                     help="elements a rank of phase wires's cases at a size (0: the small cases)")
+    ap.add_argument("--size", default="tiny", choices=("tiny", "full"),
+                    help="the hybrid, moe and pipeline phases' cases")
+    ap.add_argument("--tparams", default=None,
+                    help="npz of the hybrid and moe cases' starting weights (case/layer/leaf)")
+    ap.add_argument("--feed", default="mlp", choices=("mlp", "resnet"),
+                    help="phase feed's model (resnet: config 5 at --resnet)")
     a = ap.parse_args(argv)
     ints = lambda v: tuple(int(x) for x in v.split(","))   # noqa: E731
     run(a.pid, a.nproc, a.port, a.device, a.out, a.params, tuple(a.phases.split(",")),
         a.backend, log=lambda m: print(m, flush=True), graph=ints(a.graph),
-        resnet=ints(a.resnet), wires=a.wires)
+        resnet=ints(a.resnet), wires=a.wires, size=a.size, tparams_path=a.tparams,
+        feed_model=a.feed)
     print(json.dumps({"proc": a.pid, "ok": True}), flush=True)
     return 0
 

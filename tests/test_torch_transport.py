@@ -302,20 +302,27 @@ def test_refusals_on_more_than_one_process(fake_world):
         overlap.build_multi_reduce(dist.data_group, [64])
     with pytest.raises(MLSLError, match="build_zero1_update.*A.8b"):
         overlap.build_zero1_update(dist.data_group, [64], lr=0.5, denom=8.0)
-    with pytest.raises(MLSLError, match="HybridTrainer.*A.8b"):
-        tfm.HybridTrainer(env, tfm.TransformerConfig(), 8, 1, 1)
+    # A.8b.4's first three pieces build over the spanning data group: the
+    # trainer and the feed hold this process's box, the pipeline's local
+    # stage dim is the group's members here
+    tr = tfm.HybridTrainer(env, tfm.TransformerConfig(), 8, 1, 1)
+    assert tr.dist.data_group.spans and tr.grid == (1, 4, 1, 1)
+    assert tr.params["embed"]["tok"].shape[:4] == (1, 4, 1, 1)
     from mlsl_tpu_torch.serve.engine import InferenceEngine
 
     with pytest.raises(MLSLError, match="serving.*A.8b"):
         InferenceEngine(env, tfm.TransformerConfig())
     from mlsl_tpu_torch.data.feed import DeviceFeed
 
-    with pytest.raises(MLSLError, match="feed.*A.8b"):
-        DeviceFeed(lambda i: None, dist.topology)
+    feed = DeviceFeed(lambda i: None, dist.topology)
+    assert feed.codec.topo.local_shape == (1, 4, 1, 1)
     from mlsl_tpu_torch.parallel import pipeline
 
-    with pytest.raises(MLSLError, match="pipeline.*A.8b"):
+    with pytest.raises(MLSLError, match="group="):
         pipeline.gpipe_forward(lambda p, x: x, [], torch.zeros(4, 2, 1, 4), 0, 4)
+    ranks, n, span = pipeline._ranks(torch.zeros(1, 4, 1, 1, 2, 1, 4), 1, 8,
+                                     group=dist.data_group)
+    assert ranks == (1, 4, 1, 1) and n == 4 and (span.off, span.gl, span.g) == (0, 4, 8)
 
 
 def test_plan_verifier_flags_a_kernel_route_on_a_spanning_group(fake_world):
@@ -506,8 +513,9 @@ def _shift_inputs(c=2, g=8, n=5):
 
 
 def _same_bits(a, b):
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.dtype in (torch.float32, torch.bfloat16):
+        bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+        a, b = a.view(bits), b.view(bits)
     return torch.equal(a, b)
 
 
@@ -586,6 +594,172 @@ def test_ring_shift_and_direct_exchanges_across_two_processes(tmp_path):
             pytest.fail("the two processes deadlocked\n" + tails)
     for p, out in zip(procs, outs):
         assert p.returncode == 0 and "SHIFT OK" in out, out[-2000:]
+
+
+# -- the differentiable hops (the trainers across processes) ----------------------
+
+
+def _one_member_span(g: int):
+    """A Span over a one-process world whose hops take the autograd
+    Functions' path: every member here, the subgroup the whole world."""
+    return transport.Span(box=None, g=g, gl=g, off=0, partition=((0,),), index=0, size=1)
+
+
+def _hop_cases():
+    """(name, the hop on a one-member span, its plain twin in one process,
+    an input) of each differentiable hop."""
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 4, 3, 4, 5, generator=gen)
+    return {
+        "shift": (lambda sp, t: transport._Shift.apply(sp, 1, -1, t)[0],
+                  lambda t: torch.roll(t, -1, dims=1), x),
+        "axis_sum": (lambda sp, t: transport._AxisSum.apply(sp, 1, False, t),
+                     lambda t: t.sum(dim=1, keepdim=True).expand_as(t), x),
+        "axis_all_to_all": (lambda sp, t: transport._AllToAll.apply(sp, 1, 3, t),
+                            lambda t: t.transpose(1, 3), x),
+        "axis_all_gather": (lambda sp, t: transport._AllGather.apply(sp, 1, 2, t),
+                            lambda t: transport._concat_members(t, 1, 2, 4), x),
+    }
+
+
+@pytest.mark.parametrize("hop", ["shift", "axis_sum", "axis_all_to_all", "axis_all_gather"])
+def test_differentiable_hop_is_its_plain_twin_and_passes_gradcheck(hop):
+    """Each hop's autograd Function on a one-process gloo world: forward and
+    gradient bit for bit its plain twin's (``torch.roll``, the broadcast
+    sum, the transpose, the concatenation), and ``gradcheck`` in float64;
+    each hop counts under its own kind."""
+    get_env().init(device="cpu", world_size=8, coordinator_address=f"127.0.0.1:{_free_port()}",
+                   num_processes=1, process_id=0)
+    fn, plain, x = _hop_cases()[hop]
+    span = _one_member_span(4)
+    transport.reset_stats()
+    a = x.clone().requires_grad_()
+    b = x.clone().requires_grad_()
+    ya, yb = fn(span, a), plain(b)
+    assert _same_bits(ya.contiguous(), yb.contiguous())
+    g = torch.randn(ya.shape, generator=torch.Generator().manual_seed(6))
+    (ga,) = torch.autograd.grad(ya, a, g)
+    (gb,) = torch.autograd.grad(yb, b, g)
+    assert _same_bits(ga.contiguous(), gb.contiguous())
+    if hop in ("axis_sum", "axis_all_gather"):   # a one-member shift or exchange
+        assert transport.hop_totals()[hop]["calls"] == 2   # hands the backend nothing
+    assert torch.autograd.gradcheck(lambda t: fn(span, t), (x.double().requires_grad_(),))
+
+
+HOPS_WORKER = textwrap.dedent('''
+    import sys
+    import torch
+    pid, port = int(sys.argv[1]), sys.argv[2]
+    sys.path.insert(0, sys.argv[3])
+    from test_torch_transport import _same_bits
+    from mlsl_tpu_torch import get_env
+    from mlsl_tpu_torch.comm import transport
+    from mlsl_tpu_torch.comm.mesh import ProcessGroup
+    get_env().init(device="cpu", world_size=8, coordinator_address="127.0.0.1:" + port,
+                   num_processes=2, process_id=pid)
+    topo = get_env().create_distribution(1, 8).topology
+    span = transport.span_of(ProcessGroup(topo, ("model",)))
+    assert span.crosses and (span.g, span.gl, span.off) == (8, 4, 4 * pid)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 8, 8, 3, generator=gen)           # (C, G, chunk/T, ...)
+    cot = torch.randn(2, 8, 8, 3, generator=gen)
+    mine = slice(4 * pid, 4 * pid + 4)
+
+    def plain_gather(t):
+        return t.reshape(2, 1, 64, 3).expand(2, 8, 64, 3)
+
+    cases = (
+        ("shift+1", lambda t: transport.shift(span, t, step=1)[0],
+         lambda t: torch.roll(t, 1, dims=1), cot),
+        ("shift-1", lambda t: transport.shift(span, t, step=-1)[0],
+         lambda t: torch.roll(t, -1, dims=1), cot),
+        ("axis_sum", lambda t: transport.axis_sum(span, t, 1),
+         lambda t: t.sum(dim=1, keepdim=True).expand_as(t), cot),
+        ("axis_all_to_all", lambda t: transport.axis_all_to_all(span, t, 1, 2),
+         lambda t: t.transpose(1, 2), cot),
+        ("axis_all_gather", lambda t: transport.axis_all_gather(span, t, 1, 2),
+         plain_gather, torch.randn(2, 8, 64, 3, generator=gen)),
+    )
+    # float32, and bfloat16 (moved as its bytes)
+    for dt in (torch.float32, torch.bfloat16):
+        for name, hop, plain, g in cases:
+            a = x[:, mine].to(dt).requires_grad_()
+            b = x.to(dt).requires_grad_()
+            ya, yb = hop(a), plain(b)
+            assert _same_bits(ya.contiguous(), yb[:, mine].contiguous()), (name, dt)
+            (ga,) = torch.autograd.grad(ya, a, g[:, mine].to(dt))
+            (gb,) = torch.autograd.grad(yb, b, g.to(dt))
+            assert _same_bits(ga.contiguous(), gb[:, mine].contiguous()), (name, dt)
+    # K and V in one message: one hop a shift, forward and backward
+    transport.reset_stats()
+    k, v = (x[:, mine].clone().requires_grad_() for _ in range(2))
+    k2, v2 = transport.shift(span, k, v)
+    torch.autograd.grad((k2 * v2).sum(), (k, v))
+    assert transport.hop_totals()["shift"]["calls"] == 2
+    print("HOPS OK", flush=True)
+''')
+
+
+def test_differentiable_hops_across_two_processes(tmp_path):
+    """Two processes of 4 model ranks each: every differentiable hop's rows
+    and gradient rows are the one-process plain twin's local part, bit for
+    bit (the shift both ways, the sum, the all-to-all, the all-gather), and
+    a tuple's shift is one message each way."""
+    script = tmp_path / "hops.py"
+    script.write_text(HOPS_WORKER)
+    port = str(_free_port())
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, str(script), str(i), port,
+                               os.path.join(ROOT, "tests")], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for i in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            tails = "\n".join(f"-- process {i}:\n{q.communicate()[0][-2000:]}"
+                              for i, q in enumerate(procs))
+            pytest.fail("the two processes deadlocked\n" + tails)
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0 and "HOPS OK" in out, out[-2000:]
+
+
+def test_compiled_step_over_a_spanning_model_group_is_a8b6(fake_world):
+    """Trap 2: the fused step over a model group that spans processes runs
+    eagerly; its compiled form raises, naming A.8b.6, before any hop."""
+    from mlsl_tpu_torch.models import transformer as tfm
+
+    fake_world(2)
+    env = get_env().init(device="cpu", world_size=8)
+    cfg = tfm.TransformerConfig(vocab=32, d_model=16, n_heads=8, head_dim=2, n_blocks=1,
+                                seq_len=16, dtype="float32")
+    tr = tfm.HybridTrainer(env, cfg, 1, 1, 8)
+    assert tr.fused and tr.dist.model_group.spans and tr.grid == (1, 1, 1, 4)
+    st, sl = tr.shard_tokens(np.zeros((1, 16), np.int32), np.zeros((1, 16), np.int32))
+    with pytest.raises(MLSLError, match="A.8b.6"):
+        tr.compiled_step(st, sl)
+
+
+@pytest.mark.parametrize("schedule", ["gpipe_forward", "pipeline_loss", "one_f1b_step",
+                                      "interleaved_1f1b_step"])
+def test_pipeline_without_group_raises_on_several_processes(fake_world, schedule):
+    """In a world of several processes a schedule needs the stage axis's
+    group: without it, MLSLError naming the argument, before any hop."""
+    from mlsl_tpu_torch.parallel import pipeline
+
+    fake_world(2)
+    x = torch.zeros(4, 2, 1, 4)
+    fn = getattr(pipeline, schedule)
+    args = {"gpipe_forward": (lambda p, t: t, {}, x, 0, 4),
+            "pipeline_loss": (lambda p, t: t, lambda y, t: y.sum(), {}, x, x, 0, 4),
+            "one_f1b_step": (lambda p, t: t, lambda y, t: y.sum(), {}, x, x, 0, 4),
+            "interleaved_1f1b_step": (lambda p, t: t, lambda y, t: y.sum(), {}, x, x, 0, 4,
+                                      2)}[schedule]
+    with pytest.raises(MLSLError, match="group="):
+        fn(*args)
 
 
 # -- the compressed routes on spanning groups --------------------------------------
