@@ -551,6 +551,39 @@ Phases, in order; any failure exits non-zero and prints no result:
              step by hop kind (shift, axis sum, all-to-all, the gradient
              requests' all_reduce / reduce_scatter / all_gather), their
              staging and wire seconds, and its step time against the twin's.
+             (ad1) then serves across the two processes and restricts the
+             world (AD_SERVE_PHASES, ROADMAP A.8b.4's last piece and A.8b.5;
+             the twin beside them with AD_VARS too): gpt-medium-2k at its
+             full widths, two blocks, bf16 compute, (y)'s first 8 prompts, 16
+             new tokens each, 4 slots, submitted at once on the leader (the
+             process of global rank 0; the other replays its records):
+             tp = 8 with float32 KV (the model axis spans the processes, the
+             sums cross on the transport, the decode step runs eagerly) with
+             the leader slowed and forced to the precision rung after 3
+             steps; tp = 4 with int8 KV on B5 (each process a replica, only
+             the records cross, each captures its decode graph, held bit for
+             bit to its eager twin on both processes; B1, B2 and B5 in both).
+             Then configure("color=0,1,0,1,0,1,0,1") and
+             configure("color=0,0,0,0,1,1,1,1"), each in an Environment of its
+             own, every collective kind over a (2, 2) grid of the 4 kept
+             ranks, 2 a process. Held to the twin: every process's programs
+             (prefills, decode steps with their dtype and rung: the shed at
+             one step on both) equal, and the tokens each decode step fed the
+             same on both processes; the leader's logits within the case's
+             oracle bound (SERVE_DELTA, SERVE_INT8_DELTA) of the twin's on
+             their common prefix, a stream parting from the twin's only where
+             the twin's margin is within twice that bound (bf16 compute: a box
+             of 4 ranks and the 8-rank twin differ in float32's last bits,
+             C.19, and where such a value straddles a bf16 rounding step the
+             logits move by ~1e-3 relative), each step's relative L2 reported;
+             the leader's streams within run (y)'s oracle rule, the unpaged
+             oracle run here on them; the restricted collectives bit for bit;
+             the twin's own engines within run (y)'s oracle rule.
+             Printed (``# multiprocess ad1 serve``): the bytes a prefill and
+             a decode step handed the transport by hop kind (the model sums
+             and the records) with their staging and wire seconds, TTFT and
+             the decode step's host time beside the twin's, the children's
+             launches, the card and its limit.
 
 Every ``# phase`` line gives its seconds: its own where it states them, else
 the wall time since the previous ``# phase`` line.
@@ -8427,6 +8460,13 @@ AD_INT8_PHASES = ("exchanges", "wires", "resnet_int8")
 #: (ad1)'s trainers across processes (ROADMAP A.8b.4), after AD_INT8_PHASES,
 #: at the worker's full size; the twin runs them with AD_VARS, as the children
 AD_TRAINER_PHASES = ("hybrid", "moe", "pipeline", "feed")
+#: (ad1)'s serving engine and restricted world across processes (ROADMAP
+#: A.8b.4's last piece, A.8b.5), after AD_TRAINER_PHASES at the worker's full
+#: size (mp_worker.SERVE_FULL); the twin runs them with AD_VARS, as the
+#: children, and holds its engines to run (y)'s oracle rule
+AD_SERVE_PHASES = ("serve", "restrict")
+#: the serve and restrict phases' rows (ad_serve_hold)
+AD_SERVE_KEYS = ("serve/", "restrict/", "rep/serve/")
 AD_SIZE, AD_FEED = "full", "resnet"           # the worker's cases: gpt-medium-2k, config 5
 #: the trainer phases' rows held bit for bit: the attention on its own (B9
 #: forward and backward), the decoded feed batches and labels, the first fed
@@ -8474,7 +8514,8 @@ def start_ad_children(out_dir: str) -> list:
                 [sys.executable, "-m", "mlsl_tpu_torch.tools.mp_worker", "--pid", str(i),
                  "--nproc", str(AD_PROCS), "--port", str(port), "--device", AD_DEVICE,
                  "--backend", "gloo", "--out", out_dir,
-                 "--phases", ",".join(AD_PHASES + AD_INT8_PHASES + AD_TRAINER_PHASES),
+                 "--phases", ",".join(AD_PHASES + AD_INT8_PHASES + AD_TRAINER_PHASES
+                                      + AD_SERVE_PHASES),
                  "--graph", ",".join(map(str, AD_GRAPH)),
                  "--resnet", ",".join(map(str, AD_RESNET)), "--wires", str(AD_WIRES_N),
                  "--size", AD_SIZE, "--feed", AD_FEED],
@@ -8516,7 +8557,7 @@ def ad_hold(np, twin: dict, rows: dict) -> dict:
     bit for bit between the processes. -> the worst error of each kind."""
     worst = {"float_rel": 0.0, "resnet_grad_rel_l2": 0.0}
     for k, want in twin.items():
-        if k.startswith(("csum/",) + AD_TRAINER_KEYS):
+        if k.startswith(("csum/",) + AD_TRAINER_KEYS + AD_SERVE_KEYS):
             continue
         got = rows.get(k)
         check(got is not None, f"ad1: no process wrote {k}")
@@ -8557,7 +8598,7 @@ def ad_trainer_hold(np, twin: dict, rows: dict) -> dict:
     losses. -> the worst gap of each kind, and the box rows' digest counts."""
     worst, box, layers = {}, {"bit_for_bit": 0, "last_bits_differ": 0}, {}
     for k, want in twin.items():
-        if not k.startswith(AD_TRAINER_KEYS):
+        if not k.startswith(AD_TRAINER_KEYS) or k.startswith(AD_SERVE_KEYS):
             continue
         got = rows.get(k)
         check(got is not None, f"ad1: no process wrote {k}")
@@ -8665,6 +8706,194 @@ def ad_trainer_record(reports, twin_report) -> dict:
     return rec
 
 
+def ad_serve_hold(np, twin: dict, rows: dict, reports, twin_report) -> dict:
+    """(ad1)'s serve and restrict phases against the twin: per case of
+    mp_worker.SERVE_FULL every process's programs equal the twin's, and the
+    tokens each decode step fed are the same on both processes. The
+    leader's tokens and logits against the twin's (AD_SERVE_TWIN below):
+    on their common prefix every logit within the case's oracle bound of
+    the twin's, and where the streams part the twin's margin between its
+    token and the leader's within twice that bound; each step's relative L2
+    reported. The pools' digests counted (bit for bit or not). A spanning model group ran no graph and no kernel route; over a
+    process-local one each child captured its graph, held bit for bit to
+    its eager twin, and launched B1, B2 and B5. The restricted collectives
+    bit for bit. -> per case the bytes a prefill and a decode step handed
+    the transport by hop kind with their staging and wire seconds, TTFT and
+    the decode step's host time beside the twin's, the launches; and the
+    restricted world's record."""
+    from mlsl_tpu_torch.tools import mp_worker
+
+    out = {"cases": {}}
+    n_restrict = 0
+    for k, want in twin.items():
+        if k.startswith("restrict/"):
+            got = rows.get(k)
+            check(got is not None and np.array_equal(got, want),
+                  f"ad1: {k} differs from the one-process twin")
+            n_restrict += 1
+    check(n_restrict == 2 * 4 * 26, f"ad1: {n_restrict} restricted rows, expected 208")
+    for i, r in enumerate(reports):
+        check("do not split over 2 processes" in (r["restrict"].get("uneven") or ""),
+              f"ad1: child {i}: an uneven restriction did not raise: {r['restrict']}")
+    out["restrict"] = {"rows_bit_for_bit": n_restrict,
+                       "boxes": [{k: v for k, v in r["restrict"].items()
+                                  if k.isdigit() or k == "s"} for r in reports]}
+    for tag, tp, quant, mode, _ in mp_worker.SERVE_FULL:
+        key = f"serve/{tag}"
+        ids = sorted(int(k.rsplit("/", 1)[1]) for k in twin if k.startswith(f"{key}/tokens/"))
+        check(len(ids) == mp_worker.SERVE_FULL_PROMPTS, f"ad1: {key}: the twin served {ids}")
+        delta = SERVE_INT8_DELTA if quant else SERVE_DELTA
+        worst, worst_abs, partings, equal_steps, last_bits, steps = 0.0, 0.0, [], 0, 0, 0
+        for i in ids:
+            a, b = rows[f"{key}/tokens/{i}"], twin[f"{key}/tokens/{i}"]
+            got = np.asarray(rows[f"{key}/logits/{i}"], np.float64)
+            want = np.asarray(twin[f"{key}/logits/{i}"], np.float64)
+            check(got.shape == want.shape and len(a) == len(b),
+                  f"ad1: {key}: request {i}'s logits {got.shape}, twin's {want.shape}")
+            part = next((j for j in range(len(a)) if a[j] != b[j]), None)
+            upto = len(a) if part is None else part + 1       # the common prefix's steps
+            gap = np.abs(got[:upto] - want[:upto]).max(axis=1)
+            rel = np.linalg.norm(got[:upto] - want[:upto], axis=1) / np.maximum(
+                np.linalg.norm(want[:upto], axis=1), 1e-30)
+            worst, worst_abs = max(worst, float(rel.max())), max(worst_abs, float(gap.max()))
+            equal_steps += int((gap == 0).sum())
+            last_bits += int(((gap > 0) & (rel <= AD_RTOL)).sum())
+            steps += upto
+            check(gap.max() <= delta, f"ad1: {key}: request {i}'s logits {gap.max():.4g} from "
+                                      f"the twin's (bound {delta})")
+            if part is not None:
+                margin = float(want[part][b[part]] - want[part][a[part]])
+                partings.append({"request": i, "step": part, "twin_margin": margin})
+                check(margin <= 2 * delta,
+                      f"ad1: {key}: request {i} parts from the twin at step {part} where the "
+                      f"twin's margin is {margin:.4g} (bound {2 * delta})")
+        got, want = rows[f"rep/{key}/programs"], twin[f"rep/{key}/programs"]
+        check(len(got) == AD_PROCS and all(np.array_equal(g, want) for g in got),
+              f"ad1: {key}: the processes' programs are not the twin's")
+        fed = rows[f"rep/{key}/fed"]
+        check(len(fed) == AD_PROCS and all(np.array_equal(g, fed[0]) for g in fed),
+              f"ad1: {key}: the processes' decode steps fed other tokens")
+        progs = twin[f"rep/{key}/programs"]
+        dec = progs[progs[:, 0] == mp_worker.SERVE_PROGRAMS["decode"]]
+        recs = [r[key] for r in reports]
+        lead, tw = recs[0], twin_report[key]
+        check(lead["leader"] and not any(r["leader"] for r in recs[1:]),
+              f"ad1: {key}: process 0 does not lead")
+        check(all(r["spanning"] == (tp == 8) for r in recs),
+              f"ad1: {key}: spanning {[r['spanning'] for r in recs]}")
+        routes = ("dense_ring", "dense_ring_gather", "quant_ring", "rhd_allreduce")
+        for i, r in enumerate(recs):
+            if r["spanning"]:
+                check(not r["graphed"] and not r["graphs"]
+                      and not any(r["launches"].get(k) for k in routes),
+                      f"ad1: child {i}'s {key}: graphs {r['graphs']}, launches "
+                      f"{r['launches']} over a spanning model group")
+            else:
+                check(r["graphs"] == ["bfloat16"], f"ad1: child {i}'s {key}: graphs "
+                                                   f"{r['graphs']}")
+                check(all(r["launches"].get(k, 0) > 0 for k in
+                          ("quantize_blocks", "dequantize_blocks", "rhd_allreduce")),
+                      f"ad1: child {i}'s {key} launched {r['launches']}: B1, B2 and B5 "
+                      f"expected")
+                check(len(r["twins"]) == 1 and r["twins"][0]["bit_for_bit"]
+                      and r["twins"][0]["pools_equal"],
+                      f"ad1: child {i}'s {key}: the decode graph against its eager twin "
+                      f"{r['twins']}")
+        if mode == "shed":
+            check(lead["sheds"] == 2 and int(dec[:, 2].max()) == 2,
+                  f"ad1: {key}: sheds {lead['sheds']}, rungs {sorted(set(dec[:, 2]))}")
+        digests = {"bit_for_bit": 0, "last_bits_differ": 0}
+        for k, want in twin.items():
+            if k.startswith(f"{key}/") and k.endswith("/digest"):
+                digests["bit_for_bit" if np.array_equal(rows[k], want)
+                        else "last_bits_differ"] += 1
+
+        def per_program(r, kind):
+            ph = r["program_hops"].get(kind)
+            if not ph:
+                return {}
+            n = ph["programs"]
+            return {"programs": n, **{h: {"bytes": v["bytes"] / n, "calls": v["calls"] / n,
+                                          "s": v["s"] / n, "stage_s": v["stage_s"] / n,
+                                          "wire_s": v["wire_s"] / n}
+                                      for h, v in ph["hops"].items()}}
+
+        out["cases"][key] = {
+            "tp": tp, "int8_kv": quant, "spanning": lead["spanning"],
+            "graphs": [r["graphs"] for r in recs],
+            "logits_rel_l2_worst": worst, "logits_abs_worst": worst_abs,
+            "steps_bit_for_bit": equal_steps, "steps_within_1e-6": last_bits,
+            "steps_held": steps, "partings": partings,
+            "fed_as_twin": bool(np.array_equal(fed[0], twin[f"rep/{key}/fed"])),
+            "pool_digests": digests,
+            "a_prefill": [per_program(r, "prefill") for r in recs],
+            "a_decode_step": [per_program(r, "decode") for r in recs],
+            "ttft_ms": lead["ttft_ms"], "twin_ttft_ms": tw["ttft_ms"],
+            "decode_step_ms": lead["step_ms"], "twin_decode_step_ms": tw["step_ms"],
+            "decode_step_ms_median": float(np.median(lead["step_ms"])),
+            "twin_decode_step_ms_median": float(np.median(tw["step_ms"])),
+            "programs": int(len(progs)), "decode_steps": int(len(dec)),
+            "shed_at_program": (int(np.argmax(progs[:, 2] == 2)) if mode == "shed" else None),
+            "twins": [r.get("twins") for r in recs],
+            "launches": [r["launches"] for r in recs], "s": [r["s"] for r in recs],
+            "twin_s": tw["s"],
+            "twin_oracle_worst": max(o["max_abs_delta"] for o in tw["oracle"]),
+            "twin_oracle_differing_steps": sum(o["differing_steps"] for o in tw["oracle"])}
+    return out
+
+
+def ad_serve_oracle(torch, np, get_env, rows: dict) -> dict:
+    """Run (y)'s oracle rule on the leader's own streams: for each case of
+    mp_worker.SERVE_FULL a one-process engine of the same weights and
+    config runs the unpaged oracle on every request's token stream from the
+    children, and every step's logits the leader picked from must lie
+    within SERVE_DELTA (SERVE_INT8_DELTA with int8 KV) of the oracle's. ->
+    per case the worst gap and the steps where the leader's token is not
+    the oracle's top one."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from mlsl_tpu_torch.models import transformer as tfm
+    from mlsl_tpu_torch.serve import checks
+    from mlsl_tpu_torch.serve.engine import InferenceEngine
+    from mlsl_tpu_torch.tools import mp_worker
+
+    get_env().finalize()
+    settle(torch)
+    for k in ALGO_VARS:
+        os.environ.pop(k, None)
+    env = get_env().init(world_size=WORLD)
+    cfg = dataclasses.replace(tfm.GPT_MEDIUM_2K, n_blocks=2)
+    params = tfm.init_params(torch.Generator().manual_seed(mp_worker.SERVE_SEED), cfg)
+    prompts = mp_worker.serve_prompts("full", cfg.vocab)
+    out = {}
+    try:
+        for tag, tp, quant, _, fields in mp_worker.SERVE_FULL:
+            delta = SERVE_INT8_DELTA if quant else SERVE_DELTA
+            conf = dataclasses.replace(env.config, serve_kv_quant=quant,
+                                       serve_kv_cache_mb=mp_worker.SERVE_FULL_KV_MB, **fields)
+            eng = InferenceEngine(env, cfg, tp=tp, params=params, config=conf,
+                                  max_batch=mp_worker.SERVE_FULL_BATCH)
+            recs = []
+            for i, p in enumerate(prompts):
+                req = SimpleNamespace(id=i, prompt=p,
+                                      tokens=[int(t) for t in rows[f"serve/{tag}/tokens/{i}"]])
+                rec = checks.oracle_rule(eng, req, list(rows[f"serve/{tag}/logits/{i}"]), delta)
+                check(rec["ok"], f"ad1: serve/{tag}: the leader's request {i} is "
+                                 f"{rec['max_abs_delta']:.4g} from the oracle on its own stream "
+                                 f"(bound {delta}): {rec}")
+                recs.append(rec)
+            eng.close()
+            out[tag] = {"bound": delta, "worst": max(r["max_abs_delta"] for r in recs),
+                        "differing_steps": sum(r["differing_steps"] for r in recs),
+                        "margins": [r["margin"] for r in recs if r["margin"] is not None]}
+            del eng
+    finally:
+        get_env().finalize()
+        settle(torch)
+    return out
+
+
 def ad_hops(rep: dict, steps: int = 1) -> dict:
     """A phase's hops a step: calls, bytes and their dtypes, staging and
     wire seconds, by hop kind."""
@@ -8716,12 +8945,13 @@ def phase_ad1(torch, np, get_env, launches, reset_launches, started):
     procs, out_dir, t0 = started
     t_twin = time.perf_counter()
     twin_dirs = (tempfile_dir("mlsl_ad1_twin_"), tempfile_dir("mlsl_ad1_twin8_"),
-                 tempfile_dir("mlsl_ad1_twin_trainers_"))
+                 tempfile_dir("mlsl_ad1_twin_trainers_"), tempfile_dir("mlsl_ad1_twin_serve_"))
     twin, twin_s, twin_used, twin_reports = {}, [], [], []
     try:
         for phases, env_vars, twin_dir in ((AD_PHASES, AD_VARS, twin_dirs[0]),
                                            (AD_INT8_PHASES, {}, twin_dirs[1]),
-                                           (AD_TRAINER_PHASES, AD_VARS, twin_dirs[2])):
+                                           (AD_TRAINER_PHASES, AD_VARS, twin_dirs[2]),
+                                           (AD_SERVE_PHASES, AD_VARS, twin_dirs[3])):
             get_env().finalize()
             settle(torch)
             for k in ALGO_VARS:
@@ -8733,6 +8963,7 @@ def phase_ad1(torch, np, get_env, launches, reset_launches, started):
                 twin.update(mp_worker.run(
                     0, 1, None, AD_DEVICE, twin_dir, phases=phases, graph=AD_GRAPH,
                     resnet=AD_RESNET, wires=AD_WIRES_N, size=AD_SIZE, feed_model=AD_FEED,
+                    serve_oracle=(SERVE_DELTA, SERVE_INT8_DELTA),
                     log=lambda m: twin_reports.append(json.loads(m[len("REPORT "):]))
                     if m.startswith("REPORT ") else None))
             finally:
@@ -8747,7 +8978,9 @@ def phase_ad1(torch, np, get_env, launches, reset_launches, started):
     rows = ad_rows(np, out_dir, AD_PROCS)
     worst = ad_hold(np, twin, rows)
     worst["trainers"] = ad_trainer_hold(np, twin, rows)
-    trainers = ad_trainer_record(reports, twin_reports[-1])
+    trainers = ad_trainer_record(reports, twin_reports[2])
+    serve = ad_serve_hold(np, twin, rows, reports, twin_reports[3])
+    serve["leader_against_the_oracle"] = ad_serve_oracle(torch, np, get_env, rows)
     for tag in ("resnet/du0", "resnet/du1", "resnet_int8/du0", "resnet_int8/du1"):
         cs = rows[f"csum/{tag}"]
         check(all(c == cs[0] for c in cs), f"ad1: {tag}: the processes' parameters differ "
@@ -8758,10 +8991,13 @@ def phase_ad1(torch, np, get_env, launches, reset_launches, started):
               f"ad1: {tag}: the parameters differ from the one-process twin's")
         check(all(r[tag]["algos"] == ["quant_ring"] for r in reports),
               f"ad1: {tag} took {[r[tag]['algos'] for r in reports]}, not the composed ring")
-    used = {}
+    used, serve_used = {}, {}
     for rep in reports:
         for k, v in rep["launches"].items():
             used[k] = used.get(k, 0) + v
+        for k, v in rep["serve"]["launches"].items():
+            serve_used[k] = serve_used.get(k, 0) + v
+            used[k] -= v
     check(used.get("dense_ring", 0) > 0 and used.get("a2a_dense", 0) > 0,
           f"ad1: the children launched {used}: B3 and B6 on the process-local model groups "
           f"expected")
@@ -8805,10 +9041,10 @@ def phase_ad1(torch, np, get_env, launches, reset_launches, started):
            "exchange_bytes": exch,
            "phases": [{k: {"s": v["s"], "hops": v.get("hops", {})} for k, v in rep.items()
                        if isinstance(v, dict) and "s" in v
-                       and not k.startswith(("resnet", "hybrid/", "pipeline/"))}
+                       and not k.startswith(("resnet", "hybrid/", "pipeline/", "serve/"))}
                       for rep in reports],
-           "trainers": trainers}
-    return rec, used
+           "trainers": trainers, "serve": serve}
+    return rec, used, serve_used
 
 
 def phase_ad2(torch, np, get_env, dev):
@@ -8895,7 +9131,7 @@ def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi, sta
     """Run (ad): (ad1), whose children ``started``, and (ad2). -> (launches by
     part, lines)."""
     t0 = time.perf_counter()
-    ad1, used = phase_ad1(torch, np, get_env, launches, reset_launches, started)
+    ad1, used, serve_used = phase_ad1(torch, np, get_env, launches, reset_launches, started)
     ad2 = phase_ad2(torch, np, get_env, dev)
     c5 = ad1["config5"]
     summary = {
@@ -8908,14 +9144,16 @@ def run_multiprocess(torch, np, get_env, launches, reset_launches, dev, smi, sta
     summary["int8_step_over_float_step"] = ad1["int8_step_over_float_step"]
     summary["exchange_bytes"] = ad1["exchange_bytes"]
     trainers = ad1.pop("trainers")
+    serve = ad1.pop("serve")
     lines = [f"# multiprocess ad1 {json.dumps(ad1)}",
              f"# multiprocess ad1 wires {json.dumps(summary)} {smi}",
              f"# multiprocess ad1 trainers {json.dumps(trainers)} {smi}",
+             f"# multiprocess ad1 serve {json.dumps(serve)} {smi}",
              f"# multiprocess ad2 {json.dumps(ad2)}",
              f"# phase multiprocess (run (ad)): ok in {time.perf_counter() - t0:.1f} s; "
              f"two processes over gloo on one card (host-staged hops) and NCCL in a "
              f"one-process world; {smi}"]
-    return {"multiprocess": used}, lines
+    return {"multiprocess": used, "multiprocess_serve": serve_used}, lines
 
 
 def main() -> int:

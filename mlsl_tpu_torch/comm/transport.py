@@ -50,6 +50,12 @@ The sums gather the G members' rows and add them as one process does, so
 they are the one-process run's bits; ``world_rows`` gathers a small tensor
 (a step's loss rows) over the world.
 
+The serving engine (serve/engine.py) sends its leader's records to every
+process with ``serve_record``: a fixed int64 header, then the payload, two
+broadcasts over the world (hop kind ``serve_record``). ``at_shutdown``
+registers what ``shutdown`` runs while the group is still up: a leader that
+exits without closing its engine stops the followers there.
+
 Float sums that cross processes add in another order than one process's
 member loop (a local sum, then the backend's), within 1e-6 relative; integer
 payloads are exact, and every process receives the same bits.
@@ -203,11 +209,18 @@ def bootstrap(coordinator_address: str, num_processes: int, process_id: int,
 
 def shutdown() -> None:
     """Destroy the process group: a test's teardown, and at the process's
-    exit (trap 4). ``Environment.finalize`` keeps it up, as the JAX package
-    keeps ``jax.distributed``."""
+    exit (trap 4), after the ``at_shutdown`` hooks. ``Environment.finalize``
+    keeps it up, as the JAX package keeps ``jax.distributed``."""
+    hooks = list(_AT_SHUTDOWN)
+    _AT_SHUTDOWN.clear()
     if _WORLD.up:
         import torch.distributed as dist
 
+        for fn in hooks:
+            try:
+                fn()
+            except Exception as e:  # the group goes all the same
+                log_warning("transport: a shutdown hook failed: %s: %s", type(e).__name__, e)
         _SUBGROUPS.clear()
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -870,8 +883,52 @@ def _world_form(topo, world_body: Callable) -> Callable:
     return fn
 
 
-def refuse(what: str) -> None:
-    """The paths left for A.8b raise on a world of more than one process."""
-    if _WORLD.count > 1:
-        raise MLSLError(f"{what} runs in a one-process world only: across processes it is "
-                        f"ROADMAP A.8b")
+# -- the serving engine's records ----------------------------------------------------
+
+#: int64 values in a record's fixed header; the last is the payload's length
+RECORD_HEADER = 8
+
+
+def serve_record(rec: Optional[torch.Tensor], src: int, device=None) -> torch.Tensor:
+    """One record of the serving engine (serve/engine.py) from process
+    ``src`` to every process of the world, in two broadcasts: its fixed
+    header of RECORD_HEADER int64 values, whose last is the payload's
+    length, then the payload (none when it is empty). ``rec``: the whole
+    record, 1-D int64, on ``src``; None elsewhere. On NCCL the record
+    crosses on ``device``. -> the record on every process, on the CPU
+    (hop kind ``serve_record``, its bytes counted on ``src``)."""
+    import torch.distributed as dist
+
+    dev = device if _WORLD.backend == "nccl" and device is not None else torch.device("cpu")
+    mine = _WORLD.index == int(src)
+    clk = _Clock()
+    if mine:
+        rec = rec.reshape(-1).to(dtype=torch.int64)
+        head = rec[:RECORD_HEADER].to(dev, copy=True)
+    else:
+        head = torch.empty(RECORD_HEADER, dtype=torch.int64, device=dev)
+    clk.wire()
+    dist.broadcast(head, src=int(src))
+    n = int(head[-1])
+    body = (rec[RECORD_HEADER:].to(dev, copy=True) if mine
+            else torch.empty(n, dtype=torch.int64, device=dev))
+    if n:
+        dist.broadcast(body, src=int(src))
+    clk.back()
+    out = torch.cat([head, body]).cpu()
+    clk.record("serve_record", (out,) if mine else ())
+    return out
+
+
+#: callables run by ``shutdown`` before the group goes (the serving
+#: engine's leader tells its followers to stop)
+_AT_SHUTDOWN: list = []
+
+
+def at_shutdown(fn: Callable, register: bool = True) -> None:
+    """Run ``fn`` in ``shutdown`` (at the process's exit too) while the
+    group is still up; ``register=False`` takes it back."""
+    if fn in _AT_SHUTDOWN:
+        _AT_SHUTDOWN.remove(fn)
+    if register:
+        _AT_SHUTDOWN.append(fn)

@@ -28,7 +28,11 @@ call is made.
 ``configure("color=...")`` restricts the world as the reference's
 Configure does (src/mlsl.cpp:620-647): one value keeps every rank, one value a
 rank keeps the ranks whose color equals the first one, so later
-distributions span fewer virtual ranks.
+distributions span fewer virtual ranks. Across processes the K kept ranks
+are laid over all P processes anew, K / P each (rank p of the restricted
+world holds what the JAX package's p-th kept device holds), rather than kept
+on the processes that held them (standing difference "the restricted world
+relaid"); a K that does not split over the P processes raises MLSLError.
 """
 
 from __future__ import annotations
@@ -239,7 +243,9 @@ class Environment:
         """Color-based restriction of the world (reference Configure("color=N")).
         'color=N' keeps every rank; 'color=c0,c1,...' (one value a rank)
         keeps the ranks whose color equals the first listed color, so later
-        distributions span that many virtual ranks."""
+        distributions span that many virtual ranks. Across processes the
+        kept ranks are relaid over every process (module docstring); the
+        distributions made before keep the world they were made on."""
         conf_str = conf_str.strip()
         mlsl_assert(conf_str.startswith("color="), "unsupported configuration string: %s",
                     conf_str)
@@ -249,12 +255,44 @@ class Environment:
             return
         mlsl_assert(len(values) == self.world_size, "color list length %d != rank count %d",
                     len(values), self.world_size)
-        if len(set(values)) > 1:
-            from mlsl_tpu_torch.comm import transport
-
-            transport.refuse("configure('color=...') restricting the world")
+        kept = sum(1 for c in values if c == values[0])
+        nproc = self.process_count()
+        if nproc > 1 and kept != self.world_size:
+            self._restrict_processes(kept, nproc, values[0])
         self._global_colors = tuple(values)
-        self.world_size = sum(1 for c in values if c == values[0])
+        self.world_size = kept
+
+    def _restrict_processes(self, kept: int, nproc: int, color: int) -> None:
+        """What ``init`` built from the world size follows the restricted
+        world of ``kept`` ranks over ``nproc`` processes: the transport's
+        world size (the boxes, the tiers, ``dcn_aware_devices``), and the
+        tuned profile, kept only where its fingerprint matches the new world.
+        The Dispatcher holds no world size. An uneven split, or a world the
+        elastic registry shrank, raises MLSLError before anything changes."""
+        from mlsl_tpu_torch import elastic, sysinfo
+        from mlsl_tpu_torch.comm import transport
+
+        if kept % nproc:
+            raise MLSLError(f"configure('color=...') keeps {kept} ranks of color {color}, "
+                            f"which do not split over {nproc} processes: {kept} virtual ranks "
+                            f"over {nproc} processes needs a multiple of {nproc}")
+        mlsl_assert(elastic.active_devices() is None,
+                    "configure('color=...') on a world the elastic registry shrank: the "
+                    "survivor ranks are not restricted across processes")
+        transport.set_world_size(kept)
+        profile = self.config.tuned_profile
+        if profile is None:
+            return
+        try:
+            same = profile.matches(sysinfo.topology_fingerprint(kept, self.device))
+        except MLSLError:   # MLSL_MESH_TIERS does not cover the restricted world
+            same = False
+        if not same:
+            from mlsl_tpu_torch.log import log_warning
+
+            log_warning("tuner: the restricted world of %d ranks is not the one profile %r "
+                        "was measured on; rejecting it", kept, profile.fingerprint)
+            self.config.tuned_profile = None
 
     def create_distribution(self, data_parts: int, model_parts: int, seq_parts: int = 1):
         from mlsl_tpu_torch.core.distribution import Distribution

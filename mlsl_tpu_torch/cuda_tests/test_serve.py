@@ -158,3 +158,65 @@ def test_cuda_precision_shed_captures_a_second_graph(engine):
     eng.run()
     assert sorted(eng._decode_cache) == ["bfloat16", "float32"]
     assert all(r.state == "done" for r in reqs)
+
+
+def _port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_cuda_serve_record_round_trip(backend):
+    from mlsl_tpu_torch.comm import transport
+    from mlsl_tpu_torch.serve import engine as se
+
+    dev = torch.device("cuda", 0)
+    transport.bootstrap(f"127.0.0.1:{_port()}", 1, 0, backend, 0, 0.0, dev)
+    try:
+        transport.reset_stats()
+        for rec in (se._record(se.DECODE, (4, 16, 1, 2), np.arange(4), np.arange(4) + 7,
+                               np.arange(64).reshape(4, 16)),
+                    se._record(se.STOP, (1,))):
+            got = transport.serve_record(rec, 0, dev)
+            assert got.device.type == "cpu" and torch.equal(got, rec), backend
+        stats = transport.hop_totals()["serve_record"]
+        assert stats["calls"] == 2 and stats["bytes"] == 8 * (2 * transport.RECORD_HEADER + 72)
+    finally:
+        transport.shutdown()
+
+
+@pytest.mark.cuda
+def test_cuda_engine_over_a_one_process_nccl_world_is_the_engine(monkeypatch):
+    """tp = 2 on a one-process NCCL world: the model group lies inside the
+    process, the decode step is captured, and the tokens and logits are bit
+    for bit those of the engine without a coordinator."""
+    from mlsl_tpu_torch import get_env
+    from mlsl_tpu_torch.comm import transport
+    from mlsl_tpu_torch.serve.engine import InferenceEngine
+
+    monkeypatch.setenv("MLSL_SERVE_MAX_BATCH", "4")
+    monkeypatch.setenv("MLSL_SERVE_KV_CACHE_MB", "64")
+    got = []
+    try:
+        for coord in (None, f"127.0.0.1:{_port()}"):
+            get_env().finalize()
+            kw = {} if coord is None else dict(coordinator_address=coord, num_processes=1,
+                                               process_id=0)
+            env = get_env().init(world_size=2, **kw)
+            eng = InferenceEngine(env, CFG, tp=2, seed=0)
+            assert eng.is_leader and not eng.spanning and eng.graphed
+            reqs, probe = _served(eng, _prompts(4, seed=3))
+            got.append(([r.tokens for r in reqs], probe.logits, sorted(eng._decode_cache)))
+            eng.close()
+        assert transport.world().backend == "nccl"
+    finally:
+        get_env().finalize()
+        transport.shutdown()
+    (t0, l0, g0), (t1, l1, g1) = got
+    assert t0 == t1 and g0 == g1 == [CFG.dtype]
+    for i in l0:
+        assert all(np.array_equal(a, b) for a, b in zip(l0[i], l1[i])), i

@@ -112,23 +112,15 @@ def decode_twin(eng):
     ``index_put_`` leaves open. As a step does, a slot whose write crosses
     into a new page gets that page first: else it too would write page 0 and
     read back whichever write ``index_put_`` kept. The pools are left as the
-    eager step wrote them."""
-    import torch
-
-    from mlsl_tpu_torch.core import graph_capture
-
+    eager step wrote them. On the leader of several processes: a TWIN record,
+    so that every follower runs the same twin on its box (its result in
+    ``eng.twins``). Over a spanning model group the step runs eagerly and
+    there is no graph to hold: MLSLError."""
     eng._ensure_capacity()
     live, arrays = eng._batch()
     dtype = "bfloat16" if eng.governor.precision_shed else eng.cfg.dtype
-    args = [torch.from_numpy(a).to(eng.device) for a in arrays]
-    state = eng._pools()
-    with graph_capture.restored(state) as saved:
-        g = eng._decode(dtype, *arrays)[:len(live)]
-        g_pools = [t[:, :, :, :, :, 1:].clone() for t in state]
-        graph_capture.put_back(state, saved)
-        e = eng._decode_fn(dtype)(*args)[0, 0, 0, 0, :len(live)].cpu().numpy()
-        same = all(torch.equal(a, t[:, :, :, :, :, 1:]) for a, t in zip(g_pools, state))
-    return g, e, same, len(live)
+    g, e, same = eng._twin(dtype, *arrays)
+    return g[:len(live)], e[:len(live)], same, len(live)
 
 
 @contextlib.contextmanager
@@ -138,7 +130,8 @@ def planted(eng, fault: str):
     own (its K/V written one slot late, its mask one wider, its position
     embedding off by one). ``"drop_kv:<block>"``: that block's K/V write of
     every decode step is lost. The decode step runs eagerly meanwhile; the
-    captured graphs stay as they were."""
+    captured graphs stay as they were. One process only: the planted step
+    sends no record."""
     batch, decode = eng._batch, eng._decode
 
     def late_batch():
@@ -158,6 +151,9 @@ def planted(eng, fault: str):
             p[:, :, :, :, blk].copy_(k)
         return logits[0, 0, 0, 0].cpu().numpy()
 
+    from mlsl_tpu_torch.log import mlsl_assert
+
+    mlsl_assert(eng.nproc == 1, "a planted fault serves in a one-process world")
     blk = None
     if fault.startswith("drop_kv:"):
         blk = int(fault.split(":", 1)[1])

@@ -27,6 +27,55 @@ same step; the engine reads replica 0); ``chip_smoke.py`` initializes
 ``world_size=tp``. The JAX engine's ``devices=`` has no counterpart: the
 virtual ranks live on the Environment's one device.
 
+Across processes (``Environment.init(coordinator_address=...)``) each
+process holds the box of the slice's ranks that it owns
+(``Topology.local_shape``): the weights and the KV pools are placed over the
+box, and a model group that spans processes sums on the transport
+(``inline_allreduce`` -> ``transport.axis_sum``). One scheduler decides and
+every process replays:
+
+- the **leader** is the process that holds global rank 0. It alone runs
+  ``submit``, the queue, the SLA governor, the straggler read, admission,
+  eviction, the page tables, retirement and the chaos sites, and picks the
+  tokens from global rank 0's logits, which it holds;
+- before each device program the leader broadcasts a **record**
+  (``transport.serve_record``): a header of int64 fields, then the payload.
+  PREFILL carries the prefix and, for a write, the page table (the oracle's
+  prefills carry none); DECODE the tokens, positions, page tables and the
+  compute dtype the ladder chose; TWIN the same for ``checks.decode_twin``;
+  STOP ends the followers, with an error flag;
+- a **follower** replays the records in order: ``run()`` until STOP,
+  ``step()`` one record. It never reads its clock, its queue or its logits
+  to decide anything, holds no KV bookkeeping (the records carry the page
+  tables), and its ``submit`` raises MLSLError naming the leader.
+
+Traps, each guarded by a test (tests/test_torch_multiprocess_serve.py):
+
+1. Decisions from host state: the processes' clocks and arrival times
+   differ, so a decision that read them on every process would run a
+   prefill on one process and a decode step on another, and the model
+   group's sums would pair the wrong messages. Only the leader decides.
+2. A leader that raises must not leave a follower blocked in a broadcast:
+   ``step`` (so ``run``) sends STOP with the error flag as the exception
+   leaves it, and the transport's shutdown hook sends it at the process's
+   exit when ``close`` never did. The follower then raises MLSLError.
+3. Retries: ``serve.decode`` fires on the leader before the record goes
+   out, so a TRANSIENT retry sends one record and a skipped step none; a
+   follower runs every step once.
+4. Eviction and resume change only the leader's page tables, which the next
+   records carry.
+5. The decode step is a CUDA graph only where the model group lies inside
+   the process (``graphed``); over a spanning model group its sums are
+   transport hops, which a graph cannot hold (ROADMAP A.8b.6), and it runs
+   eagerly on the card as on the CPU.
+6. The dtype shed travels in the DECODE record: the followers capture or
+   replay the bf16 entry at the same step as the leader.
+
+Counters: the SERVE counters, the ``mlsl_serve_*`` metrics, the tracer's
+spans and ``supervisor.status()["serve"]`` are the leader's; a follower
+counts only the prefills and decode steps it replayed. Every process logs
+the programs it ran (``programs``), the leader's and the followers' alike.
+
 Scheduling runs on the caller's thread (``step()`` / ``run()``): ``submit()``
 is the only entry for other threads and only touches the queue under a lock,
 never the card.
@@ -65,7 +114,8 @@ import torch
 from mlsl_tpu_torch import chaos, supervisor
 from mlsl_tpu_torch.analysis import witness
 from mlsl_tpu_torch.core import graph_capture, stats
-from mlsl_tpu_torch.log import mlsl_assert
+from mlsl_tpu_torch.comm import transport
+from mlsl_tpu_torch.log import MLSLError, log_info, log_warning, mlsl_assert
 from mlsl_tpu_torch.models import transformer as tfm
 from mlsl_tpu_torch.models.convert import transformer_params_from_jax
 from mlsl_tpu_torch.obs import metrics, tracer as obs_trace
@@ -75,6 +125,25 @@ from mlsl_tpu_torch.serve import kv_cache as kvc, sla
 #: consecutive failed decode steps before the batch in flight is failed
 #: closed (the engine itself survives and keeps admitting)
 _DECODE_FAIL_CAP = 8
+
+#: the kinds of a record (the first int64 of its header)
+PREFILL, DECODE, TWIN, STOP = 1, 2, 3, 4
+#: a DECODE or TWIN record's compute dtype, by index
+_DTYPES = ("float32", "bfloat16", "float16")
+#: the programs an engine keeps in ``programs``: the newest, so that a
+#: long-running server's log stays bounded
+PROGRAM_LOG = 1 << 16
+
+
+def _record(kind: int, fields=(), *parts) -> torch.Tensor:
+    """A record: the header (``kind``, ``fields``, zeros, the payload's
+    length last) and the payload, ``parts`` flattened, as one int64 tensor."""
+    body = [np.asarray(p, np.int64).reshape(-1) for p in parts]
+    head = np.zeros(transport.RECORD_HEADER, np.int64)
+    head[0] = kind
+    head[1:1 + len(fields)] = fields
+    head[-1] = sum(b.size for b in body)
+    return torch.from_numpy(np.concatenate([head, *body]))
 
 
 @dataclass
@@ -129,27 +198,42 @@ class InferenceEngine:
     from ``models.transformer.init_params`` with a generator seeded by
     ``seed``. ``config`` defaults to the Environment's. The engine runs on the
     Environment's device: the card unless it was initialized with
-    ``device="cpu"``."""
+    ``device="cpu"``. Across processes every process builds its engine with
+    the same arguments; the leader (``is_leader``) serves, the followers
+    replay (module docstring)."""
 
     def __init__(self, env, cfg, tp: int = 1, params=None, seed: int = 0, config=None,
                  max_batch: Optional[int] = None, queue_depth: Optional[int] = None,
                  tpot_p99_ms: float = 0.0):
-        from mlsl_tpu_torch.comm import transport
-
-        transport.refuse("the serving engine")
         self.env = env
         self.cfg = cfg
         self.tp = int(tp)
         self.config = config if config is not None else env.config
         mlsl_assert(cfg.n_heads % self.tp == 0, "heads %d %% tp %d", cfg.n_heads, self.tp)
         self.dist = env.create_distribution(1, self.tp)
-        self.grid = self.dist.topology.grid_shape
+        topo = self.dist.topology
+        # this process's box of the slice's ranks: the whole grid in one process
+        self.grid = topo.local_shape
+        self.global_grid = topo.grid_shape
         self.device = env.device
         self.comm = (self.dist.model_group, self.config) if self.tp > 1 else None
+        self.nproc = topo.num_procs
+        self.leader = topo.owner(0)
+        self.is_leader = topo.proc_index == self.leader
+        # the box index of the row the tokens are picked from: global rank 0's
+        self._row0 = topo.local_coords(0) if self.is_leader else (0, 0, 0, 0)
+        self.spanning = transport.spans(self.dist.model_group)
+        # trap 5: a graph cannot hold the transport's hops (ROADMAP A.8b.6)
+        self.graphed = self.device.type == "cuda" and not self.spanning
+        if self.device.type == "cuda" and self.spanning:
+            log_info("serving engine: the model group spans processes; the decode step "
+                     "runs eagerly (its graph is ROADMAP A.8b.6)")
 
         if params is None:
             params = tfm.init_params(torch.Generator().manual_seed(seed), cfg)
-        self.params = transformer_params_from_jax(params, cfg, self.grid, device=self.device)
+        self.params = transformer_params_from_jax(
+            params, cfg, self.global_grid, device=self.device,
+            box=(topo.local_origin, topo.local_shape) if self.nproc > 1 else None)
 
         self.quant = bool(self.config.serve_kv_quant)
         self.cache = kvc.PagedKVCache(
@@ -170,13 +254,14 @@ class InferenceEngine:
                             else self.config.serve_queue_depth),
             tpot_p99_ms=tpot_p99_ms,
         )
-        sla._set_active(self.governor)
+        if self.is_leader:
+            sla._set_active(self.governor)
 
         # KV pools: page 0 is the reserved garbage page (kv_cache.py), so the
         # page dim is num_pages + 1; each model rank holds its heads' shard
         npg, page = self.cache.num_pages + 1, self.cache.page_elems
         hl = cfg.n_heads // self.tp
-        shape = (*self.grid[:3], self.tp, cfg.n_blocks, npg, page, hl, cfg.head_dim)
+        shape = (*self.grid, cfg.n_blocks, npg, page, hl, cfg.head_dim)
         kv_dt = torch.int8 if self.quant else torch.float32
         self.kpool = torch.zeros(shape, dtype=kv_dt, device=self.device)
         self.vpool = torch.zeros(shape, dtype=kv_dt, device=self.device)
@@ -195,6 +280,17 @@ class InferenceEngine:
         self._decode_fails = 0
         self._t_start: Optional[float] = None
         self._tokens_total = 0
+        #: the programs this process ran, in order (the last PROGRAM_LOG):
+        #: ("prefill", length, written), ("decode", dtype, the ladder's
+        #: rung), ("twin", dtype, rung)
+        self.programs: Deque[tuple] = collections.deque(maxlen=PROGRAM_LOG)
+        #: a follower's decode_twin results, (graph logits, eager logits,
+        #: pools equal), in the order the leader asked for them
+        self.twins: List[tuple] = []
+        self._stopped = False
+        if self.nproc > 1 and self.is_leader:
+            # trap 2: a leader that exits without close() stops its followers
+            transport.at_shutdown(self._stop_on_exit)
 
     # -- the programs ------------------------------------------------------
 
@@ -249,15 +345,145 @@ class InferenceEngine:
             self._decode_cache[dtype] = captured
         return captured
 
-    def _decode(self, dtype: str, tokens, positions, pt) -> np.ndarray:
-        """One decode step on (B,) tokens and positions and (B, M) page tables
-        (numpy) -> the logits of replica 0 on the host, (B, V) float32."""
-        args = [torch.from_numpy(a).to(self.device) for a in (tokens, positions, pt)]
-        if self.device.type == "cuda":
+    def _args(self, *arrays) -> List[torch.Tensor]:
+        return [torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(self.device)
+                for a in arrays]
+
+    def _run_prefill(self, prefix: np.ndarray, pages: Optional[np.ndarray]) -> torch.Tensor:
+        """The prefill of ``prefix`` padded to the context, and with a page
+        table the write of its K/V. -> the logits (R_l, D_l, S_l, M_l, V)."""
+        n = int(prefix.size)
+        tokens = np.zeros((self.ctx_len,), np.int64)
+        tokens[:n] = prefix
+        logits, k, v = self._prefill(self._args(tokens)[0], n)
+        if pages is not None:
+            self._write(k, v, self._args(pages)[0])
+        self.programs.append(("prefill", n, pages is not None))
+        return logits
+
+    def _run_decode(self, dtype: str, tokens, positions, pt, rung: int = 0) -> torch.Tensor:
+        """One decode step: the graph's replay where ``graphed``, else eager.
+        ``rung``: the leader's SLA rung, logged only. -> the logits (R_l,
+        D_l, S_l, M_l, B, V)."""
+        args = self._args(tokens, positions, pt)
+        if self.graphed:
             logits = self._decode_graph(dtype, args).replay(args)
         else:
             logits = self._decode_fn(dtype)(*args)
-        return logits[0, 0, 0, 0].cpu().numpy()
+        self.programs.append(("decode", dtype, int(rung)))
+        return logits
+
+    def _run_twin(self, dtype: str, tokens, positions, pt, rung: int = 0):
+        """``checks.decode_twin``'s body on this process's box: the step as
+        the graph's replay, then run eagerly from the same pools. -> (graph
+        logits, eager logits, (B, V) on the host, of the row the leader
+        reads (the box's first on a follower); whether every pool page but
+        the garbage page 0 came out equal). The pools are left as the eager
+        step wrote them."""
+        state = self._pools()
+        with graph_capture.restored(state) as saved:
+            g = self._run_decode(dtype, tokens, positions, pt, rung)[self._row0].cpu().numpy()
+            g_pools = [t[:, :, :, :, :, 1:].clone() for t in state]
+            graph_capture.put_back(state, saved)
+            e = self._decode_fn(dtype)(*self._args(tokens, positions, pt))
+            e = e[self._row0].cpu().numpy()
+            same = all(torch.equal(a, t[:, :, :, :, :, 1:]) for a, t in zip(g_pools, state))
+        self.programs[-1] = ("twin", dtype, int(rung))
+        return g, e, same
+
+    # -- the leader's side of a program: its record, then the program -------
+
+    def _publish(self, kind: int, fields=(), *parts) -> None:
+        """Broadcast a record to the followers (nothing in one process)."""
+        if self.nproc == 1:
+            return
+        mlsl_assert(self.is_leader, "only the leader (process %d) publishes records",
+                    self.leader)
+        if self._stopped:
+            raise MLSLError("the serving engine stopped its followers (close() or a fault): "
+                            "build a new engine on every process")
+        transport.serve_record(_record(kind, fields, *parts), self.leader, self.device)
+
+    def _prefill_program(self, prefix, pages=None) -> np.ndarray:
+        """A PREFILL on every process (the write too with ``pages``, a page
+        table) -> global rank 0's next-token logits (V,) float32 on the
+        host (the leader's)."""
+        prefix = np.asarray(prefix, np.int64).reshape(-1)
+        if pages is None:
+            self._publish(PREFILL, (prefix.size, 0, 0), prefix)
+        else:
+            pages = np.asarray(pages, np.int64).reshape(-1)
+            self._publish(PREFILL, (prefix.size, 1, pages.size), prefix, pages)
+        return self._run_prefill(prefix, pages)[self._row0].cpu().numpy()
+
+    def _decode(self, dtype: str, tokens, positions, pt) -> np.ndarray:
+        """One decode step on (B,) tokens and positions and (B, M) page tables
+        (numpy), on every process -> the logits of global rank 0 on the host,
+        (B, V) float32 (the leader's)."""
+        rung = self.governor.rung
+        self._publish(DECODE, (len(tokens), pt.shape[1], _DTYPES.index(dtype), rung), tokens,
+                      positions, pt)
+        return self._run_decode(dtype, tokens, positions, pt, rung)[self._row0].cpu().numpy()
+
+    def _twin(self, dtype: str, tokens, positions, pt):
+        """``checks.decode_twin``'s step on every process (``_run_twin``); a
+        follower keeps its result in ``twins``. -> the leader's."""
+        mlsl_assert(not self.spanning, "decode_twin compares the decode graph with its eager "
+                    "twin: over a spanning model group the step runs eagerly (A.8b.6)")
+        rung = self.governor.rung
+        self._publish(TWIN, (len(tokens), pt.shape[1], _DTYPES.index(dtype), rung), tokens,
+                      positions, pt)
+        return self._run_twin(dtype, tokens, positions, pt, rung)
+
+    # -- a follower: replay the leader's records ---------------------------
+
+    def _replay(self) -> bool:
+        """Receive one record and run its program. -> False at STOP; a STOP
+        with the error flag raises MLSLError."""
+        mlsl_assert(not self._stopped, "the serving engine's followers were stopped")
+        rec = transport.serve_record(None, self.leader, self.device).numpy()
+        head, body = rec[:transport.RECORD_HEADER], rec[transport.RECORD_HEADER:]
+        kind, f = int(head[0]), [int(v) for v in head[1:-1]]
+        if kind == STOP:
+            self._stopped = True
+            if f[0]:
+                raise MLSLError(f"the serving engine's leader (process {self.leader}) stopped "
+                                f"on an error; this follower (process "
+                                f"{transport.world().index}) ends with it")
+            return False
+        if kind == PREFILL:
+            n, write, m = f[:3]
+            self._run_prefill(body[:n], body[n:n + m] if write else None)
+            if write:
+                stats.record_serve("prefills")
+            return True
+        b, m, dt, rung = f[:4]
+        arrays = (body[:b], body[b:2 * b], body[2 * b:].reshape(b, m))
+        if kind == DECODE:
+            self._run_decode(_DTYPES[dt], *arrays, rung)
+            stats.record_serve("decode_steps")
+        else:
+            mlsl_assert(kind == TWIN, "unknown serving record kind %d", kind)
+            self.twins.append(self._run_twin(_DTYPES[dt], *arrays, rung))
+        return True
+
+    def _stop_followers(self, error: bool) -> None:
+        """STOP to the followers, once (the leader's; nothing in one process)."""
+        if self.nproc == 1 or not self.is_leader or self._stopped:
+            return
+        self._stopped = True
+        transport.at_shutdown(self._stop_on_exit, register=False)
+        try:
+            transport.serve_record(_record(STOP, (int(error),)), self.leader, self.device)
+        except Exception as e:  # the world may be going down already
+            log_warning("serving engine: STOP did not reach the followers: %s: %s",
+                        type(e).__name__, e)
+
+    def _stop_on_exit(self) -> None:
+        if not self._stopped:
+            log_warning("serving engine: the leader exits without close(): its followers "
+                        "stop with an error")
+        self._stop_followers(error=True)
 
     # -- admission (any thread) --------------------------------------------
 
@@ -265,7 +491,12 @@ class InferenceEngine:
                eos_token: Optional[int] = None) -> Request:
         """Queue a request. Raises :class:`~mlsl_tpu_torch.serve.sla.
         ServeOverloadError` (429-style, with ``retry_after_s``) when the
-        ladder closed admission or the queue is full."""
+        ladder closed admission or the queue is full, and MLSLError on a
+        follower (only the leader takes requests)."""
+        if not self.is_leader:
+            raise MLSLError(f"submit runs on the serving engine's leader, process "
+                            f"{self.leader}; process {transport.world().index} is a follower "
+                            f"that replays the leader's records")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         mlsl_assert(prompt.size >= 1, "empty prompt")
         mlsl_assert(max_new_tokens >= 1, "max_new_tokens must be >= 1")
@@ -303,7 +534,17 @@ class InferenceEngine:
     def step(self) -> int:
         """One scheduler iteration: observe and tick the SLA ladder, admit up
         to the rung's batch limit, advance every sequence in flight one
-        token, retire the finished. -> the sequences in flight after it."""
+        token, retire the finished. -> the sequences in flight after it.
+        On a follower: replay one record -> 1, or 0 once STOP came."""
+        if not self.is_leader:
+            return int(self._replay())
+        try:
+            return self._step()
+        except BaseException:
+            self._stop_followers(error=True)    # trap 2
+            raise
+
+    def _step(self) -> int:
         if self._t_start is None:
             self._t_start = time.monotonic()
         sentinel = obs_straggler.get_active()
@@ -323,7 +564,12 @@ class InferenceEngine:
     def run(self, deadline_s: Optional[float] = None, until_idle: bool = True,
             max_steps: Optional[int] = None, idle_sleep_s: float = 0.001) -> None:
         """Drive ``step()`` until idle (the default), a deadline or a step
-        budget, whichever comes first."""
+        budget, whichever comes first. A follower replays every record
+        until the leader's ``close()`` (its arguments do not apply)."""
+        if not self.is_leader:
+            while self._replay():
+                pass
+            return
         t0 = time.monotonic()
         steps = 0
         while True:
@@ -380,16 +626,10 @@ class InferenceEngine:
 
     def _prefill_seq(self, req: Request, seq_id: int, prefix: np.ndarray) -> None:
         n = int(prefix.size)
-        tokens = np.zeros((self.ctx_len,), np.int64)
-        tokens[:n] = prefix
         tr = obs_trace._tracer
         t0 = tr.now() if tr is not None else 0
-        logits, k, v = self._prefill(torch.from_numpy(tokens).to(self.device), n)
-        page_ids = torch.as_tensor(self.cache.table_padded(seq_id), dtype=torch.long,
-                                   device=self.device)
-        self._write(k, v, page_ids)
-        del k, v
-        tok = self._pick(logits[0, 0, 0, 0][None].cpu().numpy(), [req])[0]
+        row = self._prefill_program(prefix, np.asarray(self.cache.table_padded(seq_id)))
+        tok = self._pick(row[None], [req])[0]
         if tr is not None:
             tr.complete("serve.prefill", "serve", t0, seq=seq_id, tokens=n)
         stats.record_serve("prefills")
@@ -550,7 +790,9 @@ class InferenceEngine:
 
     def close(self) -> None:
         """Detach the SLA governor from the module registry (tests and
-        processes with several engines)."""
+        processes with several engines); across processes the leader's
+        ``close`` sends STOP, which ends the followers' ``run()``."""
+        self._stop_followers(error=False)
         if sla.get_active() is self.governor:
             sla._set_active(None)
 
@@ -564,15 +806,15 @@ def oracle_generate(engine: InferenceEngine, prompt, max_new_tokens: int,
     ``follow``: a token stream that extends the sequence in place of the
     oracle's own picks (each step's logits are then the oracle's on that
     stream's prefix). ``return_logits``: -> (tokens, each step's (V,)
-    float32 logits) instead of the tokens alone."""
+    float32 logits) instead of the tokens alone. Across processes it runs on
+    the leader, each prefill a PREFILL record that the followers replay."""
+    mlsl_assert(engine.is_leader, "the oracle runs on the serving engine's leader "
+                "(process %d)", engine.leader)
     seq = list(np.asarray(prompt, np.int32).reshape(-1))
     out: List[int] = []
     steps: List[np.ndarray] = []
     for j in range(max_new_tokens):
-        tokens = np.zeros((engine.ctx_len,), np.int64)
-        tokens[:len(seq)] = seq
-        logits, _, _ = engine._prefill(torch.from_numpy(tokens).to(engine.device), len(seq))
-        row = logits[0, 0, 0, 0].cpu().numpy()
+        row = engine._prefill_program(np.asarray(seq, np.int64))
         tok = int(np.argmax(row))
         out.append(tok)
         if return_logits:

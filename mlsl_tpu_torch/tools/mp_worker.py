@@ -54,8 +54,19 @@ The trainers across processes (ROADMAP A.8b.4):
   decoded box held to ``shard_batch``'s local part and each loss to a twin
   fed by ``shard_batch``, both bit for bit.
 
+The serving engine and the restricted world across processes (ROADMAP
+A.8b.4's last piece, A.8b.5):
+
+- ``serve``: InferenceEngine over the boxes, every case of ``SERVE_TINY``
+  (``--size full``: ``SERVE_FULL``, gpt-medium-2k at its widths): the
+  leader's tokens and logits, every rank's KV pools, every process's
+  programs and the tokens each decode step fed, with each program's hops;
+- ``restrict``: ``configure("color=...")`` with each of RESTRICT_COLORS in
+  an Environment of its own, every kind over a (2, 2) grid of the 4 kept
+  ranks; across processes RESTRICT_UNEVEN must raise.
+
 ``graph``, ``resnet`` and ``resnet_int8`` (config 5 on config 4's int8 ring
-in ``RESNET_BUCKET_MB`` buckets) are the card's run (ad), with the four above
+in ``RESNET_BUCKET_MB`` buckets) are the card's run (ad), with the six above
 at ``--size full --feed resnet``. Each closed form is
 checked on the ranks this process holds (within 1e-6 relative for float
 sums, exactly otherwise). The results are written to
@@ -165,6 +176,60 @@ PIPE_FULL = dict(d=1024, d_ff=4096, micro=8, rows=1024)
 PIPE_STAGES = WORLD
 #: phase ``feed``: batches through ``trainer.feed`` on the int8 wire
 FEED_BATCHES = 2
+
+#: phase ``serve`` (the serving engine across processes): a case is (tag, tp,
+#: int8 KV, mode, Config fields). Modes: ``evict`` (two long prompts, two
+#: slots, a pool of one sequence plus one page: the younger is evicted and
+#: resumed), ``shed`` (the leader slowed before every step, so that the
+#: processes' clocks part, and forced to the precision rung after
+#: SERVE_SHED_AT steps), ``transient`` (two TRANSIENT faults at serve.decode,
+#: retried), ``fatal`` (a FATAL one: the leader raises, the followers end
+#: with MLSLError), ``twin`` (checks.decode_twin after two steps, where the
+#: model group lies inside the process). Tiny: tests/test_torch_serve.py's
+#: config (vocab 64, d_model 32, 4 * tp heads of 8, 2 blocks, seq_len 64,
+#: float32); tp = 8 spans both worlds, tp = 4 lies inside a process on 2 x 4,
+#: tp = 2 in both
+SERVE_TINY_CFG = dict(vocab=64, d_model=32, head_dim=8, n_blocks=2, seq_len=64,
+                      dtype="float32")
+SERVE_TINY = (
+    ("tp8_f32", 8, False, "", {}),
+    ("tp8_int8", 8, True, "", {}),
+    ("tp4_f32", 4, False, "", {}),
+    ("tp4_int8", 4, True, "", {}),
+    ("tp2_f32_twin", 2, False, "twin", {}),
+    ("tp2_int8_rhd", 2, True, "", {"pallas_rhd": True}),
+    ("tp8_evict", 8, False, "evict", {}),
+    ("tp8_shed", 8, False, "shed", {}),
+    ("tp8_transient", 8, False, "transient", {"comm_retry_backoff_s": 0.0}),
+    ("tp8_fatal", 8, False, "fatal", {}),
+)
+SERVE_TINY_PROMPTS, SERVE_TINY_NEW, SERVE_TINY_KV_MB = 5, 6, 1
+#: the card's: gpt-medium-2k at its full widths, two blocks, bf16 compute, run
+#: (y)'s first 8 prompts (64-1,024 tokens, seed SERVE_SEED), 16 new tokens, 4
+#: slots: tp = 8 with float32 KV (the model axis spans the two processes) and
+#: the forced shed; tp = 4 with int8 KV on B5 (each process a replica) and
+#: the decode graph's twin. Both name their route, whatever MLSL_ALGO says:
+#: a one-process twin at tp = 8 then sums as the transport does (one
+#: reduction over the members), not on a kernel route
+SERVE_FULL = (
+    ("tp8_f32kv_shed", 8, False, "shed", {"collective_algo": ""}),
+    ("tp4_int8kv_rhd_twin", 4, True, "twin", {"collective_algo": "", "pallas_rhd": True}),
+)
+SERVE_SEED, SERVE_LOAD, SERVE_PROMPT = 0, 240, (64, 1024)   # run (y)'s prompt stream
+SERVE_FULL_PROMPTS, SERVE_FULL_NEW, SERVE_FULL_BATCH = 8, 16, 4
+#: 512 float32 pages of 256 KiB (2 blocks), against 4 slots x 66 pages in flight
+SERVE_FULL_KV_MB = 128
+SERVE_SHED_AT, SERVE_SLOW_S = 3, 0.02
+SERVE_EVICT_NEW = 8
+#: the kinds of a program in ``rep/serve/<case>/programs`` rows
+SERVE_PROGRAMS = {"prefill": 1, "decode": 2, "twin": 3}
+
+#: phase ``restrict``: configure("color=...") restricting the world of 8 to
+#: 4 ranks, each list in an Environment of its own, then every collective
+#: kind over a (2, 2) grid of the restricted world; RESTRICT_UNEVEN keeps 3
+#: ranks, which split over no world of 2 or 4 processes
+RESTRICT_COLORS = ((0, 1, 0, 1, 0, 1, 0, 1), (0, 0, 0, 0, 1, 1, 1, 1))
+RESTRICT_UNEVEN = (0, 0, 0, 1, 1, 1, 1, 1)
 
 
 def rank_fill(p: int, n: int) -> np.ndarray:
@@ -306,6 +371,12 @@ class Worker:
         self.nproc = env.process_count()
         self.own = WORLD // self.nproc
         self.report: dict = {}
+        #: Environment.init's keywords: the restrict phase builds
+        #: Environments of its own over the same world
+        self.init_kw: dict = {}
+        #: phase serve's oracle rule on the leader, (float32 KV bound, int8
+        #: KV bound); None: not run (serve/checks.oracle_rule)
+        self.serve_oracle = None
 
     def save(self, key: str, dist, buf) -> None:
         for p in dist.topology.local_ranks():
@@ -1167,8 +1238,284 @@ class Worker:
             del tr, twin, fed
         self.log(f"proc {self.pid} feed OK")
 
+    # -- the serving engine and the restricted world across processes ------------
+
+    def serve(self, size: str = "tiny", tparams=None, cases=None) -> None:
+        """The serving engine across processes: every case of SERVE_TINY (or
+        SERVE_FULL, ``size="full"``). The leader (global rank 0's process)
+        submits and decides, every other process replays its records. Kept:
+        the leader's tokens and the logits each was picked from, every
+        rank's KV pools, every process's programs (``rep/``). ``tparams``:
+        the weights by tp, ``serve_tp<tp>/layer/leaf`` arrays (the JAX
+        package's init_params), else the port's from SERVE_SEED."""
+        for case in cases or (SERVE_TINY if size == "tiny" else SERVE_FULL):
+            self.serve_case(case, size, tparams)
+        self.log(f"proc {self.pid} serve OK")
+
+    def serve_case(self, case, size: str, tparams) -> None:
+        import torch
+
+        from mlsl_tpu_torch import chaos
+        from mlsl_tpu_torch.comm import transport
+        from mlsl_tpu_torch.core import stats
+        from mlsl_tpu_torch.log import MLSLError
+        from mlsl_tpu_torch.models import transformer as tfm
+        from mlsl_tpu_torch.serve import checks
+        from mlsl_tpu_torch.serve.engine import InferenceEngine
+
+        tag, tp, quant, mode, fields = case
+        env = self.env
+        cfg = (tfm.TransformerConfig(**serve_config(size, tp)) if size == "tiny"
+               else dataclasses.replace(tfm.GPT_MEDIUM_2K, n_blocks=2))
+        params = None
+        if tparams is not None:
+            params = {}
+            for k, v in tparams.items():
+                c, layer, leaf = k.split("/")
+                if c == f"serve_tp{tp}":
+                    params.setdefault(layer, {})[leaf] = v
+        if not params:
+            params = tfm.init_params(torch.Generator().manual_seed(SERVE_SEED), cfg)
+        tiny = size == "tiny"
+        conf = dataclasses.replace(
+            env.config, serve_kv_quant=quant,
+            serve_kv_cache_mb=SERVE_TINY_KV_MB if tiny else SERVE_FULL_KV_MB, **fields)
+        conf.validate()
+        new = SERVE_TINY_NEW if tiny else SERVE_FULL_NEW
+        prompts = serve_prompts(size, cfg.vocab)
+        batch = 2 if mode == "evict" else (None if tiny else SERVE_FULL_BATCH)
+        if mode == "evict":
+            prompts, new = serve_evict_prompts(), SERVE_EVICT_NEW
+        stats.reset_serve_counters()
+        launched = kernel_launches()
+        eng = InferenceEngine(env, cfg, tp=tp, params=params, config=conf, max_batch=batch)
+        key = f"serve/{tag}"
+        rec = {"spanning": eng.spanning, "graphed": eng.graphed, "leader": eng.is_leader,
+               "grid": list(eng.grid)}
+        # each program's hops, by program kind: what crossed a prefill, a decode step
+        hops = {"prefill": [0, {}], "decode": [0, {}]}
+
+        def timed(fn, kind):
+            def run(*a, **kw):
+                before = transport.hop_totals()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    acc = hops[kind]
+                    acc[0] += 1
+                    for k, h in hop_delta(before, transport.hop_totals()).items():
+                        mine = acc[1].setdefault(k, {f: 0 for f in h if f != "dtypes"})
+                        for f in mine:
+                            mine[f] += h[f]
+            return run
+
+        # the tokens every decode step fed, on every process (a follower's
+        # from its records)
+        fed = []
+        run_decode = eng._run_decode
+
+        def feeding(dtype, tokens, positions, pt, rung=0):
+            fed.append(np.array(tokens, np.int64))
+            return run_decode(dtype, tokens, positions, pt, rung)
+
+        eng._run_decode = feeding
+        # the leader's programs with their records, a follower's as it replays
+        if eng.is_leader:
+            eng._prefill_program = timed(eng._prefill_program, "prefill")
+            eng._decode = timed(eng._decode, "decode")
+        else:
+            eng._run_prefill = timed(eng._run_prefill, "prefill")
+            eng._run_decode = timed(eng._run_decode, "decode")
+        sync = (lambda: torch.cuda.synchronize(env.device)) if env.device.type == "cuda" \
+            else (lambda: None)
+        t0 = time.perf_counter()
+        try:
+            if eng.is_leader:
+                probe = self.serve_lead(eng, rec, prompts, new, mode, key)
+            else:
+                try:
+                    eng.submit(prompts[0], new)
+                except MLSLError as e:
+                    rec["submit_refused"] = str(e)
+                try:
+                    eng.run()
+                except MLSLError as e:
+                    rec["stopped_on_error"] = str(e)
+                    if mode != "fatal":
+                        raise
+                rec["twins"] = [{"bit_for_bit": bool(np.array_equal(g, e_)),
+                                 "pools_equal": bool(same)} for g, e_, same in eng.twins]
+                if tiny:
+                    for i, (g, _, _) in enumerate(eng.twins):
+                        self.out[f"{key}/twin_rows/proc{self.pid}/{i}"] = g
+            sync()
+        finally:
+            chaos.clear()
+        rec["s"] = time.perf_counter() - t0
+        if mode == "fatal":
+            assert ("stopped_on_error" in rec) or ("fatal" in rec), (tag, rec)
+        self.out[f"rep/{key}/programs"] = serve_programs(eng)
+        self.out[f"rep/{key}/fed"] = np.asarray(fed, np.int64).reshape(len(fed), -1)
+        rec["program_hops"] = {k: {"programs": v[0], "hops": v[1]} for k, v in hops.items()
+                               if v[0]}
+        reqs = rec.pop("requests", [])
+        if eng.is_leader and self.serve_oracle is not None and mode != "fatal":
+            # after the programs were kept: the oracle's prefills are its own
+            delta = self.serve_oracle[1 if quant else 0]
+            recs = [checks.oracle_rule(eng, r, probe.logits[r.id], delta) for r in reqs]
+            assert all(o["ok"] for o in recs), (key, recs)
+            rec["oracle"] = [{k: v for k, v in o.items() if k != "ok"} for o in recs]
+        for name, t in zip(("kpool", "vpool", "kscale", "vscale"), eng._pools()):
+            self.keep(f"{key}/{name}", eng.dist, t, size)
+        rec["counters"] = {k: v for k, v in stats.SERVE_COUNTERS.items() if v}
+        rec["graphs"] = sorted(eng._decode_cache)
+        now = kernel_launches()
+        rec["launches"] = {k: v - launched.get(k, 0) for k, v in now.items()
+                           if v > launched.get(k, 0)}
+        eng.close()
+        self.report[key] = rec
+        del eng, params
+        if env.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def serve_lead(self, eng, rec, prompts, new, mode, key):
+        """The leader's side of a serving case: submit, drive, keep. -> the
+        probe (the logits each token was picked from)."""
+        from mlsl_tpu_torch import chaos
+        from mlsl_tpu_torch.core import stats
+        from mlsl_tpu_torch.serve import checks, kv_cache
+
+        if mode == "evict":
+            # one sequence plus one page: the two collide on their third page
+            page = kv_cache.PagedKVCache(eng.cfg, page_elems=16, budget_mb=1, max_len=64)
+            mb = (page.max_pages_per_seq + 1) * page.page_bytes / 2 ** 20
+            eng.cache = kv_cache.PagedKVCache(eng.cfg, page_elems=16, budget_mb=mb,
+                                              max_len=64)
+        elif mode == "transient":
+            chaos.plan("serve.decode", "error", exc=OSError, after=2, times=2)
+        elif mode == "fatal":
+            chaos.plan("serve.decode", "error", exc=ValueError, after=3, times=1)
+        probe = checks.Probe(eng)
+        reqs = [eng.submit(p, new) for p in prompts]
+        try:
+            if mode == "shed":
+                steps = 0
+                while True:
+                    time.sleep(SERVE_SLOW_S)        # the leader's clock parts
+                    n = eng.step()
+                    steps += 1
+                    if steps == SERVE_SHED_AT:
+                        eng.governor.force_shed("forced (serve phase)")
+                        eng.governor.force_shed("forced (serve phase)")
+                    if n == 0 and not eng._pending:
+                        break
+            elif mode == "twin":
+                eng.run(max_steps=2)
+                if not eng.spanning:
+                    g, e, same, n_live = checks.decode_twin(eng)
+                    rec["twins"] = [{"bit_for_bit": bool(np.array_equal(g, e)),
+                                     "pools_equal": bool(same), "live": n_live}]
+                    self.out[f"{key}/twin_rows/proc{self.pid}/0"] = g
+                eng.run()
+            else:
+                eng.run()
+        except ValueError as e:
+            if mode != "fatal":
+                raise
+            rec["fatal"] = f"{type(e).__name__}: {e}"
+        for r in reqs:
+            self.out[f"{key}/tokens/{r.id}"] = np.asarray(r.tokens, np.int64)
+            if probe.logits.get(r.id):
+                self.out[f"{key}/logits/{r.id}"] = np.stack(probe.logits[r.id])
+        rec["states"] = [r.state for r in reqs]
+        rec["ttft_ms"] = [r.ttft_ms for r in reqs]
+        rec["step_ms"] = probe.step_ms
+        rec["rung_at_end"] = eng.governor.rung
+        rec["sheds"] = eng.governor.sheds
+        if mode not in ("fatal",):
+            assert all(r.state == "done" for r in reqs), (key, rec["states"])
+            eng.cache.check()
+        if mode == "evict":
+            assert stats.SERVE_COUNTERS["kv_evictions"] >= 1, key
+        if mode == "transient":
+            assert stats.SERVE_COUNTERS["retries"] == 2, key
+        rec["requests"] = reqs
+        return probe
+
+    def restrict(self) -> None:
+        """configure("color=...") restricting the world, each list of
+        RESTRICT_COLORS in an Environment of its own: every collective kind
+        over a (2, 2) grid of the 4-rank world, each local rank's result
+        kept. Across processes RESTRICT_UNEVEN must raise, naming the split."""
+        from mlsl_tpu_torch import get_env, types as T
+        from mlsl_tpu_torch.log import MLSLError
+
+        n = 16
+        rec = {}
+        for colors in RESTRICT_COLORS:
+            tag = "".join(map(str, colors))
+            self.env.finalize()
+            env = self.env = get_env().init(**self.init_kw)
+            if self.nproc > 1:
+                try:
+                    env.configure("color=" + ",".join(map(str, RESTRICT_UNEVEN)))
+                    rec["uneven"] = None
+                except MLSLError as e:
+                    rec["uneven"] = str(e)
+                assert env.get_process_count() == WORLD
+            env.configure("color=" + ",".join(map(str, colors)))
+            kept = sum(1 for c in colors if c == colors[0])
+            assert env.get_process_count() == kept
+            dist = env.create_distribution(2, 2)
+            rec[tag] = {"local_shape": list(dist.topology.local_shape),
+                        "local_ranks": list(dist.topology.local_ranks())}
+            for ktag, start in kind_requests(dist, 2, n, T):
+                buf = dist.make_buffer(lambda p: rank_fill(p, n) - 3500.0, n)
+                self.save(f"restrict/{tag}/{ktag}", dist, env.wait(start(buf)))
+        self.env.finalize()
+        self.env = get_env().init(**self.init_kw)
+        self.report["restrict"] = rec
+        self.log(f"proc {self.pid} restrict OK")
+
 
 PHASES = ("basic", "hierarchy", "gather", "loop", "matrix", "kinds", "train")
+
+
+def serve_config(size: str, tp: int) -> dict:
+    """Phase ``serve``'s model config fields at ``size`` for ``tp``."""
+    if size == "tiny":
+        return dict(SERVE_TINY_CFG, n_heads=4 * tp)
+    return {}
+
+
+def serve_prompts(size: str, vocab: int) -> list:
+    """Phase ``serve``'s prompts: tests/test_torch_serve.py's five (seed 0,
+    3-19 tokens) or run (y)'s first SERVE_FULL_PROMPTS (its stream of
+    SERVE_LOAD lengths in SERVE_PROMPT, from SERVE_SEED)."""
+    if size == "tiny":
+        rng = np.random.default_rng(0)
+        return [rng.integers(1, 64, size=int(rng.integers(3, 20))).astype(np.int32)
+                for _ in range(SERVE_TINY_PROMPTS)]
+    rng = np.random.default_rng(SERVE_SEED)
+    sizes = rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1, size=SERVE_LOAD)
+    return [rng.integers(1, vocab, size=int(k)).astype(np.int32)
+            for k in sizes[:SERVE_FULL_PROMPTS]]
+
+
+def serve_evict_prompts() -> list:
+    """Mode ``evict``'s two prompts (tests/test_torch_serve.py's)."""
+    return [np.arange(1, 31, dtype=np.int32), np.arange(2, 32, dtype=np.int32)]
+
+
+def serve_programs(eng) -> np.ndarray:
+    """The programs an engine ran, (n, 3) int64: kind (SERVE_PROGRAMS),
+    then the prefill's length and whether it wrote, or the decode's dtype
+    index and the ladder's rung."""
+    from mlsl_tpu_torch.serve.engine import _DTYPES
+
+    rows = [(SERVE_PROGRAMS[p[0]], p[1], int(p[2])) if p[0] == "prefill"
+            else (SERVE_PROGRAMS[p[0]], _DTYPES.index(p[1]), p[2]) for p in eng.programs]
+    return np.asarray(rows, np.int64).reshape(-1, 3)
 
 
 def tfm_tokens(vocab: int, seq_len: int, batch: int):
@@ -1289,7 +1636,7 @@ def kernel_launches() -> dict:
 def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
         phases=PHASES, backend=None, log=print, graph=(1024, 4096, 16384),
         resnet=(224, 1000, 64), wires=0, size="tiny", tparams_path=None,
-        feed_model="mlp") -> dict:
+        feed_model="mlp", serve_oracle=None) -> dict:
     """Bring this process into the world (``port`` None: a world of one
     process and no coordinator, the twin a caller holds a world against),
     run ``phases``, write its results. ``graph``: (FM1, FM2, tokens) of the
@@ -1298,19 +1645,22 @@ def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
     elements a rank of the ``wires`` phase's cases at a size (0: the small
     cases); ``size``: the ``hybrid``, ``moe`` and ``pipeline`` phases' cases
     (``tiny`` or ``full``); ``tparams_path``: their starting weights (an npz
-    of ``case/layer/leaf``); ``feed_model``: ``mlp`` or ``resnet``. -> the
-    results (also in ``out_dir/proc<pid>.npz``)."""
+    of ``case/layer/leaf``); ``feed_model``: ``mlp`` or ``resnet``;
+    ``serve_oracle``: the ``serve`` phase's oracle rule bounds on the
+    leader, (float32 KV, int8 KV), or None. -> the results (also in
+    ``out_dir/proc<pid>.npz``)."""
     from mlsl_tpu_torch import get_env
 
-    if port is None:
-        env = get_env().init(device=device, world_size=WORLD)
-    else:
-        env = get_env().init(device=device, world_size=WORLD,
-                             coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
-                             process_id=pid, backend=backend)
+    init_kw = dict(device=device, world_size=WORLD)
+    if port is not None:
+        init_kw.update(coordinator_address=f"127.0.0.1:{port}", num_processes=nproc,
+                       process_id=pid, backend=backend)
+    env = get_env().init(**init_kw)
     assert env.process_count() == nproc and env.process_index() == pid
     out: dict = {}
     w = Worker(env, out, log)
+    w.init_kw = init_kw
+    w.serve_oracle = serve_oracle
     params = None
     if params_path:
         with np.load(params_path) as z:
@@ -1344,7 +1694,7 @@ def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
                 w.graph(*graph)
             elif ph == "wires":
                 w.wires(wires)
-            elif ph in ("hybrid", "moe"):
+            elif ph in ("hybrid", "moe", "serve"):
                 getattr(w, ph)(size, tparams)
             elif ph == "pipeline":
                 w.pipeline(size)
@@ -1363,7 +1713,7 @@ def run(pid: int, nproc: int, port, device, out_dir: str, params_path=None,
                 launches={k: v - launched.get(k, 0) for k, v in now.items()
                           if v > launched.get(k, 0)})
     finally:
-        env.finalize()
+        w.env.finalize()
     w.report["launches"] = kernel_launches()
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, f"proc{pid}.npz"), **out)

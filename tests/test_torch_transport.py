@@ -308,10 +308,21 @@ def test_refusals_on_more_than_one_process(fake_world):
     tr = tfm.HybridTrainer(env, tfm.TransformerConfig(), 8, 1, 1)
     assert tr.dist.data_group.spans and tr.grid == (1, 4, 1, 1)
     assert tr.params["embed"]["tok"].shape[:4] == (1, 4, 1, 1)
+    # A.8b.4's last piece: the serving engine builds over the box, the model
+    # group of tp = 8 spanning the two processes; this process holds global
+    # rank 0 and leads, a follower's submit raises
+    import dataclasses as dc
+
     from mlsl_tpu_torch.serve.engine import InferenceEngine
 
-    with pytest.raises(MLSLError, match="serving.*A.8b"):
-        InferenceEngine(env, tfm.TransformerConfig())
+    scfg = tfm.TransformerConfig()
+    eng = InferenceEngine(env, scfg, tp=8,
+                          config=dc.replace(env.config, serve_kv_cache_mb=1))
+    assert eng.is_leader and eng.spanning and not eng.graphed
+    assert eng.grid == (1, 1, 1, 4) and eng.global_grid == (1, 1, 1, 8)
+    assert eng.params["embed"]["tok"].shape[:4] == (1, 1, 1, 4)
+    assert eng.kpool.shape[:4] == (1, 1, 1, 4)
+    eng.close()     # its STOP finds no group here: logged, not raised
     from mlsl_tpu_torch.data.feed import DeviceFeed
 
     feed = DeviceFeed(lambda i: None, dist.topology)
@@ -323,6 +334,23 @@ def test_refusals_on_more_than_one_process(fake_world):
     ranks, n, span = pipeline._ranks(torch.zeros(1, 4, 1, 1, 2, 1, 4), 1, 8,
                                      group=dist.data_group)
     assert ranks == (1, 4, 1, 1) and n == 4 and (span.off, span.gl, span.g) == (0, 4, 8)
+    # A.8b.5: a color list restricts the world over both processes, K / 2
+    # ranks each; a K that does not split raises, naming the split
+    env.configure("color=0,1,0,1,0,1,0,1")
+    assert env.get_process_count() == 4 and transport.world().world_size == 4
+    rd = env.create_distribution(2, 2)
+    assert rd.topology.grid_shape == (1, 2, 1, 2) and rd.topology.local_shape == (1, 1, 1, 2)
+    with pytest.raises(MLSLError, match="1 ranks of color 0.*2 processes"):
+        env.configure("color=0,1,1,1")
+    assert env.get_process_count() == 4
+    env.finalize()
+    fake_world(2, index=1)
+    env = get_env().init(device="cpu", world_size=8)
+    fol = InferenceEngine(env, scfg, tp=8, config=dc.replace(env.config, serve_kv_cache_mb=1))
+    assert not fol.is_leader and fol.leader == 0
+    with pytest.raises(MLSLError, match="leader, process 0"):
+        fol.submit([1, 2, 3], 2)
+    fol.close()
 
 
 def test_plan_verifier_flags_a_kernel_route_on_a_spanning_group(fake_world):
@@ -418,6 +446,20 @@ def test_no_distributed_call_without_a_coordinator(monkeypatch):
         buf = dist8.make_buffer(lambda p: np.full(512, p + 0.5, np.float32), 512)
         env.wait(dist8.all_reduce(buf, 512, DataType.FLOAT, ReductionType.SUM, GroupType.DATA,
                                   compression=comp))
+    # the serving engine sends no record, and the restricted world relays nothing
+    from mlsl_tpu_torch.models import transformer as tfm
+    from mlsl_tpu_torch.serve.engine import InferenceEngine
+
+    cfg = tfm.TransformerConfig(vocab=64, d_model=32, n_heads=4, head_dim=8, n_blocks=1,
+                                seq_len=64, dtype="float32")
+    eng = InferenceEngine(env, cfg, tp=2, config=dataclasses.replace(env.config,
+                                                                      serve_kv_cache_mb=1))
+    req = eng.submit([1, 2, 3], 3)
+    eng.run()
+    assert len(req.result(timeout=5)) == 3 and eng.is_leader and eng.nproc == 1
+    eng.close()
+    env.configure("color=0,1,0,1,0,1,0,1")
+    assert env.get_process_count() == 4 and transport.world().world_size == 8
     assert not transport.world().up
 
 
